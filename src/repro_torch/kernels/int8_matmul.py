@@ -1,0 +1,198 @@
+"""s8 x s8 -> s32 matmuls with the fused deployment epilogue (paper eq. 3-5).
+
+Two functions, each as a Hopper kernel (``*_cuda``, ``csrc/int8_matmul.cu``)
+and a plain PyTorch version (``*_plain``) that repeats the kernel's
+arithmetic — integer products as an exact float64 matmul cast to int32,
+one int32 partial per PEG group, and the same float order in the
+epilogue:
+
+* ``int8_matmul`` (port of ``repro.kernels.int8_matmul.int8_matmul``):
+  ``f = (f32(A @ W) - z_a * colsum) * (s_a * s_w)``;
+* ``int8_matmul_peg`` (port of ``...int8_matmul_peg``): for each group g of
+  K/G contiguous columns, ``acc += s_g * (f32(A_g @ W_g) - z_g * colsum_g)``
+  in group order, then ``f = acc * s_w``.
+
+Both then run the shared epilogue: ``+ bias`` -> activation -> ``* mul`` ->
+optional int8 requant ``clip(rint(f / s_out) + z_out, qmin, qmax)``.
+``a_q`` is ``(M, K)`` int8, ``w_q`` ``(K, N)`` int8; every scale and
+zero-point is a runtime tensor (or number), never a compile-time constant.
+4-bit weight payloads (``w_bits=4``) are not yet ported.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _args, _build
+
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+def _gelu(x):
+    # jax.nn.gelu(approximate=True), operation for operation
+    return x * (0.5 * (1.0 + torch.tanh(_SQRT_2_OVER_PI *
+                                        (x + 0.044715 * (x * x * x)))))
+
+
+def _silu(x):
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+# Epilogue activations: identity plus the model table (models.common
+# re-exports these so the simulate and deploy paths share one definition).
+EPILOGUE_ACTS = {"none": lambda x: x, "gelu": _gelu, "silu": _silu,
+                 "relu": torch.relu}
+_ACT_CODE = {"none": 0, "gelu": 1, "silu": 2, "relu": 3}
+
+
+def _not_ported_w4(w_bits):
+    if w_bits != 8:
+        raise NotImplementedError(
+            f"int8 matmul with w_bits={w_bits}: 4-bit weight payloads are "
+            "not yet ported")
+
+
+def _scalar(v, device):
+    return torch.as_tensor(v, dtype=torch.float32, device=device).reshape(())
+
+
+def epilogue(f, *, bias=None, activation="none", mul=None, out_scale=None,
+             out_zp=None, qmin=-128, qmax=127):
+    """The fused epilogue's float order: bias -> act -> mul -> requant."""
+    if bias is not None:
+        f = f + bias.float()[None, :]
+    f = EPILOGUE_ACTS[activation](f)
+    if mul is not None:
+        f = f * mul.float()
+    if out_scale is not None:
+        zp = 0.0 if out_zp is None else _scalar(out_zp, f.device)
+        q = torch.round(f / _scalar(out_scale, f.device)) + zp
+        return torch.clamp(q, qmin, qmax).to(torch.int8)
+    return f
+
+
+def _int_matmul(a_q, w_q):
+    """Exact int32 A @ W (every partial sum is an integer below 2^53)."""
+    return (a_q.double() @ w_q.double()).to(torch.int32)
+
+
+def int8_matmul_plain(a_q, w_q, s_a, s_w, *, z_a=None, w_colsum=None,
+                      bias=None, mul=None, activation="none", out_scale=None,
+                      out_zp=None, qmin=-128, qmax=127, w_bits=8):
+    _not_ported_w4(w_bits)
+    dev = a_q.device
+    s_prod = _scalar(s_a, dev) * _scalar(s_w, dev)
+    acc = _int_matmul(a_q, w_q).float()
+    if w_colsum is not None:
+        za = _scalar(0.0 if z_a is None else z_a, dev)
+        acc = acc - za * w_colsum.reshape(-1).float()[None, :]
+    return epilogue(acc * s_prod, bias=bias, activation=activation, mul=mul,
+                    out_scale=out_scale, out_zp=out_zp, qmin=qmin, qmax=qmax)
+
+
+def int8_matmul_peg_plain(a_q, w_q, act_scales, act_zps, w_scale, w_colsum,
+                          *, bias=None, mul=None, activation="none",
+                          out_scale=None, out_zp=None, qmin=-128, qmax=127,
+                          w_bits=8):
+    _not_ported_w4(w_bits)
+    dev = a_q.device
+    k = a_q.shape[1]
+    s = _args.f32(act_scales, dev)
+    z = _args.f32(act_zps, dev)
+    g = s.numel()
+    gs = k // g
+    acc = torch.zeros((a_q.shape[0], w_q.shape[1]), dtype=torch.float32,
+                      device=dev)
+    for i in range(g):
+        part = _int_matmul(a_q[:, i * gs:(i + 1) * gs],
+                           w_q[i * gs:(i + 1) * gs]).float()
+        acc = acc + s[i] * (part - z[i] * w_colsum[i].float()[None, :])
+    return epilogue(acc * _scalar(w_scale, dev), bias=bias,
+                    activation=activation, mul=mul, out_scale=out_scale,
+                    out_zp=out_zp, qmin=qmin, qmax=qmax)
+
+
+def _launch(a_q, w_q, colsum, a_scales, a_zps, w_scale, *, bias, mul,
+            activation, out_scale, out_zp, qmin, qmax, peg):
+    if a_q.dim() != 2 or w_q.dim() != 2 or a_q.dtype != torch.int8 \
+            or w_q.dtype != torch.int8:
+        raise ValueError("int8 matmul: a_q (M, K) and w_q (K, N) must be "
+                         "int8 matrices")
+    m, k = a_q.shape
+    k2, n = w_q.shape
+    if k != k2:
+        raise ValueError(f"int8 matmul: K mismatch {k} vs {k2}")
+    if activation not in _ACT_CODE:
+        raise ValueError(f"unknown epilogue activation {activation!r}")
+    _args.on_cuda(a_q, w_q, colsum, bias, mul)
+    dev = a_q.device
+    a_q, w_q = a_q.contiguous(), w_q.contiguous()
+    g = a_scales.numel()
+    if k % g:
+        raise ValueError(f"int8 matmul: {g} groups do not divide K={k}")
+    if colsum is not None:
+        colsum = colsum.to(torch.int32).contiguous()
+        if colsum.numel() != g * n:
+            raise ValueError(f"int8 matmul: colsum has {colsum.numel()} "
+                             f"values, expected {g}x{n}")
+    if bias is not None:
+        bias = _args.f32(bias, dev, n, "bias")
+    if mul is not None:
+        if tuple(mul.shape) != (m, n):
+            raise ValueError(f"int8 matmul: mul must be ({m}, {n}), got "
+                             f"{tuple(mul.shape)}")
+        mul = mul.float().contiguous()
+    requant = out_scale is not None
+    s_o = _args.f32(out_scale, dev, 1, "out_scale") if requant else None
+    z_o = (_args.f32(0.0 if out_zp is None else out_zp, dev, 1, "out_zp")
+           if requant else None)
+    out = torch.empty((m, n), dtype=torch.int8 if requant else torch.float32,
+                      device=dev)
+    vec_a = int(k % 16 == 0 and (k // g) % 16 == 0
+                and a_q.data_ptr() % 16 == 0)
+    vec_w = int(n % 8 == 0 and w_q.data_ptr() % 8 == 0)
+    _build.check(_build.lib("int8_matmul").int8_matmul(
+        a_q.data_ptr(), w_q.data_ptr(), _args.ptr(colsum),
+        a_scales.data_ptr(), _args.ptr(a_zps), w_scale.data_ptr(),
+        _args.ptr(bias), _args.ptr(mul), _args.ptr(s_o), _args.ptr(z_o),
+        out.data_ptr(), m, n, k, g, int(peg), _ACT_CODE[activation], qmin,
+        qmax, vec_a, vec_w, _args.stream()),
+        "int8_matmul_peg" if peg else "int8_matmul")
+    return out
+
+
+def int8_matmul_cuda(a_q, w_q, s_a, s_w, *, z_a=None, w_colsum=None,
+                     bias=None, mul=None, activation="none", out_scale=None,
+                     out_zp=None, qmin=-128, qmax=127, w_bits=8):
+    _not_ported_w4(w_bits)
+    dev = a_q.device
+    if z_a is not None and w_colsum is None:
+        raise ValueError("int8_matmul: z_a requires w_colsum")
+    out = _launch(a_q, w_q, w_colsum, _args.f32(s_a, dev, 1, "s_a"),
+                  None if z_a is None else _args.f32(z_a, dev, 1, "z_a"),
+                  _args.f32(s_w, dev, 1, "s_w"), bias=bias, mul=mul,
+                  activation=activation, out_scale=out_scale, out_zp=out_zp,
+                  qmin=qmin, qmax=qmax, peg=False)
+    int8_matmul_cuda.launches += 1
+    return out
+
+
+def int8_matmul_peg_cuda(a_q, w_q, act_scales, act_zps, w_scale, w_colsum,
+                         *, bias=None, mul=None, activation="none",
+                         out_scale=None, out_zp=None, qmin=-128, qmax=127,
+                         w_bits=8):
+    _not_ported_w4(w_bits)
+    dev = a_q.device
+    s = _args.f32(act_scales, dev, what="act_scales")
+    out = _launch(a_q, w_q, w_colsum, s,
+                  _args.f32(act_zps, dev, s.numel(), "act_zps"),
+                  _args.f32(w_scale, dev, 1, "w_scale"), bias=bias, mul=mul,
+                  activation=activation, out_scale=out_scale, out_zp=out_zp,
+                  qmin=qmin, qmax=qmax, peg=True)
+    int8_matmul_peg_cuda.launches += 1
+    return out
+
+
+int8_matmul_cuda.launches = 0
+int8_matmul_peg_cuda.launches = 0
