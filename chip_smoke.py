@@ -10,10 +10,12 @@ Phases (any failure ends the run with a non-zero exit before the last line):
 1. build   — compile every CUDA kernel from ``src/repro_torch/csrc``.
 2. kernels — hold each kernel against its plain PyTorch version on the card
              at the full-width gemma2-2b shapes of the serving path (B=4,
-             T=16), with the tolerances of the CPU parity tests, and time
-             kernel, plain version and, where one exists, a PyTorch library
-             call computing the same function (CUDA events, L2 flushed
-             before every launch).
+             T=16; attention decode B=4, 4 KV heads x 2, head_dim 256, S =
+             128 and the 4096-cell local window) and at the reduced shapes,
+             with the tolerances of the CPU parity tests, and time kernel,
+             plain version and, where one exists, a PyTorch library call
+             computing the same function (CUDA events, L2 flushed before
+             every launch).
 3. full    — serve gemma2-2b at full width (26 layers, d 2304, bf16) through
              ``repro_torch.launch.serve.main`` with W8A8 PTQ + the integer
              deploy path, static scheduler; the K1/K3/K4 launch counters
@@ -22,11 +24,25 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              move, including ``int8_matmul_peg``, which the full-width run
              does not reach (its FFN groups are not uniform, so that FFN
              serves on the fake-quant path).
+5. full quickstart — full width with the README quickstart's serving flags
+             (int8 paged KV cache, continuous batching, chunked prefill,
+             block size 16, max_len 128): K1/K3/K4 and the attention
+             kernels K5 (the ``[kv-int8]`` check) and K6 (every decode)
+             must move.
+6. reduced quickstart — exactly the README command with ``--parity``:
+             K1-K6 must move, ``[kv-int8]`` <= 1e-4, the three parity lines
+             must print and the serve line must show the reference's
+             counts (36 tokens, 10 decode steps, 6 prefills, blocks 16/32,
+             6 chunk steps).
+7. reduced paged kv16 — the same command with ``--kv-bits 16``: K7 must
+             move and the parity lines must print.
 
-In both serving phases every request must get its tokens. The reduced run's
-integer-path logits must match the fake-quant path they replace within 1e-4
-of max|logits| (the launcher's ``[deploy-int8]`` line); the full-width gap
-is printed only, since there the fake-quant path computes in bf16.
+In every serving phase every request must get its tokens. The reduced
+runs' integer-path logits must match the fake-quant path they replace
+within 1e-4 of max|logits| (the launcher's ``[deploy-int8]`` line); the
+full-width gaps are printed only, since there the fake-quant path computes
+in bf16 (and the bf16 KV cache of the ``[kv-int8]`` reference rounds K/V
+that the int8 cache stores on the calibrated grid exactly).
 
 Prints the card (``nvidia-smi`` name and power limit), one JSON line with
 every kernel's numbers, and as the last line
@@ -54,14 +70,26 @@ PEAK_INT8_OPS_PER_S = 1979e12   # H100 SXM dense int8 tensor-core rate
 PEAK_F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 D, FF, Q_OUT, KV_OUT = 2304, 9216, 2048, 1024   # gemma2-2b widths
 B, T = 4, 16
+ATT_KV, ATT_G, ATT_HD, LOCAL_WINDOW = 4, 2, 256, 4096   # gemma2-2b attention
 SOURCE = {"rms_quantize": "src/repro_torch/csrc/norm_quant.cu",
           "peg_quantize": "src/repro_torch/csrc/peg_quant.cu",
           "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
-          "int8_matmul_peg": "src/repro_torch/csrc/int8_matmul.cu"}
+          "int8_matmul_peg": "src/repro_torch/csrc/int8_matmul.cu",
+          "int8_attend_decode": "src/repro_torch/csrc/int8_attend_decode.cu",
+          "paged_int8_attend_decode":
+              "src/repro_torch/csrc/paged_attend_decode.cu",
+          "paged_attend_decode":
+              "src/repro_torch/csrc/paged_attend_decode.cu"}
 REPLACES = {"rms_quantize": "src/repro/kernels/fused_ln_quant.py:111",
             "peg_quantize": "src/repro/kernels/peg_quant.py:67",
             "int8_matmul": "src/repro/kernels/int8_matmul.py:121",
-            "int8_matmul_peg": "src/repro/kernels/int8_matmul.py:245"}
+            "int8_matmul_peg": "src/repro/kernels/int8_matmul.py:245",
+            "int8_attend_decode":
+                "src/repro/kernels/int8_attend_decode.py:168",
+            "paged_int8_attend_decode":
+                "src/repro/kernels/paged_attend_decode.py:270",
+            "paged_attend_decode":
+                "src/repro/kernels/paged_attend_decode.py:230"}
 
 
 class SmokeFailure(RuntimeError):
@@ -74,8 +102,13 @@ def require(cond, msg):
 
 
 def bound_ms(nbytes, ops, ops_rate):
+    """The larger of bytes / HBM rate and operations / peak rate (ms), and
+    which of the two it is. ``ops`` / ``ops_rate`` may be sequences of
+    operation counts with their rates (int8 products beside f32 ones)."""
+    if not isinstance(ops, (list, tuple)):
+        ops, ops_rate = (ops,), (ops_rate,)
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = ops / ops_rate
+    t_ops = sum(o / r for o, r in zip(ops, ops_rate))
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -256,17 +289,224 @@ def kernel_phase():
                        err, ms, p_ms, None, nbytes, 2 * m * FF * D,
                        PEAK_INT8_OPS_PER_S,
                        m == B * T and g == 4 and not requant)
+    attend_cases(gen, flush, record)
     return records
+
+
+SITES = {"no sites": {},
+         "softmax_in + zero-points": dict(sm_quant=(0.05, 128.0)),
+         "two-pass softmax_out + zero-points": dict(
+             sm_quant=(0.05, 128.0), smo_quant=(1 / 255, 0.0))}
+
+
+def attend_check(got, want, smo_step, v_absmax):
+    """Kernel vs plain version: within 1e-5 of max|out|; with a
+    softmax_out site at most 0.1 % of the rows may differ more (a
+    probability on a grid tie lands one step away), each by at most one
+    softmax_out step x max|v|. Returns max |got - want|."""
+    import torch
+    err = (got - want).abs()
+    tol = 1e-5 * float(want.abs().max())
+    worst = float(err.max())
+    if smo_step is None:
+        require(worst <= tol, f"max err {worst} > {tol}")
+    else:
+        rows = err.amax(dim=-1)
+        off = int((rows > tol).sum())
+        require(off <= 1e-3 * rows.numel(),
+                f"{off} of {rows.numel()} rows off by more than {tol}")
+        require(worst <= smo_step * v_absmax * (1 + 1e-5),
+                f"max err {worst} > one softmax_out step x max|v|")
+    require(bool(torch.isfinite(got).all()), "non-finite output")
+    return worst
+
+
+def attend_cases(gen, flush, record):
+    """K5-K7 at the full-width decode shapes (B 4, 4 KV heads x G 2,
+    head_dim 256; S = max_len 128 and the 4096-cell local window; paged
+    with block size 16) and the reduced ones (2 KV heads, head_dim 16,
+    ring s_cap 16), each without sites, with softmax_in and zero-points and
+    with the two-pass softmax_out, all with softcap 50 and a window. The
+    bound counts what the inputs need: the payload and scales of the
+    cells that are valid for some query (read once), positions or the
+    block table, the queries, the output."""
+    import torch
+    from repro_torch.kernels import int8_attend_decode as iad
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attend_decode as pad
+    from repro_torch.kernels.ref import decode_valid, paged_positions_ref
+    dev = torch.device("cuda")
+
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def ru(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    def site_kw(name):
+        kw = dict(sm_quant=None, sm_qmin=0, sm_qmax=255, smo_quant=None,
+                  smo_qmin=0, smo_qmax=255)
+        for k, v in SITES[name].items():
+            kw[k] = torch.tensor(v, device=dev)
+        return kw
+
+    def measure(name, case, fn_cuda, fn_plain, args, kw, valid, kv, g, hd,
+                payload_bytes, meta_bytes, q_bytes, v_absmax, quant,
+                representative):
+        b = valid.shape[0]
+        got = fn_cuda(*args, **kw)
+        want = fn_plain(*args, **kw)
+        torch.cuda.synchronize()
+        smo = kw.get("smo_quant")
+        err = attend_check(got, want, None if smo is None else
+                           float(smo[0]), v_absmax)
+        ms = time_ms(lambda: fn_cuda(*args, **kw), flush)
+        p_ms = time_ms(lambda: fn_plain(*args, **kw), flush)
+        # cells valid for the lane's query need their payload and scales
+        n_valid = int(valid.sum())
+        nbytes = (n_valid * kv * payload_bytes + meta_bytes + q_bytes
+                  + b * kv * g * hd * 4)
+        macs = n_valid * kv * g * hd
+        record(name, case, err, ms, p_ms, None, nbytes,
+               [2 * macs, 2 * macs],
+               [PEAK_INT8_OPS_PER_S if quant else PEAK_F32_OPS_PER_S,
+                PEAK_F32_OPS_PER_S], representative)
+
+    full = (4, ATT_KV, ATT_G, ATT_HD)
+    reduced = (4, 2, 2, 16)
+    # K5: dense int8 cache
+    for (b, kv, g, hd), s_len, window in (
+            (full, 128, 64), (full, LOCAL_WINDOW, LOCAL_WINDOW // 2),
+            (reduced, 64, 16), (reduced, 16, 16)):
+        for site in SITES:
+            zp = site != "no sites"
+            q_q = ri(b, kv, g, hd)
+            q_s = ru(0.01, 0.03, b, kv, g) / 16
+            zq = torch.round(ru(-20, 20, b, kv, g)) if zp else \
+                torch.zeros(b, kv, g, device=dev)
+            zk, zv = ((torch.round(ru(-20, 20, b, kv)) if zp else
+                       torch.zeros(b, kv, device=dev)) for _ in range(2))
+            k_q, v_q = ri(b, s_len, kv, hd), ri(b, s_len, kv, hd)
+            k_s, v_s = ru(0.01, 0.05, b, s_len, kv), ru(0.01, 0.05, b,
+                                                       s_len, kv)
+            k_pos = torch.arange(s_len, device=dev,
+                                 dtype=torch.int32).repeat(b, 1)
+            q_pos = torch.full((b,), s_len - 1, device=dev,
+                               dtype=torch.int32)
+            if s_len == 16:   # a ring that wrapped: slot j holds 8..23
+                k_pos = torch.where(k_pos < 8, k_pos + 16, k_pos)
+                q_pos = q_pos + 8
+            kw = dict(window=window, logit_softcap=50.0, **site_kw(site))
+            valid = decode_valid(k_pos, q_pos, window)
+            v_abs = float((v_q.float().abs().max() + zv.abs().max())
+                          * v_s.max())
+            measure("int8_attend_decode",
+                    f"B{b} KV{kv}xG{g} hd{hd} S{s_len} w{window}, {site}",
+                    iad.int8_attend_decode_cuda, iad.int8_attend_decode_plain,
+                    (q_q, q_s, zq, zk, zv, k_q, k_s, v_q, v_s, k_pos, q_pos),
+                    kw, valid, kv, g, hd, 2 * hd + 8, b * s_len * 4 + b * 4,
+                    b * kv * g * (hd + 8) + b * kv * 8, v_abs, True,
+                    s_len == 128 and site.startswith("two-pass"))
+    # an idle lane and an empty-prefix lane at the full width
+    b, kv, g, hd = full
+    k_pos = torch.arange(128, device=dev, dtype=torch.int32).repeat(b, 1)
+    k_pos[1, :40] = -1
+    q_pos = torch.tensor([127, 127, 60, -1], device=dev, dtype=torch.int32)
+    args = (ri(b, kv, g, hd), ru(0.01, 0.03, b, kv, g) / 16,
+            torch.zeros(b, kv, g, device=dev), torch.zeros(b, kv, device=dev),
+            torch.zeros(b, kv, device=dev), ri(b, 128, kv, hd),
+            ru(0.01, 0.05, b, 128, kv), ri(b, 128, kv, hd),
+            ru(0.01, 0.05, b, 128, kv), k_pos, q_pos)
+    kw = dict(window=None, logit_softcap=50.0, **site_kw("no sites"))
+    measure("int8_attend_decode", "idle lane + empty prefix, S128",
+            iad.int8_attend_decode_cuda, iad.int8_attend_decode_plain, args,
+            kw, decode_valid(k_pos, q_pos, None), kv, g, hd, 2 * hd + 8,
+            b * 128 * 4 + b * 4, b * kv * g * (hd + 8) + b * kv * 8, 1.0,
+            True, False)
+
+    # K6 / K7: paged arenas through a block table
+    for (b, kv, g, hd), bs, s_cap, nb, window in (
+            (full, 16, 128, 8, 64), (full, 16, LOCAL_WINDOW, 256,
+                                     LOCAL_WINDOW // 2),
+            (reduced, 8, 64, 8, None), (reduced, 8, 16, 8, 16)):
+        n_blocks = b * nb + 5
+        for holes in (False, True):
+            table = torch.randperm(n_blocks, generator=gen, device=dev)[
+                :b * nb].reshape(b, nb).to(torch.int32)
+            q_pos = torch.full((b,), s_cap - 1, device=dev,
+                               dtype=torch.int32)
+            if s_cap == 16:
+                q_pos = q_pos + 9                  # the ring wrapped
+            if holes:            # unmapped tails, a short lane, an idle one
+                table[0, nb // 2:] = -1
+                table[1, 1:] = -1
+                q_pos[1] = min(int(q_pos[1]), bs - 1)
+                q_pos[3] = -1
+            cols = ops._lane_blocks(table, s_cap, bs).contiguous()
+            valid = decode_valid(paged_positions_ref(
+                cols, q_pos, s_cap=s_cap, block_size=bs), q_pos, window)
+            meta = cols.numel() * 4 + b * 4
+            for site in (SITES if not holes else ("two-pass softmax_out + "
+                                                  "zero-points",)):
+                zp = site != "no sites"
+                kwq = dict(s_cap=s_cap, window=window, logit_softcap=50.0,
+                           **site_kw(site))
+                k_a, v_a = ri(n_blocks, bs, kv, hd), ri(n_blocks, bs, kv, hd)
+                k_s, v_s = ru(0.01, 0.05, n_blocks, bs, kv), ru(
+                    0.01, 0.05, n_blocks, bs, kv)
+                zk, zv = ((torch.round(ru(-20, 20, b, kv)) if zp else
+                           torch.zeros(b, kv, device=dev)) for _ in range(2))
+                zq = torch.round(ru(-20, 20, b, kv, g)) if zp else \
+                    torch.zeros(b, kv, g, device=dev)
+                q_q = ri(b, kv, g, hd)
+                v_abs = float((v_a.float().abs().max() + zv.abs().max())
+                              * v_s.max())
+                shape = (f"B{b} KV{kv}xG{g} hd{hd} bs{bs} s_cap{s_cap} "
+                         f"w{window}{' holes+idle' if holes else ''}")
+                measure("paged_int8_attend_decode", f"{shape}, {site}",
+                        pad.paged_int8_attend_decode_cuda,
+                        pad.paged_int8_attend_decode_plain,
+                        (q_q, ru(0.01, 0.03, b, kv, g) / 16, zq, zk, zv, k_a,
+                         k_s, v_a, v_s, cols, q_pos), kwq, valid, kv, g, hd,
+                        2 * hd + 8, meta,
+                        b * kv * g * (hd + 8) + b * kv * 8, v_abs, True,
+                        s_cap == 128 and not holes
+                        and site.startswith("two-pass"))
+                # K7 serves bf16 arenas at full width, f32 at reduced
+                fdt = torch.bfloat16 if hd == ATT_HD else torch.float32
+                qf = torch.randn(b, kv, g, hd, generator=gen, device=dev) \
+                    * 0.3 / hd ** 0.5
+                kf = torch.randn(n_blocks, bs, kv, hd, generator=gen,
+                                 device=dev).to(fdt)
+                vf = torch.randn(n_blocks, bs, kv, hd, generator=gen,
+                                 device=dev).to(fdt)
+                el = 2 if fdt == torch.bfloat16 else 4
+                measure("paged_attend_decode",
+                        f"{shape} {str(fdt)[6:]}, "
+                        f"{site.replace(' + zero-points', '')}",
+                        pad.paged_attend_decode_cuda,
+                        pad.paged_attend_decode_plain,
+                        (qf, kf, vf, cols, q_pos), kwq, valid, kv, g, hd,
+                        2 * hd * el, meta, b * kv * g * hd * 4,
+                        float(vf.float().abs().max()), False,
+                        s_cap == 128 and not holes
+                        and site.startswith("two-pass"))
 
 
 def _counters():
     from repro_torch.kernels import fused_ln_quant as lnq
+    from repro_torch.kernels import int8_attend_decode as iad
     from repro_torch.kernels import int8_matmul as imm
+    from repro_torch.kernels import paged_attend_decode as pad
     from repro_torch.kernels import peg_quant as pq
     return {"rms_quantize": lnq.rms_quantize_cuda,
             "peg_quantize": pq.peg_quantize_cuda,
             "int8_matmul": imm.int8_matmul_cuda,
-            "int8_matmul_peg": imm.int8_matmul_peg_cuda}
+            "int8_matmul_peg": imm.int8_matmul_peg_cuda,
+            "int8_attend_decode": iad.int8_attend_decode_cuda,
+            "paged_int8_attend_decode": pad.paged_int8_attend_decode_cuda,
+            "paged_attend_decode": pad.paged_attend_decode_cuda}
 
 
 def _timed_decode_steps(orig, report, profile_call=3):
@@ -345,8 +585,8 @@ def _print_profile(tag, report):
 def serve_phase(tag, argv, must_launch):
     """Drive ``repro_torch.launch.serve.main`` once with every launch count
     set to 0 just before and read just after; returns (counts, rel diff of
-    the integer path vs fake-quant, stats). Decode steps are timed and one
-    is profiled (see _timed_decode_steps)."""
+    the integer path vs fake-quant, stats, the launcher's output). Decode
+    steps are timed and one is profiled (see _timed_decode_steps)."""
     import torch
     from repro_torch.launch import serve
     from torch.profiler import ProfilerActivity, profile
@@ -384,7 +624,18 @@ def serve_phase(tag, argv, must_launch):
     require(stats.tokens_generated == requests * new_tokens,
             f"{tag}: {stats.tokens_generated} tokens generated, expected "
             f"{requests * new_tokens}")
-    return counts, rel, stats
+    return counts, rel, stats, out.getvalue()
+
+
+def kv_int8_gap(tag, out):
+    m = re.search(r"\[kv-int8\] .*: (\S+)%", out)
+    require(m is not None, f"{tag}: no [kv-int8] line")
+    return float(m.group(1)) / 100
+
+
+def require_parity(tag, out, n):
+    oks = re.findall(r"^\[parity\] OK", out, re.M)
+    require(len(oks) == n, f"{tag}: {len(oks)} of {n} [parity] OK lines")
 
 
 def main() -> int:
@@ -407,26 +658,81 @@ def main() -> int:
 
     serve_argv = ["--arch", "gemma2-2b", "--quantize", "--deploy-int8",
                   "--scheduler", "static", "--kv-bits", "16"]
-    full, full_rel, _ = serve_phase(
+    launches = {name: 0 for name in SOURCE}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] += n
+        torch.cuda.empty_cache()
+
+    full, full_rel, _, _ = serve_phase(
         "full", serve_argv + ["--requests", "4", "--prompt-len", "16",
                               "--new-tokens", "8", "--batch-slots", "4",
                               "--max-len", "128"],
         ("rms_quantize", "int8_matmul", "peg_quantize"))
-    torch.cuda.empty_cache()
-    reduced, red_rel, _ = serve_phase(
+    add(full)
+    reduced, red_rel, _, _ = serve_phase(
         "reduced", serve_argv + ["--reduced", "--requests", "6",
                                  "--prompt-len", "24", "--new-tokens", "6",
                                  "--batch-slots", "4", "--max-len", "64"],
-        tuple(SOURCE))
+        ("rms_quantize", "peg_quantize", "int8_matmul", "int8_matmul_peg"))
+    add(reduced)
+
+    # The README quickstart's serving flags. At full width without
+    # --parity: the full-width FFN serves fake-quant in bf16 through
+    # torch.matmul, whose rounding may change with the number of rows, so
+    # two schedulers that batch the same request differently need not emit
+    # the same greedy tokens there.
+    def quick(kv_bits, *extra):
+        return ["--arch", "gemma2-2b", "--quantize", "--deploy-int8",
+                "--kv-bits", kv_bits, "--scheduler", "continuous",
+                "--paged-kv", "--prefill-chunk", "8", "--requests", "6",
+                "--prompt-len", "24", "--new-tokens", "6", "--batch-slots",
+                "4", *extra]
+    reduced_quick = ("--reduced", "--block-size", "8", "--max-len", "64",
+                     "--parity")
+    fq, fq_rel, _, fq_out = serve_phase(
+        "full-quickstart", quick("8", "--block-size", "16", "--max-len",
+                                 "128"),
+        ("rms_quantize", "int8_matmul", "peg_quantize", "int8_attend_decode",
+         "paged_int8_attend_decode"))
+    add(fq)
+    fq_kv = kv_int8_gap("full-quickstart", fq_out)
+    rq, rq_rel, rq_stats, rq_out = serve_phase(
+        "reduced-quickstart", quick("8", *reduced_quick),
+        ("rms_quantize", "peg_quantize", "int8_matmul", "int8_matmul_peg",
+         "int8_attend_decode", "paged_int8_attend_decode"))
+    add(rq)
+    rq_kv = kv_int8_gap("reduced-quickstart", rq_out)
+    require(rq_kv <= 1e-4, f"reduced-quickstart: [kv-int8] gap "
+            f"{rq_kv:.4%} > 1e-4")
+    require_parity("reduced-quickstart", rq_out, 3)
+    counts = (rq_stats.tokens_generated, rq_stats.decode_steps,
+              rq_stats.prefill_calls, rq_stats.blocks_in_use,
+              rq_stats.chunk_steps)
+    require(counts == (36, 10, 6, 16, 6) and "blocks 16/32" in rq_out,
+            f"reduced-quickstart: serve counts {counts} are not the "
+            f"reference's (36, 10, 6, 16, 6)")
+    r16, r16_rel, _, r16_out = serve_phase(
+        "reduced-paged-kv16", quick("16", *reduced_quick),
+        ("paged_attend_decode",))
+    add(r16)
+    require_parity("reduced-paged-kv16", r16_out, 3)
     # The reduced run holds the integer path to the fake-quant path it
     # replaces. At full width the fake-quant path runs in bf16 (bf16 params:
     # fake-quantized values are rounded to bf16 and the matmuls emit bf16)
     # while the integer path accumulates exactly and emits f32, so there the
     # gap is printed, not bounded.
     print(f"[full] integer vs fake-quant (bf16) logits: rel {full_rel:.4%}")
-    require(red_rel <= 1e-4, f"reduced: integer path differs from "
-            f"fake-quant by {red_rel:.4%} of max|logits|")
-    print(f"[reduced] integer vs fake-quant logits: rel {red_rel:.4%} "
+    print(f"[full-quickstart] integer vs fake-quant (bf16) logits: rel "
+          f"{fq_rel:.4%}; int8 vs bf16 KV cache: rel {fq_kv:.4%}")
+    for tag, rel in (("reduced", red_rel), ("reduced-quickstart", rq_rel),
+                     ("reduced-paged-kv16", r16_rel)):
+        require(rel <= 1e-4, f"{tag}: integer path differs from "
+                f"fake-quant by {rel:.4%} of max|logits|")
+        print(f"[{tag}] integer vs fake-quant logits: rel {rel:.4%} "
+              f"(bound 1e-4)")
+    print(f"[reduced-quickstart] int8 vs f32 KV cache: rel {rq_kv:.4%} "
           f"(bound 1e-4)")
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
@@ -436,7 +742,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name],
-            "launches": full[name] + reduced[name],
+            "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})

@@ -1,4 +1,5 @@
-"""Carry weights and calibrations across from the reference package.
+"""Carry weights, calibrations and KV caches across from the reference
+package.
 
 The reference's ``jax.random`` initialization cannot be reproduced with
 ``torch.Generator``, so parity tests build the reference's params, turn them
@@ -14,6 +15,12 @@ import torch
 
 from repro_torch.core.quantizer import QuantParams
 from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+
+# the reference's cache NamedTuples, by class name, and the port's types
+_CACHE_TYPES = {cls.__name__: cls for cls in (
+    attn.KVCache, attn.QuantKVCache, attn.PagedKVCache,
+    attn.PagedQuantKVCache)}
 
 
 def _tensor(a, device, dtype=None):
@@ -59,3 +66,27 @@ def act_state_from_jax(act_state, device=None):
                                                    torch.float32),
                                 group_index=gi)
     return out
+
+
+def caches_from_jax(tree, device=None):
+    """A reference whole-model cache (dicts / lists of its cache
+    NamedTuples with numpy-convertible leaves, stacked ``"scan"`` or
+    unrolled ``"layers"`` layout, with a paged ``"block_table"``) -> the
+    same structure of the port's cache types on ``device`` (None: the GPU).
+    Cache types the port does not have (nibble-packed int4, recurrent
+    state) raise."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            cls = _CACHE_TYPES.get(type(node).__name__)
+            if cls is None:
+                raise NotImplementedError(
+                    f"{type(node).__name__} caches are not yet ported")
+            return cls(*(_tensor(x, dev) for x in node))
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(conv(v) for v in node)
+        return _tensor(node, dev)
+    return conv(tree)

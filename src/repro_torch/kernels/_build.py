@@ -4,13 +4,14 @@ Each ``.cu`` source is compiled by ``nvcc`` into its own shared library with
 a plain C interface and loaded through :mod:`ctypes`. The build runs at
 first use, one ``nvcc`` process per source, all started together, into
 ``build/kernels/<hash>/`` at the repository root; the hash covers the
-sources and the flags, so an edited source rebuilds and a stale library is
-never loaded. Nothing here runs at import time: the CPU-only test machines
-import every module and have no ``nvcc``.
+sources, the headers they share and the flags, so an edited source
+rebuilds and a stale library is never loaded. Nothing here runs at import
+time: the CPU-only test machines import every module and have no ``nvcc``.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so every float
 operation rounds on its own, as in the plain PyTorch versions (no fused
-multiply-add): kernel and plain version then agree bit for bit.
+multiply-add): where a kernel sums in the plain version's order, the two
+agree bit for bit.
 ``--use_fast_math`` is deliberately absent: it makes division approximate
 and would break the ``rint(x / s)`` quantizer semantics.
 """
@@ -27,7 +28,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("norm_quant", "peg_quant", "int8_matmul")
+SOURCES = ("norm_quant", "peg_quant", "int8_matmul", "int8_attend_decode",
+           "paged_attend_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -39,6 +41,13 @@ SIGNATURES = {
     "peg_quant": {"peg_quantize": [_P, _I, _P, _P, _P, _L, _I, _I, _I, _I,
                                    _I, _P]},
     "int8_matmul": {"int8_matmul": [_P] * 11 + [_I] * 10 + [_P]},
+    "int8_attend_decode": {"int8_attend_decode": [_P] * 14 + [_I] * 6 +
+                           [_F] + [_I] * 4 + [_P]},
+    "paged_attend_decode": {
+        "paged_int8_attend_decode": [_P] * 14 + [_I] * 8 + [_F] + [_I] * 4 +
+        [_P],
+        "paged_attend_decode": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 8 + [_F] +
+        [_I] * 4 + [_P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -58,8 +67,9 @@ def _nvcc() -> str:
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC / f"{name}.cu").read_bytes())
+    for path in sorted(CSRC.glob("*.cu*")):     # sources and shared headers
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 

@@ -1,0 +1,167 @@
+"""One decode step of attention against a dense int8 KV cache (K5).
+
+``int8_attend_decode_cuda`` launches the Hopper kernel in
+``csrc/int8_attend_decode.cu`` (port of
+``repro.kernels.int8_attend_decode.int8_attend_decode``, ``kv_bits=8``);
+``int8_attend_decode_plain`` repeats its arithmetic in PyTorch:
+
+    s32  = q_q . k_q                                (exact integer dot)
+    s    = ((s32 - zq*kcol - zk*qrow) + hd*zq*zk) * q_s * k_s
+    s    = softcap(s); s = fake_quant_{softmax_in}(s); s = mask(s)
+    p    = exp(s - m), l = sum(p)                   (m = max, >= -1e30)
+    out  = ((p * v_s) @ v - z_v * sum(p * v_s)) / l
+
+With a calibrated ``softmax_out`` site the probabilities ``exp(s - m) / l``
+are fake-quantized first and the output is not renormalised (the
+reference's two-pass schedule). The plain version takes the softmax over
+all cells at once where the kernel walks them in tiles with an online
+(m, l); the two agree up to float rounding. The helpers here are shared
+with the paged kernels (``paged_attend_decode``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _args, _build
+from repro_torch.kernels.ref import decode_valid, site_fake_quant
+
+NEG_INF = -1e30
+
+
+def int8_logits(q_q, q_scale, q_zp, k_zp, k_q, k_scale):
+    """Attention logits (B, KV, G, S) of int8 queries (B, KV, G, hd) against
+    int8 keys (B, S, KV, hd), with the kernel's zero-point corrections in
+    its float order. The integer dot runs as a float64 matmul: every partial
+    sum is an integer far below 2^53, so it is exact on any device."""
+    hd = q_q.shape[-1]
+    s32 = torch.einsum("bkgd,bskd->bkgs", q_q.double(),
+                       k_q.double()).float()
+    kcol = k_q.sum(-1, dtype=torch.int32).float().permute(0, 2, 1)[:, :,
+                                                                   None]
+    qrow = q_q.sum(-1, dtype=torch.int32).float()[..., None]
+    zq = q_zp.float()[..., None]
+    zk = k_zp.float()[:, :, None, None]
+    acc32 = ((s32 - zq * kcol) - zk * qrow) + (hd * zq) * zk
+    ks = k_scale.float().permute(0, 2, 1)[:, :, None]
+    return acc32 * q_scale.float()[..., None] * ks
+
+
+def softmax_attend(s, valid, v, v_scale=None, v_zp=None, *, logit_softcap,
+                   sm_quant, sm_qmin, sm_qmax, smo_quant, smo_qmin,
+                   smo_qmax):
+    """softcap -> softmax_in -> mask -> softmax -> [softmax_out] -> @ V.
+    s (B, KV, G, S) f32; valid (B, S) bool; v (B, S, KV, hd) (int8 with
+    ``v_scale`` (B, S, KV) and ``v_zp`` (B, KV), else float). Returns
+    (B, KV, G, hd) f32."""
+    if logit_softcap is not None:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    if sm_quant is not None:
+        s = site_fake_quant(s, sm_quant, sm_qmin, sm_qmax)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m = torch.clamp_min(s.amax(dim=-1, keepdim=True), NEG_INF)
+    p = torch.exp(s - m)
+    l = torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+    if smo_quant is not None:
+        p = site_fake_quant(p / l, smo_quant, smo_qmin, smo_qmax)
+    if v_scale is not None:
+        p = p * v_scale.float().permute(0, 2, 1)[:, :, None]
+    acc = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    if v_zp is not None:
+        acc = acc - v_zp.float()[:, :, None, None] * p.sum(dim=-1,
+                                                           keepdim=True)
+    return acc if smo_quant is not None else acc / l
+
+
+def int8_attend_decode_plain(q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale,
+                             v_q, v_scale, k_pos, q_pos, *, window,
+                             logit_softcap, sm_quant, sm_qmin, sm_qmax,
+                             smo_quant, smo_qmin, smo_qmax) -> torch.Tensor:
+    s = int8_logits(q_q, q_scale, q_zp, k_zp, k_q, k_scale)
+    return softmax_attend(
+        s, decode_valid(k_pos, q_pos, window), v_q, v_scale, v_zp,
+        logit_softcap=logit_softcap, sm_quant=sm_quant, sm_qmin=sm_qmin,
+        sm_qmax=sm_qmax, smo_quant=smo_quant, smo_qmin=smo_qmin,
+        smo_qmax=smo_qmax)
+
+
+# -- CUDA launch helpers shared with paged_attend_decode --------------------
+
+def check_query(q, dtype):
+    if q.dim() != 4 or q.dtype != dtype:
+        raise ValueError(f"attention decode: q must be (B, KV, G, hd) "
+                         f"{dtype}, got {tuple(q.shape)} {q.dtype}")
+    b, kv, g, hd = q.shape
+    if hd % 4 or hd > 256 or g > 8:
+        raise ValueError(f"attention decode kernel takes hd % 4 == 0, "
+                         f"hd <= 256 and G <= 8, got hd={hd} G={g}")
+    return b, kv, g, hd
+
+
+def check_int8(t, shape, what):
+    if t.dtype != torch.int8 or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected {tuple(shape)} int8, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    return t.contiguous()
+
+
+def f32_like(t, shape, what):
+    t = t.to(torch.float32)
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    return t.contiguous()
+
+
+def i32(t, shape, what):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    return t.to(torch.int32).contiguous()
+
+
+def site_args(sm_quant, smo_quant, device):
+    """(softmax_in, softmax_out) [scale, zp] vectors or None, on device."""
+    return tuple(None if sq is None else _args.f32(sq, device, 2, "site")
+                 for sq in (sm_quant, smo_quant))
+
+
+def softcap_arg(logit_softcap) -> float:
+    return 0.0 if logit_softcap is None else float(logit_softcap)
+
+
+def window_arg(window) -> int:
+    return 0 if window is None else int(window)
+
+
+def int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale,
+                            v_q, v_scale, k_pos, q_pos, *, window,
+                            logit_softcap, sm_quant, sm_qmin, sm_qmax,
+                            smo_quant, smo_qmin, smo_qmax) -> torch.Tensor:
+    b, kv, g, hd = check_query(q_q, torch.int8)
+    _args.on_cuda(q_q, k_q, v_q, k_pos, q_pos)
+    s_len = k_q.shape[1]
+    q_q = q_q.contiguous()
+    k_q = check_int8(k_q, (b, s_len, kv, hd), "k_q")
+    v_q = check_int8(v_q, (b, s_len, kv, hd), "v_q")
+    q_scale = f32_like(q_scale, (b, kv, g), "q_scale")
+    q_zp = f32_like(q_zp, (b, kv, g), "q_zp")
+    k_zp = f32_like(k_zp, (b, kv), "k_zp")
+    v_zp = f32_like(v_zp, (b, kv), "v_zp")
+    k_scale = f32_like(k_scale, (b, s_len, kv), "k_scale")
+    v_scale = f32_like(v_scale, (b, s_len, kv), "v_scale")
+    k_pos = i32(k_pos, (b, s_len), "k_pos")
+    q_pos = i32(q_pos.reshape(-1), (b,), "q_pos")
+    sm, smo = site_args(sm_quant, smo_quant, q_q.device)
+    out = torch.empty((b, kv, g, hd), dtype=torch.float32, device=q_q.device)
+    p = _args.ptr
+    _build.check(_build.lib("int8_attend_decode").int8_attend_decode(
+        p(q_q), p(q_scale), p(q_zp), p(k_zp), p(v_zp), p(k_q), p(k_scale),
+        p(v_q), p(v_scale), p(k_pos), p(q_pos), p(sm), p(smo), p(out), b, kv,
+        g, hd, s_len, window_arg(window), softcap_arg(logit_softcap),
+        sm_qmin, sm_qmax, smo_qmin, smo_qmax, _args.stream()),
+        "int8_attend_decode")
+    int8_attend_decode_cuda.launches += 1
+    return out
+
+
+int8_attend_decode_cuda.launches = 0

@@ -15,12 +15,20 @@ Conventions kept from the reference:
   kernels mask their edges, so no row padding is needed.
 * ``z_a`` requires a weight colsum; when the caller gives none it is
   computed from the int8 weights (never from packed bytes).
+* Decode attention: absent zero-points are zeros (symmetric grids); a
+  ragged dense S is padded to a multiple of ``chunk`` with empty cells, as
+  the reference pads its grid; a paged table is cut to the columns the
+  layer's capacity can reach (``_lane_blocks``).
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import _args
 from repro_torch.kernels import fused_ln_quant as _lnq
+from repro_torch.kernels import int8_attend_decode as _iad
 from repro_torch.kernels import int8_matmul as _imm
+from repro_torch.kernels import paged_attend_decode as _pad
 from repro_torch.kernels import peg_quant as _peg
 from repro_torch.kernels.ref import w_colsum_groups
 
@@ -90,3 +98,100 @@ def int8_matmul_peg(a_q, w_q, act_scales, act_zps, *, w_scale,
              mul=mul2, activation=activation, out_scale=out_scale,
              out_zp=out_zp, qmin=qmin, qmax=qmax, w_bits=w_bits)
     return _unrows(out, lead)
+
+
+def _not_ported_kv4(kv_bits):
+    if kv_bits != 8:
+        raise NotImplementedError(
+            f"kv_bits={kv_bits}: nibble-packed int4 caches are not yet "
+            "ported")
+
+
+def _zero_points(q_scale, q_zp, k_zp, v_zp):
+    """Absent zero-points are zeros: (B, KV, G) for q, (B, KV) for k, v."""
+    def zeros(shape):
+        return torch.zeros(shape, dtype=torch.float32, device=q_scale.device)
+    return (zeros(q_scale.shape) if q_zp is None else q_zp,
+            zeros(q_scale.shape[:2]) if k_zp is None else k_zp,
+            zeros(q_scale.shape[:2]) if v_zp is None else v_zp)
+
+
+def _pad_cells(t, pad, value=0):
+    """Pad axis 1 (the cell axis) of ``t`` by ``pad`` cells."""
+    return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad),
+                                   value=value)
+
+
+def int8_attend_decode(q_q, q_scale, k_q, k_scale, v_q, v_scale, k_pos,
+                       q_pos, *, q_zp=None, k_zp=None, v_zp=None,
+                       window=None, logit_softcap=None, sm_quant=None,
+                       sm_qmin: int = 0, sm_qmax: int = 255, smo_quant=None,
+                       smo_qmin: int = 0, smo_qmax: int = 255,
+                       chunk: int = 256, kv_bits: int = 8):
+    """Decode attention over a dense int8 KV cache (K5). q_q (B, KV, G, hd)
+    int8; q_scale (B, KV, G) f32 with the attention scale folded in; k_q /
+    v_q (B, S, KV, hd) int8; k_scale / v_scale (B, S, KV) f32; k_pos (B, S)
+    (-1 = empty); q_pos (B,). ``sm_quant`` / ``smo_quant``: optional (2,)
+    [scale, zp] of the softmax_in / softmax_out sites. Returns
+    (B, KV, G, hd) f32."""
+    _not_ported_kv4(kv_bits)
+    q_zp, k_zp, v_zp = _zero_points(q_scale, q_zp, k_zp, v_zp)
+    s_len = k_pos.shape[1]
+    pad = (-s_len) % min(chunk, s_len)
+    if pad:
+        k_q, v_q = _pad_cells(k_q, pad), _pad_cells(v_q, pad)
+        k_scale, v_scale = _pad_cells(k_scale, pad), _pad_cells(v_scale, pad)
+        k_pos = _pad_cells(k_pos, pad, value=-1)
+    fn = _pick(q_q, _iad.int8_attend_decode_plain,
+               _iad.int8_attend_decode_cuda)
+    return fn(q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale, v_q, v_scale,
+              k_pos, q_pos, window=window, logit_softcap=logit_softcap,
+              sm_quant=sm_quant, sm_qmin=sm_qmin, sm_qmax=sm_qmax,
+              smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax)
+
+
+def _lane_blocks(block_table, s_cap, block_size):
+    """The table columns a layer of capacity ``s_cap`` can touch: a
+    sliding-window layer needs only the first ceil(s_cap / bs), so its
+    kernel never walks blocks that only global layers use."""
+    return block_table[:, :-(-s_cap // block_size)]
+
+
+def paged_attend_decode(q, k_arena, v_arena, block_table, q_pos, *,
+                        s_cap: int, window=None, logit_softcap=None,
+                        sm_quant=None, sm_qmin: int = 0, sm_qmax: int = 255,
+                        smo_quant=None, smo_qmin: int = 0,
+                        smo_qmax: int = 255):
+    """Decode attention over a paged f32/bf16 KV cache (K7). q (B, KV, G,
+    hd) with the attention scale folded in; arenas (N, bs, KV, hd);
+    block_table (B, nb) int32 (-1 = unmapped); q_pos (B,) (-1 = idle lane);
+    ``s_cap`` is the layer's logical capacity. Returns (B, KV, G, hd) f32.
+    """
+    fn = _pick(q, _pad.paged_attend_decode_plain,
+               _pad.paged_attend_decode_cuda)
+    return fn(q, k_arena, v_arena,
+              _lane_blocks(block_table, s_cap, k_arena.shape[1]), q_pos,
+              s_cap=s_cap, window=window, logit_softcap=logit_softcap,
+              sm_quant=sm_quant, sm_qmin=sm_qmin, sm_qmax=sm_qmax,
+              smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax)
+
+
+def paged_int8_attend_decode(q_q, q_scale, k_arena, k_scale, v_arena,
+                             v_scale, block_table, q_pos, *, s_cap: int,
+                             q_zp=None, k_zp=None, v_zp=None, window=None,
+                             logit_softcap=None, sm_quant=None,
+                             sm_qmin: int = 0, sm_qmax: int = 255,
+                             smo_quant=None, smo_qmin: int = 0,
+                             smo_qmax: int = 255, kv_bits: int = 8):
+    """Decode attention over a paged int8 KV cache (K6), the paged twin of
+    :func:`int8_attend_decode`: arenas (N, bs, KV, hd) int8 with per-cell
+    scales (N, bs, KV) f32. Returns (B, KV, G, hd) f32."""
+    _not_ported_kv4(kv_bits)
+    q_zp, k_zp, v_zp = _zero_points(q_scale, q_zp, k_zp, v_zp)
+    fn = _pick(q_q, _pad.paged_int8_attend_decode_plain,
+               _pad.paged_int8_attend_decode_cuda)
+    return fn(q_q, q_scale, q_zp, k_zp, v_zp, k_arena, k_scale, v_arena,
+              v_scale, _lane_blocks(block_table, s_cap, k_arena.shape[1]),
+              q_pos, s_cap=s_cap, window=window, logit_softcap=logit_softcap,
+              sm_quant=sm_quant, sm_qmin=sm_qmin, sm_qmax=sm_qmax,
+              smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax)

@@ -1,0 +1,138 @@
+"""One decode step of attention against a block-paged KV cache (K6, K7).
+
+The paged cache stores each layer's K/V as one arena of N blocks of ``bs``
+token cells (no batch axis); a (B, nb) int32 block table (-1 = unmapped)
+says which physical block backs each logical block of each lane. Cell L of
+lane b lives in block ``table[b, L // bs]`` (clamped at 0, masked when
+unmapped) and its position is derived, not read:
+``p = q_pos - ((q_pos - L) mod s_cap)`` with a floor modulo, valid iff
+``L < s_cap``, ``p >= 0``, the block is mapped (and ``p > q_pos - window``),
+so stale cells of a reused block are never read as valid.
+
+* ``paged_int8_attend_decode_*`` (K6; port of
+  ``repro.kernels.paged_attend_decode.paged_int8_attend_decode``,
+  ``kv_bits=8``): int8 arenas with per-cell scales, the math of K5.
+* ``paged_attend_decode_*`` (K7; port of ``...paged_attend_decode``): f32 or
+  bf16 arenas, queries f32 with the attention scale folded in.
+
+``*_cuda`` launch ``csrc/paged_attend_decode.cu``; ``*_plain`` gather each
+lane's blocks into a dense view and run the plain softmax of
+``int8_attend_decode``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _args, _build
+from repro_torch.kernels import int8_attend_decode as _iad
+from repro_torch.kernels.ref import (decode_valid, paged_gather_ref,
+                                     paged_positions_ref)
+
+
+def paged_int8_attend_decode_plain(q_q, q_scale, q_zp, k_zp, v_zp, k_arena,
+                                   k_scale, v_arena, v_scale, block_table,
+                                   q_pos, *, s_cap, window, logit_softcap,
+                                   sm_quant, sm_qmin, sm_qmax, smo_quant,
+                                   smo_qmin, smo_qmax) -> torch.Tensor:
+    kp = paged_positions_ref(block_table, q_pos, s_cap=s_cap,
+                             block_size=k_arena.shape[1])
+    return _iad.int8_attend_decode_plain(
+        q_q, q_scale, q_zp, k_zp, v_zp,
+        paged_gather_ref(k_arena, block_table),
+        paged_gather_ref(k_scale, block_table),
+        paged_gather_ref(v_arena, block_table),
+        paged_gather_ref(v_scale, block_table), kp, q_pos, window=window,
+        logit_softcap=logit_softcap, sm_quant=sm_quant, sm_qmin=sm_qmin,
+        sm_qmax=sm_qmax, smo_quant=smo_quant, smo_qmin=smo_qmin,
+        smo_qmax=smo_qmax)
+
+
+def paged_attend_decode_plain(q, k_arena, v_arena, block_table, q_pos, *,
+                              s_cap, window, logit_softcap, sm_quant,
+                              sm_qmin, sm_qmax, smo_quant, smo_qmin,
+                              smo_qmax) -> torch.Tensor:
+    kp = paged_positions_ref(block_table, q_pos, s_cap=s_cap,
+                             block_size=k_arena.shape[1])
+    k = paged_gather_ref(k_arena, block_table).float()
+    s = torch.einsum("bkgd,bskd->bkgs", q.float(), k)
+    return _iad.softmax_attend(
+        s, decode_valid(kp, q_pos, window),
+        paged_gather_ref(v_arena, block_table), logit_softcap=logit_softcap,
+        sm_quant=sm_quant, sm_qmin=sm_qmin, sm_qmax=sm_qmax,
+        smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax)
+
+
+def _table(block_table, b, bs, s_cap):
+    nb = block_table.shape[1]
+    if block_table.shape[0] != b or nb * bs < s_cap:
+        raise ValueError(f"block table {tuple(block_table.shape)} does not "
+                         f"cover {b} lanes x s_cap={s_cap} at bs={bs}")
+    return block_table.to(torch.int32).contiguous(), nb
+
+
+def paged_int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_arena,
+                                  k_scale, v_arena, v_scale, block_table,
+                                  q_pos, *, s_cap, window, logit_softcap,
+                                  sm_quant, sm_qmin, sm_qmax, smo_quant,
+                                  smo_qmin, smo_qmax) -> torch.Tensor:
+    b, kv, g, hd = _iad.check_query(q_q, torch.int8)
+    _args.on_cuda(q_q, k_arena, v_arena, block_table, q_pos)
+    n, bs = k_arena.shape[:2]
+    q_q = q_q.contiguous()
+    k_arena = _iad.check_int8(k_arena, (n, bs, kv, hd), "k_arena")
+    v_arena = _iad.check_int8(v_arena, (n, bs, kv, hd), "v_arena")
+    q_scale = _iad.f32_like(q_scale, (b, kv, g), "q_scale")
+    q_zp = _iad.f32_like(q_zp, (b, kv, g), "q_zp")
+    k_zp = _iad.f32_like(k_zp, (b, kv), "k_zp")
+    v_zp = _iad.f32_like(v_zp, (b, kv), "v_zp")
+    k_scale = _iad.f32_like(k_scale, (n, bs, kv), "k_scale")
+    v_scale = _iad.f32_like(v_scale, (n, bs, kv), "v_scale")
+    table, nb = _table(block_table, b, bs, s_cap)
+    q_pos = _iad.i32(q_pos.reshape(-1), (b,), "q_pos")
+    sm, smo = _iad.site_args(sm_quant, smo_quant, q_q.device)
+    out = torch.empty((b, kv, g, hd), dtype=torch.float32, device=q_q.device)
+    p = _args.ptr
+    _build.check(_build.lib("paged_attend_decode").paged_int8_attend_decode(
+        p(q_q), p(q_scale), p(q_zp), p(k_zp), p(v_zp), p(k_arena),
+        p(k_scale), p(v_arena), p(v_scale), p(table), p(q_pos), p(sm), p(smo),
+        p(out), b, kv, g, hd, nb, bs, s_cap, _iad.window_arg(window),
+        _iad.softcap_arg(logit_softcap), sm_qmin, sm_qmax, smo_qmin,
+        smo_qmax, _args.stream()), "paged_int8_attend_decode")
+    paged_int8_attend_decode_cuda.launches += 1
+    return out
+
+
+def paged_attend_decode_cuda(q, k_arena, v_arena, block_table, q_pos, *,
+                             s_cap, window, logit_softcap, sm_quant, sm_qmin,
+                             sm_qmax, smo_quant, smo_qmin, smo_qmax
+                             ) -> torch.Tensor:
+    b, kv, g, hd = _iad.check_query(q.float(), torch.float32)
+    _args.on_cuda(q, k_arena, v_arena, block_table, q_pos)
+    n, bs = k_arena.shape[:2]
+    if k_arena.dtype not in (torch.float32, torch.bfloat16) or \
+            v_arena.dtype != k_arena.dtype or \
+            tuple(k_arena.shape) != (n, bs, kv, hd) or \
+            tuple(v_arena.shape) != (n, bs, kv, hd):
+        raise ValueError(f"paged_attend_decode: arenas must be "
+                         f"{(n, bs, kv, hd)} f32 or bf16, got "
+                         f"{tuple(k_arena.shape)} {k_arena.dtype} / "
+                         f"{tuple(v_arena.shape)} {v_arena.dtype}")
+    q = q.float().contiguous()
+    k_arena, v_arena = k_arena.contiguous(), v_arena.contiguous()
+    table, nb = _table(block_table, b, bs, s_cap)
+    q_pos = _iad.i32(q_pos.reshape(-1), (b,), "q_pos")
+    sm, smo = _iad.site_args(sm_quant, smo_quant, q.device)
+    out = torch.empty((b, kv, g, hd), dtype=torch.float32, device=q.device)
+    p = _args.ptr
+    _build.check(_build.lib("paged_attend_decode").paged_attend_decode(
+        p(q), p(k_arena), p(v_arena), int(k_arena.dtype == torch.bfloat16),
+        p(table), p(q_pos), p(sm), p(smo), p(out), b, kv, g, hd, nb, bs,
+        s_cap, _iad.window_arg(window), _iad.softcap_arg(logit_softcap),
+        sm_qmin, sm_qmax, smo_qmin, smo_qmax, _args.stream()),
+        "paged_attend_decode")
+    paged_attend_decode_cuda.launches += 1
+    return out
+
+
+paged_int8_attend_decode_cuda.launches = 0
+paged_attend_decode_cuda.launches = 0

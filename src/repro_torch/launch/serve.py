@@ -1,6 +1,6 @@
 """Serving launcher (port of ``repro.launch.serve``): batched requests
-against gemma2-2b, optionally W8A8-quantized — prefill + decode with a dense
-KV cache, static scheduler.
+against gemma2-2b, optionally W8A8-quantized — prefill + decode with a KV
+cache, static or continuous scheduler.
 
 ``--quantize`` calibrates W8A8 PTQ with the paper's PEG recipe
 (``peg_policy(4)``) and serves simulated quantization (fake-quant);
@@ -8,14 +8,23 @@ KV cache, static scheduler.
 int8 and the attention / FFN projections on the hand-written kernels
 (``rms_quantize -> int8_matmul_peg (fused epilogue) -> int8_matmul``), with
 a parity check against the fake-quant reference printed at startup.
+``--kv-bits 8`` stores the KV cache in int8 and decodes through the int8
+attention kernels (``[kv-int8]`` check at startup); ``--paged-kv`` pages
+the cache in blocks (``--block-size``, ``--num-blocks``); ``--scheduler
+continuous`` admits into freed lanes mid-flight, ``--prefill-chunk N`` in
+chunks of N prompt tokens; ``--parity`` serves the requests again under
+the other scheduler, unchunked and dense and checks the greedy tokens are
+the same.
 
 Full width serves bf16 params on one GPU; ``--reduced`` serves the small
 f32 config. Every other flag of the reference launcher is accepted by the
-parser and rejected with "not yet ported" when set.
+parser and rejected with "not yet ported" when set. The README quickstart:
 
     python -m repro_torch.launch.serve --arch gemma2-2b --reduced \
         --requests 6 --prompt-len 24 --new-tokens 6 --max-len 64 \
-        --quantize --deploy-int8
+        --quantize --deploy-int8 --kv-bits 8 \
+        --scheduler continuous --paged-kv --block-size 8 \
+        --prefill-chunk 8 --parity
 
 ``main(argv, device="cpu")`` runs the plain PyTorch versions on the CPU.
 """
@@ -30,15 +39,18 @@ from repro_torch.configs import get_config
 from repro_torch.core import Mode, QuantCtx, build_deploy, peg_policy, ptq
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.runtime import (Request, make_decode_step,
-                                 make_prefill_step, serve)
+from repro_torch.runtime import (BlockPool, Request, blocks_for_tokens,
+                                 make_admit_step, make_chunk_prefill_step,
+                                 make_decode_step, make_prefill_step, serve)
 from repro_torch.runtime.serve_loop import _check_capacity
 
-# flags (by dest) this slice serves; any other flag must keep its default
+# flags (by dest) the port serves; any other flag must keep its default
 _PORTED = {"arch", "reduced", "requests", "prompt_len", "new_tokens",
            "batch_slots", "max_len", "skew", "seed", "quantize",
-           "deploy_int8", "scheduler", "kv_bits", "weight_bits"}
-_PORTED_VALUES = {"scheduler": "static", "kv_bits": 16, "weight_bits": 8}
+           "deploy_int8", "scheduler", "kv_bits", "weight_bits", "parity",
+           "paged_kv", "block_size", "num_blocks", "prefill_chunk"}
+# ported flags of which only some values are served
+_UNPORTED_VALUES = {"kv_bits": (4,), "weight_bits": (4,)}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -174,9 +186,8 @@ def _reject_unported(ap: argparse.ArgumentParser, args) -> None:
         if dest == "help" or not action.option_strings:
             continue
         value = getattr(args, dest)
-        if dest in _PORTED_VALUES and value != _PORTED_VALUES[dest]:
-            ap.error(f"{action.option_strings[0]} {value} is not yet ported "
-                     f"(this slice serves {_PORTED_VALUES[dest]})")
+        if value in _UNPORTED_VALUES.get(dest, ()):
+            ap.error(f"{action.option_strings[0]} {value} is not yet ported")
         if dest not in _PORTED and value != ap.get_default(dest):
             ap.error(f"{action.option_strings[0]} is not yet ported")
 
@@ -202,12 +213,115 @@ def _fallback_note(cfg, packed, qm) -> str:
     return note
 
 
+def _check_args(ap: argparse.ArgumentParser, args) -> None:
+    if args.deploy_int8 and not args.quantize:
+        ap.error("--deploy-int8 requires --quantize")
+    if args.kv_bits < 16 and not args.deploy_int8:
+        ap.error(f"--kv-bits {args.kv_bits} requires --deploy-int8 (the "
+                 "quantized KV cache is a deploy-path feature)")
+    if args.block_size < 1:
+        ap.error("--block-size must be >= 1")
+    if args.prefill_chunk < 0:
+        ap.error("--prefill-chunk must be >= 0")
+    if args.prefill_chunk and args.scheduler != "continuous":
+        ap.error("--prefill-chunk requires --scheduler continuous (static "
+                 "groups prefill monolithically)")
+    if args.num_blocks and not args.paged_kv:
+        ap.error("--num-blocks requires --paged-kv")
+    _reject_unported(ap, args)
+
+
+def _quantize(cfg, args, params, dtype, dev):
+    """W8A8 PTQ (and with --deploy-int8 the packed integer params, their
+    parity lines and the [kv-int8] check). Returns (params, ctx_factory)."""
+    # calibrate on a few synthetic prompts with the unrolled layout, then
+    # serve with layer-shared quant params (layer 0's win)
+    pol = peg_policy(4)
+    flat = tfm.init_params(cfg, args.seed, stacked=False, dtype=dtype,
+                           device=dev)
+    rng = np.random.RandomState(10)
+    calib = [{"tokens": torch.as_tensor(
+        rng.randint(0, cfg.vocab_size, (2, args.prompt_len)),
+        device=dev)} for _ in range(2)]
+
+    def fwd(p, b, ctx):
+        return tfm.forward(cfg, p, b["tokens"], ctx=ctx)[0]
+    qm = ptq(fwd, flat, calib, pol, collect_inputs=args.deploy_int8)
+    del flat
+    shared = {}
+    for site, qp in qm.act_state.items():
+        base = "layer/" + site.split("/", 1)[1] \
+            if site.startswith("layer") else site
+        shared.setdefault(base, qp)
+    state = dict(shared)
+    # one memo of fake-quantized weights for every ctx of this session
+    weight_cache = {}
+    if not args.deploy_int8:
+        def apply_ctx():
+            return QuantCtx(policy=pol, mode=Mode.APPLY, act_state=state,
+                            weight_cache=weight_cache)
+        return params, apply_ctx
+
+    fp_params = params
+    params, deploy_acts = build_deploy(cfg, params, pol, state)
+
+    def ctx_factory():
+        return QuantCtx(policy=pol, mode=Mode.DEPLOY, act_state=state,
+                        deploy_acts=deploy_acts, weight_cache=weight_cache)
+
+    # parity: integer path vs the fake-quant reference it replaces
+    toks = torch.as_tensor(np.random.RandomState(99).randint(
+        0, cfg.vocab_size, (2, args.prompt_len)), device=dev)
+    ref_ctx = QuantCtx(policy=pol, mode=Mode.APPLY, act_state=state,
+                       weight_cache=weight_cache)
+    with torch.no_grad():
+        logits_ref, _ = tfm.forward(cfg, fp_params, toks, ctx=ref_ctx)
+        logits_int, _ = tfm.forward(cfg, params, toks, ctx=ctx_factory())
+    diff = float((logits_ref.float() - logits_int.float()).abs().max())
+    scale = float(logits_ref.float().abs().max()) + 1e-9
+    print(f"[deploy-int8] max |fake-quant - int8| logits diff "
+          f"{diff:.5f} (rel {diff / scale:.4%})")
+    print(_fallback_note(cfg, params, qm))
+    if args.kv_bits == 8:
+        print(_kv_int8_check(cfg, args, params, ctx_factory, toks, dtype,
+                             dev))
+    return params, ctx_factory
+
+
+@torch.no_grad()
+def _kv_int8_check(cfg, args, params, ctx_factory, toks, dtype, dev) -> str:
+    """Multi-step decode parity of the int8 KV cache (decode through K5)
+    against the f32/bf16-cache integer path, teacher-forced on the latter's
+    argmax."""
+    B, steps = toks.shape[0], 4
+    c16 = tfm.init_cache(cfg, B, args.max_len, dtype=dtype, device=dev)
+    cq = tfm.init_cache(cfg, B, args.max_len, dtype=dtype, kv_bits=8,
+                        device=dev)
+    l16, c16 = tfm.prefill(cfg, params, toks, c16, ctx=ctx_factory())
+    lq, cq = tfm.prefill(cfg, params, toks, cq, ctx=ctx_factory())
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).abs().max() / (a.abs().max() + 1e-9))
+    worst = rel(l16, lq)
+    cur = torch.argmax(l16, dim=-1).to(torch.int32)
+    pos = torch.full((B, 1), toks.shape[1], dtype=torch.int32, device=dev)
+    for _ in range(steps):
+        l16, c16 = tfm.decode_step(cfg, params, cur, pos, c16,
+                                   ctx=ctx_factory())
+        lq, cq = tfm.decode_step(cfg, params, cur, pos, cq,
+                                 ctx=ctx_factory())
+        worst = max(worst, rel(l16, lq))
+        cur = torch.argmax(l16, dim=-1).to(torch.int32)
+        pos = pos + 1
+    return (f"[kv-int8] max rel logits diff over prefill + {steps} decode "
+            f"steps vs bf16 cache: {worst:.4%}")
+
+
 def main(argv=None, *, device=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.deploy_int8 and not args.quantize:
-        ap.error("--deploy-int8 requires --quantize")
-    _reject_unported(ap, args)
+    _check_args(ap, args)
     dev = resolve_device(device)
     if dev.type == "cuda":
         # f32 matmuls in full f32, as the reference computes them
@@ -222,69 +336,43 @@ def main(argv=None, *, device=None):
         dtype = torch.float32
     else:
         dtype = torch.bfloat16
+
+    # per-lane table width (ring-bounded for all-window models) and pool
+    nb_lane = (tfm.paged_lane_blocks(cfg, args.max_len, args.block_size)
+               if args.paged_kv
+               else blocks_for_tokens(args.max_len, args.block_size))
+    ring_tokens = (tfm.paged_ring_tokens(cfg, args.max_len, args.block_size)
+                   if args.paged_kv else None)
+    full_blocks = args.batch_slots * nb_lane
+    num_blocks = args.num_blocks or full_blocks
+    if args.paged_kv and args.scheduler == "static" \
+            and num_blocks < full_blocks:
+        ap.error("static paged serving needs the dense worst case "
+                 f"(--num-blocks >= {full_blocks}); pool-constrained "
+                 "admission is a continuous-scheduler feature")
+    # fail before the model is built on workloads the serve loop would
+    # reject (the same check serve() runs on the real requests)
+    probe_pool = BlockPool(num_blocks, args.block_size, args.batch_slots,
+                           nb_lane) if args.paged_kv else None
     try:
         _check_capacity([Request(rid=-1,
                                  prompt=np.zeros(args.prompt_len, np.int32),
                                  max_new_tokens=max(args.new_tokens,
                                                     args.skew))],
-                        args.max_len)
+                        args.max_len, probe_pool, ring_tokens)
     except ValueError as e:
-        ap.error(f"--max-len too small: {e}")
+        ap.error(f"--max-len / --num-blocks too small: {e}")
 
     params = tfm.init_params(cfg, args.seed, stacked=True, dtype=dtype,
                              device=dev)
     ctx_factory = None
     if args.quantize:
-        # calibrate on a few synthetic prompts with the unrolled layout,
-        # then serve with layer-shared quant params (layer 0's win)
-        pol = peg_policy(4)
-        flat = tfm.init_params(cfg, args.seed, stacked=False, dtype=dtype,
-                               device=dev)
-        rng = np.random.RandomState(10)
-        calib = [{"tokens": torch.as_tensor(
-            rng.randint(0, cfg.vocab_size, (2, args.prompt_len)),
-            device=dev)} for _ in range(2)]
+        params, ctx_factory = _quantize(cfg, args, params, dtype, dev)
 
-        def fwd(p, b, ctx):
-            return tfm.forward(cfg, p, b["tokens"], ctx=ctx)[0]
-        qm = ptq(fwd, flat, calib, pol, collect_inputs=args.deploy_int8)
-        del flat
-        shared = {}
-        for site, qp in qm.act_state.items():
-            base = "layer/" + site.split("/", 1)[1] \
-                if site.startswith("layer") else site
-            shared.setdefault(base, qp)
-        state = dict(shared)
-        # one memo of fake-quantized weights for every ctx of this session
-        weight_cache = {}
-
-        if args.deploy_int8:
-            fp_params = params
-            params, deploy_acts = build_deploy(cfg, params, pol, state)
-
-            def ctx_factory():
-                return QuantCtx(policy=pol, mode=Mode.DEPLOY,
-                                act_state=state, deploy_acts=deploy_acts,
-                                weight_cache=weight_cache)
-
-            # parity: integer path vs the fake-quant reference it replaces
-            toks = torch.as_tensor(np.random.RandomState(99).randint(
-                0, cfg.vocab_size, (2, args.prompt_len)), device=dev)
-            ref_ctx = QuantCtx(policy=pol, mode=Mode.APPLY, act_state=state,
-                               weight_cache=weight_cache)
-            with torch.no_grad():
-                logits_ref, _ = tfm.forward(cfg, fp_params, toks, ctx=ref_ctx)
-                logits_int, _ = tfm.forward(cfg, params, toks,
-                                            ctx=ctx_factory())
-            diff = float((logits_ref.float() - logits_int.float()).abs().max())
-            scale = float(logits_ref.float().abs().max()) + 1e-9
-            print(f"[deploy-int8] max |fake-quant - int8| logits diff "
-                  f"{diff:.5f} (rel {diff / scale:.4%})")
-            print(_fallback_note(cfg, params, qm))
-        else:
-            def ctx_factory():
-                return QuantCtx(policy=pol, mode=Mode.APPLY, act_state=state,
-                                weight_cache=weight_cache)
+    prefill = make_prefill_step(cfg, ctx_factory=ctx_factory)
+    admit = make_admit_step(cfg, ctx_factory=ctx_factory)
+    decode = make_decode_step(cfg, ctx_factory=ctx_factory)
+    chunk_step = make_chunk_prefill_step(cfg, ctx_factory=ctx_factory)
 
     def make_requests():
         rng = np.random.RandomState(args.seed)
@@ -296,20 +384,87 @@ def main(argv=None, *, device=None):
                                         else args.new_tokens))
                 for i in range(args.requests)]
 
-    stats = serve(make_prefill_step(cfg, ctx_factory=ctx_factory),
-                  make_decode_step(cfg, ctx_factory=ctx_factory),
-                  lambda b: tfm.init_cache(cfg, b, args.max_len, dtype=dtype,
-                                           device=dev),
-                  params, make_requests(), scheduler="static",
-                  batch_slots=args.batch_slots, max_len=args.max_len,
-                  device=dev)
-    print(f"[serve:static] {stats.tokens_generated} tokens, "
+    def init_cache(batch, paged, scheduler):
+        kw = dict(dtype=dtype, kv_bits=args.kv_bits, device=dev)
+        if not paged:
+            return tfm.init_cache(cfg, batch, args.max_len, **kw)
+        if scheduler == "static":
+            # fully mapped identity table: the static loop has no pool
+            return tfm.init_cache(cfg, batch, args.max_len, paged=True,
+                                  block_size=args.block_size, **kw)
+        return tfm.init_cache(cfg, batch, args.max_len, paged=True,
+                              block_size=args.block_size,
+                              num_blocks=num_blocks, mapped=False, **kw)
+
+    def run(scheduler, requests, paged=None, chunk=0):
+        paged = args.paged_kv if paged is None else paged
+        pool = None
+        if paged and scheduler == "continuous":
+            pool = BlockPool(num_blocks, args.block_size, args.batch_slots,
+                             nb_lane)
+        return serve(prefill, decode,
+                     lambda b: init_cache(b, paged, scheduler), params,
+                     requests, scheduler=scheduler,
+                     batch_slots=args.batch_slots, max_len=args.max_len,
+                     admit_step=admit,
+                     chunk_step=chunk_step if chunk else None,
+                     block_pool=pool, prefill_chunk=chunk or None,
+                     ring_tokens=ring_tokens if pool else None,
+                     device=dev)
+
+    requests = make_requests()
+    stats = run(args.scheduler, requests, chunk=args.prefill_chunk)
+    if args.paged_kv and args.scheduler == "continuous":
+        paged_note = (f", blocks {stats.blocks_in_use}/{num_blocks} "
+                      f"(frag {stats.block_fragmentation:.0%}, "
+                      f"block-size {args.block_size})")
+    elif args.paged_kv:
+        paged_note = (f", paged identity-mapped (block-size "
+                      f"{args.block_size})")
+    else:
+        paged_note = ""
+    chunk_note = (f", chunked prefill ({stats.chunk_steps} chunk steps @ "
+                  f"<= {args.prefill_chunk} tokens)"
+                  if args.prefill_chunk else "")
+    print(f"[serve:{args.scheduler}] {stats.tokens_generated} tokens, "
           f"{stats.decode_steps} decode steps, "
           f"{stats.prefill_calls} prefills, {stats.wall_s:.2f}s "
           f"({stats.tokens_per_s:.1f} tok/s), "
           f"slot-utilization {stats.slot_utilization:.0%}, "
           f"peak kv-cache {stats.cache_bytes / 1024:.0f} KiB "
-          f"(kv-bits {args.kv_bits}, {dev.type})")
+          f"(kv-bits {args.kv_bits}{paged_note}{chunk_note}, {dev.type})")
+
+    if args.parity:
+        def compare(tag, b_reqs, ok_msg):
+            mismatch = [r.rid for r, b in zip(requests, b_reqs)
+                        if r.tokens_out != b.tokens_out]
+            if mismatch:
+                raise SystemExit(f"[parity] FAIL: request ids {mismatch} "
+                                 f"diverge between {tag}")
+            print(f"[parity] OK: {ok_msg}")
+
+        other = ("static" if args.scheduler == "continuous"
+                 else "continuous")
+        other_reqs = make_requests()
+        run(other, other_reqs)
+        compare(f"{args.scheduler} vs {other} schedulers", other_reqs,
+                f"{args.scheduler} and {other} schedulers emit identical "
+                f"greedy tokens for all {len(requests)} requests")
+        if args.prefill_chunk:
+            unchunked_reqs = make_requests()
+            run(args.scheduler, unchunked_reqs)
+            compare("chunked vs unchunked prefill", unchunked_reqs,
+                    f"chunked (<= {args.prefill_chunk} tokens) and "
+                    f"unchunked prefill emit identical greedy tokens "
+                    f"for all {len(requests)} requests")
+        if args.paged_kv:
+            dense_reqs = make_requests()
+            run(args.scheduler, dense_reqs, paged=False,
+                chunk=args.prefill_chunk)
+            compare("paged vs dense caches", dense_reqs,
+                    f"paged and dense caches emit identical greedy "
+                    f"tokens for all {len(requests)} requests "
+                    f"(kv-bits {args.kv_bits})")
     return stats
 
 

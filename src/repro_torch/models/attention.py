@@ -1,16 +1,17 @@
-"""Multi-head attention over a dense KV cache (port of the parts of
-``repro.models.attention`` the bf16-cache serving path uses): GQA,
-sliding window, logit soft-capping, RoPE, the dense and the chunked
-(online-softmax) attend, and the cache write with the dead-cell rule.
+"""Multi-head attention with KV caches (port of the parts of
+``repro.models.attention`` the serving path uses): GQA, sliding window,
+logit soft-capping, RoPE, the dense and the chunked (online-softmax)
+attend; dense, int8, block-paged and paged int8 caches; decode through the
+attention kernels (K5-K7) and chunked (append) prefill.
 
 Absolute positions drive masking and cache writes; position -1 marks a DEAD
 cell (a prompt pad or an idle lane): it is masked out of attention and its
 cache write is dropped, so packing and idle lanes never perturb other lanes.
 
-The cache write is functional, like the reference's scatter: it returns new
-cache tensors built with a gather + select, so no data-dependent host sync
-is needed to drop dead writes. Quantized (int8/int4) and paged caches and
-chunked (append) prefill come with the next slice.
+Cache writes are functional, like the reference's scatter: they return new
+cache tensors (a gather + select for the dense caches, a scatter into a
+copy of the arena for the paged ones), so no data-dependent host sync is
+needed to drop dead writes. Nibble-packed int4 caches are not yet ported.
 
 Quantization sites (paper Fig. 1 naming), threaded via QuantCtx:
   {prefix}/q, {prefix}/k, {prefix}/v, {prefix}/softmax_in,
@@ -24,6 +25,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import paged_gather_ref, paged_positions_ref
 from repro_torch.models.common import (apply_rope, dense_init, dot,
                                        resolve_weight, softcap)
 
@@ -59,14 +63,135 @@ class KVCache(NamedTuple):
     pos: torch.Tensor
 
 
+class QuantKVCache(NamedTuple):
+    """Int8 KV cache: k_q/v_q (B, S, KV, hd) int8 payloads with per-head,
+    per-slot scales k_s/v_s (B, S, KV) f32 (zero-points are static per
+    head, see :func:`quantize_kv`); pos as in :class:`KVCache`."""
+    k_q: torch.Tensor
+    v_q: torch.Tensor
+    k_s: torch.Tensor
+    v_s: torch.Tensor
+    pos: torch.Tensor
+
+
+class PagedKVCache(NamedTuple):
+    """Block-paged f32/bf16 KV cache: k/v (N, bs, KV, hd), one arena of N
+    blocks of bs cells with no batch axis; the (B, nb) block table that maps
+    lanes onto blocks travels at the top of the whole-model cache dict.
+    ``pos`` (N, bs) keeps the dead-cell sentinel; the read paths derive
+    validity from (logical cell, q_pos) instead (:func:`paged_key_positions`),
+    so a reused block's stale cells are unreadable."""
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+
+
+class PagedQuantKVCache(NamedTuple):
+    """Paged int8 KV cache: the :class:`QuantKVCache` fields over the arena
+    of :class:`PagedKVCache` — k_q/v_q (N, bs, KV, hd) int8, k_s/v_s
+    (N, bs, KV) f32, pos (N, bs)."""
+    k_q: torch.Tensor
+    v_q: torch.Tensor
+    k_s: torch.Tensor
+    v_s: torch.Tensor
+    pos: torch.Tensor
+
+
+# Arenas are zeroed, as in the reference: an idle lane's rows read block 0,
+# and an uninitialised arena could hold NaN.
+
+def _cache_size(max_len: int, cfg: AttnConfig) -> int:
+    return min(max_len, cfg.window) if cfg.window else max_len
+
+
 def init_kv_cache(batch: int, max_len: int, cfg: AttnConfig,
                   dtype=torch.bfloat16, device=None) -> KVCache:
-    size = min(max_len, cfg.window) if cfg.window else max_len
+    dev = resolve_device(device)
+    size = _cache_size(max_len, cfg)
     shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device),
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                   v=torch.zeros(shape, dtype=dtype, device=dev),
                    pos=torch.full((batch, size), -1, dtype=torch.int32,
-                                  device=device))
+                                  device=dev))
+
+
+def _quant_fields(cells, cfg: AttnConfig, dev):
+    """(k_q, v_q, k_s, v_s, pos) zeroed over ``cells`` (a shape prefix)."""
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    return (torch.zeros((*cells, kv, hd), dtype=torch.int8, device=dev),
+            torch.zeros((*cells, kv, hd), dtype=torch.int8, device=dev),
+            torch.zeros((*cells, kv), dtype=torch.float32, device=dev),
+            torch.zeros((*cells, kv), dtype=torch.float32, device=dev),
+            torch.full(cells, -1, dtype=torch.int32, device=dev))
+
+
+def init_quant_kv_cache(batch: int, max_len: int, cfg: AttnConfig,
+                        device=None) -> QuantKVCache:
+    return QuantKVCache(*_quant_fields((batch, _cache_size(max_len, cfg)),
+                                       cfg, resolve_device(device)))
+
+
+def init_paged_kv_cache(num_blocks: int, block_size: int, cfg: AttnConfig,
+                        dtype=torch.bfloat16, device=None) -> PagedKVCache:
+    dev = resolve_device(device)
+    shape = (num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+    return PagedKVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                        v=torch.zeros(shape, dtype=dtype, device=dev),
+                        pos=torch.full((num_blocks, block_size), -1,
+                                       dtype=torch.int32, device=dev))
+
+
+def init_paged_quant_kv_cache(num_blocks: int, block_size: int,
+                              cfg: AttnConfig,
+                              device=None) -> PagedQuantKVCache:
+    return PagedQuantKVCache(*_quant_fields((num_blocks, block_size), cfg,
+                                            resolve_device(device)))
+
+
+def paged_capacity(block_table, block_size: int,
+                   window: Optional[int]) -> int:
+    """A layer's logical capacity over a paged cache: the table's
+    nb * bs cells, wrapped at the window for ring (sliding-window) layers."""
+    cap = block_table.shape[-1] * block_size
+    return min(cap, window) if window else cap
+
+
+def quantize_kv(x, grid_scale=None, zero_point=None):
+    """Per-head int8 quantization over the last axis (..., KV, hd).
+
+    Without a calibration each (token, head) vector gets its own symmetric
+    scale amax/127. With a calibrated site grid (``grid_scale`` and
+    ``zero_point`` (KV,) from ``deploy.kv_quant_for``) the write re-uses the
+    site's affine grid shifted onto int8, so values the simulate path
+    already fake-quantized store exactly; the zero-point is static per head
+    and corrected inside the decode kernels. Returns (q int8, scale f32 of
+    shape x.shape[:-1])."""
+    xf = x.float()
+    if zero_point is not None:
+        s = torch.as_tensor(grid_scale, dtype=torch.float32,
+                            device=x.device).expand(xf.shape[:-1])
+        z = torch.as_tensor(zero_point, dtype=torch.float32, device=x.device)
+        q = torch.clamp(torch.round(xf / s[..., None]) + z[..., None],
+                        -128, 127).to(torch.int8)
+        return q, s
+    s = xf.abs().amax(dim=-1) / 127.0
+    if grid_scale is not None:
+        s = torch.maximum(s, torch.as_tensor(grid_scale, dtype=torch.float32,
+                                             device=x.device))
+    s = torch.clamp_min(s, torch.finfo(torch.float32).tiny)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127,
+                    127).to(torch.int8)
+    return q, s
+
+
+def dequantize_kv(cache, kvq=None):
+    """(k, v) f32 views of a quantized cache; ``kvq`` (deploy.KVQuant)
+    carries the static zero-points it was written with (None: symmetric)."""
+    kq, vq = cache.k_q.float(), cache.v_q.float()
+    if kvq is not None:
+        kq = kq - kvq.k_zp.float()[..., None]
+        vq = vq - kvq.v_zp.float()[..., None]
+    return kq * cache.k_s[..., None], vq * cache.v_s[..., None]
 
 
 def _mask(q_pos, k_pos, cfg: AttnConfig):
@@ -146,10 +271,22 @@ def _write_slots(pw, S, window):
     return torch.where(pw >= 0, base, torch.full_like(pw, S))
 
 
-def _write_kv(cache: KVCache, k_new, v_new, pw, slots) -> KVCache:
+def _quantize_kv_writes(k_new, v_new, kvq):
+    """(kq, ks, vq, vs) on the cache's int8 grid (``kvq``: calibrated)."""
+    if kvq is None:
+        kq, ks = quantize_kv(k_new)
+        vq, vs = quantize_kv(v_new)
+    else:
+        kq, ks = quantize_kv(k_new, kvq.k_grid, kvq.k_zp)
+        vq, vs = quantize_kv(v_new, kvq.v_grid, kvq.v_zp)
+    return kq, ks, vq, vs
+
+
+def _write_kv(cache, k_new, v_new, pw, slots, kvq=None):
     """New cache with the (B, T) new tokens written at ``slots``; slots
     equal to S (dead cells) write nothing. Live slots of one lane are
-    distinct (positions are), so each cell has at most one source."""
+    distinct (positions are), so each cell has at most one source. An int8
+    cache quantizes the tokens first (per-head, per-slot scales)."""
     B, S = cache.pos.shape
     hit = slots[:, :, None] == torch.arange(S, device=slots.device)
     has = hit.any(dim=1)                                 # (B, S)
@@ -161,20 +298,250 @@ def _write_kv(cache: KVCache, k_new, v_new, pw, slots) -> KVCache:
         gathered = torch.gather(new.to(old.dtype), 1, idx)
         return torch.where(has.reshape(B, S, *tail), gathered, old)
 
+    if isinstance(cache, QuantKVCache):
+        kq, ks, vq, vs = _quantize_kv_writes(k_new, v_new, kvq)
+        return QuantKVCache(k_q=put(cache.k_q, kq), v_q=put(cache.v_q, vq),
+                            k_s=put(cache.k_s, ks), v_s=put(cache.v_s, vs),
+                            pos=put(cache.pos, pw.to(cache.pos.dtype)))
     return KVCache(k=put(cache.k, k_new), v=put(cache.v, v_new),
                    pos=put(cache.pos, pw.to(cache.pos.dtype)))
 
 
+def _write_paged_kv(cache, k_new, v_new, pw, block_table, window, kvq=None):
+    """New arena with the (B, T) tokens written through the lanes' block
+    table: logical cell ``pw % s_cap``, physical block from the table. Dead
+    cells (pw < 0) and unmapped blocks are dropped. Functional: each field
+    is copied once with a spare row at its end, the tokens are scattered
+    into the copy (dropped writes all land on the spare row) and the spare
+    row is cut off again."""
+    num_blocks, bs = cache.pos.shape
+    s_cap = paged_capacity(block_table, bs, window)
+    L = torch.remainder(torch.clamp_min(pw, 0), s_cap)
+    phys = torch.gather(block_table, 1, (L // bs).long())
+    dead = (pw < 0) | (phys < 0)
+    flat = torch.where(dead, num_blocks * bs, phys * bs + L % bs)
+    flat = flat.reshape(-1).long()
+
+    def put(arena, new):
+        rows = arena.reshape(num_blocks * bs, *arena.shape[2:])
+        rows = torch.cat([rows, rows[:1]]).index_copy(
+            0, flat, new.reshape(flat.shape[0], *arena.shape[2:]).to(
+                arena.dtype))
+        return rows[:-1].reshape(arena.shape)
+
+    pos = put(cache.pos, pw)
+    if isinstance(cache, PagedQuantKVCache):
+        kq, ks, vq, vs = _quantize_kv_writes(k_new, v_new, kvq)
+        return PagedQuantKVCache(k_q=put(cache.k_q, kq),
+                                 v_q=put(cache.v_q, vq),
+                                 k_s=put(cache.k_s, ks),
+                                 v_s=put(cache.v_s, vs), pos=pos)
+    return PagedKVCache(k=put(cache.k, k_new), v=put(cache.v, v_new),
+                        pos=pos)
+
+
+def paged_key_positions(block_table, q_pos, s_cap: int, block_size: int):
+    """Derived key positions (B, nb*bs) of each lane's block view (nb =
+    ceil(s_cap / bs)): cell L holds ``q_pos - ((q_pos - L) mod s_cap)``;
+    unwritten, stale and unmapped cells and idle lanes derive -1."""
+    return paged_positions_ref(kops._lane_blocks(block_table, s_cap,
+                                                 block_size),
+                               q_pos, s_cap=s_cap, block_size=block_size)
+
+
+def paged_gather_kv(cache, block_table, window, kvq=None):
+    """Dense (B, nb*bs, KV, hd) f32 view of each lane's blocks (the read
+    path of chunked prefill and of sites the kernels cannot express); int8
+    arenas dequantize on gather. Pair with :func:`paged_key_positions`."""
+    bs = cache.pos.shape[1]
+    cols = kops._lane_blocks(block_table,
+                             paged_capacity(block_table, bs, window), bs)
+    if isinstance(cache, PagedQuantKVCache):
+        kq = paged_gather_ref(cache.k_q, cols).float()
+        vq = paged_gather_ref(cache.v_q, cols).float()
+        if kvq is not None:
+            kq = kq - kvq.k_zp.float()[..., None]
+            vq = vq - kvq.v_zp.float()[..., None]
+        return (kq * paged_gather_ref(cache.k_s, cols)[..., None],
+                vq * paged_gather_ref(cache.v_s, cols)[..., None])
+    return (paged_gather_ref(cache.k, cols).float(),
+            paged_gather_ref(cache.v, cols).float())
+
+
+def reset_paged_lanes(cache, lane_mask, block_table):
+    """Empty every block the masked lanes map (``pos`` -> -1; payloads
+    stay, masked by position). Takes (N, bs) and stacked (n, N, bs)
+    arenas; the block table itself is host-owned and not touched."""
+    num_blocks = cache.pos.shape[-2]
+    ids = torch.where(lane_mask.bool()[:, None] & (block_table >= 0),
+                      block_table, num_blocks).reshape(-1).long()
+    hit = torch.zeros(num_blocks + 1, dtype=torch.bool,
+                      device=cache.pos.device)
+    hit[ids] = True
+    return cache._replace(pos=torch.where(hit[:num_blocks, None], -1,
+                                          cache.pos))
+
+
+def reset_kv_lanes(cache, lane_mask, batch_axis: int = 0):
+    """Empty the masked batch lanes of a dense (int8) cache for slot reuse:
+    ``pos`` -> -1 on those lanes; payloads and scales stay, masked by
+    position. ``batch_axis`` is 1 for stacked leaves."""
+    shape = [1] * cache.pos.dim()
+    shape[batch_axis] = lane_mask.shape[0]
+    return cache._replace(pos=torch.where(lane_mask.bool().reshape(shape),
+                                          -1, cache.pos))
+
+
+# ---------------------------------------------------------------------------
+# Decode through the attention kernels
+# ---------------------------------------------------------------------------
+
+def _sites_active(ctx) -> bool:
+    if ctx is None or not ctx.act_state:
+        return False
+    from repro_torch.core.calibration import Mode
+    return ctx.mode in (Mode.APPLY, Mode.DEPLOY)
+
+
+def _site_quant(ctx, site):
+    """((scale, zp) (2,), qmin, qmax) of an in-kernel fake-quant site;
+    (None, 0, 0) when inactive; False when calibrated but not per-tensor
+    (the caller then falls back to dequantize-then-attend)."""
+    qp = ctx.act_state.get(site)
+    acfg = ctx.policy.act_config(site)
+    if qp is None or not acfg.enabled:
+        return None, 0, 0
+    if qp.scale.numel() != 1 or qp.group_index is not None:
+        return False
+    sm = torch.stack([qp.scale.float().reshape(()),
+                      qp.zero_point.float().reshape(())])
+    return sm, acfg.qmin, acfg.qmax
+
+
+def _q_site_quant(ctx, prefix):
+    """(scale, shifted zero-point, qmin, qmax, shift) of the calibrated
+    per-tensor 8-bit ``{prefix}/q`` site, or None: queries that site
+    already fake-quantized enter the kernel exactly."""
+    qp = ctx.act_state.get(f"{prefix}/q")
+    acfg = ctx.policy.act_config(f"{prefix}/q")
+    if qp is None or not acfg.enabled or acfg.bits != 8 \
+            or qp.scale.numel() != 1:
+        return None
+    shift = 128 if acfg.qmin == 0 else 0
+    return (qp.scale.float().reshape(()), qp.zero_point.float().reshape(()),
+            acfg.qmin, acfg.qmax, shift)
+
+
+def _decode_site_params(ctx, prefix):
+    """(site kwargs of the decode kernels, q site), or None when a
+    calibrated softmax site is not per-tensor (the caller falls back)."""
+    sm_quant = smo_quant = None
+    sm_qmin = sm_qmax = smo_qmin = smo_qmax = 0
+    q_site = None
+    if _sites_active(ctx):
+        sm = _site_quant(ctx, f"{prefix}/softmax_in")
+        smo = _site_quant(ctx, f"{prefix}/softmax_out")
+        if sm is False or smo is False:
+            return None
+        sm_quant, sm_qmin, sm_qmax = sm
+        smo_quant, smo_qmin, smo_qmax = smo
+        q_site = _q_site_quant(ctx, prefix)
+    return (dict(sm_quant=sm_quant, sm_qmin=sm_qmin, sm_qmax=sm_qmax,
+                 smo_quant=smo_quant, smo_qmin=smo_qmin,
+                 smo_qmax=smo_qmax), q_site)
+
+
+def _quantize_decode_q(qg, q_site):
+    """(q_q int8, scales (B, KV, G), zero-points or None): on the
+    calibrated ``{prefix}/q`` grid shifted onto int8 when there is one,
+    else dynamic symmetric per head."""
+    B, KV, G, _ = qg.shape
+    if q_site is not None:
+        s_q, z_q, qmin, qmax, shift = q_site
+        q_q = (torch.clamp(torch.round(qg / s_q) + z_q, qmin, qmax)
+               - shift).to(torch.int8)
+        return (q_q, s_q.reshape(1, 1, 1).expand(B, KV, G),
+                (z_q - shift).reshape(1, 1, 1).expand(B, KV, G))
+    qs = torch.clamp_min(qg.abs().amax(dim=-1) / 127.0,
+                         torch.finfo(torch.float32).tiny)
+    q_q = torch.clamp(torch.round(qg / qs[..., None]), -127,
+                      127).to(torch.int8)
+    return q_q, qs, None
+
+
+def _kv_zero_points(kvq, B, KV):
+    if kvq is None:
+        return None, None
+    return (kvq.k_zp.float().expand(B, KV), kvq.v_zp.float().expand(B, KV))
+
+
+def _kernel_decode_attend(q, cache, block_table, q_pos, cfg: AttnConfig,
+                          ctx, prefix, kvq=None):
+    """Decode step through the attention kernel of the cache's type: K5
+    (int8), K6 (paged int8) or K7 (paged f32/bf16). Int8 kernels take the
+    queries on the ``{prefix}/q`` grid (or dynamic per head) with the
+    attention scale folded into their scales; K7 takes it folded into q.
+    Returns (B, 1, H, hd) in q.dtype, or None when a site is not
+    per-tensor (the caller then reads the cache back and attends)."""
+    if not cfg.causal:
+        return None
+    site = _decode_site_params(ctx, prefix)
+    if site is None:
+        return None
+    sm_kwargs, q_site = site
+    B, _, H, hd = q.shape
+    KV, G = cfg.num_kv_heads, cfg.q_groups
+    qg = q.reshape(B, KV, G, hd).float()
+    kw = dict(window=cfg.window, logit_softcap=cfg.logit_softcap,
+              **sm_kwargs)
+    if isinstance(cache, (PagedKVCache, PagedQuantKVCache)):
+        kw["s_cap"] = paged_capacity(block_table, cache.pos.shape[1],
+                                     cfg.window)
+    if isinstance(cache, PagedKVCache):
+        out = kops.paged_attend_decode(qg * cfg.scale, cache.k, cache.v,
+                                       block_table, q_pos[:, 0], **kw)
+    else:
+        q_q, qs, qz = _quantize_decode_q(qg, q_site)
+        kz, vz = _kv_zero_points(kvq, B, KV)
+        args = (q_q, qs * cfg.scale, cache.k_q, cache.k_s, cache.v_q,
+                cache.v_s)
+        kw.update(q_zp=qz, k_zp=kz, v_zp=vz)
+        if isinstance(cache, PagedQuantKVCache):
+            out = kops.paged_int8_attend_decode(*args, block_table,
+                                                q_pos[:, 0], **kw)
+        else:
+            out = kops.int8_attend_decode(*args, cache.pos, q_pos[:, 0],
+                                          **kw)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def _prev_positions(positions):
+    """Per-lane position of the last token before this chunk: one less than
+    the lane's first live position, -1 for lanes with no live row."""
+    live = positions >= 0
+    big = torch.where(live, positions,
+                      torch.full_like(positions, torch.iinfo(torch.int32).max))
+    start = big.amin(dim=1)
+    return torch.where(live.any(dim=1), start - 1, torch.full_like(start, -1))
+
+
 def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
-                    prefix="attn", cache: Optional[KVCache] = None,
-                    chunked: Optional[bool] = None):
+                    prefix="attn", cache=None, chunked: Optional[bool] = None,
+                    block_table=None, append: bool = False):
     """x: (B, T, D) — or, in DEPLOY, a QTensor int8 norm output with packed
     projection weights (QKV and Wo then run on the int8 matmul kernel).
     p: wq (D,H*hd), wk/wv (D,KV*hd), wo (H*hd,D).
 
     Prefill (T > 1) attends over the fresh K/V and writes the last
     min(T, S) tokens into the cache; decode (T == 1) writes the new token
-    and attends over the cache. Returns (out, new_cache)."""
+    and attends over the cache, through K5 (int8), K6 (paged int8) or K7
+    (paged f32/bf16) where the cache has that type. Paged caches need the
+    ``block_table`` (B, nb) of the whole-model cache.
+
+    ``append=True`` is chunked prefill: the T tokens are one chunk appended
+    at each lane's position, so the queries attend over the cache as it was
+    before the write (the lane's earlier chunks, read back as decode would
+    read them) plus the fresh chunk. Returns (out, new_cache)."""
     from repro_torch.core import deploy as deploy_lib
     x_int8 = isinstance(x, deploy_lib.QTensor)
     B, T, _ = x.shape
@@ -207,27 +574,80 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
 
     positions = positions.expand(B, T)
     new_cache = None
+    out = None
+    k_att, v_att, kpos_att = k, v, positions
     if cache is not None:
-        if not isinstance(cache, KVCache):
+        paged = isinstance(cache, (PagedKVCache, PagedQuantKVCache))
+        quantized = isinstance(cache, (QuantKVCache, PagedQuantKVCache))
+        if not (paged or quantized or isinstance(cache, KVCache)):
             raise NotImplementedError(
-                f"{type(cache).__name__}: quantized and paged KV caches are "
-                "not yet ported")
-        S = cache.pos.shape[1]
+                f"{type(cache).__name__}: this KV cache type is not yet "
+                "ported")
+        kvq = ctx.deploy_act(f"{prefix}/kv") \
+            if (quantized and ctx is not None) else None
+        if paged:
+            if block_table is None:
+                raise ValueError("paged KV cache needs the block_table of "
+                                 "the whole-model cache")
+            bs = cache.pos.shape[1]
+            S = paged_capacity(block_table, bs, cfg.window)
+        else:
+            S = cache.pos.shape[1]
         if T > 1:
+            if append:
+                # the cache before this chunk's write: ring cells the chunk
+                # overwrites still show their old occupant to its earlier
+                # queries
+                if paged:
+                    k_past, v_past = paged_gather_kv(cache, block_table,
+                                                     cfg.window, kvq)
+                    kpos_past = paged_key_positions(
+                        block_table, _prev_positions(positions), S, bs)
+                elif quantized:
+                    k_past, v_past = dequantize_kv(cache, kvq)
+                    kpos_past = cache.pos
+                else:
+                    k_past, v_past, kpos_past = cache.k, cache.v, cache.pos
             keep = min(T, S)
-            pw = positions[:, -keep:]
-            new_cache = _write_kv(cache, k[:, -keep:], v[:, -keep:], pw,
-                                  _write_slots(pw, S, cfg.window))
-            k_att, v_att, kpos_att = k, v, positions
+            kw, vw, pw = k[:, -keep:], v[:, -keep:], positions[:, -keep:]
+            if paged:
+                new_cache = _write_paged_kv(cache, kw, vw, pw, block_table,
+                                            cfg.window, kvq)
+            else:
+                new_cache = _write_kv(cache, kw, vw, pw,
+                                      _write_slots(pw, S, cfg.window), kvq)
+            if append:
+                k_att = torch.cat([k_past.to(k.dtype), k], dim=1)
+                v_att = torch.cat([v_past.to(v.dtype), v], dim=1)
+                kpos_att = torch.cat([kpos_past.to(positions.dtype),
+                                      positions], dim=1)
+        elif paged:
+            new_cache = _write_paged_kv(cache, k, v, positions, block_table,
+                                        cfg.window, kvq)
+            out = _kernel_decode_attend(q, new_cache, block_table, positions,
+                                        cfg, ctx, prefix, kvq)
+            if out is None:
+                k_att, v_att = paged_gather_kv(new_cache, block_table,
+                                               cfg.window, kvq)
+                kpos_att = paged_key_positions(block_table, positions[:, 0],
+                                               S, bs)
         else:
             new_cache = _write_kv(cache, k, v, positions,
-                                  _write_slots(positions, S, cfg.window))
-            k_att, v_att, kpos_att = new_cache.k, new_cache.v, new_cache.pos
-    else:
-        k_att, v_att, kpos_att = k, v, positions
+                                  _write_slots(positions, S, cfg.window),
+                                  kvq)
+            if quantized:
+                out = _kernel_decode_attend(q, new_cache, None, positions,
+                                            cfg, ctx, prefix, kvq)
+                if out is None:
+                    k_att, v_att = dequantize_kv(new_cache, kvq)
+                    kpos_att = new_cache.pos
+            else:
+                k_att, v_att, kpos_att = (new_cache.k, new_cache.v,
+                                          new_cache.pos)
 
-    out = attend(q, k_att.to(q.dtype), v_att.to(q.dtype), positions,
-                 kpos_att, cfg, ctx=ctx, prefix=prefix, chunked=chunked)
+    if out is None:
+        out = attend(q, k_att.to(q.dtype), v_att.to(q.dtype), positions,
+                     kpos_att, cfg, ctx=ctx, prefix=prefix, chunked=chunked)
     out2d = out.reshape(B, T, H * hd)
     if x_int8:
         wo_aq = ctx.deploy_act(f"{prefix}/wo_in")

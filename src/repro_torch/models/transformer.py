@@ -18,15 +18,18 @@ Quantization sites per block (paper Fig. 1 / Table 2 naming):
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import ffn as ffn_lib
-from repro_torch.models.attention import (AttnConfig, attention_block,
-                                          init_attention_params,
-                                          init_kv_cache)
+from repro_torch.models.attention import (
+    AttnConfig, KVCache, PagedKVCache, PagedQuantKVCache, QuantKVCache,
+    attention_block, init_attention_params, init_kv_cache,
+    init_paged_kv_cache, init_paged_quant_kv_cache, init_quant_kv_cache,
+    reset_kv_lanes, reset_paged_lanes)
 from repro_torch.models.common import embed_init, rms_norm, resolve_weight, \
     softcap
 
@@ -99,14 +102,16 @@ def _attn_input(cfg: ModelConfig, p, x, ctx, prefix):
 
 
 def block_apply(cfg: ModelConfig, kind: str, p, x, positions, *, ctx=None,
-                prefix="layer", cache=None, chunked=None):
+                prefix="layer", cache=None, chunked=None, block_table=None,
+                append: bool = False):
     """One transformer block. Returns (x, new_cache)."""
     if kind not in ("attn", "local_attn"):
         raise NotImplementedError(f"block kind {kind!r} is not yet ported")
     h = _attn_input(cfg, p, x, ctx, prefix)
     attn_out, new_cache = attention_block(
         p["attn"], h, positions, attn_cfg_for(cfg, kind), ctx=ctx,
-        prefix=f"{prefix}/attn", cache=cache, chunked=chunked)
+        prefix=f"{prefix}/attn", cache=cache, chunked=chunked,
+        block_table=block_table, append=append)
     if cfg.post_norm:
         attn_out = _norm(cfg, p["post_ln1"], attn_out)
     x = x + attn_out
@@ -172,10 +177,11 @@ def _layer(tree, s: int):
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, stacked: bool = True,
                 dtype=torch.bfloat16, device=None):
-    """Random weights from ``seed`` (the reference's distributions). Layers
-    are drawn in layer order from one generator, so both layouts of one
-    seed hold the same weights."""
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    """Random weights from ``seed`` (the reference's distributions), on
+    ``device`` (None: the GPU). Layers are drawn in layer order from one
+    generator, so both layouts of one seed hold the same weights."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
     plan = cfg.layer_plan
     layers = [init_block_params(cfg, kind, gen, dtype, device)
               for kind in plan]
@@ -196,26 +202,171 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, stacked: bool = True,
     return params
 
 
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     dtype=torch.bfloat16, kv_bits: int = 16,
+                     paged_blocks: Optional[Tuple[int, int]] = None,
+                     device=None):
+    """One attention layer's cache: dense or paged (``paged_blocks`` =
+    (num_blocks, block_size)), f32/bf16 (kv_bits 16) or int8 (kv_bits 8)."""
+    if kind not in ("attn", "local_attn"):
+        raise NotImplementedError(f"{kind!r} caches are not yet ported")
+    if kv_bits not in (8, 16):
+        raise NotImplementedError(f"kv_bits={kv_bits} caches are not yet "
+                                  "ported")
+    acfg = attn_cfg_for(cfg, kind)
+    if paged_blocks is not None:
+        num_blocks, block_size = paged_blocks
+        if kv_bits == 8:
+            return init_paged_quant_kv_cache(num_blocks, block_size, acfg,
+                                             device)
+        return init_paged_kv_cache(num_blocks, block_size, acfg, dtype,
+                                   device)
+    if kv_bits == 8:
+        return init_quant_kv_cache(batch, max_len, acfg, device)
+    return init_kv_cache(batch, max_len, acfg, dtype, device)
+
+
+def attn_write_spans(cfg: ModelConfig, max_len: int) -> List[int]:
+    """Per attention layer, the distinct cache cells a lane can occupy:
+    ``min(max_len, window)`` for ring layers, ``max_len`` for global."""
+    spans = []
+    for kind in cfg.layer_plan:
+        if kind in ("attn", "local_attn"):
+            w = attn_cfg_for(cfg, kind).window
+            spans.append(min(max_len, w) if w else max_len)
+    return spans
+
+
+def paged_lane_blocks(cfg: ModelConfig, max_len: int,
+                      block_size: int) -> int:
+    """Block-table width per lane: ceil(max(write spans) / block_size)."""
+    spans = attn_write_spans(cfg, max_len)
+    if not spans:
+        raise ValueError(f"{cfg.name}: no attention layers to page")
+    return -(-max(spans) // block_size)
+
+
+def attn_write_caps(cfg: ModelConfig, max_len: int,
+                    block_size: int) -> List[int]:
+    """The distinct paged write capacities (tokens) of the attention layers:
+    ``min(table width * block_size, window)`` per layer (see
+    attention.paged_capacity), sorted."""
+    width = paged_lane_blocks(cfg, max_len, block_size)
+    caps = set()
+    for kind in cfg.layer_plan:
+        if kind in ("attn", "local_attn"):
+            w = attn_cfg_for(cfg, kind).window
+            caps.add(min(width * block_size, w) if w else width * block_size)
+    return sorted(caps)
+
+
+def paged_ring_tokens(cfg: ModelConfig, max_len: int,
+                      block_size: int) -> Optional[int]:
+    """When every attention layer is a ring smaller than ``max_len``, the
+    largest window: a lane never needs more cells however long it decodes.
+    None for models with a global layer."""
+    windows = []
+    for kind in cfg.layer_plan:
+        if kind in ("attn", "local_attn"):
+            w = attn_cfg_for(cfg, kind).window
+            if not w or w >= max_len:
+                return None
+            windows.append(w)
+    return max(windows) if windows else None
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                stacked: bool = True, dtype=torch.bfloat16, kv_bits: int = 16,
-               paged: bool = False, device=None):
-    """Dense bf16/f32 KV caches for every attention layer, in the params'
-    layout. Quantized (kv_bits 8/4) and paged caches are not yet ported."""
-    if kv_bits != 16 or paged:
-        raise NotImplementedError("quantized and paged KV caches are not yet "
-                                  "ported")
+               paged: bool = False, block_size: int = 16,
+               num_blocks: Optional[int] = None,
+               mapped: Optional[bool] = None, device=None):
+    """KV caches for every attention layer, in the params' layout, on
+    ``device`` (None: the GPU). kv_bits 8 stores int8 caches, 16 keeps
+    ``dtype``.
+
+    ``paged=True`` gives every layer one arena of ``num_blocks`` blocks of
+    ``block_size`` cells (default: the worst case ``batch *
+    paged_lane_blocks``) and puts one (batch, nb) ``"block_table"`` at the
+    top of the dict, shared by every layer. ``mapped`` (default: True iff
+    ``num_blocks`` was left at the worst case) maps the identity table —
+    lane i owns blocks [i*nb, (i+1)*nb) — which makes the paged cache a
+    drop-in for the dense one; pool-managed serving starts unmapped (-1)
+    and lets ``runtime.block_pool.BlockPool`` own the table."""
+    device = resolve_device(device)
+    paged_blocks = None
+    table = None
+    if paged:
+        nb_lane = paged_lane_blocks(cfg, max_len, block_size)
+        if mapped is None:
+            mapped = num_blocks is None
+        if num_blocks is None:
+            num_blocks = batch * nb_lane
+        paged_blocks = (num_blocks, block_size)
+        if mapped:
+            if num_blocks < batch * nb_lane:
+                raise ValueError(
+                    f"mapped paged cache needs num_blocks >= "
+                    f"batch*{nb_lane} = {batch * nb_lane}, got {num_blocks}")
+            table = torch.arange(batch * nb_lane, dtype=torch.int32,
+                                 device=device).reshape(batch, nb_lane)
+        else:
+            table = torch.full((batch, nb_lane), -1, dtype=torch.int32,
+                               device=device)
 
     def blk(kind):
-        if kind not in ("attn", "local_attn"):
-            raise NotImplementedError(f"{kind!r} caches are not yet ported")
-        return init_kv_cache(batch, max_len, attn_cfg_for(cfg, kind), dtype,
-                             device)
+        return init_block_cache(cfg, kind, batch, max_len, dtype, kv_bits,
+                                paged_blocks, device)
 
-    if not stacked:
-        return {"layers": [blk(kind) for kind in cfg.layer_plan]}
-    return {"scan": [_stack([blk(kind)] * cfg.n_super)
-                     for kind in cfg.block_pattern],
-            "tail": [blk(kind) for kind in cfg.tail_pattern]}
+    if stacked:
+        cache = {"scan": [_stack([blk(kind)] * cfg.n_super)
+                          for kind in cfg.block_pattern],
+                 "tail": [blk(kind) for kind in cfg.tail_pattern]}
+    else:
+        cache = {"layers": [blk(kind) for kind in cfg.layer_plan]}
+    if paged:
+        cache["block_table"] = table
+    return cache
+
+
+def _cache_nodes(cache):
+    return (cache.get("layers") or
+            list(cache.get("scan", [])) + list(cache.get("tail", [])))
+
+
+def paged_block_bytes(cache) -> int:
+    """Device bytes per physical block, summed over every paged arena of
+    the cache (stacked leaves count all their layers)."""
+    total = 0
+    for node in _cache_nodes(cache):
+        if isinstance(node, (PagedKVCache, PagedQuantKVCache)):
+            n = node.pos.shape[-2]
+            total += sum(t.numel() * t.element_size() for t in node) // n
+    return total
+
+
+def cache_reset_slots(cache, lane_mask):
+    """Empty the masked lanes of a whole-model cache for slot reuse: every
+    dense cache's ``pos`` becomes -1 on those lanes (stacked leaves carry
+    the batch on axis 1), every paged arena empties the blocks those lanes
+    map through the cache's block table. Other lanes are untouched."""
+    table = cache.get("block_table")
+
+    def reset(c, axis):
+        if isinstance(c, (PagedKVCache, PagedQuantKVCache)):
+            return reset_paged_lanes(c, lane_mask, table)
+        if isinstance(c, (KVCache, QuantKVCache)):
+            return reset_kv_lanes(c, lane_mask, batch_axis=axis)
+        raise ValueError("cache_reset_slots: continuous batching supports "
+                         f"attention caches only, got {type(c).__name__}")
+
+    if "layers" in cache:
+        out = {"layers": [reset(c, 0) for c in cache["layers"]]}
+    else:
+        out = {"scan": [reset(c, 1) for c in cache["scan"]],
+               "tail": [reset(c, 0) for c in cache["tail"]]}
+    if table is not None:
+        out["block_table"] = table
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -244,19 +395,29 @@ def _head(cfg: ModelConfig, params, x, ctx):
 
 
 def forward(cfg: ModelConfig, params, tokens, *, ctx=None, cache=None,
-            positions=None, chunked=None):
+            positions=None, chunked=None, append: bool = False):
     """Returns (logits, new_cache). tokens: (B, T) int. ``positions``
     (B, T) are absolute positions (default arange; -1 marks dead cells);
-    ``cache`` must be in the params' layout."""
+    ``cache`` must be in the params' layout; its ``"block_table"`` (paged
+    caches) goes to every layer and comes back unchanged. ``append``:
+    chunked prefill (see models.attention.attention_block)."""
     B, T = tokens.shape
     x = _embed(cfg, params, tokens, ctx)
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32,
                                  device=tokens.device).expand(B, T)
 
+    block_table = cache.get("block_table") if cache is not None else None
+
     def run(kind, p, x, c, prefix):
         return block_apply(cfg, kind, p, x, positions, ctx=ctx, prefix=prefix,
-                           cache=c, chunked=chunked)
+                           cache=c, chunked=chunked, block_table=block_table,
+                           append=append)
+
+    def with_table(new_cache):
+        if block_table is not None:
+            new_cache["block_table"] = block_table
+        return new_cache
 
     if "layers" in params:
         new_layers = []
@@ -264,7 +425,8 @@ def forward(cfg: ModelConfig, params, tokens, *, ctx=None, cache=None,
             c = cache["layers"][i] if cache is not None else None
             x, nc = run(kind, params["layers"][i], x, c, f"layer{i}")
             new_layers.append(nc)
-        new_cache = {"layers": new_layers} if cache is not None else None
+        new_cache = (with_table({"layers": new_layers})
+                     if cache is not None else None)
         return _head(cfg, params, x, ctx), new_cache
 
     per_pattern = [[] for _ in cfg.block_pattern]
@@ -280,18 +442,23 @@ def forward(cfg: ModelConfig, params, tokens, *, ctx=None, cache=None,
         new_tail.append(nc)
     new_cache = None
     if cache is not None:
-        new_cache = {"scan": [_stack(ncs) for ncs in per_pattern],
-                     "tail": new_tail}
+        new_cache = with_table({"scan": [_stack(ncs)
+                                         for ncs in per_pattern],
+                                "tail": new_tail})
     return _head(cfg, params, x, ctx), new_cache
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, *, positions=None,
-            ctx=None, chunked=None):
+            ctx=None, chunked=None, append: bool = False):
     """Fill the cache from a prompt; returns (last_logits, cache). Pads of
     a left-packed ragged prompt carry position -1 (masked, never written),
-    so a packed request gets the same logits and cache lane as alone."""
+    so a packed request gets the same logits and cache lane as alone.
+    ``append=True`` appends the tokens as one chunk at each lane's position
+    (chunked prefill): a prompt split into chunks fills the cache and emits
+    its last-token logits as a monolithic prefill does."""
     logits, cache = forward(cfg, params, tokens, ctx=ctx, cache=cache,
-                            positions=positions, chunked=chunked)
+                            positions=positions, chunked=chunked,
+                            append=append)
     return logits[:, -1:], cache
 
 

@@ -8,13 +8,22 @@ Bounds as in ``tests/test_torch_kernels.py``: ``peg_quantize`` bit-exact,
 ``rms_quantize`` and int8 requant outputs within 1 LSB on at most 0.1 % of
 elements, f32 matmul outputs within 1e-5 of max|out| (the build's
 ``-fmad=false`` makes them agree exactly in practice).
+
+The decode-attention kernels (K5-K7) take their float reductions in
+another order than the plain versions (tiles with an online softmax
+against one softmax over all cells): without ``softmax_out`` the outputs
+agree within 1e-5 of max|out|; with it a probability within float rounding
+of a grid tie may land one step away, so at most 0.1 % of the output rows
+may differ, each by at most one ``softmax_out`` step x max|v|.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import fused_ln_quant as lnq
+from repro_torch.kernels import int8_attend_decode as iad
 from repro_torch.kernels import int8_matmul as imm
+from repro_torch.kernels import paged_attend_decode as pad
 from repro_torch.kernels import peg_quant as pq
 from repro_torch.kernels import ref
 
@@ -101,6 +110,135 @@ def test_int8_matmul_peg(gen, m, k, n, g, requant):
     (_assert_lsb if requant else _assert_close)(got, want)
 
 
+def assert_attend_close(got, want, smo_step, v_absmax):
+    """The decode-attention bounds of the module docstring; returns the
+    max |got - want|."""
+    err = (got - want).abs()
+    worst = float(err.max())
+    if smo_step is None:
+        assert worst <= 1e-5 * float(want.abs().max()), worst
+        return worst
+    rows = err.amax(dim=-1)
+    off = rows > 1e-5 * float(want.abs().max())
+    assert int(off.sum()) <= 1e-3 * rows.numel(), int(off.sum())
+    assert worst <= smo_step * v_absmax * (1 + 1e-5), worst
+    return worst
+
+
+def _attend_inputs(gen, b, s_len, kv, g, hd, *, zero_points):
+    """int8 queries (b, kv, g, hd) and a (b, s_len, kv, hd) int8 cache
+    with its scales; zero-points round in [-20, 20] or zeros."""
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    def ru(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                           device="cuda")
+
+    def zp(*shape):
+        return torch.round(ru(-20, 20, *shape)) if zero_points else \
+            torch.zeros(shape, device="cuda")
+    return dict(q_q=ri(b, kv, g, hd), q_scale=ru(0.01, 0.03, b, kv, g) / 16,
+                k_q=ri(b, s_len, kv, hd),
+                k_scale=ru(0.01, 0.05, b, s_len, kv),
+                v_q=ri(b, s_len, kv, hd),
+                v_scale=ru(0.01, 0.05, b, s_len, kv), q_zp=zp(b, kv, g),
+                k_zp=zp(b, kv), v_zp=zp(b, kv))
+
+
+def _v_absmax(x):
+    """An upper bound of max |(v - z_v) * v_scale|."""
+    return float((x["v_q"].float().abs().max() + x["v_zp"].abs().max())
+                 * x["v_scale"].max())
+
+
+SITES = {"none": {},
+         "softmax_in": dict(sm_quant=[0.05, 128.0], sm_qmin=0, sm_qmax=255),
+         "softmax_out": dict(sm_quant=[0.05, 128.0], sm_qmin=0, sm_qmax=255,
+                             smo_quant=[1 / 255, 0.0], smo_qmin=0,
+                             smo_qmax=255)}
+
+
+def _site_kw(name):
+    kw = dict(sm_quant=None, sm_qmin=0, sm_qmax=255, smo_quant=None,
+              smo_qmin=0, smo_qmax=255)
+    for k, v in SITES[name].items():
+        kw[k] = torch.tensor(v, device="cuda") if isinstance(v, list) else v
+    return kw
+
+
+@pytest.mark.parametrize("b,s_len,kv,g,hd,window", [
+    (4, 128, 4, 2, 256, 64), (3, 40, 2, 2, 16, 16), (2, 300, 1, 8, 64, None)])
+@pytest.mark.parametrize("site", list(SITES))
+def test_int8_attend_decode(gen, b, s_len, kv, g, hd, window, site):
+    x = _attend_inputs(gen, b, s_len, kv, g, hd, zero_points=site != "none")
+    k_pos = torch.arange(s_len, device="cuda", dtype=torch.int32).repeat(
+        b, 1)
+    k_pos[0, :3] = -1
+    q_pos = torch.full((b,), s_len - 1, device="cuda", dtype=torch.int32)
+    q_pos[-1] = -1                                      # an idle lane
+    kw = dict(window=window, logit_softcap=50.0, **_site_kw(site))
+    args = (x["q_q"], x["q_scale"], x["q_zp"], x["k_zp"], x["v_zp"],
+            x["k_q"], x["k_scale"], x["v_q"], x["v_scale"], k_pos, q_pos)
+    got = iad.int8_attend_decode_cuda(*args, **kw)
+    want = iad.int8_attend_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert_attend_close(got, want, 1 / 255 if site == "softmax_out"
+                        else None, _v_absmax(x))
+
+
+def _table(gen, b, nb, n_blocks):
+    perm = torch.randperm(n_blocks, generator=gen, device="cuda")
+    table = perm[:b * nb].reshape(b, nb).to(torch.int32)
+    table[0, -1] = -1                                    # unmapped tail
+    return table
+
+
+@pytest.mark.parametrize("b,nb,bs,kv,g,hd,s_cap,window", [
+    (4, 8, 16, 4, 2, 256, 128, 64), (3, 8, 8, 2, 2, 16, 16, 16),
+    (4, 4, 16, 2, 2, 32, 64, None)])
+@pytest.mark.parametrize("site", list(SITES))
+@pytest.mark.parametrize("quant", [True, False])
+def test_paged_attend_decode(gen, b, nb, bs, kv, g, hd, s_cap, window, site,
+                             quant):
+    n_blocks = b * nb + 3
+    table = _table(gen, b, nb, n_blocks)
+    q_pos = torch.tensor([s_cap + 5, s_cap // 2, 0, -1][:b], device="cuda",
+                         dtype=torch.int32)
+    kw = dict(s_cap=s_cap, window=window, logit_softcap=50.0,
+              **_site_kw(site))
+    x = _attend_inputs(gen, n_blocks, bs, kv, g, hd,
+                       zero_points=site != "none" and quant)
+    q_q = x["q_q"][:b].contiguous()
+    cols = table[:, :-(-s_cap // bs)].contiguous()
+    if quant:
+        args = (q_q, x["q_scale"][:b], x["q_zp"][:b], x["k_zp"][:b],
+                x["v_zp"][:b], x["k_q"], x["k_scale"], x["v_q"],
+                x["v_scale"], cols, q_pos)
+        got = pad.paged_int8_attend_decode_cuda(*args, **kw)
+        want = pad.paged_int8_attend_decode_plain(*args, **kw)
+        v_abs = _v_absmax(x)
+    else:
+        q = q_q.float() * 0.01
+        kf = x["k_q"].float() * 0.02
+        vf = (x["v_q"].float() * 0.02).to(torch.bfloat16)
+        args = (q, kf, vf.float(), cols, q_pos)
+        got = pad.paged_attend_decode_cuda(*args, **kw)
+        want = pad.paged_attend_decode_plain(*args, **kw)
+        assert_attend_close(
+            pad.paged_attend_decode_cuda(q, kf.to(torch.bfloat16), vf, cols,
+                                         q_pos, **kw),
+            pad.paged_attend_decode_plain(q, kf.to(torch.bfloat16), vf,
+                                          cols, q_pos, **kw),
+            1 / 255 if site == "softmax_out" else None,
+            float(vf.float().abs().max()))
+        v_abs = float(vf.float().abs().max())
+    torch.cuda.synchronize()
+    assert_attend_close(got, want, 1 / 255 if site == "softmax_out"
+                        else None, v_abs)
+
+
 def test_reduced_deploy_serve_launches_every_kernel(gen):
     from repro_torch.launch import serve
     fns = (lnq.rms_quantize_cuda, pq.peg_quantize_cuda,
@@ -113,3 +251,22 @@ def test_reduced_deploy_serve_launches_every_kernel(gen):
     assert stats.tokens_generated == 9
     assert all(fn.launches > 0 for fn in fns)
     assert np.isfinite(stats.tokens_per_s)
+
+
+def test_quickstart_serves_launch_the_attention_kernels(gen):
+    """The README quickstart at reduced width goes through K1-K6; the same
+    command with an f32 paged cache goes through K7."""
+    from repro_torch.launch import serve
+    argv = ["--arch", "gemma2-2b", "--reduced", "--requests", "6",
+            "--prompt-len", "24", "--new-tokens", "6", "--max-len", "64",
+            "--quantize", "--deploy-int8", "--scheduler", "continuous",
+            "--paged-kv", "--block-size", "8", "--prefill-chunk", "8"]
+    fns = (lnq.rms_quantize_cuda, pq.peg_quantize_cuda, imm.int8_matmul_cuda,
+           imm.int8_matmul_peg_cuda, iad.int8_attend_decode_cuda,
+           pad.paged_int8_attend_decode_cuda, pad.paged_attend_decode_cuda)
+    for kv_bits, used in (("8", fns[:6]), ("16", fns[6:])):
+        for fn in fns:
+            fn.launches = 0
+        stats = serve.main(argv + ["--kv-bits", kv_bits, "--parity"])
+        assert stats.tokens_generated == 36
+        assert all(fn.launches > 0 for fn in used), kv_bits

@@ -60,10 +60,29 @@ def test_launcher_defaults_to_cuda_and_raises_without_it():
         main(["--arch", "gemma2-2b", "--reduced", "--requests", "1"])
 
 
+@pytest.mark.parametrize("entry", ["init_params", "init_cache", "serve"])
+def test_entry_points_default_to_cuda_and_raise_without_it(entry):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: device=None would run on it")
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import Request, serve
+    cfg = get_config("gemma2-2b").reduced()
+    calls = {
+        "init_params": lambda: tfm.init_params(cfg, 0),
+        "init_cache": lambda: tfm.init_cache(cfg, 2, 16, kv_bits=8,
+                                             paged=True, block_size=8),
+        "serve": lambda: serve(None, None, None, None,
+                               [Request(rid=0, prompt=[1, 2])],
+                               batch_slots=1)}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+
+
 def test_launcher_rejects_unported_flags():
     from repro_torch.launch.serve import main
-    for extra in (["--kv-bits", "8"], ["--paged-kv"],
-                  ["--scheduler", "continuous"]):
+    for extra in (["--kv-bits", "4"], ["--prefix-cache"], ["--over-commit"],
+                  ["--async"]):
         with pytest.raises(SystemExit):
             main(["--arch", "gemma2-2b", "--reduced", "--quantize",
                   "--deploy-int8"] + extra, device="cpu")
