@@ -8,14 +8,15 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure ends the run with a non-zero exit before the last line):
 
 1. build   — compile every CUDA kernel from ``src/repro_torch/csrc``.
-2. kernels — hold each kernel against its plain PyTorch version on the card
-             at the full-width gemma2-2b shapes of the serving path (B=4,
-             T=16; attention decode B=4, 4 KV heads x 2, head_dim 256, S =
-             128 and the 4096-cell local window) and at the reduced shapes,
-             with the tolerances of the CPU parity tests, and time kernel,
-             plain version and, where one exists, a PyTorch library call
-             computing the same function (CUDA events, L2 flushed before
-             every launch).
+2. kernels — hold each kernel and each 4-bit variant against its plain
+             PyTorch version on the card at the full-width gemma2-2b shapes
+             of the serving path (B=4, T=16; attention decode B=4, 4 KV
+             heads x 2, head_dim 256, S = 128 and the 4096-cell local
+             window), at the reduced shapes and (K8-K10) at the reference
+             bench's 4k x 4k, with the tolerances of the CPU parity tests,
+             and time kernel, plain version and, where one exists, a
+             PyTorch library call computing the same function (CUDA events,
+             L2 flushed before every launch).
 3. full    — serve gemma2-2b at full width (26 layers, d 2304, bf16) through
              ``repro_torch.launch.serve.main`` with W8A8 PTQ + the integer
              deploy path, static scheduler; the K1/K3/K4 launch counters
@@ -36,6 +37,19 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              6 chunk steps).
 7. reduced paged kv16 — the same command with ``--kv-bits 16``: K7 must
              move and the parity lines must print.
+8. full quickstart 4-bit — phase 5 with ``--weight-bits 4 --kv-bits 4``:
+             K1, K3-w4 (the q4 attention projections), K4, K5-kv4 (the
+             ``[kv-int4]`` check) and K6-kv4 (every decode) must move; the
+             q4 payload count, the packed-weight bytes, the ``[kv-int4]``
+             lines and the peak KV-cache bytes beside phase 5's print.
+9. reduced quickstart 4-bit — phase 6 with the same flags: K2-w4 must move
+             too, the counts must be the reference's, and the parity lines
+             print as match rates (int4 drift is reported, not asserted, as
+             in the reference).
+10. entry points — K8-K10, which no ported model reaches, through
+             ``ops`` as the reference's kernel bench calls them and (K8)
+             through ``deploy.norm_quantize("layernorm", ...)``: each must
+             move.
 
 In every serving phase every request must get its tokens. The reduced
 runs' integer-path logits must match the fake-quant path they replace
@@ -71,25 +85,30 @@ PEAK_F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 D, FF, Q_OUT, KV_OUT = 2304, 9216, 2048, 1024   # gemma2-2b widths
 B, T = 4, 16
 ATT_KV, ATT_G, ATT_HD, LOCAL_WINDOW = 4, 2, 256, 4096   # gemma2-2b attention
-SOURCE = {"rms_quantize": "src/repro_torch/csrc/norm_quant.cu",
-          "peg_quantize": "src/repro_torch/csrc/peg_quant.cu",
-          "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
-          "int8_matmul_peg": "src/repro_torch/csrc/int8_matmul.cu",
-          "int8_attend_decode": "src/repro_torch/csrc/int8_attend_decode.cu",
-          "paged_int8_attend_decode":
-              "src/repro_torch/csrc/paged_attend_decode.cu",
-          "paged_attend_decode":
-              "src/repro_torch/csrc/paged_attend_decode.cu"}
-REPLACES = {"rms_quantize": "src/repro/kernels/fused_ln_quant.py:111",
-            "peg_quantize": "src/repro/kernels/peg_quant.py:67",
-            "int8_matmul": "src/repro/kernels/int8_matmul.py:121",
-            "int8_matmul_peg": "src/repro/kernels/int8_matmul.py:245",
-            "int8_attend_decode":
-                "src/repro/kernels/int8_attend_decode.py:168",
-            "paged_int8_attend_decode":
-                "src/repro/kernels/paged_attend_decode.py:270",
-            "paged_attend_decode":
-                "src/repro/kernels/paged_attend_decode.py:230"}
+_CSRC, _TPU = "src/repro_torch/csrc/", "src/repro/kernels/"
+# every kernel and 4-bit variant: (its CUDA source, the TPU kernel it
+# replaces); the 4-bit variants replace the same TPU entry points
+KERNELS = {
+    "rms_quantize": ("norm_quant.cu", "fused_ln_quant.py:111"),
+    "peg_quantize": ("peg_quant.cu", "peg_quant.py:67"),
+    "int8_matmul": ("int8_matmul.cu", "int8_matmul.py:121"),
+    "int8_matmul_peg": ("int8_matmul.cu", "int8_matmul.py:245"),
+    "int8_attend_decode": ("int8_attend_decode.cu",
+                           "int8_attend_decode.py:168"),
+    "paged_int8_attend_decode": ("paged_attend_decode.cu",
+                                 "paged_attend_decode.py:270"),
+    "paged_attend_decode": ("paged_attend_decode.cu",
+                            "paged_attend_decode.py:230"),
+    "int8_matmul_w4": ("int8_matmul.cu", "int8_matmul.py:121"),
+    "int8_matmul_peg_w4": ("int8_matmul.cu", "int8_matmul.py:245"),
+    "int8_attend_decode_kv4": ("int8_attend_decode.cu",
+                               "int8_attend_decode.py:168"),
+    "paged_int8_attend_decode_kv4": ("paged_attend_decode.cu",
+                                     "paged_attend_decode.py:270"),
+    "ln_quantize": ("norm_quant.cu", "fused_ln_quant.py:93"),
+    "rms_fake_quant": ("norm_quant.cu", "fused_ln_quant.py:102"),
+    "ln_fake_quant": ("norm_quant.cu", "fused_ln_quant.py:84"),
+    "peg_fake_quant": ("peg_quant.cu", "peg_quant.py:38")}
 
 
 class SmokeFailure(RuntimeError):
@@ -289,8 +308,171 @@ def kernel_phase():
                        err, ms, p_ms, None, nbytes, 2 * m * FF * D,
                        PEAK_INT8_OPS_PER_S,
                        m == B * T and g == 4 and not requant)
+    w4_cases(gen, flush, record, randint8, uniform, randn)
+    norm_cases(gen, flush, record, uniform, randn)
     attend_cases(gen, flush, record)
     return records
+
+
+def w4_cases(gen, flush, record, randint8, uniform, randn):
+    """The w_bits=4 variants of K3 and K2: (K/2, N) pairwise-row nibbles
+    against the plain version (which unpacks, then computes as at 8 bits),
+    at the full-width shapes of the 4-bit serving path and the reduced
+    width's 16-wide PEG groups. The library yardstick of K3-w4 is
+    ``torch._int_mm`` on the unpacked weight plus the epilogue."""
+    import torch
+    from repro_torch.kernels import int8_matmul as imm
+    from repro_torch.kernels.nibble import pack_rows
+    from repro_torch.kernels.ref import w_colsum_groups
+    dev = torch.device("cuda")
+
+    def w4(k, n):
+        w = torch.randint(-7, 8, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        return w, pack_rows(w)
+
+    # K3-w4: wq (and the M = 4 decode rows)
+    for m in (B * T, B):
+        k, n = D, Q_OUT
+        a = randint8(m, k)
+        w, w_pk = w4(k, n)
+        cs = w_colsum_groups(w, 1)[0]
+        s_a, z_a, s_w = uniform(1, 0.01, 0.03), torch.round(
+            uniform(1, -20, 20)), uniform(1, 0.001, 0.01)
+        kw = dict(z_a=z_a, w_colsum=cs, w_bits=4)
+        got = imm.int8_matmul_cuda(a, w_pk, s_a, s_w, **kw)
+        want = imm.int8_matmul_plain(a, w_pk, s_a, s_w, **kw)
+        err = float((got - want).abs().max())
+        require(err <= 1e-5 * float(want.abs().max()),
+                f"int8_matmul w4 ({m},{k})x({k},{n}): max err {err}")
+        ms = time_ms(lambda: imm.int8_matmul_cuda(a, w_pk, s_a, s_w, **kw),
+                     flush)
+        p_ms = time_ms(lambda: imm.int8_matmul_plain(a, w_pk, s_a, s_w,
+                                                     **kw), flush)
+        lib_ms = None
+        if m > 16:      # torch._int_mm needs more than 16 rows
+            s_prod = s_a * s_w
+
+            def library():
+                acc = torch._int_mm(a, w).float()
+                return (acc - z_a * cs.float()) * s_prod
+            lib_err = float((library() - want).abs().max())
+            require(lib_err <= 1e-5 * float(want.abs().max()),
+                    f"library yardstick disagrees: {lib_err}")
+            lib_ms = time_ms(library, flush)
+        record("int8_matmul_w4", f"({m},{k})x({k}/2,{n}) int4 f32 out", err,
+               ms, p_ms, lib_ms, m * k + k // 2 * n + n * 4 + m * n * 4,
+               2 * m * n * k, PEAK_INT8_OPS_PER_S, m == B * T)
+
+    # K2-w4: w_gate / w_up at full width (G=4) and the reduced 4 x 16 groups
+    for m, k, n, g in ((B * T, D, FF, 4), (B, D, FF, 4), (B * T, 64, 128, 4)):
+        a = randint8(m, k)
+        w, w_pk = w4(k, n)
+        cs = w_colsum_groups(w, g)
+        sg = uniform(g, 0.01, 0.05)
+        zg = torch.round(uniform(g, -20, 20))
+        s_w = uniform(1, 0.001, 0.01)
+        up = randn(m, n)
+        for requant in (False, True):
+            kw = dict(w_bits=4)
+            if requant:
+                kw.update(activation="gelu", mul=up, out_scale=uniform(
+                    1, 0.02, 0.04), out_zp=torch.round(uniform(1, -5, 5)))
+            got = imm.int8_matmul_peg_cuda(a, w_pk, sg, zg, s_w, cs, **kw)
+            want = imm.int8_matmul_peg_plain(a, w_pk, sg, zg, s_w, cs, **kw)
+            if requant:
+                worst, flips = lsb_flips(got, want)
+                require(worst <= 1 and flips <= 1e-3 * got.numel(),
+                        f"int8_matmul_peg w4 G={g} requant: {flips} flips, "
+                        f"worst {worst} LSB")
+                err = float(worst)
+            else:
+                err = float((got - want).abs().max())
+                require(err <= 1e-5 * float(want.abs().max()),
+                        f"int8_matmul_peg w4 G={g}: max err {err}")
+            ms = time_ms(lambda: imm.int8_matmul_peg_cuda(
+                a, w_pk, sg, zg, s_w, cs, **kw), flush)
+            p_ms = time_ms(lambda: imm.int8_matmul_peg_plain(
+                a, w_pk, sg, zg, s_w, cs, **kw), flush)
+            nbytes = (m * k + k // 2 * n + g * n * 4 + 2 * g * 4 +
+                      (m * n * (4 + 1) if requant else m * n * 4))
+            out = "gelu*mul->int8" if requant else "f32 out"
+            record("int8_matmul_peg_w4",
+                   f"({m},{k})x({k}/2,{n}) int4 G={g} {out}", err, ms, p_ms,
+                   None, nbytes, 2 * m * n * k, PEAK_INT8_OPS_PER_S,
+                   (m, k) == (B * T, D) and not requant)
+
+
+def norm_cases(gen, flush, record, uniform, randn):
+    """K8 (LayerNorm + int8 emit), K9a / K9b (RMSNorm / LayerNorm
+    fake-quant) and K10 (PEG fake-quant) at the serving path's row shape
+    (64 x 2304 bf16) and the reference bench's 4k x 4k f32. The int8 emit
+    may differ by 1 LSB on at most 0.1 % of elements (the row reductions
+    run in another order), a fake-quant output by one grid step (and its
+    dtype's rounding) on as many; K10 is bit-exact. No single PyTorch call computes them:
+    ``F.layer_norm`` has no quantizer and no int8 emit."""
+    import torch
+    from repro_torch.kernels import fused_ln_quant as lnq
+    from repro_torch.kernels import peg_quant as pq
+
+    def steps_off(got, want, s, d):
+        """(max |got - want|, elements off) with each off element at most
+        one grid step away, plus the rounding of the output's dtype (a
+        bf16 value carries 8 significant bits)."""
+        err = (got.float() - want.float()).abs()
+        step = s.repeat_interleave(d // s.numel())[None, :]
+        eps = torch.finfo(got.dtype).eps
+        require(bool((err <= step * 1.01 + want.float().abs() * eps).all()),
+                "fake-quant output more than one grid step away")
+        return float(err.max()), int((err > 0).sum())
+
+    for rows, d, dtype, groups in ((B * T, D, torch.bfloat16, (1, 4)),
+                                   (4096, 4096, torch.float32, (8,))):
+        el = 2 if dtype == torch.bfloat16 else 4
+        x = randn(rows, d, dtype=dtype) * 3
+        gamma = 1 + randn(d) * 0.1
+        beta = randn(d) * 0.1
+        for g in groups:
+            s = uniform(g, 0.02, 0.05)
+            z = torch.round(uniform(g, -20, 20))
+            kw = dict(qmin=-128, qmax=127)
+            shape = f"x ({rows},{d}) {str(dtype)[6:]} G={g}"
+            rep = rows == B * T and g == 1
+            for name, affine, emit in (
+                    ("ln_quantize", (gamma, beta), True),
+                    ("rms_fake_quant", (gamma,), False),
+                    ("ln_fake_quant", (gamma, beta), False)):
+                if emit and rows != B * T:
+                    continue
+                cuda = getattr(lnq, name + "_cuda")
+                plain = getattr(lnq, name + "_plain")
+                got = cuda(x, *affine, s, z, **kw)
+                want = plain(x, *affine, s, z, **kw)
+                if emit:
+                    err, flips = lsb_flips(got, want)
+                    require(err <= 1, f"{name} {shape}: {err} LSB")
+                else:
+                    require(got.dtype == dtype, f"{name}: dtype {got.dtype}")
+                    err, flips = steps_off(got, want, s, d)
+                require(flips <= 1e-3 * got.numel(),
+                        f"{name} {shape}: {flips} flips")
+                ms = time_ms(lambda: cuda(x, *affine, s, z, **kw), flush)
+                p_ms = time_ms(lambda: plain(x, *affine, s, z, **kw), flush)
+                nbytes = (rows * d * (el + (1 if emit else el)) +
+                          len(affine) * d * 4 + 2 * g * 4)
+                record(name, shape, err, ms, p_ms, None, nbytes,
+                       10 * rows * d, PEAK_F32_OPS_PER_S, rep)
+            got = pq.peg_fake_quant_cuda(x, s, z, **kw)
+            want = pq.peg_fake_quant_plain(x, s, z, **kw)
+            require(torch.equal(got, want),
+                    f"peg_fake_quant {shape} not bit-exact")
+            ms = time_ms(lambda: pq.peg_fake_quant_cuda(x, s, z, **kw),
+                         flush)
+            p_ms = time_ms(lambda: pq.peg_fake_quant_plain(x, s, z, **kw),
+                           flush)
+            record("peg_fake_quant", shape, 0.0, ms, p_ms, None,
+                   rows * d * 2 * el + 2 * g * 4, 6 * rows * d,
+                   PEAK_F32_OPS_PER_S, rep)
 
 
 SITES = {"no sites": {},
@@ -326,14 +508,16 @@ def attend_cases(gen, flush, record):
     head_dim 256; S = max_len 128 and the 4096-cell local window; paged
     with block size 16) and the reduced ones (2 KV heads, head_dim 16,
     ring s_cap 16), each without sites, with softmax_in and zero-points and
-    with the two-pass softmax_out, all with softcap 50 and a window. The
-    bound counts what the inputs need: the payload and scales of the
-    cells that are valid for some query (read once), positions or the
+    with the two-pass softmax_out, all with softcap 50 and a window; then
+    K5-kv4 and K6-kv4 at the full-width shapes, with holes and an idle
+    lane. The bound counts what the inputs need: the payload and scales of
+    the cells that are valid for some query (read once), positions or the
     block table, the queries, the output."""
     import torch
     from repro_torch.kernels import int8_attend_decode as iad
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attend_decode as pad
+    from repro_torch.kernels.nibble import pack_nibbles
     from repro_torch.kernels.ref import decode_valid, paged_positions_ref
     dev = torch.device("cuda")
 
@@ -493,20 +677,110 @@ def attend_cases(gen, flush, record):
                         s_cap == 128 and not holes
                         and site.startswith("two-pass"))
 
+    # K5 / K6 at kv_bits=4: nibble-packed (.., KV, hd/2) payloads of int4
+    # values, int4 zero-points; a cell needs hd bytes of payload + scales
+    def kv4(*shape):
+        return pack_nibbles(torch.randint(-8, 8, shape, generator=gen,
+                                          device=dev, dtype=torch.int8))
+
+    def zp4(zp, *shape):
+        return torch.round(ru(-3, 3, *shape)) if zp else \
+            torch.zeros(shape, device=dev)
+    b, kv, g, hd = full
+    for s_len, window, site, idle in (
+            (128, 64, "two-pass softmax_out + zero-points", False),
+            (128, 64, "no sites", False),
+            (128, None, "two-pass softmax_out + zero-points", True),
+            (LOCAL_WINDOW, LOCAL_WINDOW // 2, "no sites", False),
+            (LOCAL_WINDOW, LOCAL_WINDOW // 2,
+             "two-pass softmax_out + zero-points", False)):
+        zp = site != "no sites"
+        k_pos = torch.arange(s_len, device=dev, dtype=torch.int32).repeat(
+            b, 1)
+        q_pos = torch.full((b,), s_len - 1, device=dev, dtype=torch.int32)
+        if idle:                      # an empty prefix and an idle lane
+            k_pos[1, :40] = -1
+            q_pos[2], q_pos[3] = 60, -1
+        zv = zp4(zp, b, kv)
+        v_s = ru(0.1, 0.5, b, s_len, kv)
+        args = (ri(b, kv, g, hd), ru(0.01, 0.03, b, kv, g) / 16,
+                torch.round(ru(-20, 20, b, kv, g)) if zp else
+                torch.zeros(b, kv, g, device=dev), zp4(zp, b, kv), zv,
+                kv4(b, s_len, kv, hd), ru(0.1, 0.5, b, s_len, kv),
+                kv4(b, s_len, kv, hd), v_s, k_pos, q_pos)
+        kw = dict(window=window, logit_softcap=50.0, kv_bits=4,
+                  **site_kw(site))
+        measure("int8_attend_decode_kv4",
+                f"B{b} KV{kv}xG{g} hd{hd} S{s_len} w{window}"
+                f"{' holes+idle' if idle else ''}, {site}",
+                iad.int8_attend_decode_cuda, iad.int8_attend_decode_plain,
+                args, kw, decode_valid(k_pos, q_pos, window), kv, g, hd,
+                hd + 8, b * s_len * 4 + b * 4,
+                b * kv * g * (hd + 8) + b * kv * 8,
+                float((8 + zv.abs().max()) * v_s.max()), True,
+                s_len == 128 and not idle and site.startswith("two-pass"))
+    bs = 16
+    for s_cap, nb, window, site, holes in (
+            (128, 8, 64, "two-pass softmax_out + zero-points", False),
+            (128, 8, 64, "no sites", False),
+            (128, 8, 64, "two-pass softmax_out + zero-points", True),
+            (LOCAL_WINDOW, 256, LOCAL_WINDOW // 2,
+             "two-pass softmax_out + zero-points", False)):
+        zp = site != "no sites"
+        n_blocks = b * nb + 5
+        table = torch.randperm(n_blocks, generator=gen, device=dev)[
+            :b * nb].reshape(b, nb).to(torch.int32)
+        q_pos = torch.full((b,), s_cap - 1, device=dev, dtype=torch.int32)
+        if holes:
+            table[0, nb // 2:] = -1
+            table[1, 1:] = -1
+            q_pos[1], q_pos[3] = bs - 1, -1
+        cols = ops._lane_blocks(table, s_cap, bs).contiguous()
+        valid = decode_valid(paged_positions_ref(
+            cols, q_pos, s_cap=s_cap, block_size=bs), q_pos, window)
+        zv = zp4(zp, b, kv)
+        v_s = ru(0.1, 0.5, n_blocks, bs, kv)
+        args = (ri(b, kv, g, hd), ru(0.01, 0.03, b, kv, g) / 16,
+                torch.round(ru(-20, 20, b, kv, g)) if zp else
+                torch.zeros(b, kv, g, device=dev), zp4(zp, b, kv), zv,
+                kv4(n_blocks, bs, kv, hd), ru(0.1, 0.5, n_blocks, bs, kv),
+                kv4(n_blocks, bs, kv, hd), v_s, cols, q_pos)
+        kw = dict(s_cap=s_cap, window=window, logit_softcap=50.0, kv_bits=4,
+                  **site_kw(site))
+        measure("paged_int8_attend_decode_kv4",
+                f"B{b} KV{kv}xG{g} hd{hd} bs{bs} s_cap{s_cap} w{window}"
+                f"{' holes+idle' if holes else ''}, {site}",
+                pad.paged_int8_attend_decode_cuda,
+                pad.paged_int8_attend_decode_plain, args, kw, valid, kv, g,
+                hd, hd + 8, cols.numel() * 4 + b * 4,
+                b * kv * g * (hd + 8) + b * kv * 8,
+                float((8 + zv.abs().max()) * v_s.max()), True,
+                s_cap == 128 and not holes and site.startswith("two-pass"))
+
 
 def _counters():
+    """{kernel name: (wrapper, launch-count attribute)}; a 4-bit variant
+    is counted on its own attribute of the 8-bit kernel's wrapper."""
     from repro_torch.kernels import fused_ln_quant as lnq
     from repro_torch.kernels import int8_attend_decode as iad
     from repro_torch.kernels import int8_matmul as imm
     from repro_torch.kernels import paged_attend_decode as pad
     from repro_torch.kernels import peg_quant as pq
-    return {"rms_quantize": lnq.rms_quantize_cuda,
-            "peg_quantize": pq.peg_quantize_cuda,
-            "int8_matmul": imm.int8_matmul_cuda,
-            "int8_matmul_peg": imm.int8_matmul_peg_cuda,
-            "int8_attend_decode": iad.int8_attend_decode_cuda,
-            "paged_int8_attend_decode": pad.paged_int8_attend_decode_cuda,
-            "paged_attend_decode": pad.paged_attend_decode_cuda}
+    wrappers = {fn.__name__[:-len("_cuda")]: fn for fn in (
+        lnq.rms_quantize_cuda, pq.peg_quantize_cuda, imm.int8_matmul_cuda,
+        imm.int8_matmul_peg_cuda, iad.int8_attend_decode_cuda,
+        pad.paged_int8_attend_decode_cuda, pad.paged_attend_decode_cuda,
+        lnq.ln_quantize_cuda, lnq.rms_fake_quant_cuda,
+        lnq.ln_fake_quant_cuda, pq.peg_fake_quant_cuda)}
+    counters = {name: (fn, "launches") for name, fn in wrappers.items()}
+    for name, attr in (("int8_matmul", "launches_w4"),
+                       ("int8_matmul_peg", "launches_w4"),
+                       ("int8_attend_decode", "launches_kv4"),
+                       ("paged_int8_attend_decode", "launches_kv4")):
+        counters[f"{name}_{attr[len('launches_'):]}"] = (wrappers[name],
+                                                         attr)
+    assert set(counters) == set(KERNELS)
+    return counters
 
 
 def _timed_decode_steps(orig, report, profile_call=3):
@@ -596,8 +870,8 @@ def serve_phase(tag, argv, must_launch):
     orig_make = serve.make_decode_step
     serve.make_decode_step = _timed_decode_steps(orig_make, report)
     counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     out = io.StringIO()
     t0 = time.perf_counter()
     try:
@@ -607,10 +881,12 @@ def serve_phase(tag, argv, must_launch):
         serve.make_decode_step = orig_make
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = {name: fn.launches for name, fn in counters.items()}
+    counts = {name: getattr(fn, attr)
+              for name, (fn, attr) in counters.items()}
     for line in out.getvalue().splitlines():
         print(f"[{tag}] {line}")
-    print(f"[{tag}] kernel launches {counts}; phase {secs:.1f} s, peak "
+    launched = {name: n for name, n in counts.items() if n}
+    print(f"[{tag}] kernel launches {launched}; phase {secs:.1f} s, peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
           f"GiB")
     _print_profile(tag, report)
@@ -627,10 +903,75 @@ def serve_phase(tag, argv, must_launch):
     return counts, rel, stats, out.getvalue()
 
 
-def kv_int8_gap(tag, out):
-    m = re.search(r"\[kv-int8\] .*: (\S+)%", out)
-    require(m is not None, f"{tag}: no [kv-int8] line")
+def entry_point_phase():
+    """Phase 10. K8-K10 serve no model here (no LayerNorm config is ported,
+    and the reference calls its fake-quant kernels only from its tests and
+    its kernel bench), so their path is their public entry points: driven
+    as the reference's bench drives them (``benchmarks/kernel_bench.py``:
+    4096 x 4096 f32, PEG with 8 groups at (0.05, 128), LayerNorm per-tensor),
+    and K8 the way a LayerNorm model's deploy path reaches it, through
+    ``deploy.norm_quantize("layernorm", ...)`` with a PEG permutation.
+    Counts are set to 0 just before and read just after; the outputs must
+    be finite and of their inputs' shapes."""
+    import torch
+    from repro_torch.core import deploy
+    from repro_torch.kernels import ops
+    counters = {name: counter for name, counter in _counters().items()
+                if name in ("ln_quantize", "rms_fake_quant", "ln_fake_quant",
+                            "peg_fake_quant")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n = 4096
+    x = torch.randn(n, n, generator=gen, device=dev)
+    ones = torch.ones(n, device=dev)
+    zeros = torch.zeros(n, device=dev)
+    outs = [ops.peg_fake_quant(x, torch.full((8,), 0.05, device=dev),
+                               torch.full((8,), 128.0, device=dev)),
+            ops.ln_fake_quant(x, ones, zeros, 0.05, 128.0),
+            ops.rms_fake_quant(x, zeros, 0.05, 128.0)]
+    h = torch.randn(B, T, D, generator=gen, device=dev).to(torch.bfloat16)
+    aq = deploy.ActQuant(
+        scales=torch.full((4,), 0.03, device=dev),
+        zps=torch.full((4,), -3.0, device=dev), qmin=-128, qmax=127,
+        perm=torch.randperm(D, generator=gen, device=dev))
+    norm = {"g": 1 + 0.1 * torch.randn(D, generator=gen, device=dev),
+            "b": 0.1 * torch.randn(D, generator=gen, device=dev)}
+    qt = deploy.norm_quantize("layernorm", norm, h, aq)
+    torch.cuda.synchronize()
+    require(all(o.shape == x.shape and bool(torch.isfinite(o).all())
+                for o in outs), "entry points: bad fake-quant output")
+    require(qt.q.shape == h.shape and qt.q.dtype == torch.int8,
+            "entry points: bad norm_quantize output")
+    counts = {name: getattr(fn, attr)
+              for name, (fn, attr) in counters.items()}
+    print(f"[entry-points] kernel launches {counts}")
+    for name, count in counts.items():
+        require(count > 0, f"entry points: {name} was never launched")
+    return counts
+
+
+def kv_gap(tag, out, bits=8):
+    """The [kv-int8] / [kv-int4] gap against the bf16 (f32) cache."""
+    m = re.search(rf"\[kv-int{bits}\] max rel logits diff .*: (\S+)%", out)
+    require(m is not None, f"{tag}: no [kv-int{bits}] line")
     return float(m.group(1)) / 100
+
+
+def kv4_lines(tag, out):
+    """The 4-bit phases' [kv-int4] and packed-weight lines, printed as
+    they are (kv4 drift is reported, not bounded, as in the reference);
+    returns the int4 (q4) payload count."""
+    drift = re.search(r"^\[kv-int4\] int4 vs int8 cache drift.*$", out,
+                      re.M)
+    require(drift is not None, f"{tag}: no [kv-int4] drift line")
+    m = re.search(r"packed weights: (\d+) int8 and (\d+) int4 \(q4\) "
+                  r"payloads, (\S+) MiB", out)
+    require(m is not None, f"{tag}: no packed-weights line")
+    print(f"[{tag}] {m.group(2)} q4 payloads ({m.group(1)} int8), "
+          f"{m.group(3)} MiB of packed weights; {drift.group(0)}")
+    return int(m.group(2))
 
 
 def require_parity(tag, out, n):
@@ -658,7 +999,7 @@ def main() -> int:
 
     serve_argv = ["--arch", "gemma2-2b", "--quantize", "--deploy-int8",
                   "--scheduler", "static", "--kv-bits", "16"]
-    launches = {name: 0 for name in SOURCE}
+    launches = {name: 0 for name in KERNELS}
 
     def add(counts):
         for name, n in counts.items():
@@ -691,19 +1032,19 @@ def main() -> int:
                 "4", *extra]
     reduced_quick = ("--reduced", "--block-size", "8", "--max-len", "64",
                      "--parity")
-    fq, fq_rel, _, fq_out = serve_phase(
+    fq, fq_rel, fq_stats, fq_out = serve_phase(
         "full-quickstart", quick("8", "--block-size", "16", "--max-len",
                                  "128"),
         ("rms_quantize", "int8_matmul", "peg_quantize", "int8_attend_decode",
          "paged_int8_attend_decode"))
     add(fq)
-    fq_kv = kv_int8_gap("full-quickstart", fq_out)
+    fq_kv = kv_gap("full-quickstart", fq_out)
     rq, rq_rel, rq_stats, rq_out = serve_phase(
         "reduced-quickstart", quick("8", *reduced_quick),
         ("rms_quantize", "peg_quantize", "int8_matmul", "int8_matmul_peg",
          "int8_attend_decode", "paged_int8_attend_decode"))
     add(rq)
-    rq_kv = kv_int8_gap("reduced-quickstart", rq_out)
+    rq_kv = kv_gap("reduced-quickstart", rq_out)
     require(rq_kv <= 1e-4, f"reduced-quickstart: [kv-int8] gap "
             f"{rq_kv:.4%} > 1e-4")
     require_parity("reduced-quickstart", rq_out, 3)
@@ -718,6 +1059,46 @@ def main() -> int:
         ("paged_attend_decode",))
     add(r16)
     require_parity("reduced-paged-kv16", r16_out, 3)
+
+    # The 4-bit deploy path: int4 weights (q4) and int4 KV caches. At full
+    # width the attention projections pack as q4 (K3-w4); the FFN keeps the
+    # reference's fake-quant rule (non-uniform PEG groups), so K2-w4 runs
+    # at the reduced width. kv4 parity is a match rate, not asserted.
+    w4 = ("--weight-bits", "4")
+    f4, f4_rel, f4_stats, f4_out = serve_phase(
+        "full-quickstart-4bit", quick("4", "--block-size", "16",
+                                      "--max-len", "128", *w4),
+        ("rms_quantize", "int8_matmul_w4", "peg_quantize",
+         "int8_attend_decode_kv4", "paged_int8_attend_decode_kv4"))
+    add(f4)
+    f4_kv = kv_gap("full-quickstart-4bit", f4_out, 4)
+    require(kv4_lines("full-quickstart-4bit", f4_out) > 0,
+            "full-quickstart-4bit: no q4 payloads")
+    print(f"[full-quickstart-4bit] peak kv-cache {f4_stats.cache_bytes} "
+          f"bytes ({f4_stats.blocks_in_use} blocks) against "
+          f"{fq_stats.cache_bytes} bytes ({fq_stats.blocks_in_use} blocks) "
+          f"at kv-bits 8")
+    r4, r4_rel, r4_stats, r4_out = serve_phase(
+        "reduced-quickstart-4bit", quick("4", *reduced_quick, *w4),
+        ("rms_quantize", "int8_matmul_w4", "int8_matmul_peg_w4",
+         "peg_quantize", "int8_attend_decode_kv4",
+         "paged_int8_attend_decode_kv4"))
+    add(r4)
+    r4_kv = kv_gap("reduced-quickstart-4bit", r4_out, 4)
+    kv4_lines("reduced-quickstart-4bit", r4_out)
+    counts = (r4_stats.tokens_generated, r4_stats.decode_steps,
+              r4_stats.prefill_calls, r4_stats.blocks_in_use,
+              r4_stats.chunk_steps)
+    require(counts == (36, 10, 6, 16, 6) and "blocks 16/32" in r4_out,
+            f"reduced-quickstart-4bit: serve counts {counts} are not the "
+            f"reference's (36, 10, 6, 16, 6)")
+    rates = re.findall(r"^\[parity\] (.+?): \d+/36 greedy tokens match",
+                       r4_out, re.M)
+    require(rates == ["continuous vs static schedulers",
+                      "chunked vs unchunked prefill",
+                      "paged vs dense caches",
+                      "int4 vs int8 KV cache drift"],
+            f"reduced-quickstart-4bit: parity lines {rates}")
     # The reduced run holds the integer path to the fake-quant path it
     # replaces. At full width the fake-quant path runs in bf16 (bf16 params:
     # fake-quantized values are rounded to bf16 and the matmuls emit bf16)
@@ -726,22 +1107,29 @@ def main() -> int:
     print(f"[full] integer vs fake-quant (bf16) logits: rel {full_rel:.4%}")
     print(f"[full-quickstart] integer vs fake-quant (bf16) logits: rel "
           f"{fq_rel:.4%}; int8 vs bf16 KV cache: rel {fq_kv:.4%}")
+    print(f"[full-quickstart-4bit] integer vs fake-quant (bf16) logits: rel "
+          f"{f4_rel:.4%}; int4 vs bf16 KV cache: rel {f4_kv:.4%}")
+    print(f"[reduced-quickstart-4bit] int4 vs f32 KV cache: rel "
+          f"{r4_kv:.4%} (printed, not bounded)")
     for tag, rel in (("reduced", red_rel), ("reduced-quickstart", rq_rel),
-                     ("reduced-paged-kv16", r16_rel)):
+                     ("reduced-paged-kv16", r16_rel),
+                     ("reduced-quickstart-4bit", r4_rel)):
         require(rel <= 1e-4, f"{tag}: integer path differs from "
                 f"fake-quant by {rel:.4%} of max|logits|")
         print(f"[{tag}] integer vs fake-quant logits: rel {rel:.4%} "
               f"(bound 1e-4)")
     print(f"[reduced-quickstart] int8 vs f32 KV cache: rel {rq_kv:.4%} "
           f"(bound 1e-4)")
+    for name, count in entry_point_phase().items():
+        launches[name] += count
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     kernels = []
-    for name in SOURCE:
+    for name, (source, replaces) in KERNELS.items():
         rec = records[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name],
+            "name": name, "route": "cuda", "source": _CSRC + source,
+            "replaces": _TPU + replaces,
             "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

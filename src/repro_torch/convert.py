@@ -19,8 +19,8 @@ from repro_torch.models import attention as attn
 
 # the reference's cache NamedTuples, by class name, and the port's types
 _CACHE_TYPES = {cls.__name__: cls for cls in (
-    attn.KVCache, attn.QuantKVCache, attn.PagedKVCache,
-    attn.PagedQuantKVCache)}
+    attn.KVCache, attn.QuantKVCache, attn.Quant4KVCache, attn.PagedKVCache,
+    attn.PagedQuantKVCache, attn.PagedQuant4KVCache)}
 
 
 def _tensor(a, device, dtype=None):
@@ -40,7 +40,8 @@ def params_from_jax(tree, device=None):
     """Nested dicts / lists of numpy arrays -> the same structure of torch
     tensors on ``device`` (None: the GPU). Handles the stacked (``"scan"``)
     and unrolled (``"layers"``) layouts and packed ``{"q", "s", "colsum"}``
-    payloads alike, since it maps leaf by leaf."""
+    and 4-bit ``{"q4", "s", "colsum"}`` payloads alike, since it maps leaf
+    by leaf."""
     dev = resolve_device(device)
 
     def conv(node):
@@ -72,9 +73,9 @@ def caches_from_jax(tree, device=None):
     """A reference whole-model cache (dicts / lists of its cache
     NamedTuples with numpy-convertible leaves, stacked ``"scan"`` or
     unrolled ``"layers"`` layout, with a paged ``"block_table"``) -> the
-    same structure of the port's cache types on ``device`` (None: the GPU).
-    Cache types the port does not have (nibble-packed int4, recurrent
-    state) raise."""
+    same structure of the port's cache types on ``device`` (None: the GPU);
+    the int4 caches keep their type, the bit-width marker. Cache types the
+    port does not have (recurrent state) raise."""
     dev = resolve_device(device)
 
     def conv(node):

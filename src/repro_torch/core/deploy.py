@@ -3,8 +3,10 @@ serve quantized models through the integer kernels instead of simulating
 quantization in f32.
 
 * Weights are quantized ONCE into packed payloads — ``{"q": int8 (K, N),
-  "s": f32 (), "colsum": int32 (G, N)}`` — kept in the param dict, so the
-  stacked layout slices per-layer payloads exactly like f32 weights.
+  "s": f32 (), "colsum": int32 (G, N)}``, or at 4 bits ``{"q4": int8
+  (K/2, N) pairwise-row nibbles, "s", "colsum"}`` with the colsum of the
+  unpacked values — kept in the param dict, so the stacked layout slices
+  per-layer payloads exactly like f32 weights.
 * Activations travel between kernels as :class:`QTensor` int8 payloads; the
   FFN chain runs as ``rms_quantize`` -> ``int8_matmul_peg`` (fused epilogue)
   -> ``int8_matmul``.
@@ -14,9 +16,9 @@ quantization in f32.
   ``z8 = z - 128`` leave ``s * (q - z)`` unchanged).
 
 Models dispatch on ``is_packed(weight)`` / ``isinstance(x, QTensor)``; a site
-the kernels cannot express (non-uniform PEG groups, non-8-bit, per-channel
-hidden scales) stays on the fake-quant path, site by site. 4-bit weight
-payloads and the LayerNorm emit are not yet ported.
+the kernels cannot express (non-uniform PEG groups, non-8-bit activations,
+4-bit weights with an odd K or PEG group, per-channel hidden scales) stays
+on the fake-quant path, site by site.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from repro_torch.core.quant_config import (Granularity, QuantizationPolicy,
 from repro_torch.core.quantizer import TINY, QuantParams
 from repro_torch.core.range_estimation import estimate_weight_params
 from repro_torch.kernels import ops
+from repro_torch.kernels.nibble import pack_rows
 from repro_torch.kernels.ref import w_colsum_groups
 
 _SHIFT = 128
@@ -96,8 +99,35 @@ def kv_quant_for(act_state, policy: QuantizationPolicy, attn_prefix: str,
 
 
 def is_packed(w) -> bool:
-    """True for a packed deployment weight payload."""
+    """True for a packed deployment weight payload (int8 ``q`` or
+    nibble-packed int4 ``q4``)."""
     return isinstance(w, dict) and ("q" in w or "q4" in w) and "colsum" in w
+
+
+def packed_summary(params) -> Tuple[int, int, int]:
+    """(int8 payloads, int4 payloads, payload bytes) of the packed weights
+    of a param dict; a stacked payload counts once per layer."""
+    n8 = n4 = nbytes = 0
+
+    def walk(node):
+        nonlocal n8, n4, nbytes
+        if is_packed(node):
+            key = "q4" if "q4" in node else "q"
+            q = node[key]
+            layers = q.shape[0] if q.dim() == 3 else 1
+            if key == "q4":
+                n4 += layers
+            else:
+                n8 += layers
+            nbytes += q.numel() * q.element_size()
+        elif isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+    walk(params)
+    return n8, n4, nbytes
 
 
 # ---------------------------------------------------------------------------
@@ -131,16 +161,20 @@ def act_quant_for(qp: QuantParams, cfg: QuantizerConfig
 def pack_linear(w, wcfg: QuantizerConfig, num_groups: int,
                 perm: Optional[torch.Tensor] = None) -> Optional[dict]:
     """Quantize one weight (K, N) — or a stacked (L, K, N) — into the packed
-    int8 + scale + per-group-colsum payload, rows permuted first when the
+    int + scale + per-group-colsum payload, rows permuted first when the
     consuming site uses the PEG permutation. The grid is exactly the
-    simulate-path fake-quant grid."""
+    simulate-path fake-quant grid. 8-bit configs give ``{"q", "s",
+    "colsum"}``; 4-bit ones ``{"q4": (K/2, N) pairwise-row nibbles, "s",
+    "colsum"}`` with the colsum of the unpacked values, and only for an
+    even K and an even group size (else None: the site stays fake-quant)."""
     if not wcfg.enabled or wcfg.bits not in (4, 8) or not wcfg.symmetric \
             or wcfg.granularity != Granularity.PER_TENSOR:
         return None
-    if wcfg.bits == 4:
-        raise NotImplementedError("4-bit weight payloads are not yet ported")
     from repro_torch.models.common import resolve_weight
     w = resolve_weight(w).float()
+    k_dim = w.shape[-2]
+    if wcfg.bits == 4 and (k_dim % 2 or (k_dim // num_groups) % 2):
+        return None
 
     def _pack_one(w2):
         if perm is not None:
@@ -149,7 +183,10 @@ def pack_linear(w, wcfg: QuantizerConfig, num_groups: int,
         s = torch.clamp_min(qp.scale.float(), TINY)
         wq = torch.clamp(torch.round(w2 / s), wcfg.qmin,
                          wcfg.qmax).to(torch.int8)
-        return {"q": wq, "s": s, "colsum": w_colsum_groups(wq, num_groups)}
+        colsum = w_colsum_groups(wq, num_groups)
+        if wcfg.bits == 4:
+            return {"q4": pack_rows(wq), "s": s, "colsum": colsum}
+        return {"q": wq, "s": s, "colsum": colsum}
 
     if w.dim() == 3:                     # stacked layout: per-layer pack
         per = [_pack_one(w[i]) for i in range(w.shape[0])]
@@ -257,16 +294,22 @@ def build_deploy(cfg, params, policy: QuantizationPolicy, act_state
 # ---------------------------------------------------------------------------
 
 def norm_quantize(norm_kind: str, p_norm: dict, x, aq: ActQuant) -> QTensor:
-    """Fused norm + int8 emit for a matmul input (the PEG permutation, if
-    any, is applied to the input and folded into the norm affine)."""
-    if norm_kind == "layernorm":
-        raise NotImplementedError("the LayerNorm emit (ln_quantize) is not "
-                                  "yet ported")
+    """Fused norm + int8 emit for a matmul input: ``rms_quantize`` (K1) or,
+    for ``"layernorm"``, ``ln_quantize`` (K8). The PEG permutation, if any,
+    is applied to the input and folded into the norm affine (γ and β)."""
     g = p_norm["g"]
     if aq.perm is not None:
         x = x.index_select(-1, aq.perm)
         g = g.index_select(0, aq.perm)
-    q = ops.rms_quantize(x, g, aq.scales, aq.zps, qmin=aq.qmin, qmax=aq.qmax)
+    if norm_kind == "layernorm":
+        b = p_norm["b"]
+        if aq.perm is not None:
+            b = b.index_select(0, aq.perm)
+        q = ops.ln_quantize(x, g, b, aq.scales, aq.zps, qmin=aq.qmin,
+                            qmax=aq.qmax)
+    else:
+        q = ops.rms_quantize(x, g, aq.scales, aq.zps, qmin=aq.qmin,
+                             qmax=aq.qmax)
     return QTensor(q=q, scales=aq.scales, zps=aq.zps)
 
 
@@ -282,19 +325,23 @@ def matmul(x: QTensor, packed: dict, *, bias=None, mul=None,
            activation: str = "none", out_aq: Optional[ActQuant] = None):
     """Integer matmul against a packed weight with the fused epilogue: G = 1
     inputs take the per-tensor kernel (eq. 3), grouped inputs the PEG kernel
-    (eq. 4 -> 5). With ``out_aq`` the result is a requantized QTensor."""
-    if "q4" in packed:
-        raise NotImplementedError("4-bit weight payloads are not yet ported")
+    (eq. 4 -> 5), 4-bit ``q4`` payloads their ``w_bits=4`` variants. With
+    ``out_aq`` the result is a requantized QTensor."""
     kw = dict(bias=bias, mul=mul, activation=activation)
     if out_aq is not None:
         kw.update(out_scale=out_aq.scales[0], out_zp=out_aq.zps[0],
                   qmin=out_aq.qmin, qmax=out_aq.qmax)
+    if "q4" in packed:                   # row-packed int4 payload
+        w_q = packed["q4"]
+        kw["w_bits"] = 4
+    else:
+        w_q = packed["q"]
     if int(x.scales.shape[0]) == 1:
-        out = ops.int8_matmul(x.q, packed["q"], s_a=x.scales[0],
+        out = ops.int8_matmul(x.q, w_q, s_a=x.scales[0],
                               s_w=packed["s"], z_a=x.zps[0],
                               w_colsum=packed["colsum"][0], **kw)
     else:
-        out = ops.int8_matmul_peg(x.q, packed["q"], x.scales, x.zps,
+        out = ops.int8_matmul_peg(x.q, w_q, x.scales, x.zps,
                                   w_scale=packed["s"],
                                   w_colsum=packed["colsum"], **kw)
     if out_aq is not None:

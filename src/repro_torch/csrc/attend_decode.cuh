@@ -33,6 +33,17 @@
 // Built with -fmad=false and rintf (round half to even). Split-KV over
 // more blocks, TMA and wgmma are later work.
 //
+// 4-bit caches (KV4, the TPU kernels' kv_bits=4 mode): each K/V row is hd/2
+// bytes of split-half nibbles, column j in the low nibble of byte j and
+// column hd/2 + j in its high nibble, so packed 32-bit word i carries the
+// column quads i and hd/8 + i. The lane that loads packed word i owns both
+// quads (q words, the two __dp4a's of q.k and the acc columns), which at
+// hd = 256 are the same 8 columns a lane owns at 8 bits; at hd = 16 two
+// lanes per cell are active. The nibbles are sign-extended per byte
+// (__vsub4) into two int8 words, so q.k stays an exact int32 __dp4a and
+// kcol comes from the unpacked values; scales, positions, masks and both
+// softmax schedules are the 8-bit ones. Half the payload bytes per cell.
+//
 // Paged caches: cell L of lane b lives in physical block table[b, L / bs]
 // (clamped at 0; unmapped blocks are masked). Its position is derived, not
 // read: p = q_pos - ((q_pos - L) mod s_cap) with a floor modulo, valid iff
@@ -94,11 +105,38 @@ __device__ __forceinline__ float fake_quant(float x, float s, float z,
   return (q - z) * s;
 }
 
-// The 4 values of word j (columns 4j..4j+3) of one K or V row.
-__device__ __forceinline__ void load4(const int8_t* row, int j, float* x) {
-  const int w = reinterpret_cast<const int*>(row)[j];
+// The 4 int8 values of one 32-bit word as floats.
+__device__ __forceinline__ void unpack4(int w, float* x) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) x[e] = (float)(int8_t)(w >> (8 * e));
+}
+
+// The 4 values of word j (columns 4j..4j+3) of one K or V row.
+__device__ __forceinline__ void load4(const int8_t* row, int j, float* x) {
+  unpack4(reinterpret_cast<const int*>(row)[j], x);
+}
+
+// Split-half nibbles of one packed word -> the int8 words of its low
+// (columns 4i..4i+3) and high (hd/2 + 4i..) quads: (v ^ 8) - 8 per byte.
+__device__ __forceinline__ int nibbles_lo(int w) {
+  return (int)__vsub4(((unsigned)w & 0x0f0f0f0fu) ^ 0x08080808u,
+                      0x08080808u);
+}
+__device__ __forceinline__ int nibbles_hi(int w) {
+  return (int)__vsub4((((unsigned)w >> 4) & 0x0f0f0f0fu) ^ 0x08080808u,
+                      0x08080808u);
+}
+
+// The column quad of this lane's word slot i, and whether the lane owns
+// one there: at 8 bits word lane + 32 i of hd / 4; at 4 bits quad lane
+// (i = 0) and hd / 8 + lane (i = 1) of the packed word lane < hd / 8.
+template <bool KV4>
+__device__ __forceinline__ int quad_of(int lane, int i, int hd) {
+  return KV4 ? lane + i * (hd / 8) : lane + 32 * i;
+}
+template <bool KV4>
+__device__ __forceinline__ bool owns(int lane, int i, int hd) {
+  return KV4 ? lane < hd / 8 : lane + 32 * i < hd / 4;
 }
 __device__ __forceinline__ void load4(const float* row, int j, float* x) {
   const float4 w = reinterpret_cast<const float4*>(row)[j];
@@ -142,16 +180,20 @@ __device__ __forceinline__ long cell(const Args& a, int b, int L, int qp,
 
 // QUANT: int8 payloads with per-cell scales (KT = int8_t); otherwise f32 or
 // bf16 payloads (KT) and f32 queries with the attention scale folded in.
+// KV4 (with QUANT): split-half nibble payloads, rows of hd / 2 bytes.
 // MG bounds the query heads per kv head (G <= MG) and NW is the number of
-// 4-column words per lane (1 for hd <= 128, 2 up to 256); both only size
-// the registers.
-template <bool QUANT, bool PAGED, typename KT, int MG, int NW>
+// 4-column words per lane (1 for hd <= 128, 2 up to 256; 2 with KV4); both
+// only size the registers.
+template <bool QUANT, bool PAGED, typename KT, int MG, int NW,
+          bool KV4 = false>
 __global__ void __launch_bounds__(kThreads) attend_decode_kernel(const Args a) {
   constexpr int kWords = NW;
   constexpr int kCols = 4 * NW;
+  static_assert(!KV4 || (QUANT && NW == 2), "KV4: int8 queries, 2 quads");
   const int h = blockIdx.x, b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int G = a.g, hd = a.hd, KV = a.kv, words = hd / 4;
+  const int G = a.g, hd = a.hd, KV = a.kv;
+  const int row_bytes = KV4 ? hd / 2 : hd;      // payload bytes per row
   const long qrow0 = ((long)b * KV + h) * G;     // row of query head g = 0
   const int qp = a.q_pos[b];
   const bool two_pass = a.smo != nullptr;
@@ -169,10 +211,10 @@ __global__ void __launch_bounds__(kThreads) attend_decode_kernel(const Args a) {
     int r = 0;
 #pragma unroll
     for (int i = 0; i < kWords; ++i) {
-      const int j = lane + 32 * i;
+      const int j = quad_of<KV4>(lane, i, hd);
       qw[g][i] = 0;
       for (int e = 0; e < 4; ++e) qf[g][4 * i + e] = 0.f;
-      if (g < G && j < words) {
+      if (g < G && owns<KV4>(lane, i, hd)) {
         if (QUANT) {
           qw[g][i] = reinterpret_cast<const int*>(
               (const int8_t*)a.q + (qrow0 + g) * hd)[j];
@@ -217,7 +259,7 @@ __global__ void __launch_bounds__(kThreads) attend_decode_kernel(const Args a) {
         in[u] = L < n;
         const long row = in[u] ? cell<PAGED>(a, b, L, qp, &ok[u]) : 0;
         if (!in[u]) ok[u] = false;
-        const long off = (row * KV + h) * hd;
+        const long off = (row * KV + h) * row_bytes;
         ks[u] = vs[u] = 1.f;
         if (QUANT && in[u]) {
           ks[u] = a.k_scale[row * KV + h];
@@ -225,17 +267,35 @@ __global__ void __launch_bounds__(kThreads) attend_decode_kernel(const Args a) {
         }
 #pragma unroll
         for (int i = 0; i < kWords; ++i) {
-          const int j = lane + 32 * i;
           kwd[u][i] = 0;
           for (int e = 0; e < 4; ++e)
             kx[u][4 * i + e] = vx[u][4 * i + e] = 0.f;
-          if (in[u] && j < words) {
-            if (QUANT)
-              kwd[u][i] = reinterpret_cast<const int*>(
-                  (const int8_t*)a.k + off)[j];
-            else
-              load4((const KT*)a.k + off, j, &kx[u][4 * i]);
-            if (emit) load4((const KT*)a.v + off, j, &vx[u][4 * i]);
+        }
+        if constexpr (KV4) {   // one packed word: both of the lane's quads
+          if (in[u] && lane < hd / 8) {
+            const int kp = reinterpret_cast<const int*>(
+                (const int8_t*)a.k + off)[lane];
+            kwd[u][0] = nibbles_lo(kp);
+            kwd[u][1] = nibbles_hi(kp);
+            if (emit) {
+              const int vp = reinterpret_cast<const int*>(
+                  (const int8_t*)a.v + off)[lane];
+              unpack4(nibbles_lo(vp), &vx[u][0]);
+              unpack4(nibbles_hi(vp), &vx[u][4]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < kWords; ++i) {
+            const int j = lane + 32 * i;
+            if (in[u] && j < hd / 4) {
+              if (QUANT)
+                kwd[u][i] = reinterpret_cast<const int*>(
+                    (const int8_t*)a.k + off)[j];
+              else
+                load4((const KT*)a.k + off, j, &kx[u][4 * i]);
+              if (emit) load4((const KT*)a.v + off, j, &vx[u][4 * i]);
+            }
           }
         }
       }
@@ -358,8 +418,8 @@ __global__ void __launch_bounds__(kThreads) attend_decode_kernel(const Args a) {
         const float scale = two_pass ? 1.f : expf(m[g] - mg[g]);
 #pragma unroll
         for (int i = 0; i < kWords; ++i) {
-          const int j = lane + 32 * i;
-          if (j < words) {
+          const int j = quad_of<KV4>(lane, i, hd);
+          if (owns<KV4>(lane, i, hd)) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const float x = acc[g][4 * i + e] * scale;
@@ -379,9 +439,12 @@ __global__ void __launch_bounds__(kThreads) attend_decode_kernel(const Args a) {
   }
 }
 
-template <bool QUANT, bool PAGED, typename KT, int MG>
+template <bool QUANT, bool PAGED, typename KT, int MG, bool KV4>
 inline void launch_g(const Args& a, dim3 grid, cudaStream_t stream) {
-  if (a.hd > 128)
+  if constexpr (KV4)
+    attend_decode_kernel<QUANT, PAGED, KT, MG, 2, true>
+        <<<grid, kThreads, 0, stream>>>(a);
+  else if (a.hd > 128)
     attend_decode_kernel<QUANT, PAGED, KT, MG, 2>
         <<<grid, kThreads, 0, stream>>>(a);
   else
@@ -389,14 +452,14 @@ inline void launch_g(const Args& a, dim3 grid, cudaStream_t stream) {
         <<<grid, kThreads, 0, stream>>>(a);
 }
 
-template <bool QUANT, bool PAGED, typename KT>
+template <bool QUANT, bool PAGED, typename KT, bool KV4 = false>
 inline int launch(const Args& a, int batch, void* stream) {
   if (batch > 0 && a.kv > 0) {
     const dim3 grid(a.kv, batch);
     if (a.g <= 2)
-      launch_g<QUANT, PAGED, KT, 2>(a, grid, (cudaStream_t)stream);
+      launch_g<QUANT, PAGED, KT, 2, KV4>(a, grid, (cudaStream_t)stream);
     else
-      launch_g<QUANT, PAGED, KT, kMaxG>(a, grid, (cudaStream_t)stream);
+      launch_g<QUANT, PAGED, KT, kMaxG, KV4>(a, grid, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

@@ -22,8 +22,18 @@
 // zero-padded tile), with one int32 partial per group folded into the f32
 // accumulator in group order g = 0..G-1. The int32 sums are exact; the
 // float epilogue keeps the reference's operation order, and the build has
-// no fast math and no FMA contraction. Not yet done here: wgmma/TMA,
-// split-K for small-M decode, 4-bit weight unpacking.
+// no fast math and no FMA contraction.
+//
+// 4-bit weights (w_bits = 4, the TPU kernels' w_bits=4 mode): W arrives as
+// (K/2, N) pairwise-row nibbles, packed row r holding rows 2r (low nibble)
+// and 2r+1 (high). The unpack happens while the W tile is stored to shared
+// memory: a thread's k-quad 4q..4q+3 of a column is exactly the two packed
+// bytes of rows 2q and 2q+1, which sign-extend into one B word, so the
+// mma loop and the epilogue are the 8-bit ones. A 64-deep K tile reads 32
+// packed rows (half the weight bytes); K tiles and PEG groups start at even
+// k (the pack-time gate keeps group sizes even), so no byte is split, and
+// the K tail is masked on packed rows. Not yet done here: wgmma/TMA,
+// split-K for small-M decode.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,7 +57,7 @@ struct Params {
   const float* out_scale;   // (1,) or null: f32 output
   const float* out_zp;      // (1,) or null
   void* out;                // (M, N) f32 or int8
-  int M, N, K, G, peg, act, vec_a, vec_w;
+  int M, N, K, G, peg, act, vec_a, vec_w;   // w: (K/2, N) when W4
   float qmin, qmax;
 };
 
@@ -75,12 +85,18 @@ __device__ __forceinline__ float activation(float x, int act) {
 }
 
 // Global -> register staging for one K tile: A as 2 x 16 bytes per thread,
-// W as a 4 (k) x 8 (n) byte block per thread.
+// W as a 4 (k) x 8 (n) byte block per thread (W4: 2 packed rows x 8 n).
 struct Stage {
   int4 a[2];
   uint32_t w[4][2];
 };
 
+// One int4 nibble (0..15) sign-extended to an int8 byte.
+__device__ __forceinline__ uint32_t sext4(uint32_t nib) {
+  return (uint32_t)(((int)(nib ^ 8u) - 8) & 0xff);
+}
+
+template <bool W4>
 __device__ __forceinline__ void load_tile(const Params& p, Stage& st, int m0,
                                           int n0, int k0, int k_hi) {
   const int tid = threadIdx.x;
@@ -104,15 +120,17 @@ __device__ __forceinline__ void load_tile(const Params& p, Stage& st, int m0,
   const int kq = tid >> 3, nc = (tid & 7) * 8;  // 16 k-quads x 8 n-chunks
   const int gn = n0 + nc;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int kk = k0 + kq * 4 + r;
-    if (p.vec_w && kk < k_hi && gn + 8 <= p.N) {
+  for (int r = 0; r < (W4 ? 2 : 4); ++r) {
+    // row of W to read, and its first k (W4: packed row of k and k + 1)
+    const int k_first = k0 + kq * 4 + (W4 ? 2 * r : r);
+    const int kk = W4 ? k_first / 2 : k_first;
+    if (p.vec_w && k_first < k_hi && gn + 8 <= p.N) {
       const uint2 v = *reinterpret_cast<const uint2*>(p.w + (size_t)kk * p.N + gn);
       st.w[r][0] = v.x;
       st.w[r][1] = v.y;
     } else {
       uint32_t v[2] = {0u, 0u};
-      if (kk < k_hi)
+      if (k_first < k_hi)
         for (int e = 0; e < 8; ++e)
           if (gn + e < p.N)
             v[e >> 2] |= (uint32_t)(uint8_t)p.w[(size_t)kk * p.N + gn + e]
@@ -123,6 +141,7 @@ __device__ __forceinline__ void load_tile(const Params& p, Stage& st, int m0,
   }
 }
 
+template <bool W4>
 __device__ __forceinline__ void store_tile(const Stage& st,
                                            int8_t (*As)[AS_STRIDE],
                                            uint32_t (*Bs)[BS_STRIDE]) {
@@ -137,12 +156,21 @@ __device__ __forceinline__ void store_tile(const Stage& st,
   for (int e = 0; e < 8; ++e) {
     const int h = e >> 2, sh = 8 * (e & 3);
     uint32_t word = 0u;
+    if (W4) {   // packed bytes of k (kq*4, +1) and (kq*4 + 2, +3)
+      const uint32_t b0 = (st.w[0][h] >> sh) & 0xffu;
+      const uint32_t b1 = (st.w[1][h] >> sh) & 0xffu;
+      word = sext4(b0 & 15u) | (sext4(b0 >> 4) << 8) |
+             (sext4(b1 & 15u) << 16) | (sext4(b1 >> 4) << 24);
+    } else {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) word |= ((st.w[r][h] >> sh) & 0xffu) << (8 * r);
+      for (int r = 0; r < 4; ++r)
+        word |= ((st.w[r][h] >> sh) & 0xffu) << (8 * r);
+    }
     Bs[nc + e][kq] = word;   // byte r = k (kq*4 + r), column nc + e
   }
 }
 
+template <bool W4>
 __global__ void __launch_bounds__(THREADS)
 int8_matmul_kernel(const Params p) {
   __shared__ __align__(16) int8_t As[BM][AS_STRIDE];
@@ -170,14 +198,14 @@ int8_matmul_kernel(const Params p) {
       }
 
   Stage st;
-  load_tile(p, st, m0, n0, 0, gs);
+  load_tile<W4>(p, st, m0, n0, 0, gs);
   for (int t = 0; t < n_tiles; ++t) {
     const int grp = t / tiles_per_group;
-    store_tile(st, As, Bs);
+    store_tile<W4>(st, As, Bs);
     __syncthreads();
     if (t + 1 < n_tiles) {
       const int ng = (t + 1) / tiles_per_group;
-      load_tile(p, st, m0, n0,
+      load_tile<W4>(p, st, m0, n0,
                 ng * gs + ((t + 1) % tiles_per_group) * BK, (ng + 1) * gs);
     }
 #pragma unroll
@@ -268,14 +296,15 @@ int8_matmul_kernel(const Params p) {
 // colsum (G, N) and a_zps required. act: 0 none, 1 gelu, 2 silu, 3 relu.
 // out_scale null: f32 output; else int8 output on [qmin, qmax].
 // vec_a: K and K/G multiples of 16 and a 16-byte aligned; vec_w: N a
-// multiple of 8 and w 8-byte aligned. Returns cudaGetLastError().
+// multiple of 8 and w 8-byte aligned. w_bits = 4: w is (K/2, N) pairwise-row
+// nibbles and K/G is even. Returns cudaGetLastError().
 extern "C" int int8_matmul(const void* a, const void* w, const void* colsum,
                            const void* a_scales, const void* a_zps,
                            const void* w_scale, const void* bias,
                            const void* mul, const void* out_scale,
                            const void* out_zp, void* out, int M, int N, int K,
                            int G, int peg, int act, int qmin, int qmax,
-                           int vec_a, int vec_w, void* stream) {
+                           int vec_a, int vec_w, int w_bits, void* stream) {
   Params p;
   p.a = (const int8_t*)a;
   p.w = (const int8_t*)w;
@@ -300,7 +329,10 @@ extern "C" int int8_matmul(const void* a, const void* w, const void* colsum,
   p.qmax = (float)qmax;
   if (M > 0 && N > 0) {
     dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    int8_matmul_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(p);
+    if (w_bits == 4)
+      int8_matmul_kernel<true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(p);
+    else
+      int8_matmul_kernel<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(p);
   }
   return (int)cudaGetLastError();
 }

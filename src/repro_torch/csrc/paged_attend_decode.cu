@@ -1,8 +1,8 @@
 // K6 and K7: one decode step of attention over a block-paged KV cache, for
 // Hopper (sm_90a). Replaces the TPU kernels
 // src/repro/kernels/paged_attend_decode.py::paged_int8_attend_decode (K6,
-// kv_bits = 8) and ::paged_attend_decode (K7, f32/bf16 arenas), whose shared
-// body is _paged_kernel. Bound by bytes (the arena read); the design is in
+// kv_bits = 8 and 4) and ::paged_attend_decode (K7, f32/bf16 arenas), whose
+// shared body is _paged_kernel. Bound by bytes (the arena read); the design is in
 // attend_decode.cuh. Each cell finds its physical block through the lane's
 // row of the block table and derives its position from (L, q_pos, s_cap),
 // so stale cells of a reused block are never read as valid.
@@ -43,6 +43,7 @@ attend::Args paged_args(const void* table, const void* q_pos, const void* sm,
 // k_arena/v_arena (N,bs,KV,hd) int8; k_scale/v_scale (N,bs,KV) f32; table
 // (B,nb) int32 (-1 = unmapped), nb * bs >= s_cap; q_pos (B,) int32 (-1 =
 // idle lane); sm/smo (2,) f32 or null; out (B,KV,G,hd) f32. All contiguous.
+// kv_bits = 4: arenas are (N,bs,KV,hd/2) split-half nibbles, hd % 8 == 0.
 // Returns cudaGetLastError().
 extern "C" int paged_int8_attend_decode(
     const void* q_q, const void* q_scale, const void* q_zp, const void* k_zp,
@@ -51,7 +52,7 @@ extern "C" int paged_int8_attend_decode(
     const void* q_pos, const void* sm, const void* smo, void* out, int batch,
     int kv, int g, int hd, int nb, int bs, int s_cap, int window,
     float softcap, int sm_qmin, int sm_qmax, int smo_qmin, int smo_qmax,
-    void* stream) {
+    int kv_bits, void* stream) {
   attend::Args a = paged_args(table, q_pos, sm, smo, out, kv, g, hd, nb, bs,
                               s_cap, window, softcap, sm_qmin, sm_qmax,
                               smo_qmin, smo_qmax);
@@ -64,6 +65,8 @@ extern "C" int paged_int8_attend_decode(
   a.v = v_arena;
   a.k_scale = (const float*)k_scale;
   a.v_scale = (const float*)v_scale;
+  if (kv_bits == 4)
+    return attend::launch<true, true, int8_t, true>(a, batch, stream);
   return attend::launch<true, true, int8_t>(a, batch, stream);
 }
 

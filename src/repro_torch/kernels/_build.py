@@ -36,15 +36,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 # C signatures, in the order of the extern "C" declarations in csrc/.
 SIGNATURES = {
-    "norm_quant": {"rms_quantize": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _F,
-                                    _I, _I, _I, _P]},
-    "peg_quant": {"peg_quantize": [_P, _I, _P, _P, _P, _L, _I, _I, _I, _I,
-                                   _I, _P]},
-    "int8_matmul": {"int8_matmul": [_P] * 11 + [_I] * 10 + [_P]},
+    "norm_quant": {"norm_quant": [_P, _I] + [_P] * 5 + [_I] * 3 + [_F] +
+                   [_I] * 5 + [_P]},
+    "peg_quant": {"peg_quant": [_P, _I, _P, _P, _P, _L] + [_I] * 6 + [_P]},
+    "int8_matmul": {"int8_matmul": [_P] * 11 + [_I] * 11 + [_P]},
     "int8_attend_decode": {"int8_attend_decode": [_P] * 14 + [_I] * 6 +
-                           [_F] + [_I] * 4 + [_P]},
+                           [_F] + [_I] * 5 + [_P]},
     "paged_attend_decode": {
-        "paged_int8_attend_decode": [_P] * 14 + [_I] * 8 + [_F] + [_I] * 4 +
+        "paged_int8_attend_decode": [_P] * 14 + [_I] * 8 + [_F] + [_I] * 5 +
         [_P],
         "paged_attend_decode": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 8 + [_F] +
         [_I] * 4 + [_P]},

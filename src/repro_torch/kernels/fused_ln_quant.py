@@ -1,13 +1,20 @@
-"""RMSNorm fused with the int8 emit (the paper's Fig.-4 quantizer placed
-directly after the norm), for ``Mode.DEPLOY`` matmul inputs.
+"""RMSNorm / LayerNorm fused with quantization (the paper's Fig.-4
+quantizer placed directly after the norm): ports of the four entry points
+of ``repro.kernels.fused_ln_quant``, one Hopper kernel
+(``csrc/norm_quant.cu``) with two switches.
 
-``rms_quantize_cuda`` launches the Hopper kernel in
-``csrc/norm_quant.cu`` (port of ``repro.kernels.fused_ln_quant.
-rms_quantize``); ``rms_quantize_plain`` repeats its arithmetic in PyTorch
-and serves CPU tensors and the on-card comparison. Both take ``x`` as
-``(T, d)`` f32 or bf16, ``gamma`` ``(d,)`` (the RMSNorm affine is
-``1 + gamma``), and ``(G,)`` scales / zero-points over contiguous ``d/G``
-column spans (G = 1 is per-tensor).
+* ``rms_quantize`` (K1): RMSNorm·(1 + gamma), int8 emit — every
+  ``Mode.DEPLOY`` matmul input of an RMSNorm model.
+* ``ln_quantize`` (K8): LayerNorm (x − μ)·rsqrt(var + eps)·gamma + beta,
+  int8 emit — ``deploy.norm_quantize`` for LayerNorm models.
+* ``rms_fake_quant`` / ``ln_fake_quant`` (K9a / K9b): the same norms
+  returning ``(q − z)·s`` in x's dtype.
+
+``*_cuda`` launch the kernel (each counts its launches); ``*_plain``
+repeat its arithmetic in PyTorch and serve CPU tensors and the on-card
+comparison. ``x`` is ``(T, d)`` f32 or bf16, ``gamma`` / ``beta`` ``(d,)``,
+and ``(G,)`` scales / zero-points cover contiguous ``d/G`` column spans
+(G = 1 is per-tensor).
 """
 from __future__ import annotations
 
@@ -16,40 +23,106 @@ import torch
 from repro_torch.kernels import _args, _build
 
 
-def rms_quantize_plain(x, gamma, scale, zp, *, qmin: int, qmax: int,
-                       eps: float = 1e-6) -> torch.Tensor:
-    d = x.shape[-1]
+def _normalize(x, gamma, beta, eps, ln):
     xf = x.float()
+    if ln:
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        xc = xf - mu
+        var = torch.mean(xc * xc, dim=-1, keepdim=True)
+        return xc * torch.rsqrt(var + eps) * gamma.float() + beta.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps) * (1.0 + gamma.float())
+    return xf * torch.rsqrt(var + eps) * (1.0 + gamma.float())
+
+
+def _quant_plain(x, gamma, beta, scale, zp, *, qmin, qmax, eps, ln, emit):
+    d = x.shape[-1]
+    y = _normalize(x, gamma, beta, eps, ln)
     s = _args.expand_groups(scale, d, x.device)
     z = _args.expand_groups(zp, d, x.device)
-    return torch.clamp(torch.round(y / s) + z, qmin, qmax).to(torch.int8)
+    q = torch.clamp(torch.round(y / s) + z, qmin, qmax)
+    return q.to(torch.int8) if emit else ((q - z) * s).to(x.dtype)
 
 
-def rms_quantize_cuda(x, gamma, scale, zp, *, qmin: int, qmax: int,
+def rms_quantize_plain(x, gamma, scale, zp, *, qmin: int, qmax: int,
+                       eps: float = 1e-6) -> torch.Tensor:
+    return _quant_plain(x, gamma, None, scale, zp, qmin=qmin, qmax=qmax,
+                        eps=eps, ln=False, emit=True)
+
+
+def ln_quantize_plain(x, gamma, beta, scale, zp, *, qmin: int, qmax: int,
                       eps: float = 1e-6) -> torch.Tensor:
+    return _quant_plain(x, gamma, beta, scale, zp, qmin=qmin, qmax=qmax,
+                        eps=eps, ln=True, emit=True)
+
+
+def rms_fake_quant_plain(x, gamma, scale, zp, *, qmin: int, qmax: int,
+                         eps: float = 1e-6) -> torch.Tensor:
+    return _quant_plain(x, gamma, None, scale, zp, qmin=qmin, qmax=qmax,
+                        eps=eps, ln=False, emit=False)
+
+
+def ln_fake_quant_plain(x, gamma, beta, scale, zp, *, qmin: int, qmax: int,
+                        eps: float = 1e-6) -> torch.Tensor:
+    return _quant_plain(x, gamma, beta, scale, zp, qmin=qmin, qmax=qmax,
+                        eps=eps, ln=True, emit=False)
+
+
+def _launch(what, x, gamma, beta, scale, zp, *, qmin, qmax, eps, ln, emit):
     if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"rms_quantize: x must be (T, d) f32/bf16, got "
+        raise ValueError(f"{what}: x must be (T, d) f32/bf16, got "
                          f"{tuple(x.shape)} {x.dtype}")
     _args.on_cuda(x)
     x = x.contiguous()
     t, d = x.shape
     dev = x.device
     g = _args.f32(gamma, dev, d, "gamma")
+    b = _args.f32(beta, dev, d, "beta") if ln else None
     s = _args.f32(scale, dev, what="scale")
     z = _args.f32(zp, dev, s.numel(), "zero-point")
     if d % s.numel():
-        raise ValueError(f"rms_quantize: {s.numel()} groups do not divide "
-                         f"d={d}")
-    out = torch.empty((t, d), dtype=torch.int8, device=dev)
+        raise ValueError(f"{what}: {s.numel()} groups do not divide d={d}")
+    out = torch.empty((t, d), dtype=torch.int8 if emit else x.dtype,
+                      device=dev)
     threads = 256 if d >= 256 else 32 * ((d + 31) // 32)
-    _build.check(_build.lib("norm_quant").rms_quantize(
+    _build.check(_build.lib("norm_quant").norm_quant(
         x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(),
-        s.data_ptr(), z.data_ptr(), out.data_ptr(), t, d, s.numel(),
-        float(eps), qmin, qmax, threads, _args.stream()), "rms_quantize")
+        _args.ptr(b), s.data_ptr(), z.data_ptr(), out.data_ptr(), t, d,
+        s.numel(), float(eps), qmin, qmax, threads, int(ln), int(emit),
+        _args.stream()), what)
+    return out
+
+
+def rms_quantize_cuda(x, gamma, scale, zp, *, qmin: int, qmax: int,
+                      eps: float = 1e-6) -> torch.Tensor:
+    out = _launch("rms_quantize", x, gamma, None, scale, zp, qmin=qmin,
+                  qmax=qmax, eps=eps, ln=False, emit=True)
     rms_quantize_cuda.launches += 1
     return out
 
 
-rms_quantize_cuda.launches = 0
+def ln_quantize_cuda(x, gamma, beta, scale, zp, *, qmin: int, qmax: int,
+                     eps: float = 1e-6) -> torch.Tensor:
+    out = _launch("ln_quantize", x, gamma, beta, scale, zp, qmin=qmin,
+                  qmax=qmax, eps=eps, ln=True, emit=True)
+    ln_quantize_cuda.launches += 1
+    return out
+
+
+def rms_fake_quant_cuda(x, gamma, scale, zp, *, qmin: int, qmax: int,
+                        eps: float = 1e-6) -> torch.Tensor:
+    out = _launch("rms_fake_quant", x, gamma, None, scale, zp, qmin=qmin,
+                  qmax=qmax, eps=eps, ln=False, emit=False)
+    rms_fake_quant_cuda.launches += 1
+    return out
+
+
+def ln_fake_quant_cuda(x, gamma, beta, scale, zp, *, qmin: int, qmax: int,
+                       eps: float = 1e-6) -> torch.Tensor:
+    out = _launch("ln_fake_quant", x, gamma, beta, scale, zp, qmin=qmin,
+                  qmax=qmax, eps=eps, ln=True, emit=False)
+    ln_fake_quant_cuda.launches += 1
+    return out
+
+
+rms_quantize_cuda.launches = ln_quantize_cuda.launches = 0
+rms_fake_quant_cuda.launches = ln_fake_quant_cuda.launches = 0

@@ -2,8 +2,8 @@
 
 ``int8_attend_decode_cuda`` launches the Hopper kernel in
 ``csrc/int8_attend_decode.cu`` (port of
-``repro.kernels.int8_attend_decode.int8_attend_decode``, ``kv_bits=8``);
-``int8_attend_decode_plain`` repeats its arithmetic in PyTorch:
+``repro.kernels.int8_attend_decode.int8_attend_decode``, ``kv_bits`` 8
+and 4); ``int8_attend_decode_plain`` repeats its arithmetic in PyTorch:
 
     s32  = q_q . k_q                                (exact integer dot)
     s    = ((s32 - zq*kcol - zk*qrow) + hd*zq*zk) * q_s * k_s
@@ -15,14 +15,19 @@ With a calibrated ``softmax_out`` site the probabilities ``exp(s - m) / l``
 are fake-quantized first and the output is not renormalised (the
 reference's two-pass schedule). The plain version takes the softmax over
 all cells at once where the kernel walks them in tiles with an online
-(m, l); the two agree up to float rounding. The helpers here are shared
-with the paged kernels (``paged_attend_decode``).
+(m, l); the two agree up to float rounding. With ``kv_bits=4`` the
+cache holds split-half nibbles (``kernels.nibble``), ``(B, S, KV, hd/2)``:
+the plain version unpacks them first, the kernel as it loads each row, and
+everything after the unpack is the 8-bit arithmetic. The wrapper counts
+8-bit launches in ``launches`` and 4-bit ones in ``launches_kv4``. The
+helpers here are shared with the paged kernels (``paged_attend_decode``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _args, _build
+from repro_torch.kernels.nibble import unpack_nibbles
 from repro_torch.kernels.ref import decode_valid, site_fake_quant
 
 NEG_INF = -1e30
@@ -72,10 +77,22 @@ def softmax_attend(s, valid, v, v_scale=None, v_zp=None, *, logit_softcap,
     return acc if smo_quant is not None else acc / l
 
 
+def kv_values(k_q, v_q, hd, kv_bits):
+    """The int8 K and V values of an 8-bit or a nibble-packed 4-bit cache."""
+    if kv_bits == 4:
+        return unpack_nibbles(k_q, hd), unpack_nibbles(v_q, hd)
+    if kv_bits != 8:
+        raise ValueError(f"attention decode: kv_bits must be 4 or 8, got "
+                         f"{kv_bits}")
+    return k_q, v_q
+
+
 def int8_attend_decode_plain(q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale,
                              v_q, v_scale, k_pos, q_pos, *, window,
                              logit_softcap, sm_quant, sm_qmin, sm_qmax,
-                             smo_quant, smo_qmin, smo_qmax) -> torch.Tensor:
+                             smo_quant, smo_qmin, smo_qmax,
+                             kv_bits=8) -> torch.Tensor:
+    k_q, v_q = kv_values(k_q, v_q, q_q.shape[-1], kv_bits)
     s = int8_logits(q_q, q_scale, q_zp, k_zp, k_q, k_scale)
     return softmax_attend(
         s, decode_valid(k_pos, q_pos, window), v_q, v_scale, v_zp,
@@ -95,6 +112,27 @@ def check_query(q, dtype):
         raise ValueError(f"attention decode kernel takes hd % 4 == 0, "
                          f"hd <= 256 and G <= 8, got hd={hd} G={g}")
     return b, kv, g, hd
+
+
+def payload_shape(cells, kv, hd, kv_bits):
+    """Shape of a K/V payload over ``cells``: hd int8 values per head, or
+    hd/2 bytes of nibbles (hd a multiple of 8, whole 32-bit words)."""
+    if kv_bits == 4:
+        if hd % 8:
+            raise ValueError(f"kv_bits=4 decode kernel takes hd % 8 == 0, "
+                             f"got hd={hd}")
+        return (*cells, kv, hd // 2)
+    if kv_bits != 8:
+        raise ValueError(f"attention decode: kv_bits must be 4 or 8, got "
+                         f"{kv_bits}")
+    return (*cells, kv, hd)
+
+
+def count_launch(fn, kv_bits):
+    if kv_bits == 4:
+        fn.launches_kv4 += 1
+    else:
+        fn.launches += 1
 
 
 def check_int8(t, shape, what):
@@ -136,13 +174,15 @@ def window_arg(window) -> int:
 def int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale,
                             v_q, v_scale, k_pos, q_pos, *, window,
                             logit_softcap, sm_quant, sm_qmin, sm_qmax,
-                            smo_quant, smo_qmin, smo_qmax) -> torch.Tensor:
+                            smo_quant, smo_qmin, smo_qmax,
+                            kv_bits=8) -> torch.Tensor:
     b, kv, g, hd = check_query(q_q, torch.int8)
     _args.on_cuda(q_q, k_q, v_q, k_pos, q_pos)
     s_len = k_q.shape[1]
     q_q = q_q.contiguous()
-    k_q = check_int8(k_q, (b, s_len, kv, hd), "k_q")
-    v_q = check_int8(v_q, (b, s_len, kv, hd), "v_q")
+    shape = payload_shape((b, s_len), kv, hd, kv_bits)
+    k_q = check_int8(k_q, shape, "k_q")
+    v_q = check_int8(v_q, shape, "v_q")
     q_scale = f32_like(q_scale, (b, kv, g), "q_scale")
     q_zp = f32_like(q_zp, (b, kv, g), "q_zp")
     k_zp = f32_like(k_zp, (b, kv), "k_zp")
@@ -158,10 +198,10 @@ def int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale,
         p(q_q), p(q_scale), p(q_zp), p(k_zp), p(v_zp), p(k_q), p(k_scale),
         p(v_q), p(v_scale), p(k_pos), p(q_pos), p(sm), p(smo), p(out), b, kv,
         g, hd, s_len, window_arg(window), softcap_arg(logit_softcap),
-        sm_qmin, sm_qmax, smo_qmin, smo_qmax, _args.stream()),
+        sm_qmin, sm_qmax, smo_qmin, smo_qmax, kv_bits, _args.stream()),
         "int8_attend_decode")
-    int8_attend_decode_cuda.launches += 1
+    count_launch(int8_attend_decode_cuda, kv_bits)
     return out
 
 
-int8_attend_decode_cuda.launches = 0
+int8_attend_decode_cuda.launches = int8_attend_decode_cuda.launches_kv4 = 0

@@ -14,9 +14,12 @@ epilogue:
 
 Both then run the shared epilogue: ``+ bias`` -> activation -> ``* mul`` ->
 optional int8 requant ``clip(rint(f / s_out) + z_out, qmin, qmax)``.
-``a_q`` is ``(M, K)`` int8, ``w_q`` ``(K, N)`` int8; every scale and
-zero-point is a runtime tensor (or number), never a compile-time constant.
-4-bit weight payloads (``w_bits=4``) are not yet ported.
+``a_q`` is ``(M, K)`` int8, ``w_q`` ``(K, N)`` int8 or, with ``w_bits=4``,
+``(K/2, N)`` pairwise-row nibbles (``kernels.nibble.pack_rows``): the plain
+versions unpack them first, the kernel while it stores each W tile, and the
+integer products are the same. Every scale and zero-point is a runtime
+tensor (or number), never a compile-time constant. Each wrapper counts its
+8-bit launches in ``launches`` and its 4-bit ones in ``launches_w4``.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import math
 import torch
 
 from repro_torch.kernels import _args, _build
+from repro_torch.kernels.nibble import unpack_rows
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 
@@ -46,11 +50,13 @@ EPILOGUE_ACTS = {"none": lambda x: x, "gelu": _gelu, "silu": _silu,
 _ACT_CODE = {"none": 0, "gelu": 1, "silu": 2, "relu": 3}
 
 
-def _not_ported_w4(w_bits):
+def _weights(w_q, w_bits):
+    """The int8 (K, N) weight values of an 8-bit or a 4-bit payload."""
+    if w_bits == 4:
+        return unpack_rows(w_q)
     if w_bits != 8:
-        raise NotImplementedError(
-            f"int8 matmul with w_bits={w_bits}: 4-bit weight payloads are "
-            "not yet ported")
+        raise ValueError(f"int8 matmul: w_bits must be 4 or 8, got {w_bits}")
+    return w_q
 
 
 def _scalar(v, device):
@@ -80,7 +86,7 @@ def _int_matmul(a_q, w_q):
 def int8_matmul_plain(a_q, w_q, s_a, s_w, *, z_a=None, w_colsum=None,
                       bias=None, mul=None, activation="none", out_scale=None,
                       out_zp=None, qmin=-128, qmax=127, w_bits=8):
-    _not_ported_w4(w_bits)
+    w_q = _weights(w_q, w_bits)
     dev = a_q.device
     s_prod = _scalar(s_a, dev) * _scalar(s_w, dev)
     acc = _int_matmul(a_q, w_q).float()
@@ -95,7 +101,7 @@ def int8_matmul_peg_plain(a_q, w_q, act_scales, act_zps, w_scale, w_colsum,
                           *, bias=None, mul=None, activation="none",
                           out_scale=None, out_zp=None, qmin=-128, qmax=127,
                           w_bits=8):
-    _not_ported_w4(w_bits)
+    w_q = _weights(w_q, w_bits)
     dev = a_q.device
     k = a_q.shape[1]
     s = _args.f32(act_scales, dev)
@@ -114,23 +120,27 @@ def int8_matmul_peg_plain(a_q, w_q, act_scales, act_zps, w_scale, w_colsum,
 
 
 def _launch(a_q, w_q, colsum, a_scales, a_zps, w_scale, *, bias, mul,
-            activation, out_scale, out_zp, qmin, qmax, peg):
+            activation, out_scale, out_zp, qmin, qmax, peg, w_bits):
     if a_q.dim() != 2 or w_q.dim() != 2 or a_q.dtype != torch.int8 \
             or w_q.dtype != torch.int8:
         raise ValueError("int8 matmul: a_q (M, K) and w_q (K, N) must be "
                          "int8 matrices")
+    if w_bits not in (4, 8):
+        raise ValueError(f"int8 matmul: w_bits must be 4 or 8, got {w_bits}")
     m, k = a_q.shape
     k2, n = w_q.shape
-    if k != k2:
-        raise ValueError(f"int8 matmul: K mismatch {k} vs {k2}")
+    if k != (2 * k2 if w_bits == 4 else k2):
+        raise ValueError(f"int8 matmul: K={k} does not match {k2} "
+                         f"{'packed ' if w_bits == 4 else ''}weight rows")
     if activation not in _ACT_CODE:
         raise ValueError(f"unknown epilogue activation {activation!r}")
     _args.on_cuda(a_q, w_q, colsum, bias, mul)
     dev = a_q.device
     a_q, w_q = a_q.contiguous(), w_q.contiguous()
     g = a_scales.numel()
-    if k % g:
-        raise ValueError(f"int8 matmul: {g} groups do not divide K={k}")
+    if k % g or (w_bits == 4 and (k // g) % 2):
+        raise ValueError(f"int8 matmul: {g} groups do not divide K={k} "
+                         f"into {'even ' if w_bits == 4 else ''}spans")
     if colsum is not None:
         colsum = colsum.to(torch.int32).contiguous()
         if colsum.numel() != g * n:
@@ -157,7 +167,7 @@ def _launch(a_q, w_q, colsum, a_scales, a_zps, w_scale, *, bias, mul,
         a_scales.data_ptr(), _args.ptr(a_zps), w_scale.data_ptr(),
         _args.ptr(bias), _args.ptr(mul), _args.ptr(s_o), _args.ptr(z_o),
         out.data_ptr(), m, n, k, g, int(peg), _ACT_CODE[activation], qmin,
-        qmax, vec_a, vec_w, _args.stream()),
+        qmax, vec_a, vec_w, w_bits, _args.stream()),
         "int8_matmul_peg" if peg else "int8_matmul")
     return out
 
@@ -165,7 +175,6 @@ def _launch(a_q, w_q, colsum, a_scales, a_zps, w_scale, *, bias, mul,
 def int8_matmul_cuda(a_q, w_q, s_a, s_w, *, z_a=None, w_colsum=None,
                      bias=None, mul=None, activation="none", out_scale=None,
                      out_zp=None, qmin=-128, qmax=127, w_bits=8):
-    _not_ported_w4(w_bits)
     dev = a_q.device
     if z_a is not None and w_colsum is None:
         raise ValueError("int8_matmul: z_a requires w_colsum")
@@ -173,8 +182,11 @@ def int8_matmul_cuda(a_q, w_q, s_a, s_w, *, z_a=None, w_colsum=None,
                   None if z_a is None else _args.f32(z_a, dev, 1, "z_a"),
                   _args.f32(s_w, dev, 1, "s_w"), bias=bias, mul=mul,
                   activation=activation, out_scale=out_scale, out_zp=out_zp,
-                  qmin=qmin, qmax=qmax, peg=False)
-    int8_matmul_cuda.launches += 1
+                  qmin=qmin, qmax=qmax, peg=False, w_bits=w_bits)
+    if w_bits == 4:
+        int8_matmul_cuda.launches_w4 += 1
+    else:
+        int8_matmul_cuda.launches += 1
     return out
 
 
@@ -182,17 +194,19 @@ def int8_matmul_peg_cuda(a_q, w_q, act_scales, act_zps, w_scale, w_colsum,
                          *, bias=None, mul=None, activation="none",
                          out_scale=None, out_zp=None, qmin=-128, qmax=127,
                          w_bits=8):
-    _not_ported_w4(w_bits)
     dev = a_q.device
     s = _args.f32(act_scales, dev, what="act_scales")
     out = _launch(a_q, w_q, w_colsum, s,
                   _args.f32(act_zps, dev, s.numel(), "act_zps"),
                   _args.f32(w_scale, dev, 1, "w_scale"), bias=bias, mul=mul,
                   activation=activation, out_scale=out_scale, out_zp=out_zp,
-                  qmin=qmin, qmax=qmax, peg=True)
-    int8_matmul_peg_cuda.launches += 1
+                  qmin=qmin, qmax=qmax, peg=True, w_bits=w_bits)
+    if w_bits == 4:
+        int8_matmul_peg_cuda.launches_w4 += 1
+    else:
+        int8_matmul_peg_cuda.launches += 1
     return out
 
 
-int8_matmul_cuda.launches = 0
-int8_matmul_peg_cuda.launches = 0
+int8_matmul_cuda.launches = int8_matmul_cuda.launches_w4 = 0
+int8_matmul_peg_cuda.launches = int8_matmul_peg_cuda.launches_w4 = 0

@@ -14,10 +14,12 @@ Conventions kept from the reference:
   dims are flattened into rows and the result is reshaped back. The
   kernels mask their edges, so no row padding is needed.
 * ``z_a`` requires a weight colsum; when the caller gives none it is
-  computed from the int8 weights (never from packed bytes).
+  computed from the int8 weights. Packed 4-bit weights (``w_bits=4``) must
+  come with their colsum: a sum over packed bytes would be meaningless.
 * Decode attention: absent zero-points are zeros (symmetric grids); a
   ragged dense S is padded to a multiple of ``chunk`` with empty cells, as
-  the reference pads its grid; a paged table is cut to the columns the
+  the reference pads its grid (on the cell axis, so packed ``kv_bits=4``
+  caches pad the same way); a paged table is cut to the columns the
   layer's capacity can reach (``_lane_blocks``).
 """
 from __future__ import annotations
@@ -54,9 +56,39 @@ def rms_quantize(x, gamma, scale, zp, *, qmin: int = 0, qmax: int = 255,
                    lead)
 
 
+def rms_fake_quant(x, gamma, scale, zp, *, qmin: int = 0, qmax: int = 255,
+                   eps: float = 1e-6):
+    x2, lead = _rows(x)
+    fn = _pick(x, _lnq.rms_fake_quant_plain, _lnq.rms_fake_quant_cuda)
+    return _unrows(fn(x2, gamma, scale, zp, qmin=qmin, qmax=qmax, eps=eps),
+                   lead)
+
+
+def ln_quantize(x, gamma, beta, scale, zp, *, qmin: int = 0, qmax: int = 255,
+                eps: float = 1e-6):
+    x2, lead = _rows(x)
+    fn = _pick(x, _lnq.ln_quantize_plain, _lnq.ln_quantize_cuda)
+    return _unrows(fn(x2, gamma, beta, scale, zp, qmin=qmin, qmax=qmax,
+                      eps=eps), lead)
+
+
+def ln_fake_quant(x, gamma, beta, scale, zp, *, qmin: int = 0,
+                  qmax: int = 255, eps: float = 1e-6):
+    x2, lead = _rows(x)
+    fn = _pick(x, _lnq.ln_fake_quant_plain, _lnq.ln_fake_quant_cuda)
+    return _unrows(fn(x2, gamma, beta, scale, zp, qmin=qmin, qmax=qmax,
+                      eps=eps), lead)
+
+
 def peg_quantize(x, scales, zps, *, qmin: int = 0, qmax: int = 255):
     x2, lead = _rows(x)
     fn = _pick(x, _peg.peg_quantize_plain, _peg.peg_quantize_cuda)
+    return _unrows(fn(x2, scales, zps, qmin=qmin, qmax=qmax), lead)
+
+
+def peg_fake_quant(x, scales, zps, *, qmin: int = 0, qmax: int = 255):
+    x2, lead = _rows(x)
+    fn = _pick(x, _peg.peg_fake_quant_plain, _peg.peg_fake_quant_cuda)
     return _unrows(fn(x2, scales, zps, qmin=qmin, qmax=qmax), lead)
 
 
@@ -100,13 +132,6 @@ def int8_matmul_peg(a_q, w_q, act_scales, act_zps, *, w_scale,
     return _unrows(out, lead)
 
 
-def _not_ported_kv4(kv_bits):
-    if kv_bits != 8:
-        raise NotImplementedError(
-            f"kv_bits={kv_bits}: nibble-packed int4 caches are not yet "
-            "ported")
-
-
 def _zero_points(q_scale, q_zp, k_zp, v_zp):
     """Absent zero-points are zeros: (B, KV, G) for q, (B, KV) for k, v."""
     def zeros(shape):
@@ -130,11 +155,11 @@ def int8_attend_decode(q_q, q_scale, k_q, k_scale, v_q, v_scale, k_pos,
                        chunk: int = 256, kv_bits: int = 8):
     """Decode attention over a dense int8 KV cache (K5). q_q (B, KV, G, hd)
     int8; q_scale (B, KV, G) f32 with the attention scale folded in; k_q /
-    v_q (B, S, KV, hd) int8; k_scale / v_scale (B, S, KV) f32; k_pos (B, S)
-    (-1 = empty); q_pos (B,). ``sm_quant`` / ``smo_quant``: optional (2,)
+    v_q (B, S, KV, hd) int8, or (B, S, KV, hd/2) split-half nibbles with
+    ``kv_bits=4``; k_scale / v_scale (B, S, KV) f32; k_pos (B, S) (-1 =
+    empty); q_pos (B,). ``sm_quant`` / ``smo_quant``: optional (2,)
     [scale, zp] of the softmax_in / softmax_out sites. Returns
     (B, KV, G, hd) f32."""
-    _not_ported_kv4(kv_bits)
     q_zp, k_zp, v_zp = _zero_points(q_scale, q_zp, k_zp, v_zp)
     s_len = k_pos.shape[1]
     pad = (-s_len) % min(chunk, s_len)
@@ -147,7 +172,8 @@ def int8_attend_decode(q_q, q_scale, k_q, k_scale, v_q, v_scale, k_pos,
     return fn(q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale, v_q, v_scale,
               k_pos, q_pos, window=window, logit_softcap=logit_softcap,
               sm_quant=sm_quant, sm_qmin=sm_qmin, sm_qmax=sm_qmax,
-              smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax)
+              smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax,
+              kv_bits=kv_bits)
 
 
 def _lane_blocks(block_table, s_cap, block_size):
@@ -184,9 +210,9 @@ def paged_int8_attend_decode(q_q, q_scale, k_arena, k_scale, v_arena,
                              smo_quant=None, smo_qmin: int = 0,
                              smo_qmax: int = 255, kv_bits: int = 8):
     """Decode attention over a paged int8 KV cache (K6), the paged twin of
-    :func:`int8_attend_decode`: arenas (N, bs, KV, hd) int8 with per-cell
-    scales (N, bs, KV) f32. Returns (B, KV, G, hd) f32."""
-    _not_ported_kv4(kv_bits)
+    :func:`int8_attend_decode`: arenas (N, bs, KV, hd) int8, or (N, bs,
+    KV, hd/2) nibbles with ``kv_bits=4``, with per-cell scales (N, bs, KV)
+    f32. Returns (B, KV, G, hd) f32."""
     q_zp, k_zp, v_zp = _zero_points(q_scale, q_zp, k_zp, v_zp)
     fn = _pick(q_q, _pad.paged_int8_attend_decode_plain,
                _pad.paged_int8_attend_decode_cuda)
@@ -194,4 +220,5 @@ def paged_int8_attend_decode(q_q, q_scale, k_arena, k_scale, v_arena,
               v_scale, _lane_blocks(block_table, s_cap, k_arena.shape[1]),
               q_pos, s_cap=s_cap, window=window, logit_softcap=logit_softcap,
               sm_quant=sm_quant, sm_qmin=sm_qmin, sm_qmax=sm_qmax,
-              smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax)
+              smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax,
+              kv_bits=kv_bits)

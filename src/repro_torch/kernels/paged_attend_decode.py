@@ -11,7 +11,8 @@ so stale cells of a reused block are never read as valid.
 
 * ``paged_int8_attend_decode_*`` (K6; port of
   ``repro.kernels.paged_attend_decode.paged_int8_attend_decode``,
-  ``kv_bits=8``): int8 arenas with per-cell scales, the math of K5.
+  ``kv_bits`` 8 and 4): int8 or nibble-packed ``(N, bs, KV, hd/2)`` arenas
+  with per-cell scales, the math of K5 (``launches`` / ``launches_kv4``).
 * ``paged_attend_decode_*`` (K7; port of ``...paged_attend_decode``): f32 or
   bf16 arenas, queries f32 with the attention scale folded in.
 
@@ -33,7 +34,8 @@ def paged_int8_attend_decode_plain(q_q, q_scale, q_zp, k_zp, v_zp, k_arena,
                                    k_scale, v_arena, v_scale, block_table,
                                    q_pos, *, s_cap, window, logit_softcap,
                                    sm_quant, sm_qmin, sm_qmax, smo_quant,
-                                   smo_qmin, smo_qmax) -> torch.Tensor:
+                                   smo_qmin, smo_qmax,
+                                   kv_bits=8) -> torch.Tensor:
     kp = paged_positions_ref(block_table, q_pos, s_cap=s_cap,
                              block_size=k_arena.shape[1])
     return _iad.int8_attend_decode_plain(
@@ -44,7 +46,7 @@ def paged_int8_attend_decode_plain(q_q, q_scale, q_zp, k_zp, v_zp, k_arena,
         paged_gather_ref(v_scale, block_table), kp, q_pos, window=window,
         logit_softcap=logit_softcap, sm_quant=sm_quant, sm_qmin=sm_qmin,
         sm_qmax=sm_qmax, smo_quant=smo_quant, smo_qmin=smo_qmin,
-        smo_qmax=smo_qmax)
+        smo_qmax=smo_qmax, kv_bits=kv_bits)
 
 
 def paged_attend_decode_plain(q, k_arena, v_arena, block_table, q_pos, *,
@@ -74,13 +76,15 @@ def paged_int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_arena,
                                   k_scale, v_arena, v_scale, block_table,
                                   q_pos, *, s_cap, window, logit_softcap,
                                   sm_quant, sm_qmin, sm_qmax, smo_quant,
-                                  smo_qmin, smo_qmax) -> torch.Tensor:
+                                  smo_qmin, smo_qmax,
+                                  kv_bits=8) -> torch.Tensor:
     b, kv, g, hd = _iad.check_query(q_q, torch.int8)
     _args.on_cuda(q_q, k_arena, v_arena, block_table, q_pos)
     n, bs = k_arena.shape[:2]
     q_q = q_q.contiguous()
-    k_arena = _iad.check_int8(k_arena, (n, bs, kv, hd), "k_arena")
-    v_arena = _iad.check_int8(v_arena, (n, bs, kv, hd), "v_arena")
+    shape = _iad.payload_shape((n, bs), kv, hd, kv_bits)
+    k_arena = _iad.check_int8(k_arena, shape, "k_arena")
+    v_arena = _iad.check_int8(v_arena, shape, "v_arena")
     q_scale = _iad.f32_like(q_scale, (b, kv, g), "q_scale")
     q_zp = _iad.f32_like(q_zp, (b, kv, g), "q_zp")
     k_zp = _iad.f32_like(k_zp, (b, kv), "k_zp")
@@ -97,8 +101,8 @@ def paged_int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_arena,
         p(k_scale), p(v_arena), p(v_scale), p(table), p(q_pos), p(sm), p(smo),
         p(out), b, kv, g, hd, nb, bs, s_cap, _iad.window_arg(window),
         _iad.softcap_arg(logit_softcap), sm_qmin, sm_qmax, smo_qmin,
-        smo_qmax, _args.stream()), "paged_int8_attend_decode")
-    paged_int8_attend_decode_cuda.launches += 1
+        smo_qmax, kv_bits, _args.stream()), "paged_int8_attend_decode")
+    _iad.count_launch(paged_int8_attend_decode_cuda, kv_bits)
     return out
 
 
@@ -135,4 +139,5 @@ def paged_attend_decode_cuda(q, k_arena, v_arena, block_table, q_pos, *,
 
 
 paged_int8_attend_decode_cuda.launches = 0
+paged_int8_attend_decode_cuda.launches_kv4 = 0
 paged_attend_decode_cuda.launches = 0

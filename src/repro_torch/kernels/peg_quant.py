@@ -1,11 +1,15 @@
-"""Per-embedding-group quantize (the int8 emit of paper eq. 5): the
-quantize in front of an integer matmul whose input is not a norm output
-(the attention ``wo`` input).
+"""Per-embedding-group quantize (paper eq. 5): ports of
+``repro.kernels.peg_quant``, one Hopper kernel (``csrc/peg_quant.cu``) with
+one switch.
 
-``peg_quantize_cuda`` launches the Hopper kernel in ``csrc/peg_quant.cu``
-(port of ``repro.kernels.peg_quant.peg_quantize``); ``peg_quantize_plain``
-repeats its arithmetic in PyTorch. ``x`` is ``(T, d)`` f32 or bf16,
-group-sorted; scales / zero-points ``(G,)`` over contiguous ``d/G`` spans.
+* ``peg_quantize`` (K4): the int8 emit in front of an integer matmul whose
+  input is not a norm output (the attention ``wo`` input).
+* ``peg_fake_quant`` (K10): the same grid returning ``(q − z)·s`` in x's
+  dtype.
+
+``*_cuda`` launch the kernel (each counts its launches); ``*_plain`` repeat
+its arithmetic in PyTorch. ``x`` is ``(T, d)`` f32 or bf16, group-sorted;
+scales / zero-points ``(G,)`` over contiguous ``d/G`` spans.
 """
 from __future__ import annotations
 
@@ -14,19 +18,27 @@ import torch
 from repro_torch.kernels import _args, _build
 
 
-def peg_quantize_plain(x, scales, zps, *, qmin: int, qmax: int
-                       ) -> torch.Tensor:
+def _quant_plain(x, scales, zps, *, qmin, qmax, emit):
     d = x.shape[-1]
     s = _args.expand_groups(scales, d, x.device)
     z = _args.expand_groups(zps, d, x.device)
-    return torch.clamp(torch.round(x.float() / s) + z, qmin,
-                       qmax).to(torch.int8)
+    q = torch.clamp(torch.round(x.float() / s) + z, qmin, qmax)
+    return q.to(torch.int8) if emit else ((q - z) * s).to(x.dtype)
 
 
-def peg_quantize_cuda(x, scales, zps, *, qmin: int, qmax: int
-                      ) -> torch.Tensor:
+def peg_quantize_plain(x, scales, zps, *, qmin: int, qmax: int
+                       ) -> torch.Tensor:
+    return _quant_plain(x, scales, zps, qmin=qmin, qmax=qmax, emit=True)
+
+
+def peg_fake_quant_plain(x, scales, zps, *, qmin: int, qmax: int
+                         ) -> torch.Tensor:
+    return _quant_plain(x, scales, zps, qmin=qmin, qmax=qmax, emit=False)
+
+
+def _launch(what, x, scales, zps, *, qmin, qmax, emit):
     if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"peg_quantize: x must be (T, d) f32/bf16, got "
+        raise ValueError(f"{what}: x must be (T, d) f32/bf16, got "
                          f"{tuple(x.shape)} {x.dtype}")
     _args.on_cuda(x)
     x = x.contiguous()
@@ -34,17 +46,33 @@ def peg_quantize_cuda(x, scales, zps, *, qmin: int, qmax: int
     s = _args.f32(scales, x.device, what="scales")
     z = _args.f32(zps, x.device, s.numel(), "zero-points")
     if d % s.numel():
-        raise ValueError(f"peg_quantize: {s.numel()} groups do not divide "
-                         f"d={d}")
-    out = torch.empty((t, d), dtype=torch.int8, device=x.device)
+        raise ValueError(f"{what}: {s.numel()} groups do not divide d={d}")
+    out = torch.empty((t, d), dtype=torch.int8 if emit else x.dtype,
+                      device=x.device)
     vec = int(x.dtype == torch.float32 and d % 4 == 0
-              and x.data_ptr() % 16 == 0)
-    _build.check(_build.lib("peg_quant").peg_quantize(
+              and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    _build.check(_build.lib("peg_quant").peg_quant(
         x.data_ptr(), int(x.dtype == torch.bfloat16), s.data_ptr(),
         z.data_ptr(), out.data_ptr(), t * d, d, s.numel(), qmin, qmax, vec,
-        _args.stream()), "peg_quantize")
+        int(emit), _args.stream()), what)
+    return out
+
+
+def peg_quantize_cuda(x, scales, zps, *, qmin: int, qmax: int
+                      ) -> torch.Tensor:
+    out = _launch("peg_quantize", x, scales, zps, qmin=qmin, qmax=qmax,
+                  emit=True)
     peg_quantize_cuda.launches += 1
     return out
 
 
+def peg_fake_quant_cuda(x, scales, zps, *, qmin: int, qmax: int
+                        ) -> torch.Tensor:
+    out = _launch("peg_fake_quant", x, scales, zps, qmin=qmin, qmax=qmax,
+                  emit=False)
+    peg_fake_quant_cuda.launches += 1
+    return out
+
+
 peg_quantize_cuda.launches = 0
+peg_fake_quant_cuda.launches = 0

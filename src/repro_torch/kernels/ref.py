@@ -6,11 +6,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._args import expand_groups
-from repro_torch.kernels.fused_ln_quant import \
-    rms_quantize_plain as rms_quantize_ref  # noqa: F401  (same arithmetic)
+# the norm and group quantizers' plain versions are their oracles (the same
+# arithmetic as repro.kernels.ref's *_quantize_ref / *_fake_quant_ref)
+from repro_torch.kernels.fused_ln_quant import (  # noqa: F401
+    ln_fake_quant_plain as ln_fake_quant_ref,
+    ln_quantize_plain as ln_quantize_ref,
+    rms_fake_quant_plain as rms_fake_quant_ref,
+    rms_quantize_plain as rms_quantize_ref)
 from repro_torch.kernels.int8_matmul import epilogue
-from repro_torch.kernels.peg_quant import \
-    peg_quantize_plain as peg_quantize_ref  # noqa: F401  (same arithmetic)
+from repro_torch.kernels.nibble import unpack_nibbles
+from repro_torch.kernels.peg_quant import (  # noqa: F401
+    peg_fake_quant_plain as peg_fake_quant_ref,
+    peg_quantize_plain as peg_quantize_ref)
 
 
 def epilogue_ref(f, *, bias=None, activation="none", mul=None,
@@ -95,11 +102,15 @@ def int8_attend_decode_ref(q_q, q_scale, k_q, k_scale, v_q, v_scale, k_pos,
                            q_pos, *, q_zp=None, k_zp=None, v_zp=None,
                            window=None, logit_softcap=None, sm_quant=None,
                            sm_qmin=0, sm_qmax=255, smo_quant=None,
-                           smo_qmin=0, smo_qmax=255):
+                           smo_qmin=0, smo_qmax=255, kv_bits=8):
     """Dequantize-then-attend oracle for the int8 KV decode kernel (K5):
     q_q (B, KV, G, hd) int8, q_scale / q_zp (B, KV, G), k_zp / v_zp
     (B, KV), k_q / v_q (B, S, KV, hd) int8, k_scale / v_scale (B, S, KV),
-    k_pos (B, S), q_pos (B,). Returns (B, KV, G, hd) f32."""
+    k_pos (B, S), q_pos (B,). ``kv_bits=4``: k_q / v_q are (B, S, KV,
+    hd/2) split-half nibbles, unpacked first. Returns (B, KV, G, hd) f32."""
+    if kv_bits == 4:
+        hd = q_q.shape[-1]
+        k_q, v_q = unpack_nibbles(k_q, hd), unpack_nibbles(v_q, hd)
     qh = q_q.float()
     if q_zp is not None:
         qh = qh - q_zp.float()[..., None]
@@ -162,10 +173,11 @@ def paged_int8_attend_decode_ref(q_q, q_scale, k_arena, k_scale, v_arena,
                                  q_zp=None, k_zp=None, v_zp=None,
                                  window=None, logit_softcap=None,
                                  sm_quant=None, sm_qmin=0, sm_qmax=255,
-                                 smo_quant=None, smo_qmin=0, smo_qmax=255):
+                                 smo_quant=None, smo_qmin=0, smo_qmax=255,
+                                 kv_bits=8):
     """Gather-then-dequantize oracle for the paged int8 decode kernel (K6):
     :func:`int8_attend_decode_ref` over the per-lane view and its derived
-    positions."""
+    positions (the gather does not care whether the arenas are packed)."""
     bs = k_arena.shape[1]
     kp = paged_positions_ref(block_table, q_pos, s_cap=s_cap, block_size=bs)
     return int8_attend_decode_ref(
@@ -175,4 +187,5 @@ def paged_int8_attend_decode_ref(q_q, q_scale, k_arena, k_scale, v_arena,
         paged_gather_ref(v_scale, block_table), kp, q_pos, q_zp=q_zp,
         k_zp=k_zp, v_zp=v_zp, window=window, logit_softcap=logit_softcap,
         sm_quant=sm_quant, sm_qmin=sm_qmin, sm_qmax=sm_qmax,
-        smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax)
+        smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax,
+        kv_bits=kv_bits)

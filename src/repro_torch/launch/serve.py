@@ -9,7 +9,13 @@ int8 and the attention / FFN projections on the hand-written kernels
 (``rms_quantize -> int8_matmul_peg (fused epilogue) -> int8_matmul``), with
 a parity check against the fake-quant reference printed at startup.
 ``--kv-bits 8`` stores the KV cache in int8 and decodes through the int8
-attention kernels (``[kv-int8]`` check at startup); ``--paged-kv`` pages
+attention kernels (``[kv-int8]`` check at startup); ``--kv-bits 4`` in
+nibble-packed int4 through their 4-bit variants (``[kv-int4]`` check and
+an int4-vs-int8 drift line; ``--parity`` then reports greedy-token match
+rates instead of asserting equality, and serves the requests once more at
+kv-bits 8). ``--weight-bits 4`` packs the deployable weights as int4
+(symmetric, MSE ranges, two rows per byte) for the 4-bit matmul variants;
+``--paged-kv`` pages
 the cache in blocks (``--block-size``, ``--num-blocks``); ``--scheduler
 continuous`` admits into freed lanes mid-flight, ``--prefill-chunk N`` in
 chunks of N prompt tokens; ``--parity`` serves the requests again under
@@ -31,12 +37,14 @@ parser and rejected with "not yet ported" when set. The README quickstart:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import Mode, QuantCtx, build_deploy, peg_policy, ptq
+from repro_torch.core.quant_config import QuantizerConfig, RangeEstimator
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime import (BlockPool, Request, blocks_for_tokens,
@@ -49,8 +57,6 @@ _PORTED = {"arch", "reduced", "requests", "prompt_len", "new_tokens",
            "batch_slots", "max_len", "skew", "seed", "quantize",
            "deploy_int8", "scheduler", "kv_bits", "weight_bits", "parity",
            "paged_kv", "block_size", "num_blocks", "prefill_chunk"}
-# ported flags of which only some values are served
-_UNPORTED_VALUES = {"kv_bits": (4,), "weight_bits": (4,)}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -186,8 +192,6 @@ def _reject_unported(ap: argparse.ArgumentParser, args) -> None:
         if dest == "help" or not action.option_strings:
             continue
         value = getattr(args, dest)
-        if value in _UNPORTED_VALUES.get(dest, ()):
-            ap.error(f"{action.option_strings[0]} {value} is not yet ported")
         if dest not in _PORTED and value != ap.get_default(dest):
             ap.error(f"{action.option_strings[0]} is not yet ported")
 
@@ -210,7 +214,9 @@ def _fallback_note(cfg, packed, qm) -> str:
                f" (ffn_in PEG groups {spec.group_sizes.tolist()} are not "
                f"uniform)")
         note += f"; fake-quant fallback: layer/ffn{why}"
-    return note
+    n8, n4, nbytes = deploy.packed_summary(packed)
+    return (f"{note}\n[deploy-int8] packed weights: {n8} int8 and {n4} "
+            f"int4 (q4) payloads, {nbytes / 2**20:.1f} MiB")
 
 
 def _check_args(ap: argparse.ArgumentParser, args) -> None:
@@ -237,6 +243,11 @@ def _quantize(cfg, args, params, dtype, dev):
     # calibrate on a few synthetic prompts with the unrolled layout, then
     # serve with layer-shared quant params (layer 0's win)
     pol = peg_policy(4)
+    if args.weight_bits == 4:
+        # sub-8-bit weights (paper Tables 5-7): symmetric int4 grid, MSE
+        # ranges; activations stay on the W8A8 / PEG policy
+        pol = dataclasses.replace(pol, weight_default=QuantizerConfig(
+            bits=4, symmetric=True, estimator=RangeEstimator.MSE))
     flat = tfm.init_params(cfg, args.seed, stacked=False, dtype=dtype,
                            device=dev)
     rng = np.random.RandomState(10)
@@ -282,21 +293,25 @@ def _quantize(cfg, args, params, dtype, dev):
     print(f"[deploy-int8] max |fake-quant - int8| logits diff "
           f"{diff:.5f} (rel {diff / scale:.4%})")
     print(_fallback_note(cfg, params, qm))
-    if args.kv_bits == 8:
-        print(_kv_int8_check(cfg, args, params, ctx_factory, toks, dtype,
+    if args.kv_bits in (4, 8):
+        print(_kv_quant_check(cfg, args, params, ctx_factory, toks, dtype,
+                              dev))
+    if args.kv_bits == 4:
+        print(_kv_int4_drift(cfg, args, params, ctx_factory, toks, dtype,
                              dev))
     return params, ctx_factory
 
 
 @torch.no_grad()
-def _kv_int8_check(cfg, args, params, ctx_factory, toks, dtype, dev) -> str:
-    """Multi-step decode parity of the int8 KV cache (decode through K5)
-    against the f32/bf16-cache integer path, teacher-forced on the latter's
-    argmax."""
+def _kv_quant_check(cfg, args, params, ctx_factory, toks, dtype,
+                    dev) -> str:
+    """Multi-step decode parity of the int8 / int4 KV cache (decode through
+    K5) against the f32/bf16-cache integer path, teacher-forced on the
+    latter's argmax."""
     B, steps = toks.shape[0], 4
     c16 = tfm.init_cache(cfg, B, args.max_len, dtype=dtype, device=dev)
-    cq = tfm.init_cache(cfg, B, args.max_len, dtype=dtype, kv_bits=8,
-                        device=dev)
+    cq = tfm.init_cache(cfg, B, args.max_len, dtype=dtype,
+                        kv_bits=args.kv_bits, device=dev)
     l16, c16 = tfm.prefill(cfg, params, toks, c16, ctx=ctx_factory())
     lq, cq = tfm.prefill(cfg, params, toks, cq, ctx=ctx_factory())
 
@@ -314,8 +329,42 @@ def _kv_int8_check(cfg, args, params, ctx_factory, toks, dtype, dev) -> str:
         worst = max(worst, rel(l16, lq))
         cur = torch.argmax(l16, dim=-1).to(torch.int32)
         pos = pos + 1
-    return (f"[kv-int8] max rel logits diff over prefill + {steps} decode "
-            f"steps vs bf16 cache: {worst:.4%}")
+    return (f"[kv-int{args.kv_bits}] max rel logits diff over prefill + "
+            f"{steps} decode steps vs bf16 cache: {worst:.4%}")
+
+
+@torch.no_grad()
+def _kv_int4_drift(cfg, args, params, ctx_factory, toks, dtype, dev) -> str:
+    """int4 vs int8 cache drift: the max-abs logit delta and the greedy-token
+    match rate over prefill + 4 decode steps, teacher-forced on the int8
+    path's argmax so both see the same inputs."""
+    B, steps = toks.shape[0], 4
+    c8, c4 = (tfm.init_cache(cfg, B, args.max_len, dtype=dtype, kv_bits=b,
+                             device=dev) for b in (8, 4))
+    l8, c8 = tfm.prefill(cfg, params, toks, c8, ctx=ctx_factory())
+    l4, c4 = tfm.prefill(cfg, params, toks, c4, ctx=ctx_factory())
+
+    def compare(l8, l4):
+        delta = float((l8.float() - l4.float()).abs().max())
+        same = int((torch.argmax(l4, dim=-1) ==
+                    torch.argmax(l8, dim=-1)).sum())
+        return delta, same
+    delta, matched = compare(l8, l4)
+    total = B
+    cur = torch.argmax(l8, dim=-1).to(torch.int32)
+    pos = torch.full((B, 1), toks.shape[1], dtype=torch.int32, device=dev)
+    for _ in range(steps):
+        l8, c8 = tfm.decode_step(cfg, params, cur, pos, c8,
+                                 ctx=ctx_factory())
+        l4, c4 = tfm.decode_step(cfg, params, cur, pos, c4,
+                                 ctx=ctx_factory())
+        d, m = compare(l8, l4)
+        delta, matched, total = max(delta, d), matched + m, total + B
+        cur = torch.argmax(l8, dim=-1).to(torch.int32)
+        pos = pos + 1
+    return (f"[kv-int4] int4 vs int8 cache drift over prefill + {steps} "
+            f"decode steps: max |logit delta| {delta:.5f}, greedy-token "
+            f"match {matched}/{total} ({matched / total:.1%})")
 
 
 def main(argv=None, *, device=None):
@@ -384,8 +433,8 @@ def main(argv=None, *, device=None):
                                         else args.new_tokens))
                 for i in range(args.requests)]
 
-    def init_cache(batch, paged, scheduler):
-        kw = dict(dtype=dtype, kv_bits=args.kv_bits, device=dev)
+    def init_cache(batch, paged, scheduler, kv_bits):
+        kw = dict(dtype=dtype, kv_bits=kv_bits, device=dev)
         if not paged:
             return tfm.init_cache(cfg, batch, args.max_len, **kw)
         if scheduler == "static":
@@ -396,14 +445,16 @@ def main(argv=None, *, device=None):
                               block_size=args.block_size,
                               num_blocks=num_blocks, mapped=False, **kw)
 
-    def run(scheduler, requests, paged=None, chunk=0):
+    def run(scheduler, requests, paged=None, chunk=0, kv_bits=None):
         paged = args.paged_kv if paged is None else paged
+        kv_bits = args.kv_bits if kv_bits is None else kv_bits
         pool = None
         if paged and scheduler == "continuous":
             pool = BlockPool(num_blocks, args.block_size, args.batch_slots,
                              nb_lane)
         return serve(prefill, decode,
-                     lambda b: init_cache(b, paged, scheduler), params,
+                     lambda b: init_cache(b, paged, scheduler, kv_bits),
+                     params,
                      requests, scheduler=scheduler,
                      batch_slots=args.batch_slots, max_len=args.max_len,
                      admit_step=admit,
@@ -435,9 +486,31 @@ def main(argv=None, *, device=None):
           f"(kv-bits {args.kv_bits}{paged_note}{chunk_note}, {dev.type})")
 
     if args.parity:
+        def matches(b_reqs):
+            """(greedy tokens that match, tokens compared, requests whose
+            tokens are all the same) against the primary run."""
+            pairs = list(zip(requests, b_reqs))
+            matched = sum(1 for r, b in pairs
+                          for x, y in zip(r.tokens_out, b.tokens_out)
+                          if x == y)
+            total = sum(min(len(r.tokens_out), len(b.tokens_out))
+                        for r, b in pairs)
+            same = sum(1 for r, b in pairs if r.tokens_out == b.tokens_out)
+            return matched, total, same
+
         def compare(tag, b_reqs, ok_msg):
             mismatch = [r.rid for r, b in zip(requests, b_reqs)
                         if r.tokens_out != b.tokens_out]
+            if args.kv_bits == 4:
+                # the dynamic per-slot int4 grids round-trip prefill reads
+                # approximately, so drift is reported, not asserted
+                matched, total, same = matches(b_reqs)
+                print(f"[parity] {tag}: {matched}/{total} greedy tokens "
+                      f"match ({matched / max(total, 1):.1%}), "
+                      f"{same}/{len(requests)} requests identical — int4 "
+                      f"dynamic per-slot grids round-trip prefill reads "
+                      f"approximately, so drift is reported, not asserted")
+                return
             if mismatch:
                 raise SystemExit(f"[parity] FAIL: request ids {mismatch} "
                                  f"diverge between {tag}")
@@ -465,6 +538,16 @@ def main(argv=None, *, device=None):
                     f"paged and dense caches emit identical greedy "
                     f"tokens for all {len(requests)} requests "
                     f"(kv-bits {args.kv_bits})")
+        if args.kv_bits == 4:
+            # int4 vs int8 is lossy by construction: the token match rate
+            int8_reqs = make_requests()
+            run(args.scheduler, int8_reqs, chunk=args.prefill_chunk,
+                kv_bits=8)
+            matched, total, same = matches(int8_reqs)
+            print(f"[parity] int4 vs int8 KV cache drift: "
+                  f"{matched}/{total} greedy tokens match "
+                  f"({matched / max(total, 1):.1%}), "
+                  f"{same}/{len(requests)} requests identical end-to-end")
     return stats
 
 

@@ -1,8 +1,9 @@
 """Multi-head attention with KV caches (port of the parts of
 ``repro.models.attention`` the serving path uses): GQA, sliding window,
 logit soft-capping, RoPE, the dense and the chunked (online-softmax)
-attend; dense, int8, block-paged and paged int8 caches; decode through the
-attention kernels (K5-K7) and chunked (append) prefill.
+attend; dense, int8, nibble-packed int4, block-paged and paged int8 / int4
+caches; decode through the attention kernels (K5-K7) and chunked (append)
+prefill.
 
 Absolute positions drive masking and cache writes; position -1 marks a DEAD
 cell (a prompt pad or an idle lane): it is masked out of attention and its
@@ -11,7 +12,8 @@ cache write is dropped, so packing and idle lanes never perturb other lanes.
 Cache writes are functional, like the reference's scatter: they return new
 cache tensors (a gather + select for the dense caches, a scatter into a
 copy of the arena for the paged ones), so no data-dependent host sync is
-needed to drop dead writes. Nibble-packed int4 caches are not yet ported.
+needed to drop dead writes. Every write rebuilds the cache as its own type,
+so the int4 subclasses (the bit-width marker) survive it.
 
 Quantization sites (paper Fig. 1 naming), threaded via QuantCtx:
   {prefix}/q, {prefix}/k, {prefix}/v, {prefix}/softmax_in,
@@ -23,10 +25,12 @@ import dataclasses
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.nibble import pack_nibbles, unpack_nibbles
 from repro_torch.kernels.ref import paged_gather_ref, paged_positions_ref
 from repro_torch.models.common import (apply_rope, dense_init, dot,
                                        resolve_weight, softcap)
@@ -74,6 +78,16 @@ class QuantKVCache(NamedTuple):
     pos: torch.Tensor
 
 
+class Quant4KVCache(QuantKVCache):
+    """Packed int4 KV cache: the fields and scale layout of
+    :class:`QuantKVCache`, but k_q/v_q hold two int4 cells per byte —
+    (B, S, KV, hd/2) split-half nibbles (``kernels.nibble``). The TYPE is the
+    bit-width marker: every isinstance check on the int8 base class still
+    applies, and the write, read and decode paths pick the int4 quantizer
+    and the ``kv_bits=4`` kernels by this subclass."""
+    __slots__ = ()
+
+
 class PagedKVCache(NamedTuple):
     """Block-paged f32/bf16 KV cache: k/v (N, bs, KV, hd), one arena of N
     blocks of bs cells with no batch axis; the (B, nb) block table that maps
@@ -97,6 +111,16 @@ class PagedQuantKVCache(NamedTuple):
     pos: torch.Tensor
 
 
+class PagedQuant4KVCache(PagedQuantKVCache):
+    """Paged packed int4 KV cache: :class:`Quant4KVCache` payloads over the
+    block arena — k_q/v_q (N, bs, KV, hd/2) nibbles, k_s/v_s (N, bs, KV)
+    f32, pos (N, bs): half the payload bytes of an int8 block."""
+    __slots__ = ()
+
+
+_INT4_CACHES = (Quant4KVCache, PagedQuant4KVCache)
+
+
 # Arenas are zeroed, as in the reference: an idle lane's rows read block 0,
 # and an uninitialised arena could hold NaN.
 
@@ -115,9 +139,15 @@ def init_kv_cache(batch: int, max_len: int, cfg: AttnConfig,
                                   device=dev))
 
 
-def _quant_fields(cells, cfg: AttnConfig, dev):
-    """(k_q, v_q, k_s, v_s, pos) zeroed over ``cells`` (a shape prefix)."""
+def _quant_fields(cells, cfg: AttnConfig, dev, bits: int = 8):
+    """(k_q, v_q, k_s, v_s, pos) zeroed over ``cells`` (a shape prefix);
+    4-bit payloads are hd/2 bytes wide."""
     kv, hd = cfg.num_kv_heads, cfg.head_dim
+    if bits == 4:
+        if hd % 2:
+            raise ValueError(f"int4 KV cache needs an even head_dim, got "
+                             f"{hd}")
+        hd //= 2
     return (torch.zeros((*cells, kv, hd), dtype=torch.int8, device=dev),
             torch.zeros((*cells, kv, hd), dtype=torch.int8, device=dev),
             torch.zeros((*cells, kv), dtype=torch.float32, device=dev),
@@ -148,12 +178,34 @@ def init_paged_quant_kv_cache(num_blocks: int, block_size: int,
                                             resolve_device(device)))
 
 
+def init_quant4_kv_cache(batch: int, max_len: int, cfg: AttnConfig,
+                         device=None) -> Quant4KVCache:
+    return Quant4KVCache(*_quant_fields((batch, _cache_size(max_len, cfg)),
+                                        cfg, resolve_device(device), 4))
+
+
+def init_paged_quant4_kv_cache(num_blocks: int, block_size: int,
+                               cfg: AttnConfig,
+                               device=None) -> PagedQuant4KVCache:
+    return PagedQuant4KVCache(*_quant_fields((num_blocks, block_size), cfg,
+                                             resolve_device(device), 4))
+
+
 def paged_capacity(block_table, block_size: int,
                    window: Optional[int]) -> int:
     """A layer's logical capacity over a paged cache: the table's
     nb * bs cells, wrapped at the window for ring (sliding-window) layers."""
     cap = block_table.shape[-1] * block_size
     return min(cap, window) if window else cap
+
+
+def _grid_step(amax, qmax: int):
+    """The dynamic grid step amax / qmax as the reference computes it in
+    its jitted steps: XLA turns a division by a constant into a product
+    with the constant's f32 reciprocal, which differs from the quotient in
+    the last bit for about half the inputs, and a value at exactly
+    amax / 2 then rounds to the other side of its tie."""
+    return amax * float(np.float32(1.0) / np.float32(qmax))
 
 
 def quantize_kv(x, grid_scale=None, zero_point=None):
@@ -174,7 +226,7 @@ def quantize_kv(x, grid_scale=None, zero_point=None):
         q = torch.clamp(torch.round(xf / s[..., None]) + z[..., None],
                         -128, 127).to(torch.int8)
         return q, s
-    s = xf.abs().amax(dim=-1) / 127.0
+    s = _grid_step(xf.abs().amax(dim=-1), 127)
     if grid_scale is not None:
         s = torch.maximum(s, torch.as_tensor(grid_scale, dtype=torch.float32,
                                              device=x.device))
@@ -184,10 +236,43 @@ def quantize_kv(x, grid_scale=None, zero_point=None):
     return q, s
 
 
+def quantize_kv4(x, grid_scale=None, zero_point=None):
+    """Per-head int4 quantization + split-half nibble pack, the 4-bit twin
+    of :func:`quantize_kv`: calibrated grids (zero-point already shifted
+    onto the int4 grid) clip to [-8, 7]; dynamic symmetric grids use
+    amax/7 on [-7, 7]. Returns (packed int8 (..., hd/2), scale f32 of shape
+    x.shape[:-1])."""
+    xf = x.float()
+    if zero_point is not None:
+        s = torch.as_tensor(grid_scale, dtype=torch.float32,
+                            device=x.device).expand(xf.shape[:-1])
+        z = torch.as_tensor(zero_point, dtype=torch.float32, device=x.device)
+        q = torch.clamp(torch.round(xf / s[..., None]) + z[..., None],
+                        -8, 7).to(torch.int8)
+        return pack_nibbles(q), s
+    s = _grid_step(xf.abs().amax(dim=-1), 7)
+    if grid_scale is not None:
+        s = torch.maximum(s, torch.as_tensor(grid_scale, dtype=torch.float32,
+                                             device=x.device))
+    s = torch.clamp_min(s, torch.finfo(torch.float32).tiny)
+    q = torch.clamp(torch.round(xf / s[..., None]), -7, 7).to(torch.int8)
+    return pack_nibbles(q), s
+
+
+def _payload_values(cache, kq, vq):
+    """The int K/V values of (gathered) payloads: int4 caches unpack their
+    nibbles (hd = twice the stored width)."""
+    if isinstance(cache, _INT4_CACHES):
+        hd = 2 * kq.shape[-1]
+        return unpack_nibbles(kq, hd), unpack_nibbles(vq, hd)
+    return kq, vq
+
+
 def dequantize_kv(cache, kvq=None):
     """(k, v) f32 views of a quantized cache; ``kvq`` (deploy.KVQuant)
     carries the static zero-points it was written with (None: symmetric)."""
-    kq, vq = cache.k_q.float(), cache.v_q.float()
+    kq, vq = _payload_values(cache, cache.k_q, cache.v_q)
+    kq, vq = kq.float(), vq.float()
     if kvq is not None:
         kq = kq - kvq.k_zp.float()[..., None]
         vq = vq - kvq.v_zp.float()[..., None]
@@ -271,22 +356,25 @@ def _write_slots(pw, S, window):
     return torch.where(pw >= 0, base, torch.full_like(pw, S))
 
 
-def _quantize_kv_writes(k_new, v_new, kvq):
-    """(kq, ks, vq, vs) on the cache's int8 grid (``kvq``: calibrated)."""
+def _quantize_kv_writes(cache, k_new, v_new, kvq):
+    """(kq, ks, vq, vs) on the cache's own grid: packed int4 for the int4
+    subclasses, int8 otherwise (``kvq``: calibrated)."""
+    qfn = quantize_kv4 if isinstance(cache, _INT4_CACHES) else quantize_kv
     if kvq is None:
-        kq, ks = quantize_kv(k_new)
-        vq, vs = quantize_kv(v_new)
+        kq, ks = qfn(k_new)
+        vq, vs = qfn(v_new)
     else:
-        kq, ks = quantize_kv(k_new, kvq.k_grid, kvq.k_zp)
-        vq, vs = quantize_kv(v_new, kvq.v_grid, kvq.v_zp)
+        kq, ks = qfn(k_new, kvq.k_grid, kvq.k_zp)
+        vq, vs = qfn(v_new, kvq.v_grid, kvq.v_zp)
     return kq, ks, vq, vs
 
 
 def _write_kv(cache, k_new, v_new, pw, slots, kvq=None):
     """New cache with the (B, T) new tokens written at ``slots``; slots
     equal to S (dead cells) write nothing. Live slots of one lane are
-    distinct (positions are), so each cell has at most one source. An int8
-    cache quantizes the tokens first (per-head, per-slot scales)."""
+    distinct (positions are), so each cell has at most one source. A
+    quantized cache quantizes the tokens first (per-head, per-slot scales;
+    int4 caches nibble-pack) and comes back as its own type."""
     B, S = cache.pos.shape
     hit = slots[:, :, None] == torch.arange(S, device=slots.device)
     has = hit.any(dim=1)                                 # (B, S)
@@ -299,10 +387,10 @@ def _write_kv(cache, k_new, v_new, pw, slots, kvq=None):
         return torch.where(has.reshape(B, S, *tail), gathered, old)
 
     if isinstance(cache, QuantKVCache):
-        kq, ks, vq, vs = _quantize_kv_writes(k_new, v_new, kvq)
-        return QuantKVCache(k_q=put(cache.k_q, kq), v_q=put(cache.v_q, vq),
-                            k_s=put(cache.k_s, ks), v_s=put(cache.v_s, vs),
-                            pos=put(cache.pos, pw.to(cache.pos.dtype)))
+        kq, ks, vq, vs = _quantize_kv_writes(cache, k_new, v_new, kvq)
+        return type(cache)(k_q=put(cache.k_q, kq), v_q=put(cache.v_q, vq),
+                           k_s=put(cache.k_s, ks), v_s=put(cache.v_s, vs),
+                           pos=put(cache.pos, pw.to(cache.pos.dtype)))
     return KVCache(k=put(cache.k, k_new), v=put(cache.v, v_new),
                    pos=put(cache.pos, pw.to(cache.pos.dtype)))
 
@@ -331,11 +419,10 @@ def _write_paged_kv(cache, k_new, v_new, pw, block_table, window, kvq=None):
 
     pos = put(cache.pos, pw)
     if isinstance(cache, PagedQuantKVCache):
-        kq, ks, vq, vs = _quantize_kv_writes(k_new, v_new, kvq)
-        return PagedQuantKVCache(k_q=put(cache.k_q, kq),
-                                 v_q=put(cache.v_q, vq),
-                                 k_s=put(cache.k_s, ks),
-                                 v_s=put(cache.v_s, vs), pos=pos)
+        kq, ks, vq, vs = _quantize_kv_writes(cache, k_new, v_new, kvq)
+        return type(cache)(k_q=put(cache.k_q, kq), v_q=put(cache.v_q, vq),
+                           k_s=put(cache.k_s, ks), v_s=put(cache.v_s, vs),
+                           pos=pos)
     return PagedKVCache(k=put(cache.k, k_new), v=put(cache.v, v_new),
                         pos=pos)
 
@@ -357,8 +444,9 @@ def paged_gather_kv(cache, block_table, window, kvq=None):
     cols = kops._lane_blocks(block_table,
                              paged_capacity(block_table, bs, window), bs)
     if isinstance(cache, PagedQuantKVCache):
-        kq = paged_gather_ref(cache.k_q, cols).float()
-        vq = paged_gather_ref(cache.v_q, cols).float()
+        kq, vq = _payload_values(cache, paged_gather_ref(cache.k_q, cols),
+                                 paged_gather_ref(cache.v_q, cols))
+        kq, vq = kq.float(), vq.float()
         if kvq is not None:
             kq = kq - kvq.k_zp.float()[..., None]
             vq = vq - kvq.v_zp.float()[..., None]
@@ -462,7 +550,7 @@ def _quantize_decode_q(qg, q_site):
                - shift).to(torch.int8)
         return (q_q, s_q.reshape(1, 1, 1).expand(B, KV, G),
                 (z_q - shift).reshape(1, 1, 1).expand(B, KV, G))
-    qs = torch.clamp_min(qg.abs().amax(dim=-1) / 127.0,
+    qs = torch.clamp_min(_grid_step(qg.abs().amax(dim=-1), 127),
                          torch.finfo(torch.float32).tiny)
     q_q = torch.clamp(torch.round(qg / qs[..., None]), -127,
                       127).to(torch.int8)
@@ -505,7 +593,8 @@ def _kernel_decode_attend(q, cache, block_table, q_pos, cfg: AttnConfig,
         kz, vz = _kv_zero_points(kvq, B, KV)
         args = (q_q, qs * cfg.scale, cache.k_q, cache.k_s, cache.v_q,
                 cache.v_s)
-        kw.update(q_zp=qz, k_zp=kz, v_zp=vz)
+        kw.update(q_zp=qz, k_zp=kz, v_zp=vz,
+                  kv_bits=4 if isinstance(cache, _INT4_CACHES) else 8)
         if isinstance(cache, PagedQuantKVCache):
             out = kops.paged_int8_attend_decode(*args, block_table,
                                                 q_pos[:, 0], **kw)
@@ -583,7 +672,11 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
             raise NotImplementedError(
                 f"{type(cache).__name__}: this KV cache type is not yet "
                 "ported")
-        kvq = ctx.deploy_act(f"{prefix}/kv") \
+        # int4 caches read their grids from the separate kv4 site (present
+        # only when k/v were calibrated at 4 bits; else dynamic int4 grids)
+        kv_site = f"{prefix}/kv4" if isinstance(cache, _INT4_CACHES) \
+            else f"{prefix}/kv"
+        kvq = ctx.deploy_act(kv_site) \
             if (quantized and ctx is not None) else None
         if paged:
             if block_table is None:

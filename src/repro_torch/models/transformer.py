@@ -28,7 +28,8 @@ from repro_torch.models import ffn as ffn_lib
 from repro_torch.models.attention import (
     AttnConfig, KVCache, PagedKVCache, PagedQuantKVCache, QuantKVCache,
     attention_block, init_attention_params, init_kv_cache,
-    init_paged_kv_cache, init_paged_quant_kv_cache, init_quant_kv_cache,
+    init_paged_kv_cache, init_paged_quant4_kv_cache,
+    init_paged_quant_kv_cache, init_quant4_kv_cache, init_quant_kv_cache,
     reset_kv_lanes, reset_paged_lanes)
 from repro_torch.models.common import embed_init, rms_norm, resolve_weight, \
     softcap
@@ -207,22 +208,24 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      paged_blocks: Optional[Tuple[int, int]] = None,
                      device=None):
     """One attention layer's cache: dense or paged (``paged_blocks`` =
-    (num_blocks, block_size)), f32/bf16 (kv_bits 16) or int8 (kv_bits 8)."""
+    (num_blocks, block_size)), f32/bf16 (kv_bits 16), int8 (kv_bits 8) or
+    nibble-packed int4 (kv_bits 4)."""
     if kind not in ("attn", "local_attn"):
         raise NotImplementedError(f"{kind!r} caches are not yet ported")
-    if kv_bits not in (8, 16):
-        raise NotImplementedError(f"kv_bits={kv_bits} caches are not yet "
-                                  "ported")
+    if kv_bits not in (4, 8, 16):
+        raise ValueError(f"kv_bits must be 4, 8 or 16, got {kv_bits}")
     acfg = attn_cfg_for(cfg, kind)
     if paged_blocks is not None:
         num_blocks, block_size = paged_blocks
-        if kv_bits == 8:
-            return init_paged_quant_kv_cache(num_blocks, block_size, acfg,
-                                             device)
+        init = {4: init_paged_quant4_kv_cache,
+                8: init_paged_quant_kv_cache}.get(kv_bits)
+        if init is not None:
+            return init(num_blocks, block_size, acfg, device)
         return init_paged_kv_cache(num_blocks, block_size, acfg, dtype,
                                    device)
-    if kv_bits == 8:
-        return init_quant_kv_cache(batch, max_len, acfg, device)
+    init = {4: init_quant4_kv_cache, 8: init_quant_kv_cache}.get(kv_bits)
+    if init is not None:
+        return init(batch, max_len, acfg, device)
     return init_kv_cache(batch, max_len, acfg, dtype, device)
 
 
@@ -281,8 +284,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                num_blocks: Optional[int] = None,
                mapped: Optional[bool] = None, device=None):
     """KV caches for every attention layer, in the params' layout, on
-    ``device`` (None: the GPU). kv_bits 8 stores int8 caches, 16 keeps
-    ``dtype``.
+    ``device`` (None: the GPU). kv_bits 8 stores int8 caches, 4 nibble-packed
+    int4 caches, 16 keeps ``dtype``.
 
     ``paged=True`` gives every layer one arena of ``num_blocks`` blocks of
     ``block_size`` cells (default: the worst case ``batch *

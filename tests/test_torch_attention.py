@@ -256,13 +256,29 @@ def test_lane_blocks_cut_the_table_to_the_ring():
 
 @pytest.mark.parametrize("kv_bits", [4])
 def test_int4_cache_variants_are_not_yet_ported(kv_bits):
+    """The int4 variants are ported now (``tests/test_torch_lowbit.py``
+    holds them to the reference); what stays refused is a bit width the
+    kernels do not have, on the dense and the paged cache alike."""
     x = torch.zeros((1, 1, 1, 4), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    packed = torch.zeros((1, 1, 1, 2), dtype=torch.int8)
+    out = ops.int8_attend_decode(x, torch.ones(1, 1, 1), packed,
+                                 torch.ones(1, 1, 1), packed,
+                                 torch.ones(1, 1, 1),
+                                 torch.zeros(1, 1, dtype=torch.int32),
+                                 torch.zeros(1, dtype=torch.int32),
+                                 kv_bits=kv_bits)
+    assert out.shape == (1, 1, 1, 4)
+    with pytest.raises(ValueError, match="kv_bits must be 4 or 8"):
         ops.int8_attend_decode(x, torch.ones(1, 1, 1), x, torch.ones(1, 1, 1),
                                x, torch.ones(1, 1, 1),
                                torch.zeros(1, 1, dtype=torch.int32),
                                torch.zeros(1, dtype=torch.int32),
-                               kv_bits=kv_bits)
+                               kv_bits=kv_bits - 2)
+    with pytest.raises(ValueError, match="kv_bits must be 4 or 8"):
+        ops.paged_int8_attend_decode(
+            x, torch.ones(1, 1, 1), x, torch.ones(1, 1, 1), x,
+            torch.ones(1, 1, 1), torch.zeros(1, 1, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32), s_cap=1, kv_bits=kv_bits - 2)
 
 
 # ---------------------------------------------------------------------------
@@ -281,12 +297,15 @@ class _KVQ:
 
 @pytest.mark.parametrize("calibrated", [False, True])
 def test_quantize_and_dequantize_kv_bit_exact(calibrated):
+    """Against the reference's quantizer as its serving steps run it,
+    under jit (where XLA computes the dynamic step amax / 127 as a product
+    with the f32 reciprocal of 127)."""
     rng = np.random.RandomState(5)
     x = (rng.randn(3, 7, 2, 16) * 2).astype(np.float32)
     grid = [rng.uniform(0.02, 0.05, 2).astype(np.float32),
             np.round(rng.uniform(-9, 9, 2)).astype(np.float32)] \
         if calibrated else [None, None]
-    jq, js = jattn.quantize_kv(jnp.asarray(x), *[
+    jq, js = jax.jit(jattn.quantize_kv)(jnp.asarray(x), *[
         None if g is None else jnp.asarray(g) for g in grid])
     tq, ts = attn.quantize_kv(_t(x), *[None if g is None else _t(g)
                                        for g in grid])
@@ -435,10 +454,16 @@ def test_caches_from_jax_and_cache_reset_slots_bit_exact(
 
 
 def test_caches_from_jax_rejects_unported_cache_types(reduced_cfgs):
+    """The int4 caches convert now; a recurrent state (the RG-LRU blocks of
+    recurrentgemma) has no counterpart in the port yet."""
     jcfg, _ = reduced_cfgs
     jc = jtfm.init_cache(jcfg, 2, 16, dtype=jnp.float32, kv_bits=4)
+    assert isinstance(caches_from_jax(_np_tree(jc), CPU)["scan"][0],
+                      attn.Quant4KVCache)
+    rcfg = jget_config("recurrentgemma-2b").reduced()
+    rc = jtfm.init_cache(rcfg, 2, 16, dtype=jnp.float32)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        caches_from_jax(_np_tree(jc), CPU)
+        caches_from_jax(_np_tree(rc), CPU)
 
 
 def test_paged_layout_helpers_match_reference(reduced_cfgs):

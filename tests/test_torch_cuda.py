@@ -4,10 +4,14 @@ imports no JAX, so it also runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Bounds as in ``tests/test_torch_kernels.py``: ``peg_quantize`` bit-exact,
-``rms_quantize`` and int8 requant outputs within 1 LSB on at most 0.1 % of
-elements, f32 matmul outputs within 1e-5 of max|out| (the build's
-``-fmad=false`` makes them agree exactly in practice).
+Bounds as in ``tests/test_torch_kernels.py``: ``peg_quantize`` and
+``peg_fake_quant`` bit-exact, the norm kernels (``rms_quantize``,
+``ln_quantize`` and the fake-quant twins) and int8 requant outputs within
+1 LSB (one grid step) on at most 0.1 % of elements, f32 matmul outputs
+within 1e-5 of max|out| (the build's ``-fmad=false`` makes them agree
+exactly in practice). The 4-bit variants (``w_bits=4``, ``kv_bits=4``)
+have the bounds of their 8-bit kernels; a w4 matmul also equals the 8-bit
+kernel on the unpacked weight.
 
 The decode-attention kernels (K5-K7) take their float reductions in
 another order than the plain versions (tiles with an online softmax
@@ -23,6 +27,7 @@ import torch
 from repro_torch.kernels import fused_ln_quant as lnq
 from repro_torch.kernels import int8_attend_decode as iad
 from repro_torch.kernels import int8_matmul as imm
+from repro_torch.kernels import nibble
 from repro_torch.kernels import paged_attend_decode as pad
 from repro_torch.kernels import peg_quant as pq
 from repro_torch.kernels import ref
@@ -239,6 +244,158 @@ def test_paged_attend_decode(gen, b, nb, bs, kv, g, hd, s_cap, window, site,
                         else None, v_abs)
 
 
+@pytest.mark.parametrize("rows,d,g,dtype", [
+    (96, 64, 4, torch.float32), (64, 2304, 4, torch.bfloat16),
+    (7, 80, 1, torch.float32)])
+@pytest.mark.parametrize("kernel", ["ln_quantize", "ln_fake_quant",
+                                    "rms_fake_quant"])
+def test_norm_quant_variants(gen, rows, d, g, dtype, kernel):
+    """K8, K9b, K9a: the int8 emit within 1 LSB on at most 0.1 % of
+    elements; the fake-quant outputs equal but for such flips (one grid
+    step each, plus the rounding of a bf16 output)."""
+    x = (torch.randn(rows, d, generator=gen, device="cuda") * 3).to(dtype)
+    gamma = 1 + torch.randn(d, generator=gen, device="cuda") * 0.1
+    beta = torch.randn(d, generator=gen, device="cuda") * 0.1
+    s, z = _grid(gen, g)
+    affine = (gamma, beta) if kernel.startswith("ln") else (gamma,)
+    kw = dict(qmin=-128, qmax=127)
+    got = getattr(lnq, kernel + "_cuda")(x, *affine, s, z, **kw)
+    want = getattr(lnq, kernel + "_plain")(x, *affine, s, z, **kw)
+    torch.cuda.synchronize()
+    if kernel == "ln_quantize":
+        _assert_lsb(got, want)
+        return
+    assert got.dtype == x.dtype
+    err = (got.float() - want.float()).abs()
+    step = s.repeat_interleave(d // g)[None, :]
+    off = err > 0
+    assert int(off.sum()) <= 1e-3 * err.numel()
+    eps = torch.finfo(dtype).eps          # the output dtype's rounding
+    assert bool((err <= step * 1.01 + want.float().abs() * eps).all())
+
+
+@pytest.mark.parametrize("rows,d,g,dtype", [
+    (96, 64, 4, torch.float32), (5, 18, 2, torch.float32),
+    (64, 2304, 1, torch.bfloat16)])
+def test_peg_fake_quant(gen, rows, d, g, dtype):
+    x = (torch.randn(rows, d, generator=gen, device="cuda") * 2).to(dtype)
+    s, z = _grid(gen, g)
+    kw = dict(qmin=-128, qmax=127)
+    got = pq.peg_fake_quant_cuda(x, s, z, **kw)
+    assert got.dtype == dtype
+    assert torch.equal(got, pq.peg_fake_quant_plain(x, s, z, **kw))
+
+
+def _w4(gen, k, n):
+    w = torch.randint(-7, 8, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    return w, nibble.pack_rows(w)
+
+
+@pytest.mark.parametrize("m,k,n", [(37, 64, 128), (1, 80, 48),
+                                   (64, 2304, 96), (4, 2304, 64)])
+@pytest.mark.parametrize("requant", [False, True])
+def test_int8_matmul_w4(gen, m, k, n, requant):
+    """w_bits=4 against the plain version, and against the 8-bit kernel on
+    the unpacked weight (the same integer product)."""
+    a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    w, w_pk = _w4(gen, k, n)
+    cs = ref.w_colsum_groups(w, 1)[0]
+    kw = dict(z_a=5.0, w_colsum=cs, bias=torch.randn(
+        n, generator=gen, device="cuda"), activation="relu")
+    if requant:
+        kw.update(out_scale=0.5, out_zp=-3.0)
+    got = imm.int8_matmul_cuda(a, w_pk, 0.03, 0.01, w_bits=4, **kw)
+    want = imm.int8_matmul_plain(a, w_pk, 0.03, 0.01, w_bits=4, **kw)
+    (_assert_lsb if requant else _assert_close)(got, want)
+    assert torch.equal(got, imm.int8_matmul_cuda(a, w, 0.03, 0.01, **kw))
+
+
+@pytest.mark.parametrize("m,k,n,g", [(37, 64, 128, 4), (4, 64, 48, 4),
+                                     (20, 2304, 64, 4), (4, 80, 64, 2)])
+@pytest.mark.parametrize("requant", [False, True])
+def test_int8_matmul_peg_w4(gen, m, k, n, g, requant):
+    """PEG at w_bits=4; K = 64, G = 4 are the reduced width's 16-wide
+    groups (8 packed rows, a zero-padded k32 step each)."""
+    a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    w, w_pk = _w4(gen, k, n)
+    s, z = _grid(gen, g)
+    cs = ref.w_colsum_groups(w, g)
+    kw = {}
+    if requant:
+        kw = dict(activation="gelu", out_scale=0.04, out_zp=-7.0,
+                  mul=torch.randn(m, n, generator=gen, device="cuda"))
+    got = imm.int8_matmul_peg_cuda(a, w_pk, s, z, 0.02, cs, w_bits=4, **kw)
+    want = imm.int8_matmul_peg_plain(a, w_pk, s, z, 0.02, cs, w_bits=4,
+                                     **kw)
+    (_assert_lsb if requant else _assert_close)(got, want)
+    assert torch.equal(got, imm.int8_matmul_peg_cuda(a, w, s, z, 0.02, cs,
+                                                     **kw))
+
+
+def _kv4(x, gen):
+    """Replace the int8 cache of an _attend_inputs case by int4 values,
+    nibble-packed, with int4 zero-points."""
+    for name in ("k_q", "v_q"):
+        vals = torch.randint(-8, 8, x[name].shape, generator=gen,
+                             device="cuda", dtype=torch.int8)
+        x[name] = nibble.pack_nibbles(vals)
+    for name in ("k_zp", "v_zp"):
+        x[name] = torch.clamp(x[name], -3, 3)
+    return x
+
+
+def _v4_absmax(x):
+    return float((8 + x["v_zp"].abs().max()) * x["v_scale"].max())
+
+
+@pytest.mark.parametrize("b,s_len,kv,g,hd,window", [
+    (4, 128, 4, 2, 256, 64), (3, 40, 2, 2, 16, 16)])
+@pytest.mark.parametrize("site", list(SITES))
+def test_int8_attend_decode_kv4(gen, b, s_len, kv, g, hd, window, site):
+    x = _kv4(_attend_inputs(gen, b, s_len, kv, g, hd,
+                            zero_points=site != "none"), gen)
+    k_pos = torch.arange(s_len, device="cuda", dtype=torch.int32).repeat(
+        b, 1)
+    k_pos[0, :3] = -1
+    q_pos = torch.full((b,), s_len - 1, device="cuda", dtype=torch.int32)
+    q_pos[-1] = -1                                      # an idle lane
+    kw = dict(window=window, logit_softcap=50.0, kv_bits=4, **_site_kw(site))
+    args = (x["q_q"], x["q_scale"], x["q_zp"], x["k_zp"], x["v_zp"],
+            x["k_q"], x["k_scale"], x["v_q"], x["v_scale"], k_pos, q_pos)
+    got = iad.int8_attend_decode_cuda(*args, **kw)
+    want = iad.int8_attend_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert_attend_close(got, want, 1 / 255 if site == "softmax_out"
+                        else None, _v4_absmax(x))
+
+
+@pytest.mark.parametrize("b,nb,bs,kv,g,hd,s_cap,window", [
+    (4, 8, 16, 4, 2, 256, 128, 64), (3, 8, 8, 2, 2, 16, 16, 16)])
+@pytest.mark.parametrize("site", list(SITES))
+def test_paged_int8_attend_decode_kv4(gen, b, nb, bs, kv, g, hd, s_cap,
+                                      window, site):
+    n_blocks = b * nb + 3
+    table = _table(gen, b, nb, n_blocks)
+    q_pos = torch.tensor([s_cap + 5, s_cap // 2, 0, -1][:b], device="cuda",
+                         dtype=torch.int32)
+    x = _kv4(_attend_inputs(gen, n_blocks, bs, kv, g, hd,
+                            zero_points=site != "none"), gen)
+    cols = table[:, :-(-s_cap // bs)].contiguous()
+    args = (x["q_q"][:b].contiguous(), x["q_scale"][:b], x["q_zp"][:b],
+            x["k_zp"][:b], x["v_zp"][:b], x["k_q"], x["k_scale"], x["v_q"],
+            x["v_scale"], cols, q_pos)
+    kw = dict(s_cap=s_cap, window=window, logit_softcap=50.0, kv_bits=4,
+              **_site_kw(site))
+    got = pad.paged_int8_attend_decode_cuda(*args, **kw)
+    want = pad.paged_int8_attend_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert_attend_close(got, want, 1 / 255 if site == "softmax_out"
+                        else None, _v4_absmax(x))
+
+
 def test_reduced_deploy_serve_launches_every_kernel(gen):
     from repro_torch.launch import serve
     fns = (lnq.rms_quantize_cuda, pq.peg_quantize_cuda,
@@ -270,3 +427,27 @@ def test_quickstart_serves_launch_the_attention_kernels(gen):
         stats = serve.main(argv + ["--kv-bits", kv_bits, "--parity"])
         assert stats.tokens_generated == 36
         assert all(fn.launches > 0 for fn in used), kv_bits
+
+
+def test_4bit_quickstart_launches_the_4bit_variants(gen):
+    """The quickstart at --weight-bits 4 --kv-bits 4 goes through the w4
+    matmuls (K2, K3) and the kv4 decode kernels (K5 in the [kv-int4] check,
+    K6 in every decode step), and serves the reference's counts."""
+    from repro_torch.launch import serve
+    for fn in (imm.int8_matmul_cuda, imm.int8_matmul_peg_cuda):
+        fn.launches_w4 = 0
+    for fn in (iad.int8_attend_decode_cuda,
+               pad.paged_int8_attend_decode_cuda):
+        fn.launches_kv4 = 0
+    stats = serve.main([
+        "--arch", "gemma2-2b", "--reduced", "--requests", "6",
+        "--prompt-len", "24", "--new-tokens", "6", "--max-len", "64",
+        "--quantize", "--deploy-int8", "--kv-bits", "4", "--weight-bits",
+        "4", "--scheduler", "continuous", "--paged-kv", "--block-size", "8",
+        "--prefill-chunk", "8"])
+    assert (stats.tokens_generated, stats.decode_steps, stats.prefill_calls,
+            stats.blocks_in_use, stats.chunk_steps) == (36, 10, 6, 16, 6)
+    assert imm.int8_matmul_cuda.launches_w4 > 0
+    assert imm.int8_matmul_peg_cuda.launches_w4 > 0
+    assert iad.int8_attend_decode_cuda.launches_kv4 > 0
+    assert pad.paged_int8_attend_decode_cuda.launches_kv4 > 0

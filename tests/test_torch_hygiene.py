@@ -80,12 +80,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
 
 
 def test_launcher_rejects_unported_flags():
-    from repro_torch.launch.serve import main
-    for extra in (["--kv-bits", "4"], ["--prefix-cache"], ["--over-commit"],
-                  ["--async"]):
+    """Flags outside the ported slice stop the launcher before it builds a
+    model; the 4-bit flags are ported and parse."""
+    from repro_torch.launch.serve import _check_args, build_parser, main
+    for extra in (["--trace", "t.json", "--scheduler", "continuous"],
+                  ["--prefix-cache"], ["--over-commit"], ["--async"]):
         with pytest.raises(SystemExit):
             main(["--arch", "gemma2-2b", "--reduced", "--quantize",
                   "--deploy-int8"] + extra, device="cpu")
+    ap = build_parser()
+    args = ap.parse_args(["--arch", "gemma2-2b", "--reduced", "--quantize",
+                          "--deploy-int8", "--weight-bits", "4",
+                          "--kv-bits", "4"])
+    _check_args(ap, args)
+    assert (args.weight_bits, args.kv_bits) == (4, 4)
 
 
 def test_chip_smoke_fails_without_gpu_or_without_the_port(tmp_path):

@@ -188,8 +188,126 @@ def test_device_dispatch_rejects_other_devices():
 
 
 def test_four_bit_weights_not_yet_ported():
+    """4-bit weights are ported now (``tests/test_torch_lowbit.py`` holds
+    them to the reference): a (K/2, N) payload gives the (M, N) product,
+    and bit widths the kernels do not have stay refused."""
     a = torch.zeros((2, 8), dtype=torch.int8)
-    w = torch.zeros((8, 4), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    w = torch.zeros((4, 4), dtype=torch.int8)
+    out = ops.int8_matmul(a, w, s_a=1.0, s_w=1.0, w_colsum=torch.zeros(4),
+                          w_bits=4)
+    assert out.shape == (2, 4)
+    with pytest.raises(ValueError, match="w_bits must be 4 or 8"):
         ops.int8_matmul(a, w, s_a=1.0, s_w=1.0, w_colsum=torch.zeros(4),
-                        w_bits=4)
+                        w_bits=2)
+
+
+# ---------------------------------------------------------------------------
+# K8-K10: the LayerNorm emit and the fake-quant (dequantized) outputs
+# ---------------------------------------------------------------------------
+
+def _assert_steps(got, want, s, d):
+    """Fake-quant outputs: equal but for values one grid step away (a 1-LSB
+    flip at a tie, plus the rounding of the output dtype), on at most 0.1 %
+    of elements."""
+    eps = float(torch.finfo(got.dtype).eps)
+    got = np.asarray(got.float().numpy(), np.float64)
+    want = np.asarray(want, np.float64)
+    step = np.repeat(np.asarray(s, np.float64), d // np.size(s))[None, :]
+    err = np.abs(got - want)
+    off = err > 1e-6 * np.abs(want).max()
+    assert off.sum() <= 1e-3 * want.size, off.sum()
+    assert (err <= step * (1 + 1e-2) + np.abs(want) * eps).all()
+
+
+NORM_CASES = [(300, 64, 1, "float32"), (5, 80, 4, "float32"),
+              (64, 2304, 4, "bfloat16"), (1, 64, 1, "float32")]
+
+
+@pytest.mark.parametrize("m,d,g,dtype", NORM_CASES)
+@pytest.mark.parametrize("kernel", ["ln_quantize", "ln_fake_quant",
+                                    "rms_fake_quant"])
+def test_norm_quant_variants_match_reference(m, d, g, dtype, kernel):
+    """K8 (LayerNorm + int8 emit), K9b (LayerNorm fake-quant) and K9a
+    (RMSNorm fake-quant) against the reference's Pallas kernels; bf16 rows
+    return bf16, rounded at the store."""
+    rng = np.random.RandomState(m + d + g)
+    x = (rng.randn(m, d) * 3 + 0.5).astype(np.float32)
+    gamma = (1.0 + rng.randn(d) * 0.1).astype(np.float32)
+    beta = (rng.randn(d) * 0.1).astype(np.float32)
+    s, z = _grid(rng, g)
+    jx = jnp.asarray(x, dtype=dtype)
+    tx = _t(np.asarray(jx.astype(jnp.float32))).to(getattr(torch, dtype))
+    affine = (gamma, beta) if kernel.startswith("ln") else (gamma,)
+    want = getattr(jops, kernel)(jx, *map(jnp.asarray, affine),
+                                 jnp.asarray(s), jnp.asarray(z), qmin=-128,
+                                 qmax=127)
+    got = getattr(ops, kernel)(tx, *map(_t, affine), _t(s), _t(z),
+                               qmin=-128, qmax=127)
+    if kernel == "ln_quantize":
+        assert got.dtype == torch.int8
+        _assert_lsb(got.numpy(), want)
+    else:
+        assert got.dtype == tx.dtype and got.shape == tx.shape
+        _assert_steps(got, np.asarray(want.astype(jnp.float32)), s, d)
+    oracle = getattr(jref, kernel + "_ref")(
+        jx, *map(jnp.asarray, affine), jnp.asarray(s), jnp.asarray(z),
+        qmin=-128, qmax=127)
+    port_oracle = getattr(ref, kernel + "_ref")(
+        tx, *map(_t, affine), _t(s), _t(z), qmin=-128, qmax=127)
+    if kernel == "ln_quantize":
+        _assert_lsb(port_oracle.numpy(), oracle)
+    else:
+        _assert_steps(port_oracle, np.asarray(oracle.astype(jnp.float32)),
+                      s, d)
+
+
+@pytest.mark.parametrize("m,g,dtype", [(1, 1, "float32"),
+                                       (300, 4, "float32"),
+                                       (64, 4, "bfloat16")])
+def test_peg_fake_quant_matches_reference(m, g, dtype):
+    """K10: bit-exact (an elementwise quantize-dequantize has no
+    reduction whose order could differ)."""
+    rng = np.random.RandomState(m * 10 + g)
+    x = (rng.randn(m, 64) * 2).astype(np.float32)
+    s, z = _grid(rng, g)
+    jx = jnp.asarray(x, dtype=dtype)
+    tx = _t(np.asarray(jx.astype(jnp.float32))).to(getattr(torch, dtype))
+    want = jops.peg_fake_quant(jx, jnp.asarray(s), jnp.asarray(z),
+                               qmin=-128, qmax=127)
+    got = ops.peg_fake_quant(tx, _t(s), _t(z), qmin=-128, qmax=127)
+    assert got.dtype == tx.dtype
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+    np.testing.assert_array_equal(
+        ref.peg_fake_quant_ref(tx, _t(s), _t(z), qmin=-128,
+                               qmax=127).float().numpy(),
+        np.asarray(jref.peg_fake_quant_ref(jx, jnp.asarray(s),
+                                           jnp.asarray(z), qmin=-128,
+                                           qmax=127).astype(jnp.float32)))
+
+
+def test_layernorm_norm_quantize_with_permutation_matches_reference():
+    """deploy.norm_quantize("layernorm", ...) under a PEG permutation: the
+    input and both affine vectors (γ and β) are permuted, then K8 emits
+    int8 on the group grids — as the reference's (tests/test_deploy.py)."""
+    from repro.core import deploy as jdeploy
+    from repro_torch.core import deploy
+    rng = np.random.RandomState(4)
+    d, g = 64, 4
+    x = (rng.randn(1, 7, d) * 3).astype(np.float32)
+    gamma = (1.0 + rng.randn(d) * 0.1).astype(np.float32)
+    beta = (rng.randn(d) * 0.1).astype(np.float32)
+    perm = rng.permutation(d)
+    s, z = _grid(rng, g)
+    jaq = jdeploy.ActQuant(scales=jnp.asarray(s), zps=jnp.asarray(z),
+                           qmin=-128, qmax=127, perm=jnp.asarray(perm))
+    taq = deploy.ActQuant(scales=_t(s), zps=_t(z), qmin=-128, qmax=127,
+                          perm=_t(perm))
+    want = jdeploy.norm_quantize("layernorm", {"g": jnp.asarray(gamma),
+                                               "b": jnp.asarray(beta)},
+                                 jnp.asarray(x), jaq)
+    got = deploy.norm_quantize("layernorm", {"g": _t(gamma), "b": _t(beta)},
+                               _t(x), taq)
+    assert got.q.shape == (1, 7, d) and got.q.dtype == torch.int8
+    _assert_lsb(got.q.numpy(), want.q)
+    np.testing.assert_array_equal(got.scales.numpy(), s)
