@@ -16,7 +16,13 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              bench's 4k x 4k, with the tolerances of the CPU parity tests,
              and time kernel, plain version and, where one exists, a
              PyTorch library call computing the same function (CUDA events,
-             L2 flushed before every launch).
+             L2 flushed before every launch). K3 is represented by its
+             decode-step shape (4,2304)x(2304,2048), with ``torch._int_mm``
+             on A zero-padded to 32 rows as its decode-row yardstick; K3's
+             and K6's lines print their split count and achieved GB/s, and
+             K6 adds cases at its split boundaries (blocks not a multiple
+             of the blocks per split, bs 8, a hole over a whole split, an
+             idle lane).
 3. full    — serve gemma2-2b at full width (26 layers, d 2304, bf16) through
              ``repro_torch.launch.serve.main`` with W8A8 PTQ + the integer
              deploy path, static scheduler; the K1/K3/K4 launch counters
@@ -58,7 +64,9 @@ full-width gaps are printed only, since there the fake-quant path computes
 in bf16 (and the bf16 KV cache of the ``[kv-int8]`` reference rounds K/V
 that the int8 cache stores on the calibrated grid exactly).
 
-Prints the card (``nvidia-smi`` name and power limit), one JSON line with
+``--ptxas`` first prints nvcc's ``-Xptxas -v`` report (registers, shared
+memory, spills) of the split kernels' sources. Prints the card
+(``nvidia-smi`` name and power limit), one JSON line with
 every kernel's numbers, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a result when no CUDA device is available or when the
@@ -111,6 +119,12 @@ KERNELS = {
     "peg_fake_quant": ("peg_quant.cu", "peg_quant.py:38")}
 
 
+# the port's kernel names in a profiler trace
+PORT_KERNELS = (r"norm_quant_kernel|peg_quant_kernel|int8_matmul_splitk|"
+                r"int8_matmul_peg_kernel|attend_decode_kernel|"
+                r"paged_split_kernel")
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -159,6 +173,34 @@ def lsb_flips(a, b):
     return int(d.max().item()), int((d > 0).sum().item())
 
 
+def split_note(splits, nbytes, ms):
+    """The split count and the achieved rate of the bytes the bound
+    counts, printed on a split kernel's line."""
+    return f"  {splits} splits, {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s"
+
+
+def int_mm_yardstick(a, w, s_a, z_a, s_w, cs, want, flush):
+    """Time of ``torch._int_mm`` plus the per-tensor epilogue on the same
+    operands (the int8 values of W). ``_int_mm`` takes no fewer than 17
+    rows: decode rows (M <= 16) go in zero-padded to 32 (padded once,
+    outside the timed call) and the first M rows of the product are
+    used."""
+    import torch
+    m = a.shape[0]
+    if m <= 16:
+        a = torch.cat([a, torch.zeros((32 - m, a.shape[1]), dtype=a.dtype,
+                                      device=a.device)])
+    s_prod = s_a * s_w
+
+    def library():
+        acc = torch._int_mm(a, w)[:m].float()
+        return (acc - z_a * cs.float()) * s_prod
+    lib_err = float((library() - want).abs().max())
+    require(lib_err <= 1e-5 * float(want.abs().max()),
+            f"library yardstick disagrees: {lib_err}")
+    return time_ms(library, flush)
+
+
 def kernel_phase():
     """Phase 2. Returns {kernel name: record} at the representative shape,
     after printing one line per (kernel, shape) case."""
@@ -185,12 +227,12 @@ def kernel_phase():
     records = {}
 
     def record(name, case, err, ms, plain_ms, lib_ms, nbytes, ops, rate,
-               representative):
+               representative, note=""):
         b_ms, by = bound_ms(nbytes, ops, rate)
         print(f"[kernels] {name} {case}: max_abs_err {err:.3e}  kernel "
               f"{ms:.4f} ms  plain {plain_ms:.4f} ms  library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
-              f"{b_ms:.4f} ms ({by})")
+              f"{b_ms:.4f} ms ({by}){note}")
         rec = records.setdefault(name, {"max_abs_err": 0.0})
         rec["max_abs_err"] = max(rec["max_abs_err"], float(err))
         if representative:
@@ -254,21 +296,12 @@ def kernel_phase():
                          flush)
             p_ms = time_ms(lambda: imm.int8_matmul_plain(a, w, s_a, s_w,
                                                          **kw), flush)
-            lib_ms = None
-            if m > 16:      # torch._int_mm needs more than 16 rows
-                s_prod = s_a * s_w
-
-                def library():
-                    acc = torch._int_mm(a, w).float()
-                    return (acc - z_a * cs.float()) * s_prod
-                lib_err = float((library() - want).abs().max())
-                require(lib_err <= 1e-5 * float(want.abs().max()),
-                        f"library yardstick disagrees: {lib_err}")
-                lib_ms = time_ms(library, flush)
+            lib_ms = int_mm_yardstick(a, w, s_a, z_a, s_w, cs, want, flush)
+            nbytes = m * k + k * n + n * 4 + m * n * 4
             record("int8_matmul", f"({m},{k})x({k},{n}) f32 out", err, ms,
-                   p_ms, lib_ms, m * k + k * n + n * 4 + m * n * 4,
-                   2 * m * n * k, PEAK_INT8_OPS_PER_S,
-                   m == B * T and (k, n) == (D, Q_OUT))
+                   p_ms, lib_ms, nbytes, 2 * m * n * k, PEAK_INT8_OPS_PER_S,
+                   m == B and (k, n) == (D, Q_OUT),
+                   split_note(imm.plan_k_splits(m, n, k)[2], nbytes, ms))
 
     # K2 int8_matmul_peg: w_up (f32 out) and w_gate (gelu * up -> int8),
     # 576-wide (G=4) and 384-wide (G=6) groups
@@ -349,20 +382,11 @@ def w4_cases(gen, flush, record, randint8, uniform, randn):
                      flush)
         p_ms = time_ms(lambda: imm.int8_matmul_plain(a, w_pk, s_a, s_w,
                                                      **kw), flush)
-        lib_ms = None
-        if m > 16:      # torch._int_mm needs more than 16 rows
-            s_prod = s_a * s_w
-
-            def library():
-                acc = torch._int_mm(a, w).float()
-                return (acc - z_a * cs.float()) * s_prod
-            lib_err = float((library() - want).abs().max())
-            require(lib_err <= 1e-5 * float(want.abs().max()),
-                    f"library yardstick disagrees: {lib_err}")
-            lib_ms = time_ms(library, flush)
+        lib_ms = int_mm_yardstick(a, w, s_a, z_a, s_w, cs, want, flush)
+        nbytes = m * k + k // 2 * n + n * 4 + m * n * 4
         record("int8_matmul_w4", f"({m},{k})x({k}/2,{n}) int4 f32 out", err,
-               ms, p_ms, lib_ms, m * k + k // 2 * n + n * 4 + m * n * 4,
-               2 * m * n * k, PEAK_INT8_OPS_PER_S, m == B * T)
+               ms, p_ms, lib_ms, nbytes, 2 * m * n * k, PEAK_INT8_OPS_PER_S,
+               m == B, split_note(imm.plan_k_splits(m, n, k)[2], nbytes, ms))
 
     # K2-w4: w_gate / w_up at full width (G=4) and the reduced 4 x 16 groups
     for m, k, n, g in ((B * T, D, FF, 4), (B, D, FF, 4), (B * T, 64, 128, 4)):
@@ -537,7 +561,7 @@ def attend_cases(gen, flush, record):
 
     def measure(name, case, fn_cuda, fn_plain, args, kw, valid, kv, g, hd,
                 payload_bytes, meta_bytes, q_bytes, v_absmax, quant,
-                representative):
+                representative, splits=None):
         b = valid.shape[0]
         got = fn_cuda(*args, **kw)
         want = fn_plain(*args, **kw)
@@ -555,7 +579,8 @@ def attend_cases(gen, flush, record):
         record(name, case, err, ms, p_ms, None, nbytes,
                [2 * macs, 2 * macs],
                [PEAK_INT8_OPS_PER_S if quant else PEAK_F32_OPS_PER_S,
-                PEAK_F32_OPS_PER_S], representative)
+                PEAK_F32_OPS_PER_S], representative,
+               "" if splits is None else split_note(splits, nbytes, ms))
 
     full = (4, ATT_KV, ATT_G, ATT_HD)
     reduced = (4, 2, 2, 16)
@@ -656,7 +681,8 @@ def attend_cases(gen, flush, record):
                         2 * hd + 8, meta,
                         b * kv * g * (hd + 8) + b * kv * 8, v_abs, True,
                         s_cap == 128 and not holes
-                        and site.startswith("two-pass"))
+                        and site.startswith("two-pass"),
+                        pad.plan_kv_splits(b, kv, cols.shape[1], bs)[0])
                 # K7 serves bf16 arenas at full width, f32 at reduced
                 fdt = torch.bfloat16 if hd == ATT_HD else torch.float32
                 qf = torch.randn(b, kv, g, hd, generator=gen, device=dev) \
@@ -755,7 +781,69 @@ def attend_cases(gen, flush, record):
                 hd, hd + 8, cols.numel() * 4 + b * 4,
                 b * kv * g * (hd + 8) + b * kv * 8,
                 float((8 + zv.abs().max()) * v_s.max()), True,
-                s_cap == 128 and not holes and site.startswith("two-pass"))
+                s_cap == 128 and not holes and site.startswith("two-pass"),
+                pad.plan_kv_splits(b, kv, cols.shape[1], bs)[0])
+    k6_split_cases(gen, ri, ru, site_kw, measure)
+
+
+def k6_split_cases(gen, ri, ru, site_kw, measure):
+    """K6 and K6-kv4 at the split-KV kernel's boundaries, at the full
+    width, two-pass: 37 blocks of 16 cells (s_cap 587, not a multiple of
+    the block size; 10 splits of 4 blocks, the last of 1) and 52 blocks of
+    8 (s_cap 413; 11 splits of 5, the last of 2), each with a hole that
+    covers a whole split (lane 0), an unmapped tail (lane 1), an idle lane
+    (lane 2) and a lane whose ring wrapped (lane 3)."""
+    import torch
+    from repro_torch.kernels import paged_attend_decode as pad
+    from repro_torch.kernels.nibble import pack_nibbles
+    from repro_torch.kernels.ref import decode_valid, paged_positions_ref
+    dev = torch.device("cuda")
+    b, kv, g, hd = 4, ATT_KV, ATT_G, ATT_HD
+    site = "two-pass softmax_out + zero-points"
+    for bs, s_cap, window in ((16, 587, 200), (8, 413, None)):
+        nb = -(-s_cap // bs)
+        splits, bps = pad.plan_kv_splits(b, kv, nb, bs)
+        require(nb % bps != 0 and splits > 2,
+                f"K6 split case bs{bs} s_cap{s_cap}: not a split boundary")
+        n_blocks = b * nb + 5
+        table = torch.randperm(n_blocks, generator=gen, device=dev)[
+            :b * nb].reshape(b, nb).to(torch.int32)
+        table[0, bps:2 * bps] = -1
+        table[1, nb - 1:] = -1
+        q_pos = torch.tensor([s_cap + 37, s_cap // 3, -1, 2 * s_cap - 1],
+                             device=dev, dtype=torch.int32)
+        valid = decode_valid(paged_positions_ref(
+            table, q_pos, s_cap=s_cap, block_size=bs), q_pos, window)
+        for kv_bits in (8, 4):
+            if kv_bits == 4:
+                k_a, v_a = (pack_nibbles(torch.randint(
+                    -8, 8, (n_blocks, bs, kv, hd), generator=gen, device=dev,
+                    dtype=torch.int8)) for _ in range(2))
+                zk, zv = (torch.round(ru(-3, 3, b, kv)) for _ in range(2))
+                v_s = ru(0.1, 0.5, n_blocks, bs, kv)
+                v_abs = float((8 + zv.abs().max()) * v_s.max())
+            else:
+                k_a, v_a = ri(n_blocks, bs, kv, hd), ri(n_blocks, bs, kv, hd)
+                zk, zv = (torch.round(ru(-20, 20, b, kv)) for _ in range(2))
+                v_s = ru(0.01, 0.05, n_blocks, bs, kv)
+                v_abs = float((v_a.float().abs().max() + zv.abs().max())
+                              * v_s.max())
+            args = (ri(b, kv, g, hd), ru(0.01, 0.03, b, kv, g) / 16,
+                    torch.round(ru(-20, 20, b, kv, g)), zk, zv, k_a,
+                    ru(0.01, 0.05, n_blocks, bs, kv), v_a, v_s, table, q_pos)
+            kw = dict(s_cap=s_cap, window=window, logit_softcap=50.0,
+                      kv_bits=kv_bits, **site_kw(site))
+            name = "paged_int8_attend_decode" + ("_kv4" if kv_bits == 4
+                                                 else "")
+            measure(name, f"B{b} KV{kv}xG{g} hd{hd} bs{bs} s_cap{s_cap} "
+                    f"w{window} split boundaries ({splits} x {bps} blocks, "
+                    f"whole-split hole + idle lane), {site}",
+                    pad.paged_int8_attend_decode_cuda,
+                    pad.paged_int8_attend_decode_plain, args, kw, valid, kv,
+                    g, hd, (hd if kv_bits == 4 else 2 * hd) + 8,
+                    table.numel() * 4 + b * 4,
+                    b * kv * g * (hd + 8) + b * kv * 8, v_abs, True, False,
+                    splits)
 
 
 def _counters():
@@ -852,8 +940,12 @@ def _print_profile(tag, report):
         if e.device_type.name == "CUDA":
             t, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"[{tag}]   {t / 1e3:8.3f} ms  x{n:<4d} {name[:90]}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    # the eight costliest kernels, then every hand-written one of the port
+    for i, (name, (t, n)) in enumerate(ranked):
+        if i < 8 or re.search(PORT_KERNELS, name):
+            print(f"[{tag}]   {t / 1e3:8.3f} ms  x{n:<4d} "
+                  f"({t / n:.1f} us each) {name[:90]}")
 
 
 def serve_phase(tag, argv, must_launch):
@@ -979,6 +1071,26 @@ def require_parity(tag, out, n):
     require(len(oks) == n, f"{tag}: {len(oks)} of {n} [parity] OK lines")
 
 
+def ptxas_report():
+    """``--ptxas``: compile the split kernels' sources once more with
+    ``-Xptxas -v`` (into build/ptxas) and print each kernel's registers,
+    shared memory and spills."""
+    from repro_torch.kernels import _build
+    out = _build.BUILD_ROOT / "ptxas"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = [(name, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         str(out / f"lib{name}.so"), str(_build.CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name in ("int8_matmul", "paged_attend_decode")]
+    for name, proc in procs:
+        log, _ = proc.communicate()
+        require(proc.returncode == 0, f"nvcc failed on {name}.cu:\n{log}")
+        for line in log.splitlines():
+            if re.search(r"Compiling entry|Used \d+ registers|spill", line):
+                print(f"[ptxas] {name}: {line.strip()}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -990,6 +1102,8 @@ def main() -> int:
         print(f"chip_smoke: the port's sources are missing next to this "
               f"script ({e})", file=sys.stderr)
         return 2
+    if "--ptxas" in sys.argv[1:]:
+        ptxas_report()
     t0 = time.perf_counter()
     secs = _build.build_all()
     print(f"[build] {len(_build.SOURCES)} kernel libraries built in "

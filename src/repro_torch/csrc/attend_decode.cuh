@@ -1,11 +1,12 @@
 // One decode step of attention against a KV cache, for Hopper (sm_90a): the
-// template behind int8_attend_decode.cu (K5) and paged_attend_decode.cu
-// (K6, K7).
+// template behind int8_attend_decode.cu (K5) and the K7 kernel of
+// paged_attend_decode.cu, and the helpers K6's split-KV kernel there
+// shares.
 //
 // Replaces the TPU kernels src/repro/kernels/int8_attend_decode.py
 // (_attend_decode_kernel) and src/repro/kernels/paged_attend_decode.py
-// (_paged_kernel, quantized and float). For lane b, kv head h and the G
-// query heads of that head:
+// (_paged_kernel, float). For lane b, kv head h and the G query heads of
+// that head:
 //
 //   s[g,c] = ((dot32 - zq*kcol - zk*qrow) + hd*zq*zk) * q_s * k_s   (int8)
 //   s[g,c] = q[g] . k[c]                      (float; scale folded into q)
@@ -31,7 +32,7 @@
 // the reference's order, including the max(m_new, -1e30) guard, so an idle
 // lane (all cells masked) gives the same output as the plain version.
 // Built with -fmad=false and rintf (round half to even). Split-KV over
-// more blocks, TMA and wgmma are later work.
+// more blocks (as K6 does), TMA and wgmma are later work.
 //
 // 4-bit caches (KV4, the TPU kernels' kv_bits=4 mode): each K/V row is hd/2
 // bytes of split-half nibbles, column j in the low nibble of byte j and

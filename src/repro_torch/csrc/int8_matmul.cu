@@ -10,38 +10,65 @@
 //
 // Bound on the H100: at decode (M = lanes, 1-16 rows) the weight read is
 // everything, so bytes bound it; at prefill (M = B*T) the int8 tensor-core
-// rate starts to matter. Design, kept simple: a 64x64 output tile per
-// 128-thread block (4 warps of 32x32), a 64-deep K tile staged through
-// shared memory with the next tile's global loads issued into registers
-// before the current tile's mma.sync.m16n8k32 (s8.s8.s32) steps. The B
-// operand wants four consecutive k per 32-bit register, so the W tile is
-// transposed to [n][k] while it is stored to shared memory. Every edge is
-// masked (zero fill), so M, N and K need no padding: K = 2304 is not a
-// multiple of any power-of-two K tile. PEG groups walk the K loop group by
-// group, each group's tiles masked at its own end (a 16-wide group is one
-// zero-padded tile), with one int32 partial per group folded into the f32
-// accumulator in group order g = 0..G-1. The int32 sums are exact; the
-// float epilogue keeps the reference's operation order, and the build has
-// no fast math and no FMA contraction.
+// rate starts to matter. The int32 sums are exact; the float epilogue
+// keeps the reference's operation order, and the build has no fast math
+// and no FMA contraction.
 //
-// 4-bit weights (w_bits = 4, the TPU kernels' w_bits=4 mode): W arrives as
-// (K/2, N) pairwise-row nibbles, packed row r holding rows 2r (low nibble)
-// and 2r+1 (high). The unpack happens while the W tile is stored to shared
-// memory: a thread's k-quad 4q..4q+3 of a column is exactly the two packed
-// bytes of rows 2q and 2q+1, which sign-extend into one B word, so the
-// mma loop and the epilogue are the 8-bit ones. A 64-deep K tile reads 32
-// packed rows (half the weight bytes); K tiles and PEG groups start at even
-// k (the pack-time gate keeps group sizes even), so no byte is split, and
-// the K tail is masked on packed rows. Not yet done here: wgmma/TMA,
-// split-K for small-M decode.
+// int8_matmul: split-K (int8_matmul_splitk_kernel). A grid of (N tiles, M
+// tiles, K splits), each output tile's splits one thread-block cluster: a
+// host-side planner (kernels/int8_matmul.py, plan_k_splits) picks a power
+// of two up to 16 (Hopper's largest cluster) so that the grid fills the
+// card about twice, each split keeping at least two 64-deep K tiles; split j
+// owns the K tiles [j*kt/S, (j+1)*kt/S). The row tile follows M: 16 rows
+// (one mma.sync.m16n8k32 row block, 4 warps across 128 columns) for M <=
+// 16, else 64 rows (2 x 2 warps of 32 x 32 over 64 columns). Each CTA
+// keeps a ring of six shared-memory stages filled with 16-byte cp.async,
+// so at the serving shapes all of a split's K tiles are in flight at once:
+// decode rows are bound by DRAM latency and bytes in flight, not by the
+// mma. cp.async rather than TMA: a tile is one 2D box either way, cp.async
+// needs no tensor map built per weight on the host, and its zero fill
+// (src-size 0) masks the M, N and K edges. W arrives in its stored (K, N)
+// layout (4-bit: (K/2, N) pairwise-row nibbles, bit for bit the reference's
+// payload): a thread's B fragment is assembled when it is read, from four
+// (k) rows of four consecutive columns, by a 4 x 4 byte transpose
+// (__byte_perm); at 4 bits the two packed rows of a k-quad are sign-extended
+// per byte first. So a warp's n8 block j holds the columns 4c + j (c = 0..7)
+// of its 32, and the W rows are XOR-swizzled by 32 bytes every 8 rows so the
+// fragment reads hit distinct banks. The splits' int32 partials are exact in
+// any order, and they meet on chip: each CTA leaves its partial in its own
+// shared memory, and after a cluster barrier each rank sums a share of the
+// tile across the cluster's shared memory (distributed shared memory), runs
+// the epilogue on it and writes it. Reducing through a global workspace
+// instead (partials, or red.global.add, behind an arrival counter) adds
+// fence, counter and read-back round trips that cost more than the mainloop
+// at decode rows. One launch per call and no workspace.
+//
+// int8_matmul_peg: one tile loop (int8_matmul_peg_kernel), a 64x64
+// output tile per 128-thread block (4 warps of 32x32), a 64-deep K tile
+// staged through shared memory with the next tile's global loads started
+// into registers before the current tile's mma steps; W is transposed to
+// [n][k] while it is stored. PEG groups walk the K loop group by group,
+// each group's tiles masked at its own end (a 16-wide group is one
+// zero-padded tile), with one int32 partial per group folded into the f32
+// accumulator in group order g = 0..G-1 -- a K split would change that
+// float order, so K2 keeps this schedule. 4-bit weights unpack while the W
+// tile is stored: a thread's k-quad 4q..4q+3 of a column is the two packed
+// bytes of rows 2q and 2q+1. K tiles, splits and PEG groups start at even
+// k (the pack-time gate keeps group sizes even), so no byte is split.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 64, THREADS = 128;
+constexpr int BK = 64, THREADS = 128;
+constexpr int BM = 64, BN = 64;         // PEG kernel tile
 constexpr int AS_STRIDE = BK + 16;      // bytes per A row in shared memory
-constexpr int BS_STRIDE = BK / 4 + 4;   // 32-bit words per B column
+constexpr int BS_STRIDE = BK / 4 + 4;   // 32-bit words per B column (PEG)
+constexpr int STAGES = 6;               // split-K cp.async ring
+constexpr int MAX_SPLITS = 16;          // Hopper's largest cluster
 
 enum Act { ACT_NONE = 0, ACT_GELU = 1, ACT_SILU = 2, ACT_RELU = 3 };
 
@@ -57,7 +84,7 @@ struct Params {
   const float* out_scale;   // (1,) or null: f32 output
   const float* out_zp;      // (1,) or null
   void* out;                // (M, N) f32 or int8
-  int M, N, K, G, peg, act, vec_a, vec_w;   // w: (K/2, N) when W4
+  int M, N, K, G, act, vec_a, vec_w;   // w: (K/2, N) when W4
   float qmin, qmax;
 };
 
@@ -83,6 +110,250 @@ __device__ __forceinline__ float activation(float x, int act) {
       return x;
   }
 }
+
+// The shared epilogue after the scale: + bias -> act -> * mul -> store
+// (f32, or the int8 requant on [qmin, qmax]).
+__device__ __forceinline__ void finish(const Params& p, int row, int col,
+                                       float f) {
+  if (p.bias) f = f + p.bias[col];
+  f = activation(f, p.act);
+  const size_t o = (size_t)row * p.N + col;
+  if (p.mul) f = f * p.mul[o];
+  if (p.out_scale) {
+    const float z_o = p.out_zp ? p.out_zp[0] : 0.f;
+    const float q = rintf(f / p.out_scale[0]) + z_o;
+    ((int8_t*)p.out)[o] = (int8_t)fminf(fmaxf(q, p.qmin), p.qmax);
+  } else {
+    ((float*)p.out)[o] = f;
+  }
+}
+
+// Four int4 nibbles per byte lane, (v ^ 8) - 8 each: the low nibbles of w,
+// or (hi) its high nibbles, as four int8 bytes.
+__device__ __forceinline__ uint32_t sext_lo(uint32_t w) {
+  return __vsub4((w & 0x0f0f0f0fu) ^ 0x08080808u, 0x08080808u);
+}
+__device__ __forceinline__ uint32_t sext_hi(uint32_t w) {
+  return __vsub4(((w >> 4) & 0x0f0f0f0fu) ^ 0x08080808u, 0x08080808u);
+}
+
+// ---------------------------------------------------------------------------
+// int8_matmul: split-K with a cp.async ring.
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Byte offset of (row, byte column) in a W stage: rows of BN_ + 16 bytes,
+// the column XOR-swizzled by 32 bytes on every other group of 8 rows.
+template <int BN_>
+__device__ __forceinline__ int w_off(int row, int col) {
+  return row * (BN_ + 16) + (col ^ (((row >> 3) & 1) << 5));
+}
+
+// 4 x 4 byte transpose: out[j] byte r = byte j of r[r].
+__device__ __forceinline__ void transpose4(const uint32_t (&r)[4],
+                                           uint32_t (&out)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
+  const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+  out[0] = __byte_perm(t0, t1, 0x5410);
+  out[1] = __byte_perm(t0, t1, 0x7632);
+  out[2] = __byte_perm(t2, t3, 0x5410);
+  out[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// MI 16-row blocks per warp, WM warps along M (4 / WM along N).
+template <int MI, int WM, bool W4>
+struct SplitTile {
+  static constexpr int WN = 4 / WM;
+  static constexpr int BM_ = WM * MI * 16, BN_ = WN * 32;
+  static constexpr int W_ROWS = W4 ? BK / 2 : BK;   // (packed) rows a tile
+  static constexpr int A_BYTES = BM_ * AS_STRIDE;
+  static constexpr int W_BYTES = W_ROWS * (BN_ + 16);
+  static constexpr int STAGE = A_BYTES + W_BYTES;
+};
+
+// Start (vec) or perform (!vec) the loads of K tile k0 into one stage.
+template <int MI, int WM, bool W4>
+__device__ __forceinline__ void load_stage(const Params& p, int8_t* st,
+                                           int m0, int n0, int k0,
+                                           bool vec) {
+  using T = SplitTile<MI, WM, W4>;
+  const int tid = threadIdx.x;
+  for (int c = tid; c < T::BM_ * (BK / 16); c += THREADS) {
+    const int r = c >> 2, cc = (c & 3) * 16;
+    const int gm = m0 + r, gk = k0 + cc;
+    int8_t* dst = st + r * AS_STRIDE + cc;
+    if (vec) {
+      const bool ok = gm < p.M && gk < p.K;
+      cp_async16(dst, ok ? p.a + (size_t)gm * p.K + gk : p.a, ok);
+    } else {
+      for (int e = 0; e < 16; ++e)
+        dst[e] = (gm < p.M && gk + e < p.K) ? p.a[(size_t)gm * p.K + gk + e]
+                                            : (int8_t)0;
+    }
+  }
+  int8_t* ws = st + T::A_BYTES;
+  constexpr int CPR = T::BN_ / 16;                  // 16-byte chunks a row
+  for (int c = tid; c < T::W_ROWS * CPR; c += THREADS) {
+    const int r = c / CPR, cc = (c % CPR) * 16;
+    const int k_first = k0 + (W4 ? 2 * r : r);      // first k of the row
+    const int kk = W4 ? k_first / 2 : k_first;      // stored row
+    const int gn = n0 + cc;
+    int8_t* dst = ws + w_off<T::BN_>(r, cc);
+    if (vec) {
+      const bool ok = k_first < p.K && gn < p.N;
+      cp_async16(dst, ok ? p.w + (size_t)kk * p.N + gn : p.w, ok);
+    } else {
+      for (int e = 0; e < 16; ++e)
+        dst[e] = (k_first < p.K && gn + e < p.N)
+                     ? p.w[(size_t)kk * p.N + gn + e] : (int8_t)0;
+    }
+  }
+}
+
+template <int MI, int WM, bool W4>
+__global__ void __launch_bounds__(THREADS)
+int8_matmul_splitk_kernel(const Params p, int splits) {
+  using T = SplitTile<MI, WM, W4>;
+  extern __shared__ __align__(128) int8_t smem[];
+
+  const int m0 = blockIdx.y * T::BM_, n0 = blockIdx.x * T::BN_;
+  const int split = blockIdx.z;          // = the block's rank in its cluster
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp / T::WN) * MI * 16, wn = (warp % T::WN) * 32;
+  const int gq = lane >> 2, tq = lane & 3;
+  const bool vec = p.vec_a && p.vec_w;
+
+  const int kt = (p.K + BK - 1) / BK;
+  const int t_begin = (int)((long)split * kt / splits);
+  const int nt = (int)((long)(split + 1) * kt / splits) - t_begin;
+
+  int acc[MI][4][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nt)
+      load_stage<MI, WM, W4>(p, smem + s * T::STAGE, m0, n0,
+                             (t_begin + s) * BK, vec);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nt; ++t) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();                 // tile t landed; tile t-1 is consumed
+    if (t + STAGES - 1 < nt)
+      load_stage<MI, WM, W4>(p, smem + ((t + STAGES - 1) % STAGES) * T::STAGE,
+                             m0, n0, (t_begin + t + STAGES - 1) * BK, vec);
+    cp_async_commit();
+    const int8_t* As = smem + (t % STAGES) * T::STAGE;
+    const int8_t* Ws = As + T::A_BYTES;
+#pragma unroll
+    for (int ks = 0; ks < BK / 32; ++ks) {
+      uint32_t af[MI][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int rb = wm + i * 16 + gq, kb = ks * 32 + tq * 4;
+        af[i][0] = *reinterpret_cast<const uint32_t*>(
+            As + rb * AS_STRIDE + kb);
+        af[i][1] = *reinterpret_cast<const uint32_t*>(
+            As + (rb + 8) * AS_STRIDE + kb);
+        af[i][2] = *reinterpret_cast<const uint32_t*>(
+            As + rb * AS_STRIDE + kb + 16);
+        af[i][3] = *reinterpret_cast<const uint32_t*>(
+            As + (rb + 8) * AS_STRIDE + kb + 16);
+      }
+      // B fragments: k-quad q = ks*8 + tq (b0) and + 4 (b1) of this
+      // thread's four columns wn + 4 gq .. + 3, one word per n8 block j
+      uint32_t bq[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = ks * 8 + h * 4 + tq;
+        uint32_t r[4];
+        if (W4) {
+          const uint32_t w0 = *reinterpret_cast<const uint32_t*>(
+              Ws + w_off<T::BN_>(2 * q, wn + 4 * gq));
+          const uint32_t w1 = *reinterpret_cast<const uint32_t*>(
+              Ws + w_off<T::BN_>(2 * q + 1, wn + 4 * gq));
+          r[0] = sext_lo(w0);     // k = 4q
+          r[1] = sext_hi(w0);     // 4q + 1
+          r[2] = sext_lo(w1);     // 4q + 2
+          r[3] = sext_hi(w1);     // 4q + 3
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            r[e] = *reinterpret_cast<const uint32_t*>(
+                Ws + w_off<T::BN_>(4 * q + e, wn + 4 * gq));
+        }
+        transpose4(r, bq[h]);
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t b[2] = {bq[0][j], bq[1][j]};
+          mma_s8(acc[i][j], af[i], b);
+        }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                       // every stage has been consumed
+
+  // The split's int32 partial goes to its own shared memory, element-major
+  // (element e = (i*4 + j)*4 + c: row wm + 16 i + gq + 8 (c >> 1), column
+  // wn + 4 (2 tq + (c & 1)) + j). After the cluster barrier, rank r sums
+  // elements r, r + S, ... of every thread over the S ranks' shared memory
+  // (distributed shared memory; int32 sums are exact in any order), runs
+  // the epilogue on them and writes them. The second barrier keeps every
+  // block's shared memory alive until the others have read it.
+  constexpr int NE = MI * 16;
+  int* part = reinterpret_cast<int*>(smem);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        part[((i * 4 + j) * 4 + c) * THREADS + threadIdx.x] = acc[i][j][c];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const float s_prod = p.a_scales[0] * p.w_scale[0];
+  const float z_a = p.a_zps ? p.a_zps[0] : 0.f;
+  for (int e = split; e < NE; e += splits) {
+    const int i = e >> 4, j = (e >> 2) & 3, c = e & 3;
+    const int row = m0 + wm + i * 16 + gq + (c >> 1) * 8;
+    const int col = n0 + wn + 4 * (2 * tq + (c & 1)) + j;
+    if (row >= p.M || col >= p.N) continue;
+    int sum = 0;
+#pragma unroll 16
+    for (int r = 0; r < splits; ++r)
+      sum += cluster.map_shared_rank(part, r)[e * THREADS + threadIdx.x];
+    float f = (float)sum;
+    if (p.colsum) f = f - z_a * (float)p.colsum[col];
+    finish(p, row, col, f * s_prod);
+  }
+  cluster.sync();
+}
+
+// ---------------------------------------------------------------------------
+// int8_matmul_peg: one 64x64 tile per block over all of K, group by group.
 
 // Global -> register staging for one K tile: A as 2 x 16 bytes per thread,
 // W as a 4 (k) x 8 (n) byte block per thread (W4: 2 packed rows x 8 n).
@@ -172,7 +443,7 @@ __device__ __forceinline__ void store_tile(const Stage& st,
 
 template <bool W4>
 __global__ void __launch_bounds__(THREADS)
-int8_matmul_kernel(const Params p) {
+int8_matmul_peg_kernel(const Params p) {
   __shared__ __align__(16) int8_t As[BM][AS_STRIDE];
   __shared__ __align__(16) uint32_t Bs[BN][BS_STRIDE];
 
@@ -232,7 +503,7 @@ int8_matmul_kernel(const Params p) {
     }
     __syncthreads();
 
-    if (p.peg && (t + 1) % tiles_per_group == 0) {
+    if ((t + 1) % tiles_per_group == 0) {
       // fold this group's int32 partial: facc += s_g * (f32(part) - z_g * cs)
       const float s_g = p.a_scales[grp], z_g = p.a_zps[grp];
 #pragma unroll
@@ -249,16 +520,7 @@ int8_matmul_kernel(const Params p) {
     }
   }
 
-  float s_prod = 0.f, z_a = 0.f;
-  if (!p.peg) {
-    s_prod = p.a_scales[0] * p.w_scale[0];
-    if (p.a_zps) z_a = p.a_zps[0];
-  }
   const float s_w = p.w_scale[0];
-  const bool requant = p.out_scale != nullptr;
-  const float s_o = requant ? p.out_scale[0] : 1.f;
-  const float z_o = (requant && p.out_zp) ? p.out_zp[0] : 0.f;
-
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -268,35 +530,48 @@ int8_matmul_kernel(const Params p) {
         const int row = m0 + wm + i * 16 + gq + (c >> 1) * 8;
         const int col = n0 + wn + j * 8 + tq * 2 + (c & 1);
         if (row >= p.M || col >= p.N) continue;
-        float f;
-        if (p.peg) {
-          f = facc[i][j][c] * s_w;
-        } else {
-          f = (float)acc[i][j][c];
-          if (p.colsum) f = f - z_a * (float)p.colsum[col];
-          f = f * s_prod;
-        }
-        if (p.bias) f = f + p.bias[col];
-        f = activation(f, p.act);
-        const size_t o = (size_t)row * p.N + col;
-        if (p.mul) f = f * p.mul[o];
-        if (requant) {
-          float q = rintf(f / s_o) + z_o;
-          ((int8_t*)p.out)[o] = (int8_t)fminf(fmaxf(q, p.qmin), p.qmax);
-        } else {
-          ((float*)p.out)[o] = f;
-        }
+        finish(p, row, col, facc[i][j][c] * s_w);
       }
+}
+
+template <int MI, int WM, bool W4>
+int launch_splitk(const Params& p, int splits, cudaStream_t stream) {
+  using T = SplitTile<MI, WM, W4>;
+  constexpr int smem = STAGES * T::STAGE;
+  const auto kernel = int8_matmul_splitk_kernel<MI, WM, W4>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)   // clusters of 9..16 blocks are not portable
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;   // the K splits
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p.N + T::BN_ - 1) / T::BN_,
+                     (p.M + T::BM_ - 1) / T::BM_, splits);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, p, splits);
 }
 
 }  // namespace
 
 // See Params for shapes. peg = 0: per-tensor (G must be 1; colsum (N,) and
-// a_zps optional together). peg = 1: PEG with G groups of K/G columns,
-// colsum (G, N) and a_zps required. act: 0 none, 1 gelu, 2 silu, 3 relu.
-// out_scale null: f32 output; else int8 output on [qmin, qmax].
-// vec_a: K and K/G multiples of 16 and a 16-byte aligned; vec_w: N a
-// multiple of 8 and w 8-byte aligned. w_bits = 4: w is (K/2, N) pairwise-row
+// a_zps optional together), split-K with row_tile 16 or 64 and `splits`
+// (1..16) K splits, a cluster per output tile (kernels/int8_matmul.py
+// plan_k_splits). peg = 1: PEG with G groups of K/G
+// columns, colsum (G, N) and a_zps required (row_tile, splits, ws and
+// counters unused). act: 0 none, 1 gelu, 2 silu, 3 relu. out_scale null:
+// f32 output; else int8 output on [qmin, qmax]. vec_a: K and K/G multiples
+// of 16 and a 16-byte aligned; vec_w: N a multiple of 8 and w 8-byte
+// aligned (split-K: 16 and 16). w_bits = 4: w is (K/2, N) pairwise-row
 // nibbles and K/G is even. Returns cudaGetLastError().
 extern "C" int int8_matmul(const void* a, const void* w, const void* colsum,
                            const void* a_scales, const void* a_zps,
@@ -304,7 +579,8 @@ extern "C" int int8_matmul(const void* a, const void* w, const void* colsum,
                            const void* mul, const void* out_scale,
                            const void* out_zp, void* out, int M, int N, int K,
                            int G, int peg, int act, int qmin, int qmax,
-                           int vec_a, int vec_w, int w_bits, void* stream) {
+                           int vec_a, int vec_w, int w_bits, int row_tile,
+                           int splits, void* stream) {
   Params p;
   p.a = (const int8_t*)a;
   p.w = (const int8_t*)w;
@@ -321,18 +597,26 @@ extern "C" int int8_matmul(const void* a, const void* w, const void* colsum,
   p.N = N;
   p.K = K;
   p.G = G;
-  p.peg = peg;
   p.act = act;
   p.vec_a = vec_a;
   p.vec_w = vec_w;
   p.qmin = (float)qmin;
   p.qmax = (float)qmax;
-  if (M > 0 && N > 0) {
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (peg) {
+    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
     if (w_bits == 4)
-      int8_matmul_kernel<true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(p);
+      int8_matmul_peg_kernel<true><<<grid, THREADS, 0, s>>>(p);
     else
-      int8_matmul_kernel<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(p);
+      int8_matmul_peg_kernel<false><<<grid, THREADS, 0, s>>>(p);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if (splits < 1 || splits > MAX_SPLITS || (row_tile != 16 && row_tile != 64))
+    return (int)cudaErrorInvalidValue;
+  if (row_tile == 16)
+    return w_bits == 4 ? launch_splitk<1, 1, true>(p, splits, s)
+                       : launch_splitk<1, 1, false>(p, splits, s);
+  return w_bits == 4 ? launch_splitk<2, 2, true>(p, splits, s)
+                     : launch_splitk<2, 2, false>(p, splits, s);
 }

@@ -20,6 +20,12 @@ versions unpack them first, the kernel while it stores each W tile, and the
 integer products are the same. Every scale and zero-point is a runtime
 tensor (or number), never a compile-time constant. Each wrapper counts its
 8-bit launches in ``launches`` and its 4-bit ones in ``launches_w4``.
+
+``int8_matmul_cuda`` splits K across the blocks of a thread-block cluster
+(:func:`plan_k_splits`), which sum their int32 partials in each other's
+shared memory: a call is one launch and needs no scratch.
+``int8_matmul_peg_cuda`` walks all of K in one block per tile, because its
+per-group float fold must keep the group order.
 """
 from __future__ import annotations
 
@@ -31,6 +37,9 @@ from repro_torch.kernels import _args, _build
 from repro_torch.kernels.nibble import unpack_rows
 
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+SMS = 132           # streaming multiprocessors of an H100 SXM
+K_TILE = 64         # depth of the kernel's K tiles (and of a split's unit)
+MAX_K_SPLITS = 16   # Hopper's largest thread-block cluster
 
 
 def _gelu(x):
@@ -119,6 +128,30 @@ def int8_matmul_peg_plain(a_q, w_q, act_scales, act_zps, w_scale, w_colsum,
                     out_zp=out_zp, qmin=qmin, qmax=qmax)
 
 
+def plan_k_splits(m, n, k):
+    """(row tile, column tile, K splits) of the split-K kernel for an
+    (m, k) x (k, n) product: 16 x 128 output tiles for decode rows (m <=
+    16), else 64 x 64; as many splits as fill the card about twice
+    (2 * ``SMS`` blocks), but at most 16 (the splits of a tile form one
+    cluster) and every split keeps at least two K tiles; rounded down to a
+    power of two (clusters of 9 or 12 blocks measured slower than 8 on the
+    H100)."""
+    bm, bn = (16, 128) if m <= 16 else (64, 64)
+    tiles = max(1, -(-m // bm) * -(-n // bn))
+    k_tiles = -(-k // K_TILE)
+    cap = max(1, min(-(-2 * SMS // tiles), MAX_K_SPLITS, k_tiles // 2))
+    splits = 1 << (cap.bit_length() - 1)
+    return bm, bn, splits
+
+
+def k_split_tiles(k, splits):
+    """The [first, end) K tiles of each split, as the kernel cuts them:
+    split j owns tiles j * kt // S .. (j + 1) * kt // S."""
+    kt = -(-k // K_TILE)
+    return [(j * kt // splits, (j + 1) * kt // splits)
+            for j in range(splits)]
+
+
 def _launch(a_q, w_q, colsum, a_scales, a_zps, w_scale, *, bias, mul,
             activation, out_scale, out_zp, qmin, qmax, peg, w_bits):
     if a_q.dim() != 2 or w_q.dim() != 2 or a_q.dtype != torch.int8 \
@@ -161,13 +194,15 @@ def _launch(a_q, w_q, colsum, a_scales, a_zps, w_scale, *, bias, mul,
                       device=dev)
     vec_a = int(k % 16 == 0 and (k // g) % 16 == 0
                 and a_q.data_ptr() % 16 == 0)
-    vec_w = int(n % 8 == 0 and w_q.data_ptr() % 8 == 0)
+    w_align = 8 if peg else 16          # the split-K kernel copies 16 bytes
+    vec_w = int(n % w_align == 0 and w_q.data_ptr() % w_align == 0)
+    bm, _, splits = (0, 0, 0) if peg else plan_k_splits(m, n, k)
     _build.check(_build.lib("int8_matmul").int8_matmul(
         a_q.data_ptr(), w_q.data_ptr(), _args.ptr(colsum),
         a_scales.data_ptr(), _args.ptr(a_zps), w_scale.data_ptr(),
         _args.ptr(bias), _args.ptr(mul), _args.ptr(s_o), _args.ptr(z_o),
         out.data_ptr(), m, n, k, g, int(peg), _ACT_CODE[activation], qmin,
-        qmax, vec_a, vec_w, w_bits, _args.stream()),
+        qmax, vec_a, vec_w, w_bits, bm, splits, _args.stream()),
         "int8_matmul_peg" if peg else "int8_matmul")
     return out
 

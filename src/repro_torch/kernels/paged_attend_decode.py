@@ -18,7 +18,10 @@ so stale cells of a reused block are never read as valid.
 
 ``*_cuda`` launch ``csrc/paged_attend_decode.cu``; ``*_plain`` gather each
 lane's blocks into a dense view and run the plain softmax of
-``int8_attend_decode``.
+``int8_attend_decode``. K6's kernel splits each lane's blocks across
+thread blocks (:func:`plan_kv_splits`) and merges the splits' partial
+softmax states in split order, in a per-device workspace that it leaves
+clean; with ``softmax_out`` it makes two launches from one C call.
 """
 from __future__ import annotations
 
@@ -64,6 +67,50 @@ def paged_attend_decode_plain(q, k_arena, v_arena, block_table, q_pos, *,
         smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax)
 
 
+SMS = 132                # streaming multiprocessors of an H100 SXM
+MAX_SPLIT_CELLS = 128    # cells a split walks before more splits are cut
+MAX_SPLITS = 32          # the kernel's limits (csrc/paged_attend_decode.cu)
+MAX_SPLIT_BLOCKS = 256
+
+
+def plan_kv_splits(batch, kv, nb, bs):
+    """(splits, blocks per split) of K6 for ``batch`` lanes of ``kv`` heads
+    over ``nb`` paged blocks of ``bs`` cells: enough splits for the grid to
+    reach one wave (``SMS`` blocks) and for no split to hold more than 128
+    cells, at most one per paged block and at most 32; split j owns the
+    blocks [j * bps, min(nb, (j + 1) * bps)), none of them empty."""
+    want = max(-(-SMS // max(1, batch * kv)), -(-nb * bs // MAX_SPLIT_CELLS))
+    bps = max(1, nb // max(1, min(want, nb)), -(-nb // MAX_SPLITS))
+    if bps > MAX_SPLIT_BLOCKS:
+        raise ValueError(f"paged_int8_attend_decode: {nb} blocks exceed the "
+                         f"kernel's {MAX_SPLITS} x {MAX_SPLIT_BLOCKS}")
+    return -(-nb // bps), bps
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(device, stream, n_words, n_counters):
+    """K6's workspace on ``device`` for launches on ``stream``: ``n_words``
+    f32 words of partials and ``n_counters`` int32 arrival counters, zeroed
+    once (the kernel leaves them zeroed). Allocated at first use, grown on
+    demand and kept, so a call allocates and clears nothing."""
+    key = (device, stream)
+    words, counters = _SCRATCH.get(key, (None, None))
+    if words is None or words.numel() < n_words:
+        words = torch.empty(n_words, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
+    _SCRATCH[key] = (words, counters)
+    return words, counters
+
+
+def kv_split_blocks(nb, splits, bps):
+    """The [first, end) paged blocks of each split, as the kernel cuts
+    them."""
+    return [(j * bps, min(nb, (j + 1) * bps)) for j in range(splits)]
+
+
 def _table(block_table, b, bs, s_cap):
     nb = block_table.shape[1]
     if block_table.shape[0] != b or nb * bs < s_cap:
@@ -95,13 +142,18 @@ def paged_int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_arena,
     q_pos = _iad.i32(q_pos.reshape(-1), (b,), "q_pos")
     sm, smo = _iad.site_args(sm_quant, smo_quant, q_q.device)
     out = torch.empty((b, kv, g, hd), dtype=torch.float32, device=q_q.device)
+    splits, bps = plan_kv_splits(b, kv, nb, bs)
+    stream = _args.stream()
+    ws, counters = _scratch(q_q.device, stream,
+                            b * kv * splits * g * (hd + 2), b * kv)
     p = _args.ptr
     _build.check(_build.lib("paged_attend_decode").paged_int8_attend_decode(
         p(q_q), p(q_scale), p(q_zp), p(k_zp), p(v_zp), p(k_arena),
         p(k_scale), p(v_arena), p(v_scale), p(table), p(q_pos), p(sm), p(smo),
         p(out), b, kv, g, hd, nb, bs, s_cap, _iad.window_arg(window),
         _iad.softcap_arg(logit_softcap), sm_qmin, sm_qmax, smo_qmin,
-        smo_qmax, kv_bits, _args.stream()), "paged_int8_attend_decode")
+        smo_qmax, kv_bits, splits, bps, p(ws), p(counters), stream),
+        "paged_int8_attend_decode")
     _iad.count_launch(paged_int8_attend_decode_cuda, kv_bits)
     return out
 

@@ -451,3 +451,112 @@ def test_4bit_quickstart_launches_the_4bit_variants(gen):
     assert imm.int8_matmul_peg_cuda.launches_w4 > 0
     assert iad.int8_attend_decode_cuda.launches_kv4 > 0
     assert pad.paged_int8_attend_decode_cuda.launches_kv4 > 0
+
+
+# -- the split kernels: K3 split-K, K6 split-KV ------------------------------
+
+@pytest.mark.parametrize("m,k,n", [(4, 2304, 2048), (1, 2304, 48),
+                                   (16, 2304, 1024), (17, 2304, 2304),
+                                   (64, 2304, 2048), (4, 80, 48),
+                                   (5, 4160, 96), (3, 2312, 40)])
+@pytest.mark.parametrize("w_bits", [8, 4])
+def test_int8_matmul_split_k(gen, m, k, n, w_bits):
+    """Split-K at split-boundary shapes (M 16 / 17 switches the row tile,
+    K = 80 is one split, K = 4160 an odd tile count, K = 2312 and N = 40
+    no multiples of 16, so the tiles are loaded without cp.async): the f32
+    output is bit-identical to the plain version and over three calls; the
+    requant output within 1 LSB."""
+    a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    if w_bits == 4:
+        w, w_q = _w4(gen, k, n)
+    else:
+        w = w_q = torch.randint(-127, 128, (k, n), generator=gen,
+                                device="cuda", dtype=torch.int8)
+    kw = dict(z_a=5.0, w_colsum=ref.w_colsum_groups(w, 1)[0],
+              bias=torch.randn(n, generator=gen, device="cuda"),
+              activation="relu", w_bits=w_bits)
+    got = [imm.int8_matmul_cuda(a, w_q, 0.03, 0.01, **kw) for _ in range(3)]
+    want = imm.int8_matmul_plain(a, w_q, 0.03, 0.01, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want)
+    assert all(torch.equal(x, got[0]) for x in got[1:])
+    kw.update(out_scale=0.5, out_zp=-3.0)
+    _assert_lsb(imm.int8_matmul_cuda(a, w_q, 0.03, 0.01, **kw),
+                imm.int8_matmul_plain(a, w_q, 0.03, 0.01, **kw))
+
+
+def _paged_case(gen, b, nb, bs, kv, g, hd, s_cap, site, kv_bits):
+    """A K6 case with holes: a whole split unmapped on lane 0, an
+    unmapped tail on lane 1, lane 2 idle, lane 3 wrapped past s_cap."""
+    n_blocks = b * nb + 3
+    perm = torch.randperm(n_blocks, generator=gen, device="cuda")
+    table = perm[:b * nb].reshape(b, nb).to(torch.int32)
+    splits, bps = pad.plan_kv_splits(b, kv, nb, bs)
+    if splits > 2:
+        table[0, bps:2 * bps] = -1
+    table[1, nb - 1:] = -1
+    q_pos = torch.tensor([s_cap + 37, s_cap // 3, -1, 2 * s_cap - 1][:b],
+                         device="cuda", dtype=torch.int32)
+    x = _attend_inputs(gen, n_blocks, bs, kv, g, hd,
+                       zero_points=site != "none")
+    if kv_bits == 4:
+        x = _kv4(x, gen)
+    args = (x["q_q"][:b].contiguous(), x["q_scale"][:b], x["q_zp"][:b],
+            x["k_zp"][:b], x["v_zp"][:b], x["k_q"], x["k_scale"], x["v_q"],
+            x["v_scale"], table, q_pos)
+    v_abs = _v4_absmax(x) if kv_bits == 4 else _v_absmax(x)
+    return args, v_abs
+
+
+@pytest.mark.parametrize("b,nb,bs,kv,g,hd,s_cap,window", [
+    (4, 37, 16, 4, 2, 256, 587, 200), (4, 52, 8, 2, 2, 64, 413, None),
+    (4, 256, 16, 4, 2, 256, 4096, 2048), (3, 8, 8, 2, 2, 16, 64, 16)])
+@pytest.mark.parametrize("site", list(SITES))
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_paged_int8_attend_decode_splits(gen, b, nb, bs, kv, g, hd, s_cap,
+                                         window, site, kv_bits):
+    """Split-KV at split boundaries (nb not a multiple of the blocks per
+    split, bs 8, 32 splits of 8 blocks, a hole covering a whole split, an
+    idle lane): against the plain version, and bit-identical over three
+    calls (fixed merge order, no float atomics)."""
+    args, v_abs = _paged_case(gen, b, nb, bs, kv, g, hd, s_cap, site,
+                              kv_bits)
+    kw = dict(s_cap=s_cap, window=window, logit_softcap=50.0,
+              kv_bits=kv_bits, **_site_kw(site))
+    got = [pad.paged_int8_attend_decode_cuda(*args, **kw) for _ in range(3)]
+    want = pad.paged_int8_attend_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert_attend_close(got[0], want, 1 / 255 if site == "softmax_out"
+                        else None, v_abs)
+    assert all(torch.equal(x, got[0]) for x in got[1:])
+
+
+def test_split_workspaces_are_left_clean(gen):
+    """Back-to-back calls of other shapes share each kernel's workspace
+    and arrival counters; every call still equals its plain version, so no
+    call leaves a counter or a partial behind for the next."""
+    for m, k, n in ((4, 2304, 2048), (64, 2304, 2048), (1, 2304, 48),
+                    (17, 4160, 96), (4, 2304, 2048)):
+        a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        assert torch.equal(imm.int8_matmul_cuda(a, w, 0.03, 0.01),
+                           imm.int8_matmul_plain(a, w, 0.03, 0.01))
+    for shape, site, kv_bits in (
+            ((4, 8, 16, 4, 2, 256, 128, 64), "softmax_out", 8),
+            ((4, 256, 16, 4, 2, 256, 4096, 2048), "none", 8),
+            ((3, 8, 8, 2, 2, 16, 64, 16), "softmax_out", 4),
+            ((4, 8, 16, 4, 2, 256, 128, 64), "none", 4),
+            ((4, 8, 16, 4, 2, 256, 128, 64), "softmax_out", 8)):
+        b, nb, bs, kv, g, hd, s_cap, window = shape
+        args, v_abs = _paged_case(gen, b, nb, bs, kv, g, hd, s_cap, site,
+                                  kv_bits)
+        kw = dict(s_cap=s_cap, window=window, logit_softcap=50.0,
+                  kv_bits=kv_bits, **_site_kw(site))
+        got = pad.paged_int8_attend_decode_cuda(*args, **kw)
+        want = pad.paged_int8_attend_decode_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert_attend_close(got, want, 1 / 255 if site == "softmax_out"
+                            else None, v_abs)

@@ -1,0 +1,229 @@
+"""The host planners of the split kernels (K3 ``int8_matmul`` split-K, K6
+``paged_int8_attend_decode`` split-KV) and PyTorch models of their merges,
+on the CPU.
+
+* The planners must cover every K tile and every paged block exactly once,
+  in order, with no empty split; a K split keeps at least two K tiles, and
+  a tile's K splits fit one thread-block cluster (at most 16).
+* Split-K: the splits' int32 partials, summed, equal the unsplit product
+  exactly (8-bit and pairwise-row 4-bit weights).
+* Split-KV: each split's softmax state (m_j, l_j, acc_j) over its blocks,
+  merged in split order the way the kernel merges it (one pass, and the
+  two-pass ``softmax_out`` schedule, where every split quantizes p on the
+  global (m, l)), against ``paged_int8_attend_decode_plain`` with
+  chip_smoke's bounds: within 1e-5 of max|out|, and with ``softmax_out``
+  at most 0.1 % of the rows off, each by at most one step x max|v|.
+
+The merge models live here, not in the package: the kernels are their only
+implementation there. Inputs come from numpy seeds.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import int8_matmul as imm
+from repro_torch.kernels import nibble
+from repro_torch.kernels import paged_attend_decode as pad
+from repro_torch.kernels.int8_attend_decode import (NEG_INF, int8_logits,
+                                                    kv_values)
+from repro_torch.kernels.ref import (decode_valid, paged_gather_ref,
+                                     paged_positions_ref, site_fake_quant)
+
+MS, NS, KS = (1, 4, 16, 17, 64), (48, 1024, 2048, 2304), (64, 80, 2304)
+
+
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("n", NS)
+@pytest.mark.parametrize("m", MS)
+def test_k_split_plan_covers_every_tile_once(m, n, k):
+    bm, bn, splits = imm.plan_k_splits(m, n, k)
+    assert (bm, bn) == ((16, 128) if m <= 16 else (64, 64))
+    kt = -(-k // imm.K_TILE)
+    spans = imm.k_split_tiles(k, splits)
+    assert len(spans) == splits and spans[0][0] == 0 and spans[-1][1] == kt
+    for (a, b), (c, _) in zip(spans, spans[1:]):
+        assert b == c                           # in order, no gap or overlap
+    assert all(b > a for a, b in spans)         # no empty split
+    if splits > 1:
+        assert all(b - a >= 2 for a, b in spans)
+    tiles = -(-m // bm) * -(-n // bn)
+    # the largest power of two that keeps the grid within twice the card,
+    # a cluster, and two K tiles a split
+    cap = max(1, min(-(-2 * imm.SMS // tiles), imm.MAX_K_SPLITS, kt // 2))
+    assert splits & (splits - 1) == 0 and splits <= cap < 2 * splits
+
+
+@pytest.mark.parametrize("s_cap,bs", [(128, 16), (4096, 16), (64, 8),
+                                      (16, 8), (587, 16), (397, 8),
+                                      (16, 16), (3, 8)])
+@pytest.mark.parametrize("batch,kv", [(4, 4), (4, 2), (1, 1), (3, 8)])
+def test_kv_split_plan_covers_every_block_once(s_cap, bs, batch, kv):
+    nb = -(-s_cap // bs)
+    splits, bps = pad.plan_kv_splits(batch, kv, nb, bs)
+    spans = pad.kv_split_blocks(nb, splits, bps)
+    assert 1 <= splits <= pad.MAX_SPLITS and bps <= pad.MAX_SPLIT_BLOCKS
+    assert spans[0][0] == 0 and spans[-1][1] == nb
+    for (a, b), (c, _) in zip(spans, spans[1:]):
+        assert b == c and b - a == bps
+    assert all(b > a for a, b in spans)
+    # a wave of blocks, unless the splits are as short as the blocks and
+    # the kernel's split limit allow; <= 128 cells a split
+    assert splits * batch * kv >= pad.SMS or bps == -(-nb // pad.MAX_SPLITS)
+    assert bps * bs <= pad.MAX_SPLIT_CELLS or splits == pad.MAX_SPLITS \
+        or bps == 1
+
+
+def test_kv_split_plan_serving_shapes():
+    """The full-width serving shapes: 8 one-block splits at s_cap 128
+    (128 blocks of threads), 32 splits of 8 blocks at the 4096 window."""
+    assert pad.plan_kv_splits(4, 4, 8, 16) == (8, 1)
+    assert pad.plan_kv_splits(4, 4, 256, 16) == (32, 8)
+
+
+@pytest.mark.parametrize("m,k,n,w_bits", [
+    (4, 2304, 2048, 8), (17, 2304, 48, 8), (1, 2304, 1024, 4),
+    (64, 80, 48, 8), (16, 2304, 2304, 4)])
+def test_split_k_partials_sum_to_the_product(m, k, n, w_bits):
+    rng = np.random.default_rng(k + n + m)
+    a = torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8))
+    lo = -8 if w_bits == 4 else -127
+    hi = 8 if w_bits == 4 else 128
+    w = torch.from_numpy(rng.integers(lo, hi, (k, n), dtype=np.int8))
+    w_q = nibble.pack_rows(w) if w_bits == 4 else w
+    w_vals = nibble.unpack_rows(w_q) if w_bits == 4 else w_q
+    _, _, splits = imm.plan_k_splits(m, n, k)
+    total = torch.zeros((m, n), dtype=torch.int32)
+    for t0, t1 in imm.k_split_tiles(k, splits):
+        k0, k1 = t0 * imm.K_TILE, min(k, t1 * imm.K_TILE)
+        assert k0 % 2 == 0                      # no nibble byte is split
+        part = a[:, k0:k1].long() @ w_vals[k0:k1].long()
+        total += part.to(torch.int32)           # int32 adds, any order
+    assert torch.equal(total, (a.long() @ w.long()).to(torch.int32))
+    got = imm.int8_matmul_plain(a, w_q, 0.03, 0.01, w_bits=w_bits)
+    want = (a.double() @ w.double()).float() * (torch.tensor(0.03) *
+                                                torch.tensor(0.01))
+    assert torch.equal(got, want)
+
+
+def _split_attend(args, *, s_cap, window, logit_softcap, sm_quant, sm_qmin,
+                  sm_qmax, smo_quant, smo_qmin, smo_qmax, kv_bits):
+    """The split-KV kernel's arithmetic in PyTorch: per-split softmax
+    states over runs of paged blocks, merged in split order."""
+    (q_q, q_scale, q_zp, k_zp, v_zp, k_arena, k_scale, v_arena, v_scale,
+     table, q_pos) = args
+    b, kv, g, hd = q_q.shape
+    nb, bs = table.shape[1], k_arena.shape[1]
+    k, v = kv_values(paged_gather_ref(k_arena, table),
+                     paged_gather_ref(v_arena, table), hd, kv_bits)
+    vs = paged_gather_ref(v_scale, table).float().permute(0, 2, 1)[:, :,
+                                                                   None]
+    s = int8_logits(q_q, q_scale, q_zp, k_zp, k,
+                    paged_gather_ref(k_scale, table))
+    if logit_softcap is not None:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    if sm_quant is not None:
+        s = site_fake_quant(s, sm_quant, sm_qmin, sm_qmax)
+    kp = paged_positions_ref(table, q_pos, s_cap=s_cap, block_size=bs)
+    s = torch.where(decode_valid(kp, q_pos, window)[:, None, None, :], s,
+                    NEG_INF)
+    zv = v_zp.float()[:, :, None, None]
+    splits, bps = pad.plan_kv_splits(b, kv, nb, bs)
+    cells = [slice(a * bs, e * bs)
+             for a, e in pad.kv_split_blocks(nb, splits, bps)]
+
+    def partial(p, c):                       # sum p v_s v - z_v sum p v_s
+        pv = p * vs[..., c]
+        return (torch.einsum("bkgs,bskd->bkgd", pv, v[:, c].float())
+                - zv * pv.sum(-1, keepdim=True))
+
+    ms = [torch.clamp_min(s[..., c].amax(-1, keepdim=True), NEG_INF)
+          for c in cells]
+    ls = [torch.exp(s[..., c] - mj).sum(-1, keepdim=True)
+          for c, mj in zip(cells, ms)]
+    m = ms[0]
+    for mj in ms[1:]:
+        m = torch.maximum(m, mj)
+    l = torch.zeros_like(m)
+    for mj, lj in zip(ms, ls):
+        l = l + lj * torch.exp(mj - m)
+    l = torch.clamp_min(l, 1e-30)
+    out = torch.zeros((b, kv, g, hd))
+    for c, mj in zip(cells, ms):
+        if smo_quant is None:
+            out = out + partial(torch.exp(s[..., c] - mj), c) * torch.exp(
+                mj - m)
+        else:
+            p = site_fake_quant(torch.exp(s[..., c] - m) / l, smo_quant,
+                                smo_qmin, smo_qmax)
+            out = out + partial(p, c)
+    return out if smo_quant is not None else out / l
+
+
+def _attend_check(got, want, smo_step, v_absmax):
+    """chip_smoke's attend_check."""
+    err = (got - want).abs()
+    tol = 1e-5 * float(want.abs().max())
+    if smo_step is None:
+        assert float(err.max()) <= tol
+        return
+    rows = err.amax(dim=-1)
+    assert int((rows > tol).sum()) <= 1e-3 * rows.numel()
+    assert float(err.max()) <= smo_step * v_absmax * (1 + 1e-5)
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4])
+@pytest.mark.parametrize("site", ["none", "softmax_in", "softmax_out"])
+@pytest.mark.parametrize("b,kv,g,hd,bs,s_cap,window", [
+    (4, 2, 2, 16, 16, 587, 200), (3, 2, 2, 16, 8, 397, None),
+    (4, 1, 4, 32, 16, 128, 64)])
+def test_split_kv_merge_matches_plain(b, kv, g, hd, bs, s_cap, window,
+                                      site, kv_bits):
+    """Holes (an unmapped tail and an unmapped whole split), an idle lane,
+    a short lane, s_cap both a multiple and not a multiple of bs."""
+    rng = np.random.default_rng(s_cap + bs + kv_bits)
+    nb = -(-s_cap // bs)
+    n_blocks = b * nb + 3
+    table = torch.from_numpy(rng.permutation(n_blocks)[:b * nb].reshape(
+        b, nb).astype(np.int32))
+    splits, bps = pad.plan_kv_splits(b, kv, nb, bs)
+    if splits > 2:
+        table[0, bps:2 * bps] = -1              # a whole split unmapped
+    table[1, nb - 1:] = -1                      # an unmapped tail
+    q_pos = torch.tensor([s_cap + 37, s_cap // 3, -1, 2 * s_cap - 1][:b],
+                         dtype=torch.int32)
+
+    def f32(lo, hi, *shape):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(
+            np.float32))
+
+    def zp(*shape):
+        lim = 3 if kv_bits == 4 else 20
+        return torch.round(f32(-lim, lim, *shape)) if site != "none" else \
+            torch.zeros(shape)
+    width = hd // 2 if kv_bits == 4 else hd
+    lo, hi = (-8, 8) if kv_bits == 4 else (-127, 128)
+
+    def payload():
+        x = torch.from_numpy(rng.integers(lo, hi, (n_blocks, bs, kv, hd),
+                                          dtype=np.int8))
+        return nibble.pack_nibbles(x) if kv_bits == 4 else x
+    k_a, v_a = payload(), payload()
+    assert k_a.shape[-1] == width
+    v_s, v_zp = f32(0.01, 0.05, n_blocks, bs, kv), zp(b, kv)
+    args = (torch.from_numpy(rng.integers(-127, 128, (b, kv, g, hd),
+                                          dtype=np.int8)),
+            f32(0.01, 0.03, b, kv, g) / 16, zp(b, kv, g), zp(b, kv), v_zp,
+            k_a, f32(0.01, 0.05, n_blocks, bs, kv), v_a, v_s, table, q_pos)
+    kw = dict(s_cap=s_cap, window=window, logit_softcap=50.0,
+              sm_quant=None, sm_qmin=0, sm_qmax=255, smo_quant=None,
+              smo_qmin=0, smo_qmax=255, kv_bits=kv_bits)
+    if site != "none":
+        kw["sm_quant"] = torch.tensor([0.05, 128.0])
+    if site == "softmax_out":
+        kw["smo_quant"] = torch.tensor([1 / 255, 0.0])
+    want = pad.paged_int8_attend_decode_plain(*args, **kw)
+    got = _split_attend(args, **kw)
+    v_max = 8 if kv_bits == 4 else 127
+    v_absmax = float((v_max + v_zp.abs().max()) * v_s.max())
+    _attend_check(got, want, 1 / 255 if site == "softmax_out" else None,
+                  v_absmax)
