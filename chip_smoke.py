@@ -18,11 +18,13 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              PyTorch library call computing the same function (CUDA events,
              L2 flushed before every launch). K3 is represented by its
              decode-step shape (4,2304)x(2304,2048), with ``torch._int_mm``
-             on A zero-padded to 32 rows as its decode-row yardstick; K3's
-             and K6's lines print their split count and achieved GB/s, and
-             K6 adds cases at its split boundaries (blocks not a multiple
-             of the blocks per split, bs 8, a hole over a whole split, an
-             idle lane).
+             on A zero-padded to 32 rows as its decode-row yardstick; K3's,
+             K5's and K6's lines print their split count and achieved GB/s,
+             K1's and K8/K9's their row split C (blocks per row, one
+             cluster) and blocks and GB/s; K5 and K6 add cases at their
+             split boundaries (cells or blocks not a multiple of the split
+             length, bs 8, an empty run or hole over a whole split, an idle
+             lane, a ring that wrapped).
 3. full    — serve gemma2-2b at full width (26 layers, d 2304, bf16) through
              ``repro_torch.launch.serve.main`` with W8A8 PTQ + the integer
              deploy path, static scheduler; the K1/K3/K4 launch counters
@@ -122,7 +124,7 @@ KERNELS = {
 # the port's kernel names in a profiler trace
 PORT_KERNELS = (r"norm_quant_kernel|peg_quant_kernel|int8_matmul_splitk|"
                 r"int8_matmul_peg_kernel|attend_decode_kernel|"
-                r"paged_split_kernel")
+                r"split_attend_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -177,6 +179,15 @@ def split_note(splits, nbytes, ms):
     """The split count and the achieved rate of the bytes the bound
     counts, printed on a split kernel's line."""
     return f"  {splits} splits, {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s"
+
+
+def row_note(rows, d, groups, nbytes, ms):
+    """The row split C of the norm kernels (blocks per row, one cluster),
+    their blocks and the achieved rate of the bytes the bound counts."""
+    from repro_torch.kernels import fused_ln_quant as lnq
+    split = lnq.plan_row_split(rows, d, groups)
+    return (f"  C {split}, {rows * split} blocks, "
+            f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
 
 
 def int_mm_yardstick(a, w, s_a, z_a, s_w, cs, want, flush):
@@ -260,7 +271,8 @@ def kernel_phase():
             nbytes = rows * D * (2 + 1) + D * 4 + 2 * g * 4
             record("rms_quantize", f"x ({rows},{D}) bf16 G={g}", worst, ms,
                    p_ms, None, nbytes, 8 * rows * D, PEAK_F32_OPS_PER_S,
-                   rows == B * T and g == 1)
+                   rows == B * T and g == 1,
+                   row_note(rows, D, g, nbytes, ms))
 
     # K4 peg_quantize: the wo input (B*T and B rows, 2048 wide, f32)
     for rows in (B * T, B):
@@ -485,7 +497,8 @@ def norm_cases(gen, flush, record, uniform, randn):
                 nbytes = (rows * d * (el + (1 if emit else el)) +
                           len(affine) * d * 4 + 2 * g * 4)
                 record(name, shape, err, ms, p_ms, None, nbytes,
-                       10 * rows * d, PEAK_F32_OPS_PER_S, rep)
+                       10 * rows * d, PEAK_F32_OPS_PER_S, rep,
+                       row_note(rows, d, g, nbytes, ms))
             got = pq.peg_fake_quant_cuda(x, s, z, **kw)
             want = pq.peg_fake_quant_plain(x, s, z, **kw)
             require(torch.equal(got, want),
@@ -616,7 +629,8 @@ def attend_cases(gen, flush, record):
                     (q_q, q_s, zq, zk, zv, k_q, k_s, v_q, v_s, k_pos, q_pos),
                     kw, valid, kv, g, hd, 2 * hd + 8, b * s_len * 4 + b * 4,
                     b * kv * g * (hd + 8) + b * kv * 8, v_abs, True,
-                    s_len == 128 and site.startswith("two-pass"))
+                    s_len == 128 and site.startswith("two-pass"),
+                    iad.plan_dense_kv_splits(b, kv, s_len)[0])
     # an idle lane and an empty-prefix lane at the full width
     b, kv, g, hd = full
     k_pos = torch.arange(128, device=dev, dtype=torch.int32).repeat(b, 1)
@@ -632,7 +646,7 @@ def attend_cases(gen, flush, record):
             iad.int8_attend_decode_cuda, iad.int8_attend_decode_plain, args,
             kw, decode_valid(k_pos, q_pos, None), kv, g, hd, 2 * hd + 8,
             b * 128 * 4 + b * 4, b * kv * g * (hd + 8) + b * kv * 8, 1.0,
-            True, False)
+            True, False, iad.plan_dense_kv_splits(b, kv, 128)[0])
 
     # K6 / K7: paged arenas through a block table
     for (b, kv, g, hd), bs, s_cap, nb, window in (
@@ -744,7 +758,8 @@ def attend_cases(gen, flush, record):
                 hd + 8, b * s_len * 4 + b * 4,
                 b * kv * g * (hd + 8) + b * kv * 8,
                 float((8 + zv.abs().max()) * v_s.max()), True,
-                s_len == 128 and not idle and site.startswith("two-pass"))
+                s_len == 128 and not idle and site.startswith("two-pass"),
+                iad.plan_dense_kv_splits(b, kv, s_len)[0])
     bs = 16
     for s_cap, nb, window, site, holes in (
             (128, 8, 64, "two-pass softmax_out + zero-points", False),
@@ -784,6 +799,7 @@ def attend_cases(gen, flush, record):
                 s_cap == 128 and not holes and site.startswith("two-pass"),
                 pad.plan_kv_splits(b, kv, cols.shape[1], bs)[0])
     k6_split_cases(gen, ri, ru, site_kw, measure)
+    k5_split_cases(gen, ri, ru, site_kw, measure)
 
 
 def k6_split_cases(gen, ri, ru, site_kw, measure):
@@ -842,6 +858,62 @@ def k6_split_cases(gen, ri, ru, site_kw, measure):
                     pad.paged_int8_attend_decode_plain, args, kw, valid, kv,
                     g, hd, (hd if kv_bits == 4 else 2 * hd) + 8,
                     table.numel() * 4 + b * 4,
+                    b * kv * g * (hd + 8) + b * kv * 8, v_abs, True, False,
+                    splits)
+
+
+def k5_split_cases(gen, ri, ru, site_kw, measure):
+    """K5 and K5-kv4 at the split-KV kernel's boundaries, at the full
+    width, two-pass: 587 cells (10 splits of 64, the last of 11) with a
+    window and 413 (13 splits of 32, the last of 29), each with an empty
+    run over a whole split (lane 0), a short lane whose later cells are
+    past its query (lane 1), an idle lane (lane 2) and a ring that wrapped
+    (lane 3: slot c holds the newest position congruent to c)."""
+    import torch
+    from repro_torch.kernels import int8_attend_decode as iad
+    from repro_torch.kernels.nibble import pack_nibbles
+    from repro_torch.kernels.ref import decode_valid
+    dev = torch.device("cuda")
+    b, kv, g, hd = 4, ATT_KV, ATT_G, ATT_HD
+    site = "two-pass softmax_out + zero-points"
+    for s_len, window in ((587, 200), (413, None)):
+        splits, cps = iad.plan_dense_kv_splits(b, kv, s_len)
+        require(s_len % cps != 0 and splits > 2,
+                f"K5 split case S{s_len}: not a split boundary")
+        cells = torch.arange(s_len, device=dev, dtype=torch.int32)
+        q_pos = torch.tensor([s_len - 1, s_len // 3, -1, 2 * s_len - 6],
+                             device=dev, dtype=torch.int32)
+        k_pos = cells.repeat(b, 1)
+        k_pos[0, cps:2 * cps] = -1
+        k_pos[3] = q_pos[3] - (q_pos[3] - cells) % s_len
+        valid = decode_valid(k_pos, q_pos, window)
+        for kv_bits in (8, 4):
+            if kv_bits == 4:
+                k_q, v_q = (pack_nibbles(torch.randint(
+                    -8, 8, (b, s_len, kv, hd), generator=gen, device=dev,
+                    dtype=torch.int8)) for _ in range(2))
+                zk, zv = (torch.round(ru(-3, 3, b, kv)) for _ in range(2))
+                v_s = ru(0.1, 0.5, b, s_len, kv)
+                v_abs = float((8 + zv.abs().max()) * v_s.max())
+            else:
+                k_q, v_q = ri(b, s_len, kv, hd), ri(b, s_len, kv, hd)
+                zk, zv = (torch.round(ru(-20, 20, b, kv)) for _ in range(2))
+                v_s = ru(0.01, 0.05, b, s_len, kv)
+                v_abs = float((v_q.float().abs().max() + zv.abs().max())
+                              * v_s.max())
+            args = (ri(b, kv, g, hd), ru(0.01, 0.03, b, kv, g) / 16,
+                    torch.round(ru(-20, 20, b, kv, g)), zk, zv, k_q,
+                    ru(0.01, 0.05, b, s_len, kv), v_q, v_s, k_pos, q_pos)
+            kw = dict(window=window, logit_softcap=50.0, kv_bits=kv_bits,
+                      **site_kw(site))
+            name = "int8_attend_decode" + ("_kv4" if kv_bits == 4 else "")
+            measure(name, f"B{b} KV{kv}xG{g} hd{hd} S{s_len} w{window} "
+                    f"split boundaries ({splits} x {cps} cells, whole-split "
+                    f"empty run + idle lane + wrapped ring), {site}",
+                    iad.int8_attend_decode_cuda,
+                    iad.int8_attend_decode_plain, args, kw, valid, kv, g, hd,
+                    (hd if kv_bits == 4 else 2 * hd) + 8,
+                    b * s_len * 4 + b * 4,
                     b * kv * g * (hd + 8) + b * kv * 8, v_abs, True, False,
                     splits)
 
@@ -1072,9 +1144,9 @@ def require_parity(tag, out, n):
 
 
 def ptxas_report():
-    """``--ptxas``: compile the split kernels' sources once more with
-    ``-Xptxas -v`` (into build/ptxas) and print each kernel's registers,
-    shared memory and spills."""
+    """``--ptxas``: compile the split and cluster kernels' sources once more
+    with ``-Xptxas -v`` (into build/ptxas) and print one line per kernel
+    instantiation: its registers, shared memory and spills."""
     from repro_torch.kernels import _build
     out = _build.BUILD_ROOT / "ptxas"
     out.mkdir(parents=True, exist_ok=True)
@@ -1082,13 +1154,33 @@ def ptxas_report():
         [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
          str(out / f"lib{name}.so"), str(_build.CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for name in ("int8_matmul", "paged_attend_decode")]
+        for name in ("norm_quant", "int8_matmul", "int8_attend_decode",
+                     "paged_attend_decode")]
     for name, proc in procs:
         log, _ = proc.communicate()
         require(proc.returncode == 0, f"nvcc failed on {name}.cu:\n{log}")
+        entry, spills = "?", ""
         for line in log.splitlines():
-            if re.search(r"Compiling entry|Used \d+ registers|spill", line):
-                print(f"[ptxas] {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spills = f"spills {m.group(1)}/{m.group(2)} B"
+            m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+            if m:
+                print(f"[ptxas] {name}: {_demangle(entry)}: {m.group(1)} "
+                      f"registers, {m.group(2)} B smem, {spills}")
+
+
+def _demangle(symbol):
+    """A kernel's C++ name (``c++filt``, where the toolchain has it)."""
+    try:
+        return subprocess.run(["c++filt", symbol], capture_output=True,
+                              text=True, check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        return symbol
 
 
 def main() -> int:

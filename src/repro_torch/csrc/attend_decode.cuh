@@ -1,17 +1,16 @@
-// One decode step of attention against a KV cache, for Hopper (sm_90a): the
-// template behind int8_attend_decode.cu (K5) and the K7 kernel of
-// paged_attend_decode.cu, and the helpers K6's split-KV kernel there
-// shares.
+// One decode step of attention against a block-paged f32 or bf16 KV cache,
+// for Hopper (sm_90a): the one-block-per-(kv head, lane) template behind
+// the K7 kernel of paged_attend_decode.cu, and the helpers (warp sums,
+// fake-quant, int8 and nibble unpacking) that the split-KV body of K5 and
+// K6 (split_attend.cuh) shares.
 //
-// Replaces the TPU kernels src/repro/kernels/int8_attend_decode.py
-// (_attend_decode_kernel) and src/repro/kernels/paged_attend_decode.py
+// Replaces the TPU kernel src/repro/kernels/paged_attend_decode.py
 // (_paged_kernel, float). For lane b, kv head h and the G query heads of
 // that head:
 //
-//   s[g,c] = ((dot32 - zq*kcol - zk*qrow) + hd*zq*zk) * q_s * k_s   (int8)
-//   s[g,c] = q[g] . k[c]                      (float; scale folded into q)
+//   s[g,c] = q[g] . k[c]                      (scale folded into q)
 //   s = softcap(s); s = fake_quant_{softmax_in}(s); s = mask(s)
-//   online softmax over the cells, acc += (p*v_s) @ v - z_v * sum(p*v_s)
+//   online softmax over the cells, acc += p @ v
 //
 // With a calibrated softmax_out site the cells are walked twice: pass 1
 // keeps only (m, l), pass 2 recomputes the logits, quantizes
@@ -25,25 +24,14 @@
 // independent worker with its own online softmax (m, l, acc) over every
 // 8th group of kUnroll consecutive cells; a lane owns 4 (hd 16..128) or 8
 // (hd 256) head_dim columns, so one step issues the K and V words of
-// kUnroll cells at once, takes the exact int32 q.k by __dp4a over 4-byte
-// words, reduces across the warp with shuffles and needs no barrier. The
-// warps' states are combined once at the end (and once between the two
-// passes). The float corrections and the online-softmax recurrences follow
-// the reference's order, including the max(m_new, -1e30) guard, so an idle
+// kUnroll cells at once, reduces q.k across the warp with shuffles and
+// needs no barrier. The warps' states are combined once at the end (and
+// once between the two passes). The online-softmax recurrences follow the
+// reference's order, including the max(m_new, -1e30) guard, so an idle
 // lane (all cells masked) gives the same output as the plain version.
-// Built with -fmad=false and rintf (round half to even). Split-KV over
-// more blocks (as K6 does), TMA and wgmma are later work.
-//
-// 4-bit caches (KV4, the TPU kernels' kv_bits=4 mode): each K/V row is hd/2
-// bytes of split-half nibbles, column j in the low nibble of byte j and
-// column hd/2 + j in its high nibble, so packed 32-bit word i carries the
-// column quads i and hd/8 + i. The lane that loads packed word i owns both
-// quads (q words, the two __dp4a's of q.k and the acc columns), which at
-// hd = 256 are the same 8 columns a lane owns at 8 bits; at hd = 16 two
-// lanes per cell are active. The nibbles are sign-extended per byte
-// (__vsub4) into two int8 words, so q.k stays an exact int32 __dp4a and
-// kcol comes from the unpacked values; scales, positions, masks and both
-// softmax schedules are the 8-bit ones. Half the payload bytes per cell.
+// Built with -fmad=false and rintf (round half to even). K5 ran the int8
+// form of this template until it moved onto the split-KV body; K7 moves
+// there next.
 //
 // Paged caches: cell L of lane b lives in physical block table[b, L / bs]
 // (clamped at 0; unmapped blocks are masked). Its position is derived, not
@@ -66,24 +54,17 @@ constexpr int kMaxHd = 256;        // head_dim
 constexpr float kNegInf = -1e30f;
 
 struct Args {
-  const void* q;          // int8 (B,KV,G,hd) or f32 (B,KV,G,hd)
-  const float* q_scale;   // (B,KV,G)   int8 only
-  const float* q_zp;      // (B,KV,G)   int8 only
-  const float* k_zp;      // (B,KV)     int8 only
-  const float* v_zp;      // (B,KV)     int8 only
-  const void* k;          // dense (B,S,KV,hd) / paged (N,bs,KV,hd)
+  const float* q;         // (B,KV,G,hd) f32, attention scale folded in
+  const void* k;          // (N,bs,KV,hd) f32 or bf16
   const void* v;
-  const float* k_scale;   // dense (B,S,KV) / paged (N,bs,KV), int8 only
-  const float* v_scale;
-  const int* k_pos;       // dense (B,S)
-  const int* table;       // paged (B,nb)
+  const int* table;       // (B,nb)
   const int* q_pos;       // (B,)
   const float* sm;        // softmax_in [scale, zp] or null
   const float* smo;       // softmax_out [scale, zp] or null
   float* out;             // (B,KV,G,hd) f32
   int kv, g, hd;
-  int n_cells;            // dense: S; paged: nb * bs
-  int nb, bs, s_cap;      // paged only
+  int n_cells;            // nb * bs
+  int nb, bs, s_cap;
   int window;             // 0: no sliding window
   float softcap;          // 0: no soft-capping
   float sm_qmin, sm_qmax, smo_qmin, smo_qmax;
@@ -112,11 +93,6 @@ __device__ __forceinline__ void unpack4(int w, float* x) {
   for (int e = 0; e < 4; ++e) x[e] = (float)(int8_t)(w >> (8 * e));
 }
 
-// The 4 values of word j (columns 4j..4j+3) of one K or V row.
-__device__ __forceinline__ void load4(const int8_t* row, int j, float* x) {
-  unpack4(reinterpret_cast<const int*>(row)[j], x);
-}
-
 // Split-half nibbles of one packed word -> the int8 words of its low
 // (columns 4i..4i+3) and high (hd/2 + 4i..) quads: (v ^ 8) - 8 per byte.
 __device__ __forceinline__ int nibbles_lo(int w) {
@@ -128,17 +104,7 @@ __device__ __forceinline__ int nibbles_hi(int w) {
                       0x08080808u);
 }
 
-// The column quad of this lane's word slot i, and whether the lane owns
-// one there: at 8 bits word lane + 32 i of hd / 4; at 4 bits quad lane
-// (i = 0) and hd / 8 + lane (i = 1) of the packed word lane < hd / 8.
-template <bool KV4>
-__device__ __forceinline__ int quad_of(int lane, int i, int hd) {
-  return KV4 ? lane + i * (hd / 8) : lane + 32 * i;
-}
-template <bool KV4>
-__device__ __forceinline__ bool owns(int lane, int i, int hd) {
-  return KV4 ? lane < hd / 8 : lane + 32 * i < hd / 4;
-}
+// The 4 values of word j (columns 4j..4j+3) of one row.
 __device__ __forceinline__ void load4(const float* row, int j, float* x) {
   const float4 w = reinterpret_cast<const float4*>(row)[j];
   x[0] = w.x;
@@ -157,44 +123,29 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* row, int j,
   x[3] = __high2float(hi);
 }
 
-// Payload row of cell L of lane b, viewed as (rows, KV, hd), and whether
-// the cell is valid for a query at position qp.
-template <bool PAGED>
+// Arena row of cell L of lane b, viewed as (rows, KV, hd), and whether the
+// cell is valid for a query at position qp.
 __device__ __forceinline__ long cell(const Args& a, int b, int L, int qp,
                                      bool* valid) {
-  if (PAGED) {
-    const int t = a.table[(long)b * a.nb + L / a.bs];
-    int m = (qp - L) % a.s_cap;
-    if (m < 0) m += a.s_cap;                     // floor modulo
-    const int p = qp - m;
-    bool ok = L < a.s_cap && p >= 0 && t >= 0;
-    if (a.window > 0) ok = ok && p > qp - a.window;
-    *valid = ok;
-    return (long)(t > 0 ? t : 0) * a.bs + L % a.bs;
-  }
-  const int kp = a.k_pos[(long)b * a.n_cells + L];
-  bool ok = kp >= 0 && kp <= qp;
-  if (a.window > 0) ok = ok && kp > qp - a.window;
+  const int t = a.table[(long)b * a.nb + L / a.bs];
+  int m = (qp - L) % a.s_cap;
+  if (m < 0) m += a.s_cap;                     // floor modulo
+  const int p = qp - m;
+  bool ok = L < a.s_cap && p >= 0 && t >= 0;
+  if (a.window > 0) ok = ok && p > qp - a.window;
   *valid = ok;
-  return (long)b * a.n_cells + L;
+  return (long)(t > 0 ? t : 0) * a.bs + L % a.bs;
 }
 
-// QUANT: int8 payloads with per-cell scales (KT = int8_t); otherwise f32 or
-// bf16 payloads (KT) and f32 queries with the attention scale folded in.
-// KV4 (with QUANT): split-half nibble payloads, rows of hd / 2 bytes.
-// MG bounds the query heads per kv head (G <= MG) and NW is the number of
-// 4-column words per lane (1 for hd <= 128, 2 up to 256; 2 with KV4); both
-// only size the registers.
-template <bool QUANT, bool PAGED, typename KT, int MG, int NW,
-          bool KV4 = false>
+// KT: f32 or bf16 payloads. MG bounds the query heads per kv head (G <=
+// MG) and NW is the number of 4-column words per lane (1 for hd <= 128, 2
+// up to 256); both only size the registers.
+template <typename KT, int MG, int NW>
 __global__ void __launch_bounds__(kThreads) attend_decode_kernel(const Args a) {
-  constexpr int kWords = NW;
   constexpr int kCols = 4 * NW;
-  static_assert(!KV4 || (QUANT && NW == 2), "KV4: int8 queries, 2 quads");
   const int h = blockIdx.x, b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int G = a.g, hd = a.hd, KV = a.kv;
-  const int row_bytes = KV4 ? hd / 2 : hd;      // payload bytes per row
   const long qrow0 = ((long)b * KV + h) * G;     // row of query head g = 0
   const int qp = a.q_pos[b];
   const bool two_pass = a.smo != nullptr;
@@ -202,36 +153,16 @@ __global__ void __launch_bounds__(kThreads) attend_decode_kernel(const Args a) {
   __shared__ float m_s[kWarps][kMaxG], l_s[kWarps][kMaxG];
   __shared__ float acc_s[kMaxG][kMaxHd];
 
-  // this lane's query words (int8: 4 values per int; float: 4 per float4)
-  int qw[MG][kWords];
+  // this lane's query words (4 values per float4)
   float qf[MG][kCols];
-  float qrow[MG], qs[MG], zq[MG];
-  float zk = 0.f, zv = 0.f;
 #pragma unroll
   for (int g = 0; g < MG; ++g) {
-    int r = 0;
 #pragma unroll
-    for (int i = 0; i < kWords; ++i) {
-      const int j = quad_of<KV4>(lane, i, hd);
-      qw[g][i] = 0;
+    for (int i = 0; i < NW; ++i) {
+      const int j = lane + 32 * i;
       for (int e = 0; e < 4; ++e) qf[g][4 * i + e] = 0.f;
-      if (g < G && owns<KV4>(lane, i, hd)) {
-        if (QUANT) {
-          qw[g][i] = reinterpret_cast<const int*>(
-              (const int8_t*)a.q + (qrow0 + g) * hd)[j];
-          r = __dp4a(qw[g][i], 0x01010101, r);
-        } else {
-          load4((const float*)a.q + (qrow0 + g) * hd, j, &qf[g][4 * i]);
-        }
-      }
+      if (g < G && j < hd / 4) load4(a.q + (qrow0 + g) * hd, j, &qf[g][4 * i]);
     }
-    qrow[g] = QUANT ? (float)warp_sum(r) : 0.f;
-    qs[g] = (QUANT && g < G) ? a.q_scale[qrow0 + g] : 0.f;
-    zq[g] = (QUANT && g < G) ? a.q_zp[qrow0 + g] : 0.f;
-  }
-  if (QUANT) {
-    zk = a.k_zp[(long)b * KV + h];
-    zv = a.v_zp[(long)b * KV + h];
   }
 
   float m[MG], l[MG], acc[MG][kCols];
@@ -251,52 +182,22 @@ __global__ void __launch_bounds__(kThreads) attend_decode_kernel(const Args a) {
     for (int base = warp * kUnroll; base < n; base += kWarps * kUnroll) {
       // issue the loads of kUnroll cells
       bool in[kUnroll], ok[kUnroll];
-      float ks[kUnroll], vs[kUnroll];
       float kx[kUnroll][kCols], vx[kUnroll][kCols];
-      int kwd[kUnroll][kWords];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int L = base + u;
         in[u] = L < n;
-        const long row = in[u] ? cell<PAGED>(a, b, L, qp, &ok[u]) : 0;
+        const long row = in[u] ? cell(a, b, L, qp, &ok[u]) : 0;
         if (!in[u]) ok[u] = false;
-        const long off = (row * KV + h) * row_bytes;
-        ks[u] = vs[u] = 1.f;
-        if (QUANT && in[u]) {
-          ks[u] = a.k_scale[row * KV + h];
-          vs[u] = a.v_scale[row * KV + h];
-        }
+        const long off = (row * KV + h) * hd;
 #pragma unroll
-        for (int i = 0; i < kWords; ++i) {
-          kwd[u][i] = 0;
+        for (int i = 0; i < NW; ++i) {
           for (int e = 0; e < 4; ++e)
             kx[u][4 * i + e] = vx[u][4 * i + e] = 0.f;
-        }
-        if constexpr (KV4) {   // one packed word: both of the lane's quads
-          if (in[u] && lane < hd / 8) {
-            const int kp = reinterpret_cast<const int*>(
-                (const int8_t*)a.k + off)[lane];
-            kwd[u][0] = nibbles_lo(kp);
-            kwd[u][1] = nibbles_hi(kp);
-            if (emit) {
-              const int vp = reinterpret_cast<const int*>(
-                  (const int8_t*)a.v + off)[lane];
-              unpack4(nibbles_lo(vp), &vx[u][0]);
-              unpack4(nibbles_hi(vp), &vx[u][4]);
-            }
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < kWords; ++i) {
-            const int j = lane + 32 * i;
-            if (in[u] && j < hd / 4) {
-              if (QUANT)
-                kwd[u][i] = reinterpret_cast<const int*>(
-                    (const int8_t*)a.k + off)[j];
-              else
-                load4((const KT*)a.k + off, j, &kx[u][4 * i]);
-              if (emit) load4((const KT*)a.v + off, j, &vx[u][4 * i]);
-            }
+          const int j = lane + 32 * i;
+          if (in[u] && j < hd / 4) {
+            load4((const KT*)a.k + off, j, &kx[u][4 * i]);
+            if (emit) load4((const KT*)a.v + off, j, &vx[u][4 * i]);
           }
         }
       }
@@ -304,35 +205,16 @@ __global__ void __launch_bounds__(kThreads) attend_decode_kernel(const Args a) {
       float s[kUnroll][MG];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        int kc = 0;
-        if (QUANT) {
-#pragma unroll
-          for (int i = 0; i < kWords; ++i)
-            kc = __dp4a(kwd[u][i], 0x01010101, kc);
-          kc = warp_sum(kc);
-        }
 #pragma unroll
         for (int g = 0; g < MG; ++g) {
           if (g >= G) {
             s[u][g] = -INFINITY;
             continue;
           }
-          float x;
-          if (QUANT) {
-            int d = 0;
+          float d = 0.f;
 #pragma unroll
-            for (int i = 0; i < kWords; ++i)
-              d = __dp4a(qw[g][i], kwd[u][i], d);
-            const float acc32 = (((float)warp_sum(d) - zq[g] * (float)kc)
-                                 - zk * qrow[g]) +
-                                ((float)hd * zq[g]) * zk;
-            x = acc32 * qs[g] * ks[u];
-          } else {
-            float d = 0.f;
-#pragma unroll
-            for (int c = 0; c < kCols; ++c) d += qf[g][c] * kx[u][c];
-            x = warp_sum(d);
-          }
+          for (int c = 0; c < kCols; ++c) d += qf[g][c] * kx[u][c];
+          float x = warp_sum(d);
           if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
           if (a.sm != nullptr)
             x = fake_quant(x, a.sm[0], a.sm[1], a.sm_qmin, a.sm_qmax);
@@ -344,7 +226,7 @@ __global__ void __launch_bounds__(kThreads) attend_decode_kernel(const Args a) {
 #pragma unroll
       for (int g = 0; g < MG; ++g) {
         if (g >= G) continue;
-        float pv[kUnroll], pvsum = 0.f, corr = 1.f;
+        float pv[kUnroll], corr = 1.f;
         if (pass == 0) {
           float mx = s[0][g];
 #pragma unroll
@@ -353,10 +235,8 @@ __global__ void __launch_bounds__(kThreads) attend_decode_kernel(const Args a) {
           float ps = 0.f;
 #pragma unroll
           for (int u = 0; u < kUnroll; ++u) {
-            const float p = in[u] ? expf(s[u][g] - m_new) : 0.f;
-            ps += p;
-            pv[u] = p * vs[u];
-            pvsum += pv[u];
+            pv[u] = in[u] ? expf(s[u][g] - m_new) : 0.f;
+            ps += pv[u];
           }
           corr = expf(m[g] - m_new);
           l[g] = l[g] * corr + ps;
@@ -366,8 +246,7 @@ __global__ void __launch_bounds__(kThreads) attend_decode_kernel(const Args a) {
           for (int u = 0; u < kUnroll; ++u) {
             float p = expf(s[u][g] - mg[g]) / lg[g];
             p = fake_quant(p, a.smo[0], a.smo[1], a.smo_qmin, a.smo_qmax);
-            pv[u] = in[u] ? p * vs[u] : 0.f;
-            pvsum += pv[u];
+            pv[u] = in[u] ? p : 0.f;
           }
         }
         if (emit) {
@@ -376,8 +255,7 @@ __global__ void __launch_bounds__(kThreads) attend_decode_kernel(const Args a) {
             float d = 0.f;
 #pragma unroll
             for (int u = 0; u < kUnroll; ++u) d += pv[u] * vx[u][c];
-            // the reference's order: acc * corr + (p @ V - z_v * sum)
-            acc[g][c] = acc[g][c] * corr + (d - zv * pvsum);
+            acc[g][c] = acc[g][c] * corr + d;   // the reference's order
           }
         }
       }
@@ -418,9 +296,9 @@ __global__ void __launch_bounds__(kThreads) attend_decode_kernel(const Args a) {
         if (g >= G) continue;
         const float scale = two_pass ? 1.f : expf(m[g] - mg[g]);
 #pragma unroll
-        for (int i = 0; i < kWords; ++i) {
-          const int j = quad_of<KV4>(lane, i, hd);
-          if (owns<KV4>(lane, i, hd)) {
+        for (int i = 0; i < NW; ++i) {
+          const int j = lane + 32 * i;
+          if (j < hd / 4) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const float x = acc[g][4 * i + e] * scale;
@@ -440,27 +318,22 @@ __global__ void __launch_bounds__(kThreads) attend_decode_kernel(const Args a) {
   }
 }
 
-template <bool QUANT, bool PAGED, typename KT, int MG, bool KV4>
+template <typename KT, int MG>
 inline void launch_g(const Args& a, dim3 grid, cudaStream_t stream) {
-  if constexpr (KV4)
-    attend_decode_kernel<QUANT, PAGED, KT, MG, 2, true>
-        <<<grid, kThreads, 0, stream>>>(a);
-  else if (a.hd > 128)
-    attend_decode_kernel<QUANT, PAGED, KT, MG, 2>
-        <<<grid, kThreads, 0, stream>>>(a);
+  if (a.hd > 128)
+    attend_decode_kernel<KT, MG, 2><<<grid, kThreads, 0, stream>>>(a);
   else
-    attend_decode_kernel<QUANT, PAGED, KT, MG, 1>
-        <<<grid, kThreads, 0, stream>>>(a);
+    attend_decode_kernel<KT, MG, 1><<<grid, kThreads, 0, stream>>>(a);
 }
 
-template <bool QUANT, bool PAGED, typename KT, bool KV4 = false>
+template <typename KT>
 inline int launch(const Args& a, int batch, void* stream) {
   if (batch > 0 && a.kv > 0) {
     const dim3 grid(a.kv, batch);
     if (a.g <= 2)
-      launch_g<QUANT, PAGED, KT, 2, KV4>(a, grid, (cudaStream_t)stream);
+      launch_g<KT, 2>(a, grid, (cudaStream_t)stream);
     else
-      launch_g<QUANT, PAGED, KT, kMaxG, KV4>(a, grid, (cudaStream_t)stream);
+      launch_g<KT, kMaxG>(a, grid, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

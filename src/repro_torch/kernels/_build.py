@@ -37,11 +37,11 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 # C signatures, in the order of the extern "C" declarations in csrc/.
 SIGNATURES = {
     "norm_quant": {"norm_quant": [_P, _I] + [_P] * 5 + [_I] * 3 + [_F] +
-                   [_I] * 5 + [_P]},
+                   [_I] * 8 + [_P]},
     "peg_quant": {"peg_quant": [_P, _I, _P, _P, _P, _L] + [_I] * 6 + [_P]},
     "int8_matmul": {"int8_matmul": [_P] * 11 + [_I] * 13 + [_P]},
     "int8_attend_decode": {"int8_attend_decode": [_P] * 14 + [_I] * 6 +
-                           [_F] + [_I] * 5 + [_P]},
+                           [_F] + [_I] * 7 + [_P] * 3},
     "paged_attend_decode": {
         "paged_int8_attend_decode": [_P] * 14 + [_I] * 8 + [_F] + [_I] * 7 +
         [_P] * 3,

@@ -15,6 +15,11 @@ repeat its arithmetic in PyTorch and serve CPU tensors and the on-card
 comparison. ``x`` is ``(T, d)`` f32 or bf16, ``gamma`` / ``beta`` ``(d,)``,
 and ``(G,)`` scales / zero-points cover contiguous ``d/G`` column spans
 (G = 1 is per-tensor).
+
+The kernel cuts each row into C column slices, one block each, the C
+blocks of a row one thread-block cluster (:func:`plan_row_split`); a
+block's threads each hold ``nv`` vectors of 8 columns (:func:`row_threads`)
+and the row statistics are exchanged through distributed shared memory.
 """
 from __future__ import annotations
 
@@ -67,6 +72,58 @@ def ln_fake_quant_plain(x, gamma, beta, scale, zp, *, qmin: int, qmax: int,
                         eps=eps, ln=True, emit=False)
 
 
+SMS = 132                # streaming multiprocessors of an H100 SXM
+ROW_VEC = 8              # columns per vector: 16 bytes of bf16, 8 of int8
+MAX_ROW_SPLIT = 16       # Hopper's largest cluster
+MIN_SLICE_COLS = 128     # columns a slice keeps before a row is cut again
+MAX_ROW_THREADS = 512    # the kernel's block limit (csrc/norm_quant.cu)
+
+
+def row_vectorizable(d, groups) -> bool:
+    """Whether rows of ``d`` columns in ``groups`` PEG groups go in whole
+    vectors of ``ROW_VEC`` columns, none straddling two groups."""
+    return d % ROW_VEC == 0 and (d // groups) % ROW_VEC == 0
+
+
+def plan_row_split(rows, d, groups) -> int:
+    """C, the blocks (one cluster) that share a row of K1/K8/K9: the
+    largest power of two up to 16 that keeps ``rows x C`` within about one
+    wave (``SMS`` blocks), gives every block a whole number of vectors
+    (:func:`row_vectorizable`) and at least 128 columns (below that the
+    cluster barrier costs more than the bytes a split spreads). Rows that
+    go in no whole vectors stay whole (C = 1)."""
+    if not row_vectorizable(d, groups):
+        return 1
+    cap = max(1, min(-(-SMS // max(1, rows)), MAX_ROW_SPLIT))
+    split = 1 << (cap.bit_length() - 1)
+    while split > 1 and (d % (split * ROW_VEC) or
+                         d // split < MIN_SLICE_COLS):
+        split //= 2
+    return split
+
+
+def row_split_cols(d, split):
+    """The [first, end) columns of each block of a row, as the kernel cuts
+    them."""
+    return [(r * d // split, (r + 1) * d // split) for r in range(split)]
+
+
+def row_threads(cols, vec, split):
+    """(vectors per thread, threads) of one block over ``cols`` columns in
+    vectors of ``vec``: thread t holds vectors t, t + threads, ...; at most
+    512 threads and 32 / C warps (a warp reads the C x W warp sums of the
+    cluster one per lane), with as few vectors per thread as that allows
+    (1, 2 or 4)."""
+    nvec = -(-cols // vec)
+    max_warps = min(MAX_ROW_THREADS // 32, 32 // split)
+    for nv in (1, 2, 4):
+        warps = -(-nvec // (32 * nv))
+        if warps <= max_warps:
+            return nv, 32 * warps
+    raise ValueError(f"norm_quant kernel: a block of {cols} columns exceeds "
+                     f"{4 * 32 * max_warps} vectors of {vec}")
+
+
 def _launch(what, x, gamma, beta, scale, zp, *, qmin, qmax, eps, ln, emit):
     if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{what}: x must be (T, d) f32/bf16, got "
@@ -83,12 +140,15 @@ def _launch(what, x, gamma, beta, scale, zp, *, qmin, qmax, eps, ln, emit):
         raise ValueError(f"{what}: {s.numel()} groups do not divide d={d}")
     out = torch.empty((t, d), dtype=torch.int8 if emit else x.dtype,
                       device=dev)
-    threads = 256 if d >= 256 else 32 * ((d + 31) // 32)
+    split = plan_row_split(t, d, s.numel())
+    aligned = all(_args.ptr(v) % 16 == 0 for v in (x, g, b, out))
+    vec = ROW_VEC if row_vectorizable(d, s.numel()) and aligned else 1
+    nv, threads = row_threads(d // split, vec, split)
     _build.check(_build.lib("norm_quant").norm_quant(
         x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(),
         _args.ptr(b), s.data_ptr(), z.data_ptr(), out.data_ptr(), t, d,
-        s.numel(), float(eps), qmin, qmax, threads, int(ln), int(emit),
-        _args.stream()), what)
+        s.numel(), float(eps), qmin, qmax, split, threads, nv, vec, int(ln),
+        int(emit), _args.stream()), what)
     return out
 
 

@@ -21,6 +21,12 @@ the plain version unpacks them first, the kernel as it loads each row, and
 everything after the unpack is the 8-bit arithmetic. The wrapper counts
 8-bit launches in ``launches`` and 4-bit ones in ``launches_kv4``. The
 helpers here are shared with the paged kernels (``paged_attend_decode``).
+
+The kernel is split-KV, on the body K6 runs (``csrc/split_attend.cuh``):
+each lane's S cells are cut into contiguous runs (:func:`plan_dense_kv_splits`),
+each run's partial softmax state goes to a per-device workspace that the
+kernel leaves clean, and the runs merge in split order; with
+``softmax_out`` it makes two launches from one C call.
 """
 from __future__ import annotations
 
@@ -31,6 +37,10 @@ from repro_torch.kernels.nibble import unpack_nibbles
 from repro_torch.kernels.ref import decode_valid, site_fake_quant
 
 NEG_INF = -1e30
+SMS = 132                # streaming multiprocessors of an H100 SXM
+MAX_SPLIT_CELLS = 128    # cells a split walks before more splits are cut
+MAX_SPLITS = 32          # the split kernel's limit (csrc/split_attend.cuh)
+SPLIT_UNIT = 16          # dense cells per unit of a split
 
 
 def int8_logits(q_q, q_scale, q_zp, k_zp, k_q, k_scale):
@@ -171,6 +181,47 @@ def window_arg(window) -> int:
     return 0 if window is None else int(window)
 
 
+def plan_dense_kv_splits(batch, kv, s_len):
+    """(splits, cells per split) of K5 for ``batch`` lanes of ``kv`` heads
+    over ``s_len`` dense cells, by the rule of
+    ``paged_attend_decode.plan_kv_splits`` over units of 16 cells (half a
+    cp.async stage, the serving block size): enough splits for the grid to
+    reach one wave (``SMS`` blocks) and for no split to hold more than 128
+    cells, at most one per unit and at most 32; split j owns the cells
+    [j * cps, min(s_len, (j + 1) * cps)), none of them empty."""
+    units = max(1, -(-s_len // SPLIT_UNIT))
+    want = max(-(-SMS // max(1, batch * kv)),
+               -(-s_len // MAX_SPLIT_CELLS))
+    per = max(1, units // max(1, min(want, units)), -(-units // MAX_SPLITS))
+    cps = per * SPLIT_UNIT
+    return max(1, -(-s_len // cps)), cps
+
+
+def dense_split_cells(s_len, splits, cps):
+    """The [first, end) cells of each split, as the kernel cuts them."""
+    return [(j * cps, min(s_len, (j + 1) * cps)) for j in range(splits)]
+
+
+_SCRATCH: dict = {}
+
+
+def split_scratch(device, stream, n_words, n_counters):
+    """The split-KV workspace of K5 and K6 on ``device`` for launches on
+    ``stream``: ``n_words`` f32 words of partials and ``n_counters`` int32
+    arrival counters, zeroed once (the kernels leave them zeroed).
+    Allocated at first use, grown on demand and kept, so a call allocates
+    and clears nothing; the launches of one stream run in order, so K5 and
+    K6 share it."""
+    key = (device, stream)
+    words, counters = _SCRATCH.get(key, (None, None))
+    if words is None or words.numel() < n_words:
+        words = torch.empty(n_words, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
+    _SCRATCH[key] = (words, counters)
+    return words, counters
+
+
 def int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale,
                             v_q, v_scale, k_pos, q_pos, *, window,
                             logit_softcap, sm_quant, sm_qmin, sm_qmax,
@@ -193,13 +244,17 @@ def int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale,
     q_pos = i32(q_pos.reshape(-1), (b,), "q_pos")
     sm, smo = site_args(sm_quant, smo_quant, q_q.device)
     out = torch.empty((b, kv, g, hd), dtype=torch.float32, device=q_q.device)
+    splits, cps = plan_dense_kv_splits(b, kv, s_len)
+    stream = _args.stream()
+    ws, counters = split_scratch(q_q.device, stream,
+                                 b * kv * splits * g * (hd + 2), b * kv)
     p = _args.ptr
     _build.check(_build.lib("int8_attend_decode").int8_attend_decode(
         p(q_q), p(q_scale), p(q_zp), p(k_zp), p(v_zp), p(k_q), p(k_scale),
         p(v_q), p(v_scale), p(k_pos), p(q_pos), p(sm), p(smo), p(out), b, kv,
         g, hd, s_len, window_arg(window), softcap_arg(logit_softcap),
-        sm_qmin, sm_qmax, smo_qmin, smo_qmax, kv_bits, _args.stream()),
-        "int8_attend_decode")
+        sm_qmin, sm_qmax, smo_qmin, smo_qmax, kv_bits, splits, cps, p(ws),
+        p(counters), stream), "int8_attend_decode")
     count_launch(int8_attend_decode_cuda, kv_bits)
     return out
 

@@ -18,10 +18,11 @@ so stale cells of a reused block are never read as valid.
 
 ``*_cuda`` launch ``csrc/paged_attend_decode.cu``; ``*_plain`` gather each
 lane's blocks into a dense view and run the plain softmax of
-``int8_attend_decode``. K6's kernel splits each lane's blocks across
-thread blocks (:func:`plan_kv_splits`) and merges the splits' partial
-softmax states in split order, in a per-device workspace that it leaves
-clean; with ``softmax_out`` it makes two launches from one C call.
+``int8_attend_decode``. K6's kernel, the split-KV body it shares with K5
+(``csrc/split_attend.cuh``), splits each lane's blocks across thread
+blocks (:func:`plan_kv_splits`) and merges the splits' partial softmax
+states in split order, in a per-device workspace that it leaves clean;
+with ``softmax_out`` it makes two launches from one C call.
 """
 from __future__ import annotations
 
@@ -67,10 +68,10 @@ def paged_attend_decode_plain(q, k_arena, v_arena, block_table, q_pos, *,
         smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax)
 
 
-SMS = 132                # streaming multiprocessors of an H100 SXM
-MAX_SPLIT_CELLS = 128    # cells a split walks before more splits are cut
-MAX_SPLITS = 32          # the kernel's limits (csrc/paged_attend_decode.cu)
-MAX_SPLIT_BLOCKS = 256
+SMS = _iad.SMS
+MAX_SPLIT_CELLS = _iad.MAX_SPLIT_CELLS
+MAX_SPLITS = _iad.MAX_SPLITS
+MAX_SPLIT_BLOCKS = 256   # the kernel's table entries a split holds
 
 
 def plan_kv_splits(batch, kv, nb, bs):
@@ -85,24 +86,6 @@ def plan_kv_splits(batch, kv, nb, bs):
         raise ValueError(f"paged_int8_attend_decode: {nb} blocks exceed the "
                          f"kernel's {MAX_SPLITS} x {MAX_SPLIT_BLOCKS}")
     return -(-nb // bps), bps
-
-
-_SCRATCH: dict = {}
-
-
-def _scratch(device, stream, n_words, n_counters):
-    """K6's workspace on ``device`` for launches on ``stream``: ``n_words``
-    f32 words of partials and ``n_counters`` int32 arrival counters, zeroed
-    once (the kernel leaves them zeroed). Allocated at first use, grown on
-    demand and kept, so a call allocates and clears nothing."""
-    key = (device, stream)
-    words, counters = _SCRATCH.get(key, (None, None))
-    if words is None or words.numel() < n_words:
-        words = torch.empty(n_words, dtype=torch.float32, device=device)
-    if counters is None or counters.numel() < n_counters:
-        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
-    _SCRATCH[key] = (words, counters)
-    return words, counters
 
 
 def kv_split_blocks(nb, splits, bps):
@@ -144,8 +127,8 @@ def paged_int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_arena,
     out = torch.empty((b, kv, g, hd), dtype=torch.float32, device=q_q.device)
     splits, bps = plan_kv_splits(b, kv, nb, bs)
     stream = _args.stream()
-    ws, counters = _scratch(q_q.device, stream,
-                            b * kv * splits * g * (hd + 2), b * kv)
+    ws, counters = _iad.split_scratch(q_q.device, stream,
+                                      b * kv * splits * g * (hd + 2), b * kv)
     p = _args.ptr
     _build.check(_build.lib("paged_attend_decode").paged_int8_attend_decode(
         p(q_q), p(q_scale), p(q_zp), p(k_zp), p(v_zp), p(k_arena),

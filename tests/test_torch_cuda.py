@@ -560,3 +560,176 @@ def test_split_workspaces_are_left_clean(gen):
         torch.cuda.synchronize()
         assert_attend_close(got, want, 1 / 255 if site == "softmax_out"
                             else None, v_abs)
+
+
+# -- the row split of K1, K8, K9; K5 on the split-KV body --------------------
+
+NORM_KERNELS = ("rms_quantize", "ln_quantize", "rms_fake_quant",
+                "ln_fake_quant")
+
+
+def _norm_case(gen, kernel, rows, d, g, dtype):
+    x = (torch.randn(rows, d, generator=gen, device="cuda") * 3).to(dtype)
+    gamma = 1 + torch.randn(d, generator=gen, device="cuda") * 0.1
+    beta = torch.randn(d, generator=gen, device="cuda") * 0.1
+    s, z = _grid(gen, g)
+    affine = (gamma, beta) if kernel.startswith("ln") else (gamma,)
+    return (x, *affine, s, z)
+
+
+def _assert_norm_close(kernel, got, want, s, d):
+    """The int8 emit within 1 LSB on at most 0.1 % of elements; a
+    fake-quant output equal but for such flips (one grid step each, plus
+    the rounding of its dtype)."""
+    if kernel.endswith("_quantize"):
+        _assert_lsb(got, want)
+        return
+    assert got.dtype == want.dtype
+    err = (got.float() - want.float()).abs()
+    step = s.repeat_interleave(d // s.numel())[None, :]
+    assert int((err > 0).sum()) <= 1e-3 * err.numel()
+    eps = torch.finfo(got.dtype).eps
+    assert bool((err <= step * 1.01 + want.float().abs() * eps).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("d", [64, 2304, 4096])
+@pytest.mark.parametrize("rows", [1, 4, 64, 4096])
+@pytest.mark.parametrize("kernel", NORM_KERNELS)
+def test_norm_quant_cluster_boundaries(gen, kernel, rows, d, g, dtype):
+    """K1, K8, K9a, K9b at the row split's boundaries: C = 16 for 1 and 4
+    rows at d 2304 and 4096, C = 2 for 64 rows, C = 1 for 4096 rows and at
+    d = 64 (fused_ln_quant.plan_row_split). Against the plain version, and
+    bit-identical over two calls (a fixed exchange order, no atomics)."""
+    args = _norm_case(gen, kernel, rows, d, g, dtype)
+    kw = dict(qmin=-128, qmax=127)
+    cuda = getattr(lnq, kernel + "_cuda")
+    got = [cuda(*args, **kw) for _ in range(2)]
+    want = getattr(lnq, kernel + "_plain")(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_norm_close(kernel, got[0], want, args[-2], d)
+    assert torch.equal(got[0], got[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,d,g", [(4, 602, 1), (64, 1802, 2),
+                                      (3, 80, 4)])
+@pytest.mark.parametrize("kernel", NORM_KERNELS)
+def test_norm_quant_one_column_vectors(gen, kernel, rows, d, g, dtype):
+    """Widths and groups that go in no whole 8-column vectors take the
+    1-column body (C = 1), with 1, 2 and 4 vectors per thread."""
+    args = _norm_case(gen, kernel, rows, d, g, dtype)
+    kw = dict(qmin=-128, qmax=127)
+    got = getattr(lnq, kernel + "_cuda")(*args, **kw)
+    want = getattr(lnq, kernel + "_plain")(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_norm_close(kernel, got, want, args[-2], d)
+
+
+def test_norm_quant_back_to_back_shapes(gen):
+    """Calls of other shapes, splits and dtypes in a row, and an unaligned
+    row view (the 1-column vector path): each equals its plain version and
+    a repeat of the first shape repeats its bits."""
+    kw = dict(qmin=-128, qmax=127)
+    first = None
+    for kernel, rows, d, g, dtype in (
+            ("rms_quantize", 4, 2304, 1, torch.bfloat16),
+            ("rms_quantize", 64, 2304, 4, torch.bfloat16),
+            ("ln_fake_quant", 4096, 4096, 8, torch.float32),
+            ("rms_fake_quant", 1, 2304, 6, torch.bfloat16),
+            ("ln_quantize", 96, 64, 4, torch.float32),
+            ("rms_quantize", 7, 80, 4, torch.float32)):
+        args = _norm_case(gen, kernel, rows, d, g, dtype)
+        got = getattr(lnq, kernel + "_cuda")(*args, **kw)
+        _assert_norm_close(kernel, got,
+                           getattr(lnq, kernel + "_plain")(*args, **kw),
+                           args[-2], d)
+        if first is None:
+            first = (args, got)
+    again = lnq.rms_quantize_cuda(*first[0], **kw)
+    assert torch.equal(again, first[1])
+    x, gamma, s, z = first[0]
+    view = x.new_empty(x.numel() + 1)[1:].view(x.shape)
+    view.copy_(x)                               # rows not 16-byte aligned
+    assert view.data_ptr() % 16 != 0
+    _assert_lsb(lnq.rms_quantize_cuda(view, gamma, s, z, **kw),
+                lnq.rms_quantize_plain(view, gamma, s, z, **kw))
+
+
+def _dense_case(gen, b, s_len, kv, g, hd, site, kv_bits):
+    """A K5 case at the split boundaries: an empty run over a whole split
+    (lane 0), a short lane with an empty prefix (lane 1), an idle lane
+    (lane 2) and a ring that wrapped (lane 3: slot c holds the newest
+    position congruent to c)."""
+    x = _attend_inputs(gen, b, s_len, kv, g, hd, zero_points=site != "none")
+    if kv_bits == 4:
+        x = _kv4(x, gen)
+    splits, cps = iad.plan_dense_kv_splits(b, kv, s_len)
+    cells = torch.arange(s_len, device="cuda", dtype=torch.int32)
+    q_pos = torch.tensor([s_len - 1, s_len // 3, -1, 2 * s_len - 6][:b],
+                         device="cuda", dtype=torch.int32)
+    k_pos = cells.repeat(b, 1)
+    if splits > 2:
+        k_pos[0, cps:2 * cps] = -1
+    k_pos[1, :5] = -1
+    if b > 3:
+        k_pos[3] = q_pos[3] - (q_pos[3] - cells) % s_len
+    args = (x["q_q"], x["q_scale"], x["q_zp"], x["k_zp"], x["v_zp"],
+            x["k_q"], x["k_scale"], x["v_q"], x["v_scale"], k_pos, q_pos)
+    return args, _v4_absmax(x) if kv_bits == 4 else _v_absmax(x)
+
+
+@pytest.mark.parametrize("b,s_len,kv,g,hd,window", [
+    (4, 587, 4, 2, 256, 200), (4, 413, 2, 2, 64, None),
+    (4, 4096, 4, 2, 256, 2048), (3, 40, 2, 2, 16, 16),
+    (4, 16, 4, 2, 256, None), (2, 300, 1, 8, 64, None)])
+@pytest.mark.parametrize("site", list(SITES))
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_int8_attend_decode_splits(gen, b, s_len, kv, g, hd, window, site,
+                                   kv_bits):
+    """K5 and K5-kv4 on the split-KV body at split boundaries (S not a
+    multiple of the split length, one split, 32 splits of 128 cells, G =
+    8), with an empty split, an empty prefix, an idle lane and a wrapped
+    ring: against the plain version, and bit-identical over three calls."""
+    args, v_abs = _dense_case(gen, b, s_len, kv, g, hd, site, kv_bits)
+    kw = dict(window=window, logit_softcap=50.0, kv_bits=kv_bits,
+              **_site_kw(site))
+    got = [iad.int8_attend_decode_cuda(*args, **kw) for _ in range(3)]
+    want = iad.int8_attend_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert_attend_close(got[0], want, 1 / 255 if site == "softmax_out"
+                        else None, v_abs)
+    assert all(torch.equal(x, got[0]) for x in got[1:])
+
+
+def test_dense_split_workspace_is_left_clean(gen):
+    """K5 and K6 share the split-KV workspace and counters of a stream:
+    calls of both, at other shapes and schedules, back to back, each equal
+    to its plain version."""
+    for kind, shape, site, kv_bits in (
+            ("dense", (4, 128, 4, 2, 256, 64), "softmax_out", 8),
+            ("paged", (4, 8, 16, 4, 2, 256, 128, 64), "none", 8),
+            ("dense", (4, 4096, 4, 2, 256, 2048), "none", 4),
+            ("dense", (3, 40, 2, 2, 16, 16), "softmax_out", 4),
+            ("paged", (4, 256, 16, 4, 2, 256, 4096, 2048), "softmax_out", 8),
+            ("dense", (4, 128, 4, 2, 256, 64), "softmax_out", 8)):
+        if kind == "dense":
+            b, s_len, kv, g, hd, window = shape
+            args, v_abs = _dense_case(gen, b, s_len, kv, g, hd, site,
+                                      kv_bits)
+            kw = dict(window=window, logit_softcap=50.0, kv_bits=kv_bits,
+                      **_site_kw(site))
+            got = iad.int8_attend_decode_cuda(*args, **kw)
+            want = iad.int8_attend_decode_plain(*args, **kw)
+        else:
+            b, nb, bs, kv, g, hd, s_cap, window = shape
+            args, v_abs = _paged_case(gen, b, nb, bs, kv, g, hd, s_cap, site,
+                                      kv_bits)
+            kw = dict(s_cap=s_cap, window=window, logit_softcap=50.0,
+                      kv_bits=kv_bits, **_site_kw(site))
+            got = pad.paged_int8_attend_decode_cuda(*args, **kw)
+            want = pad.paged_int8_attend_decode_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert_attend_close(got, want, 1 / 255 if site == "softmax_out"
+                            else None, v_abs)

@@ -1,16 +1,19 @@
-"""The host planners of the split kernels (K3 ``int8_matmul`` split-K, K6
-``paged_int8_attend_decode`` split-KV) and PyTorch models of their merges,
-on the CPU.
+"""The host planners of the split kernels (K3 ``int8_matmul`` split-K, K5
+``int8_attend_decode`` and K6 ``paged_int8_attend_decode`` split-KV) and
+PyTorch models of their merges, on the CPU.
 
-* The planners must cover every K tile and every paged block exactly once,
-  in order, with no empty split; a K split keeps at least two K tiles, and
-  a tile's K splits fit one thread-block cluster (at most 16).
+* The planners must cover every K tile, every dense cell and every paged
+  block exactly once, in order, with no empty split; a K split keeps at
+  least two K tiles, and a tile's K splits fit one thread-block cluster
+  (at most 16); a KV split holds at most 128 cells, and there are at most
+  32.
 * Split-K: the splits' int32 partials, summed, equal the unsplit product
   exactly (8-bit and pairwise-row 4-bit weights).
-* Split-KV: each split's softmax state (m_j, l_j, acc_j) over its blocks,
-  merged in split order the way the kernel merges it (one pass, and the
-  two-pass ``softmax_out`` schedule, where every split quantizes p on the
-  global (m, l)), against ``paged_int8_attend_decode_plain`` with
+* Split-KV: each split's softmax state (m_j, l_j, acc_j) over its blocks
+  (K6) or cells (K5), merged in split order the way the kernel merges it
+  (one pass, and the two-pass ``softmax_out`` schedule, where every split
+  quantizes p on the global (m, l)), against
+  ``paged_int8_attend_decode_plain`` and ``int8_attend_decode_plain`` with
   chip_smoke's bounds: within 1e-5 of max|out|, and with ``softmax_out``
   at most 0.1 % of the rows off, each by at most one step x max|v|.
 
@@ -21,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import int8_attend_decode as iad
 from repro_torch.kernels import int8_matmul as imm
 from repro_torch.kernels import nibble
 from repro_torch.kernels import paged_attend_decode as pad
@@ -73,6 +77,32 @@ def test_kv_split_plan_covers_every_block_once(s_cap, bs, batch, kv):
         or bps == 1
 
 
+@pytest.mark.parametrize("s_len", [1, 16, 40, 128, 300, 413, 587, 4000,
+                                   4096])
+@pytest.mark.parametrize("batch,kv", [(4, 4), (4, 2), (1, 1), (3, 8)])
+def test_dense_kv_split_plan_covers_every_cell_once(s_len, batch, kv):
+    splits, cps = iad.plan_dense_kv_splits(batch, kv, s_len)
+    spans = iad.dense_split_cells(s_len, splits, cps)
+    assert 1 <= splits <= iad.MAX_SPLITS and cps <= iad.MAX_SPLIT_CELLS
+    assert cps % iad.SPLIT_UNIT == 0
+    assert spans[0][0] == 0 and spans[-1][1] == s_len
+    for (a, b), (c, _) in zip(spans, spans[1:]):
+        assert b == c and b - a == cps          # in order, no gap or overlap
+    assert all(b > a for a, b in spans)         # none empty
+    # a wave of blocks, unless the splits are as short as the unit and the
+    # kernel's split limit allow
+    units = -(-s_len // iad.SPLIT_UNIT)
+    assert splits * batch * kv >= iad.SMS or \
+        cps == iad.SPLIT_UNIT * -(-units // iad.MAX_SPLITS)
+
+
+def test_dense_kv_split_plan_serving_shapes():
+    """The full-width dense shapes: 8 splits of 16 cells at S = 128 (the
+    cells K6 cuts at s_cap 128, bs 16), 32 of 128 at the 4096 window."""
+    assert iad.plan_dense_kv_splits(4, 4, 128) == (8, 16)
+    assert iad.plan_dense_kv_splits(4, 4, 4096) == (32, 128)
+
+
 def test_kv_split_plan_serving_shapes():
     """The full-width serving shapes: 8 one-block splits at s_cap 128
     (128 blocks of threads), 32 splits of 8 blocks at the 4096 window."""
@@ -105,31 +135,24 @@ def test_split_k_partials_sum_to_the_product(m, k, n, w_bits):
     assert torch.equal(got, want)
 
 
-def _split_attend(args, *, s_cap, window, logit_softcap, sm_quant, sm_qmin,
-                  sm_qmax, smo_quant, smo_qmin, smo_qmax, kv_bits):
-    """The split-KV kernel's arithmetic in PyTorch: per-split softmax
-    states over runs of paged blocks, merged in split order."""
-    (q_q, q_scale, q_zp, k_zp, v_zp, k_arena, k_scale, v_arena, v_scale,
-     table, q_pos) = args
-    b, kv, g, hd = q_q.shape
-    nb, bs = table.shape[1], k_arena.shape[1]
-    k, v = kv_values(paged_gather_ref(k_arena, table),
-                     paged_gather_ref(v_arena, table), hd, kv_bits)
-    vs = paged_gather_ref(v_scale, table).float().permute(0, 2, 1)[:, :,
-                                                                   None]
-    s = int8_logits(q_q, q_scale, q_zp, k_zp, k,
-                    paged_gather_ref(k_scale, table))
+def _masked_logits(q_q, q_scale, q_zp, k_zp, k, k_scale, valid, *,
+                   logit_softcap, sm_quant, sm_qmin, sm_qmax):
+    s = int8_logits(q_q, q_scale, q_zp, k_zp, k, k_scale)
     if logit_softcap is not None:
         s = logit_softcap * torch.tanh(s / logit_softcap)
     if sm_quant is not None:
         s = site_fake_quant(s, sm_quant, sm_qmin, sm_qmax)
-    kp = paged_positions_ref(table, q_pos, s_cap=s_cap, block_size=bs)
-    s = torch.where(decode_valid(kp, q_pos, window)[:, None, None, :], s,
-                    NEG_INF)
+    return torch.where(valid[:, None, None, :], s, NEG_INF)
+
+
+def _merge_splits(s, v, v_scale, v_zp, cells, *, smo_quant, smo_qmin,
+                  smo_qmax):
+    """The split-KV kernels' arithmetic on masked logits s (B, KV, G, S):
+    each split's softmax state over its cells, merged in split order."""
+    b, kv, g, _ = s.shape
+    hd = v.shape[-1]
+    vs = v_scale.float().permute(0, 2, 1)[:, :, None]
     zv = v_zp.float()[:, :, None, None]
-    splits, bps = pad.plan_kv_splits(b, kv, nb, bs)
-    cells = [slice(a * bs, e * bs)
-             for a, e in pad.kv_split_blocks(nb, splits, bps)]
 
     def partial(p, c):                       # sum p v_s v - z_v sum p v_s
         pv = p * vs[..., c]
@@ -157,6 +180,51 @@ def _split_attend(args, *, s_cap, window, logit_softcap, sm_quant, sm_qmin,
                                 smo_qmin, smo_qmax)
             out = out + partial(p, c)
     return out if smo_quant is not None else out / l
+
+
+def _split_attend(args, *, s_cap, window, logit_softcap, sm_quant, sm_qmin,
+                  sm_qmax, smo_quant, smo_qmin, smo_qmax, kv_bits):
+    """K6's split-KV arithmetic in PyTorch: per-split softmax states over
+    runs of paged blocks, merged in split order."""
+    (q_q, q_scale, q_zp, k_zp, v_zp, k_arena, k_scale, v_arena, v_scale,
+     table, q_pos) = args
+    b, kv, g, hd = q_q.shape
+    nb, bs = table.shape[1], k_arena.shape[1]
+    k, v = kv_values(paged_gather_ref(k_arena, table),
+                     paged_gather_ref(v_arena, table), hd, kv_bits)
+    kp = paged_positions_ref(table, q_pos, s_cap=s_cap, block_size=bs)
+    s = _masked_logits(q_q, q_scale, q_zp, k_zp, k,
+                       paged_gather_ref(k_scale, table),
+                       decode_valid(kp, q_pos, window),
+                       logit_softcap=logit_softcap, sm_quant=sm_quant,
+                       sm_qmin=sm_qmin, sm_qmax=sm_qmax)
+    splits, bps = pad.plan_kv_splits(b, kv, nb, bs)
+    cells = [slice(a * bs, e * bs)
+             for a, e in pad.kv_split_blocks(nb, splits, bps)]
+    return _merge_splits(s, v, paged_gather_ref(v_scale, table), v_zp,
+                         cells, smo_quant=smo_quant, smo_qmin=smo_qmin,
+                         smo_qmax=smo_qmax)
+
+
+def _dense_split_attend(args, *, window, logit_softcap, sm_quant, sm_qmin,
+                        sm_qmax, smo_quant, smo_qmin, smo_qmax, kv_bits):
+    """K5's split-KV arithmetic in PyTorch: per-split softmax states over
+    runs of dense cells, valid by their stored positions, merged in split
+    order."""
+    (q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale, v_q, v_scale, k_pos,
+     q_pos) = args
+    b, kv, g, hd = q_q.shape
+    s_len = k_pos.shape[1]
+    k, v = kv_values(k_q, v_q, hd, kv_bits)
+    s = _masked_logits(q_q, q_scale, q_zp, k_zp, k, k_scale,
+                       decode_valid(k_pos, q_pos, window),
+                       logit_softcap=logit_softcap, sm_quant=sm_quant,
+                       sm_qmin=sm_qmin, sm_qmax=sm_qmax)
+    splits, cps = iad.plan_dense_kv_splits(b, kv, s_len)
+    cells = [slice(a, e) for a, e in iad.dense_split_cells(s_len, splits,
+                                                           cps)]
+    return _merge_splits(s, v, v_scale, v_zp, cells, smo_quant=smo_quant,
+                         smo_qmin=smo_qmin, smo_qmax=smo_qmax)
 
 
 def _attend_check(got, want, smo_step, v_absmax):
@@ -223,6 +291,63 @@ def test_split_kv_merge_matches_plain(b, kv, g, hd, bs, s_cap, window,
         kw["smo_quant"] = torch.tensor([1 / 255, 0.0])
     want = pad.paged_int8_attend_decode_plain(*args, **kw)
     got = _split_attend(args, **kw)
+    v_max = 8 if kv_bits == 4 else 127
+    v_absmax = float((v_max + v_zp.abs().max()) * v_s.max())
+    _attend_check(got, want, 1 / 255 if site == "softmax_out" else None,
+                  v_absmax)
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4])
+@pytest.mark.parametrize("site", ["none", "softmax_in", "softmax_out"])
+@pytest.mark.parametrize("b,kv,g,hd,s_len,window", [
+    (4, 2, 2, 16, 587, 200), (4, 2, 2, 16, 413, None),
+    (4, 1, 4, 32, 128, 64), (4, 4, 2, 16, 4096, 2048)])
+def test_dense_split_kv_merge_matches_plain(b, kv, g, hd, s_len, window,
+                                            site, kv_bits):
+    """K5: an empty run over a whole split (lane 0), a short lane with an
+    empty prefix (lane 1), an idle lane (lane 2), a ring that wrapped
+    (lane 3: slot c holds the newest position congruent to c), S both a
+    multiple and not a multiple of the split length."""
+    rng = np.random.default_rng(s_len + kv_bits + g)
+    splits, cps = iad.plan_dense_kv_splits(b, kv, s_len)
+    cells = torch.arange(s_len, dtype=torch.int32)
+    q_pos = torch.tensor([s_len - 1, s_len // 3, -1, 2 * s_len - 6],
+                         dtype=torch.int32)
+    k_pos = cells.repeat(b, 1)
+    if splits > 2:
+        k_pos[0, cps:2 * cps] = -1              # a whole split empty
+    k_pos[1, :5] = -1                           # an empty prefix
+    k_pos[3] = q_pos[3] - (q_pos[3] - cells) % s_len
+
+    def f32(lo, hi, *shape):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(
+            np.float32))
+
+    def zp(*shape):
+        lim = 3 if kv_bits == 4 else 20
+        return torch.round(f32(-lim, lim, *shape)) if site != "none" else \
+            torch.zeros(shape)
+    lo, hi = (-8, 8) if kv_bits == 4 else (-127, 128)
+
+    def payload():
+        x = torch.from_numpy(rng.integers(lo, hi, (b, s_len, kv, hd),
+                                          dtype=np.int8))
+        return nibble.pack_nibbles(x) if kv_bits == 4 else x
+    v_s, v_zp = f32(0.01, 0.05, b, s_len, kv), zp(b, kv)
+    args = (torch.from_numpy(rng.integers(-127, 128, (b, kv, g, hd),
+                                          dtype=np.int8)),
+            f32(0.01, 0.03, b, kv, g) / 16, zp(b, kv, g), zp(b, kv), v_zp,
+            payload(), f32(0.01, 0.05, b, s_len, kv), payload(), v_s, k_pos,
+            q_pos)
+    kw = dict(window=window, logit_softcap=50.0, sm_quant=None, sm_qmin=0,
+              sm_qmax=255, smo_quant=None, smo_qmin=0, smo_qmax=255,
+              kv_bits=kv_bits)
+    if site != "none":
+        kw["sm_quant"] = torch.tensor([0.05, 128.0])
+    if site == "softmax_out":
+        kw["smo_quant"] = torch.tensor([1 / 255, 0.0])
+    want = iad.int8_attend_decode_plain(*args, **kw)
+    got = _dense_split_attend(args, **kw)
     v_max = 8 if kv_bits == 4 else 127
     v_absmax = float((v_max + v_zp.abs().max()) * v_s.max())
     _attend_check(got, want, 1 / 255 if site == "softmax_out" else None,
