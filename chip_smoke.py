@@ -18,13 +18,18 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              PyTorch library call computing the same function (CUDA events,
              L2 flushed before every launch). K3 is represented by its
              decode-step shape (4,2304)x(2304,2048), with ``torch._int_mm``
-             on A zero-padded to 32 rows as its decode-row yardstick; K3's,
+             on A zero-padded to 32 rows as its decode-row yardstick; K4's
+             and K10's per-tensor rows have ``torch.quantize_per_tensor`` /
+             ``torch.fake_quantize_per_tensor_affine`` beside them; K3's,
              K5's and K6's lines print their split count and achieved GB/s,
-             K1's and K8/K9's their row split C (blocks per row, one
-             cluster) and blocks and GB/s; K5 and K6 add cases at their
-             split boundaries (cells or blocks not a multiple of the split
-             length, bs 8, an empty run or hole over a whole split, an idle
-             lane, a ring that wrapped).
+             K2's its runs per PEG group x groups per cluster, K1's and
+             K8/K9's their row split C (blocks per row, one cluster) and
+             blocks and GB/s; K5 and K6 add cases at their split boundaries
+             (cells or blocks not a multiple of the split length, bs 8, an
+             empty run or hole over a whole split, an idle lane, a ring
+             that wrapped), and K5 / K6 emitting the int8 ``wo`` input from
+             their merge must equal K4 on their f32 output bit for bit
+             (timed beside that unfused pair).
 3. full    — serve gemma2-2b at full width (26 layers, d 2304, bf16) through
              ``repro_torch.launch.serve.main`` with W8A8 PTQ + the integer
              deploy path, static scheduler; the K1/K3/K4 launch counters
@@ -37,17 +42,21 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              (int8 paged KV cache, continuous batching, chunked prefill,
              block size 16, max_len 128): K1/K3/K4 and the attention
              kernels K5 (the ``[kv-int8]`` check) and K6 (every decode)
-             must move.
+             must move, both with their fused int8 emit; the profiled
+             decode step must launch K6's emit and no K4 (K4 keeps the
+             prefill and chunk rows).
 6. reduced quickstart — exactly the README command with ``--parity``:
-             K1-K6 must move, ``[kv-int8]`` <= 1e-4, the three parity lines
-             must print and the serve line must show the reference's
-             counts (36 tokens, 10 decode steps, 6 prefills, blocks 16/32,
-             6 chunk steps).
+             K1-K6 and the emits must move (no K4 in the profiled decode
+             step), ``[kv-int8]`` <= 1e-4, the three parity lines must
+             print and the serve line must show the reference's counts
+             (36 tokens, 10 decode steps, 6 prefills, blocks 16/32, 6 chunk
+             steps).
 7. reduced paged kv16 — the same command with ``--kv-bits 16``: K7 must
              move and the parity lines must print.
 8. full quickstart 4-bit — phase 5 with ``--weight-bits 4 --kv-bits 4``:
              K1, K3-w4 (the q4 attention projections), K4, K5-kv4 (the
-             ``[kv-int4]`` check) and K6-kv4 (every decode) must move; the
+             ``[kv-int4]`` check) and K6-kv4 (every decode) must move, with
+             the emits as in phase 5; the
              q4 payload count, the packed-weight bytes, the ``[kv-int4]``
              lines and the peak KV-cache bytes beside phase 5's print.
 9. reduced quickstart 4-bit — phase 6 with the same flags: K2-w4 must move
@@ -62,14 +71,20 @@ Phases (any failure ends the run with a non-zero exit before the last line):
 In every serving phase every request must get its tokens. The reduced
 runs' integer-path logits must match the fake-quant path they replace
 within 1e-4 of max|logits| (the launcher's ``[deploy-int8]`` line); the
-full-width gaps are printed only, since there the fake-quant path computes
-in bf16 (and the bf16 KV cache of the ``[kv-int8]`` reference rounds K/V
-that the int8 cache stores on the calibrated grid exactly).
+full-width gaps are printed only: there the fake-quant path computes in
+bf16 (and the bf16 KV cache of the ``[kv-int8]`` reference rounds K/V that
+the int8 cache stores on the calibrated grid exactly), and even in f32
+values on rounding ties move single grid steps, which 26 layers amplify
+(``--f32-parity`` below).
 
 ``--ptxas`` first prints nvcc's ``-Xptxas -v`` report (registers, shared
-memory, spills) of the split kernels' sources. Prints the card
-(``nvidia-smi`` name and power limit), one JSON line with
-every kernel's numbers, and as the last line
+memory, spills) of the split kernels' sources. ``--f32-parity`` first runs
+the full-width quickstart's startup checks (``[deploy-int8]``,
+``[kv-int8]``, ``[kv-int4]``) and ``--parity`` with f32 params at W8 / kv8
+and W4 / kv4, with a layer-by-layer bisect of the integer path against
+the fake-quant path (``f32_parity_phase``), printed, not bounded. Prints
+the card (``nvidia-smi`` name and power limit), one JSON line with every
+kernel's numbers, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a result when no CUDA device is available or when the
 port's sources are not next to this script.
@@ -118,7 +133,12 @@ KERNELS = {
     "ln_quantize": ("norm_quant.cu", "fused_ln_quant.py:93"),
     "rms_fake_quant": ("norm_quant.cu", "fused_ln_quant.py:102"),
     "ln_fake_quant": ("norm_quant.cu", "fused_ln_quant.py:84"),
-    "peg_fake_quant": ("peg_quant.cu", "peg_quant.py:38")}
+    "peg_fake_quant": ("peg_quant.cu", "peg_quant.py:38"),
+    # K5 / K6 (kv 8 and 4) emitting the int8 wo input from their merge:
+    # the K4 quantize folded in, counted apart from K4's own launches
+    "int8_attend_decode_emit": ("int8_attend_decode.cu", "peg_quant.py:67"),
+    "paged_int8_attend_decode_emit": ("paged_attend_decode.cu",
+                                      "peg_quant.py:67")}
 
 
 # the port's kernel names in a profiler trace
@@ -181,6 +201,16 @@ def split_note(splits, nbytes, ms):
     return f"  {splits} splits, {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s"
 
 
+def peg_note(m, n, k, groups, nbytes, ms):
+    """K2's split plan (runs per PEG group x groups per cluster, blocks)
+    and the achieved rate of the bytes the bound counts."""
+    from repro_torch.kernels import int8_matmul as imm
+    bm, bn, runs, per_cluster = imm.plan_peg_splits(m, n, k, groups)
+    blocks = -(-m // bm) * -(-n // bn) * runs * per_cluster
+    return (f"  {runs} x {per_cluster} splits, {blocks} blocks, "
+            f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+
+
 def row_note(rows, d, groups, nbytes, ms):
     """The row split C of the norm kernels (blocks per row, one cluster),
     their blocks and the achieved rate of the bytes the bound counts."""
@@ -188,6 +218,17 @@ def row_note(rows, d, groups, nbytes, ms):
     split = lnq.plan_row_split(rows, d, groups)
     return (f"  C {split}, {rows * split} blocks, "
             f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+
+
+def torch_yardstick(library, got, flush):
+    """(time, note) of one PyTorch call computing a per-tensor quantize
+    (``torch.quantize_per_tensor`` / ``torch.fake_quantize_per_tensor_affine``,
+    which multiply by the reciprocal of the scale where the kernels divide,
+    so some elements may differ: counted in the note, not required
+    equal)."""
+    off = int((library().float() != got.float()).sum())
+    return (time_ms(library, flush),
+            f"  library differs on {off} of {got.numel()} elements")
 
 
 def int_mm_yardstick(a, w, s_a, z_a, s_w, cs, want, flush):
@@ -274,21 +315,31 @@ def kernel_phase():
                    rows == B * T and g == 1,
                    row_note(rows, D, g, nbytes, ms))
 
-    # K4 peg_quantize: the wo input (B*T and B rows, 2048 wide, f32)
-    for rows in (B * T, B):
-        x = randn(rows, Q_OUT)
-        s = uniform(1, 0.01, 0.03)
-        z = torch.round(uniform(1, -10, 10))
+    # K4 peg_quantize: the wo input at prefill rows (B*T; decode rows fold
+    # it into K5/K6, emit_cases) and B rows, 2048 wide, f32; and bf16 rows
+    # in 4 groups (the 16-byte bf16 vectors)
+    for rows, d, dtype, g in ((B * T, Q_OUT, torch.float32, 1),
+                              (B, Q_OUT, torch.float32, 1),
+                              (B * T, D, torch.bfloat16, 4)):
+        x = randn(rows, d, dtype=dtype)
+        s = uniform(g, 0.01, 0.03)
+        z = torch.round(uniform(g, -10, 10))
         kw = dict(qmin=-128, qmax=127)
         got = pq.peg_quantize_cuda(x, s, z, **kw)
         want = pq.peg_quantize_plain(x, s, z, **kw)
-        require(torch.equal(got, want),
-                f"peg_quantize ({rows},{Q_OUT}) not bit-exact")
+        shape = f"x ({rows},{d}) {str(dtype)[6:]} G={g}"
+        require(torch.equal(got, want), f"peg_quantize {shape} not "
+                f"bit-exact")
         ms = time_ms(lambda: pq.peg_quantize_cuda(x, s, z, **kw), flush)
         p_ms = time_ms(lambda: pq.peg_quantize_plain(x, s, z, **kw), flush)
-        record("peg_quantize", f"x ({rows},{Q_OUT}) f32 G=1", 0.0, ms, p_ms,
-               None, rows * Q_OUT * 5 + 8, 4 * rows * Q_OUT,
-               PEAK_F32_OPS_PER_S, rows == B * T)
+        lib_ms, note = None, ""
+        if g == 1:
+            lib_ms, note = torch_yardstick(
+                lambda: torch.quantize_per_tensor(
+                    x, float(s), int(z), torch.qint8).int_repr(), got, flush)
+        record("peg_quantize", shape, 0.0, ms, p_ms, lib_ms,
+               rows * d * (x.element_size() + 1) + 8 * g, 4 * rows * d,
+               PEAK_F32_OPS_PER_S, rows == B * T and g == 1, note)
 
     # K3 int8_matmul: wq, wk/wv, wo, w_out at prefill (B*T) and decode (B)
     for k, n in ((D, Q_OUT), (D, KV_OUT), (Q_OUT, D), (FF, D)):
@@ -316,43 +367,45 @@ def kernel_phase():
                    split_note(imm.plan_k_splits(m, n, k)[2], nbytes, ms))
 
     # K2 int8_matmul_peg: w_up (f32 out) and w_gate (gelu * up -> int8),
-    # 576-wide (G=4) and 384-wide (G=6) groups
-    for g in (4, 6):
-        for m in (B * T, B):
-            a = randint8(m, D)
-            w = randint8(D, FF, lo=-127)
-            cs = w_colsum_groups(w, g)
-            sg = uniform(g, 0.01, 0.05)
-            zg = torch.round(uniform(g, -20, 20))
-            s_w = uniform(1, 0.001, 0.01)
-            up = randn(m, FF)
-            for requant in (False, True):
-                kw = (dict(activation="gelu", mul=up, out_scale=uniform(
-                    1, 0.02, 0.04), out_zp=torch.round(uniform(1, -5, 5)))
-                      if requant else {})
-                got = imm.int8_matmul_peg_cuda(a, w, sg, zg, s_w, cs, **kw)
-                want = imm.int8_matmul_peg_plain(a, w, sg, zg, s_w, cs, **kw)
-                if requant:
-                    worst, flips = lsb_flips(got, want)
-                    require(worst <= 1 and flips <= 1e-3 * got.numel(),
-                            f"int8_matmul_peg G={g} requant: {flips} flips,"
-                            f" worst {worst} LSB")
-                    err = float(worst)
-                else:
-                    err = float((got - want).abs().max())
-                    require(err <= 1e-5 * float(want.abs().max()),
-                            f"int8_matmul_peg G={g}: max err {err}")
-                ms = time_ms(lambda: imm.int8_matmul_peg_cuda(
-                    a, w, sg, zg, s_w, cs, **kw), flush)
-                p_ms = time_ms(lambda: imm.int8_matmul_peg_plain(
-                    a, w, sg, zg, s_w, cs, **kw), flush)
-                nbytes = (m * D + D * FF + g * FF * 4 + 2 * g * 4 +
-                          (m * FF * (4 + 1) if requant else m * FF * 4))
-                out = "gelu*mul->int8" if requant else "f32 out"
-                record("int8_matmul_peg", f"({m},{D})x({D},{FF}) G={g} {out}",
-                       err, ms, p_ms, None, nbytes, 2 * m * FF * D,
-                       PEAK_INT8_OPS_PER_S,
-                       m == B * T and g == 4 and not requant)
+    # 576-wide (G=4) and 384-wide (G=6) groups, and the reduced width's
+    # 4 x 16 groups at the quickstart's decode rows
+    for m, k, n, g in ((B * T, D, FF, 4), (B, D, FF, 4), (B * T, D, FF, 6),
+                       (B, D, FF, 6), (2 * B, 64, 128, 4)):
+        a = randint8(m, k)
+        w = randint8(k, n, lo=-127)
+        cs = w_colsum_groups(w, g)
+        sg = uniform(g, 0.01, 0.05)
+        zg = torch.round(uniform(g, -20, 20))
+        s_w = uniform(1, 0.001, 0.01)
+        up = randn(m, n)
+        for requant in (False, True):
+            kw = (dict(activation="gelu", mul=up, out_scale=uniform(
+                1, 0.02, 0.04), out_zp=torch.round(uniform(1, -5, 5)))
+                  if requant else {})
+            got = imm.int8_matmul_peg_cuda(a, w, sg, zg, s_w, cs, **kw)
+            want = imm.int8_matmul_peg_plain(a, w, sg, zg, s_w, cs, **kw)
+            if requant:
+                worst, flips = lsb_flips(got, want)
+                require(worst <= 1 and flips <= 1e-3 * got.numel(),
+                        f"int8_matmul_peg G={g} requant: {flips} flips,"
+                        f" worst {worst} LSB")
+                err = float(worst)
+            else:
+                err = float((got - want).abs().max())
+                require(err <= 1e-5 * float(want.abs().max()),
+                        f"int8_matmul_peg G={g}: max err {err}")
+            ms = time_ms(lambda: imm.int8_matmul_peg_cuda(
+                a, w, sg, zg, s_w, cs, **kw), flush)
+            p_ms = time_ms(lambda: imm.int8_matmul_peg_plain(
+                a, w, sg, zg, s_w, cs, **kw), flush)
+            nbytes = (m * k + k * n + g * n * 4 + 2 * g * 4 +
+                      (m * n * (4 + 1) if requant else m * n * 4))
+            out = "gelu*mul->int8" if requant else "f32 out"
+            record("int8_matmul_peg", f"({m},{k})x({k},{n}) G={g} {out}",
+                   err, ms, p_ms, None, nbytes, 2 * m * n * k,
+                   PEAK_INT8_OPS_PER_S,
+                   (m, k, g) == (B * T, D, 4) and not requant,
+                   peg_note(m, n, k, g, nbytes, ms))
     w4_cases(gen, flush, record, randint8, uniform, randn)
     norm_cases(gen, flush, record, uniform, randn)
     attend_cases(gen, flush, record)
@@ -436,7 +489,8 @@ def w4_cases(gen, flush, record, randint8, uniform, randn):
             record("int8_matmul_peg_w4",
                    f"({m},{k})x({k}/2,{n}) int4 G={g} {out}", err, ms, p_ms,
                    None, nbytes, 2 * m * n * k, PEAK_INT8_OPS_PER_S,
-                   (m, k) == (B * T, D) and not requant)
+                   (m, k) == (B * T, D) and not requant,
+                   peg_note(m, n, k, g, nbytes, ms))
 
 
 def norm_cases(gen, flush, record, uniform, randn):
@@ -507,9 +561,14 @@ def norm_cases(gen, flush, record, uniform, randn):
                          flush)
             p_ms = time_ms(lambda: pq.peg_fake_quant_plain(x, s, z, **kw),
                            flush)
-            record("peg_fake_quant", shape, 0.0, ms, p_ms, None,
+            lib_ms, note = None, ""
+            if g == 1:
+                lib_ms, note = torch_yardstick(
+                    lambda: torch.fake_quantize_per_tensor_affine(
+                        x, float(s), int(z), -128, 127), got, flush)
+            record("peg_fake_quant", shape, 0.0, ms, p_ms, lib_ms,
                    rows * d * 2 * el + 2 * g * 4, 6 * rows * d,
-                   PEAK_F32_OPS_PER_S, rep)
+                   PEAK_F32_OPS_PER_S, rep, note)
 
 
 SITES = {"no sites": {},
@@ -800,6 +859,141 @@ def attend_cases(gen, flush, record):
                 pad.plan_kv_splits(b, kv, cols.shape[1], bs)[0])
     k6_split_cases(gen, ri, ru, site_kw, measure)
     k5_split_cases(gen, ri, ru, site_kw, measure)
+    emit_cases(gen, flush, record, ri, ru, site_kw)
+
+
+def emit_cases(gen, flush, record, ri, ru, site_kw):
+    """K6 and K5 (kv 8 and 4) emitting the int8 input of the output
+    projection from their merge, at the full-width decode shapes: one and
+    two passes, holes and an idle lane, the split boundaries of
+    ``k6_split_cases`` / ``k5_split_cases``. The emit must equal K4's
+    kernel on the same call's f32 output bit for bit; that f32 output must
+    pass ``attend_check`` against the plain version, and the emit may
+    differ from the plain emit (the plain attention, then
+    ``peg_quantize_plain``) by 1 LSB plus that bound in steps of the
+    output grid. Times the emitting call beside the unfused pair (the f32
+    call, then K4)."""
+    import torch
+    from repro_torch.kernels import int8_attend_decode as iad
+    from repro_torch.kernels import paged_attend_decode as pad
+    from repro_torch.kernels import peg_quant as pq
+    from repro_torch.kernels.nibble import pack_nibbles
+    from repro_torch.kernels.ref import decode_valid, paged_positions_ref
+    dev = torch.device("cuda")
+    b, kv, g, hd = 4, ATT_KV, ATT_G, ATT_HD
+    q8 = dict(qmin=-128, qmax=127)
+
+    def operands(cells, kv_bits):
+        """Payloads, scales and zero-points over ``cells`` (a shape)."""
+        if kv_bits == 4:
+            k, v = (pack_nibbles(torch.randint(
+                -8, 8, (*cells, kv, hd), generator=gen, device=dev,
+                dtype=torch.int8)) for _ in range(2))
+            zk, zv = (torch.round(ru(-3, 3, b, kv)) for _ in range(2))
+            v_s = ru(0.1, 0.5, *cells, kv)
+            v_abs = float((8 + zv.abs().max()) * v_s.max())
+        else:
+            k, v = ri(*cells, kv, hd), ri(*cells, kv, hd)
+            zk, zv = (torch.round(ru(-20, 20, b, kv)) for _ in range(2))
+            v_s = ru(0.01, 0.05, *cells, kv)
+            v_abs = float((v.float().abs().max() + zv.abs().max())
+                          * v_s.max())
+        return (ri(b, kv, g, hd), ru(0.01, 0.03, b, kv, g) / 16,
+                torch.round(ru(-20, 20, b, kv, g)), zk, zv, k,
+                ru(0.01, 0.05, *cells, kv), v, v_s), v_abs
+
+    for name, kv_bits, shape, site, variant in (
+            ("paged", 8, (128, 64), "two-pass", ""),
+            ("paged", 4, (128, 64), "two-pass", ""),
+            ("paged", 8, (128, 64), "softmax_in", ""),
+            ("paged", 8, (128, 64), "two-pass", "holes+idle"),
+            ("paged", 4, (587, 200), "two-pass", "split boundaries"),
+            ("dense", 8, (128, 64), "two-pass", ""),
+            ("dense", 4, (128, 64), "two-pass", ""),
+            ("dense", 8, (587, 200), "two-pass", "split boundaries")):
+        s_len, window = shape
+        site_name = {"two-pass": "two-pass softmax_out + zero-points",
+                     "softmax_in": "softmax_in + zero-points"}[site]
+        if name == "paged":
+            bs = 16
+            nb = -(-s_len // bs)
+            n_blocks = b * nb + 5
+            table = torch.randperm(n_blocks, generator=gen, device=dev)[
+                :b * nb].reshape(b, nb).to(torch.int32)
+            q_pos = torch.full((b,), s_len - 1, device=dev,
+                               dtype=torch.int32)
+            if variant:       # unmapped runs, a short lane, an idle one
+                _, bps = pad.plan_kv_splits(b, kv, nb, bs)
+                table[0, bps:2 * bps] = -1
+                table[1, nb - 1:] = -1
+                q_pos[1], q_pos[3] = s_len // 3, -1
+            ops_, v_abs = operands((n_blocks, bs), kv_bits)
+            args = (*ops_, table, q_pos)
+            valid = decode_valid(paged_positions_ref(
+                table, q_pos, s_cap=s_len, block_size=bs), q_pos, window)
+            kw = dict(s_cap=s_len, window=window, logit_softcap=50.0,
+                      kv_bits=kv_bits, **site_kw(site_name))
+            fn, plain = (pad.paged_int8_attend_decode_cuda,
+                         pad.paged_int8_attend_decode_plain)
+            meta = table.numel() * 4 + b * 4
+            case, kname = f"bs{bs} s_cap{s_len}", "K6"
+        else:
+            k_pos = torch.arange(s_len, device=dev, dtype=torch.int32
+                                 ).repeat(b, 1)
+            q_pos = torch.full((b,), s_len - 1, device=dev,
+                               dtype=torch.int32)
+            if variant:       # an empty split, a short lane, an idle one
+                _, cps = iad.plan_dense_kv_splits(b, kv, s_len)
+                k_pos[0, cps:2 * cps] = -1
+                q_pos[1], q_pos[2] = s_len // 3, -1
+            ops_, v_abs = operands((b, s_len), kv_bits)
+            args = (*ops_, k_pos, q_pos)
+            valid = decode_valid(k_pos, q_pos, window)
+            kw = dict(window=window, logit_softcap=50.0, kv_bits=kv_bits,
+                      **site_kw(site_name))
+            fn, plain = (iad.int8_attend_decode_cuda,
+                         iad.int8_attend_decode_plain)
+            meta = b * s_len * 4 + b * 4
+            case, kname = f"S{s_len}", "K5"
+        f = fn(*args, **kw)
+        f_plain = plain(*args, **kw)
+        torch.cuda.synchronize()
+        smo = kw["smo_quant"]
+        f_bound = (1e-5 * float(f_plain.abs().max()) if smo is None
+                   else float(smo[0]) * v_abs)
+        attend_check(f, f_plain, None if smo is None else float(smo[0]),
+                     v_abs)
+        s_o = torch.tensor([float(f.abs().max()) / 100], device=dev)
+        z_o = torch.round(ru(-5, 5, 1))
+        ekw = dict(kw, out_scale=s_o, out_zp=z_o, **q8)
+        got = fn(*args, **ekw)
+        pair = pq.peg_quantize_cuda(f.reshape(b, -1), s_o, z_o, **q8)
+        want = plain(*args, **ekw)
+        torch.cuda.synchronize()
+        label = (f"{kname}{'-kv4' if kv_bits == 4 else ''} B{b} KV{kv}xG{g} hd{hd} "
+                 f"{case} w{window}{' ' + variant if variant else ''}, "
+                 f"{site}")
+        require(got.dtype == torch.int8 and torch.equal(got, pair),
+                f"{label} emit: not K4's bytes on its f32 output")
+        worst, _ = lsb_flips(got, want)
+        require(worst <= 1 + f_bound / float(s_o),
+                f"{label} emit: {worst} LSB off the plain emit")
+        ms = time_ms(lambda: fn(*args, **ekw), flush)
+        pair_ms = time_ms(lambda: pq.peg_quantize_cuda(
+            fn(*args, **kw).reshape(b, -1), s_o, z_o, **q8), flush)
+        p_ms = time_ms(lambda: plain(*args, **ekw), flush)
+        n_valid = int(valid.sum())
+        payload = (hd if kv_bits == 4 else 2 * hd) + 8
+        nbytes = (n_valid * kv * payload + meta + b * kv * g * (hd + 8)
+                  + b * kv * 8 + b * kv * g * hd + 8)
+        macs = n_valid * kv * g * hd
+        record(fn.__name__[:-len("_cuda")] + "_emit", label, float(worst),
+               ms, p_ms, None, nbytes,
+               [2 * macs, 2 * macs], [PEAK_INT8_OPS_PER_S,
+                                      PEAK_F32_OPS_PER_S],
+               kv_bits == 8 and s_len == 128 and not variant
+               and site == "two-pass",
+               f"  unfused f32 call + K4 {pair_ms:.4f} ms")
 
 
 def k6_split_cases(gen, ri, ru, site_kw, measure):
@@ -920,7 +1114,8 @@ def k5_split_cases(gen, ri, ru, site_kw, measure):
 
 def _counters():
     """{kernel name: (wrapper, launch-count attribute)}; a 4-bit variant
-    is counted on its own attribute of the 8-bit kernel's wrapper."""
+    is counted on its own attribute of the 8-bit kernel's wrapper, and so
+    are K5's and K6's launches that emit int8 (either bit width)."""
     from repro_torch.kernels import fused_ln_quant as lnq
     from repro_torch.kernels import int8_attend_decode as iad
     from repro_torch.kernels import int8_matmul as imm
@@ -936,7 +1131,9 @@ def _counters():
     for name, attr in (("int8_matmul", "launches_w4"),
                        ("int8_matmul_peg", "launches_w4"),
                        ("int8_attend_decode", "launches_kv4"),
-                       ("paged_int8_attend_decode", "launches_kv4")):
+                       ("paged_int8_attend_decode", "launches_kv4"),
+                       ("int8_attend_decode", "launches_emit"),
+                       ("paged_int8_attend_decode", "launches_emit")):
         counters[f"{name}_{attr[len('launches_'):]}"] = (wrappers[name],
                                                          attr)
     assert set(counters) == set(KERNELS)
@@ -947,8 +1144,9 @@ def _timed_decode_steps(orig, report, profile_call=3):
     """Wrap ``make_decode_step`` so every decode call of the serve loop is
     timed (host clock around a synchronized call) and one steady-state
     call instead runs under ``torch.profiler`` (CUDA activity only: no host
-    op recording); fills ``report``. The device idle share is the profiled
-    step's kernel-busy time against the median unprofiled step."""
+    op recording), with the launch counters read around it; fills
+    ``report``. The device idle share is the profiled step's kernel-busy
+    time against the median unprofiled step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -964,10 +1162,15 @@ def _timed_decode_steps(orig, report, profile_call=3):
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
                 return out
+            before = {name: getattr(fn, attr)
+                      for name, (fn, attr) in _counters().items()}
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 out = step(*args)
                 torch.cuda.synchronize()
             report["profiled_wall_ms"] = (time.perf_counter() - t0) * 1e3
+            report["step_launches"] = {
+                name: getattr(fn, attr) - before[name]
+                for name, (fn, attr) in _counters().items()}
             walls.append(None)
             report["prof"] = prof
             return out
@@ -1020,11 +1223,13 @@ def _print_profile(tag, report):
                   f"({t / n:.1f} us each) {name[:90]}")
 
 
-def serve_phase(tag, argv, must_launch):
+def serve_phase(tag, argv, must_launch, step_emits=None):
     """Drive ``repro_torch.launch.serve.main`` once with every launch count
     set to 0 just before and read just after; returns (counts, rel diff of
     the integer path vs fake-quant, stats, the launcher's output). Decode
-    steps are timed and one is profiled (see _timed_decode_steps)."""
+    steps are timed and one is profiled (see _timed_decode_steps); with
+    ``step_emits`` (a counter name) the profiled decode step must launch
+    that fused emit and no K4."""
     import torch
     from repro_torch.launch import serve
     from torch.profiler import ProfilerActivity, profile
@@ -1054,8 +1259,15 @@ def serve_phase(tag, argv, must_launch):
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
           f"GiB")
     _print_profile(tag, report)
+    step = {name: n for name, n in report.get("step_launches", {}).items()
+            if n}
+    print(f"[{tag}] kernel launches in the profiled decode step {step}")
     for name in must_launch:
         require(counts[name] > 0, f"{tag}: {name} was never launched")
+    if step_emits is not None:
+        require(step.get(step_emits, 0) > 0 and "peg_quantize" not in step,
+                f"{tag}: the profiled decode step launched {step}, not "
+                f"{step_emits} and no peg_quantize")
     m = re.search(r"logits diff (\S+) \(rel (\S+)%\)", out.getvalue())
     require(m is not None, f"{tag}: no [deploy-int8] parity line")
     rel = float(m.group(2)) / 100
@@ -1143,10 +1355,162 @@ def require_parity(tag, out, n):
     require(len(oks) == n, f"{tag}: {len(oks)} of {n} [parity] OK lines")
 
 
+def quick_argv(kv_bits, *extra):
+    """The README quickstart's serving flags (``--kv-bits kv_bits``)."""
+    return ["--arch", "gemma2-2b", "--quantize", "--deploy-int8",
+            "--kv-bits", kv_bits, "--scheduler", "continuous", "--paged-kv",
+            "--prefill-chunk", "8", "--requests", "6", "--prompt-len", "24",
+            "--new-tokens", "6", "--batch-slots", "4", *extra]
+
+
+FULL_QUICK = ("--block-size", "16", "--max-len", "128")
+W4 = ("--weight-bits", "4")
+
+
+@contextlib.contextmanager
+def _bisect_blocks(tag, threshold=1e-4):
+    """Layer-by-layer bisect of the launcher's ``[deploy-int8]`` forward
+    (the fake-quant forward, then the integer one, on the same tokens):
+    every block of the integer path runs once more on the fake-quant
+    path's input of that block, and its output (and its attention
+    output) is held against the fake-quant block's. Prints per layer the
+    accumulated gap (integer forward against fake-quant forward) and the
+    local one (one integer block on the fake-quant input), each as max
+    |difference| / max |fake-quant value|; how many local outputs differ,
+    and by how many steps of the grid they were last quantized on
+    (``ctx_out`` for the attention, ``residual_ffn`` for the block: a
+    value that sat on a rounding tie moves by one step); and the first
+    layer whose local gap exceeds ``threshold``."""
+    from repro_torch.core import Mode
+    from repro_torch.models import transformer as tfm
+    orig_forward, orig_block = tfm.forward, tfm.block_apply
+    orig_attn = tfm.attention_block
+    rec = {"mode": None, Mode.APPLY: [], Mode.DEPLOY: [], "attn": None}
+
+    def rel(want, got):
+        want, got = want.float(), got.float()
+        return float((want - got).abs().max() / (want.abs().max() + 1e-30))
+
+    def attention_block(*args, **kw):
+        out = orig_attn(*args, **kw)
+        rec["attn"] = out[0]
+        return out
+
+    def block_apply(cfg, kind, p, x, positions, **kw):
+        out = orig_block(cfg, kind, p, x, positions, **kw)
+        if rec["mode"] is not None:
+            rec[rec["mode"]].append(dict(kind=kind, p=p, x=x, pos=positions,
+                                         kw=kw, out=out[0],
+                                         attn=rec["attn"]))
+        return out
+
+    def forward(cfg, params, tokens, *, ctx=None, cache=None, **kw):
+        mode = getattr(ctx, "mode", None)
+        active = cache is None and mode in (Mode.APPLY, Mode.DEPLOY) \
+            and not rec[mode]
+        rec["mode"] = mode if active else None
+        try:
+            out = orig_forward(cfg, params, tokens, ctx=ctx, cache=cache,
+                               **kw)
+        finally:
+            rec["mode"] = None
+        if active and mode == Mode.DEPLOY:
+            report(cfg)
+        return out
+
+    def steps(want, got, ctx, site):
+        """(elements that differ, the largest difference in steps of the
+        grid of ``site``: per tensor, or per column through its PEG
+        groups)."""
+        d = (want.float() - got.float()).abs()
+        qp = ctx.act_state[site]
+        step = qp.scale.float().reshape(-1)
+        if qp.group_index is not None:
+            step = step[qp.group_index.long()]
+        return int((d > 0).sum()), float((d / step).max())
+
+    def report(cfg):
+        first = None
+        for i, (ref, got) in enumerate(zip(rec[Mode.APPLY],
+                                           rec[Mode.DEPLOY])):
+            local, _ = orig_block(cfg, got["kind"], got["p"], ref["x"],
+                                  ref["pos"], **got["kw"])
+            gaps = (rel(ref["out"], got["out"]), rel(ref["out"], local),
+                    rel(ref["attn"], rec["attn"]))
+            ctx, pre = got["kw"]["ctx"], got["kw"]["prefix"]
+            n_att, s_att = steps(ref["attn"], rec["attn"], ctx,
+                                 f"{pre}/attn/ctx_out")
+            n_blk, s_blk = steps(ref["out"], local, ctx,
+                                 f"{pre}/residual_ffn")
+            print(f"[{tag}] bisect layer {i}: accumulated {gaps[0]:.3e}, "
+                  f"local {gaps[1]:.3e} (its attention {gaps[2]:.3e}; "
+                  f"{n_att} of {rec['attn'].numel()} attention outputs "
+                  f"differ, by at most {s_att:.2f} ctx_out steps; {n_blk} "
+                  f"block outputs, by at most {s_blk:.2f} residual steps; "
+                  f"input max|x| {float(ref['x'].abs().max()):.3e})")
+            if first is None and gaps[1] > threshold:
+                first = (i, gaps)
+        print(f"[{tag}] bisect: " + (
+            f"no layer's local gap exceeds {threshold:.0e}" if first is None
+            else f"first layer with a local gap above {threshold:.0e}: "
+                 f"{first[0]} (local {first[1][1]:.3e}, its attention "
+                 f"{first[1][2]:.3e})"))
+
+    tfm.forward, tfm.block_apply = forward, block_apply
+    tfm.attention_block = attention_block
+    try:
+        yield
+    finally:
+        tfm.forward, tfm.block_apply = orig_forward, orig_block
+        tfm.attention_block = orig_attn
+
+
+def f32_parity_phase(runs=("w8-kv8", "w4-kv4")):
+    """``--f32-parity``: the full-width quickstart's startup checks
+    (``[deploy-int8]``, ``[kv-int8]`` / ``[kv-int4]``) and ``--parity``
+    once with f32 params (about 10.5 GB) at W8 / kv8 and W4 / kv4, with a
+    layer-by-layer bisect of the ``[deploy-int8]`` forward
+    (:func:`_bisect_blocks`). At bf16 the fake-quant side of those checks
+    rounds every site to bf16; here both sides compute in f32, so a gap
+    left is the integer path's own. The gaps and the ``--parity`` verdict
+    are printed, not bounded (a full-width measurement, like the bf16
+    gaps of the main run): a ``[parity] FAIL`` ends that run's parity
+    reruns and is printed as its result. Returns {run: the launcher's
+    output}."""
+    import torch
+    from repro_torch.launch import serve
+    argv = {"w8-kv8": quick_argv("8", *FULL_QUICK, "--parity"),
+            "w4-kv4": quick_argv("4", *FULL_QUICK, *W4, "--parity")}
+    outs = {}
+    for run in runs:
+        tag = f"f32-{run}"
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with _bisect_blocks(tag), contextlib.redirect_stdout(out):
+                try:
+                    serve.main(argv[run], dtype=torch.float32)
+                except SystemExit as e:       # the --parity verdict only
+                    if not str(e.code).startswith("[parity] FAIL"):
+                        raise
+                    print(e.code)
+        finally:
+            for line in out.getvalue().splitlines():
+                print(f"[{tag}] {line}" if not line.startswith(f"[{tag}]")
+                      else line)
+            print(f"[{tag}] {time.perf_counter() - t0:.1f} s, peak device "
+                  f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+                  f"GiB")
+            torch.cuda.empty_cache()
+        outs[run] = out.getvalue()
+    return outs
+
+
 def ptxas_report():
     """``--ptxas``: compile the split and cluster kernels' sources once more
     with ``-Xptxas -v`` (into build/ptxas) and print one line per kernel
-    instantiation: its registers, shared memory and spills."""
+    instantiation: its registers, static shared memory (the cp.async rings
+    of ``int8_matmul.cu`` are dynamic) and spills."""
     from repro_torch.kernels import _build
     out = _build.BUILD_ROOT / "ptxas"
     out.mkdir(parents=True, exist_ok=True)
@@ -1168,10 +1532,12 @@ def ptxas_report():
                           r"loads", line)
             if m:
                 spills = f"spills {m.group(1)}/{m.group(2)} B"
-            m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+            m = re.search(r"Used (\d+) registers", line)
             if m:
+                smem = re.search(r"(\d+) bytes smem", line)
                 print(f"[ptxas] {name}: {_demangle(entry)}: {m.group(1)} "
-                      f"registers, {m.group(2)} B smem, {spills}")
+                      f"registers, {smem.group(1) if smem else 0} B static "
+                      f"smem, {spills}")
 
 
 def _demangle(symbol):
@@ -1196,6 +1562,8 @@ def main() -> int:
         return 2
     if "--ptxas" in sys.argv[1:]:
         ptxas_report()
+    if "--f32-parity" in sys.argv[1:]:
+        f32_parity_phase()
     t0 = time.perf_counter()
     secs = _build.build_all()
     print(f"[build] {len(_build.SOURCES)} kernel libraries built in "
@@ -1226,29 +1594,25 @@ def main() -> int:
     add(reduced)
 
     # The README quickstart's serving flags. At full width without
-    # --parity: the full-width FFN serves fake-quant in bf16 through
-    # torch.matmul, whose rounding may change with the number of rows, so
-    # two schedulers that batch the same request differently need not emit
-    # the same greedy tokens there.
-    def quick(kv_bits, *extra):
-        return ["--arch", "gemma2-2b", "--quantize", "--deploy-int8",
-                "--kv-bits", kv_bits, "--scheduler", "continuous",
-                "--paged-kv", "--prefill-chunk", "8", "--requests", "6",
-                "--prompt-len", "24", "--new-tokens", "6", "--batch-slots",
-                "4", *extra]
+    # --parity: the full-width FFN serves fake-quant through torch.matmul,
+    # whose rounding may change with the number of rows, so two schedulers
+    # that batch the same request differently need not emit the same greedy
+    # tokens there (in bf16, and in f32 too: see f32_parity_phase).
     reduced_quick = ("--reduced", "--block-size", "8", "--max-len", "64",
                      "--parity")
     fq, fq_rel, fq_stats, fq_out = serve_phase(
-        "full-quickstart", quick("8", "--block-size", "16", "--max-len",
-                                 "128"),
+        "full-quickstart", quick_argv("8", *FULL_QUICK),
         ("rms_quantize", "int8_matmul", "peg_quantize", "int8_attend_decode",
-         "paged_int8_attend_decode"))
+         "paged_int8_attend_decode", "int8_attend_decode_emit",
+         "paged_int8_attend_decode_emit"), "paged_int8_attend_decode_emit")
     add(fq)
     fq_kv = kv_gap("full-quickstart", fq_out)
     rq, rq_rel, rq_stats, rq_out = serve_phase(
-        "reduced-quickstart", quick("8", *reduced_quick),
+        "reduced-quickstart", quick_argv("8", *reduced_quick),
         ("rms_quantize", "peg_quantize", "int8_matmul", "int8_matmul_peg",
-         "int8_attend_decode", "paged_int8_attend_decode"))
+         "int8_attend_decode", "paged_int8_attend_decode",
+         "int8_attend_decode_emit", "paged_int8_attend_decode_emit"),
+        "paged_int8_attend_decode_emit")
     add(rq)
     rq_kv = kv_gap("reduced-quickstart", rq_out)
     require(rq_kv <= 1e-4, f"reduced-quickstart: [kv-int8] gap "
@@ -1261,7 +1625,7 @@ def main() -> int:
             f"reduced-quickstart: serve counts {counts} are not the "
             f"reference's (36, 10, 6, 16, 6)")
     r16, r16_rel, _, r16_out = serve_phase(
-        "reduced-paged-kv16", quick("16", *reduced_quick),
+        "reduced-paged-kv16", quick_argv("16", *reduced_quick),
         ("paged_attend_decode",))
     add(r16)
     require_parity("reduced-paged-kv16", r16_out, 3)
@@ -1270,12 +1634,12 @@ def main() -> int:
     # width the attention projections pack as q4 (K3-w4); the FFN keeps the
     # reference's fake-quant rule (non-uniform PEG groups), so K2-w4 runs
     # at the reduced width. kv4 parity is a match rate, not asserted.
-    w4 = ("--weight-bits", "4")
     f4, f4_rel, f4_stats, f4_out = serve_phase(
-        "full-quickstart-4bit", quick("4", "--block-size", "16",
-                                      "--max-len", "128", *w4),
+        "full-quickstart-4bit", quick_argv("4", *FULL_QUICK, *W4),
         ("rms_quantize", "int8_matmul_w4", "peg_quantize",
-         "int8_attend_decode_kv4", "paged_int8_attend_decode_kv4"))
+         "int8_attend_decode_kv4", "paged_int8_attend_decode_kv4",
+         "int8_attend_decode_emit", "paged_int8_attend_decode_emit"),
+        "paged_int8_attend_decode_emit")
     add(f4)
     f4_kv = kv_gap("full-quickstart-4bit", f4_out, 4)
     require(kv4_lines("full-quickstart-4bit", f4_out) > 0,
@@ -1285,10 +1649,11 @@ def main() -> int:
           f"{fq_stats.cache_bytes} bytes ({fq_stats.blocks_in_use} blocks) "
           f"at kv-bits 8")
     r4, r4_rel, r4_stats, r4_out = serve_phase(
-        "reduced-quickstart-4bit", quick("4", *reduced_quick, *w4),
+        "reduced-quickstart-4bit", quick_argv("4", *reduced_quick, *W4),
         ("rms_quantize", "int8_matmul_w4", "int8_matmul_peg_w4",
          "peg_quantize", "int8_attend_decode_kv4",
-         "paged_int8_attend_decode_kv4"))
+         "paged_int8_attend_decode_kv4", "int8_attend_decode_emit",
+         "paged_int8_attend_decode_emit"), "paged_int8_attend_decode_emit")
     add(r4)
     r4_kv = kv_gap("reduced-quickstart-4bit", r4_out, 4)
     kv4_lines("reduced-quickstart-4bit", r4_out)

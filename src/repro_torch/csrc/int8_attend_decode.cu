@@ -12,8 +12,9 @@
 // q_q (B,KV,G,hd) int8; q_scale/q_zp (B,KV,G) f32 (attention scale folded
 // into q_scale); k_zp/v_zp (B,KV) f32; k_q/v_q (B,S,KV,hd) int8;
 // k_scale/v_scale (B,S,KV) f32; k_pos (B,S) int32; q_pos (B,) int32;
-// sm/smo (2,) f32 or null; out (B,KV,G,hd) f32. All contiguous. hd % 4 == 0,
-// hd <= 256, G <= 8; window 0 and softcap 0 mean none. kv_bits = 4: k_q/v_q
+// sm/smo (2,) f32 or null; out (B,KV,G,hd) f32, or out null and out_q
+// (B,KV*G*hd) int8 as in paged_int8_attend_decode. All contiguous.
+// hd % 4 == 0, hd <= 256, G <= 8; window 0 and softcap 0 mean none. kv_bits = 4: k_q/v_q
 // are (B,S,KV,hd/2) split-half nibbles and hd % 8 == 0. splits x cps cells
 // cover the S cells, none empty (splits <= 32); ws holds
 // B*KV*splits*G*(hd+2) f32, counters B*KV zeroed ints (left zeroed).
@@ -22,18 +23,20 @@ extern "C" int int8_attend_decode(
     const void* q_q, const void* q_scale, const void* q_zp, const void* k_zp,
     const void* v_zp, const void* k_q, const void* k_scale, const void* v_q,
     const void* v_scale, const void* k_pos, const void* q_pos,
-    const void* sm, const void* smo, void* out, int batch, int kv, int g,
-    int hd, int s_len, int window, float softcap, int sm_qmin, int sm_qmax,
-    int smo_qmin, int smo_qmax, int kv_bits, int splits, int cps, void* ws,
-    void* counters, void* stream) {
+    const void* sm, const void* smo, void* out, void* out_q,
+    const void* out_scale, const void* out_zp, int out_qmin, int out_qmax,
+    int batch, int kv, int g, int hd, int s_len, int window, float softcap,
+    int sm_qmin, int sm_qmax, int smo_qmin, int smo_qmax, int kv_bits,
+    int splits, int cps, void* ws, void* counters, void* stream) {
   if (batch <= 0 || kv <= 0) return (int)cudaGetLastError();
   if (splits < 1 || splits > split_attend::kMaxSplits || cps < 1 ||
       (long)(splits - 1) * cps >= s_len || (long)splits * cps < s_len)
     return (int)cudaErrorInvalidValue;
   split_attend::SplitArgs a = split_attend::split_args(
       q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale, v_q, v_scale, q_pos, sm,
-      smo, out, batch, kv, g, hd, window, softcap, sm_qmin, sm_qmax,
-      smo_qmin, smo_qmax, kv_bits, splits, cps, ws, counters);
+      smo, out, out_q, out_scale, out_zp, out_qmin, out_qmax, batch, kv, g,
+      hd, window, softcap, sm_qmin, sm_qmax, smo_qmin, smo_qmax, kv_bits,
+      splits, cps, ws, counters);
   a.k_pos = (const int*)k_pos;
   a.s_len = s_len;
   return split_attend::launch<false>(a, kv_bits, stream);

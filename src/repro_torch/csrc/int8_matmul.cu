@@ -43,18 +43,27 @@
 // fence, counter and read-back round trips that cost more than the mainloop
 // at decode rows. One launch per call and no workspace.
 //
-// int8_matmul_peg: one tile loop (int8_matmul_peg_kernel), a 64x64
-// output tile per 128-thread block (4 warps of 32x32), a 64-deep K tile
-// staged through shared memory with the next tile's global loads started
-// into registers before the current tile's mma steps; W is transposed to
-// [n][k] while it is stored. PEG groups walk the K loop group by group,
-// each group's tiles masked at its own end (a 16-wide group is one
-// zero-padded tile), with one int32 partial per group folded into the f32
-// accumulator in group order g = 0..G-1 -- a K split would change that
-// float order, so K2 keeps this schedule. 4-bit weights unpack while the W
-// tile is stored: a thread's k-quad 4q..4q+3 of a column is the two packed
-// bytes of rows 2q and 2q+1. K tiles, splits and PEG groups start at even
-// k (the pack-time gate keeps group sizes even), so no byte is split.
+// int8_matmul_peg: the same mainloop, split by PEG group spans
+// (int8_matmul_peg_kernel). Each group of K/G columns is cut into
+// `per_group` runs of whole K tiles, none across a group boundary; a
+// group's last tile is masked at the group's end (a 16-wide reduced group is
+// one zero-padded tile). The runs of `gpr` groups form one cluster of
+// per_group x gpr blocks (at most 16; rank r runs group r / per_group, run
+// r % per_group), and the cluster walks the G groups in rounds of gpr. The
+// host planner (plan_peg_splits) picks per_group so the grid fills the card
+// about twice, each run keeping at least two K tiles where its group has
+// them, and gpr so the grid stays within the blocks the card holds at once
+// (three an SM, by the ring's shared memory): at 64 rows a block per group
+// would be 1.5 to 2.2 waves, and walking the groups in rounds measured
+// faster than the extra waves. After each round's cluster barrier the
+// reducing rank of an output element sums each group's int32 partial over
+// its runs (distributed shared memory; exact in any order) and folds the
+// groups into its f32 accumulator in group order g = 0..G-1,
+//   facc += s_g * (f32(part_g) - z_g * colsum_g),
+// so the float order, and the result, are those of one block walking all of
+// K group by group. 4-bit weights are read as in the split-K kernel: K
+// tiles, runs and PEG groups start at even k (the pack-time gate keeps group
+// sizes even), so no byte is split.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,10 +73,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int BK = 64, THREADS = 128;
-constexpr int BM = 64, BN = 64;         // PEG kernel tile
 constexpr int AS_STRIDE = BK + 16;      // bytes per A row in shared memory
-constexpr int BS_STRIDE = BK / 4 + 4;   // 32-bit words per B column (PEG)
-constexpr int STAGES = 6;               // split-K cp.async ring
+constexpr int STAGES = 6;               // cp.async ring
 constexpr int MAX_SPLITS = 16;          // Hopper's largest cluster
 
 enum Act { ACT_NONE = 0, ACT_GELU = 1, ACT_SILU = 2, ACT_RELU = 3 };
@@ -112,13 +119,14 @@ __device__ __forceinline__ float activation(float x, int act) {
 }
 
 // The shared epilogue after the scale: + bias -> act -> * mul -> store
-// (f32, or the int8 requant on [qmin, qmax]).
+// (f32, or the int8 requant on [qmin, qmax]); bias and mul are the
+// element's operands where the call has them.
 __device__ __forceinline__ void finish(const Params& p, int row, int col,
-                                       float f) {
-  if (p.bias) f = f + p.bias[col];
+                                       float f, float bias, float mul) {
+  if (p.bias) f = f + bias;
   f = activation(f, p.act);
   const size_t o = (size_t)row * p.N + col;
-  if (p.mul) f = f * p.mul[o];
+  if (p.mul) f = f * mul;
   if (p.out_scale) {
     const float z_o = p.out_zp ? p.out_zp[0] : 0.f;
     const float q = rintf(f / p.out_scale[0]) + z_o;
@@ -126,6 +134,11 @@ __device__ __forceinline__ void finish(const Params& p, int row, int col,
   } else {
     ((float*)p.out)[o] = f;
   }
+}
+__device__ __forceinline__ void finish(const Params& p, int row, int col,
+                                       float f) {
+  finish(p, row, col, f, p.bias ? p.bias[col] : 0.f,
+         p.mul ? p.mul[(size_t)row * p.N + col] : 0.f);
 }
 
 // Four int4 nibbles per byte lane, (v ^ 8) - 8 each: the low nibbles of w,
@@ -138,7 +151,7 @@ __device__ __forceinline__ uint32_t sext_hi(uint32_t w) {
 }
 
 // ---------------------------------------------------------------------------
-// int8_matmul: split-K with a cp.async ring.
+// The split mainloop: a run of K tiles through a cp.async ring.
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool pred) {
@@ -185,10 +198,11 @@ struct SplitTile {
   static constexpr int STAGE = A_BYTES + W_BYTES;
 };
 
-// Start (vec) or perform (!vec) the loads of K tile k0 into one stage.
+// Start (vec) or perform (!vec) the loads of the K tile at k0 into one
+// stage, zero past k_hi (the end of K, or of the tile's PEG group).
 template <int MI, int WM, bool W4>
 __device__ __forceinline__ void load_stage(const Params& p, int8_t* st,
-                                           int m0, int n0, int k0,
+                                           int m0, int n0, int k0, int k_hi,
                                            bool vec) {
   using T = SplitTile<MI, WM, W4>;
   const int tid = threadIdx.x;
@@ -197,12 +211,12 @@ __device__ __forceinline__ void load_stage(const Params& p, int8_t* st,
     const int gm = m0 + r, gk = k0 + cc;
     int8_t* dst = st + r * AS_STRIDE + cc;
     if (vec) {
-      const bool ok = gm < p.M && gk < p.K;
+      const bool ok = gm < p.M && gk < k_hi;
       cp_async16(dst, ok ? p.a + (size_t)gm * p.K + gk : p.a, ok);
     } else {
       for (int e = 0; e < 16; ++e)
-        dst[e] = (gm < p.M && gk + e < p.K) ? p.a[(size_t)gm * p.K + gk + e]
-                                            : (int8_t)0;
+        dst[e] = (gm < p.M && gk + e < k_hi)
+                     ? p.a[(size_t)gm * p.K + gk + e] : (int8_t)0;
     }
   }
   int8_t* ws = st + T::A_BYTES;
@@ -214,56 +228,44 @@ __device__ __forceinline__ void load_stage(const Params& p, int8_t* st,
     const int gn = n0 + cc;
     int8_t* dst = ws + w_off<T::BN_>(r, cc);
     if (vec) {
-      const bool ok = k_first < p.K && gn < p.N;
+      const bool ok = k_first < k_hi && gn < p.N;
       cp_async16(dst, ok ? p.w + (size_t)kk * p.N + gn : p.w, ok);
     } else {
       for (int e = 0; e < 16; ++e)
-        dst[e] = (k_first < p.K && gn + e < p.N)
+        dst[e] = (k_first < k_hi && gn + e < p.N)
                      ? p.w[(size_t)kk * p.N + gn + e] : (int8_t)0;
     }
   }
 }
 
+// Accumulate the nt K tiles from k_begin (masked at k_hi) of the output
+// tile (m0, n0) into acc, through a ring of STAGES shared-memory stages. On
+// return every stage has been consumed and the ring may be reused.
 template <int MI, int WM, bool W4>
-__global__ void __launch_bounds__(THREADS)
-int8_matmul_splitk_kernel(const Params p, int splits) {
+__device__ __forceinline__ void mainloop(const Params& p, int8_t* smem,
+                                         int m0, int n0, int k_begin, int nt,
+                                         int k_hi, int (&acc)[MI][4][4]) {
   using T = SplitTile<MI, WM, W4>;
-  extern __shared__ __align__(128) int8_t smem[];
-
-  const int m0 = blockIdx.y * T::BM_, n0 = blockIdx.x * T::BN_;
-  const int split = blockIdx.z;          // = the block's rank in its cluster
+  constexpr int R = STAGES;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = (warp / T::WN) * MI * 16, wn = (warp % T::WN) * 32;
   const int gq = lane >> 2, tq = lane & 3;
   const bool vec = p.vec_a && p.vec_w;
-
-  const int kt = (p.K + BK - 1) / BK;
-  const int t_begin = (int)((long)split * kt / splits);
-  const int nt = (int)((long)(split + 1) * kt / splits) - t_begin;
-
-  int acc[MI][4][4];
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
+  for (int s = 0; s < R - 1; ++s) {
     if (s < nt)
       load_stage<MI, WM, W4>(p, smem + s * T::STAGE, m0, n0,
-                             (t_begin + s) * BK, vec);
+                             k_begin + s * BK, k_hi, vec);
     cp_async_commit();
   }
   for (int t = 0; t < nt; ++t) {
-    cp_async_wait<STAGES - 2>();
+    cp_async_wait<R - 2>();
     __syncthreads();                 // tile t landed; tile t-1 is consumed
-    if (t + STAGES - 1 < nt)
-      load_stage<MI, WM, W4>(p, smem + ((t + STAGES - 1) % STAGES) * T::STAGE,
-                             m0, n0, (t_begin + t + STAGES - 1) * BK, vec);
+    if (t + R - 1 < nt)
+      load_stage<MI, WM, W4>(p, smem + ((t + R - 1) % R) * T::STAGE, m0, n0,
+                             k_begin + (t + R - 1) * BK, k_hi, vec);
     cp_async_commit();
-    const int8_t* As = smem + (t % STAGES) * T::STAGE;
+    const int8_t* As = smem + (t % R) * T::STAGE;
     const int8_t* Ws = As + T::A_BYTES;
 #pragma unroll
     for (int ks = 0; ks < BK / 32; ++ks) {
@@ -315,16 +317,14 @@ int8_matmul_splitk_kernel(const Params p, int splits) {
   }
   cp_async_wait<0>();
   __syncthreads();                       // every stage has been consumed
+}
 
-  // The split's int32 partial goes to its own shared memory, element-major
-  // (element e = (i*4 + j)*4 + c: row wm + 16 i + gq + 8 (c >> 1), column
-  // wn + 4 (2 tq + (c & 1)) + j). After the cluster barrier, rank r sums
-  // elements r, r + S, ... of every thread over the S ranks' shared memory
-  // (distributed shared memory; int32 sums are exact in any order), runs
-  // the epilogue on them and writes them. The second barrier keeps every
-  // block's shared memory alive until the others have read it.
-  constexpr int NE = MI * 16;
-  int* part = reinterpret_cast<int*>(smem);
+// A split's int32 partial goes to its own shared memory, element-major:
+// element e = (i*4 + j)*4 + c of a thread is row wm + 16 i + gq + 8 (c >> 1),
+// column wn + 4 (2 tq + (c & 1)) + j of the output tile (element_at).
+template <int MI>
+__device__ __forceinline__ void store_partial(int* part,
+                                              const int (&acc)[MI][4][4]) {
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -332,14 +332,48 @@ int8_matmul_splitk_kernel(const Params p, int splits) {
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         part[((i * 4 + j) * 4 + c) * THREADS + threadIdx.x] = acc[i][j][c];
+}
+
+template <int MI, int WM>
+__device__ __forceinline__ void element_at(int e, int m0, int n0, int* row,
+                                           int* col) {
+  constexpr int WN = 4 / WM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i = e >> 4, j = (e >> 2) & 3, c = e & 3;
+  *row = m0 + (warp / WN) * MI * 16 + i * 16 + (lane >> 2) + (c >> 1) * 8;
+  *col = n0 + (warp % WN) * 32 + 4 * (2 * (lane & 3) + (c & 1)) + j;
+}
+
+template <int MI, int WM, bool W4>
+__global__ void __launch_bounds__(THREADS)
+int8_matmul_splitk_kernel(const Params p, int splits) {
+  using T = SplitTile<MI, WM, W4>;
+  extern __shared__ __align__(128) int8_t smem[];
+  const int m0 = blockIdx.y * T::BM_, n0 = blockIdx.x * T::BN_;
+  const int split = blockIdx.z;          // = the block's rank in its cluster
+
+  const int kt = (p.K + BK - 1) / BK;
+  const int t_begin = (int)((long)split * kt / splits);
+  const int nt = (int)((long)(split + 1) * kt / splits) - t_begin;
+
+  int acc[MI][4][4] = {};
+  mainloop<MI, WM, W4>(p, smem, m0, n0, t_begin * BK, nt, p.K, acc);
+
+  // After the cluster barrier, rank r sums elements r, r + S, ... of every
+  // thread over the S ranks' shared memory (distributed shared memory;
+  // int32 sums are exact in any order), runs the epilogue on them and
+  // writes them. The second barrier keeps every block's shared memory
+  // alive until the others have read it.
+  constexpr int NE = MI * 16;
+  int* part = reinterpret_cast<int*>(smem);
+  store_partial<MI>(part, acc);
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   const float s_prod = p.a_scales[0] * p.w_scale[0];
   const float z_a = p.a_zps ? p.a_zps[0] : 0.f;
   for (int e = split; e < NE; e += splits) {
-    const int i = e >> 4, j = (e >> 2) & 3, c = e & 3;
-    const int row = m0 + wm + i * 16 + gq + (c >> 1) * 8;
-    const int col = n0 + wn + 4 * (2 * tq + (c & 1)) + j;
+    int row, col;
+    element_at<MI, WM>(e, m0, n0, &row, &col);
     if (row >= p.M || col >= p.N) continue;
     int sum = 0;
 #pragma unroll 16
@@ -352,193 +386,115 @@ int8_matmul_splitk_kernel(const Params p, int splits) {
   cluster.sync();
 }
 
-// ---------------------------------------------------------------------------
-// int8_matmul_peg: one 64x64 tile per block over all of K, group by group.
-
-// Global -> register staging for one K tile: A as 2 x 16 bytes per thread,
-// W as a 4 (k) x 8 (n) byte block per thread (W4: 2 packed rows x 8 n).
-struct Stage {
-  int4 a[2];
-  uint32_t w[4][2];
-};
-
-// One int4 nibble (0..15) sign-extended to an int8 byte.
-__device__ __forceinline__ uint32_t sext4(uint32_t nib) {
-  return (uint32_t)(((int)(nib ^ 8u) - 8) & 0xff);
-}
-
-template <bool W4>
-__device__ __forceinline__ void load_tile(const Params& p, Stage& st, int m0,
-                                          int n0, int k0, int k_hi) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = tid + i * THREADS;       // 256 chunks of 16 bytes
-    const int r = c >> 2, cc = (c & 3) * 16;
-    const int gm = m0 + r, gk = k0 + cc;
-    if (p.vec_a && gm < p.M && gk + 16 <= k_hi) {
-      st.a[i] = *reinterpret_cast<const int4*>(p.a + (size_t)gm * p.K + gk);
-    } else {
-      uint32_t v[4] = {0u, 0u, 0u, 0u};
-      if (gm < p.M)
-        for (int e = 0; e < 16; ++e)
-          if (gk + e < k_hi)
-            v[e >> 2] |= (uint32_t)(uint8_t)p.a[(size_t)gm * p.K + gk + e]
-                         << (8 * (e & 3));
-      st.a[i] = make_int4((int)v[0], (int)v[1], (int)v[2], (int)v[3]);
-    }
-  }
-  const int kq = tid >> 3, nc = (tid & 7) * 8;  // 16 k-quads x 8 n-chunks
-  const int gn = n0 + nc;
-#pragma unroll
-  for (int r = 0; r < (W4 ? 2 : 4); ++r) {
-    // row of W to read, and its first k (W4: packed row of k and k + 1)
-    const int k_first = k0 + kq * 4 + (W4 ? 2 * r : r);
-    const int kk = W4 ? k_first / 2 : k_first;
-    if (p.vec_w && k_first < k_hi && gn + 8 <= p.N) {
-      const uint2 v = *reinterpret_cast<const uint2*>(p.w + (size_t)kk * p.N + gn);
-      st.w[r][0] = v.x;
-      st.w[r][1] = v.y;
-    } else {
-      uint32_t v[2] = {0u, 0u};
-      if (k_first < k_hi)
-        for (int e = 0; e < 8; ++e)
-          if (gn + e < p.N)
-            v[e >> 2] |= (uint32_t)(uint8_t)p.w[(size_t)kk * p.N + gn + e]
-                         << (8 * (e & 3));
-      st.w[r][0] = v[0];
-      st.w[r][1] = v[1];
-    }
-  }
-}
-
-template <bool W4>
-__device__ __forceinline__ void store_tile(const Stage& st,
-                                           int8_t (*As)[AS_STRIDE],
-                                           uint32_t (*Bs)[BS_STRIDE]) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = tid + i * THREADS;
-    *reinterpret_cast<int4*>(&As[c >> 2][(c & 3) * 16]) = st.a[i];
-  }
-  const int kq = tid >> 3, nc = (tid & 7) * 8;
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int h = e >> 2, sh = 8 * (e & 3);
-    uint32_t word = 0u;
-    if (W4) {   // packed bytes of k (kq*4, +1) and (kq*4 + 2, +3)
-      const uint32_t b0 = (st.w[0][h] >> sh) & 0xffu;
-      const uint32_t b1 = (st.w[1][h] >> sh) & 0xffu;
-      word = sext4(b0 & 15u) | (sext4(b0 >> 4) << 8) |
-             (sext4(b1 & 15u) << 16) | (sext4(b1 >> 4) << 24);
-    } else {
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        word |= ((st.w[r][h] >> sh) & 0xffu) << (8 * r);
-    }
-    Bs[nc + e][kq] = word;   // byte r = k (kq*4 + r), column nc + e
-  }
-}
-
-template <bool W4>
+// The PEG kernel: rank r of a cluster of per_group x gpr blocks runs, in
+// each round of gpr groups, run r % per_group of group r / per_group.
+// Rank r reduces the elements e with e % splits == r of every thread; it
+// walks the cluster's ranks in order, so each step issues the loads of all
+// its elements at once, and folds a group when its last run is summed, with
+// the group's (s, z) and colsum staged in its own shared memory beside the
+// partials before the barrier.
+template <int MI, int WM, bool W4>
 __global__ void __launch_bounds__(THREADS)
-int8_matmul_peg_kernel(const Params p) {
-  __shared__ __align__(16) int8_t As[BM][AS_STRIDE];
-  __shared__ __align__(16) uint32_t Bs[BN][BS_STRIDE];
-
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int gq = lane >> 2, tq = lane & 3;
+int8_matmul_peg_kernel(const Params p, int per_group, int gpr) {
+  using T = SplitTile<MI, WM, W4>;
+  extern __shared__ __align__(128) int8_t smem[];
+  const int m0 = blockIdx.y * T::BM_, n0 = blockIdx.x * T::BN_;
+  const int rank = blockIdx.z;           // = the block's rank in its cluster
+  const int splits = per_group * gpr;
 
   const int gs = p.K / p.G;
-  const int tiles_per_group = (gs + BK - 1) / BK;
-  const int n_tiles = tiles_per_group * p.G;
+  const int kt = (gs + BK - 1) / BK;     // K tiles of a group
+  const int run = rank % per_group;
+  const int t_begin = run * kt / per_group;
+  const int nt = (run + 1) * kt / per_group - t_begin;
 
-  int acc[2][4][4];
-  float facc[2][4][4];
+  constexpr int NE = MI * 16;
+  static_assert((NE * THREADS + MAX_SPLITS * T::BN_ + 2 * MAX_SPLITS) * 4 <=
+                    STAGES * T::STAGE, "the reduction's staging fits the ring");
+  uint32_t own = 0;                      // the elements this rank reduces
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int e = 0; e < NE; ++e) own |= (uint32_t)(e % splits == rank) << e;
+  float facc[NE];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        acc[i][j][c] = 0;
-        facc[i][j][c] = 0.f;
-      }
-
-  Stage st;
-  load_tile<W4>(p, st, m0, n0, 0, gs);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int grp = t / tiles_per_group;
-    store_tile<W4>(st, As, Bs);
-    __syncthreads();
-    if (t + 1 < n_tiles) {
-      const int ng = (t + 1) / tiles_per_group;
-      load_tile<W4>(p, st, m0, n0,
-                ng * gs + ((t + 1) % tiles_per_group) * BK, (ng + 1) * gs);
+  for (int e = 0; e < NE; ++e) facc[e] = 0.f;
+  // shared memory after the ring drains: the partial (NE x THREADS int32),
+  // then the round's colsum (gpr x BN_ int32), s_g and z_g (gpr f32 each)
+  int* part = reinterpret_cast<int*>(smem);
+  int* cs_s = part + NE * THREADS;
+  float* sz_s = reinterpret_cast<float*>(cs_s + MAX_SPLITS * T::BN_);
+  cg::cluster_group cluster = cg::this_cluster();
+  for (int g0 = 0; g0 < p.G; g0 += gpr) {
+    const int grp = g0 + rank / per_group;
+    const int ng = min(gpr, p.G - g0);
+    int acc[MI][4][4] = {};
+    if (grp < p.G)
+      mainloop<MI, WM, W4>(p, smem, m0, n0, grp * gs + t_begin * BK, nt,
+                           (grp + 1) * gs, acc);
+    store_partial<MI>(part, acc);
+    for (int i = threadIdx.x; i < ng * T::BN_; i += THREADS) {
+      const int gl = i / T::BN_, c = n0 + i % T::BN_;
+      cs_s[i] = c < p.N ? p.colsum[(size_t)(g0 + gl) * p.N + c] : 0;
     }
-#pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) {
-      uint32_t af[2][4], bf[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int rb = wm + i * 16 + gq, kb = ks * 32 + tq * 4;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(&As[rb][kb]);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(&As[rb + 8][kb]);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(&As[rb][kb + 16]);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(&As[rb + 8][kb + 16]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int nb = wn + j * 8 + gq;
-        bf[j][0] = Bs[nb][ks * 8 + tq];
-        bf[j][1] = Bs[nb][ks * 8 + 4 + tq];
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bf[j]);
+    if (threadIdx.x < ng) {
+      sz_s[threadIdx.x] = p.a_scales[g0 + threadIdx.x];
+      sz_s[MAX_SPLITS + threadIdx.x] = p.a_zps[g0 + threadIdx.x];
     }
-    __syncthreads();
-
-    if ((t + 1) % tiles_per_group == 0) {
-      // fold this group's int32 partial: facc += s_g * (f32(part) - z_g * cs)
-      const float s_g = p.a_scales[grp], z_g = p.a_zps[grp];
+    cluster.sync();
+    int gsum[NE];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int e = 0; e < NE; ++e) gsum[e] = 0;
+    for (int r = 0; r < ng * per_group; ++r) {
+      const int* src = cluster.map_shared_rank(part, r) + threadIdx.x;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+      for (int e = 0; e < NE; ++e)
+        if (own >> e & 1) gsum[e] += src[e * THREADS];
+      if ((r + 1) % per_group) continue;
+      // the last run of group g0 + gl: fold it, in group order
+      const int gl = r / per_group;
+      const float s_g = sz_s[gl], z_g = sz_s[MAX_SPLITS + gl];
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int col = n0 + wn + j * 8 + tq * 2 + (c & 1);
-            const float cs = col < p.N ? (float)p.colsum[(size_t)grp * p.N + col] : 0.f;
-            facc[i][j][c] += s_g * ((float)acc[i][j][c] - z_g * cs);
-            acc[i][j][c] = 0;
-          }
+      for (int e = 0; e < NE; ++e) {
+        if (!(own >> e & 1)) continue;
+        int row, col;
+        element_at<MI, WM>(e, 0, 0, &row, &col);
+        facc[e] += s_g * ((float)gsum[e] - z_g * (float)cs_s[gl * T::BN_ +
+                                                             col]);
+        gsum[e] = 0;
+      }
     }
+    cluster.sync();    // the partials are read: the ring may be refilled
   }
-
+  // the epilogue, 16 elements at a time: their operands first (independent
+  // loads), then the arithmetic and the stores
   const float s_w = p.w_scale[0];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int e0 = 0; e0 < NE; e0 += 16) {
+    float bias[16], mul[16];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int i = 0; i < 16; ++i) {
+      int row, col;
+      element_at<MI, WM>(e0 + i, m0, n0, &row, &col);
+      const bool ok = (own >> (e0 + i) & 1) && row < p.M && col < p.N;
+      bias[i] = ok && p.bias ? p.bias[col] : 0.f;
+      mul[i] = ok && p.mul ? p.mul[(size_t)row * p.N + col] : 0.f;
+    }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int row = m0 + wm + i * 16 + gq + (c >> 1) * 8;
-        const int col = n0 + wn + j * 8 + tq * 2 + (c & 1);
-        if (row >= p.M || col >= p.N) continue;
-        finish(p, row, col, facc[i][j][c] * s_w);
-      }
+    for (int i = 0; i < 16; ++i) {
+      int row, col;
+      element_at<MI, WM>(e0 + i, m0, n0, &row, &col);
+      if ((own >> (e0 + i) & 1) && row < p.M && col < p.N)
+        finish(p, row, col, facc[e0 + i] * s_w, bias[i], mul[i]);
+    }
+  }
 }
 
-template <int MI, int WM, bool W4>
-int launch_splitk(const Params& p, int splits, cudaStream_t stream) {
+// Launch `kernel` over (N tiles, M tiles, cluster) with each output tile's
+// `cluster` blocks as one thread-block cluster.
+template <int MI, int WM, bool W4, typename... Args>
+int launch_cluster(void (*kernel)(const Params, Args...), const Params& p,
+                   int cluster, cudaStream_t stream, Args... args) {
   using T = SplitTile<MI, WM, W4>;
   constexpr int smem = STAGES * T::STAGE;
-  const auto kernel = int8_matmul_splitk_kernel<MI, WM, W4>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess)   // clusters of 9..16 blocks are not portable
@@ -549,30 +505,44 @@ int launch_splitk(const Params& p, int splits, cudaStream_t stream) {
   attr[0].id = cudaLaunchAttributeClusterDimension;   // the K splits
   attr[0].val.clusterDim.x = 1;
   attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = splits;
+  attr[0].val.clusterDim.z = cluster;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((p.N + T::BN_ - 1) / T::BN_,
-                     (p.M + T::BM_ - 1) / T::BM_, splits);
+                     (p.M + T::BM_ - 1) / T::BM_, cluster);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, p, splits);
+  return (int)cudaLaunchKernelEx(&cfg, kernel, p, args...);
+}
+
+template <int MI, int WM, bool W4>
+int launch_splitk(const Params& p, int splits, cudaStream_t stream) {
+  return launch_cluster<MI, WM, W4>(int8_matmul_splitk_kernel<MI, WM, W4>, p,
+                                    splits, stream, splits);
+}
+
+template <int MI, int WM, bool W4>
+int launch_peg(const Params& p, int per_group, int gpr, cudaStream_t stream) {
+  return launch_cluster<MI, WM, W4>(int8_matmul_peg_kernel<MI, WM, W4>, p,
+                                    per_group * gpr, stream, per_group, gpr);
 }
 
 }  // namespace
 
-// See Params for shapes. peg = 0: per-tensor (G must be 1; colsum (N,) and
-// a_zps optional together), split-K with row_tile 16 or 64 and `splits`
-// (1..16) K splits, a cluster per output tile (kernels/int8_matmul.py
-// plan_k_splits). peg = 1: PEG with G groups of K/G
-// columns, colsum (G, N) and a_zps required (row_tile, splits, ws and
-// counters unused). act: 0 none, 1 gelu, 2 silu, 3 relu. out_scale null:
-// f32 output; else int8 output on [qmin, qmax]. vec_a: K and K/G multiples
-// of 16 and a 16-byte aligned; vec_w: N a multiple of 8 and w 8-byte
-// aligned (split-K: 16 and 16). w_bits = 4: w is (K/2, N) pairwise-row
-// nibbles and K/G is even. Returns cudaGetLastError().
+// See Params for shapes. Both modes launch one thread-block cluster per
+// output tile of row_tile rows: 16 x 128 or 64 x 64. peg = 0: per-tensor (G
+// must be
+// 1; colsum (N,) and a_zps optional together), `splits` (1..16) K splits
+// (kernels/int8_matmul.py plan_k_splits). peg = 1: PEG with G groups of K/G
+// columns, colsum (G, N) and a_zps required, `splits` runs per group and
+// `groups` groups per cluster, splits x groups <= 16 (plan_peg_splits). act: 0
+// none, 1 gelu, 2 silu, 3 relu. out_scale null: f32 output; else int8
+// output on [qmin, qmax]. vec_a: K and K/G multiples of 16 and a 16-byte
+// aligned; vec_w: N a multiple of 16 and w 16-byte aligned. w_bits = 4: w
+// is (K/2, N) pairwise-row nibbles and K/G is even. Returns
+// cudaGetLastError().
 extern "C" int int8_matmul(const void* a, const void* w, const void* colsum,
                            const void* a_scales, const void* a_zps,
                            const void* w_scale, const void* bias,
@@ -580,7 +550,7 @@ extern "C" int int8_matmul(const void* a, const void* w, const void* colsum,
                            const void* out_zp, void* out, int M, int N, int K,
                            int G, int peg, int act, int qmin, int qmax,
                            int vec_a, int vec_w, int w_bits, int row_tile,
-                           int splits, void* stream) {
+                           int splits, int groups, void* stream) {
   Params p;
   p.a = (const int8_t*)a;
   p.w = (const int8_t*)w;
@@ -603,20 +573,22 @@ extern "C" int int8_matmul(const void* a, const void* w, const void* colsum,
   p.qmin = (float)qmin;
   p.qmax = (float)qmax;
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (peg) {
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    if (w_bits == 4)
-      int8_matmul_peg_kernel<true><<<grid, THREADS, 0, s>>>(p);
-    else
-      int8_matmul_peg_kernel<false><<<grid, THREADS, 0, s>>>(p);
-    return (int)cudaGetLastError();
-  }
-  if (splits < 1 || splits > MAX_SPLITS || (row_tile != 16 && row_tile != 64))
+  if (splits < 1 || splits > MAX_SPLITS || (row_tile != 16 && row_tile != 64)
+      || G < 1 || (peg && (colsum == nullptr || a_zps == nullptr ||
+                           groups < 1 || groups > G ||
+                           splits * groups > MAX_SPLITS)))
     return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool w4 = w_bits == 4;
+  if (peg && row_tile == 16)
+    return w4 ? launch_peg<1, 1, true>(p, splits, groups, s)
+              : launch_peg<1, 1, false>(p, splits, groups, s);
+  if (peg)
+    return w4 ? launch_peg<2, 2, true>(p, splits, groups, s)
+              : launch_peg<2, 2, false>(p, splits, groups, s);
   if (row_tile == 16)
-    return w_bits == 4 ? launch_splitk<1, 1, true>(p, splits, s)
-                       : launch_splitk<1, 1, false>(p, splits, s);
-  return w_bits == 4 ? launch_splitk<2, 2, true>(p, splits, s)
-                     : launch_splitk<2, 2, false>(p, splits, s);
+    return w4 ? launch_splitk<1, 1, true>(p, splits, s)
+              : launch_splitk<1, 1, false>(p, splits, s);
+  return w4 ? launch_splitk<2, 2, true>(p, splits, s)
+            : launch_splitk<2, 2, false>(p, splits, s);
 }

@@ -46,8 +46,11 @@ attend::Args paged_args(const void* table, const void* q_pos, const void* sm,
 // K6. q_q (B,KV,G,hd) int8; q_scale/q_zp (B,KV,G) f32; k_zp/v_zp (B,KV) f32;
 // k_arena/v_arena (N,bs,KV,hd) int8; k_scale/v_scale (N,bs,KV) f32; table
 // (B,nb) int32 (-1 = unmapped), nb * bs >= s_cap; q_pos (B,) int32 (-1 =
-// idle lane); sm/smo (2,) f32 or null; out (B,KV,G,hd) f32. All contiguous.
-// kv_bits = 4: arenas are (N,bs,KV,hd/2) split-half nibbles, hd % 8 == 0.
+// idle lane); sm/smo (2,) f32 or null; out (B,KV,G,hd) f32, or, with out_q
+// non-null, out null and out_q (B,KV*G*hd) int8 = clip(rint(v / out_scale)
+// + out_zp, out_qmin, out_qmax) with out_scale/out_zp (1,) f32. All
+// contiguous. kv_bits = 4: arenas are (N,bs,KV,hd/2) split-half nibbles,
+// hd % 8 == 0.
 // splits x bps blocks cover the nb blocks (splits <= 32, bps <= 256); ws
 // holds B*KV*splits*G*(hd+2) f32, counters B*KV zeroed ints (left zeroed).
 // Returns cudaGetLastError().
@@ -55,11 +58,12 @@ extern "C" int paged_int8_attend_decode(
     const void* q_q, const void* q_scale, const void* q_zp, const void* k_zp,
     const void* v_zp, const void* k_arena, const void* k_scale,
     const void* v_arena, const void* v_scale, const void* table,
-    const void* q_pos, const void* sm, const void* smo, void* out, int batch,
-    int kv, int g, int hd, int nb, int bs, int s_cap, int window,
-    float softcap, int sm_qmin, int sm_qmax, int smo_qmin, int smo_qmax,
-    int kv_bits, int splits, int bps, void* ws, void* counters,
-    void* stream) {
+    const void* q_pos, const void* sm, const void* smo, void* out,
+    void* out_q, const void* out_scale, const void* out_zp, int out_qmin,
+    int out_qmax, int batch, int kv, int g, int hd, int nb, int bs,
+    int s_cap, int window, float softcap, int sm_qmin, int sm_qmax,
+    int smo_qmin, int smo_qmax, int kv_bits, int splits, int bps, void* ws,
+    void* counters, void* stream) {
   using split_attend::kMaxBlocks;
   using split_attend::kMaxSplits;
   if (batch <= 0 || kv <= 0) return (int)cudaGetLastError();
@@ -68,8 +72,9 @@ extern "C" int paged_int8_attend_decode(
     return (int)cudaErrorInvalidValue;
   split_attend::SplitArgs a = split_attend::split_args(
       q_q, q_scale, q_zp, k_zp, v_zp, k_arena, k_scale, v_arena, v_scale,
-      q_pos, sm, smo, out, batch, kv, g, hd, window, softcap, sm_qmin,
-      sm_qmax, smo_qmin, smo_qmax, kv_bits, splits, bps, ws, counters);
+      q_pos, sm, smo, out, out_q, out_scale, out_zp, out_qmin, out_qmax,
+      batch, kv, g, hd, window, softcap, sm_qmin, sm_qmax, smo_qmin,
+      smo_qmax, kv_bits, splits, bps, ws, counters);
   a.table = (const int*)table;
   a.nb = nb;
   a.bs = bs;

@@ -55,7 +55,14 @@
 // arithmetic in every block, so every split quantizes p = fq(e^(s - m) / l)
 // on one grid, without renormalising -- and the last block sums the
 // splits' accumulators in split order. The merge order is fixed and there
-// are no float atomics, so repeated calls agree bit for bit. Masked cells
+// are no float atomics, so repeated calls agree bit for bit. With out_q the
+// last block writes each merged value v not as f32 but as the int8
+// clip(rint(v / s_o) + z_o, qmin, qmax) on one per-tensor grid, into the
+// (B, KV*G*hd) row-major input of the output projection: the quantize of
+// peg_quant.cu (K4, the wo_in site) folded into the merge, with the same
+// true division and half-to-even rint on the same f32 v, so the bytes are
+// K4's on this kernel's f32 output and the f32 output never reaches DRAM.
+// Masked cells
 // weigh e^(-1e30 - m): 0 on a live lane, e^0 on an idle one (q_pos = -1),
 // where every cell is masked, as in the plain version. The workspace
 // (B x KV x S x G x (hd + 2) f32) and the B x KV counters are allocated
@@ -93,7 +100,10 @@ struct SplitArgs {
   const int* q_pos;         // (B,)
   const float* sm;          // softmax_in [scale, zp] or null
   const float* smo;         // softmax_out [scale, zp] or null
-  float* out;               // (B,KV,G,hd)
+  float* out;               // (B,KV,G,hd), or null with out_q
+  int8_t* out_q;            // (B,KV*G*hd) int8 emit, or null
+  const float* out_scale;   // (1,) the emit's grid (with out_q)
+  const float* out_zp;      // (1,)
   float* ws;                // acc (B,KV,S,G,hd) then (m, l) (B,KV,S,G,2)
   int* counters;            // (B,KV)
   int batch, kv, g, hd;
@@ -102,7 +112,7 @@ struct SplitArgs {
   int window, splits;
   int span;                 // per split: paged blocks / dense cells
   int vec16;
-  float softcap, sm_qmin, sm_qmax, smo_qmin, smo_qmax;
+  float softcap, sm_qmin, sm_qmax, smo_qmin, smo_qmax, out_qmin, out_qmax;
 };
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -438,6 +448,8 @@ split_attend_kernel(const SplitArgs a) {
     __syncthreads();
   }
   const float* acc0 = a.ws + (size_t)bh * S * G * hd;
+  const float s_o = a.out_q ? a.out_scale[0] : 1.f;
+  const float z_o = a.out_q ? a.out_zp[0] : 0.f;
   for (int i = tid; i < G * hd; i += kThreads) {
     const int g = i / hd, col = i - g * hd;
     float x = 0.f;
@@ -446,7 +458,12 @@ split_attend_kernel(const SplitArgs a) {
       const float y = __ldcg(acc0 + ((size_t)jj * G + g) * hd + col);
       x += PASS == ONE_PASS ? y * ml_s[jj][g][0] : y;
     }
-    a.out[qrow0 * hd + i] = PASS == ONE_PASS ? x / L_s[g] : x;
+    const float v = PASS == ONE_PASS ? x / L_s[g] : x;
+    if (a.out_q)
+      a.out_q[qrow0 * hd + i] = (int8_t)fminf(
+          fmaxf(rintf(v / s_o) + z_o, a.out_qmin), a.out_qmax);
+    else
+      a.out[qrow0 * hd + i] = v;
   }
   if (tid == 0) a.counters[bh] = 0;
 }
@@ -479,13 +496,16 @@ int launch_split(const SplitArgs& a, cudaStream_t stream) {
                                  split_attend_kernel<PAGED, KV4, MG, EMIT>, a);
 }
 
-// The int8 query side and the sites, common to K5 and K6.
+// The int8 query side, the sites and the output (f32 out, or the int8
+// emit out_q on [out_qmin, out_qmax]), common to K5 and K6.
 inline SplitArgs split_args(const void* q_q, const void* q_scale,
                             const void* q_zp, const void* k_zp,
                             const void* v_zp, const void* k, const void* k_scale,
                             const void* v, const void* v_scale,
                             const void* q_pos, const void* sm,
-                            const void* smo, void* out, int batch, int kv,
+                            const void* smo, void* out, void* out_q,
+                            const void* out_scale, const void* out_zp,
+                            int out_qmin, int out_qmax, int batch, int kv,
                             int g, int hd, int window, float softcap,
                             int sm_qmin, int sm_qmax, int smo_qmin,
                             int smo_qmax, int kv_bits, int splits, int span,
@@ -504,6 +524,11 @@ inline SplitArgs split_args(const void* q_q, const void* q_scale,
   a.sm = (const float*)sm;
   a.smo = (const float*)smo;
   a.out = (float*)out;
+  a.out_q = (int8_t*)out_q;
+  a.out_scale = (const float*)out_scale;
+  a.out_zp = (const float*)out_zp;
+  a.out_qmin = (float)out_qmin;
+  a.out_qmax = (float)out_qmax;
   a.ws = (float*)ws;
   a.counters = (int*)counters;
   a.batch = batch;

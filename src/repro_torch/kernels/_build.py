@@ -39,12 +39,12 @@ SIGNATURES = {
     "norm_quant": {"norm_quant": [_P, _I] + [_P] * 5 + [_I] * 3 + [_F] +
                    [_I] * 8 + [_P]},
     "peg_quant": {"peg_quant": [_P, _I, _P, _P, _P, _L] + [_I] * 6 + [_P]},
-    "int8_matmul": {"int8_matmul": [_P] * 11 + [_I] * 13 + [_P]},
-    "int8_attend_decode": {"int8_attend_decode": [_P] * 14 + [_I] * 6 +
+    "int8_matmul": {"int8_matmul": [_P] * 11 + [_I] * 14 + [_P]},
+    "int8_attend_decode": {"int8_attend_decode": [_P] * 17 + [_I] * 8 +
                            [_F] + [_I] * 7 + [_P] * 3},
     "paged_attend_decode": {
-        "paged_int8_attend_decode": [_P] * 14 + [_I] * 8 + [_F] + [_I] * 7 +
-        [_P] * 3,
+        "paged_int8_attend_decode": [_P] * 17 + [_I] * 10 + [_F] +
+        [_I] * 7 + [_P] * 3,
         "paged_attend_decode": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 8 + [_F] +
         [_I] * 4 + [_P]},
 }

@@ -18,9 +18,15 @@ all cells at once where the kernel walks them in tiles with an online
 (m, l); the two agree up to float rounding. With ``kv_bits=4`` the
 cache holds split-half nibbles (``kernels.nibble``), ``(B, S, KV, hd/2)``:
 the plain version unpacks them first, the kernel as it loads each row, and
-everything after the unpack is the 8-bit arithmetic. The wrapper counts
-8-bit launches in ``launches`` and 4-bit ones in ``launches_kv4``. The
-helpers here are shared with the paged kernels (``paged_attend_decode``).
+everything after the unpack is the 8-bit arithmetic. With ``out_scale``
+(and ``out_zp``, ``qmin``, ``qmax``: one per-tensor grid) the call returns
+the output quantized for the next integer matmul, (B, KV*G*hd) int8 =
+``peg_quantize`` of the f32 output's rows; the kernel emits it from its
+merge (the quantize of K4 folded in), the plain version quantizes its
+output. The wrapper counts 8-bit launches in ``launches``, 4-bit ones in
+``launches_kv4``, and the launches of either that emit int8 in
+``launches_emit``. The helpers here are shared with the paged kernels
+(``paged_attend_decode``).
 
 The kernel is split-KV, on the body K6 runs (``csrc/split_attend.cuh``):
 each lane's S cells are cut into contiguous runs (:func:`plan_dense_kv_splits`),
@@ -34,6 +40,7 @@ import torch
 
 from repro_torch.kernels import _args, _build
 from repro_torch.kernels.nibble import unpack_nibbles
+from repro_torch.kernels.peg_quant import peg_quantize_plain
 from repro_torch.kernels.ref import decode_valid, site_fake_quant
 
 NEG_INF = -1e30
@@ -97,18 +104,30 @@ def kv_values(k_q, v_q, hd, kv_bits):
     return k_q, v_q
 
 
+def emit_plain(out, out_scale, out_zp, qmin, qmax):
+    """The (B, KV, G, hd) f32 output, or with ``out_scale`` its rows
+    quantized as K4 quantizes them: (B, KV*G*hd) int8."""
+    if out_scale is None:
+        return out
+    return peg_quantize_plain(out.reshape(out.shape[0], -1), out_scale,
+                              0.0 if out_zp is None else out_zp, qmin=qmin,
+                              qmax=qmax)
+
+
 def int8_attend_decode_plain(q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale,
                              v_q, v_scale, k_pos, q_pos, *, window,
                              logit_softcap, sm_quant, sm_qmin, sm_qmax,
-                             smo_quant, smo_qmin, smo_qmax,
-                             kv_bits=8) -> torch.Tensor:
+                             smo_quant, smo_qmin, smo_qmax, kv_bits=8,
+                             out_scale=None, out_zp=None, qmin=-128,
+                             qmax=127) -> torch.Tensor:
     k_q, v_q = kv_values(k_q, v_q, q_q.shape[-1], kv_bits)
     s = int8_logits(q_q, q_scale, q_zp, k_zp, k_q, k_scale)
-    return softmax_attend(
+    out = softmax_attend(
         s, decode_valid(k_pos, q_pos, window), v_q, v_scale, v_zp,
         logit_softcap=logit_softcap, sm_quant=sm_quant, sm_qmin=sm_qmin,
         sm_qmax=sm_qmax, smo_quant=smo_quant, smo_qmin=smo_qmin,
         smo_qmax=smo_qmax)
+    return emit_plain(out, out_scale, out_zp, qmin, qmax)
 
 
 # -- CUDA launch helpers shared with paged_attend_decode --------------------
@@ -138,11 +157,26 @@ def payload_shape(cells, kv, hd, kv_bits):
     return (*cells, kv, hd)
 
 
-def count_launch(fn, kv_bits):
+def count_launch(fn, kv_bits, emit=False):
     if kv_bits == 4:
         fn.launches_kv4 += 1
     else:
         fn.launches += 1
+    if emit:
+        fn.launches_emit += 1
+
+
+def output(b, kv, g, hd, out_scale, out_zp, device):
+    """(out, s_o, z_o): the (B, KV, G, hd) f32 output and None, None; or,
+    with ``out_scale``, the (B, KV*G*hd) int8 emit and its per-tensor grid
+    (scale and zero-point as (1,) f32 on ``device``)."""
+    if out_scale is None:
+        return (torch.empty((b, kv, g, hd), dtype=torch.float32,
+                            device=device), None, None)
+    return (torch.empty((b, kv * g * hd), dtype=torch.int8, device=device),
+            _args.f32(out_scale, device, 1, "out_scale"),
+            _args.f32(0.0 if out_zp is None else out_zp, device, 1,
+                      "out_zp"))
 
 
 def check_int8(t, shape, what):
@@ -225,8 +259,9 @@ def split_scratch(device, stream, n_words, n_counters):
 def int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale,
                             v_q, v_scale, k_pos, q_pos, *, window,
                             logit_softcap, sm_quant, sm_qmin, sm_qmax,
-                            smo_quant, smo_qmin, smo_qmax,
-                            kv_bits=8) -> torch.Tensor:
+                            smo_quant, smo_qmin, smo_qmax, kv_bits=8,
+                            out_scale=None, out_zp=None, qmin=-128,
+                            qmax=127) -> torch.Tensor:
     b, kv, g, hd = check_query(q_q, torch.int8)
     _args.on_cuda(q_q, k_q, v_q, k_pos, q_pos)
     s_len = k_q.shape[1]
@@ -243,7 +278,8 @@ def int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale,
     k_pos = i32(k_pos, (b, s_len), "k_pos")
     q_pos = i32(q_pos.reshape(-1), (b,), "q_pos")
     sm, smo = site_args(sm_quant, smo_quant, q_q.device)
-    out = torch.empty((b, kv, g, hd), dtype=torch.float32, device=q_q.device)
+    out, s_o, z_o = output(b, kv, g, hd, out_scale, out_zp, q_q.device)
+    emit = s_o is not None
     splits, cps = plan_dense_kv_splits(b, kv, s_len)
     stream = _args.stream()
     ws, counters = split_scratch(q_q.device, stream,
@@ -251,12 +287,15 @@ def int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale,
     p = _args.ptr
     _build.check(_build.lib("int8_attend_decode").int8_attend_decode(
         p(q_q), p(q_scale), p(q_zp), p(k_zp), p(v_zp), p(k_q), p(k_scale),
-        p(v_q), p(v_scale), p(k_pos), p(q_pos), p(sm), p(smo), p(out), b, kv,
-        g, hd, s_len, window_arg(window), softcap_arg(logit_softcap),
-        sm_qmin, sm_qmax, smo_qmin, smo_qmax, kv_bits, splits, cps, p(ws),
-        p(counters), stream), "int8_attend_decode")
-    count_launch(int8_attend_decode_cuda, kv_bits)
+        p(v_q), p(v_scale), p(k_pos), p(q_pos), p(sm), p(smo),
+        p(None if emit else out), p(out if emit else None), p(s_o), p(z_o),
+        qmin, qmax, b, kv, g, hd, s_len, window_arg(window),
+        softcap_arg(logit_softcap), sm_qmin, sm_qmax, smo_qmin, smo_qmax,
+        kv_bits, splits, cps, p(ws), p(counters), stream),
+        "int8_attend_decode")
+    count_launch(int8_attend_decode_cuda, kv_bits, emit)
     return out
 
 
 int8_attend_decode_cuda.launches = int8_attend_decode_cuda.launches_kv4 = 0
+int8_attend_decode_cuda.launches_emit = 0

@@ -24,8 +24,11 @@ tensor (or number), never a compile-time constant. Each wrapper counts its
 ``int8_matmul_cuda`` splits K across the blocks of a thread-block cluster
 (:func:`plan_k_splits`), which sum their int32 partials in each other's
 shared memory: a call is one launch and needs no scratch.
-``int8_matmul_peg_cuda`` walks all of K in one block per tile, because its
-per-group float fold must keep the group order.
+``int8_matmul_peg_cuda`` runs the same mainloop split by PEG group spans
+(:func:`plan_peg_splits`): no run crosses a group, each group's int32
+partial is summed over its runs exactly, and the reducing block folds the
+groups in group order, so the float order is that of one block walking
+all of K group by group.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
 SMS = 132           # streaming multiprocessors of an H100 SXM
 K_TILE = 64         # depth of the kernel's K tiles (and of a split's unit)
 MAX_K_SPLITS = 16   # Hopper's largest thread-block cluster
+PEG_BLOCKS_PER_SM = 3   # PEG kernel blocks a multiprocessor holds (smem)
 
 
 def _gelu(x):
@@ -152,6 +156,45 @@ def k_split_tiles(k, splits):
             for j in range(splits)]
 
 
+def plan_peg_splits(m, n, k, groups):
+    """(row tile, column tile, runs per group, groups per cluster) of the
+    PEG kernel for an (m, k) x (k, n) product with ``groups`` PEG groups of
+    k / groups columns: the tiles of :func:`plan_k_splits`; each group cut
+    into the same number of runs of whole K tiles (a power of two), as many
+    as fill the card about twice (2 * ``SMS`` blocks), but every run keeps
+    at least two K tiles where its group has them and a tile's runs fit one
+    cluster (at most 16 blocks). A cluster holds the runs of as many groups
+    as keep the grid within the blocks the card holds at once
+    (``PEG_BLOCKS_PER_SM`` a multiprocessor), at most 16 blocks; it walks
+    the groups in equal rounds of that many."""
+    bm, bn = (16, 128) if m <= 16 else (64, 64)
+    tiles = max(1, -(-m // bm) * -(-n // bn))
+    group_tiles = -(-(k // groups) // K_TILE)
+    per_cluster = min(groups, MAX_K_SPLITS)
+    want = -(-2 * SMS // tiles) // per_cluster
+    cap = max(1, min(want, MAX_K_SPLITS // per_cluster, group_tiles // 2))
+    runs = 1 << (cap.bit_length() - 1)
+    fits = max(1, PEG_BLOCKS_PER_SM * SMS // (tiles * runs))
+    rounds = -(-groups // min(groups, MAX_K_SPLITS // runs, fits))
+    return bm, bn, runs, -(-groups // rounds)
+
+
+def peg_split_runs(k, groups, runs, per_cluster):
+    """The rounds of the PEG kernel, as it cuts them: per round, the
+    (cluster rank, group, first K tile, end K tile) of every block that has
+    work, tiles counted from the group's start (a group's last tile is
+    masked at the group's end)."""
+    kt = -(-(k // groups) // K_TILE)
+    rounds = []
+    for g0 in range(0, groups, per_cluster):
+        rounds.append([(rank, g0 + rank // runs,
+                        (rank % runs) * kt // runs,
+                        (rank % runs + 1) * kt // runs)
+                       for rank in range(runs * per_cluster)
+                       if g0 + rank // runs < groups])
+    return rounds
+
+
 def _launch(a_q, w_q, colsum, a_scales, a_zps, w_scale, *, bias, mul,
             activation, out_scale, out_zp, qmin, qmax, peg, w_bits):
     if a_q.dim() != 2 or w_q.dim() != 2 or a_q.dtype != torch.int8 \
@@ -194,15 +237,17 @@ def _launch(a_q, w_q, colsum, a_scales, a_zps, w_scale, *, bias, mul,
                       device=dev)
     vec_a = int(k % 16 == 0 and (k // g) % 16 == 0
                 and a_q.data_ptr() % 16 == 0)
-    w_align = 8 if peg else 16          # the split-K kernel copies 16 bytes
-    vec_w = int(n % w_align == 0 and w_q.data_ptr() % w_align == 0)
-    bm, _, splits = (0, 0, 0) if peg else plan_k_splits(m, n, k)
+    vec_w = int(n % 16 == 0 and w_q.data_ptr() % 16 == 0)
+    if peg:
+        bm, _, splits, per_cluster = plan_peg_splits(m, n, k, g)
+    else:
+        (bm, _, splits), per_cluster = plan_k_splits(m, n, k), 0
     _build.check(_build.lib("int8_matmul").int8_matmul(
         a_q.data_ptr(), w_q.data_ptr(), _args.ptr(colsum),
         a_scales.data_ptr(), _args.ptr(a_zps), w_scale.data_ptr(),
         _args.ptr(bias), _args.ptr(mul), _args.ptr(s_o), _args.ptr(z_o),
         out.data_ptr(), m, n, k, g, int(peg), _ACT_CODE[activation], qmin,
-        qmax, vec_a, vec_w, w_bits, bm, splits, _args.stream()),
+        qmax, vec_a, vec_w, w_bits, bm, splits, per_cluster, _args.stream()),
         "int8_matmul_peg" if peg else "int8_matmul")
     return out
 

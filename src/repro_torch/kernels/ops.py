@@ -152,14 +152,17 @@ def int8_attend_decode(q_q, q_scale, k_q, k_scale, v_q, v_scale, k_pos,
                        window=None, logit_softcap=None, sm_quant=None,
                        sm_qmin: int = 0, sm_qmax: int = 255, smo_quant=None,
                        smo_qmin: int = 0, smo_qmax: int = 255,
-                       chunk: int = 256, kv_bits: int = 8):
+                       chunk: int = 256, kv_bits: int = 8, out_scale=None,
+                       out_zp=None, qmin: int = -128, qmax: int = 127):
     """Decode attention over a dense int8 KV cache (K5). q_q (B, KV, G, hd)
     int8; q_scale (B, KV, G) f32 with the attention scale folded in; k_q /
     v_q (B, S, KV, hd) int8, or (B, S, KV, hd/2) split-half nibbles with
     ``kv_bits=4``; k_scale / v_scale (B, S, KV) f32; k_pos (B, S) (-1 =
     empty); q_pos (B,). ``sm_quant`` / ``smo_quant``: optional (2,)
     [scale, zp] of the softmax_in / softmax_out sites. Returns
-    (B, KV, G, hd) f32."""
+    (B, KV, G, hd) f32, or with ``out_scale`` (and ``out_zp``, ``qmin``,
+    ``qmax``: a per-tensor grid) its rows quantized for the output
+    projection, (B, KV*G*hd) int8."""
     q_zp, k_zp, v_zp = _zero_points(q_scale, q_zp, k_zp, v_zp)
     s_len = k_pos.shape[1]
     pad = (-s_len) % min(chunk, s_len)
@@ -173,7 +176,8 @@ def int8_attend_decode(q_q, q_scale, k_q, k_scale, v_q, v_scale, k_pos,
               k_pos, q_pos, window=window, logit_softcap=logit_softcap,
               sm_quant=sm_quant, sm_qmin=sm_qmin, sm_qmax=sm_qmax,
               smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax,
-              kv_bits=kv_bits)
+              kv_bits=kv_bits, out_scale=out_scale, out_zp=out_zp, qmin=qmin,
+              qmax=qmax)
 
 
 def _lane_blocks(block_table, s_cap, block_size):
@@ -208,11 +212,14 @@ def paged_int8_attend_decode(q_q, q_scale, k_arena, k_scale, v_arena,
                              logit_softcap=None, sm_quant=None,
                              sm_qmin: int = 0, sm_qmax: int = 255,
                              smo_quant=None, smo_qmin: int = 0,
-                             smo_qmax: int = 255, kv_bits: int = 8):
+                             smo_qmax: int = 255, kv_bits: int = 8,
+                             out_scale=None, out_zp=None, qmin: int = -128,
+                             qmax: int = 127):
     """Decode attention over a paged int8 KV cache (K6), the paged twin of
     :func:`int8_attend_decode`: arenas (N, bs, KV, hd) int8, or (N, bs,
     KV, hd/2) nibbles with ``kv_bits=4``, with per-cell scales (N, bs, KV)
-    f32. Returns (B, KV, G, hd) f32."""
+    f32. Returns (B, KV, G, hd) f32, or the (B, KV*G*hd) int8 emit with
+    ``out_scale``."""
     q_zp, k_zp, v_zp = _zero_points(q_scale, q_zp, k_zp, v_zp)
     fn = _pick(q_q, _pad.paged_int8_attend_decode_plain,
                _pad.paged_int8_attend_decode_cuda)
@@ -221,4 +228,5 @@ def paged_int8_attend_decode(q_q, q_scale, k_arena, k_scale, v_arena,
               q_pos, s_cap=s_cap, window=window, logit_softcap=logit_softcap,
               sm_quant=sm_quant, sm_qmin=sm_qmin, sm_qmax=sm_qmax,
               smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax,
-              kv_bits=kv_bits)
+              kv_bits=kv_bits, out_scale=out_scale, out_zp=out_zp, qmin=qmin,
+              qmax=qmax)

@@ -12,7 +12,9 @@ so stale cells of a reused block are never read as valid.
 * ``paged_int8_attend_decode_*`` (K6; port of
   ``repro.kernels.paged_attend_decode.paged_int8_attend_decode``,
   ``kv_bits`` 8 and 4): int8 or nibble-packed ``(N, bs, KV, hd/2)`` arenas
-  with per-cell scales, the math of K5 (``launches`` / ``launches_kv4``).
+  with per-cell scales, the math of K5 (``launches`` / ``launches_kv4``),
+  and K5's optional int8 emit for the output projection (``out_scale``;
+  ``launches_emit``).
 * ``paged_attend_decode_*`` (K7; port of ``...paged_attend_decode``): f32 or
   bf16 arenas, queries f32 with the attention scale folded in.
 
@@ -38,8 +40,9 @@ def paged_int8_attend_decode_plain(q_q, q_scale, q_zp, k_zp, v_zp, k_arena,
                                    k_scale, v_arena, v_scale, block_table,
                                    q_pos, *, s_cap, window, logit_softcap,
                                    sm_quant, sm_qmin, sm_qmax, smo_quant,
-                                   smo_qmin, smo_qmax,
-                                   kv_bits=8) -> torch.Tensor:
+                                   smo_qmin, smo_qmax, kv_bits=8,
+                                   out_scale=None, out_zp=None, qmin=-128,
+                                   qmax=127) -> torch.Tensor:
     kp = paged_positions_ref(block_table, q_pos, s_cap=s_cap,
                              block_size=k_arena.shape[1])
     return _iad.int8_attend_decode_plain(
@@ -50,7 +53,8 @@ def paged_int8_attend_decode_plain(q_q, q_scale, q_zp, k_zp, v_zp, k_arena,
         paged_gather_ref(v_scale, block_table), kp, q_pos, window=window,
         logit_softcap=logit_softcap, sm_quant=sm_quant, sm_qmin=sm_qmin,
         sm_qmax=sm_qmax, smo_quant=smo_quant, smo_qmin=smo_qmin,
-        smo_qmax=smo_qmax, kv_bits=kv_bits)
+        smo_qmax=smo_qmax, kv_bits=kv_bits, out_scale=out_scale,
+        out_zp=out_zp, qmin=qmin, qmax=qmax)
 
 
 def paged_attend_decode_plain(q, k_arena, v_arena, block_table, q_pos, *,
@@ -106,8 +110,9 @@ def paged_int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_arena,
                                   k_scale, v_arena, v_scale, block_table,
                                   q_pos, *, s_cap, window, logit_softcap,
                                   sm_quant, sm_qmin, sm_qmax, smo_quant,
-                                  smo_qmin, smo_qmax,
-                                  kv_bits=8) -> torch.Tensor:
+                                  smo_qmin, smo_qmax, kv_bits=8,
+                                  out_scale=None, out_zp=None, qmin=-128,
+                                  qmax=127) -> torch.Tensor:
     b, kv, g, hd = _iad.check_query(q_q, torch.int8)
     _args.on_cuda(q_q, k_arena, v_arena, block_table, q_pos)
     n, bs = k_arena.shape[:2]
@@ -124,7 +129,8 @@ def paged_int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_arena,
     table, nb = _table(block_table, b, bs, s_cap)
     q_pos = _iad.i32(q_pos.reshape(-1), (b,), "q_pos")
     sm, smo = _iad.site_args(sm_quant, smo_quant, q_q.device)
-    out = torch.empty((b, kv, g, hd), dtype=torch.float32, device=q_q.device)
+    out, s_o, z_o = _iad.output(b, kv, g, hd, out_scale, out_zp, q_q.device)
+    emit = s_o is not None
     splits, bps = plan_kv_splits(b, kv, nb, bs)
     stream = _args.stream()
     ws, counters = _iad.split_scratch(q_q.device, stream,
@@ -133,11 +139,12 @@ def paged_int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_arena,
     _build.check(_build.lib("paged_attend_decode").paged_int8_attend_decode(
         p(q_q), p(q_scale), p(q_zp), p(k_zp), p(v_zp), p(k_arena),
         p(k_scale), p(v_arena), p(v_scale), p(table), p(q_pos), p(sm), p(smo),
-        p(out), b, kv, g, hd, nb, bs, s_cap, _iad.window_arg(window),
+        p(None if emit else out), p(out if emit else None), p(s_o), p(z_o),
+        qmin, qmax, b, kv, g, hd, nb, bs, s_cap, _iad.window_arg(window),
         _iad.softcap_arg(logit_softcap), sm_qmin, sm_qmax, smo_qmin,
         smo_qmax, kv_bits, splits, bps, p(ws), p(counters), stream),
         "paged_int8_attend_decode")
-    _iad.count_launch(paged_int8_attend_decode_cuda, kv_bits)
+    _iad.count_launch(paged_int8_attend_decode_cuda, kv_bits, emit)
     return out
 
 
@@ -175,4 +182,5 @@ def paged_attend_decode_cuda(q, k_arena, v_arena, block_table, q_pos, *,
 
 paged_int8_attend_decode_cuda.launches = 0
 paged_int8_attend_decode_cuda.launches_kv4 = 0
+paged_int8_attend_decode_cuda.launches_emit = 0
 paged_attend_decode_cuda.launches = 0

@@ -49,7 +49,8 @@ def _launch(what, x, scales, zps, *, qmin, qmax, emit):
         raise ValueError(f"{what}: {s.numel()} groups do not divide d={d}")
     out = torch.empty((t, d), dtype=torch.int8 if emit else x.dtype,
                       device=x.device)
-    vec = int(x.dtype == torch.float32 and d % 4 == 0
+    width = 16 // x.element_size()     # elements in a 16-byte vector
+    vec = int(d % width == 0 and (d // s.numel()) % width == 0
               and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     _build.check(_build.lib("peg_quant").peg_quant(
         x.data_ptr(), int(x.dtype == torch.bfloat16), s.data_ptr(),

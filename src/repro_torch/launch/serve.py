@@ -23,8 +23,9 @@ the other scheduler, unchunked and dense and checks the greedy tokens are
 the same.
 
 Full width serves bf16 params on one GPU; ``--reduced`` serves the small
-f32 config. Every other flag of the reference launcher is accepted by the
-parser and rejected with "not yet ported" when set. The README quickstart:
+f32 config (``main(argv, dtype=torch.float32)`` serves either in f32).
+Every other flag of the reference launcher is accepted by the parser and
+rejected with "not yet ported" when set. The README quickstart:
 
     python -m repro_torch.launch.serve --arch gemma2-2b --reduced \
         --requests 6 --prompt-len 24 --new-tokens 6 --max-len 64 \
@@ -367,7 +368,9 @@ def _kv_int4_drift(cfg, args, params, ctx_factory, toks, dtype, dev) -> str:
             f"match {matched}/{total} ({matched / total:.1%})")
 
 
-def main(argv=None, *, device=None):
+def main(argv=None, *, device=None, dtype=None):
+    """Parse ``argv`` and serve. ``dtype`` overrides the params' dtype
+    (bf16 at full width, f32 with ``--reduced``)."""
     ap = build_parser()
     args = ap.parse_args(argv)
     _check_args(ap, args)
@@ -382,9 +385,8 @@ def main(argv=None, *, device=None):
         ap.error(str(e))
     if args.reduced:
         cfg = cfg.reduced()
-        dtype = torch.float32
-    else:
-        dtype = torch.bfloat16
+    if dtype is None:
+        dtype = torch.float32 if args.reduced else torch.bfloat16
 
     # per-lane table width (ring-bounded for all-window models) and pool
     nb_lane = (tfm.paged_lane_blocks(cfg, args.max_len, args.block_size)

@@ -564,13 +564,19 @@ def _kv_zero_points(kvq, B, KV):
 
 
 def _kernel_decode_attend(q, cache, block_table, q_pos, cfg: AttnConfig,
-                          ctx, prefix, kvq=None):
+                          ctx, prefix, kvq=None, wo_aq=None):
     """Decode step through the attention kernel of the cache's type: K5
     (int8), K6 (paged int8) or K7 (paged f32/bf16). Int8 kernels take the
     queries on the ``{prefix}/q`` grid (or dynamic per head) with the
     attention scale folded into their scales; K7 takes it folded into q.
     Returns (B, 1, H, hd) in q.dtype, or None when a site is not
-    per-tensor (the caller then reads the cache back and attends)."""
+    per-tensor (the caller then reads the cache back and attends). Given
+    ``wo_aq``, the deploy quantizer of the output projection's input, an
+    int8 kernel whose queries are f32 and whose grid is per-tensor with no
+    permutation emits that input itself from its merge (the ``wo_in``
+    quantize folded in): the result is then the (B, 1, H*hd) int8
+    ``QTensor``, the bytes ``quantize_act`` would make of the f32
+    output."""
     if not cfg.causal:
         return None
     site = _decode_site_params(ctx, prefix)
@@ -595,12 +601,21 @@ def _kernel_decode_attend(q, cache, block_table, q_pos, cfg: AttnConfig,
                 cache.v_s)
         kw.update(q_zp=qz, k_zp=kz, v_zp=vz,
                   kv_bits=4 if isinstance(cache, _INT4_CACHES) else 8)
+        emit = (wo_aq is not None and wo_aq.per_tensor
+                and q.dtype == torch.float32)
+        if emit:
+            kw.update(out_scale=wo_aq.scales[0], out_zp=wo_aq.zps[0],
+                      qmin=wo_aq.qmin, qmax=wo_aq.qmax)
         if isinstance(cache, PagedQuantKVCache):
             out = kops.paged_int8_attend_decode(*args, block_table,
                                                 q_pos[:, 0], **kw)
         else:
             out = kops.int8_attend_decode(*args, cache.pos, q_pos[:, 0],
                                           **kw)
+        if emit:
+            from repro_torch.core.deploy import QTensor
+            return QTensor(q=out.reshape(B, 1, H * hd), scales=wo_aq.scales,
+                           zps=wo_aq.zps)
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
@@ -635,6 +650,7 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
     x_int8 = isinstance(x, deploy_lib.QTensor)
     B, T, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    wo_aq = ctx.deploy_act(f"{prefix}/wo_in") if x_int8 else None
 
     def w(name):
         wmat = resolve_weight(p[name])
@@ -718,7 +734,7 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
             new_cache = _write_paged_kv(cache, k, v, positions, block_table,
                                         cfg.window, kvq)
             out = _kernel_decode_attend(q, new_cache, block_table, positions,
-                                        cfg, ctx, prefix, kvq)
+                                        cfg, ctx, prefix, kvq, wo_aq)
             if out is None:
                 k_att, v_att = paged_gather_kv(new_cache, block_table,
                                                cfg.window, kvq)
@@ -730,7 +746,7 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
                                   kvq)
             if quantized:
                 out = _kernel_decode_attend(q, new_cache, None, positions,
-                                            cfg, ctx, prefix, kvq)
+                                            cfg, ctx, prefix, kvq, wo_aq)
                 if out is None:
                     k_att, v_att = dequantize_kv(new_cache, kvq)
                     kpos_att = new_cache.pos
@@ -741,12 +757,14 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
     if out is None:
         out = attend(q, k_att.to(q.dtype), v_att.to(q.dtype), positions,
                      kpos_att, cfg, ctx=ctx, prefix=prefix, chunked=chunked)
-    out2d = out.reshape(B, T, H * hd)
-    if x_int8:
-        wo_aq = ctx.deploy_act(f"{prefix}/wo_in")
-        out = deploy_lib.matmul(deploy_lib.quantize_act(out2d, wo_aq),
-                                p["wo"])
+    if isinstance(out, deploy_lib.QTensor):
+        # the decode kernel's merge emitted wo's int8 input
+        out = deploy_lib.matmul(out, p["wo"])
+    elif x_int8:
+        out = deploy_lib.matmul(deploy_lib.quantize_act(
+            out.reshape(B, T, H * hd), wo_aq), p["wo"])
     else:
+        out2d = out.reshape(B, T, H * hd)
         if ctx is not None:
             out2d = ctx.act_in(f"{prefix}/wo_in", out2d)
         out = dot(out2d, w("wo"))

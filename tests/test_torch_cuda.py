@@ -733,3 +733,156 @@ def test_dense_split_workspace_is_left_clean(gen):
         torch.cuda.synchronize()
         assert_attend_close(got, want, 1 / 255 if site == "softmax_out"
                             else None, v_abs)
+
+
+# -- K2 split by PEG group spans; K5/K6 emitting the int8 wo input ----------
+
+@pytest.mark.parametrize("m,k,n,g", [
+    (64, 2304, 512, 4), (4, 2304, 1024, 4), (17, 2304, 256, 6),
+    (8, 64, 128, 4), (1, 1024, 48, 1), (16, 4096, 128, 4),
+    (4, 1152, 64, 36), (3, 80, 40, 5), (33, 192, 96, 2)])
+@pytest.mark.parametrize("w_bits", [8, 4])
+def test_int8_matmul_peg_splits(gen, m, k, n, g, w_bits):
+    """K2 on the split mainloop at its plan's boundaries (one run per
+    group, several, one-tile 16-wide groups, G = 36 walked in rounds of 16,
+    N = 40 and 16-wide groups of K = 80 loaded without cp.async): the f32
+    output is bit-identical to the plain version (the group fold in group
+    order) and over three calls; the requant output within 1 LSB; at 4
+    bits equal to the 8-bit kernel on the unpacked weight."""
+    a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    if w_bits == 4:
+        w, w_q = _w4(gen, k, n)
+    else:
+        w = w_q = torch.randint(-127, 128, (k, n), generator=gen,
+                                device="cuda", dtype=torch.int8)
+    s, z = _grid(gen, g)
+    cs = ref.w_colsum_groups(w, g)
+    kw = dict(w_bits=w_bits, bias=torch.randn(n, generator=gen,
+                                              device="cuda"))
+    got = [imm.int8_matmul_peg_cuda(a, w_q, s, z, 0.02, cs, **kw)
+           for _ in range(3)]
+    want = imm.int8_matmul_peg_plain(a, w_q, s, z, 0.02, cs, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want)
+    assert all(torch.equal(x, got[0]) for x in got[1:])
+    kw.update(activation="gelu", out_scale=0.04, out_zp=-7.0,
+              mul=torch.randn(m, n, generator=gen, device="cuda"))
+    got = imm.int8_matmul_peg_cuda(a, w_q, s, z, 0.02, cs, **kw)
+    _assert_lsb(got, imm.int8_matmul_peg_plain(a, w_q, s, z, 0.02, cs, **kw))
+    if w_bits == 4:
+        kw["w_bits"] = 8
+        assert torch.equal(got, imm.int8_matmul_peg_cuda(a, w, s, z, 0.02,
+                                                         cs, **kw))
+
+
+def _emit_grid(f):
+    """A per-tensor int8 grid that spans the f32 output ``f``."""
+    return (torch.tensor([float(f.abs().max()) / 100], device="cuda"),
+            torch.tensor([3.0], device="cuda"))
+
+
+def _assert_emit(fn, args, kw):
+    """The int8 emit of one decode-attention call equals K4's kernel on
+    the same call's f32 output, bit for bit."""
+    f = fn(*args, **kw)
+    s_o, z_o = _emit_grid(f)
+    got = fn(*args, **kw, out_scale=s_o, out_zp=z_o, qmin=-128, qmax=127)
+    want = pq.peg_quantize_cuda(f.reshape(f.shape[0], -1), s_o, z_o,
+                                qmin=-128, qmax=127)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,nb,bs,kv,g,hd,s_cap,window", [
+    (4, 8, 16, 4, 2, 256, 128, 64), (4, 37, 16, 4, 2, 256, 587, 200),
+    (4, 52, 8, 2, 2, 64, 413, None), (3, 8, 8, 2, 2, 16, 64, 16)])
+@pytest.mark.parametrize("site", list(SITES))
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_paged_int8_attend_decode_emit(gen, b, nb, bs, kv, g, hd, s_cap,
+                                       window, site, kv_bits):
+    """K6 emitting the wo input from its merge, one and two passes, at split
+    boundaries with a whole split unmapped and an idle lane: K4's bytes on
+    K6's own f32 output; the emit is counted apart."""
+    args, _ = _paged_case(gen, b, nb, bs, kv, g, hd, s_cap, site, kv_bits)
+    kw = dict(s_cap=s_cap, window=window, logit_softcap=50.0,
+              kv_bits=kv_bits, **_site_kw(site))
+    fn = pad.paged_int8_attend_decode_cuda
+    before = fn.launches_emit
+    _assert_emit(fn, args, kw)
+    assert fn.launches_emit == before + 1
+
+
+@pytest.mark.parametrize("b,s_len,kv,g,hd,window", [
+    (4, 128, 4, 2, 256, 64), (4, 587, 4, 2, 256, 200),
+    (4, 413, 2, 2, 64, None), (3, 40, 2, 2, 16, 16)])
+@pytest.mark.parametrize("site", list(SITES))
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_int8_attend_decode_emit(gen, b, s_len, kv, g, hd, window, site,
+                                 kv_bits):
+    """K5 emitting the wo input, with an empty split, an empty prefix, an
+    idle lane and a wrapped ring: K4's bytes on K5's own f32 output."""
+    args, _ = _dense_case(gen, b, s_len, kv, g, hd, site, kv_bits)
+    kw = dict(window=window, logit_softcap=50.0, kv_bits=kv_bits,
+              **_site_kw(site))
+    fn = iad.int8_attend_decode_cuda
+    before = fn.launches_emit
+    _assert_emit(fn, args, kw)
+    assert fn.launches_emit == before + 1
+
+
+def test_peg_and_emit_back_to_back_shapes(gen):
+    """K2 calls of other plans back to back, and K5 / K6 emitting and f32
+    calls alternating on their shared workspace: each equal to its plain
+    version or to K4 on the f32 output."""
+    for m, k, n, g in ((64, 2304, 512, 4), (8, 64, 128, 4), (4, 1152, 64, 36),
+                       (17, 2304, 256, 6), (64, 2304, 512, 4)):
+        a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        s, z = _grid(gen, g)
+        cs = ref.w_colsum_groups(w, g)
+        assert torch.equal(imm.int8_matmul_peg_cuda(a, w, s, z, 0.02, cs),
+                           imm.int8_matmul_peg_plain(a, w, s, z, 0.02, cs))
+    for kind, shape, site, kv_bits in (
+            ("paged", (4, 8, 16, 4, 2, 256, 128, 64), "softmax_out", 8),
+            ("dense", (4, 128, 4, 2, 256, 64), "softmax_out", 4),
+            ("paged", (4, 37, 16, 4, 2, 256, 587, 200), "none", 4),
+            ("dense", (3, 40, 2, 2, 16, 16), "softmax_in", 8),
+            ("paged", (4, 8, 16, 4, 2, 256, 128, 64), "softmax_out", 8)):
+        if kind == "dense":
+            b, s_len, kv, g, hd, window = shape
+            args, _ = _dense_case(gen, b, s_len, kv, g, hd, site, kv_bits)
+            kw = dict(window=window, logit_softcap=50.0, kv_bits=kv_bits,
+                      **_site_kw(site))
+            _assert_emit(iad.int8_attend_decode_cuda, args, kw)
+        else:
+            b, nb, bs, kv, g, hd, s_cap, window = shape
+            args, _ = _paged_case(gen, b, nb, bs, kv, g, hd, s_cap, site,
+                                  kv_bits)
+            kw = dict(s_cap=s_cap, window=window, logit_softcap=50.0,
+                      kv_bits=kv_bits, **_site_kw(site))
+            _assert_emit(pad.paged_int8_attend_decode_cuda, args, kw)
+
+
+@pytest.mark.parametrize("rows,d,g", [(64, 2304, 4), (4, 2048, 1),
+                                      (7, 72, 9), (5, 36, 3)])
+def test_peg_quant_bf16_vectors(gen, rows, d, g):
+    """K4 and K10 on bf16 rows: 16-byte vectors where d and the group size
+    are multiples of 8 (2304 in groups of 576, 2048, 72 in groups of 8),
+    one element at a time where they are not (36 in groups of 12) and for
+    rows 2 bytes off 16-byte alignment: bit-exact against the plain
+    versions."""
+    x = (torch.randn(rows, d + 1, generator=gen, device="cuda") * 2).to(
+        torch.bfloat16)
+    s, z = _grid(gen, g)
+    kw = dict(qmin=-128, qmax=127)
+    for view in (x[:, :d].contiguous(), x.reshape(-1)[1:rows * d + 1]
+                 .reshape(rows, d)):
+        assert torch.equal(pq.peg_quantize_cuda(view, s, z, **kw),
+                           pq.peg_quantize_plain(view, s, z, **kw))
+        got = pq.peg_fake_quant_cuda(view, s, z, **kw)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, pq.peg_fake_quant_plain(view, s, z, **kw))

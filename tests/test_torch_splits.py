@@ -1,6 +1,7 @@
-"""The host planners of the split kernels (K3 ``int8_matmul`` split-K, K5
-``int8_attend_decode`` and K6 ``paged_int8_attend_decode`` split-KV) and
-PyTorch models of their merges, on the CPU.
+"""The host planners of the split kernels (K3 ``int8_matmul`` split-K, K2
+``int8_matmul_peg`` split by PEG group spans, K5 ``int8_attend_decode``
+and K6 ``paged_int8_attend_decode`` split-KV) and PyTorch models of their
+merges, on the CPU.
 
 * The planners must cover every K tile, every dense cell and every paged
   block exactly once, in order, with no empty split; a K split keeps at
@@ -9,6 +10,16 @@ PyTorch models of their merges, on the CPU.
   32.
 * Split-K: the splits' int32 partials, summed, equal the unsplit product
   exactly (8-bit and pairwise-row 4-bit weights).
+* K2: the PEG planner's runs cover every K tile of every group once, none
+  across a group, none empty, at most 16 blocks a cluster. A model of the
+  cluster reduction (each group's int32 partial summed over its runs, the
+  groups folded in group order) equals ``int8_matmul_peg_plain`` bit for
+  bit, and the reference's Pallas kernel (interpret mode) bit for bit at
+  G = 1; at G = 4 XLA rounds the group fold differently in the last bit,
+  so there, and against the reference's dequantize-then-matmul oracle
+  (which multiplies dequantized floats in another order), the bounds of
+  ``tests/test_torch_kernels.py`` hold: f32 within 1e-5 of max|out|,
+  requant within 1 LSB on at most 0.1 % of the elements.
 * Split-KV: each split's softmax state (m_j, l_j, acc_j) over its blocks
   (K6) or cells (K5), merged in split order the way the kernel merges it
   (one pass, and the two-pass ``softmax_out`` schedule, where every split
@@ -20,10 +31,13 @@ PyTorch models of their merges, on the CPU.
 The merge models live here, not in the package: the kernels are their only
 implementation there. Inputs come from numpy seeds.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.kernels import int8_attend_decode as iad
 from repro_torch.kernels import int8_matmul as imm
 from repro_torch.kernels import nibble
@@ -133,6 +147,129 @@ def test_split_k_partials_sum_to_the_product(m, k, n, w_bits):
     want = (a.double() @ w.double()).float() * (torch.tensor(0.03) *
                                                 torch.tensor(0.01))
     assert torch.equal(got, want)
+
+
+PEG_SHAPES = [(m, n, k, g) for m in (1, 4, 17, 64) for n in (128, 9216)
+              for k, g in ((64, 4), (2304, 4), (2304, 6), (2304, 1),
+                           (1024, 4), (256, 1), (2304, 36))]
+
+
+@pytest.mark.parametrize("m,n,k,g", PEG_SHAPES)
+def test_peg_split_plan_covers_every_group_tile_once(m, n, k, g):
+    bm, bn, runs, per_cluster = imm.plan_peg_splits(m, n, k, g)
+    assert (bm, bn) == ((16, 128) if m <= 16 else (64, 64))
+    assert runs & (runs - 1) == 0 and runs * per_cluster <= imm.MAX_K_SPLITS
+    kt = -(-(k // g) // imm.K_TILE)             # K tiles of a group
+    seen = {grp: [] for grp in range(g)}
+    rounds = imm.peg_split_runs(k, g, runs, per_cluster)
+    assert len(rounds) == -(-g // per_cluster)
+    for rnd in rounds:
+        assert len({rank for rank, *_ in rnd}) == len(rnd)
+        assert all(rank < runs * per_cluster for rank, *_ in rnd)
+        for _, grp, t0, t1 in rnd:
+            assert t1 > t0                       # no empty run
+            assert t1 - t0 >= 2 or kt < 2 * runs  # two tiles where it can
+            seen[grp].append((t0, t1))
+    for grp, spans in seen.items():              # each group's tiles once,
+        spans.sort()                             # in runs inside the group
+        assert spans[0][0] == 0 and spans[-1][1] == kt
+        assert all(b == c for (_, b), (c, _) in zip(spans, spans[1:]))
+    # no more runs than fill the card about twice, unless one run a group;
+    # no more blocks than the card holds at once, unless one group a
+    # cluster; equal rounds
+    tiles = -(-m // bm) * -(-n // bn)
+    assert runs == 1 or tiles * runs * per_cluster <= 2 * imm.SMS + tiles * \
+        per_cluster
+    assert per_cluster == 1 or tiles * runs * per_cluster <= \
+        imm.PEG_BLOCKS_PER_SM * imm.SMS
+    assert len(rounds) * per_cluster - g < len(rounds)
+
+
+def test_peg_split_plan_serving_shapes():
+    """The full-width FFN shapes one run per group: 288 blocks at 64 rows
+    (clusters of two groups, walked in two rounds at G = 4, three at G =
+    6) and at the decode rows (all four groups a cluster; G = 6 in two
+    rounds of three); the reduced one (4 groups of 16) one cluster of four
+    one-tile runs."""
+    assert imm.plan_peg_splits(64, 9216, 2304, 4) == (64, 64, 1, 2)
+    assert imm.plan_peg_splits(4, 9216, 2304, 4) == (16, 128, 1, 4)
+    assert imm.plan_peg_splits(64, 9216, 2304, 6) == (64, 64, 1, 2)
+    assert imm.plan_peg_splits(4, 9216, 2304, 6) == (16, 128, 1, 3)
+    assert imm.plan_peg_splits(8, 128, 64, 4) == (16, 128, 1, 4)
+
+
+def _peg_cluster_model(a, w_q, s, z, s_w, colsum, *, w_bits, **epi):
+    """K2's arithmetic as the cluster kernel runs it: per round, each
+    group's int32 partial summed over its runs (in run order; int32 sums
+    are exact), the groups folded into the f32 accumulator in group
+    order, then the epilogue."""
+    m, k = a.shape
+    w = nibble.unpack_rows(w_q) if w_bits == 4 else w_q
+    g = s.numel()
+    gs = k // g
+    _, _, runs, per_cluster = imm.plan_peg_splits(m, w.shape[1], k, g)
+    facc = torch.zeros((m, w.shape[1]), dtype=torch.float32)
+    for rnd in imm.peg_split_runs(k, g, runs, per_cluster):
+        parts = {}
+        for _, grp, t0, t1 in rnd:
+            k0 = grp * gs + t0 * imm.K_TILE
+            k1 = min((grp + 1) * gs, grp * gs + t1 * imm.K_TILE)
+            assert k0 % 2 == 0 and k0 < k1      # no nibble byte is split
+            part = (a[:, k0:k1].long() @ w[k0:k1].long()).to(torch.int32)
+            parts[grp] = parts.get(grp, 0) + part
+        for grp in sorted(parts):
+            facc = facc + s[grp] * (parts[grp].float()
+                                    - z[grp] * colsum[grp].float()[None, :])
+    return imm.epilogue(facc * torch.tensor(s_w, dtype=torch.float32), **epi)
+
+
+@pytest.mark.parametrize("w_bits", [8, 4])
+@pytest.mark.parametrize("requant", [False, True])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("m,k,n", [(4, 64, 128), (8, 256, 96),
+                                   (64, 1024, 64), (17, 1024, 128)])
+def test_peg_cluster_reduction_matches_plain_and_reference(m, k, n, g,
+                                                           requant, w_bits):
+    rng = np.random.RandomState(m + k + n + g + w_bits)
+    a = rng.randint(-128, 128, (m, k)).astype(np.int8)
+    lo, hi = (-8, 8) if w_bits == 4 else (-127, 128)
+    w = rng.randint(lo, hi, (k, n)).astype(np.int8)
+    w_q = nibble.pack_rows(torch.from_numpy(w)) if w_bits == 4 else \
+        torch.from_numpy(w)
+    s = rng.uniform(0.01, 0.05, g).astype(np.float32)
+    z = np.round(rng.uniform(-20, 20, g)).astype(np.float32)
+    colsum = np.stack([w[i * (k // g):(i + 1) * (k // g)].astype(
+        np.int32).sum(0) for i in range(g)])
+    epi = {}
+    if requant:
+        epi = dict(activation="gelu", mul=rng.randn(m, n).astype(np.float32),
+                   out_scale=np.float32(0.04), out_zp=np.float32(-7.0))
+    tepi = {key: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+            for key, v in epi.items()}
+    ts, tz, tcs = (torch.from_numpy(x) for x in (s, z, colsum))
+    got = _peg_cluster_model(torch.from_numpy(a), w_q, ts, tz, 0.02, tcs,
+                             w_bits=w_bits, **tepi)
+    plain = imm.int8_matmul_peg_plain(torch.from_numpy(a), w_q, ts, tz, 0.02,
+                                      tcs, w_bits=w_bits, **tepi)
+    assert got.dtype == plain.dtype and torch.equal(got, plain)
+    jkw = {key: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+           for key, v in epi.items()}
+    pallas = jops.int8_matmul_peg(
+        jnp.asarray(a), jnp.asarray(w_q.numpy()), jnp.asarray(s),
+        jnp.asarray(z), w_scale=0.02, w_colsum=jnp.asarray(colsum),
+        w_bits=w_bits, **jkw)
+    oracle = jref.int8_matmul_peg_fused_ref(
+        jnp.asarray(a), jnp.asarray(w), jnp.asarray(s), jnp.asarray(z), 0.02,
+        **jkw)
+    if g == 1:          # one group: no fold, the same f32 operations
+        np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+    for want in (np.asarray(pallas), np.asarray(oracle)):
+        if requant:
+            d = np.abs(got.numpy().astype(np.int32) - want.astype(np.int32))
+            assert int(d.max()) <= 1 and int((d > 0).sum()) <= 1e-3 * d.size
+        else:
+            err = float(np.abs(got.numpy() - want).max())
+            assert err <= 1e-5 * float(np.abs(want).max()), err
 
 
 def _masked_logits(q_q, q_scale, q_zp, k_zp, k, k_scale, valid, *,
