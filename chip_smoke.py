@@ -24,12 +24,13 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              K5's and K6's lines print their split count and achieved GB/s,
              K2's its runs per PEG group x groups per cluster, K1's and
              K8/K9's their row split C (blocks per row, one cluster) and
-             blocks and GB/s; K5 and K6 add cases at their split boundaries
-             (cells or blocks not a multiple of the split length, bs 8, an
-             empty run or hole over a whole split, an idle lane, a ring
-             that wrapped), and K5 / K6 emitting the int8 ``wo`` input from
-             their merge must equal K4 on their f32 output bit for bit
-             (timed beside that unfused pair).
+             blocks and GB/s; K5, K6 and K7 add cases at their split
+             boundaries (cells or blocks not a multiple of the split
+             length, bs 8, an empty run or hole over a whole split, an idle
+             lane, a ring that wrapped; K7 on f32 and bf16 arenas), and
+             K5 / K6 / K7 emitting the int8 ``wo`` input from their merge
+             must equal K4 on their f32 output bit for bit (timed beside
+             that unfused pair).
 3. full    — serve gemma2-2b at full width (26 layers, d 2304, bf16) through
              ``repro_torch.launch.serve.main`` with W8A8 PTQ + the integer
              deploy path, static scheduler; the K1/K3/K4 launch counters
@@ -51,19 +52,25 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              print and the serve line must show the reference's counts
              (36 tokens, 10 decode steps, 6 prefills, blocks 16/32, 6 chunk
              steps).
-7. reduced paged kv16 — the same command with ``--kv-bits 16``: K7 must
-             move and the parity lines must print.
-8. full quickstart 4-bit — phase 5 with ``--weight-bits 4 --kv-bits 4``:
+7. reduced paged kv16 — the same command with ``--kv-bits 16``: K7 and
+             its int8 emit must move (no K4 in the profiled decode step)
+             and the parity lines must print.
+8. full quickstart kv16 — phase 5 with ``--kv-bits 16``: the bf16 paged
+             cache, every decode step through K7 with its int8 emit
+             (and no K4 in the profiled step); K7's device time per call
+             in that step and the peak KV-cache bytes beside phase 5's
+             print.
+9. full quickstart 4-bit — phase 5 with ``--weight-bits 4 --kv-bits 4``:
              K1, K3-w4 (the q4 attention projections), K4, K5-kv4 (the
              ``[kv-int4]`` check) and K6-kv4 (every decode) must move, with
              the emits as in phase 5; the
              q4 payload count, the packed-weight bytes, the ``[kv-int4]``
              lines and the peak KV-cache bytes beside phase 5's print.
-9. reduced quickstart 4-bit — phase 6 with the same flags: K2-w4 must move
+10. reduced quickstart 4-bit — phase 6 with the same flags: K2-w4 must move
              too, the counts must be the reference's, and the parity lines
              print as match rates (int4 drift is reported, not asserted, as
              in the reference).
-10. entry points — K8-K10, which no ported model reaches, through
+11. entry points — K8-K10, which no ported model reaches, through
              ``ops`` as the reference's kernel bench calls them and (K8)
              through ``deploy.norm_quantize("layernorm", ...)``: each must
              move.
@@ -134,17 +141,18 @@ KERNELS = {
     "rms_fake_quant": ("norm_quant.cu", "fused_ln_quant.py:102"),
     "ln_fake_quant": ("norm_quant.cu", "fused_ln_quant.py:84"),
     "peg_fake_quant": ("peg_quant.cu", "peg_quant.py:38"),
-    # K5 / K6 (kv 8 and 4) emitting the int8 wo input from their merge:
-    # the K4 quantize folded in, counted apart from K4's own launches
+    # K5 / K6 (kv 8 and 4) and K7 emitting the int8 wo input from their
+    # merge: the K4 quantize folded in, counted apart from K4's own launches
     "int8_attend_decode_emit": ("int8_attend_decode.cu", "peg_quant.py:67"),
     "paged_int8_attend_decode_emit": ("paged_attend_decode.cu",
-                                      "peg_quant.py:67")}
+                                      "peg_quant.py:67"),
+    "paged_attend_decode_emit": ("paged_attend_decode.cu",
+                                 "peg_quant.py:67")}
 
 
 # the port's kernel names in a profiler trace
 PORT_KERNELS = (r"norm_quant_kernel|peg_quant_kernel|int8_matmul_splitk|"
-                r"int8_matmul_peg_kernel|attend_decode_kernel|"
-                r"split_attend_kernel")
+                r"int8_matmul_peg_kernel|split_attend_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -774,7 +782,8 @@ def attend_cases(gen, flush, record):
                         2 * hd * el, meta, b * kv * g * hd * 4,
                         float(vf.float().abs().max()), False,
                         s_cap == 128 and not holes
-                        and site.startswith("two-pass"))
+                        and site.startswith("two-pass"),
+                        pad.plan_kv_splits(b, kv, cols.shape[1], bs)[0])
 
     # K5 / K6 at kv_bits=4: nibble-packed (.., KV, hd/2) payloads of int4
     # values, int4 zero-points; a cell needs hd bytes of payload + scales
@@ -859,20 +868,21 @@ def attend_cases(gen, flush, record):
                 pad.plan_kv_splits(b, kv, cols.shape[1], bs)[0])
     k6_split_cases(gen, ri, ru, site_kw, measure)
     k5_split_cases(gen, ri, ru, site_kw, measure)
+    k7_split_cases(gen, site_kw, measure)
     emit_cases(gen, flush, record, ri, ru, site_kw)
 
 
 def emit_cases(gen, flush, record, ri, ru, site_kw):
-    """K6 and K5 (kv 8 and 4) emitting the int8 input of the output
-    projection from their merge, at the full-width decode shapes: one and
-    two passes, holes and an idle lane, the split boundaries of
-    ``k6_split_cases`` / ``k5_split_cases``. The emit must equal K4's
-    kernel on the same call's f32 output bit for bit; that f32 output must
-    pass ``attend_check`` against the plain version, and the emit may
-    differ from the plain emit (the plain attention, then
-    ``peg_quantize_plain``) by 1 LSB plus that bound in steps of the
-    output grid. Times the emitting call beside the unfused pair (the f32
-    call, then K4)."""
+    """K6 and K5 (kv 8 and 4) and K7 (bf16 and f32 arenas) emitting the
+    int8 input of the output projection from their merge, at the
+    full-width decode shapes: one and two passes, holes and an idle lane,
+    the split boundaries of ``k6_split_cases`` / ``k5_split_cases``. The
+    emit must equal K4's kernel on the same call's f32 output bit for
+    bit; that f32 output must pass ``attend_check`` against the plain
+    version, and the emit may differ from the plain emit (the plain
+    attention, then ``peg_quantize_plain``) by 1 LSB plus that bound in
+    steps of the output grid. Times the emitting call beside the unfused
+    pair (the f32 call, then K4)."""
     import torch
     from repro_torch.kernels import int8_attend_decode as iad
     from repro_torch.kernels import paged_attend_decode as pad
@@ -910,11 +920,17 @@ def emit_cases(gen, flush, record, ri, ru, site_kw):
             ("paged", 4, (587, 200), "two-pass", "split boundaries"),
             ("dense", 8, (128, 64), "two-pass", ""),
             ("dense", 4, (128, 64), "two-pass", ""),
-            ("dense", 8, (587, 200), "two-pass", "split boundaries")):
+            ("dense", 8, (587, 200), "two-pass", "split boundaries"),
+            ("float", 16, (128, 64), "two-pass", ""),
+            ("float", 32, (128, 64), "two-pass", ""),
+            ("float", 16, (128, 64), "softmax_in", ""),
+            ("float", 16, (128, 64), "two-pass", "holes+idle"),
+            ("float", 32, (587, 200), "two-pass", "split boundaries")):
+        # kv_bits: 8 / 4 int payloads, 16 / 32 K7's bf16 / f32 arenas
         s_len, window = shape
         site_name = {"two-pass": "two-pass softmax_out + zero-points",
                      "softmax_in": "softmax_in + zero-points"}[site]
-        if name == "paged":
+        if name in ("paged", "float"):
             bs = 16
             nb = -(-s_len // bs)
             n_blocks = b * nb + 5
@@ -927,16 +943,30 @@ def emit_cases(gen, flush, record, ri, ru, site_kw):
                 table[0, bps:2 * bps] = -1
                 table[1, nb - 1:] = -1
                 q_pos[1], q_pos[3] = s_len // 3, -1
-            ops_, v_abs = operands((n_blocks, bs), kv_bits)
-            args = (*ops_, table, q_pos)
             valid = decode_valid(paged_positions_ref(
                 table, q_pos, s_cap=s_len, block_size=bs), q_pos, window)
+            meta = table.numel() * 4 + b * 4
+        if name == "paged":
+            ops_, v_abs = operands((n_blocks, bs), kv_bits)
+            args = (*ops_, table, q_pos)
             kw = dict(s_cap=s_len, window=window, logit_softcap=50.0,
                       kv_bits=kv_bits, **site_kw(site_name))
             fn, plain = (pad.paged_int8_attend_decode_cuda,
                          pad.paged_int8_attend_decode_plain)
-            meta = table.numel() * 4 + b * 4
             case, kname = f"bs{bs} s_cap{s_len}", "K6"
+        elif name == "float":
+            fdt = torch.bfloat16 if kv_bits == 16 else torch.float32
+            kf, vf = (torch.randn(n_blocks, bs, kv, hd, generator=gen,
+                                  device=dev).to(fdt) for _ in range(2))
+            q = torch.randn(b, kv, g, hd, generator=gen, device=dev) \
+                * 0.3 / hd ** 0.5
+            args = (q, kf, vf, table, q_pos)
+            v_abs = float(vf.float().abs().max())
+            kw = dict(s_cap=s_len, window=window, logit_softcap=50.0,
+                      **site_kw(site_name))
+            fn, plain = (pad.paged_attend_decode_cuda,
+                         pad.paged_attend_decode_plain)
+            case, kname = f"bs{bs} s_cap{s_len} {str(fdt)[6:]}", "K7"
         else:
             k_pos = torch.arange(s_len, device=dev, dtype=torch.int32
                                  ).repeat(b, 1)
@@ -983,17 +1013,27 @@ def emit_cases(gen, flush, record, ri, ru, site_kw):
             fn(*args, **kw).reshape(b, -1), s_o, z_o, **q8), flush)
         p_ms = time_ms(lambda: plain(*args, **ekw), flush)
         n_valid = int(valid.sum())
-        payload = (hd if kv_bits == 4 else 2 * hd) + 8
-        nbytes = (n_valid * kv * payload + meta + b * kv * g * (hd + 8)
-                  + b * kv * 8 + b * kv * g * hd + 8)
+        out_bytes = b * kv * g * hd + 8
+        if name == "float":      # f32 queries, payload rows as stored
+            nbytes = (n_valid * kv * 2 * hd * (kv_bits // 8) + meta
+                      + b * kv * g * hd * 4 + out_bytes)
+        else:
+            payload = (hd if kv_bits == 4 else 2 * hd) + 8
+            nbytes = (n_valid * kv * payload + meta + b * kv * g * (hd + 8)
+                      + b * kv * 8 + out_bytes)
         macs = n_valid * kv * g * hd
         record(fn.__name__[:-len("_cuda")] + "_emit", label, float(worst),
                ms, p_ms, None, nbytes,
-               [2 * macs, 2 * macs], [PEAK_INT8_OPS_PER_S,
-                                      PEAK_F32_OPS_PER_S],
-               kv_bits == 8 and s_len == 128 and not variant
+               [2 * macs, 2 * macs],
+               [PEAK_F32_OPS_PER_S if name == "float"
+                else PEAK_INT8_OPS_PER_S, PEAK_F32_OPS_PER_S],
+               kv_bits in (8, 16) and s_len == 128 and not variant
                and site == "two-pass",
-               f"  unfused f32 call + K4 {pair_ms:.4f} ms")
+               f"  unfused f32 call + K4 {pair_ms:.4f} ms"
+               + split_note(pad.plan_kv_splits(b, kv, nb, bs)[0]
+                            if name != "dense" else
+                            iad.plan_dense_kv_splits(b, kv, s_len)[0],
+                            nbytes, ms))
 
 
 def k6_split_cases(gen, ri, ru, site_kw, measure):
@@ -1056,6 +1096,52 @@ def k6_split_cases(gen, ri, ru, site_kw, measure):
                     splits)
 
 
+def k7_split_cases(gen, site_kw, measure):
+    """K7 at the split-KV kernel's boundaries, at the full width, two-pass,
+    on bf16 arenas (32-cell stages) and f32 arenas (16-cell stages): the
+    tables of ``k6_split_cases`` (37 blocks of 16, 52 of 8), with a hole
+    over a whole split, an unmapped tail, an idle lane and a wrapped
+    ring."""
+    import torch
+    from repro_torch.kernels import paged_attend_decode as pad
+    from repro_torch.kernels.ref import decode_valid, paged_positions_ref
+    dev = torch.device("cuda")
+    b, kv, g, hd = 4, ATT_KV, ATT_G, ATT_HD
+    site = "two-pass softmax_out + zero-points"
+    for bs, s_cap, window in ((16, 587, 200), (8, 413, None)):
+        nb = -(-s_cap // bs)
+        splits, bps = pad.plan_kv_splits(b, kv, nb, bs)
+        require(nb % bps != 0 and splits > 2,
+                f"K7 split case bs{bs} s_cap{s_cap}: not a split boundary")
+        n_blocks = b * nb + 5
+        table = torch.randperm(n_blocks, generator=gen, device=dev)[
+            :b * nb].reshape(b, nb).to(torch.int32)
+        table[0, bps:2 * bps] = -1
+        table[1, nb - 1:] = -1
+        q_pos = torch.tensor([s_cap + 37, s_cap // 3, -1, 2 * s_cap - 1],
+                             device=dev, dtype=torch.int32)
+        valid = decode_valid(paged_positions_ref(
+            table, q_pos, s_cap=s_cap, block_size=bs), q_pos, window)
+        for fdt in (torch.bfloat16, torch.float32):
+            q = torch.randn(b, kv, g, hd, generator=gen, device=dev) \
+                * 0.3 / hd ** 0.5
+            kf, vf = (torch.randn(n_blocks, bs, kv, hd, generator=gen,
+                                  device=dev).to(fdt) for _ in range(2))
+            el = kf.element_size()
+            kw = dict(s_cap=s_cap, window=window, logit_softcap=50.0,
+                      **site_kw(site))
+            measure("paged_attend_decode",
+                    f"B{b} KV{kv}xG{g} hd{hd} bs{bs} s_cap{s_cap} w{window} "
+                    f"{str(fdt)[6:]} split boundaries ({splits} x {bps} "
+                    f"blocks, whole-split hole + idle lane), two-pass "
+                    f"softmax_out", pad.paged_attend_decode_cuda,
+                    pad.paged_attend_decode_plain,
+                    (q, kf, vf, table, q_pos), kw, valid, kv, g, hd,
+                    2 * hd * el, table.numel() * 4 + b * 4,
+                    b * kv * g * hd * 4, float(vf.float().abs().max()),
+                    False, False, splits)
+
+
 def k5_split_cases(gen, ri, ru, site_kw, measure):
     """K5 and K5-kv4 at the split-KV kernel's boundaries, at the full
     width, two-pass: 587 cells (10 splits of 64, the last of 11) with a
@@ -1115,7 +1201,7 @@ def k5_split_cases(gen, ri, ru, site_kw, measure):
 def _counters():
     """{kernel name: (wrapper, launch-count attribute)}; a 4-bit variant
     is counted on its own attribute of the 8-bit kernel's wrapper, and so
-    are K5's and K6's launches that emit int8 (either bit width)."""
+    are K5's, K6's and K7's launches that emit int8 (either bit width)."""
     from repro_torch.kernels import fused_ln_quant as lnq
     from repro_torch.kernels import int8_attend_decode as iad
     from repro_torch.kernels import int8_matmul as imm
@@ -1133,7 +1219,8 @@ def _counters():
                        ("int8_attend_decode", "launches_kv4"),
                        ("paged_int8_attend_decode", "launches_kv4"),
                        ("int8_attend_decode", "launches_emit"),
-                       ("paged_int8_attend_decode", "launches_emit")):
+                       ("paged_int8_attend_decode", "launches_emit"),
+                       ("paged_attend_decode", "launches_emit")):
         counters[f"{name}_{attr[len('launches_'):]}"] = (wrappers[name],
                                                          attr)
     assert set(counters) == set(KERNELS)
@@ -1223,13 +1310,15 @@ def _print_profile(tag, report):
                   f"({t / n:.1f} us each) {name[:90]}")
 
 
-def serve_phase(tag, argv, must_launch, step_emits=None):
+def serve_phase(tag, argv, must_launch, step_emits=None, per_call=None):
     """Drive ``repro_torch.launch.serve.main`` once with every launch count
     set to 0 just before and read just after; returns (counts, rel diff of
     the integer path vs fake-quant, stats, the launcher's output). Decode
     steps are timed and one is profiled (see _timed_decode_steps); with
     ``step_emits`` (a counter name) the profiled decode step must launch
-    that fused emit and no K4."""
+    that fused emit and no K4. ``per_call`` (a counter name and a pattern
+    of kernel names) prints the device time those kernels took in the
+    profiled step per call of that counter's wrapper."""
     import torch
     from repro_torch.launch import serve
     from torch.profiler import ProfilerActivity, profile
@@ -1268,6 +1357,16 @@ def serve_phase(tag, argv, must_launch, step_emits=None):
         require(step.get(step_emits, 0) > 0 and "peg_quantize" not in step,
                 f"{tag}: the profiled decode step launched {step}, not "
                 f"{step_emits} and no peg_quantize")
+    if per_call is not None and report.get("prof") is not None:
+        name, pattern = per_call
+        spans = [e.time_range.elapsed_us() for e in report["prof"].events()
+                 if e.device_type.name == "CUDA"
+                 and re.search(pattern, e.name)]
+        calls = step.get(name, 0)
+        print(f"[{tag}] {name} in the profiled decode step: "
+              f"{sum(spans) / 1e3:.3f} ms in {len(spans)} kernels over "
+              f"{calls} calls"
+              + (f", {sum(spans) / calls:.1f} us a call" if calls else ""))
     m = re.search(r"logits diff (\S+) \(rel (\S+)%\)", out.getvalue())
     require(m is not None, f"{tag}: no [deploy-int8] parity line")
     rel = float(m.group(2)) / 100
@@ -1280,7 +1379,7 @@ def serve_phase(tag, argv, must_launch, step_emits=None):
 
 
 def entry_point_phase():
-    """Phase 10. K8-K10 serve no model here (no LayerNorm config is ported,
+    """Phase 11. K8-K10 serve no model here (no LayerNorm config is ported,
     and the reference calls its fake-quant kernels only from its tests and
     its kernel bench), so their path is their public entry points: driven
     as the reference's bench drives them (``benchmarks/kernel_bench.py``:
@@ -1510,7 +1609,8 @@ def ptxas_report():
     """``--ptxas``: compile the split and cluster kernels' sources once more
     with ``-Xptxas -v`` (into build/ptxas) and print one line per kernel
     instantiation: its registers, static shared memory (the cp.async rings
-    of ``int8_matmul.cu`` are dynamic) and spills."""
+    of ``int8_matmul.cu`` and the split-KV stages of K5-K7 are dynamic)
+    and spills."""
     from repro_torch.kernels import _build
     out = _build.BUILD_ROOT / "ptxas"
     out.mkdir(parents=True, exist_ok=True)
@@ -1626,9 +1726,23 @@ def main() -> int:
             f"reference's (36, 10, 6, 16, 6)")
     r16, r16_rel, _, r16_out = serve_phase(
         "reduced-paged-kv16", quick_argv("16", *reduced_quick),
-        ("paged_attend_decode",))
+        ("paged_attend_decode", "paged_attend_decode_emit"),
+        "paged_attend_decode_emit")
     add(r16)
     require_parity("reduced-paged-kv16", r16_out, 3)
+    # K7 at full width: the quickstart's flags with a bf16 paged cache
+    f16, f16_rel, f16_stats, _ = serve_phase(
+        "full-quickstart-kv16", quick_argv("16", *FULL_QUICK),
+        ("rms_quantize", "int8_matmul", "peg_quantize",
+         "paged_attend_decode", "paged_attend_decode_emit"),
+        "paged_attend_decode_emit",
+        ("paged_attend_decode",
+         r"split_attend_kernel(<__nv_bfloat16|<float|I13__nv_bfloat16|If)"))
+    add(f16)
+    print(f"[full-quickstart-kv16] peak kv-cache {f16_stats.cache_bytes} "
+          f"bytes ({f16_stats.blocks_in_use} blocks) against "
+          f"{fq_stats.cache_bytes} bytes ({fq_stats.blocks_in_use} blocks) "
+          f"at kv-bits 8")
 
     # The 4-bit deploy path: int4 weights (q4) and int4 KV caches. At full
     # width the attention projections pack as q4 (K3-w4); the FFN keeps the
@@ -1678,6 +1792,8 @@ def main() -> int:
     print(f"[full] integer vs fake-quant (bf16) logits: rel {full_rel:.4%}")
     print(f"[full-quickstart] integer vs fake-quant (bf16) logits: rel "
           f"{fq_rel:.4%}; int8 vs bf16 KV cache: rel {fq_kv:.4%}")
+    print(f"[full-quickstart-kv16] integer vs fake-quant (bf16) logits: rel "
+          f"{f16_rel:.4%}")
     print(f"[full-quickstart-4bit] integer vs fake-quant (bf16) logits: rel "
           f"{f4_rel:.4%}; int4 vs bf16 KV cache: rel {f4_kv:.4%}")
     print(f"[reduced-quickstart-4bit] int4 vs f32 KV cache: rel "

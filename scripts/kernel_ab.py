@@ -19,14 +19,20 @@ G = 4 and 6, f32 and requant outputs, and the reduced width's 4 x 16
 groups), K4 ``peg_quantize`` (f32 wo rows and bf16 rows in 4 groups), K10
 on bf16 rows, K5 / K6 two-pass at the full-width decode shapes (S or
 s_cap 128 and 4096, kv 8 and 4), K6 one pass, K6 emitting the int8 wo
-input from its merge (a tree whose K6 has no emit runs K6, then K4) and K7
-on bf16 arenas.
+input from its merge (a tree whose K6 has no emit runs K6, then K4), and
+K7 two-pass on bf16 and f32 arenas at s_cap 128 and 4096, with K7 on bf16
+emitting the int8 wo input at s_cap 128 (a tree whose K7 has no emit runs
+K7, then K4).
 Each turn then serves the README quickstart at the reduced width (kv 8,
 and w4 / kv4) and takes a digest of its greedy tokens. Prints one line per
 case with the two trees' medians over their two turns, B / A and whether
 all four turns' outputs have the same bytes, whether the four turns served
 the same tokens, then the card's name and power limit; exits 1 when any
-case's bytes or tokens differ.
+case's bytes or tokens differ. K7's cases are the exception: two designs
+of K7 sum floats in other orders, so each turn holds K7 to its plain
+version with chip_smoke's attention bounds (``attend_check``; the emit to
+within 1 LSB on 0.1 % of the elements), the two turns of one tree must
+agree bit for bit, and the largest |B - A| between the trees is printed.
 """
 from __future__ import annotations
 
@@ -45,8 +51,9 @@ B, ATT = 4, (4, 4, 2, 256)               # decode lanes, attention shape
 
 
 def cases():
-    """{name: (kernel call, plain call)}, each a function of no arguments,
-    on the card."""
+    """({name: (kernel call, plain call)}, each a function of no arguments,
+    on the card; {name of a K7 case: (softmax_out step, max|v|), or None
+    for its int8 emit})."""
     import torch
     from repro_torch.kernels import fused_ln_quant as lnq
     from repro_torch.kernels import int8_attend_decode as iad
@@ -71,7 +78,7 @@ def cases():
     def bind(kernel, plain, *args, **kw):
         return (lambda: kernel(*args, **kw)), (lambda: plain(*args, **kw))
 
-    out = {}
+    out, k7 = {}, {}
     q8 = dict(qmin=-128, qmax=127)
     for rows in (B, 16 * B):
         for g in (1, 4):
@@ -131,8 +138,9 @@ def cases():
                  smo_quant=torch.tensor([1 / 255, 0.0], device=dev),
                  smo_qmin=0, smo_qmax=255)
     one_pass = dict(sites, smo_quant=None)
-    emits = "out_scale" in inspect.signature(
-        pad.paged_int8_attend_decode_cuda).parameters
+    emits, k7_emits = ("out_scale" in inspect.signature(fn).parameters
+                       for fn in (pad.paged_int8_attend_decode_cuda,
+                                  pad.paged_attend_decode_cuda))
     for kv_bits in (8, 4):
         def payload(*shape):
             if kv_bits == 4:
@@ -191,16 +199,33 @@ def cases():
                         for fn, cuda in (
                             (pad.paged_int8_attend_decode_cuda, True),
                             (pad.paged_int8_attend_decode_plain, False)))
-            if kv_bits == 8:           # K7 on bf16 arenas of the same table
-                kf, vf = (randn(n_blocks, bs, kv, hd).to(torch.bfloat16)
-                          for _ in range(2))
-                out[f"paged_attend_decode bf16 s_cap{s_len} two-pass"] = bind(
-                    pad.paged_attend_decode_cuda,
-                    pad.paged_attend_decode_plain,
-                    randn(b, kv, g, hd) * 0.3 / hd ** 0.5, kf, vf, table,
-                    q_pos, s_cap=s_len, window=window, logit_softcap=50.0,
-                    **sites)
-    return out
+            if kv_bits == 8:    # K7 on bf16 and f32 arenas of the same table
+                q7 = randn(b, kv, g, hd) * 0.3 / hd ** 0.5
+                kw = dict(s_cap=s_len, window=window, logit_softcap=50.0,
+                          **sites)
+                for dt, label in ((torch.bfloat16, "bf16"),
+                                  (torch.float32, "f32")):
+                    kf, vf = (randn(n_blocks, bs, kv, hd).to(dt)
+                              for _ in range(2))
+                    args = (q7, kf, vf, table, q_pos)
+                    name = f"paged_attend_decode {label} s_cap{s_len} two-pass"
+                    out[name] = bind(pad.paged_attend_decode_cuda,
+                                     pad.paged_attend_decode_plain, *args,
+                                     **kw)
+                    k7[name] = (1 / 255, float(vf.float().abs().max()))
+                    if s_len == 128 and label == "bf16":
+                        grid = (torch.tensor([0.01], device=dev),
+                                torch.tensor([3.0], device=dev))
+                        name += " emitting int8"
+                        out[name] = tuple(
+                            emit_call(fn, pq.peg_quantize_cuda if cuda else
+                                      pq.peg_quantize_plain, k7_emits, args,
+                                      kw, grid)
+                            for fn, cuda in (
+                                (pad.paged_attend_decode_cuda, True),
+                                (pad.paged_attend_decode_plain, False)))
+                        k7[name] = None
+    return out, k7
 
 
 def emit_call(attend, quantize, emits, args, kw, grid):
@@ -225,30 +250,38 @@ def digest(t) -> str:
                           ).hexdigest()[:16]
 
 
-def one(tree: Path) -> dict:
+def one(tree: Path, saved: Path) -> dict:
     """Build the tree's kernels, check and time every case; {case: (ms,
-    digest of the output)}."""
+    digest of the output)}. K7's outputs are saved to ``saved``."""
     import torch
     sys.path.insert(0, str(HERE))
-    from chip_smoke import time_ms        # (puts this tree's src on the path)
+    # (puts this tree's src on the path)
+    from chip_smoke import attend_check, time_ms
     sys.path.insert(0, str(tree / "src"))
     from repro_torch.kernels import _build
     if Path(_build.__file__).resolve().parents[3] != tree:
         raise RuntimeError(f"imported {_build.__file__}, not from {tree}")
     _build.build_all()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    results = {}
-    for name, (kernel, plain) in cases().items():
+    results, k7_out = {}, {}
+    all_cases, k7 = cases()
+    for name, (kernel, plain) in all_cases.items():
         got, want = kernel(), plain()
         torch.cuda.synchronize()
-        if got.dtype == torch.int8:
+        if k7.get(name) is not None:
+            attend_check(got, want, *k7[name])
+            off = 0
+        elif got.dtype == torch.int8:
             off = int(((got.int() - want.int()).abs() > 1).sum())
         else:
             err = (got.float() - want.float()).abs()
             off = int((err > 1e-2 * float(want.float().abs().max())).sum())
         if off > 1e-3 * got.numel():
             raise RuntimeError(f"{name}: {off} elements off the plain version")
+        if name in k7:
+            k7_out[name] = got.cpu()
         results[name] = (time_ms(kernel, flush), digest(got))
+    torch.save(k7_out, saved)
     return results
 
 
@@ -283,20 +316,25 @@ def quickstart_tokens() -> dict:
 
 def main() -> int:
     if sys.argv[1:2] == ["--one"]:
-        results = one(Path(sys.argv[2]).resolve())
+        results = one(Path(sys.argv[2]).resolve(), Path(sys.argv[3]))
         with contextlib.redirect_stdout(sys.stderr):
             tokens = quickstart_tokens()
         print(json.dumps({"kernels": results, "tokens": tokens}))
         return 0
+    import torch
     a, b = (Path(p).resolve() for p in sys.argv[1:3])
-    runs = {a: [], b: []}
-    for tree in (a, b, b, a):
-        proc = subprocess.run([sys.executable, __file__, "--one", str(tree)],
-                              capture_output=True, text=True)
+    runs, saved = {a: [], b: []}, {a: [], b: []}
+    scratch = HERE / "build" / "kernel_ab"
+    scratch.mkdir(parents=True, exist_ok=True)
+    for turn, tree in enumerate((a, b, b, a)):
+        out = scratch / f"k7_turn{turn}.pt"
+        proc = subprocess.run([sys.executable, __file__, "--one", str(tree),
+                               str(out)], capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, file=sys.stderr)
             return 1
         runs[tree].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        saved[tree].append(torch.load(out))
     differ = []
     kernels = [{n: r["kernels"][n] for n in r["kernels"]}
                for r in runs[a] + runs[b]]
@@ -304,12 +342,20 @@ def main() -> int:
         ta = statistics.median(k[name][0] for k in kernels[:2]) * 1e3
         tb = statistics.median(k[name][0] for k in kernels[2:]) * 1e3
         turns = " ".join(f"{k[name][0] * 1e3:.1f}" for k in kernels)
-        same = len({k[name][1] for k in kernels}) == 1
+        if name in saved[a][0]:      # K7: equal within a tree, |B - A| shown
+            same = all(len({k[name][1] for k in ks}) == 1
+                       for ks in (kernels[:2], kernels[2:]))
+            gap = float((saved[b][0][name].float() -
+                         saved[a][0][name].float()).abs().max())
+            verdict = (f"bytes {'equal' if same else 'DIFFER'} within each "
+                       f"tree, max |B - A| {gap:.3e}")
+        else:
+            same = len({k[name][1] for k in kernels}) == 1
+            verdict = f"bytes {'equal' if same else 'DIFFER'}"
         if not same:
             differ.append(name)
         print(f"[ab] {name}: A {ta:.1f} us  B {tb:.1f} us  B/A {tb / ta:.3f}"
-              f"  (turns A A B B: {turns}); bytes "
-              f"{'equal' if same else 'DIFFER'}")
+              f"  (turns A A B B: {turns}); {verdict}")
     for name in runs[a][0]["tokens"]:
         same = len({r["tokens"][name] for r in runs[a] + runs[b]}) == 1
         if not same:
@@ -318,7 +364,8 @@ def main() -> int:
               f"{'equal' if same else 'DIFFER'} in all four turns")
     total = len(kernels[0]) + len(runs[a][0]["tokens"])
     print(f"[ab] {total - len(differ)} of {total} cases: the same bytes in "
-          f"all four turns" + (f"; differ: {differ}" if differ else ""))
+          f"all four turns (K7: within each tree)"
+          + (f"; differ: {differ}" if differ else ""))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)

@@ -2,11 +2,11 @@
 // Hopper (sm_90a). Replaces the TPU kernel
 // src/repro/kernels/int8_attend_decode.py::int8_attend_decode (body
 // _attend_decode_kernel, kv_bits = 8 and 4). Bound by bytes (the cache
-// read). It runs the split-KV body of split_attend.cuh (shared with K6)
-// without its PAGED flag: split j of a lane owns the cells [j * cps,
-// (j + 1) * cps) (kernels/int8_attend_decode.py, plan_dense_kv_splits) and
-// reads each cell's validity from its stored position, since the cache of
-// a sliding-window layer is a ring that wraps.
+// read). It runs the split-KV body of split_attend.cuh (shared with K6 and
+// K7) on int8 payloads without its PAGED flag: split j of a lane owns the
+// cells [j * cps, (j + 1) * cps) (kernels/int8_attend_decode.py,
+// plan_dense_kv_splits) and reads each cell's validity from its stored
+// position, since the cache of a sliding-window layer is a ring that wraps.
 #include "split_attend.cuh"
 
 // q_q (B,KV,G,hd) int8; q_scale/q_zp (B,KV,G) f32 (attention scale folded
@@ -29,15 +29,15 @@ extern "C" int int8_attend_decode(
     int sm_qmin, int sm_qmax, int smo_qmin, int smo_qmax, int kv_bits,
     int splits, int cps, void* ws, void* counters, void* stream) {
   if (batch <= 0 || kv <= 0) return (int)cudaGetLastError();
-  if (splits < 1 || splits > split_attend::kMaxSplits || cps < 1 ||
+  if (splits < 1 || splits > splitkv::kMaxSplits || cps < 1 ||
       (long)(splits - 1) * cps >= s_len || (long)splits * cps < s_len)
     return (int)cudaErrorInvalidValue;
-  split_attend::SplitArgs a = split_attend::split_args(
+  splitkv::SplitArgs a = splitkv::quant_args(
       q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale, v_q, v_scale, q_pos, sm,
       smo, out, out_q, out_scale, out_zp, out_qmin, out_qmax, batch, kv, g,
       hd, window, softcap, sm_qmin, sm_qmax, smo_qmin, smo_qmax, kv_bits,
       splits, cps, ws, counters);
   a.k_pos = (const int*)k_pos;
   a.s_len = s_len;
-  return split_attend::launch<false>(a, kv_bits, stream);
+  return splitkv::launch<false>(a, kv_bits, stream);
 }

@@ -6,39 +6,18 @@
 // the lane's row of the block table and derives its position from (L,
 // q_pos, s_cap), so stale cells of a reused block are never read as valid.
 //
-// K7 runs the one-block-per-(kv head, lane) body of attend_decode.cuh.
-// K6 runs the split-KV body of split_attend.cuh (shared with K5) with its
-// PAGED flag: a split owns a run of the lane's paged blocks
+// K5, K6 and K7 share one body, the split-KV kernel of split_attend.cuh:
+// here with its PAGED flag, int8 payloads for K6 and float (f32 or bf16)
+// payloads for K7. A split owns a run of the lane's paged blocks
 // (kernels/paged_attend_decode.py, plan_kv_splits).
 #include "split_attend.cuh"
 
 namespace {
 
-attend::Args paged_args(const void* table, const void* q_pos, const void* sm,
-                        const void* smo, void* out, int kv, int g, int hd,
-                        int nb, int bs, int s_cap, int window, float softcap,
-                        int sm_qmin, int sm_qmax, int smo_qmin,
-                        int smo_qmax) {
-  attend::Args a = {};
-  a.table = (const int*)table;
-  a.q_pos = (const int*)q_pos;
-  a.sm = (const float*)sm;
-  a.smo = (const float*)smo;
-  a.out = (float*)out;
-  a.kv = kv;
-  a.g = g;
-  a.hd = hd;
-  a.n_cells = nb * bs;
-  a.nb = nb;
-  a.bs = bs;
-  a.s_cap = s_cap;
-  a.window = window;
-  a.softcap = softcap;
-  a.sm_qmin = (float)sm_qmin;
-  a.sm_qmax = (float)sm_qmax;
-  a.smo_qmin = (float)smo_qmin;
-  a.smo_qmax = (float)smo_qmax;
-  return a;
+bool bad_plan(int splits, int bps, int nb) {
+  return splits < 1 || splits > splitkv::kMaxSplits || bps < 1 ||
+         bps > splitkv::kMaxBlocks || (splits - 1) * bps >= nb ||
+         splits * bps < nb;
 }
 
 }  // namespace
@@ -64,13 +43,9 @@ extern "C" int paged_int8_attend_decode(
     int s_cap, int window, float softcap, int sm_qmin, int sm_qmax,
     int smo_qmin, int smo_qmax, int kv_bits, int splits, int bps, void* ws,
     void* counters, void* stream) {
-  using split_attend::kMaxBlocks;
-  using split_attend::kMaxSplits;
   if (batch <= 0 || kv <= 0) return (int)cudaGetLastError();
-  if (splits < 1 || splits > kMaxSplits || bps < 1 || bps > kMaxBlocks ||
-      (splits - 1) * bps >= nb || splits * bps < nb)
-    return (int)cudaErrorInvalidValue;
-  split_attend::SplitArgs a = split_attend::split_args(
+  if (bad_plan(splits, bps, nb)) return (int)cudaErrorInvalidValue;
+  splitkv::SplitArgs a = splitkv::quant_args(
       q_q, q_scale, q_zp, k_zp, v_zp, k_arena, k_scale, v_arena, v_scale,
       q_pos, sm, smo, out, out_q, out_scale, out_zp, out_qmin, out_qmax,
       batch, kv, g, hd, window, softcap, sm_qmin, sm_qmax, smo_qmin,
@@ -79,25 +54,35 @@ extern "C" int paged_int8_attend_decode(
   a.nb = nb;
   a.bs = bs;
   a.s_cap = s_cap;
-  return split_attend::launch<true>(a, kv_bits, stream);
+  return splitkv::launch<true>(a, kv_bits, stream);
 }
 
 // K7. q (B,KV,G,hd) f32 with the attention scale folded in; k_arena/v_arena
-// (N,bs,KV,hd) f32 (kv_is_bf16 = 0) or bf16 (kv_is_bf16 = 1); the rest as
-// in paged_int8_attend_decode. Returns cudaGetLastError().
+// (N,bs,KV,hd) f32 (kv_is_bf16 = 0) or bf16 (kv_is_bf16 = 1), 4-byte
+// aligned (16-byte aligned rows are copied 16 bytes at a time); out, out_q
+// and the rest as in paged_int8_attend_decode. hd % 4 == 0, hd <= 256,
+// G <= 8. Returns cudaGetLastError().
 extern "C" int paged_attend_decode(
     const void* q, const void* k_arena, const void* v_arena, int kv_is_bf16,
     const void* table, const void* q_pos, const void* sm, const void* smo,
-    void* out, int batch, int kv, int g, int hd, int nb, int bs, int s_cap,
-    int window, float softcap, int sm_qmin, int sm_qmax, int smo_qmin,
-    int smo_qmax, void* stream) {
-  attend::Args a = paged_args(table, q_pos, sm, smo, out, kv, g, hd, nb, bs,
-                              s_cap, window, softcap, sm_qmin, sm_qmax,
-                              smo_qmin, smo_qmax);
-  a.q = (const float*)q;
-  a.k = k_arena;
-  a.v = v_arena;
+    void* out, void* out_q, const void* out_scale, const void* out_zp,
+    int out_qmin, int out_qmax, int batch, int kv, int g, int hd, int nb,
+    int bs, int s_cap, int window, float softcap, int sm_qmin, int sm_qmax,
+    int smo_qmin, int smo_qmax, int splits, int bps, void* ws,
+    void* counters, void* stream) {
+  if (batch <= 0 || kv <= 0) return (int)cudaGetLastError();
+  if (bad_plan(splits, bps, nb)) return (int)cudaErrorInvalidValue;
+  splitkv::SplitArgs a = splitkv::base_args(
+      k_arena, v_arena, hd * (kv_is_bf16 ? 2 : 4), q_pos, sm, smo, out,
+      out_q, out_scale, out_zp, out_qmin, out_qmax, batch, kv, g, hd,
+      window, softcap, sm_qmin, sm_qmax, smo_qmin, smo_qmax, splits, bps,
+      ws, counters);
+  a.qf = (const float*)q;
+  a.table = (const int*)table;
+  a.nb = nb;
+  a.bs = bs;
+  a.s_cap = s_cap;
   if (kv_is_bf16)
-    return attend::launch<__nv_bfloat16>(a, batch, stream);
-  return attend::launch<float>(a, batch, stream);
+    return splitkv::launch_float<__nv_bfloat16>(a, stream);
+  return splitkv::launch_float<float>(a, stream);
 }

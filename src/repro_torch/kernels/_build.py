@@ -45,8 +45,8 @@ SIGNATURES = {
     "paged_attend_decode": {
         "paged_int8_attend_decode": [_P] * 17 + [_I] * 10 + [_F] +
         [_I] * 7 + [_P] * 3,
-        "paged_attend_decode": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 8 + [_F] +
-        [_I] * 4 + [_P]},
+        "paged_attend_decode": [_P] * 3 + [_I] + [_P] * 8 + [_I] * 10 +
+        [_F] + [_I] * 6 + [_P] * 3},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

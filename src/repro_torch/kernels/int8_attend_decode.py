@@ -28,7 +28,8 @@ output. The wrapper counts 8-bit launches in ``launches``, 4-bit ones in
 ``launches_emit``. The helpers here are shared with the paged kernels
 (``paged_attend_decode``).
 
-The kernel is split-KV, on the body K6 runs (``csrc/split_attend.cuh``):
+The kernel is split-KV, on the body K6 and K7 run
+(``csrc/split_attend.cuh``):
 each lane's S cells are cut into contiguous runs (:func:`plan_dense_kv_splits`),
 each run's partial softmax state goes to a per-device workspace that the
 kernel leaves clean, and the runs merge in split order; with
@@ -240,12 +241,12 @@ _SCRATCH: dict = {}
 
 
 def split_scratch(device, stream, n_words, n_counters):
-    """The split-KV workspace of K5 and K6 on ``device`` for launches on
-    ``stream``: ``n_words`` f32 words of partials and ``n_counters`` int32
-    arrival counters, zeroed once (the kernels leave them zeroed).
+    """The split-KV workspace of K5, K6 and K7 on ``device`` for launches
+    on ``stream``: ``n_words`` f32 words of partials and ``n_counters``
+    int32 arrival counters, zeroed once (the kernels leave them zeroed).
     Allocated at first use, grown on demand and kept, so a call allocates
-    and clears nothing; the launches of one stream run in order, so K5 and
-    K6 share it."""
+    and clears nothing; the launches of one stream run in order, so the
+    three kernels share it."""
     key = (device, stream)
     words, counters = _SCRATCH.get(key, (None, None))
     if words is None or words.numel() < n_words:

@@ -191,19 +191,22 @@ def paged_attend_decode(q, k_arena, v_arena, block_table, q_pos, *,
                         s_cap: int, window=None, logit_softcap=None,
                         sm_quant=None, sm_qmin: int = 0, sm_qmax: int = 255,
                         smo_quant=None, smo_qmin: int = 0,
-                        smo_qmax: int = 255):
+                        smo_qmax: int = 255, out_scale=None, out_zp=None,
+                        qmin: int = -128, qmax: int = 127):
     """Decode attention over a paged f32/bf16 KV cache (K7). q (B, KV, G,
     hd) with the attention scale folded in; arenas (N, bs, KV, hd);
     block_table (B, nb) int32 (-1 = unmapped); q_pos (B,) (-1 = idle lane);
-    ``s_cap`` is the layer's logical capacity. Returns (B, KV, G, hd) f32.
-    """
+    ``s_cap`` is the layer's logical capacity. Returns (B, KV, G, hd) f32,
+    or the (B, KV*G*hd) int8 emit with ``out_scale`` (as
+    :func:`int8_attend_decode`)."""
     fn = _pick(q, _pad.paged_attend_decode_plain,
                _pad.paged_attend_decode_cuda)
     return fn(q, k_arena, v_arena,
               _lane_blocks(block_table, s_cap, k_arena.shape[1]), q_pos,
               s_cap=s_cap, window=window, logit_softcap=logit_softcap,
               sm_quant=sm_quant, sm_qmin=sm_qmin, sm_qmax=sm_qmax,
-              smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax)
+              smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax,
+              out_scale=out_scale, out_zp=out_zp, qmin=qmin, qmax=qmax)
 
 
 def paged_int8_attend_decode(q_q, q_scale, k_arena, k_scale, v_arena,

@@ -16,15 +16,17 @@ so stale cells of a reused block are never read as valid.
   and K5's optional int8 emit for the output projection (``out_scale``;
   ``launches_emit``).
 * ``paged_attend_decode_*`` (K7; port of ``...paged_attend_decode``): f32 or
-  bf16 arenas, queries f32 with the attention scale folded in.
+  bf16 arenas, queries f32 with the attention scale folded in
+  (``launches``), and the same optional int8 emit (``launches_emit``).
 
 ``*_cuda`` launch ``csrc/paged_attend_decode.cu``; ``*_plain`` gather each
 lane's blocks into a dense view and run the plain softmax of
-``int8_attend_decode``. K6's kernel, the split-KV body it shares with K5
-(``csrc/split_attend.cuh``), splits each lane's blocks across thread
-blocks (:func:`plan_kv_splits`) and merges the splits' partial softmax
-states in split order, in a per-device workspace that it leaves clean;
-with ``softmax_out`` it makes two launches from one C call.
+``int8_attend_decode``. Both kernels run the split-KV body they share with
+K5 (``csrc/split_attend.cuh``; int8 or float payloads): it splits each
+lane's blocks across thread blocks (:func:`plan_kv_splits`) and merges the
+splits' partial softmax states in split order, in a per-device workspace
+that it leaves clean; with ``softmax_out`` it makes two launches from one
+C call.
 """
 from __future__ import annotations
 
@@ -60,16 +62,18 @@ def paged_int8_attend_decode_plain(q_q, q_scale, q_zp, k_zp, v_zp, k_arena,
 def paged_attend_decode_plain(q, k_arena, v_arena, block_table, q_pos, *,
                               s_cap, window, logit_softcap, sm_quant,
                               sm_qmin, sm_qmax, smo_quant, smo_qmin,
-                              smo_qmax) -> torch.Tensor:
+                              smo_qmax, out_scale=None, out_zp=None,
+                              qmin=-128, qmax=127) -> torch.Tensor:
     kp = paged_positions_ref(block_table, q_pos, s_cap=s_cap,
                              block_size=k_arena.shape[1])
     k = paged_gather_ref(k_arena, block_table).float()
     s = torch.einsum("bkgd,bskd->bkgs", q.float(), k)
-    return _iad.softmax_attend(
+    out = _iad.softmax_attend(
         s, decode_valid(kp, q_pos, window),
         paged_gather_ref(v_arena, block_table), logit_softcap=logit_softcap,
         sm_quant=sm_quant, sm_qmin=sm_qmin, sm_qmax=sm_qmax,
         smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax)
+    return _iad.emit_plain(out, out_scale, out_zp, qmin, qmax)
 
 
 SMS = _iad.SMS
@@ -79,15 +83,16 @@ MAX_SPLIT_BLOCKS = 256   # the kernel's table entries a split holds
 
 
 def plan_kv_splits(batch, kv, nb, bs):
-    """(splits, blocks per split) of K6 for ``batch`` lanes of ``kv`` heads
-    over ``nb`` paged blocks of ``bs`` cells: enough splits for the grid to
-    reach one wave (``SMS`` blocks) and for no split to hold more than 128
-    cells, at most one per paged block and at most 32; split j owns the
-    blocks [j * bps, min(nb, (j + 1) * bps)), none of them empty."""
+    """(splits, blocks per split) of K6 and K7 for ``batch`` lanes of
+    ``kv`` heads over ``nb`` paged blocks of ``bs`` cells: enough splits
+    for the grid to reach one wave (``SMS`` blocks) and for no split to
+    hold more than 128 cells, at most one per paged block and at most 32;
+    split j owns the blocks [j * bps, min(nb, (j + 1) * bps)), none of
+    them empty."""
     want = max(-(-SMS // max(1, batch * kv)), -(-nb * bs // MAX_SPLIT_CELLS))
     bps = max(1, nb // max(1, min(want, nb)), -(-nb // MAX_SPLITS))
     if bps > MAX_SPLIT_BLOCKS:
-        raise ValueError(f"paged_int8_attend_decode: {nb} blocks exceed the "
+        raise ValueError(f"paged attention decode: {nb} blocks exceed the "
                          f"kernel's {MAX_SPLITS} x {MAX_SPLIT_BLOCKS}")
     return -(-nb // bps), bps
 
@@ -150,8 +155,9 @@ def paged_int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_arena,
 
 def paged_attend_decode_cuda(q, k_arena, v_arena, block_table, q_pos, *,
                              s_cap, window, logit_softcap, sm_quant, sm_qmin,
-                             sm_qmax, smo_quant, smo_qmin, smo_qmax
-                             ) -> torch.Tensor:
+                             sm_qmax, smo_quant, smo_qmin, smo_qmax,
+                             out_scale=None, out_zp=None, qmin=-128,
+                             qmax=127) -> torch.Tensor:
     b, kv, g, hd = _iad.check_query(q.float(), torch.float32)
     _args.on_cuda(q, k_arena, v_arena, block_table, q_pos)
     n, bs = k_arena.shape[:2]
@@ -165,18 +171,31 @@ def paged_attend_decode_cuda(q, k_arena, v_arena, block_table, q_pos, *,
                          f"{tuple(v_arena.shape)} {v_arena.dtype}")
     q = q.float().contiguous()
     k_arena, v_arena = k_arena.contiguous(), v_arena.contiguous()
+    if k_arena.data_ptr() % 4 or v_arena.data_ptr() % 4:
+        raise ValueError("paged_attend_decode: arenas must be 4-byte "
+                         "aligned (the kernel copies 4 or 16 bytes at a "
+                         "time)")
     table, nb = _table(block_table, b, bs, s_cap)
     q_pos = _iad.i32(q_pos.reshape(-1), (b,), "q_pos")
     sm, smo = _iad.site_args(sm_quant, smo_quant, q.device)
-    out = torch.empty((b, kv, g, hd), dtype=torch.float32, device=q.device)
+    out, s_o, z_o = _iad.output(b, kv, g, hd, out_scale, out_zp, q.device)
+    emit = s_o is not None
+    splits, bps = plan_kv_splits(b, kv, nb, bs)
+    stream = _args.stream()
+    ws, counters = _iad.split_scratch(q.device, stream,
+                                      b * kv * splits * g * (hd + 2), b * kv)
     p = _args.ptr
     _build.check(_build.lib("paged_attend_decode").paged_attend_decode(
         p(q), p(k_arena), p(v_arena), int(k_arena.dtype == torch.bfloat16),
-        p(table), p(q_pos), p(sm), p(smo), p(out), b, kv, g, hd, nb, bs,
-        s_cap, _iad.window_arg(window), _iad.softcap_arg(logit_softcap),
-        sm_qmin, sm_qmax, smo_qmin, smo_qmax, _args.stream()),
+        p(table), p(q_pos), p(sm), p(smo), p(None if emit else out),
+        p(out if emit else None), p(s_o), p(z_o), qmin, qmax, b, kv, g, hd,
+        nb, bs, s_cap, _iad.window_arg(window),
+        _iad.softcap_arg(logit_softcap), sm_qmin, sm_qmax, smo_qmin,
+        smo_qmax, splits, bps, p(ws), p(counters), stream),
         "paged_attend_decode")
     paged_attend_decode_cuda.launches += 1
+    if emit:
+        paged_attend_decode_cuda.launches_emit += 1
     return out
 
 
@@ -184,3 +203,4 @@ paged_int8_attend_decode_cuda.launches = 0
 paged_int8_attend_decode_cuda.launches_kv4 = 0
 paged_int8_attend_decode_cuda.launches_emit = 0
 paged_attend_decode_cuda.launches = 0
+paged_attend_decode_cuda.launches_emit = 0

@@ -571,8 +571,8 @@ def _kernel_decode_attend(q, cache, block_table, q_pos, cfg: AttnConfig,
     attention scale folded into their scales; K7 takes it folded into q.
     Returns (B, 1, H, hd) in q.dtype, or None when a site is not
     per-tensor (the caller then reads the cache back and attends). Given
-    ``wo_aq``, the deploy quantizer of the output projection's input, an
-    int8 kernel whose queries are f32 and whose grid is per-tensor with no
+    ``wo_aq``, the deploy quantizer of the output projection's input, a
+    kernel whose queries are f32 and whose grid is per-tensor with no
     permutation emits that input itself from its merge (the ``wo_in``
     quantize folded in): the result is then the (B, 1, H*hd) int8
     ``QTensor``, the bytes ``quantize_act`` would make of the f32
@@ -591,6 +591,11 @@ def _kernel_decode_attend(q, cache, block_table, q_pos, cfg: AttnConfig,
     if isinstance(cache, (PagedKVCache, PagedQuantKVCache)):
         kw["s_cap"] = paged_capacity(block_table, cache.pos.shape[1],
                                      cfg.window)
+    emit = (wo_aq is not None and wo_aq.per_tensor
+            and q.dtype == torch.float32)
+    if emit:
+        kw.update(out_scale=wo_aq.scales[0], out_zp=wo_aq.zps[0],
+                  qmin=wo_aq.qmin, qmax=wo_aq.qmax)
     if isinstance(cache, PagedKVCache):
         out = kops.paged_attend_decode(qg * cfg.scale, cache.k, cache.v,
                                        block_table, q_pos[:, 0], **kw)
@@ -601,21 +606,16 @@ def _kernel_decode_attend(q, cache, block_table, q_pos, cfg: AttnConfig,
                 cache.v_s)
         kw.update(q_zp=qz, k_zp=kz, v_zp=vz,
                   kv_bits=4 if isinstance(cache, _INT4_CACHES) else 8)
-        emit = (wo_aq is not None and wo_aq.per_tensor
-                and q.dtype == torch.float32)
-        if emit:
-            kw.update(out_scale=wo_aq.scales[0], out_zp=wo_aq.zps[0],
-                      qmin=wo_aq.qmin, qmax=wo_aq.qmax)
         if isinstance(cache, PagedQuantKVCache):
             out = kops.paged_int8_attend_decode(*args, block_table,
                                                 q_pos[:, 0], **kw)
         else:
             out = kops.int8_attend_decode(*args, cache.pos, q_pos[:, 0],
                                           **kw)
-        if emit:
-            from repro_torch.core.deploy import QTensor
-            return QTensor(q=out.reshape(B, 1, H * hd), scales=wo_aq.scales,
-                           zps=wo_aq.zps)
+    if emit:
+        from repro_torch.core.deploy import QTensor
+        return QTensor(q=out.reshape(B, 1, H * hd), scales=wo_aq.scales,
+                       zps=wo_aq.zps)
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 

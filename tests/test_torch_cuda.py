@@ -412,7 +412,7 @@ def test_reduced_deploy_serve_launches_every_kernel(gen):
 
 def test_quickstart_serves_launch_the_attention_kernels(gen):
     """The README quickstart at reduced width goes through K1-K6; the same
-    command with an f32 paged cache goes through K7."""
+    command with an f32 paged cache goes through K7 and its int8 emit."""
     from repro_torch.launch import serve
     argv = ["--arch", "gemma2-2b", "--reduced", "--requests", "6",
             "--prompt-len", "24", "--new-tokens", "6", "--max-len", "64",
@@ -424,9 +424,12 @@ def test_quickstart_serves_launch_the_attention_kernels(gen):
     for kv_bits, used in (("8", fns[:6]), ("16", fns[6:])):
         for fn in fns:
             fn.launches = 0
+        pad.paged_attend_decode_cuda.launches_emit = 0
         stats = serve.main(argv + ["--kv-bits", kv_bits, "--parity"])
         assert stats.tokens_generated == 36
         assert all(fn.launches > 0 for fn in used), kv_bits
+    # the kv16 decode steps emit wo's int8 input from K7's merge
+    assert pad.paged_attend_decode_cuda.launches_emit > 0
 
 
 def test_4bit_quickstart_launches_the_4bit_variants(gen):
@@ -886,3 +889,139 @@ def test_peg_quant_bf16_vectors(gen, rows, d, g):
         got = pq.peg_fake_quant_cuda(view, s, z, **kw)
         assert got.dtype == torch.bfloat16
         assert torch.equal(got, pq.peg_fake_quant_plain(view, s, z, **kw))
+
+
+# -- K7 on the split-KV body -------------------------------------------------
+
+def _float_case(gen, b, nb, bs, kv, g, hd, s_cap, dtype):
+    """A K7 case with the holes of ``_paged_case``: f32 queries (scale
+    folded in) and f32 or bf16 arenas."""
+    n_blocks = b * nb + 3
+    perm = torch.randperm(n_blocks, generator=gen, device="cuda")
+    table = perm[:b * nb].reshape(b, nb).to(torch.int32)
+    splits, bps = pad.plan_kv_splits(b, kv, nb, bs)
+    if splits > 2:
+        table[0, bps:2 * bps] = -1
+    table[1, nb - 1:] = -1
+    q_pos = torch.tensor([s_cap + 37, s_cap // 3, -1, 2 * s_cap - 1][:b],
+                         device="cuda", dtype=torch.int32)
+    k, v = (torch.randn(n_blocks, bs, kv, hd, generator=gen,
+                        device="cuda").to(dtype) for _ in range(2))
+    q = torch.randn(b, kv, g, hd, generator=gen, device="cuda") * 0.3 / \
+        hd ** 0.5
+    return (q, k, v, table, q_pos), float(v.float().abs().max())
+
+
+K7_SPLIT_SHAPES = [
+    (4, 37, 16, 4, 2, 256, 587, 200), (4, 52, 8, 2, 2, 64, 413, None),
+    (4, 256, 16, 4, 2, 256, 4096, 2048), (3, 8, 8, 2, 2, 16, 64, 16),
+    (4, 8, 16, 4, 2, 256, 128, 64)]
+
+
+@pytest.mark.parametrize("b,nb,bs,kv,g,hd,s_cap,window", K7_SPLIT_SHAPES)
+@pytest.mark.parametrize("site", list(SITES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attend_decode_splits(gen, b, nb, bs, kv, g, hd, s_cap,
+                                    window, site, dtype):
+    """K7 at split boundaries (nb not a multiple of the blocks per split,
+    bs 8, 32 splits of 8 blocks, a hole covering a whole split, an idle
+    lane), f32 arenas at hd 256 (16-cell stages) and bf16 at hd 256
+    (32-cell stages): against the plain version, and bit-identical over
+    three calls (fixed merge order, no float atomics)."""
+    args, v_abs = _float_case(gen, b, nb, bs, kv, g, hd, s_cap, dtype)
+    kw = dict(s_cap=s_cap, window=window, logit_softcap=50.0,
+              **_site_kw(site))
+    got = [pad.paged_attend_decode_cuda(*args, **kw) for _ in range(3)]
+    want = pad.paged_attend_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert_attend_close(got[0], want, 1 / 255 if site == "softmax_out"
+                        else None, v_abs)
+    assert all(torch.equal(x, got[0]) for x in got[1:])
+
+
+def _shifted(x):
+    """A copy of ``x`` whose data start 4 bytes past a 16-byte boundary."""
+    pad_el = 4 // x.element_size()
+    flat = torch.empty(x.numel() + pad_el, dtype=x.dtype, device=x.device)
+    view = flat[pad_el:].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("b,nb,bs,kv,g,hd,s_cap,window", [
+    (3, 8, 8, 2, 2, 16, 64, 16), (4, 52, 8, 2, 2, 12, 413, None)])
+@pytest.mark.parametrize("site", list(SITES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attend_decode_4_byte_copies(gen, b, nb, bs, kv, g, hd, s_cap,
+                                           window, site, dtype):
+    """K7 on arenas 4 bytes past a 16-byte boundary (the 4-byte cp.async
+    path) computes the same bytes as on an aligned copy of the same values
+    (16-byte copies where the rows are whole 16-byte vectors; the bf16
+    rows of hd 12, 24 bytes, take 4-byte copies either way), which is held
+    to the plain version."""
+    args, v_abs = _float_case(gen, b, nb, bs, kv, g, hd, s_cap, dtype)
+    q, k, v, table, q_pos = args
+    kw = dict(s_cap=s_cap, window=window, logit_softcap=50.0,
+              **_site_kw(site))
+    got = pad.paged_attend_decode_cuda(*args, **kw)
+    shifted = pad.paged_attend_decode_cuda(q, _shifted(k), _shifted(v),
+                                           table, q_pos, **kw)
+    want = pad.paged_attend_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(shifted, got)
+    assert_attend_close(got, want, 1 / 255 if site == "softmax_out"
+                        else None, v_abs)
+
+
+@pytest.mark.parametrize("b,nb,bs,kv,g,hd,s_cap,window", K7_SPLIT_SHAPES)
+@pytest.mark.parametrize("site", list(SITES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attend_decode_emit(gen, b, nb, bs, kv, g, hd, s_cap, window,
+                                  site, dtype):
+    """K7 emitting the wo input from its merge, one and two passes, at split
+    boundaries with a whole split unmapped and an idle lane: K4's bytes on
+    K7's own f32 output; the emit is counted apart."""
+    args, _ = _float_case(gen, b, nb, bs, kv, g, hd, s_cap, dtype)
+    kw = dict(s_cap=s_cap, window=window, logit_softcap=50.0,
+              **_site_kw(site))
+    fn = pad.paged_attend_decode_cuda
+    before = fn.launches_emit
+    _assert_emit(fn, args, kw)
+    assert fn.launches_emit == before + 1
+
+
+def test_k6_and_k7_back_to_back_on_the_shared_workspace(gen):
+    """K6 and K7 calls of other shapes alternating on the workspace and
+    counters they share with K5: each equals its plain version (or, when
+    it emits, K4 on its own f32 output)."""
+    for kind, shape, site, extra in (
+            ("K6", (4, 8, 16, 4, 2, 256, 128, 64), "softmax_out", 8),
+            ("K7", (4, 256, 16, 4, 2, 256, 4096, 2048), "none",
+             torch.bfloat16),
+            ("K6", (4, 37, 16, 4, 2, 256, 587, 200), "softmax_in", 4),
+            ("K7", (3, 8, 8, 2, 2, 16, 64, 16), "softmax_out",
+             torch.float32),
+            ("K7", (4, 37, 16, 4, 2, 256, 587, 200), "softmax_out",
+             torch.float32),
+            ("K6", (4, 8, 16, 4, 2, 256, 128, 64), "none", 8)):
+        b, nb, bs, kv, g, hd, s_cap, window = shape
+        kw = dict(s_cap=s_cap, window=window, logit_softcap=50.0,
+                  **_site_kw(site))
+        step = 1 / 255 if site == "softmax_out" else None
+        if kind == "K6":
+            args, v_abs = _paged_case(gen, b, nb, bs, kv, g, hd, s_cap,
+                                      site, extra)
+            kw["kv_bits"] = extra
+            fn, plain = (pad.paged_int8_attend_decode_cuda,
+                         pad.paged_int8_attend_decode_plain)
+        else:
+            args, v_abs = _float_case(gen, b, nb, bs, kv, g, hd, s_cap,
+                                      extra)
+            fn, plain = (pad.paged_attend_decode_cuda,
+                         pad.paged_attend_decode_plain)
+        got = fn(*args, **kw)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert_attend_close(got, want, step, v_abs)
+        _assert_emit(fn, args, kw)

@@ -1,18 +1,20 @@
-"""The int8 emit of the decode-attention kernels (K5, K6): the ``wo_in``
-quantize (K4) folded into their merge at decode rows, on the CPU.
+"""The int8 emit of the decode-attention kernels (K5, K6, K7): the
+``wo_in`` quantize (K4) folded into their merge at decode rows, on the CPU.
 
 * The emitting plain versions (``ops.int8_attend_decode`` /
-  ``ops.paged_int8_attend_decode`` with ``out_scale``) equal the
-  reference's dequantize-then-attend oracles followed by its
-  ``peg_quantize_ref``, bit for bit, at kv 8 and 4, with each site: the
-  f32 outputs of the two packages differ in the last bits (their float
-  reductions run in other orders), so the output grid is one on which no
-  value lies within that difference of a rounding tie.
+  ``ops.paged_int8_attend_decode`` / ``ops.paged_attend_decode`` with
+  ``out_scale``) equal the reference's (dequantize-then-)attend oracles
+  followed by its ``peg_quantize_ref``, bit for bit, at kv 8 and 4 and on
+  f32 and bf16 arenas, with each site: the f32 outputs of the two packages
+  differ in the last bits (their float reductions run in other orders), so
+  the output grid is one on which no value lies within that difference of
+  a rounding tie.
 * A deploy decode step of the reduced gemma2-2b through ``attention_block``
   with the fused path equals the same step with it turned off (the f32
   output, then ``quantize_act``): every int8 matmul input, the ``wo`` input
   among them, and the logits are the same; the fused path is taken at
-  every attention layer.
+  every attention layer (int8 and int4 caches, dense and paged, and the
+  paged f32 cache of ``--kv-bits 16``).
 
 The on-card comparison of the emit with K4's kernel on the same call's
 f32 output is in ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -124,6 +126,44 @@ def test_emitting_plain_versions_match_reference_oracles(paged, kv_bits,
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("site", list(SITES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_emitting_k7_plain_version_matches_reference_oracle(dtype, site):
+    """K7 (paged f32 / bf16 arenas): a permuted table with an unmapped
+    tail, a lane past its ring, an idle lane."""
+    rng = np.random.RandomState(23 + len(site))
+    b, kv, g, hd, nb, bs = 4, 2, 2, 16, 8, 8
+    n_blocks = b * nb + 2
+    tdt, jdt = {"float32": (torch.float32, jnp.float32),
+                "bfloat16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    q = (rng.randn(b, kv, g, hd) * 0.3).astype(np.float32)
+    k, v = (_t(rng.randn(n_blocks, bs, kv, hd).astype(np.float32)).to(
+        tdt).float().numpy() for _ in range(2))
+    table = rng.permutation(n_blocks)[:b * nb].reshape(b, nb).astype(
+        np.int32)
+    table[0, -1] = -1
+    q_pos = np.array([nb * bs + 9, 3, nb * bs - 1, -1], np.int32)
+    kw = dict(s_cap=nb * bs, window=None, logit_softcap=50.0)
+    tkw = dict(kw, **{k_: _t(v_) if isinstance(v_, np.ndarray) else v_
+                      for k_, v_ in SITES[site].items()})
+    jkw = dict(kw, **{k_: jnp.asarray(v_) if isinstance(v_, np.ndarray)
+                      else v_ for k_, v_ in SITES[site].items()})
+    targs = (_t(q), _t(k).to(tdt), _t(v).to(tdt), _t(table), _t(q_pos))
+    f = ops.paged_attend_decode(*targs, **tkw).numpy()
+    want_f = np.asarray(jref.paged_attend_decode_ref(
+        jnp.asarray(q), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+        jnp.asarray(table), jnp.asarray(q_pos), **jkw))
+    s_o = _tie_free_grid(want_f, f)
+    z_o = np.float32(-3.0)
+    got = ops.paged_attend_decode(*targs, **tkw, out_scale=_t(s_o),
+                                  out_zp=_t(z_o), qmin=-128, qmax=127)
+    want = jref.peg_quantize_ref(jnp.asarray(want_f.reshape(b, -1)),
+                                 jnp.asarray([s_o]), jnp.asarray([z_o]),
+                                 qmin=-128, qmax=127)
+    assert got.dtype == torch.int8 and got.shape == (b, kv * g * hd)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.fixture(scope="module")
 def reduced_deploy():
     """The reduced gemma2-2b, PTQ-calibrated with the PEG recipe and packed
@@ -154,8 +194,8 @@ def reduced_deploy():
     return cfg, packed, ctx
 
 
-@pytest.mark.parametrize("kv_bits", [8, 4])
-@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("paged,kv_bits", [
+    (False, 8), (True, 8), (False, 4), (True, 4), (True, 16)])
 def test_fused_wo_emit_matches_the_unfused_decode_step(reduced_deploy,
                                                        monkeypatch, paged,
                                                        kv_bits):

@@ -26,7 +26,11 @@ merges, on the CPU.
   quantizes p on the global (m, l)), against
   ``paged_int8_attend_decode_plain`` and ``int8_attend_decode_plain`` with
   chip_smoke's bounds: within 1e-5 of max|out|, and with ``softmax_out``
-  at most 0.1 % of the rows off, each by at most one step x max|v|.
+  at most 0.1 % of the rows off, each by at most one step x max|v|. K7's
+  float mode of the same body (f32 logits q . k on the stored f32 or bf16
+  values, then the same merge with v_s = 1 and z_v = 0) is held with the
+  same bounds to ``paged_attend_decode_plain``, to the reference's
+  ``paged_attend_decode_ref`` and to its Pallas kernel in interpret mode.
 
 The merge models live here, not in the package: the kernels are their only
 implementation there. Inputs come from numpy seeds.
@@ -272,9 +276,13 @@ def test_peg_cluster_reduction_matches_plain_and_reference(m, k, n, g,
             assert err <= 1e-5 * float(np.abs(want).max()), err
 
 
-def _masked_logits(q_q, q_scale, q_zp, k_zp, k, k_scale, valid, *,
-                   logit_softcap, sm_quant, sm_qmin, sm_qmax):
-    s = int8_logits(q_q, q_scale, q_zp, k_zp, k, k_scale)
+def _masked_logits(q_q, q_scale, q_zp, k_zp, k, k_scale, valid, **kw):
+    return _sites_and_mask(int8_logits(q_q, q_scale, q_zp, k_zp, k,
+                                       k_scale), valid, **kw)
+
+
+def _sites_and_mask(s, valid, *, logit_softcap, sm_quant, sm_qmin,
+                    sm_qmax):
     if logit_softcap is not None:
         s = logit_softcap * torch.tanh(s / logit_softcap)
     if sm_quant is not None:
@@ -489,3 +497,80 @@ def test_dense_split_kv_merge_matches_plain(b, kv, g, hd, s_len, window,
     v_absmax = float((v_max + v_zp.abs().max()) * v_s.max())
     _attend_check(got, want, 1 / 255 if site == "softmax_out" else None,
                   v_absmax)
+
+
+def _float_split_attend(args, *, s_cap, window, logit_softcap, sm_quant,
+                        sm_qmin, sm_qmax, smo_quant, smo_qmin, smo_qmax):
+    """K7's split-KV arithmetic in PyTorch: f32 logits of the queries (the
+    attention scale folded in) against the stored f32 or bf16 keys, then
+    the merge of K6 with v_s = 1 and z_v = 0."""
+    q, k_arena, v_arena, table, q_pos = args
+    b, kv, _, _ = q.shape
+    nb, bs = table.shape[1], k_arena.shape[1]
+    k = paged_gather_ref(k_arena, table).float()
+    v = paged_gather_ref(v_arena, table).float()
+    kp = paged_positions_ref(table, q_pos, s_cap=s_cap, block_size=bs)
+    s = _sites_and_mask(torch.einsum("bkgd,bskd->bkgs", q, k),
+                        decode_valid(kp, q_pos, window),
+                        logit_softcap=logit_softcap, sm_quant=sm_quant,
+                        sm_qmin=sm_qmin, sm_qmax=sm_qmax)
+    splits, bps = pad.plan_kv_splits(b, kv, nb, bs)
+    cells = [slice(a * bs, e * bs)
+             for a, e in pad.kv_split_blocks(nb, splits, bps)]
+    return _merge_splits(s, v, torch.ones(v.shape[:3]), torch.zeros(b, kv),
+                         cells, smo_quant=smo_quant, smo_qmin=smo_qmin,
+                         smo_qmax=smo_qmax)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("site", ["none", "softmax_in", "softmax_out"])
+@pytest.mark.parametrize("b,kv,g,hd,bs,s_cap,window", [
+    (4, 2, 2, 16, 8, 16, 16), (4, 2, 2, 16, 8, 64, None),
+    (4, 2, 2, 32, 16, 128, 64), (4, 2, 2, 16, 16, 587, 200),
+    (4, 1, 4, 16, 8, 405, None)])
+def test_float_split_kv_merge_matches_plain_and_reference(
+        b, kv, g, hd, bs, s_cap, window, site, dtype):
+    """K7: block sizes 8 and 16; a 16-cell ring that wrapped (lanes 0 and
+    3 are past s_cap); blocks not a multiple of the split (587 and 405
+    cells: 19 and 26 splits of 2 blocks, the last of 1); a whole split
+    unmapped (lane 0), an unmapped tail (lane 1) and an idle lane (lane
+    2); f32 and bf16 arenas (bf16 values, held as f32 by numpy)."""
+    rng = np.random.default_rng(s_cap + bs + g)
+    nb = -(-s_cap // bs)
+    n_blocks = b * nb + 3
+    table = torch.from_numpy(rng.permutation(n_blocks)[:b * nb].reshape(
+        b, nb).astype(np.int32))
+    splits, bps = pad.plan_kv_splits(b, kv, nb, bs)
+    assert nb % bps != 0 or s_cap <= 128
+    if splits > 2:
+        table[0, bps:2 * bps] = -1              # a whole split unmapped
+    table[1, nb - 1:] = -1                      # an unmapped tail
+    q_pos = torch.tensor([s_cap + 37, s_cap // 3, -1, 2 * s_cap - 1],
+                         dtype=torch.int32)
+    tdt, jdt = {"float32": (torch.float32, jnp.float32),
+                "bfloat16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    q = (rng.standard_normal((b, kv, g, hd)) * 0.3).astype(np.float32)
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (n_blocks, bs, kv, hd)).astype(np.float32)).to(tdt).float().numpy()
+        for _ in range(2))
+    kw = dict(s_cap=s_cap, window=window, logit_softcap=50.0,
+              sm_quant=None, sm_qmin=0, sm_qmax=255, smo_quant=None,
+              smo_qmin=0, smo_qmax=255)
+    if site != "none":
+        kw["sm_quant"] = torch.tensor([0.05, 128.0])
+    if site == "softmax_out":
+        kw["smo_quant"] = torch.tensor([1 / 255, 0.0])
+    args = (torch.from_numpy(q), torch.from_numpy(k).to(tdt),
+            torch.from_numpy(v).to(tdt), table, q_pos)
+    got = _float_split_attend(args, **kw)
+    jkw = {key: jnp.asarray(val.numpy()) if isinstance(val, torch.Tensor)
+           else val for key, val in kw.items()}
+    jargs = (jnp.asarray(q), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+             jnp.asarray(table.numpy()), jnp.asarray(q_pos.numpy()))
+    step = 1 / 255 if site == "softmax_out" else None
+    for want in (pad.paged_attend_decode_plain(*args, **kw),
+                 torch.from_numpy(np.array(
+                     jref.paged_attend_decode_ref(*jargs, **jkw))),
+                 torch.from_numpy(np.array(
+                     jops.paged_attend_decode(*jargs, **jkw)))):
+        _attend_check(got, want, step, float(np.abs(v).max()))
