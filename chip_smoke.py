@@ -70,7 +70,25 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              too, the counts must be the reference's, and the parity lines
              print as match rates (int4 drift is reported, not asserted, as
              in the reference).
-11. entry points — K8-K10, which no ported model reaches, through
+11. full prefix — full width with the quickstart's kv8 flags and
+             ``--prefix-cache`` (8 requests of 64 tokens whose shared
+             32-token head is two 16-cell blocks, max_len 128): the radix
+             cache must hit and save prefill tokens, K1/K3/K4 and K5/K6
+             with their emits must move (no K4 in the profiled decode
+             step); the peak cache, the hit rate, the copy-on-writes and
+             the shared-vs-unshared greedy match rate (the same requests
+             served again without the radix cache) print.
+12. reduced prefix — runs A and B of the reference's ``--prefix-cache``
+             workload (8 requests of 12 tokens, blocks of 4, max_len 32;
+             B with ``--skew 10``, whose long lanes decode past the
+             16-cell window onto their shared prefix) with ``--parity``:
+             the reference's counts and prefix note, four ``[parity] OK``
+             lines, and in run B the reference's 52 ``BlockPool.cow``
+             calls with 4 block copies, each through ``cache_copy_block``
+             on the card's arenas; run B again at ``--weight-bits 4
+             --kv-bits 4`` with the same counts, its parity lines printed
+             as match rates.
+13. entry points — K8-K10, which no ported model reaches, through
              ``ops`` as the reference's kernel bench calls them and (K8)
              through ``deploy.norm_quantize("layernorm", ...)``: each must
              move.
@@ -226,6 +244,13 @@ def row_note(rows, d, groups, nbytes, ms):
     split = lnq.plan_row_split(rows, d, groups)
     return (f"  C {split}, {rows * split} blocks, "
             f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+
+
+def bound_share(nbytes, ops, ms):
+    """The kernel's time as a share of its bound (the bound over the time:
+    100 % runs at the bound), printed on the K8-K10 lines."""
+    b_ms, _ = bound_ms(nbytes, ops, PEAK_F32_OPS_PER_S)
+    return f"  {b_ms / ms:.0%} of its bound"
 
 
 def torch_yardstick(library, got, flush):
@@ -504,7 +529,8 @@ def w4_cases(gen, flush, record, randint8, uniform, randn):
 def norm_cases(gen, flush, record, uniform, randn):
     """K8 (LayerNorm + int8 emit), K9a / K9b (RMSNorm / LayerNorm
     fake-quant) and K10 (PEG fake-quant) at the serving path's row shape
-    (64 x 2304 bf16) and the reference bench's 4k x 4k f32. The int8 emit
+    (64 x 2304 bf16) and the reference bench's 4k x 4k f32, each line with
+    the kernel's share of its bound. The int8 emit
     may differ by 1 LSB on at most 0.1 % of elements (the row reductions
     run in another order), a fake-quant output by one grid step (and its
     dtype's rounding) on as many; K10 is bit-exact. No single PyTorch call computes them:
@@ -540,8 +566,6 @@ def norm_cases(gen, flush, record, uniform, randn):
                     ("ln_quantize", (gamma, beta), True),
                     ("rms_fake_quant", (gamma,), False),
                     ("ln_fake_quant", (gamma, beta), False)):
-                if emit and rows != B * T:
-                    continue
                 cuda = getattr(lnq, name + "_cuda")
                 plain = getattr(lnq, name + "_plain")
                 got = cuda(x, *affine, s, z, **kw)
@@ -560,7 +584,8 @@ def norm_cases(gen, flush, record, uniform, randn):
                           len(affine) * d * 4 + 2 * g * 4)
                 record(name, shape, err, ms, p_ms, None, nbytes,
                        10 * rows * d, PEAK_F32_OPS_PER_S, rep,
-                       row_note(rows, d, g, nbytes, ms))
+                       row_note(rows, d, g, nbytes, ms)
+                       + bound_share(nbytes, 10 * rows * d, ms))
             got = pq.peg_fake_quant_cuda(x, s, z, **kw)
             want = pq.peg_fake_quant_plain(x, s, z, **kw)
             require(torch.equal(got, want),
@@ -574,9 +599,10 @@ def norm_cases(gen, flush, record, uniform, randn):
                 lib_ms, note = torch_yardstick(
                     lambda: torch.fake_quantize_per_tensor_affine(
                         x, float(s), int(z), -128, 127), got, flush)
-            record("peg_fake_quant", shape, 0.0, ms, p_ms, lib_ms,
-                   rows * d * 2 * el + 2 * g * 4, 6 * rows * d,
-                   PEAK_F32_OPS_PER_S, rep, note)
+            nbytes = rows * d * 2 * el + 2 * g * 4
+            record("peg_fake_quant", shape, 0.0, ms, p_ms, lib_ms, nbytes,
+                   6 * rows * d, PEAK_F32_OPS_PER_S, rep,
+                   note + bound_share(nbytes, 6 * rows * d, ms))
 
 
 SITES = {"no sites": {},
@@ -1372,14 +1398,17 @@ def serve_phase(tag, argv, must_launch, step_emits=None, per_call=None):
     rel = float(m.group(2)) / 100
     requests, new_tokens = (int(argv[argv.index(f) + 1])
                             for f in ("--requests", "--new-tokens"))
-    require(stats.tokens_generated == requests * new_tokens,
+    skew = int(argv[argv.index("--skew") + 1]) if "--skew" in argv else 0
+    want = sum(skew if skew and i % 2 else new_tokens
+               for i in range(requests))
+    require(stats.tokens_generated == want,
             f"{tag}: {stats.tokens_generated} tokens generated, expected "
-            f"{requests * new_tokens}")
+            f"{want}")
     return counts, rel, stats, out.getvalue()
 
 
 def entry_point_phase():
-    """Phase 11. K8-K10 serve no model here (no LayerNorm config is ported,
+    """Phase 13. K8-K10 serve no model here (no LayerNorm config is ported,
     and the reference calls its fake-quant kernels only from its tests and
     its kernel bench), so their path is their public entry points: driven
     as the reference's bench drives them (``benchmarks/kernel_bench.py``:
@@ -1464,6 +1493,101 @@ def quick_argv(kv_bits, *extra):
 
 FULL_QUICK = ("--block-size", "16", "--max-len", "128")
 W4 = ("--weight-bits", "4")
+# the --prefix-cache workload at full width: 64-token prompts whose shared
+# 32-token head is two whole 16-cell blocks
+FULL_PREFIX = quick_argv("8", *FULL_QUICK, "--prefix-cache")
+FULL_PREFIX[FULL_PREFIX.index("--requests") + 1] = "8"
+FULL_PREFIX[FULL_PREFIX.index("--prompt-len") + 1] = "64"
+# run A of the --prefix-cache workload at the reduced width (run B adds
+# --skew 10: its long lanes decode past the 16-cell local window onto their
+# shared prefix, so copy-on-write runs)
+REDUCED_PREFIX = ["--arch", "gemma2-2b", "--reduced", "--quantize",
+                  "--deploy-int8", "--kv-bits", "8", "--scheduler",
+                  "continuous", "--paged-kv",
+                  "--prefill-chunk", "8", "--prefix-cache", "--requests", "8",
+                  "--prompt-len", "12", "--new-tokens", "4", "--batch-slots",
+                  "4", "--block-size", "4", "--max-len", "32", "--parity"]
+# the reference launcher's serve line for runs A and B (tokens, decode
+# steps, prefills, peak blocks, chunk steps) and its prefix note
+PREFIX_COUNTS = {"A": ((32, 6, 3, 21, 3), "blocks 21/32 (frag 14%"),
+                 "B": ((56, 18, 5, 27, 5), "blocks 27/32 (frag 12%")}
+PREFIX_HITS = ("prefix-cache hits 16 tokens (rate 17%, 16 prefill tokens "
+               "saved, peak 1 shared blocks)")
+# run B with --parity: the reference's BlockPool.cow calls, and the block
+# copies they asked for
+RUN_B_COW = (52, 4)
+
+
+@contextlib.contextmanager
+def _cow_counts():
+    """Count, while the block runs, ``BlockPool.cow`` calls, the copies
+    they ask for and the calls of ``cache_copy_block`` (the device
+    copies)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import block_pool
+    counts = {"cow": 0, "copies": 0}
+    orig, before = block_pool.BlockPool.cow, tfm.cache_copy_block.calls
+
+    def cow(self, lane, col):
+        pair = orig(self, lane, col)
+        counts["cow"] += 1
+        counts["copies"] += pair is not None
+        return pair
+    block_pool.BlockPool.cow = cow
+    try:
+        yield counts
+    finally:
+        block_pool.BlockPool.cow = orig
+        counts["copy_block"] = tfm.cache_copy_block.calls - before
+
+
+@contextlib.contextmanager
+def _served_calls():
+    """Record the arguments of every ``serve`` call the launcher makes."""
+    from repro_torch.launch import serve as launcher
+    calls, orig = [], launcher.serve
+
+    def serve(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+    launcher.serve = serve
+    try:
+        yield calls
+    finally:
+        launcher.serve = orig
+
+
+def unshared_match(call):
+    """Serve the requests of a recorded prefix-shared ``serve`` call once
+    more without the radix cache (the same steps, params and pool flags)
+    and return (greedy tokens that match, tokens compared, the unshared
+    run's ServeStats)."""
+    from repro_torch.runtime import Request, serve
+    args, kw = call
+    shared = args[4]
+    fresh = [Request(rid=r.rid, prompt=r.prompt,
+                     max_new_tokens=r.max_new_tokens) for r in shared]
+    stats = serve(*args[:4], fresh, **dict(kw, radix_cache=None,
+                                           copy_block_fn=None))
+    pairs = [(x, y) for r, u in zip(shared, fresh)
+             for x, y in zip(r.tokens_out, u.tokens_out)]
+    return sum(x == y for x, y in pairs), len(pairs), stats
+
+
+def prefix_line(tag, out, run):
+    """Require the reference's serve-line counts and prefix note for run A
+    or B of the reduced --prefix-cache workload."""
+    counts, blocks = PREFIX_COUNTS[run]
+    m = re.search(r"\[serve:continuous\] (\d+) tokens, (\d+) decode steps, "
+                  r"(\d+) prefills, .*chunked prefill \((\d+) chunk steps",
+                  out)
+    require(m is not None, f"{tag}: no serve line")
+    blocks_n = int(re.search(r"blocks (\d+)/", out).group(1))
+    got = tuple(int(x) for x in m.group(1, 2, 3)) + (blocks_n,
+                                                      int(m.group(4)))
+    require(got == counts and blocks in out and PREFIX_HITS in out,
+            f"{tag}: serve counts {got} / prefix note are not the "
+            f"reference's {counts}, {blocks}, {PREFIX_HITS}")
 
 
 @contextlib.contextmanager
@@ -1603,6 +1727,89 @@ def f32_parity_phase(runs=("w8-kv8", "w4-kv4")):
             torch.cuda.empty_cache()
         outs[run] = out.getvalue()
     return outs
+
+
+def prefix_phase(add):
+    """Phases 11-12, prefix sharing (``--prefix-cache``). At full width the
+    radix cache must hit; shared against unshared tokens is a rate there
+    (the fake-quant FFN's rounding follows the row count, as in the
+    quickstart phases). At the reduced width runs A and B with
+    ``--parity`` hold the reference's counts, and run B's copy-on-writes
+    run on the card's arenas. ``add`` takes each phase's launch counts.
+    Returns the full-width [deploy-int8] and [kv-int8] gaps and the reduced
+    runs' [deploy-int8] gaps."""
+    import torch
+    with _served_calls() as served, _cow_counts() as fp_cow:
+        fp, fp_rel, fp_stats, fp_out = serve_phase(
+            "full-prefix", FULL_PREFIX,
+            ("rms_quantize", "int8_matmul", "peg_quantize",
+             "int8_attend_decode", "int8_attend_decode_emit",
+             "paged_int8_attend_decode", "paged_int8_attend_decode_emit"),
+            "paged_int8_attend_decode_emit")
+    add(fp)
+    require(fp_stats.prefix_hit_tokens > 0
+            and fp_stats.prefill_tokens_saved > 0,
+            f"full-prefix: prefix hits {fp_stats.prefix_hit_tokens}, "
+            f"prefill tokens saved {fp_stats.prefill_tokens_saved}")
+    fp_kv = kv_gap("full-prefix", fp_out)
+    matched, compared, unshared = unshared_match(served[0])
+    torch.cuda.empty_cache()
+    print(f"[full-prefix] peak kv-cache {fp_stats.cache_bytes} bytes "
+          f"({fp_stats.blocks_in_use} blocks); prefix-cache hits "
+          f"{fp_stats.prefix_hit_tokens} tokens (rate "
+          f"{fp_stats.prefix_hit_rate:.1%}), "
+          f"{fp_stats.prefill_tokens_saved} prefill tokens saved, peak "
+          f"{fp_stats.shared_blocks} shared blocks, {fp_cow['cow']} "
+          f"BlockPool.cow calls and {fp_cow['copy_block']} block copies, "
+          f"{fp_stats.chunk_steps} chunk steps; unshared serving of the "
+          f"same requests: {unshared.chunk_steps} chunk steps, peak "
+          f"kv-cache {unshared.cache_bytes} bytes ({unshared.blocks_in_use} "
+          f"blocks), {matched}/{compared} greedy tokens match the shared "
+          f"run's (printed, not asserted)")
+    rp = {}
+    for run, extra in (("A", ()), ("B", ("--skew", "10")),
+                       ("B-4bit", ("--skew", "10", "--kv-bits", "4", *W4))):
+        tag = f"reduced-prefix-{run}"
+        with _cow_counts() as cow:
+            counts, rel, stats, out = serve_phase(
+                tag, REDUCED_PREFIX + list(extra),
+                ("rms_quantize", "int8_matmul_w4" if "4bit" in run
+                 else "int8_matmul", "int8_matmul_peg_w4" if "4bit" in run
+                 else "int8_matmul_peg", "peg_quantize",
+                 "int8_attend_decode_kv4" if "4bit" in run
+                 else "int8_attend_decode",
+                 "paged_int8_attend_decode_kv4" if "4bit" in run
+                 else "paged_int8_attend_decode",
+                 "int8_attend_decode_emit", "paged_int8_attend_decode_emit"),
+                "paged_int8_attend_decode_emit")
+        add(counts)
+        prefix_line(tag, out, run[0])
+        print(f"[{tag}] BlockPool.cow calls {cow['cow']} (copies "
+              f"{cow['copies']}), cache_copy_block calls "
+              f"{cow['copy_block']}")
+        require(cow["copy_block"] == cow["copies"],
+                f"{tag}: {cow['copy_block']} block copies for "
+                f"{cow['copies']} copy-on-writes")
+        if "4bit" in run:
+            rates = re.findall(r"^\[parity\] (.+?): \d+/56 greedy tokens "
+                               r"match", out, re.M)
+            require(rates == ["continuous vs static schedulers",
+                              "chunked vs unchunked prefill",
+                              "paged vs dense caches",
+                              "prefix-shared vs unshared serving",
+                              "int4 vs int8 KV cache drift"],
+                    f"{tag}: parity lines {rates}")
+        else:
+            require_parity(tag, out, 4)
+            require("[parity] OK: prefix-shared and unshared serving" in out,
+                    f"{tag}: no prefix-shared parity line")
+            rp[run] = rel
+        if run == "B":
+            require((cow["cow"], cow["copy_block"]) == RUN_B_COW,
+                    f"{tag}: {cow['cow']} BlockPool.cow calls and "
+                    f"{cow['copy_block']} block copies, the reference "
+                    f"makes {RUN_B_COW}")
+    return fp_rel, fp_kv, rp
 
 
 def ptxas_report():
@@ -1784,6 +1991,8 @@ def main() -> int:
                       "paged vs dense caches",
                       "int4 vs int8 KV cache drift"],
             f"reduced-quickstart-4bit: parity lines {rates}")
+    fp_rel, fp_kv, rp = prefix_phase(add)
+
     # The reduced run holds the integer path to the fake-quant path it
     # replaces. At full width the fake-quant path runs in bf16 (bf16 params:
     # fake-quantized values are rounded to bf16 and the matmuls emit bf16)
@@ -1796,11 +2005,15 @@ def main() -> int:
           f"{f16_rel:.4%}")
     print(f"[full-quickstart-4bit] integer vs fake-quant (bf16) logits: rel "
           f"{f4_rel:.4%}; int4 vs bf16 KV cache: rel {f4_kv:.4%}")
+    print(f"[full-prefix] integer vs fake-quant (bf16) logits: rel "
+          f"{fp_rel:.4%}; int8 vs bf16 KV cache: rel {fp_kv:.4%}")
     print(f"[reduced-quickstart-4bit] int4 vs f32 KV cache: rel "
           f"{r4_kv:.4%} (printed, not bounded)")
     for tag, rel in (("reduced", red_rel), ("reduced-quickstart", rq_rel),
                      ("reduced-paged-kv16", r16_rel),
-                     ("reduced-quickstart-4bit", r4_rel)):
+                     ("reduced-quickstart-4bit", r4_rel),
+                     ("reduced-prefix-A", rp["A"]),
+                     ("reduced-prefix-B", rp["B"])):
         require(rel <= 1e-4, f"{tag}: integer path differs from "
                 f"fake-quant by {rel:.4%} of max|logits|")
         print(f"[{tag}] integer vs fake-quant logits: rel {rel:.4%} "

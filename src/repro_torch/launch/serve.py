@@ -18,9 +18,12 @@ kv-bits 8). ``--weight-bits 4`` packs the deployable weights as int4
 ``--paged-kv`` pages
 the cache in blocks (``--block-size``, ``--num-blocks``); ``--scheduler
 continuous`` admits into freed lanes mid-flight, ``--prefill-chunk N`` in
-chunks of N prompt tokens; ``--parity`` serves the requests again under
-the other scheduler, unchunked and dense and checks the greedy tokens are
-the same.
+chunks of N prompt tokens; ``--prefix-cache`` (continuous, paged) shares
+the cached blocks of retired prompts through a radix cache, with
+copy-on-write, on a workload whose prompts open with the same
+``prompt_len // 2`` tokens; ``--parity`` serves the requests again under
+the other scheduler, unchunked, dense and (with ``--prefix-cache``)
+unshared and checks the greedy tokens are the same.
 
 Full width serves bf16 params on one GPU; ``--reduced`` serves the small
 f32 config (``main(argv, dtype=torch.float32)`` serves either in f32).
@@ -48,16 +51,18 @@ from repro_torch.core import Mode, QuantCtx, build_deploy, peg_policy, ptq
 from repro_torch.core.quant_config import QuantizerConfig, RangeEstimator
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.runtime import (BlockPool, Request, blocks_for_tokens,
-                                 make_admit_step, make_chunk_prefill_step,
-                                 make_decode_step, make_prefill_step, serve)
+from repro_torch.runtime import (BlockPool, RadixCache, Request,
+                                 blocks_for_tokens, make_admit_step,
+                                 make_chunk_prefill_step, make_decode_step,
+                                 make_prefill_step, serve)
 from repro_torch.runtime.serve_loop import _check_capacity
 
 # flags (by dest) the port serves; any other flag must keep its default
 _PORTED = {"arch", "reduced", "requests", "prompt_len", "new_tokens",
            "batch_slots", "max_len", "skew", "seed", "quantize",
            "deploy_int8", "scheduler", "kv_bits", "weight_bits", "parity",
-           "paged_kv", "block_size", "num_blocks", "prefill_chunk"}
+           "paged_kv", "block_size", "num_blocks", "prefill_chunk",
+           "prefix_cache"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -235,6 +240,12 @@ def _check_args(ap: argparse.ArgumentParser, args) -> None:
                  "groups prefill monolithically)")
     if args.num_blocks and not args.paged_kv:
         ap.error("--num-blocks requires --paged-kv")
+    if args.prefix_cache and not args.paged_kv:
+        ap.error("--prefix-cache requires --paged-kv (prefix sharing maps "
+                 "cached blocks through the block pool)")
+    if args.prefix_cache and args.scheduler != "continuous":
+        ap.error("--prefix-cache requires --scheduler continuous (the "
+                 "static scheduler has no pool to share blocks from)")
     _reject_unported(ap, args)
 
 
@@ -426,11 +437,18 @@ def main(argv=None, *, device=None, dtype=None):
     chunk_step = make_chunk_prefill_step(cfg, ctx_factory=ctx_factory)
 
     def make_requests():
+        # the reference launcher's draws: with --prefix-cache every prompt
+        # opens with the same prompt_len // 2 tokens (a shared system
+        # prompt), drawn first from the same generator
         rng = np.random.RandomState(args.seed)
+        shared = (rng.randint(10, cfg.vocab_size, size=args.prompt_len // 2)
+                  if args.prefix_cache else np.zeros(0, np.int64))
         return [Request(rid=i,
-                        prompt=rng.randint(10, cfg.vocab_size,
-                                           size=args.prompt_len
-                                           ).astype(np.int64),
+                        prompt=np.concatenate(
+                            [shared,
+                             rng.randint(10, cfg.vocab_size,
+                                         size=args.prompt_len - len(shared))]
+                        ).astype(np.int64),
                         max_new_tokens=(args.skew if args.skew and i % 2
                                         else args.new_tokens))
                 for i in range(args.requests)]
@@ -447,9 +465,12 @@ def main(argv=None, *, device=None, dtype=None):
                               block_size=args.block_size,
                               num_blocks=num_blocks, mapped=False, **kw)
 
-    def run(scheduler, requests, paged=None, chunk=0, kv_bits=None):
+    def run(scheduler, requests, paged=None, chunk=0, kv_bits=None,
+            prefix=None):
         paged = args.paged_kv if paged is None else paged
         kv_bits = args.kv_bits if kv_bits is None else kv_bits
+        prefix = ((args.prefix_cache if prefix is None else prefix)
+                  and paged and scheduler == "continuous")
         pool = None
         if paged and scheduler == "continuous":
             pool = BlockPool(num_blocks, args.block_size, args.batch_slots,
@@ -460,9 +481,15 @@ def main(argv=None, *, device=None, dtype=None):
                      requests, scheduler=scheduler,
                      batch_slots=args.batch_slots, max_len=args.max_len,
                      admit_step=admit,
-                     chunk_step=chunk_step if chunk else None,
+                     chunk_step=chunk_step if (chunk or prefix) else None,
                      block_pool=pool, prefill_chunk=chunk or None,
                      ring_tokens=ring_tokens if pool else None,
+                     radix_cache=(RadixCache(args.block_size) if prefix
+                                  else None),
+                     write_caps=(tfm.attn_write_caps(cfg, args.max_len,
+                                                     args.block_size)
+                                 if pool else None),
+                     copy_block_fn=tfm.cache_copy_block if prefix else None,
                      device=dev)
 
     requests = make_requests()
@@ -479,13 +506,19 @@ def main(argv=None, *, device=None, dtype=None):
     chunk_note = (f", chunked prefill ({stats.chunk_steps} chunk steps @ "
                   f"<= {args.prefill_chunk} tokens)"
                   if args.prefill_chunk else "")
+    prefix_note = (f", prefix-cache hits {stats.prefix_hit_tokens} tokens "
+                   f"(rate {stats.prefix_hit_rate:.0%}, "
+                   f"{stats.prefill_tokens_saved} prefill tokens saved, "
+                   f"peak {stats.shared_blocks} shared blocks)"
+                   if args.prefix_cache else "")
     print(f"[serve:{args.scheduler}] {stats.tokens_generated} tokens, "
           f"{stats.decode_steps} decode steps, "
           f"{stats.prefill_calls} prefills, {stats.wall_s:.2f}s "
           f"({stats.tokens_per_s:.1f} tok/s), "
           f"slot-utilization {stats.slot_utilization:.0%}, "
           f"peak kv-cache {stats.cache_bytes / 1024:.0f} KiB "
-          f"(kv-bits {args.kv_bits}{paged_note}{chunk_note}, {dev.type})")
+          f"(kv-bits {args.kv_bits}{paged_note}{chunk_note}{prefix_note}, "
+          f"{dev.type})")
 
     if args.parity:
         def matches(b_reqs):
@@ -539,6 +572,14 @@ def main(argv=None, *, device=None, dtype=None):
             compare("paged vs dense caches", dense_reqs,
                     f"paged and dense caches emit identical greedy "
                     f"tokens for all {len(requests)} requests "
+                    f"(kv-bits {args.kv_bits})")
+        if args.prefix_cache:
+            unshared_reqs = make_requests()
+            run(args.scheduler, unshared_reqs, chunk=args.prefill_chunk,
+                prefix=False)
+            compare("prefix-shared vs unshared serving", unshared_reqs,
+                    f"prefix-shared and unshared serving emit identical "
+                    f"greedy tokens for all {len(requests)} requests "
                     f"(kv-bits {args.kv_bits})")
         if args.kv_bits == 4:
             # int4 vs int8 is lossy by construction: the token match rate

@@ -9,11 +9,12 @@ Absolute positions drive masking and cache writes; position -1 marks a DEAD
 cell (a prompt pad or an idle lane): it is masked out of attention and its
 cache write is dropped, so packing and idle lanes never perturb other lanes.
 
-Cache writes are functional, like the reference's scatter: they return new
-cache tensors (a gather + select for the dense caches, a scatter into a
-copy of the arena for the paged ones), so no data-dependent host sync is
-needed to drop dead writes. Every write rebuilds the cache as its own type,
-so the int4 subclasses (the bit-width marker) survive it.
+Cache writes are in place, as the reference's donated buffers make them:
+each field takes one ``index_copy_`` of the written rows, and the writer
+returns the cache it was given (a layer's view of a stacked cache writes
+the stacked tensor). Dropped writes (dead cells, unmapped blocks) need no
+data-dependent shape and no host sync: each repeats a live write of the
+same call, cell and value (see :func:`_scatter_plan`).
 
 Quantization sites (paper Fig. 1 naming), threaded via QuantCtx:
   {prefix}/q, {prefix}/k, {prefix}/v, {prefix}/softmax_in,
@@ -369,62 +370,93 @@ def _quantize_kv_writes(cache, k_new, v_new, kvq):
     return kq, ks, vq, vs
 
 
-def _write_kv(cache, k_new, v_new, pw, slots, kvq=None):
-    """New cache with the (B, T) new tokens written at ``slots``; slots
-    equal to S (dead cells) write nothing. Live slots of one lane are
-    distinct (positions are), so each cell has at most one source. A
-    quantized cache quantizes the tokens first (per-head, per-slot scales;
-    int4 caches nibble-pack) and comes back as its own type."""
+def _scatter_plan(flat, live):
+    """(target rows, source entries, any live) for an in-place scatter of
+    n entries that drops the entries where ``live`` is False, with no shape
+    that depends on data: a dropped entry repeats the first live one (the
+    same row and value, so the duplicates agree whichever lands last);
+    when none is live every entry targets row 0, rewritten with its own
+    value by :func:`_scatter_rows`."""
+    flat, live = flat.reshape(-1), live.reshape(-1)
+    # (1,) index tensors throughout: indexing with a 0-d tensor would read
+    # it back to the host
+    donor = torch.argmax(live.to(torch.int32)).reshape(1)   # first live
+    has = live.index_select(0, donor)
+    rows = torch.where(live, flat,
+                       torch.where(has, flat.index_select(0, donor), 0))
+    src = torch.where(live, torch.arange(flat.shape[0], device=flat.device),
+                      donor)
+    return rows.long(), src, has
+
+
+def _scatter_rows(field, plan, new):
+    """Write ``new`` (one row per entry of ``plan``) into ``field`` in
+    place, ``field`` viewed as rows over its first two axes (a lane's or
+    a block's cells)."""
+    rows_at, src, has = plan
+    rows = field.view(field.shape[0] * field.shape[1], *field.shape[2:])
+    vals = new.reshape(src.shape[0], *rows.shape[1:]).to(rows.dtype)
+    vals = torch.where(has.reshape((1,) * vals.dim()),
+                       vals.index_select(0, src), rows[:1])
+    rows.index_copy_(0, rows_at, vals)
+
+
+def _write_fields(cache, plan, k_new, v_new, pw, kvq):
+    """Scatter the new tokens into every field of ``cache`` (quantized
+    first on the cache's own grid for int8 / int4 caches); returns
+    ``cache``."""
+    if isinstance(cache, (QuantKVCache, PagedQuantKVCache)):
+        kq, ks, vq, vs = _quantize_kv_writes(cache, k_new, v_new, kvq)
+        news = (kq, vq, ks, vs, pw)
+    else:
+        news = (k_new, v_new, pw)
+    for field, new in zip(cache, news):
+        _scatter_rows(field, plan, new)
+    return cache
+
+
+def _plan_for(plans, key, make):
+    """The scatter plan under ``key`` in ``plans`` (one forward's layers
+    share the plans of their capacity), made on first use."""
+    if plans is None:
+        return make()
+    if key not in plans:
+        plans[key] = make()
+    return plans[key]
+
+
+def _write_kv(cache, k_new, v_new, pw, window, kvq=None, plans=None):
+    """Write the (B, T) new tokens into the dense cache in place, each at
+    its slot (:func:`_write_slots`); dead cells write nothing. Live slots
+    of one lane are distinct (positions are), so each cell has at most
+    one source. ``plans``: a forward's shared scatter plans. Returns
+    ``cache``."""
     B, S = cache.pos.shape
-    hit = slots[:, :, None] == torch.arange(S, device=slots.device)
-    has = hit.any(dim=1)                                 # (B, S)
-    src = hit.int().argmax(dim=1)                        # (B, S) token index
 
-    def put(old, new):
-        tail = (1,) * (old.dim() - 2)
-        idx = src.reshape(B, S, *tail).expand(B, S, *old.shape[2:])
-        gathered = torch.gather(new.to(old.dtype), 1, idx)
-        return torch.where(has.reshape(B, S, *tail), gathered, old)
-
-    if isinstance(cache, QuantKVCache):
-        kq, ks, vq, vs = _quantize_kv_writes(cache, k_new, v_new, kvq)
-        return type(cache)(k_q=put(cache.k_q, kq), v_q=put(cache.v_q, vq),
-                           k_s=put(cache.k_s, ks), v_s=put(cache.v_s, vs),
-                           pos=put(cache.pos, pw.to(cache.pos.dtype)))
-    return KVCache(k=put(cache.k, k_new), v=put(cache.v, v_new),
-                   pos=put(cache.pos, pw.to(cache.pos.dtype)))
+    def make():
+        slots = _write_slots(pw, S, window)
+        lane = torch.arange(B, device=slots.device)[:, None]
+        return _scatter_plan(lane * S + slots, (pw >= 0) & (slots < S))
+    plan = _plan_for(plans, ("dense", S, window, pw.shape[1]), make)
+    return _write_fields(cache, plan, k_new, v_new, pw, kvq)
 
 
-def _write_paged_kv(cache, k_new, v_new, pw, block_table, window, kvq=None):
-    """New arena with the (B, T) tokens written through the lanes' block
-    table: logical cell ``pw % s_cap``, physical block from the table. Dead
-    cells (pw < 0) and unmapped blocks are dropped. Functional: each field
-    is copied once with a spare row at its end, the tokens are scattered
-    into the copy (dropped writes all land on the spare row) and the spare
-    row is cut off again."""
-    num_blocks, bs = cache.pos.shape
+def _write_paged_kv(cache, k_new, v_new, pw, block_table, window, kvq=None,
+                    plans=None):
+    """Write the (B, T) tokens into the arena through the lanes' block
+    table, in place: logical cell ``pw % s_cap``, physical block from the
+    table. Dead cells (pw < 0) and unmapped blocks are dropped. ``plans``:
+    a forward's shared scatter plans (one per capacity). Returns
+    ``cache``."""
+    bs = cache.pos.shape[1]
     s_cap = paged_capacity(block_table, bs, window)
-    L = torch.remainder(torch.clamp_min(pw, 0), s_cap)
-    phys = torch.gather(block_table, 1, (L // bs).long())
-    dead = (pw < 0) | (phys < 0)
-    flat = torch.where(dead, num_blocks * bs, phys * bs + L % bs)
-    flat = flat.reshape(-1).long()
 
-    def put(arena, new):
-        rows = arena.reshape(num_blocks * bs, *arena.shape[2:])
-        rows = torch.cat([rows, rows[:1]]).index_copy(
-            0, flat, new.reshape(flat.shape[0], *arena.shape[2:]).to(
-                arena.dtype))
-        return rows[:-1].reshape(arena.shape)
-
-    pos = put(cache.pos, pw)
-    if isinstance(cache, PagedQuantKVCache):
-        kq, ks, vq, vs = _quantize_kv_writes(cache, k_new, v_new, kvq)
-        return type(cache)(k_q=put(cache.k_q, kq), v_q=put(cache.v_q, vq),
-                           k_s=put(cache.k_s, ks), v_s=put(cache.v_s, vs),
-                           pos=pos)
-    return PagedKVCache(k=put(cache.k, k_new), v=put(cache.v, v_new),
-                        pos=pos)
+    def make():
+        L = torch.remainder(torch.clamp_min(pw, 0), s_cap)
+        phys = torch.gather(block_table, 1, (L // bs).long())
+        return _scatter_plan(phys * bs + L % bs, (pw >= 0) & (phys >= 0))
+    plan = _plan_for(plans, ("paged", s_cap, bs, pw.shape[1]), make)
+    return _write_fields(cache, plan, k_new, v_new, pw, kvq)
 
 
 def paged_key_positions(block_table, q_pos, s_cap: int, block_size: int):
@@ -457,27 +489,29 @@ def paged_gather_kv(cache, block_table, window, kvq=None):
 
 
 def reset_paged_lanes(cache, lane_mask, block_table):
-    """Empty every block the masked lanes map (``pos`` -> -1; payloads
-    stay, masked by position). Takes (N, bs) and stacked (n, N, bs)
-    arenas; the block table itself is host-owned and not touched."""
+    """Empty every block the masked lanes map, in place (``pos`` -> -1;
+    payloads stay, masked by position). Takes (N, bs) and stacked
+    (n, N, bs) arenas; the block table itself is host-owned and not
+    touched. Returns ``cache``."""
     num_blocks = cache.pos.shape[-2]
     ids = torch.where(lane_mask.bool()[:, None] & (block_table >= 0),
                       block_table, num_blocks).reshape(-1).long()
     hit = torch.zeros(num_blocks + 1, dtype=torch.bool,
                       device=cache.pos.device)
     hit[ids] = True
-    return cache._replace(pos=torch.where(hit[:num_blocks, None], -1,
-                                          cache.pos))
+    cache.pos.masked_fill_(hit[:num_blocks, None], -1)
+    return cache
 
 
 def reset_kv_lanes(cache, lane_mask, batch_axis: int = 0):
-    """Empty the masked batch lanes of a dense (int8) cache for slot reuse:
-    ``pos`` -> -1 on those lanes; payloads and scales stay, masked by
-    position. ``batch_axis`` is 1 for stacked leaves."""
+    """Empty the masked batch lanes of a dense (int8) cache for slot reuse,
+    in place: ``pos`` -> -1 on those lanes; payloads and scales stay,
+    masked by position. ``batch_axis`` is 1 for stacked leaves. Returns
+    ``cache``."""
     shape = [1] * cache.pos.dim()
     shape[batch_axis] = lane_mask.shape[0]
-    return cache._replace(pos=torch.where(lane_mask.bool().reshape(shape),
-                                          -1, cache.pos))
+    cache.pos.masked_fill_(lane_mask.bool().reshape(shape), -1)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -631,7 +665,8 @@ def _prev_positions(positions):
 
 def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
                     prefix="attn", cache=None, chunked: Optional[bool] = None,
-                    block_table=None, append: bool = False):
+                    block_table=None, append: bool = False,
+                    write_plans=None):
     """x: (B, T, D) — or, in DEPLOY, a QTensor int8 norm output with packed
     projection weights (QKV and Wo then run on the int8 matmul kernel).
     p: wq (D,H*hd), wk/wv (D,KV*hd), wo (H*hd,D).
@@ -645,7 +680,9 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
     ``append=True`` is chunked prefill: the T tokens are one chunk appended
     at each lane's position, so the queries attend over the cache as it was
     before the write (the lane's earlier chunks, read back as decode would
-    read them) plus the fresh chunk. Returns (out, new_cache)."""
+    read them) plus the fresh chunk. ``write_plans``: a dict the layers
+    of one forward share, so the cache writes' scatter plan is made once
+    per capacity. Returns (out, cache), the cache written in place."""
     from repro_torch.core import deploy as deploy_lib
     x_int8 = isinstance(x, deploy_lib.QTensor)
     B, T, _ = x.shape
@@ -717,22 +754,23 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
                     kpos_past = cache.pos
                 else:
                     k_past, v_past, kpos_past = cache.k, cache.v, cache.pos
-            keep = min(T, S)
-            kw, vw, pw = k[:, -keep:], v[:, -keep:], positions[:, -keep:]
-            if paged:
-                new_cache = _write_paged_kv(cache, kw, vw, pw, block_table,
-                                            cfg.window, kvq)
-            else:
-                new_cache = _write_kv(cache, kw, vw, pw,
-                                      _write_slots(pw, S, cfg.window), kvq)
-            if append:
+                # copied before the write below changes the cache in place
                 k_att = torch.cat([k_past.to(k.dtype), k], dim=1)
                 v_att = torch.cat([v_past.to(v.dtype), v], dim=1)
                 kpos_att = torch.cat([kpos_past.to(positions.dtype),
                                       positions], dim=1)
+            keep = min(T, S)
+            kw, vw, pw = k[:, -keep:], v[:, -keep:], positions[:, -keep:]
+            if paged:
+                new_cache = _write_paged_kv(cache, kw, vw, pw, block_table,
+                                            cfg.window, kvq,
+                                            plans=write_plans)
+            else:
+                new_cache = _write_kv(cache, kw, vw, pw, cfg.window, kvq,
+                                      plans=write_plans)
         elif paged:
             new_cache = _write_paged_kv(cache, k, v, positions, block_table,
-                                        cfg.window, kvq)
+                                        cfg.window, kvq, plans=write_plans)
             out = _kernel_decode_attend(q, new_cache, block_table, positions,
                                         cfg, ctx, prefix, kvq, wo_aq)
             if out is None:
@@ -741,9 +779,8 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
                 kpos_att = paged_key_positions(block_table, positions[:, 0],
                                                S, bs)
         else:
-            new_cache = _write_kv(cache, k, v, positions,
-                                  _write_slots(positions, S, cfg.window),
-                                  kvq)
+            new_cache = _write_kv(cache, k, v, positions, cfg.window, kvq,
+                                  plans=write_plans)
             if quantized:
                 out = _kernel_decode_attend(q, new_cache, None, positions,
                                             cfg, ctx, prefix, kvq, wo_aq)

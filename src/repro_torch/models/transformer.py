@@ -104,15 +104,16 @@ def _attn_input(cfg: ModelConfig, p, x, ctx, prefix):
 
 def block_apply(cfg: ModelConfig, kind: str, p, x, positions, *, ctx=None,
                 prefix="layer", cache=None, chunked=None, block_table=None,
-                append: bool = False):
-    """One transformer block. Returns (x, new_cache)."""
+                append: bool = False, write_plans=None):
+    """One transformer block. Returns (x, cache), the cache written in
+    place (``write_plans``: see models.attention.attention_block)."""
     if kind not in ("attn", "local_attn"):
         raise NotImplementedError(f"block kind {kind!r} is not yet ported")
     h = _attn_input(cfg, p, x, ctx, prefix)
     attn_out, new_cache = attention_block(
         p["attn"], h, positions, attn_cfg_for(cfg, kind), ctx=ctx,
         prefix=f"{prefix}/attn", cache=cache, chunked=chunked,
-        block_table=block_table, append=append)
+        block_table=block_table, append=append, write_plans=write_plans)
     if cfg.post_norm:
         attn_out = _norm(cfg, p["post_ln1"], attn_out)
     x = x + attn_out
@@ -170,6 +171,13 @@ def _stack(items):
 
 def _layer(tree, s: int):
     return _map(lambda x: x[s], tree)
+
+
+def clone_cache(cache):
+    """A copy of a whole-model cache (every leaf cloned, the block table
+    too): the steps write their cache in place, so a caller that runs a
+    step and still needs the cache as it was runs the step on a clone."""
+    return _map(torch.clone, cache)
 
 
 # ---------------------------------------------------------------------------
@@ -348,10 +356,11 @@ def paged_block_bytes(cache) -> int:
 
 
 def cache_reset_slots(cache, lane_mask):
-    """Empty the masked lanes of a whole-model cache for slot reuse: every
-    dense cache's ``pos`` becomes -1 on those lanes (stacked leaves carry
-    the batch on axis 1), every paged arena empties the blocks those lanes
-    map through the cache's block table. Other lanes are untouched."""
+    """Empty the masked lanes of a whole-model cache for slot reuse, in
+    place: every dense cache's ``pos`` becomes -1 on those lanes (stacked
+    leaves carry the batch on axis 1), every paged arena empties the blocks
+    those lanes map through the cache's block table. Other lanes are
+    untouched. Returns ``cache``."""
     table = cache.get("block_table")
 
     def reset(c, axis):
@@ -362,14 +371,43 @@ def cache_reset_slots(cache, lane_mask):
         raise ValueError("cache_reset_slots: continuous batching supports "
                          f"attention caches only, got {type(c).__name__}")
 
-    if "layers" in cache:
-        out = {"layers": [reset(c, 0) for c in cache["layers"]]}
-    else:
-        out = {"scan": [reset(c, 1) for c in cache["scan"]],
-               "tail": [reset(c, 0) for c in cache["tail"]]}
-    if table is not None:
-        out["block_table"] = table
-    return out
+    for c in cache.get("layers", []) + cache.get("tail", []):
+        reset(c, 0)
+    for c in cache.get("scan", []):
+        reset(c, 1)
+    return cache
+
+
+def cache_copy_block(cache, src, dst):
+    """Copy physical block ``src``'s payload (K/V, scales, positions) into
+    block ``dst`` in every paged arena of a whole-model cache, in place:
+    the device half of the scheduler's copy-on-write (the pool swaps a
+    shared table entry for a fresh private block, this clones the shared
+    payload so the lane's next writes land in its own copy). Stacked
+    leaves carry the block axis at position 1, tail and unrolled leaves at
+    position 0. ``src`` / ``dst`` are Python ints or 0-d device tensors,
+    one code path for both (device ids cost no host sync). Counts its
+    calls in ``cache_copy_block.calls``. Returns ``cache``."""
+    cache_copy_block.calls += 1
+    nodes = [(c, 0) for c in cache.get("layers", []) + cache.get("tail", [])]
+    nodes += [(c, 1) for c in cache.get("scan", [])]
+    ids = {}
+    for c, axis in nodes:
+        if not isinstance(c, (PagedKVCache, PagedQuantKVCache)):
+            raise ValueError("cache_copy_block: paged caches only, got "
+                             f"{type(c).__name__}")
+        dev = c.pos.device
+        if dev not in ids:
+            ids[dev] = tuple(torch.as_tensor(b, dtype=torch.long,
+                                             device=dev).reshape(1)
+                             for b in (src, dst))
+        s, d = ids[dev]
+        for x in c:
+            x.index_copy_(axis, d, x.index_select(axis, s))
+    return cache
+
+
+cache_copy_block.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -399,11 +437,13 @@ def _head(cfg: ModelConfig, params, x, ctx):
 
 def forward(cfg: ModelConfig, params, tokens, *, ctx=None, cache=None,
             positions=None, chunked=None, append: bool = False):
-    """Returns (logits, new_cache). tokens: (B, T) int. ``positions``
-    (B, T) are absolute positions (default arange; -1 marks dead cells);
-    ``cache`` must be in the params' layout; its ``"block_table"`` (paged
-    caches) goes to every layer and comes back unchanged. ``append``:
-    chunked prefill (see models.attention.attention_block)."""
+    """Returns (logits, cache). tokens: (B, T) int. ``positions`` (B, T)
+    are absolute positions (default arange; -1 marks dead cells);
+    ``cache`` must be in the params' layout and is written in place (each
+    layer gets a view of its slice of the stacked leaves) and returned:
+    a caller that needs the cache as it was clones it first. Its
+    ``"block_table"`` (paged caches) goes to every layer unchanged.
+    ``append``: chunked prefill (see models.attention.attention_block)."""
     B, T = tokens.shape
     x = _embed(cfg, params, tokens, ctx)
     if positions is None:
@@ -411,44 +451,28 @@ def forward(cfg: ModelConfig, params, tokens, *, ctx=None, cache=None,
                                  device=tokens.device).expand(B, T)
 
     block_table = cache.get("block_table") if cache is not None else None
+    write_plans = {}        # the cache writes' scatter plans, per capacity
 
     def run(kind, p, x, c, prefix):
         return block_apply(cfg, kind, p, x, positions, ctx=ctx, prefix=prefix,
                            cache=c, chunked=chunked, block_table=block_table,
-                           append=append)
-
-    def with_table(new_cache):
-        if block_table is not None:
-            new_cache["block_table"] = block_table
-        return new_cache
+                           append=append, write_plans=write_plans)
 
     if "layers" in params:
-        new_layers = []
         for i, kind in enumerate(cfg.layer_plan):
             c = cache["layers"][i] if cache is not None else None
-            x, nc = run(kind, params["layers"][i], x, c, f"layer{i}")
-            new_layers.append(nc)
-        new_cache = (with_table({"layers": new_layers})
-                     if cache is not None else None)
-        return _head(cfg, params, x, ctx), new_cache
+            x, _ = run(kind, params["layers"][i], x, c, f"layer{i}")
+        return _head(cfg, params, x, ctx), cache
 
-    per_pattern = [[] for _ in cfg.block_pattern]
     for s in range(cfg.n_super):
         for j, kind in enumerate(cfg.block_pattern):
+            # a view of layer s of the stacked cache: written in place
             c = _layer(cache["scan"][j], s) if cache is not None else None
-            x, nc = run(kind, _layer(params["scan"][j], s), x, c, "layer")
-            per_pattern[j].append(nc)
-    new_tail = []
+            x, _ = run(kind, _layer(params["scan"][j], s), x, c, "layer")
     for i, kind in enumerate(cfg.tail_pattern):
         c = cache["tail"][i] if cache is not None else None
-        x, nc = run(kind, params["tail"][i], x, c, "tail")
-        new_tail.append(nc)
-    new_cache = None
-    if cache is not None:
-        new_cache = with_table({"scan": [_stack(ncs)
-                                         for ncs in per_pattern],
-                                "tail": new_tail})
-    return _head(cfg, params, x, ctx), new_cache
+        x, _ = run(kind, params["tail"][i], x, c, "tail")
+    return _head(cfg, params, x, ctx), cache
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, *, positions=None,

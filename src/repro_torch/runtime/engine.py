@@ -4,11 +4,12 @@ one interface (port of the fused path of ``repro.runtime.engine``).
 The Scheduler (``runtime.serve_loop``) decides which requests to admit and
 retire and keeps the books (policy); the Engine makes the model calls —
 ``admit`` (slot-insert prefill), ``chunk`` (append-mode chunked prefill)
-and ``generate`` (one greedy decode step over every lane) — places the
-host inputs on the device and reads the greedy tokens back (mechanism).
+``generate`` (one greedy decode step over every lane) and ``copy_block``
+(the device half of copy-on-write) — places the host inputs on the device
+and reads the greedy tokens back (mechanism).
 
-Not yet ported: the decomposed ``prefill`` / ``insert`` API, block swap
-and copy-on-write, quant-health telemetry, and mesh placement.
+Not yet ported: the decomposed ``prefill`` / ``insert`` API, block swap,
+quant-health telemetry, and mesh placement.
 """
 from __future__ import annotations
 
@@ -45,19 +46,23 @@ class Engine:
     chunk_fn:  (tokens (B,C), positions (B,C), reset_mask (B,), cache)
               -> (last_logits (B,1,V), cache)       [chunked prefill only]
     init_cache_fn: (batch,) -> model cache dict
+    copy_block_fn: (cache, src, dst) -> cache  [copy-on-write only;
+              ``models.transformer.cache_copy_block``]
 
     ``device``: where host inputs go (None: the GPU). Decoding is greedy.
     """
 
     def __init__(self, admit_fn: Callable, decode_fn: Callable,
                  init_cache_fn: Callable, *, batch_slots: int,
-                 chunk_fn: Optional[Callable] = None, device=None):
+                 chunk_fn: Optional[Callable] = None,
+                 copy_block_fn: Optional[Callable] = None, device=None):
         if batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
         self.admit_fn = admit_fn
         self.decode_fn = decode_fn
         self.chunk_fn = chunk_fn
         self.init_cache_fn = init_cache_fn
+        self.copy_block_fn = copy_block_fn
         self.batch_slots = batch_slots
         self.device = resolve_device(device)
 
@@ -93,3 +98,13 @@ class Engine:
         logits, cache = self.decode_fn(self._put(state.tokens),
                                        self._put(state.pos), state.cache)
         return greedy(logits), cache
+
+    def copy_block(self, cache, src: int, dst: int):
+        """Clone physical block ``src`` into ``dst`` in every paged arena
+        (the device half of copy-on-write); the ids go to the device as
+        0-d tensors, so one code path serves every copy."""
+        if self.copy_block_fn is None:
+            raise ValueError("engine was built without a copy_block_fn")
+        return self.copy_block_fn(
+            cache, torch.tensor(src, dtype=torch.int64, device=self.device),
+            torch.tensor(dst, dtype=torch.int64, device=self.device))

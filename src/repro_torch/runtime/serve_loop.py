@@ -12,11 +12,14 @@ the static and the continuous schedulers of ``repro.runtime.serve_loop``).
   admitted prompt is appended N tokens per chunk step, one chunk step per
   decode step. With a ``block_pool`` the cache is paged: admission
   reserves the worst case and maps the first blocks, growth follows the
-  writes, retirement frees the lane's blocks.
+  writes, retirement frees the lane's blocks. With a ``radix_cache``
+  (prefix sharing) admission maps the longest cached block-aligned prompt
+  prefix read-only and prefills only the novel suffix; a write that would
+  land in a shared block copies it first (copy-on-write).
 
 Each lane decodes at its own next position, so a request gets the same
-greedy tokens whatever it is packed with. Prefix sharing, over-commit with
-preemption, ``decode_ratio > 1`` and telemetry are not yet ported.
+greedy tokens whatever it is packed with. Over-commit with preemption,
+``decode_ratio > 1`` and telemetry are not yet ported.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.runtime.block_pool import BlockPool, blocks_for_tokens
 from repro_torch.runtime.engine import DecodeState, Engine, greedy
+from repro_torch.runtime.radix_cache import RadixCache
 
 
 @dataclasses.dataclass
@@ -179,6 +183,7 @@ class _Book:
         self.active_cells = 0
         self.priority: Dict[int, int] = {}
         self.emitted: Dict[int, int] = {}
+        self.prompt_tokens = 0      # admitted prompt tokens (hit-rate base)
 
     def enqueue(self, r: Request) -> None:
         self.stats.request_latency[r.rid] = RequestLatency(
@@ -216,6 +221,7 @@ class _Book:
         if pool.blocks_in_use > s.blocks_in_use:
             s.blocks_in_use = pool.blocks_in_use
             s.block_fragmentation = pool.fragmentation(live_tokens)
+        s.shared_blocks = max(s.shared_blocks, pool.shared_blocks)
 
     def count_decode(self, n_active: int) -> None:
         self.stats.decode_steps += 1
@@ -228,6 +234,8 @@ class _Book:
         s.tokens_per_s = s.tokens_generated / max(s.wall_s, 1e-9)
         s.slot_utilization = (self.active_cells / self.cells
                               if self.cells else 0.0)
+        s.prefix_hit_rate = (s.prefix_hit_tokens / self.prompt_tokens
+                             if self.prompt_tokens else 0.0)
         by_tier: Dict[int, List[Tuple[int, RequestLatency]]] = {}
         for rid, lat in s.request_latency.items():
             if lat.first_token_step >= 0:
@@ -331,8 +339,26 @@ class Scheduler:
     chunking); a request whose reservation does not fit waits at the head
     of the queue. Growth maps the block each coming write lands in,
     retirement frees the lane's blocks; the table is uploaded into
-    ``cache["block_table"]`` whenever the pool changed it. ``ring_tokens``
+    ``cache["block_table"]`` only when the pool changed it. ``ring_tokens``
     (all-window models) caps reservations at the ring.
+
+    **Prefix sharing** (``radix_cache``; needs paged mode and a
+    ``chunk_fn``): admission matches the prompt against the
+    :class:`~repro_torch.runtime.radix_cache.RadixCache`, maps the longest
+    block-aligned cached prefix read-only into the lane's table
+    (``BlockPool.map_shared``) and prefills only the novel suffix through
+    the append-mode chunk step: the lane starts PREFILLING at that offset,
+    so the step does not reset it and the shared blocks stay as they are.
+    Every admission then goes through the chunk step (its width is the
+    prompt pad when ``prefill_chunk`` is unset). Reservations count the
+    novel blocks only, plus one copy-on-write allowance per shared block
+    when the request can wrap a ring layer. Retirement donates the lane's
+    full prompt blocks to the tree, unless the lane wrapped a ring layer
+    (its prompt cells then hold generation data). ``write_caps``
+    (``models.transformer.attn_write_caps``) lists the token capacities at
+    which the attention layers wrap their paged writes; ``copy_block_fn``
+    (``models.transformer.cache_copy_block``) copies a shared block the
+    lane is about to write into its private replacement.
 
     Step contracts as in :class:`~repro_torch.runtime.engine.Engine`.
     """
@@ -343,15 +369,14 @@ class Scheduler:
                  block_pool: Optional[BlockPool] = None,
                  chunk_fn: Optional[Callable] = None,
                  prefill_chunk: Optional[int] = None,
-                 ring_tokens: Optional[int] = None, radix_cache=None,
-                 write_caps=None, copy_block_fn=None,
+                 ring_tokens: Optional[int] = None,
+                 radix_cache: Optional[RadixCache] = None,
+                 write_caps: Optional[List[int]] = None,
+                 copy_block_fn: Optional[Callable] = None,
                  over_commit: bool = False, swap_out_fn=None,
                  swap_in_fn=None, decode_ratio: int = 1, telemetry=None,
                  device=None):
-        for what, given in (("prefix sharing (radix_cache, write_caps)",
-                             radix_cache or write_caps),
-                            ("copy-on-write (copy_block_fn)", copy_block_fn),
-                            ("over-commit with preemption", over_commit),
+        for what, given in (("over-commit with preemption", over_commit),
                             ("block swap (swap_out_fn / swap_in_fn)",
                              swap_out_fn or swap_in_fn),
                             ("decode_ratio > 1", decode_ratio > 1),
@@ -371,13 +396,44 @@ class Scheduler:
             if chunk_fn is None:
                 raise ValueError("prefill_chunk requires a chunk_fn "
                                  "(runtime.steps.make_chunk_prefill_step)")
-        if ring_tokens is not None and block_pool is None:
-            raise ValueError("ring_tokens only applies to paged serving "
-                             "(block_pool)")
+        if (write_caps is not None or ring_tokens is not None) \
+                and block_pool is None:
+            raise ValueError("write_caps / ring_tokens only apply to "
+                             "paged serving (block_pool)")
+        if radix_cache is not None:
+            if block_pool is None:
+                raise ValueError("radix_cache requires a block_pool "
+                                 "(prefix sharing is a paged feature)")
+            if chunk_fn is None:
+                raise ValueError(
+                    "radix_cache requires a chunk_fn: prefix-hit lanes "
+                    "prefill their novel suffix through the append-mode "
+                    "chunk path (the monolithic admit step would reset "
+                    "the shared blocks)")
+            if radix_cache.block_size != block_pool.block_size:
+                raise ValueError(
+                    f"radix_cache block_size {radix_cache.block_size} != "
+                    f"pool block_size {block_pool.block_size}")
+            block_pool.attach_cache(radix_cache)
+        self._write_caps = self._min_cap = None
+        if block_pool is not None:
+            lane_cap = block_pool.max_blocks_per_lane * block_pool.block_size
+            caps = sorted(set(write_caps)) if write_caps else [lane_cap]
+            if caps[0] < 1 or caps[-1] > lane_cap:
+                raise ValueError(f"write_caps {caps} outside the lane "
+                                 f"capacity 1..{lane_cap}")
+            self._write_caps, self._min_cap = caps, caps[0]
+            if radix_cache is not None and copy_block_fn is None \
+                    and caps[0] < lane_cap:
+                raise ValueError(
+                    "prefix sharing with a sliding-window layer (write cap "
+                    f"{caps[0]} < lane capacity {lane_cap}) requires a "
+                    "copy_block_fn for copy-on-write")
         self.batch_slots = batch_slots
         self.prefill_chunk = prefill_chunk
         self.max_len = max_len
         self.pool = block_pool
+        self.radix = radix_cache
         self._ring_tokens = ring_tokens
         self._ring_blocks = (None if ring_tokens is None else
                              blocks_for_tokens(ring_tokens,
@@ -385,9 +441,15 @@ class Scheduler:
         self._block_bytes = 0
         # per-lane PREFILLING state: next prompt offset, or None
         self._pref: List[Optional[int]] = [None] * batch_slots
+        # per-lane tokens mapped from the radix cache (counted once in
+        # _track, however many lanes map them)
+        self._shared_tok: List[int] = [0] * batch_slots
+        # the chunk step's width: prefill_chunk, or the prompt pad when the
+        # radix cache routes unchunked admissions through it (set in run)
+        self._chunk_width: Optional[int] = prefill_chunk
         self.engine = Engine(admit_fn, decode_fn, init_cache_fn,
                              batch_slots=batch_slots, chunk_fn=chunk_fn,
-                             device=device)
+                             copy_block_fn=copy_block_fn, device=device)
 
     def run(self, requests: List[Request]) -> ServeStats:
         _check_capacity(requests, self.max_len, self.pool, self._ring_tokens)
@@ -402,9 +464,11 @@ class Scheduler:
                 book.enqueue(r)
                 queue.append(r)
         pad = max((len(r.prompt) for r in queue), default=1)
+        self._chunk_width = self.prefill_chunk or pad
         B = self.batch_slots
         lanes: List[Optional[Request]] = [None] * B
         self._pref = [None] * B
+        self._shared_tok = [0] * B
         state = self.engine.init_state()
         if self.pool is not None:
             self.pool.reset()
@@ -416,7 +480,7 @@ class Scheduler:
             before = book.step
             free = [i for i in range(B) if lanes[i] is None]
             if free and queue and self._head_fits(queue[0]):
-                if self.prefill_chunk is None:
+                if self.prefill_chunk is None and self.radix is None:
                     state = self._admit(free, queue, pad, lanes, state, book)
                     continue    # immediate retirees may have freed lanes
                 self._admit_chunked(free, queue, lanes, book)
@@ -444,8 +508,37 @@ class Scheduler:
     def _head_fits(self, r: Request) -> bool:
         """Backpressure: the queue head's reservation must fit, or the
         whole admission waits (later requests do not overtake it)."""
-        return self.pool is None or self.pool.can_reserve(
-            self._need_blocks(r))
+        if self.pool is None:
+            return True
+        if self.radix is not None:
+            blocks, _, _, _, n_reserve, total = self._plan_prefix(r)
+            if blocks:
+                return self.pool.can_map_shared(blocks, n_reserve, total)
+            return self.pool.can_reserve(n_reserve)
+        return self.pool.can_reserve(self._need_blocks(r))
+
+    def _plan_prefix(self, r: Request):
+        """Radix admission plan: match the prompt, then size the lane.
+        Returns (shared blocks, raw hit tokens, aligned hit tokens,
+        n_alloc, n_reserve, n_cols). ``n_reserve`` counts the novel blocks
+        (suffix and decode growth, ring-clamped) plus one copy-on-write
+        allowance per shared block when the request's last write reaches
+        the smallest write cap. The match is capped at (P - 1) // bs blocks
+        so the novel suffix keeps at least one token (its final-position
+        logits emit the first token)."""
+        P = len(r.prompt)
+        bs = self.pool.block_size
+        blocks, raw = self.radix.match(r.prompt, max_blocks=(P - 1) // bs)
+        k = len(blocks)
+        total = self._need_blocks(r)        # ring-clamped table columns
+        wraps = P + r.max_new_tokens - 2 >= self._min_cap
+        first = min(self._chunk_width, P - k * bs)
+        cols_first = blocks_for_tokens(k * bs + first, bs)
+        if self._ring_blocks is not None:
+            cols_first = min(cols_first, self._ring_blocks)
+        n_alloc = max(cols_first - k, 0)
+        n_reserve = (total - k) + (k if wraps else 0)
+        return blocks, raw, k * bs, n_alloc, n_reserve, total
 
     def _reserve(self, lane: int, r: Request) -> bool:
         """Reserve the worst case and map the prompt's blocks (only the
@@ -460,6 +553,25 @@ class Scheduler:
         return self.pool.reserve_and_alloc(lane, n_alloc,
                                            self._need_blocks(r))
 
+    def _reserve_prefix(self, lane: int, r: Request,
+                        book: _Book) -> Optional[int]:
+        """Radix admission: map the matched prefix read-only plus the first
+        chunk's novel blocks, reserving novel growth only. Returns the
+        prompt offset the lane starts prefilling at (0 on a miss), or None
+        when the plan does not fit (backpressure)."""
+        blocks, raw, k_tok, n_alloc, n_reserve, total = self._plan_prefix(r)
+        if blocks:
+            ok = self.pool.map_shared(lane, blocks, n_alloc, n_reserve,
+                                      n_cols=total)
+        else:
+            ok = self.pool.reserve_and_alloc(lane, n_alloc, n_reserve)
+        if not ok:
+            return None
+        self._shared_tok[lane] = k_tok
+        book.stats.prefix_hit_tokens += raw
+        book.stats.prefill_tokens_saved += k_tok
+        return k_tok
+
     def _grow(self, lane: int, last_pos: int) -> None:
         """Map the block that position ``last_pos``'s write lands in."""
         n_total = last_pos // self.pool.block_size + 1
@@ -467,12 +579,49 @@ class Scheduler:
             n_total = min(n_total, self._ring_blocks)
         self.pool.grow(lane, n_total)
 
-    def _release(self, lane: int) -> None:
+    def _release(self, lane: int, r: Request) -> None:
         if self.pool is not None:
+            if self.radix is not None:
+                self._donate(lane, r)
             self.pool.free_lane(lane)
+            self._shared_tok[lane] = 0
+
+    def _donate(self, lane: int, r: Request) -> None:
+        """Retirement donation: insert the lane's full prompt blocks into
+        the radix tree instead of freeing them. Skipped when the lane ever
+        wrapped a ring layer (its last write reached the smallest write
+        cap): a wrapping write lands generation data in prompt cells, so
+        those blocks no longer hold a clean prefix."""
+        n_full = len(r.prompt) // self.pool.block_size
+        if n_full == 0 or \
+                len(r.prompt) + r.max_new_tokens - 2 >= self._min_cap:
+            return
+        blocks = [int(b) for b in self.pool.table[lane, :n_full]]
+        for b in self.radix.insert(
+                np.asarray(r.prompt[:n_full * self.pool.block_size]),
+                blocks):
+            self.pool.set_cached(b, True)
+
+    def _cow_barrier(self, lane: int, positions, cache):
+        """Copy-on-write before a step writes ``positions`` for ``lane``:
+        for every write cap, the table column each write wraps into; a
+        column that still maps a shared (or cached) block is swapped for a
+        private copy first (the device copy through the engine, the table
+        upload at the next sync)."""
+        if self.pool.lane_shared(lane) == 0:
+            return cache
+        bs = self.pool.block_size
+        cols = sorted({(p % cap) // bs
+                       for p in positions for cap in self._write_caps})
+        for col in cols:
+            pair = self.pool.cow(lane, col)
+            if pair is not None:
+                cache = self.engine.copy_block(cache, *pair)
+        return cache
 
     def _sync_table(self, cache) -> None:
-        """Upload the block table only when the pool changed it."""
+        """Upload the block table only when the pool changed it: steady
+        decode steps reuse the table already on the device."""
         if self.pool is not None and self.pool.dirty \
                 and isinstance(cache, dict):
             cache["block_table"] = torch.as_tensor(
@@ -483,21 +632,26 @@ class Scheduler:
         if self.pool is None:
             book.track_cache(cache)
             return
+        # live tokens counted once: each lane its privately written tokens,
+        # every cached block's cells once however many lanes map it;
         # prefilling lanes carry pos -1 but hold their written chunks
-        live = sum(int(state.pos[i, 0]) for i, r in enumerate(lanes)
+        live = sum(int(state.pos[i, 0]) - self._shared_tok[i]
+                   for i, r in enumerate(lanes)
                    if r is not None and state.pos[i, 0] > 0)
-        live += sum(off for off in self._pref if off)
+        live += sum(off - self._shared_tok[i]
+                    for i, off in enumerate(self._pref) if off)
+        live += self.pool.blocks_cached * self.pool.block_size
         book.track_pool(self.pool, live, self._block_bytes)
 
     def _retire_done(self, lanes, slots, pos) -> None:
         """Retire the decodable lanes among ``slots`` that met their quota
         (after the gauges were sampled, so the peak includes them)."""
         for i in slots:
-            if lanes[i] is not None and self._pref[i] is None \
-                    and lanes[i].done:
+            r = lanes[i]
+            if r is not None and self._pref[i] is None and r.done:
                 lanes[i] = None
                 pos[i, 0] = -1
-                self._release(i)
+                self._release(i, r)
 
     # -----------------------------------------------------------------------
 
@@ -512,6 +666,7 @@ class Scheduler:
                 break           # head-of-line backpressure: keep FIFO order
             group.append(queue.popleft())
             slots.append(i)
+            book.prompt_tokens += len(group[-1].prompt)
         toks = np.zeros((B, pad), np.int32)
         posm = np.full((B, pad), -1, np.int32)
         g_toks, g_posm = _pack_prompts(group, pad)
@@ -536,24 +691,44 @@ class Scheduler:
 
     def _admit_chunked(self, free, queue, lanes, book: _Book) -> None:
         """Chunked admission is bookkeeping only: each admitted lane is
-        PREFILLING at offset 0; the model work happens in _chunk."""
+        PREFILLING at offset 0, or with a radix hit at its matched offset
+        (the matched blocks already mapped read-only); the model work
+        happens in _chunk."""
         for i in free:
             if not queue:
                 break
-            _require_nonempty_prompt(queue[0])
-            if not self._reserve(i, queue[0]):
-                break           # head-of-line backpressure: keep FIFO order
+            r = queue[0]
+            _require_nonempty_prompt(r)
+            if self.radix is not None:
+                off = self._reserve_prefix(i, r, book)
+                if off is None:
+                    break       # head-of-line backpressure: keep FIFO order
+            else:
+                if not self._reserve(i, r):
+                    break       # head-of-line backpressure: keep FIFO order
+                off = 0
             lanes[i] = queue.popleft()
-            self._pref[i] = 0
-            book.admit(lanes[i])
+            self._pref[i] = off
+            book.prompt_tokens += len(r.prompt)
+            book.admit(r)
 
     def _chunk(self, lanes, state: DecodeState, book: _Book) -> DecodeState:
-        """One chunk step: append up to ``prefill_chunk`` prompt tokens to
+        """One chunk step: append up to the chunk width of prompt tokens to
         every prefilling lane (left-padded into the fixed width; lanes on
         their first chunk are reset by the step). Lanes that finish their
         prompt emit their first token and become decodable."""
-        C, B = self.prefill_chunk, self.batch_slots
+        C, B = self._chunk_width, self.batch_slots
         prefilling = [i for i in range(B) if self._pref[i] is not None]
+        cache = state.cache
+        if self.pool is not None:
+            for i in prefilling:
+                off = self._pref[i]
+                c = min(C, len(lanes[i].prompt) - off)
+                # copy-on-write before growth: a ring write of this chunk
+                # may wrap into a shared prefix column
+                if self.radix is not None:
+                    cache = self._cow_barrier(i, range(off, off + c), cache)
+                self._grow(i, off + c - 1)
         toks = np.zeros((B, C), np.int32)
         posm = np.full((B, C), -1, np.int32)
         reset = np.zeros((B,), bool)
@@ -561,14 +736,12 @@ class Scheduler:
         for i in prefilling:
             off, prompt = self._pref[i], lanes[i].prompt
             c = min(C, len(prompt) - off)
-            if self.pool is not None:
-                self._grow(i, off + c - 1)
             toks[i, C - c:] = prompt[off:off + c]
             posm[i, C - c:] = np.arange(off, off + c, dtype=np.int32)
             reset[i] = off == 0
             ends[i] = off + c
-        self._sync_table(state.cache)
-        last, cache = self.engine.chunk(toks, posm, reset, state.cache)
+        self._sync_table(cache)
+        last, cache = self.engine.chunk(toks, posm, reset, cache)
         book.stats.prefill_calls += 1
         book.stats.chunk_steps += 1
         book.step += 1
@@ -589,11 +762,17 @@ class Scheduler:
     def _decode(self, lanes, state: DecodeState, book: _Book) -> DecodeState:
         active = [i for i, r in enumerate(lanes)
                   if r is not None and self._pref[i] is None]
+        cache = state.cache
         if self.pool is not None:
             for i in active:
-                self._grow(i, int(state.pos[i, 0]))
-            self._sync_table(state.cache)
-        nxt, cache = self.engine.generate(state)
+                p = int(state.pos[i, 0])
+                if self.radix is not None:
+                    # a ring write may wrap into a shared column
+                    cache = self._cow_barrier(i, (p,), cache)
+                self._grow(i, p)
+            self._sync_table(cache)
+        nxt, cache = self.engine.generate(
+            DecodeState(state.tokens, state.pos, cache))
         book.count_decode(len(active))
         book.step += 1
         tokens, pos = state.tokens.copy(), state.pos.copy()
@@ -622,7 +801,11 @@ def serve(prefill_step: Callable, decode_step: Callable, init_cache_fn,
           chunk_step: Optional[Callable] = None,
           block_pool: Optional[BlockPool] = None,
           prefill_chunk: Optional[int] = None,
-          ring_tokens: Optional[int] = None, device=None) -> ServeStats:
+          ring_tokens: Optional[int] = None,
+          radix_cache: Optional[RadixCache] = None,
+          write_caps: Optional[List[int]] = None,
+          copy_block_fn: Optional[Callable] = None,
+          device=None) -> ServeStats:
     """Bind ``params`` into the step functions (``runtime.steps``
     signatures, params first) and serve with the chosen scheduler:
 
@@ -632,8 +815,11 @@ def serve(prefill_step: Callable, decode_step: Callable, init_cache_fn,
       decode_step(params, tokens, pos, cache)
 
     The step a scheduler does not use may be None. ``block_pool``,
-    ``prefill_chunk`` and ``ring_tokens`` are continuous only; the static
-    scheduler serves paged caches through a fully mapped identity table. ``device``: where host inputs go (None: the GPU)."""
+    ``prefill_chunk``, ``ring_tokens`` and prefix sharing (``radix_cache``
+    with ``write_caps`` and ``copy_block_fn(cache, src, dst)``, no params)
+    are continuous only; the static scheduler serves paged caches through
+    a fully mapped identity table. ``device``: where host inputs go (None:
+    the GPU)."""
     if scheduler == "continuous":
         return serve_continuous(
             lambda t, pm, m, c: admit_step(params, t, pm, m, c),
@@ -643,9 +829,13 @@ def serve(prefill_step: Callable, decode_step: Callable, init_cache_fn,
             chunk_fn=(None if chunk_step is None else
                       lambda t, pm, m, c: chunk_step(params, t, pm, m, c)),
             prefill_chunk=prefill_chunk, ring_tokens=ring_tokens,
-            device=device)
+            radix_cache=radix_cache, write_caps=write_caps,
+            copy_block_fn=copy_block_fn, device=device)
     if scheduler != "static":
         raise ValueError(f"unknown scheduler {scheduler!r}")
+    if radix_cache is not None:
+        raise ValueError("radix_cache is a continuous-scheduler feature; "
+                         "prefix sharing needs the paged block pool")
     for what, given in (("block_pool", block_pool),
                         ("prefill_chunk", prefill_chunk)):
         if given is not None:

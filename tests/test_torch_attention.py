@@ -498,3 +498,127 @@ def test_block_pool_matches_reference():
     assert not pools[0].can_reserve(5) and not pools[1].can_reserve(5)
     with pytest.raises(RuntimeError):
         pools[0].grow(0, 3)
+
+
+# ---------------------------------------------------------------------------
+# In-place cache writes against the functional writers they replaced
+# ---------------------------------------------------------------------------
+
+def _fresh_cache(kind, window, n_blocks=10, bs=4, batch=3, max_len=12):
+    tcfg = attn.AttnConfig(num_heads=4, num_kv_heads=2, head_dim=8,
+                           window=window)
+    paged, bits = kind.split("-")
+    if paged == "paged":
+        init = {"16": lambda: attn.init_paged_kv_cache(
+                    n_blocks, bs, tcfg, torch.float32, CPU),
+                "8": lambda: attn.init_paged_quant_kv_cache(
+                    n_blocks, bs, tcfg, CPU),
+                "4": lambda: attn.init_paged_quant4_kv_cache(
+                    n_blocks, bs, tcfg, CPU)}[bits]
+    else:
+        init = {"16": lambda: attn.init_kv_cache(batch, max_len, tcfg,
+                                                 torch.float32, CPU),
+                "8": lambda: attn.init_quant_kv_cache(batch, max_len, tcfg,
+                                                      CPU),
+                "4": lambda: attn.init_quant4_kv_cache(batch, max_len, tcfg,
+                                                       CPU)}[bits]
+    return init()
+
+
+@pytest.mark.parametrize("kind,calibrated", [
+    ("dense-16", False), ("dense-8", False), ("dense-8", True),
+    ("dense-4", False), ("dense-4", True), ("paged-16", False),
+    ("paged-8", False), ("paged-8", True), ("paged-4", False),
+    ("paged-4", True)])
+@pytest.mark.parametrize("window", [None, 6])
+def test_in_place_write_equals_the_functional_writer(kind, calibrated,
+                                                     window):
+    """A prefill whose first lane is left-padded with dead cells (and, on
+    a paged arena, whose third lane maps no block for its tail), then a
+    decode step with an idle lane, then a step where every cell is dead:
+    the in-place writer leaves the very tensors it was given holding what
+    the functional writer returns, bit for bit (a ring layer keeps the
+    last min(T, S) tokens, as attention_block passes them)."""
+    from torch_cache_oracle import write_kv, write_paged_kv
+    rng = np.random.RandomState(11)
+    cache = _fresh_cache(kind, window)
+    want = type(cache)(*(t.clone() for t in cache))
+    ptrs = [t.data_ptr() for t in cache]
+    table = _t(np.array([[3, 7, 1], [0, 2, 5], [9, -1, -1]], np.int32))
+    pw = np.tile(np.arange(9, dtype=np.int32), (3, 1))
+    pw[0, :3] = -1
+    pw[0, 3:] = np.arange(6)
+    kvq = _KVQ(np.random.RandomState(1), 2, _t) if calibrated else None
+    paged = kind.startswith("paged")
+    S = attn.paged_capacity(table, 4, window) if paged \
+        else cache.pos.shape[1]
+    for step_pw in (pw, np.array([[6], [9], [-1]], np.int32),
+                    np.full((3, 2), -1, np.int32)):
+        keep = min(step_pw.shape[1], S)
+        step_pw = step_pw[:, -keep:]
+        k = _t(rng.randn(3, keep, 2, 8).astype(np.float32))
+        v = _t(rng.randn(3, keep, 2, 8).astype(np.float32))
+        p = _t(step_pw)
+        if paged:
+            got = attn._write_paged_kv(cache, k, v, p, table, window, kvq)
+            want = write_paged_kv(want, k, v, p, table, window, kvq)
+        else:
+            got = attn._write_kv(cache, k, v, p, window, kvq)
+            want = write_kv(want, k, v, p, attn._write_slots(p, S, window),
+                            kvq)
+        assert got is cache
+        assert [t.data_ptr() for t in cache] == ptrs
+        assert type(want) is type(cache)
+        for a, b in zip(cache, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8, 4])
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("stacked", [True, False])
+def test_steps_write_the_cache_they_were_given(reduced_cfgs, monkeypatch,
+                                               kv_bits, paged, stacked):
+    """A prefill (one lane left-padded with dead cells) and three decode
+    steps (one lane idle) write every layer's slice of the cache they were
+    given, return that cache object, and leave it equal bit for bit to the
+    same steps through the functional writers, with the same logits; the
+    block table is the one that went in."""
+    from torch_cache_oracle import use_functional_writers
+    _, cfg = reduced_cfgs
+    params = tfm.init_params(cfg, 3, stacked=stacked, dtype=torch.float32,
+                             device=CPU)
+    B, T = 3, 20
+    toks = torch.as_tensor(np.random.RandomState(2).randint(0, 128, (B, T)))
+    pos = np.tile(np.arange(T, dtype=np.int32), (B, 1))
+    pos[2, :6] = -1
+    pos[2, 6:] = np.arange(14)
+
+    def run():
+        cache = tfm.init_cache(cfg, B, 32, stacked=stacked, kv_bits=kv_bits,
+                               paged=paged, block_size=8,
+                               dtype=torch.float32, device=CPU)
+        leaves = [t for t in tfm._cache_nodes(cache) for t in t]
+        ptrs = [t.data_ptr() for t in leaves]
+        table = cache.get("block_table")
+        logits, out = tfm.prefill(cfg, params, toks, cache,
+                                  positions=_t(pos))
+        outs = [logits]
+        assert out is cache
+        cur = torch.argmax(logits, -1).to(torch.int32)
+        nxt = _t(np.array([[20], [20], [-1]], np.int32))
+        for _ in range(3):
+            logits, out = tfm.decode_step(cfg, params, cur, nxt, cache)
+            assert out is cache
+            outs.append(logits)
+            cur = torch.argmax(logits, -1).to(torch.int32)
+            nxt = torch.where(nxt >= 0, nxt + 1, nxt)
+        assert [t.data_ptr() for t in leaves] == ptrs
+        assert cache.get("block_table") is table
+        return outs, leaves
+    got_logits, got = run()
+    use_functional_writers(monkeypatch)
+    want_logits, want = run()
+    for a, b in zip(got_logits, want_logits):
+        assert torch.equal(a, b)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

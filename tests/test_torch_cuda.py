@@ -20,6 +20,8 @@ agree within 1e-5 of max|out|; with it a probability within float rounding
 of a grid tie may land one step away, so at most 0.1 % of the output rows
 may differ, each by at most one ``softmax_out`` step x max|v|.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1025,3 +1027,116 @@ def test_k6_and_k7_back_to_back_on_the_shared_workspace(gen):
         torch.cuda.synchronize()
         assert_attend_close(got, want, step, v_abs)
         _assert_emit(fn, args, kw)
+
+
+# ---------------------------------------------------------------------------
+# In-place cache writes and the copy-on-write block copy on CUDA arenas
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _no_sync(device):
+    """On the card, make any call that waits for it raise."""
+    if device != "cuda":
+        yield
+        return
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _arena_pair(kind, gen):
+    """The same randomly filled cache on the card and on the CPU."""
+    from repro_torch.models import attention as attn
+    acfg = attn.AttnConfig(num_heads=8, num_kv_heads=4, head_dim=256)
+    init = {"paged-16": lambda d: attn.init_paged_kv_cache(
+                12, 16, acfg, torch.bfloat16, d),
+            "paged-8": lambda d: attn.init_paged_quant_kv_cache(12, 16, acfg,
+                                                                d),
+            "paged-4": lambda d: attn.init_paged_quant4_kv_cache(12, 16,
+                                                                 acfg, d),
+            "dense-16": lambda d: attn.init_kv_cache(3, 40, acfg,
+                                                     torch.bfloat16, d),
+            "dense-8": lambda d: attn.init_quant_kv_cache(3, 40, acfg, d)}
+    dev = init[kind]("cuda")
+    for t in dev:
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-128, 128, t.shape, generator=gen,
+                                  device="cuda", dtype=torch.int8))
+        elif t.dtype == torch.int32:
+            t.copy_(torch.randint(-1, 64, t.shape, generator=gen,
+                                  device="cuda", dtype=torch.int32))
+        else:
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    return dev, type(dev)(*(t.cpu() for t in dev)), acfg
+
+
+@pytest.mark.parametrize("kind", ["paged-16", "paged-8", "paged-4",
+                                  "dense-16", "dense-8"])
+def test_in_place_cache_writes_on_cuda_match_the_cpu(gen, kind):
+    """A prefill with dead cells and an unmapped block, then a decode step
+    with an idle lane, written in place into a CUDA arena: the same bytes
+    as the same writes on the CPU, in the same tensors, and no call that
+    waits for the card (``torch.cuda.set_sync_debug_mode("error")``)."""
+    from repro_torch.models import attention as attn
+    dev, cpu, acfg = _arena_pair(kind, gen)
+    ptrs = [t.data_ptr() for t in dev]
+    table = torch.tensor([[3, 7, 1], [0, 2, 5], [9, -1, -1]],
+                         dtype=torch.int32)
+    pw = torch.arange(30, dtype=torch.int32).repeat(3, 1)
+    pw[0, :5] = -1
+    for step_pw in (pw, torch.tensor([[25], [30], [-1]], dtype=torch.int32)):
+        T = step_pw.shape[1]
+        k = torch.randn(3, T, 4, 256, generator=gen, device="cuda")
+        v = torch.randn(3, T, 4, 256, generator=gen, device="cuda")
+        for cache, d in ((dev, "cuda"), (cpu, "cpu")):
+            args = (k.to(d), v.to(d), step_pw.to(d))
+            tab = table.to(d)
+            torch.cuda.synchronize()
+            with _no_sync(d):
+                if kind.startswith("paged"):
+                    out = attn._write_paged_kv(cache, *args, tab, None)
+                else:
+                    out = attn._write_kv(cache, *args, None)
+            assert out is cache
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in dev] == ptrs
+    for a, b in zip(dev, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+@pytest.mark.parametrize("kv_bits", [16, 8, 4])
+def test_cache_copy_block_on_cuda_matches_the_cpu(gen, stacked, kv_bits):
+    """cache_copy_block on a whole-model paged cache on the card, with
+    block ids as Python ints and as 0-d CUDA tensors: the same bytes as
+    on the CPU, in place (with device ids, no call that waits for the
+    card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    cfg = get_config("gemma2-2b").reduced()
+    dev = tfm.init_cache(cfg, 2, 32, stacked=stacked, kv_bits=kv_bits,
+                         paged=True, block_size=4, device="cuda")
+    for node in tfm._cache_nodes(dev):
+        for t in node:
+            t.copy_(torch.randint(-100, 100, t.shape, generator=gen,
+                                  device="cuda").to(t.dtype))
+    cpu = tfm.clone_cache(dev)
+    cpu = {k: (v.cpu() if torch.is_tensor(v) else
+               [type(n)(*(t.cpu() for t in n)) for n in v])
+           for k, v in cpu.items()}
+    calls = tfm.cache_copy_block.calls
+    for src, dst in ((1, 9), (2, 3), (9, 0)):
+        ids = (src, dst) if src != 2 else (
+            torch.tensor(src, device="cuda"), torch.tensor(dst,
+                                                           device="cuda"))
+        torch.cuda.synchronize()
+        with _no_sync("cuda" if src == 2 else "cpu"):
+            assert tfm.cache_copy_block(dev, *ids) is dev
+        tfm.cache_copy_block(cpu, src, dst)
+    torch.cuda.synchronize()
+    assert tfm.cache_copy_block.calls == calls + 6
+    for a, b in zip(tfm._cache_nodes(dev), tfm._cache_nodes(cpu)):
+        for x, y in zip(a, b):
+            assert torch.equal(x.cpu(), y)

@@ -15,6 +15,10 @@
   among them, and the logits are the same; the fused path is taken at
   every attention layer (int8 and int4 caches, dense and paged, and the
   paged f32 cache of ``--kv-bits 16``).
+* The same deploy model serving the README quickstart's workload through
+  the in-place cache writers gives the greedy tokens and the final caches
+  of the functional writers they replaced (``tests/torch_cache_oracle.py``),
+  continuous and static, paged and dense, kv 8 and 16.
 
 The on-card comparison of the emit with K4's kernel on the same call's
 f32 output is in ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -228,14 +232,73 @@ def test_fused_wo_emit_matches_the_unfused_decode_step(reduced_deploy,
         return out
     monkeypatch.setattr(deploy, "matmul", record_matmul)
     monkeypatch.setattr(attn, "_kernel_decode_attend", record_attend)
-    fused, _ = tfm.decode_step(cfg, packed, cur, pos, cache, ctx=ctx())
+    # each step on its own copy: a step writes its cache in place
+    fused, _ = tfm.decode_step(cfg, packed, cur, pos,
+                               tfm.clone_cache(cache), ctx=ctx())
     fused_inputs, inputs[:] = list(inputs), []
     assert results == [True] * cfg.num_layers
     results.clear()
     monkeypatch.setattr(attn, "_kernel_decode_attend", unfused_attend)
-    unfused, _ = tfm.decode_step(cfg, packed, cur, pos, cache, ctx=ctx())
+    unfused, _ = tfm.decode_step(cfg, packed, cur, pos,
+                                 tfm.clone_cache(cache), ctx=ctx())
     assert results == [False] * cfg.num_layers
     assert len(fused_inputs) == len(inputs) > 4 * cfg.num_layers - 1
     for a, b in zip(fused_inputs, inputs):
         assert torch.equal(a, b)
     assert torch.equal(fused, unfused)
+
+
+@pytest.mark.parametrize("scheduler,kv_bits,paged", [
+    ("continuous", 8, True), ("continuous", 16, True),
+    ("continuous", 8, False), ("static", 8, False), ("static", 16, True)])
+def test_in_place_writes_serve_as_the_functional_writers(reduced_deploy,
+                                                         monkeypatch,
+                                                         scheduler, kv_bits,
+                                                         paged):
+    """The quickstart workload (6 requests x 24 prompt tokens x 6 new, 4
+    lanes, block size 8, chunks of 8, max_len 64) served once with the
+    in-place cache writers and once through the functional writers: the
+    same greedy tokens and the final caches equal bit for bit."""
+    from torch_cache_oracle import use_functional_writers
+    from repro_torch.runtime import (BlockPool, Request, make_admit_step,
+                                     make_chunk_prefill_step,
+                                     make_decode_step, make_prefill_step,
+                                     serve)
+    cfg, packed, ctx = reduced_deploy
+    max_len, bs, slots = 64, 8, 4
+    nb_lane = tfm.paged_lane_blocks(cfg, max_len, bs)
+    pool_kw = (dict(num_blocks=slots * nb_lane, mapped=False)
+               if paged and scheduler == "continuous" else {})
+
+    def run():
+        caches = []
+
+        def init(b):
+            caches.append(tfm.init_cache(
+                cfg, b, max_len, dtype=torch.float32, kv_bits=kv_bits,
+                paged=paged, block_size=bs, device="cpu", **pool_kw))
+            return caches[-1]
+        rng = np.random.RandomState(0)
+        reqs = [Request(rid=i, prompt=rng.randint(10, cfg.vocab_size,
+                                                  size=24),
+                        max_new_tokens=6) for i in range(6)]
+        serve(make_prefill_step(cfg, ctx_factory=ctx),
+              make_decode_step(cfg, ctx_factory=ctx), init, packed, reqs,
+              scheduler=scheduler, batch_slots=slots, max_len=max_len,
+              admit_step=make_admit_step(cfg, ctx_factory=ctx),
+              chunk_step=make_chunk_prefill_step(cfg, ctx_factory=ctx),
+              block_pool=(BlockPool(slots * nb_lane, bs, slots, nb_lane)
+                          if pool_kw else None),
+              prefill_chunk=8 if scheduler == "continuous" else None,
+              device="cpu")
+        return [r.tokens_out for r in reqs], caches
+    got_tokens, got = run()
+    use_functional_writers(monkeypatch)
+    want_tokens, want = run()
+    assert got_tokens == want_tokens
+    assert all(len(t) == 6 for t in got_tokens)
+    for a, b in zip(got, want):
+        leaves = [(x, y) for m, n in zip(tfm._cache_nodes(a),
+                                         tfm._cache_nodes(b))
+                  for x, y in zip(m, n)]
+        assert leaves and all(torch.equal(x, y) for x, y in leaves)
