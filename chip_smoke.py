@@ -88,7 +88,28 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              on the card's arenas; run B again at ``--weight-bits 4
              --kv-bits 4`` with the same counts, its parity lines printed
              as match rates.
-13. entry points — K8-K10, which no ported model reaches, through
+13. full over-commit — full width with the quickstart's kv8 flags, 8
+             requests of 64-token prompts and 32 new tokens on 4 lanes,
+             ``--over-commit --num-blocks 12`` (each request's worst case
+             is 6 blocks of 16, so 4 lanes would need 24):
+             ``[full-overcommit-drop]`` must preempt and recompute,
+             ``[full-overcommit-swap]`` (``--swap-blocks --priority 1``)
+             must preempt, swap blocks through host memory, recompute
+             nothing and emit exactly the greedy tokens of the same
+             requests served unconstrained (32 blocks, no over-commit,
+             the same calibrated model); the drop run's match rate, decode
+             and chunk steps against the unconstrained run's, bytes
+             swapped and the host time of the swap calls, and the peak
+             KV-cache bytes print. K1, K3 and the emitting K6 must launch
+             in the profiled decode step, K4 in the chunk steps.
+14. reduced over-commit — the reference's runs A (drop) and B (swap,
+             ``--priority 1 --decode-ratio 2``) of the over-commit workload
+             (6 requests x 12 new tokens, blocks of 8, ``--num-blocks
+             10``) with ``--parity``: the reference launcher's serve-line
+             counts, over-commit note and ``[tier N]`` lines exactly, and
+             four ``[parity] OK`` lines, the last "preempted (over-commit,
+             N preemptions) and unpreempted serving".
+15. entry points — K8-K10, which no ported model reaches, through
              ``ops`` as the reference's kernel bench calls them and (K8)
              through ``deploy.norm_quantize("layernorm", ...)``: each must
              move.
@@ -1336,7 +1357,8 @@ def _print_profile(tag, report):
                   f"({t / n:.1f} us each) {name[:90]}")
 
 
-def serve_phase(tag, argv, must_launch, step_emits=None, per_call=None):
+def serve_phase(tag, argv, must_launch, step_emits=None, per_call=None,
+                step_must=()):
     """Drive ``repro_torch.launch.serve.main`` once with every launch count
     set to 0 just before and read just after; returns (counts, rel diff of
     the integer path vs fake-quant, stats, the launcher's output). Decode
@@ -1344,7 +1366,8 @@ def serve_phase(tag, argv, must_launch, step_emits=None, per_call=None):
     ``step_emits`` (a counter name) the profiled decode step must launch
     that fused emit and no K4. ``per_call`` (a counter name and a pattern
     of kernel names) prints the device time those kernels took in the
-    profiled step per call of that counter's wrapper."""
+    profiled step per call of that counter's wrapper; every name in
+    ``step_must`` must launch in the profiled decode step."""
     import torch
     from repro_torch.launch import serve
     from torch.profiler import ProfilerActivity, profile
@@ -1379,6 +1402,9 @@ def serve_phase(tag, argv, must_launch, step_emits=None, per_call=None):
     print(f"[{tag}] kernel launches in the profiled decode step {step}")
     for name in must_launch:
         require(counts[name] > 0, f"{tag}: {name} was never launched")
+    for name in step_must:
+        require(step.get(name, 0) > 0,
+                f"{tag}: the profiled decode step launched no {name}")
     if step_emits is not None:
         require(step.get(step_emits, 0) > 0 and "peg_quantize" not in step,
                 f"{tag}: the profiled decode step launched {step}, not "
@@ -1516,6 +1542,39 @@ PREFIX_HITS = ("prefix-cache hits 16 tokens (rate 17%, 16 prefill tokens "
 # run B with --parity: the reference's BlockPool.cow calls, and the block
 # copies they asked for
 RUN_B_COW = (52, 4)
+# the --over-commit workload at full width: each request's worst case is
+# ceil((64 + 32 - 1) / 16) = 6 blocks, so 4 lanes would need 24 of the 12
+FULL_OC = quick_argv("8", *FULL_QUICK, "--over-commit", "--num-blocks", "12")
+for _flag, _value in (("--requests", "8"), ("--prompt-len", "64"),
+                      ("--new-tokens", "32")):
+    FULL_OC[FULL_OC.index(_flag) + 1] = _value
+# runs A and B of the reference's over-commit workload at the reduced width
+# (run B adds --swap-blocks --priority 1 --decode-ratio 2)
+REDUCED_OC = ["--arch", "gemma2-2b", "--reduced", "--quantize",
+              "--deploy-int8", "--kv-bits", "8", "--scheduler", "continuous",
+              "--paged-kv", "--block-size", "8", "--prefill-chunk", "8",
+              "--requests", "6", "--new-tokens", "12", "--batch-slots", "4",
+              "--num-blocks", "10", "--over-commit", "--parity"]
+# the reference launcher's lines for runs A and B (a CPU run of
+# repro.launch.serve with the same flags): the serve line's counts, its
+# pool, chunk and over-commit notes, and the [tier N] lines
+OC_COUNTS = {
+    "A": ("72 tokens, 27 decode steps, 17 prefills",
+          "blocks 10/10 (frag 26%, block-size 8), chunked prefill (17 "
+          "chunk steps @ <= 8 tokens), over-commit: 10 preemptions (0 "
+          "blocks swapped, 117 tokens recomputed), queue-wait 50 steps",
+          ("[tier 0] 6 requests, first-token p50/p99 2/21 steps, "
+           "inter-token p50/p99 1.8/3.2 steps",)),
+    "B": ("72 tokens, 28 decode steps, 5 prefills",
+          "blocks 10/10 (frag 32%, block-size 8), chunked prefill (5 chunk "
+          "steps @ <= 8 tokens), over-commit: 9 preemptions (16 blocks "
+          "swapped, 0 tokens recomputed), queue-wait 43 steps",
+          ("[tier 1] 3 requests, first-token p50/p99 2/2 steps, "
+           "inter-token p50/p99 1.1/1.4 steps",
+           "[tier 0] 3 requests, first-token p50/p99 15/19 steps, "
+           "inter-token p50/p99 1.3/2.3 steps"))}
+OC_EXTRA = {"A": (), "B": ("--swap-blocks", "--priority", "1",
+                           "--decode-ratio", "2")}
 
 
 @contextlib.contextmanager
@@ -1557,19 +1616,19 @@ def _served_calls():
         launcher.serve = orig
 
 
-def unshared_match(call):
-    """Serve the requests of a recorded prefix-shared ``serve`` call once
-    more without the radix cache (the same steps, params and pool flags)
-    and return (greedy tokens that match, tokens compared, the unshared
-    run's ServeStats)."""
+def reserve_match(call, init=None, **overrides):
+    """Serve the requests of a recorded ``serve`` call once more with the
+    same steps and params, the cache factory ``init`` (default the call's)
+    and ``overrides`` of its keywords; return (greedy tokens that match the
+    recorded run's, tokens compared, the new run's ServeStats)."""
     from repro_torch.runtime import Request, serve
     args, kw = call
-    shared = args[4]
+    served = args[4]
     fresh = [Request(rid=r.rid, prompt=r.prompt,
-                     max_new_tokens=r.max_new_tokens) for r in shared]
-    stats = serve(*args[:4], fresh, **dict(kw, radix_cache=None,
-                                           copy_block_fn=None))
-    pairs = [(x, y) for r, u in zip(shared, fresh)
+                     max_new_tokens=r.max_new_tokens) for r in served]
+    stats = serve(args[0], args[1], init or args[2], args[3], fresh,
+                  **dict(kw, **overrides))
+    pairs = [(x, y) for r, u in zip(served, fresh)
              for x, y in zip(r.tokens_out, u.tokens_out)]
     return sum(x == y for x, y in pairs), len(pairs), stats
 
@@ -1752,7 +1811,8 @@ def prefix_phase(add):
             f"full-prefix: prefix hits {fp_stats.prefix_hit_tokens}, "
             f"prefill tokens saved {fp_stats.prefill_tokens_saved}")
     fp_kv = kv_gap("full-prefix", fp_out)
-    matched, compared, unshared = unshared_match(served[0])
+    matched, compared, unshared = reserve_match(
+        served[0], radix_cache=None, copy_block_fn=None)
     torch.cuda.empty_cache()
     print(f"[full-prefix] peak kv-cache {fp_stats.cache_bytes} bytes "
           f"({fp_stats.blocks_in_use} blocks); prefix-cache hits "
@@ -1810,6 +1870,169 @@ def prefix_phase(add):
                     f"{cow['copy_block']} block copies, the reference "
                     f"makes {RUN_B_COW}")
     return fp_rel, fp_kv, rp
+
+
+@contextlib.contextmanager
+def _swap_times():
+    """Record, while the block runs, the host time of every
+    ``Engine.swap_out`` (which returns once its payload is in host memory)
+    and ``Engine.swap_in`` call (timed here to the scatter's completion on
+    the card), and the payload bytes moved each way."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import engine
+    rec = {"out_s": [], "in_s": [], "out_bytes": 0, "in_bytes": 0}
+    orig_out, orig_in = engine.Engine.swap_out, engine.Engine.swap_in
+
+    def nbytes(payload):
+        sizes = []
+        tfm._map(lambda x: sizes.append(x.numel() * x.element_size()),
+                 payload)
+        return sum(sizes)
+
+    def swap_out(self, cache, ids):
+        t0 = time.perf_counter()
+        payload = orig_out(self, cache, ids)
+        rec["out_s"].append(time.perf_counter() - t0)
+        rec["out_bytes"] += nbytes(payload)
+        return payload
+
+    def swap_in(self, cache, ids, payload):
+        t0 = time.perf_counter()
+        cache = orig_in(self, cache, ids, payload)
+        torch.cuda.synchronize()
+        rec["in_s"].append(time.perf_counter() - t0)
+        rec["in_bytes"] += nbytes(payload)
+        return cache
+    engine.Engine.swap_out, engine.Engine.swap_in = swap_out, swap_in
+    try:
+        yield rec
+    finally:
+        engine.Engine.swap_out, engine.Engine.swap_in = orig_out, orig_in
+
+
+def unconstrained_match(call, kv_bits):
+    """Serve the requests of a recorded over-commit ``serve`` call once
+    more, unconstrained: the same steps and calibrated model, a pool of the
+    dense worst case (every lane's full table width) and worst-case
+    reservations, no over-commit (see reserve_match)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import BlockPool
+    kw = call[1]
+    pool = kw["block_pool"]
+    n = pool.batch_slots * pool.max_blocks_per_lane
+    cfg = get_config("gemma2-2b")
+
+    def init(b):
+        return tfm.init_cache(cfg, b, kw["max_len"], dtype=torch.bfloat16,
+                              kv_bits=kv_bits, paged=True,
+                              block_size=pool.block_size, num_blocks=n,
+                              mapped=False, device="cuda")
+    return reserve_match(
+        call, init, block_pool=BlockPool(n, pool.block_size,
+                                         pool.batch_slots,
+                                         pool.max_blocks_per_lane),
+        over_commit=False, swap_out_fn=None, swap_in_fn=None)
+
+
+def oc_lines(tag, out, run):
+    """Require the reference launcher's serve-line counts, over-commit
+    note and [tier N] lines for run A or B of the reduced over-commit
+    workload, and its four parity lines."""
+    counts, note, tiers = OC_COUNTS[run]
+    m = re.search(r"^\[serve:continuous\] (.*)$", out, re.M)
+    require(m is not None, f"{tag}: no serve line")
+    line = m.group(1)
+    require(line.startswith(counts) and f"{note}, cuda)" in line,
+            f"{tag}: serve line {line!r} does not carry the reference's "
+            f"{counts!r} and {note!r}")
+    got = tuple(re.findall(r"^\[tier \d+\] .*$", out, re.M))
+    require(got == tiers, f"{tag}: tier lines {got}, the reference's "
+            f"{tiers}")
+    require_parity(tag, out, 4)
+    require("[parity] OK: preempted (over-commit, " in out,
+            f"{tag}: no preempted-vs-unpreempted parity line")
+
+
+def overcommit_phase(add):
+    """Phases 13-14, over-commit with lane preemption (``--over-commit``).
+    At full width both modes must preempt; swap mode must move blocks
+    through host memory, recompute nothing and emit the unconstrained
+    run's greedy tokens exactly (it keeps the decode step's shapes and
+    restores the bytes), while drop mode's re-prefill computes the emitted
+    tokens' K/V at chunk width, where the fake-quant FFN rounds by row
+    count, so its match rate is printed. At the reduced width runs A and B
+    hold the reference's counts. ``add`` takes each phase's launch counts.
+    Returns the reduced runs' [deploy-int8] gaps."""
+    import torch
+    for mode, extra in (("drop", ()),
+                        ("swap", ("--swap-blocks", "--priority", "1"))):
+        tag = f"full-overcommit-{mode}"
+        with _served_calls() as served, _swap_times() as swaps:
+            counts, rel, stats, out = serve_phase(
+                tag, FULL_OC + list(extra),
+                ("rms_quantize", "int8_matmul", "peg_quantize",
+                 "int8_attend_decode", "int8_attend_decode_emit",
+                 "paged_int8_attend_decode", "paged_int8_attend_decode_emit"),
+                "paged_int8_attend_decode_emit",
+                step_must=("rms_quantize", "int8_matmul"))
+        add(counts)
+        require(stats.preemptions > 0, f"{tag}: no preemption")
+        if mode == "swap":
+            require(stats.swapped_blocks > 0
+                    and stats.recomputed_tokens == 0,
+                    f"{tag}: {stats.swapped_blocks} blocks swapped, "
+                    f"{stats.recomputed_tokens} tokens recomputed")
+        else:
+            require(stats.recomputed_tokens > 0
+                    and stats.swapped_blocks == 0,
+                    f"{tag}: {stats.recomputed_tokens} tokens recomputed, "
+                    f"{stats.swapped_blocks} blocks swapped")
+        matched, compared, free = unconstrained_match(served[0], 8)
+        torch.cuda.empty_cache()
+        n_out, n_in = len(swaps["out_s"]), len(swaps["in_s"])
+
+        def calls(key):
+            t = swaps[key]
+            return (f"{sum(t) * 1e3:.3f} ms (median "
+                    f"{statistics.median(t) * 1e3:.3f}, max "
+                    f"{max(t) * 1e3:.3f} ms a call)" if t else "0 ms")
+        print(f"[{tag}] {stats.preemptions} preemptions, "
+              f"{stats.swapped_blocks} blocks swapped, "
+              f"{stats.recomputed_tokens} tokens recomputed, queue-wait "
+              f"{stats.queue_wait_steps} steps; {stats.decode_steps} decode "
+              f"and {stats.chunk_steps} chunk steps against "
+              f"{free.decode_steps} and {free.chunk_steps} unconstrained; "
+              f"peak kv-cache "
+              f"{stats.cache_bytes} bytes ({stats.blocks_in_use} blocks) "
+              f"against {free.cache_bytes} bytes ({free.blocks_in_use} "
+              f"blocks); swap-out {n_out} calls, {swaps['out_bytes']} bytes "
+              f"to host in {calls('out_s')} (host clock), swap-in {n_in} "
+              f"calls, {swaps['in_bytes']} bytes in {calls('in_s')}; serve "
+              f"wall {stats.wall_s:.2f} s against {free.wall_s:.2f} s "
+              f"unconstrained; {matched}/{compared} greedy tokens match the "
+              f"unconstrained run's"
+              + (" (required)" if mode == "swap" else
+                 " (printed, not asserted)"))
+        if mode == "swap":
+            require(matched == compared and compared == 256,
+                    f"{tag}: {matched}/{compared} greedy tokens match the "
+                    f"unconstrained run's")
+    ro = {}
+    for run in ("A", "B"):
+        tag = f"reduced-overcommit-{run}"
+        counts, rel, stats, out = serve_phase(
+            tag, REDUCED_OC + list(OC_EXTRA[run]),
+            ("rms_quantize", "int8_matmul", "int8_matmul_peg",
+             "peg_quantize", "int8_attend_decode", "paged_int8_attend_decode",
+             "int8_attend_decode_emit", "paged_int8_attend_decode_emit"),
+            "paged_int8_attend_decode_emit")
+        add(counts)
+        oc_lines(tag, out, run)
+        ro[run] = rel
+    return ro
 
 
 def ptxas_report():
@@ -1992,6 +2215,7 @@ def main() -> int:
                       "int4 vs int8 KV cache drift"],
             f"reduced-quickstart-4bit: parity lines {rates}")
     fp_rel, fp_kv, rp = prefix_phase(add)
+    ro = overcommit_phase(add)
 
     # The reduced run holds the integer path to the fake-quant path it
     # replaces. At full width the fake-quant path runs in bf16 (bf16 params:
@@ -2013,7 +2237,9 @@ def main() -> int:
                      ("reduced-paged-kv16", r16_rel),
                      ("reduced-quickstart-4bit", r4_rel),
                      ("reduced-prefix-A", rp["A"]),
-                     ("reduced-prefix-B", rp["B"])):
+                     ("reduced-prefix-B", rp["B"]),
+                     ("reduced-overcommit-A", ro["A"]),
+                     ("reduced-overcommit-B", ro["B"])):
         require(rel <= 1e-4, f"{tag}: integer path differs from "
                 f"fake-quant by {rel:.4%} of max|logits|")
         print(f"[{tag}] integer vs fake-quant logits: rel {rel:.4%} "

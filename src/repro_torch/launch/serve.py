@@ -21,9 +21,16 @@ continuous`` admits into freed lanes mid-flight, ``--prefill-chunk N`` in
 chunks of N prompt tokens; ``--prefix-cache`` (continuous, paged) shares
 the cached blocks of retired prompts through a radix cache, with
 copy-on-write, on a workload whose prompts open with the same
-``prompt_len // 2`` tokens; ``--parity`` serves the requests again under
-the other scheduler, unchunked, dense and (with ``--prefix-cache``)
-unshared and checks the greedy tokens are the same.
+``prompt_len // 2`` tokens. ``--over-commit`` (continuous, paged) drops
+the worst-case block reservations: admission claims what the first chunk
+needs, the queue goes by priority tier (``--priority N`` puts every other
+request in tier N) and a pool that runs dry preempts a lane, whose blocks
+go to host memory and back with ``--swap-blocks`` or are recomputed
+through the chunk step without it; ``--decode-ratio N`` runs N decode
+steps per chunk step. ``--parity`` serves the requests again under the
+other scheduler, unchunked, dense, (with ``--prefix-cache``) unshared and
+(with ``--over-commit``) with worst-case reservations, and checks the
+greedy tokens are the same.
 
 Full width serves bf16 params on one GPU; ``--reduced`` serves the small
 f32 config (``main(argv, dtype=torch.float32)`` serves either in f32).
@@ -54,7 +61,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.runtime import (BlockPool, RadixCache, Request,
                                  blocks_for_tokens, make_admit_step,
                                  make_chunk_prefill_step, make_decode_step,
-                                 make_prefill_step, serve)
+                                 make_prefill_step, make_swap_steps, serve)
 from repro_torch.runtime.serve_loop import _check_capacity
 
 # flags (by dest) the port serves; any other flag must keep its default
@@ -62,7 +69,8 @@ _PORTED = {"arch", "reduced", "requests", "prompt_len", "new_tokens",
            "batch_slots", "max_len", "skew", "seed", "quantize",
            "deploy_int8", "scheduler", "kv_bits", "weight_bits", "parity",
            "paged_kv", "block_size", "num_blocks", "prefill_chunk",
-           "prefix_cache"}
+           "prefix_cache", "over_commit", "swap_blocks", "priority",
+           "decode_ratio"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -246,6 +254,18 @@ def _check_args(ap: argparse.ArgumentParser, args) -> None:
     if args.prefix_cache and args.scheduler != "continuous":
         ap.error("--prefix-cache requires --scheduler continuous (the "
                  "static scheduler has no pool to share blocks from)")
+    if args.over_commit and not (args.paged_kv
+                                 and args.scheduler == "continuous"):
+        ap.error("--over-commit requires --paged-kv and --scheduler "
+                 "continuous (preemption is a paged feature)")
+    if args.swap_blocks and not args.over_commit:
+        ap.error("--swap-blocks requires --over-commit")
+    if args.decode_ratio < 1:
+        ap.error("--decode-ratio must be >= 1")
+    if args.decode_ratio > 1 and not (args.prefill_chunk
+                                      or args.over_commit):
+        ap.error("--decode-ratio > 1 requires a chunked path "
+                 "(--prefill-chunk or --over-commit)")
     _reject_unported(ap, args)
 
 
@@ -435,6 +455,8 @@ def main(argv=None, *, device=None, dtype=None):
     admit = make_admit_step(cfg, ctx_factory=ctx_factory)
     decode = make_decode_step(cfg, ctx_factory=ctx_factory)
     chunk_step = make_chunk_prefill_step(cfg, ctx_factory=ctx_factory)
+    swap_out, swap_in = (make_swap_steps() if args.swap_blocks
+                         else (None, None))
 
     def make_requests():
         # the reference launcher's draws: with --prefix-cache every prompt
@@ -450,7 +472,9 @@ def main(argv=None, *, device=None, dtype=None):
                                          size=args.prompt_len - len(shared))]
                         ).astype(np.int64),
                         max_new_tokens=(args.skew if args.skew and i % 2
-                                        else args.new_tokens))
+                                        else args.new_tokens),
+                        priority=(args.priority if args.priority and i % 2
+                                  else 0))
                 for i in range(args.requests)]
 
     def init_cache(batch, paged, scheduler, kv_bits):
@@ -466,11 +490,13 @@ def main(argv=None, *, device=None, dtype=None):
                               num_blocks=num_blocks, mapped=False, **kw)
 
     def run(scheduler, requests, paged=None, chunk=0, kv_bits=None,
-            prefix=None):
+            prefix=None, over_commit=None):
         paged = args.paged_kv if paged is None else paged
         kv_bits = args.kv_bits if kv_bits is None else kv_bits
         prefix = ((args.prefix_cache if prefix is None else prefix)
                   and paged and scheduler == "continuous")
+        oc = ((args.over_commit if over_commit is None else over_commit)
+              and paged and scheduler == "continuous")
         pool = None
         if paged and scheduler == "continuous":
             pool = BlockPool(num_blocks, args.block_size, args.batch_slots,
@@ -481,7 +507,8 @@ def main(argv=None, *, device=None, dtype=None):
                      requests, scheduler=scheduler,
                      batch_slots=args.batch_slots, max_len=args.max_len,
                      admit_step=admit,
-                     chunk_step=chunk_step if (chunk or prefix) else None,
+                     chunk_step=(chunk_step if (chunk or prefix or oc)
+                                 else None),
                      block_pool=pool, prefill_chunk=chunk or None,
                      ring_tokens=ring_tokens if pool else None,
                      radix_cache=(RadixCache(args.block_size) if prefix
@@ -490,6 +517,10 @@ def main(argv=None, *, device=None, dtype=None):
                                                      args.block_size)
                                  if pool else None),
                      copy_block_fn=tfm.cache_copy_block if prefix else None,
+                     over_commit=oc, swap_out_fn=swap_out if oc else None,
+                     swap_in_fn=swap_in if oc else None,
+                     decode_ratio=(args.decode_ratio
+                                   if (chunk or prefix or oc) else 1),
                      device=dev)
 
     requests = make_requests()
@@ -511,14 +542,26 @@ def main(argv=None, *, device=None, dtype=None):
                    f"{stats.prefill_tokens_saved} prefill tokens saved, "
                    f"peak {stats.shared_blocks} shared blocks)"
                    if args.prefix_cache else "")
+    oc_note = (f", over-commit: {stats.preemptions} preemptions "
+               f"({stats.swapped_blocks} blocks swapped, "
+               f"{stats.recomputed_tokens} tokens recomputed), "
+               f"queue-wait {stats.queue_wait_steps} steps"
+               if args.over_commit else "")
     print(f"[serve:{args.scheduler}] {stats.tokens_generated} tokens, "
           f"{stats.decode_steps} decode steps, "
           f"{stats.prefill_calls} prefills, {stats.wall_s:.2f}s "
           f"({stats.tokens_per_s:.1f} tok/s), "
           f"slot-utilization {stats.slot_utilization:.0%}, "
           f"peak kv-cache {stats.cache_bytes / 1024:.0f} KiB "
-          f"(kv-bits {args.kv_bits}{paged_note}{chunk_note}{prefix_note}, "
-          f"{dev.type})")
+          f"(kv-bits {args.kv_bits}{paged_note}{chunk_note}{prefix_note}"
+          f"{oc_note}, {dev.type})")
+    if args.over_commit:
+        for tier in sorted(stats.tier_latency, reverse=True):
+            t = stats.tier_latency[tier]
+            print(f"[tier {tier}] {t.requests} requests, first-token "
+                  f"p50/p99 {t.first_token_p50:.0f}/{t.first_token_p99:.0f} "
+                  f"steps, inter-token p50/p99 {t.inter_token_p50:.1f}/"
+                  f"{t.inter_token_p99:.1f} steps")
 
     if args.parity:
         def matches(b_reqs):
@@ -579,6 +622,18 @@ def main(argv=None, *, device=None, dtype=None):
                 prefix=False)
             compare("prefix-shared vs unshared serving", unshared_reqs,
                     f"prefix-shared and unshared serving emit identical "
+                    f"greedy tokens for all {len(requests)} requests "
+                    f"(kv-bits {args.kv_bits})")
+        if args.over_commit:
+            # preempted == unpreempted: the same requests served with
+            # worst-case reservations (FIFO backpressure, no preemption)
+            unpreempted_reqs = make_requests()
+            run(args.scheduler, unpreempted_reqs, chunk=args.prefill_chunk,
+                over_commit=False)
+            compare("preempted (over-commit) vs unpreempted serving",
+                    unpreempted_reqs,
+                    f"preempted (over-commit, {stats.preemptions} "
+                    f"preemptions) and unpreempted serving emit identical "
                     f"greedy tokens for all {len(requests)} requests "
                     f"(kv-bits {args.kv_bits})")
         if args.kv_bits == 4:

@@ -410,6 +410,52 @@ def cache_copy_block(cache, src, dst):
 cache_copy_block.calls = 0
 
 
+def _paged_nodes(cache, what):
+    """(key, index, arena, block axis) of every paged arena of a
+    whole-model cache: stacked scan leaves carry the block axis at
+    position 1, tail and unrolled leaves at 0. Raises on any other cache
+    type, as the reference does."""
+    out = []
+    for key, axis in (("layers", 0), ("scan", 1), ("tail", 0)):
+        for i, c in enumerate(cache.get(key, [])):
+            if not isinstance(c, (PagedKVCache, PagedQuantKVCache)):
+                raise ValueError(f"{what}: paged caches only, got "
+                                 f"{type(c).__name__}")
+            out.append((key, i, c, axis))
+    return out
+
+
+def cache_gather_blocks(cache, ids):
+    """The payload of physical blocks ``ids`` in every paged arena of a
+    whole-model cache (the device half of a swap-out): the cache's layout
+    and arena types (an int4 arena stays a ``PagedQuant4KVCache``) with the
+    block axis cut to ``len(ids)`` rows, on the cache's device, and no
+    ``block_table``. ``ids`` (a 1-D tensor or sequence) are the lane's live
+    blocks; a repeated id gathers the same row twice, so ids padded by
+    repeating the first one round-trip through
+    :func:`cache_scatter_blocks` unchanged."""
+    out = {key: [] for key in ("layers", "scan", "tail") if key in cache}
+    for key, i, c, axis in _paged_nodes(cache, "cache_gather_blocks"):
+        idx = torch.as_tensor(ids, device=c.pos.device).long()
+        out[key].append(type(c)(*(x.index_select(axis, idx) for x in c)))
+    return out
+
+
+def cache_scatter_blocks(cache, ids, payload):
+    """Write a :func:`cache_gather_blocks` ``payload`` into physical blocks
+    ``ids`` of every paged arena, in place (the device half of a swap-in;
+    ``ids`` are the lane's newly allocated blocks, in the gather's order).
+    The payload must lie on the cache's device; with ``ids`` there too
+    nothing waits for the device. Duplicate ids must carry equal rows (as
+    a padded gather gives them): ``index_copy_`` writes duplicates in no
+    defined order. Returns ``cache``."""
+    for key, i, c, axis in _paged_nodes(cache, "cache_scatter_blocks"):
+        idx = torch.as_tensor(ids, device=c.pos.device).long()
+        for x, v in zip(c, payload[key][i]):
+            x.index_copy_(axis, idx, v)
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------

@@ -32,9 +32,14 @@ receive inside the cache dict. This pool owns that table between steps:
   unevictable), while cached refcount-0 blocks stay reclaimable: the free
   list evicts them LRU through the attached radix cache when it runs dry.
 
+* **Over-commit growth.** Without worst-case reservations ``try_grow``
+  extends a lane's reservation on demand and returns False, with no
+  change, when the pool cannot supply the blocks (the scheduler then
+  preempts a victim lane and retries); ``cow(extend=True)`` grows the
+  reservation in place instead of raising.
+
 All gauges are physical: a block mapped by five lanes counts once in
-``blocks_in_use``. Over-commit growth (``try_grow``, ``cow(extend=True)``)
-is not yet ported.
+``blocks_in_use``.
 """
 from __future__ import annotations
 
@@ -51,9 +56,9 @@ def blocks_for_tokens(n_tokens: int, block_size: int) -> int:
 class BlockPool:
     """Free-list allocator over ``num_blocks`` physical KV-cache blocks.
     ``table`` is mutated only through ``reserve_and_alloc`` /
-    ``map_shared`` / ``grow`` / ``cow`` / ``free_lane``; ``dirty`` is set
-    on every mutation and cleared by the scheduler when it uploads the
-    table."""
+    ``map_shared`` / ``grow`` / ``try_grow`` / ``cow`` / ``free_lane``;
+    ``dirty`` is set on every mutation and cleared by the scheduler when
+    it uploads the table."""
 
     def __init__(self, num_blocks: int, block_size: int, batch_slots: int,
                  max_blocks_per_lane: int):
@@ -242,6 +247,24 @@ class BlockPool:
         if n_total > self._n_mapped[lane]:
             self._map(lane, n_total - int(self._n_mapped[lane]))
 
+    def try_grow(self, lane: int, n_total: int) -> bool:
+        """Over-commit growth: extend ``lane``'s mapped prefix to
+        ``n_total`` blocks, extending its reservation on demand. False, with
+        no change, when the pool cannot supply the extra blocks or the
+        lane's table row is too narrow. The reservation tracks the lane's
+        novel mapped count, so ``_fits`` stays physically exact."""
+        if n_total > self.max_blocks_per_lane:
+            return False
+        n_new = n_total - int(self._n_mapped[lane])
+        if n_new <= 0:
+            return True
+        if n_new > self.available_blocks():
+            return False
+        novel = n_total - int(self._n_shared[lane])
+        self._reserved[lane] = max(int(self._reserved[lane]), novel)
+        self._map(lane, n_new)
+        return True
+
     def needs_cow(self, lane: int, col: int) -> bool:
         """True when ``lane`` does not solely own the mapped block at table
         column ``col``: writing it would mutate a shared or cached block."""
@@ -250,19 +273,25 @@ class BlockPool:
         b = int(self.table[lane, col])
         return bool(self._cached[b]) or int(self._ref[b]) > 1
 
-    def cow(self, lane: int, col: int) -> Optional[Tuple[int, int]]:
+    def cow(self, lane: int, col: int,
+            extend: bool = False) -> Optional[Tuple[int, int]]:
         """Copy-on-write: if ``lane`` is about to write into a block it does
         not solely own, swap ``table[lane, col]`` for a fresh private block
         (charged to the lane's novel reservation) and return ``(src, dst)``
-        for the device copy. None when the lane already owns the block."""
+        for the device copy. None when the lane already owns the block.
+        ``extend`` (over-commit, no copy-on-write allowance reserved) grows
+        the reservation instead of raising; the scheduler makes sure a
+        block is available first."""
         if not self.needs_cow(lane, col):
             return None
         src = int(self.table[lane, col])
         novel = int(self._n_mapped[lane]) - int(self._n_shared[lane]) + 1
         if novel > self._reserved[lane]:
-            raise RuntimeError(
-                f"lane {lane}: COW at col {col} exceeds its reservation of "
-                f"{int(self._reserved[lane])}")
+            if not extend:
+                raise RuntimeError(
+                    f"lane {lane}: COW at col {col} exceeds its reservation "
+                    f"of {int(self._reserved[lane])}")
+            self._reserved[lane] = novel
         dst = self._pop_free(1)[0]
         self.table[lane, col] = dst
         self._ref[dst] = 1

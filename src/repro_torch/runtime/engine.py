@@ -4,12 +4,13 @@ one interface (port of the fused path of ``repro.runtime.engine``).
 The Scheduler (``runtime.serve_loop``) decides which requests to admit and
 retire and keeps the books (policy); the Engine makes the model calls —
 ``admit`` (slot-insert prefill), ``chunk`` (append-mode chunked prefill)
-``generate`` (one greedy decode step over every lane) and ``copy_block``
-(the device half of copy-on-write) — places the host inputs on the device
-and reads the greedy tokens back (mechanism).
+``generate`` (one greedy decode step over every lane), ``copy_block``
+(the device half of copy-on-write) and ``swap_out`` / ``swap_in`` (a
+preempted lane's blocks to host memory and back) — places the host inputs
+on the device and reads the greedy tokens back (mechanism).
 
-Not yet ported: the decomposed ``prefill`` / ``insert`` API, block swap,
-quant-health telemetry, and mesh placement.
+Not yet ported: the decomposed ``prefill`` / ``insert`` API, quant-health
+telemetry, and mesh placement.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import _map
 
 
 class DecodeState(NamedTuple):
@@ -48,6 +50,9 @@ class Engine:
     init_cache_fn: (batch,) -> model cache dict
     copy_block_fn: (cache, src, dst) -> cache  [copy-on-write only;
               ``models.transformer.cache_copy_block``]
+    swap_out_fn: (cache, ids) -> payload; swap_in_fn: (cache, ids, payload)
+              -> cache  [swap-mode preemption only;
+              ``runtime.steps.make_swap_steps``]
 
     ``device``: where host inputs go (None: the GPU). Decoding is greedy.
     """
@@ -55,7 +60,9 @@ class Engine:
     def __init__(self, admit_fn: Callable, decode_fn: Callable,
                  init_cache_fn: Callable, *, batch_slots: int,
                  chunk_fn: Optional[Callable] = None,
-                 copy_block_fn: Optional[Callable] = None, device=None):
+                 copy_block_fn: Optional[Callable] = None,
+                 swap_out_fn: Optional[Callable] = None,
+                 swap_in_fn: Optional[Callable] = None, device=None):
         if batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
         self.admit_fn = admit_fn
@@ -63,6 +70,8 @@ class Engine:
         self.chunk_fn = chunk_fn
         self.init_cache_fn = init_cache_fn
         self.copy_block_fn = copy_block_fn
+        self.swap_out_fn = swap_out_fn
+        self.swap_in_fn = swap_in_fn
         self.batch_slots = batch_slots
         self.device = resolve_device(device)
 
@@ -108,3 +117,32 @@ class Engine:
         return self.copy_block_fn(
             cache, torch.tensor(src, dtype=torch.int64, device=self.device),
             torch.tensor(dst, dtype=torch.int64, device=self.device))
+
+    def swap_out(self, cache, ids):
+        """Gather physical blocks ``ids`` (a host array) of every paged arena
+        into host memory (the swap-out half of a preemption). On the card
+        the gather is enqueued on the current stream before any later write
+        into those blocks, each tensor is copied into pinned host memory
+        without blocking, and one stream synchronisation makes the payload
+        complete before it is returned."""
+        if self.swap_out_fn is None:
+            raise ValueError("engine was built without swap steps")
+        payload = self.swap_out_fn(cache, self._put(ids))
+        if self.device.type != "cuda":
+            return payload
+        host = _map(lambda x: torch.empty(
+            x.shape, dtype=x.dtype, pin_memory=True).copy_(
+                x, non_blocking=True), payload)
+        torch.cuda.current_stream(self.device).synchronize()
+        return host
+
+    def swap_in(self, cache, ids, payload):
+        """Write a :meth:`swap_out` payload into the lane's new blocks
+        ``ids`` (the resume half), in place, bit for bit. A pinned payload
+        goes to the device without blocking; the pinned allocator keeps
+        its memory until that copy has run, whatever becomes of
+        ``payload``. Returns ``cache``."""
+        if self.swap_in_fn is None:
+            raise ValueError("engine was built without swap steps")
+        dev = _map(lambda x: x.to(self.device, non_blocking=True), payload)
+        return self.swap_in_fn(cache, self._put(ids), dev)

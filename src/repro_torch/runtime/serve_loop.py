@@ -10,16 +10,21 @@ the static and the continuous schedulers of ``repro.runtime.serve_loop``).
   admitted into the freed lanes mid-flight (slot-insert prefill), FIFO.
   With ``prefill_chunk=N`` admission is host bookkeeping only and each
   admitted prompt is appended N tokens per chunk step, one chunk step per
-  decode step. With a ``block_pool`` the cache is paged: admission
+  decode step (``decode_ratio`` decode steps per chunk step once lanes are
+  decodable). With a ``block_pool`` the cache is paged: admission
   reserves the worst case and maps the first blocks, growth follows the
   writes, retirement frees the lane's blocks. With a ``radix_cache``
   (prefix sharing) admission maps the longest cached block-aligned prompt
   prefix read-only and prefills only the novel suffix; a write that would
-  land in a shared block copies it first (copy-on-write).
+  land in a shared block copies it first (copy-on-write). With
+  ``over_commit`` admission claims only what the first chunk needs, the
+  queue goes by priority tier, and a pool that runs dry preempts a lane:
+  its blocks go to host memory and come back on resume (swap mode), or
+  are freed and recomputed through the chunk step (drop mode).
 
 Each lane decodes at its own next position, so a request gets the same
-greedy tokens whatever it is packed with. Over-commit with preemption,
-``decode_ratio > 1`` and telemetry are not yet ported.
+greedy tokens whatever it is packed with, and whether or not it was
+preempted. Telemetry is not yet ported.
 """
 from __future__ import annotations
 
@@ -184,15 +189,23 @@ class _Book:
         self.priority: Dict[int, int] = {}
         self.emitted: Dict[int, int] = {}
         self.prompt_tokens = 0      # admitted prompt tokens (hit-rate base)
+        self._enq_step: Dict[int, int] = {}  # rid -> last (re)enqueue step
 
     def enqueue(self, r: Request) -> None:
         self.stats.request_latency[r.rid] = RequestLatency(
             enqueue_step=self.step)
         self.priority[r.rid] = r.priority
+        self._enq_step[r.rid] = self.step
+
+    def requeue(self, r: Request) -> None:
+        """A preempted request queues again: its new wait counts toward
+        queue_wait_steps, while enqueue_step keeps its first arrival
+        (first-token latency is measured from there)."""
+        self._enq_step[r.rid] = self.step
 
     def admit(self, r: Request) -> None:
         lat = self.stats.request_latency[r.rid]
-        wait = self.step - lat.enqueue_step
+        wait = self.step - self._enq_step[r.rid]
         lat.queue_wait_steps += wait
         self.stats.queue_wait_steps += wait
         lat.admit_step = self.step
@@ -321,6 +334,36 @@ def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not yet ported")
 
 
+@dataclasses.dataclass
+class _Swapped:
+    """Swap-mode preemption residue: the lane's blocks wait in host memory
+    until resume writes them into new blocks; nothing is recomputed."""
+    payload: Any                # host payload of Engine.swap_out
+    n_blocks: int               # live blocks at preemption
+    prompt: np.ndarray          # the lane's working prompt at preemption
+    pref_off: Optional[int]     # PREFILLING offset, or None if decodable
+    token: int                  # pending decode token (decodable lanes)
+    pos: int                    # its write position (decodable lanes)
+
+
+@dataclasses.dataclass
+class _Dropped:
+    """Drop-mode preemption residue: the blocks were freed (the fully
+    written ones donated to the radix cache when there is one); resume
+    prefills prompt + emitted tokens through the chunk step again, which
+    gives the same greedy continuation."""
+    written: int                # cache positions held at preemption
+
+
+@dataclasses.dataclass(eq=False)      # identity compare: queue.remove(entry)
+class _QEntry:
+    """Admission-queue entry. ``seq`` is the arrival number, the FIFO key
+    within a priority tier, kept across preemptions."""
+    req: Request
+    seq: int
+    resume: Optional[Any] = None    # _Swapped | _Dropped | None (fresh)
+
+
 class Scheduler:
     """Slot-scheduled continuous batching over ``batch_slots`` decode lanes.
 
@@ -332,7 +375,8 @@ class Scheduler:
     one chunk step that appends up to ``prefill_chunk`` prompt tokens to
     every prefilling lane, then one decode step for the decodable lanes; a
     lane becomes decodable after its last chunk, whose final-position
-    logits give its first token.
+    logits give its first token. ``decode_ratio=N`` runs N decode steps per
+    chunk step once lanes are decodable (1: the 1:1 interleave).
 
     **Paged mode** (``block_pool``): admission reserves the request's worst
     case and maps the blocks of its prompt (only of its first chunk when
@@ -360,6 +404,19 @@ class Scheduler:
     (``models.transformer.cache_copy_block``) copies a shared block the
     lane is about to write into its private replacement.
 
+    **Over-commit and preemption** (``over_commit``; needs paged mode and a
+    ``chunk_fn``): admission reserves nothing beyond the matched prefix and
+    the first chunk's blocks, growth extends the reservation on demand
+    (``BlockPool.try_grow``). The queue is tried in ``(-priority, arrival)``
+    order, so a request that does not fit no longer blocks the ones behind
+    it. When the pool runs dry a victim lane (lowest tier, then youngest;
+    admission only ever preempts a strictly lower tier) is preempted: with
+    ``swap_out_fn`` / ``swap_in_fn`` (``runtime.steps.make_swap_steps``)
+    its blocks go to host memory and come back bit for bit on resume;
+    otherwise they are freed (the fully written ones donated to the radix
+    cache) and resume prefills prompt + emitted tokens again through the
+    chunk step. Either way the request emits the same greedy tokens.
+
     Step contracts as in :class:`~repro_torch.runtime.engine.Engine`.
     """
 
@@ -373,16 +430,12 @@ class Scheduler:
                  radix_cache: Optional[RadixCache] = None,
                  write_caps: Optional[List[int]] = None,
                  copy_block_fn: Optional[Callable] = None,
-                 over_commit: bool = False, swap_out_fn=None,
-                 swap_in_fn=None, decode_ratio: int = 1, telemetry=None,
-                 device=None):
-        for what, given in (("over-commit with preemption", over_commit),
-                            ("block swap (swap_out_fn / swap_in_fn)",
-                             swap_out_fn or swap_in_fn),
-                            ("decode_ratio > 1", decode_ratio > 1),
-                            ("serving telemetry", telemetry)):
-            if given:
-                _not_ported(what)
+                 over_commit: bool = False,
+                 swap_out_fn: Optional[Callable] = None,
+                 swap_in_fn: Optional[Callable] = None,
+                 decode_ratio: int = 1, telemetry=None, device=None):
+        if telemetry is not None:
+            _not_ported("serving telemetry")
         if batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
         if block_pool is not None and block_pool.batch_slots != batch_slots:
@@ -415,6 +468,25 @@ class Scheduler:
                     f"radix_cache block_size {radix_cache.block_size} != "
                     f"pool block_size {block_pool.block_size}")
             block_pool.attach_cache(radix_cache)
+        if over_commit:
+            if block_pool is None:
+                raise ValueError("over_commit requires a block_pool "
+                                 "(preemption is a paged feature)")
+            if chunk_fn is None:
+                raise ValueError(
+                    "over_commit requires a chunk_fn: optimistic admission "
+                    "maps only the first chunk's blocks and drop-mode "
+                    "resume re-prefills through the chunk path")
+        if (swap_out_fn is None) != (swap_in_fn is None):
+            raise ValueError("swap_out_fn and swap_in_fn come as a pair")
+        if swap_out_fn is not None and not over_commit:
+            raise ValueError("swap functions only apply to over_commit "
+                             "preemption")
+        if decode_ratio < 1:
+            raise ValueError(f"decode_ratio must be >= 1, got {decode_ratio}")
+        if decode_ratio > 1 and chunk_fn is None:
+            raise ValueError("decode_ratio > 1 requires a chunk_fn (it "
+                             "paces decode steps against chunk steps)")
         self._write_caps = self._min_cap = None
         if block_pool is not None:
             lane_cap = block_pool.max_blocks_per_lane * block_pool.block_size
@@ -434,6 +506,9 @@ class Scheduler:
         self.max_len = max_len
         self.pool = block_pool
         self.radix = radix_cache
+        self.over_commit = over_commit
+        self.swap = swap_out_fn is not None
+        self.decode_ratio = decode_ratio
         self._ring_tokens = ring_tokens
         self._ring_blocks = (None if ring_tokens is None else
                              blocks_for_tokens(ring_tokens,
@@ -445,30 +520,51 @@ class Scheduler:
         # _track, however many lanes map them)
         self._shared_tok: List[int] = [0] * batch_slots
         # the chunk step's width: prefill_chunk, or the prompt pad when the
-        # radix cache routes unchunked admissions through it (set in run)
+        # radix cache or over-commit routes unchunked admissions through it
+        # (set in run)
         self._chunk_width: Optional[int] = prefill_chunk
+        # per lane: the WORKING prompt _chunk and _decode read (the prompt,
+        # or prompt + emitted tokens for a drop-resumed lane), its queue
+        # entry (carries the resume residue) and an admission age stamp
+        # (youngest-first victims)
+        self._lane_prompt: List[Optional[np.ndarray]] = [None] * batch_slots
+        self._lane_entry: List[Optional[_QEntry]] = [None] * batch_slots
+        self._lane_age: List[int] = [0] * batch_slots
+        self._age = 0
+        self._queue: collections.deque = collections.deque()
+        # decode:chunk pacing credit: one less per decode step, back to
+        # decode_ratio after each chunk step; a chunk step runs only when
+        # it is spent (or nothing is decodable)
+        self._decode_credit = 0
         self.engine = Engine(admit_fn, decode_fn, init_cache_fn,
                              batch_slots=batch_slots, chunk_fn=chunk_fn,
-                             copy_block_fn=copy_block_fn, device=device)
+                             copy_block_fn=copy_block_fn,
+                             swap_out_fn=swap_out_fn, swap_in_fn=swap_in_fn,
+                             device=device)
 
     def run(self, requests: List[Request]) -> ServeStats:
         _check_capacity(requests, self.max_len, self.pool, self._ring_tokens)
         stats = ServeStats()
         book = _Book(stats, self.batch_slots)
         t_start = time.perf_counter()
-        queue: collections.deque = collections.deque()
-        for r in requests:
+        queue = self._queue = collections.deque()
+        for seq, r in enumerate(requests):
             if r.max_new_tokens <= 0:
                 r.done = True                # never occupies a lane
             else:
                 book.enqueue(r)
-                queue.append(r)
-        pad = max((len(r.prompt) for r in queue), default=1)
+                queue.append(_QEntry(r, seq))
+        pad = max((len(e.req.prompt) for e in queue), default=1)
         self._chunk_width = self.prefill_chunk or pad
         B = self.batch_slots
         lanes: List[Optional[Request]] = [None] * B
         self._pref = [None] * B
         self._shared_tok = [0] * B
+        self._lane_prompt = [None] * B
+        self._lane_entry = [None] * B
+        self._lane_age = [0] * B
+        self._age = 0
+        self._decode_credit = 0
         state = self.engine.init_state()
         if self.pool is not None:
             self.pool.reset()
@@ -477,23 +573,36 @@ class Scheduler:
         self._track(state.cache, lanes, state, book)
 
         while queue or any(r is not None for r in lanes):
-            before = book.step
+            # a preemption frees blocks without a model call: it counts as
+            # progress for the deadlock guard
+            before = (book.step, stats.preemptions)
             free = [i for i in range(B) if lanes[i] is None]
-            if free and queue and self._head_fits(queue[0]):
+            if queue and self.over_commit:
+                state = self._admit_over_commit(lanes, state, book)
+            elif free and queue and self._head_fits(queue[0].req):
                 if self.prefill_chunk is None and self.radix is None:
                     state = self._admit(free, queue, pad, lanes, state, book)
                     continue    # immediate retirees may have freed lanes
                 self._admit_chunked(free, queue, lanes, book)
-            if any(off is not None for off in self._pref):
+            prefilling = any(off is not None for off in self._pref)
+            has_decodable = any(lanes[i] is not None and self._pref[i] is None
+                                for i in range(B))
+            if prefilling and (self._decode_credit <= 0 or not has_decodable):
                 state = self._chunk(lanes, state, book)
+                self._decode_credit = self.decode_ratio
             if any(lanes[i] is not None and self._pref[i] is None
                    for i in range(B)):
                 state = self._decode(lanes, state, book)
-            elif book.step == before and not any(r is not None
-                                                 for r in lanes):
+                self._decode_credit -= 1
+            elif (book.step, stats.preemptions) == before \
+                    and not any(r is not None for r in lanes):
+                # no model call, no preemption and no resident lane while
+                # requests queue: nothing can ever progress (the capacity
+                # check guarantees an empty pool fits any one request, so
+                # the pool broke that contract)
                 raise RuntimeError(
                     "scheduler deadlock: no queued request fits an empty "
-                    f"pool (queue head rid {queue[0].rid})")
+                    f"pool (queue head rid {queue[0].req.rid})")
         return book.finalize(t_start)
 
     # -- paged-pool plumbing (no-ops in dense mode) -------------------------
@@ -517,6 +626,15 @@ class Scheduler:
             return self.pool.can_reserve(n_reserve)
         return self.pool.can_reserve(self._need_blocks(r))
 
+    def _first_cols(self, k: int, P: int) -> int:
+        """Table columns the first chunk of a P-token prompt fills after
+        ``k`` matched blocks, ring-clamped."""
+        bs = self.pool.block_size
+        cols = blocks_for_tokens(k * bs + min(self._chunk_width, P - k * bs),
+                                 bs)
+        return cols if self._ring_blocks is None else min(cols,
+                                                          self._ring_blocks)
+
     def _plan_prefix(self, r: Request):
         """Radix admission plan: match the prompt, then size the lane.
         Returns (shared blocks, raw hit tokens, aligned hit tokens,
@@ -532,11 +650,7 @@ class Scheduler:
         k = len(blocks)
         total = self._need_blocks(r)        # ring-clamped table columns
         wraps = P + r.max_new_tokens - 2 >= self._min_cap
-        first = min(self._chunk_width, P - k * bs)
-        cols_first = blocks_for_tokens(k * bs + first, bs)
-        if self._ring_blocks is not None:
-            cols_first = min(cols_first, self._ring_blocks)
-        n_alloc = max(cols_first - k, 0)
+        n_alloc = max(self._first_cols(k, P) - k, 0)
         n_reserve = (total - k) + (k if wraps else 0)
         return blocks, raw, k * bs, n_alloc, n_reserve, total
 
@@ -572,12 +686,24 @@ class Scheduler:
         book.stats.prefill_tokens_saved += k_tok
         return k_tok
 
-    def _grow(self, lane: int, last_pos: int) -> None:
-        """Map the block that position ``last_pos``'s write lands in."""
+    def _grow(self, lane: int, last_pos: int, lanes, state: DecodeState,
+              book: _Book) -> None:
+        """Map the block that position ``last_pos``'s write lands in: from
+        the reservation, or under over-commit on demand, preempting lanes
+        until the pool can supply it (the lane itself last: then
+        ``lanes[lane]`` is None and the caller skips it)."""
         n_total = last_pos // self.pool.block_size + 1
         if self._ring_blocks is not None:
             n_total = min(n_total, self._ring_blocks)
-        self.pool.grow(lane, n_total)
+        if not self.over_commit:
+            self.pool.grow(lane, n_total)
+            return
+        while not self.pool.try_grow(lane, n_total):
+            # the demander is always a candidate, so there is a victim
+            victim = self._pick_victim(lanes)
+            self._preempt(victim, lanes, state, book)
+            if victim == lane:
+                return
 
     def _release(self, lane: int, r: Request) -> None:
         if self.pool is not None:
@@ -585,36 +711,51 @@ class Scheduler:
                 self._donate(lane, r)
             self.pool.free_lane(lane)
             self._shared_tok[lane] = 0
+        self._lane_prompt[lane] = None
+        self._lane_entry[lane] = None
 
     def _donate(self, lane: int, r: Request) -> None:
-        """Retirement donation: insert the lane's full prompt blocks into
-        the radix tree instead of freeing them. Skipped when the lane ever
-        wrapped a ring layer (its last write reached the smallest write
-        cap): a wrapping write lands generation data in prompt cells, so
-        those blocks no longer hold a clean prefix."""
-        n_full = len(r.prompt) // self.pool.block_size
+        """Retirement donation: insert the lane's full working-prompt
+        blocks (the prompt, or prompt + the tokens emitted before a
+        drop-mode preemption: what those blocks hold) into the radix tree
+        instead of freeing them. Skipped when the lane ever wrapped a ring
+        layer (its last write reached the smallest write cap): a wrapping
+        write lands generation data in prompt cells, so those blocks no
+        longer hold a clean prefix."""
+        seq = self._lane_prompt[lane]
+        n_full = len(seq) // self.pool.block_size
         if n_full == 0 or \
                 len(r.prompt) + r.max_new_tokens - 2 >= self._min_cap:
             return
         blocks = [int(b) for b in self.pool.table[lane, :n_full]]
         for b in self.radix.insert(
-                np.asarray(r.prompt[:n_full * self.pool.block_size]),
-                blocks):
+                np.asarray(seq[:n_full * self.pool.block_size]), blocks):
             self.pool.set_cached(b, True)
 
-    def _cow_barrier(self, lane: int, positions, cache):
+    def _cow_barrier(self, lane: int, positions, cache, lanes,
+                     state: DecodeState, book: _Book):
         """Copy-on-write before a step writes ``positions`` for ``lane``:
         for every write cap, the table column each write wraps into; a
         column that still maps a shared (or cached) block is swapped for a
         private copy first (the device copy through the engine, the table
-        upload at the next sync)."""
+        upload at the next sync). Under over-commit no copy-on-write
+        allowance was reserved: lanes are preempted until a block is
+        available (the lane itself last; the caller then finds
+        ``lanes[lane]`` None and skips it)."""
         if self.pool.lane_shared(lane) == 0:
             return cache
         bs = self.pool.block_size
         cols = sorted({(p % cap) // bs
                        for p in positions for cap in self._write_caps})
         for col in cols:
-            pair = self.pool.cow(lane, col)
+            if self.over_commit and self.pool.needs_cow(lane, col):
+                while self.pool.available_blocks() < 1:
+                    victim = self._pick_victim(lanes)
+                    self._preempt(victim, lanes, state, book)
+                    if victim == lane:
+                        return cache
+            pair = (self.pool.cow(lane, col, extend=True)
+                    if self.over_commit else self.pool.cow(lane, col))
             if pair is not None:
                 cache = self.engine.copy_block(cache, *pair)
         return cache
@@ -653,20 +794,31 @@ class Scheduler:
                 pos[i, 0] = -1
                 self._release(i, r)
 
+    def _register_lane(self, lane: int, entry: _QEntry,
+                       prompt: np.ndarray, book: _Book) -> None:
+        """Admission bookkeeping of every path: the lane's working prompt,
+        its queue entry, an age stamp, and the queue-wait sample."""
+        self._lane_prompt[lane] = prompt
+        self._lane_entry[lane] = entry
+        self._age += 1
+        self._lane_age[lane] = self._age
+        book.admit(entry.req)
+
     # -----------------------------------------------------------------------
 
     def _admit(self, free, queue, pad, lanes, state: DecodeState,
                book: _Book) -> DecodeState:
         B = self.batch_slots
-        group, slots = [], []
+        entries, slots = [], []
         for i in free:
             if not queue:
                 break
-            if not self._reserve(i, queue[0]):
+            if not self._reserve(i, queue[0].req):
                 break           # head-of-line backpressure: keep FIFO order
-            group.append(queue.popleft())
+            entries.append(queue.popleft())
             slots.append(i)
-            book.prompt_tokens += len(group[-1].prompt)
+            book.prompt_tokens += len(entries[-1].req.prompt)
+        group = [e.req for e in entries]
         toks = np.zeros((B, pad), np.int32)
         posm = np.full((B, pad), -1, np.int32)
         g_toks, g_posm = _pack_prompts(group, pad)
@@ -675,7 +827,7 @@ class Scheduler:
             toks[i], posm[i] = g_toks[j], g_posm[j]
             admit_mask[i] = True
             lanes[i] = group[j]
-            book.admit(group[j])
+            self._register_lane(i, entries[j], group[j].prompt, book)
         self._sync_table(state.cache)
         first, cache = self.engine.admit(toks, posm, admit_mask, state.cache)
         book.stats.prefill_calls += 1
@@ -697,7 +849,7 @@ class Scheduler:
         for i in free:
             if not queue:
                 break
-            r = queue[0]
+            r = queue[0].req
             _require_nonempty_prompt(r)
             if self.radix is not None:
                 off = self._reserve_prefix(i, r, book)
@@ -707,36 +859,221 @@ class Scheduler:
                 if not self._reserve(i, r):
                     break       # head-of-line backpressure: keep FIFO order
                 off = 0
-            lanes[i] = queue.popleft()
+            entry = queue.popleft()
+            lanes[i] = r
             self._pref[i] = off
+            self._register_lane(i, entry, r.prompt, book)
             book.prompt_tokens += len(r.prompt)
-            book.admit(r)
+
+    # -- over-commit: preemption and priority admission ---------------------
+
+    def _pick_victim(self, lanes, *,
+                     below: Optional[int] = None) -> Optional[int]:
+        """The lane to preempt: lowest priority first, youngest (largest
+        age stamp) within a tier. ``below`` admits only lanes of a strictly
+        lower tier (admission never evicts a peer to seat an equal);
+        growth passes no bound, so the demander itself is a candidate and
+        a victim always exists."""
+        cand = [i for i in range(self.batch_slots) if lanes[i] is not None]
+        if below is not None:
+            cand = [i for i in cand if lanes[i].priority < below]
+        if not cand:
+            return None
+        return min(cand, key=lambda i: (lanes[i].priority,
+                                        -self._lane_age[i]))
+
+    def _preempt(self, lane: int, lanes, state: DecodeState,
+                 book: _Book) -> None:
+        """Preempt ``lane``: swap its blocks out to host memory (swap mode)
+        or free them after donating the fully written ones to the radix
+        cache (drop mode), then queue its request again with the resume
+        residue, at its original arrival number."""
+        r = lanes[lane]
+        entry = self._lane_entry[lane]
+        off = self._pref[lane]
+        written = off if off is not None else int(state.pos[lane, 0])
+        stats = book.stats
+        if self.swap:
+            ids = self.pool.lane_blocks(lane)
+            entry.resume = _Swapped(
+                payload=self.engine.swap_out(state.cache, ids),
+                n_blocks=len(ids), prompt=self._lane_prompt[lane],
+                pref_off=off, token=int(state.tokens[lane, 0]),
+                pos=int(state.pos[lane, 0]))
+            stats.swapped_blocks += len(ids)
+        else:
+            self._donate_written(lane, r, written)
+            entry.resume = _Dropped(written=written)
+        self.pool.free_lane(lane)
+        self._shared_tok[lane] = 0
+        self._lane_prompt[lane] = None
+        self._lane_entry[lane] = None
+        lanes[lane] = None
+        self._pref[lane] = None
+        state.pos[lane, 0] = -1        # idle: the decode step ignores it
+        stats.preemptions += 1
+        book.requeue(r)
+        self._queue.append(entry)
+
+    def _donate_written(self, lane: int, r: Request, written: int) -> None:
+        """Drop-mode donation: the lane's blocks hold positions
+        0..written-1 of prompt + emitted tokens, so its fully written
+        blocks go to the radix cache and resume recomputes only the novel
+        suffix. Skipped without a radix cache, and when a ring layer may
+        have wrapped (the highest written position reached the smallest
+        write cap)."""
+        if self.radix is None:
+            return
+        bs = self.pool.block_size
+        n_full = written // bs
+        if n_full == 0 or written - 1 >= self._min_cap:
+            return
+        full = np.concatenate([np.asarray(r.prompt, np.int32),
+                               np.asarray(r.tokens_out, np.int32)])
+        blocks = [int(b) for b in self.pool.table[lane, :n_full]]
+        for b in self.radix.insert(full[:n_full * bs], blocks):
+            self.pool.set_cached(b, True)
+
+    def _admit_over_commit(self, lanes, state: DecodeState,
+                           book: _Book) -> DecodeState:
+        """Priority-aware over-commit admission: queued entries in
+        (-priority, arrival) order. An entry with no free lane may preempt
+        a strictly lower-tier lane for its slot, and again while its first
+        chunk does not fit the pool; an entry that still cannot be placed
+        stays queued without blocking the others."""
+        B = self.batch_slots
+        for entry in sorted(self._queue,
+                            key=lambda e: (-e.req.priority, e.seq)):
+            _require_nonempty_prompt(entry.req)
+            free = [i for i in range(B) if lanes[i] is None]
+            if not free:
+                victim = self._pick_victim(lanes, below=entry.req.priority)
+                if victim is None:
+                    break       # every resident lane is >= this tier: wait
+                self._preempt(victim, lanes, state, book)
+                free = [victim]
+            lane = free[0]
+            placed, state = self._try_place(lane, entry, state, book)
+            while not placed:
+                victim = self._pick_victim(lanes, below=entry.req.priority)
+                if victim is None:
+                    break
+                self._preempt(victim, lanes, state, book)
+                placed, state = self._try_place(lane, entry, state, book)
+            if not placed:
+                continue        # the pool is too full even after preemption
+            self._queue.remove(entry)
+            lanes[lane] = entry.req
+        return state
+
+    def _try_place(self, lane: int, entry: _QEntry, state: DecodeState,
+                   book: _Book) -> Tuple[bool, DecodeState]:
+        """Seat ``entry`` in the free ``lane``: swap residue allocates as
+        many blocks as it held and writes the host payload back into them;
+        a fresh or dropped request goes through optimistic chunked
+        placement. Returns (placed, state); not placed leaves the pool as
+        it was."""
+        r, res, pool = entry.req, entry.resume, self.pool
+        if isinstance(res, _Swapped):
+            n = res.n_blocks
+            if n > pool.available_blocks() \
+                    or not pool.reserve_and_alloc(lane, n, n):
+                return False, state
+            cache = self.engine.swap_in(state.cache, pool.lane_blocks(lane),
+                                        res.payload)
+            tokens, pos = state.tokens.copy(), state.pos.copy()
+            self._pref[lane] = res.pref_off
+            if res.pref_off is None:    # decodable: its pending token
+                tokens[lane, 0] = res.token
+                pos[lane, 0] = res.pos
+            self._register_lane(lane, entry, res.prompt, book)
+            self._shared_tok[lane] = 0  # every written-back block is private
+            entry.resume = None
+            return True, DecodeState(tokens, pos, cache)
+        if isinstance(res, _Dropped):
+            prompt = np.concatenate([np.asarray(r.prompt, np.int32),
+                                     np.asarray(r.tokens_out, np.int32)])
+        else:
+            prompt = r.prompt
+        off = self._place_chunked(lane, prompt, book)
+        if off is None:
+            return False, state
+        if isinstance(res, _Dropped):
+            book.stats.recomputed_tokens += max(res.written - off, 0)
+            entry.resume = None
+        self._pref[lane] = off
+        self._register_lane(lane, entry, prompt, book)
+        book.prompt_tokens += len(prompt)
+        return True, state
+
+    def _place_chunked(self, lane: int, prompt: np.ndarray,
+                       book: _Book) -> Optional[int]:
+        """Optimistic admission: map the radix-matched prefix (if any) and
+        only the blocks the first chunk writes, with no worst-case
+        reservation (``try_grow`` extends it later). Returns the offset
+        prefilling starts at, or None when the first chunk does not fit."""
+        pool = self.pool
+        bs = pool.block_size
+        P = len(prompt)
+        blocks, raw = [], 0
+        if self.radix is not None:
+            blocks, raw = self.radix.match(np.asarray(prompt),
+                                           max_blocks=(P - 1) // bs)
+        k = len(blocks)
+        cols_first = self._first_cols(k, P)
+        n_alloc = max(cols_first - k, 0)
+        if n_alloc > pool.available_blocks():
+            return None
+        if blocks:
+            ok = pool.map_shared(lane, blocks, n_alloc, n_alloc,
+                                 n_cols=cols_first)
+        else:
+            ok = pool.reserve_and_alloc(lane, n_alloc, n_alloc)
+        if not ok:
+            return None
+        self._shared_tok[lane] = k * bs
+        if k:
+            book.stats.prefix_hit_tokens += raw
+            book.stats.prefill_tokens_saved += k * bs
+        return k * bs
+
+    # -----------------------------------------------------------------------
 
     def _chunk(self, lanes, state: DecodeState, book: _Book) -> DecodeState:
-        """One chunk step: append up to the chunk width of prompt tokens to
-        every prefilling lane (left-padded into the fixed width; lanes on
-        their first chunk are reset by the step). Lanes that finish their
-        prompt emit their first token and become decodable."""
+        """One chunk step: append up to the chunk width of working-prompt
+        tokens to every prefilling lane (left-padded into the fixed width;
+        lanes on their first chunk are reset by the step). Lanes that
+        finish their working prompt emit their next token and become
+        decodable. Copy-on-write and growth run first, for every
+        prefilling lane, since under over-commit either may preempt a lane
+        and so change who takes part."""
         C, B = self._chunk_width, self.batch_slots
-        prefilling = [i for i in range(B) if self._pref[i] is not None]
         cache = state.cache
         if self.pool is not None:
-            for i in prefilling:
+            for i in range(B):
+                if self._pref[i] is None or lanes[i] is None:
+                    continue
                 off = self._pref[i]
-                c = min(C, len(lanes[i].prompt) - off)
+                c = min(C, len(self._lane_prompt[i]) - off)
                 # copy-on-write before growth: a ring write of this chunk
                 # may wrap into a shared prefix column
                 if self.radix is not None:
-                    cache = self._cow_barrier(i, range(off, off + c), cache)
-                self._grow(i, off + c - 1)
+                    cache = self._cow_barrier(i, range(off, off + c), cache,
+                                              lanes, state, book)
+                    if lanes[i] is None:
+                        continue        # preempted by its own barrier
+                self._grow(i, off + c - 1, lanes, state, book)
+        prefilling = [i for i in range(B) if self._pref[i] is not None]
+        if not prefilling:              # every prefilling lane was preempted
+            return DecodeState(state.tokens, state.pos, cache)
         toks = np.zeros((B, C), np.int32)
         posm = np.full((B, C), -1, np.int32)
         reset = np.zeros((B,), bool)
         ends = {}
         for i in prefilling:
-            off, prompt = self._pref[i], lanes[i].prompt
-            c = min(C, len(prompt) - off)
-            toks[i, C - c:] = prompt[off:off + c]
+            off, seq = self._pref[i], self._lane_prompt[i]
+            c = min(C, len(seq) - off)
+            toks[i, C - c:] = seq[off:off + c]
             posm[i, C - c:] = np.arange(off, off + c, dtype=np.int32)
             reset[i] = off == 0
             ends[i] = off + c
@@ -747,30 +1084,39 @@ class Scheduler:
         book.step += 1
         tokens, pos = state.tokens.copy(), state.pos.copy()
         for i in prefilling:
-            r = lanes[i]
-            if ends[i] < len(r.prompt):
+            seq = self._lane_prompt[i]
+            if ends[i] < len(seq):
                 self._pref[i] = ends[i]     # more chunks to go
                 continue
             self._pref[i] = None            # last chunk: lane is decodable
             tokens[i, 0] = last[i, 0]
-            pos[i, 0] = len(r.prompt)
-            book.emit(r, tokens[i, 0])
+            pos[i, 0] = len(seq)
+            book.emit(lanes[i], tokens[i, 0])
         self._track(cache, lanes, DecodeState(tokens, pos, cache), book)
         self._retire_done(lanes, prefilling, pos)
         return DecodeState(tokens, pos, cache)
 
     def _decode(self, lanes, state: DecodeState, book: _Book) -> DecodeState:
-        active = [i for i, r in enumerate(lanes)
-                  if r is not None and self._pref[i] is None]
         cache = state.cache
         if self.pool is not None:
-            for i in active:
+            # map the block each coming write lands in; under over-commit
+            # this may preempt lanes, so the active set is taken after it
+            for i in range(self.batch_slots):
+                if lanes[i] is None or self._pref[i] is not None:
+                    continue
                 p = int(state.pos[i, 0])
                 if self.radix is not None:
                     # a ring write may wrap into a shared column
-                    cache = self._cow_barrier(i, (p,), cache)
-                self._grow(i, p)
+                    cache = self._cow_barrier(i, (p,), cache, lanes, state,
+                                              book)
+                    if lanes[i] is None:
+                        continue        # preempted by its own barrier
+                self._grow(i, p, lanes, state, book)
             self._sync_table(cache)
+        active = [i for i, r in enumerate(lanes)
+                  if r is not None and self._pref[i] is None]
+        if not active:                  # every decodable lane was preempted
+            return DecodeState(state.tokens, state.pos, cache)
         nxt, cache = self.engine.generate(
             DecodeState(state.tokens, state.pos, cache))
         book.count_decode(len(active))
@@ -805,7 +1151,10 @@ def serve(prefill_step: Callable, decode_step: Callable, init_cache_fn,
           radix_cache: Optional[RadixCache] = None,
           write_caps: Optional[List[int]] = None,
           copy_block_fn: Optional[Callable] = None,
-          device=None) -> ServeStats:
+          over_commit: bool = False,
+          swap_out_fn: Optional[Callable] = None,
+          swap_in_fn: Optional[Callable] = None,
+          decode_ratio: int = 1, device=None) -> ServeStats:
     """Bind ``params`` into the step functions (``runtime.steps``
     signatures, params first) and serve with the chosen scheduler:
 
@@ -815,10 +1164,13 @@ def serve(prefill_step: Callable, decode_step: Callable, init_cache_fn,
       decode_step(params, tokens, pos, cache)
 
     The step a scheduler does not use may be None. ``block_pool``,
-    ``prefill_chunk``, ``ring_tokens`` and prefix sharing (``radix_cache``
-    with ``write_caps`` and ``copy_block_fn(cache, src, dst)``, no params)
-    are continuous only; the static scheduler serves paged caches through
-    a fully mapped identity table. ``device``: where host inputs go (None:
+    ``prefill_chunk``, ``ring_tokens``, prefix sharing (``radix_cache``
+    with ``write_caps`` and ``copy_block_fn(cache, src, dst)``, no params),
+    over-commit (``over_commit`` with ``swap_out_fn(cache, ids)`` /
+    ``swap_in_fn(cache, ids, payload)`` from
+    ``runtime.steps.make_swap_steps``, no params) and ``decode_ratio`` are
+    continuous only; the static scheduler serves paged caches through a
+    fully mapped identity table. ``device``: where host inputs go (None:
     the GPU)."""
     if scheduler == "continuous":
         return serve_continuous(
@@ -830,12 +1182,20 @@ def serve(prefill_step: Callable, decode_step: Callable, init_cache_fn,
                       lambda t, pm, m, c: chunk_step(params, t, pm, m, c)),
             prefill_chunk=prefill_chunk, ring_tokens=ring_tokens,
             radix_cache=radix_cache, write_caps=write_caps,
-            copy_block_fn=copy_block_fn, device=device)
+            copy_block_fn=copy_block_fn, over_commit=over_commit,
+            swap_out_fn=swap_out_fn, swap_in_fn=swap_in_fn,
+            decode_ratio=decode_ratio, device=device)
     if scheduler != "static":
         raise ValueError(f"unknown scheduler {scheduler!r}")
     if radix_cache is not None:
         raise ValueError("radix_cache is a continuous-scheduler feature; "
                          "prefix sharing needs the paged block pool")
+    if over_commit:
+        raise ValueError("over_commit is a continuous-scheduler feature; "
+                         "preemption needs the paged block pool")
+    if decode_ratio != 1:
+        raise ValueError("decode_ratio is a continuous-scheduler feature; "
+                         "static groups have no chunk/decode interleave")
     for what, given in (("block_pool", block_pool),
                         ("prefill_chunk", prefill_chunk)):
         if given is not None:

@@ -1,7 +1,8 @@
-"""Serve step factories (port of the prefill, admit, chunk-prefill and
-decode steps of ``repro.runtime.steps``). Each call builds a fresh ctx from
-``ctx_factory`` and runs without autograd. Paged caches need no extra
-plumbing: the block table rides inside the cache dict."""
+"""Serve step factories (port of the prefill, admit, chunk-prefill,
+decode and block-swap steps of ``repro.runtime.steps``). Each model step
+builds a fresh ctx from ``ctx_factory`` and runs without autograd. Paged
+caches need no extra plumbing: the block table rides inside the cache
+dict."""
 from __future__ import annotations
 
 from typing import Callable, Optional
@@ -65,3 +66,23 @@ def make_decode_step(cfg: ModelConfig, *,
         ctx = ctx_factory() if ctx_factory is not None else None
         return tfm.decode_step(cfg, params, tokens, pos, cache, ctx=ctx)
     return decode
+
+
+def make_swap_steps():
+    """Block swap-out / swap-in for over-commit preemption (paged caches
+    only; thin wrappers over ``models.transformer``'s gather and scatter):
+
+      swap_out(cache, ids (n,)) -> payload on the cache's device
+      swap_in(cache, ids (n,), payload) -> cache, written in place
+
+    ``ids`` are a lane's live physical blocks; swap-in writes the payload
+    into the lane's new blocks in the same order, bit for bit, so the
+    resumed lane emits the same greedy tokens. The engine moves the
+    payload to host memory and back (``Engine.swap_out`` /
+    ``Engine.swap_in``)."""
+    def swap_out(cache, ids):
+        return tfm.cache_gather_blocks(cache, ids)
+
+    def swap_in(cache, ids, payload):
+        return tfm.cache_scatter_blocks(cache, ids, payload)
+    return swap_out, swap_in

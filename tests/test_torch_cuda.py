@@ -1140,3 +1140,73 @@ def test_cache_copy_block_on_cuda_matches_the_cpu(gen, stacked, kv_bits):
     for a, b in zip(tfm._cache_nodes(dev), tfm._cache_nodes(cpu)):
         for x, y in zip(a, b):
             assert torch.equal(x.cpu(), y)
+
+
+# ---------------------------------------------------------------------------
+# Block swap (over-commit preemption) on CUDA arenas
+# ---------------------------------------------------------------------------
+
+def _node_axes(cache):
+    return [(n, 1 if key == "scan" else 0)
+            for key in ("layers", "scan", "tail") for n in cache.get(key, [])]
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_block_swap_on_cuda_restores_the_arenas(gen, stacked, kv_bits):
+    """The engine swaps blocks (5, 2, 9) of a whole-model paged cache on the
+    card out to pinned host memory (the gather, ``cache_gather_blocks``);
+    the victim's blocks are then rewritten, as a lane that takes them over
+    would; the swap-in writes the payload into blocks (1, 7, 3): those
+    hold the swapped-out bytes bit for bit, every other block is as it was,
+    the arena types (the int4 marker) are kept, and the scatter
+    (``cache_scatter_blocks`` with ids and payload on the card) makes no
+    call that waits for the card. The engine's own swap-in gives the same
+    bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.steps import make_swap_steps
+    cfg = get_config("gemma2-2b").reduced()
+    cache = tfm.init_cache(cfg, 2, 32, stacked=stacked, kv_bits=kv_bits,
+                           paged=True, block_size=4, num_blocks=12,
+                           device="cuda")
+    for n, _ in _node_axes(cache):
+        for t in n:
+            t.copy_(torch.randint(-100, 100, t.shape, generator=gen,
+                                  device="cuda").to(t.dtype))
+    live, new = [5, 2, 9], [1, 7, 3]
+    so, si = make_swap_steps()
+    eng = Engine(None, None, None, batch_slots=1, swap_out_fn=so,
+                 swap_in_fn=si, device="cuda")
+    want = [t.index_select(axis, torch.tensor(live, device="cuda")).cpu()
+            for n, axis in _node_axes(cache) for t in n]
+    payload = eng.swap_out(cache, np.asarray(live, np.int32))
+    got = [t for n, _ in _node_axes(payload) for t in n]
+    assert all(t.device.type == "cpu" and t.is_pinned() for t in got)
+    assert [type(n) for n, _ in _node_axes(payload)] == \
+        [type(n) for n, _ in _node_axes(cache)]
+    for n, axis in _node_axes(cache):               # the victim's blocks
+        for t in n:                                 # are taken over
+            t.index_fill_(axis, torch.tensor(live, device="cuda"), 3)
+    torch.cuda.synchronize()
+    before = [t.clone() for n, _ in _node_axes(cache) for t in n]
+    twin = tfm.clone_cache(cache)
+    dev = tfm._map(lambda x: x.to("cuda"), payload)
+    ids = torch.tensor(new, device="cuda")
+    torch.cuda.synchronize()
+    with _no_sync("cuda"):
+        assert tfm.cache_scatter_blocks(cache, ids, dev) is cache
+    assert eng.swap_in(twin, np.asarray(new, np.int32), payload) is twin
+    torch.cuda.synchronize()
+    keep = torch.tensor([b for b in range(12) if b not in new],
+                        device="cuda")
+    after = [(t, axis) for n, axis in _node_axes(cache) for t in n]
+    for (t, axis), t0, w, p, u in zip(
+            after, before, want, got,
+            [t for n, _ in _node_axes(twin) for t in n]):
+        assert torch.equal(p, w)
+        assert torch.equal(t.index_select(axis, ids).cpu(), w)
+        assert torch.equal(t.index_select(axis, keep),
+                           t0.index_select(axis, keep))
+        assert torch.equal(u, t)
