@@ -137,6 +137,7 @@ port's sources are not next to this script.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -1274,15 +1275,28 @@ def _counters():
     return counters
 
 
-def _timed_decode_steps(orig, report, profile_call=3):
+def _timed_decode_steps(orig, report, profile_call=3, record_ops=False):
     """Wrap ``make_decode_step`` so every decode call of the serve loop is
     timed (host clock around a synchronized call) and one steady-state
     call instead runs under ``torch.profiler`` (CUDA activity only: no host
     op recording), with the launch counters read around it; fills
     ``report``. The device idle share is the profiled step's kernel-busy
-    time against the median unprofiled step."""
+    time against the median unprofiled step. ``record_ops``: the profiled
+    call also records the PyTorch operators it dispatches, in order
+    (``report["aten_ops"]``; the port's kernels are counted by their
+    launch counters)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
 
     def build(cfg, **kw):
         step = orig(cfg, **kw)
@@ -1298,10 +1312,13 @@ def _timed_decode_steps(orig, report, profile_call=3):
                 return out
             before = {name: getattr(fn, attr)
                       for name, (fn, attr) in _counters().items()}
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rec = Record() if record_ops else contextlib.nullcontext()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof, rec:
                 out = step(*args)
                 torch.cuda.synchronize()
             report["profiled_wall_ms"] = (time.perf_counter() - t0) * 1e3
+            if record_ops:
+                report["aten_ops"] = rec.ops
             report["step_launches"] = {
                 name: getattr(fn, attr) - before[name]
                 for name, (fn, attr) in _counters().items()}
@@ -1358,7 +1375,7 @@ def _print_profile(tag, report):
 
 
 def serve_phase(tag, argv, must_launch, step_emits=None, per_call=None,
-                step_must=()):
+                step_must=(), report=None):
     """Drive ``repro_torch.launch.serve.main`` once with every launch count
     set to 0 just before and read just after; returns (counts, rel diff of
     the integer path vs fake-quant, stats, the launcher's output). Decode
@@ -1367,15 +1384,19 @@ def serve_phase(tag, argv, must_launch, step_emits=None, per_call=None,
     that fused emit and no K4. ``per_call`` (a counter name and a pattern
     of kernel names) prints the device time those kernels took in the
     profiled step per call of that counter's wrapper; every name in
-    ``step_must`` must launch in the profiled decode step."""
+    ``step_must`` must launch in the profiled decode step. ``report``, a
+    dict, receives the decode steps' walls and the profiled step with the
+    operators it dispatched (see _timed_decode_steps)."""
     import torch
     from repro_torch.launch import serve
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]):   # pay CUPTI set-up
         (torch.ones(1, device="cuda") + 1).cpu()        # outside the run
-    report = {}
+    record_ops = report is not None
+    report = {} if report is None else report
     orig_make = serve.make_decode_step
-    serve.make_decode_step = _timed_decode_steps(orig_make, report)
+    serve.make_decode_step = _timed_decode_steps(orig_make, report,
+                                                 record_ops=record_ops)
     counters = _counters()
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
@@ -2035,6 +2056,408 @@ def overcommit_phase(add):
     return ro
 
 
+# the telemetry flags, their files in ``tmp``: a Chrome trace, its metrics
+# JSON lines beside it, the quant-health report and the run's ServeStats
+def tel_argv(tmp):
+    return ["--trace", str(Path(tmp) / "trace.json"), "--metrics-every", "4",
+            "--quant-telemetry", "--stats-json", str(Path(tmp) / "stats.json")]
+
+
+# the reference launcher's telemetry lines for run B with tel_argv (a CPU
+# run of repro.launch.serve): trace events and retired requests, the phase
+# counts, the metrics snapshots, the last snapshot's gauges and the
+# quant-health site and step counts
+RUN_B_TEL = ("[trace] 105 events, 6/6 requests retired",
+             ("chunk: n=5", "decode_batch: n=28", "swap_in: n=9",
+              "swap_out: n=9"),
+             "[metrics] 8 snapshots",
+             "[quant-health] 28 sites over 33 telemetry steps")
+RUN_B_GAUGES = (("step", 32), ("queue_depth", 0), ("resident_lanes", 1),
+                ("prefilling_lanes", 0), ("tokens_generated", 71),
+                ("decode_steps", 27), ("prefill_calls", 5),
+                ("preemptions", 9), ("swapped_blocks", 16),
+                ("prefix_hit_rate", 0), ("blocks_in_use", 4),
+                ("blocks_free", 6), ("blocks_evictable", 0),
+                ("blocks_cached", 0), ("shared_blocks", 0),
+                ("refcount_total", 4))
+# the event kinds of the over-commit swap workload (it has no prefix hit,
+# copy-on-write or eviction, and "drop" is a preempt mode, not an event)
+OC_SWAP_EVENTS = {"enqueue", "admit", "chunk", "decode_batch", "block_grow",
+                  "preempt", "swap_out", "swap_in", "resume", "retire"}
+
+
+@contextlib.contextmanager
+def _built_steps():
+    """Record the model steps the launcher builds, by (factory name,
+    armed)."""
+    from repro_torch.launch import serve as launcher
+    names = ("make_admit_step", "make_chunk_prefill_step",
+             "make_decode_step")
+    built, origs = {}, {n: getattr(launcher, n) for n in names}
+
+    def factory(name):
+        def make(cfg, **kw):
+            step = origs[name](cfg, **kw)
+            built[name, bool(kw.get("quant_telemetry"))] = step
+            return step
+        return make
+    for n in names:
+        setattr(launcher, n, factory(n))
+    try:
+        yield built
+    finally:
+        for n, fn in origs.items():
+            setattr(launcher, n, fn)
+
+
+def reserve_plain(call, built, tel, report):
+    """Serve the requests of a recorded launcher ``serve`` call once more
+    in the same set-up (a fresh pool of the same size) with the plain
+    steps the launcher built and the telemetry ``tel`` (None: untraced);
+    decode steps timed and one profiled into ``report`` (see
+    _timed_decode_steps). Returns (requests, stats)."""
+    from repro_torch.runtime import BlockPool, Request, serve
+    args, kw = call
+    pool = kw["block_pool"]
+    fresh = [Request(rid=r.rid, prompt=r.prompt,
+                     max_new_tokens=r.max_new_tokens, priority=r.priority)
+             for r in args[4]]
+    plain = built["make_decode_step", False]
+    decode = _timed_decode_steps(lambda cfg, **k: plain, report,
+                                 record_ops=True)(None)
+    stats = serve(args[0], decode, args[2], args[3], fresh, **dict(
+        kw, admit_step=built["make_admit_step", False],
+        chunk_step=built["make_chunk_prefill_step", False],
+        block_pool=BlockPool(pool.num_blocks, pool.block_size,
+                             pool.batch_slots, pool.max_blocks_per_lane),
+        telemetry=tel))
+    return fresh, stats
+
+
+def _step_ops(report):
+    """{name: count} of the profiled decode step's device operations
+    (kernels, copies, fills), every one the profiler recorded
+    (_print_profile's kernel count leaves out those it timed at zero
+    length, which moves it by a few between runs of one step)."""
+    prof = report.get("prof")
+    return collections.Counter(
+        e.name for e in (prof.events() if prof is not None else ())
+        if e.device_type.name == "CUDA")
+
+
+def _syncs(fn):
+    """(fn's result, the calls that waited for the card while it ran, each
+    as the innermost frame of the port or of this script that made it)."""
+    import traceback
+    import warnings
+    import torch
+    sites = []
+
+    def hook(message, *args, **kw):
+        if "called a synchronizing" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if "repro_torch" in f.filename
+                      or f.filename.endswith("chip_smoke.py")]
+            f = frames[-1] if frames else None
+            sites.append("?" if f is None else
+                         f"{Path(f.filename).name}:{f.lineno} {f.name}")
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sites
+
+
+def decode_syncs(call, built):
+    """Host syncs of one engine decode step (the inputs' upload, the
+    model, the greedy read-back and, armed, the site vectors' copy) with
+    the plain and with the armed step, from the same state: the recorded
+    call's first four prompts admitted into a mapped paged cache; then the
+    profiler's count of device operations in three runs of the armed
+    engine's step from that state. Returns (plain syncs, armed syncs (each
+    where it was made), the same tokens, the three counts)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.engine import DecodeState, Engine
+    from repro_torch.runtime.telemetry import QuantHealth
+    args, kw = call
+    params, cfg = args[3], get_config("gemma2-2b")
+    prompts = np.stack([r.prompt for r in args[4][:4]]).astype(np.int32)
+    B, P = prompts.shape
+
+    def engine(armed):
+        admit = built["make_admit_step", False]
+        decode = built["make_decode_step", armed]
+        return Engine(
+            lambda t, p, m, c: admit(params, t, p, m, c),
+            lambda t, p, c: decode(params, t, p, c),
+            lambda b: tfm.init_cache(
+                cfg, b, kw["max_len"], dtype=torch.bfloat16, kv_bits=8,
+                paged=True, block_size=kw["block_pool"].block_size,
+                device="cuda"),
+            batch_slots=B, telemetry_sink=QuantHealth().update,
+            device="cuda")
+    eng = engine(False)
+    first, cache = eng.admit(prompts, np.tile(np.arange(P, dtype=np.int32),
+                                              (B, 1)),
+                             np.ones(B, bool), eng.init_state().cache)
+    pos = np.full((B, 1), P, np.int32)
+    out = {}
+    for armed in (False, True):
+        e = engine(armed)
+        e.generate(DecodeState(first, pos, tfm.clone_cache(cache)))
+        state = DecodeState(first, pos, tfm.clone_cache(cache))
+        (toks, _), n = _syncs(lambda: e.generate(state))
+        out[armed] = (n, toks)
+    repeat = []
+    for _ in range(3):
+        state = DecodeState(first, pos, tfm.clone_cache(cache))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            e.generate(state)
+            torch.cuda.synchronize()
+        repeat.append(sum(ev.device_type.name == "CUDA"
+                          for ev in prof.events()))
+    del cache
+    return (out[False][0], out[True][0],
+            bool(np.array_equal(out[False][1], out[True][1])), repeat)
+
+
+def check_chrome_trace(tag, path):
+    """The trace file is Chrome-trace JSON of the reference's schema: M /
+    X / i events, lane tracks named, request spans on them, phases on the
+    steps track. Returns its event count."""
+    doc = json.loads(Path(path).read_text())
+    require(set(doc) == {"traceEvents", "displayTimeUnit"},
+            f"{tag}: trace keys {sorted(doc)}")
+    evs = doc["traceEvents"]
+    for e in evs:
+        require({"name", "ph", "pid"} <= set(e) and e["ph"] in "MXi",
+                f"{tag}: malformed trace event {e}")
+        require(e["ph"] != "X" or (e["ts"] >= 0 and e["dur"] > 0),
+                f"{tag}: duration event {e}")
+    named = {e["tid"] for e in evs
+             if e["ph"] == "M" and e["name"] == "thread_name"}
+    spans = [e for e in evs if e["ph"] == "X" and e["name"].startswith("req")]
+    require(spans and all(e["tid"] in named and e["tid"] >= 1
+                          for e in spans), f"{tag}: request spans off "
+            f"their lane tracks")
+    require(any(e["ph"] == "X" and e["tid"] == 0 for e in evs),
+            f"{tag}: no phase on the steps track")
+    return len(evs)
+
+
+def check_conservation(tag, tracer, stats, n_requests):
+    """The reference test's span conservation against ServeStats: every
+    request retires once and is admitted once more than it resumed,
+    preemptions reconcile, and the phase events count the steps."""
+    spans = tracer.request_spans()
+    names = collections.Counter(e.name for e in tracer.events)
+    require(len(spans) == n_requests and all(
+        s["retired"] and len(s["admits"]) == s["resumes"] + 1
+        and s["preempts"] == s["resumes"] for s in spans.values()),
+        f"{tag}: request spans do not conserve admissions")
+    require(sum(s["preempts"] for s in spans.values()) == stats.preemptions
+            == names["preempt"], f"{tag}: preemptions do not reconcile")
+    require(names["decode_batch"] == stats.decode_steps
+            and names["chunk"] == stats.chunk_steps,
+            f"{tag}: {names['decode_batch']} decode / {names['chunk']} "
+            f"chunk events against {stats.decode_steps} / "
+            f"{stats.chunk_steps} steps")
+    print(f"[{tag}] span conservation against ServeStats holds: "
+          f"{n_requests} requests, "
+          f"{sum(len(s['admits']) for s in spans.values())} admissions = "
+          f"{sum(s['resumes'] for s in spans.values())} resumes + "
+          f"{n_requests}, {stats.preemptions} preemptions, "
+          f"{stats.decode_steps} decode and {stats.chunk_steps} chunk "
+          f"events; events by kind {dict(sorted(names.items()))}")
+    return names
+
+
+def telemetry_phase(add):
+    """Phases 15-16: serving telemetry (``--trace``, ``--metrics-every``,
+    ``--quant-telemetry``, ``--stats-json``). ``[full-telemetry]`` serves
+    the ``[full-overcommit-swap]`` workload with the flags, then the same
+    requests untraced and traced with the plain steps (disarmed), in the
+    same set-up: the greedy tokens must agree (256/256), the trace must be
+    valid Chrome-trace JSON whose spans conserve against ServeStats, the
+    disarmed profiled decode step must run exactly the untraced one's
+    device operations, and the armed one's added operations, K4 and emit
+    launches and host syncs print. ``[reduced-telemetry-B]`` is run B of
+    the reduced over-commit workload with the flags and ``--parity``: the
+    reference launcher's counts and telemetry lines. Returns run B's
+    [deploy-int8] gap."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import ServeTelemetry
+    cfg = get_config("gemma2-2b")
+    tag = "full-telemetry"
+    with tempfile.TemporaryDirectory() as tmp:
+        armed_rep = {}
+        with _served_calls() as served, _built_steps() as built:
+            counts, _, stats, out = serve_phase(
+                tag, FULL_OC + ["--swap-blocks", "--priority", "1"]
+                + tel_argv(tmp),
+                ("rms_quantize", "int8_matmul", "peg_quantize",
+                 "paged_int8_attend_decode"),
+                step_must=("rms_quantize", "int8_matmul", "peg_quantize",
+                           "paged_int8_attend_decode"), report=armed_rep)
+        add(counts)
+        call = served[0]
+        tel = call[1]["telemetry"]
+        n_ev = check_chrome_trace(tag, Path(tmp) / "trace.json")
+        saved = json.loads((Path(tmp) / "stats.json").read_text())
+        require(saved["tokens_generated"] == stats.tokens_generated == 256,
+                f"{tag}: stats JSON {saved['tokens_generated']} tokens")
+        n_snap = len((Path(tmp) / "trace.json.metrics.jsonl").read_text()
+                     .splitlines())
+    names = check_conservation(tag, tel.tracer, stats, 8)
+    require(OC_SWAP_EVENTS <= set(names),
+            f"{tag}: no {sorted(OC_SWAP_EVENTS - set(names))} events")
+    print(f"[{tag}] trace: {len(tel.tracer.events)} events "
+          f"({n_ev} Chrome-trace events with metadata and request spans), "
+          f"{n_snap} metrics snapshots")
+    rep = tel.quant.report()
+    sites = rep["sites"]
+    per = collections.defaultdict(set)
+    for site in sites:
+        m = re.match(r"layer(\d+)/(.+)$", site)
+        per[int(m.group(1)) if m else None].add(
+            m.group(2) if m else site)
+    extra = sorted(per.pop(None, ()))
+    layer_sites = {frozenset(v) for v in per.values()}
+    require(sorted(per) == list(range(cfg.n_super))
+            and len(layer_sites) == 1
+            and extra == ["embed/sum", "head/logits"],
+            f"{tag}: quant-health sites {sorted(sites)}")
+    require(rep["steps_observed"] == stats.decode_steps + stats.chunk_steps,
+            f"{tag}: {rep['steps_observed']} telemetry steps")
+    print(f"[{tag}] quant-health: {len(sites)} sites = "
+          f"{len(next(iter(layer_sites)))} per superblock x {cfg.n_super} "
+          f"superblocks "
+          f"(each folds its local and global layer, as the reference's "
+          f"scan does) + {', '.join(extra)}; kv scales "
+          f"{sorted(rep['kv_scales'])}")
+    torch.cuda.empty_cache()
+    untraced_rep, again_rep, disarmed_rep = {}, {}, {}
+    plain_reqs, plain_stats = reserve_plain(call, built, None, untraced_rep)
+    torch.cuda.empty_cache()
+    reserve_plain(call, built, None, again_rep)
+    torch.cuda.empty_cache()
+    dis_tel = ServeTelemetry.create(trace=True, metrics_every=4)
+    dis_reqs, dis_stats = reserve_plain(call, built, dis_tel, disarmed_rep)
+    torch.cuda.empty_cache()
+    traced = [t for r in call[0][4] for t in r.tokens_out]
+    for what, reqs in (("untraced", plain_reqs), ("disarmed", dis_reqs)):
+        other = [t for r in reqs for t in r.tokens_out]
+        same = sum(x == y for x, y in zip(traced, other))
+        print(f"[{tag}] greedy tokens traced and armed against {what}: "
+              f"{same}/{len(other)} (required)")
+        require(same == len(other) == len(traced) == 256,
+                f"{tag}: {same}/{len(other)} tokens match the {what} run")
+    u_ops, g_ops, d_ops, a_ops = (_step_ops(r) for r in (
+        untraced_rep, again_rep, disarmed_rep, armed_rep))
+    n_u, n_g, n_d, n_a = (sum(o.values())
+                          for o in (u_ops, g_ops, d_ops, a_ops))
+    u_at, g_at, d_at, a_at = (r.get("aten_ops", []) for r in (
+        untraced_rep, again_rep, disarmed_rep, armed_rep))
+    require(u_at and d_at == u_at == g_at and disarmed_rep["step_launches"]
+            == untraced_rep["step_launches"],
+            f"{tag}: the disarmed profiled decode step dispatched "
+            f"{len(d_at)} operators and launched "
+            f"{disarmed_rep['step_launches']}, the untraced one "
+            f"{len(u_at)} and {untraced_rep['step_launches']}")
+    syncs_plain, syncs_armed, same_toks, repeat = decode_syncs(call, built)
+    step = armed_rep.get("step_launches", {})
+    print(f"[{tag}] profiled decode step, disarmed (tracer and metrics on, "
+          f"plain steps): {len(d_at)} PyTorch operators dispatched in the "
+          f"untraced step's order and the same port kernel launches "
+          f"(required); device operations in the profiler's record: "
+          f"{n_d} disarmed, {n_u} and {n_g} in two untraced runs")
+    for a, b, what in ((d_ops, u_ops, "disarmed - untraced"),
+                       (g_ops, u_ops, "untraced again - untraced")):
+        for name, n in ((a - b) + (b - a)).items():
+            print(f"[{tag}]   {what}: {a[name] - b[name]:+d} x "
+                  f"{name[:100]}")
+    print(f"[{tag}] the profiler's record of one armed engine decode step "
+          f"run three times from one state: {repeat} device operations")
+    print(f"[{tag}] profiled decode step, armed: {len(a_at)} operators "
+          f"dispatched ({len(a_at) - len(u_at):+d}), {n_a} device "
+          f"operations ({n_a - n_u:+d} against untraced); K4 (peg_quantize) "
+          f"{step.get('peg_quantize', 0)}, K6 "
+          f"{step.get('paged_int8_attend_decode', 0)} of which emitting "
+          f"{step.get('paged_int8_attend_decode_emit', 0)} (untraced: K4 "
+          f"{untraced_rep.get('step_launches', {}).get('peg_quantize', 0)}"
+          f", emitting K6 {untraced_rep.get('step_launches', {}).get('paged_int8_attend_decode_emit', 0)}"
+          f"); host syncs per engine decode step: plain "
+          f"{len(syncs_plain)}, armed {len(syncs_armed)}, the same tokens: "
+          f"{same_toks}")
+    for what, sites in (("plain", syncs_plain), ("armed", syncs_armed)):
+        print(f"[{tag}]   {what} step waits for the card at: "
+              f"{'; '.join(sites)}")
+    require(step.get("peg_quantize") == cfg.num_layers
+            and step.get("paged_int8_attend_decode_emit", 0) == 0,
+            f"{tag}: the armed step launched {step}, not {cfg.num_layers} "
+            f"K4 and no emit")
+    require(syncs_armed == syncs_plain and same_toks,
+            f"{tag}: host syncs armed at {syncs_armed}, plain at "
+            f"{syncs_plain}")
+    diff = collections.Counter(a_ops)
+    diff.subtract(u_ops)
+    for name, n in sorted(diff.items(), key=lambda kv: -abs(kv[1]))[:8]:
+        if n:
+            print(f"[{tag}]   added {n:+5d} x {name[:90]}")
+    walls = {k: statistics.median([w for w in r["step_ms"] if w is not None])
+             for k, r in (("armed", armed_rep), ("untraced", untraced_rep),
+                          ("disarmed", disarmed_rep))}
+    hist = tel.tracer.latency_histograms()
+    for ph, h in sorted(hist.items()):
+        print(f"[{tag}] {ph}: n={h['n']} p50 {h['p50']:.2f} p95 "
+              f"{h['p95']:.2f} p99 {h['p99']:.2f} ms (host time)")
+    print(f"[{tag}] decode step median (host clock, synchronized): traced "
+          f"and armed {walls['armed']:.2f} ms, traced and disarmed "
+          f"{walls['disarmed']:.2f} ms, untraced {walls['untraced']:.2f} "
+          f"ms (ratio {walls['armed'] / walls['untraced']:.3f} / "
+          f"{walls['disarmed'] / walls['untraced']:.3f}); serve wall "
+          f"{stats.wall_s:.2f} s / {dis_stats.wall_s:.2f} s / "
+          f"{plain_stats.wall_s:.2f} s (ratio "
+          f"{stats.wall_s / plain_stats.wall_s:.3f} / "
+          f"{dis_stats.wall_s / plain_stats.wall_s:.3f})")
+
+    tag = "reduced-telemetry-B"
+    with tempfile.TemporaryDirectory() as tmp:
+        counts, rel, stats, out = serve_phase(
+            tag, REDUCED_OC + list(OC_EXTRA["B"]) + tel_argv(tmp),
+            ("rms_quantize", "int8_matmul", "int8_matmul_peg",
+             "peg_quantize", "int8_attend_decode", "paged_int8_attend_decode",
+             "int8_attend_decode_emit", "paged_int8_attend_decode_emit"),
+            step_must=("peg_quantize",))
+    add(counts)
+    oc_lines(tag, out, "B")
+    trace_line, phases, metrics_line, health_line = RUN_B_TEL
+    got = tuple(re.findall(r"^\[trace\] (\w+: n=\d+) p50", out, re.M))
+    prom = "".join(f"# TYPE serve_{k} gauge\nserve_{k} {v:g}\n"
+                   for k, v in RUN_B_GAUGES)
+    require(f"{trace_line} -> " in out and got == phases
+            and f"{metrics_line} -> " in out and prom in out
+            and health_line in out,
+            f"{tag}: the telemetry lines are not the reference's "
+            f"{RUN_B_TEL}")
+    print(f"[{tag}] the reference launcher's telemetry lines: "
+          f"{trace_line}; {', '.join(phases)}; {metrics_line}; "
+          f"{len(RUN_B_GAUGES)} Prometheus gauges; {health_line}")
+    return rel
+
+
 def ptxas_report():
     """``--ptxas``: compile the split and cluster kernels' sources once more
     with ``-Xptxas -v`` (into build/ptxas) and print one line per kernel
@@ -2216,6 +2639,7 @@ def main() -> int:
             f"reduced-quickstart-4bit: parity lines {rates}")
     fp_rel, fp_kv, rp = prefix_phase(add)
     ro = overcommit_phase(add)
+    rt = telemetry_phase(add)
 
     # The reduced run holds the integer path to the fake-quant path it
     # replaces. At full width the fake-quant path runs in bf16 (bf16 params:
@@ -2239,7 +2663,8 @@ def main() -> int:
                      ("reduced-prefix-A", rp["A"]),
                      ("reduced-prefix-B", rp["B"]),
                      ("reduced-overcommit-A", ro["A"]),
-                     ("reduced-overcommit-B", ro["B"])):
+                     ("reduced-overcommit-B", ro["B"]),
+                     ("reduced-telemetry-B", rt)):
         require(rel <= 1e-4, f"{tag}: integer path differs from "
                 f"fake-quant by {rel:.4%} of max|logits|")
         print(f"[{tag}] integer vs fake-quant logits: rel {rel:.4%} "

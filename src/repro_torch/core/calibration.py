@@ -1,6 +1,6 @@
 """Quantization context + static-range calibration (port of
-``repro.core.calibration``; quantization-aware training and quant-health
-telemetry come with later slices).
+``repro.core.calibration``; quantization-aware training comes with a later
+slice).
 
 Models thread a ``QuantCtx`` through their forward pass and call
 ``ctx.act(site, x)`` at every activation site, ``ctx.act_in`` at the
@@ -19,6 +19,12 @@ A weight that reaches ``ctx.weight`` without frozen params is estimated from
 its values. With a ``weight_cache`` dict (shared by every ctx of one serving
 session) the fake-quantized weight is computed once per weight instead of
 on every call — same values, no per-step MSE search.
+
+Quant-health telemetry: with ``telemetry`` a dict, every APPLY / DEPLOY
+site records its ``[n_clipped, n_total, amax, cal_range]`` vector there
+before it quantizes (``telem_site``); the step builders of
+``runtime.steps`` return the dict as an extra output. None (the default)
+leaves the forward as it is.
 """
 from __future__ import annotations
 
@@ -30,7 +36,8 @@ import torch
 
 from repro_torch.core import peg as peg_lib
 from repro_torch.core.quant_config import Granularity, QuantizationPolicy
-from repro_torch.core.quantizer import QuantParams, fake_quant
+from repro_torch.core.quantizer import (QuantParams, fake_quant,
+                                        telemetry_stats)
 from repro_torch.core.range_estimation import (RangeState,
                                                estimate_weight_params,
                                                finalize, init_range_state,
@@ -61,6 +68,19 @@ class QuantCtx:
     deploy_acts: Optional[dict] = None           # DEPLOY: site -> ActQuant
     collect_inputs: bool = False                 # COLLECT the act_in sites
     weight_cache: Optional[dict] = None          # APPLY / DEPLOY memo
+    telemetry: Optional[Dict[str, torch.Tensor]] = None  # site -> (4,)
+
+    def telem_site(self, site: str, vec: torch.Tensor) -> None:
+        """Accumulate one site's [clipped, total, amax, range] vector:
+        counts add, amax and range take the max, so a site hit again in
+        one forward folds into one vector."""
+        if self.telemetry is None:
+            return
+        prev = self.telemetry.get(site)
+        if prev is not None:
+            vec = torch.cat([prev[:2] + vec[:2],
+                             torch.maximum(prev[2:], vec[2:])])
+        self.telemetry[site] = vec
 
     def _observe(self, site, x, cfg):
         prev = self.range_states.get(site, init_range_state())
@@ -70,7 +90,11 @@ class QuantCtx:
 
     def _apply(self, site, x, cfg):
         qp = self.act_state.get(site) if self.act_state else None
-        return x if qp is None else fake_quant(x, qp, cfg)
+        if qp is None:
+            return x
+        if self.telemetry is not None:
+            self.telem_site(site, telemetry_stats(x, qp, cfg))
+        return fake_quant(x, qp, cfg)
 
     def act(self, site: str, x: torch.Tensor) -> torch.Tensor:
         cfg = self.policy.act_config(site)

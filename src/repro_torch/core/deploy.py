@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.core.quant_config import (Granularity, QuantizationPolicy,
                                            QuantizerConfig)
-from repro_torch.core.quantizer import TINY, QuantParams
+from repro_torch.core.quantizer import TINY, QuantParams, site_vector
 from repro_torch.core.range_estimation import estimate_weight_params
 from repro_torch.kernels import ops
 from repro_torch.kernels.nibble import pack_rows
@@ -319,6 +319,48 @@ def quantize_act(x, aq: ActQuant) -> QTensor:
         x = x.index_select(-1, aq.perm)
     q = ops.peg_quantize(x, aq.scales, aq.zps, qmin=aq.qmin, qmax=aq.qmax)
     return QTensor(q=q, scales=aq.scales, zps=aq.zps)
+
+
+def site_stats(x, aq: ActQuant) -> torch.Tensor:
+    """Quant-health vector ``[n_clipped, n_total, amax, cal_range]`` of a
+    fused quantize site, from the f32 input the kernel is about to take
+    (``quantizer.telemetry_stats`` on the shifted int8 grid, PEG groups
+    folded as (..., G, d/G) after the permutation). Used only with quant
+    telemetry armed. At the norm sites it runs on a PyTorch ``_norm(x)``,
+    which reduces in another order than K1: a value on a rounding tie may
+    count as clipped here and not in the kernel, so the vector describes
+    the site and is never fed back to it."""
+    xf = x.float()
+    if aq.perm is not None:
+        xf = xf.index_select(-1, aq.perm)
+    g = int(aq.scales.shape[0])
+    if g > 1:                            # PEG: fold dims into (..., G, d/G)
+        xf = xf.reshape(*xf.shape[:-1], g, xf.shape[-1] // g)
+        s, z = aq.scales.reshape(g, 1), aq.zps.reshape(g, 1)
+    else:
+        s, z = aq.scales[0], aq.zps[0]
+    s = torch.clamp_min(s, TINY)
+    t = torch.round(xf / s) + z
+    clipped = ((t < aq.qmin) | (t > aq.qmax)).sum()
+    cal_range = torch.maximum((s * (aq.qmin - z)).abs(),
+                              (s * (aq.qmax - z)).abs()).max()
+    return site_vector(clipped, xf.numel(), xf.abs().max(), cal_range)
+
+
+def qtensor_stats(qt: QTensor, aq: ActQuant) -> torch.Tensor:
+    """Saturation-only quant-health vector of a requant site inside a
+    kernel (the FFN hidden, emitted by K2's epilogue): its f32 values never
+    leave the kernel, so ``n_clipped`` counts payload values ON the grid's
+    edges and ``amax`` is the dequantized magnitude, capped at the edge
+    (``amax_ratio`` tops out near 1). Requant epilogues are per-tensor."""
+    q = qt.q.int()
+    sat = ((q <= aq.qmin) | (q >= aq.qmax)).sum()
+    s = torch.clamp_min(aq.scales[0], TINY)
+    z = aq.zps[0]
+    deq_amax = ((q.float() - z) * s).abs().max()
+    cal_range = torch.maximum((s * (aq.qmin - z)).abs(),
+                              (s * (aq.qmax - z)).abs())
+    return site_vector(sat, q.numel(), deq_amax, cal_range)
 
 
 def matmul(x: QTensor, packed: dict, *, bias=None, mul=None,

@@ -1,7 +1,7 @@
 """Uniform affine quantization (paper eq. 1-2): the simulated-quantization
-forward and the scale / zero-point derivation (port of
-``repro.core.quantizer``; the straight-through gradient and the telemetry
-statistics come with the training and telemetry slices)."""
+forward, the scale / zero-point derivation and the quant-health statistics
+(port of ``repro.core.quantizer``; the straight-through gradient comes with
+the training slice)."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -79,3 +79,30 @@ def reduce_range(x: torch.Tensor, cfg: QuantizerConfig):
     axis = cfg.channel_axis % x.dim()
     red = tuple(a for a in range(x.dim()) if a != axis)
     return torch.amin(x, dim=red), torch.amax(x, dim=red)
+
+
+def telemetry_stats(x: torch.Tensor, qp: QuantParams,
+                    cfg: QuantizerConfig) -> torch.Tensor:
+    """Quant-health vector ``[n_clipped, n_total, amax, cal_range]`` (4,)
+    f32 on ``x``'s device, on :func:`fake_quant`'s grid: a value counts as
+    clipped when its integer image before the clamp lies outside [qmin,
+    qmax]. ``cal_range`` is the largest magnitude the calibrated grid can
+    represent (the max over channels / groups of ``max(|s*(qmin-z)|,
+    |s*(qmax-z)|)``), so ``amax / cal_range > 1`` means traffic exceeded
+    calibration."""
+    s, z = _expand(qp, x.dim(), cfg.channel_axis)
+    s = torch.clamp_min(s.float(), TINY)
+    xf = x.float()
+    t = torch.round(xf / s) + z
+    clipped = ((t < cfg.qmin) | (t > cfg.qmax)).sum()
+    cal_range = torch.maximum((s * (cfg.qmin - z)).abs(),
+                              (s * (cfg.qmax - z)).abs()).max()
+    return site_vector(clipped, xf.numel(), xf.abs().max(), cal_range)
+
+
+def site_vector(clipped, n_total: int, amax, cal_range) -> torch.Tensor:
+    """A site's (4,) f32 vector on ``amax``'s device; the element count is
+    a device fill, not a copy from the host."""
+    n = torch.full((), n_total, dtype=torch.float32, device=amax.device)
+    return torch.stack([clipped.float(), n, amax.float(),
+                        cal_range.float()])

@@ -32,6 +32,15 @@ other scheduler, unchunked, dense, (with ``--prefix-cache``) unshared and
 (with ``--over-commit``) with worst-case reservations, and checks the
 greedy tokens are the same.
 
+Telemetry (continuous scheduler): ``--trace FILE`` records the request
+lifecycle and writes it as Chrome-trace JSON, with per-phase step-latency
+percentiles; ``--metrics-every N`` snapshots the scheduler's gauges every
+N steps (``FILE.metrics.jsonl`` beside the trace, Prometheus text at the
+end); ``--quant-telemetry`` (needs ``--quantize``) serves through armed
+steps and reports each quantization site's clip fraction and observed
+amax against its calibrated range, and the KV cache's scales;
+``--stats-json FILE`` writes the run's ``ServeStats``.
+
 Full width serves bf16 params on one GPU; ``--reduced`` serves the small
 f32 config (``main(argv, dtype=torch.float32)`` serves either in f32).
 Every other flag of the reference launcher is accepted by the parser and
@@ -49,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 
 import numpy as np
 import torch
@@ -59,9 +69,10 @@ from repro_torch.core.quant_config import QuantizerConfig, RangeEstimator
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime import (BlockPool, RadixCache, Request,
-                                 blocks_for_tokens, make_admit_step,
-                                 make_chunk_prefill_step, make_decode_step,
-                                 make_prefill_step, make_swap_steps, serve)
+                                 ServeTelemetry, blocks_for_tokens,
+                                 make_admit_step, make_chunk_prefill_step,
+                                 make_decode_step, make_prefill_step,
+                                 make_swap_steps, serve)
 from repro_torch.runtime.serve_loop import _check_capacity
 
 # flags (by dest) the port serves; any other flag must keep its default
@@ -70,7 +81,8 @@ _PORTED = {"arch", "reduced", "requests", "prompt_len", "new_tokens",
            "deploy_int8", "scheduler", "kv_bits", "weight_bits", "parity",
            "paged_kv", "block_size", "num_blocks", "prefill_chunk",
            "prefix_cache", "over_commit", "swap_blocks", "priority",
-           "decode_ratio"}
+           "decode_ratio", "trace", "metrics_every", "quant_telemetry",
+           "stats_json"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -266,6 +278,16 @@ def _check_args(ap: argparse.ArgumentParser, args) -> None:
                                       or args.over_commit):
         ap.error("--decode-ratio > 1 requires a chunked path "
                  "(--prefill-chunk or --over-commit)")
+    if args.metrics_every < 0:
+        ap.error("--metrics-every must be >= 0")
+    if (args.trace or args.metrics_every or args.quant_telemetry) \
+            and args.scheduler != "continuous":
+        ap.error("--trace/--metrics-every/--quant-telemetry require "
+                 "--scheduler continuous (telemetry instruments the "
+                 "continuous scheduler's request lifecycle)")
+    if args.quant_telemetry and not args.quantize:
+        ap.error("--quant-telemetry requires --quantize (clip fractions "
+                 "are measured against the calibrated quantization grids)")
     _reject_unported(ap, args)
 
 
@@ -332,6 +354,46 @@ def _quantize(cfg, args, params, dtype, dev):
         print(_kv_int4_drift(cfg, args, params, ctx_factory, toks, dtype,
                              dev))
     return params, ctx_factory
+
+
+def _report_telemetry(args, telemetry: ServeTelemetry) -> None:
+    """The reference launcher's telemetry lines: the trace's event and
+    retired-request counts and per-phase step latencies (host time), the
+    metrics snapshots and Prometheus text, and the quant-health report
+    (the ten sites that clip most, the KV cache's scales)."""
+    if telemetry.tracer is not None:
+        telemetry.tracer.dump(args.trace)
+        spans = telemetry.tracer.request_spans()
+        retired = sum(1 for s in spans.values() if s["retired"])
+        print(f"[trace] {len(telemetry.tracer.events)} events, "
+              f"{retired}/{len(spans)} requests retired -> {args.trace}")
+        for ph, h in sorted(telemetry.tracer.latency_histograms().items()):
+            print(f"[trace] {ph}: n={h['n']} p50 {h['p50']:.2f}ms "
+                  f"p95 {h['p95']:.2f}ms p99 {h['p99']:.2f}ms")
+    if telemetry.metrics is not None:
+        if args.trace:
+            mpath = args.trace + ".metrics.jsonl"
+            with open(mpath, "w") as f:
+                f.write(telemetry.metrics.jsonl())
+            print(f"[metrics] {len(telemetry.metrics.snapshots)} "
+                  f"snapshots -> {mpath}")
+        print(telemetry.metrics.prometheus_text(), end="")
+    if telemetry.quant is not None:
+        rep = telemetry.quant.report()
+        sites = rep["sites"]
+        print(f"[quant-health] {len(sites)} sites over "
+              f"{rep['steps_observed']} telemetry steps")
+        ranked = sorted(sites.items(), key=lambda kv: -kv[1]["clip_fraction"])
+        for s, d in ranked[:10]:
+            print(f"[quant-health] {s}: clip {d['clip_fraction']:.4%} "
+                  f"({d['clipped']}/{d['total']}), amax "
+                  f"{d['observed_amax']:.4f} / range "
+                  f"{d['calibrated_range']:.4f} "
+                  f"(ratio {d['amax_ratio']:.2f})")
+        for name, st in sorted(rep["kv_scales"].items()):
+            print(f"[quant-health] {name}: n={st['n']} "
+                  f"min {st['min']:.3e} p50 {st['p50']:.3e} "
+                  f"p99 {st['p99']:.3e} max {st['max']:.3e}")
 
 
 @torch.no_grad()
@@ -457,6 +519,21 @@ def main(argv=None, *, device=None, dtype=None):
     chunk_step = make_chunk_prefill_step(cfg, ctx_factory=ctx_factory)
     swap_out, swap_in = (make_swap_steps() if args.swap_blocks
                          else (None, None))
+    telemetry = None
+    if args.trace or args.metrics_every or args.quant_telemetry:
+        telemetry = ServeTelemetry.create(trace=bool(args.trace),
+                                          metrics_every=args.metrics_every,
+                                          quant=args.quant_telemetry)
+    # quant telemetry serves through separate armed closures: the plain
+    # steps stay as they are for the untraced runs (the --parity reruns)
+    admit_t = decode_t = chunk_t = None
+    if args.quant_telemetry:
+        admit_t = make_admit_step(cfg, ctx_factory=ctx_factory,
+                                  quant_telemetry=True)
+        decode_t = make_decode_step(cfg, ctx_factory=ctx_factory,
+                                    quant_telemetry=True)
+        chunk_t = make_chunk_prefill_step(cfg, ctx_factory=ctx_factory,
+                                          quant_telemetry=True)
 
     def make_requests():
         # the reference launcher's draws: with --prefix-cache every prompt
@@ -490,7 +567,7 @@ def main(argv=None, *, device=None, dtype=None):
                               num_blocks=num_blocks, mapped=False, **kw)
 
     def run(scheduler, requests, paged=None, chunk=0, kv_bits=None,
-            prefix=None, over_commit=None):
+            prefix=None, over_commit=None, tel=None):
         paged = args.paged_kv if paged is None else paged
         kv_bits = args.kv_bits if kv_bits is None else kv_bits
         prefix = ((args.prefix_cache if prefix is None else prefix)
@@ -501,13 +578,16 @@ def main(argv=None, *, device=None, dtype=None):
         if paged and scheduler == "continuous":
             pool = BlockPool(num_blocks, args.block_size, args.batch_slots,
                              nb_lane)
-        return serve(prefill, decode,
+        armed = tel is not None and tel.quant is not None
+        a_step, d_step, c_step = ((admit_t, decode_t, chunk_t) if armed
+                                  else (admit, decode, chunk_step))
+        return serve(prefill, d_step,
                      lambda b: init_cache(b, paged, scheduler, kv_bits),
                      params,
                      requests, scheduler=scheduler,
                      batch_slots=args.batch_slots, max_len=args.max_len,
-                     admit_step=admit,
-                     chunk_step=(chunk_step if (chunk or prefix or oc)
+                     admit_step=a_step,
+                     chunk_step=(c_step if (chunk or prefix or oc)
                                  else None),
                      block_pool=pool, prefill_chunk=chunk or None,
                      ring_tokens=ring_tokens if pool else None,
@@ -521,10 +601,11 @@ def main(argv=None, *, device=None, dtype=None):
                      swap_in_fn=swap_in if oc else None,
                      decode_ratio=(args.decode_ratio
                                    if (chunk or prefix or oc) else 1),
-                     device=dev)
+                     telemetry=tel, device=dev)
 
     requests = make_requests()
-    stats = run(args.scheduler, requests, chunk=args.prefill_chunk)
+    stats = run(args.scheduler, requests, chunk=args.prefill_chunk,
+                tel=telemetry)
     if args.paged_kv and args.scheduler == "continuous":
         paged_note = (f", blocks {stats.blocks_in_use}/{num_blocks} "
                       f"(frag {stats.block_fragmentation:.0%}, "
@@ -562,6 +643,12 @@ def main(argv=None, *, device=None, dtype=None):
                   f"p50/p99 {t.first_token_p50:.0f}/{t.first_token_p99:.0f} "
                   f"steps, inter-token p50/p99 {t.inter_token_p50:.1f}/"
                   f"{t.inter_token_p99:.1f} steps")
+    if telemetry is not None:
+        _report_telemetry(args, telemetry)
+    if args.stats_json:
+        with open(args.stats_json, "w") as f:
+            json.dump(stats.to_json(), f, indent=2, default=str)
+        print(f"[stats] ServeStats -> {args.stats_json}")
 
     if args.parity:
         def matches(b_reqs):

@@ -688,6 +688,10 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
     B, T, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     wo_aq = ctx.deploy_act(f"{prefix}/wo_in") if x_int8 else None
+    # the decode kernels emit wo's int8 input from their merge, except with
+    # quant telemetry armed: the wo_in site then needs the f32 output, so
+    # the kernel returns it and K4 quantizes it (the same bytes)
+    emit_aq = wo_aq if ctx is None or ctx.telemetry is None else None
 
     def w(name):
         wmat = resolve_weight(p[name])
@@ -772,7 +776,7 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
             new_cache = _write_paged_kv(cache, k, v, positions, block_table,
                                         cfg.window, kvq, plans=write_plans)
             out = _kernel_decode_attend(q, new_cache, block_table, positions,
-                                        cfg, ctx, prefix, kvq, wo_aq)
+                                        cfg, ctx, prefix, kvq, emit_aq)
             if out is None:
                 k_att, v_att = paged_gather_kv(new_cache, block_table,
                                                cfg.window, kvq)
@@ -783,7 +787,7 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
                                   plans=write_plans)
             if quantized:
                 out = _kernel_decode_attend(q, new_cache, None, positions,
-                                            cfg, ctx, prefix, kvq, wo_aq)
+                                            cfg, ctx, prefix, kvq, emit_aq)
                 if out is None:
                     k_att, v_att = dequantize_kv(new_cache, kvq)
                     kpos_att = new_cache.pos
@@ -798,8 +802,12 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
         # the decode kernel's merge emitted wo's int8 input
         out = deploy_lib.matmul(out, p["wo"])
     elif x_int8:
-        out = deploy_lib.matmul(deploy_lib.quantize_act(
-            out.reshape(B, T, H * hd), wo_aq), p["wo"])
+        out2d = out.reshape(B, T, H * hd)
+        if ctx.telemetry is not None:
+            ctx.telem_site(f"{prefix}/wo_in",
+                           deploy_lib.site_stats(out2d, wo_aq))
+        out = deploy_lib.matmul(deploy_lib.quantize_act(out2d, wo_aq),
+                                p["wo"])
     else:
         out2d = out.reshape(B, T, H * hd)
         if ctx is not None:

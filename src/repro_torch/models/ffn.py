@@ -20,6 +20,8 @@ def _glu_mlp_int8(p, x, *, activation: str, ctx, prefix: str):
     up = deploy.matmul(x, p["w_up"])
     h_q = deploy.matmul(x, p["w_gate"], activation=activation, mul=up,
                         out_aq=hid)
+    if ctx.telemetry is not None:
+        ctx.telem_site(f"{prefix}/hidden", deploy.qtensor_stats(h_q, hid))
     return deploy.matmul(h_q, p["w_out"])
 
 

@@ -77,11 +77,16 @@ def _attn_packed(p) -> bool:
 
 def _ffn_input(cfg: ModelConfig, p, x, ctx, prefix):
     """LN2 + the ffn_in quantizer; in DEPLOY with packed FFN weights they
-    fuse into one norm + int8 emit kernel returning a QTensor."""
+    fuse into one norm + int8 emit kernel returning a QTensor (with quant
+    telemetry armed, the site's vector is taken on a PyTorch norm first:
+    ``deploy.site_stats``)."""
     if ctx is not None:
         aq = ctx.deploy_act(f"{prefix}/ffn_in")
         if aq is not None and _ffn_packed(p):
             from repro_torch.core import deploy
+            if ctx.telemetry is not None:
+                ctx.telem_site(f"{prefix}/ffn_in",
+                               deploy.site_stats(_norm(cfg, p["ln2"], x), aq))
             return deploy.norm_quantize(cfg.norm, p["ln2"], x, aq)
     h = _norm(cfg, p["ln2"], x)
     if ctx is not None:
@@ -95,6 +100,9 @@ def _attn_input(cfg: ModelConfig, p, x, ctx, prefix):
         aq = ctx.deploy_act(f"{prefix}/attn_in")
         if aq is not None and _attn_packed(p):
             from repro_torch.core import deploy
+            if ctx.telemetry is not None:
+                ctx.telem_site(f"{prefix}/attn_in",
+                               deploy.site_stats(_norm(cfg, p["ln1"], x), aq))
             return deploy.norm_quantize(cfg.norm, p["ln1"], x, aq)
     h = _norm(cfg, p["ln1"], x)
     if ctx is not None:
@@ -510,11 +518,23 @@ def forward(cfg: ModelConfig, params, tokens, *, ctx=None, cache=None,
             x, _ = run(kind, params["layers"][i], x, c, f"layer{i}")
         return _head(cfg, params, x, ctx), cache
 
+    # quant telemetry: every superblock records under the shared "layer/"
+    # names, so its new entries are taken out after it and stacked into
+    # (n_super, 4) vectors, the reference's scan outputs
+    telem = ctx.telemetry if ctx is not None else None
+    per_super = []
     for s in range(cfg.n_super):
+        before = set(telem) if telem is not None else None
         for j, kind in enumerate(cfg.block_pattern):
             # a view of layer s of the stacked cache: written in place
             c = _layer(cache["scan"][j], s) if cache is not None else None
             x, _ = run(kind, _layer(params["scan"][j], s), x, c, "layer")
+        if telem is not None:
+            per_super.append({k: telem.pop(k)
+                              for k in sorted(set(telem) - before)})
+    if per_super:
+        telem.update({k: torch.stack([d[k] for d in per_super])
+                      for k in per_super[0]})
     for i, kind in enumerate(cfg.tail_pattern):
         c = cache["tail"][i] if cache is not None else None
         x, _ = run(kind, params["tail"][i], x, c, "tail")

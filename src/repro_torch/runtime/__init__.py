@@ -8,3 +8,6 @@ from repro_torch.runtime.steps import (make_admit_step,  # noqa: F401
                                        make_chunk_prefill_step,
                                        make_decode_step, make_prefill_step,
                                        make_swap_steps)
+from repro_torch.runtime.telemetry import (MetricsLogger,  # noqa: F401
+                                           QuantHealth, ServeTelemetry,
+                                           Tracer)

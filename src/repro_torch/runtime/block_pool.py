@@ -71,6 +71,9 @@ class BlockPool:
         self.batch_slots = batch_slots
         self.max_blocks_per_lane = max_blocks_per_lane
         self._cache = None          # attached RadixCache (eviction source)
+        # called with the evicted block ids whenever the radix cache's LRU
+        # eviction reclaims blocks (the scheduler sets it when tracing)
+        self.on_evict = None
         self.reset()
 
     def reset(self) -> None:
@@ -307,6 +310,8 @@ class BlockPool:
             evicted = self._cache.evict_lru(self.block_ref)
             if not evicted:
                 break
+            if self.on_evict is not None:
+                self.on_evict(evicted)
             for b in evicted:
                 self._cached[b] = False
                 if self._ref[b] == 0:

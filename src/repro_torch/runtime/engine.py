@@ -7,10 +7,14 @@ retire and keeps the books (policy); the Engine makes the model calls —
 ``generate`` (one greedy decode step over every lane), ``copy_block``
 (the device half of copy-on-write) and ``swap_out`` / ``swap_in`` (a
 preempted lane's blocks to host memory and back) — places the host inputs
-on the device and reads the greedy tokens back (mechanism).
+on the device and reads the greedy tokens back (mechanism). Steps built
+with ``quant_telemetry=True`` return their quant-health site vectors as a
+third output; the engine gathers them into one (n, 4) tensor, copies it to
+the host in the same stream as the greedy tokens (one read-back a step,
+however many sites) and folds it into ``telemetry_sink``.
 
-Not yet ported: the decomposed ``prefill`` / ``insert`` API, quant-health
-telemetry, and mesh placement.
+Not yet ported: the decomposed ``prefill`` / ``insert`` API and mesh
+placement.
 """
 from __future__ import annotations
 
@@ -55,6 +59,8 @@ class Engine:
               ``runtime.steps.make_swap_steps``]
 
     ``device``: where host inputs go (None: the GPU). Decoding is greedy.
+    ``telemetry_sink``: called with each armed step's {site: host array}
+    dict (``runtime.telemetry.QuantHealth.update``).
     """
 
     def __init__(self, admit_fn: Callable, decode_fn: Callable,
@@ -62,7 +68,8 @@ class Engine:
                  chunk_fn: Optional[Callable] = None,
                  copy_block_fn: Optional[Callable] = None,
                  swap_out_fn: Optional[Callable] = None,
-                 swap_in_fn: Optional[Callable] = None, device=None):
+                 swap_in_fn: Optional[Callable] = None,
+                 telemetry_sink: Optional[Callable] = None, device=None):
         if batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
         self.admit_fn = admit_fn
@@ -73,10 +80,37 @@ class Engine:
         self.swap_out_fn = swap_out_fn
         self.swap_in_fn = swap_in_fn
         self.batch_slots = batch_slots
+        self.telemetry_sink = telemetry_sink
         self.device = resolve_device(device)
 
     def _put(self, x):
         return torch.as_tensor(x, device=self.device)
+
+    def _unwrap(self, out):
+        """Greedy tokens of a step's output, and its cache. A third output
+        (an armed step's {site: (4,) or (n_super, 4)} vectors) is gathered
+        into one (n, 4) tensor whose copy to pinned host memory is queued
+        before the tokens' blocking read-back, which therefore waits for it
+        too: the sink gets host arrays and the step syncs once."""
+        if len(out) == 2:
+            return greedy(out[0]), out[1]
+        logits, cache, tel = out
+        if self.telemetry_sink is None or not tel:
+            return greedy(logits), cache
+        flat = torch.cat([v.reshape(-1, 4) for v in tel.values()])
+        host = flat
+        if flat.device.type == "cuda":
+            host = torch.empty(flat.shape, dtype=flat.dtype,
+                               pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+        tokens = greedy(logits)
+        rows, at, folded = host.numpy(), 0, {}
+        for site, v in tel.items():
+            n = v.numel() // 4
+            folded[site] = rows[at:at + n].reshape(v.shape)
+            at += n
+        self.telemetry_sink(folded)
+        return tokens, cache
 
     def init_state(self) -> DecodeState:
         """A fresh all-idle decode state: every lane dead (pos -1)."""
@@ -88,25 +122,25 @@ class Engine:
     def admit(self, tokens, positions, admit_mask, cache):
         """Reset the masked lanes and prefill their packed prompts in one
         model call. Returns ((B, 1) greedy first tokens, cache)."""
-        logits, cache = self.admit_fn(self._put(tokens), self._put(positions),
-                                      self._put(admit_mask), cache)
-        return greedy(logits), cache
+        return self._unwrap(self.admit_fn(self._put(tokens),
+                                          self._put(positions),
+                                          self._put(admit_mask), cache))
 
     def chunk(self, tokens, positions, reset_mask, cache):
         """One append-mode chunked-prefill step. Returns ((B, 1) greedy
         tokens from the chunk's final position, cache)."""
         if self.chunk_fn is None:
             raise ValueError("engine was built without a chunk_fn")
-        logits, cache = self.chunk_fn(self._put(tokens), self._put(positions),
-                                      self._put(reset_mask), cache)
-        return greedy(logits), cache
+        return self._unwrap(self.chunk_fn(self._put(tokens),
+                                          self._put(positions),
+                                          self._put(reset_mask), cache))
 
     def generate(self, state: DecodeState):
         """One greedy decode step over every lane. Returns ((B, 1) next
         tokens, cache); idle lanes give tokens the caller ignores."""
-        logits, cache = self.decode_fn(self._put(state.tokens),
-                                       self._put(state.pos), state.cache)
-        return greedy(logits), cache
+        return self._unwrap(self.decode_fn(self._put(state.tokens),
+                                           self._put(state.pos),
+                                           state.cache))
 
     def copy_block(self, cache, src: int, dst: int):
         """Clone physical block ``src`` into ``dst`` in every paged arena

@@ -24,7 +24,10 @@ the static and the continuous schedulers of ``repro.runtime.serve_loop``).
 
 Each lane decodes at its own next position, so a request gets the same
 greedy tokens whatever it is packed with, and whether or not it was
-preempted. Telemetry is not yet ported.
+preempted. With a ``telemetry`` handle (``runtime.telemetry``) the
+Scheduler records lifecycle events and phase times, gauge snapshots and,
+through armed steps, quant-health site vectors; without one its loop
+touches no tracer, timer or metrics object.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from repro_torch.device import resolve_device
 from repro_torch.runtime.block_pool import BlockPool, blocks_for_tokens
 from repro_torch.runtime.engine import DecodeState, Engine, greedy
 from repro_torch.runtime.radix_cache import RadixCache
+from repro_torch.runtime.telemetry import ServeTelemetry
 
 
 @dataclasses.dataclass
@@ -330,10 +334,6 @@ def serve_batch(prefill_fn: Callable, decode_fn: Callable, init_cache_fn,
 # Continuous batching
 # ---------------------------------------------------------------------------
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not yet ported")
-
-
 @dataclasses.dataclass
 class _Swapped:
     """Swap-mode preemption residue: the lane's blocks wait in host memory
@@ -417,6 +417,14 @@ class Scheduler:
     cache) and resume prefills prompt + emitted tokens again through the
     chunk step. Either way the request emits the same greedy tokens.
 
+    **Telemetry** (``telemetry``, a
+    :class:`~repro_torch.runtime.telemetry.ServeTelemetry`): its tracer
+    records the lifecycle events and times the admit, chunk, decode and
+    swap phases; its metrics logger takes a gauge snapshot every N steps;
+    its quant-health collector folds the site vectors of steps built with
+    ``quant_telemetry=True`` (through the engine) and, at the end of a run,
+    the KV cache's scales. Greedy tokens are the same with it or without.
+
     Step contracts as in :class:`~repro_torch.runtime.engine.Engine`.
     """
 
@@ -433,9 +441,8 @@ class Scheduler:
                  over_commit: bool = False,
                  swap_out_fn: Optional[Callable] = None,
                  swap_in_fn: Optional[Callable] = None,
-                 decode_ratio: int = 1, telemetry=None, device=None):
-        if telemetry is not None:
-            _not_ported("serving telemetry")
+                 decode_ratio: int = 1,
+                 telemetry: Optional[ServeTelemetry] = None, device=None):
         if batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
         if block_pool is not None and block_pool.batch_slots != batch_slots:
@@ -536,16 +543,28 @@ class Scheduler:
         # decode_ratio after each chunk step; a chunk step runs only when
         # it is spent (or nothing is decodable)
         self._decode_credit = 0
+        # observability: None turns it all off, and the loop then touches
+        # no tracer, timer or metrics object
+        self.tel = telemetry
+        self._tracer = telemetry.tracer if telemetry is not None else None
+        self._book: Optional[_Book] = None
         self.engine = Engine(admit_fn, decode_fn, init_cache_fn,
                              batch_slots=batch_slots, chunk_fn=chunk_fn,
                              copy_block_fn=copy_block_fn,
                              swap_out_fn=swap_out_fn, swap_in_fn=swap_in_fn,
+                             telemetry_sink=(
+                                 telemetry.quant.update
+                                 if telemetry is not None
+                                 and telemetry.quant is not None else None),
                              device=device)
 
     def run(self, requests: List[Request]) -> ServeStats:
         _check_capacity(requests, self.max_len, self.pool, self._ring_tokens)
         stats = ServeStats()
-        book = _Book(stats, self.batch_slots)
+        book = self._book = _Book(stats, self.batch_slots)
+        if self.pool is not None and self._tracer is not None:
+            self.pool.on_evict = lambda blocks: self._ev(
+                "radix_evict", blocks=len(blocks))
         t_start = time.perf_counter()
         queue = self._queue = collections.deque()
         for seq, r in enumerate(requests):
@@ -554,6 +573,8 @@ class Scheduler:
             else:
                 book.enqueue(r)
                 queue.append(_QEntry(r, seq))
+                self._ev("enqueue", rid=r.rid, prompt_len=len(r.prompt),
+                         max_new=r.max_new_tokens)
         pad = max((len(e.req.prompt) for e in queue), default=1)
         self._chunk_width = self.prefill_chunk or pad
         B = self.batch_slots
@@ -603,6 +624,9 @@ class Scheduler:
                 raise RuntimeError(
                     "scheduler deadlock: no queued request fits an empty "
                     f"pool (queue head rid {queue[0].req.rid})")
+            self._snapshot(queue, lanes, book)
+        if self.tel is not None and self.tel.quant is not None:
+            self.tel.quant.update_kv_scales(state.cache)
         return book.finalize(t_start)
 
     # -- paged-pool plumbing (no-ops in dense mode) -------------------------
@@ -695,17 +719,24 @@ class Scheduler:
         n_total = last_pos // self.pool.block_size + 1
         if self._ring_blocks is not None:
             n_total = min(n_total, self._ring_blocks)
+        n_before = (self.pool.lane_mapped(lane)
+                    if self._tracer is not None else 0)
         if not self.over_commit:
             self.pool.grow(lane, n_total)
-            return
-        while not self.pool.try_grow(lane, n_total):
-            # the demander is always a candidate, so there is a victim
-            victim = self._pick_victim(lanes)
-            self._preempt(victim, lanes, state, book)
-            if victim == lane:
-                return
+        else:
+            while not self.pool.try_grow(lane, n_total):
+                # the demander is always a candidate, so there is a victim
+                victim = self._pick_victim(lanes)
+                self._preempt(victim, lanes, state, book)
+                if victim == lane:
+                    break
+        if self._tracer is not None and lanes[lane] is not None \
+                and self.pool.lane_mapped(lane) > n_before:
+            self._ev("block_grow", rid=lanes[lane].rid, lane=lane,
+                     blocks=self.pool.lane_mapped(lane) - n_before)
 
     def _release(self, lane: int, r: Request) -> None:
+        self._ev("retire", rid=r.rid, lane=lane, tokens=len(r.tokens_out))
         if self.pool is not None:
             if self.radix is not None:
                 self._donate(lane, r)
@@ -758,6 +789,8 @@ class Scheduler:
                     if self.over_commit else self.pool.cow(lane, col))
             if pair is not None:
                 cache = self.engine.copy_block(cache, *pair)
+                self._ev("cow", lane=lane, src=int(pair[0]),
+                         dst=int(pair[1]))
         return cache
 
     def _sync_table(self, cache) -> None:
@@ -794,6 +827,67 @@ class Scheduler:
                 pos[i, 0] = -1
                 self._release(i, r)
 
+    # -- observability hooks (no-ops without telemetry) ---------------------
+
+    def _ev(self, name: str, rid: Optional[int] = None,
+            lane: Optional[int] = None, **args) -> None:
+        if self._tracer is not None:
+            self._tracer.event(name, self._book.step, rid=rid, lane=lane,
+                               **args)
+
+    def _step_call(self, phase: str, op: Callable, args,
+                   n_lanes: Optional[int] = None):
+        """One engine op (a model call and its greedy read-back). Traced,
+        it is a phase duration event in host time: the read-back waits for
+        the device, so the phase covers its work too."""
+        if self._tracer is None:
+            return op(*args)
+        with self._tracer.phase(phase, self._book.step) as ph:
+            toks, cache = op(*args)
+            if n_lanes is not None:
+                ph.args["lanes"] = n_lanes
+        return toks, cache
+
+    def _timed(self, phase: str, thunk: Callable, **args):
+        """Time a block swap as a phase duration event (host time: swap-out
+        returns once its payload is in host memory, swap-in once its copies
+        and scatter are queued)."""
+        if self._tracer is None:
+            return thunk()
+        with self._tracer.phase(phase, self._book.step) as ph:
+            out = thunk()
+            ph.args.update(args)
+        return out
+
+    def _snapshot(self, queue, lanes, book: _Book) -> None:
+        """A gauge snapshot (queue, lanes, pool), at most once per step,
+        when a metrics logger is attached and due."""
+        m = self.tel.metrics if self.tel is not None else None
+        if m is None or not m.due(book.step):
+            return
+        s = book.stats
+        gauges: Dict[str, Any] = {
+            "queue_depth": len(queue),
+            "resident_lanes": sum(r is not None for r in lanes),
+            "prefilling_lanes": sum(o is not None for o in self._pref),
+            "tokens_generated": s.tokens_generated,
+            "decode_steps": s.decode_steps,
+            "prefill_calls": s.prefill_calls,
+            "preemptions": s.preemptions,
+            "swapped_blocks": s.swapped_blocks,
+            "prefix_hit_rate": (s.prefix_hit_tokens / book.prompt_tokens
+                                if book.prompt_tokens else 0.0),
+        }
+        if self.pool is not None:
+            gauges.update(
+                blocks_in_use=self.pool.blocks_in_use,
+                blocks_free=self.pool.blocks_free,
+                blocks_evictable=self.pool.blocks_evictable,
+                blocks_cached=self.pool.blocks_cached,
+                shared_blocks=self.pool.shared_blocks,
+                refcount_total=self.pool.refcount_total)
+        m.emit(book.step, gauges)
+
     def _register_lane(self, lane: int, entry: _QEntry,
                        prompt: np.ndarray, book: _Book) -> None:
         """Admission bookkeeping of every path: the lane's working prompt,
@@ -828,8 +922,11 @@ class Scheduler:
             admit_mask[i] = True
             lanes[i] = group[j]
             self._register_lane(i, entries[j], group[j].prompt, book)
+            self._ev("admit", rid=group[j].rid, lane=i)
         self._sync_table(state.cache)
-        first, cache = self.engine.admit(toks, posm, admit_mask, state.cache)
+        first, cache = self._step_call(
+            "admit", self.engine.admit,
+            (toks, posm, admit_mask, state.cache), n_lanes=len(slots))
         book.stats.prefill_calls += 1
         book.step += 1
         tokens, pos = state.tokens.copy(), state.pos.copy()
@@ -864,6 +961,9 @@ class Scheduler:
             self._pref[i] = off
             self._register_lane(i, entry, r.prompt, book)
             book.prompt_tokens += len(r.prompt)
+            self._ev("admit", rid=r.rid, lane=i)
+            if off:
+                self._ev("prefix_hit", rid=r.rid, lane=i, tokens=off)
 
     # -- over-commit: preemption and priority admission ---------------------
 
@@ -896,7 +996,10 @@ class Scheduler:
         if self.swap:
             ids = self.pool.lane_blocks(lane)
             entry.resume = _Swapped(
-                payload=self.engine.swap_out(state.cache, ids),
+                payload=self._timed(
+                    "swap_out", lambda: self.engine.swap_out(state.cache,
+                                                             ids),
+                    blocks=len(ids)),
                 n_blocks=len(ids), prompt=self._lane_prompt[lane],
                 pref_off=off, token=int(state.tokens[lane, 0]),
                 pos=int(state.pos[lane, 0]))
@@ -912,6 +1015,8 @@ class Scheduler:
         self._pref[lane] = None
         state.pos[lane, 0] = -1        # idle: the decode step ignores it
         stats.preemptions += 1
+        self._ev("preempt", rid=r.rid, lane=lane, written=written,
+                 mode="swap" if self.swap else "drop")
         book.requeue(r)
         self._queue.append(entry)
 
@@ -979,8 +1084,11 @@ class Scheduler:
             if n > pool.available_blocks() \
                     or not pool.reserve_and_alloc(lane, n, n):
                 return False, state
-            cache = self.engine.swap_in(state.cache, pool.lane_blocks(lane),
-                                        res.payload)
+            ids = pool.lane_blocks(lane)
+            cache = self._timed(
+                "swap_in", lambda: self.engine.swap_in(state.cache, ids,
+                                                       res.payload),
+                blocks=len(ids))
             tokens, pos = state.tokens.copy(), state.pos.copy()
             self._pref[lane] = res.pref_off
             if res.pref_off is None:    # decodable: its pending token
@@ -989,6 +1097,7 @@ class Scheduler:
             self._register_lane(lane, entry, res.prompt, book)
             self._shared_tok[lane] = 0  # every written-back block is private
             entry.resume = None
+            self._ev("resume", rid=r.rid, lane=lane, mode="swap")
             return True, DecodeState(tokens, pos, cache)
         if isinstance(res, _Dropped):
             prompt = np.concatenate([np.asarray(r.prompt, np.int32),
@@ -1001,6 +1110,11 @@ class Scheduler:
         if isinstance(res, _Dropped):
             book.stats.recomputed_tokens += max(res.written - off, 0)
             entry.resume = None
+            self._ev("resume", rid=r.rid, lane=lane, mode="drop")
+        else:
+            self._ev("admit", rid=r.rid, lane=lane)
+        if off:
+            self._ev("prefix_hit", rid=r.rid, lane=lane, tokens=off)
         self._pref[lane] = off
         self._register_lane(lane, entry, prompt, book)
         book.prompt_tokens += len(prompt)
@@ -1078,7 +1192,9 @@ class Scheduler:
             reset[i] = off == 0
             ends[i] = off + c
         self._sync_table(cache)
-        last, cache = self.engine.chunk(toks, posm, reset, cache)
+        last, cache = self._step_call(
+            "chunk", self.engine.chunk, (toks, posm, reset, cache),
+            n_lanes=len(prefilling))
         book.stats.prefill_calls += 1
         book.stats.chunk_steps += 1
         book.step += 1
@@ -1117,8 +1233,10 @@ class Scheduler:
                   if r is not None and self._pref[i] is None]
         if not active:                  # every decodable lane was preempted
             return DecodeState(state.tokens, state.pos, cache)
-        nxt, cache = self.engine.generate(
-            DecodeState(state.tokens, state.pos, cache))
+        nxt, cache = self._step_call(
+            "decode_batch", self.engine.generate,
+            (DecodeState(state.tokens, state.pos, cache),),
+            n_lanes=len(active))
         book.count_decode(len(active))
         book.step += 1
         tokens, pos = state.tokens.copy(), state.pos.copy()
@@ -1154,7 +1272,9 @@ def serve(prefill_step: Callable, decode_step: Callable, init_cache_fn,
           over_commit: bool = False,
           swap_out_fn: Optional[Callable] = None,
           swap_in_fn: Optional[Callable] = None,
-          decode_ratio: int = 1, device=None) -> ServeStats:
+          decode_ratio: int = 1,
+          telemetry: Optional[ServeTelemetry] = None,
+          device=None) -> ServeStats:
     """Bind ``params`` into the step functions (``runtime.steps``
     signatures, params first) and serve with the chosen scheduler:
 
@@ -1168,10 +1288,10 @@ def serve(prefill_step: Callable, decode_step: Callable, init_cache_fn,
     with ``write_caps`` and ``copy_block_fn(cache, src, dst)``, no params),
     over-commit (``over_commit`` with ``swap_out_fn(cache, ids)`` /
     ``swap_in_fn(cache, ids, payload)`` from
-    ``runtime.steps.make_swap_steps``, no params) and ``decode_ratio`` are
-    continuous only; the static scheduler serves paged caches through a
-    fully mapped identity table. ``device``: where host inputs go (None:
-    the GPU)."""
+    ``runtime.steps.make_swap_steps``, no params), ``decode_ratio`` and
+    ``telemetry`` are continuous only; the static scheduler serves paged
+    caches through a fully mapped identity table. ``device``: where host
+    inputs go (None: the GPU)."""
     if scheduler == "continuous":
         return serve_continuous(
             lambda t, pm, m, c: admit_step(params, t, pm, m, c),
@@ -1184,9 +1304,12 @@ def serve(prefill_step: Callable, decode_step: Callable, init_cache_fn,
             radix_cache=radix_cache, write_caps=write_caps,
             copy_block_fn=copy_block_fn, over_commit=over_commit,
             swap_out_fn=swap_out_fn, swap_in_fn=swap_in_fn,
-            decode_ratio=decode_ratio, device=device)
+            decode_ratio=decode_ratio, telemetry=telemetry, device=device)
     if scheduler != "static":
         raise ValueError(f"unknown scheduler {scheduler!r}")
+    if telemetry is not None:
+        raise ValueError("telemetry is a continuous-scheduler feature; "
+                         "the static scheduler has no request lifecycle")
     if radix_cache is not None:
         raise ValueError("radix_cache is a continuous-scheduler feature; "
                          "prefix sharing needs the paged block pool")

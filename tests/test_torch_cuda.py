@@ -1210,3 +1210,219 @@ def test_block_swap_on_cuda_restores_the_arenas(gen, stacked, kv_bits):
         assert torch.equal(t.index_select(axis, keep),
                            t0.index_select(axis, keep))
         assert torch.equal(u, t)
+
+
+# ---------------------------------------------------------------------------
+# Serving telemetry on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def reduced_deploy():
+    """The reduced gemma2-2b on the card, calibrated and packed by the
+    launcher's own ``_quantize`` (kv8): (cfg, params, ctx_factory)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    cfg = get_config("gemma2-2b").reduced()
+    ap = serve.build_parser()
+    args = ap.parse_args(["--arch", "gemma2-2b", "--reduced", "--quantize",
+                          "--deploy-int8", "--kv-bits", "8",
+                          "--prompt-len", "12"])
+    params = tfm.init_params(cfg, 0, dtype=torch.float32, device="cuda")
+    params, ctx = serve._quantize(cfg, args, params, torch.float32, "cuda")
+    return cfg, params, ctx
+
+
+def _decode_engine(reduced_deploy, armed, sink):
+    """An engine over the reduced deploy steps (armed or plain) and a
+    mapped paged kv8 cache of 2 lanes, with both lanes admitted."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.engine import DecodeState, Engine
+    from repro_torch.runtime.steps import make_admit_step, make_decode_step
+    cfg, params, ctx = reduced_deploy
+    eng = Engine(
+        lambda t, p, m, c: make_admit_step(cfg, ctx_factory=ctx)(
+            params, t, p, m, c),
+        lambda t, p, c: make_decode_step(
+            cfg, ctx_factory=ctx, quant_telemetry=armed)(params, t, p, c),
+        lambda b: tfm.init_cache(cfg, b, 32, dtype=torch.float32,
+                                 kv_bits=8, paged=True, block_size=8,
+                                 device="cuda"),
+        batch_slots=2, telemetry_sink=sink, device="cuda")
+    state = eng.init_state()
+    toks = np.random.RandomState(4).randint(1, cfg.vocab_size, (2, 12))
+    pos = np.tile(np.arange(12, dtype=np.int32), (2, 1))
+    first, cache = eng.admit(toks.astype(np.int32), pos,
+                             np.ones(2, bool), state.cache)
+    return eng, DecodeState(first, np.full((2, 1), 12, np.int32), cache)
+
+
+def _syncs(fn):
+    """(result, the calls that waited for the card while ``fn`` ran)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing" in str(w.message)
+                    for w in caught)
+
+
+def test_armed_decode_step_syncs_once_and_swaps_the_emit_for_k4(
+        reduced_deploy):
+    """One engine decode step on the card, plain and armed, from the same
+    state: the same tokens and cache bytes; as many host syncs (the site
+    vectors ride the tokens' read-back); armed, K4 quantizes wo's input in
+    every layer in place of K6's emit, and the report holds every
+    superblock's wo_in site."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.engine import DecodeState
+    from repro_torch.runtime.telemetry import QuantHealth
+    cfg = reduced_deploy[0]
+    runs = {}
+    for armed in (False, True):
+        health = QuantHealth()
+        eng, state = _decode_engine(reduced_deploy, armed, health.update)
+        eng.generate(DecodeState(state.tokens, state.pos,
+                                 tfm.clone_cache(state.cache)))  # warm-up
+        pq.peg_quantize_cuda.launches = 0
+        pad.paged_int8_attend_decode_cuda.launches_emit = 0
+        (toks, cache), syncs = _syncs(lambda: eng.generate(state))
+        torch.cuda.synchronize()
+        runs[armed] = (toks, cache, syncs, pq.peg_quantize_cuda.launches,
+                       pad.paged_int8_attend_decode_cuda.launches_emit,
+                       health.report())
+    (t0, c0, s0, k4_0, e0, _), (t1, c1, s1, k4_1, e1, rep) = (runs[False],
+                                                             runs[True])
+    assert np.array_equal(t0, t1)
+    for a, b in zip(tfm._cache_nodes(c0), tfm._cache_nodes(c1)):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert s1 == s0 and s0 >= 1, (s0, s1)
+    assert (k4_0, e0) == (0, cfg.num_layers)
+    assert (k4_1, e1) == (cfg.num_layers, 0)
+    assert rep["steps_observed"] == 2          # the warm-up and the step
+    assert all(f"layer{i}/attn/wo_in" in rep["sites"]
+               for i in range(cfg.n_super))
+
+
+def _profiled_ops(step):
+    """Wrap a decode step so that its third call runs under the profiler;
+    the wrapper's ``ops`` list gets that call's device operations."""
+    from torch.profiler import ProfilerActivity, profile
+    calls, ops = [0], []
+
+    def decode(*args):
+        calls[0] += 1
+        if calls[0] != 3:
+            return step(*args)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = step(*args)
+            torch.cuda.synchronize()
+        ops.extend(e.name for e in prof.events()
+                   if e.device_type.name == "CUDA")
+        return out
+    decode.ops = ops
+    return decode
+
+
+def test_tracing_adds_no_device_operations_and_keeps_the_tokens(
+        reduced_deploy):
+    """The reduced deploy model served on the card with over-commit (swap)
+    on a 4-block pool: untraced, traced and metered with the plain steps
+    (disarmed), and with every collector on and the armed steps. All three
+    emit the same greedy tokens; the disarmed run's profiled decode step
+    runs exactly the untraced one's device operations; the armed one runs
+    more (the site reductions), with its quant-health report filled."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import (BlockPool, Request, ServeTelemetry,
+                                     make_admit_step,
+                                     make_chunk_prefill_step,
+                                     make_decode_step, make_swap_steps,
+                                     serve)
+    cfg, params, ctx = reduced_deploy
+    so, si = make_swap_steps()
+
+    def run(tel, armed):
+        rng = np.random.RandomState(3)
+        reqs = [Request(rid=i, prompt=rng.randint(1, cfg.vocab_size,
+                                                  size=n),
+                        max_new_tokens=q, priority=i % 2)
+                for i, (n, q) in enumerate([(10, 12), (9, 12), (11, 10),
+                                            (10, 11)])]
+        decode = _profiled_ops(make_decode_step(
+            cfg, ctx_factory=ctx, quant_telemetry=armed))
+        stats = serve(None, decode,
+                      lambda b: tfm.init_cache(
+                          cfg, b, 32, dtype=torch.float32, kv_bits=8,
+                          paged=True, block_size=8, num_blocks=4,
+                          mapped=False, device="cuda"),
+                      params, reqs, scheduler="continuous", batch_slots=2,
+                      max_len=32,
+                      admit_step=make_admit_step(cfg, ctx_factory=ctx,
+                                                 quant_telemetry=armed),
+                      chunk_step=make_chunk_prefill_step(
+                          cfg, ctx_factory=ctx, quant_telemetry=armed),
+                      block_pool=BlockPool(4, 8, 2, 4), prefill_chunk=8,
+                      over_commit=True, swap_out_fn=so, swap_in_fn=si,
+                      write_caps=tfm.attn_write_caps(cfg, 32, 8),
+                      telemetry=tel, device="cuda")
+        return [r.tokens_out for r in reqs], stats, decode.ops
+
+    plain, pstats, plain_ops = run(None, False)
+    tel = ServeTelemetry.create(trace=True, metrics_every=2)
+    traced, _, traced_ops = run(tel, False)
+    full = ServeTelemetry.create(trace=True, metrics_every=2, quant=True)
+    armed, astats, armed_ops = run(full, True)
+    assert pstats.preemptions > 0 and pstats.swapped_blocks > 0
+    assert plain == traced == armed
+    assert astats.decode_steps == pstats.decode_steps
+    assert len(traced_ops) == len(plain_ops) > 0
+    assert len(armed_ops) > len(plain_ops)
+    names = [e.name for e in tel.tracer.events]
+    assert names.count("decode_batch") == pstats.decode_steps
+    assert {"swap_out", "swap_in", "preempt", "resume"} <= set(names)
+    rep = full.quant.report()
+    assert rep["steps_observed"] == astats.decode_steps + \
+        astats.chunk_steps
+    assert set(rep["kv_scales"]) == {"kv/k_s", "kv/v_s"}
+
+
+@pytest.mark.parametrize("case", ["telemetry_stats", "per-tensor", "peg",
+                                  "qtensor"])
+def test_site_vectors_on_cuda_match_the_cpu(gen, case):
+    """The quant-health reductions on card tensors give the CPU's vectors:
+    exact counts, amax and range within rel 1e-6."""
+    from repro_torch.core import deploy
+    from repro_torch.core.quant_config import QuantizerConfig
+    from repro_torch.core.quantizer import QuantParams, telemetry_stats
+    x = torch.randn(4, 16, 256, generator=gen, device="cuda") * 3
+    s, z = _grid(gen, 4)
+    perm = torch.randperm(256, generator=gen, device="cuda")
+
+    def vec(dev):
+        if case == "telemetry_stats":
+            gi = torch.arange(256, device="cuda") % 4
+            qp = QuantParams(s.to(dev), z.to(dev), gi.to(dev))
+            return telemetry_stats(x.to(dev), qp, QuantizerConfig(
+                bits=8, symmetric=False, channel_axis=-1))
+        if case == "qtensor":
+            aq = deploy.ActQuant(s[:1].to(dev), z[:1].to(dev), -128, 127,
+                                 None)
+            q = torch.clamp(torch.round(x / s[0]) + z[0], -128, 127)
+            return deploy.qtensor_stats(deploy.QTensor(
+                q.to(torch.int8).to(dev), aq.scales, aq.zps), aq)
+        g = 1 if case == "per-tensor" else 4
+        aq = deploy.ActQuant(s[:g].to(dev), z[:g].to(dev), -128, 127,
+                             None if g == 1 else perm.to(dev))
+        return deploy.site_stats(x.to(dev), aq)
+    got, want = vec("cuda").cpu(), vec("cpu")
+    assert got.device.type == "cpu" and got[0] > 0
+    assert got[0] == want[0] and got[1] == want[1]
+    torch.testing.assert_close(got[2:], want[2:], rtol=1e-6, atol=0)

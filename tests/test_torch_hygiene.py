@@ -79,15 +79,25 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
         calls[entry]()
 
 
-def test_launcher_rejects_unported_flags():
+def test_launcher_rejects_unported_flags(capsys):
     """Flags outside the ported slice stop the launcher before it builds a
-    model; the 4-bit flags are ported and parse."""
+    model (``--tp``, ``--async``), as does a misused flag
+    (``--prefix-cache`` and ``--over-commit`` without ``--paged-kv``,
+    ``--quant-telemetry`` without ``--quantize``, with the reference's
+    message); the 4-bit flags are ported and parse."""
     from repro_torch.launch.serve import _check_args, build_parser, main
-    for extra in (["--trace", "t.json", "--scheduler", "continuous"],
-                  ["--prefix-cache"], ["--over-commit"], ["--async"]):
+    for extra in (["--tp", "2"], ["--prefix-cache"], ["--over-commit"],
+                  ["--async"]):
         with pytest.raises(SystemExit):
             main(["--arch", "gemma2-2b", "--reduced", "--quantize",
                   "--deploy-int8"] + extra, device="cpu")
+    capsys.readouterr()
+    with pytest.raises(SystemExit):
+        main(["--arch", "gemma2-2b", "--reduced", "--scheduler",
+              "continuous", "--quant-telemetry"], device="cpu")
+    assert ("--quant-telemetry requires --quantize (clip fractions are "
+            "measured against the calibrated quantization grids)"
+            in capsys.readouterr().err)
     ap = build_parser()
     args = ap.parse_args(["--arch", "gemma2-2b", "--reduced", "--quantize",
                           "--deploy-int8", "--weight-bits", "4",
