@@ -109,7 +109,35 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              counts, over-commit note and ``[tier N]`` lines exactly, and
              four ``[parity] OK`` lines, the last "preempted (over-commit,
              N preemptions) and unpreempted serving".
-15. entry points — K8-K10, which no ported model reaches, through
+15. full telemetry — the full over-commit swap workload with ``--trace
+             --metrics-every 4 --quant-telemetry --stats-json``, then the
+             same requests untraced (twice) and traced with the plain
+             steps: 256/256 greedy tokens against both, a valid Chrome
+             trace whose spans conserve against ServeStats, the disarmed
+             profiled decode step dispatching the untraced one's operators
+             in the same order, and the armed step's added device
+             operations, K4 launches (26, no emit) and host syncs printed.
+16. reduced telemetry — run B of phase 14 with the telemetry flags: the
+             reference launcher's trace, phase, metrics, gauge and
+             quant-health lines.
+17. full async — full width, ``--kv-bits 8 --async``, 8 requests x 16
+             tokens x 16 new tokens on 4 lanes (the second wave's inserts
+             land in reused slots): every stream gets its quota, K1, K3, K5
+             and K5's emit move, the profiled decode step launches K5 26
+             times, all emitting, and no K4, and every engine step sees one
+             shape signature; then on the same engine the per-call
+             prefill / insert / generate medians
+             (``scripts/engine_bench_torch.py``), a stream cancelled
+             mid-generation and a server closed with ``drain=False`` (the
+             streams close cancelled with the tokens so far), peak device
+             memory with the scratch cache, and the greedy match rate
+             against the continuous scheduler on the same model (printed).
+18. reduced async — the README-sized run with ``--async --parity`` at
+             kv8 (the reference's 36 tokens and two ``[parity] OK`` lines)
+             and at ``--weight-bits 4 --kv-bits 4`` (the parity lines as
+             match rates). A failure in the async server's scheduler thread
+             is raised from its streams, so it fails the phase.
+19. entry points — K8-K10, which no ported model reaches, through
              ``ops`` as the reference's kernel bench calls them and (K8)
              through ``deploy.norm_quantize("layernorm", ...)``: each must
              move.
@@ -137,6 +165,7 @@ port's sources are not next to this script.
 """
 from __future__ import annotations
 
+import ast
 import collections
 import contextlib
 import io
@@ -1386,27 +1415,33 @@ def serve_phase(tag, argv, must_launch, step_emits=None, per_call=None,
     profiled step per call of that counter's wrapper; every name in
     ``step_must`` must launch in the profiled decode step. ``report``, a
     dict, receives the decode steps' walls and the profiled step with the
-    operators it dispatched (see _timed_decode_steps)."""
+    operators it dispatched (see _timed_decode_steps). With ``--async``
+    the launcher returns its requests, which take the stats' place in the
+    returned tuple; its engine's decode steps (``runtime.engine``'s
+    ``make_engine``) are timed and profiled alike."""
     import torch
     from repro_torch.launch import serve
+    from repro_torch.runtime import engine as engine_mod
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]):   # pay CUPTI set-up
         (torch.ones(1, device="cuda") + 1).cpu()        # outside the run
     record_ops = report is not None
     report = {} if report is None else report
     orig_make = serve.make_decode_step
-    serve.make_decode_step = _timed_decode_steps(orig_make, report,
-                                                 record_ops=record_ops)
+    timed = _timed_decode_steps(orig_make, report, record_ops=record_ops)
+    serve.make_decode_step = engine_mod.make_decode_step = timed
     counters = _counters()
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     out = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out):
             stats = serve.main(argv)
     finally:
-        serve.make_decode_step = orig_make
+        serve.make_decode_step = engine_mod.make_decode_step = orig_make
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = {name: getattr(fn, attr)
@@ -1414,9 +1449,11 @@ def serve_phase(tag, argv, must_launch, step_emits=None, per_call=None,
     for line in out.getvalue().splitlines():
         print(f"[{tag}] {line}")
     launched = {name: n for name, n in counts.items() if n}
+    peak = torch.cuda.max_memory_allocated()
+    report["peak_bytes"] = peak - held
     print(f"[{tag}] kernel launches {launched}; phase {secs:.1f} s, peak "
-          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
-          f"GiB")
+          f"device memory {peak / 2**30:.1f} GiB ({(peak - held) / 2**30:.2f} "
+          f"GiB above what was held when the phase began)")
     _print_profile(tag, report)
     step = {name: n for name, n in report.get("step_launches", {}).items()
             if n}
@@ -1448,14 +1485,15 @@ def serve_phase(tag, argv, must_launch, step_emits=None, per_call=None,
     skew = int(argv[argv.index("--skew") + 1]) if "--skew" in argv else 0
     want = sum(skew if skew and i % 2 else new_tokens
                for i in range(requests))
-    require(stats.tokens_generated == want,
-            f"{tag}: {stats.tokens_generated} tokens generated, expected "
-            f"{want}")
+    generated = (sum(len(r.tokens_out) for r in stats)
+                 if isinstance(stats, list) else stats.tokens_generated)
+    require(generated == want,
+            f"{tag}: {generated} tokens generated, expected {want}")
     return counts, rel, stats, out.getvalue()
 
 
 def entry_point_phase():
-    """Phase 13. K8-K10 serve no model here (no LayerNorm config is ported,
+    """Phase 19. K8-K10 serve no model here (no LayerNorm config is ported,
     and the reference calls its fake-quant kernels only from its tests and
     its kernel bench), so their path is their public entry points: driven
     as the reference's bench drives them (``benchmarks/kernel_bench.py``:
@@ -2458,6 +2496,182 @@ def telemetry_phase(add):
     return rel
 
 
+# the --async workload at full width: 8 requests on 4 lanes, so the second
+# wave's inserts land in reused slots; the dense kv8 cache decodes through
+# K5 with its emit in every layer
+FULL_ASYNC = ["--arch", "gemma2-2b", "--quantize", "--deploy-int8",
+              "--kv-bits", "8", "--async", "--requests", "8",
+              "--prompt-len", "16", "--new-tokens", "16", "--batch-slots", "4",
+              "--max-len", "128"]
+# the README-sized run with --async --parity (the reference launcher
+# prints 36 tokens from 6 streamed requests and two [parity] lines)
+REDUCED_ASYNC = ["--arch", "gemma2-2b", "--reduced", "--requests", "6",
+                 "--prompt-len", "24", "--new-tokens", "6", "--max-len", "64",
+                 "--quantize", "--deploy-int8", "--kv-bits", "8", "--async",
+                 "--parity"]
+
+
+@contextlib.contextmanager
+def _made_engines():
+    """Collect every engine ``runtime.make_engine`` builds (the launcher
+    looks it up at call time), with its keyword arguments."""
+    import repro_torch.runtime as runtime
+    orig, made = runtime.make_engine, []
+
+    def make_engine(cfg, params, **kw):
+        eng = orig(cfg, params, **kw)
+        made.append((eng, cfg, params, kw))
+        return eng
+    runtime.make_engine = make_engine
+    try:
+        yield made
+    finally:
+        runtime.make_engine = orig
+
+
+def async_signatures(tag, out, n_requests, n_tokens):
+    """The [serve:async] line: the token count, and one shape signature for
+    every engine step; returns its tok/s."""
+    m = re.search(r"^\[serve:async\] (\d+) tokens from (\d+) streamed "
+                  r"requests, \S+s \((\S+) tok/s\), engine step signatures "
+                  r"(\{.*\}) \(cuda\)$", out, re.M)
+    require(m is not None, f"{tag}: no [serve:async] line on the card")
+    sigs = ast.literal_eval(m.group(4))
+    require((int(m.group(1)), int(m.group(2))) == (n_tokens, n_requests),
+            f"{tag}: {m.group(0)}")
+    require(set(sigs) == {"prefill", "extract", "insert", "generate"}
+            and set(sigs.values()) == {1},
+            f"{tag}: engine step signatures {sigs}, not one each")
+    return float(m.group(3))
+
+
+def _cancel_runs(tag, eng, prompt, served):
+    """On the served engine: cancel a stream mid-generation, then close a
+    second server with drain=False while one stream is resident and one
+    queued. The streams close cancelled with the tokens emitted so far."""
+    from repro_torch.runtime import AsyncServer
+    with AsyncServer(eng) as srv:
+        s = srv.submit(prompt, 64, rid="cancelled")
+        it = iter(s)
+        first = [next(it) for _ in range(3)]
+        srv.cancel(s)
+        got = s.result(timeout=600)
+        after = srv.submit(prompt, 4, rid="after").result(timeout=600)
+    require(s.cancelled and 3 <= len(got) < 64 and got[:3] == first
+            and got == s.tokens_so_far(),
+            f"{tag}: cancelled stream {s.cancelled}, {len(got)} tokens")
+    srv = AsyncServer(eng)
+    a = srv.submit(prompt, 64, rid="resident")
+    b = srv.submit(prompt, 64, rid="queued")
+    next(iter(a))
+    srv.close(drain=False)
+    require(a.done and a.cancelled and b.done and b.cancelled
+            and 1 <= len(a.tokens_so_far()) < 64,
+            f"{tag}: close(drain=False) left done/cancelled "
+            f"{(a.done, a.cancelled, b.done, b.cancelled)}")
+    print(f"[{tag}] cancelled mid-generation after {len(got)} of 64 tokens "
+          f"(the same prompt's served tokens agree on "
+          f"{sum(x == y for x, y in zip(got, served))}/{len(got)}); the "
+          f"freed lane then served {len(after)}/4; close(drain=False) "
+          f"closed a resident stream after {len(a.tokens_so_far())} tokens "
+          f"and a queued one after {len(b.tokens_so_far())}, both cancelled")
+
+
+def async_phase(add):
+    """Phases 17-18: the async front-end (``--async``, dense cache).
+    ``[full-async]`` serves FULL_ASYNC: every stream gets its quota, K1, K3,
+    K5 and K5's emit launch, the profiled decode step launches K5 with its
+    emit in every layer and no K4, every engine step sees one shape
+    signature; then on the same engine the per-call prefill / insert /
+    generate times (``scripts/engine_bench_torch.py``'s ``triad_times``),
+    the cancel and ``close(drain=False)`` runs, and the greedy match rate
+    against the same requests served by the continuous scheduler (printed,
+    not bounded: see the quickstart's note in main). ``[reduced-async]``
+    is REDUCED_ASYNC at kv8 (the reference's count and two ``[parity] OK``
+    lines) and at W4/kv4 (its parity lines as match rates). Returns the
+    reduced runs' [deploy-int8] gaps."""
+    import torch
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import engine_bench_torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import Request, serve
+    from repro_torch.runtime.serve_loop import _tree_bytes
+    from repro_torch.runtime.steps import make_admit_step, make_decode_step
+    tag = "full-async"
+    report = {}
+    with _made_engines() as made:
+        counts, _, reqs, out = serve_phase(
+            tag, FULL_ASYNC,
+            ("rms_quantize", "int8_matmul", "int8_attend_decode",
+             "int8_attend_decode_emit"), "int8_attend_decode_emit",
+            ("int8_attend_decode", r"split_attend_kernel<signed char, false"),
+            step_must=("rms_quantize", "int8_matmul"), report=report)
+    add(counts)
+    (eng, cfg, params, kw), = made
+    require(all(len(r.tokens_out) == 16 for r in reqs),
+            f"{tag}: streams returned {[len(r.tokens_out) for r in reqs]}")
+    step = report["step_launches"]
+    require(step["int8_attend_decode"] == step["int8_attend_decode_emit"]
+            == cfg.num_layers and step["peg_quantize"] == 0,
+            f"{tag}: the profiled decode step launched K5 "
+            f"{step['int8_attend_decode']} times, "
+            f"{step['int8_attend_decode_emit']} emitting, and K4 "
+            f"{step['peg_quantize']} times, not {cfg.num_layers}, "
+            f"{cfg.num_layers} and 0")
+    tok_s = async_signatures(tag, out, 8, 128)
+    print(f"[{tag}] the run's peak device memory {report['peak_bytes']} "
+          f"bytes ({report['peak_bytes'] / 2**30:.2f} GiB), with the scratch "
+          f"cache ({_tree_bytes(eng._scratch)} bytes, 4 lanes) beside the "
+          f"decode cache of the same shape")
+    times = engine_bench_torch.triad_times(eng, cfg.vocab_size, 16)
+    med = {op: statistics.median(ms) for op, ms in times.items()}
+    print(f"[{tag}] per call (host clock, synchronized, "
+          f"{len(times['generate'])} calls each): prefill "
+          f"{med['prefill']:.2f} ms, insert {med['insert']:.3f} ms, generate "
+          f"{med['generate']:.2f} ms; the launcher's run {tok_s} tok/s")
+    require(eng.signature_counts == {"prefill": 1, "extract": 1,
+                                     "insert": 1, "generate": 1},
+            f"{tag}: step signatures {eng.signature_counts} after timing")
+    _cancel_runs(tag, eng, reqs[0].prompt, reqs[0].tokens_out)
+    ctx = kw["ctx_factory"]
+    cont = [Request(rid=r.rid, prompt=r.prompt, max_new_tokens=16)
+            for r in reqs]
+    serve(None, make_decode_step(cfg, ctx_factory=ctx),
+          lambda b: tfm.init_cache(cfg, b, 128, dtype=kw["dtype"], kv_bits=8,
+                                   device="cuda"),
+          params, cont, scheduler="continuous", batch_slots=4, max_len=128,
+          admit_step=make_admit_step(cfg, ctx_factory=ctx), device="cuda")
+    same = sum(x == y for r, c in zip(reqs, cont)
+               for x, y in zip(r.tokens_out, c.tokens_out))
+    print(f"[{tag}] greedy tokens against the continuous scheduler on the "
+          f"same model: {same}/128 (printed, not bounded)")
+    del eng, made, params, ctx, kw
+    torch.cuda.empty_cache()
+
+    rels = {}
+    for tag, extra, must in (
+            ("reduced-async", (), ("int8_matmul", "int8_matmul_peg",
+                                   "int8_attend_decode")),
+            ("reduced-async-4bit", ("--weight-bits", "4", "--kv-bits", "4"),
+             ("int8_matmul_w4", "int8_matmul_peg_w4",
+              "int8_attend_decode_kv4"))):
+        argv = REDUCED_ASYNC + list(extra)
+        counts, rels[tag], _, out = serve_phase(
+            tag, argv, ("rms_quantize", "peg_quantize",
+                        "int8_attend_decode_emit") + must,
+            "int8_attend_decode_emit")
+        add(counts)
+        async_signatures(tag, out, 6, 36)
+        if not extra:
+            require_parity(tag, out, 2)
+            continue
+        rates = re.findall(r"^\[parity\] async engine vs (\w+) scheduler: "
+                           r"\d+/36 greedy tokens match", out, re.M)
+        require(rates == ["static", "continuous"],
+                f"{tag}: parity lines {rates}")
+    return rels
+
+
 def ptxas_report():
     """``--ptxas``: compile the split and cluster kernels' sources once more
     with ``-Xptxas -v`` (into build/ptxas) and print one line per kernel
@@ -2640,6 +2854,7 @@ def main() -> int:
     fp_rel, fp_kv, rp = prefix_phase(add)
     ro = overcommit_phase(add)
     rt = telemetry_phase(add)
+    ra = async_phase(add)
 
     # The reduced run holds the integer path to the fake-quant path it
     # replaces. At full width the fake-quant path runs in bf16 (bf16 params:
@@ -2664,7 +2879,9 @@ def main() -> int:
                      ("reduced-prefix-B", rp["B"]),
                      ("reduced-overcommit-A", ro["A"]),
                      ("reduced-overcommit-B", ro["B"]),
-                     ("reduced-telemetry-B", rt)):
+                     ("reduced-telemetry-B", rt),
+                     ("reduced-async", ra["reduced-async"]),
+                     ("reduced-async-4bit", ra["reduced-async-4bit"])):
         require(rel <= 1e-4, f"{tag}: integer path differs from "
                 f"fake-quant by {rel:.4%} of max|logits|")
         print(f"[{tag}] integer vs fake-quant logits: rel {rel:.4%} "

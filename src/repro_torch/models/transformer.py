@@ -464,6 +464,55 @@ def cache_scatter_blocks(cache, ids, payload):
     return cache
 
 
+def _dense_nodes(cache, what):
+    """(key, index, cache, batch axis) of every attention cache of a dense
+    whole-model cache: stacked scan leaves carry the batch at position 1,
+    tail and unrolled leaves at 0. Raises on paged caches and on any other
+    cache type with the reference's messages."""
+    if "block_table" in cache:
+        use = ("cache_gather_blocks" if what == "cache_extract_lane"
+               else "cache_scatter_blocks")
+        raise ValueError(f"{what}: paged caches carry no batch axis — use "
+                         f"{use} on the lane's mapped block ids")
+    out = []
+    for key, axis in (("layers", 0), ("scan", 1), ("tail", 0)):
+        for i, c in enumerate(cache.get(key, [])):
+            if not isinstance(c, (KVCache, QuantKVCache)):
+                raise ValueError(f"{what}: dense attention caches only, got "
+                                 f"{type(c).__name__}")
+            out.append((key, i, c, axis))
+    return out
+
+
+def cache_extract_lane(cache, lane: int):
+    """A copy of batch lane ``lane`` of a dense whole-model cache (the
+    device half of the engine's decomposed ``prefill``): the cache's layout
+    and types (an int4 cache stays a ``Quant4KVCache``) with the batch axis
+    cut to 1, every leaf (positions and scales too) a fresh tensor. A copy,
+    not a view: the engine prefills the next request into the same scratch
+    cache in place. Paged caches have no per-lane batch axis: their lane
+    payloads are :func:`cache_gather_blocks` over the lane's block ids."""
+    out = {key: [] for key in ("layers", "scan", "tail") if key in cache}
+    for key, i, c, axis in _dense_nodes(cache, "cache_extract_lane"):
+        out[key].append(type(c)(*(x.narrow(axis, lane, 1).clone()
+                                  for x in c)))
+    return out
+
+
+def cache_insert_lane(cache, lane: int, payload):
+    """Write a :func:`cache_extract_lane` payload into batch lane ``lane``
+    of a dense whole-model cache, in place (the device half of the
+    engine's ``insert``). The payload covers every cell of the lane (the
+    prompt's K/V and the -1 dead cells), so the write overwrites the whole
+    lane: the slot's previous occupant needs no reset, every other lane's
+    bytes stay as they were, and the cache keeps its addresses. Returns
+    ``cache``."""
+    for key, i, c, axis in _dense_nodes(cache, "cache_insert_lane"):
+        for x, v in zip(c, payload[key][i]):
+            x.narrow(axis, lane, 1).copy_(v)
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------

@@ -1,5 +1,10 @@
+from repro_torch.runtime.async_serve import (AsyncServer,  # noqa: F401
+                                             TokenStream)
 from repro_torch.runtime.block_pool import (BlockPool,  # noqa: F401
                                             blocks_for_tokens)
+from repro_torch.runtime.engine import (DecodeState, Engine,  # noqa: F401
+                                        LanePayload, make_engine,
+                                        serve_engine)
 from repro_torch.runtime.radix_cache import RadixCache  # noqa: F401
 from repro_torch.runtime.serve_loop import (Request, Scheduler,  # noqa: F401
                                             ServeStats, serve, serve_batch,

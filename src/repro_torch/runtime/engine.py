@@ -13,18 +13,32 @@ third output; the engine gathers them into one (n, 4) tensor, copies it to
 the host in the same stream as the greedy tokens (one read-back a step,
 however many sites) and folds it into ``telemetry_sink``.
 
-Not yet ported: the decomposed ``prefill`` / ``insert`` API and mesh
-placement.
+The decomposed path runs a request's prefill into a private scratch
+cache and hands its lane over as a payload: ``prefill(request) ->
+(first_token, LanePayload)``, ``insert(payload, slot, state)`` (a whole-lane
+overwrite in place, every other lane's bytes untouched) and
+``release(slot, state)`` (host bookkeeping only). ``serve_engine`` is the
+FIFO loop over them and ``runtime.async_serve.AsyncServer`` the push-style
+front-end. ``make_engine`` builds an engine for a model config. The engine
+records the shapes each step is called with (``step_signatures``): every
+step sees one signature for its life, whatever the prompt lengths and lane
+compositions, which a captured CUDA graph would need.
+
+Not yet ported: mesh placement (``dist``).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tfm
 from repro_torch.models.transformer import _map
+from repro_torch.runtime.steps import (make_admit_step,
+                                       make_chunk_prefill_step,
+                                       make_decode_step)
 
 
 class DecodeState(NamedTuple):
@@ -34,6 +48,53 @@ class DecodeState(NamedTuple):
     tokens: np.ndarray
     pos: np.ndarray
     cache: Any
+
+
+class LanePayload(NamedTuple):
+    """What a decomposed ``prefill`` hands over: one lane's whole KV
+    payload (a dense lane's slices, or the gathered blocks of a paged
+    lane), on the device, and the lane's decode seed. ``insert`` lands
+    ``kv`` in a slot and seeds the lane with (``first_token``,
+    ``next_pos``)."""
+    kv: Any
+    first_token: int            # greedy token of the prefill's last logits
+    next_pos: int               # len(prompt): the first decode position
+
+
+def _lane_rows(prompt: np.ndarray, width: int):
+    """One prompt left-padded into a (width,) pair (tokens, positions):
+    positions 0..len-1 on the prompt, the -1 dead-cell sentinel on pads."""
+    n = len(prompt)
+    if n == 0:
+        raise ValueError("empty prompt (an all-dead lane has no last-token "
+                         "logits to decode from)")
+    if n > width:
+        raise ValueError(f"prompt length {n} exceeds the engine's "
+                         f"prompt_pad_len {width}")
+    toks = np.zeros((width,), np.int32)
+    posm = np.full((width,), -1, np.int32)
+    toks[width - n:] = prompt
+    posm[width - n:] = np.arange(n)
+    return toks, posm
+
+
+def shape_signature(*args) -> tuple:
+    """(shape, dtype) of every tensor or array leaf of ``args`` in order,
+    caches included: two calls with one signature pass tensors of the same
+    shapes and dtypes."""
+    sig = []
+
+    def walk(x):
+        if isinstance(x, (torch.Tensor, np.ndarray)):
+            sig.append((tuple(x.shape), str(x.dtype)))
+        elif isinstance(x, dict):
+            for k in x:
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+    walk(args)
+    return tuple(sig)
 
 
 def greedy(logits) -> np.ndarray:
@@ -60,11 +121,17 @@ class Engine:
 
     ``device``: where host inputs go (None: the GPU). Decoding is greedy.
     ``telemetry_sink``: called with each armed step's {site: host array}
-    dict (``runtime.telemetry.QuantHealth.update``).
+    dict (``runtime.telemetry.QuantHealth.update``). ``prompt_pad_len``:
+    the width a decomposed ``prefill`` pads every prompt to (None: the
+    prompt's own length). ``step_signatures``: {step: set of input shape
+    signatures} of the payload steps (``extract``, ``insert``), and of
+    ``prefill`` / ``generate`` / ``chunk`` on an engine from
+    :func:`make_engine`.
     """
 
     def __init__(self, admit_fn: Callable, decode_fn: Callable,
                  init_cache_fn: Callable, *, batch_slots: int,
+                 prompt_pad_len: Optional[int] = None,
                  chunk_fn: Optional[Callable] = None,
                  copy_block_fn: Optional[Callable] = None,
                  swap_out_fn: Optional[Callable] = None,
@@ -80,8 +147,22 @@ class Engine:
         self.swap_out_fn = swap_out_fn
         self.swap_in_fn = swap_in_fn
         self.batch_slots = batch_slots
+        self.prompt_pad_len = prompt_pad_len
         self.telemetry_sink = telemetry_sink
         self.device = resolve_device(device)
+        self.step_signatures: Dict[str, set] = {}
+        self._scratch = None            # the decomposed prefill's cache
+        self._scratch_ids = None        # paged scratch: lane 0's block ids
+
+    def _record(self, step: str, *args) -> None:
+        self.step_signatures.setdefault(step, set()).add(
+            shape_signature(*args))
+
+    @property
+    def signature_counts(self) -> Dict[str, int]:
+        """{step: number of distinct input shape signatures seen}: 1 for
+        every step means fixed shapes."""
+        return {k: len(v) for k, v in self.step_signatures.items()}
 
     def _put(self, x):
         return torch.as_tensor(x, device=self.device)
@@ -180,3 +261,210 @@ class Engine:
             raise ValueError("engine was built without swap steps")
         dev = _map(lambda x: x.to(self.device, non_blocking=True), payload)
         return self.swap_in_fn(cache, self._put(ids), dev)
+
+    # -- the decomposed path: prefill -> insert -> generate -----------------
+
+    @staticmethod
+    def _is_paged(cache) -> bool:
+        return isinstance(cache, dict) and "block_table" in cache
+
+    def _ensure_scratch(self) -> None:
+        """Build the decomposed prefill's scratch cache once: a private
+        cache of the engine's own shape, so the admit step serves it with
+        the decode cache's shapes. A paged scratch maps lane 0 to blocks
+        0..nb-1, so the payload gather reads one fixed id vector."""
+        if self._scratch is not None:
+            return
+        scratch = self.init_cache_fn(self.batch_slots)
+        if self._is_paged(scratch):
+            table = scratch["block_table"]
+            nb = table.shape[1]
+            num_blocks = self._arena_blocks(scratch)
+            if nb > num_blocks:
+                raise ValueError(
+                    f"decomposed prefill needs {nb} scratch blocks for one "
+                    f"lane but the paged arena holds {num_blocks}")
+            table[0] = torch.arange(nb, dtype=table.dtype,
+                                    device=table.device)
+            self._scratch_ids = torch.arange(nb, dtype=torch.long,
+                                             device=table.device)
+        self._scratch = scratch
+
+    @staticmethod
+    def _arena_blocks(cache) -> int:
+        for node in tfm._cache_nodes(cache):
+            pos = getattr(node, "pos", None)
+            if pos is not None:
+                return pos.shape[-2]
+        raise ValueError("paged cache holds no attention arenas")
+
+    @torch.no_grad()
+    def _extract(self, cache):
+        """Lane 0 of the scratch cache as a payload (a copy: the next
+        prefill writes the scratch in place)."""
+        self._record("extract", cache)
+        if self._is_paged(cache):
+            return tfm.cache_gather_blocks(cache, self._scratch_ids)
+        return tfm.cache_extract_lane(cache, 0)
+
+    @torch.no_grad()
+    def _insert(self, cache, slot: int, row, payload):
+        """Write a payload into lane ``slot`` (dense) or into the blocks of
+        its block-table ``row`` (paged), in place."""
+        self._record("insert", cache, payload)
+        if row is not None:
+            return tfm.cache_scatter_blocks(cache, row, payload)
+        return tfm.cache_insert_lane(cache, slot, payload)
+
+    def prefill(self, request):
+        """Prefill ONE request into the engine's scratch cache and return
+        (first_token, :class:`LanePayload`). ``request`` is a
+        ``serve_loop.Request`` or a (T,) prompt. The first token is read
+        back from the prefill's last logits (one wait for the device), so a
+        quota-1 request needs no decode step. The admit step runs at the
+        decode cache's shapes (prompts pad to ``prompt_pad_len``)."""
+        prompt = np.asarray(getattr(request, "prompt", request), np.int32)
+        width = self.prompt_pad_len or len(prompt)
+        row_t, row_p = _lane_rows(prompt, width)
+        B = self.batch_slots
+        toks = np.zeros((B, width), np.int32)
+        posm = np.full((B, width), -1, np.int32)
+        toks[0], posm[0] = row_t, row_p
+        mask = np.zeros((B,), bool)
+        mask[0] = True
+        self._ensure_scratch()
+        first, self._scratch = self.admit(toks, posm, mask, self._scratch)
+        tok = int(first[0, 0])
+        return tok, LanePayload(kv=self._extract(self._scratch),
+                                first_token=tok, next_pos=len(prompt))
+
+    def insert(self, payload: LanePayload, slot: int,
+               state: DecodeState) -> DecodeState:
+        """Land a prefilled payload in decode slot ``slot``: the whole lane
+        is overwritten in place (prompt K/V and dead cells), so the slot's
+        previous occupant needs no reset and every other lane's bytes stay
+        as they were; the lane's host row is seeded with (first_token,
+        next_pos). A paged decode cache takes the write through the slot's
+        block-table row, which must be fully mapped (the identity layout of
+        ``init_cache(paged=True)``; pool-managed admission uses the fused
+        ``admit``)."""
+        if not 0 <= slot < self.batch_slots:
+            raise ValueError(f"slot {slot} outside 0..{self.batch_slots - 1}")
+        cache = state.cache
+        row = None
+        if self._is_paged(cache):
+            row = cache["block_table"][slot].long()
+            if bool((row < 0).any()):
+                raise ValueError(
+                    f"slot {slot}'s block-table row is not fully mapped — "
+                    "decomposed insert needs the identity-mapped paged "
+                    "layout (init_cache(paged=True) default)")
+        cache = self._insert(cache, slot, row, payload.kv)
+        tokens, pos = state.tokens.copy(), state.pos.copy()
+        tokens[slot, 0] = payload.first_token
+        pos[slot, 0] = payload.next_pos
+        return DecodeState(tokens, pos, cache)
+
+    def release(self, slot: int, state: DecodeState) -> DecodeState:
+        """Retire lane ``slot`` on the host: its position becomes -1. The
+        lane's stale bytes are unreadable behind the dead-cell sentinel and
+        the next ``insert`` overwrites them, so no device call is made and
+        a cancellation mid-generation costs nothing."""
+        tokens, pos = state.tokens.copy(), state.pos.copy()
+        pos[slot, 0] = -1
+        return DecodeState(tokens, pos, state.cache)
+
+
+def make_engine(cfg, params, *, batch_slots: int, prompt_pad_len: int,
+                max_len: int, dtype=torch.float32, kv_bits: int = 16,
+                paged: bool = False, block_size: int = 16,
+                ctx_factory: Optional[Callable] = None, chunked=None,
+                dist=None, quant_telemetry: bool = False,
+                telemetry_sink: Optional[Callable] = None,
+                with_chunk_fn: bool = False, device=None) -> Engine:
+    """A ready-to-serve :class:`Engine` for a model config: the admit,
+    decode (and with ``with_chunk_fn`` the chunk) steps of
+    ``runtime.steps`` with ``params`` bound, and caches from
+    ``models.transformer.init_cache`` on ``device`` (None: the GPU). Paged
+    engines use the identity-mapped layout (the decomposed insert's
+    contract). Each step records the shapes it is called with in
+    ``engine.step_signatures`` under the reference's names ("prefill" for
+    the admit step, "generate", "chunk"). Mesh placement (``dist``) is not
+    yet ported."""
+    if dist is not None:
+        raise ValueError("make_engine: mesh placement (dist) is not yet "
+                         "ported")
+    device = resolve_device(device)
+    signatures: Dict[str, set] = {}
+
+    def recorded(name, fn):
+        def step(*args):
+            signatures.setdefault(name, set()).add(shape_signature(*args))
+            return fn(params, *args)
+        return step
+
+    kw = dict(ctx_factory=ctx_factory, quant_telemetry=quant_telemetry)
+    admit = recorded("prefill", make_admit_step(cfg, chunked=chunked, **kw))
+    decode = recorded("generate", make_decode_step(cfg, **kw))
+    chunk = None
+    if with_chunk_fn:
+        chunk = recorded("chunk", make_chunk_prefill_step(
+            cfg, chunked=chunked, **kw))
+
+    def init_cache_fn(batch):
+        return tfm.init_cache(cfg, batch, max_len, dtype=dtype,
+                              kv_bits=kv_bits, paged=paged,
+                              block_size=block_size, device=device)
+
+    engine = Engine(admit, decode, init_cache_fn, batch_slots=batch_slots,
+                    prompt_pad_len=prompt_pad_len, chunk_fn=chunk, telemetry_sink=telemetry_sink,
+                    device=device)
+    engine.step_signatures = signatures
+    return engine
+
+
+def serve_engine(engine: Engine, requests: List[Any],
+                 state: Optional[DecodeState] = None) -> DecodeState:
+    """The FIFO loop over the decomposed triad: fill free slots with
+    prefill + insert, run generate until every request has its quota.
+    Appends each request's greedy tokens to its ``tokens_out`` (the
+    continuous Scheduler's tokens for the same requests); requests with
+    ``max_new_tokens <= 0`` retire untouched. Returns the decode state."""
+    B = engine.batch_slots
+    if state is None:
+        state = engine.init_state()
+    queue = [r for r in requests if r.max_new_tokens > 0]
+    for r in requests:
+        if r.max_new_tokens <= 0:
+            r.done = True
+    lanes: List[Optional[Any]] = [None] * B
+    while queue or any(r is not None for r in lanes):
+        for slot in range(B):
+            if lanes[slot] is not None or not queue:
+                continue
+            r = queue.pop(0)
+            first, payload = engine.prefill(r)
+            state = engine.insert(payload, slot, state)
+            r.tokens_out.append(first)
+            if len(r.tokens_out) >= r.max_new_tokens:
+                r.done = True
+                state = engine.release(slot, state)
+            else:
+                lanes[slot] = r
+        if not any(r is not None for r in lanes):
+            continue
+        toks, cache = engine.generate(state)
+        tokens, pos = state.tokens.copy(), state.pos.copy()
+        for slot in range(B):
+            r = lanes[slot]
+            if r is None:
+                continue
+            tokens[slot, 0] = toks[slot, 0]
+            pos[slot, 0] += 1
+            r.tokens_out.append(int(toks[slot, 0]))
+            if len(r.tokens_out) >= r.max_new_tokens:
+                r.done = True
+                lanes[slot] = None
+                pos[slot, 0] = -1
+        state = DecodeState(tokens, pos, cache)
+    return state

@@ -1426,3 +1426,114 @@ def test_site_vectors_on_cuda_match_the_cpu(gen, case):
     assert got.device.type == "cpu" and got[0] > 0
     assert got[0] == want[0] and got[1] == want[1]
     torch.testing.assert_close(got[2:], want[2:], rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The engine's decomposed API and the async front-end on the card
+# ---------------------------------------------------------------------------
+
+def _card_engine(reduced_deploy, batch_slots, **kw):
+    """The reduced deploy model behind ``make_engine`` with a dense kv8
+    cache on the card (decode through K5 with its emit)."""
+    from repro_torch.runtime import make_engine
+    cfg, params, ctx = reduced_deploy
+    return make_engine(cfg, params, batch_slots=batch_slots,
+                       prompt_pad_len=12, max_len=32, dtype=torch.float32,
+                       kv_bits=8, ctx_factory=ctx, device="cuda", **kw)
+
+
+def test_insert_on_cuda_touches_only_its_lane(reduced_deploy):
+    """``insert`` into lane 1 on the card leaves lanes 0 and 2 bit for bit
+    as they were, writes in place and replaces lane 1; the payload equals
+    the scratch lane it was taken from."""
+    from repro_torch.models import transformer as tfm
+    cfg = reduced_deploy[0]
+    eng = _card_engine(reduced_deploy, 3)
+    rng = np.random.RandomState(13)
+    state = eng.init_state()
+    nodes = tfm._cache_nodes(state.cache)
+    ptrs = [x.data_ptr() for n in nodes for x in n]
+
+    def lane(i):
+        return [x[:, i].clone() for n in state.cache["scan"] for x in n]
+    for slot, n in ((0, 5), (2, 7)):
+        _, payload = eng.prefill(rng.randint(1, cfg.vocab_size, size=n))
+        state = eng.insert(payload, slot, state)
+    before = {i: lane(i) for i in (0, 2)}
+    _, payload = eng.prefill(rng.randint(1, cfg.vocab_size, size=6))
+    scratch = [x[:, 0:1] for n in eng._scratch["scan"] for x in n]
+    for p, x in zip((x for n in payload.kv["scan"] for x in n), scratch):
+        assert torch.equal(p, x)
+    mid = lane(1)
+    state = eng.insert(payload, 1, state)
+    for i in (0, 2):
+        assert all(torch.equal(a, b) for a, b in zip(lane(i), before[i]))
+    assert not all(torch.equal(a, b) for a, b in zip(lane(1), mid))
+    assert ptrs == [x.data_ptr() for n in tfm._cache_nodes(state.cache)
+                    for x in n]
+
+
+def test_async_server_on_cuda_matches_the_continuous_scheduler(
+        reduced_deploy):
+    """Eight 12-token requests streamed through the AsyncServer on 2 lanes
+    (inserts into reused slots) give the continuous scheduler's greedy
+    tokens on the same model; K5 and its emit serve every decode step and
+    each engine step sees one shape signature."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import (AsyncServer, Request, make_admit_step,
+                                     make_decode_step, serve)
+    cfg, params, ctx = reduced_deploy
+    rng = np.random.RandomState(21)
+    prompts = [rng.randint(1, cfg.vocab_size, size=12) for _ in range(8)]
+    quotas = [3 + i % 4 for i in range(8)]
+    eng = _card_engine(reduced_deploy, 2)
+    iad.int8_attend_decode_cuda.launches_emit = 0
+    with AsyncServer(eng) as srv:
+        streams = [srv.submit(p, q, rid=i)
+                   for i, (p, q) in enumerate(zip(prompts, quotas))]
+        got = [s.result(timeout=120) for s in streams]
+    assert iad.int8_attend_decode_cuda.launches_emit > 0
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=q)
+            for i, (p, q) in enumerate(zip(prompts, quotas))]
+    serve(None, make_decode_step(cfg, ctx_factory=ctx),
+          lambda b: tfm.init_cache(cfg, b, 32, dtype=torch.float32,
+                                   kv_bits=8, device="cuda"),
+          params, reqs, scheduler="continuous", batch_slots=2, max_len=32,
+          admit_step=make_admit_step(cfg, ctx_factory=ctx), device="cuda")
+    assert got == [r.tokens_out for r in reqs]
+    assert [len(t) for t in got] == quotas
+    assert eng.signature_counts == {"prefill": 1, "extract": 1, "insert": 1,
+                                    "generate": 1}
+
+
+def test_async_server_on_cuda_reports_a_failed_launch(reduced_deploy):
+    """A decode step whose kernel wrapper refuses its arguments on the
+    third call (a tensor off the card) fails the scheduler thread: the
+    resident and the queued stream raise that error within seconds, and so
+    does ``close()``; nothing falls back to the plain version."""
+    import time
+    from repro_torch.runtime import AsyncServer
+    from repro_torch.runtime.steps import make_decode_step
+    cfg, params, ctx = reduced_deploy
+    eng = _card_engine(reduced_deploy, 1)
+    decode, calls = make_decode_step(cfg, ctx_factory=ctx), [0]
+
+    def failing(tokens, pos, cache):
+        calls[0] += 1
+        if calls[0] == 3:
+            pq.peg_quantize_cuda(torch.zeros(1, 8), torch.ones(1),
+                                 torch.zeros(1), qmin=-128, qmax=127)
+        return decode(params, tokens, pos, cache)
+    eng.decode_fn = failing
+    rng = np.random.RandomState(22)
+    t0 = time.perf_counter()
+    srv = AsyncServer(eng)
+    streams = [srv.submit(rng.randint(1, cfg.vocab_size, size=6), 8)
+               for _ in range(2)]
+    for s in streams:
+        with pytest.raises(ValueError, match="CUDA kernel got a tensor"):
+            s.result(timeout=60)
+    with pytest.raises(ValueError, match="CUDA kernel got a tensor"):
+        srv.close()
+    assert time.perf_counter() - t0 < 60
+    assert len(streams[0].tokens_so_far()) == 3

@@ -14,7 +14,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py"]
+    [REPO / "chip_smoke.py", REPO / "scripts" / "engine_bench_torch.py"]
 
 
 def _imported_modules(path):
@@ -81,13 +81,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
 
 def test_launcher_rejects_unported_flags(capsys):
     """Flags outside the ported slice stop the launcher before it builds a
-    model (``--tp``, ``--async``), as does a misused flag
-    (``--prefix-cache`` and ``--over-commit`` without ``--paged-kv``,
+    model (``--tp``), as does a misused flag (``--prefix-cache`` and
+    ``--over-commit`` without ``--paged-kv``, ``--async`` with it,
     ``--quant-telemetry`` without ``--quantize``, with the reference's
     message); the 4-bit flags are ported and parse."""
     from repro_torch.launch.serve import _check_args, build_parser, main
     for extra in (["--tp", "2"], ["--prefix-cache"], ["--over-commit"],
-                  ["--async"]):
+                  ["--async", "--paged-kv"]):
         with pytest.raises(SystemExit):
             main(["--arch", "gemma2-2b", "--reduced", "--quantize",
                   "--deploy-int8"] + extra, device="cpu")

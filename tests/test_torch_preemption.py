@@ -873,8 +873,8 @@ def test_launcher_serves_the_over_commit_runs_with_parity(capsys, run):
 
 def test_launcher_accepts_the_over_commit_flags_and_checks_them():
     """The over-commit flags parse and pass the reference's checks; their
-    misuse and the flags not yet ported (``--tp``, ``--async``) stop the
-    launcher."""
+    misuse, ``--async`` with them and the flag not yet ported (``--tp``)
+    stop the launcher."""
     from repro_torch.launch.serve import _check_args, build_parser
     ap = build_parser()
     base = ["--arch", "gemma2-2b", "--reduced", "--scheduler", "continuous",

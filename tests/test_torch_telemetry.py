@@ -851,7 +851,8 @@ def test_launcher_checks_the_telemetry_flags():
     _check_args(ap, ap.parse_args(base + ["--stats-json", "s.json"]))
     for bad in (["--trace", "t.json"], ["--metrics-every", "2"],
                 ["--scheduler", "continuous", "--metrics-every", "-1"],
-                ["--scheduler", "continuous", "--async"],
+                ["--scheduler", "continuous", "--async", "--trace",
+                 "t.json"],
                 ["--scheduler", "continuous", "--tp", "2"]):
         with pytest.raises(SystemExit):
             _check_args(ap, ap.parse_args(base + bad))
