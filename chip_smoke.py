@@ -137,7 +137,26 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              and at ``--weight-bits 4 --kv-bits 4`` (the parity lines as
              match rates). A failure in the async server's scheduler thread
              is raised from its streams, so it fails the phase.
-19. entry points — K8-K10, which no ported model reaches, through
+19. paper BERT full — the paper's model at BERT-base's shape (12
+             layers, d 768, f32, random weights from a seed with outlier
+             columns planted in every FFN output), syn-mnli batches at T
+             128: the relative hidden error of W8A8 per-tensor, PEG (K=6 +
+             P) and mixed-precision PTQ (printed), and with only the FFN
+             residual path quantized (PEG must be below half per-tensor's,
+             16-bit below 1 % of it, as the reference's tests hold), 20
+             QAT steps with the port's Adam (finite losses, ms a step), and
+             AdaRound on ``layer0/ffn/w_in`` at W4 (its output error must
+             be below nearest rounding's, ms an iteration); peak memory.
+20. paper tables — the reference's table harness at its bench config,
+             trained afresh: Table 1 and Table 5 over all eight synthetic
+             tasks, Table 6's W8A8 PTQ and QAT rows and Table 7's W4A32 PTQ
+             and AdaRound rows on syn-mnli, every row printed; QAT must
+             score at least W8A8 PTQ on syn-mnli and, on every trained
+             model, PEG's hidden error with only the FFN path quantized must
+             be below half of per-tensor's. Phases 19 and 20 run no kernel
+             (the reference's BERT reaches no Pallas kernel): every launch
+             count must stay 0.
+21. entry points — K8-K10, which no ported model reaches, through
              ``ops`` as the reference's kernel bench calls them and (K8)
              through ``deploy.norm_quantize("layernorm", ...)``: each must
              move.
@@ -1358,12 +1377,13 @@ def _timed_decode_steps(orig, report, profile_call=3, record_ops=False):
     return build
 
 
-def _print_profile(tag, report):
+def _print_profile(tag, report, what="decode step"):
     """Device busy time (union of kernel intervals), idle share and the
-    kernels that take the most device time, for the profiled step."""
+    kernels that take the most device time, for the profiled step (a
+    ``what``)."""
     walls = [w for w in report.get("step_ms", []) if w is not None]
     if walls:
-        print(f"[{tag}] decode step wall (host clock, synchronized): median "
+        print(f"[{tag}] {what} wall (host clock, synchronized): median "
               f"{statistics.median(walls):.2f} ms over {len(walls)} steps")
     prof = report.get("prof")
     spans = []
@@ -1373,7 +1393,7 @@ def _print_profile(tag, report):
                     e.time_range.start:
                 spans.append((e.time_range.start, e.time_range.end))
     if not spans:
-        print(f"[{tag}] profiled decode step: device time not measured "
+        print(f"[{tag}] profiled {what}: device time not measured "
               f"(the profiler recorded no kernels)")
         return
     spans.sort()
@@ -1386,7 +1406,7 @@ def _print_profile(tag, report):
             cur_e = max(cur_e, e0)
     busy += cur_e - cur_s
     wall = statistics.median(walls) if walls else float("nan")
-    print(f"[{tag}] profiled decode step: device busy {busy / 1e3:.2f} ms "
+    print(f"[{tag}] profiled {what}: device busy {busy / 1e3:.2f} ms "
           f"({len(spans)} kernels) against a {wall:.2f} ms step: device "
           f"idle {max(0.0, 1 - busy / 1e3 / wall):.1%} (wall under the "
           f"profiler {report['profiled_wall_ms']:.2f} ms)")
@@ -1493,7 +1513,7 @@ def serve_phase(tag, argv, must_launch, step_emits=None, per_call=None,
 
 
 def entry_point_phase():
-    """Phase 19. K8-K10 serve no model here (no LayerNorm config is ported,
+    """Phase 21. K8-K10 serve no model here (no LayerNorm config is ported,
     and the reference calls its fake-quant kernels only from its tests and
     its kernel bench), so their path is their public entry points: driven
     as the reference's bench drives them (``benchmarks/kernel_bench.py``:
@@ -2672,6 +2692,306 @@ def async_phase(add):
     return rels
 
 
+# The paper's BERT-base outlier dims (308 and 381) and two more, planted in
+# every layer's w_out columns as the reference's quickstart plants its own
+BERT_OUTLIER_DIMS = (308, 381, 100, 600)
+
+
+def _zero_counts(tag):
+    """Every launch counter set to 0; returns a reader that prints the
+    counts and requires them all still 0 (the paper path reaches no
+    kernel: the reference's BERT runs LayerNorm and its fake-quant sites in
+    plain jnp, so no Pallas kernel either)."""
+    counters = _counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+    def read():
+        counts = {name: getattr(fn, attr)
+                  for name, (fn, attr) in counters.items()}
+        print(f"[{tag}] kernel launches {counts}")
+        require(not any(counts.values()),
+                f"{tag}: the paper path launched {counts}, not 0 of each")
+        return counts
+    return read
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def paper_bert_phase(add, device="cuda", num_layers=12):
+    """Phase 19, ``[paper-bert-full]``: BERT-base's shape (``BertConfig()``:
+    12 layers, d 768, 12 heads, d_ff 3072, vocab 30522, f32), random
+    weights from a seeded generator with BERT_OUTLIER_DIMS scaled in every
+    ``w_out``, synthetic-GLUE syn-mnli batches at T 128. The relative hidden
+    error of W8A8 per-tensor, PEG (K=6 + permutation) and mixed-precision
+    PTQ, of the first two with ``ln_attn`` kept FP32, and with only the FFN
+    residual path quantized (FP32 weights), where the reference's
+    ``TestPaperOrdering`` holds PEG below half per-tensor's and 16-bit below
+    1 % of it (required here too); 20 ``Mode.QAT`` steps with
+    the port's Adam (finite losses; first and last loss, ms a step); AdaRound
+    on ``layer0/ffn/w_in`` at W4 MSE for 300 iterations on that layer's
+    calibration inputs (its output error must beat nearest rounding; ms an
+    iteration); peak device memory; no kernel launch."""
+    import dataclasses
+    import torch
+    from repro_torch.core import (A8_DEFAULT, A16_DEFAULT, FP32, Mode,
+                                  QuantCtx, QuantizationPolicy,
+                                  QuantizerConfig, RangeEstimator,
+                                  fake_quant, mixed_precision_policy,
+                                  peg_config, peg_policy, ptq, w8a8_policy)
+    from repro_torch.core.adaround import AdaRoundConfig, optimize_rounding
+    from repro_torch.core.calibration import collect_ranges
+    from repro_torch.core.qat import init_qat_params
+    from repro_torch.core.range_estimation import estimate_weight_params
+    from repro_torch.data.synthetic import GLUE_SUITE, SyntheticGLUE
+    from repro_torch.models import bert
+    from repro_torch.optim import (adam_init, adam_update, apply_updates,
+                                   linear_warmup_linear_decay)
+    from repro_torch.paper.common import to_device, value_and_grad
+    from torch.profiler import ProfilerActivity, profile
+    tag = "paper-bert-full"
+    dev = torch.device(device)
+    read = _zero_counts(tag)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    task = GLUE_SUITE[5]                                   # syn-mnli
+    cfg = bert.BertConfig(num_layers=num_layers,
+                          num_labels=task.num_labels)
+    params = bert.init_params(cfg, 0, device=dev)
+    with torch.no_grad():
+        for p in params["layers"]:
+            for j, dim in enumerate(BERT_OUTLIER_DIMS):
+                p["w_out"][:, dim] *= 100.0 - 10 * j
+    src = SyntheticGLUE(dataclasses.replace(
+        task, seq_len=128, vocab_size=cfg.vocab_size), seed=0)
+    calib = [to_device(src.batch(8, 200_000 + i), dev) for i in range(4)]
+    named = bert.named_weight_sites(cfg, params)
+
+    def fwd(p, b, ctx):
+        return bert.encode(cfg, p, b["tokens"], type_ids=b["type_ids"],
+                           pad_mask=b["pad_mask"], ctx=ctx)
+
+    with torch.no_grad():
+        hidden_fp = fwd(params, calib[0], None)
+    ffn, no_w = r".*/(ffn_(in|out)|residual_ffn)", dict(weight_default=FP32)
+    ln_fp32 = {r".*/ln_attn": FP32}
+    rels = {}
+    for label, pol in (
+            ("W8A8 per-tensor", w8a8_policy()),
+            ("W8A8 PEG (K=6 + P)", peg_policy(6)),
+            ("W8A{8,16} mixed precision", mixed_precision_policy()),
+            ("FFN path only: per-tensor", QuantizationPolicy(
+                act_default=FP32, act_overrides={ffn: A8_DEFAULT}, **no_w)),
+            ("FFN path only: PEG (K=6 + P)", QuantizationPolicy(
+                act_default=FP32, act_overrides={ffn: peg_config(6)},
+                **no_w)),
+            ("FFN path only: 16-bit", QuantizationPolicy(
+                act_default=FP32, act_overrides={ffn: A16_DEFAULT}, **no_w)),
+            ("W8A8, ln_attn FP32: per-tensor", QuantizationPolicy(
+                act_overrides=ln_fp32)),
+            ("W8A8, ln_attn FP32: PEG (K=6 + P)", QuantizationPolicy(
+                act_overrides={**ln_fp32, ffn: peg_config(6)}))):
+        t1 = time.perf_counter()
+        qm = ptq(fwd, params, calib, pol, named_weights=named)
+        with torch.no_grad():
+            hidden_q = fwd(params, calib[0], qm.ctx())
+        rels[label] = float(torch.mean(torch.square(hidden_fp - hidden_q)) /
+                            torch.mean(torch.square(hidden_fp)))
+        print(f"[{tag}] {label:<34s} relative hidden error "
+              f"{rels[label]:.6e} (PTQ and forward "
+              f"{time.perf_counter() - t1:.1f} s)")
+    for num, den in (("W8A8 PEG (K=6 + P)", "W8A8 per-tensor"),
+                     ("W8A{8,16} mixed precision", "W8A8 per-tensor"),
+                     ("FFN path only: PEG (K=6 + P)",
+                      "FFN path only: per-tensor"),
+                     ("FFN path only: 16-bit", "FFN path only: per-tensor"),
+                     ("W8A8, ln_attn FP32: PEG (K=6 + P)",
+                      "W8A8, ln_attn FP32: per-tensor")):
+        print(f"[{tag}] {num} / {den}: {rels[num] / rels[den]:.4g}")
+    # the orderings of the reference's TestPaperOrdering, with only the FFN
+    # residual path quantized (with every site quantized, bert.py's
+    # ln_attn and ffn_in sites quantize the same tensor twice: the second
+    # per-tensor grid equals the first, PEG's does not)
+    pt = rels["FFN path only: per-tensor"]
+    require(rels["FFN path only: PEG (K=6 + P)"] < pt / 2,
+            f"{tag}: PEG's FFN-path error is not below half per-tensor's")
+    require(rels["FFN path only: 16-bit"] < pt / 100,
+            f"{tag}: 16-bit FFN-path error is not below 1 % of "
+            f"per-tensor's")
+
+    # QAT: weights and quantizer ranges jointly, from the W8A8 PTQ state
+    pol = w8a8_policy()
+    qm = ptq(fwd, params, calib, pol, named_weights=named)
+    trainable = {"model": params,
+                 "quant": init_qat_params(qm.act_state, qm.weight_state)}
+    opt = adam_init(trainable)
+    steps, losses, walls, report = 20, [], [], {}
+    lr = linear_warmup_linear_decay(1e-4, steps)
+    for i in range(steps):
+        batch = to_device(src.batch(8, 300_000 + i), dev)
+        _sync(dev)
+        t1 = time.perf_counter()
+
+        def loss(tr):
+            ctx = QuantCtx(policy=pol, mode=Mode.QAT, act_state=qm.act_state,
+                           weight_state=qm.weight_state,
+                           qat_params=tr["quant"])
+            return bert.loss_fn(cfg, tr["model"], batch, ctx=ctx)
+
+        def step(trainable, opt):
+            l, g = value_and_grad(loss, trainable)
+            upd, opt = adam_update(g, opt, trainable, lr=lr)
+            return apply_updates(trainable, upd), opt, l
+        if i == 10 and dev.type == "cuda":        # one steady-state step
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                trainable, opt, l = step(trainable, opt)
+                _sync(dev)
+            report.update(prof=prof, profiled_wall_ms=(
+                time.perf_counter() - t1) * 1e3)
+        else:
+            trainable, opt, l = step(trainable, opt)
+            _sync(dev)
+            walls.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(l))
+    require(all(map(lambda v: v == v and abs(v) != float("inf"), losses)),
+            f"{tag}: QAT losses {losses}")
+    print(f"[{tag}] QAT {steps} steps (B 8 x T 128, W8A8, Adam lr 1e-4): "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"{statistics.median(walls[1:]):.1f} ms a step (median, host "
+          f"clock, synchronized; first step {walls[0]:.1f} ms)")
+    report["step_ms"] = walls[1:]
+    _print_profile(tag, report, "QAT step")
+    del trainable, opt, report
+
+    # AdaRound on layer0's FFN input projection, W4 MSE
+    site = "layer0/ffn/w_in"
+    _, tensors = collect_ranges(fwd, params, calib, pol)
+    x_in = tensors["layer0/ffn_in"]
+    x_in = x_in.reshape(-1, x_in.shape[-1])
+    w = params["layers"][0]["w_in"]
+    wcfg = QuantizerConfig(bits=4, symmetric=True,
+                           estimator=RangeEstimator.MSE)
+    qp = estimate_weight_params(w, wcfg)
+    iters = 300
+    _sync(dev)
+    t1 = time.perf_counter()
+    w_ada, _ = optimize_rounding(w, x_in, qp, wcfg,
+                                 AdaRoundConfig(iterations=iters))
+    _sync(dev)
+    ms = (time.perf_counter() - t1) * 1e3 / iters
+    with torch.no_grad():
+        y = x_in @ w
+        err_near = float(torch.mean(torch.square(
+            y - x_in @ fake_quant(w, qp, wcfg))))
+        err_ada = float(torch.mean(torch.square(y - x_in @ w_ada)))
+    print(f"[{tag}] AdaRound {site} ({tuple(w.shape)}, W4 MSE, {iters} "
+          f"iterations, batches of 256 of {x_in.shape[0]} rows): output "
+          f"MSE {err_ada:.6e} against nearest rounding's {err_near:.6e} "
+          f"(ratio {err_ada / err_near:.4f}); {ms:.2f} ms an iteration")
+    require(err_ada < err_near, f"{tag}: AdaRound's output error {err_ada} "
+            f"is not below nearest rounding's {err_near}")
+    if dev.type == "cuda":
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[{tag}] peak device memory {peak} bytes "
+              f"({peak / 2**30:.2f} GiB)")
+    print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
+    add(read())
+
+
+def _ffn_hidden_errors(task, params, dev):
+    """The relative hidden error of the bench model with only the FFN
+    residual path quantized, per-tensor and PEG (K=4 + permutation): the
+    measure of the reference's ``TestPaperOrdering`` (on the first
+    calibration batch)."""
+    import torch
+    from repro_torch.core import (A8_DEFAULT, FP32, QuantizationPolicy,
+                                  peg_config, ptq)
+    from repro_torch.models import bert
+    from repro_torch.paper import common
+    cfg = common.bench_cfg(task)
+    calib = common.calib_batches(task, device=dev)
+
+    def fwd(p, b, ctx):
+        return bert.encode(cfg, p, b["tokens"], type_ids=b["type_ids"],
+                           pad_mask=b["pad_mask"], ctx=ctx)
+    errs = {}
+    for label, act in (("per-tensor", A8_DEFAULT), ("PEG", peg_config(4))):
+        pol = QuantizationPolicy(weight_default=FP32, act_default=FP32,
+                                 act_overrides={
+                                     r".*/(ffn_(in|out)|residual_ffn)": act})
+        qm = ptq(fwd, params, calib, pol)
+        with torch.no_grad():
+            h = fwd(params, calib[0], None)
+            hq = fwd(params, calib[0], qm.ctx())
+        errs[label] = float(torch.mean(torch.square(h - hq)) /
+                            torch.mean(torch.square(h)))
+    return errs
+
+
+def paper_tables_phase(add, device="cuda"):
+    """Phase 20, ``[paper-tables]``: the reference's table harness at its
+    ``BENCH_CFG`` (3 layers, d 64), trained afresh (the cache directory is
+    emptied first): Table 1 and Table 5 over all eight synthetic tasks,
+    Table 6's W8A8 PTQ and QAT rows and Table 7's W4A32 PTQ and AdaRound
+    rows on syn-mnli. QAT must score at least W8A8 PTQ on syn-mnli; PEG
+    (K=4 + P) against per-tensor is held where the reference's tests hold
+    it, on the hidden error with only the FFN residual path quantized, on
+    each of the eight trained models (PEG's at most half per-tensor's); the
+    Table 5 averages over the eight tasks are printed, not bounded (a task
+    the bench model did not learn moves them by noise: syn-stsb's
+    correlation). Prints every row and the phase's wall time; no kernel
+    launch."""
+    import shutil
+    import torch
+    from repro_torch.data.synthetic import GLUE_SUITE
+    from repro_torch.paper import (common, table1_ptq, table5_peg,
+                                   table6_methods, table7_lowbit)
+    tag = "paper-tables"
+    dev = torch.device(device)
+    common.RESULTS_DIR = ROOT / "build" / "paper_results" / "chip_smoke"
+    shutil.rmtree(common.RESULTS_DIR, ignore_errors=True)
+    read = _zero_counts(tag)
+    t0 = time.perf_counter()
+    mnli = [GLUE_SUITE[5]]
+    tables = (
+        ("Table 1", table1_ptq, table1_ptq.compute(GLUE_SUITE, dev)),
+        ("Table 5", table5_peg, table5_peg.compute(GLUE_SUITE, dev)),
+        ("Table 6", table6_methods, table6_methods.compute(
+            mnli, ("W8A8 PTQ", "W8A8 QAT"), dev)),
+        ("Table 7", table7_lowbit, table7_lowbit.compute(
+            mnli, ("W4A32 PTQ", "W4A32 AdaRound"), dev)))
+    secs = time.perf_counter() - t0
+    for title, mod, rows in tables:
+        for line in mod.report(rows).splitlines():
+            print(f"[{tag}] {title}: {line}")
+    t5, t6 = tables[1][2], tables[2][2]
+    avg = {label: common.glue_average(t5[label])
+           for label in ("K=1 (= per-tensor)", "K=4 + P (FFN only)")}
+    print(f"[{tag}] Table 5 average over the eight tasks: per-tensor "
+          f"{avg['K=1 (= per-tensor)']:.2f}, K=4 + P "
+          f"{avg['K=4 + P (FFN only)']:.2f} (printed, not bounded)")
+    qat, ptq_ = (t6[k]["syn-mnli"] for k in ("W8A8 QAT", "W8A8 PTQ"))
+    require(qat >= ptq_, f"{tag}: QAT {qat} is below W8A8 PTQ {ptq_} on "
+            f"syn-mnli")
+    for task in GLUE_SUITE:
+        errs = _ffn_hidden_errors(task, common.train_task(task, device=dev),
+                                  dev)
+        ratio = errs["PEG"] / errs["per-tensor"]
+        print(f"[{tag}] {task.name}: FFN-path hidden error per-tensor "
+              f"{errs['per-tensor']:.4e}, PEG {errs['PEG']:.4e} (ratio "
+              f"{ratio:.3f})")
+        require(ratio < 0.5, f"{tag}: {task.name}: PEG's hidden error is "
+                f"{ratio:.3f} of per-tensor's, not below half")
+    print(f"[{tag}] tables {secs:.1f} s; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    add(read())
+
+
 def ptxas_report():
     """``--ptxas``: compile the split and cluster kernels' sources once more
     with ``-Xptxas -v`` (into build/ptxas) and print one line per kernel
@@ -2855,6 +3175,8 @@ def main() -> int:
     ro = overcommit_phase(add)
     rt = telemetry_phase(add)
     ra = async_phase(add)
+    paper_bert_phase(add)
+    paper_tables_phase(add)
 
     # The reduced run holds the integer path to the fake-quant path it
     # replaces. At full width the fake-quant path runs in bf16 (bf16 params:

@@ -1,6 +1,5 @@
 """Quantization context + static-range calibration (port of
-``repro.core.calibration``; quantization-aware training comes with a later
-slice).
+``repro.core.calibration``).
 
 Models thread a ``QuantCtx`` through their forward pass and call
 ``ctx.act(site, x)`` at every activation site, ``ctx.act_in`` at the
@@ -10,6 +9,9 @@ matmul-input sites (``{L}/attn_in``, ``{L}/attn/wo_in``) and
   OFF     — passthrough;
   COLLECT — record range statistics (and calibration tensors) per site;
   APPLY   — simulated quantization with the frozen act state;
+  QAT     — simulated quantization with *learnable* scale / offset read
+            from ``qat_params`` (see ``core.qat``) on every call, so a
+            trainer that swaps the leaves each step is seen at once;
   DEPLOY  — true fixed-point execution: models route deployable matmuls
             through the integer kernels (``core.deploy``) using
             ``ctx.deploy_acts``; every other site falls back to APPLY
@@ -48,6 +50,7 @@ class Mode(enum.Enum):
     OFF = "off"
     COLLECT = "collect"
     APPLY = "apply"
+    QAT = "qat"
     DEPLOY = "deploy"
 
 
@@ -60,6 +63,7 @@ class QuantCtx:
     mode: Mode = Mode.OFF
     act_state: Optional[QuantState] = None       # APPLY / DEPLOY
     weight_state: Optional[QuantState] = None    # APPLY (PTQ-frozen weights)
+    qat_params: Optional[dict] = None            # QAT learnable (core.qat)
     range_states: Dict[str, RangeState] = dataclasses.field(
         default_factory=dict)                    # COLLECT outputs
     calib_tensors: Dict[str, torch.Tensor] = dataclasses.field(
@@ -103,13 +107,16 @@ class QuantCtx:
         if self.mode == Mode.COLLECT:
             self._observe(site, x, cfg)
             return x
+        if self.mode == Mode.QAT:
+            from repro_torch.core import qat as qat_lib
+            return qat_lib.apply_act(self, site, x, cfg)
         return self._apply(site, x, cfg)
 
     def act_in(self, site: str, x: torch.Tensor) -> torch.Tensor:
         """Matmul-input sites: no-op unless the deploy calibration
         collected them."""
         cfg = self.policy.act_config(site)
-        if not cfg.enabled or self.mode == Mode.OFF:
+        if not cfg.enabled or self.mode in (Mode.OFF, Mode.QAT):
             return x
         if self.mode == Mode.COLLECT:
             if self.collect_inputs:
@@ -127,6 +134,9 @@ class QuantCtx:
         cfg = self.policy.weight_config(site)
         if self.mode in (Mode.OFF, Mode.COLLECT) or not cfg.enabled:
             return w
+        if self.mode == Mode.QAT:
+            from repro_torch.core import qat as qat_lib
+            return qat_lib.apply_weight(self, site, w, cfg)
         qp = (self.weight_state or {}).get(site)
         if qp is not None:
             return fake_quant(w, qp, cfg)

@@ -1,7 +1,16 @@
 """Uniform affine quantization (paper eq. 1-2): the simulated-quantization
-forward, the scale / zero-point derivation and the quant-health statistics
-(port of ``repro.core.quantizer``; the straight-through gradient comes with
-the training slice)."""
+forward with straight-through gradients, the scale / zero-point derivation,
+the integer grid and the quant-health statistics (port of
+``repro.core.quantizer``).
+
+Gradients: with grad mode on and an input that requires grad,
+:func:`fake_quant` takes the STE gradient in ``x`` (identity through the
+rounding, zero outside the clip range) and the LSQ gradients in ``scale`` /
+``zero_point`` (Esser et al. 2019), with the reference's rules at ties:
+``max(s, tiny)`` and the clip at exactly ``qmin`` / ``qmax`` pass half the
+gradient to each side, as ``jnp.maximum`` and ``jnp.clip`` do (``torch.clamp``
+would pass all of it). Otherwise it dispatches the plain operators only;
+both branches compute the same values bit for bit."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -27,6 +36,59 @@ class QuantParams(NamedTuple):
     group_index: Optional[torch.Tensor] = None
 
 
+class _RoundSTE(torch.autograd.Function):
+    """Round to nearest (ties to even) with an identity gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def round_ste(x: torch.Tensor) -> torch.Tensor:
+    """``torch.round`` whose gradient is the identity (the reference's
+    ``_round_ste``)."""
+    return _RoundSTE.apply(x)
+
+
+def _bound(v, like):
+    return torch.full((), v, dtype=like.dtype, device=like.device)
+
+
+class _ClipHalfTies(torch.autograd.Function):
+    """``torch.clamp`` whose gradient is 1 strictly inside the bounds, 1/2
+    exactly on a bound and 0 outside, as ``jnp.clip``'s (``torch.clamp``
+    passes all of it on a bound)."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        inside = ((x > lo) & (x < hi)).to(g.dtype)
+        ties = ((x == lo) | (x == hi)).to(g.dtype)
+        return g * (inside + 0.5 * ties), None, None
+
+
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip`` (``lo`` / ``hi`` numbers): the values of
+    ``torch.clamp``, half the gradient exactly on a bound."""
+    return _ClipHalfTies.apply(x, lo, hi)
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
+
+
 def _expand(qp: QuantParams, ndim: int, channel_axis: int):
     """Broadcast scale / zero-point to the tensor rank along channel_axis."""
     s, z = qp.scale, qp.zero_point
@@ -43,14 +105,41 @@ def _expand(qp: QuantParams, ndim: int, channel_axis: int):
 def fake_quant(x: torch.Tensor, qp: QuantParams,
                cfg: QuantizerConfig) -> torch.Tensor:
     """Simulated quantization: eq. (1) then eq. (2), in f32, cast back to
-    the input dtype."""
+    the input dtype. Differentiable in ``x`` (STE) and in ``qp.scale`` /
+    ``qp.zero_point`` (LSQ) when grad mode is on (module docstring)."""
     if not cfg.enabled:
         return x
     s, z = _expand(qp, x.dim(), cfg.channel_axis)
+    if _needs_grad(x, s, z):
+        s = torch.maximum(s.float(), _bound(TINY, s.float()))
+        q = clip(round_ste(x.float() / s) + z, cfg.qmin, cfg.qmax)
+        return ((q - z) * s).to(x.dtype)
     s = torch.clamp_min(s.float(), TINY)
     q = torch.round(x.float() / s) + z
     q = torch.clamp(q, cfg.qmin, cfg.qmax)
     return ((q - z) * s).to(x.dtype)
+
+
+def quantize(x: torch.Tensor, qp: QuantParams,
+             cfg: QuantizerConfig) -> torch.Tensor:
+    """To the integer grid (eq. 1): int32 in [qmin, qmax]."""
+    s, z = _expand(qp, x.dim(), cfg.channel_axis)
+    s = torch.clamp_min(s, TINY)
+    q = torch.round(x.float() / s) + z
+    return torch.clamp(q, cfg.qmin, cfg.qmax).to(torch.int32)
+
+
+def dequantize(q: torch.Tensor, qp: QuantParams,
+               cfg: QuantizerConfig) -> torch.Tensor:
+    """eq. (2), in f32."""
+    s, z = _expand(qp, q.dim(), cfg.channel_axis)
+    return (q.float() - z) * s
+
+
+def quant_error(x: torch.Tensor, qp: QuantParams,
+                cfg: QuantizerConfig) -> torch.Tensor:
+    """Mean squared quantization error (the MSE estimator's objective)."""
+    return torch.mean(torch.square(x - fake_quant(x, qp, cfg)))
 
 
 def params_from_range(x_min: torch.Tensor, x_max: torch.Tensor,

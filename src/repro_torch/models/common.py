@@ -1,6 +1,7 @@
 """Shared model building blocks (port of ``repro.models.common``): norms,
-soft-capping, activations, rotary embeddings, initializers, and the
-packed-weight guard. Float operations follow the reference's order."""
+soft-capping, activations, rotary embeddings, initializers, the
+cross-entropy loss and the packed-weight guard. Float operations follow the
+reference's order."""
 from __future__ import annotations
 
 import math
@@ -14,6 +15,16 @@ from repro_torch.kernels.int8_matmul import EPILOGUE_ACTS
 ACTIVATIONS = {k: v for k, v in EPILOGUE_ACTS.items() if k != "none"}
 gelu = ACTIVATIONS["gelu"]
 silu = ACTIVATIONS["silu"]
+
+
+def layer_norm(x, gamma, beta, eps: float = 1e-6):
+    """LayerNorm in f32: the mean, then the variance as the mean square of
+    the centred values (``jnp.var``'s order), cast back to ``x``'s dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * gamma + beta).to(x.dtype)
 
 
 def rms_norm(x, gamma, eps: float = 1e-6):
@@ -73,6 +84,21 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
                dtype=torch.float32, device=None):
     w = torch.randn((vocab, d), generator=gen, device=device)
     return (w * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits, labels, mask=None):
+    """Token-level CE. logits (..., V), labels (...) int. mask optional."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)
 
 
 # ---------------------------------------------------------------------------

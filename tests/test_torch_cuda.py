@@ -1537,3 +1537,117 @@ def test_async_server_on_cuda_reports_a_failed_launch(reduced_deploy):
         srv.close()
     assert time.perf_counter() - t0 < 60
     assert len(streams[0].tokens_so_far()) == 3
+
+
+# ---------------------------------------------------------------------------
+# the paper's BERT path on the card (plain PyTorch: no kernel is on it)
+# ---------------------------------------------------------------------------
+
+def _paper_case():
+    """bert.tiny() (3 labels) with the reference quickstart's planted
+    outliers, syn-mnli batches at T 32, on the CPU."""
+    import dataclasses
+    from repro_torch.data.synthetic import GLUE_SUITE, SyntheticGLUE
+    from repro_torch.models import bert
+    from repro_torch.paper.common import to_device
+    cfg = bert.tiny(num_labels=3)
+    params = bert.init_params(cfg, 0, device="cpu")
+    with torch.no_grad():
+        for p in params["layers"]:
+            for j, dim in enumerate((5, 40, 77, 100)):
+                p["w_out"][:, dim] *= 100.0 - 10 * j
+    src = SyntheticGLUE(dataclasses.replace(GLUE_SUITE[5], seq_len=32,
+                                            vocab_size=cfg.vocab_size))
+    batches = [to_device(src.batch(8, i), "cpu") for i in range(3)]
+    return cfg, params, batches
+
+
+def _to_cuda(tree):
+    from repro_torch.optim.tree import tree_map
+    return tree_map(lambda t: t.cuda() if isinstance(t, torch.Tensor)
+                    else t, tree)
+
+
+def test_bert_forward_and_a_qat_step_on_cuda_match_the_cpu(gen):
+    """The tiny BERT's FP32 logits within 1e-5 of their largest magnitude
+    (f32 matmuls sum in another order on the card; no TF32), and one QAT
+    step from the same CPU-calibrated W8A8 state: its loss within 1e-3
+    relative and its gradient tree (weights and quantizer ranges, as one
+    vector) at a cosine of at least 0.9 with the CPU's. The W8A8 STE
+    gradient is not continuous: a value that rounds one grid step the other
+    way, or onto a clip bound (half the gradient there), moves it. On the
+    CPU alone, weights scaled by 1 + 1e-6 noise move this loss by 1.3e-4
+    relative and the gradient to a cosine of 0.971."""
+    from repro_torch.core import Mode, QuantCtx, ptq, w8a8_policy
+    from repro_torch.core.qat import init_qat_params
+    from repro_torch.models import bert
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.paper.common import value_and_grad
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, params, batches = _paper_case()
+
+    def fwd(p, b, ctx):
+        return bert.classify(cfg, p, b["tokens"], type_ids=b["type_ids"],
+                             pad_mask=b["pad_mask"], ctx=ctx)
+    pol = w8a8_policy()
+    qm = ptq(fwd, params, batches[:2], pol,
+             named_weights=bert.named_weight_sites(cfg, params))
+    results = []
+    for dev in ("cpu", "cuda"):
+        conv = _to_cuda if dev == "cuda" else (lambda t: t)
+        p, b = conv(params), conv(batches[2])
+        act, wst = conv(qm.act_state), conv(qm.weight_state)
+        with torch.no_grad():
+            logits = fwd(p, b, None)
+        tr = {"model": p, "quant": init_qat_params(act, wst)}
+
+        def loss(t):
+            ctx = QuantCtx(policy=pol, mode=Mode.QAT, act_state=act,
+                           weight_state=wst, qat_params=t["quant"])
+            return bert.loss_fn(cfg, t["model"], b, ctx=ctx)
+        l, g = value_and_grad(loss, tr)
+        results.append((logits.cpu(), l.cpu(),
+                        [x.cpu() for x in tree_leaves(g)]))
+    (l_cpu, loss_cpu, g_cpu), (l_gpu, loss_gpu, g_gpu) = results
+    assert len(g_cpu) == len(g_gpu)
+    a = torch.cat([x.flatten() for x in g_gpu])
+    c = torch.cat([x.flatten() for x in g_cpu])
+    diffs = {"logits": float((l_gpu - l_cpu).abs().max()) /
+             float(l_cpu.abs().max()),
+             "loss": abs(float(loss_gpu) / float(loss_cpu) - 1),
+             "cosine": float(a @ c / (a.norm() * c.norm()))}
+    assert diffs["logits"] <= 1e-5 and diffs["loss"] <= 1e-3 and \
+        diffs["cosine"] >= 0.9, diffs
+
+
+def _close_to(got, want, frac):
+    assert float((got - want).abs().max()) <= frac * max(
+        float(want.abs().max()), 1e-30)
+
+
+def test_ptq_with_adaround_on_cuda(gen):
+    """``ptq(..., adaround_sites=...)`` on the card: the refined weight
+    lies on the site's grid, next to floor / ceil of each weight, and its
+    output error is below nearest rounding's (the reference's 64 x 32
+    case; the batches come from a CUDA generator)."""
+    from repro_torch.core import (FP32, QuantizationPolicy, QuantizerConfig,
+                                  RangeEstimator, fake_quant, ptq)
+    from repro_torch.core.adaround import AdaRoundConfig
+    wcfg = QuantizerConfig(bits=4, symmetric=True,
+                           estimator=RangeEstimator.MSE)
+    pol = QuantizationPolicy(weight_default=wcfg, act_default=FP32)
+    w = torch.randn(64, 32, generator=gen, device="cuda") / 8.0
+    x = torch.randn(256, 64, generator=gen, device="cuda")
+    qm = ptq(lambda p, b, ctx: None, None, [], pol,
+             named_weights={"w": w}, adaround_sites={"w": (w, x)},
+             adaround_cfg=AdaRoundConfig(iterations=300, batch_size=128))
+    w_ada, qp = qm.adarounded_weights["w"], qm.weight_state["w"]
+    assert w_ada.device.type == "cuda" and torch.isfinite(w_ada).all()
+    s = float(qp.scale)
+    grid = torch.round(w_ada / s)
+    assert float((w_ada - grid * s).abs().max()) <= 1e-5
+    lo = torch.floor(w / s)
+    assert bool(((grid == lo.clamp(wcfg.qmin, wcfg.qmax)) |
+                 (grid == (lo + 1).clamp(wcfg.qmin, wcfg.qmax))).all())
+    err = lambda wq: float(torch.mean(torch.square(x @ w - x @ wq)))  # noqa
+    assert err(w_ada) < err(fake_quant(w, qp, wcfg))

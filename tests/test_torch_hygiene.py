@@ -14,7 +14,9 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py", REPO / "scripts" / "engine_bench_torch.py"]
+    [REPO / "chip_smoke.py", REPO / "scripts" / "engine_bench_torch.py",
+     REPO / "scripts" / "paper_tables_torch.py"] + \
+    sorted((REPO / "examples").glob("torch_*.py"))
 
 
 def _imported_modules(path):
@@ -60,15 +62,26 @@ def test_launcher_defaults_to_cuda_and_raises_without_it():
         main(["--arch", "gemma2-2b", "--reduced", "--requests", "1"])
 
 
-@pytest.mark.parametrize("entry", ["init_params", "init_cache", "serve"])
+@pytest.mark.parametrize("entry", ["init_params", "init_cache", "serve",
+                                   "bert_init", "train_task",
+                                   "paper_tables"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU: device=None would run on it")
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tfm
     from repro_torch.runtime import Request, serve
+    from repro_torch.data.synthetic import GLUE_SUITE
+    from repro_torch.models import bert
+    from repro_torch.paper import common as paper
+    sys.path.insert(0, str(REPO / "scripts"))
+    import paper_tables_torch
     cfg = get_config("gemma2-2b").reduced()
     calls = {
+        "bert_init": lambda: bert.init_params(bert.tiny(), 0),
+        "train_task": lambda: paper.train_task(GLUE_SUITE[0], steps=1),
+        "paper_tables": lambda: paper_tables_torch.main(["--sections",
+                                                         "t1"]),
         "init_params": lambda: tfm.init_params(cfg, 0),
         "init_cache": lambda: tfm.init_cache(cfg, 2, 16, kv_bits=8,
                                              paged=True, block_size=8),
