@@ -160,6 +160,27 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              ``ops`` as the reference's kernel bench calls them and (K8)
              through ``deploy.norm_quantize("layernorm", ...)``: each must
              move.
+22. train full — ``repro_torch.launch.train.main`` on gemma2-2b at full
+             width (bf16, f32 Adam, remat), 5 steps of B 2 x T 1024 with
+             every step's line, then one profiled step: losses finite;
+             step ms, tokens/s, MFU (6ND against the 989 TFLOP/s bf16
+             peak), peak memory, device busy and idle share, device time
+             by kernel kind, the data source's build time and host time a
+             batch.
+23. train full 8-bit — the same shape with 8-bit Adam through the
+             launcher's pieces, 3 steps and a profiled one on the same data
+             source: the same lines and the moments' bytes against f32
+             Adam's; its peak memory must be below phase 22's.
+24. train reduced card vs CPU — reduced gemma2-2b in f32, two steps of
+             Adam at microbatches 1 and 2 and of 8-bit Adam (on a 4096 x
+             256 embedding, whose moments are int8), on the card and on
+             the CPU, held to each other (``train_card_vs_cpu_phase``).
+25. train e2e — ``examples/torch_train_e2e.py --preset 100m``: a SIGTERM
+             inside step 4 of 7 checkpoints and stops the loop; the resumed
+             run starts from the saved params, moments and data state bit
+             for bit and ends at step 7; then PTQ and a QAT fine-tune with
+             finite losses. Phases 22-25 run no kernel (no TPU kernel is
+             on the reference's training path): every count stays 0.
 
 In every serving phase every request must get its tokens. The reduced
 runs' integer-path logits must match the fake-quant path they replace
@@ -2992,6 +3013,443 @@ def paper_tables_phase(add, device="cuda"):
     add(read())
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-25: the training entry point (no kernel of the port is on it)
+# ---------------------------------------------------------------------------
+
+TRAIN_FULL = ["--arch", "gemma2-2b", "--steps", "5", "--batch", "2", "--seq",
+              "1024", "--lr", "1e-4"]
+PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core rate
+
+
+class _TimedSource:
+    """A data source whose ``batch`` calls are timed on the host clock (the
+    Markov sampler draws every position from a vocab-wide cumsum)."""
+
+    def __init__(self, src):
+        self.src, self.cfg, self.seed = src, src.cfg, src.seed
+        self.batch_s = []
+
+    def batch(self, batch_size, index):
+        t0 = time.perf_counter()
+        out = self.src.batch(batch_size, index)
+        self.batch_s.append(time.perf_counter() - t0)
+        return out
+
+
+def train_source(argv, tag):
+    """The launcher's data source for ``argv``, built once and timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMTaskConfig, SyntheticLM
+    from repro_torch.launch import train
+    args = train.build_parser().parse_args(argv)
+    cfg = get_config(args.arch)
+    cfg = cfg.reduced() if args.reduced else cfg
+    t0 = time.perf_counter()
+    src = SyntheticLM(LMTaskConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=args.seq), seed=args.seed)
+    secs = time.perf_counter() - t0
+    print(f"[{tag}] data source (SyntheticLM, vocab {cfg.vocab_size}, "
+          f"{src.table.shape[0]} x {src.table.shape[1]} Markov table, "
+          f"{src.table.nbytes} bytes) built in {secs:.1f} s")
+    return _TimedSource(src)
+
+
+def _moment_bytes(opt_state):
+    from repro_torch.optim import tree_leaves
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves((opt_state.mu, opt_state.nu)))
+
+
+def _train_report(tag, history, src, n_params, tokens, skip, dev):
+    """Per-step lines, the median step of the steps after ``skip``,
+    tokens/s, MFU against the bf16 peak and peak memory; the losses must
+    be finite. Returns the timed steps' walls (ms)."""
+    import math
+    import torch
+    losses = [h["loss"] for h in history]
+    walls = [h["time_s"] * 1e3 for h in history]
+    require(len(losses) == len(history) and all(map(math.isfinite, losses)),
+            f"{tag}: losses {losses}")
+    timed = walls[skip:]
+    med = statistics.median(timed)
+    flops = 6 * n_params * tokens
+    print(f"[{tag}] losses {', '.join(f'{v:.4f}' for v in losses)} "
+          f"(finite; {'falling' if losses[-1] < losses[0] else 'not falling'}"
+          f" over {len(losses)} steps)")
+    print(f"[{tag}] step ms {', '.join(f'{w:.1f}' for w in walls)}; median "
+          f"of steps {skip + 1}-{len(walls)} {med:.1f} ms (host clock, "
+          f"synchronized); {tokens / med * 1e3:.0f} tokens/s")
+    print(f"[{tag}] mfu {flops / (med / 1e3) / PEAK_BF16_FLOPS:.4f} "
+          f"(6 x {n_params} params x {tokens} tokens = {flops:.4g} "
+          f"FLOP a step against the H100 SXM dense bf16 peak "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; remat recomputes the "
+          f"forward, which the 6ND count leaves out)")
+    print(f"[{tag}] data host time {statistics.median(src.batch_s) * 1e3:.0f}"
+          f" ms a batch (median of {len(src.batch_s)}, outside the step)")
+    if dev.type == "cuda":
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[{tag}] peak device memory {peak} bytes "
+              f"({peak / 2**30:.2f} GiB)")
+        return timed, peak
+    return timed, 0
+
+
+def _profiled_train_step(tag, step, params, opt, batch, walls, dev):
+    """One more step under ``torch.profiler`` (CUDA activity): device busy
+    time, idle share against the median step, kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    _sync(dev)
+    t0 = time.perf_counter()
+    prof = None
+    with (profile(activities=[ProfilerActivity.CUDA]) if dev.type == "cuda"
+          else contextlib.nullcontext()) as prof:
+        params, opt, m = step(params, opt, batch)
+        _sync(dev)
+    report = {"step_ms": walls, "prof": prof,
+              "profiled_wall_ms": (time.perf_counter() - t0) * 1e3}
+    _print_profile(tag, report, "train step")
+    if prof is not None:
+        kinds = collections.Counter()
+        for e in prof.events():
+            if e.device_type.name == "CUDA":
+                kinds[_kernel_kind(e.name)] += e.time_range.elapsed_us()
+        print(f"[{tag}] device time by kind: " + ", ".join(
+            f"{k} {v / 1e3:.1f} ms" for k, v in kinds.most_common()))
+    return params, opt
+
+
+def _kernel_kind(name):
+    """A device activity's kind, by its kernel name."""
+    for kind, pat in (("matmul", r"gemm|nvjet|cutlass|xmma|sm90_"),
+                      ("copy", r"copy|Memcpy|Memset|cat_"),
+                      ("reduction", r"reduce|softmax|norm|logsumexp"),
+                      ("elementwise", r"elementwise")):
+        if re.search(pat, name, re.I):
+            return kind
+    return "other"
+
+
+def train_full_phase(add, device=None, argv=TRAIN_FULL):
+    """Phases 22 and 23, ``[train-full]`` and ``[train-full-adam8bit]``:
+    gemma2-2b at full width (26 layers, d 2304, vocab 256000, bf16 params,
+    remat on) through ``repro_torch.launch.train.main`` with f32 Adam, 5
+    steps of B 2 x T 1024 (per-step lines from ``log_every=1``), then one
+    profiled step; then the same shape with 8-bit Adam through the
+    launcher's pieces (``train.build(optimizer="adam8bit")``) for 3 steps
+    and a profiled one, on the same data source. Losses finite; the 8-bit
+    run's peak device memory must be below the f32 run's."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.optim import linear_warmup_linear_decay, tree_leaves
+    from repro_torch.runtime import make_train_step, run_train_loop
+    dev = torch.device(device or "cuda")
+    tag = "train-full"
+    read = _zero_counts(tag)
+    t0 = time.perf_counter()
+    src = train_source(argv, tag)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        print(f"[{tag}] device memory in use before the phase "
+              f"{torch.cuda.memory_allocated()} bytes")
+    out = train.main(argv, device=dev, source=src, log_every=1)
+    args = train.build_parser().parse_args(argv)
+    n_params = sum(t.numel() for t in tree_leaves(out["params"]))
+    tokens = args.batch * args.seq
+    require(out["step"] == args.steps, f"{tag}: finished at {out['step']}")
+    walls, peak = _train_report(tag, out["history"], src, n_params, tokens,
+                                2, dev)
+    f32_moments = _moment_bytes(out["opt_state"])
+    # one more step of the launcher's step function, profiled
+    cfg = get_config(args.arch)
+    step = make_train_step(cfg.reduced() if args.reduced else cfg,
+                           lr_schedule=linear_warmup_linear_decay(
+                               args.lr, args.steps))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in src.batch(
+        args.batch, args.steps).items()}
+    _profiled_train_step(tag, step, out["params"], out["opt_state"], batch,
+                         walls, dev)
+    print(f"[{tag}] f32 Adam moments {f32_moments} bytes; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    del out, step, batch
+    add(read())
+    gc.collect()
+
+    tag = "train-full-adam8bit"
+    read = _zero_counts(tag)
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    src.batch_s.clear()
+    i = argv.index("--steps")
+    argv8 = argv[:i + 1] + ["3"] + argv[i + 2:]
+    args8 = train.build_parser().parse_args(argv8)
+    s = train.build(args8, device=dev, source=src, optimizer="adam8bit")
+    int8_leaves = sum(t.dtype == torch.int8
+                      for t in tree_leaves(s.opt_state.mu))
+    res = run_train_loop(s.step, s.params, s.opt_state, s.pipe,
+                         dataclasses.replace(s.loop_cfg, log_every=1),
+                         put_batch=s.put)
+    require(res["step"] == 3, f"{tag}: finished at {res['step']}")
+    walls8, peak8 = _train_report(tag, res["history"], src, n_params,
+                                  tokens, 1, dev)
+    q_bytes = _moment_bytes(res["opt_state"])
+    print(f"[{tag}] 8-bit Adam moments {q_bytes} bytes ({int8_leaves} int8 "
+          f"leaves per moment) against f32 Adam's {f32_moments} "
+          f"({q_bytes / f32_moments:.3f}x)")
+    batch = s.put(next(s.pipe))
+    _profiled_train_step(tag, s.step, res["params"], res["opt_state"], batch,
+                         walls8, dev)
+    if dev.type == "cuda":
+        require(peak8 < peak, f"{tag}: peak device memory {peak8} is not "
+                f"below f32 Adam's {peak}")
+        print(f"[{tag}] peak device memory {peak8} bytes against f32 "
+              f"Adam's {peak} ({peak8 / peak:.3f}x)")
+    print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
+    del s, res, batch
+    add(read())
+    gc.collect()
+
+
+def _wide(cfg):
+    """Reduced gemma2-2b with a 4096 x 256 tied embedding: a leaf whose
+    8-bit Adam moments are int8 (2^20 elements, last dim 256)."""
+    import dataclasses
+    return dataclasses.replace(cfg, vocab_size=4096, d_model=256)
+
+
+def _adam_bound(got, want, lr, steps):
+    """Updated params of two runs of the same steps: within rtol 1e-5 plus
+    1e-6 of the leaf's largest magnitude, except where Adam's normalized
+    update magnifies float noise (a gradient near Adam's eps, a first
+    moment that cancels across steps, an int8 moment one step apart), held
+    within 2 x lr a step. Returns the count of the latter."""
+    got, want = got.double().cpu(), want.double().cpu()
+    d = (got - want).abs()
+    tight = 1e-5 * want.abs() + 1e-6 * float(want.abs().max())
+    require(float(d.max()) <= 2 * lr * steps + float(tight.max()),
+            f"updated params differ by {float(d.max())}")
+    return int((d > tight).sum())
+
+
+def train_card_vs_cpu_phase(add, devices=("cuda", "cpu")):
+    """Phase 24, ``[train-reduced-card-vs-cpu]``: reduced gemma2-2b in f32,
+    B 4 x T 32, params drawn on the CPU from one seed and copied to the
+    card, batches from a numpy seed: two steps of ``make_train_step`` with
+    Adam at microbatches 1 and 2, and with 8-bit Adam on the
+    wide-embedding variant (its 4096 x 256 embedding keeps int8 moments),
+    on the card and on the CPU. Losses and gradient norms within 1e-5
+    relative; each f32 moment leaf (the gradients' record) within 1e-4 of
+    its L2 norm (f32 sums of cancelling terms, the embedding's backward
+    with atomics on the card: single elements move by more than their own
+    rounding); the int8 moments within 1 LSB on at most 1e-3 of the bytes
+    (counted); the updated params after each Adam step within the bound
+    of ``_adam_bound`` on all but at most 1 % of them (counted, each within
+    2 x lr a step: Adam's normalized update turns that noise into an update
+    of up to lr). 8-bit Adam's params are held after its first step only:
+    its second update divides dequantized moments, and an element whose
+    int8 second moment rounds to 0 in a row with a far larger maximum takes
+    an update of up to m / eps, so one int8 step apart moves it by far more
+    than lr (the reference's algorithm)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import (adam_init, linear_warmup_linear_decay,
+                                   qadam_init, tree_leaves, tree_map)
+    from repro_torch.runtime import make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False   # the default, held
+    tag = "train-reduced-card-vs-cpu"
+    read = _zero_counts(tag)
+    t0 = time.perf_counter()
+    base = get_config("gemma2-2b").reduced()
+    lr, steps = 1e-3, 2
+    for label, cfg, kw in (
+            ("adam, 1 microbatch", base, dict(optimizer="adam")),
+            ("adam, 2 microbatches", base, dict(optimizer="adam",
+                                                microbatches=2)),
+            ("adam8bit, wide embedding", _wide(base),
+             dict(optimizer="adam8bit"))):
+        init = qadam_init if kw["optimizer"] == "adam8bit" else adam_init
+        rng = np.random.RandomState(11)
+        batches = [rng.randint(0, cfg.vocab_size, size=(4, 32)).astype(
+            np.int32) for _ in range(steps)]
+        runs = {}
+        for dev in devices:
+            p = tree_map(lambda t: t.to(dev), tfm.init_params(
+                cfg, 5, dtype=torch.float32, device="cpu"))
+            o = init(p)
+            step = make_train_step(cfg, lr_schedule=linear_warmup_linear_decay(
+                lr, 10), **kw)
+            ms, snaps = [], []
+            for toks in batches:
+                t = torch.from_numpy(toks).to(dev)
+                p, o, m = step(p, o, {"tokens": t, "labels": t})
+                ms.append(m)
+                snaps.append([x.cpu().clone() for x in tree_leaves(p)])
+            runs[dev] = (snaps, o, ms)
+        (sc, oc, mc), (sp, op, mp) = (runs[d] for d in devices)
+        for a, b in zip(mc, mp):
+            for k in ("loss", "grad_norm"):
+                va, vb = float(a[k]), float(b[k])
+                require(abs(va - vb) <= 1e-5 * abs(vb),
+                        f"{tag}: {label}: {k} {va} on the card, {vb} on the "
+                        f"CPU")
+        held = 1 if kw["optimizer"] == "adam8bit" else steps
+        loose = [sum(_adam_bound(a, b, lr, i + 1) for a, b in zip(
+            sc[i], sp[i])) for i in range(held)]
+        flips, n_int8, worst = 0, 0, 0.0
+        for a, b in zip(tree_leaves((oc.mu, oc.nu)),
+                        tree_leaves((op.mu, op.nu))):
+            a = a.cpu()
+            if a.dtype == torch.int8:
+                d = (a.int() - b.int()).abs()
+                require(int(d.max()) <= 1, f"{tag}: {label}: an int8 moment "
+                        f"differs by {int(d.max())} LSB")
+                flips += int((d > 0).sum())
+                n_int8 += d.numel()
+            else:
+                rel = float((a - b).norm()) / max(float(b.norm()), 1e-30)
+                worst = max(worst, rel)
+                require(rel <= 1e-4, f"{tag}: {label}: a moment leaf "
+                        f"differs by {rel:.3g} of its L2 norm")
+        require(flips <= 1e-3 * max(n_int8, 1),
+                f"{tag}: {label}: {flips} of {n_int8} int8 moments differ")
+        n = sum(t.numel() for t in sp[0])
+        require(max(loose) <= 1e-2 * n, f"{tag}: {label}: {loose} of {n} "
+                f"params off the tight bound")
+        print(f"[{tag}] {label}: losses card "
+              f"{', '.join(f'{float(m['loss']):.6f}' for m in mc)}, CPU "
+              f"{', '.join(f'{float(m['loss']):.6f}' for m in mp)}; grad "
+              f"norms card {float(mc[-1]['grad_norm']):.6f}, CPU "
+              f"{float(mp[-1]['grad_norm']):.6f}; f32 moments within "
+              f"{worst:.3g} of each leaf's L2 norm; params off the tight "
+              f"bound after step {', '.join(map(str, range(1, held + 1)))}"
+              f": {', '.join(map(str, loose))} of {n} (within 2 x lr a "
+              f"step); int8 moments differing by 1 LSB: {flips} of "
+              f"{n_int8}")
+    print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
+    add(read())
+
+
+def train_e2e_phase(add, device=None, preset="100m"):
+    """Phase 25, ``[train-e2e]``: ``examples/torch_train_e2e.py --preset
+    100m`` through its own pieces (checkpoints under
+    ``build/train_e2e_ckpt``, emptied first). A first run of 7 steps gets a
+    SIGTERM from inside its 4th step: the loop must checkpoint and stop at
+    step 4. A second run resumes: the state its first step receives must
+    equal the saved params and Adam moments bit for bit, its first batch
+    must be the stream's batch 4, and it finishes at step 7 with the
+    pipeline at step 7. Then the PTQ calibration and 5 QAT steps (losses
+    finite). Prints ms a step of both."""
+    import math
+    import os
+    import shutil
+    import signal
+    import importlib.util
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.optim import tree_leaves
+    tag = "train-e2e"
+    read = _zero_counts(tag)
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_e2e", ROOT / "examples" / "torch_train_e2e.py")
+    e2e = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(e2e)
+    ckpt = ROOT / "build" / "train_e2e_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args = e2e.build_parser().parse_args([
+        "--preset", preset, "--steps", "7", "--qat-steps", "5",
+        "--checkpoint-dir", str(ckpt)] + (
+            ["--device", device] if device else []))
+    dev = torch.device(args.device or "cuda")
+    cfg = e2e.preset_cfg(args.preset)
+    lines = []
+
+    def log(msg):
+        lines.append(msg)
+        print(f"[{tag}] {msg}")
+
+    def sigterm_at_4(step):
+        calls = [0]
+
+        def wrapped(p, o, b):
+            calls[0] += 1
+            if calls[0] == 4:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return step(p, o, b)
+        return wrapped
+
+    out1, _ = e2e.pretrain(cfg, args, dev, log_every=1,
+                           wrap_step=sigterm_at_4, log=log)
+    require(out1["step"] == 4 and
+            "[train] preempted at step 4; checkpointing" in lines,
+            f"{tag}: the SIGTERM run stopped at step {out1['step']}")
+    n_params = sum(t.numel() for t in tree_leaves(out1["params"]))
+    ck = Checkpointer(str(ckpt))
+    require(ck.latest_step() == 4, f"{tag}: checkpoints {ck.all_steps()}")
+    (saved_p, saved_o), meta = ck.restore((out1["params"],
+                                           out1["opt_state"]))
+    require(meta["data_state"] == {"seed": 0, "step": 4},
+            f"{tag}: saved data state {meta['data_state']}")
+    for a, b in zip(tree_leaves((saved_p, saved_o)),
+                    tree_leaves((out1["params"], out1["opt_state"]))):
+        require(torch.equal(a, b), f"{tag}: the checkpoint is not the "
+                f"state at step 4")
+    pre_ms = [h["time_s"] * 1e3 for h in out1["history"]]
+    del out1
+    want4 = e2e.SyntheticLM(e2e.LMTaskConfig(vocab_size=cfg.vocab_size,
+                                             seq_len=args.seq),
+                            seed=0).batch(args.batch, 4)["tokens"]
+    seen = []
+
+    def check_resume(step):
+        def wrapped(p, o, b):
+            if not seen:
+                seen.append(all(torch.equal(x, y) for x, y in zip(
+                    tree_leaves((p, o)), tree_leaves((saved_p, saved_o)))))
+                seen.append(torch.equal(b["tokens"].cpu(),
+                                        torch.from_numpy(want4)))
+            return step(p, o, b)
+        return wrapped
+
+    lines.clear()
+    out2, pipe = e2e.pretrain(cfg, args, dev, log_every=1,
+                              wrap_step=check_resume, log=log)
+    require(lines[0] == "[train] resumed from step 4",
+            f"{tag}: the second run did not resume: {lines[:1]}")
+    require(seen == [True, True], f"{tag}: resumed params/moments equal the "
+            f"saved ones: {seen[:1]}; first batch is batch 4: {seen[1:]}")
+    require(out2["step"] == 7 and pipe.state.step == 7,
+            f"{tag}: the resumed run ended at step {out2['step']}, the "
+            f"pipeline at {pipe.state.step}")
+    pre_ms += [h["time_s"] * 1e3 for h in out2["history"]]
+    print(f"[{tag}] {cfg.name}: {n_params} params; resumed state equals "
+          f"the saved one bit for bit (params, Adam moments, data state "
+          f"step 4); pretraining {statistics.median(pre_ms[1:]):.1f} ms a "
+          f"step (median of {len(pre_ms) - 1} steps after the first, host "
+          f"clock, synchronized; first {pre_ms[0]:.1f} ms)")
+    del saved_p, saved_o
+    _, losses, walls = e2e.qat_finetune(cfg, out2["params"], pipe, args, dev,
+                                        log=log)
+    require(all(map(math.isfinite, losses)), f"{tag}: QAT losses {losses}")
+    print(f"[{tag}] QAT (W8A8, learnable ranges) losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; "
+          f"{statistics.median(walls[1:]):.1f} ms a step (median after the "
+          f"first, {walls[0]:.1f} ms)")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
+    add(read())
+
+
 def ptxas_report():
     """``--ptxas``: compile the split and cluster kernels' sources once more
     with ``-Xptxas -v`` (into build/ptxas) and print one line per kernel
@@ -3212,6 +3670,9 @@ def main() -> int:
           f"(bound 1e-4)")
     for name, count in entry_point_phase().items():
         launches[name] += count
+    train_full_phase(add)
+    train_card_vs_cpu_phase(add)
+    train_e2e_phase(add)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     kernels = []

@@ -8,7 +8,15 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
+
+# the reference's input shapes (``repro.configs.base.SHAPES``)
+SHAPES: Dict[str, dict] = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,7 +107,7 @@ class ModelConfig:
         )
 
 
-_REGISTRY = ["gemma2_2b"]
+_REGISTRY = ["gemma2_2b", "h2o_danube3_4b"]
 ARCH_IDS = [m.replace("_", "-") for m in _REGISTRY]
 
 

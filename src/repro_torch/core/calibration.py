@@ -97,7 +97,8 @@ class QuantCtx:
         if qp is None:
             return x
         if self.telemetry is not None:
-            self.telem_site(site, telemetry_stats(x, qp, cfg))
+            with torch.no_grad():       # a side record, outside autograd
+                self.telem_site(site, telemetry_stats(x, qp, cfg))
         return fake_quant(x, qp, cfg)
 
     def act(self, site: str, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Synthetic data for the paper's experiments (port of ``repro.data``'s
-numpy generators)."""
+"""Synthetic data and the checkpointable input pipeline (port of
+``repro.data``'s numpy generators and ``DataPipeline``)."""
+from repro_torch.data.pipeline import DataPipeline, IteratorState
 from repro_torch.data.synthetic import (GLUE_SUITE, GLUETaskConfig,
                                         LMTaskConfig, SyntheticGLUE,
                                         SyntheticLM)

@@ -11,6 +11,13 @@ Two parameter layouts share the same block function:
   * unrolled — ``params["layers"]``: a flat per-layer list with per-layer
     site names ``layer{i}/...`` (calibration, per-layer experiments).
 
+Training (``train_loss``, ``forward(remat=True)``): the cache-free
+forward unbinds every stacked leaf once (``_unstack``), so autograd adds
+the layers' gradients back with one ``stack`` instead of a zeroed
+stack-sized buffer per layer; ``remat`` recomputes each block (unrolled) or
+superblock (stacked) in the backward pass, the reference's
+``jax.checkpoint`` granularity.
+
 Quantization sites per block (paper Fig. 1 / Table 2 naming):
   {L}/attn_in, {L}/residual_attn, {L}/ffn_in, {L}/ffn_out,
   {L}/residual_ffn, plus the attention and FFN internal sites, and
@@ -18,9 +25,11 @@ Quantization sites per block (paper Fig. 1 / Table 2 naming):
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -31,8 +40,8 @@ from repro_torch.models.attention import (
     init_paged_kv_cache, init_paged_quant4_kv_cache,
     init_paged_quant_kv_cache, init_quant4_kv_cache, init_quant_kv_cache,
     reset_kv_lanes, reset_paged_lanes)
-from repro_torch.models.common import embed_init, rms_norm, resolve_weight, \
-    softcap
+from repro_torch.models.common import cross_entropy, embed_init, rms_norm, \
+    resolve_weight, softcap
 
 
 def _norm(cfg: ModelConfig, p, x):
@@ -179,6 +188,21 @@ def _stack(items):
 
 def _layer(tree, s: int):
     return _map(lambda x: x[s], tree)
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layer slices of a stacked tree, every leaf unbound once
+    (one ``stack`` in the backward pass, where ``n`` selects would each add
+    into a zeroed buffer the size of the whole stack)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][s] for k in tree} for s in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [_unstack(v, n) for v in tree]
+        if hasattr(tree, "_fields"):
+            return [type(tree)(*(p[s] for p in parts)) for s in range(n)]
+        return [type(tree)(p[s] for p in parts) for s in range(n)]
+    return list(torch.unbind(tree))
 
 
 def clone_cache(cache):
@@ -538,20 +562,57 @@ def _head(cfg: ModelConfig, params, x, ctx):
     return logits
 
 
+@contextlib.contextmanager
+def _quiet(ctx):
+    """The ctx with its records switched off: quant telemetry, range
+    statistics and calibration tensors go to throwaway containers. A
+    rematerialized block runs its forward again in the backward pass, and
+    must not record its sites a second time (the reference traces the
+    block once)."""
+    saved = (ctx.telemetry, ctx.range_states, ctx.calib_tensors)
+    ctx.telemetry = None
+    ctx.range_states = dict(ctx.range_states)
+    ctx.calib_tensors = {}
+    try:
+        yield
+    finally:
+        ctx.telemetry, ctx.range_states, ctx.calib_tensors = saved
+
+
+def _remat(fn, ctx, *args):
+    """``fn(*args)`` under activation checkpointing (the reference's
+    ``jax.checkpoint`` with ``nothing_saveable``): only its inputs are
+    kept, and its forward runs again, without recording (:func:`_quiet`),
+    when the backward pass reaches it."""
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1 or ctx is None:
+            return fn(*a)
+        with _quiet(ctx):
+            return fn(*a)
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 def forward(cfg: ModelConfig, params, tokens, *, ctx=None, cache=None,
-            positions=None, chunked=None, append: bool = False):
+            positions=None, chunked=None, append: bool = False,
+            remat: bool = False):
     """Returns (logits, cache). tokens: (B, T) int. ``positions`` (B, T)
     are absolute positions (default arange; -1 marks dead cells);
     ``cache`` must be in the params' layout and is written in place (each
     layer gets a view of its slice of the stacked leaves) and returned:
     a caller that needs the cache as it was clones it first. Its
     ``"block_table"`` (paged caches) goes to every layer unchanged.
-    ``append``: chunked prefill (see models.attention.attention_block)."""
+    ``append``: chunked prefill (see models.attention.attention_block).
+    ``remat`` (with autograd on, no cache): recompute each block (unrolled)
+    or superblock (stacked) in the backward pass."""
     B, T = tokens.shape
     x = _embed(cfg, params, tokens, ctx)
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32,
                                  device=tokens.device).expand(B, T)
+    remat = remat and cache is None and torch.is_grad_enabled()
 
     block_table = cache.get("block_table") if cache is not None else None
     write_plans = {}        # the cache writes' scatter plans, per capacity
@@ -564,9 +625,30 @@ def forward(cfg: ModelConfig, params, tokens, *, ctx=None, cache=None,
     if "layers" in params:
         for i, kind in enumerate(cfg.layer_plan):
             c = cache["layers"][i] if cache is not None else None
-            x, _ = run(kind, params["layers"][i], x, c, f"layer{i}")
+            if remat:
+                x = _remat(lambda p, x, kind=kind, i=i:
+                           run(kind, p, x, None, f"layer{i}")[0], ctx,
+                           params["layers"][i], x)
+            else:
+                x, _ = run(kind, params["layers"][i], x, c, f"layer{i}")
         return _head(cfg, params, x, ctx), cache
 
+    def superblock(p_slices, x, s=None):
+        for j, kind in enumerate(cfg.block_pattern):
+            if s is None:
+                p, c = p_slices[j], None
+            else:
+                # views of layer s of the stacked cache and params
+                c = _layer(cache["scan"][j], s)
+                p = _layer(params["scan"][j], s)
+            x, _ = run(kind, p, x, c, "layer")
+        return x
+
+    # the cache-free forward unbinds each stacked leaf once; with a cache
+    # every layer gets views of its slice (the cache is written in place)
+    unstacked = None
+    if cache is None:
+        unstacked = [_unstack(blk, cfg.n_super) for blk in params["scan"]]
     # quant telemetry: every superblock records under the shared "layer/"
     # names, so its new entries are taken out after it and stacked into
     # (n_super, 4) vectors, the reference's scan outputs
@@ -574,10 +656,12 @@ def forward(cfg: ModelConfig, params, tokens, *, ctx=None, cache=None,
     per_super = []
     for s in range(cfg.n_super):
         before = set(telem) if telem is not None else None
-        for j, kind in enumerate(cfg.block_pattern):
-            # a view of layer s of the stacked cache: written in place
-            c = _layer(cache["scan"][j], s) if cache is not None else None
-            x, _ = run(kind, _layer(params["scan"][j], s), x, c, "layer")
+        if remat:
+            x = _remat(superblock, ctx, [u[s] for u in unstacked], x)
+        elif cache is None:
+            x = superblock([u[s] for u in unstacked], x)
+        else:
+            x = superblock(None, x, s)
         if telem is not None:
             per_super.append({k: telem.pop(k)
                               for k in sorted(set(telem) - before)})
@@ -588,6 +672,24 @@ def forward(cfg: ModelConfig, params, tokens, *, ctx=None, cache=None,
         c = cache["tail"][i] if cache is not None else None
         x, _ = run(kind, params["tail"][i], x, c, "tail")
     return _head(cfg, params, x, ctx), cache
+
+
+# ---------------------------------------------------------------------------
+# Step functions
+# ---------------------------------------------------------------------------
+
+def train_loss(cfg: ModelConfig, params, batch, *, ctx=None,
+               remat: bool = True, chunked=None):
+    """Next-token CE. batch: {tokens (B, T), labels (B, T)}. Front-end
+    embeddings and encoder-decoder configs wait for the model zoo (ROADMAP
+    Queue 1 item 5)."""
+    if batch.get("embeds") is not None or cfg.encoder_layers > 0:
+        raise NotImplementedError(
+            "front-end embeddings and encoder-decoder training are not yet "
+            "ported (ROADMAP Queue 1 item 5, the model zoo)")
+    logits, _ = forward(cfg, params, batch["tokens"], ctx=ctx,
+                        remat=remat, chunked=chunked)
+    return cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, *, positions=None,

@@ -5,7 +5,10 @@ The moments are f32 trees shaped like the parameters; ``step`` is a 0-d
 int32 tensor on the parameters' device, so an update reads nothing back to
 the host. The update follows the reference's order of operations, which
 ``torch.optim.Adam`` does not. The reference's ``chunked`` option (an XLA
-memory workaround for huge stacked leaves) is not ported.
+memory workaround for huge stacked leaves) is not ported; ``inplace=True``
+is the port's counterpart of the reference's donated buffers: each leaf's
+new moments are written into the old ones as soon as they are computed
+(the same values), so only one leaf's temporaries live at a time.
 """
 from __future__ import annotations
 
@@ -39,11 +42,13 @@ adamw_init = adam_init
 @torch.no_grad()
 def adam_update(grads, state: AdamState, params, *, lr, b1: float = 0.9,
                 b2: float = 0.999, eps: float = 1e-8,
-                weight_decay: float = 0.0, grad_scale=None):
+                weight_decay: float = 0.0, grad_scale=None,
+                inplace: bool = False):
     """Returns (updates, new_state). ``lr`` may be a scalar or a callable
     step -> scalar (schedule). ``weight_decay`` is decoupled (AdamW).
     ``grad_scale`` (e.g. a global-norm clip factor) multiplies each gradient
-    inside the moment update."""
+    inside the moment update. ``inplace``: the new moments overwrite
+    ``state``'s tensors (the returned state holds them)."""
     step = state.step + 1
     lr_t = lr(step) if callable(lr) else lr
     stepf = step.float()
@@ -59,6 +64,8 @@ def adam_update(grads, state: AdamState, params, *, lr, b1: float = 0.9,
         u = (m2 / b1t) / (torch.sqrt(v2 / b2t) + eps)
         if weight_decay:
             u = u + weight_decay * p.float()
+        if inplace:
+            m2, v2 = m.copy_(m2), v.copy_(v2)
         return m2, v2, (-lr_t * u).to(p.dtype)
 
     out = tree_map(leaf, grads, state.mu, state.nu, params)
@@ -79,7 +86,12 @@ def _select(out, template, i):
 
 
 @torch.no_grad()
-def apply_updates(params, updates):
+def apply_updates(params, updates, inplace: bool = False):
+    """``params + updates`` in the params' dtypes; ``inplace`` writes each
+    sum into its parameter tensor (the same values)."""
+    if inplace:
+        return tree_map(lambda p, u: p.copy_((p + u).to(p.dtype)), params,
+                        updates)
     return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
 
 

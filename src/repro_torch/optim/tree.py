@@ -5,6 +5,8 @@ from __future__ import annotations
 
 from typing import Callable, List
 
+import torch
+
 
 def _is_leaf(node) -> bool:
     return not isinstance(node, (dict, list, tuple))
@@ -49,3 +51,17 @@ def tree_unflatten(template, leaves):
                 else type(node)(out)
         return next(it)
     return fill(template)
+
+
+def value_and_grad(loss_fn, tree):
+    """(loss, gradient tree) of ``loss_fn(tree)`` at the tree's values;
+    leaves the loss does not reach get zero gradients, as under
+    ``jax.grad``. The leaves are detached views of ``tree``'s tensors, so
+    nothing is copied."""
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(tree)]
+    with torch.enable_grad():
+        loss = loss_fn(tree_unflatten(tree, leaves))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(leaves, grads)]
+    return loss.detach(), tree_unflatten(tree, grads)

@@ -34,8 +34,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import bert
 from repro_torch.optim import (adam_init, adam_update, apply_updates,
                                clip_by_global_norm,
-                               linear_warmup_linear_decay, tree_leaves,
-                               tree_map, tree_unflatten)
+                               linear_warmup_linear_decay, tree_map,
+                               value_and_grad)
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "build" / "paper_results"
 
@@ -76,19 +76,6 @@ def init_with_outliers(cfg: bert.BertConfig, seed: int = 0, device=None):
             for j, dim in enumerate(OUTLIER_DIMS):
                 p["w_out"][:, dim] *= OUTLIER_SCALE - 4.0 * j
     return params
-
-
-def value_and_grad(loss_fn, tree):
-    """(loss, gradient tree) of ``loss_fn(tree)`` at the tree's values;
-    leaves the loss does not reach get zero gradients, as under
-    ``jax.grad``."""
-    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(tree)]
-    with torch.enable_grad():
-        loss = loss_fn(tree_unflatten(tree, leaves))
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(t) if g is None else g
-             for t, g in zip(leaves, grads)]
-    return loss.detach(), tree_unflatten(tree, grads)
 
 
 def train_steps(cfg: bert.BertConfig, params, src: SyntheticGLUE,

@@ -1,8 +1,11 @@
-"""Serve step factories (port of the prefill, admit, chunk-prefill,
-decode and block-swap steps of ``repro.runtime.steps``). Each model step
-builds a fresh ctx from ``ctx_factory`` and runs without autograd. Paged
-caches need no extra plumbing: the block table rides inside the cache
-dict.
+"""Train and serve step factories (port of ``repro.runtime.steps``).
+
+``make_train_step`` accumulates microbatch gradients, clips by global norm
+inside the optimizer update and steps Adam or 8-bit Adam, with gradients
+from ``torch.autograd.grad`` over the parameter leaves. The serve steps
+(prefill, admit, chunk-prefill, decode, block swap) build a fresh ctx from
+``ctx_factory`` and run without autograd. Paged caches need no extra
+plumbing: the block table rides inside the cache dict.
 
 ``quant_telemetry=True`` returns a second closure (``prefill_t``,
 ``admit_t``, ``chunk_t``, ``decode_t``) whose ctx is armed for quant-health
@@ -18,6 +21,77 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
+from repro_torch.optim import (adam_update, apply_updates, qadam_update,
+                               tree_leaves, tree_map, value_and_grad)
+
+
+def make_train_step(cfg: ModelConfig, *, lr_schedule, microbatches: int = 1,
+                    dist=None, clip_norm: float = 1.0,
+                    ctx_factory: Optional[Callable] = None,
+                    remat: bool = True, chunked=None,
+                    optimizer: str = "adam", accum_dtype=torch.float32):
+    """Returns step(params, opt_state, batch) -> (params, opt_state,
+    metrics), ``metrics`` {"loss", "grad_norm", "lr"} as device tensors.
+
+    ctx_factory: () -> QuantCtx for QAT (fake-quant in the train graph).
+    optimizer: "adam" (f32 moments) or "adam8bit" (int8 moments with
+    row-wise scales, ``optim.quantized_adam``). Params and optimizer state
+    are updated in place with the functional update's values, the port's
+    counterpart of the reference's callers jitting the step with
+    ``donate_argnums=(0, 1)``: a step holds one copy of each, and the
+    trees passed in are the trees returned. ``dist`` (sharded training)
+    waits for ROADMAP Queue 1 item 6."""
+    if dist is not None:
+        raise NotImplementedError("sharded training is not yet ported "
+                                  "(ROADMAP Queue 1 item 6, multi-device)")
+    if optimizer == "adam8bit":
+        opt_update = qadam_update
+    elif optimizer == "adam":
+        opt_update = adam_update
+    else:
+        raise ValueError(f"optimizer must be 'adam' or 'adam8bit', got "
+                         f"{optimizer!r}")
+
+    def loss_for(params, mb):
+        ctx = ctx_factory() if ctx_factory is not None else None
+        return tfm.train_loss(cfg, params, mb, ctx=ctx, remat=remat,
+                              chunked=chunked)
+
+    def step(params, opt_state, batch):
+        if microbatches == 1:
+            loss, grads = value_and_grad(lambda p: loss_for(p, batch),
+                                         params)
+        else:
+            mbs = {k: v.reshape(microbatches, v.shape[0] // microbatches,
+                                *v.shape[1:]) for k, v in batch.items()}
+            lsum = torch.zeros((), dtype=torch.float32,
+                               device=opt_state.step.device)
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=accum_dtype, device=p.device), params)
+            for i in range(microbatches):
+                mb = {k: v[i] for k, v in mbs.items()}
+                l, g = value_and_grad(lambda p: loss_for(p, mb), params)
+                tree_map(lambda a, b: a.add_(b.to(accum_dtype)), grads, g)
+                lsum = lsum + l
+                del g
+            loss = lsum / microbatches
+            grads = tree_map(lambda g: g / microbatches, grads)
+
+        # the global-norm clip is fused into the moment update as a scale
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in tree_leaves(grads)))
+        scale = torch.clamp_max(clip_norm / (gnorm + 1e-12), 1.0)
+        updates, opt_state = opt_update(grads, opt_state, params,
+                                        lr=lr_schedule, grad_scale=scale,
+                                        inplace=True)
+        del grads
+        params = apply_updates(params, updates, inplace=True)
+        lr = lr_schedule(opt_state.step) if callable(lr_schedule) else \
+            torch.tensor(float(lr_schedule), device=gnorm.device)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm,
+                                   "lr": lr}
+
+    return step
 
 
 def _telem_ctx(ctx_factory):

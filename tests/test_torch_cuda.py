@@ -1651,3 +1651,123 @@ def test_ptq_with_adaround_on_cuda(gen):
                  (grid == (lo + 1).clamp(wcfg.qmin, wcfg.qmax))).all())
     err = lambda wq: float(torch.mean(torch.square(x @ w - x @ wq)))  # noqa
     assert err(w_ada) < err(fake_quant(w, qp, wcfg))
+
+
+# ---------------------------------------------------------------------------
+# the training stack on the card (no kernel of the port is on its path)
+# ---------------------------------------------------------------------------
+
+def _train_steps(cfg, dev, steps=2, **kw):
+    """Two steps of ``make_train_step`` on ``dev`` from the same CPU-drawn
+    params and numpy batches (B 4 x T 32)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import (adam_init, linear_warmup_linear_decay,
+                                   qadam_init, tree_map)
+    from repro_torch.runtime import make_train_step
+    p = tree_map(lambda t: t.to(dev), tfm.init_params(
+        cfg, 5, dtype=torch.float32, device="cpu"))
+    o = (qadam_init if kw.get("optimizer") == "adam8bit" else adam_init)(p)
+    step = make_train_step(cfg, lr_schedule=linear_warmup_linear_decay(
+        1e-3, 10), **kw)
+    rng = np.random.RandomState(11)
+    ms = []
+    for _ in range(steps):
+        t = torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(4, 32))
+                             .astype(np.int32)).to(dev)
+        p, o, m = step(p, o, {"tokens": t, "labels": t})
+        ms.append({k: float(v) for k, v in m.items()})
+    return p, o, ms
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_reduced_train_steps_on_cuda_match_the_cpu(gen, microbatches):
+    """Reduced gemma2-2b, f32 Adam, two steps: losses and gradient norms
+    within 1e-5 relative (f32 matmuls and the embedding's atomic backward
+    sum in other orders on the card; no TF32), each f32 moment leaf within
+    1e-4 of its L2 norm (sums of cancelling terms move single elements by
+    more than their own rounding), updated params within 1e-5 relative
+    plus 1e-6 of the leaf's largest magnitude on all but at most 1 % of
+    them, each within 2 x lr a step (Adam's normalized update magnifies
+    float noise where a gradient is near its eps or the first moment
+    cancels across steps)."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import tree_leaves
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config("gemma2-2b").reduced()
+    pc, oc, mc = _train_steps(cfg, "cuda", microbatches=microbatches)
+    pp, op, mp = _train_steps(cfg, "cpu", microbatches=microbatches)
+    for a, b in zip(mc, mp):
+        for k in ("loss", "grad_norm"):
+            assert abs(a[k] - b[k]) <= 1e-5 * abs(b[k]), (k, a[k], b[k])
+        assert a["lr"] == b["lr"]
+    for a, b in zip(tree_leaves((oc.mu, oc.nu)), tree_leaves((op.mu,
+                                                              op.nu))):
+        assert float((a.cpu() - b).norm()) <= 1e-4 * float(b.norm())
+    loose = 0
+    for a, b in zip(tree_leaves(pc), tree_leaves(pp)):
+        d = (a.cpu().double() - b.double()).abs()
+        tight = 1e-5 * b.abs().double() + 1e-6 * float(b.abs().max())
+        assert float(d.max()) <= 2 * 1e-3 * 2 + float(tight.max())
+        loose += int((d > tight).sum())
+    assert loose <= 1e-2 * sum(t.numel() for t in tree_leaves(pp))
+
+
+def test_8bit_moments_on_cuda_within_one_lsb_of_the_cpu(gen):
+    """8-bit Adam on reduced gemma2-2b with a 4096 x 256 tied embedding
+    (its moments are int8), two steps on the card and on the CPU: the int8
+    moments within 1 LSB on at most 1e-3 of the bytes, their row scales
+    within 1e-4 of their L2 norm (as the f32 moments of the test above)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(),
+                              vocab_size=4096, d_model=256)
+    _, oc, mc = _train_steps(cfg, "cuda", optimizer="adam8bit")
+    _, op, mp = _train_steps(cfg, "cpu", optimizer="adam8bit")
+    assert abs(mc[-1]["loss"] - mp[-1]["loss"]) <= 1e-5 * mp[-1]["loss"]
+    for mom in ("mu", "nu"):
+        a, b = getattr(oc, mom)["embed"], getattr(op, mom)["embed"]
+        d = (a["q"].cpu().int() - b["q"].int()).abs()
+        assert int(d.max()) <= 1 and int((d > 0).sum()) <= 1e-3 * d.numel()
+        s_a, s_b = a["s"].cpu(), b["s"]
+        assert float((s_a - s_b).norm()) <= 1e-4 * float(s_b.norm())
+
+
+def test_checkpoint_round_trip_of_cuda_bf16_leaves(gen, tmp_path):
+    """bf16 params and f32 Adam moments on the card save (async, host copy
+    at the call) and restore onto the card bit for bit; a tensor updated
+    in place after ``save`` returns does not reach the file."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adam_init, tree_leaves
+    cfg = get_config("gemma2-2b").reduced()
+    params = tfm.init_params(cfg, 3, dtype=torch.bfloat16, device="cuda")
+    opt = adam_init(params)
+    for t in tree_leaves(opt.mu):
+        t.normal_(generator=gen)
+    want = [t.clone() for t in tree_leaves((params, opt))]
+    ck = Checkpointer(str(tmp_path))
+    ck.save(2, (params, opt), extra={"data_state": {"seed": 0, "step": 2}})
+    params["embed"].add_(1.0)
+    ck.wait()
+    (p2, o2), meta = ck.restore((params, opt))
+    assert meta["data_state"]["step"] == 2
+    for got, w in zip(tree_leaves((p2, o2)), want):
+        assert got.device.type == "cuda" and got.dtype == w.dtype
+        assert torch.equal(got, w)
+
+
+def test_train_launcher_reduced_on_cuda(gen, capsys):
+    """``launch.train.main`` with ``--reduced`` and no ``device``: trains on
+    the card and prints the reference launcher's last line."""
+    import math
+    from repro_torch.launch import train
+    out = train.main(["--arch", "gemma2-2b", "--reduced", "--steps", "3"],
+                     log_every=1)
+    assert out["step"] == 3
+    assert out["params"]["embed"].device.type == "cuda"
+    assert all(math.isfinite(h["loss"]) for h in out["history"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[-1] == "[train] finished at step 3; 0 straggler events"
+    assert [ln.split(" loss ")[0] for ln in lines[:3]] == [
+        f"[train] step {i}" for i in (1, 2, 3)]

@@ -3,6 +3,7 @@ reference package), its entry points default to the GPU and refuse to
 carry on without one, and ``chip_smoke.py`` fails without a GPU or without
 the port next to it."""
 import ast
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -17,6 +18,22 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py", REPO / "scripts" / "engine_bench_torch.py",
      REPO / "scripts" / "paper_tables_torch.py"] + \
     sorted((REPO / "examples").glob("torch_*.py"))
+
+
+TRAINING_FILES = ["src/repro_torch/launch/train.py",
+                  "src/repro_torch/runtime/train_loop.py",
+                  "src/repro_torch/runtime/fault_tolerance.py",
+                  "src/repro_torch/checkpoint/checkpointer.py",
+                  "src/repro_torch/data/pipeline.py",
+                  "src/repro_torch/optim/quantized_adam.py",
+                  "src/repro_torch/core/grad_compression.py",
+                  "src/repro_torch/configs/h2o_danube3_4b.py",
+                  "examples/torch_train_e2e.py"]
+
+
+def test_the_import_check_covers_the_training_stack():
+    assert {str(p.relative_to(REPO)) for p in PORT_FILES} >= \
+        set(TRAINING_FILES)
 
 
 def _imported_modules(path):
@@ -64,7 +81,8 @@ def test_launcher_defaults_to_cuda_and_raises_without_it():
 
 @pytest.mark.parametrize("entry", ["init_params", "init_cache", "serve",
                                    "bert_init", "train_task",
-                                   "paper_tables"])
+                                   "paper_tables", "train_main",
+                                   "train_e2e"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip("this machine has a GPU: device=None would run on it")
@@ -76,8 +94,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     from repro_torch.paper import common as paper
     sys.path.insert(0, str(REPO / "scripts"))
     import paper_tables_torch
+    from repro_torch.launch import train
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_e2e", REPO / "examples" / "torch_train_e2e.py")
+    e2e = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(e2e)
     cfg = get_config("gemma2-2b").reduced()
     calls = {
+        "train_main": lambda: train.main(["--arch", "gemma2-2b",
+                                          "--reduced", "--steps", "1"]),
+        "train_e2e": lambda: e2e.main(["--steps", "1"]),
         "bert_init": lambda: bert.init_params(bert.tiny(), 0),
         "train_task": lambda: paper.train_task(GLUE_SUITE[0], steps=1),
         "paper_tables": lambda: paper_tables_torch.main(["--sections",
@@ -117,6 +143,25 @@ def test_launcher_rejects_unported_flags(capsys):
                           "--kv-bits", "4"])
     _check_args(ap, args)
     assert (args.weight_bits, args.kv_bits) == (4, 4)
+
+
+def test_train_launcher_rejects_unported_flags(capsys):
+    """``--mesh`` and ``--multi-pod`` (multi-device training) stop the
+    training launcher before it builds a model; the other reference flags
+    parse."""
+    from repro_torch.launch.serve import _reject_unported
+    from repro_torch.launch.train import _PORTED, build_parser, main
+    for extra in (["--mesh", "2x2"], ["--multi-pod"]):
+        with pytest.raises(SystemExit):
+            main(["--arch", "gemma2-2b", "--reduced"] + extra, device="cpu")
+        assert "is not yet ported" in capsys.readouterr().err
+    ap = build_parser()
+    args = ap.parse_args(["--arch", "gemma2-2b", "--reduced", "--shape",
+                          "train_4k", "--steps", "2", "--lr", "1e-3",
+                          "--batch", "2", "--seq", "8", "--microbatches",
+                          "2", "--checkpoint-dir", "x", "--checkpoint-every",
+                          "1", "--no-resume", "--seed", "1"])
+    _reject_unported(ap, args, _PORTED)
 
 
 def test_chip_smoke_fails_without_gpu_or_without_the_port(tmp_path):

@@ -1,0 +1,891 @@
+"""The port's training stack on the CPU against the JAX package: the
+reference's substrate cases (data pipeline resume, checkpointer, fault
+tolerance, train-loop resume, single-device gradient compression), its
+8-bit Adam cases and the train-loss sanity case, run on the port; then one
+jitted reference ``make_train_step`` step against the port's on reduced
+gemma2-2b (params carried across), remat on and off bit for bit in the
+port, one QAT step of the example's 1m preset against the reference's, the
+data stream and the checkpoint format across both packages, and the
+launcher's lines.
+
+Tolerances (XLA and PyTorch sum reductions and matmuls in other orders):
+losses and gradient norms within ``rtol=1e-5``; gradients and Adam
+moments within ``rtol=1e-5`` plus 1e-5 of the leaf's largest magnitude;
+the learning rate bit for bit. Updated params within ``rtol=1e-5`` plus
+1e-6 of the leaf's largest magnitude wherever the reference's
+bias-corrected first moment is at least 1e-6 (100 x Adam's eps); below
+that the first step's update ``g / (|g| + eps)`` swings on float noise,
+so those elements (counted, at most 1 % of a leaf) are held within 2 x lr,
+Adam's bound on one step. 8-bit moments: the row scales as f32 moments,
+the int8 payloads within 1 LSB with the differing bytes counted and
+bounded (at most 1e-3 of the payload; a rounding tie moved by float
+noise). The QAT step's fake-quant sites may also move a grid step on such
+noise (the W8A8 STE gradient is discontinuous, so any leaf's gradient may
+move): there the elements off the tight bound are held within 2 x lr on at
+most 1 % of all trained elements.
+Checkpoints, data batches, remat on / off and in-place steps: bit for bit.
+"""
+import dataclasses
+import importlib.util
+import io
+import os
+import signal
+from contextlib import redirect_stdout
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint import Checkpointer as RefCheckpointer
+from repro.configs import get_config as ref_get_config
+from repro.core import grad_compression as ref_gc
+from repro.core.calibration import QuantCtx as RefQuantCtx
+from repro.core.pipeline import ptq as ref_ptq
+from repro.core.qat import init_qat_params as ref_init_qat_params
+from repro.data import DataPipeline as RefDataPipeline
+from repro.data import LMTaskConfig as RefLMTaskConfig
+from repro.data import SyntheticLM as RefSyntheticLM
+from repro.models import transformer as ref_tfm
+from repro.optim import adam as ref_adam
+from repro.optim import linear_warmup_linear_decay as ref_lwld
+from repro.optim import quantized_adam as ref_qadam
+from repro.runtime import make_train_step as ref_make_train_step
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs import get_config
+from repro_torch.convert import act_state_from_jax, params_from_jax
+from repro_torch.core import grad_compression as gc
+from repro_torch.core import w8a8_policy
+from repro_torch.core.qat import init_qat_params
+from repro_torch.data import DataPipeline, LMTaskConfig, SyntheticLM
+from repro_torch.models import transformer as tfm
+from repro_torch.optim import (AdamState, adam_init, adam_update,
+                               apply_updates, linear_warmup_linear_decay,
+                               qadam_init, qadam_update, tree_leaves,
+                               value_and_grad)
+from repro_torch.optim.quantized_adam import QUANT_MIN_ELEMS
+from repro_torch.runtime import (PreemptionGuard, RestartPolicy,
+                                 StragglerWatchdog, TrainLoopConfig,
+                                 make_train_step, run_train_loop)
+
+REPO = Path(__file__).resolve().parent.parent
+CPU = "cpu"
+RTOL, ATOL = 1e-5, 1e-6
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small ops: one intra-op thread runs them faster than a pool that
+    parallel test workers oversubscribe. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _load(path, name):
+    spec = importlib.util.spec_from_file_location(name, REPO / path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+GRAD_ATOL = 1e-5       # of the leaf's largest magnitude: grads, moments
+
+
+def _close(got, want, rtol=RTOL, atol=ATOL):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    scale = max(float(np.abs(want).max()), 1e-30) if want.size else 1.0
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol * scale)
+
+
+def _ref_m_hat(m, b1=0.9):
+    """The reference's bias-corrected first moment after one step."""
+    if isinstance(m, dict):
+        m = np.asarray(m["q"], np.float32) * np.asarray(m["s"])[..., None]
+    return np.asarray(m, np.float32) / (1 - b1)
+
+
+def _updated_close(got, want, m_hat, lr, floor=1e-6, flips=False):
+    """The updated-params bound of the module docstring (``flips``: the
+    QAT step's, where a fake-quant grid step moved by float noise may also
+    move an element with a large gradient); returns how many elements fell
+    under the loose part."""
+    got, want = got.detach().numpy().astype(np.float64), \
+        np.asarray(want, np.float64)
+    d = np.abs(got - want)
+    tight = RTOL * np.abs(want) + ATOL * max(float(np.abs(want).max()),
+                                             1e-30)
+    loose = d > tight
+    assert d.max() <= 2 * lr + tight.max()
+    if not flips:
+        assert not (loose & (np.abs(m_hat) >= floor)).any(), \
+            float(d[loose & (np.abs(m_hat) >= floor)].max())
+        assert loose.sum() <= max(1, 1e-2 * d.size), int(loose.sum())
+    return int(loose.sum())
+
+
+def _ref_leaves(tree):
+    return jax.tree.leaves(tree)
+
+
+# ---------------------------------------------------------------------------
+# the reference's substrate cases, on the port
+# ---------------------------------------------------------------------------
+
+class TestData:
+    def test_pipeline_checkpoint_resume(self):
+        src = SyntheticLM(LMTaskConfig(vocab_size=128, seq_len=16), seed=3)
+        p1 = DataPipeline(src, batch_size=2, seed=3)
+        [next(p1) for _ in range(5)]
+        state = p1.checkpoint_state()
+        after = [next(p1) for _ in range(3)]
+        p2 = DataPipeline(src, batch_size=2, seed=3)
+        p2.restore_state(state)
+        resumed = [next(p2) for _ in range(3)]
+        for a, b in zip(after, resumed):
+            np.testing.assert_array_equal(a["tokens"], b["tokens"])
+
+    def test_stream_equals_the_reference_resumed_mid_stream(self):
+        """The port's pipeline emits the reference's batches bit for bit,
+        and so does each package resumed from the other's saved state."""
+        cfg = dict(vocab_size=300, seq_len=24)
+        ref = RefDataPipeline(RefSyntheticLM(RefLMTaskConfig(**cfg), seed=5),
+                              batch_size=3, seed=5)
+        port = DataPipeline(SyntheticLM(LMTaskConfig(**cfg), seed=5),
+                            batch_size=3, seed=5)
+        for _ in range(4):
+            a, b = next(ref), next(port)
+            for k in ("tokens", "labels"):
+                assert a[k].dtype == b[k].dtype
+                np.testing.assert_array_equal(a[k], b[k])
+        port2 = DataPipeline(port.source, batch_size=3)
+        port2.restore_state(ref.checkpoint_state())
+        ref2 = RefDataPipeline(ref.source, batch_size=3)
+        ref2.restore_state(port.checkpoint_state())
+        assert port2.checkpoint_state() == ref.checkpoint_state() == \
+            {"seed": 5, "step": 4}
+        for _ in range(3):
+            want = next(ref)["tokens"]
+            np.testing.assert_array_equal(next(port2)["tokens"], want)
+            np.testing.assert_array_equal(next(ref2)["tokens"], want)
+
+
+class TestCheckpoint:
+    def test_roundtrip(self, tmp_path):
+        ck = Checkpointer(str(tmp_path), async_save=False)
+        tree = {"a": torch.arange(6).reshape(2, 3),
+                "nested": {"b": torch.ones(4, dtype=torch.bfloat16)}}
+        ck.save(5, tree, extra={"data_state": {"seed": 1, "step": 5}})
+        restored, meta = ck.restore(tree)
+        assert torch.equal(restored["a"], tree["a"])
+        assert restored["nested"]["b"].dtype == torch.bfloat16
+        assert meta["step"] == 5 and meta["data_state"]["step"] == 5
+
+    def test_keeps_latest_n(self, tmp_path):
+        ck = Checkpointer(str(tmp_path), keep=2, async_save=False)
+        for s in (1, 2, 3, 4):
+            ck.save(s, {"x": torch.zeros(2)})
+        assert ck.all_steps() == [3, 4]
+
+    def test_async_save_visible_after_wait(self, tmp_path):
+        ck = Checkpointer(str(tmp_path), async_save=True)
+        ck.save(1, {"x": torch.arange(3)})
+        ck.wait()
+        assert ck.latest_step() == 1
+
+    def test_atomicity_no_partial_checkpoints(self, tmp_path):
+        """tmp dirs are not listed as valid steps."""
+        ck = Checkpointer(str(tmp_path), async_save=False)
+        os.makedirs(tmp_path / ".tmp-9")
+        ck.save(1, {"x": torch.zeros(1)})
+        assert ck.all_steps() == [1]
+
+    def test_async_save_takes_its_copy_at_the_call(self, tmp_path):
+        """A tensor updated in place after ``save`` returns (a donated
+        training step) does not reach the file."""
+        ck = Checkpointer(str(tmp_path), async_save=True)
+        x = torch.arange(4, dtype=torch.float32)
+        ck.save(1, {"x": x})
+        x.add_(100.0)
+        ck.wait()
+        restored, _ = ck.restore({"x": x})
+        assert torch.equal(restored["x"], torch.arange(4,
+                                                       dtype=torch.float32))
+
+    @pytest.fixture(scope="class")
+    def train_state(self):
+        """(reference params and AdamState, the port's copies): reduced
+        gemma2-2b in bf16 after one reference Adam update, so every leaf
+        is non-trivial."""
+        rcfg = ref_get_config("gemma2-2b").reduced()
+        rp = ref_tfm.init_params(rcfg, jax.random.PRNGKey(3),
+                                 dtype=jnp.bfloat16)
+        ro = ref_adam.adam_init(rp)
+        g = jax.tree.map(lambda p: jnp.ones_like(p) * 0.5, rp)
+        upd, ro = ref_adam.adam_update(g, ro, rp, lr=1e-2)
+        rp = ref_adam.apply_updates(rp, upd)
+        port = (params_from_jax(_np(rp), device=CPU),
+                AdamState(*params_from_jax(_np(tuple(ro)), device=CPU)))
+        return (rp, ro), port
+
+    def test_reference_checkpoint_restores_in_the_port(self, tmp_path,
+                                                       train_state):
+        (rp, ro), (pp, po) = train_state
+        RefCheckpointer(str(tmp_path), async_save=False).save(
+            7, (rp, ro), extra={"data_state": {"seed": 0, "step": 7}})
+        template = (tfm.init_params(get_config("gemma2-2b").reduced(), 0,
+                                    dtype=torch.bfloat16, device=CPU),
+                    adam_init(pp))
+        (params, opt), meta = Checkpointer(str(tmp_path)).restore(template)
+        assert meta["step"] == 7 and meta["data_state"]["step"] == 7
+        assert isinstance(opt, AdamState)
+        for got, want in zip(tree_leaves((params, opt)),
+                             tree_leaves((pp, po))):
+            assert got.dtype == want.dtype and torch.equal(got, want)
+        assert params["embed"].dtype == torch.bfloat16
+
+    def test_port_checkpoint_restores_in_the_reference(self, tmp_path,
+                                                       train_state):
+        (rp, ro), (pp, po) = train_state
+        ck = Checkpointer(str(tmp_path))
+        ck.save(9, (pp, po), extra={"data_state": {"seed": 0, "step": 9}})
+        ck.wait()
+        template = jax.tree.map(jnp.zeros_like, (rp, ro))
+        (params, opt), meta = RefCheckpointer(str(tmp_path)).restore(
+            template)
+        assert meta["step"] == 9
+        for got, want in zip(_ref_leaves((params, opt)),
+                             _ref_leaves((rp, ro))):
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert np.asarray(got).tobytes() == np.asarray(want).tobytes()
+
+    def test_same_keys_as_the_reference(self, tmp_path, train_state):
+        (rp, ro), (pp, po) = train_state
+        RefCheckpointer(str(tmp_path / "ref"), async_save=False).save(
+            1, (rp, ro))
+        Checkpointer(str(tmp_path / "port"), async_save=False).save(
+            1, (pp, po))
+        files = [np.load(tmp_path / d / "step_00000001" / "arrays.npz")
+                 for d in ("ref", "port")]
+        assert sorted(files[0].files) == sorted(files[1].files)
+        assert "[1]||.mu||['embed']" in files[0].files
+        for k in files[0].files:
+            assert files[0][k].dtype == files[1][k].dtype
+            np.testing.assert_array_equal(files[0][k], files[1][k])
+
+
+class TestFaultTolerance:
+    def test_straggler_watchdog(self):
+        wd = StragglerWatchdog(threshold=2.0, warmup_steps=3, trip_after=2)
+        for _ in range(10):
+            assert not wd.observe(1.0)
+        assert wd.observe(5.0)          # flagged
+        assert not wd.tripped
+        assert wd.observe(5.0)
+        assert wd.tripped               # consecutive -> tripped
+
+    def test_watchdog_recovers(self):
+        wd = StragglerWatchdog(threshold=2.0, warmup_steps=2, trip_after=3)
+        for _ in range(5):
+            wd.observe(1.0)
+        wd.observe(10.0)
+        wd.observe(1.0)                 # back to normal
+        assert wd.consecutive == 0 and not wd.tripped
+
+    def test_restart_policy_window(self):
+        rp = RestartPolicy(max_restarts=2, window_s=100)
+        assert rp.should_restart(now=0.0)
+        assert rp.should_restart(now=1.0)
+        assert not rp.should_restart(now=2.0)       # exhausted
+        assert rp.should_restart(now=200.0)         # window expired
+
+    def test_preemption_guard_sets_its_flag_and_uninstalls(self):
+        prev = signal.getsignal(signal.SIGTERM)
+        guard = PreemptionGuard()
+        os.kill(os.getpid(), signal.SIGTERM)
+        assert guard.preempted
+        guard.uninstall()
+        assert signal.getsignal(signal.SIGTERM) is prev
+
+
+def _quadratic_step(params, opt, batch):
+    tgt = torch.as_tensor(batch["tokens"][:, :4], dtype=torch.float32
+                          ).mean(0)
+    loss, g = value_and_grad(
+        lambda p: torch.sum(torch.square(p["w"] - tgt)), params)
+    upd, opt = adam_update(g, opt, params, lr=1e-1)
+    return apply_updates(params, upd), opt, {"loss": loss}
+
+
+class TestTrainLoopIntegration:
+    def test_resume_after_interrupt(self, tmp_path):
+        """Train 4 steps with checkpoint_every=2, stop, resume, finish at 7:
+        the resumed run continues from the checkpoint (params + data)."""
+        params = {"w": torch.zeros(4)}
+        src = SyntheticLM(LMTaskConfig(vocab_size=64, seq_len=8), seed=0)
+
+        def fresh():
+            return (dict(params), adam_init(params),
+                    DataPipeline(src, batch_size=2, seed=0))
+
+        p, o, pipe = fresh()
+        cfg1 = TrainLoopConfig(total_steps=4, checkpoint_every=2,
+                               checkpoint_dir=str(tmp_path), log_every=100)
+        out1 = run_train_loop(_quadratic_step, p, o, pipe, cfg1,
+                              log=lambda s: None)
+        assert out1["step"] == 4
+
+        p, o, pipe = fresh()
+        cfg2 = TrainLoopConfig(total_steps=7, checkpoint_every=2,
+                               checkpoint_dir=str(tmp_path), log_every=100)
+        out2 = run_train_loop(_quadratic_step, p, o, pipe, cfg2,
+                              log=lambda s: None)
+        assert out2["step"] == 7
+        assert pipe.state.step == 7     # data iterator resumed too
+
+    def test_preemption_checkpoints_at_its_step(self, tmp_path):
+        """A SIGTERM raised inside step 3 ends the loop at step 3 with a
+        checkpoint of step 3's state, which a resumed run starts from bit
+        for bit."""
+        src = SyntheticLM(LMTaskConfig(vocab_size=64, seq_len=8), seed=0)
+        params = {"w": torch.zeros(4)}
+        calls = []
+
+        def step(p, o, b):
+            calls.append(1)
+            if len(calls) == 3:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return _quadratic_step(p, o, b)
+        lines = []
+        cfg = TrainLoopConfig(total_steps=10, checkpoint_every=100,
+                              checkpoint_dir=str(tmp_path), log_every=100)
+        out = run_train_loop(step, dict(params), adam_init(params),
+                             DataPipeline(src, batch_size=2), cfg,
+                             log=lines.append)
+        assert out["step"] == 3 and lines == [
+            "[train] preempted at step 3; checkpointing"]
+        (saved_p, saved_o), meta = Checkpointer(str(tmp_path)).restore(
+            (params, adam_init(params)))
+        assert meta["data_state"] == {"seed": 0, "step": 3}
+        for a, b in zip(tree_leaves((saved_p, saved_o)),
+                        tree_leaves((out["params"], out["opt_state"]))):
+            assert torch.equal(a, b)
+        seen = []
+
+        def check(p, o, b):
+            seen.append((p, o))
+            return _quadratic_step(p, o, b)
+        pipe = DataPipeline(src, batch_size=2)
+        out2 = run_train_loop(check, dict(params), adam_init(params), pipe,
+                              dataclasses.replace(cfg, total_steps=5),
+                              log=lines.append)
+        assert lines[-1] == "[train] resumed from step 3"
+        assert out2["step"] == 5 and pipe.state.step == 5
+        for a, b in zip(tree_leaves(seen[0]), tree_leaves((saved_p,
+                                                           saved_o))):
+            assert torch.equal(a, b)
+
+
+class TestGradCompression:
+    def test_quant_dequant_roundtrip_bounded(self):
+        g = torch.from_numpy(np.random.RandomState(0).randn(1000).astype(
+            np.float32) * 0.01)
+        q, s = gc.quantize_grad(g, group_size=128)
+        g2 = gc.dequantize_grad(q, s, g.shape, g.dtype)
+        assert float(torch.max(torch.abs(g - g2))) <= float(torch.max(s)) \
+            * 0.51
+
+    def test_error_feedback_unbiased_over_steps(self):
+        rng = np.random.RandomState(0)
+        err = torch.zeros(256)
+        total_true = np.zeros(256)
+        total_sent = np.zeros(256)
+        for _ in range(50):
+            g = torch.from_numpy(rng.randn(256) * 0.01).float()
+            comp = g + err
+            q, s = gc.quantize_grad(comp, group_size=64)
+            sent = gc.dequantize_grad(q, s, g.shape, torch.float32)
+            err = comp - sent
+            total_true += g.numpy()
+            total_sent += sent.numpy()
+        assert np.max(np.abs(total_true - total_sent)) < 0.01
+
+    @pytest.mark.parametrize("shape,group", [((1000,), 128), ((33, 70), 64),
+                                             ((4, 256), 256)])
+    def test_matches_the_reference(self, shape, group):
+        """Payload and scales bit for bit (the reference called eagerly,
+        as its tests call it), and the error-feedback buffers' shapes."""
+        g = np.random.RandomState(1).randn(*shape).astype(np.float32)
+        q_r, s_r = ref_gc.quantize_grad(jnp.asarray(g), group_size=group)
+        q_p, s_p = gc.quantize_grad(torch.from_numpy(g), group_size=group)
+        np.testing.assert_array_equal(q_p.numpy(), np.asarray(q_r))
+        np.testing.assert_array_equal(s_p.numpy(), np.asarray(s_r))
+        np.testing.assert_array_equal(
+            gc.dequantize_grad(q_p, s_p, shape, torch.float32).numpy(),
+            np.asarray(ref_gc.dequantize_grad(q_r, s_r, shape,
+                                              jnp.float32)))
+        err = gc.init_error_feedback({"g": torch.from_numpy(g)}, n_pod=2)
+        assert err["g"].shape == (2,) + shape and not err["g"].any()
+
+
+# ---------------------------------------------------------------------------
+# tests/test_quantized_adam.py, on the port
+# ---------------------------------------------------------------------------
+
+class TestQuantizedAdam:
+    def test_small_leaves_stay_fp32(self):
+        params = {"small": torch.zeros(4, 4), "big": torch.zeros(2048, 1024)}
+        st = qadam_init(params)
+        assert isinstance(st.mu["small"], torch.Tensor)
+        assert isinstance(st.mu["big"], dict)
+        assert st.mu["big"]["q"].dtype == torch.int8
+        assert st.mu["big"]["s"].shape == (2048,)
+
+    def test_matches_fp32_adam_closely(self):
+        """On a quadratic, 8-bit Adam tracks f32 Adam and converges."""
+        target = torch.from_numpy(np.random.RandomState(0).randn(
+            2048, 1024).astype(np.float32) * 0.1)
+        p32 = {"w": torch.zeros(2048, 1024)}
+        p8 = {"w": torch.zeros(2048, 1024)}
+        s32, s8 = adam_init(p32), qadam_init(p8)
+
+        def loss(p):
+            return torch.mean(torch.square(p["w"] - target))
+        for _ in range(60):
+            _, g = value_and_grad(loss, p32)
+            u, s32 = adam_update(g, s32, p32, lr=1e-2, inplace=True)
+            p32 = apply_updates(p32, u, inplace=True)
+            _, g = value_and_grad(loss, p8)
+            u, s8 = qadam_update(g, s8, p8, lr=1e-2, inplace=True)
+            p8 = apply_updates(p8, u, inplace=True)
+        l32, l8 = float(loss(p32)), float(loss(p8))
+        assert l8 < float(loss({"w": torch.zeros_like(target)})) / 3
+        assert l8 < l32 * 2.0 + 1e-4
+
+    def test_grad_scale_fused(self):
+        p = {"w": torch.ones(2048, 1024)}
+        s = qadam_init(p)
+        g = {"w": torch.full((2048, 1024), 100.0)}
+        u_noclip, _ = qadam_update(g, s, p, lr=1e-2)
+        u_clip, _ = qadam_update(g, s, p, lr=1e-2,
+                                 grad_scale=torch.tensor(0.0))
+        assert float(torch.max(torch.abs(u_clip["w"]))) < \
+            float(torch.max(torch.abs(u_noclip["w"])))
+
+    def test_memory_footprint(self):
+        """int8 moments cost ~2 bytes/param against 8 for f32 Adam."""
+        p = {"w": torch.zeros(4096, 1024, dtype=torch.bfloat16)}
+        st = qadam_init(p)
+        n = p["w"].numel()
+        bytes8 = (st.mu["w"]["q"].numel() + st.mu["w"]["s"].numel() * 4) * 2
+        assert bytes8 < 0.27 * (n * 8)
+
+    def test_two_steps_match_the_jitted_reference(self):
+        """Two updates of a quantized (4, 512, 512) leaf and a small one
+        against the jitted reference: f32 moments and updates within the
+        f32 tolerance, row scales likewise, int8 payloads within 1 LSB on
+        at most 1e-3 of the bytes (counted); inplace gives the same
+        bits."""
+        rng = np.random.RandomState(4)
+        shapes = {"big": (4, 512, 512), "small": (8, 64)}
+        p = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+        gs = [{k: (rng.randn(*s) * 10.0 ** rng.uniform(-3, 0, s[:-1] + (1,))
+                   ).astype(np.float32) for k, s in shapes.items()}
+              for _ in range(2)]
+        lr = ref_lwld(1e-3, 10)
+
+        @jax.jit
+        def ref_step(g, st, prm):
+            u, st = ref_qadam.qadam_update(g, st, prm, lr=lr,
+                                           grad_scale=jnp.float32(0.7))
+            return u, st
+        rp = jax.tree.map(jnp.asarray, p)
+        rst = ref_qadam.qadam_init(rp)
+        tp = {k: torch.from_numpy(v) for k, v in p.items()}
+        tst = qadam_init(tp)
+        tst2 = qadam_init(tp)
+        plr = linear_warmup_linear_decay(1e-3, 10)
+        for g in gs:
+            ru, rst = ref_step(jax.tree.map(jnp.asarray, g), rst, rp)
+            tg = {k: torch.from_numpy(v) for k, v in g.items()}
+            tu, tst = qadam_update(tg, tst, tp, lr=plr,
+                                   grad_scale=torch.tensor(0.7))
+            tu2, tst2 = qadam_update(tg, tst2, tp, lr=plr,
+                                     grad_scale=torch.tensor(0.7),
+                                     inplace=True)
+            for k in shapes:
+                _close(tu[k], ru[k])
+                assert torch.equal(tu[k], tu2[k])
+        assert int(tst.step) == int(rst.step) == 2
+        for mom in ("mu", "nu"):
+            got, want = getattr(tst, mom), getattr(rst, mom)
+            _close(got["small"], want["small"])
+            _close(got["big"]["s"], want["big"]["s"])
+            d = np.abs(got["big"]["q"].numpy().astype(np.int32) -
+                       np.asarray(want["big"]["q"]).astype(np.int32))
+            assert d.max() <= 1, mom
+            assert (d > 0).sum() <= 1e-3 * d.size, (mom, int((d > 0).sum()))
+            for a, b in zip(tree_leaves(got), tree_leaves(getattr(tst2,
+                                                                  mom))):
+                assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# models: train_loss, remat, the stacked leaves
+# ---------------------------------------------------------------------------
+
+def _lm_batch(vocab, B=2, T=16, seed=1):
+    toks = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, vocab, size=(B, T)).astype(np.int32))
+    return {"tokens": toks, "labels": toks}
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "h2o-danube3-4b"])
+def test_train_loss_finite_and_grads_flow(arch):
+    cfg = get_config(arch).reduced()
+    params = tfm.init_params(cfg, 0, dtype=torch.float32, device=CPU)
+    batch = _lm_batch(cfg.vocab_size)
+    loss, grads = value_and_grad(
+        lambda p: tfm.train_loss(cfg, p, batch, remat=False), params)
+    assert torch.isfinite(loss)
+    assert sum(float(torch.sum(torch.abs(g)))
+               for g in tree_leaves(grads)) > 0
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "h2o-danube3-4b"])
+def test_train_loss_matches_the_reference(arch):
+    """The reference's loss and gradients on its own params (f32)."""
+    rcfg = ref_get_config(arch).reduced()
+    rp = ref_tfm.init_params(rcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    batch = _lm_batch(rcfg.vocab_size, B=2, T=12, seed=2)
+    rb = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
+    rl, rg = jax.jit(jax.value_and_grad(
+        lambda p: ref_tfm.train_loss(rcfg, p, rb, remat=True)))(rp)
+    cfg = get_config(arch).reduced()
+    loss, grads = value_and_grad(
+        lambda p: tfm.train_loss(cfg, p, batch),
+        params_from_jax(_np(rp), device=CPU))
+    _close(loss, rl)
+    for got, want in zip(tree_leaves(grads), _ref_leaves(rg)):
+        _close(got, want, atol=GRAD_ATOL)
+
+
+def test_train_loss_refuses_what_is_not_ported():
+    cfg = get_config("gemma2-2b").reduced()
+    params = tfm.init_params(cfg, 0, dtype=torch.float32, device=CPU)
+    batch = dict(_lm_batch(cfg.vocab_size), embeds=torch.zeros(2, 4, 64))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        tfm.train_loss(cfg, params, batch)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        tfm.train_loss(dataclasses.replace(cfg, encoder_layers=2), params,
+                       _lm_batch(cfg.vocab_size))
+
+
+def _telemetry_ctx(cfg, params, batch):
+    """An APPLY ctx of a W8A8 calibration with quant telemetry armed."""
+    from repro_torch.core.pipeline import ptq
+
+    def fwd(p, b, ctx):
+        return tfm.forward(cfg, p, b["tokens"], ctx=ctx)[0]
+    qm = ptq(fwd, params, [batch], w8a8_policy())
+    ctx = qm.ctx()
+    ctx.telemetry = {}
+    return ctx
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+@pytest.mark.parametrize("quant", ["none", "apply+telemetry"])
+def test_remat_on_and_off_are_bit_equal(stacked, quant):
+    """Loss and every gradient bit for bit with remat on and off; an armed
+    ctx records each site once either way (the recompute is quiet)."""
+    cfg = get_config("gemma2-2b").reduced()
+    params = tfm.init_params(cfg, 1, stacked=stacked, dtype=torch.float32,
+                             device=CPU)
+    batch = _lm_batch(cfg.vocab_size, B=2, T=20, seed=3)
+    out = {}
+    for remat in (True, False):
+        ctx = None if quant == "none" else _telemetry_ctx(cfg, params, batch)
+        out[remat] = value_and_grad(
+            lambda p: tfm.train_loss(cfg, p, batch, ctx=ctx, remat=remat),
+            params) + (ctx,)
+    (l1, g1, c1), (l0, g0, c0) = out[True], out[False]
+    assert torch.equal(l1, l0)
+    for a, b in zip(tree_leaves(g1), tree_leaves(g0)):
+        assert torch.equal(a, b)
+    if c1 is not None:
+        assert c1.telemetry.keys() == c0.telemetry.keys()
+        assert len(c1.telemetry) > 0
+        for k in c1.telemetry:
+            assert torch.equal(c1.telemetry[k], c0.telemetry[k]), k
+
+
+def test_stacked_and_unrolled_layouts_give_the_same_gradients():
+    """One seed, both layouts: the stacked leaves' gradients (unbound once,
+    stacked back by autograd) are the unrolled layers' gradients."""
+    cfg = get_config("gemma2-2b").reduced()
+    batch = _lm_batch(cfg.vocab_size, B=2, T=20, seed=3)
+    stk = tfm.init_params(cfg, 2, stacked=True, dtype=torch.float32,
+                          device=CPU)
+    flat = tfm.init_params(cfg, 2, stacked=False, dtype=torch.float32,
+                           device=CPU)
+    ls, gs = value_and_grad(lambda p: tfm.train_loss(cfg, p, batch), stk)
+    lf, gf = value_and_grad(lambda p: tfm.train_loss(cfg, p, batch), flat)
+    torch.testing.assert_close(ls, lf, rtol=RTOL, atol=0)
+    n = len(cfg.block_pattern)
+    for j in range(n):
+        want = tfm._stack(gf["layers"][j::n])
+        for a, b in zip(tree_leaves(gs["scan"][j]), tree_leaves(want)):
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# make_train_step against the jitted reference
+# ---------------------------------------------------------------------------
+
+def _wide(cfg):
+    """Reduced gemma2-2b with a 4096 x 256 embedding: a leaf 8-bit Adam
+    quantizes (2^20 elements, last dim 256)."""
+    return dataclasses.replace(cfg, vocab_size=4096, d_model=256)
+
+
+STEP_CASES = {
+    "adam-mb1-remat": dict(optimizer="adam", microbatches=1, remat=True),
+    "adam-mb1-no-remat": dict(optimizer="adam", microbatches=1, remat=False),
+    "adam-mb2-remat": dict(optimizer="adam", microbatches=2, remat=True),
+    "adam8bit-wide-embed": dict(optimizer="adam8bit", microbatches=1,
+                                remat=True, wide=True),
+}
+
+
+def _step_pair(case):
+    kw = dict(STEP_CASES[case])
+    wide = kw.pop("wide", False)
+    rcfg = ref_get_config("gemma2-2b").reduced()
+    cfg = get_config("gemma2-2b").reduced()
+    if wide:
+        rcfg, cfg = _wide(rcfg), _wide(cfg)
+    return rcfg, cfg, kw
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_train_step_matches_the_jitted_reference(case):
+    rcfg, cfg, kw = _step_pair(case)
+    rp = ref_tfm.init_params(rcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    init = ref_qadam.qadam_init if kw["optimizer"] == "adam8bit" else \
+        ref_adam.adam_init
+    ro = init(rp)
+    toks = np.random.RandomState(6).randint(0, rcfg.vocab_size,
+                                            size=(4, 32)).astype(np.int32)
+    rstep = jax.jit(ref_make_train_step(rcfg, lr_schedule=ref_lwld(1e-3, 10),
+                                        **kw))
+    rp2, ro2, rm = rstep(rp, ro, {"tokens": jnp.asarray(toks),
+                                  "labels": jnp.asarray(toks)})
+
+    pp = params_from_jax(_np(rp), device=CPU)
+    po = (qadam_init if kw["optimizer"] == "adam8bit" else adam_init)(pp)
+    step = make_train_step(cfg, lr_schedule=linear_warmup_linear_decay(
+        1e-3, 10), **kw)
+    batch = {"tokens": torch.from_numpy(toks),
+             "labels": torch.from_numpy(toks)}
+    pp2, po2, pm = step(pp, po, batch)
+    _close(pm["loss"], rm["loss"], atol=0)
+    _close(pm["grad_norm"], rm["grad_norm"], atol=0)
+    assert float(pm["lr"]) == float(rm["lr"])
+    m_hats = [_ref_m_hat(m) for m in jax.tree.leaves(
+        ro2.mu, is_leaf=lambda x: isinstance(x, dict) and "q" in x)]
+    for got, want, m_hat in zip(tree_leaves(pp2), _ref_leaves(rp2), m_hats):
+        _updated_close(got, want, m_hat, 1e-3)
+    assert int(po2.step) == int(ro2.step) == 1
+    for got, want in zip(tree_leaves((po2.mu, po2.nu)),
+                         _ref_leaves((ro2.mu, ro2.nu))):
+        if got.dtype == torch.int8:
+            d = np.abs(got.numpy().astype(np.int32) -
+                       np.asarray(want).astype(np.int32))
+            assert d.max() <= 1
+            assert (d > 0).sum() <= 1e-3 * d.size, int((d > 0).sum())
+        else:
+            _close(got, want, atol=GRAD_ATOL)
+    if kw["optimizer"] == "adam8bit":
+        assert isinstance(po2.mu["embed"], dict)    # the int8 leaf is there
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "adam8bit"])
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_in_place_step_equals_the_functional_update(optimizer, microbatches):
+    """``make_train_step`` updates params and moments in place with the
+    bits of the functional update (``inplace=False``: new trees, inputs
+    untouched), two steps running; the trees passed in are returned."""
+    cfg = _wide(get_config("gemma2-2b").reduced())
+    init = qadam_init if optimizer == "adam8bit" else adam_init
+    update = qadam_update if optimizer == "adam8bit" else adam_update
+    lr = linear_warmup_linear_decay(1e-3, 10)
+    batches = [_lm_batch(cfg.vocab_size, B=4, T=16, seed=i)
+               for i in range(2)]
+    p = tfm.init_params(cfg, 4, dtype=torch.float32, device=CPU)
+    o = init(p)
+    step = make_train_step(cfg, lr_schedule=lr, optimizer=optimizer,
+                           microbatches=microbatches)
+    for b in batches:
+        p2, o2, m = step(p, o, b)
+        assert all(x is y for x, y in zip(tree_leaves((p2, o2.mu, o2.nu)),
+                                          tree_leaves((p, o.mu, o.nu))))
+        p, o = p2, o2
+
+    fp = tfm.init_params(cfg, 4, dtype=torch.float32, device=CPU)
+    fo = init(fp)
+    for b in batches:
+        mbs = [b] if microbatches == 1 else [
+            {k: v.reshape(2, -1, v.shape[-1])[i] for k, v in b.items()}
+            for i in range(2)]
+        gs = [value_and_grad(lambda q: tfm.train_loss(cfg, q, mb), fp)[1]
+              for mb in mbs]
+        g = gs[0] if microbatches == 1 else tfm._map(
+            lambda a, c: (torch.zeros_like(a) + a + c) / 2, *gs)
+        gn = torch.sqrt(sum(torch.sum(torch.square(x))
+                            for x in tree_leaves(g)))
+        upd, fo = update(g, fo, fp, lr=lr, grad_scale=torch.clamp_max(
+            1.0 / (gn + 1e-12), 1.0))
+        fp = apply_updates(fp, upd)
+    for a, c in zip(tree_leaves((p, o)), tree_leaves((fp, fo))):
+        assert torch.equal(a, c)
+
+
+# ---------------------------------------------------------------------------
+# the example's QAT step, the launcher
+# ---------------------------------------------------------------------------
+
+def test_qat_step_of_the_1m_preset_matches_the_reference():
+    """One QAT step (W8A8 fake-quant in the graph, learnable ranges) of
+    ``examples/train_e2e.py``'s 1m preset: the reference's params and PTQ
+    act state carried across, the same batch."""
+    ref_e2e = _load("examples/train_e2e.py", "ref_train_e2e")
+    port_e2e = _load("examples/torch_train_e2e.py", "torch_train_e2e")
+    rcfg = ref_e2e.preset_cfg("1m")
+    cfg = port_e2e.preset_cfg("1m")
+    assert dataclasses.asdict(rcfg) == dataclasses.asdict(cfg)
+    from repro.core import Mode as RefMode, w8a8_policy as ref_w8a8
+    pol = ref_w8a8()
+    src = RefSyntheticLM(RefLMTaskConfig(vocab_size=rcfg.vocab_size,
+                                         seq_len=64), seed=0)
+    flat = ref_tfm.init_params(rcfg, jax.random.PRNGKey(0), stacked=False,
+                               dtype=jnp.float32)
+    calib = [{"tokens": jnp.asarray(src.batch(4, 900_000 + i)["tokens"])}
+             for i in range(2)]
+    qm = ref_ptq(lambda p, b, ctx: ref_tfm.forward(rcfg, p, b["tokens"],
+                                                   ctx=ctx)[0],
+                 flat, calib, pol)
+    shared = {}
+    for site, qp in qm.act_state.items():
+        base = ("layer/" + site.split("/", 1)[1]
+                if site.startswith("layer") else site)
+        shared.setdefault(base, qp)
+    params = ref_tfm.init_params(rcfg, jax.random.PRNGKey(0),
+                                 dtype=jnp.float32)
+    tr = {"model": params, "quant": ref_init_qat_params(shared, {})}
+    qopt = ref_adam.adam_init(tr)
+    qlr = ref_lwld(5e-4, 20)
+
+    def loss(t, batch):
+        ctx = RefQuantCtx(policy=pol, mode=RefMode.QAT,
+                          act_state=dict(shared), weight_state={},
+                          qat_params=t["quant"])
+        return ref_tfm.train_loss(rcfg, t["model"], batch, ctx=ctx,
+                                  remat=False)
+
+    @jax.jit
+    def qstep(t, o, batch):
+        l, g = jax.value_and_grad(loss)(t, batch)
+        upd, o = ref_adam.adam_update(g, o, t, lr=qlr)
+        return ref_adam.apply_updates(t, upd), o, l
+    b = src.batch(8, 0)
+    rtr, ropt, rl = qstep(tr, qopt, {k: jnp.asarray(b[k])
+                                     for k in ("tokens", "labels")})
+
+    # the port: the example's own QAT step on the carried-across state
+    pshared = act_state_from_jax(shared, device=CPU)
+    pp = params_from_jax(_np(params), device=CPU)
+    ptr = {"model": pp, "quant": init_qat_params(pshared, {})}
+    pstep = port_e2e.make_qat_step(cfg, w8a8_policy(), pshared,
+                                   linear_warmup_linear_decay(5e-4, 20))
+    ptr2, _, pl = pstep(ptr, adam_init(ptr), port_e2e.put_batch(CPU)(b))
+    _close(pl, rl, atol=0)
+    lr1 = float(qlr(1))
+    loose = 0
+    for got, want, m in zip(tree_leaves(ptr2), _ref_leaves(rtr),
+                            _ref_leaves(ropt.mu)):
+        loose += _updated_close(got, want, _ref_m_hat(m), lr1, flips=True)
+    assert loose <= 1e-2 * sum(t.numel() for t in tree_leaves(ptr2)), loose
+
+
+def test_port_example_shared_act_state_equals_the_reference():
+    """The example's PTQ calibration: the shared ``layer/...`` grid of the
+    reference's, from the same fresh-init weights' batches (the port's
+    weights come from its own generator, so its grid is its own; here both
+    take the reference's weights)."""
+    port_e2e = _load("examples/torch_train_e2e.py", "torch_train_e2e")
+    cfg = port_e2e.preset_cfg("1m")
+    pipe = DataPipeline(SyntheticLM(LMTaskConfig(vocab_size=cfg.vocab_size,
+                                                 seq_len=64), seed=0),
+                        batch_size=8)
+    pol, shared = port_e2e.shared_act_state(cfg, pipe, CPU)
+    assert pol == w8a8_policy()
+    assert all(not k.startswith("layer") or k.startswith("layer/")
+               for k in shared)
+    assert "layer/ffn_in" in shared and "embed/sum" in shared
+
+
+def test_launcher_prints_the_reference_lines(tmp_path):
+    """``--reduced --steps 3``: the reference launcher's output; with
+    ``log_every=1`` every step's line in the reference's format; a second
+    run resumes from the checkpoint."""
+    from repro.launch import train as ref_train
+    from repro_torch.launch import train
+    argv = ["--arch", "gemma2-2b", "--reduced", "--steps", "3"]
+    outs = []
+    for fn in (lambda: ref_train.main(argv),
+               lambda: train.main(argv, device=CPU)):
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            out = fn()
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1] == \
+        "[train] finished at step 3; 0 straggler events\n"
+    assert out["step"] == 3 and torch.isfinite(out["params"]["embed"]).all()
+
+    lines = []
+    ck = ["--checkpoint-dir", str(tmp_path)]
+    out = train.main(argv + ck, device=CPU, log_every=1, log=lines.append)
+    assert [ln.split(" loss ")[0] for ln in lines] == [
+        f"[train] step {i}" for i in (1, 2, 3)]
+    assert all(ln.endswith(" ms") for ln in lines)
+    lines.clear()
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        out = train.main(["--arch", "gemma2-2b", "--reduced", "--steps",
+                          "5"] + ck, device=CPU, log=lines.append)
+    assert lines == ["[train] resumed from step 3"]
+    assert buf.getvalue() == "[train] finished at step 5; 0 straggler " \
+        "events\n"
+    assert Checkpointer(str(tmp_path)).all_steps() == [3, 5]
+
+
+def test_launcher_refuses_the_multi_device_flags(capsys):
+    from repro_torch.launch import train
+    for extra in (["--mesh", "2x2"], ["--multi-pod"]):
+        with pytest.raises(SystemExit):
+            train.main(["--arch", "gemma2-2b", "--reduced"] + extra,
+                       device=CPU)
+        assert "is not yet ported" in capsys.readouterr().err
+
+
+def test_quant_min_elems_is_the_reference_threshold():
+    assert QUANT_MIN_ELEMS == ref_qadam.QUANT_MIN_ELEMS
