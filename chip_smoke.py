@@ -30,7 +30,12 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              lane, a ring that wrapped; K7 on f32 and bf16 arenas), and
              K5 / K6 / K7 emitting the int8 ``wo`` input from their merge
              must equal K4 on their f32 output bit for bit (timed beside
-             that unfused pair).
+             that unfused pair). The zoo's shapes follow: K1 over d 6144
+             and 4096, K2 over d 6144 in 4 PEG groups of 1536 to d_ff
+             16384 and 24576, K3 at K 16384 and 24576 and at N 128 (decode
+             and chunk rows), and K5, K5-kv4, K6, K6-kv4 and K7 (bf16) at
+             G = 16 (4 kv heads) and G = 48 (1 kv head), hd 128, one and
+             two passes, each also emitting (K4's bytes).
 3. full    — serve gemma2-2b at full width (26 layers, d 2304, bf16) through
              ``repro_torch.launch.serve.main`` with W8A8 PTQ + the integer
              deploy path, static scheduler; the K1/K3/K4 launch counters
@@ -181,6 +186,34 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              for bit and ends at step 7; then PTQ and a QAT fine-tune with
              finite losses. Phases 22-25 run no kernel (no TPU kernel is
              on the reference's training path): every count stays 0.
+26. zoo internlm2-20b — full width (d 6144, GQA 48 on 8 kv heads, untied
+             head), cut to ``ZOO_DEPTH`` layers
+             (``dataclasses.replace(get_config(arch), num_layers=n)``, the
+             launcher's ``get_config`` patched), the quickstart's kv8
+             flags and ``--parity`` (three OK lines): ``[deploy-int8]``
+             must report the FFN on the integer kernels in every layer,
+             the profiled decode step must launch
+             K1 and K2 twice, K3 five times and the emitting K6 once in
+             every layer; ``[kv-int8]`` runs K5 at G 6.
+27. zoo granite-20b — the same at granite's width (MQA: 48 heads on one
+             kv head, d_ff 24576) without ``--parity``, so K5 and K6 decode
+             at G 48; then 4 layers at kv16, every decode step through K7
+             at G 48.
+28. zoo qwen3-moe — full width (d 4096, 64 heads on 4 kv heads, QK-norm,
+             128 experts top 8), the quickstart's kv8 flags, twice: K6 at
+             G 16 in every layer, the MoE FFN in fake-quant (the fallback
+             note must say so); each run prints the experts' capacity and
+             the rows dropped per kind of step, and the two runs must emit
+             identical greedy tokens.
+29. zoo grok-1 — full width (d 6144, 8 experts top 2 with GELU, softcaps,
+             scaled embeddings), a static bf16 dense cache, then the
+             quickstart's kv8 flags.
+30. zoo reduced — each of the four at ``--reduced`` with the README
+             quickstart's flags and ``--parity``: the reference launcher's
+             counts (36 tokens, 10 decode steps, 6 prefills, blocks 16/32,
+             6 chunk steps), ``[kv-int8]`` <= 1e-4 and three ``[parity]
+             OK`` lines. Each zoo phase prints its depth, wall and peak
+             device memory.
 
 In every serving phase every request must get its tokens. The reduced
 runs' integer-path logits must match the fake-quant path they replace
@@ -532,8 +565,103 @@ def kernel_phase():
                    peg_note(m, n, k, g, nbytes, ms))
     w4_cases(gen, flush, record, randint8, uniform, randn)
     norm_cases(gen, flush, record, uniform, randn)
+    zoo_gemm_cases(gen, flush, record, randint8, uniform, randn)
     attend_cases(gen, flush, record)
     return records
+
+
+def zoo_gemm_cases(gen, flush, record, randint8, uniform, randn):
+    """K1, K2 and K3 at the zoo's full widths and decode rows (4) and chunk
+    rows (32): K1 over d 6144 (internlm2-20b, granite-20b) and 4096
+    (qwen3-moe) in 1 and 4 groups; K2 ``w_gate`` / ``w_up`` over d 6144 in
+    4 uniform PEG groups of 1536 to d_ff 16384 (internlm2) and 24576
+    (granite), f32 out and SiLU x up -> int8; K3 ``w_out`` at K 16384 and
+    24576, and granite's MQA ``wk`` / ``wv`` at N 128."""
+    import torch
+    from repro_torch.kernels import fused_ln_quant as lnq
+    from repro_torch.kernels import int8_matmul as imm
+    from repro_torch.kernels.ref import w_colsum_groups
+    kw8 = dict(qmin=-128, qmax=127)
+    for rows in (4, 32):
+        for d, g in ((6144, 1), (6144, 4), (4096, 1), (4096, 4)):
+            x = randn(rows, d, dtype=torch.bfloat16) * 3
+            gamma = randn(d) * 0.1
+            s = uniform(g, 0.02, 0.05)
+            z = torch.round(uniform(g, -20, 20))
+            got = lnq.rms_quantize_cuda(x, gamma, s, z, **kw8)
+            want = lnq.rms_quantize_plain(x, gamma, s, z, **kw8)
+            worst, flips = lsb_flips(got, want)
+            require(worst <= 1 and flips <= 1e-3 * got.numel(),
+                    f"rms_quantize ({rows},{d}) G={g}: {flips} flips")
+            ms = time_ms(lambda: lnq.rms_quantize_cuda(x, gamma, s, z,
+                                                       **kw8), flush)
+            p_ms = time_ms(lambda: lnq.rms_quantize_plain(x, gamma, s, z,
+                                                          **kw8), flush)
+            nbytes = rows * d * (2 + 1) + d * 4 + 2 * g * 4
+            record("rms_quantize", f"x ({rows},{d}) bf16 G={g} (zoo)",
+                   worst, ms, p_ms, None, nbytes, 8 * rows * d,
+                   PEAK_F32_OPS_PER_S, False, row_note(rows, d, g, nbytes,
+                                                       ms))
+        for k, n in ((16384, 6144), (24576, 6144), (6144, 128)):
+            a = randint8(rows, k)
+            w = randint8(k, n, lo=-127)
+            cs = w_colsum_groups(w, 1)[0]
+            s_a, z_a, s_w = uniform(1, 0.01, 0.03), torch.round(
+                uniform(1, -20, 20)), uniform(1, 0.001, 0.01)
+            kw = dict(z_a=z_a, w_colsum=cs)
+            got = imm.int8_matmul_cuda(a, w, s_a, s_w, **kw)
+            want = imm.int8_matmul_plain(a, w, s_a, s_w, **kw)
+            err = float((got - want).abs().max())
+            require(err <= 1e-5 * float(want.abs().max()),
+                    f"int8_matmul ({rows},{k})x({k},{n}): max err {err}")
+            ms = time_ms(lambda: imm.int8_matmul_cuda(a, w, s_a, s_w, **kw),
+                         flush)
+            p_ms = time_ms(lambda: imm.int8_matmul_plain(a, w, s_a, s_w,
+                                                         **kw), flush)
+            lib_ms = int_mm_yardstick(a, w, s_a, z_a, s_w, cs, want, flush)
+            nbytes = rows * k + k * n + n * 4 + rows * n * 4
+            record("int8_matmul", f"({rows},{k})x({k},{n}) f32 out (zoo)",
+                   err, ms, p_ms, lib_ms, nbytes, 2 * rows * n * k,
+                   PEAK_INT8_OPS_PER_S, False,
+                   split_note(imm.plan_k_splits(rows, n, k)[2], nbytes, ms))
+        for k, n in ((6144, 16384), (6144, 24576)):
+            g = 4
+            a = randint8(rows, k)
+            w = randint8(k, n, lo=-127)
+            cs = w_colsum_groups(w, g)
+            sg = uniform(g, 0.01, 0.05)
+            zg = torch.round(uniform(g, -20, 20))
+            s_w = uniform(1, 0.001, 0.01)
+            up = randn(rows, n)
+            for requant in (False, True):
+                kw = (dict(activation="silu", mul=up, out_scale=uniform(
+                    1, 0.02, 0.04), out_zp=torch.round(uniform(1, -5, 5)))
+                      if requant else {})
+                got = imm.int8_matmul_peg_cuda(a, w, sg, zg, s_w, cs, **kw)
+                want = imm.int8_matmul_peg_plain(a, w, sg, zg, s_w, cs, **kw)
+                if requant:
+                    worst, flips = lsb_flips(got, want)
+                    require(worst <= 1 and flips <= 1e-3 * got.numel(),
+                            f"int8_matmul_peg ({rows},{k})x({k},{n}) "
+                            f"requant: {flips} flips")
+                    err = float(worst)
+                else:
+                    err = float((got - want).abs().max())
+                    require(err <= 1e-5 * float(want.abs().max()),
+                            f"int8_matmul_peg ({rows},{k})x({k},{n}): max "
+                            f"err {err}")
+                ms = time_ms(lambda: imm.int8_matmul_peg_cuda(
+                    a, w, sg, zg, s_w, cs, **kw), flush)
+                p_ms = time_ms(lambda: imm.int8_matmul_peg_plain(
+                    a, w, sg, zg, s_w, cs, **kw), flush)
+                nbytes = (rows * k + k * n + g * n * 4 + 2 * g * 4 +
+                          (rows * n * (4 + 1) if requant else rows * n * 4))
+                out = "silu*mul->int8" if requant else "f32 out"
+                record("int8_matmul_peg",
+                       f"({rows},{k})x({k},{n}) G={g} {out} (zoo)", err, ms,
+                       p_ms, None, nbytes, 2 * rows * n * k,
+                       PEAK_INT8_OPS_PER_S, False,
+                       peg_note(rows, n, k, g, nbytes, ms))
 
 
 def w4_cases(gen, flush, record, randint8, uniform, randn):
@@ -724,6 +852,168 @@ def attend_check(got, want, smo_step, v_absmax):
     return worst
 
 
+def tie_check(v_deq, valid):
+    """``attend_check`` for two-pass cases with many probabilities a row
+    (the zoo's G = 16 and 48): a row off by more than 1e-5 of max|out| is
+    accepted only when probabilities one ``softmax_out`` step away at one
+    or two of the lane's valid cells explain it, that is when the row's
+    difference equals +- one step x the dequantized V row of each such
+    cell (``v_deq`` (B, cells, KV, hd) f32; ``valid`` (B, cells)) within
+    the same 1e-5 of max|out|. The kernel's (m, l) and the plain version's
+    differ in their last bits, which moves every probability of a row
+    alike, so two ties can land in one row, and such a row may sit two
+    steps x max|v| away. Rows not so explained are held to the 0.1 %
+    share, and every other row to one step x max|v|. Prints each row it
+    explained: its cells and the residual."""
+    import torch
+
+    def explains(d, cells, cand, tol):
+        """The (cells, signs, residual) that explain ``d``, or None."""
+        both = torch.cat([cand, -cand])                       # (2n, hd)
+        n = cand.shape[0]
+        one = (d[None, :] - both).abs().amax(-1)
+        i = int(one.argmin())
+        if float(one[i]) <= tol:
+            return [int(cells[i % n])], [1 - 2 * (i // n)], float(one[i])
+        two = (d[None, None, :] - both[:, None, :]
+               - both[None, :, :]).abs().amax(-1)
+        i = int(two.argmin())
+        if float(two.reshape(-1)[i]) > tol:
+            return None
+        i1, i2 = divmod(i, 2 * n)
+        return ([int(cells[i1 % n]), int(cells[i2 % n])],
+                [1 - 2 * (i1 // n), 1 - 2 * (i2 // n)],
+                float(two.reshape(-1)[i]))
+
+    def check(got, want, smo_step, v_absmax):
+        if smo_step is None:
+            return attend_check(got, want, smo_step, v_absmax)
+        tol = 1e-5 * float(want.abs().max())
+        diff = got - want
+        rows = diff.abs().amax(dim=-1)
+        tied = torch.zeros_like(rows, dtype=torch.bool)
+        for b, h, g in (rows > tol).nonzero().tolist():
+            cells = valid[b].nonzero()[:, 0]
+            why = explains(diff[b, h, g], cells,
+                           smo_step * v_deq[b, cells, h, :], tol)
+            if why is not None:
+                tied[b, h, g] = True
+                print(f"[kernels]   row (lane {b}, kv head {h}, head {g}) "
+                      f"off by {float(rows[b, h, g]):.4e} (one step x "
+                      f"max|v| {smo_step * v_absmax:.4e}): probabilities "
+                      f"one softmax_out step away ({why[1]}) at cells "
+                      f"{why[0]} explain it to {why[2]:.3e}")
+        n, explained = rows.numel(), int(tied.sum())
+        off = int((rows > tol).sum()) - explained
+        require(off <= 1e-3 * n, f"{off} of {n} rows off by more than {tol} "
+                f"and not one softmax_out step at one or two cells")
+        # a row explained by its ties is exact up to them; every other row
+        # is held to one step x max|v|
+        other = float(rows[~tied].max())
+        require(other <= smo_step * v_absmax * (1 + 1e-5),
+                f"max err {other} > one softmax_out step x max|v|")
+        worst = float(rows.max())
+        require(bool(torch.isfinite(got).all()), "non-finite output")
+        return worst
+    return check
+
+
+def softmax_in_tie_check(plain, args, kw):
+    """``attend_check`` for one-pass cases with a softcap before the
+    softmax_in site: every row within 1e-5 of max|out| of the plain
+    version's, except a row that softmax_in grid ties explain. The kernel's
+    ``tanhf`` and ``torch.tanh`` may differ in the last bit, so a softcapped
+    logit within a few ulps of a rounding boundary of the softmax_in grid
+    can land one step apart. A row is explained when moving the plain
+    version's code at one or two of the lane's valid cells whose logit lies
+    within 1e-3 of a step from a boundary to the other side of it, and
+    redoing the softmax and P @ V from the plain version's own logits,
+    gives the kernel's row within the same 1e-5 of max|out| (the redo
+    without the move must give the plain version's row). Prints each row
+    it explained: its cells, their distance from the boundary and the
+    residual."""
+    import itertools
+
+    import torch
+    from repro_torch.kernels import int8_attend_decode as iad
+    from repro_torch.kernels.ref import site_fake_quant
+
+    def logits():
+        """The plain version's logits before the softcap and what it hands
+        ``softmax_attend``."""
+        seen, real = {}, iad.softmax_attend
+
+        def spy(s, valid, v, v_scale=None, v_zp=None, **k):
+            seen.update(s=s, valid=valid, v=v, v_scale=v_scale, v_zp=v_zp,
+                        k=k)
+            return real(s, valid, v, v_scale, v_zp, **k)
+        iad.softmax_attend = spy
+        try:
+            plain(*args, **kw)
+        finally:
+            iad.softmax_attend = real
+        return seen
+
+    def check(got, want, smo_step, v_absmax):
+        require(smo_step is None and kw["sm_quant"] is not None,
+                "softmax_in_tie_check holds one-pass softmax_in cases")
+        tol = 1e-5 * float(want.abs().max())
+        rows = (got - want).abs().amax(dim=-1)
+        off = (rows > tol).nonzero().tolist()
+        if off:
+            c = logits()
+            k = dict(c["k"])
+            cap, sq = k.pop("logit_softcap"), k.pop("sm_quant")
+            x = c["s"] if cap is None else cap * torch.tanh(c["s"] / cap)
+            step, z = sq[0], sq[1]
+            u = x / step
+            code = torch.round(u)
+            near = (u - torch.floor(u) - 0.5).abs()      # grid steps
+            alt = code + torch.where(u > code, 1.0, -1.0)
+            xq = site_fake_quant(x, sq, k["sm_qmin"], k["sm_qmax"])
+            xq_alt = (torch.clamp(alt + z, k["sm_qmin"], k["sm_qmax"])
+                      - z) * step
+        for b, h, g in off:
+            def redo(cells):
+                s = xq[b, h, g].clone()
+                s[cells] = xq_alt[b, h, g, cells]
+                vs = c["v_scale"]
+                return iad.softmax_attend(
+                    s[None, None, None], c["valid"][b:b + 1],
+                    c["v"][b:b + 1, :, h:h + 1],
+                    None if vs is None else vs[b:b + 1, :, h:h + 1],
+                    None if c["v_zp"] is None else c["v_zp"][b:b + 1,
+                                                             h:h + 1],
+                    logit_softcap=None, sm_quant=None, **k)[0, 0, 0]
+            require(float((redo([]) - want[b, h, g]).abs().max()) <= tol,
+                    "softmax_in_tie_check: the redo is not the plain row")
+            cand = ((near[b, h, g] < 1e-3) & c["valid"][b]).nonzero()[:, 0]
+            why = None
+            for n in (1, 2):
+                for cells in itertools.combinations(cand.tolist(), n):
+                    r = float((redo(list(cells)) - got[b, h, g]).abs().max())
+                    if r <= tol:
+                        why = (list(cells), r)
+                        break
+                if why:
+                    break
+            require(why is not None,
+                    f"row (lane {b}, kv head {h}, head {g}) off by "
+                    f"{float(rows[b, h, g])} > {tol}, and no softmax_in tie "
+                    f"at one or two of its {len(cand)} cells near a grid "
+                    f"boundary explains it")
+            print(f"[kernels]   row (lane {b}, kv head {h}, head {g}) off by "
+                  f"{float(rows[b, h, g]):.4e}: the softmax_in code one step "
+                  f"over at cells {why[0]} (softcapped logit "
+                  + ", ".join(f"{float(near[b, h, g, i]):.2e}"
+                              for i in why[0])
+                  + f" of a step from the rounding boundary) explains it to "
+                  f"{why[1]:.3e}")
+        require(bool(torch.isfinite(got).all()), "non-finite output")
+        return float(rows.max())
+    return check
+
+
 def attend_cases(gen, flush, record):
     """K5-K7 at the full-width decode shapes (B 4, 4 KV heads x G 2,
     head_dim 256; S = max_len 128 and the 4096-cell local window; paged
@@ -758,14 +1048,14 @@ def attend_cases(gen, flush, record):
 
     def measure(name, case, fn_cuda, fn_plain, args, kw, valid, kv, g, hd,
                 payload_bytes, meta_bytes, q_bytes, v_absmax, quant,
-                representative, splits=None):
+                representative, splits=None, check=attend_check):
         b = valid.shape[0]
         got = fn_cuda(*args, **kw)
         want = fn_plain(*args, **kw)
         torch.cuda.synchronize()
         smo = kw.get("smo_quant")
-        err = attend_check(got, want, None if smo is None else
-                           float(smo[0]), v_absmax)
+        err = check(got, want, None if smo is None else float(smo[0]),
+                    v_absmax)
         ms = time_ms(lambda: fn_cuda(*args, **kw), flush)
         p_ms = time_ms(lambda: fn_plain(*args, **kw), flush)
         # cells valid for the lane's query need their payload and scales
@@ -987,6 +1277,7 @@ def attend_cases(gen, flush, record):
     k5_split_cases(gen, ri, ru, site_kw, measure)
     k7_split_cases(gen, site_kw, measure)
     emit_cases(gen, flush, record, ri, ru, site_kw)
+    wide_g_cases(gen, flush, record, ri, ru, site_kw, measure)
 
 
 def emit_cases(gen, flush, record, ri, ru, site_kw):
@@ -1315,6 +1606,148 @@ def k5_split_cases(gen, ri, ru, site_kw, measure):
                     splits)
 
 
+def wide_g_cases(gen, flush, record, ri, ru, site_kw, measure):
+    """K5, K5-kv4, K6, K6-kv4 and K7 (bf16 arenas) past 8 query heads a kv
+    head, at the zoo's decode shapes: qwen3-moe's G = 16 (4 kv heads) and
+    granite-20b's G = 48 (MQA, 1 kv head), head_dim 128, B 4, 128 cells
+    (paged: blocks of 16), a short lane and an idle one; two-pass with
+    zero-points and no softcap (as both configs; held by ``tie_check``)
+    and one pass with softmax_in after grok-1's softcap 30
+    (``softmax_in_tie_check``), each also emitting the int8 wo input,
+    which must be K4's bytes on the same call's f32 output."""
+    import torch
+    from repro_torch.kernels import int8_attend_decode as iad
+    from repro_torch.kernels import paged_attend_decode as pad
+    from repro_torch.kernels import peg_quant as pq
+    from repro_torch.kernels.nibble import pack_nibbles, unpack_nibbles
+    from repro_torch.kernels.ref import (decode_valid, paged_gather_ref,
+                                         paged_positions_ref)
+    dev = torch.device("cuda")
+    b, hd, s_len, bs = 4, 128, 128, 16
+    q8 = dict(qmin=-128, qmax=127)
+    nb = s_len // bs
+    for kv, g in ((4, 16), (1, 48)):
+        n_blocks = b * nb + 5
+        table = torch.randperm(n_blocks, generator=gen, device=dev)[
+            :b * nb].reshape(b, nb).to(torch.int32)
+        table[1, 2:] = -1
+        q_pos = torch.tensor([s_len - 1, 2 * bs - 3, s_len - 9, -1],
+                             device=dev, dtype=torch.int32)
+        k_pos = torch.arange(s_len, device=dev, dtype=torch.int32).repeat(
+            b, 1)
+        dense_valid = decode_valid(k_pos, q_pos, None)
+        paged_valid = decode_valid(paged_positions_ref(
+            table, q_pos, s_cap=s_len, block_size=bs), q_pos, None)
+        for name, kv_bits in (("int8_attend_decode", 8),
+                              ("int8_attend_decode_kv4", 4),
+                              ("paged_int8_attend_decode", 8),
+                              ("paged_int8_attend_decode_kv4", 4),
+                              ("paged_attend_decode", 16)):
+            paged = name.startswith("paged")
+            cells = (n_blocks, bs) if paged else (b, s_len)
+            valid = paged_valid if paged else dense_valid
+            meta = table.numel() * 4 + b * 4 if paged else b * s_len * 4 + \
+                b * 4
+            if kv_bits == 16:
+                q = torch.randn(b, kv, g, hd, generator=gen, device=dev) \
+                    * 0.3 / hd ** 0.5
+                kf, vf = (torch.randn(*cells, kv, hd, generator=gen,
+                                      device=dev).to(torch.bfloat16)
+                          for _ in range(2))
+                args = (q, kf, vf, table, q_pos)
+                v_abs = float(vf.float().abs().max())
+                fn, plain = (pad.paged_attend_decode_cuda,
+                             pad.paged_attend_decode_plain)
+                payload, q_bytes, quant = 4 * hd, b * kv * g * hd * 4, False
+                kbits = {}
+            else:
+                if kv_bits == 4:
+                    k, v = (pack_nibbles(torch.randint(
+                        -8, 8, (*cells, kv, hd), generator=gen, device=dev,
+                        dtype=torch.int8)) for _ in range(2))
+                    zk, zv = (torch.round(ru(-3, 3, b, kv)) for _ in range(2))
+                    v_s = ru(0.1, 0.5, *cells, kv)
+                    v_abs = float((8 + zv.abs().max()) * v_s.max())
+                else:
+                    k, v = ri(*cells, kv, hd), ri(*cells, kv, hd)
+                    zk, zv = (torch.round(ru(-20, 20, b, kv))
+                              for _ in range(2))
+                    v_s = ru(0.01, 0.05, *cells, kv)
+                    v_abs = float((v.float().abs().max() + zv.abs().max())
+                                  * v_s.max())
+                args = (ri(b, kv, g, hd), ru(0.01, 0.03, b, kv, g) / 16,
+                        torch.round(ru(-20, 20, b, kv, g)), zk, zv, k,
+                        ru(0.01, 0.05, *cells, kv), v, v_s,
+                        table if paged else k_pos, q_pos)
+                fn, plain = ((pad.paged_int8_attend_decode_cuda,
+                              pad.paged_int8_attend_decode_plain) if paged
+                             else (iad.int8_attend_decode_cuda,
+                                   iad.int8_attend_decode_plain))
+                payload = (hd if kv_bits == 4 else 2 * hd) + 8
+                q_bytes = b * kv * g * (hd + 8) + b * kv * 8
+                quant, kbits = True, dict(kv_bits=kv_bits)
+            splits = (pad.plan_kv_splits(b, kv, nb, bs)[0] if paged else
+                      iad.plan_dense_kv_splits(b, kv, s_len)[0])
+            # each lane's V rows as the attention weighs them (tie_check)
+            if kv_bits == 16:
+                v_deq = paged_gather_ref(vf, table).float()
+            else:
+                vv = unpack_nibbles(v, hd) if kv_bits == 4 else v
+                vv = (paged_gather_ref(vv, table) if paged else vv).float()
+                vsc = paged_gather_ref(v_s, table) if paged else v_s
+                v_deq = vsc[..., None] * (vv - zv[:, None, :, None])
+            shape = (f"B{b} KV{kv}xG{g} hd{hd} "
+                     + (f"bs{bs} s_cap{s_len}" if paged else f"S{s_len}")
+                     + (" bf16" if kv_bits == 16 else "")
+                     + " short+idle lanes")
+            for site, cap in (("two-pass softmax_out + zero-points", None),
+                              ("softmax_in + zero-points", 30.0)):
+                kw = dict(window=None, logit_softcap=cap, **kbits,
+                          **site_kw(site))
+                if paged:
+                    kw["s_cap"] = s_len
+                label = f"{shape}, {site}" + (f", softcap {cap:g}" if cap
+                                              else "")
+                measure(name, label, fn, plain, args, kw, valid, kv, g, hd,
+                        payload, meta, q_bytes, v_abs, quant, False, splits,
+                        tie_check(v_deq, valid) if cap is None else
+                        softmax_in_tie_check(plain, args, kw))
+                # the same call emitting the int8 wo input
+                f, f_plain = fn(*args, **kw), plain(*args, **kw)
+                smo = kw["smo_quant"]
+                # the f32 gap ``measure`` just held (a row with two ties
+                # may sit two softmax_out steps away)
+                f_bound = max(1e-5 * float(f_plain.abs().max()) if smo is None
+                              else float(smo[0]) * v_abs,
+                              float((f - f_plain).abs().max()))
+                s_o = torch.tensor([float(f.abs().max()) / 100], device=dev)
+                z_o = torch.round(ru(-5, 5, 1))
+                ekw = dict(kw, out_scale=s_o, out_zp=z_o, **q8)
+                got = fn(*args, **ekw)
+                pair = pq.peg_quantize_cuda(f.reshape(b, -1), s_o, z_o, **q8)
+                want = plain(*args, **ekw)
+                torch.cuda.synchronize()
+                require(got.dtype == torch.int8 and torch.equal(got, pair),
+                        f"{name} {label} emit: not K4's bytes on its f32 "
+                        f"output")
+                worst, _ = lsb_flips(got, want)
+                require(worst <= 1 + f_bound / float(s_o),
+                        f"{name} {label} emit: {worst} LSB off the plain "
+                        f"emit")
+                ms = time_ms(lambda: fn(*args, **ekw), flush)
+                p_ms = time_ms(lambda: plain(*args, **ekw), flush)
+                n_valid = int(valid.sum())
+                nbytes = (n_valid * kv * payload + meta + q_bytes
+                          + b * kv * g * hd + 8)
+                macs = n_valid * kv * g * hd
+                record(fn.__name__[:-len("_cuda")] + "_emit",
+                       f"{name} {label}", float(worst), ms, p_ms, None,
+                       nbytes, [2 * macs, 2 * macs],
+                       [PEAK_INT8_OPS_PER_S if quant else PEAK_F32_OPS_PER_S,
+                        PEAK_F32_OPS_PER_S], False,
+                       split_note(splits, nbytes, ms))
+
+
 def _counters():
     """{kernel name: (wrapper, launch-count attribute)}; a 4-bit variant
     is counted on its own attribute of the 8-bit kernel's wrapper, and so
@@ -1445,7 +1878,7 @@ def _print_profile(tag, report, what="decode step"):
 
 
 def serve_phase(tag, argv, must_launch, step_emits=None, per_call=None,
-                step_must=(), report=None):
+                step_must=(), report=None, record_ops=None):
     """Drive ``repro_torch.launch.serve.main`` once with every launch count
     set to 0 just before and read just after; returns (counts, rel diff of
     the integer path vs fake-quant, stats, the launcher's output). Decode
@@ -1459,14 +1892,16 @@ def serve_phase(tag, argv, must_launch, step_emits=None, per_call=None,
     operators it dispatched (see _timed_decode_steps). With ``--async``
     the launcher returns its requests, which take the stats' place in the
     returned tuple; its engine's decode steps (``runtime.engine``'s
-    ``make_engine``) are timed and profiled alike."""
+    ``make_engine``) are timed and profiled alike. ``record_ops`` (default:
+    with ``report``) records the profiled step's operators."""
     import torch
     from repro_torch.launch import serve
     from repro_torch.runtime import engine as engine_mod
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]):   # pay CUPTI set-up
         (torch.ones(1, device="cuda") + 1).cpu()        # outside the run
-    record_ops = report is not None
+    if record_ops is None:
+        record_ops = report is not None
     report = {} if report is None else report
     orig_make = serve.make_decode_step
     timed = _timed_decode_steps(orig_make, report, record_ops=record_ops)
@@ -3450,6 +3885,226 @@ def train_e2e_phase(add, device=None, preset="100m"):
     add(read())
 
 
+# The attention-decoder zoo at full width, depth cut so the bf16 params,
+# the calibration's unrolled copy and the int8 packs fit one card (PERF.md
+# §4): widths, heads, experts and vocabularies are the configs' own.
+# internlm2-20b takes 1.8 GiB a layer (53.2 GiB at 24 layers, 31.4 at 12),
+# so its 48 would not fit, and at 32 layers ``--parity`` diverged in bf16
+# on two requests: 24 is the deepest run that fits and holds it. granite
+# serves 16 layers (44.6 GiB) without ``--parity``.
+ZOO_DEPTH = {"internlm2-20b": 24, "granite-20b": 16, "qwen3-moe-235b": 4,
+             "grok1-314b": 2}
+ZOO_MUST = ("rms_quantize", "int8_matmul", "peg_quantize",
+            "int8_attend_decode", "paged_int8_attend_decode",
+            "int8_attend_decode_emit", "paged_int8_attend_decode_emit")
+
+
+@contextlib.contextmanager
+def zoo_config(arch, num_layers=None):
+    """The serving launcher's ``get_config`` gives ``arch`` cut to
+    ``num_layers`` layers (default ``ZOO_DEPTH``):
+    ``dataclasses.replace(get_config(arch), num_layers=n)``, every width
+    unchanged. Yields the cut config."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=num_layers or ZOO_DEPTH[arch])
+    orig = launcher.get_config
+    launcher.get_config = lambda a: cfg if a == arch else orig(a)
+    try:
+        yield cfg
+    finally:
+        launcher.get_config = orig
+
+
+def zoo_argv(arch, kv_bits, *extra):
+    """The README quickstart's serving flags for ``arch``."""
+    argv = quick_argv(kv_bits, *extra)
+    argv[argv.index("--arch") + 1] = arch
+    return argv
+
+
+def zoo_shape(tag, arch, cfg):
+    from repro_torch.configs import get_config
+    g = cfg.num_heads // cfg.num_kv_heads
+    moe = cfg.moe
+    print(f"[{tag}] {arch}: {cfg.num_layers} of "
+          f"{get_config(arch).num_layers} layers "
+          f"at full width: d {cfg.d_model}, {cfg.num_heads} query heads on "
+          f"{cfg.num_kv_heads} kv heads (G {g}), hd {cfg.hd}, "
+          + (f"{moe.num_experts} experts top {moe.top_k} of d_ff "
+             f"{moe.d_ff}" if moe else f"d_ff {cfg.d_ff}")
+          + f", vocab {cfg.vocab_size}, "
+          f"{'tied' if cfg.tie_embeddings else 'untied'} head"
+          + (", QK-norm" if cfg.qk_norm else ""))
+
+
+@contextlib.contextmanager
+def _moe_dispatches():
+    """Record every MoE dispatch: (tokens routed together, capacity per
+    expert, rows dropped as a device tensor: no host sync in the step)."""
+    from repro_torch.models import moe
+    log, orig = [], moe._dispatch_indices
+
+    def dispatch(top_e, num_experts, capacity, *args, **kw):
+        out = orig(top_e, num_experts, capacity, *args, **kw)
+        log.append((int(top_e.shape[0]), capacity, (~out[2]).sum()))
+        return out
+    moe._dispatch_indices = dispatch
+    try:
+        yield log
+    finally:
+        moe._dispatch_indices = orig
+
+
+def _layer_launches(tag, step, n_layers, per_layer):
+    """The profiled decode step launched each kernel of ``per_layer``
+    (name: launches a layer) exactly that many times a layer."""
+    for name, k in per_layer.items():
+        require(step.get(name, 0) == k * n_layers,
+                f"{tag}: the profiled decode step launched {name} "
+                f"{step.get(name, 0)} times, not {k} in each of "
+                f"{n_layers} layers")
+
+
+def zoo_phase(add, reduced_only=False):
+    """Phases 26-30: the attention-decoder zoo. At full width with the
+    depth of ``ZOO_DEPTH`` through the launcher's own ``main`` (its
+    ``get_config`` gives the cut config): internlm2-20b and granite-20b
+    with the quickstart's kv8 flags (internlm2 with ``--parity``: the
+    three OK lines are required; granite's 16-layer run diverged between
+    the schedulers on one request, the bf16 fake-quant attention of prefill
+    batching other rows, as at gemma2-2b's full width), every layer's FFN
+    on K2 / K3 and
+    attention decode on K6 at G 6 and G 48, the ``[kv-int8]`` check
+    through K5; granite-20b once more at kv16 (K7 at G 48, 4 layers);
+    qwen3-moe twice (QK-norm, K6 at G 16, the MoE FFN in fake-quant): the
+    experts' capacity and dropped rows, identical greedy tokens; grok-1
+    through a static bf16 dense cache, then the quickstart's flags. Then
+    each config's README quickstart at ``--reduced`` with ``--parity``:
+    the reference launcher's counts and three ``[parity] OK`` lines.
+    Returns {tag: integer vs fake-quant rel gap} of the reduced runs."""
+    from repro_torch.configs import get_config
+    reduced = ("--reduced", "--block-size", "8", "--max-len", "64",
+               "--parity")
+    gaps = {}
+    if not reduced_only:
+        for arch, parity in (("internlm2-20b", ("--parity",)),
+                             ("granite-20b", ())):
+            tag = f"zoo-{arch}"
+            with zoo_config(arch) as cfg:
+                zoo_shape(tag, arch, cfg)
+                report = {}
+                counts, rel, stats, out = serve_phase(
+                    tag, zoo_argv(arch, "8", *FULL_QUICK, *parity),
+                    ZOO_MUST + ("int8_matmul_peg",),
+                    "paged_int8_attend_decode_emit", report=report,
+                    record_ops=False)
+            add(counts)
+            if parity:
+                require_parity(tag, out, 3)
+            L = cfg.num_layers
+            require(f"FFN in {L}/{L} layers" in out,
+                    f"{tag}: the FFN is not on the integer kernels in "
+                    f"every layer")
+            _layer_launches(tag, report["step_launches"], L, {
+                "rms_quantize": 2, "int8_matmul_peg": 2, "int8_matmul": 5,
+                "paged_int8_attend_decode_emit": 1})
+            print(f"[{tag}] integer vs fake-quant (bf16) logits: rel "
+                  f"{rel:.4%}; int8 vs bf16 KV cache: rel "
+                  f"{kv_gap(tag, out):.4%}; peak kv-cache "
+                  f"{stats.cache_bytes} bytes (printed, not bounded)")
+        tag = "zoo-granite-20b-kv16"
+        with zoo_config("granite-20b", 4) as cfg:
+            zoo_shape(tag, "granite-20b", cfg)
+            counts, _, _, _ = serve_phase(
+                tag, zoo_argv("granite-20b", "16", *FULL_QUICK),
+                ("rms_quantize", "int8_matmul", "int8_matmul_peg",
+                 "paged_attend_decode", "paged_attend_decode_emit"),
+                "paged_attend_decode_emit")
+        add(counts)
+        tag = "zoo-qwen3-moe"
+        tokens = []
+        for run in ("", "-again"):
+            with zoo_config("qwen3-moe-235b") as cfg, \
+                    _moe_dispatches() as log, _served_calls() as calls:
+                if not run:
+                    zoo_shape(tag, "qwen3-moe-235b", cfg)
+                report = {}
+                counts, rel, stats, out = serve_phase(
+                    tag + run, zoo_argv("qwen3-moe-235b", "8", *FULL_QUICK),
+                    ZOO_MUST, "paged_int8_attend_decode_emit",
+                    report=report, record_ops=False)
+            add(counts)
+            _layer_launches(tag + run, report["step_launches"],
+                            cfg.num_layers, {
+                                "rms_quantize": 1, "int8_matmul": 4,
+                                "paged_int8_attend_decode_emit": 1})
+            require("fake-quant fallback: MoE experts in "
+                    f"{cfg.num_layers} layers" in out,
+                    f"{tag}: no MoE fallback note")
+            tokens.append([list(r.tokens_out) for r in calls[0][0][4]])
+            del calls                  # the recorded call holds the params
+            by_t = collections.defaultdict(lambda: [0, 0, 0])
+            for t, cap, dropped in log:
+                row = by_t[(t, cap)]
+                row[0] += 1
+                row[1] += int(dropped)
+                row[2] += t * cfg.moe.top_k
+            print(f"[{tag + run}] MoE dispatches (tokens routed together, "
+                  f"capacity an expert: calls, rows dropped of rows routed; "
+                  f"t = 4 the decode steps, t = 32 the chunk steps): "
+                  + "; ".join(f"t {t}, C {cap}: {n}, {d} of {r}"
+                              for (t, cap), (n, d, r) in sorted(
+                                  by_t.items())))
+            print(f"[{tag + run}] integer vs fake-quant (bf16) logits: rel "
+                  f"{rel:.4%}; int8 vs bf16 KV cache: rel "
+                  f"{kv_gap(tag, out):.4%} (printed, not bounded)")
+        require(tokens[0] == tokens[1],
+                f"{tag}: two runs emitted different greedy tokens")
+        print(f"[{tag}] two runs: identical greedy tokens "
+              f"({sum(map(len, tokens[0]))} tokens)")
+        tag = "zoo-grok-1"
+        with zoo_config("grok1-314b") as cfg:
+            zoo_shape(tag, "grok1-314b", cfg)
+            counts, rel, _, _ = serve_phase(
+                f"{tag}-static", ["--arch", "grok1-314b", "--quantize",
+                                  "--deploy-int8", "--scheduler", "static",
+                                  "--kv-bits", "16", "--requests", "4",
+                                  "--prompt-len", "16", "--new-tokens", "8",
+                                  "--batch-slots", "4", "--max-len", "128"],
+                ("rms_quantize", "int8_matmul", "peg_quantize"))
+            add(counts)
+            counts, rel, _, out = serve_phase(
+                tag, zoo_argv("grok1-314b", "8", *FULL_QUICK), ZOO_MUST,
+                "paged_int8_attend_decode_emit")
+            add(counts)
+        print(f"[{tag}] integer vs fake-quant (bf16) logits: rel "
+              f"{rel:.4%}; int8 vs bf16 KV cache: rel "
+              f"{kv_gap(tag, out):.4%} (printed, not bounded)")
+    for arch in ("internlm2-20b", "granite-20b", "qwen3-moe-235b",
+                 "grok1-314b"):
+        tag = f"zoo-{arch}-reduced"
+        counts, rel, stats, out = serve_phase(
+            tag, zoo_argv(arch, "8", *reduced),
+            ("rms_quantize", "int8_matmul", "peg_quantize",
+             "int8_attend_decode", "paged_int8_attend_decode",
+             "paged_int8_attend_decode_emit")
+            + (() if get_config(arch).moe else ("int8_matmul_peg",)),
+            "paged_int8_attend_decode_emit")
+        add(counts)
+        require_parity(tag, out, 3)
+        got = (stats.tokens_generated, stats.decode_steps,
+               stats.prefill_calls, stats.blocks_in_use, stats.chunk_steps)
+        require(got == (36, 10, 6, 16, 6) and "blocks 16/32" in out,
+                f"{tag}: serve counts {got} are not the reference's "
+                f"(36, 10, 6, 16, 6)")
+        require(kv_gap(tag, out) <= 1e-4, f"{tag}: [kv-int8] gap")
+        gaps[tag] = rel
+    return gaps
+
+
 def ptxas_report():
     """``--ptxas``: compile the split and cluster kernels' sources once more
     with ``-Xptxas -v`` (into build/ptxas) and print one line per kernel
@@ -3673,6 +4328,11 @@ def main() -> int:
     train_full_phase(add)
     train_card_vs_cpu_phase(add)
     train_e2e_phase(add)
+    for tag, rel in zoo_phase(add).items():
+        require(rel <= 1e-4, f"{tag}: integer path differs from "
+                f"fake-quant by {rel:.4%} of max|logits|")
+        print(f"[{tag}] integer vs fake-quant logits: rel {rel:.4%} "
+              f"(bound 1e-4)")
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     kernels = []

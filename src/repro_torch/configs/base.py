@@ -2,13 +2,17 @@
 
 The port keeps its own ``ModelConfig`` — same fields, same ``reduced()`` —
 because the reference module imports JAX. Only the configs of ported
-architectures are registered.
+architectures are registered: the attention decoders (dense, GQA / MQA,
+QK-norm, MoE); the recurrent, multimodal and encoder-decoder families
+raise "is not yet ported".
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
+
+from repro_torch.models.moe import MoEConfig
 
 # the reference's input shapes (``repro.configs.base.SHAPES``)
 SHAPES: Dict[str, dict] = {
@@ -49,7 +53,7 @@ class ModelConfig:
     local_window: int = 4096                 # window for "local_attn" blocks
     d_rnn: Optional[int] = None              # RG-LRU width
     rwkv_head_size: int = 64
-    moe: Optional[Any] = None                # MoE config (not yet ported)
+    moe: Optional[MoEConfig] = None
     encoder_layers: int = 0
     frontend: Optional[str] = None           # audio | vision
     num_frontend_tokens: int = 0
@@ -107,7 +111,8 @@ class ModelConfig:
         )
 
 
-_REGISTRY = ["gemma2_2b", "h2o_danube3_4b"]
+_REGISTRY = ["h2o_danube3_4b", "internlm2_20b", "gemma2_2b", "granite_20b",
+             "qwen3_moe_235b", "grok1_314b"]
 ARCH_IDS = [m.replace("_", "-") for m in _REGISTRY]
 
 

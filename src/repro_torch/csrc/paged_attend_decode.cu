@@ -28,8 +28,9 @@ bool bad_plan(int splits, int bps, int nb) {
 // idle lane); sm/smo (2,) f32 or null; out (B,KV,G,hd) f32, or, with out_q
 // non-null, out null and out_q (B,KV*G*hd) int8 = clip(rint(v / out_scale)
 // + out_zp, out_qmin, out_qmax) with out_scale/out_zp (1,) f32. All
-// contiguous. kv_bits = 4: arenas are (N,bs,KV,hd/2) split-half nibbles,
-// hd % 8 == 0.
+// contiguous. hd % 4 == 0, and hd <= 256 with G <= 8 or hd <= 128 with
+// G <= 48 (else cudaErrorInvalidValue). kv_bits = 4: arenas are
+// (N,bs,KV,hd/2) split-half nibbles, hd % 8 == 0.
 // splits x bps blocks cover the nb blocks (splits <= 32, bps <= 256); ws
 // holds B*KV*splits*G*(hd+2) f32, counters B*KV zeroed ints (left zeroed).
 // Returns cudaGetLastError().
@@ -60,8 +61,9 @@ extern "C" int paged_int8_attend_decode(
 // K7. q (B,KV,G,hd) f32 with the attention scale folded in; k_arena/v_arena
 // (N,bs,KV,hd) f32 (kv_is_bf16 = 0) or bf16 (kv_is_bf16 = 1), 4-byte
 // aligned (16-byte aligned rows are copied 16 bytes at a time); out, out_q
-// and the rest as in paged_int8_attend_decode. hd % 4 == 0, hd <= 256,
-// G <= 8. Returns cudaGetLastError().
+// and the rest as in paged_int8_attend_decode. hd % 4 == 0, and hd <= 256
+// with G <= 8 or hd <= 128 with G <= 48 (else cudaErrorInvalidValue).
+// Returns cudaGetLastError().
 extern "C" int paged_attend_decode(
     const void* q, const void* k_arena, const void* v_arena, int kv_is_bf16,
     const void* table, const void* q_pos, const void* sm, const void* smo,

@@ -42,19 +42,28 @@
 // two shared-memory stages with cp.async (16 bytes a copy where rows and
 // arenas are 16-byte aligned, else 4), so a stage's K and V rows (and,
 // int8, scales; dense, positions) are all in flight before any reduction.
-// The stages hold 32 cells of 288 bytes (int8, int4; static shared
-// memory) or, in dynamic shared memory sized by the row, 32 padded bf16
-// rows or 16 padded f32 rows (32 f32 rows of hd 256 would take 130 KB and
-// leave one block an SM). int8: q.k is an exact int32 __dp4a over 8
-// threads per cell (three shuffles per value), with the reference's float
-// corrections; kv_bits = 4 reads split-half nibbles: packed word i holds
-// the column quads i and hd/8 + i, sign-extended per byte (__vsub4) before
-// the __dp4a.
+// The stages, in dynamic shared memory, hold 32 cells of 288 bytes (int8,
+// int4) or, sized by the row, 32 padded bf16 rows or 16 padded f32 rows
+// (32 f32 rows of hd 256 would take 130 KB and leave one block an SM).
+// int8: q.k is an exact int32 __dp4a over 8 threads per cell (three
+// shuffles per value), with the reference's float corrections; kv_bits = 4
+// reads split-half nibbles: packed word i holds the column quads i and
+// hd/8 + i, sign-extended per byte (__vsub4) before the __dp4a.
 // float: q (f32, staged once) . k in f32 over the same 8 threads per cell
 // and three shuffles, on the bf16 or f32 values as stored. A warp per query
 // head then runs the online softmax over a stage's cells (a lane per cell),
 // and the threads accumulate p * v (int8: p * v_s * v - z_v * sum) per
 // (head, column quad) in the reference's order.
+//
+// G query heads per kv head: up to 8 at hd <= 256, up to 48 at hd <= 128
+// (granite's MQA: 48 heads on one kv head; qwen3: 16). The block stages
+// each chunk of cells once and walks the G heads in tiles of 8 (the 8
+// threads of a cell give one head each), so the cache is read once
+// whatever G is; warp w runs the online softmax of heads w + 4 i, their
+// running (m, l) in its registers. The per-head arithmetic does not
+// depend on the tile,
+// the warp or the thread that runs it, so a result at G <= 8 is the same
+// bits as before the tiles.
 //
 // One pass (no softmax_out site): each split writes (m_j, l_j, acc_j) to a
 // workspace; the last block of the (lane, head) to arrive (an arrival
@@ -97,8 +106,9 @@ constexpr int kMaxChunk = 32;        // cells per shared-memory stage
 constexpr int kRow = 288;            // bytes per staged int8 row (256 + pad)
 constexpr int kMaxSplits = 32;
 constexpr int kMaxBlocks = 256;      // paged blocks per split
-constexpr int kMaxG = 8;             // query heads per kv head
-constexpr int kMaxHd = 256;          // head_dim
+constexpr int kMaxG = 48;            // query heads per kv head
+constexpr int kTile = 8;             // query heads a cell's 8 threads hold
+constexpr int kMaxHd = 256;          // head_dim (G <= 8)
 constexpr float kNegInf = -1e30f;
 
 enum Pass { ONE_PASS = 0, STATS = 1, EMIT = 2 };
@@ -106,6 +116,15 @@ enum Pass { ONE_PASS = 0, STATS = 1, EMIT = 2 };
 // Cells per stage: 16 for 4-byte (f32) rows, 32 for the rest.
 template <typename KT>
 constexpr int kChunk = sizeof(KT) == 4 ? 16 : kMaxChunk;
+
+// The largest head_dim of an instantiation for MG query heads a kv head:
+// the queries (MG x hd) sit in static shared memory.
+template <int MG>
+constexpr int kHdCap = MG > kTile ? 128 : kMaxHd;
+
+// The split statistics m_j and l_j of every (split, head) reuse the logit
+// and probability rows' shared memory (free before and after the stages).
+static_assert(kMaxSplits <= kMaxChunk, "split statistics must fit");
 
 struct SplitArgs {
   const int8_t* q;          // int8 (B,KV,G,hd)
@@ -211,16 +230,31 @@ __device__ __forceinline__ void cp_async(void* smem, const void* gmem,
                  "l"(gmem));
 }
 
-// The global (m, l) of head g from the splits' (m_j, l_j), in split order.
-__device__ __forceinline__ void merge_stats(float (*ml)[kMaxG][2],
-                                            int S, int g, float* m,
-                                            float* l) {
+// The global (m, l) of head g from the splits' (m_j, l_j), in split order
+// (split j, head g: m_j at ml_m[j * MG + g], l_j at ml_l[j * MG + g]).
+template <int MG>
+__device__ __forceinline__ void merge_stats(const float* ml_m,
+                                            const float* ml_l, int S, int g,
+                                            float* m, float* l) {
   float mm = kNegInf;
-  for (int j = 0; j < S; ++j) mm = fmaxf(mm, ml[j][g][0]);
+  for (int j = 0; j < S; ++j) mm = fmaxf(mm, ml_m[j * MG + g]);
   float ll = 0.f;
-  for (int j = 0; j < S; ++j) ll += ml[j][g][1] * expf(ml[j][g][0] - mm);
+  for (int j = 0; j < S; ++j)
+    ll += ml_l[j * MG + g] * expf(ml_m[j * MG + g] - mm);
   *m = mm;
   *l = fmaxf(ll, 1e-30f);
+}
+
+// The splits' (m_j, l_j) of (lane, kv head) bh from the workspace into
+// ml_m / ml_l (see merge_stats).
+template <int MG>
+__device__ __forceinline__ void load_stats(const float* ws_ml, int bh, int S,
+                                           int G, float* ml_m, float* ml_l) {
+  for (int i = threadIdx.x; i < S * G; i += blockDim.x) {
+    const float* src = ws_ml + ((size_t)bh * S * G + i) * 2;
+    ml_m[(i / G) * MG + i % G] = __ldcg(src);
+    ml_l[(i / G) * MG + i % G] = __ldcg(src + 1);
+  }
 }
 
 template <typename KT, bool PAGED, bool KV4, int MG, int PASS>
@@ -228,24 +262,30 @@ __global__ void __launch_bounds__(kThreads)
 split_attend_kernel(const SplitArgs a) {
   constexpr bool QUANT = std::is_same<KT, int8_t>::value;
   constexpr int CHUNK = kChunk<KT>;
+  constexpr int MT = MG < kTile ? MG : kTile;     // heads per logit tile
+  // logit tiles: one, known at compile time, up to 8 heads
+  constexpr bool ONE_TILE = MG <= kTile;
+  constexpr int QROW = kHdCap<MG>;                // queries: a head's row
+  constexpr int QW = MG * QROW;                   // query values held
+  constexpr int GI = (MG + 3) / 4;                // heads a warp runs
   using Acc = typename std::conditional<QUANT, int, float>::type;
-  // K stages [0, 2 * CHUNK) then V stages, one staged row each: static
-  // for int8 rows, dynamic (sized by the row) for float ones
-  __shared__ __align__(16) int8_t qstage_s[QUANT ? 4 * kMaxChunk * kRow : 16];
-  extern __shared__ __align__(16) int8_t fstage_s[];
-  int8_t* const stage_s = QUANT ? qstage_s : fstage_s;
+  // K stages [0, 2 * CHUNK) then V stages, one staged row each, in
+  // dynamic shared memory (int8: kRow bytes a row; float: sized by it)
+  extern __shared__ __align__(16) int8_t stage_s[];
   __shared__ float ks_s[2][QUANT ? kMaxChunk : 1];
   __shared__ float vs_s[2][QUANT ? kMaxChunk : 1];
   __shared__ int kpos_s[2][QUANT && !PAGED ? kMaxChunk : 1];
-  __shared__ int q_s[QUANT ? kMaxG : 1][QUANT ? kMaxHd / 4 : 1];
-  __shared__ __align__(16) float qf_s[QUANT ? 1 : kMaxG][QUANT ? 1 : kMaxHd];
-  __shared__ float qs_s[kMaxG], zq_s[kMaxG], qrow_s[kMaxG];
+  // queries, head g's row at g * QROW (int8: hd / 4 words; float: hd f32)
+  __shared__ int q_s[QUANT ? QW / 4 : 1];
+  __shared__ __align__(16) float qf_s[QUANT ? 1 : QW];
+  __shared__ float qs_s[MG], zq_s[MG], qrow_s[MG];
   __shared__ int tbl_s[PAGED ? kMaxBlocks : 1], r0_s[PAGED ? kMaxBlocks : 1];
-  __shared__ float s_s[kMaxG][kMaxChunk], pvs_s[kMaxG][kMaxChunk];
-  __shared__ float corr_s[kMaxG], pvsum_s[kMaxG], M_s[kMaxG], L_s[kMaxG];
-  __shared__ float ml_s[kMaxSplits][kMaxG][2];
+  // logits s[g][c] and probabilities pv[g][c] of a stage; before and
+  // after the stages, the splits' m_j and l_j (see merge_stats)
+  __shared__ float s_s[MG * kMaxChunk], pvs_s[MG * kMaxChunk];
+  __shared__ float corr_s[MG], pvsum_s[MG], M_s[MG], L_s[MG];
   __shared__ int is_last;
-  constexpr int kPairs = (MG * kMaxHd / 4 + kThreads - 1) / kThreads;
+  constexpr int kPairs = (QW / 4 + kThreads - 1) / kThreads;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -284,7 +324,7 @@ split_attend_kernel(const SplitArgs a) {
   }
   if constexpr (QUANT) {
     for (int i = tid; i < G * hd / 4; i += kThreads)
-      q_s[i / (hd / 4)][i % (hd / 4)] =
+      q_s[i / (hd / 4) * (QROW / 4) + i % (hd / 4)] =
           reinterpret_cast<const int*>(a.q + qrow0 * hd)[i];
     if (tid < G) {
       qs_s[tid] = a.q_scale[qrow0 + tid];
@@ -292,7 +332,7 @@ split_attend_kernel(const SplitArgs a) {
     }
   } else {
     for (int i = tid; i < G * hd; i += kThreads)
-      qf_s[i / hd][i % hd] = a.qf[qrow0 * hd + i];
+      qf_s[i / hd * QROW + i % hd] = a.qf[qrow0 * hd + i];
   }
   __syncthreads();
 
@@ -337,7 +377,7 @@ split_attend_kernel(const SplitArgs a) {
     for (int g = warp; g < G; g += kThreads / 32) {
       int r = 0;
       for (int w = lane; w < hd / 4; w += 32)
-        r = __dp4a(q_s[g][w], 0x01010101, r);
+        r = __dp4a(q_s[g * (QROW / 4) + w], 0x01010101, r);
       r = warp_sum(r);
       if (lane == 0) qrow_s[g] = (float)r;
     }
@@ -346,16 +386,18 @@ split_attend_kernel(const SplitArgs a) {
     // launch 1 has finished and its (m_j, l_j) are visible: every split's
     // statistics merge into the global (m, l)
     asm volatile("griddepcontrol.wait;\n" ::: "memory");
-    for (int i = tid; i < S * G; i += kThreads) {
-      const float* src = ws_ml + ((size_t)bh * S * G + i) * 2;
-      ml_s[i / G][i % G][0] = __ldcg(src);
-      ml_s[i / G][i % G][1] = __ldcg(src + 1);
-    }
+    load_stats<MG>(ws_ml, bh, S, G, s_s, pvs_s);
     __syncthreads();
-    if (tid < G) merge_stats(ml_s, S, tid, &M_s[tid], &L_s[tid]);
+    if (tid < G) merge_stats<MG>(s_s, pvs_s, S, tid, &M_s[tid], &L_s[tid]);
   }
 
-  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  // the running (m, l) of heads warp + 4 gi
+  float m_run[GI], l_run[GI];
+#pragma unroll
+  for (int gi = 0; gi < GI; ++gi) {
+    m_run[gi] = kNegInf;
+    l_run[gi] = 0.f;
+  }
   float acc[kPairs][4];
 #pragma unroll
   for (int i = 0; i < kPairs; ++i)
@@ -374,103 +416,110 @@ split_attend_kernel(const SplitArgs a) {
     asm volatile("cp.async.wait_group 1;\n" ::);
     __syncthreads();
 
-    // logits: 8 threads per cell, cells grp (and grp + 16)
+    // logits: 8 threads per cell, cells grp (and grp + 16), the G heads
+    // in tiles of MT (thread t8 of a cell finishes head g0 + t8)
 #pragma unroll
     for (int it = 0; it < CHUNK / (kThreads / 8); ++it) {
       const int c = grp + it * (kThreads / 8);
       const bool live = c < n;
-      Acc d[MG];
-      int kc = 0;
+      for (int g0 = 0; g0 < (ONE_TILE ? 1 : G); g0 += MT) {
+        Acc d[MT];
+        int kc = 0;
 #pragma unroll
-      for (int g = 0; g < MG; ++g) d[g] = 0;
-      if (live) {
-        if constexpr (!QUANT) {
-          const KT* krow = reinterpret_cast<const KT*>(k_stage(buf, c));
-          for (int w = t8; w < hd / 4; w += 8) {
-            float kx[4];
-            load4(krow, w, kx);
+        for (int g = 0; g < MT; ++g) d[g] = 0;
+        if (live) {
+          if constexpr (!QUANT) {
+            const KT* krow = reinterpret_cast<const KT*>(k_stage(buf, c));
+            for (int w = t8; w < hd / 4; w += 8) {
+              float kx[4];
+              load4(krow, w, kx);
 #pragma unroll
-            for (int g = 0; g < MG; ++g)
-              if (g < G) {
-                const float4 qv = reinterpret_cast<const float4*>(qf_s[g])[w];
-                d[g] += ((qv.x * kx[0] + qv.y * kx[1]) + qv.z * kx[2]) +
-                        qv.w * kx[3];
-              }
-          }
-        } else if (KV4) {
-          const int* krow = reinterpret_cast<const int*>(k_stage(buf, c));
-          for (int pw = t8; pw < hd / 8; pw += 8) {
-            const int lo = nibbles_lo(krow[pw]);
-            const int hi = nibbles_hi(krow[pw]);
-            kc = __dp4a(hi, 0x01010101, __dp4a(lo, 0x01010101, kc));
+              for (int g = 0; g < MT; ++g)
+                if (g0 + g < G) {
+                  const float4 qv = reinterpret_cast<const float4*>(
+                      qf_s + (g0 + g) * QROW)[w];
+                  d[g] += ((qv.x * kx[0] + qv.y * kx[1]) + qv.z * kx[2]) +
+                          qv.w * kx[3];
+                }
+            }
+          } else if (KV4) {
+            const int* krow = reinterpret_cast<const int*>(k_stage(buf, c));
+            for (int pw = t8; pw < hd / 8; pw += 8) {
+              const int lo = nibbles_lo(krow[pw]);
+              const int hi = nibbles_hi(krow[pw]);
+              kc = __dp4a(hi, 0x01010101, __dp4a(lo, 0x01010101, kc));
 #pragma unroll
-            for (int g = 0; g < MG; ++g)
-              if (g < G)
-                d[g] = __dp4a(q_s[g][hd / 8 + pw], hi,
-                              __dp4a(q_s[g][pw], lo, d[g]));
-          }
-        } else {
-          const int* krow = reinterpret_cast<const int*>(k_stage(buf, c));
-          for (int w = t8; w < hd / 4; w += 8) {
-            const int kw = krow[w];
-            kc = __dp4a(kw, 0x01010101, kc);
+              for (int g = 0; g < MT; ++g)
+                if (g0 + g < G) {
+                  const int* qrow = q_s + (g0 + g) * (QROW / 4);
+                  d[g] = __dp4a(qrow[hd / 8 + pw], hi,
+                                __dp4a(qrow[pw], lo, d[g]));
+                }
+            }
+          } else {
+            const int* krow = reinterpret_cast<const int*>(k_stage(buf, c));
+            for (int w = t8; w < hd / 4; w += 8) {
+              const int kw = krow[w];
+              kc = __dp4a(kw, 0x01010101, kc);
 #pragma unroll
-            for (int g = 0; g < MG; ++g)
-              if (g < G) d[g] = __dp4a(q_s[g][w], kw, d[g]);
+              for (int g = 0; g < MT; ++g)
+                if (g0 + g < G)
+                  d[g] = __dp4a(q_s[(g0 + g) * (QROW / 4) + w], kw, d[g]);
+            }
           }
         }
-      }
 #pragma unroll
-      for (int off = 4; off > 0; off >>= 1) {
-        if (QUANT) kc += __shfl_xor_sync(0xffffffffu, kc, off);
+        for (int off = 4; off > 0; off >>= 1) {
+          if (QUANT) kc += __shfl_xor_sync(0xffffffffu, kc, off);
 #pragma unroll
-        for (int g = 0; g < MG; ++g)
-          d[g] += __shfl_xor_sync(0xffffffffu, d[g], off);
-      }
-      if (live && t8 < G) {
-        const int cl = ch * CHUNK + c;
-        bool ok;
-        if constexpr (PAGED) {
-          const int blk = cl / bs;
-          int r = r0_s[blk] - (cl - blk * bs);
-          if (r < 0) r += a.s_cap;
-          const int p = qp - r;
-          ok = cell0 + cl < a.s_cap && p >= 0 && tbl_s[blk] >= 0;
-          if (a.window > 0) ok = ok && p > qp - a.window;
-        } else {
-          const int kp = kpos_s[buf][c];
-          ok = kp >= 0 && kp <= qp;
-          if (a.window > 0) ok = ok && kp > qp - a.window;
+          for (int g = 0; g < MT; ++g)
+            d[g] += __shfl_xor_sync(0xffffffffu, d[g], off);
         }
-        Acc dg = 0;
+        if (live && t8 < MT && g0 + t8 < G) {
+          const int cl = ch * CHUNK + c;
+          bool ok;
+          if constexpr (PAGED) {
+            const int blk = cl / bs;
+            int r = r0_s[blk] - (cl - blk * bs);
+            if (r < 0) r += a.s_cap;
+            const int p = qp - r;
+            ok = cell0 + cl < a.s_cap && p >= 0 && tbl_s[blk] >= 0;
+            if (a.window > 0) ok = ok && p > qp - a.window;
+          } else {
+            const int kp = kpos_s[buf][c];
+            ok = kp >= 0 && kp <= qp;
+            if (a.window > 0) ok = ok && kp > qp - a.window;
+          }
+          Acc dg = 0;
 #pragma unroll
-        for (int g = 0; g < MG; ++g)
-          if (g == t8) dg = d[g];
-        const int g = t8;
-        float x;
-        if constexpr (QUANT) {
-          const float zq = zq_s[g];
-          const float acc32 = (((float)dg - zq * (float)kc) -
-                               zk * qrow_s[g]) + ((float)hd * zq) * zk;
-          x = acc32 * qs_s[g] * ks_s[buf][c];
-        } else {
-          x = dg;
+          for (int g = 0; g < MT; ++g)
+            if (g == t8) dg = d[g];
+          const int g = g0 + t8;
+          float x;
+          if constexpr (QUANT) {
+            const float zq = zq_s[g];
+            const float acc32 = (((float)dg - zq * (float)kc) -
+                                 zk * qrow_s[g]) + ((float)hd * zq) * zk;
+            x = acc32 * qs_s[g] * ks_s[buf][c];
+          } else {
+            x = dg;
+          }
+          if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
+          if (a.sm != nullptr)
+            x = fake_quant(x, a.sm[0], a.sm[1], a.sm_qmin, a.sm_qmax);
+          s_s[g * kMaxChunk + c] = ok ? x : kNegInf;
         }
-        if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
-        if (a.sm != nullptr)
-          x = fake_quant(x, a.sm[0], a.sm[1], a.sm_qmin, a.sm_qmax);
-        s_s[g][c] = ok ? x : kNegInf;
       }
     }
     __syncthreads();
 
     // softmax over the stage: a warp per query head, a lane per cell
 #pragma unroll
-    for (int gi = 0; gi < 2; ++gi) {
+    for (int gi = 0; gi < GI; ++gi) {
       const int g = warp + 4 * gi;
       if (g >= G) continue;
       const bool in = lane < n;
-      const float sv = in ? s_s[g][lane] : -INFINITY;
+      const float sv = in ? s_s[g * kMaxChunk + lane] : -INFINITY;
       float p, corr = 1.f;
       if (PASS == EMIT) {
         p = in ? fake_quant(expf(sv - M_s[g]) / L_s[g], a.smo[0], a.smo[1],
@@ -490,7 +539,7 @@ split_attend_kernel(const SplitArgs a) {
           pv = in ? p * vs_s[buf][lane] : 0.f;
           pvsum = warp_sum(pv);
         }
-        pvs_s[g][lane] = pv;
+        pvs_s[g * kMaxChunk + lane] = pv;
         if (lane == 0) {
           pvsum_s[g] = pvsum;
           corr_s[g] = corr;
@@ -519,7 +568,7 @@ split_attend_kernel(const SplitArgs a) {
           } else {
             load4(reinterpret_cast<const KT*>(v_stage(buf, c)), w, x);
           }
-          const float pv = pvs_s[g][c];
+          const float pv = pvs_s[g * kMaxChunk + c];
 #pragma unroll
           for (int e = 0; e < 4; ++e) dsum[e] += pv * x[e];
         }
@@ -537,7 +586,7 @@ split_attend_kernel(const SplitArgs a) {
   const size_t part = (size_t)bh * S + j;
   if (PASS != EMIT && lane == 0) {
 #pragma unroll
-    for (int gi = 0; gi < 2; ++gi) {
+    for (int gi = 0; gi < GI; ++gi) {
       const int g = warp + 4 * gi;
       if (g < G) {
         ws_ml[(part * G + g) * 2] = m_run[gi];
@@ -566,16 +615,12 @@ split_attend_kernel(const SplitArgs a) {
 
   // the last split of (lane, head) merges every split in split order
   if (PASS == ONE_PASS) {
-    for (int i = tid; i < S * G; i += kThreads) {
-      const float* src = ws_ml + ((size_t)bh * S * G + i) * 2;
-      ml_s[i / G][i % G][0] = __ldcg(src);
-      ml_s[i / G][i % G][1] = __ldcg(src + 1);
-    }
+    load_stats<MG>(ws_ml, bh, S, G, s_s, pvs_s);
     __syncthreads();
     if (tid < G) {
-      merge_stats(ml_s, S, tid, &M_s[tid], &L_s[tid]);
+      merge_stats<MG>(s_s, pvs_s, S, tid, &M_s[tid], &L_s[tid]);
       for (int jj = 0; jj < S; ++jj)       // now each split's weight
-        ml_s[jj][tid][0] = expf(ml_s[jj][tid][0] - M_s[tid]);
+        s_s[jj * MG + tid] = expf(s_s[jj * MG + tid] - M_s[tid]);
     }
     __syncthreads();
   }
@@ -588,7 +633,7 @@ split_attend_kernel(const SplitArgs a) {
 #pragma unroll 8
     for (int jj = 0; jj < S; ++jj) {
       const float y = __ldcg(acc0 + ((size_t)jj * G + g) * hd + col);
-      x += PASS == ONE_PASS ? y * ml_s[jj][g][0] : y;
+      x += PASS == ONE_PASS ? y * s_s[jj * MG + g] : y;
     }
     const float v = PASS == ONE_PASS ? x / L_s[g] : x;
     if (a.out_q)
@@ -600,35 +645,84 @@ split_attend_kernel(const SplitArgs a) {
   if (tid == 0) a.counters[bh] = 0;
 }
 
-// Dynamic shared memory above the default 48 KB must be allowed per kernel
-// (the float stages: 66 KB for 32 bf16 or 16 f32 rows of hd 256).
+// Resident blocks an SM at G <= 8 (0: as many as fit). The paged int8
+// probability passes and the float kernels run faster at long caches with
+// fewer blocks an SM than their shared memory allows: at the 4096-cell
+// window (B 4, 4 kv heads, 32 splits: 512 blocks) the emitting K6 takes
+// 62.8 us at 5 blocks an SM and 59.5 at 4, K7 on f32 arenas 130.2 at 3
+// and 120.2 at 2 (scripts/kernel_ab.py on an H100). These are the counts
+// of the layout sized for 8 heads of hd 256 that G <= 8 had before the
+// wide-G tiles. The statistics pass and the dense kernels keep theirs.
+template <typename KT, bool PAGED, int MG, int PASS>
+constexpr int kMaxResident =
+    MG > kTile ? 0
+    : !std::is_same<KT, int8_t>::value ? 2
+    : PAGED && PASS != STATS ? 4 : 0;
+
+// Static and dynamic shared memory above 48 KB in all must be allowed per
+// kernel (the float stages alone: 66 KB for 32 bf16 or 16 f32 rows of hd
+// 256; the int8 stages, 36 KB, beside the queries and logits of 48 heads).
+// Returns the dynamic shared memory to launch ``kernel`` with: ``bytes``,
+// or more, so that at most ``blocks`` blocks fit an SM (blocks > 0).
+// ``memo`` (per instantiation and pass: {the floor ``blocks`` asks for, or
+// -1 before the first launch; the largest size allowed so far}) leaves a
+// launch no driver call after the first of its size.
 template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, int bytes) {
-  if (bytes <= (48 << 10)) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+inline int launch_smem(Kernel kernel, int bytes, int blocks, int* memo) {
+  if (memo[0] < 0) {
+    int least = 0;
+    if (blocks > 0) {
+      int dev = 0, per_sm = 0, reserved = 0;
+      cudaFuncAttributes fa;
+      cudaError_t e = cudaGetDevice(&dev);
+      if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(
+            &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+      if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(
+            &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+      if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+      if (e != cudaSuccess) return -(int)e;
+      // (blocks + 1) blocks of this size overflow the SM
+      least = per_sm / (blocks + 1) + 1 - reserved - (int)fa.sharedSizeBytes;
+    }
+    memo[0] = least;
+  }
+  if (memo[0] > bytes) bytes = memo[0];
+  if (bytes > memo[1]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return -(int)e;
+    memo[1] = bytes;
+  }
+  return bytes;
 }
 
 template <typename KT, bool PAGED, bool KV4, int MG>
 int launch_split(const SplitArgs& a, cudaStream_t stream) {
   constexpr bool QUANT = std::is_same<KT, int8_t>::value;
-  const int smem = QUANT ? 0 : 4 * kChunk<KT> * a.stride;
+  if (a.g > MG || a.hd > kHdCap<MG>) return (int)cudaErrorInvalidValue;
+  const int smem = 4 * kChunk<KT> * (QUANT ? kRow : a.stride);
   const dim3 grid(a.splits, a.kv, a.batch);
+  static int memo[3][2] = {{-1, 0}, {-1, 0}, {-1, 0}};  // per pass (one device)
   if (a.smo == nullptr) {
     const auto kernel = split_attend_kernel<KT, PAGED, KV4, MG, ONE_PASS>;
-    const cudaError_t e = allow_smem(kernel, smem);
-    if (e != cudaSuccess) return (int)e;
-    kernel<<<grid, kThreads, smem, stream>>>(a);
+    const int bytes = launch_smem(
+        kernel, smem, kMaxResident<KT, PAGED, MG, ONE_PASS>, memo[ONE_PASS]);
+    if (bytes < 0) return -bytes;
+    kernel<<<grid, kThreads, bytes, stream>>>(a);
     return (int)cudaGetLastError();
   }
   const auto stats = split_attend_kernel<KT, PAGED, KV4, MG, STATS>;
   const auto emit = split_attend_kernel<KT, PAGED, KV4, MG, EMIT>;
-  cudaError_t e = allow_smem(stats, smem);
-  if (e == cudaSuccess) e = allow_smem(emit, smem);
-  if (e != cudaSuccess) return (int)e;
-  stats<<<grid, kThreads, smem, stream>>>(a);
-  e = cudaGetLastError();
+  const int s_bytes = launch_smem(
+      stats, smem, kMaxResident<KT, PAGED, MG, STATS>, memo[STATS]);
+  if (s_bytes < 0) return -s_bytes;
+  const int e_bytes = launch_smem(
+      emit, smem, kMaxResident<KT, PAGED, MG, EMIT>, memo[EMIT]);
+  if (e_bytes < 0) return -e_bytes;
+  stats<<<grid, kThreads, s_bytes, stream>>>(a);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   // launch 2 with programmatic dependent launch: its blocks load their
   // table entries, queries and payload while launch 1 still runs, and
@@ -639,7 +733,7 @@ int launch_split(const SplitArgs& a, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.dynamicSmemBytes = e_bytes;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -718,23 +812,27 @@ inline SplitArgs quant_args(const void* q_q, const void* q_scale,
   return a;
 }
 
+// The instantiation for a.g query heads a kv head: 2, 8 (hd <= 256) or 48
+// (hd <= 128); launch_split refuses a shape past its limits.
+template <typename KT, bool PAGED, bool KV4>
+int launch_g(const SplitArgs& a, cudaStream_t s) {
+  if (a.g <= 2) return launch_split<KT, PAGED, KV4, 2>(a, s);
+  if (a.g <= kTile) return launch_split<KT, PAGED, KV4, kTile>(a, s);
+  return launch_split<KT, PAGED, KV4, kMaxG>(a, s);
+}
+
 // K5 (dense) and K6 (paged): int8 or int4 payloads.
 template <bool PAGED>
 int launch(const SplitArgs& a, int kv_bits, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (kv_bits == 4)
-    return a.g <= 2 ? launch_split<int8_t, PAGED, true, 2>(a, s)
-                    : launch_split<int8_t, PAGED, true, kMaxG>(a, s);
-  return a.g <= 2 ? launch_split<int8_t, PAGED, false, 2>(a, s)
-                  : launch_split<int8_t, PAGED, false, kMaxG>(a, s);
+  if (kv_bits == 4) return launch_g<int8_t, PAGED, true>(a, s);
+  return launch_g<int8_t, PAGED, false>(a, s);
 }
 
 // K7: paged f32 or bf16 payloads.
 template <typename KT>
 int launch_float(const SplitArgs& a, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  return a.g <= 2 ? launch_split<KT, true, false, 2>(a, s)
-                  : launch_split<KT, true, false, kMaxG>(a, s);
+  return launch_g<KT, true, false>(a, (cudaStream_t)stream);
 }
 
 }  // namespace splitkv

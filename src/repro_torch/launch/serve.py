@@ -1,6 +1,7 @@
 """Serving launcher (port of ``repro.launch.serve``): batched requests
-against gemma2-2b, optionally W8A8-quantized — prefill + decode with a KV
-cache, static or continuous scheduler.
+against any ported ``--arch`` (gemma2-2b, h2o-danube3-4b, internlm2-20b,
+granite-20b, qwen3-moe-235b, grok1-314b), optionally W8A8-quantized —
+prefill + decode with a KV cache, static or continuous scheduler.
 
 ``--quantize`` calibrates W8A8 PTQ with the paper's PEG recipe
 (``peg_policy(4)``) and serves simulated quantization (fake-quant);
@@ -233,17 +234,25 @@ def _reject_unported(ap: argparse.ArgumentParser, args,
 
 def _fallback_note(cfg, packed, qm) -> str:
     """Which blocks serve on the integer kernels, and why the others fall
-    back to fake-quant."""
+    back to fake-quant. Stacked blocks count once per repeat, tail blocks
+    once; an MoE block has no ``"ffn"``: its experts stay on the fake-quant
+    path (batched matmuls), as the reference leaves them."""
     from repro_torch.core import deploy
-    blocks = packed["scan"]
-    n_attn = sum(cfg.n_super for b in blocks if deploy.is_packed(
-        b["attn"].get("wq")))
-    n_ffn = sum(cfg.n_super for b in blocks if deploy.is_packed(
-        b["ffn"].get("w_gate")))
+    blocks = ([(b, cfg.n_super) for b in packed["scan"]]
+              + [(b, 1) for b in packed["tail"]])
+
+    def layers(part, leaf):
+        return sum(n for b, n in blocks
+                   if deploy.is_packed(b.get(part, {}).get(leaf)))
+    n_attn, n_ffn = layers("attn", "wq"), layers("ffn", "w_gate")
     note = (f"[deploy-int8] integer kernels: attention projections in "
             f"{n_attn}/{cfg.num_layers} layers, FFN in "
             f"{n_ffn}/{cfg.num_layers} layers")
-    if n_ffn < cfg.num_layers:
+    n_moe = sum(n for b, n in blocks if "moe" in b)
+    if n_moe:
+        note += (f"; fake-quant fallback: MoE experts in {n_moe} layers "
+                 f"(not packed, as in the reference)")
+    elif n_ffn < cfg.num_layers:
         spec = qm.peg_specs.get("layer0/ffn_in")
         why = ("" if spec is None else
                f" (ffn_in PEG groups {spec.group_sizes.tolist()} are not "

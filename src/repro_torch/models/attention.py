@@ -819,9 +819,16 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
 
 
 def init_attention_params(gen, d_model: int, cfg: AttnConfig, dtype,
-                          device=None):
+                          device=None, qk_norm: bool = False):
+    """wq, wk, wv, wo; with ``qk_norm`` (qwen3) the per-head RMSNorm gains
+    ``q_norm`` and ``k_norm`` of shape (hd,), zeros (the ``(1 + g)``
+    affine)."""
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return {"wq": dense_init(gen, d_model, H * hd, dtype, device=device),
-            "wk": dense_init(gen, d_model, KV * hd, dtype, device=device),
-            "wv": dense_init(gen, d_model, KV * hd, dtype, device=device),
-            "wo": dense_init(gen, H * hd, d_model, dtype, device=device)}
+    p = {"wq": dense_init(gen, d_model, H * hd, dtype, device=device),
+         "wk": dense_init(gen, d_model, KV * hd, dtype, device=device),
+         "wv": dense_init(gen, d_model, KV * hd, dtype, device=device),
+         "wo": dense_init(gen, H * hd, d_model, dtype, device=device)}
+    if qk_norm:
+        p["q_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
+    return p

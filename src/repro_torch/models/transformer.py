@@ -34,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import ffn as ffn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import (
     AttnConfig, KVCache, PagedKVCache, PagedQuantKVCache, QuantKVCache,
     attention_block, init_attention_params, init_kv_cache,
@@ -46,8 +47,17 @@ from repro_torch.models.common import cross_entropy, embed_init, rms_norm, \
 
 def _norm(cfg: ModelConfig, p, x):
     if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not yet ported")
+        raise NotImplementedError(
+            f"norm {cfg.norm!r} is not yet ported (ROADMAP Queue 1 item 5: "
+            f"the multimodal and encoder-decoder configs)")
     return rms_norm(x, p["g"])
+
+
+def _check_kind(kind: str):
+    if kind not in ("attn", "local_attn"):
+        raise NotImplementedError(
+            f"block kind {kind!r} is not yet ported (ROADMAP Queue 1 item "
+            f"5: the recurrent families)")
 
 
 def _init_norm(cfg: ModelConfig, dtype, device):
@@ -62,9 +72,23 @@ def attn_cfg_for(cfg: ModelConfig, kind: str) -> AttnConfig:
                       rope_theta=cfg.rope_theta)
 
 
+def _check_ffn(cfg: ModelConfig):
+    if cfg.moe is None and cfg.ffn_type != "glu":
+        raise NotImplementedError(
+            "MLP feed-forward blocks are not yet ported (ROADMAP Queue 1 "
+            "item 5: the multimodal and encoder-decoder configs)")
+
+
 def _ffn_apply(cfg: ModelConfig, p, x, *, ctx, prefix):
-    if cfg.moe is not None or cfg.ffn_type != "glu":
-        raise NotImplementedError("only GLU feed-forward blocks are ported")
+    """The block's FFN: MoE over the flattened (B*T, D) tokens (which
+    route together, so the experts' capacity counts every token of the
+    call), else the GLU."""
+    _check_ffn(cfg)
+    if cfg.moe is not None:
+        B, T, D = x.shape
+        out = moe_lib.moe_apply(p, x.reshape(B * T, D), cfg.moe, ctx=ctx,
+                                prefix=prefix)
+        return out.reshape(B, T, D)
     return ffn_lib.glu_mlp(p, x, activation=cfg.act, ctx=ctx, prefix=prefix)
 
 
@@ -124,8 +148,7 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, positions, *, ctx=None,
                 append: bool = False, write_plans=None):
     """One transformer block. Returns (x, cache), the cache written in
     place (``write_plans``: see models.attention.attention_block)."""
-    if kind not in ("attn", "local_attn"):
-        raise NotImplementedError(f"block kind {kind!r} is not yet ported")
+    _check_kind(kind)
     h = _attn_input(cfg, p, x, ctx, prefix)
     attn_out, new_cache = attention_block(
         p["attn"], h, positions, attn_cfg_for(cfg, kind), ctx=ctx,
@@ -137,7 +160,8 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, positions, *, ctx=None,
     if ctx is not None:
         x = ctx.act(f"{prefix}/residual_attn", x)
     h = _ffn_input(cfg, p, x, ctx, prefix)
-    ffn_out = _ffn_apply(cfg, p["ffn"], h, ctx=ctx, prefix=f"{prefix}/ffn")
+    ffn_out = _ffn_apply(cfg, p.get("moe", p.get("ffn")), h, ctx=ctx,
+                         prefix=f"{prefix}/ffn")
     if cfg.post_norm:
         ffn_out = _norm(cfg, p["post_ln2"], ffn_out)
     if ctx is not None:
@@ -149,16 +173,19 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, positions, *, ctx=None,
 
 
 def init_block_params(cfg: ModelConfig, kind: str, gen, dtype, device):
-    if kind not in ("attn", "local_attn"):
-        raise NotImplementedError(f"block kind {kind!r} is not yet ported")
-    if cfg.moe is not None or cfg.ffn_type != "glu":
-        raise NotImplementedError("only GLU feed-forward blocks are ported")
+    _check_kind(kind)
+    _check_ffn(cfg)
     p: Dict[str, Any] = {"ln1": _init_norm(cfg, dtype, device),
                          "ln2": _init_norm(cfg, dtype, device)}
     p["attn"] = init_attention_params(gen, cfg.d_model,
-                                      attn_cfg_for(cfg, kind), dtype, device)
-    p["ffn"] = ffn_lib.init_glu_params(gen, cfg.d_model, cfg.d_ff, dtype,
-                                       device)
+                                      attn_cfg_for(cfg, kind), dtype, device,
+                                      qk_norm=cfg.qk_norm)
+    if cfg.moe is not None:
+        p["moe"] = moe_lib.init_moe_params(gen, cfg.d_model, cfg.moe, dtype,
+                                           device)
+    else:
+        p["ffn"] = ffn_lib.init_glu_params(gen, cfg.d_model, cfg.d_ff,
+                                           dtype, device)
     if cfg.post_norm:
         p["post_ln1"] = _init_norm(cfg, dtype, device)
         p["post_ln2"] = _init_norm(cfg, dtype, device)
@@ -224,22 +251,33 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, stacked: bool = True,
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     plan = cfg.layer_plan
-    layers = [init_block_params(cfg, kind, gen, dtype, device)
-              for kind in plan]
+    n_pat = len(cfg.block_pattern)
+    n_body = len(plan) - len(cfg.tail_pattern)
+    layers, scan = [], [None] * n_pat
+    for i, kind in enumerate(plan):
+        p = init_block_params(cfg, kind, gen, dtype, device)
+        if not stacked or i >= n_body:
+            layers.append(p)
+            continue
+        # stacked: each layer is copied into its slot as it is drawn, so
+        # the stack never holds a second copy of the whole body
+        j, s = i % n_pat, i // n_pat
+        if scan[j] is None:
+            scan[j] = _map(lambda x: x.new_empty((cfg.n_super, *x.shape)), p)
+        _map(lambda dst, x: dst[s].copy_(x), scan[j], p)
     params: Dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device),
         "final_norm": _init_norm(cfg, dtype, device),
     }
     if not cfg.tie_embeddings:
-        raise NotImplementedError("untied embeddings are not yet ported")
+        # (d, V), contiguous: the reference's embed_init(...).T
+        params["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                       dtype, device).T.contiguous()
     if not stacked:
         params["layers"] = layers
         return params
-    n_pat = len(cfg.block_pattern)
-    n_tail = len(cfg.tail_pattern)
-    body = layers[:len(layers) - n_tail]
-    params["scan"] = [_stack(body[j::n_pat]) for j in range(n_pat)]
-    params["tail"] = layers[len(layers) - n_tail:]
+    params["scan"] = scan
+    params["tail"] = layers
     return params
 
 
@@ -553,7 +591,8 @@ def _embed(cfg: ModelConfig, params, tokens, ctx):
 
 def _head(cfg: ModelConfig, params, x, ctx):
     h = _norm(cfg, params["final_norm"], x)
-    w = resolve_weight(params["embed"]).T
+    w = resolve_weight(params["embed"]).T if cfg.tie_embeddings \
+        else resolve_weight(params["lm_head"])
     if ctx is not None:
         w = ctx.weight("head/w", w)
     logits = softcap(h @ w.to(h.dtype), cfg.final_logit_softcap)

@@ -26,6 +26,16 @@ from repro_torch.core import range_estimation as re_
 pytestmark = pytest.mark.deploy
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small ops: one intra-op thread runs them faster than a pool that
+    parallel test workers oversubscribe. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(**kw):
     """The same config in both packages (their dataclasses are copies)."""
     ref = QuantizerConfig(**kw)

@@ -1771,3 +1771,115 @@ def test_train_launcher_reduced_on_cuda(gen, capsys):
     assert lines[-1] == "[train] finished at step 3; 0 straggler events"
     assert [ln.split(" loss ")[0] for ln in lines[:3]] == [
         f"[train] step {i}" for i in (1, 2, 3)]
+
+
+# ---------------------------------------------------------------------------
+# The attention-decoder zoo: K5-K7 past 8 query heads a kv head, MoE and
+# the new configs' train steps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kernel,kv_bits", [
+    ("dense", 8), ("dense", 4), ("paged", 8), ("paged", 4), ("float", 16)])
+@pytest.mark.parametrize("kv,g", [(4, 16), (1, 48)])
+@pytest.mark.parametrize("site", list(SITES))
+def test_decode_kernels_past_8_query_heads(gen, kernel, kv_bits, kv, g,
+                                           site):
+    """K5, K6 (kv 8 and 4) and K7 (bf16 arenas) at qwen3-moe's G = 16 and
+    granite-20b's G = 48, hd 128, 128 cells with holes, a short lane and
+    an idle one: against the plain version, bit-identical over three
+    calls, and the emit equal to K4's bytes on the f32 output."""
+    b, hd, s_len, bs = 4, 128, 128, 16
+    if kernel == "dense":
+        args, v_abs = _dense_case(gen, b, s_len, kv, g, hd, site, kv_bits)
+        fn, plain = iad.int8_attend_decode_cuda, iad.int8_attend_decode_plain
+        kw = dict(window=None, kv_bits=kv_bits)
+    elif kernel == "paged":
+        args, v_abs = _paged_case(gen, b, s_len // bs, bs, kv, g, hd, s_len,
+                                  site, kv_bits)
+        fn, plain = (pad.paged_int8_attend_decode_cuda,
+                     pad.paged_int8_attend_decode_plain)
+        kw = dict(s_cap=s_len, window=None, kv_bits=kv_bits)
+    else:
+        args, v_abs = _float_case(gen, b, s_len // bs, bs, kv, g, hd, s_len,
+                                  torch.bfloat16)
+        fn, plain = (pad.paged_attend_decode_cuda,
+                     pad.paged_attend_decode_plain)
+        kw = dict(s_cap=s_len, window=None)
+    kw.update(logit_softcap=30.0, **_site_kw(site))
+    got = [fn(*args, **kw) for _ in range(3)]
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape == (b, kv, g, hd)
+    assert_attend_close(got[0], want, 1 / 255 if site == "softmax_out"
+                        else None, v_abs)
+    assert all(torch.equal(x, got[0]) for x in got[1:])
+    _assert_emit(fn, args, kw)
+
+
+def test_decode_kernels_refuse_more_than_48_query_heads(gen):
+    """Past the kernel's limit the wrapper raises; nothing falls back."""
+    args, _ = _dense_case(gen, 2, 32, 1, 49, 128, "none", 8)
+    with pytest.raises(ValueError, match="attention decode kernel"):
+        iad.int8_attend_decode_cuda(*args, window=None, logit_softcap=None,
+                                    **_site_kw("none"))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b", "grok1-314b"])
+def test_reduced_moe_on_cuda_matches_the_cpu(gen, arch):
+    """The reduced MoE block and forward on the card against the CPU, from
+    the same CPU-drawn params: top-k experts and the dispatch integers bit
+    for bit, the block's output and the logits within 1e-5 of their
+    largest magnitude; the card's combine gives the same bits twice."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import tree_map
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config(arch).reduced()
+    params = tfm.init_params(cfg, 3, dtype=torch.float32, device="cpu")
+    p = tree_map(lambda t: t[0], params["scan"][0]["moe"])
+    x = torch.randn(24, cfg.d_model, generator=torch.Generator().manual_seed(
+        1))
+    cap = moe._capacity(24, cfg.moe)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pd, xd = tree_map(lambda t: t.to(dev), p), x.to(dev)
+        _, top_p, top_e = moe.router_probs(pd, xd, cfg.moe)
+        idx = moe._dispatch_indices(top_e, cfg.moe.num_experts, cap)
+        y = moe.moe_apply(pd, xd, cfg.moe)
+        assert torch.equal(y, moe.moe_apply(pd, xd, cfg.moe))
+        out[dev] = (top_e.cpu(), [i.cpu() for i in idx], y.cpu())
+    assert torch.equal(out["cpu"][0], out["cuda"][0])
+    for a, b in zip(out["cpu"][1], out["cuda"][1]):
+        assert torch.equal(a, b)
+    _assert_close(out["cuda"][2], out["cpu"][2])
+    toks = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (2, 12)))
+    with torch.no_grad():
+        want, _ = tfm.forward(cfg, params, toks)
+        got, _ = tfm.forward(cfg, tree_map(lambda t: t.cuda(), params),
+                             toks.cuda())
+    _assert_close(got.cpu(), want)
+
+
+@pytest.mark.parametrize("arch", ["internlm2-20b", "granite-20b",
+                                  "qwen3-moe-235b", "grok1-314b"])
+def test_zoo_train_step_on_cuda_matches_the_cpu(gen, arch):
+    """One reduced f32 Adam step of each new config, card against CPU: the
+    loss and gradient norm within 1e-5 relative; the updated params within
+    1e-5 relative plus 1e-6 of the leaf's largest magnitude on all but at
+    most 1 % of them, each within 2 x lr (as the gemma2-2b case)."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import tree_leaves
+    cfg = get_config(arch).reduced()
+    pc, _, mc = _train_steps(cfg, "cuda", steps=1)
+    pp, _, mp = _train_steps(cfg, "cpu", steps=1)
+    for k in ("loss", "grad_norm"):
+        assert abs(mc[0][k] - mp[0][k]) <= 1e-5 * abs(mp[0][k]), k
+    loose = 0
+    for a, b in zip(tree_leaves(pc), tree_leaves(pp)):
+        d = (a.cpu().double() - b.double()).abs()
+        tight = 1e-5 * b.abs().double() + 1e-6 * float(b.abs().max())
+        assert float(d.max()) <= 2 * 1e-3 + float(tight.max())
+        loose += int((d > tight).sum())
+    assert loose <= 1e-2 * sum(t.numel() for t in tree_leaves(pp))

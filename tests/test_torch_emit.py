@@ -38,6 +38,17 @@ from repro_torch.models import transformer as tfm
 
 pytestmark = [pytest.mark.deploy, pytest.mark.paged]
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small ops: one intra-op thread runs them faster than a pool that
+    parallel test workers oversubscribe. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SITES = {
     "none": {},
     "softmax_in": dict(sm_quant=np.array([0.05, 128.0], np.float32),

@@ -29,6 +29,16 @@ from repro_torch.kernels import ops, ref
 pytestmark = pytest.mark.deploy
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small ops: one intra-op thread runs them faster than a pool that
+    parallel test workers oversubscribe. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _flips(got, want):
     d = np.abs(np.asarray(got, np.int32) - np.asarray(want, np.int32))
     return int(d.max()), int((d > 0).sum())

@@ -50,6 +50,17 @@ from repro_torch.runtime import (BlockPool, RadixCache, Request,
 
 pytestmark = [pytest.mark.prefix, pytest.mark.serve, pytest.mark.paged]
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small ops: one intra-op thread runs them faster than a pool that
+    parallel test workers oversubscribe. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = "cpu"
 MAX_LEN, BS, CHUNK, SLOTS = 32, 4, 8, 4
 RUNS = {"A": 0, "B": 10}            # --skew

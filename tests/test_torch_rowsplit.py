@@ -27,6 +27,16 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import fused_ln_quant as lnq
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small ops: one intra-op thread runs them faster than a pool that
+    parallel test workers oversubscribe. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("d,groups", [
     (64, 1), (64, 4), (80, 4), (2304, 1), (2304, 4), (2304, 6), (4096, 1),
     (4096, 8), (8192, 4), (18, 2)])

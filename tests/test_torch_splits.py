@@ -51,6 +51,17 @@ from repro_torch.kernels.int8_attend_decode import (NEG_INF, int8_logits,
 from repro_torch.kernels.ref import (decode_valid, paged_gather_ref,
                                      paged_positions_ref, site_fake_quant)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small ops: one intra-op thread runs them faster than a pool that
+    parallel test workers oversubscribe. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MS, NS, KS = (1, 4, 16, 17, 64), (48, 1024, 2048, 2304), (64, 80, 2304)
 
 
