@@ -3,8 +3,8 @@
 The port keeps its own ``ModelConfig`` — same fields, same ``reduced()`` —
 because the reference module imports JAX. Only the configs of ported
 architectures are registered: the attention decoders (dense, GQA / MQA,
-QK-norm, MoE); the recurrent, multimodal and encoder-decoder families
-raise "is not yet ported".
+QK-norm, MoE) and the recurrent families (RG-LRU, RWKV-6); the multimodal
+and encoder-decoder configs raise "is not yet ported".
 """
 from __future__ import annotations
 
@@ -112,7 +112,8 @@ class ModelConfig:
 
 
 _REGISTRY = ["h2o_danube3_4b", "internlm2_20b", "gemma2_2b", "granite_20b",
-             "qwen3_moe_235b", "grok1_314b"]
+             "qwen3_moe_235b", "grok1_314b", "recurrentgemma_2b",
+             "rwkv6_1p6b"]
 ARCH_IDS = [m.replace("_", "-") for m in _REGISTRY]
 
 

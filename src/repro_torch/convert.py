@@ -16,11 +16,13 @@ import torch
 from repro_torch.core.quantizer import QuantParams
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models.rglru import RGLRUState
+from repro_torch.models.rwkv6 import RWKVState
 
 # the reference's cache NamedTuples, by class name, and the port's types
 _CACHE_TYPES = {cls.__name__: cls for cls in (
     attn.KVCache, attn.QuantKVCache, attn.Quant4KVCache, attn.PagedKVCache,
-    attn.PagedQuantKVCache, attn.PagedQuant4KVCache)}
+    attn.PagedQuantKVCache, attn.PagedQuant4KVCache, RGLRUState, RWKVState)}
 
 
 def _tensor(a, device, dtype=None):
@@ -74,8 +76,9 @@ def caches_from_jax(tree, device=None):
     NamedTuples with numpy-convertible leaves, stacked ``"scan"`` or
     unrolled ``"layers"`` layout, with a paged ``"block_table"``) -> the
     same structure of the port's cache types on ``device`` (None: the GPU);
-    the int4 caches keep their type, the bit-width marker. Cache types the
-    port does not have (recurrent state) raise."""
+    the int4 caches keep their type, the bit-width marker, and the
+    recurrent states (``RGLRUState``, ``RWKVState``) theirs. A cache type
+    the port does not have raises."""
     dev = resolve_device(device)
 
     def conv(node):

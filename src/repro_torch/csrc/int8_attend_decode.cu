@@ -14,7 +14,7 @@
 // k_scale/v_scale (B,S,KV) f32; k_pos (B,S) int32; q_pos (B,) int32;
 // sm/smo (2,) f32 or null; out (B,KV,G,hd) f32, or out null and out_q
 // (B,KV*G*hd) int8 as in paged_int8_attend_decode. All contiguous.
-// hd % 4 == 0, and hd <= 256 with G <= 8 or hd <= 128 with G <= 48 (else
+// hd % 4 == 0, and hd <= 256 with G <= 16 or hd <= 128 with G <= 48 (else
 // cudaErrorInvalidValue); window 0 and softcap 0 mean none. kv_bits = 4: k_q/v_q
 // are (B,S,KV,hd/2) split-half nibbles and hd % 8 == 0. splits x cps cells
 // cover the S cells, none empty (splits <= 32); ws holds

@@ -28,7 +28,7 @@ bool bad_plan(int splits, int bps, int nb) {
 // idle lane); sm/smo (2,) f32 or null; out (B,KV,G,hd) f32, or, with out_q
 // non-null, out null and out_q (B,KV*G*hd) int8 = clip(rint(v / out_scale)
 // + out_zp, out_qmin, out_qmax) with out_scale/out_zp (1,) f32. All
-// contiguous. hd % 4 == 0, and hd <= 256 with G <= 8 or hd <= 128 with
+// contiguous. hd % 4 == 0, and hd <= 256 with G <= 16 or hd <= 128 with
 // G <= 48 (else cudaErrorInvalidValue). kv_bits = 4: arenas are
 // (N,bs,KV,hd/2) split-half nibbles, hd % 8 == 0.
 // splits x bps blocks cover the nb blocks (splits <= 32, bps <= 256); ws
@@ -62,7 +62,7 @@ extern "C" int paged_int8_attend_decode(
 // (N,bs,KV,hd) f32 (kv_is_bf16 = 0) or bf16 (kv_is_bf16 = 1), 4-byte
 // aligned (16-byte aligned rows are copied 16 bytes at a time); out, out_q
 // and the rest as in paged_int8_attend_decode. hd % 4 == 0, and hd <= 256
-// with G <= 8 or hd <= 128 with G <= 48 (else cudaErrorInvalidValue).
+// with G <= 16 or hd <= 128 with G <= 48 (else cudaErrorInvalidValue).
 // Returns cudaGetLastError().
 extern "C" int paged_attend_decode(
     const void* q, const void* k_arena, const void* v_arena, int kv_is_bf16,

@@ -55,8 +55,9 @@
 // and the threads accumulate p * v (int8: p * v_s * v - z_v * sum) per
 // (head, column quad) in the reference's order.
 //
-// G query heads per kv head: up to 8 at hd <= 256, up to 48 at hd <= 128
-// (granite's MQA: 48 heads on one kv head; qwen3: 16). The block stages
+// G query heads per kv head: up to 16 at hd <= 256, up to 48 at hd <= 128
+// (granite's MQA: 48 heads on one kv head; qwen3: 16; recurrentgemma's
+// local attention: 10 of hd 256). The block stages
 // each chunk of cells once and walks the G heads in tiles of 8 (the 8
 // threads of a cell give one head each), so the cache is read once
 // whatever G is; warp w runs the online softmax of heads w + 4 i, their
@@ -108,7 +109,8 @@ constexpr int kMaxSplits = 32;
 constexpr int kMaxBlocks = 256;      // paged blocks per split
 constexpr int kMaxG = 48;            // query heads per kv head
 constexpr int kTile = 8;             // query heads a cell's 8 threads hold
-constexpr int kMaxHd = 256;          // head_dim (G <= 8)
+constexpr int kMidG = 16;            // the widest G at kMaxHd
+constexpr int kMaxHd = 256;          // head_dim (G <= kMidG)
 constexpr float kNegInf = -1e30f;
 
 enum Pass { ONE_PASS = 0, STATS = 1, EMIT = 2 };
@@ -118,9 +120,10 @@ template <typename KT>
 constexpr int kChunk = sizeof(KT) == 4 ? 16 : kMaxChunk;
 
 // The largest head_dim of an instantiation for MG query heads a kv head:
-// the queries (MG x hd) sit in static shared memory.
+// the queries (MG x hd) sit in static shared memory (16 x 256 f32: 16 KB;
+// 48 x 128: 24 KB).
 template <int MG>
-constexpr int kHdCap = MG > kTile ? 128 : kMaxHd;
+constexpr int kHdCap = MG > kMidG ? 128 : kMaxHd;
 
 // The split statistics m_j and l_j of every (split, head) reuse the logit
 // and probability rows' shared memory (free before and after the stages).
@@ -812,12 +815,13 @@ inline SplitArgs quant_args(const void* q_q, const void* q_scale,
   return a;
 }
 
-// The instantiation for a.g query heads a kv head: 2, 8 (hd <= 256) or 48
-// (hd <= 128); launch_split refuses a shape past its limits.
+// The instantiation for a.g query heads a kv head: 2, 8, 16 (hd <= 256)
+// or 48 (hd <= 128); launch_split refuses a shape past its limits.
 template <typename KT, bool PAGED, bool KV4>
 int launch_g(const SplitArgs& a, cudaStream_t s) {
   if (a.g <= 2) return launch_split<KT, PAGED, KV4, 2>(a, s);
   if (a.g <= kTile) return launch_split<KT, PAGED, KV4, kTile>(a, s);
+  if (a.g <= kMidG) return launch_split<KT, PAGED, KV4, kMidG>(a, s);
   return launch_split<KT, PAGED, KV4, kMaxG>(a, s);
 }
 

@@ -134,21 +134,24 @@ def int8_attend_decode_plain(q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale,
 # -- CUDA launch helpers shared with paged_attend_decode --------------------
 
 MAX_G = 48               # query heads per kv head (csrc/split_attend.cuh)
-MAX_HD_WIDE_G = 128      # head_dim limit past 8 query heads per kv head
+MAX_G_HD256 = 16         # the widest G at head_dim 256 (kMidG)
+MAX_HD_WIDE_G = 128      # head_dim limit past 16 query heads per kv head
 
 
 def check_query(q, dtype):
     """(B, KV, G, hd) of a decode query the split kernels take: hd % 4 ==
-    0, and hd <= 256 with G <= 8 or hd <= 128 with G <= 48 (the queries of
+    0, and hd <= 256 with G <= 16 or hd <= 128 with G <= 48 (the queries of
     a kv head sit in static shared memory). Raises on any other shape."""
     if q.dim() != 4 or q.dtype != dtype:
         raise ValueError(f"attention decode: q must be (B, KV, G, hd) "
                          f"{dtype}, got {tuple(q.shape)} {q.dtype}")
     b, kv, g, hd = q.shape
-    if hd % 4 or hd > 256 or g > MAX_G or (g > 8 and hd > MAX_HD_WIDE_G):
+    if hd % 4 or hd > 256 or g > MAX_G or \
+            (g > MAX_G_HD256 and hd > MAX_HD_WIDE_G):
         raise ValueError(f"attention decode kernel takes hd % 4 == 0, and "
-                         f"hd <= 256 with G <= 8 or hd <= {MAX_HD_WIDE_G} "
-                         f"with G <= {MAX_G}, got hd={hd} G={g}")
+                         f"hd <= 256 with G <= {MAX_G_HD256} or hd <= "
+                         f"{MAX_HD_WIDE_G} with G <= {MAX_G}, got hd={hd} "
+                         f"G={g}")
     return b, kv, g, hd
 
 

@@ -1,7 +1,12 @@
 """Serving launcher (port of ``repro.launch.serve``): batched requests
 against any ported ``--arch`` (gemma2-2b, h2o-danube3-4b, internlm2-20b,
-granite-20b, qwen3-moe-235b, grok1-314b), optionally W8A8-quantized —
-prefill + decode with a KV cache, static or continuous scheduler.
+granite-20b, qwen3-moe-235b, grok1-314b, recurrentgemma-2b, rwkv6-1p6b),
+optionally W8A8-quantized — prefill + decode with a KV cache, static or
+continuous scheduler. The recurrent families (recurrentgemma-2b,
+rwkv6-1p6b) serve through the static scheduler on dense caches only: their
+state has no per-lane validity (``--scheduler continuous`` stops in
+``cache_reset_slots``) and no block layout (``--paged-kv`` stops in
+``init_cache``), as in the reference.
 
 ``--quantize`` calibrates W8A8 PTQ with the paper's PEG recipe
 (``peg_policy(4)``) and serves simulated quantization (fake-quant);
@@ -249,15 +254,29 @@ def _fallback_note(cfg, packed, qm) -> str:
             f"{n_attn}/{cfg.num_layers} layers, FFN in "
             f"{n_ffn}/{cfg.num_layers} layers")
     n_moe = sum(n for b, n in blocks if "moe" in b)
+    n_rwkv = sum(n for b, n in blocks if "tmix" in b)
+    body_ffn = [deploy.is_packed(b["ffn"]["w_gate"]) for b in packed["scan"]
+                if "ffn" in b]
+    tail_ffn = [deploy.is_packed(b["ffn"]["w_gate"]) for b in packed["tail"]
+                if "ffn" in b]
     if n_moe:
         note += (f"; fake-quant fallback: MoE experts in {n_moe} layers "
                  f"(not packed, as in the reference)")
-    elif n_ffn < cfg.num_layers:
+    elif n_rwkv:
+        note += (f"; fake-quant fallback: RWKV time-mix and channel-mix in "
+                 f"{n_rwkv} layers (not packed, as in the reference)")
+    elif not all(body_ffn):
         spec = qm.peg_specs.get("layer0/ffn_in")
         why = ("" if spec is None else
                f" (ffn_in PEG groups {spec.group_sizes.tolist()} are not "
                f"uniform)")
         note += f"; fake-quant fallback: layer/ffn{why}"
+    elif not all(tail_ffn):
+        # the serving act state shares layer 0's calibration under
+        # "layer/..." names; the tail's "tail/..." sites have none, in the
+        # reference too
+        note += ("; fake-quant fallback: tail/ffn (no calibrated tail/ffn_in "
+                 "site, as in the reference)")
     n8, n4, nbytes = deploy.packed_summary(packed)
     return (f"{note}\n[deploy-int8] packed weights: {n8} int8 and {n4} "
             f"int4 (q4) payloads, {nbytes / 2**20:.1f} MiB")

@@ -1,6 +1,8 @@
-"""Decoder-only transformer for the ported attention families (port of the
-dense parts of ``repro.models.transformer``), with the paper's quantization
-sites threaded through.
+"""Decoder-only transformer for the ported families (port of
+``repro.models.transformer``): the attention decoders (dense, GQA / MQA,
+sliding-window, soft-capping, QK-norm, MoE), the hybrid RG-LRU (Griffin)
+and the attention-free RWKV-6, with the paper's quantization sites threaded
+through.
 
 Two parameter layouts share the same block function:
   * stacked — ``params["scan"]``: one dict per position of
@@ -21,7 +23,17 @@ superblock (stacked) in the backward pass, the reference's
 Quantization sites per block (paper Fig. 1 / Table 2 naming):
   {L}/attn_in, {L}/residual_attn, {L}/ffn_in, {L}/ffn_out,
   {L}/residual_ffn, plus the attention and FFN internal sites, and
-  embed/sum, head/logits.
+  embed/sum, head/logits. A ``rec`` block has no attn_in (its ln1 is a
+  plain norm) and adds ``{L}/rec/lru_out``; an ``rwkv`` block keeps only the
+  two residual sites of its own and adds the time-mix (``{L}/tmix/r``,
+  ``k``, ``v``, ``out``) and channel-mix (``{L}/cmix/ffn_in``, ``ffn_out``)
+  sites.
+
+Recurrent state (``RGLRUState``, ``RWKVState``) is a cache like the KV
+caches: the steps write it in place. It has no per-lane validity, no block
+layout and cannot replay earlier chunks, so the continuous scheduler, the
+paged caches and chunked (append) prefill refuse it, as the reference
+does; these families serve through the static scheduler on dense caches.
 """
 from __future__ import annotations
 
@@ -35,32 +47,35 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.attention import (
     AttnConfig, KVCache, PagedKVCache, PagedQuantKVCache, QuantKVCache,
     attention_block, init_attention_params, init_kv_cache,
     init_paged_kv_cache, init_paged_quant4_kv_cache,
     init_paged_quant_kv_cache, init_quant4_kv_cache, init_quant_kv_cache,
     reset_kv_lanes, reset_paged_lanes)
-from repro_torch.models.common import cross_entropy, embed_init, rms_norm, \
-    resolve_weight, softcap
+from repro_torch.models.common import cross_entropy, embed_init, \
+    layer_norm, resolve_weight, rms_norm, softcap
+
+ATTN_KINDS = ("attn", "local_attn")
 
 
 def _norm(cfg: ModelConfig, p, x):
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {cfg.norm!r} is not yet ported (ROADMAP Queue 1 item 5: "
-            f"the multimodal and encoder-decoder configs)")
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["g"], p["b"])
     return rms_norm(x, p["g"])
 
 
 def _check_kind(kind: str):
-    if kind not in ("attn", "local_attn"):
-        raise NotImplementedError(
-            f"block kind {kind!r} is not yet ported (ROADMAP Queue 1 item "
-            f"5: the recurrent families)")
+    if kind not in ATTN_KINDS + ("rec", "rwkv"):
+        raise ValueError(f"unknown block kind {kind!r}")
 
 
 def _init_norm(cfg: ModelConfig, dtype, device):
+    if cfg.norm == "layernorm":
+        return {"g": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+                "b": torch.zeros((cfg.d_model,), dtype=dtype, device=device)}
     return {"g": torch.zeros((cfg.d_model,), dtype=dtype, device=device)}
 
 
@@ -73,10 +88,12 @@ def attn_cfg_for(cfg: ModelConfig, kind: str) -> AttnConfig:
 
 
 def _check_ffn(cfg: ModelConfig):
+    """The FFN of an attention or ``rec`` block: MoE or GLU (an ``rwkv``
+    block's channel-mix is its own)."""
     if cfg.moe is None and cfg.ffn_type != "glu":
         raise NotImplementedError(
             "MLP feed-forward blocks are not yet ported (ROADMAP Queue 1 "
-            "item 5: the multimodal and encoder-decoder configs)")
+            "item 5(c): the multimodal and encoder-decoder configs)")
 
 
 def _ffn_apply(cfg: ModelConfig, p, x, *, ctx, prefix):
@@ -143,12 +160,73 @@ def _attn_input(cfg: ModelConfig, p, x, ctx, prefix):
     return h
 
 
+def _write_state(cache, new):
+    """Write a block's new recurrent state into its cache in place (the
+    cache's leaves may be views of a stacked layer slice)."""
+    for dst, src in zip(cache, new):
+        if dst is not src:
+            dst.copy_(src)
+    return cache
+
+
+def _residual_ffn(cfg, p, x, ctx, prefix, post_norm):
+    """The FFN half of an attention or ``rec`` block: ln2 (+ ffn_in, fused
+    in DEPLOY), the FFN, ``post_ln2`` with ``post_norm`` (attention blocks
+    only, as in the reference), ffn_out and the residual sum."""
+    h = _ffn_input(cfg, p, x, ctx, prefix)
+    ffn_out = _ffn_apply(cfg, p.get("moe", p.get("ffn")), h, ctx=ctx,
+                         prefix=f"{prefix}/ffn")
+    if post_norm:
+        ffn_out = _norm(cfg, p["post_ln2"], ffn_out)
+    if ctx is not None:
+        ffn_out = ctx.act(f"{prefix}/ffn_out", ffn_out)
+    x = x + ffn_out
+    if ctx is not None:
+        x = ctx.act(f"{prefix}/residual_ffn", x)
+    return x
+
+
+def _recurrent_block_apply(cfg, kind, p, x, *, ctx, prefix, cache):
+    """A ``rec`` (RG-LRU + FFN) or ``rwkv`` (time-mix + channel-mix)
+    block; the state, if any, is written back in place."""
+    h = _norm(cfg, p["ln1"], x)
+    if kind == "rec":
+        out, st = rglru_lib.recurrent_block(p["rec"], h, state=cache,
+                                            ctx=ctx, prefix=f"{prefix}/rec")
+    else:
+        out, st = rwkv_lib.time_mix(p["tmix"], h, cfg.rwkv_head_size,
+                                    state=cache, ctx=ctx,
+                                    prefix=f"{prefix}/tmix")
+    x = x + out
+    if ctx is not None:
+        x = ctx.act(f"{prefix}/residual_attn", x)
+    if kind == "rec":
+        x = _residual_ffn(cfg, p, x, ctx, prefix, post_norm=False)
+    else:
+        h = _norm(cfg, p["ln2"], x)
+        out, st = rwkv_lib.channel_mix(p["cmix"], h, state=st, ctx=ctx,
+                                       prefix=f"{prefix}/cmix")
+        x = x + out
+        if ctx is not None:
+            x = ctx.act(f"{prefix}/residual_ffn", x)
+    if cache is not None:
+        _write_state(cache, st)
+    return x, cache
+
+
 def block_apply(cfg: ModelConfig, kind: str, p, x, positions, *, ctx=None,
                 prefix="layer", cache=None, chunked=None, block_table=None,
                 append: bool = False, write_plans=None):
     """One transformer block. Returns (x, cache), the cache written in
     place (``write_plans``: see models.attention.attention_block)."""
     _check_kind(kind)
+    if append and kind not in ATTN_KINDS:
+        raise ValueError(
+            f"chunked (append) prefill supports attention blocks only, got "
+            f"{kind!r} (recurrent state cannot replay earlier chunks)")
+    if kind not in ATTN_KINDS:
+        return _recurrent_block_apply(cfg, kind, p, x, ctx=ctx,
+                                      prefix=prefix, cache=cache)
     h = _attn_input(cfg, p, x, ctx, prefix)
     attn_out, new_cache = attention_block(
         p["attn"], h, positions, attn_cfg_for(cfg, kind), ctx=ctx,
@@ -159,24 +237,28 @@ def block_apply(cfg: ModelConfig, kind: str, p, x, positions, *, ctx=None,
     x = x + attn_out
     if ctx is not None:
         x = ctx.act(f"{prefix}/residual_attn", x)
-    h = _ffn_input(cfg, p, x, ctx, prefix)
-    ffn_out = _ffn_apply(cfg, p.get("moe", p.get("ffn")), h, ctx=ctx,
-                         prefix=f"{prefix}/ffn")
-    if cfg.post_norm:
-        ffn_out = _norm(cfg, p["post_ln2"], ffn_out)
-    if ctx is not None:
-        ffn_out = ctx.act(f"{prefix}/ffn_out", ffn_out)
-    x = x + ffn_out
-    if ctx is not None:
-        x = ctx.act(f"{prefix}/residual_ffn", x)
-    return x, new_cache
+    return _residual_ffn(cfg, p, x, ctx, prefix, cfg.post_norm), new_cache
 
 
 def init_block_params(cfg: ModelConfig, kind: str, gen, dtype, device):
     _check_kind(kind)
-    _check_ffn(cfg)
     p: Dict[str, Any] = {"ln1": _init_norm(cfg, dtype, device),
                          "ln2": _init_norm(cfg, dtype, device)}
+    if kind == "rwkv":
+        tm = rwkv_lib.init_rwkv_params(gen, cfg.d_model, cfg.d_ff,
+                                       cfg.rwkv_head_size, dtype, device)
+        p["tmix"] = {k: v for k, v in tm.items()
+                     if not k.startswith(("w_c", "mu_c"))}
+        p["cmix"] = {k: v for k, v in tm.items()
+                     if k.startswith(("w_c", "mu_c"))}
+        return p
+    _check_ffn(cfg)
+    if kind == "rec":
+        p["rec"] = rglru_lib.init_recurrent_params(
+            gen, cfg.d_model, cfg.d_rnn or cfg.d_model, dtype, device)
+        p["ffn"] = ffn_lib.init_glu_params(gen, cfg.d_model, cfg.d_ff,
+                                           dtype, device)
+        return p
     p["attn"] = init_attention_params(gen, cfg.d_model,
                                       attn_cfg_for(cfg, kind), dtype, device,
                                       qk_norm=cfg.qk_norm)
@@ -285,13 +367,24 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype=torch.bfloat16, kv_bits: int = 16,
                      paged_blocks: Optional[Tuple[int, int]] = None,
                      device=None):
-    """One attention layer's cache: dense or paged (``paged_blocks`` =
+    """One layer's cache. Attention: dense or paged (``paged_blocks`` =
     (num_blocks, block_size)), f32/bf16 (kv_bits 16), int8 (kv_bits 8) or
-    nibble-packed int4 (kv_bits 4)."""
-    if kind not in ("attn", "local_attn"):
-        raise NotImplementedError(f"{kind!r} caches are not yet ported")
+    nibble-packed int4 (kv_bits 4). ``rec`` / ``rwkv``: the f32 recurrent
+    state, whatever ``kv_bits`` (paged raises, as in the reference)."""
+    _check_kind(kind)
     if kv_bits not in (4, 8, 16):
         raise ValueError(f"kv_bits must be 4, 8 or 16, got {kv_bits}")
+    if kind not in ATTN_KINDS:
+        if paged_blocks is not None:
+            raise ValueError(
+                f"paged KV cache supports attention layers only, got "
+                f"{kind!r} (recurrent state has no block layout)")
+        dev = resolve_device(device)
+        if kind == "rec":
+            return rglru_lib.init_rglru_state(batch, cfg.d_rnn or cfg.d_model,
+                                              device=dev)
+        return rwkv_lib.init_rwkv_state(batch, cfg.d_model,
+                                        cfg.rwkv_head_size, device=dev)
     acfg = attn_cfg_for(cfg, kind)
     if paged_blocks is not None:
         num_blocks, block_size = paged_blocks
@@ -312,7 +405,7 @@ def attn_write_spans(cfg: ModelConfig, max_len: int) -> List[int]:
     ``min(max_len, window)`` for ring layers, ``max_len`` for global."""
     spans = []
     for kind in cfg.layer_plan:
-        if kind in ("attn", "local_attn"):
+        if kind in ATTN_KINDS:
             w = attn_cfg_for(cfg, kind).window
             spans.append(min(max_len, w) if w else max_len)
     return spans
@@ -335,7 +428,7 @@ def attn_write_caps(cfg: ModelConfig, max_len: int,
     width = paged_lane_blocks(cfg, max_len, block_size)
     caps = set()
     for kind in cfg.layer_plan:
-        if kind in ("attn", "local_attn"):
+        if kind in ATTN_KINDS:
             w = attn_cfg_for(cfg, kind).window
             caps.add(min(width * block_size, w) if w else width * block_size)
     return sorted(caps)
@@ -348,7 +441,7 @@ def paged_ring_tokens(cfg: ModelConfig, max_len: int,
     None for models with a global layer."""
     windows = []
     for kind in cfg.layer_plan:
-        if kind in ("attn", "local_attn"):
+        if kind in ATTN_KINDS:
             w = attn_cfg_for(cfg, kind).window
             if not w or w >= max_len:
                 return None
@@ -361,8 +454,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                paged: bool = False, block_size: int = 16,
                num_blocks: Optional[int] = None,
                mapped: Optional[bool] = None, device=None):
-    """KV caches for every attention layer, in the params' layout, on
-    ``device`` (None: the GPU). kv_bits 8 stores int8 caches, 4 nibble-packed
+    """KV caches for every attention layer (and the recurrent state of every
+    ``rec`` / ``rwkv`` layer), in the params' layout, on ``device`` (None:
+    the GPU). kv_bits 8 stores int8 caches, 4 nibble-packed
     int4 caches, 16 keeps ``dtype``.
 
     ``paged=True`` gives every layer one arena of ``num_blocks`` blocks of
@@ -439,7 +533,9 @@ def cache_reset_slots(cache, lane_mask):
         if isinstance(c, (KVCache, QuantKVCache)):
             return reset_kv_lanes(c, lane_mask, batch_axis=axis)
         raise ValueError("cache_reset_slots: continuous batching supports "
-                         f"attention caches only, got {type(c).__name__}")
+                         f"attention caches only, got {type(c).__name__} "
+                         "(recurrent state has no per-slot validity to "
+                         "reset)")
 
     for c in cache.get("layers", []) + cache.get("tail", []):
         reset(c, 0)
@@ -720,12 +816,12 @@ def forward(cfg: ModelConfig, params, tokens, *, ctx=None, cache=None,
 def train_loss(cfg: ModelConfig, params, batch, *, ctx=None,
                remat: bool = True, chunked=None):
     """Next-token CE. batch: {tokens (B, T), labels (B, T)}. Front-end
-    embeddings and encoder-decoder configs wait for the model zoo (ROADMAP
-    Queue 1 item 5)."""
+    embeddings and encoder-decoder configs wait for ROADMAP Queue 1 item
+    5(c)."""
     if batch.get("embeds") is not None or cfg.encoder_layers > 0:
         raise NotImplementedError(
             "front-end embeddings and encoder-decoder training are not yet "
-            "ported (ROADMAP Queue 1 item 5, the model zoo)")
+            "ported (ROADMAP Queue 1 item 5(c))")
     logits, _ = forward(cfg, params, batch["tokens"], ctx=ctx,
                         remat=remat, chunked=chunked)
     return cross_entropy(logits[:, :-1], batch["labels"][:, 1:])

@@ -465,16 +465,27 @@ def test_caches_from_jax_and_cache_reset_slots_bit_exact(
 
 
 def test_caches_from_jax_rejects_unported_cache_types(reduced_cfgs):
-    """The int4 caches convert now; a recurrent state (the RG-LRU blocks of
-    recurrentgemma) has no counterpart in the port yet."""
+    """The int4 caches keep their type; the recurrent states (the RG-LRU
+    blocks of recurrentgemma, RWKV-6's) convert to the port's
+    ``RGLRUState`` / ``RWKVState``, leaf for leaf; a cache type the port
+    does not have still raises."""
+    import collections
     jcfg, _ = reduced_cfgs
     jc = jtfm.init_cache(jcfg, 2, 16, dtype=jnp.float32, kv_bits=4)
     assert isinstance(caches_from_jax(_np_tree(jc), CPU)["scan"][0],
                       attn.Quant4KVCache)
-    rcfg = jget_config("recurrentgemma-2b").reduced()
-    rc = jtfm.init_cache(rcfg, 2, 16, dtype=jnp.float32)
+    for arch, name in (("recurrentgemma-2b", "RGLRUState"),
+                       ("rwkv6-1p6b", "RWKVState")):
+        rc = jtfm.init_cache(jget_config(arch).reduced(), 2, 16,
+                             dtype=jnp.float32)
+        got = caches_from_jax(_np_tree(rc), CPU)["scan"][0]
+        want = rc["scan"][0]
+        assert type(got).__name__ == name and got._fields == want._fields
+        for a, b in zip(got, want):
+            assert tuple(a.shape) == b.shape and a.dtype == torch.float32
+    other = collections.namedtuple("SSMState", "x")(np.zeros(2, np.float32))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        caches_from_jax(_np_tree(rc), CPU)
+        caches_from_jax({"layers": [other]}, CPU)
 
 
 def test_paged_layout_helpers_match_reference(reduced_cfgs):

@@ -1816,6 +1816,84 @@ def test_decode_kernels_past_8_query_heads(gen, kernel, kv_bits, kv, g,
     _assert_emit(fn, args, kw)
 
 
+@pytest.mark.parametrize("kernel,kv_bits", [
+    ("dense", 8), ("dense", 4), ("paged", 8), ("float", 16)])
+@pytest.mark.parametrize("s_len", [128, 2048])
+@pytest.mark.parametrize("site", list(SITES))
+def test_decode_kernels_at_10_heads_of_256(gen, kernel, kv_bits, s_len,
+                                           site):
+    """K5 (kv 8 and 4), K6 and K7 (bf16 arenas) at recurrentgemma's local
+    attention (MQA: G = 10 query heads of hd 256 on one kv head, the G <=
+    16 instantiation), 128 and 2048 cells with the holes of the cases
+    above: against the plain version, bit-identical over three calls, the
+    emit equal to K4's bytes."""
+    b, kv, g, hd, bs = 4, 1, 10, 256, 16
+    if kernel == "dense":
+        args, v_abs = _dense_case(gen, b, s_len, kv, g, hd, site, kv_bits)
+        fn, plain = iad.int8_attend_decode_cuda, iad.int8_attend_decode_plain
+        kw = dict(window=None, kv_bits=kv_bits)
+    elif kernel == "paged":
+        args, v_abs = _paged_case(gen, b, s_len // bs, bs, kv, g, hd, s_len,
+                                  site, kv_bits)
+        fn, plain = (pad.paged_int8_attend_decode_cuda,
+                     pad.paged_int8_attend_decode_plain)
+        kw = dict(s_cap=s_len, window=None, kv_bits=kv_bits)
+    else:
+        args, v_abs = _float_case(gen, b, s_len // bs, bs, kv, g, hd, s_len,
+                                  torch.bfloat16)
+        fn, plain = (pad.paged_attend_decode_cuda,
+                     pad.paged_attend_decode_plain)
+        kw = dict(s_cap=s_len, window=None)
+    kw.update(logit_softcap=None, **_site_kw(site))
+    got = [fn(*args, **kw) for _ in range(3)]
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape == (b, kv, g, hd)
+    assert_attend_close(got[0], want, 1 / 255 if site == "softmax_out"
+                        else None, v_abs)
+    assert all(torch.equal(x, got[0]) for x in got[1:])
+    _assert_emit(fn, args, kw)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-1p6b"])
+def test_recurrent_reduced_serve_on_cuda_matches_the_cpu(gen, arch):
+    """The reduced recurrent quickstart (``--quantize --deploy-int8
+    --kv-bits 8``, static, 2 slots) on the card and on the CPU from the
+    same CPU-drawn weights: the same serve counts and greedy tokens; recurrentgemma's decode steps go
+    through K1, K2, K3 and the emitting K5, rwkv6's through none."""
+    import sys
+    from pathlib import Path
+    from repro_torch.launch import serve as launcher
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from chip_smoke import cpu_drawn_params
+    argv = (f"--arch {arch} --reduced --requests 4 --prompt-len 12 "
+            f"--new-tokens 4 --batch-slots 2 --quantize --deploy-int8 "
+            f"--kv-bits 8").split()
+    calls, real = [], launcher.serve
+
+    def spy(*a, **k):
+        calls.append(a[4])
+        return real(*a, **k)
+    iad.int8_attend_decode_cuda.launches_emit = 0
+    imm.int8_matmul_peg_cuda.launches = 0
+    launcher.serve = spy
+    try:
+        # both runs serve the CPU's draws: the card's generator draws others
+        with cpu_drawn_params():
+            card = launcher.main(argv)
+            cpu = launcher.main(argv, device="cpu")
+    finally:
+        launcher.serve = real
+    for f in ("tokens_generated", "decode_steps", "prefill_calls",
+              "cache_bytes", "slot_utilization"):
+        assert getattr(card, f) == getattr(cpu, f), f
+    assert [r.tokens_out for r in calls[0]] == \
+        [r.tokens_out for r in calls[1]]
+    emits = iad.int8_attend_decode_cuda.launches_emit
+    k2 = imm.int8_matmul_peg_cuda.launches
+    assert (emits > 0 and k2 > 0) == (arch == "recurrentgemma-2b")
+
+
 def test_decode_kernels_refuse_more_than_48_query_heads(gen):
     """Past the kernel's limit the wrapper raises; nothing falls back."""
     args, _ = _dense_case(gen, 2, 32, 1, 49, 128, "none", 8)

@@ -35,7 +35,11 @@ ZOO_FILES = ["src/repro_torch/models/moe.py",
              "src/repro_torch/configs/internlm2_20b.py",
              "src/repro_torch/configs/granite_20b.py",
              "src/repro_torch/configs/qwen3_moe_235b.py",
-             "src/repro_torch/configs/grok1_314b.py"]
+             "src/repro_torch/configs/grok1_314b.py",
+             "src/repro_torch/models/rglru.py",
+             "src/repro_torch/models/rwkv6.py",
+             "src/repro_torch/configs/recurrentgemma_2b.py",
+             "src/repro_torch/configs/rwkv6_1p6b.py"]
 
 
 def test_the_import_check_covers_the_training_stack():
@@ -47,19 +51,47 @@ def test_the_import_check_covers_the_zoo():
     assert {str(p.relative_to(REPO)) for p in PORT_FILES} >= set(ZOO_FILES)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1p6b", "recurrentgemma-2b",
-                                  "seamless-m4t-medium", "phi3-vision-4p2b"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "phi3-vision-4p2b"])
 def test_unported_archs_are_refused_by_both_launchers(arch, capsys):
-    """The recurrent, multimodal and encoder-decoder configs are not
-    registered yet: both launchers stop on ``--arch`` with "is not yet
-    ported" before they build anything (the serving launcher as a usage
-    error, the training launcher with the registry's KeyError)."""
+    """The multimodal and encoder-decoder configs are not registered yet:
+    both launchers stop on ``--arch`` with "is not yet ported" before they
+    build anything (the serving launcher as a usage error, the training
+    launcher with the registry's KeyError)."""
     from repro_torch.launch import serve, train
     with pytest.raises(SystemExit):
         serve.main(["--arch", arch, "--reduced"], device="cpu")
     assert f"arch {arch!r} is not yet ported" in capsys.readouterr().err
     with pytest.raises(KeyError, match="is not yet ported"):
         train.main(["--arch", arch, "--reduced"], device="cpu")
+
+
+@pytest.mark.parametrize("arch,state", [("recurrentgemma-2b", "RGLRUState"),
+                                        ("rwkv6-1p6b", "RWKVState")])
+def test_recurrent_archs_serve_static_only(arch, state, capsys):
+    """Both launchers take the recurrent archs (reduced: one static serve,
+    one training step); ``--scheduler continuous`` and ``--paged-kv`` stop
+    with the reference's errors (recurrent state has no per-lane validity
+    and no block layout)."""
+    from repro_torch.launch import serve, train
+    small = ["--arch", arch, "--reduced", "--requests", "2", "--prompt-len",
+             "4", "--new-tokens", "2"]
+    stats = serve.main(small, device="cpu")
+    assert stats.tokens_generated == 4
+    assert train.main(["--arch", arch, "--reduced", "--steps", "1"],
+                      device="cpu")["step"] == 1
+    with pytest.raises(ValueError) as e:
+        serve.main(small + ["--scheduler", "continuous"], device="cpu")
+    assert str(e.value) == (
+        f"cache_reset_slots: continuous batching supports attention caches "
+        f"only, got {state} (recurrent state has no per-slot validity to "
+        f"reset)")
+    with pytest.raises(ValueError) as e:
+        serve.main(small + ["--paged-kv"], device="cpu")
+    assert str(e.value) == (
+        "paged KV cache supports attention layers only, got 'rec' "
+        "(recurrent state has no block layout)"
+        if arch == "recurrentgemma-2b"
+        else "rwkv6-1.6b-reduced: no attention layers to page")
 
 
 def _imported_modules(path):

@@ -491,10 +491,11 @@ def test_float_decode_plain_matches_oracle_past_8_heads(kv, g, site):
 
 @pytest.mark.parametrize("g,hd,ok", [(16, 128, True), (48, 128, True),
                                      (8, 256, True), (49, 128, False),
-                                     (16, 256, False), (12, 132, False)])
+                                     (16, 256, True), (17, 256, False),
+                                     (12, 132, True), (20, 132, False)])
 def test_decode_kernels_refuse_shapes_past_their_limit(g, hd, ok):
-    """The split kernels take G <= 8 at hd <= 256 and G <= 48 at hd <= 128;
-    a query past that raises before any launch (no fallback)."""
+    """The split kernels take G <= 16 at hd <= 256 and G <= 48 at hd <=
+    128; a query past that raises before any launch (no fallback)."""
     q = torch.zeros((2, 1, g, hd), dtype=torch.int8)
     if ok:
         assert iad.check_query(q, torch.int8) == (2, 1, g, hd)
