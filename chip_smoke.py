@@ -37,8 +37,17 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              G = 16 (4 kv heads) and G = 48 (1 kv head), hd 128, and at
              recurrentgemma's G = 10 of hd 256 (1 kv head, the G <= 16
              instantiation) over 128 and 2048 cells in a 2048 window, one
-             and two passes, each also emitting (K4's bytes).
-3. full    — serve gemma2-2b at full width (26 layers, d 2304, bf16) through
+             and two passes, each also emitting (K4's bytes). The
+             multimodal configs' shapes close it (``mm_gemm_cases``, at 4
+             and 32 rows): K8 at d 768 and 1024 bf16, per-tensor and
+             4 x 256; K1 at d 3072 in 1 and 4 x 768 groups; K2 with
+             bias + ReLU and bias + GELU + requant at (1024) x (1024,
+             4096) and phi3-vision's GLU pair at (3072) x (3072, 8192),
+             G 4 x 768; K3 with bias at (4096) x (4096, 1024), and at
+             8192 x 3072, 3072 x 3072, 1024 x 1024 and 768 x 768; and K5, K5-kv4, K6, K6-kv4 and K7 at G 1, hd 96
+             (32 kv heads, 128 and 592 cells) and hd 64 (12 kv heads).
+3. full    — serve gemma2-2b at full width (d 2304, bf16; phases 3-18 cut
+             to ``GEMMA_DEPTH`` 8 of its 26 layers) through
              ``repro_torch.launch.serve.main`` with W8A8 PTQ + the integer
              deploy path, static scheduler; the K1/K3/K4 launch counters
              must move.
@@ -123,15 +132,16 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              trace whose spans conserve against ServeStats, the disarmed
              profiled decode step dispatching the untraced one's operators
              in the same order, and the armed step's added device
-             operations, K4 launches (26, no emit) and host syncs printed.
+             operations, K4 launches (one a layer, no emit) and host syncs
+             printed.
 16. reduced telemetry — run B of phase 14 with the telemetry flags: the
              reference launcher's trace, phase, metrics, gauge and
              quant-health lines.
 17. full async — full width, ``--kv-bits 8 --async``, 8 requests x 16
              tokens x 16 new tokens on 4 lanes (the second wave's inserts
              land in reused slots): every stream gets its quota, K1, K3, K5
-             and K5's emit move, the profiled decode step launches K5 26
-             times, all emitting, and no K4, and every engine step sees one
+             and K5's emit move, the profiled decode step launches K5 once
+             a layer, all emitting, and no K4, and every engine step sees one
              shape signature; then on the same engine the per-call
              prefill / insert / generate medians
              (``scripts/engine_bench_torch.py``), a stream cancelled
@@ -155,18 +165,21 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              AdaRound on ``layer0/ffn/w_in`` at W4 (its output error must
              be below nearest rounding's, ms an iteration); peak memory.
 20. paper tables — the reference's table harness at its bench config,
-             trained afresh: Table 1 and Table 5 over all eight synthetic
-             tasks, Table 6's W8A8 PTQ and QAT rows and Table 7's W4A32 PTQ
+             trained afresh: Table 1 and Table 5 over three of the eight
+             synthetic tasks (``PAPER_TASKS``: syn-cola, syn-stsb,
+             syn-mnli), Table 6's W8A8 PTQ and QAT rows and Table 7's W4A32 PTQ
              and AdaRound rows on syn-mnli, every row printed; QAT must
              score at least W8A8 PTQ on syn-mnli and, on every trained
              model, PEG's hidden error with only the FFN path quantized must
              be below half of per-tensor's. Phases 19 and 20 run no kernel
              (the reference's BERT reaches no Pallas kernel): every launch
              count must stay 0.
-21. entry points — K8-K10, which no ported model reaches, through
-             ``ops`` as the reference's kernel bench calls them and (K8)
-             through ``deploy.norm_quantize("layernorm", ...)``: each must
-             move.
+21. entry points — K8-K10 through ``ops`` as the reference's kernel
+             bench calls them and (K8) through
+             ``deploy.norm_quantize("layernorm", ...)``: each must move.
+             K9 and K10 serve no model (the reference calls them from its
+             tests and its bench only); K8 also serves the LayerNorm
+             configs of phases 36-38.
 22. train full — ``repro_torch.launch.train.main`` on gemma2-2b at full
              width (bf16, f32 Adam, remat), 5 steps of B 2 x T 1024 with
              every step's line, then one profiled step: losses finite;
@@ -243,6 +256,40 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              3 lies 6e-6 of a step from a rounding boundary, the two paths
              round it to neighbouring codes, and the recurrence carries
              the step to every later token.
+35. mm phi3-vision — phi3-vision-4p2b at its published width (d 3072,
+             MHA 32 x 96, GLU d_ff 8192, PEG groups 4 x 768), cut to
+             ``MM_DEPTH`` layers, with the quickstart's kv8 flags: every
+             layer's FFN and attention packed, the profiled decode step
+             launching K1 and K2 twice, K3 five times and the emitting K6
+             once a layer at hd 96; ``[kv-int8]`` runs K5 at hd 96. Then
+             a vision prefill through ``make_prefill_step(embeds=)`` on the
+             deployed params: B 2 x (576 patch embeddings from
+             ``synth_patch_embeddings`` + 16 tokens) into a dense kv8
+             cache, its last row against ``forward(embeds=)`` (printed),
+             and 8 decode steps through the emitting K5 over 592-599
+             cells, one a layer each.
+36. mm bert-base — bert-base at full width (12 LayerNorm layers, d 768,
+             GELU MLP) with the quickstart's kv8 flags: K8 on every
+             layer's attention input in every decode and chunk step (its
+             PEG groups 256, 256, 128, 128 are not uniform, so the FFN
+             serves fake-quant, as gemma2-2b's does).
+37. mm reduced — both at ``--reduced`` with the quickstart's flags and
+             ``--parity``: the reference launcher's counts and three
+             ``[parity] OK`` lines; the reduced vision prefill's last row
+             within 5e-5 of ``forward(embeds=)`` (f32).
+38. encdec seamless — seamless-m4t-medium at full width and depth (12 +
+             12 layers, d 1024, 16 heads of 64, ReLU MLP d_ff 4096, vocab
+             256206 tied, 0.68 B params, bf16): ``make_encoder_forward``
+             on B 4 x S 1024 frames from ``synth_frame_embeddings``, 32
+             greedy ``make_decode_step`` calls on the ``DecoderCache``, a
+             profiled step's device busy and idle share; no kernel may
+             launch. The serving launcher with ``--quantize --deploy-int8
+             --kv-bits 8`` at full width runs its startup checks on the
+             decoder-only view (K8, K2 with bias + ReLU, K3 with bias, K5
+             at hd 64) and must stop with the stated error (the reference
+             stops there with ``KeyError: 'dec_pos'``). The reduced
+             encode, decode, encoder prefill and one train step on the
+             card against the CPU (``encdec_phase``).
 
 In every serving phase every request must get its tokens. The reduced
 runs' integer-path logits must match the fake-quant path they replace
@@ -596,6 +643,7 @@ def kernel_phase():
     w4_cases(gen, flush, record, randint8, uniform, randn)
     norm_cases(gen, flush, record, uniform, randn)
     zoo_gemm_cases(gen, flush, record, randint8, uniform, randn)
+    mm_gemm_cases(flush, record, randint8, uniform, randn)
     attend_cases(gen, flush, record)
     return records
 
@@ -692,6 +740,139 @@ def zoo_gemm_cases(gen, flush, record, randint8, uniform, randn):
                        p_ms, None, nbytes, 2 * rows * n * k,
                        PEAK_INT8_OPS_PER_S, False,
                        peg_note(rows, n, k, g, nbytes, ms))
+
+
+def mm_gemm_cases(flush, record, randint8, uniform, randn):
+    """The multimodal and encoder-decoder configs' shapes at decode rows
+    (4) and chunk rows (32): K8 over d 768 (bert-base, per-tensor
+    ``attn_in``) and d 1024 (seamless-m4t's decoder, per-tensor and PEG
+    4 x 256), bf16; K1 over phi3-vision's d 3072 per-tensor and in 4
+    groups of 768; the MLP's ``w_in`` on K2, (1024) x (1024, 4096) in 4
+    groups, with bias + ReLU (seamless) and bias + GELU (bert-base) and the
+    int8 requant in its epilogue; phi3-vision's GLU on K2, (3072) x (3072,
+    8192) in 4 groups of 768, ``w_up`` to f32 and SiLU x up -> int8 for
+    ``w_gate``; K3 at the MLP's ``w_out`` with bias (4096 -> 1024),
+    phi3-vision's ``w_out`` (8192 -> 3072) and ``wq..wo`` (3072 x 3072),
+    seamless's ``wq..wo`` (1024 x 1024) and bert-base's (768 x 768). The
+    int8 outputs within 1 LSB on at most 0.1 % of elements, the f32 ones
+    within 1e-5 of max|out|."""
+    import torch
+    from repro_torch.kernels import fused_ln_quant as lnq
+    from repro_torch.kernels import int8_matmul as imm
+    from repro_torch.kernels.ref import w_colsum_groups
+    kw8 = dict(qmin=-128, qmax=127)
+
+    def norm(rows, name, d, g):
+        x = randn(rows, d, dtype=torch.bfloat16) * 3
+        affine = ((1 + randn(d) * 0.1, randn(d) * 0.1)
+                  if name == "ln_quantize" else (randn(d) * 0.1,))
+        s = uniform(g, 0.02, 0.05)
+        z = torch.round(uniform(g, -20, 20))
+        cuda = getattr(lnq, name + "_cuda")
+        plain = getattr(lnq, name + "_plain")
+        got = cuda(x, *affine, s, z, **kw8)
+        want = plain(x, *affine, s, z, **kw8)
+        worst, flips = lsb_flips(got, want)
+        require(worst <= 1 and flips <= 1e-3 * got.numel(),
+                f"{name} ({rows},{d}) G={g}: {flips} flips, worst {worst}")
+        ms = time_ms(lambda: cuda(x, *affine, s, z, **kw8), flush)
+        p_ms = time_ms(lambda: plain(x, *affine, s, z, **kw8), flush)
+        nbytes = rows * d * (2 + 1) + len(affine) * d * 4 + 2 * g * 4
+        ops = (10 if name == "ln_quantize" else 8) * rows * d
+        record(name, f"x ({rows},{d}) bf16 G={g} (mm)", worst, ms, p_ms,
+               None, nbytes, ops, PEAK_F32_OPS_PER_S, False,
+               row_note(rows, d, g, nbytes, ms)
+               + bound_share(nbytes, ops, ms))
+
+    def peg(rows, k, n, g, epilogue):
+        a = randint8(rows, k)
+        w = randint8(k, n, lo=-127)
+        cs = w_colsum_groups(w, g)
+        sg = uniform(g, 0.01, 0.05)
+        zg = torch.round(uniform(g, -20, 20))
+        s_w = uniform(1, 0.0005, 0.002)
+        requant = dict(out_scale=uniform(1, 0.02, 0.04), **kw8)
+        if epilogue == "f32":
+            kw, extra = {}, rows * n * 4
+        elif epilogue == "silu*mul":
+            kw = dict(activation="silu", mul=randn(rows, n),
+                      out_zp=torch.round(uniform(1, -5, 5)), **requant)
+            extra = rows * n * (4 + 1)
+        else:
+            kw = dict(bias=randn(n) * 0.1, activation=epilogue,
+                      out_zp=torch.round(uniform(1, -100, -60)), **requant)
+            extra = n * 4 + rows * n
+        got = imm.int8_matmul_peg_cuda(a, w, sg, zg, s_w, cs, **kw)
+        want = imm.int8_matmul_peg_plain(a, w, sg, zg, s_w, cs, **kw)
+        if epilogue == "f32":
+            err = float((got - want).abs().max())
+            require(err <= 1e-5 * float(want.abs().max()),
+                    f"int8_matmul_peg ({rows},{k})x({k},{n}) G={g}: max "
+                    f"err {err}")
+            out = "f32 out"
+        else:
+            worst, flips = lsb_flips(got, want)
+            require(worst <= 1 and flips <= 1e-3 * got.numel(),
+                    f"int8_matmul_peg ({rows},{k})x({k},{n}) G={g} "
+                    f"{epilogue} requant: {flips} flips, worst {worst}")
+            err = float(worst)
+            out = (f"{epilogue}->int8" if epilogue == "silu*mul"
+                   else f"bias+{epilogue}->int8")
+        ms = time_ms(lambda: imm.int8_matmul_peg_cuda(a, w, sg, zg, s_w, cs,
+                                                      **kw), flush)
+        p_ms = time_ms(lambda: imm.int8_matmul_peg_plain(a, w, sg, zg, s_w,
+                                                         cs, **kw), flush)
+        nbytes = rows * k + k * n + g * n * 4 + 2 * g * 4 + extra
+        record("int8_matmul_peg", f"({rows},{k})x({k},{n}) G={g} {out} (mm)",
+               err, ms, p_ms, None, nbytes, 2 * rows * n * k,
+               PEAK_INT8_OPS_PER_S, False,
+               peg_note(rows, n, k, g, nbytes, ms))
+
+    def dense(rows, k, n, with_bias):
+        a = randint8(rows, k)
+        w = randint8(k, n, lo=-127)
+        cs = w_colsum_groups(w, 1)[0]
+        s_a, z_a, s_w = uniform(1, 0.01, 0.03), torch.round(
+            uniform(1, -100, -60)), uniform(1, 0.0005, 0.002)
+        bias = randn(n) * 0.1 if with_bias else None
+        kw = dict(z_a=z_a, w_colsum=cs)
+        if with_bias:
+            kw["bias"] = bias
+        got = imm.int8_matmul_cuda(a, w, s_a, s_w, **kw)
+        want = imm.int8_matmul_plain(a, w, s_a, s_w, **kw)
+        err = float((got - want).abs().max())
+        require(err <= 1e-5 * float(want.abs().max()),
+                f"int8_matmul ({rows},{k})x({k},{n}) bias {with_bias}: max "
+                f"err {err}")
+        ms = time_ms(lambda: imm.int8_matmul_cuda(a, w, s_a, s_w, **kw),
+                     flush)
+        p_ms = time_ms(lambda: imm.int8_matmul_plain(a, w, s_a, s_w, **kw),
+                       flush)
+        lib_ms = int_mm_yardstick(a, w, s_a, z_a, s_w, cs,
+                                  want - bias if with_bias else want, flush)
+        nbytes = (rows * k + k * n + n * 4 + rows * n * 4
+                  + (n * 4 if with_bias else 0))
+        out = "+bias f32 out" if with_bias else "f32 out"
+        record("int8_matmul", f"({rows},{k})x({k},{n}) {out} (mm)", err, ms,
+               p_ms, lib_ms, nbytes, 2 * rows * n * k, PEAK_INT8_OPS_PER_S,
+               False, split_note(imm.plan_k_splits(rows, n, k)[2], nbytes,
+                                 ms))
+
+    for rows in (4, 32):
+        for name, d, g in (("ln_quantize", 768, 1), ("ln_quantize", 1024, 1),
+                           ("ln_quantize", 1024, 4),
+                           ("rms_quantize", 3072, 1),
+                           ("rms_quantize", 3072, 4)):
+            norm(rows, name, d, g)
+        for k, n, g, epilogue in ((1024, 4096, 4, "relu"),
+                                  (1024, 4096, 4, "gelu"),
+                                  (3072, 8192, 4, "f32"),
+                                  (3072, 8192, 4, "silu*mul")):
+            peg(rows, k, n, g, epilogue)
+        for k, n, with_bias in ((4096, 1024, True), (8192, 3072, False),
+                                (3072, 3072, False), (1024, 1024, False),
+                                (768, 768, False)):
+            dense(rows, k, n, with_bias)
 
 
 def w4_cases(gen, flush, record, randint8, uniform, randn):
@@ -1310,6 +1491,7 @@ def attend_cases(gen, flush, record):
     wide_g_cases(gen, flush, record, ri, ru, site_kw, measure)
     wide_g_cases(gen, flush, record, ri, ru, site_kw, measure,
                  REC_G_SHAPES)
+    wide_g_cases(gen, flush, record, ri, ru, site_kw, measure, MM_G_SHAPES)
 
 
 def emit_cases(gen, flush, record, ri, ru, site_kw):
@@ -1644,6 +1826,10 @@ def k5_split_cases(gen, ri, ru, site_kw, measure):
 # cells and at its 2048-cell window
 ZOO_G_SHAPES = ((4, 16, 128, 128, None), (1, 48, 128, 128, None))
 REC_G_SHAPES = ((1, 10, 256, 128, 2048), (1, 10, 256, 2048, 2048))
+# phi3-vision's MHA at hd 96 (32 kv heads, G 1; 128 cells and the 592 of a
+# 576-patch + 16-token prompt) and bert-base's at hd 64 (12 kv heads)
+MM_G_SHAPES = ((32, 1, 96, 128, None), (32, 1, 96, 592, None),
+               (12, 1, 64, 128, None))
 
 
 def wide_g_cases(gen, flush, record, ri, ru, site_kw, measure,
@@ -2013,10 +2199,10 @@ def serve_phase(tag, argv, must_launch, step_emits=None, per_call=None,
 
 
 def entry_point_phase():
-    """Phase 21. K8-K10 serve no model here (the one LayerNorm config
-    ported, rwkv6-1p6b, packs nothing, as in the reference, and the
-    reference calls its fake-quant kernels only from its tests and its
-    kernel bench), so their path is their public entry points: driven
+    """Phase 21. K9 and K10 serve no model (the reference calls its
+    fake-quant kernels only from its tests and its kernel bench), so their
+    path is their public entry points, and K8's too beside its serving
+    launches in phases 36-38 (bert-base, seamless-m4t's decoder): driven
     as the reference's bench drives them (``benchmarks/kernel_bench.py``:
     4096 x 4096 f32, PEG with 8 groups at (0.05, 128), LayerNorm per-tensor),
     and K8 the way a LayerNorm model's deploy path reaches it, through
@@ -2099,6 +2285,34 @@ def quick_argv(kv_bits, *extra):
 
 FULL_QUICK = ("--block-size", "16", "--max-len", "128")
 W4 = ("--weight-bits", "4")
+# gemma2-2b's full-width serving phases (3-18) serve it cut to this many of
+# its 26 layers, every width its own (PERF.md §4): the layers are 13 equal
+# (local, global) pairs, and the decode steps are host-bound, each layer
+# adding a fixed host time to every step, so depth sets the phases' time
+GEMMA_DEPTH = 8
+
+
+def cut_depth(arch, num_layers):
+    """Until the returned function is called, every ``get_config`` a phase
+    reaches (the package's, its ``base`` module's and the serving
+    launcher's) gives ``arch`` cut to ``num_layers`` layers; ``reduced()``
+    of it is the uncut config's."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.configs import base
+    from repro_torch.launch import serve as launcher
+    orig, saved = base.get_config, (configs.get_config, launcher.get_config)
+
+    def get(a):
+        cfg = orig(a)
+        return (dataclasses.replace(cfg, num_layers=num_layers) if a == arch
+                else cfg)
+
+    def undo():
+        configs.get_config, launcher.get_config = saved
+        base.get_config = orig
+    configs.get_config = base.get_config = launcher.get_config = get
+    return undo
 # the --prefix-cache workload at full width: 64-token prompts whose shared
 # 32-token head is two whole 16-cell blocks
 FULL_PREFIX = quick_argv("8", *FULL_QUICK, "--prefix-cache")
@@ -3198,21 +3412,28 @@ def async_phase(add):
 BERT_OUTLIER_DIMS = (308, 381, 100, 600)
 
 
-def _zero_counts(tag):
-    """Every launch counter set to 0; returns a reader that prints the
-    counts and requires them all still 0 (the paper path reaches no
-    kernel: the reference's BERT runs LayerNorm and its fake-quant sites in
-    plain jnp, so no Pallas kernel either)."""
+def _count_from_zero():
+    """Every launch counter set to 0; returns a reader of the counts."""
     counters = _counters()
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
+    return lambda: {name: getattr(fn, attr)
+                    for name, (fn, attr) in counters.items()}
+
+
+def _zero_counts(tag):
+    """Every launch counter set to 0; returns a reader that prints the
+    counts and requires them all still 0 (for paths that reach no kernel,
+    as the reference's: the paper path's BERT runs LayerNorm and its
+    fake-quant sites in plain jnp, training and the encoder-decoder no
+    Pallas kernel either)."""
+    counts_now = _count_from_zero()
 
     def read():
-        counts = {name: getattr(fn, attr)
-                  for name, (fn, attr) in counters.items()}
+        counts = counts_now()
         print(f"[{tag}] kernel launches {counts}")
         require(not any(counts.values()),
-                f"{tag}: the paper path launched {counts}, not 0 of each")
+                f"{tag}: launched {counts}, not 0 of each")
         return counts
     return read
 
@@ -3434,19 +3655,26 @@ def _ffn_hidden_errors(task, params, dev):
     return errs
 
 
+# Table 1 and Table 5's tasks in ``[paper-tables]``: a parity rule, the
+# regression task (overlap rule) and syn-mnli (order rule, three labels),
+# which Tables 6 and 7 also train
+PAPER_TASKS = ("syn-cola", "syn-stsb", "syn-mnli")
+
+
 def paper_tables_phase(add, device="cuda"):
     """Phase 20, ``[paper-tables]``: the reference's table harness at its
     ``BENCH_CFG`` (3 layers, d 64), trained afresh (the cache directory is
-    emptied first): Table 1 and Table 5 over all eight synthetic tasks,
+    emptied first): Table 1 and Table 5 over ``PAPER_TASKS`` (three of the
+    eight synthetic tasks, so that the run fits its time;
+    ``scripts/paper_tables_torch.py`` trains all eight),
     Table 6's W8A8 PTQ and QAT rows and Table 7's W4A32 PTQ and AdaRound
     rows on syn-mnli. QAT must score at least W8A8 PTQ on syn-mnli; PEG
     (K=4 + P) against per-tensor is held where the reference's tests hold
     it, on the hidden error with only the FFN residual path quantized, on
-    each of the eight trained models (PEG's at most half per-tensor's); the
-    Table 5 averages over the eight tasks are printed, not bounded (a task
-    the bench model did not learn moves them by noise: syn-stsb's
-    correlation). Prints every row and the phase's wall time; no kernel
-    launch."""
+    each trained model (PEG's at most half per-tensor's); the Table 5
+    averages over the tasks are printed, not bounded (a task the bench
+    model did not learn moves them by noise: syn-stsb's correlation).
+    Prints every row and the phase's wall time; no kernel launch."""
     import shutil
     import torch
     from repro_torch.data.synthetic import GLUE_SUITE
@@ -3458,10 +3686,11 @@ def paper_tables_phase(add, device="cuda"):
     shutil.rmtree(common.RESULTS_DIR, ignore_errors=True)
     read = _zero_counts(tag)
     t0 = time.perf_counter()
+    tasks = [t for t in GLUE_SUITE if t.name in PAPER_TASKS]
     mnli = [GLUE_SUITE[5]]
     tables = (
-        ("Table 1", table1_ptq, table1_ptq.compute(GLUE_SUITE, dev)),
-        ("Table 5", table5_peg, table5_peg.compute(GLUE_SUITE, dev)),
+        ("Table 1", table1_ptq, table1_ptq.compute(tasks, dev)),
+        ("Table 5", table5_peg, table5_peg.compute(tasks, dev)),
         ("Table 6", table6_methods, table6_methods.compute(
             mnli, ("W8A8 PTQ", "W8A8 QAT"), dev)),
         ("Table 7", table7_lowbit, table7_lowbit.compute(
@@ -3473,13 +3702,13 @@ def paper_tables_phase(add, device="cuda"):
     t5, t6 = tables[1][2], tables[2][2]
     avg = {label: common.glue_average(t5[label])
            for label in ("K=1 (= per-tensor)", "K=4 + P (FFN only)")}
-    print(f"[{tag}] Table 5 average over the eight tasks: per-tensor "
+    print(f"[{tag}] Table 5 average over the {len(tasks)} tasks: per-tensor "
           f"{avg['K=1 (= per-tensor)']:.2f}, K=4 + P "
           f"{avg['K=4 + P (FFN only)']:.2f} (printed, not bounded)")
     qat, ptq_ = (t6[k]["syn-mnli"] for k in ("W8A8 QAT", "W8A8 PTQ"))
     require(qat >= ptq_, f"{tag}: QAT {qat} is below W8A8 PTQ {ptq_} on "
             f"syn-mnli")
-    for task in GLUE_SUITE:
+    for task in tasks:
         errs = _ffn_hidden_errors(task, common.train_task(task, device=dev),
                                   dev)
         ratio = errs["PEG"] / errs["per-tensor"]
@@ -3517,8 +3746,13 @@ class _TimedSource:
         return out
 
 
-def train_source(argv, tag):
-    """The launcher's data source for ``argv``, built once and timed."""
+# data sources being built on host threads, by their argv (see
+# start_train_source)
+_SOURCES = {}
+
+
+def _build_source(argv):
+    """(the launcher's data source for ``argv``, seconds it took)."""
     from repro_torch.configs import get_config
     from repro_torch.data import LMTaskConfig, SyntheticLM
     from repro_torch.launch import train
@@ -3528,10 +3762,47 @@ def train_source(argv, tag):
     t0 = time.perf_counter()
     src = SyntheticLM(LMTaskConfig(vocab_size=cfg.vocab_size,
                                    seq_len=args.seq), seed=args.seed)
-    secs = time.perf_counter() - t0
-    print(f"[{tag}] data source (SyntheticLM, vocab {cfg.vocab_size}, "
+    return src, time.perf_counter() - t0
+
+
+def start_train_source(argv=TRAIN_FULL):
+    """Start building ``argv``'s data source on a host thread. At full
+    width its 4096 x 256000 Dirichlet table takes a minute or more of one
+    core, and numpy draws it without holding the GIL, so the phases before
+    the training ones run beside it."""
+    import threading
+    box = {}
+
+    def build():
+        try:
+            box["built"] = _build_source(argv)
+        except BaseException as e:      # raised again by train_source
+            box["error"] = e
+    thread = threading.Thread(target=build, daemon=True)
+    _SOURCES[tuple(argv)] = (thread, box, time.perf_counter())
+    thread.start()
+
+
+def train_source(argv, tag):
+    """The launcher's data source for ``argv``, timed: the one that
+    start_train_source began, waited for, or else built here."""
+    started = _SOURCES.pop(tuple(argv), None)
+    if started is None:
+        src, secs = _build_source(argv)
+        where = ""
+    else:
+        thread, box, t_start = started
+        t0 = time.perf_counter()
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        src, secs = box["built"]
+        where = (f" on a host thread started {t0 - t_start:.1f} s before "
+                 f"this phase (waited {time.perf_counter() - t0:.1f} s "
+                 f"for it)")
+    print(f"[{tag}] data source (SyntheticLM, vocab {src.cfg.vocab_size}, "
           f"{src.table.shape[0]} x {src.table.shape[1]} Markov table, "
-          f"{src.table.nbytes} bytes) built in {secs:.1f} s")
+          f"{src.table.nbytes} bytes) built in {secs:.1f} s{where}")
     return _TimedSource(src)
 
 
@@ -3935,11 +4206,12 @@ def train_e2e_phase(add, device=None, preset="100m"):
 # §4): widths, heads, experts and vocabularies are the configs' own.
 # internlm2-20b takes 1.8 GiB a layer (53.2 GiB at 24 layers, 31.4 at 12),
 # so its 48 would not fit, and at 32 layers ``--parity`` diverged in bf16
-# on two requests. So that the recurrent phases fit the run's time,
-# internlm2 serves 12 layers (it held ``--parity`` at 12 and 24) and
-# granite 12 (it served 16, 44.6 GiB, in 51.9 s, without ``--parity``,
-# which diverged there in bf16; a layer costs its phase ~3.2 s).
-ZOO_DEPTH = {"internlm2-20b": 12, "granite-20b": 12, "qwen3-moe-235b": 4,
+# on two requests. So that the recurrent and multimodal phases fit the
+# run's time, internlm2 serves 4 layers (it held ``--parity`` at 8, 12 and
+# 24) and granite 4 (it served 16, 44.6 GiB, in 51.9 s, without
+# ``--parity``, which diverged there in bf16; a layer costs its phase
+# ~3.2 s).
+ZOO_DEPTH = {"internlm2-20b": 4, "granite-20b": 4, "qwen3-moe-235b": 4,
              "grok1-314b": 2}
 ZOO_MUST = ("rms_quantize", "int8_matmul", "peg_quantize",
             "int8_attend_decode", "paged_int8_attend_decode",
@@ -4470,6 +4742,365 @@ def rec_phase(add):
     return gaps
 
 
+# The multimodal and encoder-decoder configs (ROADMAP Queue 1 item 5(c)).
+# phi3-vision-4p2b serves at its published width (d 3072, MHA 32 x 96, GLU
+# d_ff 8192, vocab 32064, untied) cut to MM_DEPTH layers; bert-base (12
+# layers, d 768, MHA 12 x 64, GELU MLP d_ff 3072, LayerNorm) whole.
+MM_DEPTH = {"phi3-vision-4p2b": 4}
+MM_MUST = ZOO_MUST + ("int8_matmul_peg",)
+
+
+@contextlib.contextmanager
+def _prefill_ctx_factories():
+    """Record the ``ctx_factory`` the launcher builds its prefill step
+    with."""
+    from repro_torch.launch import serve as launcher
+    got, orig = [], launcher.make_prefill_step
+
+    def make(cfg, **kw):
+        got.append(kw.get("ctx_factory"))
+        return orig(cfg, **kw)
+    launcher.make_prefill_step = make
+    try:
+        yield got
+    finally:
+        launcher.make_prefill_step = orig
+
+
+def vision_prefill(tag, cfg, params, ctx_factory, dev, batch=2, n_text=16,
+                   steps=8):
+    """``make_prefill_step(embeds=)`` on the launcher's deployed params:
+    ``batch`` x (the config's patch embeddings from
+    ``synth_patch_embeddings`` + ``n_text`` tokens) into a dense kv8 cache,
+    then ``steps`` greedy decode steps through the emitting K5. Prints the
+    prefill's last-row gap against ``forward(embeds=)`` and the decode
+    times; every decode step must launch the emitting K5 once a layer.
+    Returns the gap (max |prefill - forward| over the last row)."""
+    import torch
+    from repro_torch.models import frontends
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import make_decode_step, make_prefill_step
+    dtype = params["embed"].dtype
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n_img = cfg.num_frontend_tokens
+    emb = frontends.synth_patch_embeddings(gen, batch, n_img, cfg.d_model,
+                                           dtype)
+    toks = torch.randint(10, cfg.vocab_size, (batch, n_text), generator=gen,
+                         device=dev)
+    n = n_img + n_text
+    cache = tfm.init_cache(cfg, batch, n + steps, dtype=dtype, kv_bits=8,
+                           device=dev)
+    prefill = make_prefill_step(cfg, ctx_factory=ctx_factory)
+    decode = make_decode_step(cfg, ctx_factory=ctx_factory)
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, toks, cache, embeds=emb)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    with torch.no_grad():
+        full, _ = tfm.forward(cfg, params, toks, embeds=emb,
+                              ctx=ctx_factory())
+    gap = float((logits[:, -1].float() - full[:, -1].float()).abs().max())
+    rel = gap / (float(full[:, -1].float().abs().max()) + 1e-9)
+    del full
+    fn, attr = _counters()["int8_attend_decode_emit"]
+    before = getattr(fn, attr)
+    walls = []
+    cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    for i in range(steps):
+        pos = torch.full((batch, 1), n + i, dtype=torch.int32, device=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = decode(params, cur, pos, cache)
+        _sync(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        require(bool(torch.isfinite(logits).all()),
+                f"{tag}: non-finite logits at decode step {i}")
+        cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    emits = getattr(fn, attr) - before
+    require(emits == steps * cfg.num_layers,
+            f"{tag}: {emits} emitting K5 launches over {steps} decode "
+            f"steps, not one a layer ({steps * cfg.num_layers})")
+    print(f"[{tag}] vision prefill: B {batch} x ({n_img} patch embeddings + "
+          f"{n_text} tokens) into a dense kv8 cache in {t_prefill:.2f} s; "
+          f"last-row gap against forward(embeds=): max {gap:.3e} (rel "
+          f"{rel:.4%}); {steps} decode steps over {n}-{n + steps - 1} "
+          f"cells, median {statistics.median(walls):.2f} ms, emitting K5 at "
+          f"hd {cfg.hd} G {cfg.num_heads // cfg.num_kv_heads} {emits} "
+          f"times")
+    return gap
+
+
+def mm_phase(add):
+    """Phases 35-37: phi3-vision-4p2b at full width (cut to ``MM_DEPTH``)
+    with the quickstart's kv8 flags, every layer's FFN on K1 / K2 / K3 and
+    the attention decode on the emitting K6 at hd 96, then a vision
+    prefill (``vision_prefill``); bert-base at full width with the same
+    flags, K8 on every decode and chunk step; both at ``--reduced`` with
+    ``--parity`` (the reference launcher's counts and three OK lines) and
+    the reduced vision prefill held at 5e-5 (f32). Returns the reduced
+    runs' {tag: integer vs fake-quant rel gap}."""
+    import torch
+    from repro_torch.configs import get_config
+    dev = torch.device("cuda")
+    gaps = {}
+    tag = "mm-phi3-vision"
+    t0 = time.perf_counter()
+    with zoo_config("phi3-vision-4p2b", MM_DEPTH["phi3-vision-4p2b"]) as \
+            cfg, _served_calls() as calls, _prefill_ctx_factories() as ctxs:
+        zoo_shape(tag, "phi3-vision-4p2b", cfg)
+        report = {}
+        counts, rel, stats, out = serve_phase(
+            tag, zoo_argv("phi3-vision-4p2b", "8", *FULL_QUICK), MM_MUST,
+            "paged_int8_attend_decode_emit", report=report,
+            record_ops=False)
+        add(counts)
+        L = cfg.num_layers
+        require(_packed_layers(tag, out, L) == (L, L),
+                f"{tag}: attention and FFN not packed in every layer")
+        _layer_launches(tag, report["step_launches"], L, {
+            "rms_quantize": 2, "int8_matmul_peg": 2, "int8_matmul": 5,
+            "paged_int8_attend_decode_emit": 1})
+        print(f"[{tag}] integer vs fake-quant (bf16) logits: rel "
+              f"{rel:.4%}; int8 vs bf16 KV cache (K5 at hd 96): rel "
+              f"{kv_gap(tag, out):.4%}; peak kv-cache {stats.cache_bytes} "
+              f"bytes (printed, not bounded)")
+        read = _count_from_zero()
+        vision_prefill(tag, cfg, calls[0][0][3], ctxs[0], dev)
+        add(read())
+        del calls
+    print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    tag = "mm-bert-base"
+    cfg = get_config("bert-base")
+    zoo_shape(tag, "bert-base", cfg)
+    report = {}
+    counts, rel, stats, out = serve_phase(
+        tag, zoo_argv("bert-base", "8", *FULL_QUICK),
+        ("ln_quantize",) + ZOO_MUST[1:], "paged_int8_attend_decode_emit",
+        report=report, record_ops=False)
+    add(counts)
+    n_attn, n_ffn = _packed_layers(tag, out, cfg.num_layers)
+    step = report["step_launches"]
+    want = {"ln_quantize": n_attn + n_ffn, "int8_matmul": 4 * n_attn + n_ffn,
+            "int8_matmul_peg": n_ffn,
+            "paged_int8_attend_decode_emit": n_attn}
+    for name, k in want.items():
+        require(step.get(name, 0) == k, f"{tag}: the profiled decode step "
+                f"launched {name} {step.get(name, 0)} times, not {k}")
+    require(n_attn == cfg.num_layers and not step.get("rms_quantize"),
+            f"{tag}: K8 is not on every layer's attention input")
+    print(f"[{tag}] profiled decode step: K8 {want['ln_quantize']}, K3 "
+          f"{want['int8_matmul']}, K2 {want['int8_matmul_peg']}, emitting "
+          f"K6 {want['paged_int8_attend_decode_emit']} at hd {cfg.hd} G 1 "
+          f"(attention packed in {n_attn}/{cfg.num_layers} layers, FFN in "
+          f"{n_ffn}); integer vs fake-quant (bf16) logits: rel {rel:.4%}; "
+          f"int8 vs bf16 KV cache: rel {kv_gap(tag, out):.4%} (printed, not "
+          f"bounded)")
+    reduced = ("--reduced", "--block-size", "8", "--max-len", "64",
+               "--parity")
+    for arch in ("phi3-vision-4p2b", "bert-base"):
+        tag = f"mm-{arch}-reduced"
+        with _served_calls() as calls, _prefill_ctx_factories() as ctxs:
+            counts, rel, stats, out = serve_phase(
+                tag, zoo_argv(arch, "8", *reduced),
+                (("rms_quantize",) if arch.startswith("phi3")
+                 else ("ln_quantize",)) + ZOO_MUST[1:]
+                + ("int8_matmul_peg",), "paged_int8_attend_decode_emit",
+                record_ops=False)
+            add(counts)
+            require_parity(tag, out, 3)
+            got = (stats.tokens_generated, stats.decode_steps,
+                   stats.prefill_calls, stats.blocks_in_use,
+                   stats.chunk_steps)
+            require(got == (36, 10, 6, 16, 6) and "blocks 16/32" in out,
+                    f"{tag}: serve counts {got} are not the reference's "
+                    f"(36, 10, 6, 16, 6)")
+            require(kv_gap(tag, out) <= 1e-4, f"{tag}: [kv-int8] gap")
+            gaps[tag] = rel
+            if arch.startswith("phi3"):
+                cfg = get_config(arch).reduced()
+                read = _count_from_zero()
+                gap = vision_prefill(tag, cfg, calls[0][0][3], ctxs[0], dev)
+                add(read())
+                require(gap <= 5e-5, f"{tag}: the prefill's last row is "
+                        f"{gap:.3e} from forward(embeds=) (bound 5e-5)")
+            del calls
+    return gaps
+
+
+SEAMLESS_STOP = ["--arch", "seamless-m4t-medium", "--quantize",
+                 "--deploy-int8", "--kv-bits", "8", "--requests", "4",
+                 "--prompt-len", "16", "--new-tokens", "8", "--batch-slots",
+                 "4", "--max-len", "128"]
+
+
+def _encdec_run(cfg, params, frames, toks, steps, report=None):
+    """``make_encoder_forward`` on ``frames`` with the first of ``toks``
+    as the decoder's start token, then ``steps`` greedy
+    ``make_decode_step`` calls on the ``DecoderCache`` (teacher-forced on
+    ``toks`` where it has columns). Returns (encode + prefill seconds,
+    [logits of each step], the cache); with ``report`` the steps are timed
+    and the third profiled (``_timed_decode_steps``)."""
+    import torch
+    from repro_torch.runtime import make_decode_step, make_encoder_forward
+    dev = frames.device
+    decode = make_decode_step(cfg)
+    if report is not None:
+        decode = _timed_decode_steps(lambda c, **kw: decode, report)(cfg)
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = make_encoder_forward(cfg)(params, frames, toks[:, :1])
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    out = [logits]
+    for i in range(1, steps + 1):
+        cur = (toks[:, i:i + 1] if i < toks.shape[1] else torch.argmax(
+            logits[:, -1], dim=-1).to(torch.int32)[:, None])
+        pos = torch.full((toks.shape[0], 1), i, dtype=torch.int32,
+                         device=dev)
+        logits, cache2 = decode(params, cur, pos, cache)
+        require(cache2 is cache, "encdec: the decode step returned another "
+                "cache")
+        out.append(logits)
+    return secs, out, cache
+
+
+def encdec_phase(add):
+    """Phase 38, ``[encdec-seamless]``: seamless-m4t-medium at full width
+    and depth (12 encoder + 12 decoder layers, d 1024, 16 heads of 64, ReLU
+    MLP d_ff 4096, vocab 256206 tied, bf16) from ``encdec.init_params``:
+    ``make_encoder_forward`` on B 4 x S 1024 frames from
+    ``synth_frame_embeddings``, then 32 greedy ``make_decode_step`` calls on
+    the ``DecoderCache``; no kernel may launch (the reference's
+    encoder-decoder reaches no Pallas kernel). Then the serving launcher at
+    full width with ``--quantize --deploy-int8 --kv-bits 8``: its startup
+    checks on the decoder-only view (K8 on the LayerNorm sites, K2 / K3 on
+    the packed MLP, K5 in ``[kv-int8]``), then the stated stop. Then the
+    reduced config on the card against the CPU from CPU-drawn weights:
+    encode, teacher-forced decode, the encoder prefill + 3 decode steps
+    (within 1e-5 of max|.|) and one ``make_train_step`` Adam step (loss and
+    gradient norm within 1e-5 relative, the params within
+    ``_adam_bound``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import encdec, frontends
+    from repro_torch.optim import (adam_init, linear_warmup_linear_decay,
+                                   tree_leaves, tree_map)
+    from repro_torch.runtime import make_train_step
+    tag = "encdec-seamless"
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg = get_config("seamless-m4t-medium")
+    read = _zero_counts(tag)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    params = encdec.init_params(cfg, 0, dtype=torch.bfloat16, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, S, steps = 4, 1024, 32
+    frames = frontends.synth_frame_embeddings(gen, B, S, cfg.d_model)
+    bos = torch.full((B, 1), 2, dtype=torch.int32, device=dev)
+    report = {}
+    secs, logits, _ = _encdec_run(cfg, params, frames, bos, steps, report)
+    require(all(tuple(x.shape) == (B, 1, cfg.vocab_size)
+                and bool(torch.isfinite(x).all()) for x in logits),
+            f"{tag}: bad logits")
+    toks = torch.cat([torch.argmax(x[:, -1], dim=-1)[:, None]
+                      for x in logits], dim=1)
+    peak = torch.cuda.max_memory_allocated() - held
+    print(f"[{tag}] {cfg.encoder_layers} + {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size} tied: {n_params / 1e9:.3f} B "
+          f"params (bf16); encode + prefill of B {B} x S {S} frames "
+          f"{secs * 1e3:.2f} ms; {steps} greedy decode steps; peak device "
+          f"memory {peak / 2**30:.2f} GiB; lane 0's tokens "
+          f"{toks[0, :12].tolist()}...")
+    _print_profile(tag, report)
+    add(read())
+    del params, logits, report
+    torch.cuda.empty_cache()
+    # the serving launcher stops after its startup checks
+    tag = "encdec-seamless-launcher"
+    read = _count_from_zero()
+    out = io.StringIO()
+    t1 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            launcher.main(SEAMLESS_STOP)
+        stop = None
+    except SystemExit as e:
+        stop = str(e)
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"[{tag}] {line}")
+    counts = read()
+    add(counts)
+    require(stop is not None and "'dec_pos'" in stop,
+            f"{tag}: the launcher did not stop with the stated error "
+            f"({stop!r})")
+    require("[deploy-int8] max |fake-quant - int8| logits diff" in text
+            and kv_gap(tag, text) is not None,
+            f"{tag}: no [deploy-int8] / [kv-int8] lines")
+    for name in ("ln_quantize", "int8_matmul", "int8_matmul_peg",
+                 "int8_attend_decode"):
+        require(counts[name] > 0, f"{tag}: {name} was never launched")
+    print(f"[{tag}] stopped as stated: {stop}")
+    print(f"[{tag}] kernel launches "
+          f"{ {k: v for k, v in counts.items() if v} }; "
+          f"{time.perf_counter() - t1:.1f} s")
+    torch.cuda.empty_cache()
+    # reduced: the card against the CPU
+    tag = "encdec-seamless-reduced"
+    read = _zero_counts(tag)
+    rcfg = get_config("seamless-m4t-medium").reduced()
+    rng = np.random.RandomState(4)
+    frames_np = (rng.randn(2, 8, rcfg.d_model) * 0.02).astype(np.float32)
+    toks_np = rng.randint(0, rcfg.vocab_size, (2, 10)).astype(np.int32)
+    base = encdec.init_params(rcfg, 3, dtype=torch.float32, device="cpu")
+    lr = 1e-3
+    runs = {}
+    for d in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(d), base)
+        fr, tk = torch.from_numpy(frames_np).to(d), torch.from_numpy(
+            toks_np).to(d)
+        with torch.no_grad():
+            mem = encdec.encode(rcfg, p, fr)
+            full, _ = encdec.decode(rcfg, p, tk, mem)
+            _, steps_out, _ = _encdec_run(rcfg, p, fr, tk, 3)
+        step = make_train_step(rcfg, lr_schedule=linear_warmup_linear_decay(
+            lr, 10))
+        p2, _, m = step(p, adam_init(p), {"frames": fr, "tokens": tk,
+                                          "labels": tk})
+        runs[d] = ([mem.cpu(), full.cpu()] + [x.cpu() for x in steps_out],
+                   [x.cpu() for x in tree_leaves(p2)],
+                   {k: float(v) for k, v in m.items()})
+    (oc, pc, mc), (op, pp, mp) = runs["cuda"], runs["cpu"]
+    worst = 0.0
+    for a, b in zip(oc, op):
+        rel = float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30)
+        worst = max(worst, rel)
+        require(rel <= 1e-5, f"{tag}: an output differs by {rel:.3g} of "
+                f"max|.| between the card and the CPU")
+    for k in ("loss", "grad_norm"):
+        require(abs(mc[k] - mp[k]) <= 1e-5 * abs(mp[k]),
+                f"{tag}: {k} {mc[k]} on the card, {mp[k]} on the CPU")
+    loose = sum(_adam_bound(a, b, lr, 1) for a, b in zip(pc, pp))
+    n = sum(t.numel() for t in pp)
+    require(loose <= 1e-2 * n, f"{tag}: {loose} of {n} params off the "
+            f"tight bound")
+    add(read())
+    print(f"[{tag}] encode, teacher-forced decode and the encoder prefill + "
+          f"3 decode steps on the card within {worst:.3g} of max|.| of the "
+          f"CPU's (bound 1e-5); train step loss card {mc['loss']:.6f}, CPU "
+          f"{mp['loss']:.6f}, grad norm {mc['grad_norm']:.6f} / "
+          f"{mp['grad_norm']:.6f}; params off the tight bound {loose} of "
+          f"{n}")
+    print(f"[encdec-seamless] phase {time.perf_counter() - t0:.1f} s")
+
+
 def ptxas_report():
     """``--ptxas``: compile the split and cluster kernels' sources once more
     with ``-Xptxas -v`` (into build/ptxas) and print one line per kernel
@@ -4530,6 +5161,7 @@ def main() -> int:
     if "--f32-parity" in sys.argv[1:]:
         f32_parity_phase()
     t0 = time.perf_counter()
+    start_train_source()
     secs = _build.build_all()
     print(f"[build] {len(_build.SOURCES)} kernel libraries built in "
           f"{secs:.1f} s ({_build.build_dir()})")
@@ -4545,6 +5177,12 @@ def main() -> int:
             launches[name] += n
         torch.cuda.empty_cache()
 
+    def mark(what):
+        print(f"[time] {what} done at {time.perf_counter() - t0:.1f} s")
+
+    uncut = cut_depth("gemma2-2b", GEMMA_DEPTH)
+    print(f"[serving] gemma2-2b's full-width phases serve {GEMMA_DEPTH} of "
+          f"its 26 layers (GEMMA_DEPTH)")
     full, full_rel, _, _ = serve_phase(
         "full", serve_argv + ["--requests", "4", "--prompt-len", "16",
                               "--new-tokens", "8", "--batch-slots", "4",
@@ -4649,12 +5287,20 @@ def main() -> int:
                       "paged vs dense caches",
                       "int4 vs int8 KV cache drift"],
             f"reduced-quickstart-4bit: parity lines {rates}")
+    mark("phases 3-10")
     fp_rel, fp_kv, rp = prefix_phase(add)
+    mark("prefix phases 11-12")
     ro = overcommit_phase(add)
+    mark("over-commit phases 13-14")
     rt = telemetry_phase(add)
+    mark("telemetry phases 15-16")
     ra = async_phase(add)
+    mark("async phases 17-18")
+    uncut()
     paper_bert_phase(add)
+    mark("paper BERT phase 19")
     paper_tables_phase(add)
+    mark("paper tables phase 20")
 
     # The reduced run holds the integer path to the fake-quant path it
     # replaces. At full width the fake-quant path runs in bf16 (bf16 params:
@@ -4691,19 +5337,29 @@ def main() -> int:
     for name, count in entry_point_phase().items():
         launches[name] += count
     train_full_phase(add)
+    mark("training phases 22-23")
     train_card_vs_cpu_phase(add)
     train_e2e_phase(add)
+    mark("training phases 24-25")
     for tag, rel in zoo_phase(add).items():
         require(rel <= 1e-4, f"{tag}: integer path differs from "
                 f"fake-quant by {rel:.4%} of max|logits|")
         print(f"[{tag}] integer vs fake-quant logits: rel {rel:.4%} "
               f"(bound 1e-4)")
+    mark("zoo phases 26-30")
     for tag, rel in rec_phase(add).items():
         require(rel <= 1e-4, f"{tag}: integer path differs from "
                 f"fake-quant by {rel:.4%} of max|logits| past its rounding "
                 f"ties")
         print(f"[{tag}] integer vs fake-quant logits past the rounding "
               f"ties: rel {rel:.4%} (bound 1e-4)")
+    mark("recurrent phases 31-34")
+    for tag, rel in mm_phase(add).items():
+        require(rel <= 1e-4, f"{tag}: integer path differs from "
+                f"fake-quant by {rel:.4%} of max|logits|")
+        print(f"[{tag}] integer vs fake-quant logits: rel {rel:.4%} "
+              f"(bound 1e-4)")
+    encdec_phase(add)
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     kernels = []

@@ -1,10 +1,10 @@
 """Architecture config schema + registry (port of ``repro.configs.base``).
 
 The port keeps its own ``ModelConfig`` — same fields, same ``reduced()`` —
-because the reference module imports JAX. Only the configs of ported
-architectures are registered: the attention decoders (dense, GQA / MQA,
-QK-norm, MoE) and the recurrent families (RG-LRU, RWKV-6); the multimodal
-and encoder-decoder configs raise "is not yet ported".
+because the reference module imports JAX. Every architecture of the
+reference is registered, in its order: the attention decoders, the
+recurrent families, the encoder-decoder seamless-m4t-medium, the
+vision-language phi3-vision-4p2b and bert-base.
 """
 from __future__ import annotations
 
@@ -113,13 +113,13 @@ class ModelConfig:
 
 _REGISTRY = ["h2o_danube3_4b", "internlm2_20b", "gemma2_2b", "granite_20b",
              "qwen3_moe_235b", "grok1_314b", "recurrentgemma_2b",
-             "rwkv6_1p6b"]
+             "rwkv6_1p6b", "seamless_m4t_medium", "phi3_vision_4p2b",
+             "bert_base"]
 ARCH_IDS = [m.replace("_", "-") for m in _REGISTRY]
 
 
 def get_config(arch_id: str) -> ModelConfig:
     mod_name = arch_id.replace("-", "_")
     if mod_name not in _REGISTRY:
-        raise KeyError(f"arch {arch_id!r} is not yet ported; ported: "
-                       f"{ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG

@@ -16,13 +16,15 @@ import torch
 from repro_torch.core.quantizer import QuantParams
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models.encdec import DecoderCache
 from repro_torch.models.rglru import RGLRUState
 from repro_torch.models.rwkv6 import RWKVState
 
 # the reference's cache NamedTuples, by class name, and the port's types
 _CACHE_TYPES = {cls.__name__: cls for cls in (
     attn.KVCache, attn.QuantKVCache, attn.Quant4KVCache, attn.PagedKVCache,
-    attn.PagedQuantKVCache, attn.PagedQuant4KVCache, RGLRUState, RWKVState)}
+    attn.PagedQuantKVCache, attn.PagedQuant4KVCache, RGLRUState, RWKVState,
+    DecoderCache)}
 
 
 def _tensor(a, device, dtype=None):
@@ -77,8 +79,10 @@ def caches_from_jax(tree, device=None):
     unrolled ``"layers"`` layout, with a paged ``"block_table"``) -> the
     same structure of the port's cache types on ``device`` (None: the GPU);
     the int4 caches keep their type, the bit-width marker, and the
-    recurrent states (``RGLRUState``, ``RWKVState``) theirs. A cache type
-    the port does not have raises."""
+    recurrent states (``RGLRUState``, ``RWKVState``) theirs. An
+    encoder-decoder ``DecoderCache`` (whose ``self_kv`` is itself a stacked
+    ``KVCache``) converts field by field. A cache type the port does not
+    have raises."""
     dev = resolve_device(device)
 
     def conv(node):
@@ -87,7 +91,7 @@ def caches_from_jax(tree, device=None):
             if cls is None:
                 raise NotImplementedError(
                     f"{type(node).__name__} caches are not yet ported")
-            return cls(*(_tensor(x, dev) for x in node))
+            return cls(*(conv(x) for x in node))
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):

@@ -211,11 +211,14 @@ def _pack_ffn(bp: dict, prefix: str, policy: QuantizationPolicy,
     hid_aq = acts.get(f"{prefix}/ffn/hidden")
     if in_aq is None or hid_aq is None or not hid_aq.per_tensor:
         return None
-    if "w_gate" not in ffn:              # GLU only in this slice
-        return None
     g_in = int(in_aq.scales.shape[0])
-    names = [("w_gate", g_in, in_aq.perm), ("w_up", g_in, in_aq.perm),
-             ("w_out", 1, None)]
+    if "w_gate" in ffn:                  # GLU
+        names = [("w_gate", g_in, in_aq.perm), ("w_up", g_in, in_aq.perm),
+                 ("w_out", 1, None)]
+    elif "w_in" in ffn:                  # MLP (its biases stay unpacked)
+        names = [("w_in", g_in, in_aq.perm), ("w_out", 1, None)]
+    else:
+        return None
     packed = dict(ffn)
     for name, g, perm in names:
         pk = pack_linear(ffn[name], policy.weight_config(

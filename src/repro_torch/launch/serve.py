@@ -1,12 +1,15 @@
 """Serving launcher (port of ``repro.launch.serve``): batched requests
-against any ported ``--arch`` (gemma2-2b, h2o-danube3-4b, internlm2-20b,
-granite-20b, qwen3-moe-235b, grok1-314b, recurrentgemma-2b, rwkv6-1p6b),
-optionally W8A8-quantized — prefill + decode with a KV cache, static or
-continuous scheduler. The recurrent families (recurrentgemma-2b,
-rwkv6-1p6b) serve through the static scheduler on dense caches only: their
-state has no per-lane validity (``--scheduler continuous`` stops in
-``cache_reset_slots``) and no block layout (``--paged-kv`` stops in
-``init_cache``), as in the reference.
+against any ``--arch`` of the registry, optionally W8A8-quantized —
+prefill + decode with a KV cache, static or continuous scheduler. The
+recurrent families (recurrentgemma-2b, rwkv6-1p6b) serve through the
+static scheduler on dense caches only: their state has no per-lane
+validity (``--scheduler continuous`` stops in ``cache_reset_slots``) and no
+block layout (``--paged-kv`` stops in ``init_cache``), as in the
+reference. An encoder-decoder config (seamless-m4t-medium) runs the
+startup checks on the decoder-only view the launcher builds, then stops
+with a ``SystemExit`` before serving: the serve loop's decode step is the
+encoder-decoder one, which that view cannot feed (the reference stops at
+the same point with ``KeyError: 'dec_pos'``).
 
 ``--quantize`` calibrates W8A8 PTQ with the paper's PEG recipe
 (``peg_policy(4)``) and serves simulated quantization (fake-quant);
@@ -243,22 +246,22 @@ def _fallback_note(cfg, packed, qm) -> str:
     once; an MoE block has no ``"ffn"``: its experts stay on the fake-quant
     path (batched matmuls), as the reference leaves them."""
     from repro_torch.core import deploy
+    from repro_torch.models.ffn import is_packed
     blocks = ([(b, cfg.n_super) for b in packed["scan"]]
               + [(b, 1) for b in packed["tail"]])
 
-    def layers(part, leaf):
-        return sum(n for b, n in blocks
-                   if deploy.is_packed(b.get(part, {}).get(leaf)))
-    n_attn, n_ffn = layers("attn", "wq"), layers("ffn", "w_gate")
+    def ffn_packed(b):
+        return is_packed(b["ffn"])
+    n_attn = sum(n for b, n in blocks
+                 if deploy.is_packed(b.get("attn", {}).get("wq")))
+    n_ffn = sum(n for b, n in blocks if "ffn" in b and ffn_packed(b))
     note = (f"[deploy-int8] integer kernels: attention projections in "
             f"{n_attn}/{cfg.num_layers} layers, FFN in "
             f"{n_ffn}/{cfg.num_layers} layers")
     n_moe = sum(n for b, n in blocks if "moe" in b)
     n_rwkv = sum(n for b, n in blocks if "tmix" in b)
-    body_ffn = [deploy.is_packed(b["ffn"]["w_gate"]) for b in packed["scan"]
-                if "ffn" in b]
-    tail_ffn = [deploy.is_packed(b["ffn"]["w_gate"]) for b in packed["tail"]
-                if "ffn" in b]
+    body_ffn = [ffn_packed(b) for b in packed["scan"] if "ffn" in b]
+    tail_ffn = [ffn_packed(b) for b in packed["tail"] if "ffn" in b]
     if n_moe:
         note += (f"; fake-quant fallback: MoE experts in {n_moe} layers "
                  f"(not packed, as in the reference)")
@@ -610,6 +613,15 @@ def main(argv=None, *, device=None, dtype=None):
     ctx_factory = None
     if args.quantize:
         params, ctx_factory = _quantize(cfg, args, params, dtype, dev)
+    if cfg.encoder_layers:
+        raise SystemExit(
+            f"{cfg.name}: the serve loop's decode step is the encoder-decoder "
+            f"one (encdec.decode_step over a DecoderCache), which this "
+            f"launcher's decoder-only params and caches cannot feed (they "
+            f"have no 'dec_pos'; the reference launcher stops here with "
+            f"KeyError: 'dec_pos'). Serve encoder-decoder configs with "
+            f"runtime.steps.make_encoder_forward and make_decode_step on "
+            f"encdec.init_params.")
 
     prefill = make_prefill_step(cfg, ctx_factory=ctx_factory)
     admit = make_admit_step(cfg, ctx_factory=ctx_factory)

@@ -1,8 +1,9 @@
 """Decoder-only transformer for the ported families (port of
 ``repro.models.transformer``): the attention decoders (dense, GQA / MQA,
-sliding-window, soft-capping, QK-norm, MoE), the hybrid RG-LRU (Griffin)
-and the attention-free RWKV-6, with the paper's quantization sites threaded
-through.
+sliding-window, soft-capping, QK-norm, GLU or MLP FFN, MoE), the hybrid
+RG-LRU (Griffin) and the attention-free RWKV-6, with the paper's
+quantization sites threaded through. A modality front end's embeddings
+(``forward(embeds=)``) are prepended to the token embeddings.
 
 Two parameter layouts share the same block function:
   * stacked — ``params["scan"]``: one dict per position of
@@ -87,26 +88,25 @@ def attn_cfg_for(cfg: ModelConfig, kind: str) -> AttnConfig:
                       rope_theta=cfg.rope_theta)
 
 
-def _check_ffn(cfg: ModelConfig):
-    """The FFN of an attention or ``rec`` block: MoE or GLU (an ``rwkv``
-    block's channel-mix is its own)."""
-    if cfg.moe is None and cfg.ffn_type != "glu":
-        raise NotImplementedError(
-            "MLP feed-forward blocks are not yet ported (ROADMAP Queue 1 "
-            "item 5(c): the multimodal and encoder-decoder configs)")
-
-
 def _ffn_apply(cfg: ModelConfig, p, x, *, ctx, prefix):
     """The block's FFN: MoE over the flattened (B*T, D) tokens (which
     route together, so the experts' capacity counts every token of the
-    call), else the GLU."""
-    _check_ffn(cfg)
+    call), else the GLU or the MLP."""
     if cfg.moe is not None:
         B, T, D = x.shape
         out = moe_lib.moe_apply(p, x.reshape(B * T, D), cfg.moe, ctx=ctx,
                                 prefix=prefix)
         return out.reshape(B, T, D)
-    return ffn_lib.glu_mlp(p, x, activation=cfg.act, ctx=ctx, prefix=prefix)
+    if cfg.ffn_type == "glu":
+        return ffn_lib.glu_mlp(p, x, activation=cfg.act, ctx=ctx,
+                               prefix=prefix)
+    return ffn_lib.mlp(p, x, activation=cfg.act, ctx=ctx, prefix=prefix)
+
+
+def _init_ffn(cfg: ModelConfig, gen, dtype, device):
+    init = (ffn_lib.init_glu_params if cfg.ffn_type == "glu"
+            else ffn_lib.init_mlp_params)
+    return init(gen, cfg.d_model, cfg.d_ff, dtype, device)
 
 
 # ---------------------------------------------------------------------------
@@ -114,9 +114,8 @@ def _ffn_apply(cfg: ModelConfig, p, x, *, ctx, prefix):
 # ---------------------------------------------------------------------------
 
 def _ffn_packed(p) -> bool:
-    from repro_torch.core import deploy
     ffn = p.get("ffn")
-    return isinstance(ffn, dict) and deploy.is_packed(ffn.get("w_gate"))
+    return isinstance(ffn, dict) and ffn_lib.is_packed(ffn)
 
 
 def _attn_packed(p) -> bool:
@@ -252,12 +251,10 @@ def init_block_params(cfg: ModelConfig, kind: str, gen, dtype, device):
         p["cmix"] = {k: v for k, v in tm.items()
                      if k.startswith(("w_c", "mu_c"))}
         return p
-    _check_ffn(cfg)
     if kind == "rec":
         p["rec"] = rglru_lib.init_recurrent_params(
             gen, cfg.d_model, cfg.d_rnn or cfg.d_model, dtype, device)
-        p["ffn"] = ffn_lib.init_glu_params(gen, cfg.d_model, cfg.d_ff,
-                                           dtype, device)
+        p["ffn"] = _init_ffn(cfg, gen, dtype, device)
         return p
     p["attn"] = init_attention_params(gen, cfg.d_model,
                                       attn_cfg_for(cfg, kind), dtype, device,
@@ -266,8 +263,7 @@ def init_block_params(cfg: ModelConfig, kind: str, gen, dtype, device):
         p["moe"] = moe_lib.init_moe_params(gen, cfg.d_model, cfg.moe, dtype,
                                            device)
     else:
-        p["ffn"] = ffn_lib.init_glu_params(gen, cfg.d_model, cfg.d_ff,
-                                           dtype, device)
+        p["ffn"] = _init_ffn(cfg, gen, dtype, device)
     if cfg.post_norm:
         p["post_ln1"] = _init_norm(cfg, dtype, device)
         p["post_ln2"] = _init_norm(cfg, dtype, device)
@@ -675,11 +671,15 @@ def cache_insert_lane(cache, lane: int, payload):
 # Forward
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: ModelConfig, params, tokens, ctx):
+def _embed(cfg: ModelConfig, params, tokens, embeds, ctx):
     x = resolve_weight(params["embed"])[tokens.long()]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
+    if embeds is not None:
+        # the modality front end's precomputed patch / frame embeddings
+        # are prepended to the token embeddings
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
     if ctx is not None:
         x = ctx.act("embed/sum", x)
     return x
@@ -730,11 +730,13 @@ def _remat(fn, ctx, *args):
     return checkpoint(run, *args, use_reentrant=False)
 
 
-def forward(cfg: ModelConfig, params, tokens, *, ctx=None, cache=None,
-            positions=None, chunked=None, append: bool = False,
+def forward(cfg: ModelConfig, params, tokens, *, embeds=None, ctx=None,
+            cache=None, positions=None, chunked=None, append: bool = False,
             remat: bool = False):
-    """Returns (logits, cache). tokens: (B, T) int. ``positions`` (B, T)
-    are absolute positions (default arange; -1 marks dead cells);
+    """Returns (logits, cache). tokens: (B, T) int; ``embeds`` (B, N, D)
+    front-end embeddings are prepended to them (logits then cover N + T
+    positions). ``positions`` (B, N + T) are absolute positions (default
+    arange; -1 marks dead cells);
     ``cache`` must be in the params' layout and is written in place (each
     layer gets a view of its slice of the stacked leaves) and returned:
     a caller that needs the cache as it was clones it first. Its
@@ -742,8 +744,9 @@ def forward(cfg: ModelConfig, params, tokens, *, ctx=None, cache=None,
     ``append``: chunked prefill (see models.attention.attention_block).
     ``remat`` (with autograd on, no cache): recompute each block (unrolled)
     or superblock (stacked) in the backward pass."""
-    B, T = tokens.shape
-    x = _embed(cfg, params, tokens, ctx)
+    B = tokens.shape[0]
+    x = _embed(cfg, params, tokens, embeds, ctx)
+    T = x.shape[1]
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32,
                                  device=tokens.device).expand(B, T)
@@ -815,29 +818,29 @@ def forward(cfg: ModelConfig, params, tokens, *, ctx=None, cache=None,
 
 def train_loss(cfg: ModelConfig, params, batch, *, ctx=None,
                remat: bool = True, chunked=None):
-    """Next-token CE. batch: {tokens (B, T), labels (B, T)}. Front-end
-    embeddings and encoder-decoder configs wait for ROADMAP Queue 1 item
-    5(c)."""
-    if batch.get("embeds") is not None or cfg.encoder_layers > 0:
-        raise NotImplementedError(
-            "front-end embeddings and encoder-decoder training are not yet "
-            "ported (ROADMAP Queue 1 item 5(c))")
-    logits, _ = forward(cfg, params, batch["tokens"], ctx=ctx,
-                        remat=remat, chunked=chunked)
+    """Next-token CE. batch: {tokens (B, T), labels (B, T) [, embeds]}; the
+    front-end positions carry no loss."""
+    logits, _ = forward(cfg, params, batch["tokens"],
+                        embeds=batch.get("embeds"), ctx=ctx, remat=remat,
+                        chunked=chunked)
+    n_front = logits.shape[1] - batch["labels"].shape[1]
+    if n_front > 0:
+        logits = logits[:, n_front:]
     return cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, *, positions=None,
-            ctx=None, chunked=None, append: bool = False):
+            ctx=None, embeds=None, chunked=None, append: bool = False):
     """Fill the cache from a prompt; returns (last_logits, cache). Pads of
     a left-packed ragged prompt carry position -1 (masked, never written),
     so a packed request gets the same logits and cache lane as alone.
     ``append=True`` appends the tokens as one chunk at each lane's position
     (chunked prefill): a prompt split into chunks fills the cache and emits
-    its last-token logits as a monolithic prefill does."""
-    logits, cache = forward(cfg, params, tokens, ctx=ctx, cache=cache,
-                            positions=positions, chunked=chunked,
-                            append=append)
+    its last-token logits as a monolithic prefill does. ``embeds``: front-end
+    embeddings prepended to the prompt (see :func:`forward`)."""
+    logits, cache = forward(cfg, params, tokens, embeds=embeds, ctx=ctx,
+                            cache=cache, positions=positions,
+                            chunked=chunked, append=append)
     return logits[:, -1:], cache
 
 

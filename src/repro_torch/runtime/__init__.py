@@ -13,8 +13,10 @@ from repro_torch.runtime.serve_loop import (Request, Scheduler,  # noqa: F401
                                             serve_continuous)
 from repro_torch.runtime.steps import (make_admit_step,  # noqa: F401
                                        make_chunk_prefill_step,
-                                       make_decode_step, make_prefill_step,
-                                       make_swap_steps, make_train_step)
+                                       make_decode_step,
+                                       make_encoder_forward,
+                                       make_prefill_step, make_swap_steps,
+                                       make_train_step)
 from repro_torch.runtime.telemetry import (MetricsLogger,  # noqa: F401
                                            QuantHealth, ServeTelemetry,
                                            Tracer)

@@ -5,7 +5,9 @@ inside the optimizer update and steps Adam or 8-bit Adam, with gradients
 from ``torch.autograd.grad`` over the parameter leaves. The serve steps
 (prefill, admit, chunk-prefill, decode, block swap) build a fresh ctx from
 ``ctx_factory`` and run without autograd. Paged caches need no extra
-plumbing: the block table rides inside the cache dict.
+plumbing: the block table rides inside the cache dict. Encoder-decoder
+configs train through ``encdec.train_loss``, prefill through
+``make_encoder_forward`` and decode over an ``encdec.DecoderCache``.
 
 ``quant_telemetry=True`` returns a second closure (``prefill_t``,
 ``admit_t``, ``chunk_t``, ``decode_t``) whose ctx is armed for quant-health
@@ -20,9 +22,16 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import (adam_update, apply_updates, qadam_update,
                                tree_leaves, tree_map, value_and_grad)
+
+
+def _loss_fn_for(cfg: ModelConfig):
+    if cfg.encoder_layers:
+        return encdec_lib.train_loss
+    return tfm.train_loss
 
 
 def make_train_step(cfg: ModelConfig, *, lr_schedule, microbatches: int = 1,
@@ -33,6 +42,9 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, microbatches: int = 1,
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics), ``metrics`` {"loss", "grad_norm", "lr"} as device tensors.
 
+    The loss is ``encdec.train_loss`` for encoder-decoder configs (batch
+    {frames, tokens, labels}; ``chunked`` does not apply), else
+    ``transformer.train_loss``.
     ctx_factory: () -> QuantCtx for QAT (fake-quant in the train graph).
     optimizer: "adam" (f32 moments) or "adam8bit" (int8 moments with
     row-wise scales, ``optim.quantized_adam``). Params and optimizer state
@@ -52,10 +64,12 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, microbatches: int = 1,
         raise ValueError(f"optimizer must be 'adam' or 'adam8bit', got "
                          f"{optimizer!r}")
 
+    loss_fn = _loss_fn_for(cfg)
+
     def loss_for(params, mb):
         ctx = ctx_factory() if ctx_factory is not None else None
-        return tfm.train_loss(cfg, params, mb, ctx=ctx, remat=remat,
-                              chunked=chunked)
+        kw = {} if cfg.encoder_layers else {"chunked": chunked}
+        return loss_fn(cfg, params, mb, ctx=ctx, remat=remat, **kw)
 
     def step(params, opt_state, batch):
         if microbatches == 1:
@@ -108,23 +122,25 @@ def _telem_ctx(ctx_factory):
 def make_prefill_step(cfg: ModelConfig, *,
                       ctx_factory: Optional[Callable] = None, chunked=None,
                       quant_telemetry: bool = False):
-    """prefill(params, tokens, cache[, positions]) -> (last_logits, cache).
-    ``positions`` (B, T) carries the -1 dead-cell sentinel on pads."""
+    """prefill(params, tokens, cache[, positions, embeds]) -> (last_logits,
+    cache). ``positions`` (B, T) carries the -1 dead-cell sentinel on pads;
+    ``embeds`` (B, N, D) front-end embeddings are prepended to the tokens
+    (positions then cover N + T cells)."""
     @torch.no_grad()
-    def prefill(params, tokens, cache, positions=None):
+    def prefill(params, tokens, cache, positions=None, embeds=None):
         ctx = ctx_factory() if ctx_factory is not None else None
         return tfm.prefill(cfg, params, tokens, cache, positions=positions,
-                           ctx=ctx, chunked=chunked)
+                           embeds=embeds, ctx=ctx, chunked=chunked)
 
     if not quant_telemetry:
         return prefill
 
     @torch.no_grad()
-    def prefill_t(params, tokens, cache, positions=None):
+    def prefill_t(params, tokens, cache, positions=None, embeds=None):
         ctx, tel = _telem_ctx(ctx_factory)
         logits, cache = tfm.prefill(cfg, params, tokens, cache,
-                                    positions=positions, ctx=ctx,
-                                    chunked=chunked)
+                                    positions=positions, embeds=embeds,
+                                    ctx=ctx, chunked=chunked)
         return logits, cache, tel
     return prefill_t
 
@@ -190,7 +206,18 @@ def make_chunk_prefill_step(cfg: ModelConfig, *,
 def make_decode_step(cfg: ModelConfig, *,
                      ctx_factory: Optional[Callable] = None,
                      quant_telemetry: bool = False):
-    """decode(params, tokens (B,1), pos (B,1), cache) -> (logits, cache)."""
+    """decode(params, tokens (B,1), pos (B,1), cache) -> (logits, cache).
+    Encoder-decoder configs step the decoder over an
+    ``encdec.DecoderCache`` (without quant telemetry, as in the
+    reference)."""
+    if cfg.encoder_layers:
+        @torch.no_grad()
+        def decode(params, tokens, pos, cache):
+            ctx = ctx_factory() if ctx_factory is not None else None
+            return encdec_lib.decode_step(cfg, params, tokens, pos, cache,
+                                          ctx=ctx)
+        return decode
+
     @torch.no_grad()
     def decode(params, tokens, pos, cache):
         ctx = ctx_factory() if ctx_factory is not None else None
@@ -226,3 +253,16 @@ def make_swap_steps():
     def swap_in(cache, ids, payload):
         return tfm.cache_scatter_blocks(cache, ids, payload)
     return swap_out, swap_in
+
+
+def make_encoder_forward(cfg: ModelConfig):
+    """The encoder-decoder's serving prefill: fwd(params, frames (B, S, D),
+    bos_tokens (B, 1)) -> (logits, DecoderCache) encodes the frames,
+    projects the decoder's cross-attention K/V and runs the first decoder
+    step, into a cache of 1024 self-attention cells (the reference's)."""
+    @torch.no_grad()
+    def fwd(params, frames, bos_tokens):
+        return encdec_lib.prefill_from_encoder(cfg, params, frames,
+                                               bos_tokens,
+                                               max_decode_len=1024)
+    return fwd

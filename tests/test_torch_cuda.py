@@ -117,6 +117,46 @@ def test_int8_matmul_peg(gen, m, k, n, g, requant):
     (_assert_lsb if requant else _assert_close)(got, want)
 
 
+@pytest.mark.parametrize("m", [4, 32])
+@pytest.mark.parametrize("activation", ["relu", "gelu"])
+@pytest.mark.parametrize("g", [1, 4])
+def test_int8_matmul_mlp_epilogue(gen, m, activation, g):
+    """The MLP FFN's ``w_in`` at seamless-m4t's width, (m, 1024) x (1024,
+    4096): bias + ReLU / GELU + int8 requant in the epilogue, on K2 (PEG, 4
+    groups of 256) and K3 (per-tensor), within 1 LSB on at most 0.1 % of
+    elements; then ``w_out`` (4096 -> 1024) on K3 with its bias, f32."""
+    k, n = 1024, 4096
+    a = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    bias = torch.randn(n, generator=gen, device="cuda") * 0.1
+    kw = dict(bias=bias, activation=activation, out_scale=0.05,
+              out_zp=-100.0 if activation == "relu" else -60.0)
+    if g == 1:
+        cs = ref.w_colsum_groups(w, 1)[0]
+        got = imm.int8_matmul_cuda(a, w, 0.02, 0.001, z_a=3.0, w_colsum=cs,
+                                   **kw)
+        want = imm.int8_matmul_plain(a, w, 0.02, 0.001, z_a=3.0,
+                                     w_colsum=cs, **kw)
+    else:
+        s, z = _grid(gen, g)
+        s = s / 20
+        cs = ref.w_colsum_groups(w, g)
+        got = imm.int8_matmul_peg_cuda(a, w, s, z, 0.001, cs, **kw)
+        want = imm.int8_matmul_peg_plain(a, w, s, z, 0.001, cs, **kw)
+    _assert_lsb(got, want)
+    h = torch.randint(-128, 128, (m, n), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    w2 = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    cs2 = ref.w_colsum_groups(w2, 1)[0]
+    kw2 = dict(z_a=-100.0, w_colsum=cs2,
+               bias=torch.randn(k, generator=gen, device="cuda"))
+    _assert_close(imm.int8_matmul_cuda(h, w2, 0.05, 0.001, **kw2),
+                  imm.int8_matmul_plain(h, w2, 0.05, 0.001, **kw2))
+
+
 def assert_attend_close(got, want, smo_step, v_absmax):
     """The decode-attention bounds of the module docstring; returns the
     max |got - want|."""
@@ -248,7 +288,11 @@ def test_paged_attend_decode(gen, b, nb, bs, kv, g, hd, s_cap, window, site,
 
 @pytest.mark.parametrize("rows,d,g,dtype", [
     (96, 64, 4, torch.float32), (64, 2304, 4, torch.bfloat16),
-    (7, 80, 1, torch.float32)])
+    (7, 80, 1, torch.float32),
+    # the LayerNorm serving rows: bert-base (d 768) and seamless-m4t's
+    # decoder (d 1024, PEG 4 x 256), decode and chunk rows
+    (4, 768, 1, torch.bfloat16), (4, 1024, 4, torch.bfloat16),
+    (32, 1024, 1, torch.bfloat16)])
 @pytest.mark.parametrize("kernel", ["ln_quantize", "ln_fake_quant",
                                     "rms_fake_quant"])
 def test_norm_quant_variants(gen, rows, d, g, dtype, kernel):
@@ -516,7 +560,8 @@ def _paged_case(gen, b, nb, bs, kv, g, hd, s_cap, site, kv_bits):
 
 @pytest.mark.parametrize("b,nb,bs,kv,g,hd,s_cap,window", [
     (4, 37, 16, 4, 2, 256, 587, 200), (4, 52, 8, 2, 2, 64, 413, None),
-    (4, 256, 16, 4, 2, 256, 4096, 2048), (3, 8, 8, 2, 2, 16, 64, 16)])
+    (4, 256, 16, 4, 2, 256, 4096, 2048), (3, 8, 8, 2, 2, 16, 64, 16),
+    (4, 37, 16, 32, 1, 96, 592, None), (4, 8, 16, 12, 1, 64, 128, None)])
 @pytest.mark.parametrize("site", list(SITES))
 @pytest.mark.parametrize("kv_bits", [8, 4])
 def test_paged_int8_attend_decode_splits(gen, b, nb, bs, kv, g, hd, s_cap,
@@ -688,7 +733,10 @@ def _dense_case(gen, b, s_len, kv, g, hd, site, kv_bits):
 @pytest.mark.parametrize("b,s_len,kv,g,hd,window", [
     (4, 587, 4, 2, 256, 200), (4, 413, 2, 2, 64, None),
     (4, 4096, 4, 2, 256, 2048), (3, 40, 2, 2, 16, 16),
-    (4, 16, 4, 2, 256, None), (2, 300, 1, 8, 64, None)])
+    (4, 16, 4, 2, 256, None), (2, 300, 1, 8, 64, None),
+    # phi3-vision (MHA, hd 96: 96-byte int8 rows) and bert-base (hd 64)
+    (4, 592, 32, 1, 96, None), (4, 128, 32, 1, 96, None),
+    (4, 128, 12, 1, 64, None)])
 @pytest.mark.parametrize("site", list(SITES))
 @pytest.mark.parametrize("kv_bits", [8, 4])
 def test_int8_attend_decode_splits(gen, b, s_len, kv, g, hd, window, site,
@@ -802,7 +850,8 @@ def _assert_emit(fn, args, kw):
 
 @pytest.mark.parametrize("b,nb,bs,kv,g,hd,s_cap,window", [
     (4, 8, 16, 4, 2, 256, 128, 64), (4, 37, 16, 4, 2, 256, 587, 200),
-    (4, 52, 8, 2, 2, 64, 413, None), (3, 8, 8, 2, 2, 16, 64, 16)])
+    (4, 52, 8, 2, 2, 64, 413, None), (3, 8, 8, 2, 2, 16, 64, 16),
+    (4, 37, 16, 32, 1, 96, 592, None)])
 @pytest.mark.parametrize("site", list(SITES))
 @pytest.mark.parametrize("kv_bits", [8, 4])
 def test_paged_int8_attend_decode_emit(gen, b, nb, bs, kv, g, hd, s_cap,
@@ -821,7 +870,8 @@ def test_paged_int8_attend_decode_emit(gen, b, nb, bs, kv, g, hd, s_cap,
 
 @pytest.mark.parametrize("b,s_len,kv,g,hd,window", [
     (4, 128, 4, 2, 256, 64), (4, 587, 4, 2, 256, 200),
-    (4, 413, 2, 2, 64, None), (3, 40, 2, 2, 16, 16)])
+    (4, 413, 2, 2, 64, None), (3, 40, 2, 2, 16, 16),
+    (4, 592, 32, 1, 96, None)])
 @pytest.mark.parametrize("site", list(SITES))
 @pytest.mark.parametrize("kv_bits", [8, 4])
 def test_int8_attend_decode_emit(gen, b, s_len, kv, g, hd, window, site,

@@ -5,6 +5,7 @@ the port next to it."""
 import ast
 import importlib.util
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -51,18 +52,179 @@ def test_the_import_check_covers_the_zoo():
     assert {str(p.relative_to(REPO)) for p in PORT_FILES} >= set(ZOO_FILES)
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "phi3-vision-4p2b"])
-def test_unported_archs_are_refused_by_both_launchers(arch, capsys):
-    """The multimodal and encoder-decoder configs are not registered yet:
-    both launchers stop on ``--arch`` with "is not yet ported" before they
-    build anything (the serving launcher as a usage error, the training
-    launcher with the registry's KeyError)."""
-    from repro_torch.launch import serve, train
-    with pytest.raises(SystemExit):
-        serve.main(["--arch", arch, "--reduced"], device="cpu")
-    assert f"arch {arch!r} is not yet ported" in capsys.readouterr().err
-    with pytest.raises(KeyError, match="is not yet ported"):
-        train.main(["--arch", arch, "--reduced"], device="cpu")
+MULTIMODAL_FILES = ["src/repro_torch/models/encdec.py",
+                    "src/repro_torch/models/frontends.py",
+                    "src/repro_torch/configs/seamless_m4t_medium.py",
+                    "src/repro_torch/configs/phi3_vision_4p2b.py",
+                    "src/repro_torch/configs/bert_base.py"]
+
+
+def test_the_import_check_covers_the_multimodal_slice():
+    assert {str(p.relative_to(REPO)) for p in PORT_FILES} >= \
+        set(MULTIMODAL_FILES)
+
+
+# The reference launcher's reduced quickstart on the CPU, for each arch:
+#   PYTHONPATH=src python -m repro.launch.serve --arch ARCH --reduced \
+#       --requests 6 --prompt-len 24 --new-tokens 6 --max-len 64 \
+#       --quantize --deploy-int8 --kv-bits 8 --scheduler continuous \
+#       --paged-kv --block-size 8 --prefill-chunk 8 --parity
+# prints this serve line (and three [parity] OK lines); its greedy tokens
+# per request, captured from its serve call:
+MM_QUICKSTART = ("--reduced --requests 6 --prompt-len 24 --new-tokens 6 "
+                 "--max-len 64 --quantize --deploy-int8 --kv-bits 8 "
+                 "--scheduler continuous --paged-kv --block-size 8 "
+                 "--prefill-chunk 8 --parity").split()
+MM_SERVE_LINE = (r"\[serve:continuous\] 36 tokens, 10 decode steps, 6 "
+                 r"prefills, \S+s \(\S+ tok/s\), slot-utilization 75%, peak "
+                 r"kv-cache 21 KiB \(kv-bits 8, blocks 16/32 \(frag 22%, "
+                 r"block-size 8\), chunked prefill \(6 chunk steps @ <= 8 "
+                 r"tokens\), cpu\)")
+MM_TOKENS = {
+    "phi3-vision-4p2b": [[61, 105, 45, 45, 26, 61], [105, 23, 121, 3, 30, 121],
+                         [125, 10, 119, 33, 11, 11],
+                         [120, 117, 120, 117, 120, 117],
+                         [89, 123, 48, 4, 107, 66], [85, 94, 33, 69, 100, 42]],
+    "bert-base": [[47, 103, 103, 52, 47, 52], [23, 23, 77, 23, 52, 85],
+                  [1, 107, 107, 107, 107, 107], [1, 98, 51, 51, 51, 51],
+                  [95, 100, 100, 100, 95, 109], [115, 107, 72, 72, 52, 72]],
+}
+
+
+# (request, token index) where the port's tokens part from the reference's
+# on an exact tie at the top logit
+MM_TIES = {"phi3-vision-4p2b": [(2, 5)], "bert-base": []}
+
+
+@pytest.mark.parametrize("arch", list(MM_TOKENS))
+def test_multimodal_archs_serve_the_reference_quickstart(arch, monkeypatch,
+                                                         capsys):
+    """The serving launcher takes phi3-vision-4p2b and bert-base. With the
+    reference's weights and calibration carried across (its own draws
+    differ), the reduced quickstart with ``--parity`` prints the
+    reference's serve line and three ``[parity] OK`` lines, and emits the
+    reference launcher's greedy tokens (phi3-vision's request 2 up to its
+    last token, where two tokens tie exactly at the top logit); the FFN
+    (GLU / MLP with biases)
+    and the attention projections serve on the integer kernels in both
+    layers."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.configs import get_config as jget_config
+    from repro.core import peg_policy as jpeg_policy
+    from repro.core.pipeline import ptq as jptq
+    from repro.models import transformer as jtfm
+    from repro_torch.convert import act_state_from_jax, params_from_jax
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    jcfg = jget_config(arch).reduced()
+    key = jax.random.PRNGKey(0)
+    layouts = {}
+    for stacked in (True, False):
+        jp = jtfm.init_params(jcfg, key, stacked=stacked, dtype=jnp.float32)
+        layouts[stacked] = (jp, params_from_jax(
+            jax.tree.map(np.asarray, jp), "cpu"))
+    calib = [{"tokens": jax.random.randint(jax.random.PRNGKey(10 + i),
+                                           (2, 24), 0, jcfg.vocab_size)}
+             for i in range(2)]
+    jqm = jptq(lambda p, b, c: jtfm.forward(jcfg, p, b["tokens"], ctx=c)[0],
+               layouts[False][0], calib, jpeg_policy(4), collect_inputs=True)
+
+    class QM:
+        act_state = act_state_from_jax(
+            jax.tree.map(np.asarray, jqm.act_state), "cpu")
+        peg_specs = {}
+    monkeypatch.setattr(tfm, "init_params", lambda cfg, seed, stacked=True,
+                        **kw: layouts[stacked][1])
+    monkeypatch.setattr(serve, "ptq", lambda *a, **k: QM)
+    served = []
+    real_serve = serve.serve
+
+    def spy(*a, **k):
+        served.append(a[4])
+        return real_serve(*a, **k)
+    monkeypatch.setattr(serve, "serve", spy)
+    ties = []              # per decode row: the tokens at its top logit
+    real_decode = serve.make_decode_step
+
+    def decode_step(cfg, **kw):
+        step = real_decode(cfg, **kw)
+
+        def run(*a):
+            out = step(*a)
+            last = out[0][:, -1]
+            top = last.max(dim=-1, keepdim=True).values
+            ties.extend(set(torch.nonzero(row == t)[:, 0].tolist())
+                        for row, t in zip(last, top))
+            return out
+        return run
+    monkeypatch.setattr(serve, "make_decode_step", decode_step)
+    stats = serve.main(["--arch", arch] + MM_QUICKSTART, device="cpu")
+    out = capsys.readouterr().out
+    assert stats.tokens_generated == 36
+    line = re.search(r"^\[serve:continuous\].*$", out, re.M).group(0)
+    assert re.fullmatch(MM_SERVE_LINE, line), line
+    assert len(re.findall(r"^\[parity\] OK", out, re.M)) == 3, out
+    assert "[deploy-int8] max |fake-quant - int8| logits diff 0.00000 (rel " \
+        "0.0000%)" in out, out
+    assert "attention projections in 2/2 layers, FFN in 2/2 layers" in out
+    # a request's tokens are the reference's up to a token that differs,
+    # which must be one of two or more tokens tied exactly at the top logit
+    # of a decode row (the head/logits site's grid: with other summation
+    # orders the reference's fake-quant puts one of them a step higher)
+    differ = []
+    for r, want in zip(served[0], MM_TOKENS[arch]):
+        got = list(r.tokens_out)
+        for i, (a, b) in enumerate(zip(got, want)):
+            if a != b:
+                differ.append((r.rid, i))
+                assert any({a, b} <= t for t in ties), (r.rid, i, a, b)
+                break
+        else:
+            assert got == want
+    assert differ == MM_TIES[arch]
+
+
+def test_seamless_serve_stops_after_the_reference_startup_lines(capsys):
+    """seamless-m4t-medium through the serving launcher runs what the
+    reference runs — PTQ, ``build_deploy`` and the ``[deploy-int8]`` /
+    ``[kv-int8]`` checks on the decoder-only view (both 0 there, as the
+    reference prints) — then stops with a ``SystemExit`` naming the cause
+    where the reference raises ``KeyError: 'dec_pos'``."""
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--arch", "seamless-m4t-medium"] + MM_QUICKSTART,
+                   device="cpu")
+    out = capsys.readouterr().out
+    assert "[deploy-int8] max |fake-quant - int8| logits diff 0.00000 (rel " \
+        "0.0000%)" in out, out
+    assert "[kv-int8] max rel logits diff over prefill + 4 decode steps vs " \
+        "bf16 cache: 0.0000%" in out, out
+    assert "[serve:" not in out
+    assert "encoder-decoder" in str(e.value) and "'dec_pos'" in str(e.value)
+
+
+def test_seamless_train_stops_on_the_missing_frames():
+    """The training launcher trains seamless-m4t-medium through
+    ``encdec.train_loss``, whose batch needs ``frames``, which the
+    launcher's token pipeline does not make: it stops there, as the
+    reference launcher does (``KeyError: 'frames'``)."""
+    from repro_torch.launch import train
+    with pytest.raises(KeyError, match="frames"):
+        train.main(["--arch", "seamless-m4t-medium", "--reduced", "--steps",
+                    "1"], device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["phi3-vision-4p2b", "bert-base"])
+def test_train_launcher_takes_the_multimodal_archs(arch, capsys):
+    """phi3-vision-4p2b and bert-base train one reduced step (token
+    batches, as the reference launcher feeds them)."""
+    from repro_torch.launch import train
+    assert train.main(["--arch", arch, "--reduced", "--steps", "1"],
+                      device="cpu")["step"] == 1
+    assert capsys.readouterr().out == \
+        "[train] finished at step 1; 0 straggler events\n"
 
 
 @pytest.mark.parametrize("arch,state", [("recurrentgemma-2b", "RGLRUState"),

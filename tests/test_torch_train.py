@@ -580,14 +580,25 @@ def test_train_loss_matches_the_reference(arch):
 
 
 def test_train_loss_refuses_what_is_not_ported():
+    """Nothing of ``train_loss`` is refused any more: front-end embeddings
+    are prepended and carry no loss, the loss within rel 1e-6 of the
+    reference's on its params; an encoder-decoder config trains through
+    ``encdec.train_loss``, which ``make_train_step`` picks, as the
+    reference's does."""
+    from repro_torch.models import encdec
+    from repro_torch.runtime.steps import _loss_fn_for
+    rcfg = ref_get_config("gemma2-2b").reduced()
     cfg = get_config("gemma2-2b").reduced()
-    params = tfm.init_params(cfg, 0, dtype=torch.float32, device=CPU)
-    batch = dict(_lm_batch(cfg.vocab_size), embeds=torch.zeros(2, 4, 64))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tfm.train_loss(cfg, params, batch)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tfm.train_loss(dataclasses.replace(cfg, encoder_layers=2), params,
-                       _lm_batch(cfg.vocab_size))
+    rp = ref_tfm.init_params(rcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+    params = params_from_jax(_np(rp), device=CPU)
+    batch = dict(_lm_batch(cfg.vocab_size), embeds=torch.from_numpy(
+        np.random.RandomState(3).randn(2, 4, 64).astype(np.float32)))
+    want = ref_tfm.train_loss(rcfg, rp, {k: jnp.asarray(v.numpy())
+                                         for k, v in batch.items()})
+    _close(tfm.train_loss(cfg, params, batch), want, rtol=1e-6, atol=0)
+    assert _loss_fn_for(dataclasses.replace(cfg, encoder_layers=2)) is \
+        encdec.train_loss
+    assert _loss_fn_for(cfg) is tfm.train_loss
 
 
 def _telemetry_ctx(cfg, params, batch):
