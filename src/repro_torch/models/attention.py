@@ -1,9 +1,9 @@
 """Multi-head attention with KV caches (port of the parts of
 ``repro.models.attention`` the serving path uses): GQA, sliding window,
-logit soft-capping, RoPE, the dense and the chunked (online-softmax)
-attend; dense, int8, nibble-packed int4, block-paged and paged int8 / int4
-caches; decode through the attention kernels (K5-K7) and chunked (append)
-prefill.
+logit soft-capping, RoPE, the dense, the chunked (online-softmax) and
+the banded (sliding-window) attend; dense, int8, nibble-packed int4,
+block-paged and paged int8 / int4 caches; decode through the attention
+kernels (K5-K7) and chunked (append) prefill.
 
 Absolute positions drive masking and cache writes; position -1 marks a DEAD
 cell (a prompt pad or an idle lane): it is masked out of attention and its
@@ -34,7 +34,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.nibble import pack_nibbles, unpack_nibbles
 from repro_torch.kernels.ref import paged_gather_ref, paged_positions_ref
 from repro_torch.models.common import (apply_rope, dense_init, dot,
-                                       resolve_weight, softcap)
+                                       matmul_dtype, resolve_weight, softcap)
 
 NEG_INF = -1e30
 
@@ -339,11 +339,55 @@ def _chunked_attend(q, k, v, q_pos, k_pos, cfg: AttnConfig,
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, hd).to(q.dtype)
 
 
+def _banded_attend(q, k, v, q_pos, k_pos, cfg: AttnConfig,
+                   block: int = 1024):
+    """Sliding-window attention that computes only the band: queries in
+    blocks of ``block``, each against the ``ceil(W / block) + 1`` kv blocks
+    its window can reach, O(T * W) instead of O(T^2). Needs the
+    self-attention layout (q_pos == k_pos, T == S) and ``cfg.window``."""
+    B, T, H, hd = q.shape
+    W = cfg.window
+    assert W is not None
+    nq = -(-T // block)
+    pad = nq * block - T
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                   for t in (q, k, v))
+        q_pos = torch.nn.functional.pad(q_pos, (0, pad), value=-10**9)
+        k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=-1)
+    nband = -(-W // block) + 1            # kv blocks a q block can reach
+    KV = cfg.num_kv_heads
+    kb = k.reshape(B, nq, block, KV, hd)
+    vb = v.reshape(B, nq, block, KV, hd)
+    kp = k_pos.reshape(B, nq, block)
+    # q block i reads kv blocks i - nband + 1 .. i; those before the first
+    # are clamped to it and masked out
+    idx = (torch.arange(nq, device=q.device)[:, None] - (nband - 1)
+           + torch.arange(nband, device=q.device)[None, :])
+    idx_c = idx.clamp(0, nq - 1)
+    k_band = kb[:, idx_c].reshape(B * nq, nband * block, KV, hd)
+    v_band = vb[:, idx_c].reshape(B * nq, nband * block, KV, hd)
+    kp_band = torch.where((idx >= 0)[None, :, :, None], kp[:, idx_c],
+                          torch.full_like(kp[:, idx_c], -1))
+    # (B, nq) folded into the batch: the dense attend per band
+    out = _dense_attend(q.reshape(B * nq, block, H, hd), k_band, v_band,
+                        q_pos.reshape(B * nq, block),
+                        kp_band.reshape(B * nq, nband * block), cfg)
+    return out.reshape(B, nq * block, H, hd)[:, :T]
+
+
 def attend(q, k, v, q_pos, k_pos, cfg: AttnConfig, *, ctx=None, prefix="",
-           chunked: Optional[bool] = None, kv_chunk: int = 1024):
-    """Dense (supports the quantization sites) or chunked (long contexts)."""
+           chunked: Optional[bool] = None, kv_chunk: int = 1024,
+           banded: bool = False):
+    """Dense (supports the quantization sites), chunked (long contexts) or
+    banded (``banded`` or ``chunked="banded"``: only the sliding-window
+    band, when ``cfg.window`` is set, T == S and T > window; otherwise
+    "banded" falls back to the automatic choice)."""
     T, S = q.shape[1], k.shape[1]
-    if chunked is None:
+    if (banded or chunked == "banded") and cfg.window is not None \
+            and T == S and T > cfg.window:
+        return _banded_attend(q, k, v, q_pos, k_pos, cfg)
+    if chunked is None or chunked == "banded":
         chunked = T * S > 4096 * 4096
     if chunked:
         return _chunked_attend(q, k, v, q_pos, k_pos, cfg, kv_chunk)
@@ -693,8 +737,8 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
     # the kernel returns it and K4 quantizes it (the same bytes)
     emit_aq = wo_aq if ctx is None or ctx.telemetry is None else None
 
-    def w(name):
-        wmat = resolve_weight(p[name])
+    def w(name, a):
+        wmat = resolve_weight(p[name], matmul_dtype(a))
         return ctx.weight(f"{prefix}/{name}", wmat) if ctx is not None \
             else wmat
 
@@ -703,9 +747,9 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
         k = deploy_lib.matmul(x, p["wk"]).reshape(B, T, KV, hd)
         v = deploy_lib.matmul(x, p["wv"]).reshape(B, T, KV, hd)
     else:
-        q = dot(x, w("wq")).reshape(B, T, H, hd)
-        k = dot(x, w("wk")).reshape(B, T, KV, hd)
-        v = dot(x, w("wv")).reshape(B, T, KV, hd)
+        q = dot(x, w("wq", x)).reshape(B, T, H, hd)
+        k = dot(x, w("wk", x)).reshape(B, T, KV, hd)
+        v = dot(x, w("wv", x)).reshape(B, T, KV, hd)
     if "q_norm" in p:   # qwen3-style per-head QK norm
         from repro_torch.models.common import rms_norm
         q = rms_norm(q, p["q_norm"])
@@ -812,7 +856,7 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
         out2d = out.reshape(B, T, H * hd)
         if ctx is not None:
             out2d = ctx.act_in(f"{prefix}/wo_in", out2d)
-        out = dot(out2d, w("wo"))
+        out = dot(out2d, w("wo", out2d))
     if ctx is not None:
         out = ctx.act(f"{prefix}/ctx_out", out)
     return out, new_cache

@@ -1,7 +1,7 @@
 """Shared model building blocks (port of ``repro.models.common``): norms,
 soft-capping, activations, rotary embeddings, initializers, the
-cross-entropy loss and the packed-weight guard. Float operations follow the
-reference's order."""
+cross-entropy loss, int8 weight storage and the packed-weight guard. Float
+operations follow the reference's order."""
 from __future__ import annotations
 
 import math
@@ -105,14 +105,42 @@ def cross_entropy(logits, labels, mask=None):
 # Weight storage
 # ---------------------------------------------------------------------------
 
-def resolve_weight(w):
-    """Weights may be stored as {"q": int8, "s": f32 per-out-channel};
-    deploy-packed payloads (with "colsum") must never be dequantized here:
-    their rows may be PEG-permuted."""
+def resolve_weight(w, dtype=torch.bfloat16):
+    """Weights may be stored as {"q": int8, "s": f32 per-out-channel}
+    (:func:`quantize_weight_int8`), dequantized here in ``dtype``: the
+    int8 value times the bf16-rounded scale, a product exact in f32 (8 + 8
+    significant bits). The reference writes it in bf16, and its compiled
+    forward keeps it unrounded where the matmul promotes it to f32, so a
+    site passes its matmul's type (``matmul_dtype``). Deploy-packed
+    payloads (with "colsum") must never be dequantized here: their rows
+    may be PEG-permuted."""
     if isinstance(w, dict) and "q" in w:
         if "colsum" in w:
             raise TypeError(
                 "deploy-packed weight reached a non-deploy path; packed "
                 "payloads must be consumed via repro_torch.core.deploy")
-        return w["q"].to(torch.bfloat16) * w["s"].to(torch.bfloat16)
+        return (w["q"].float() * w["s"].to(torch.bfloat16).float()).to(dtype)
     return w
+
+
+def matmul_dtype(x):
+    """The type a stored-int8 weight joins ``x``'s matmul in: JAX's
+    promotion of ``x`` with the bf16 dequantized weight."""
+    return torch.promote_types(x.dtype, torch.bfloat16)
+
+
+def quantize_weight_int8(w):
+    """Symmetric per-out-channel int8 storage of a weight matrix (in, out):
+    {"q": int8, "s": f32 (1, out)}, which :func:`resolve_weight`
+    dequantizes at the use site."""
+    w = w.float()
+    s = torch.clamp_min(w.abs().amax(dim=0, keepdim=True) / 127.0, 1e-12)
+    q = torch.clamp(torch.round(w / s), -127, 127)
+    return {"q": q.to(torch.int8), "s": s}
+
+
+def quantize_stacked_int8(w):
+    """:func:`quantize_weight_int8` of each layer of a stacked (L, in, out)
+    weight: {"q": (L, in, out) int8, "s": (L, 1, out) f32}."""
+    parts = [quantize_weight_int8(x) for x in w]
+    return {k: torch.stack([p[k] for p in parts]) for k in ("q", "s")}

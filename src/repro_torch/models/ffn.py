@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import ACTIVATIONS, dot, resolve_weight
+from repro_torch.models.common import (ACTIVATIONS, dot, matmul_dtype,
+                                       resolve_weight)
 
 
 def _mlp_int8(p, x, *, activation: str, ctx, prefix: str):
@@ -51,8 +52,8 @@ def _deployed(p, x) -> bool:
     return isinstance(x, deploy.QTensor) and is_packed(p)
 
 
-def _weight(p, name, ctx, prefix):
-    wm = resolve_weight(p[name])
+def _weight(p, name, ctx, prefix, x):
+    wm = resolve_weight(p[name], matmul_dtype(x))
     return ctx.weight(f"{prefix}/{name}", wm) if ctx is not None else wm
 
 
@@ -61,13 +62,13 @@ def mlp(p, x, *, activation: str = "gelu", ctx=None, prefix: str = "ffn"):
     b_out (D,); the biases are optional."""
     if _deployed(p, x):
         return _mlp_int8(p, x, activation=activation, ctx=ctx, prefix=prefix)
-    h = dot(x, _weight(p, "w_in", ctx, prefix))
+    h = dot(x, _weight(p, "w_in", ctx, prefix, x))
     if "b_in" in p:
         h = h + p["b_in"]
     h = ACTIVATIONS[activation](h)
     if ctx is not None:
         h = ctx.act(f"{prefix}/hidden", h)
-    out = dot(h, _weight(p, "w_out", ctx, prefix))
+    out = dot(h, _weight(p, "w_out", ctx, prefix, h))
     if "b_out" in p:
         out = out + p["b_out"]
     return out
@@ -80,11 +81,11 @@ def glu_mlp(p, x, *, activation: str = "silu", ctx=None,
         return _glu_mlp_int8(p, x, activation=activation, ctx=ctx,
                              prefix=prefix)
     act = ACTIVATIONS[activation]
-    g = act(dot(x, _weight(p, "w_gate", ctx, prefix))) * \
-        dot(x, _weight(p, "w_up", ctx, prefix))
+    g = act(dot(x, _weight(p, "w_gate", ctx, prefix, x))) * \
+        dot(x, _weight(p, "w_up", ctx, prefix, x))
     if ctx is not None:
         g = ctx.act(f"{prefix}/hidden", g)
-    return dot(g, _weight(p, "w_out", ctx, prefix))
+    return dot(g, _weight(p, "w_out", ctx, prefix, g))
 
 
 def init_mlp_params(gen, d_model: int, d_ff: int, dtype, device=None,

@@ -27,7 +27,8 @@ import dataclasses
 import math
 import torch
 
-from repro_torch.models.common import ACTIVATIONS, dense_init, resolve_weight
+from repro_torch.models.common import (ACTIVATIONS, dense_init,
+                                       matmul_dtype, resolve_weight)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,9 +87,8 @@ def _dispatch_indices(top_e, num_experts: int, capacity: int):
 def _expert_ffn(p, buf, cfg: MoEConfig):
     """buf: (E, C, D) -> (E, C, D) through per-expert gated MLP."""
     act = ACTIVATIONS[cfg.activation]
-    wg = resolve_weight(p["w_gate"])
-    wu = resolve_weight(p["w_up"])
-    wo = resolve_weight(p["w_out"])
+    wg, wu, wo = (resolve_weight(p[n], matmul_dtype(buf))
+                  for n in ("w_gate", "w_up", "w_out"))
     dt = torch.promote_types(buf.dtype, wg.dtype)
     b = buf.to(dt)
     h = act(torch.bmm(b, wg.to(dt))) * torch.bmm(b, wu.to(dt))

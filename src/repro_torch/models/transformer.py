@@ -57,7 +57,7 @@ from repro_torch.models.attention import (
     init_paged_quant_kv_cache, init_quant4_kv_cache, init_quant_kv_cache,
     reset_kv_lanes, reset_paged_lanes)
 from repro_torch.models.common import cross_entropy, embed_init, \
-    layer_norm, resolve_weight, rms_norm, softcap
+    layer_norm, matmul_dtype, resolve_weight, rms_norm, softcap
 
 ATTN_KINDS = ("attn", "local_attn")
 
@@ -687,8 +687,9 @@ def _embed(cfg: ModelConfig, params, tokens, embeds, ctx):
 
 def _head(cfg: ModelConfig, params, x, ctx):
     h = _norm(cfg, params["final_norm"], x)
-    w = resolve_weight(params["embed"]).T if cfg.tie_embeddings \
-        else resolve_weight(params["lm_head"])
+    dt = matmul_dtype(h)
+    w = resolve_weight(params["embed"], dt).T if cfg.tie_embeddings \
+        else resolve_weight(params["lm_head"], dt)
     if ctx is not None:
         w = ctx.weight("head/w", w)
     logits = softcap(h @ w.to(h.dtype), cfg.final_logit_softcap)

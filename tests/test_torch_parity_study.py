@@ -1,0 +1,172 @@
+"""``chip_smoke.py``'s parity studies on the CPU, on reduced internlm2-20b
+with the README quickstart's serving flags: ``deploy_tie_gap`` (the
+integer path held against fake-quant site by site, rounding ties taken
+the integer path's way) and ``serving_sites`` / ``scheduler_pair_apart``
+(the ``--parity`` scheduler pair bisected site by site). At this size the
+two paths and the two schedulers agree everywhere, so each study is also
+shown a planted difference, which it must find where it was planted."""
+import collections
+import contextlib
+import io
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core import calibration as cal
+from repro_torch.launch import serve as launcher
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
+
+ARGV = ("--arch internlm2-20b --reduced --quantize --deploy-int8 "
+        "--kv-bits 8 --scheduler continuous --paged-kv --prefill-chunk 8 "
+        "--requests 6 --prompt-len 24 --new-tokens 6 --batch-slots 4 "
+        "--block-size 16 --max-len 128").split()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Small ops: one intra-op thread runs them faster than a pool that
+    parallel test workers oversubscribe. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@contextlib.contextmanager
+def _planted(when, steps):
+    """The DEPLOY path's site input moved by ``steps`` grid steps (random
+    signs, seed 0) in row 0 at the calls ``when(site, x)`` picks."""
+    real = cal.QuantCtx._apply
+    gen = torch.Generator().manual_seed(0)
+
+    def apply(c, site, x, qcfg):
+        if c.mode == cal.Mode.DEPLOY:
+            if when(site, x):
+                s = float(c.act_state[site].scale.max())
+                x = x.clone()
+                x[0] += steps * s * torch.randn(x[0].shape,
+                                                generator=gen).sign()
+        return real(c, site, x, qcfg)
+    cal.QuantCtx._apply = apply
+    try:
+        yield
+    finally:
+        cal.QuantCtx._apply = real
+
+
+def _deploy_forwards():
+    with chip_smoke.parity_forwards() as got, \
+            contextlib.redirect_stdout(io.StringIO()):
+        launcher.main(ARGV, device="cpu")
+    return got
+
+
+def test_deploy_tie_gap_finds_a_planted_value_apart():
+    """No value apart at this size; a value of layer 0's ``q`` moved 1.3
+    steps in the integer path is listed as apart in study mode (and taken
+    its way), and fails the strict check."""
+    got = _deploy_forwards()
+    assert chip_smoke.deploy_tie_gap("clean", got, strict=False) == (
+        0.0, 0.0, [], [])
+    calls = collections.Counter()
+
+    def first(site, x):
+        calls[site] += 1
+        return site == "layer/attn/q" and calls[site] == 1
+    with _planted(first, 1.3):
+        before, after, ties, apart = chip_smoke.deploy_tie_gap(
+            "planted", got, strict=False)
+    assert after <= 1e-4
+    assert [(a[0], a[1]) for a in apart] == [("layer/attn/q", 0)]
+    assert apart[0][2] >= 1 and apart[0][4] > chip_smoke.TIE_REL
+    calls.clear()
+    with _planted(first, 1.3), pytest.raises(chip_smoke.SmokeFailure,
+                                             match="not one step on a "
+                                                   "rounding tie"):
+        chip_smoke.deploy_tie_gap("planted", got)
+
+
+@pytest.mark.parametrize("planted", [False, True])
+def test_scheduler_pair_apart_finds_a_planted_value(planted):
+    """The quickstart with ``--parity``: both schedulers emit the same
+    tokens and nothing is reported; with the static run's last-layer
+    ``ffn_out`` of row 0 (request 0) moved 300 steps at its fourth decode
+    step (position 27), request 0 parts from there, and the bisect names
+    that site, layer and position as the first value apart."""
+    n_layers = launcher.get_config("internlm2-20b").reduced().num_layers
+    hit = 3 * n_layers + n_layers          # 4th decode step, last layer
+    calls = collections.Counter()
+
+    def when(site, x):
+        if not (planted and len(sites["runs"]) == 2 and x.shape[1] == 1
+                and site == "layer/ffn_out"):
+            return False
+        calls[site] += 1
+        return calls[site] == hit
+    with chip_smoke.serving_sites() as sites, _planted(when, 300), \
+            contextlib.redirect_stdout(io.StringIO()) as out:
+        try:
+            launcher.main(ARGV + ["--parity"], device="cpu")
+        except SystemExit as e:
+            print(e.code)
+    assert [len(r) for r in sites["requests"]] == [6, 6]
+    res = chip_smoke.scheduler_pair_apart("study", sites)
+    if not planted:
+        assert "[parity] OK: continuous and static" in out.getvalue()
+        assert res == []
+        # the values before rounding it records round to the codes it
+        # records (K1's recomputed by the plain norm), or lie past them
+        # outwards (clipped at the grid's end, under 2 % of them)
+        near = total = 0
+        for fwd in sites["runs"][0]:
+            for site, _, y, x, st in fwd["sites"]:
+                if x is not None:
+                    d = (y - x).abs() / st.expand(y.shape)
+                    assert bool(((d <= 0.5 + 1e-3)
+                                 | ((x - y) * y.sign() > 0)).all()), site
+                    near += int((d <= 0.5 + 1e-3).sum())
+                    total += d.numel()
+        assert total > 0 and near >= 0.98 * total, (near, total)
+        return
+    assert "[parity] FAIL: request ids [0] diverge" in out.getvalue()
+    assert len(res) == 1
+    rid, pos, site, k, n, steps, dist = res[0]
+    assert (rid, pos, site, k) == (0, 27, "layer/ffn_out", n_layers - 1)
+    assert n >= 1 and steps >= 1 and dist > chip_smoke.TIE_REL
+
+
+def test_unrolled_views_are_views_of_the_stacked_draw():
+    """Inside ``_unrolled_views`` an unrolled draw after a stacked one of
+    the same config and seed holds the same values as a real unrolled
+    draw, in the stacked leaves' storage, and the launcher's contexts keep
+    no weight memo; outside it both are as before."""
+    from repro_torch.core import peg_policy
+    from repro_torch.models import transformer as tfm
+    cfg = launcher.get_config("internlm2-20b").reduced()
+    kw = dict(dtype=torch.float32, device="cpu")
+    want = tfm.init_params(cfg, 0, stacked=False, **kw)
+    real_init, real_ctx = tfm.init_params, launcher.QuantCtx
+    with chip_smoke._unrolled_views():
+        stacked = tfm.init_params(cfg, 0, stacked=True, **kw)
+        got = tfm.init_params(cfg, 0, stacked=False, **kw)
+        ctx = launcher.QuantCtx(policy=peg_policy(4))
+    assert tfm.init_params is real_init and launcher.QuantCtx is real_ctx
+    assert ctx.weight_cache is None
+    assert len(got["layers"]) == len(want["layers"]) == cfg.num_layers
+    for a, b in zip(_leaves(got), _leaves(want), strict=True):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    base = {t.untyped_storage().data_ptr() for t in _leaves(stacked)}
+    assert all(t.untyped_storage().data_ptr() in base
+               for t in _leaves(got["layers"]))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []

@@ -674,14 +674,57 @@ STEP_CASES = {
     "adam-mb2-remat": dict(optimizer="adam", microbatches=2, remat=True),
     "adam8bit-wide-embed": dict(optimizer="adam8bit", microbatches=1,
                                 remat=True, wide=True),
+    # the recurrent families: the RG-LRU scan's and the chunked WKV's
+    # backward through remat, then the Adam update
+    "recurrentgemma-adam-remat": dict(arch="recurrentgemma-2b",
+                                      optimizer="adam", microbatches=1,
+                                      remat=True),
+    "rwkv6-adam-remat": dict(arch="rwkv6-1p6b", optimizer="adam",
+                             microbatches=1, remat=True),
 }
+
+
+# The recurrent cases' own bounds on the updated params and moments. Their
+# small leaves (biases drawn at zero) hold several elements whose
+# first-step gradient is float noise, more than 1 % of such a leaf. rwkv6's
+# float32 gradients at B 4 x T 32 are ill-conditioned: against the same
+# loss run in float64 (where the port and the reference agree within
+# 1e-10, ``tests/test_torch_recurrent.py::test_train_grads_match_the_
+# reference_in_float64``) the port's lie up to 4.5e-4 of a leaf's largest
+# magnitude away and the reference's up to 9.9e-4, so the two may part by
+# their sum, 1.44e-3 (5.4e-4 measured, ``tmix/w_lora_a``), and the grad
+# norms by the port's 2.84e-5 plus the reference's 1e-7
+# (scripts/variants_gaps.py). So rwkv6's grad norm is held within rtol
+# 5e-5 and its moments within rtol 1e-4 plus 1.5e-3 of the leaf's largest
+# magnitude, and an element whose first moment lies within that of 0 may
+# take the other sign of Adam's first update.
+# There every element is held within 2 x lr of the reference's, those off
+# the tight bound are counted over all trained elements (at most 1 %, as
+# the QAT step's), recurrentgemma's only where the reference's first
+# moment is below the 1e-6 floor, and the port's update is held to Adam's
+# formula on its own moments in float64 within the tight bound.
+STEP_TOL = {
+    "recurrentgemma-adam-remat": dict(norm_rtol=RTOL, moment_rtol=RTOL,
+                                      moment_atol=GRAD_ATOL, floor=True),
+    "rwkv6-adam-remat": dict(norm_rtol=5e-5, moment_rtol=1e-4,
+                             moment_atol=1.5e-3, floor=False),
+}
+
+
+def _adam_first_step_close(p0, p1, mu, nu, lr, b1=0.9, b2=0.999, eps=1e-8):
+    """The first Adam step on the port's own moments, in float64."""
+    m_hat = mu.double() / (1 - b1)
+    v_hat = nu.double() / (1 - b2)
+    want = p0.double() - lr * m_hat / (torch.sqrt(v_hat) + eps)
+    _close(p1.double(), want.numpy())
 
 
 def _step_pair(case):
     kw = dict(STEP_CASES[case])
     wide = kw.pop("wide", False)
-    rcfg = ref_get_config("gemma2-2b").reduced()
-    cfg = get_config("gemma2-2b").reduced()
+    arch = kw.pop("arch", "gemma2-2b")
+    rcfg = ref_get_config(arch).reduced()
+    cfg = get_config(arch).reduced()
     if wide:
         rcfg, cfg = _wide(rcfg), _wide(cfg)
     return rcfg, cfg, kw
@@ -702,19 +745,36 @@ def test_train_step_matches_the_jitted_reference(case):
                                   "labels": jnp.asarray(toks)})
 
     pp = params_from_jax(_np(rp), device=CPU)
+    p0 = [t.clone() for t in tree_leaves(pp)]
     po = (qadam_init if kw["optimizer"] == "adam8bit" else adam_init)(pp)
     step = make_train_step(cfg, lr_schedule=linear_warmup_linear_decay(
         1e-3, 10), **kw)
     batch = {"tokens": torch.from_numpy(toks),
              "labels": torch.from_numpy(toks)}
     pp2, po2, pm = step(pp, po, batch)
+    tol = STEP_TOL.get(case)
     _close(pm["loss"], rm["loss"], atol=0)
-    _close(pm["grad_norm"], rm["grad_norm"], atol=0)
+    _close(pm["grad_norm"], rm["grad_norm"],
+           rtol=tol["norm_rtol"] if tol else RTOL, atol=0)
     assert float(pm["lr"]) == float(rm["lr"])
     m_hats = [_ref_m_hat(m) for m in jax.tree.leaves(
         ro2.mu, is_leaf=lambda x: isinstance(x, dict) and "q" in x)]
+    loose = 0
     for got, want, m_hat in zip(tree_leaves(pp2), _ref_leaves(rp2), m_hats):
-        _updated_close(got, want, m_hat, 1e-3)
+        if tol is None:
+            _updated_close(got, want, m_hat, 1e-3)
+            continue
+        loose += _updated_close(got, want, m_hat, 1e-3, flips=True)
+        if tol["floor"]:
+            d = np.abs(got.detach().numpy() - np.asarray(want))
+            tight = RTOL * np.abs(want) + ATOL * np.abs(want).max()
+            assert not ((d > tight) & (np.abs(m_hat) >= 1e-6)).any()
+    if tol is not None:
+        n = sum(t.numel() for t in p0)
+        assert loose <= 1e-2 * n, (loose, n)
+        for a, b, mu, nu in zip(p0, tree_leaves(pp2), tree_leaves(po2.mu),
+                                tree_leaves(po2.nu)):
+            _adam_first_step_close(a, b, mu, nu, float(pm["lr"]))
     assert int(po2.step) == int(ro2.step) == 1
     for got, want in zip(tree_leaves((po2.mu, po2.nu)),
                          _ref_leaves((ro2.mu, ro2.nu))):
@@ -724,7 +784,8 @@ def test_train_step_matches_the_jitted_reference(case):
             assert d.max() <= 1
             assert (d > 0).sum() <= 1e-3 * d.size, int((d > 0).sum())
         else:
-            _close(got, want, atol=GRAD_ATOL)
+            _close(got, want, rtol=tol["moment_rtol"] if tol else RTOL,
+                   atol=tol["moment_atol"] if tol else GRAD_ATOL)
     if kw["optimizer"] == "adam8bit":
         assert isinstance(po2.mu["embed"], dict)    # the int8 leaf is there
 
