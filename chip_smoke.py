@@ -229,9 +229,10 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              6 chunk steps), ``[kv-int8]`` <= 1e-4 and three ``[parity]
              OK`` lines. Each zoo phase prints its depth, wall and peak
              device memory.
-31. rec recurrentgemma — full width and depth (26 layers: (rec, rec,
-             local_attn) x 8 + a (rec, rec) tail, d 2560, local attention
-             MQA 10 x 256 in a 2048 window, bf16), ``--quantize
+31. rec recurrentgemma — full width cut to ``REC_DEPTH`` (11 of its
+             26 layers: (rec, rec, local_attn) x 3 + the (rec, rec)
+             tail; d 2560, local attention MQA 10 x 256 in a 2048
+             window, bf16), ``--quantize
              --deploy-int8``, static, 6 x 24 x 6 on 4 lanes, at kv8 and
              kv4: the profiled decode step must launch K1 once per packed
              FFN and attention layer, K2 twice and K3 once per packed FFN
@@ -242,8 +243,9 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              kv8 (max_len 2056): the prefill runs the doubling scan at
              length and the decode wraps the local layers' 2048-cell
              ring; 15 decode steps.
-33. rec rwkv6 — full width and depth (24 LayerNorm RWKV-6 blocks, d 2048,
-             32 heads of 64), the same flags at kv8, then 2 x 2040-token
+33. rec rwkv6 — full width cut to ``REC_DEPTH`` (8 of its 24 LayerNorm
+             RWKV-6 blocks; d 2048, 32 heads of 64), the same
+             flags at kv8, then 2 x 2040-token
              prompts (64 chunks of ``wkv_chunked``): no kernel may launch
              (the reference packs nothing in an RWKV block).
 34. rec reduced — the two reduced CPU quickstarts of the reference
@@ -320,6 +322,25 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              against int8 deploy 100 % or its differences shown to be
              rounding ties (``deploy_tie_gap``), K1-K4 launched on the
              card. Phases 41-43 launch no kernel.
+45. tp2-quickstart (run after 18) — phase 6's README quickstart with
+             ``--tp 2``: two ranks spawned by ``serve.main`` on the one
+             card (gloo), each serving its slice (1 of 2 KV heads, half
+             the vocab rows, the packed payloads whole); rank 0's startup
+             lines, serve counts and three ``[parity] OK`` lines and both
+             ranks' greedy tokens must be phase 6's; every rank must
+             launch K1, K3, K4, the emitting K6 and K2 (counted in its own
+             process); per-rank launches, host time in the collectives and
+             resident parameter bytes print.
+46. tp2-full (run after 18) — gemma2-2b at published width
+             (``GEMMA_DEPTH`` layers, bf16), PTQ and deploy at kv8,
+             FULL_ASYNC's workload through ``make_engine(dist=)`` on a
+             (1, 2) rank mesh on ``cuda:0``: both ranks' greedy tokens
+             must equal the unsharded engine's (rank 0, same params); K1,
+             K3 and the emitting K5 (2 KV heads a rank) must launch on
+             each; the embedding is halved a rank, packed payloads whole;
+             per-rank decode step median, host time in the collectives, K5
+             launch shapes and peak memory print. One card shows no
+             multi-GPU speed.
 
 In every serving phase every request must get its tokens. The reduced
 runs' integer-path logits must match the fake-quant path they replace
@@ -1264,8 +1285,9 @@ def softmax_in_tie_check(plain, args, kw):
 def attend_cases(gen, flush, record):
     """K5-K7 at the full-width decode shapes (B 4, 4 KV heads x G 2,
     head_dim 256; S = max_len 128 and the 4096-cell local window; paged
-    with block size 16) and the reduced ones (2 KV heads, head_dim 16,
-    ring s_cap 16), each without sites, with softmax_in and zero-points and
+    with block size 16), the reduced ones (2 KV heads, head_dim 16,
+    ring s_cap 16) and a rank's of each under ``--tp 2`` (2 and 1 KV
+    heads), each without sites, with softmax_in and zero-points and
     with the two-pass softmax_out, all with softcap 50 and a window; then
     K5-kv4 and K6-kv4 at the full-width shapes, with holes and an idle
     lane. The bound counts what the inputs need: the payload and scales of
@@ -1318,10 +1340,13 @@ def attend_cases(gen, flush, record):
 
     full = (4, ATT_KV, ATT_G, ATT_HD)
     reduced = (4, 2, 2, 16)
+    # a rank's shapes under --tp 2 (phases 45-46): half the KV heads
+    full_rank, reduced_rank = (4, ATT_KV // TP, ATT_G, ATT_HD), (4, 1, 2, 16)
     # K5: dense int8 cache
     for (b, kv, g, hd), s_len, window in (
             (full, 128, 64), (full, LOCAL_WINDOW, LOCAL_WINDOW // 2),
-            (reduced, 64, 16), (reduced, 16, 16)):
+            (reduced, 64, 16), (reduced, 16, 16), (full_rank, 128, 64),
+            (reduced_rank, 64, 16)):
         for site in SITES:
             zp = site != "no sites"
             q_q = ri(b, kv, g, hd)
@@ -1350,7 +1375,8 @@ def attend_cases(gen, flush, record):
                     (q_q, q_s, zq, zk, zv, k_q, k_s, v_q, v_s, k_pos, q_pos),
                     kw, valid, kv, g, hd, 2 * hd + 8, b * s_len * 4 + b * 4,
                     b * kv * g * (hd + 8) + b * kv * 8, v_abs, True,
-                    s_len == 128 and site.startswith("two-pass"),
+                    s_len == 128 and site.startswith("two-pass")
+                    and kv == ATT_KV,
                     iad.plan_dense_kv_splits(b, kv, s_len)[0])
     # an idle lane and an empty-prefix lane at the full width
     b, kv, g, hd = full
@@ -1373,7 +1399,8 @@ def attend_cases(gen, flush, record):
     for (b, kv, g, hd), bs, s_cap, nb, window in (
             (full, 16, 128, 8, 64), (full, 16, LOCAL_WINDOW, 256,
                                      LOCAL_WINDOW // 2),
-            (reduced, 8, 64, 8, None), (reduced, 8, 16, 8, 16)):
+            (reduced, 8, 64, 8, None), (reduced, 8, 16, 8, 16),
+            (full_rank, 16, 128, 8, 64), (reduced_rank, 8, 64, 8, None)):
         n_blocks = b * nb + 5
         for holes in (False, True):
             table = torch.randperm(n_blocks, generator=gen, device=dev)[
@@ -1416,7 +1443,7 @@ def attend_cases(gen, flush, record):
                         2 * hd + 8, meta,
                         b * kv * g * (hd + 8) + b * kv * 8, v_abs, True,
                         s_cap == 128 and not holes
-                        and site.startswith("two-pass"),
+                        and site.startswith("two-pass") and kv == ATT_KV,
                         pad.plan_kv_splits(b, kv, cols.shape[1], bs)[0])
                 # K7 serves bf16 arenas at full width, f32 at reduced
                 fdt = torch.bfloat16 if hd == ATT_HD else torch.float32
@@ -1436,7 +1463,7 @@ def attend_cases(gen, flush, record):
                         2 * hd * el, meta, b * kv * g * hd * 4,
                         float(vf.float().abs().max()), False,
                         s_cap == 128 and not holes
-                        and site.startswith("two-pass"),
+                        and site.startswith("two-pass") and kv == ATT_KV,
                         pad.plan_kv_splits(b, kv, cols.shape[1], bs)[0])
 
     # K5 / K6 at kv_bits=4: nibble-packed (.., KV, hd/2) payloads of int4
@@ -1540,7 +1567,8 @@ def emit_cases(gen, flush, record, ri, ru, site_kw):
     version, and the emit may differ from the plain emit (the plain
     attention, then ``peg_quantize_plain``) by 1 LSB plus that bound in
     steps of the output grid. Times the emitting call beside the unfused
-    pair (the f32 call, then K4)."""
+    pair (the f32 call, then K4). The last two cases hold K6 and K5 at a
+    rank's 2 KV heads under ``--tp 2``."""
     import torch
     from repro_torch.kernels import int8_attend_decode as iad
     from repro_torch.kernels import paged_attend_decode as pad
@@ -1583,8 +1611,13 @@ def emit_cases(gen, flush, record, ri, ru, site_kw):
             ("float", 32, (128, 64), "two-pass", ""),
             ("float", 16, (128, 64), "softmax_in", ""),
             ("float", 16, (128, 64), "two-pass", "holes+idle"),
-            ("float", 32, (587, 200), "two-pass", "split boundaries")):
+            ("float", 32, (587, 200), "two-pass", "split boundaries"),
+            # a rank's heads under --tp 2 (phases 45-46): K6 and K5 at 2
+            # KV heads, more splits a head than at 4
+            ("paged", 8, (128, 64), "two-pass", "per rank"),
+            ("dense", 8, (128, 64), "two-pass", "per rank")):
         # kv_bits: 8 / 4 int payloads, 16 / 32 K7's bf16 / f32 arenas
+        kv = ATT_KV // TP if variant == "per rank" else ATT_KV
         s_len, window = shape
         site_name = {"two-pass": "two-pass softmax_out + zero-points",
                      "softmax_in": "softmax_in + zero-points"}[site]
@@ -1596,7 +1629,8 @@ def emit_cases(gen, flush, record, ri, ru, site_kw):
                 :b * nb].reshape(b, nb).to(torch.int32)
             q_pos = torch.full((b,), s_len - 1, device=dev,
                                dtype=torch.int32)
-            if variant:       # unmapped runs, a short lane, an idle one
+            if variant == "holes+idle" or variant == "split boundaries":
+                # unmapped runs, a short lane, an idle one
                 _, bps = pad.plan_kv_splits(b, kv, nb, bs)
                 table[0, bps:2 * bps] = -1
                 table[1, nb - 1:] = -1
@@ -1630,7 +1664,8 @@ def emit_cases(gen, flush, record, ri, ru, site_kw):
                                  ).repeat(b, 1)
             q_pos = torch.full((b,), s_len - 1, device=dev,
                                dtype=torch.int32)
-            if variant:       # an empty split, a short lane, an idle one
+            if variant == "split boundaries":
+                # an empty split, a short lane, an idle one
                 _, cps = iad.plan_dense_kv_splits(b, kv, s_len)
                 k_pos[0, cps:2 * cps] = -1
                 q_pos[1], q_pos[2] = s_len // 3, -1
@@ -2144,7 +2179,7 @@ def _print_profile(tag, report, what="decode step"):
 
 
 def serve_phase(tag, argv, must_launch, step_emits=None, per_call=None,
-                step_must=(), report=None, record_ops=None):
+                step_must=(), report=None, record_ops=None, served=None):
     """Drive ``repro_torch.launch.serve.main`` once with every launch count
     set to 0 just before and read just after; returns (counts, rel diff of
     the integer path vs fake-quant, stats, the launcher's output). Decode
@@ -2159,7 +2194,8 @@ def serve_phase(tag, argv, must_launch, step_emits=None, per_call=None,
     the launcher returns its requests, which take the stats' place in the
     returned tuple; its engine's decode steps (``runtime.engine``'s
     ``make_engine``) are timed and profiled alike. ``record_ops`` (default:
-    with ``report``) records the profiled step's operators."""
+    with ``report``) records the profiled step's operators. ``served``, a
+    list, receives the launcher's report (the greedy tokens by request)."""
     import torch
     from repro_torch.launch import serve
     from repro_torch.runtime import engine as engine_mod
@@ -2181,7 +2217,7 @@ def serve_phase(tag, argv, must_launch, step_emits=None, per_call=None,
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out):
-            stats = serve.main(argv)
+            stats = serve.main(argv, report=served)
     finally:
         serve.make_decode_step = engine_mod.make_decode_step = orig_make
     torch.cuda.synchronize()
@@ -3443,6 +3479,395 @@ def async_phase(add):
     return rels
 
 
+# Tensor-parallel serving (ROADMAP Queue 1 item 6): TP ranks of one (1, TP)
+# mesh over (data, model), every rank on the one card with gloo between them
+# (NCCL refuses two ranks on one GPU; gloo moves CUDA tensors through host
+# memory), so these phases show the per-rank kernel shapes, the collectives
+# and the memory a rank holds, not a multi-GPU speed-up
+TP = 2
+# the kernels the tensor-parallel quickstart must launch on every rank: K1,
+# K3, K4 (prefill and chunk rows), the emitting K6, and K2 (the reduced FFN)
+TP_QUICK_MUST = ("rms_quantize", "int8_matmul", "peg_quantize",
+                 "paged_int8_attend_decode_emit", "int8_matmul_peg")
+
+
+def _rank_lines(tag, report, names):
+    """One line a rank: its device, the named kernels' launches, the host
+    time inside the collectives, resident parameter bytes."""
+    for r in report:
+        launches = {n: r["launches"][n] for n in names}
+        print(f"[{tag}] rank {r['rank']} on {r['device']} ({r['backend']}): "
+              f"launches {launches}; host time in collectives "
+              f"{r['collective_s']:.3f} s of {r['seconds']:.2f} s; resident "
+              f"params {r['param_bytes']} of {r['whole_param_bytes']} bytes "
+              f"({r['param_bytes'] / r['whole_param_bytes']:.1%})")
+
+
+def tp2_quickstart_phase(add, want, unsharded_out, device=None):
+    """Phase 45 (run after 18): the README quickstart (phase 6's flags,
+    ``--parity``) with ``--tp 2`` through ``serve.main``: two spawned ranks
+    on the card, each serving its slice (KV heads 1 of 2, half the vocab
+    rows and the float columns, the packed payloads whole). Rank 0's lines
+    must be phase 6's (the startup checks, the serve counts, three
+    ``[parity] OK``) and both ranks' greedy tokens phase 6's ``want``;
+    every rank must launch K1, K3, K4, the emitting K6 and K2 (each rank
+    counts from 0 in its own process). ``device="cpu"`` rehearses it on
+    the CPU (the plain versions launch no kernel)."""
+    from repro_torch.launch import serve
+    tag = "tp2-quickstart"
+    argv = quick_argv("8", "--reduced", "--block-size", "8", "--max-len",
+                      "64", "--parity", "--tp", str(TP))
+    report, out = [], io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        stats = serve.main(argv, report=report, device=device)
+    secs = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"[{tag}] {line}")
+    require(len(report) == TP, f"{tag}: {len(report)} rank reports")
+    require_parity(tag, text, 3)
+    counts = (stats.tokens_generated, stats.decode_steps,
+              stats.prefill_calls, stats.blocks_in_use, stats.chunk_steps)
+    require(counts == (36, 10, 6, 16, 6), f"{tag}: serve counts {counts}")
+    startup = [ln for ln in unsharded_out.splitlines()
+               if ln.startswith(("[deploy-int8]", "[kv-int8]"))]
+    require(startup == [ln for ln in text.splitlines()
+                        if ln.startswith(("[deploy-int8]", "[kv-int8]"))],
+            f"{tag}: startup lines differ from the unsharded quickstart's")
+    for r in report:
+        require(r["tokens"] == want, f"{tag}: rank {r['rank']}'s greedy "
+                f"tokens {r['tokens']} are not the unsharded run's {want}")
+        for name in TP_QUICK_MUST:
+            require(r["launches"][name] > 0,
+                    f"{tag}: rank {r['rank']} never launched {name}")
+        require(r["device"] == ("cuda:0" if device is None else device)
+                and r["backend"] == "gloo",
+                f"{tag}: rank {r['rank']} on {r['device']} "
+                f"({r['backend']})")
+        add(r["launches"])
+    _rank_lines(tag, report, TP_QUICK_MUST)
+    print(f"[{tag}] {TP} ranks served the unsharded quickstart's 36 greedy "
+          f"tokens ({sum(len(t) for t in want)}) in {secs:.1f} s, the "
+          f"ranks' start-up included")
+
+
+def _narrow_to(whole, part, rank):
+    """``whole`` cut to ``part``'s shape: along every dim where they differ,
+    the block at ``rank`` (a rank's slice of a placed tensor)."""
+    for d, (w, n) in enumerate(zip(whole.shape, part.shape)):
+        if w != n:
+            whole = whole.narrow(d, rank * n, n)
+    return whole
+
+
+def first_site_apart(ref, got, rank):
+    """Where two runs' fake-quant sites first part: ``ref`` and ``got`` are
+    (site, value before rounding, value after, grid step) records in call
+    order, the same calls in both runs (``got``'s values may be a rank's
+    slices of ``ref``'s). Returns None, or (record index, site, values
+    apart, values compared, the largest distance apart in grid steps, the
+    largest distance of either run's value before rounding from its
+    rounding boundary in grid steps, the largest |x_ref - x_got| over
+    max|x_ref| of the site, and whether every value apart is a rounding
+    tie: within ``TIE_REL`` x max(|x / step|, 1) of its boundary)."""
+    import torch
+    for i, ((site, x0, y0, st0), (site1, x1, y1, _)) in enumerate(
+            zip(ref, got)):
+        if site != site1:
+            raise ValueError(f"record {i}: {site} against {site1}")
+        st = _narrow_to(st0.expand(y0.shape), y1, rank)
+        x0, y0 = _narrow_to(x0, x1, rank), _narrow_to(y0, y1, rank)
+        off = (y0 - y1).abs() > 0.5 * st
+        if not bool(off.any()):
+            continue
+        t = torch.stack([x0[off], x1[off]]) / st[off]
+        edge = ((t - t.floor()) - 0.5).abs()
+        tie = bool((edge <= TIE_REL * t.abs().clamp_min(1.0)).all())
+        steps = float(((y0 - y1).abs()[off] / st[off]).max())
+        rel = float((x0 - x1).abs().max() / x0.abs().max().clamp_min(1e-30))
+        return (i, site, int(off.sum()), y0.numel(), steps,
+                float(edge.max()), rel, tie)
+    return None
+
+
+@contextlib.contextmanager
+def _site_records():
+    """Every fake-quant site applied in PyTorch (``QuantCtx._apply``) as
+    (site, value before rounding, value after, grid step), on the host, in
+    call order; the head's logits are left out (4 MB a decode row)."""
+    import torch
+    from repro_torch.core import calibration as cal
+    from repro_torch.core.quantizer import _expand
+    real, got = cal.QuantCtx._apply, []
+
+    def apply(c, site, x, qcfg):
+        y = real(c, site, x, qcfg)
+        qp = c.act_state.get(site) if c.act_state else None
+        if qp is not None and not site.startswith("head/"):
+            st = _expand(qp, x.dim(), qcfg.channel_axis)[0]
+            got.append((site, x.float().cpu(), y.float().cpu(),
+                        torch.clamp_min(st.float(), 1e-30).cpu()))
+        return y
+    cal.QuantCtx._apply = apply
+    try:
+        yield got
+    finally:
+        cal.QuantCtx._apply = real
+
+
+def tp2_full_rank(dist, dev, depth, reduced=False):
+    """One rank of phase 46: gemma2-2b at published width (``depth`` of
+    26 layers, bf16), PTQ and the deploy path at kv8 as ``FULL_ASYNC``
+    builds them (the launcher's ``_quantize``, on the whole params), then
+    FULL_ASYNC's requests through ``make_engine`` + ``serve_engine``:
+    unsharded on rank 0 first, then sharded on every rank
+    (``make_engine(dist=)``). Returns rank 0's output, the tokens, the
+    decode step walls, the host time in the collectives, the launches of
+    the sharded run, resident parameter bytes against the whole, the
+    embedding's, K5's launch shapes and every decode row's emitted int8
+    ``wo`` input (whole) of each run. ``reduced`` serves the reduced
+    config (a CPU rehearsal)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.runtime import Request, make_engine, serve_engine
+    from repro_torch.runtime.serve_loop import _tree_bytes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.mesh.rank
+    ap = launcher.build_parser()
+    args = ap.parse_args(FULL_ASYNC + (["--reduced"] if reduced else []))
+    cfg = dataclasses.replace(get_config("gemma2-2b"), num_layers=depth)
+    if reduced:
+        cfg = cfg.reduced()
+    out = io.StringIO()
+    params = tfm.init_params(cfg, args.seed, dtype=torch.bfloat16,
+                             device=dev)
+    with contextlib.redirect_stdout(out if rank == 0 else io.StringIO()):
+        packed, ctx_factory = launcher._quantize(cfg, args, params,
+                                                 torch.bfloat16, dev)
+    del params
+
+    def requests():
+        rng = np.random.RandomState(args.seed)
+        return [Request(rid=i, prompt=rng.randint(
+            10, cfg.vocab_size, size=args.prompt_len).astype(np.int64),
+            max_new_tokens=args.new_tokens) for i in range(args.requests)]
+
+    # every decode row's int8 wo input (K5's emit; gathered whole under
+    # dist), in call order: the same calls in both runs (at full width no
+    # other int8 matmul input is H*hd wide; the reduced rehearsal's d_model
+    # is, so there the q/k/v and FFN inputs are held too)
+    from repro_torch.core import deploy as deploy_lib
+    real_mm, width, emitted = deploy_lib.matmul, cfg.num_heads * cfg.hd, []
+
+    def recording(x, w, *a, **kwargs):
+        if isinstance(x, deploy_lib.QTensor) and x.q.shape[-2:] == (1,
+                                                                  width):
+            emitted.append(x.q.cpu())
+        return real_mm(x, w, *a, **kwargs)
+    deploy_lib.matmul = recording
+
+    def serve_timed(eng):
+        step, walls = eng.decode_fn, []
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        def timed(*a):
+            sync()
+            t0 = time.perf_counter()
+            o = step(*a)
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            return o
+        eng.decode_fn = timed
+        reqs = requests()
+        serve_engine(eng, reqs)
+        return [list(r.tokens_out) for r in reqs], walls
+
+    kw = dict(batch_slots=args.batch_slots, prompt_pad_len=args.prompt_len,
+              max_len=args.max_len, dtype=torch.bfloat16,
+              kv_bits=args.kv_bits, ctx_factory=ctx_factory, device=dev)
+    res = {"rank": rank, "device": str(dev), "backend": dist.mesh.backend}
+    if rank == 0:
+        eng = make_engine(cfg, packed, **kw)
+        res["tokens_un"], res["walls_un"] = serve_timed(eng)
+        res["param_bytes_un"] = _tree_bytes(eng.params)
+        res["emitted_un"] = torch.cat([e.reshape(-1) for e in emitted])
+        emitted.clear()
+        del eng
+    shapes = set()
+    k5 = kops.int8_attend_decode
+
+    def k5_shape(q_q, q_scale, k_q, *a, **kwargs):
+        shapes.add((tuple(q_q.shape), tuple(k_q.shape)))
+        return k5(q_q, q_scale, k_q, *a, **kwargs)
+    kops.int8_attend_decode = k5_shape
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    kops.reset_launch_counts()
+    coll.seconds = 0.0
+    t0 = time.perf_counter()
+    eng = make_engine(cfg, packed, dist=dist, **kw)
+    res["tokens"], res["walls"] = serve_timed(eng)
+    secs, coll_s = time.perf_counter() - t0, coll.seconds
+    launches = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    kops.int8_attend_decode, deploy_lib.matmul = k5, real_mm
+    res["emitted"] = torch.cat([e.reshape(-1) for e in emitted])
+    # the same workload once more, untimed, recording every fake-quant
+    # site: where do the two runs' values first part?
+    sites_un = []
+    if rank == 0:
+        with _site_records() as sites_un:
+            serve_engine(make_engine(cfg, packed, **kw), requests())
+    with _site_records() as sites:
+        serve_engine(make_engine(cfg, packed, dist=dist, **kw), requests())
+    if rank == 0:
+        res["sites_compared"] = min(len(sites), len(sites_un))
+        res["site_apart"] = first_site_apart(sites_un, sites, rank)
+    del sites, sites_un
+    res["n_layers"] = cfg.num_layers
+    res["row_bytes"] = args.batch_slots * width
+    # one collective of each kind at the decode step's shapes, synchronized
+    B, n = args.batch_slots, 20
+    per_call = {}
+    for what, x, fn in (
+            ("f32 sum (B, d)", torch.ones(B, 1, cfg.d_model, device=dev),
+             coll.all_reduce_sum),
+            ("int8 context gather (B, H/2*hd)",
+             torch.ones(B, 1, cfg.num_heads // 2 * cfg.hd, device=dev,
+                        dtype=torch.int8), coll.all_gather),
+            ("bf16 logits gather (B, V/2)",
+             torch.ones(B, 1, cfg.vocab_size // 2, device=dev,
+                        dtype=torch.bfloat16), coll.all_gather)):
+        fn(x, dist)
+        t1 = time.perf_counter()
+        for _ in range(n):
+            fn(x, dist)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        per_call[what] = (time.perf_counter() - t1) / n * 1e3
+    res.update(seconds=secs, collective_s=coll_s, collective_ms=per_call,
+               launches=launches, k5_shapes=sorted(shapes),
+               param_bytes=_tree_bytes(eng.params),
+               whole_param_bytes=_tree_bytes(packed),
+               embed_bytes=_tree_bytes(eng.params["embed"]),
+               whole_embed_bytes=_tree_bytes(packed["embed"]),
+               peak_bytes=peak, text=out.getvalue())
+    return res
+
+
+def tp2_full_phase(add, device=None, reduced=False):
+    """Phase 46 (run after 18): gemma2-2b at published width (d 2304, 8
+    heads on 4 KV heads, hd 256, vocab 256000, d_ff 9216; ``GEMMA_DEPTH``
+    layers, bf16), PTQ and deploy at kv8, FULL_ASYNC's workload through
+    ``make_engine(dist=)`` over a (1, 2) rank mesh on ``cuda:0``: both
+    ranks' greedy tokens must equal the unsharded engine's (rank 0, the
+    same params); every rank must launch K1, K3 and the emitting K5 at 2
+    KV heads; float leaves on ``model`` are halved (the tied embed), the
+    packed payloads whole. Every decode row's emitted int8 ``wo`` input
+    (gathered) is held against the unsharded run's layer by layer: layer
+    0's, which no FFN precedes, may differ by at most 1 LSB (K5's merge on
+    a tie); the later layers' differences are counted and printed (the
+    float FFN before them, a bf16 GEMM of the whole weight unsharded, f32
+    partial sums of the halves sharded, moves values by rounding, which
+    the fake-quant sites can turn into grid steps). Prints each rank's
+    median decode step, host time in the collectives and K5's launch
+    shape. ``device="cpu"`` with
+    ``reduced`` rehearses it on the CPU at the reduced width."""
+    from repro_torch.launch.mesh import run_ranks
+    tag = "tp2-full"
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp2_full_rank, TP, (GEMMA_DEPTH, reduced),
+                      device=device)
+    secs = time.perf_counter() - t0
+    r0 = ranks[0]
+    for line in r0["text"].splitlines():
+        print(f"[{tag}] {line}")
+    want = r0["tokens_un"]
+    n_tok = sum(len(t) for t in want)
+    emit_un = r0["emitted_un"]
+    print(f"[{tag}] unsharded engine on rank 0: {n_tok} tokens, decode "
+          f"step median {statistics.median(r0['walls_un']):.2f} ms over "
+          f"{len(r0['walls_un'])} steps; resident params "
+          f"{r0['param_bytes_un']} bytes")
+    for r in ranks:
+        same = sum(x == y for a, b in zip(r["tokens"], want)
+                   for x, y in zip(a, b))
+        print(f"[{tag}] rank {r['rank']} on {r['device']} ({r['backend']}): "
+              f"{same}/{n_tok} greedy tokens equal the unsharded engine's; "
+              f"decode step median {statistics.median(r['walls']):.2f} ms "
+              f"over {len(r['walls'])} steps; host time in collectives "
+              f"{r['collective_s']:.3f} s of {r['seconds']:.2f} s; K5 "
+              f"launch shapes (q, k cache) {r['k5_shapes']}; launches "
+              f"{ {n: c for n, c in r['launches'].items() if c} }; resident "
+              f"params {r['param_bytes']} of {r['whole_param_bytes']} bytes "
+              f"(embed {r['embed_bytes']} of {r['whole_embed_bytes']}); "
+              f"peak device memory {r['peak_bytes'] / 2**30:.2f} GiB")
+        print(f"[{tag}] rank {r['rank']}: one collective, synchronized "
+              f"(ms): " + ", ".join(f"{k} {v:.3f}"
+                                    for k, v in r["collective_ms"].items()))
+        require(r["emitted"].shape == emit_un.shape,
+                f"{tag}: rank {r['rank']} emitted {r['emitted'].numel()} wo "
+                f"input bytes at decode rows, the unsharded run "
+                f"{emit_un.numel()}")
+        # (decode steps, layers, B x H*hd) in call order
+        got = r["emitted"].reshape(-1, r["n_layers"], r["row_bytes"])
+        ref = emit_un.reshape(got.shape)
+        per_layer = [lsb_flips(got[:, i], ref[:, i])
+                     for i in range(r["n_layers"])]
+        print(f"[{tag}] rank {r['rank']}: K5's emitted wo input at every "
+              f"decode row, gathered, against the unsharded run's, layer by "
+              f"layer: "
+              + ", ".join(f"layer {i} {n} of {ref[:, i].numel()} bytes "
+                          f"differ (at most {w} LSB)"
+                          for i, (w, n) in enumerate(per_layer)))
+        # layer 0 reads only the embeddings (no FFN before it): there a
+        # byte may move only where K5's merge rounds a tie the other way
+        require(per_layer[0][0] <= 1, f"{tag}: rank {r['rank']}'s layer-0 "
+                f"emitted wo input is {per_layer[0][0]} LSB off the "
+                f"unsharded run's")
+        require(r["tokens"] == want, f"{tag}: rank {r['rank']}'s greedy "
+                f"tokens differ from the unsharded engine's ({same}/{n_tok} "
+                f"equal)")
+        for name in ("rms_quantize", "int8_matmul", "int8_attend_decode",
+                     "int8_attend_decode_emit"):
+            require(r["launches"][name] > 0,
+                    f"{tag}: rank {r['rank']} never launched {name}")
+        require(all(q[1] == 2 and k[2] == 2 for q, k in r["k5_shapes"]),
+                f"{tag}: K5 shapes {r['k5_shapes']}, not 2 KV heads a rank")
+        require(2 * r["embed_bytes"] == r["whole_embed_bytes"],
+                f"{tag}: rank {r['rank']} holds {r['embed_bytes']} of the "
+                f"embedding's {r['whole_embed_bytes']} bytes, not half")
+        add(r["launches"])
+    apart = r0["site_apart"]
+    if apart is None:
+        print(f"[{tag}] rank 0's fake-quant sites equal the unsharded run's "
+              f"at all {r0['sites_compared']} site calls")
+    else:
+        i, site, n, total, steps, to_edge, rel, tie = apart
+        print(f"[{tag}] rank 0's first fake-quant site apart from the "
+              f"unsharded run's, of {r0['sites_compared']} site calls in "
+              f"order: call {i}, {site}, {n} of {total} values, by at most "
+              f"{steps:.3g} grid steps; each run's value before rounding "
+              f"within {to_edge:.3g} of a step of its rounding boundary ("
+              + ("a tie: within TIE_REL" if tie else "not all within "
+                 "TIE_REL") + f"); the site's values before rounding at "
+              f"most {rel:.3g} of its max|x| apart")
+    print(f"[{tag}] phase {secs:.1f} s ({TP} ranks on one card: no "
+          f"multi-GPU speed is shown)")
+
+
 # The paper's BERT-base outlier dims (308 and 381) and two more, planted in
 # every layer's w_out columns as the reference's quickstart plants its own
 BERT_OUTLIER_DIMS = (308, 381, 100, 600)
@@ -4496,6 +4921,11 @@ REC_LONG = ["--requests", "2", "--prompt-len", "2040", "--new-tokens", "16",
             "--max-len", "2056"]
 # the CPU quickstarts of the reference launcher: (kv-bits, peak KiB)
 REC_REDUCED = {"recurrentgemma-2b": (8, 15), "rwkv6-1p6b": (8, 18)}
+# the recurrent families' full-width serving phases (31-33) serve them cut
+# to these depths, every width their own (to pay for the tensor-parallel
+# phases 45-46): recurrentgemma-2b 3 of its 8 (rec, rec,
+# local_attn) superblocks and its 2-layer rec tail, rwkv6-1p6b 8 of 24
+REC_DEPTH = {"recurrentgemma-2b": 11, "rwkv6-1p6b": 8}
 
 
 @contextlib.contextmanager
@@ -4927,17 +5357,22 @@ def _packed_layers(tag, out, n_layers):
 
 def rec_phase(add):
     """Phases 31-34: the recurrent families on the card (see the module
-    docstring). Returns the reduced runs' {tag: integer vs fake-quant rel
-    gap}."""
+    docstring), the full-width runs cut to ``REC_DEPTH``. Returns the
+    reduced runs' {tag: integer vs fake-quant rel gap}."""
+    import dataclasses
+
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as launcher
     kernels_on = {"rms_quantize", "peg_quantize", "int8_matmul",
                   "int8_matmul_peg", "int8_attend_decode",
                   "int8_attend_decode_emit"}
+    undo = cut_depth("recurrentgemma-2b", REC_DEPTH["recurrentgemma-2b"])
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b"),
+                              num_layers=REC_DEPTH["recurrentgemma-2b"])
+    n_local = cfg.layer_plan.count("local_attn")
     for kv in ("8", "4"):
         tag = f"rec-recurrentgemma-kv{kv}"
-        cfg = get_config("recurrentgemma-2b")
         if kv == "8":
             zoo_shape("rec-recurrentgemma", "recurrentgemma-2b", cfg)
         report = {}
@@ -4960,8 +5395,8 @@ def rec_phase(add):
             require(step.get(name, 0) == k,
                     f"{tag}: the profiled decode step launched {name} "
                     f"{step.get(name, 0)} times, not {k}")
-        require(n_attn == 8, f"{tag}: {n_attn} local-attention layers "
-                f"packed, not 8")
+        require(n_attn == n_local, f"{tag}: {n_attn} local-attention "
+                f"layers packed, not {n_local}")
         print(f"[{tag}] profiled decode step: K1 {want['rms_quantize']}, "
               f"K2 {want['int8_matmul_peg']}, K3 {want['int8_matmul']}, "
               f"emitting K5 {want['int8_attend_decode_emit']} at G "
@@ -4979,11 +5414,15 @@ def rec_phase(add):
     add(counts)
     require(stats.decode_steps == 15,
             f"{tag}: {stats.decode_steps} decode steps, not 15")
+    undo()
     print(f"[{tag}] 2040-token prompts: decode positions 2040-2054 wrap "
-          f"the 2048-cell ring of the 8 local-attention layers; integer vs "
+          f"the 2048-cell ring of the {n_local} local-attention layers; "
+          f"integer vs "
           f"fake-quant (bf16) logits: rel {rel:.4%}; int8 vs bf16 KV "
           f"cache: rel {kv_gap(tag, out):.4%} (printed, not bounded)")
-    cfg = get_config("rwkv6-1p6b")
+    undo = cut_depth("rwkv6-1p6b", REC_DEPTH["rwkv6-1p6b"])
+    cfg = dataclasses.replace(get_config("rwkv6-1p6b"),
+                              num_layers=REC_DEPTH["rwkv6-1p6b"])
     zoo_shape("rec-rwkv6", "rwkv6-1p6b", cfg)
     for tag, shape in (("rec-rwkv6", REC_QUICK),
                        ("rec-rwkv6-long", REC_LONG)):
@@ -4994,11 +5433,12 @@ def rec_phase(add):
         launched = {name: n for name, n in counts.items() if n}
         require(not launched, f"{tag}: launched {launched}; the reference "
                 f"packs nothing in an RWKV block")
-        require("RWKV time-mix and channel-mix in 24 layers" in out,
-                f"{tag}: no RWKV fallback note")
+        require(f"RWKV time-mix and channel-mix in {cfg.num_layers} "
+                f"layers" in out, f"{tag}: no RWKV fallback note")
         print(f"[{tag}] no kernel launched (every RWKV block fake-quant, as "
               f"in the reference); integer vs fake-quant (bf16) logits: "
               f"rel {rel:.4%} (printed, not bounded)")
+    undo()
     gaps = {}
     for arch, (kv, kib) in REC_REDUCED.items():
         tag = f"rec-reduced-{arch}"
@@ -5988,12 +6428,13 @@ def main() -> int:
          "paged_int8_attend_decode_emit"), "paged_int8_attend_decode_emit")
     add(fq)
     fq_kv = kv_gap("full-quickstart", fq_out)
+    rq_served = []
     rq, rq_rel, rq_stats, rq_out = serve_phase(
         "reduced-quickstart", quick_argv("8", *reduced_quick),
         ("rms_quantize", "peg_quantize", "int8_matmul", "int8_matmul_peg",
          "int8_attend_decode", "paged_int8_attend_decode",
          "int8_attend_decode_emit", "paged_int8_attend_decode_emit"),
-        "paged_int8_attend_decode_emit")
+        "paged_int8_attend_decode_emit", served=rq_served)
     add(rq)
     rq_kv = kv_gap("reduced-quickstart", rq_out)
     require(rq_kv <= 1e-4, f"reduced-quickstart: [kv-int8] gap "
@@ -6074,6 +6515,9 @@ def main() -> int:
     mark("telemetry phases 15-16")
     ra = async_phase(add)
     mark("async phases 17-18")
+    tp2_quickstart_phase(add, rq_served[0]["tokens"], rq_out)
+    tp2_full_phase(add)
+    mark("tensor-parallel phases 45-46")
     uncut()
     paper_bert_phase(add)
     mark("paper BERT phase 19")

@@ -40,12 +40,14 @@ def _tensor(a, device, dtype=None):
     return t.to(device)
 
 
-def params_from_jax(tree, device=None):
+def params_from_jax(tree, device=None, dist=None):
     """Nested dicts / lists of numpy arrays -> the same structure of torch
     tensors on ``device`` (None: the GPU). Handles the stacked (``"scan"``)
     and unrolled (``"layers"``) layouts and packed ``{"q", "s", "colsum"}``
     and 4-bit ``{"q4", "s", "colsum"}`` payloads alike, since it maps leaf
-    by leaf."""
+    by leaf. With ``dist`` (a rank's ``DistContext``) the params are placed
+    as the port's own are (``parallel.sharding.make_param_shardings``):
+    the rank keeps its slice."""
     dev = resolve_device(device)
 
     def conv(node):
@@ -54,7 +56,11 @@ def params_from_jax(tree, device=None):
         if isinstance(node, (list, tuple)):
             return type(node)(conv(v) for v in node)
         return _tensor(node, dev)
-    return conv(tree)
+    params = conv(tree)
+    if dist is not None:
+        from repro_torch.parallel.sharding import make_param_shardings
+        params = make_param_shardings(params, dist)
+    return params
 
 
 def act_state_from_jax(act_state, device=None):

@@ -20,7 +20,11 @@ matmul-input sites (``{L}/attn_in``, ``{L}/attn/wo_in``) and
 A weight that reaches ``ctx.weight`` without frozen params is estimated from
 its values. With a ``weight_cache`` dict (shared by every ctx of one serving
 session) the fake-quantized weight is computed once per weight instead of
-on every call — same values, no per-step MSE search.
+on every call — same values, no per-step MSE search. A tensor-parallel
+rank holds slices of its weights, whose grids must be the whole weights':
+its memo is filled before the weights are placed
+(``parallel.sharding.seed_weight_memo``), and ``memo_only`` makes a miss
+raise instead of fitting a grid to a slice.
 
 Quant-health telemetry: with ``telemetry`` a dict, every APPLY / DEPLOY
 site records its ``[n_clipped, n_total, amax, cal_range]`` vector there
@@ -73,6 +77,14 @@ class QuantCtx:
     collect_inputs: bool = False                 # COLLECT the act_in sites
     weight_cache: Optional[dict] = None          # APPLY / DEPLOY memo
     telemetry: Optional[Dict[str, torch.Tensor]] = None  # site -> (4,)
+    memo_only: bool = False                      # sharded: no grid fits
+
+    @staticmethod
+    def memo_key(site: str, w: torch.Tensor) -> tuple:
+        """The ``weight_cache`` key of ``w`` read at ``site``: the view
+        itself (storage address, shape, strides, dtype, device)."""
+        return (site, w.data_ptr(), tuple(w.shape), tuple(w.stride()),
+                w.dtype, w.device)
 
     def telem_site(self, site: str, vec: torch.Tensor) -> None:
         """Accumulate one site's [clipped, total, amax, range] vector:
@@ -143,9 +155,13 @@ class QuantCtx:
             return fake_quant(w, qp, cfg)
         if self.weight_cache is None:
             return fake_quant(w, estimate_weight_params(w, cfg), cfg)
-        key = (site, w.data_ptr(), tuple(w.shape), tuple(w.stride()),
-               w.dtype, w.device)
+        key = self.memo_key(site, w)
         hit = self.weight_cache.get(key)
+        if hit is None and self.memo_only:
+            raise RuntimeError(
+                f"{site}: a sharded weight reached ctx.weight without the "
+                "fake-quant of its whole weight (parallel.sharding."
+                "seed_weight_memo fills the memo before placing)")
         if hit is None:
             # keep ``w`` alive with its result so its storage (the key) is
             # never reused by another tensor while the entry exists

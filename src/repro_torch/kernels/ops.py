@@ -233,3 +233,35 @@ def paged_int8_attend_decode(q_q, q_scale, k_arena, k_scale, v_arena,
               smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax,
               kv_bits=kv_bits, out_scale=out_scale, out_zp=out_zp, qmin=qmin,
               qmax=qmax)
+
+
+def _counted():
+    """(name, wrapper, attribute) of every launch counter: a 4-bit variant
+    counts on its own attribute of the 8-bit kernel's wrapper, and so do
+    K5's, K6's and K7's launches that emit int8."""
+    wrappers = (_lnq.rms_quantize_cuda, _peg.peg_quantize_cuda,
+                _imm.int8_matmul_cuda, _imm.int8_matmul_peg_cuda,
+                _iad.int8_attend_decode_cuda,
+                _pad.paged_int8_attend_decode_cuda,
+                _pad.paged_attend_decode_cuda, _lnq.ln_quantize_cuda,
+                _lnq.rms_fake_quant_cuda, _lnq.ln_fake_quant_cuda,
+                _peg.peg_fake_quant_cuda)
+    for fn in wrappers:
+        base = fn.__name__[:-len("_cuda")]
+        for attr in ("launches", "launches_w4", "launches_kv4",
+                     "launches_emit"):
+            if hasattr(fn, attr):
+                suffix = attr[len("launches"):]
+                yield base + suffix, fn, attr
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches so far in this process} over every wrapper
+    (``int8_matmul_w4``, ``paged_int8_attend_decode_emit``, ...)."""
+    return {name: getattr(fn, attr) for name, fn, attr in _counted()}
+
+
+def reset_launch_counts() -> None:
+    """Set every launch counter of this process to 0."""
+    for _, fn, attr in _counted():
+        setattr(fn, attr, 0)

@@ -72,8 +72,12 @@ rejected with "not yet ported" when set. The README quickstart:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
+import sys
+import time
 
 import numpy as np
 import torch
@@ -88,7 +92,7 @@ from repro_torch.runtime import (BlockPool, RadixCache, Request,
                                  make_admit_step, make_chunk_prefill_step,
                                  make_decode_step, make_prefill_step,
                                  make_swap_steps, serve)
-from repro_torch.runtime.serve_loop import _check_capacity
+from repro_torch.runtime.serve_loop import _check_capacity, _tree_bytes
 
 # flags (by dest) the port serves; any other flag must keep its default
 _PORTED = {"arch", "reduced", "requests", "prompt_len", "new_tokens",
@@ -97,7 +101,11 @@ _PORTED = {"arch", "reduced", "requests", "prompt_len", "new_tokens",
            "paged_kv", "block_size", "num_blocks", "prefill_chunk",
            "prefix_cache", "over_commit", "swap_blocks", "priority",
            "decode_ratio", "trace", "metrics_every", "quant_telemetry",
-           "stats_json", "async_serve"}
+           "stats_json", "async_serve", "tp"}
+
+# flags (by dest) not yet served together with --tp
+_TP_REFUSED = ("prefix_cache", "over_commit", "swap_blocks", "trace",
+               "metrics_every", "quant_telemetry")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -216,13 +224,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "--prefix-cache/--over-commit and the telemetry "
                          "flags)")
     ap.add_argument("--tp", type=int, default=1, metavar="N",
-                    help="shard the engine tensor-parallel over N devices "
-                         "(jax.sharding mesh (1, N) over (data, model); "
-                         "admission stays host-local, the admit mask "
-                         "broadcasts replicated). On CPU, simulate "
-                         "devices with XLA_FLAGS="
-                         "--xla_force_host_platform_device_count=N "
-                         "(requires --reduced; 1 = unsharded)")
+                    help="serve tensor-parallel on N ranks (a (1, N) mesh "
+                         "over (data, model), torch.distributed): every "
+                         "rank runs the same host loop on the same "
+                         "requests over its slice of the params and "
+                         "caches; all ranks on one GPU (gloo), one GPU "
+                         "each when there are N (nccl), or the CPU with "
+                         "main(..., device='cpu') (requires --reduced; "
+                         "1 = unsharded)")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -336,6 +345,21 @@ def _check_args(ap: argparse.ArgumentParser, args) -> None:
                  "cache, FIFO admission) — incompatible with --paged-kv/"
                  "--prefill-chunk/--prefix-cache/--over-commit and the "
                  "telemetry/--stats-json flags")
+    if args.tp < 1:
+        ap.error("--tp must be >= 1")
+    if args.tp > 1 and not args.reduced:
+        ap.error("--tp is the host-simulated tensor-parallel mode "
+                 "(--reduced); the full-size path builds its own "
+                 "production mesh")
+    if args.multi_pod:
+        ap.error("--multi-pod is not yet ported under --tp / dist (it "
+                 "builds the production mesh of 512 chips)")
+    if args.tp > 1:
+        for action in ap._actions:
+            if action.dest in _TP_REFUSED and \
+                    getattr(args, action.dest) != ap.get_default(action.dest):
+                ap.error(f"{action.option_strings[0]} is not yet ported "
+                         "under --tp / dist")
     _reject_unported(ap, args)
 
 
@@ -510,18 +534,17 @@ def _kv_int4_drift(cfg, args, params, ctx_factory, toks, dtype, dev) -> str:
 
 
 def _serve_async(args, cfg, params, ctx_factory, dtype, dev, requests,
-                 make_requests, run) -> None:
+                 make_requests, run, dist=None, info=None) -> None:
     """``--async``: stream ``requests`` through an :class:`AsyncServer` over
     an engine from ``make_engine`` (dense cache), print the reference
     launcher's ``[serve:async]`` line with the engine's step-signature
     counts and, with ``--parity``, the greedy tokens against the static
     and the continuous scheduler (match rates at kv-bits 4)."""
-    import time
     from repro_torch.runtime import AsyncServer, make_engine
     eng = make_engine(cfg, params, batch_slots=args.batch_slots,
                       prompt_pad_len=args.prompt_len, max_len=args.max_len,
                       dtype=dtype, kv_bits=args.kv_bits,
-                      ctx_factory=ctx_factory, device=dev)
+                      ctx_factory=ctx_factory, device=dev, dist=dist)
     t0 = time.perf_counter()
     with AsyncServer(eng) as srv:
         streams = [srv.submit(r.prompt, r.max_new_tokens, rid=r.rid)
@@ -530,10 +553,13 @@ def _serve_async(args, cfg, params, ctx_factory, dtype, dev, requests,
             r.tokens_out = s.result(timeout=600)
             r.done = True
     wall = time.perf_counter() - t0
+    if info is not None:
+        info["tokens"] = [list(r.tokens_out) for r in requests]
     total = sum(len(r.tokens_out) for r in requests)
     print(f"[serve:async] {total} tokens from {len(requests)} streamed "
           f"requests, {wall:.2f}s ({total / max(wall, 1e-9):.1f} tok/s), "
-          f"engine step signatures {eng.signature_counts} ({dev.type})")
+          f"engine step signatures {eng.signature_counts} ({dev.type})"
+          + (f", tp={args.tp} over {args.tp} ranks" if dist else ""))
     if not args.parity:
         return
     for sched in ("static", "continuous"):
@@ -561,28 +587,90 @@ def _serve_async(args, cfg, params, ctx_factory, dtype, dev, requests,
               f"identical greedy tokens for all {len(requests)} requests")
 
 
-def main(argv=None, *, device=None, dtype=None):
+def _serve_rank(dist, dev, argv, dtype):
+    """One rank of :func:`serve_tp`: serve ``argv`` on this rank's slice.
+    Returns (rank 0's output, rank 0's result, this rank's report)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.parallel import collectives as coll
+    rank = dist.mesh.rank
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    kops.reset_launch_counts()
+    coll.seconds = 0.0
+    info = {"rank": rank, "device": str(dev), "backend": dist.mesh.backend}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out if rank == 0 else io.StringIO()):
+        ret = _serve_main(ap, args, cfg, dev, dtype, dist, info)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    info.update(seconds=time.perf_counter() - t0, collective_s=coll.seconds,
+                launches=kops.launch_counts())
+    return out.getvalue(), (ret if rank == 0 else None), info
+
+
+def serve_tp(argv, world: int, *, device=None, dtype=None, report=None):
+    """Serve ``argv`` on ``world`` tensor-parallel ranks
+    (``launch.mesh.run_ranks``: spawned processes, one (1, world) mesh,
+    ``cuda:0`` for every rank on a one-card host, ``cuda:rank`` with a card
+    each, or the CPU), each running the serve body with its
+    ``DistContext``. Rank 0's output is printed here and its result
+    returned; ``report``, a list, receives every rank's report. A failing
+    rank ends the run (``run_ranks``)."""
+    from repro_torch.launch.mesh import run_ranks
+    ranks = run_ranks(_serve_rank, world, (argv, dtype), device=device)
+    print(ranks[0][0], end="")
+    if report is not None:
+        report.extend(info for _, _, info in ranks)
+    return ranks[0][1]
+
+
+def main(argv=None, *, device=None, dtype=None, report=None):
     """Parse ``argv`` and serve. ``dtype`` overrides the params' dtype
     (bf16 at full width, f32 with ``--reduced``). Returns the run's
-    ``ServeStats``, or with ``--async`` the served requests."""
+    ``ServeStats``, or with ``--async`` the served requests. ``report``, a
+    list, receives one dict per process that served (the primary run's
+    greedy tokens by request; under ``--tp`` also each rank's device,
+    kernel launches, host seconds inside the collectives and resident
+    parameter bytes against the whole).
+
+    ``--tp N`` serves on N ranks (:func:`serve_tp`): this process spawns
+    them and returns rank 0's result."""
     ap = build_parser()
     args = ap.parse_args(argv)
     _check_args(ap, args)
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        # f32 matmuls in full f32, as the reference computes them
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     try:
         cfg = get_config(args.arch)
     except KeyError as e:
         ap.error(str(e))
     if args.reduced:
         cfg = cfg.reduced()
-    if dtype is None:
-        dtype = torch.float32 if args.reduced else torch.bfloat16
+    if args.tp > 1:
+        from repro_torch.launch.mesh import AbstractMesh
+        from repro_torch.parallel.sharding import serving_dist
+        try:
+            tfm.check_tp(cfg, serving_dist(AbstractMesh(
+                (1, args.tp), ("data", "model"))))
+        except NotImplementedError as e:
+            ap.error(str(e))
+        _plan(ap, args, cfg)
+        return serve_tp(list(argv if argv is not None else sys.argv[1:]),
+                        args.tp, device=device, dtype=dtype, report=report)
+    info = None if report is None else {"rank": 0}
+    ret = _serve_main(ap, args, cfg, resolve_device(device), dtype,
+                      info=info)
+    if report is not None:
+        report.append(info)
+    return ret
 
-    # per-lane table width (ring-bounded for all-window models) and pool
+
+def _plan(ap: argparse.ArgumentParser, args, cfg):
+    """(per-lane table width, ring tokens, pool blocks), after the checks
+    that stop a workload the serve loop would reject before the model is
+    built."""
     nb_lane = (tfm.paged_lane_blocks(cfg, args.max_len, args.block_size)
                if args.paged_kv
                else blocks_for_tokens(args.max_len, args.block_size))
@@ -595,8 +683,7 @@ def main(argv=None, *, device=None, dtype=None):
         ap.error("static paged serving needs the dense worst case "
                  f"(--num-blocks >= {full_blocks}); pool-constrained "
                  "admission is a continuous-scheduler feature")
-    # fail before the model is built on workloads the serve loop would
-    # reject (the same check serve() runs on the real requests)
+    # the same check serve() runs on the real requests
     probe_pool = BlockPool(num_blocks, args.block_size, args.batch_slots,
                            nb_lane) if args.paged_kv else None
     try:
@@ -607,6 +694,21 @@ def main(argv=None, *, device=None, dtype=None):
                         args.max_len, probe_pool, ring_tokens)
     except ValueError as e:
         ap.error(f"--max-len / --num-blocks too small: {e}")
+    return nb_lane, ring_tokens, num_blocks
+
+
+def _serve_main(ap, args, cfg, dev, dtype, dist=None, info=None):
+    """The serve body (one process, or one rank of ``--tp`` with ``dist``:
+    the startup checks run on the whole params, which are then placed on
+    this rank's slice and served tensor-parallel). ``info``, a dict,
+    receives the rank's resident parameter bytes and the whole's."""
+    if dev.type == "cuda":
+        # f32 matmuls in full f32, as the reference computes them
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    if dtype is None:
+        dtype = torch.float32 if args.reduced else torch.bfloat16
+    nb_lane, ring_tokens, num_blocks = _plan(ap, args, cfg)
 
     params = tfm.init_params(cfg, args.seed, stacked=True, dtype=dtype,
                              device=dev)
@@ -623,10 +725,28 @@ def main(argv=None, *, device=None, dtype=None):
             f"runtime.steps.make_encoder_forward and make_decode_step on "
             f"encdec.init_params.")
 
-    prefill = make_prefill_step(cfg, ctx_factory=ctx_factory)
-    admit = make_admit_step(cfg, ctx_factory=ctx_factory)
-    decode = make_decode_step(cfg, ctx_factory=ctx_factory)
-    chunk_step = make_chunk_prefill_step(cfg, ctx_factory=ctx_factory)
+    whole, step_ctx = params, ctx_factory
+    if dist is not None:
+        # the startup checks ran on the whole params; the serving steps run
+        # on this rank's slice, their fake-quant weights cut from the whole
+        # weights' (the session memo of the whole ones is let go)
+        from repro_torch.parallel.sharding import (make_param_shardings,
+                                                   shard_ctx_factory)
+        params = make_param_shardings(whole, dist)
+        step_ctx = shard_ctx_factory(cfg, whole, params, ctx_factory, dist)
+        if ctx_factory is not None and ctx_factory().weight_cache:
+            ctx_factory().weight_cache.clear()
+        if info is not None:
+            info.update(param_bytes=_tree_bytes(params),
+                        whole_param_bytes=_tree_bytes(whole))
+        if not args.async_serve:
+            whole = None
+
+    kw = dict(ctx_factory=step_ctx, dist=dist)
+    prefill = make_prefill_step(cfg, **kw)
+    admit = make_admit_step(cfg, **kw)
+    decode = make_decode_step(cfg, **kw)
+    chunk_step = make_chunk_prefill_step(cfg, **kw)
     swap_out, swap_in = (make_swap_steps() if args.swap_blocks
                          else (None, None))
     telemetry = None
@@ -667,14 +787,19 @@ def main(argv=None, *, device=None, dtype=None):
     def init_cache(batch, paged, scheduler, kv_bits):
         kw = dict(dtype=dtype, kv_bits=kv_bits, device=dev)
         if not paged:
-            return tfm.init_cache(cfg, batch, args.max_len, **kw)
-        if scheduler == "static":
+            cache = tfm.init_cache(cfg, batch, args.max_len, **kw)
+        elif scheduler == "static":
             # fully mapped identity table: the static loop has no pool
-            return tfm.init_cache(cfg, batch, args.max_len, paged=True,
-                                  block_size=args.block_size, **kw)
-        return tfm.init_cache(cfg, batch, args.max_len, paged=True,
-                              block_size=args.block_size,
-                              num_blocks=num_blocks, mapped=False, **kw)
+            cache = tfm.init_cache(cfg, batch, args.max_len, paged=True,
+                                   block_size=args.block_size, **kw)
+        else:
+            cache = tfm.init_cache(cfg, batch, args.max_len, paged=True,
+                                   block_size=args.block_size,
+                                   num_blocks=num_blocks, mapped=False, **kw)
+        if dist is not None:
+            from repro_torch.parallel.sharding import make_kv_head_shardings
+            cache = make_kv_head_shardings(cache, dist)
+        return cache
 
     def run(scheduler, requests, paged=None, chunk=0, kv_bits=None,
             prefix=None, over_commit=None, tel=None):
@@ -715,11 +840,13 @@ def main(argv=None, *, device=None, dtype=None):
 
     requests = make_requests()
     if args.async_serve:
-        _serve_async(args, cfg, params, ctx_factory, dtype, dev, requests,
-                     make_requests, run)
+        _serve_async(args, cfg, whole, ctx_factory, dtype, dev, requests,
+                     make_requests, run, dist, info)
         return requests
     stats = run(args.scheduler, requests, chunk=args.prefill_chunk,
                 tel=telemetry)
+    if info is not None:
+        info["tokens"] = [list(r.tokens_out) for r in requests]
     if args.paged_kv and args.scheduler == "continuous":
         paged_note = (f", blocks {stats.blocks_in_use}/{num_blocks} "
                       f"(frag {stats.block_fragmentation:.0%}, "

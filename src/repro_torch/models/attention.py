@@ -34,7 +34,9 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.nibble import pack_nibbles, unpack_nibbles
 from repro_torch.kernels.ref import paged_gather_ref, paged_positions_ref
 from repro_torch.models.common import (apply_rope, dense_init, dot,
-                                       matmul_dtype, resolve_weight, softcap)
+                                       dot_row_parallel, matmul_dtype,
+                                       resolve_weight, softcap)
+from repro_torch.parallel import collectives as coll
 
 NEG_INF = -1e30
 
@@ -707,10 +709,20 @@ def _prev_positions(positions):
     return torch.where(live.any(dim=1), start - 1, torch.full_like(start, -1))
 
 
+def _rank_heads(t, B, T, n_heads, n_local, hd, r):
+    """(B, T, n_local, hd): ``t`` if it holds this rank's heads already
+    (a column-sharded projection), else heads [r*n_local, (r+1)*n_local)
+    of the whole projection (a replicated packed payload)."""
+    t = t.reshape(B, T, -1, hd)
+    if t.shape[2] == n_local:
+        return t
+    return t.narrow(2, r * n_local, n_local)
+
+
 def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
                     prefix="attn", cache=None, chunked: Optional[bool] = None,
                     block_table=None, append: bool = False,
-                    write_plans=None):
+                    write_plans=None, dist=None):
     """x: (B, T, D) — or, in DEPLOY, a QTensor int8 norm output with packed
     projection weights (QKV and Wo then run on the int8 matmul kernel).
     p: wq (D,H*hd), wk/wv (D,KV*hd), wo (H*hd,D).
@@ -726,10 +738,24 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
     before the write (the lane's earlier chunks, read back as decode would
     read them) plus the fresh chunk. ``write_plans``: a dict the layers
     of one forward share, so the cache writes' scatter plan is made once
-    per capacity. Returns (out, cache), the cache written in place."""
+    per capacity. Returns (out, cache), the cache written in place.
+
+    ``dist`` (tensor-parallel, ``cfg`` the whole layer's): this rank owns
+    query heads [r*H/N, (r+1)*H/N) and KV heads [r*KV/N, (r+1)*KV/N), and
+    ``cache`` holds those KV heads. Float projections are column shards;
+    packed payloads are whole on every rank, so their q/k/v are cut to the
+    rank's heads. The output projection is a row shard summed over
+    ``model`` in f32, or, on a whole (packed) ``wo``, the whole input
+    gathered over ``model`` first (int8 bytes at decode rows, where the
+    kernel emits them). ``out`` is whole on every rank."""
     from repro_torch.core import deploy as deploy_lib
     x_int8 = isinstance(x, deploy_lib.QTensor)
     B, T, _ = x.shape
+    n_tp, r = coll.tp_size(dist), coll.tp_index(dist)
+    H_all, KV_all = cfg.num_heads, cfg.num_kv_heads
+    if n_tp > 1:
+        cfg = dataclasses.replace(cfg, num_heads=H_all // n_tp,
+                                  num_kv_heads=KV_all // n_tp)
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     wo_aq = ctx.deploy_act(f"{prefix}/wo_in") if x_int8 else None
     # the decode kernels emit wo's int8 input from their merge, except with
@@ -743,13 +769,16 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
             else wmat
 
     if x_int8:
-        q = deploy_lib.matmul(x, p["wq"]).reshape(B, T, H, hd)
-        k = deploy_lib.matmul(x, p["wk"]).reshape(B, T, KV, hd)
-        v = deploy_lib.matmul(x, p["wv"]).reshape(B, T, KV, hd)
+        q = deploy_lib.matmul(x, p["wq"])
+        k = deploy_lib.matmul(x, p["wk"])
+        v = deploy_lib.matmul(x, p["wv"])
     else:
-        q = dot(x, w("wq", x)).reshape(B, T, H, hd)
-        k = dot(x, w("wk", x)).reshape(B, T, KV, hd)
-        v = dot(x, w("wv", x)).reshape(B, T, KV, hd)
+        q = dot(x, w("wq", x))
+        k = dot(x, w("wk", x))
+        v = dot(x, w("wv", x))
+    q = _rank_heads(q, B, T, H_all, H, hd, r)
+    k = _rank_heads(k, B, T, KV_all, KV, hd, r)
+    v = _rank_heads(v, B, T, KV_all, KV, hd, r)
     if "q_norm" in p:   # qwen3-style per-head QK norm
         from repro_torch.models.common import rms_norm
         q = rms_norm(q, p["q_norm"])
@@ -779,6 +808,9 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
             else f"{prefix}/kv"
         kvq = ctx.deploy_act(kv_site) \
             if (quantized and ctx is not None) else None
+        if kvq is not None and n_tp > 1:
+            # the per-head grids of this rank's KV heads
+            kvq = type(kvq)(*(g.narrow(0, r * KV, KV) for g in kvq))
         if paged:
             if block_table is None:
                 raise ValueError("paged KV cache needs the block_table of "
@@ -843,10 +875,12 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
         out = attend(q, k_att.to(q.dtype), v_att.to(q.dtype), positions,
                      kpos_att, cfg, ctx=ctx, prefix=prefix, chunked=chunked)
     if isinstance(out, deploy_lib.QTensor):
-        # the decode kernel's merge emitted wo's int8 input
-        out = deploy_lib.matmul(out, p["wo"])
+        # the decode kernel's merge emitted wo's int8 input (every rank's
+        # heads gathered for the whole packed wo)
+        out = deploy_lib.matmul(out._replace(q=coll.all_gather(out.q, dist)),
+                                p["wo"])
     elif x_int8:
-        out2d = out.reshape(B, T, H * hd)
+        out2d = coll.all_gather(out.reshape(B, T, H * hd), dist)
         if ctx.telemetry is not None:
             ctx.telem_site(f"{prefix}/wo_in",
                            deploy_lib.site_stats(out2d, wo_aq))
@@ -856,7 +890,11 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
         out2d = out.reshape(B, T, H * hd)
         if ctx is not None:
             out2d = ctx.act_in(f"{prefix}/wo_in", out2d)
-        out = dot(out2d, w("wo", out2d))
+        wo = w("wo", out2d)
+        if wo.shape[0] == out2d.shape[-1]:
+            out = dot_row_parallel(out2d, wo, dist)
+        else:       # a whole wo (stored int8): the whole input first
+            out = dot(coll.all_gather(out2d, dist), wo)
     if ctx is not None:
         out = ctx.act(f"{prefix}/ctx_out", out)
     return out, new_cache

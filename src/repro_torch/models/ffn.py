@@ -9,13 +9,21 @@ with a per-tensor input) with bias, activation and requant fused in its
 epilogue, then ``w_out`` with its bias; for GLU, ``w_up`` with f32 output,
 then ``w_gate`` with the fused ``act(gate) * up`` + requant epilogue, then
 ``w_out`` — so the hidden activation crosses memory as int8.
+
+Tensor-parallel (``dist``): float weights are placed column-parallel
+(``w_gate`` / ``w_up`` / ``w_in`` and ``b_in`` on this rank's hidden
+slice) and row-parallel (``w_out``), so the hidden activation stays local
+and the output is summed over ``model`` in f32, ``b_out`` added once after
+the sum. Packed payloads are whole on every rank: the integer FFN runs
+unsharded on each.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import (ACTIVATIONS, dot, matmul_dtype,
-                                       resolve_weight)
+from repro_torch.models.common import (ACTIVATIONS, dot, dot_row_parallel,
+                                       matmul_dtype, resolve_weight)
+from repro_torch.parallel import collectives as coll
 
 
 def _mlp_int8(p, x, *, activation: str, ctx, prefix: str):
@@ -52,40 +60,56 @@ def _deployed(p, x) -> bool:
     return isinstance(x, deploy.QTensor) and is_packed(p)
 
 
-def _weight(p, name, ctx, prefix, x):
+def _weight(p, name, ctx, prefix, x, dist=None):
+    if isinstance(p[name], dict) and coll.tp_size(dist) > 1:
+        # stored int8 stays whole (no rule places its fields), and a whole
+        # w_out would be summed over model once per rank
+        raise NotImplementedError("int8 weight storage is not yet ported "
+                                  "under --tp / dist")
     wm = resolve_weight(p[name], matmul_dtype(x))
     return ctx.weight(f"{prefix}/{name}", wm) if ctx is not None else wm
 
 
-def mlp(p, x, *, activation: str = "gelu", ctx=None, prefix: str = "ffn"):
+def _rank_bias(b, width, dist):
+    """This rank's slice of a whole hidden bias for a ``width``-wide
+    column shard."""
+    if b.shape[-1] == width:
+        return b
+    return b.narrow(-1, coll.tp_index(dist) * width, width)
+
+
+def mlp(p, x, *, activation: str = "gelu", ctx=None, prefix: str = "ffn",
+        dist=None):
     """Classic two-layer MLP. p: w_in (D,F), b_in (F,), w_out (F,D),
     b_out (D,); the biases are optional."""
     if _deployed(p, x):
         return _mlp_int8(p, x, activation=activation, ctx=ctx, prefix=prefix)
-    h = dot(x, _weight(p, "w_in", ctx, prefix, x))
+    h = dot(x, _weight(p, "w_in", ctx, prefix, x, dist))
     if "b_in" in p:
-        h = h + p["b_in"]
+        h = h + _rank_bias(p["b_in"], h.shape[-1], dist)
     h = ACTIVATIONS[activation](h)
     if ctx is not None:
         h = ctx.act(f"{prefix}/hidden", h)
-    out = dot(h, _weight(p, "w_out", ctx, prefix, h))
+    out = dot_row_parallel(h, _weight(p, "w_out", ctx, prefix, h, dist),
+                           dist)
     if "b_out" in p:
         out = out + p["b_out"]
     return out
 
 
 def glu_mlp(p, x, *, activation: str = "silu", ctx=None,
-            prefix: str = "ffn"):
+            prefix: str = "ffn", dist=None):
     """Gated MLP (GeGLU / SwiGLU). p: w_gate (D,F), w_up (D,F), w_out (F,D)."""
     if _deployed(p, x):
         return _glu_mlp_int8(p, x, activation=activation, ctx=ctx,
                              prefix=prefix)
     act = ACTIVATIONS[activation]
-    g = act(dot(x, _weight(p, "w_gate", ctx, prefix, x))) * \
-        dot(x, _weight(p, "w_up", ctx, prefix, x))
+    g = act(dot(x, _weight(p, "w_gate", ctx, prefix, x, dist))) * \
+        dot(x, _weight(p, "w_up", ctx, prefix, x, dist))
     if ctx is not None:
         g = ctx.act(f"{prefix}/hidden", g)
-    return dot(g, _weight(p, "w_out", ctx, prefix, g))
+    return dot_row_parallel(g, _weight(p, "w_out", ctx, prefix, g, dist),
+                            dist)
 
 
 def init_mlp_params(gen, d_model: int, d_ff: int, dtype, device=None,

@@ -39,6 +39,7 @@ does; these families serve through the static scheduler on dense caches.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -58,8 +59,64 @@ from repro_torch.models.attention import (
     reset_kv_lanes, reset_paged_lanes)
 from repro_torch.models.common import cross_entropy, embed_init, \
     layer_norm, matmul_dtype, resolve_weight, rms_norm, softcap
+from repro_torch.parallel import collectives as coll
 
 ATTN_KINDS = ("attn", "local_attn")
+
+
+# ---------------------------------------------------------------------------
+# Distribution context (the rules live in repro_torch.parallel)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DistContext:
+    """Where a sharded forward runs: ``mesh`` (a ``launch.mesh`` mesh; a
+    ``RankMesh`` to execute), the tensor-parallel, FSDP and data-parallel
+    axes, and the reference's perf switches. ``kv_seq_shard`` picks the
+    reference's default cache placement (sequence dim on ``model``); the
+    port executes caches placed on their KV heads (False)."""
+    mesh: Any
+    tp_axis: str = "model"
+    fsdp_axis: Any = "data"                  # str or tuple (pod FSDP)
+    dp_axes: Tuple[str, ...] = ("data",)     # ("pod","data") multi-pod
+    onehot_embed: bool = False               # vocab-sharded one-hot lookup
+    quantized_gathers: bool = False          # int8 FSDP weight gathers
+    kv_seq_shard: bool = True
+
+    @property
+    def tp_size(self) -> int:
+        return self.mesh.shape[self.tp_axis]
+
+
+def check_tp(cfg: ModelConfig, dist: Optional[DistContext]) -> None:
+    """Raise "... is not yet ported under --tp / dist" for a config the
+    sharded forward cannot run on ``dist``'s mesh: MoE blocks (expert
+    parallelism), recurrent and encoder-decoder configs, KV heads, FFN
+    width or vocabulary that the ``model`` axis does not divide, a
+    ``data`` axis over more than one rank (FSDP), and caches placed on the
+    sequence dim (``kv_seq_shard``)."""
+    if dist is None:
+        return
+    n = dist.tp_size
+    why = None
+    if cfg.moe is not None:
+        why = f"{cfg.name}'s MoE blocks (expert parallelism)"
+    elif cfg.encoder_layers:
+        why = f"{cfg.name}'s encoder-decoder"
+    elif any(k not in ATTN_KINDS for k in cfg.layer_plan):
+        why = f"{cfg.name}'s recurrent blocks"
+    elif cfg.num_kv_heads % n:
+        why = f"{cfg.name}'s {cfg.num_kv_heads} KV heads on {n} ranks"
+    elif cfg.d_ff % n or cfg.vocab_size % n:
+        why = (f"{cfg.name}'s d_ff {cfg.d_ff} / vocab {cfg.vocab_size} on "
+               f"{n} ranks")
+    elif dist.mesh.size != n:
+        why = f"a mesh with more than the model axis ({dist.mesh!r})"
+    elif dist.kv_seq_shard:
+        why = "KV caches placed on the sequence dim (kv_seq_shard=True)"
+    if why is not None:
+        raise NotImplementedError(f"{why} is not yet ported under --tp / "
+                                  "dist")
 
 
 def _norm(cfg: ModelConfig, p, x):
@@ -88,19 +145,24 @@ def attn_cfg_for(cfg: ModelConfig, kind: str) -> AttnConfig:
                       rope_theta=cfg.rope_theta)
 
 
-def _ffn_apply(cfg: ModelConfig, p, x, *, ctx, prefix):
+def _ffn_apply(cfg: ModelConfig, p, x, *, ctx, prefix, dist=None):
     """The block's FFN: MoE over the flattened (B*T, D) tokens (which
     route together, so the experts' capacity counts every token of the
-    call), else the GLU or the MLP."""
+    call), else the GLU or the MLP (``dist``: tensor-parallel, see
+    models.ffn)."""
     if cfg.moe is not None:
+        if coll.tp_size(dist) > 1:
+            raise NotImplementedError("MoE blocks are not yet ported under "
+                                      "--tp / dist")
         B, T, D = x.shape
         out = moe_lib.moe_apply(p, x.reshape(B * T, D), cfg.moe, ctx=ctx,
                                 prefix=prefix)
         return out.reshape(B, T, D)
     if cfg.ffn_type == "glu":
         return ffn_lib.glu_mlp(p, x, activation=cfg.act, ctx=ctx,
-                               prefix=prefix)
-    return ffn_lib.mlp(p, x, activation=cfg.act, ctx=ctx, prefix=prefix)
+                               prefix=prefix, dist=dist)
+    return ffn_lib.mlp(p, x, activation=cfg.act, ctx=ctx, prefix=prefix,
+                       dist=dist)
 
 
 def _init_ffn(cfg: ModelConfig, gen, dtype, device):
@@ -168,13 +230,13 @@ def _write_state(cache, new):
     return cache
 
 
-def _residual_ffn(cfg, p, x, ctx, prefix, post_norm):
+def _residual_ffn(cfg, p, x, ctx, prefix, post_norm, dist=None):
     """The FFN half of an attention or ``rec`` block: ln2 (+ ffn_in, fused
     in DEPLOY), the FFN, ``post_ln2`` with ``post_norm`` (attention blocks
     only, as in the reference), ffn_out and the residual sum."""
     h = _ffn_input(cfg, p, x, ctx, prefix)
     ffn_out = _ffn_apply(cfg, p.get("moe", p.get("ffn")), h, ctx=ctx,
-                         prefix=f"{prefix}/ffn")
+                         prefix=f"{prefix}/ffn", dist=dist)
     if post_norm:
         ffn_out = _norm(cfg, p["post_ln2"], ffn_out)
     if ctx is not None:
@@ -215,28 +277,36 @@ def _recurrent_block_apply(cfg, kind, p, x, *, ctx, prefix, cache):
 
 def block_apply(cfg: ModelConfig, kind: str, p, x, positions, *, ctx=None,
                 prefix="layer", cache=None, chunked=None, block_table=None,
-                append: bool = False, write_plans=None):
+                append: bool = False, write_plans=None, dist=None):
     """One transformer block. Returns (x, cache), the cache written in
-    place (``write_plans``: see models.attention.attention_block)."""
+    place (``write_plans``: see models.attention.attention_block). With
+    ``dist`` the block runs tensor-parallel on this rank's slice of the
+    params and of the cache (models.attention, models.ffn); its output is
+    whole on every rank."""
     _check_kind(kind)
     if append and kind not in ATTN_KINDS:
         raise ValueError(
             f"chunked (append) prefill supports attention blocks only, got "
             f"{kind!r} (recurrent state cannot replay earlier chunks)")
     if kind not in ATTN_KINDS:
+        if coll.tp_size(dist) > 1:
+            raise NotImplementedError("recurrent blocks are not yet ported "
+                                      "under --tp / dist")
         return _recurrent_block_apply(cfg, kind, p, x, ctx=ctx,
                                       prefix=prefix, cache=cache)
     h = _attn_input(cfg, p, x, ctx, prefix)
     attn_out, new_cache = attention_block(
         p["attn"], h, positions, attn_cfg_for(cfg, kind), ctx=ctx,
         prefix=f"{prefix}/attn", cache=cache, chunked=chunked,
-        block_table=block_table, append=append, write_plans=write_plans)
+        block_table=block_table, append=append, write_plans=write_plans,
+        dist=dist)
     if cfg.post_norm:
         attn_out = _norm(cfg, p["post_ln1"], attn_out)
     x = x + attn_out
     if ctx is not None:
         x = ctx.act(f"{prefix}/residual_attn", x)
-    return _residual_ffn(cfg, p, x, ctx, prefix, cfg.post_norm), new_cache
+    return (_residual_ffn(cfg, p, x, ctx, prefix, cfg.post_norm, dist),
+            new_cache)
 
 
 def init_block_params(cfg: ModelConfig, kind: str, gen, dtype, device):
@@ -667,12 +737,65 @@ def cache_insert_lane(cache, lane: int, payload):
     return cache
 
 
+def weight_reads(cfg: ModelConfig, params):
+    """(site, weight) of every float weight the forward hands to
+    ``ctx.weight``, in its order and as it reads them: the attention and
+    FFN projections of each layer (views of a stacked leaf's slice) and
+    the head (``embed.T`` when tied). Packed and stored-int8 leaves are
+    not float weights and are left out."""
+    def block(kind, p, prefix):
+        groups = [("attn", ("wq", "wk", "wv", "wo"))] \
+            if kind in ATTN_KINDS else []
+        groups.append(("ffn", ("w_gate", "w_up", "w_in", "w_out")))
+        for key, names in groups:
+            sub = p.get(key)
+            if not isinstance(sub, dict):
+                continue
+            for name in names:
+                w = sub.get(name)
+                if isinstance(w, torch.Tensor):
+                    yield f"{prefix}/{key}/{name}", w
+
+    if "layers" in params:
+        for i, kind in enumerate(cfg.layer_plan):
+            yield from block(kind, params["layers"][i], f"layer{i}")
+    else:
+        for s in range(cfg.n_super):
+            for j, kind in enumerate(cfg.block_pattern):
+                yield from block(kind, _layer(params["scan"][j], s), "layer")
+        for i, kind in enumerate(cfg.tail_pattern):
+            yield from block(kind, params["tail"][i], "tail")
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    if isinstance(head, torch.Tensor):
+        yield "head/w", head.T if cfg.tie_embeddings else head
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: ModelConfig, params, tokens, embeds, ctx):
-    x = resolve_weight(params["embed"])[tokens.long()]
+def _embed(cfg: ModelConfig, params, tokens, embeds, ctx, dist=None):
+    """Token embeddings (+ front-end embeddings). With ``dist`` the table
+    holds this rank's vocab rows: a masked local lookup (or, with
+    ``onehot_embed``, a one-hot product over the local rows) and a sum
+    over ``model``, which equals the whole lookup bit for bit (one rank
+    holds each row)."""
+    table = resolve_weight(params["embed"])
+    if coll.tp_size(dist) > 1:
+        n_local = table.shape[0]
+        local = tokens.long() - coll.tp_index(dist) * n_local
+        mine = (local >= 0) & (local < n_local)
+        local = torch.where(mine, local, torch.zeros_like(local))
+        if dist.onehot_embed and tokens.numel() <= 4096:
+            oh = torch.nn.functional.one_hot(local, n_local).to(table.dtype)
+            x = torch.einsum("btv,vd->btd", oh * mine[..., None], table)
+        else:
+            x = torch.where(mine[..., None], table[local],
+                            torch.zeros((), dtype=table.dtype,
+                                        device=table.device))
+        x = coll.all_reduce_sum(x, dist)
+    else:
+        x = table[tokens.long()]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
@@ -685,7 +808,12 @@ def _embed(cfg: ModelConfig, params, tokens, embeds, ctx):
     return x
 
 
-def _head(cfg: ModelConfig, params, x, ctx):
+def _head(cfg: ModelConfig, params, x, ctx, dist=None):
+    """Final norm and logits. With ``dist`` the head weight holds this
+    rank's vocab slice: its logits, soft-capped and through the
+    ``head/logits`` site, are gathered over ``model`` (bit for bit), so
+    every rank returns the whole logits and greedy decoding picks the same
+    lowest-index argmax on each."""
     h = _norm(cfg, params["final_norm"], x)
     dt = matmul_dtype(h)
     w = resolve_weight(params["embed"], dt).T if cfg.tie_embeddings \
@@ -695,7 +823,7 @@ def _head(cfg: ModelConfig, params, x, ctx):
     logits = softcap(h @ w.to(h.dtype), cfg.final_logit_softcap)
     if ctx is not None:
         logits = ctx.act("head/logits", logits)
-    return logits
+    return coll.all_gather(logits, dist, dim=-1)
 
 
 @contextlib.contextmanager
@@ -733,7 +861,7 @@ def _remat(fn, ctx, *args):
 
 def forward(cfg: ModelConfig, params, tokens, *, embeds=None, ctx=None,
             cache=None, positions=None, chunked=None, append: bool = False,
-            remat: bool = False):
+            remat: bool = False, dist: Optional[DistContext] = None):
     """Returns (logits, cache). tokens: (B, T) int; ``embeds`` (B, N, D)
     front-end embeddings are prepended to them (logits then cover N + T
     positions). ``positions`` (B, N + T) are absolute positions (default
@@ -744,9 +872,12 @@ def forward(cfg: ModelConfig, params, tokens, *, embeds=None, ctx=None,
     ``"block_table"`` (paged caches) goes to every layer unchanged.
     ``append``: chunked prefill (see models.attention.attention_block).
     ``remat`` (with autograd on, no cache): recompute each block (unrolled)
-    or superblock (stacked) in the backward pass."""
+    or superblock (stacked) in the backward pass. ``dist``: the
+    tensor-parallel forward of one rank over its placed params and cache
+    (``parallel.sharding``); the logits are whole on every rank."""
+    check_tp(cfg, dist)
     B = tokens.shape[0]
-    x = _embed(cfg, params, tokens, embeds, ctx)
+    x = _embed(cfg, params, tokens, embeds, ctx, dist)
     T = x.shape[1]
     if positions is None:
         positions = torch.arange(T, dtype=torch.int32,
@@ -759,7 +890,8 @@ def forward(cfg: ModelConfig, params, tokens, *, embeds=None, ctx=None,
     def run(kind, p, x, c, prefix):
         return block_apply(cfg, kind, p, x, positions, ctx=ctx, prefix=prefix,
                            cache=c, chunked=chunked, block_table=block_table,
-                           append=append, write_plans=write_plans)
+                           append=append, write_plans=write_plans,
+                           dist=dist)
 
     if "layers" in params:
         for i, kind in enumerate(cfg.layer_plan):
@@ -770,7 +902,7 @@ def forward(cfg: ModelConfig, params, tokens, *, embeds=None, ctx=None,
                            params["layers"][i], x)
             else:
                 x, _ = run(kind, params["layers"][i], x, c, f"layer{i}")
-        return _head(cfg, params, x, ctx), cache
+        return _head(cfg, params, x, ctx, dist), cache
 
     def superblock(p_slices, x, s=None):
         for j, kind in enumerate(cfg.block_pattern):
@@ -810,7 +942,7 @@ def forward(cfg: ModelConfig, params, tokens, *, embeds=None, ctx=None,
     for i, kind in enumerate(cfg.tail_pattern):
         c = cache["tail"][i] if cache is not None else None
         x, _ = run(kind, params["tail"][i], x, c, "tail")
-    return _head(cfg, params, x, ctx), cache
+    return _head(cfg, params, x, ctx, dist), cache
 
 
 # ---------------------------------------------------------------------------
@@ -831,7 +963,8 @@ def train_loss(cfg: ModelConfig, params, batch, *, ctx=None,
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, *, positions=None,
-            ctx=None, embeds=None, chunked=None, append: bool = False):
+            ctx=None, embeds=None, chunked=None, append: bool = False,
+            dist: Optional[DistContext] = None):
     """Fill the cache from a prompt; returns (last_logits, cache). Pads of
     a left-packed ragged prompt carry position -1 (masked, never written),
     so a packed request gets the same logits and cache lane as alone.
@@ -841,11 +974,13 @@ def prefill(cfg: ModelConfig, params, tokens, cache, *, positions=None,
     embeddings prepended to the prompt (see :func:`forward`)."""
     logits, cache = forward(cfg, params, tokens, embeds=embeds, ctx=ctx,
                             cache=cache, positions=positions,
-                            chunked=chunked, append=append)
+                            chunked=chunked, append=append, dist=dist)
     return logits[:, -1:], cache
 
 
-def decode_step(cfg: ModelConfig, params, tokens, pos, cache, *, ctx=None):
+def decode_step(cfg: ModelConfig, params, tokens, pos, cache, *, ctx=None,
+                dist: Optional[DistContext] = None):
     """One decode step. tokens/pos: (B, 1). Returns (logits, cache)."""
-    return forward(cfg, params, tokens, positions=pos, cache=cache, ctx=ctx)
+    return forward(cfg, params, tokens, positions=pos, cache=cache, ctx=ctx,
+                   dist=dist)
 

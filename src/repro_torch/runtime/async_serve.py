@@ -28,6 +28,14 @@ Threading contract:
   and keeps the tokens emitted so far.
 * ``close()`` drains by default (every accepted request finishes), then
   joins the thread; ``close(drain=False)`` cancels everything pending.
+* Under a mesh (an engine from ``make_engine(dist=)``) every rank runs
+  its own server on the same submissions, and each scheduler iteration
+  first settles its host view with the other ranks (``collectives.
+  agree_max`` over the mesh's host group): it admits only the requests
+  every rank has seen, closes only when every rank is closing, and
+  cancels a request once any rank has cancelled it. So every rank makes
+  the same model calls in the same order, whenever each rank's
+  submissions arrive.
 * A failure in the scheduler thread (a kernel launch error, say) is not
   swallowed and hangs no one: every queued and resident stream closes
   with that error, which ``result()``, iteration, ``close()`` and any later
@@ -43,6 +51,7 @@ from typing import Any, List, Optional
 
 import numpy as np
 
+from repro_torch.parallel.collectives import agree_max
 from repro_torch.runtime.engine import DecodeState, Engine
 
 
@@ -227,6 +236,32 @@ class AsyncServer:
         self._pending.clear()
         self._lanes = [None] * len(self._lanes)
 
+    def _settle(self, pending, closing: bool, drain: bool):
+        """(closing, drain, n, drained): the host view every rank acts on
+        this iteration. ``n`` queued requests are seen by every rank;
+        ``drained``: no rank holds a request beyond those ``n``. Without
+        a mesh: this server's own view."""
+        dist = getattr(self._engine, "dist", None)
+        n_local = len(pending)
+        rest = n_local + (0 if self._inbox.empty() else 1)
+        if dist is None:
+            return closing, drain, n_local, rest == n_local
+        neg_n, rest_max, not_closing, no_drain = agree_max(
+            [-n_local, rest, int(not closing), int(closing and not drain)],
+            dist)
+        n = -neg_n
+        return not not_closing, not no_drain, n, rest_max == n
+
+    def _cancelled_flags(self, items) -> List[bool]:
+        """Whether each item (None: an empty lane) is cancelled — on any
+        rank, under a mesh."""
+        flags = [int(it is not None and self._is_cancelled(it.stream))
+                 for it in items]
+        dist = getattr(self._engine, "dist", None)
+        if dist is not None and flags:
+            flags = agree_max(flags, dist)
+        return [bool(f) for f in flags]
+
     def _loop(self) -> None:
         eng = self._engine
         B = eng.batch_slots
@@ -241,10 +276,14 @@ class AsyncServer:
                     break
             with self._lock:
                 closing, drain = self._closing, self._drain
+            closing, drain, n, drained = self._settle(pending, closing,
+                                                      drain)
+            head = list(pending)[:n]
             if closing and not drain:
-                for item in pending:
+                for item in head:
+                    pending.remove(item)
                     item.stream._close(cancelled=True)
-                pending.clear()
+                head, n = [], 0
                 for slot in range(B):
                     if lanes[slot] is not None:
                         lanes[slot].stream._close(cancelled=True)
@@ -252,21 +291,24 @@ class AsyncServer:
                         lanes[slot] = None
             # cancellation sweep: queued requests never admit, resident
             # lanes release (host-side only — generation just stops)
-            for item in list(pending):
-                if self._is_cancelled(item.stream):
+            flags = self._cancelled_flags(head + list(lanes))
+            for item, cancelled in zip(head, flags):
+                if cancelled:
                     pending.remove(item)
                     item.stream._close(cancelled=True)
-            for slot in range(B):
+            admissible = n - sum(flags[:len(head)])
+            for slot, cancelled in zip(range(B), flags[len(head):]):
                 item = lanes[slot]
-                if item is not None and self._is_cancelled(item.stream):
+                if cancelled:
                     lanes[slot] = None
                     state = eng.release(slot, state)
                     item.stream._close(cancelled=True)
             # admission: decomposed prefill+insert into every free slot
             for slot in range(B):
-                if lanes[slot] is not None or not pending:
+                if lanes[slot] is not None or not admissible:
                     continue
                 item = pending.popleft()
+                admissible -= 1
                 lanes[slot] = item      # resident from here (see _fail)
                 first, payload = eng.prefill(item.prompt)
                 state = eng.insert(payload, slot, state)
@@ -277,7 +319,7 @@ class AsyncServer:
                     state = eng.release(slot, state)
             live = [s for s in range(B) if lanes[s] is not None]
             if not live:
-                if closing and self._inbox.empty() and not pending:
+                if closing and drained and not pending:
                     return
                 # idle: park briefly on the inbox so submit() wakes us
                 try:

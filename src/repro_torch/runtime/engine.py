@@ -24,7 +24,11 @@ records the shapes each step is called with (``step_signatures``): every
 step sees one signature for its life, whatever the prompt lengths and lane
 compositions, which a captured CUDA graph would need.
 
-Not yet ported: mesh placement (``dist``).
+Mesh placement (``make_engine(dist=)``): each rank of a tensor-parallel
+job runs the same host loop on the same requests and holds its slice of
+the params and of every cache (``parallel.sharding``); host inputs reach
+every rank as the same arrays, and the logits are whole on every rank, so
+the greedy tokens, and every decision taken on them, agree.
 """
 from __future__ import annotations
 
@@ -136,7 +140,8 @@ class Engine:
                  copy_block_fn: Optional[Callable] = None,
                  swap_out_fn: Optional[Callable] = None,
                  swap_in_fn: Optional[Callable] = None,
-                 telemetry_sink: Optional[Callable] = None, device=None):
+                 telemetry_sink: Optional[Callable] = None, device=None,
+                 dist=None):
         if batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
         self.admit_fn = admit_fn
@@ -150,6 +155,7 @@ class Engine:
         self.prompt_pad_len = prompt_pad_len
         self.telemetry_sink = telemetry_sink
         self.device = resolve_device(device)
+        self.dist = dist
         self.step_signatures: Dict[str, set] = {}
         self._scratch = None            # the decomposed prefill's cache
         self._scratch_ids = None        # paged scratch: lane 0's block ids
@@ -165,6 +171,9 @@ class Engine:
         return {k: len(v) for k, v in self.step_signatures.items()}
 
     def _put(self, x):
+        """A host input on this rank's device. Under a mesh every rank runs
+        the same host loop, so each puts the same array (the reference
+        broadcasts the admit mask replicated from one host)."""
         return torch.as_tensor(x, device=self.device)
 
     def _unwrap(self, out):
@@ -389,12 +398,28 @@ def make_engine(cfg, params, *, batch_slots: int, prompt_pad_len: int,
     engines use the identity-mapped layout (the decomposed insert's
     contract). Each step records the shapes it is called with in
     ``engine.step_signatures`` under the reference's names ("prefill" for
-    the admit step, "generate", "chunk"). Mesh placement (``dist``) is not
-    yet ported."""
-    if dist is not None:
-        raise ValueError("make_engine: mesh placement (dist) is not yet "
-                         "ported")
+    the admit step, "generate", "chunk").
+
+    ``dist`` (a ``DistContext`` over a rank mesh) places the params and
+    caches as the reference does: ``params`` (whole) cut to this rank's
+    slice by ``parallel.sharding.make_param_shardings``, every cache on its
+    KV heads (``make_kv_head_shardings``), the ctx's fake-quant weights
+    from the whole weights' grids (``shard_ctx_factory``), and the steps
+    run tensor-parallel. Configs the sharded forward cannot run raise
+    "... not yet ported under --tp / dist"."""
     device = resolve_device(device)
+    if dist is not None:
+        from repro_torch.parallel.sharding import (make_kv_head_shardings,
+                                                   make_param_shardings,
+                                                   shard_ctx_factory)
+        tfm.check_tp(cfg, dist)
+        if quant_telemetry:
+            raise NotImplementedError("quant telemetry is not yet ported "
+                                      "under --tp / dist")
+        placed = make_param_shardings(params, dist)
+        ctx_factory = shard_ctx_factory(cfg, params, placed, ctx_factory,
+                                        dist)
+        params = placed
     signatures: Dict[str, set] = {}
 
     def recorded(name, fn):
@@ -403,7 +428,8 @@ def make_engine(cfg, params, *, batch_slots: int, prompt_pad_len: int,
             return fn(params, *args)
         return step
 
-    kw = dict(ctx_factory=ctx_factory, quant_telemetry=quant_telemetry)
+    kw = dict(ctx_factory=ctx_factory, quant_telemetry=quant_telemetry,
+              dist=dist)
     admit = recorded("prefill", make_admit_step(cfg, chunked=chunked, **kw))
     decode = recorded("generate", make_decode_step(cfg, **kw))
     chunk = None
@@ -412,14 +438,18 @@ def make_engine(cfg, params, *, batch_slots: int, prompt_pad_len: int,
             cfg, chunked=chunked, **kw))
 
     def init_cache_fn(batch):
-        return tfm.init_cache(cfg, batch, max_len, dtype=dtype,
-                              kv_bits=kv_bits, paged=paged,
-                              block_size=block_size, device=device)
+        cache = tfm.init_cache(cfg, batch, max_len, dtype=dtype,
+                               kv_bits=kv_bits, paged=paged,
+                               block_size=block_size, device=device)
+        if dist is not None:
+            cache = make_kv_head_shardings(cache, dist)
+        return cache
 
     engine = Engine(admit, decode, init_cache_fn, batch_slots=batch_slots,
-                    prompt_pad_len=prompt_pad_len, chunk_fn=chunk, telemetry_sink=telemetry_sink,
-                    device=device)
+                    prompt_pad_len=prompt_pad_len, chunk_fn=chunk,
+                    telemetry_sink=telemetry_sink, device=device, dist=dist)
     engine.step_signatures = signatures
+    engine.params = params      # what the steps are bound to (a rank's slice)
     return engine
 
 

@@ -14,7 +14,10 @@ configs train through ``encdec.train_loss``, prefill through
 telemetry and which returns ``(logits, cache, telemetry)``, the extra
 output being the ``{site: [clipped, total, amax, range]}`` dict of device
 tensors (``runtime.engine.Engine`` folds it); ``quant_telemetry=False``
-returns the plain closure itself."""
+returns the plain closure itself. ``dist`` runs the serve steps
+tensor-parallel on one rank (``models.transformer.forward``); the params
+and cache they are given must be placed (``runtime.engine.make_engine``).
+"""
 from __future__ import annotations
 
 from typing import Callable, Optional
@@ -119,7 +122,7 @@ def _telem_ctx(ctx_factory):
     return None, {}
 
 
-def make_prefill_step(cfg: ModelConfig, *,
+def make_prefill_step(cfg: ModelConfig, *, dist=None,
                       ctx_factory: Optional[Callable] = None, chunked=None,
                       quant_telemetry: bool = False):
     """prefill(params, tokens, cache[, positions, embeds]) -> (last_logits,
@@ -130,7 +133,7 @@ def make_prefill_step(cfg: ModelConfig, *,
     def prefill(params, tokens, cache, positions=None, embeds=None):
         ctx = ctx_factory() if ctx_factory is not None else None
         return tfm.prefill(cfg, params, tokens, cache, positions=positions,
-                           embeds=embeds, ctx=ctx, chunked=chunked)
+                           embeds=embeds, ctx=ctx, chunked=chunked, dist=dist)
 
     if not quant_telemetry:
         return prefill
@@ -140,12 +143,12 @@ def make_prefill_step(cfg: ModelConfig, *,
         ctx, tel = _telem_ctx(ctx_factory)
         logits, cache = tfm.prefill(cfg, params, tokens, cache,
                                     positions=positions, embeds=embeds,
-                                    ctx=ctx, chunked=chunked)
+                                    ctx=ctx, chunked=chunked, dist=dist)
         return logits, cache, tel
     return prefill_t
 
 
-def make_admit_step(cfg: ModelConfig, *,
+def make_admit_step(cfg: ModelConfig, *, dist=None,
                     ctx_factory: Optional[Callable] = None, chunked=None,
                     quant_telemetry: bool = False):
     """Slot-insert prefill for continuous batching:
@@ -158,7 +161,7 @@ def make_admit_step(cfg: ModelConfig, *,
         ctx = ctx_factory() if ctx_factory is not None else None
         cache = tfm.cache_reset_slots(cache, admit_mask)
         return tfm.prefill(cfg, params, tokens, cache, positions=positions,
-                           ctx=ctx, chunked=chunked)
+                           ctx=ctx, chunked=chunked, dist=dist)
 
     if not quant_telemetry:
         return admit
@@ -169,12 +172,12 @@ def make_admit_step(cfg: ModelConfig, *,
         cache = tfm.cache_reset_slots(cache, admit_mask)
         logits, cache = tfm.prefill(cfg, params, tokens, cache,
                                     positions=positions, ctx=ctx,
-                                    chunked=chunked)
+                                    chunked=chunked, dist=dist)
         return logits, cache, tel
     return admit_t
 
 
-def make_chunk_prefill_step(cfg: ModelConfig, *,
+def make_chunk_prefill_step(cfg: ModelConfig, *, dist=None,
                             ctx_factory: Optional[Callable] = None,
                             chunked=None, quant_telemetry: bool = False):
     """Chunked prefill: chunk(params, tokens (B, C), positions (B, C),
@@ -187,7 +190,8 @@ def make_chunk_prefill_step(cfg: ModelConfig, *,
         ctx = ctx_factory() if ctx_factory is not None else None
         cache = tfm.cache_reset_slots(cache, reset_mask)
         return tfm.prefill(cfg, params, tokens, cache, positions=positions,
-                           ctx=ctx, chunked=chunked, append=True)
+                           ctx=ctx, chunked=chunked, append=True,
+                           dist=dist)
 
     if not quant_telemetry:
         return chunk
@@ -198,12 +202,12 @@ def make_chunk_prefill_step(cfg: ModelConfig, *,
         cache = tfm.cache_reset_slots(cache, reset_mask)
         logits, cache = tfm.prefill(cfg, params, tokens, cache,
                                     positions=positions, ctx=ctx,
-                                    chunked=chunked, append=True)
+                                    chunked=chunked, append=True, dist=dist)
         return logits, cache, tel
     return chunk_t
 
 
-def make_decode_step(cfg: ModelConfig, *,
+def make_decode_step(cfg: ModelConfig, *, dist=None,
                      ctx_factory: Optional[Callable] = None,
                      quant_telemetry: bool = False):
     """decode(params, tokens (B,1), pos (B,1), cache) -> (logits, cache).
@@ -211,6 +215,10 @@ def make_decode_step(cfg: ModelConfig, *,
     ``encdec.DecoderCache`` (without quant telemetry, as in the
     reference)."""
     if cfg.encoder_layers:
+        if dist is not None:
+            raise NotImplementedError("the encoder-decoder is not yet "
+                                      "ported under --tp / dist")
+
         @torch.no_grad()
         def decode(params, tokens, pos, cache):
             ctx = ctx_factory() if ctx_factory is not None else None
@@ -221,7 +229,8 @@ def make_decode_step(cfg: ModelConfig, *,
     @torch.no_grad()
     def decode(params, tokens, pos, cache):
         ctx = ctx_factory() if ctx_factory is not None else None
-        return tfm.decode_step(cfg, params, tokens, pos, cache, ctx=ctx)
+        return tfm.decode_step(cfg, params, tokens, pos, cache, ctx=ctx,
+                               dist=dist)
 
     if not quant_telemetry:
         return decode
@@ -230,7 +239,7 @@ def make_decode_step(cfg: ModelConfig, *,
     def decode_t(params, tokens, pos, cache):
         ctx, tel = _telem_ctx(ctx_factory)
         logits, cache = tfm.decode_step(cfg, params, tokens, pos, cache,
-                                        ctx=ctx)
+                                        ctx=ctx, dist=dist)
         return logits, cache, tel
     return decode_t
 

@@ -431,7 +431,8 @@ def test_errors_match_reference(models):
     """The reference's messages: paged caches and non-attention nodes in
     the lane functions, empty and over-long prompts, a slot out of range,
     an unmapped paged row, a paged scratch too small for one lane; mesh
-    placement is not yet ported."""
+    placement with the caches on the sequence dim (the reference's default
+    ``kv_seq_shard``) is not yet ported."""
     jcfg, cfg, kinds = models
     jpaged = jtfm.init_cache(jcfg, 2, MAX_LEN, dtype=jnp.float32,
                              paged=True, block_size=BLOCK)
@@ -476,9 +477,11 @@ def test_errors_match_reference(models):
     assert _message(small._ensure_scratch) == (
         f"decomposed prefill needs {nb} scratch blocks for one lane but "
         f"the paged arena holds {nb - 1}")
-    assert "not yet ported" in _message(lambda: make_engine(
-        cfg, params, batch_slots=2, prompt_pad_len=PAD, max_len=MAX_LEN,
-        dist=object(), device=CPU))
+    from repro_torch.parallel.sharding import make_abstract_mesh, make_dist
+    seq_dist = make_dist(make_abstract_mesh((1, 2), ("data", "model")))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        make_engine(cfg, params, batch_slots=2, prompt_pad_len=PAD,
+                    max_len=MAX_LEN, dist=seq_dist, device=CPU)
 
 
 @pytest.mark.deploy

@@ -346,18 +346,29 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
 
 
 def test_launcher_rejects_unported_flags(capsys):
-    """Flags outside the ported slice stop the launcher before it builds a
-    model (``--tp``), as does a misused flag (``--prefix-cache`` and
-    ``--over-commit`` without ``--paged-kv``, ``--async`` with it,
-    ``--quant-telemetry`` without ``--quantize``, with the reference's
-    message); the 4-bit flags are ported and parse."""
+    """A misused flag stops the launcher before it builds a model
+    (``--prefix-cache`` and ``--over-commit`` without ``--paged-kv``,
+    ``--async`` with it, ``--quant-telemetry`` without ``--quantize``, and
+    ``--tp`` without ``--reduced``, with the reference's messages); ``--tp
+    2 --reduced`` passes the checks, and the 4-bit flags are ported and
+    parse."""
     from repro_torch.launch.serve import _check_args, build_parser, main
-    for extra in (["--tp", "2"], ["--prefix-cache"], ["--over-commit"],
+    for extra in (["--prefix-cache"], ["--over-commit"],
                   ["--async", "--paged-kv"]):
         with pytest.raises(SystemExit):
             main(["--arch", "gemma2-2b", "--reduced", "--quantize",
                   "--deploy-int8"] + extra, device="cpu")
     capsys.readouterr()
+    with pytest.raises(SystemExit):
+        main(["--arch", "gemma2-2b", "--quantize", "--deploy-int8", "--tp",
+              "2"], device="cpu")
+    assert ("--tp is the host-simulated tensor-parallel mode (--reduced); "
+            "the full-size path builds its own production mesh"
+            in capsys.readouterr().err)
+    ap = build_parser()
+    _check_args(ap, ap.parse_args(["--arch", "gemma2-2b", "--reduced",
+                                   "--quantize", "--deploy-int8", "--tp",
+                                   "2"]))
     with pytest.raises(SystemExit):
         main(["--arch", "gemma2-2b", "--reduced", "--scheduler",
               "continuous", "--quant-telemetry"], device="cpu")
