@@ -165,9 +165,9 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              AdaRound on ``layer0/ffn/w_in`` at W4 (its output error must
              be below nearest rounding's, ms an iteration); peak memory.
 20. paper tables — the reference's table harness at its bench config,
-             trained afresh: Table 1 and Table 5 over three of the eight
-             synthetic tasks (``PAPER_TASKS``: syn-cola, syn-stsb,
-             syn-mnli), Table 6's W8A8 PTQ and QAT rows and Table 7's W4A32 PTQ
+             trained afresh: Table 1 and Table 5 over two of the eight
+             synthetic tasks (``PAPER_TASKS``: syn-stsb, syn-mnli; cut
+             from three to pay for the tensor-parallel phases), Table 6's W8A8 PTQ and QAT rows and Table 7's W4A32 PTQ
              and AdaRound rows on syn-mnli, every row printed; QAT must
              score at least W8A8 PTQ on syn-mnli and, on every trained
              model, PEG's hidden error with only the FFN path quantized must
@@ -229,8 +229,8 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              6 chunk steps), ``[kv-int8]`` <= 1e-4 and three ``[parity]
              OK`` lines. Each zoo phase prints its depth, wall and peak
              device memory.
-31. rec recurrentgemma — full width cut to ``REC_DEPTH`` (11 of its
-             26 layers: (rec, rec, local_attn) x 3 + the (rec, rec)
+31. rec recurrentgemma — full width cut to ``REC_DEPTH`` (8 of its
+             26 layers: (rec, rec, local_attn) x 2 + the (rec, rec)
              tail; d 2560, local attention MQA 10 x 256 in a 2048
              window, bf16), ``--quantize
              --deploy-int8``, static, 6 x 24 x 6 on 4 lanes, at kv8 and
@@ -243,7 +243,7 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              kv8 (max_len 2056): the prefill runs the doubling scan at
              length and the decode wraps the local layers' 2048-cell
              ring; 15 decode steps.
-33. rec rwkv6 — full width cut to ``REC_DEPTH`` (8 of its 24 LayerNorm
+33. rec rwkv6 — full width cut to ``REC_DEPTH`` (4 of its 24 LayerNorm
              RWKV-6 blocks; d 2048, 32 heads of 64), the same
              flags at kv8, then 2 x 2040-token
              prompts (64 chunks of ``wkv_chunked``): no kernel may launch
@@ -324,23 +324,38 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              card. Phases 41-43 launch no kernel.
 45. tp2-quickstart (run after 18) — phase 6's README quickstart with
              ``--tp 2``: two ranks spawned by ``serve.main`` on the one
-             card (gloo), each serving its slice (1 of 2 KV heads, half
-             the vocab rows, the packed payloads whole); rank 0's startup
-             lines, serve counts and three ``[parity] OK`` lines and both
-             ranks' greedy tokens must be phase 6's; every rank must
-             launch K1, K3, K4, the emitting K6 and K2 (counted in its own
-             process); per-rank launches, host time in the collectives and
-             resident parameter bytes print.
+             card (gloo), each serving its slice in the default layout
+             (half of every KV cache's cells, all heads; half the vocab
+             rows; the packed payloads whole); rank 0's startup lines,
+             serve counts and three ``[parity] OK`` lines and both ranks'
+             greedy tokens must be phase 6's, each rank's peak KV cache
+             half of it; every rank must launch K1, K3, K4, K2, K6 and K5
+             in partial mode and the two merges (counted in its own
+             process); then phase 10's 4-bit quickstart the same way (K5-
+             and K6-kv4 in partial mode; its tokens a match rate); per-rank
+             launches, host time in the collectives and resident bytes
+             print.
 46. tp2-full (run after 18) — gemma2-2b at published width
              (``GEMMA_DEPTH`` layers, bf16), PTQ and deploy at kv8,
              FULL_ASYNC's workload through ``make_engine(dist=)`` on a
-             (1, 2) rank mesh on ``cuda:0``: both ranks' greedy tokens
-             must equal the unsharded engine's (rank 0, same params); K1,
-             K3 and the emitting K5 (2 KV heads a rank) must launch on
-             each; the embedding is halved a rank, packed payloads whole;
-             per-rank decode step median, host time in the collectives, K5
+             (1, 2) rank mesh on ``cuda:0`` with the caches on their KV
+             heads: both ranks' greedy tokens must equal the unsharded
+             engine's (rank 0, same params); K1, K3 and the emitting K5 (2
+             KV heads a rank) must launch on each; the embedding is halved
+             a rank, packed payloads whole; per-rank decode step median,
+             one decode step's launches, host time in the collectives, K5
              launch shapes and peak memory print. One card shows no
              multi-GPU speed.
+47. tp2-kvseq (run after 18, in phase 46's ranks) — the same workload
+             with the caches on their sequence dim (the default): K5 in
+             partial mode over 64 of 128 cells at 4 KV heads, the merges;
+             the tokens equal, each rank's KV cache half the whole.
+48. tp2-granite (after 30) — granite-20b at published width
+             (``ZOO_DEPTH`` 2 layers; 48 query heads on 1 KV head) with the
+             quickstart's flags at kv8 and kv16 on 2 ranks through the
+             launcher's serve body: K6 and K7 in partial mode at G 48;
+             both ranks' tokens equal the zoo phase's unsharded runs', each
+             rank's peak KV cache half of theirs.
 
 In every serving phase every request must get its tokens. The reduced
 runs' integer-path logits must match the fake-quant path they replace
@@ -423,12 +438,28 @@ KERNELS = {
     "paged_int8_attend_decode_emit": ("paged_attend_decode.cu",
                                       "peg_quant.py:67"),
     "paged_attend_decode_emit": ("paged_attend_decode.cu",
-                                 "peg_quant.py:67")}
+                                 "peg_quant.py:67"),
+    # K5-K7 in partial mode over a --tp rank's cells (the cache's sequence
+    # dim cut over the ranks) and the merge of the ranks' partials, which
+    # finishes their softmax (and, emitting, folds K4 in)
+    "int8_attend_decode_partials": ("int8_attend_decode.cu",
+                                    "int8_attend_decode.py:168"),
+    "int8_attend_decode_partials_kv4": ("int8_attend_decode.cu",
+                                        "int8_attend_decode.py:168"),
+    "paged_int8_attend_decode_partials": ("paged_attend_decode.cu",
+                                          "paged_attend_decode.py:270"),
+    "paged_int8_attend_decode_partials_kv4": ("paged_attend_decode.cu",
+                                              "paged_attend_decode.py:270"),
+    "paged_attend_decode_partials": ("paged_attend_decode.cu",
+                                     "paged_attend_decode.py:230"),
+    "merge_partials": ("merge_partials.cu", "paged_attend_decode.py:270"),
+    "merge_partials_emit": ("merge_partials.cu", "peg_quant.py:67")}
 
 
 # the port's kernel names in a profiler trace
 PORT_KERNELS = (r"norm_quant_kernel|peg_quant_kernel|int8_matmul_splitk|"
-                r"int8_matmul_peg_kernel|split_attend_kernel")
+                r"int8_matmul_peg_kernel|split_attend_kernel|"
+                r"merge_partials_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -1555,6 +1586,7 @@ def attend_cases(gen, flush, record):
     wide_g_cases(gen, flush, record, ri, ru, site_kw, measure,
                  REC_G_SHAPES)
     wide_g_cases(gen, flush, record, ri, ru, site_kw, measure, MM_G_SHAPES)
+    partial_cases(gen, flush, record, ri, ru, site_kw)
 
 
 def emit_cases(gen, flush, record, ri, ru, site_kw):
@@ -2049,31 +2081,289 @@ def wide_g_cases(gen, flush, record, ri, ru, site_kw, measure,
                        split_note(splits, nbytes, ms))
 
 
-def _counters():
-    """{kernel name: (wrapper, launch-count attribute)}; a 4-bit variant
-    is counted on its own attribute of the 8-bit kernel's wrapper, and so
-    are K5's, K6's and K7's launches that emit int8 (either bit width)."""
-    from repro_torch.kernels import fused_ln_quant as lnq
+# the partial modes at a --tp 2 rank's cells (phases 45-48): gemma2-2b's
+# attention (4 KV heads x G 2, hd 256) over 64 of 128 cells, granite-20b's
+# MQA (1 KV head x G 48, hd 128); each rank holds half of every block
+PARTIAL_SHAPES = (("gemma2-2b", ATT_KV, ATT_G, ATT_HD, 64),
+                  ("granite-20b", 1, 48, 128, None))
+
+
+def partial_cases(gen, flush, record, ri, ru, site_kw):
+    """K5, K6 (kv 8 and 4) and K7 (bf16 arenas) in partial mode over each
+    rank's half of a 128-cell cache (dense cells [64 r, 64 r + 64); paged
+    blocks of 16, in-block cells [8 r, 8 r + 8)) at ``PARTIAL_SHAPES``, B
+    4 with a wrapped ring (dense) or a short lane (paged) and an idle lane,
+    one pass without sites and two passes with softmax_out, and the merge
+    kernel over both ranks' rows in (rank, split) order. Held: every
+    rank's partial rows against the plain version's (acc, l within 1e-5 of
+    their max, m where live), the merge against ``merge_partials_plain`` on
+    the same rows (1e-5 of max|out|; statistics 1e-6), its emit against
+    K4's bytes on its f32 output, and the merged output against the
+    whole-cache kernel's (``attend_check``, two passes ``tie_check``) and,
+    two passes, against the plain partials merged by the plain merge on
+    the same global (m, l). The rows are held strictly, so the inputs are
+    ones whose logits the kernels and the plain versions compute bit for
+    bit: no softcap (``tanhf`` and ``torch.tanh`` may part in the last bit)
+    and, for K7, whose f32 dot sums in another order, no softmax_in site
+    (a logit on a grid boundary would move a split's l by a step); the
+    whole-kernel cases above hold softcap and softmax_in, which partial
+    mode shares, with their tie checks. Times one rank's launch of each
+    mode and the merge beside their plain versions."""
+    import torch
     from repro_torch.kernels import int8_attend_decode as iad
-    from repro_torch.kernels import int8_matmul as imm
     from repro_torch.kernels import paged_attend_decode as pad
     from repro_torch.kernels import peg_quant as pq
-    wrappers = {fn.__name__[:-len("_cuda")]: fn for fn in (
-        lnq.rms_quantize_cuda, pq.peg_quantize_cuda, imm.int8_matmul_cuda,
-        imm.int8_matmul_peg_cuda, iad.int8_attend_decode_cuda,
-        pad.paged_int8_attend_decode_cuda, pad.paged_attend_decode_cuda,
-        lnq.ln_quantize_cuda, lnq.rms_fake_quant_cuda,
-        lnq.ln_fake_quant_cuda, pq.peg_fake_quant_cuda)}
-    counters = {name: (fn, "launches") for name, fn in wrappers.items()}
-    for name, attr in (("int8_matmul", "launches_w4"),
-                       ("int8_matmul_peg", "launches_w4"),
-                       ("int8_attend_decode", "launches_kv4"),
-                       ("paged_int8_attend_decode", "launches_kv4"),
-                       ("int8_attend_decode", "launches_emit"),
-                       ("paged_int8_attend_decode", "launches_emit"),
-                       ("paged_attend_decode", "launches_emit")):
-        counters[f"{name}_{attr[len('launches_'):]}"] = (wrappers[name],
-                                                         attr)
+    from repro_torch.kernels.nibble import pack_nibbles, unpack_nibbles
+    from repro_torch.kernels.ref import (decode_valid, paged_gather_ref,
+                                         paged_positions_ref)
+    dev = torch.device("cuda")
+    b, cells, bs, q8 = 4, 128, 16, dict(qmin=-128, qmax=127)
+    nb = cells // bs
+    n_blocks = b * nb + 5
+
+    def rows_check(tag, got, want, with_acc):
+        """acc (all but the last two floats, or every float without m, l)
+        and l within 1e-5 of their max, m where live (the masked -1e30
+        equal). Returns the largest difference held."""
+        worst = 0.0
+        if with_acc is None:            # emit rows: acc only
+            acc_g, acc_w, ml_g, ml_w = got, want, None, None
+        else:
+            acc_g, acc_w = got[..., :-2], want[..., :-2]
+            ml_g, ml_w = got[..., -2:], want[..., -2:]
+        if with_acc is not False:
+            err = float((acc_g - acc_w).abs().max())
+            require(err <= 1e-5 * float(acc_w.abs().max()),
+                    f"{tag}: partial acc {err} off the plain version's")
+            worst = err
+        if ml_g is not None:
+            m_g, m_w = ml_g[..., 0], ml_w[..., 0]
+            live = m_w > -1e29
+            require(torch.equal(m_g[~live], m_w[~live]),
+                    f"{tag}: a masked split's m is not -1e30")
+            err = float((m_g - m_w)[live].abs().max()) if live.any() else 0
+            require(err <= 1e-5 * max(1.0, float(m_w[live].abs().max())),
+                    f"{tag}: partial m {err} off")
+            err = float((ml_g[..., 1] - ml_w[..., 1]).abs().max())
+            require(err <= 1e-5 * float(ml_w[..., 1].abs().max()),
+                    f"{tag}: partial l {err} off")
+            worst = max(worst, err)
+        return worst
+
+    for arch, kv, g, hd, window in PARTIAL_SHAPES:
+        # a dense ring that wrapped (slot j < 16 holds 128 + j), lane 1
+        # shorter, lane 3 idle; paged: a table over 8 of 37 blocks a lane
+        k_pos = torch.arange(cells, device=dev, dtype=torch.int32).repeat(
+            b, 1)
+        k_pos = torch.where(k_pos < 16, k_pos + cells, k_pos)
+        q_pos_d = torch.tensor([cells + 15, 60, cells + 15, -1], device=dev,
+                               dtype=torch.int32)
+        table = torch.randperm(n_blocks, generator=gen, device=dev)[
+            :b * nb].reshape(b, nb).to(torch.int32)
+        q_pos_p = torch.tensor([cells - 1, 40, cells - 1, -1], device=dev,
+                               dtype=torch.int32)
+        valid_d = decode_valid(k_pos, q_pos_d, window)
+        valid_p = decode_valid(paged_positions_ref(
+            table, q_pos_p, s_cap=cells, block_size=bs), q_pos_p, window)
+        for kind, kv_bits in (("K5", 8), ("K6", 8), ("K7", 16), ("K5", 4),
+                              ("K6", 4)):
+            if kv_bits == 4 and arch != "gemma2-2b":
+                continue
+            paged = kind != "K5"
+            lanes = (n_blocks, bs) if paged else (b, cells)
+            if kind == "K7":
+                q = torch.randn(b, kv, g, hd, generator=gen, device=dev) \
+                    * 0.3 / hd ** 0.5
+                kf, vf = (torch.randn(*lanes, kv, hd, generator=gen,
+                                      device=dev).to(torch.bfloat16)
+                          for _ in range(2))
+                whole = (q, kf, vf, table, q_pos_p)
+                v_deq = paged_gather_ref(vf, table).float()
+                name, fn_w, fn_c, fn_p = (
+                    "paged_attend_decode_partials",
+                    pad.paged_attend_decode_cuda,
+                    pad.paged_attend_decode_partials_cuda,
+                    pad.paged_attend_decode_partials_plain)
+                cut = (1, 2)          # the arenas' cell dims
+                payload, q_bytes, kbits = 2 * 2 * hd, b * kv * g * hd * 4, {}
+            else:
+                if kv_bits == 4:
+                    k, v = (pack_nibbles(torch.randint(
+                        -8, 8, (*lanes, kv, hd), generator=gen, device=dev,
+                        dtype=torch.int8)) for _ in range(2))
+                    zk, zv = (torch.round(ru(-3, 3, b, kv)) for _ in range(2))
+                    v_s = ru(0.1, 0.5, *lanes, kv)
+                else:
+                    k, v = ri(*lanes, kv, hd), ri(*lanes, kv, hd)
+                    zk, zv = (torch.round(ru(-20, 20, b, kv))
+                              for _ in range(2))
+                    v_s = ru(0.01, 0.05, *lanes, kv)
+                whole = (ri(b, kv, g, hd), ru(0.01, 0.03, b, kv, g) / 16,
+                         torch.round(ru(-20, 20, b, kv, g)), zk, zv, k,
+                         ru(0.01, 0.05, *lanes, kv), v, v_s,
+                         table if paged else k_pos,
+                         q_pos_p if paged else q_pos_d)
+                vv = (unpack_nibbles(v, hd) if kv_bits == 4 else v)
+                vv = (paged_gather_ref(vv, table) if paged else vv).float()
+                vsc = paged_gather_ref(v_s, table) if paged else v_s
+                v_deq = vsc[..., None] * (vv - zv[:, None, :, None])
+                if paged:
+                    name, fn_w, fn_c, fn_p = (
+                        "paged_int8_attend_decode_partials",
+                        pad.paged_int8_attend_decode_cuda,
+                        pad.paged_int8_attend_decode_partials_cuda,
+                        pad.paged_int8_attend_decode_partials_plain)
+                else:
+                    name, fn_w, fn_c, fn_p = (
+                        "int8_attend_decode_partials",
+                        iad.int8_attend_decode_cuda,
+                        iad.int8_attend_decode_partials_cuda,
+                        iad.int8_attend_decode_partials_plain)
+                # payloads and scales (and dense positions) have cell dims
+                cut = (5, 6, 7, 8) if paged else (5, 6, 7, 8, 9)
+                payload = (hd if kv_bits == 4 else 2 * hd) + 8
+                q_bytes = b * kv * g * (hd + 8) + b * kv * 8
+                kbits = dict(kv_bits=kv_bits)
+            valid = valid_p if paged else valid_d
+            # bytes a cell of K alone (the statistics launch reads no V)
+            k_only = 2 * hd if kind == "K7" else (payload - 8) // 2 + 4
+            half = (bs if paged else cells) // TP
+
+            # rank r's operands: its half of every cell dim, contiguous as
+            # a placed cache is
+            sliced = [tuple(x.narrow(1, r * half, half).contiguous()
+                            if i in cut else x for i, x in enumerate(whole))
+                      for r in range(TP)]
+
+            def rank_args(r):
+                return sliced[r]
+            v_abs = float(v_deq.abs().max())
+            for site in ("no sites", "two-pass softmax_out + zero-points"):
+                kw = dict(window=window, logit_softcap=None, **kbits,
+                          **site_kw(site))
+                if kind == "K7":
+                    kw["sm_quant"] = None
+                wkw = dict(kw, s_cap=cells) if paged else kw
+                pkw = (dict(kw, s_cap=cells, block_size=bs) if paged
+                       else kw)
+                smo = kw["smo_quant"]
+                step = None if smo is None else float(smo[0])
+                label = (f"{arch} B{b} KV{kv}xG{g} hd{hd} "
+                         + (f"bs{bs} cells [{half} r, {half} r + {half})"
+                            if paged else f"S{half} of {cells}")
+                         + f" w{window}{' bf16' if kind == 'K7' else ''}"
+                         + ", " + (site.replace("two-pass", "two-pass, no "
+                                                "softmax_in,")
+                                   if kind == "K7" else site))
+                tag = f"{kind}{'-kv4' if kv_bits == 4 else ''} {label}"
+
+                def part(r, mode, stats=None, fn=fn_c):
+                    extra = dict(cell_lo=r * half) if paged else {}
+                    return fn(*rank_args(r), mode=mode, stats=stats,
+                              **extra, **pkw)
+                modes = (("one_pass",) if smo is None
+                         else ("stats", "emit"))
+                stats = None
+                for mode in modes:
+                    st_in = stats       # emit reads the merged statistics
+                    got = [part(r, mode, stats) for r in range(TP)]
+                    want = [part(r, mode, stats, fn_p) for r in range(TP)]
+                    row_err = max(rows_check(
+                        f"{tag} rank {r} {mode}", got[r], want[r],
+                        {"one_pass": True, "stats": False}.get(mode))
+                        for r in range(TP))
+                    rows = torch.cat(got, dim=2)
+                    if mode == "stats":
+                        stats = iad.merge_partials_cuda(rows, mode="stats")
+                        st_p = iad.merge_partials_plain(rows, mode="stats")
+                        require(torch.equal(stats[..., 0], st_p[..., 0]) and
+                                float((stats - st_p).abs().max()) <= 1e-6
+                                * float(st_p[..., 1].abs().max()),
+                                f"{tag}: merged statistics off the plain "
+                                f"merge's")
+                    # one rank's launch of this mode
+                    args_r = rank_args(0)
+                    extra = dict(cell_lo=0) if paged else {}
+                    ms = time_ms(lambda: fn_c(*args_r, mode=mode,
+                                              stats=st_in, **extra, **pkw),
+                                 flush)
+                    p_ms = time_ms(lambda: fn_p(*args_r, mode=mode,
+                                                stats=st_in, **extra,
+                                                **pkw), flush)
+                    n_valid = int(valid[:, :cells // TP].sum()
+                                  if not paged else
+                                  valid.reshape(b, nb, bs)[:, :, :half].sum())
+                    per_cell = payload if mode != "stats" else k_only
+                    meta = (table.numel() * 4 + b * 4 if paged
+                            else b * half * 4 + b * 4)
+                    nbytes = (n_valid * kv * per_cell + meta + q_bytes
+                              + rows.numel() * 4 // TP
+                              + (b * kv * g * 8 if mode == "emit" else 0))
+                    macs = n_valid * kv * g * hd
+                    record(name + ("_kv4" if kv_bits == 4 else ""),
+                           f"{label}, {mode} (rank 0)", row_err, ms, p_ms,
+                           None,
+                           nbytes, [2 * macs] * (1 if mode == "stats"
+                                                 else 2),
+                           [PEAK_F32_OPS_PER_S if kind == "K7"
+                            else PEAK_INT8_OPS_PER_S, PEAK_F32_OPS_PER_S],
+                           arch == "gemma2-2b" and mode == "emit")
+                # the merge over (rank, split), f32 and emitting
+                merge_mode = "one_pass" if smo is None else "sum"
+                out = iad.merge_partials_cuda(rows, mode=merge_mode)
+                out_p = iad.merge_partials_plain(rows, mode=merge_mode)
+                err = float((out - out_p).abs().max())
+                require(err <= 1e-5 * float(out_p.abs().max()),
+                        f"{tag}: merge {err} off the plain merge")
+                s_o = torch.tensor([float(out.abs().max()) / 100],
+                                   device=dev)
+                z_o = torch.round(ru(-5, 5, 1))
+                emitted = iad.merge_partials_cuda(rows, mode=merge_mode,
+                                                  out_scale=s_o, out_zp=z_o,
+                                                  **q8)
+                pair = pq.peg_quantize_cuda(out.reshape(b, -1), s_o, z_o, **q8)
+                require(torch.equal(emitted, pair),
+                        f"{tag}: merge emit not K4's bytes on its f32 output")
+                # against the whole cache in one call, and (two passes) the
+                # plain partials merged by the plain merge
+                ref = fn_w(*whole, **wkw)
+                torch.cuda.synchronize()
+                check = (attend_check if smo is None
+                         else tie_check(v_deq, valid))
+                err = check(out, ref, step, v_abs)
+                if smo is not None:
+                    plain_rows = torch.cat([part(r, "emit", stats, fn_p)
+                                            for r in range(TP)], dim=2)
+                    check(out, iad.merge_partials_plain(plain_rows,
+                                                        mode="sum"),
+                          step, v_abs)
+                if kv_bits == 4:
+                    continue
+                p_ms = time_ms(lambda: iad.merge_partials_plain(
+                    rows, mode=merge_mode), flush)
+                n_out = b * kv * g * hd
+                for merge, kw_e, out_bytes in (
+                        ("merge_partials", {}, 4 * n_out),
+                        ("merge_partials_emit",
+                         dict(out_scale=s_o, out_zp=z_o, **q8), n_out + 8)):
+                    ms = time_ms(lambda: iad.merge_partials_cuda(
+                        rows, mode=merge_mode, **kw_e), flush)
+                    nbytes = rows.numel() * 4 + out_bytes
+                    record(merge, f"{kind} {label}, {merge_mode} over "
+                           f"{rows.shape[2]} rows", err, ms, p_ms, None,
+                           nbytes, 2 * rows.numel(), PEAK_F32_OPS_PER_S,
+                           arch == "gemma2-2b" and kind == "K6"
+                           and smo is not None)
+
+
+def _counters():
+    """{kernel name: (wrapper, launch-count attribute)} of every counter
+    (``kernels.ops._counted``): a 4-bit variant counts on its own attribute
+    of the 8-bit kernel's wrapper, and so do K5's, K6's and K7's launches
+    that emit int8 (either bit width) and the merge's; the partial modes
+    count on wrappers of their own."""
+    from repro_torch.kernels import ops
+    counters = {name: (fn, attr) for name, fn, attr in ops._counted()}
     assert set(counters) == set(KERNELS)
     return counters
 
@@ -3485,34 +3775,46 @@ def async_phase(add):
 # memory), so these phases show the per-rank kernel shapes, the collectives
 # and the memory a rank holds, not a multi-GPU speed-up
 TP = 2
-# the kernels the tensor-parallel quickstart must launch on every rank: K1,
-# K3, K4 (prefill and chunk rows), the emitting K6, and K2 (the reduced FFN)
+# the kernels the tensor-parallel quickstart must launch on every rank in
+# the default layout (caches on the sequence dim): K1, K3, K4 (prefill and
+# chunk rows), K2 (the reduced FFN), K6 in partial mode (the paged decode:
+# statistics, then the second launch) and K5 in partial mode (the dense
+# --parity reruns), the statistics merge and the emitting merge
 TP_QUICK_MUST = ("rms_quantize", "int8_matmul", "peg_quantize",
-                 "paged_int8_attend_decode_emit", "int8_matmul_peg")
+                 "int8_matmul_peg", "paged_int8_attend_decode_partials",
+                 "int8_attend_decode_partials", "merge_partials",
+                 "merge_partials_emit")
 
 
 def _rank_lines(tag, report, names):
     """One line a rank: its device, the named kernels' launches, the host
-    time inside the collectives, resident parameter bytes."""
+    time inside the collectives, resident parameter and KV-cache bytes."""
     for r in report:
         launches = {n: r["launches"][n] for n in names}
+        cache = (f"; peak KV cache {r['cache_bytes']} bytes"
+                 if "cache_bytes" in r else "")
         print(f"[{tag}] rank {r['rank']} on {r['device']} ({r['backend']}): "
               f"launches {launches}; host time in collectives "
               f"{r['collective_s']:.3f} s of {r['seconds']:.2f} s; resident "
               f"params {r['param_bytes']} of {r['whole_param_bytes']} bytes "
-              f"({r['param_bytes'] / r['whole_param_bytes']:.1%})")
+              f"({r['param_bytes'] / r['whole_param_bytes']:.1%}){cache}")
 
 
-def tp2_quickstart_phase(add, want, unsharded_out, device=None):
+def tp2_quickstart_phase(add, want, unsharded_out, device=None,
+                         want4=None):
     """Phase 45 (run after 18): the README quickstart (phase 6's flags,
-    ``--parity``) with ``--tp 2`` through ``serve.main``: two spawned ranks
-    on the card, each serving its slice (KV heads 1 of 2, half the vocab
-    rows and the float columns, the packed payloads whole). Rank 0's lines
-    must be phase 6's (the startup checks, the serve counts, three
-    ``[parity] OK``) and both ranks' greedy tokens phase 6's ``want``;
-    every rank must launch K1, K3, K4, the emitting K6 and K2 (each rank
-    counts from 0 in its own process). ``device="cpu"`` rehearses it on
-    the CPU (the plain versions launch no kernel)."""
+    ``--parity``) with ``--tp 2`` through ``serve.main``, in the launcher's
+    default layout: two spawned ranks on the card, each serving its slice
+    (half of every KV cache's cells, all heads; half the vocab rows and
+    the float columns; the packed payloads whole). Rank 0's lines must be
+    phase 6's (the startup checks, the serve counts, three ``[parity]
+    OK``) and both ranks' greedy tokens phase 6's ``want``; every rank must
+    launch ``TP_QUICK_MUST`` (each rank counts from 0 in its own process)
+    and hold half of phase 6's peak KV cache. With ``want4`` (phase 10's
+    tokens) the 4-bit quickstart runs the same way: K5-kv4 and K6-kv4 in
+    partial mode; its tokens are a match rate (kv4 is one by design), its
+    serve counts the reference's. ``device="cpu"`` rehearses it on the CPU
+    (the plain versions launch no kernel)."""
     from repro_torch.launch import serve
     tag = "tp2-quickstart"
     argv = quick_argv("8", "--reduced", "--block-size", "8", "--max-len",
@@ -3535,6 +3837,8 @@ def tp2_quickstart_phase(add, want, unsharded_out, device=None):
     require(startup == [ln for ln in text.splitlines()
                         if ln.startswith(("[deploy-int8]", "[kv-int8]"))],
             f"{tag}: startup lines differ from the unsharded quickstart's")
+    whole_kib = int(re.search(r"peak kv-cache (\d+) KiB",
+                              unsharded_out).group(1))
     for r in report:
         require(r["tokens"] == want, f"{tag}: rank {r['rank']}'s greedy "
                 f"tokens {r['tokens']} are not the unsharded run's {want}")
@@ -3545,11 +3849,45 @@ def tp2_quickstart_phase(add, want, unsharded_out, device=None):
                 and r["backend"] == "gloo",
                 f"{tag}: rank {r['rank']} on {r['device']} "
                 f"({r['backend']})")
+        require(abs(2 * r["cache_bytes"] / 1024 - whole_kib) <= 1,
+                f"{tag}: rank {r['rank']} holds {r['cache_bytes']} bytes "
+                f"of KV cache, not half of the unsharded {whole_kib} KiB")
         add(r["launches"])
     _rank_lines(tag, report, TP_QUICK_MUST)
     print(f"[{tag}] {TP} ranks served the unsharded quickstart's 36 greedy "
           f"tokens ({sum(len(t) for t in want)}) in {secs:.1f} s, the "
-          f"ranks' start-up included")
+          f"ranks' start-up included; each rank's peak KV cache is half of "
+          f"the unsharded {whole_kib} KiB")
+    if want4 is None:
+        return
+    tag = "tp2-quickstart-4bit"
+    argv = quick_argv("4", "--reduced", "--block-size", "8", "--max-len",
+                      "64", "--parity", *W4, "--tp", str(TP))
+    report, out = [], io.StringIO()
+    with contextlib.redirect_stdout(out):
+        stats = serve.main(argv, report=report, device=device)
+    for line in out.getvalue().splitlines():
+        print(f"[{tag}] {line}")
+    counts = (stats.tokens_generated, stats.decode_steps,
+              stats.prefill_calls, stats.blocks_in_use, stats.chunk_steps)
+    require(counts == (36, 10, 6, 16, 6), f"{tag}: serve counts {counts}")
+    for r in report:
+        same = sum(x == y for a, b in zip(r["tokens"], want4)
+                   for x, y in zip(a, b))
+        require(r["tokens"] == report[0]["tokens"],
+                f"{tag}: the ranks emitted different tokens")
+        for name in ("int8_attend_decode_partials_kv4",
+                     "paged_int8_attend_decode_partials_kv4",
+                     "merge_partials_emit"):
+            require(r["launches"][name] > 0,
+                    f"{tag}: rank {r['rank']} never launched {name}")
+        add(r["launches"])
+        print(f"[{tag}] rank {r['rank']}: {same}/36 greedy tokens equal the "
+              f"unsharded 4-bit quickstart's (kv4 is a match rate, not "
+              f"asserted)")
+    _rank_lines(tag, report, ("int8_attend_decode_partials_kv4",
+                              "paged_int8_attend_decode_partials_kv4",
+                              "merge_partials", "merge_partials_emit"))
 
 
 def _narrow_to(whole, part, rank):
@@ -3617,17 +3955,22 @@ def _site_records():
 
 
 def tp2_full_rank(dist, dev, depth, reduced=False):
-    """One rank of phase 46: gemma2-2b at published width (``depth`` of
+    """One rank of phases 46-47: gemma2-2b at published width (``depth`` of
     26 layers, bf16), PTQ and the deploy path at kv8 as ``FULL_ASYNC``
     builds them (the launcher's ``_quantize``, on the whole params), then
     FULL_ASYNC's requests through ``make_engine`` + ``serve_engine``:
     unsharded on rank 0 first, then sharded on every rank
-    (``make_engine(dist=)``). Returns rank 0's output, the tokens, the
-    decode step walls, the host time in the collectives, the launches of
-    the sharded run, resident parameter bytes against the whole, the
-    embedding's, K5's launch shapes and every decode row's emitted int8
-    ``wo`` input (whole) of each run. ``reduced`` serves the reduced
-    config (a CPU rehearsal)."""
+    (``make_engine(dist=)``) with the caches on their KV heads
+    (``[tp2-full]``) and on their sequence dim (``[tp2-kvseq]``, the
+    default). Returns rank 0's output, the unsharded tokens, decode walls
+    and emitted ``wo`` inputs, and per layout the tokens, the decode step
+    walls, the host time in the collectives, the launches of the sharded
+    run and of one decode step, resident parameter and KV-cache bytes
+    against the whole, the embedding's, the attention kernel's launch
+    shapes and every decode row's emitted int8 ``wo`` input (whole). A
+    layout whose tokens differ from the unsharded run's replays the
+    workload recording every fake-quant site (``first_site_apart``).
+    ``reduced`` serves the reduced config (a CPU rehearsal)."""
     import dataclasses
 
     import numpy as np
@@ -3637,6 +3980,7 @@ def tp2_full_rank(dist, dev, depth, reduced=False):
     from repro_torch.launch import serve as launcher
     from repro_torch.models import transformer as tfm
     from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import place_cache
     from repro_torch.runtime import Request, make_engine, serve_engine
     from repro_torch.runtime.serve_loop import _tree_bytes
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3661,10 +4005,11 @@ def tp2_full_rank(dist, dev, depth, reduced=False):
             10, cfg.vocab_size, size=args.prompt_len).astype(np.int64),
             max_new_tokens=args.new_tokens) for i in range(args.requests)]
 
-    # every decode row's int8 wo input (K5's emit; gathered whole under
-    # dist), in call order: the same calls in both runs (at full width no
-    # other int8 matmul input is H*hd wide; the reduced rehearsal's d_model
-    # is, so there the q/k/v and FFN inputs are held too)
+    # every decode row's int8 wo input (the attention kernel's emit, or the
+    # merge's; whole under dist), in call order: the same calls in every
+    # run (at full width no other int8 matmul input is H*hd wide; the
+    # reduced rehearsal's d_model is, so there the q/k/v and FFN inputs
+    # are held too)
     from repro_torch.core import deploy as deploy_lib
     real_mm, width, emitted = deploy_lib.matmul, cfg.num_heads * cfg.hd, []
 
@@ -3675,19 +4020,24 @@ def tp2_full_rank(dist, dev, depth, reduced=False):
         return real_mm(x, w, *a, **kwargs)
     deploy_lib.matmul = recording
 
-    def serve_timed(eng):
-        step, walls = eng.decode_fn, []
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
-        def sync():
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+    def serve_timed(eng, step_counts=None):
+        step, walls = eng.decode_fn, []
 
         def timed(*a):
             sync()
+            before = kops.launch_counts()
             t0 = time.perf_counter()
             o = step(*a)
             sync()
             walls.append((time.perf_counter() - t0) * 1e3)
+            if step_counts is not None and len(walls) == 3:
+                step_counts.update({k: v - before[k] for k, v in
+                                    kops.launch_counts().items()
+                                    if v > before[k]})
             return o
         eng.decode_fn = timed
         reqs = requests()
@@ -3697,7 +4047,9 @@ def tp2_full_rank(dist, dev, depth, reduced=False):
     kw = dict(batch_slots=args.batch_slots, prompt_pad_len=args.prompt_len,
               max_len=args.max_len, dtype=torch.bfloat16,
               kv_bits=args.kv_bits, ctx_factory=ctx_factory, device=dev)
-    res = {"rank": rank, "device": str(dev), "backend": dist.mesh.backend}
+    res = {"rank": rank, "device": str(dev), "backend": dist.mesh.backend,
+           "n_layers": cfg.num_layers,
+           "row_bytes": args.batch_slots * width}
     if rank == 0:
         eng = make_engine(cfg, packed, **kw)
         res["tokens_un"], res["walls_un"] = serve_timed(eng)
@@ -3705,41 +4057,74 @@ def tp2_full_rank(dist, dev, depth, reduced=False):
         res["emitted_un"] = torch.cat([e.reshape(-1) for e in emitted])
         emitted.clear()
         del eng
+    whole_cache = tfm.init_cache(cfg, args.batch_slots, args.max_len,
+                                 dtype=torch.bfloat16, kv_bits=args.kv_bits,
+                                 device=dev)
+    # the attention kernel's launch shapes: (q, k cache) of K5, whole or in
+    # partial mode
     shapes = set()
-    k5 = kops.int8_attend_decode
+    real_k5 = (kops.int8_attend_decode, kops.int8_attend_decode_partials)
 
-    def k5_shape(q_q, q_scale, k_q, *a, **kwargs):
-        shapes.add((tuple(q_q.shape), tuple(k_q.shape)))
-        return k5(q_q, q_scale, k_q, *a, **kwargs)
-    kops.int8_attend_decode = k5_shape
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    kops.reset_launch_counts()
-    coll.seconds = 0.0
-    t0 = time.perf_counter()
-    eng = make_engine(cfg, packed, dist=dist, **kw)
-    res["tokens"], res["walls"] = serve_timed(eng)
-    secs, coll_s = time.perf_counter() - t0, coll.seconds
-    launches = kops.launch_counts()
-    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-    kops.int8_attend_decode, deploy_lib.matmul = k5, real_mm
-    res["emitted"] = torch.cat([e.reshape(-1) for e in emitted])
-    # the same workload once more, untimed, recording every fake-quant
-    # site: where do the two runs' values first part?
-    sites_un = []
-    if rank == 0:
-        with _site_records() as sites_un:
-            serve_engine(make_engine(cfg, packed, **kw), requests())
-    with _site_records() as sites:
-        serve_engine(make_engine(cfg, packed, dist=dist, **kw), requests())
-    if rank == 0:
-        res["sites_compared"] = min(len(sites), len(sites_un))
-        res["site_apart"] = first_site_apart(sites_un, sites, rank)
-    del sites, sites_un
-    res["n_layers"] = cfg.num_layers
-    res["row_bytes"] = args.batch_slots * width
+    def shape_of(fn):
+        def wrapped(q_q, q_scale, k_q, *a, **kwargs):
+            shapes.add((tuple(q_q.shape), tuple(k_q.shape)))
+            return fn(q_q, q_scale, k_q, *a, **kwargs)
+        return wrapped
+    for tag, d in (("tp2-full", dataclasses.replace(dist,
+                                                    kv_seq_shard=False)),
+                   ("tp2-kvseq", dist)):
+        got = res[tag] = {}
+        shapes.clear()
+        kops.int8_attend_decode, kops.int8_attend_decode_partials = map(
+            shape_of, real_k5)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        kops.reset_launch_counts()
+        coll.seconds = 0.0
+        t0 = time.perf_counter()
+        eng = make_engine(cfg, packed, dist=d, **kw)
+        step_counts = {}
+        got["tokens"], got["walls"] = serve_timed(eng, step_counts)
+        got.update(seconds=time.perf_counter() - t0,
+                   collective_s=coll.seconds,
+                   launches=kops.launch_counts(), step_launches=step_counts,
+                   k5_shapes=sorted(shapes),
+                   peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                               if dev.type == "cuda" else 0),
+                   param_bytes=_tree_bytes(eng.params),
+                   whole_param_bytes=_tree_bytes(packed),
+                   embed_bytes=_tree_bytes(eng.params["embed"]),
+                   whole_embed_bytes=_tree_bytes(packed["embed"]),
+                   cache_bytes=_tree_bytes(place_cache(whole_cache, d)),
+                   whole_cache_bytes=_tree_bytes(whole_cache))
+        kops.int8_attend_decode, kops.int8_attend_decode_partials = real_k5
+        got["emitted"] = torch.cat([e.reshape(-1) for e in emitted])
+        emitted.clear()
+        del eng
+        # when the tokens differ from the unsharded run's, the same
+        # workload once more, untimed, recording every fake-quant site:
+        # where do the runs' values first part? (rank 0 knows, and tells
+        # rank 1)
+        replay = torch.tensor([int(rank == 0 and
+                                   got["tokens"] != res["tokens_un"])])
+        if bool(coll.broadcast(replay, d, src=0)):
+            sites_un = []
+            deploy_lib.matmul = real_mm
+            if rank == 0:
+                with _site_records() as sites_un:
+                    serve_engine(make_engine(cfg, packed, **kw), requests())
+            with _site_records() as sites:
+                serve_engine(make_engine(cfg, packed, dist=d, **kw),
+                             requests())
+            deploy_lib.matmul = recording
+            if rank == 0:
+                got["sites_compared"] = min(len(sites), len(sites_un))
+                got["site_apart"] = first_site_apart(sites_un, sites, rank)
+            del sites, sites_un
+    deploy_lib.matmul = real_mm
     # one collective of each kind at the decode step's shapes, synchronized
     B, n = args.batch_slots, 20
+    splits = 8                 # K5's splits over 64 of 128 cells, 2 ranks
     per_call = {}
     for what, x, fn in (
             ("f32 sum (B, d)", torch.ones(B, 1, cfg.d_model, device=dev),
@@ -3747,6 +4132,10 @@ def tp2_full_rank(dist, dev, depth, reduced=False):
             ("int8 context gather (B, H/2*hd)",
              torch.ones(B, 1, cfg.num_heads // 2 * cfg.hd, device=dev,
                         dtype=torch.int8), coll.all_gather),
+            ("f32 partials gather (B, KV, splits, G, hd + 2)",
+             torch.ones(B, cfg.num_kv_heads, splits // 2,
+                        cfg.num_heads // cfg.num_kv_heads, cfg.hd + 2,
+                        device=dev), coll.all_gather),
             ("bf16 logits gather (B, V/2)",
              torch.ones(B, 1, cfg.vocab_size // 2, device=dev,
                         dtype=torch.bfloat16), coll.all_gather)):
@@ -3754,118 +4143,379 @@ def tp2_full_rank(dist, dev, depth, reduced=False):
         t1 = time.perf_counter()
         for _ in range(n):
             fn(x, dist)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        sync()
         per_call[what] = (time.perf_counter() - t1) / n * 1e3
-    res.update(seconds=secs, collective_s=coll_s, collective_ms=per_call,
-               launches=launches, k5_shapes=sorted(shapes),
-               param_bytes=_tree_bytes(eng.params),
-               whole_param_bytes=_tree_bytes(packed),
-               embed_bytes=_tree_bytes(eng.params["embed"]),
-               whole_embed_bytes=_tree_bytes(packed["embed"]),
-               peak_bytes=peak, text=out.getvalue())
+    res.update(collective_ms=per_call, text=out.getvalue())
     return res
 
 
 def tp2_full_phase(add, device=None, reduced=False):
-    """Phase 46 (run after 18): gemma2-2b at published width (d 2304, 8
+    """Phases 46-47 (run after 18): gemma2-2b at published width (d 2304, 8
     heads on 4 KV heads, hd 256, vocab 256000, d_ff 9216; ``GEMMA_DEPTH``
     layers, bf16), PTQ and deploy at kv8, FULL_ASYNC's workload through
-    ``make_engine(dist=)`` over a (1, 2) rank mesh on ``cuda:0``: both
-    ranks' greedy tokens must equal the unsharded engine's (rank 0, the
-    same params); every rank must launch K1, K3 and the emitting K5 at 2
-    KV heads; float leaves on ``model`` are halved (the tied embed), the
-    packed payloads whole. Every decode row's emitted int8 ``wo`` input
-    (gathered) is held against the unsharded run's layer by layer: layer
-    0's, which no FFN precedes, may differ by at most 1 LSB (K5's merge on
-    a tie); the later layers' differences are counted and printed (the
-    float FFN before them, a bf16 GEMM of the whole weight unsharded, f32
-    partial sums of the halves sharded, moves values by rounding, which
-    the fake-quant sites can turn into grid steps). Prints each rank's
-    median decode step, host time in the collectives and K5's launch
-    shape. ``device="cpu"`` with
-    ``reduced`` rehearses it on the CPU at the reduced width."""
+    ``make_engine(dist=)`` over a (1, 2) rank mesh on ``cuda:0``, in both
+    cache layouts. ``[tp2-full]``, the caches on their KV heads: every rank
+    launches K1, K3 and the emitting K5 at 2 KV heads. ``[tp2-kvseq]``, the
+    default: every rank holds 64 of the 128 cells of every head and
+    launches K5 in partial mode at 4 KV heads over them, the statistics
+    merge and the emitting merge. In both, both ranks' greedy tokens must
+    equal the unsharded engine's (rank 0, the same params); float leaves
+    on ``model`` are halved (the tied embed), the packed payloads whole;
+    every decode row's emitted int8 ``wo`` input (gathered, or merged
+    whole) is held against the unsharded run's layer by layer: layer 0's,
+    which no FFN precedes, may differ by at most 1 LSB (a merge on a tie);
+    the later layers' differences are counted and printed (the float FFN
+    before them, a bf16 GEMM of the whole weight unsharded, f32 partial
+    sums of the halves sharded, moves values by rounding, which the
+    fake-quant sites can turn into grid steps). Prints each rank's median
+    decode step, the launches of one decode step, host time in the
+    collectives, K5's launch shape and the resident KV-cache bytes
+    against the whole. ``device="cpu"`` with ``reduced`` rehearses it on
+    the CPU at the reduced width."""
     from repro_torch.launch.mesh import run_ranks
-    tag = "tp2-full"
     t0 = time.perf_counter()
     ranks = run_ranks(tp2_full_rank, TP, (GEMMA_DEPTH, reduced),
                       device=device)
     secs = time.perf_counter() - t0
     r0 = ranks[0]
     for line in r0["text"].splitlines():
-        print(f"[{tag}] {line}")
+        print(f"[tp2-full] {line}")
     want = r0["tokens_un"]
     n_tok = sum(len(t) for t in want)
     emit_un = r0["emitted_un"]
-    print(f"[{tag}] unsharded engine on rank 0: {n_tok} tokens, decode "
+    print(f"[tp2-full] unsharded engine on rank 0: {n_tok} tokens, decode "
           f"step median {statistics.median(r0['walls_un']):.2f} ms over "
           f"{len(r0['walls_un'])} steps; resident params "
           f"{r0['param_bytes_un']} bytes")
     for r in ranks:
-        same = sum(x == y for a, b in zip(r["tokens"], want)
-                   for x, y in zip(a, b))
-        print(f"[{tag}] rank {r['rank']} on {r['device']} ({r['backend']}): "
-              f"{same}/{n_tok} greedy tokens equal the unsharded engine's; "
-              f"decode step median {statistics.median(r['walls']):.2f} ms "
-              f"over {len(r['walls'])} steps; host time in collectives "
-              f"{r['collective_s']:.3f} s of {r['seconds']:.2f} s; K5 "
-              f"launch shapes (q, k cache) {r['k5_shapes']}; launches "
-              f"{ {n: c for n, c in r['launches'].items() if c} }; resident "
-              f"params {r['param_bytes']} of {r['whole_param_bytes']} bytes "
-              f"(embed {r['embed_bytes']} of {r['whole_embed_bytes']}); "
-              f"peak device memory {r['peak_bytes'] / 2**30:.2f} GiB")
-        print(f"[{tag}] rank {r['rank']}: one collective, synchronized "
+        print(f"[tp2-full] rank {r['rank']}: one collective, synchronized "
               f"(ms): " + ", ".join(f"{k} {v:.3f}"
                                     for k, v in r["collective_ms"].items()))
-        require(r["emitted"].shape == emit_un.shape,
-                f"{tag}: rank {r['rank']} emitted {r['emitted'].numel()} wo "
-                f"input bytes at decode rows, the unsharded run "
-                f"{emit_un.numel()}")
-        # (decode steps, layers, B x H*hd) in call order
-        got = r["emitted"].reshape(-1, r["n_layers"], r["row_bytes"])
-        ref = emit_un.reshape(got.shape)
-        per_layer = [lsb_flips(got[:, i], ref[:, i])
-                     for i in range(r["n_layers"])]
-        print(f"[{tag}] rank {r['rank']}: K5's emitted wo input at every "
-              f"decode row, gathered, against the unsharded run's, layer by "
-              f"layer: "
-              + ", ".join(f"layer {i} {n} of {ref[:, i].numel()} bytes "
-                          f"differ (at most {w} LSB)"
-                          for i, (w, n) in enumerate(per_layer)))
-        # layer 0 reads only the embeddings (no FFN before it): there a
-        # byte may move only where K5's merge rounds a tie the other way
-        require(per_layer[0][0] <= 1, f"{tag}: rank {r['rank']}'s layer-0 "
-                f"emitted wo input is {per_layer[0][0]} LSB off the "
-                f"unsharded run's")
-        require(r["tokens"] == want, f"{tag}: rank {r['rank']}'s greedy "
-                f"tokens differ from the unsharded engine's ({same}/{n_tok} "
-                f"equal)")
-        for name in ("rms_quantize", "int8_matmul", "int8_attend_decode",
-                     "int8_attend_decode_emit"):
-            require(r["launches"][name] > 0,
-                    f"{tag}: rank {r['rank']} never launched {name}")
-        require(all(q[1] == 2 and k[2] == 2 for q, k in r["k5_shapes"]),
-                f"{tag}: K5 shapes {r['k5_shapes']}, not 2 KV heads a rank")
-        require(2 * r["embed_bytes"] == r["whole_embed_bytes"],
-                f"{tag}: rank {r['rank']} holds {r['embed_bytes']} of the "
-                f"embedding's {r['whole_embed_bytes']} bytes, not half")
-        add(r["launches"])
-    apart = r0["site_apart"]
-    if apart is None:
-        print(f"[{tag}] rank 0's fake-quant sites equal the unsharded run's "
-              f"at all {r0['sites_compared']} site calls")
-    else:
-        i, site, n, total, steps, to_edge, rel, tie = apart
-        print(f"[{tag}] rank 0's first fake-quant site apart from the "
-              f"unsharded run's, of {r0['sites_compared']} site calls in "
-              f"order: call {i}, {site}, {n} of {total} values, by at most "
-              f"{steps:.3g} grid steps; each run's value before rounding "
-              f"within {to_edge:.3g} of a step of its rounding boundary ("
-              + ("a tie: within TIE_REL" if tie else "not all within "
-                 "TIE_REL") + f"); the site's values before rounding at "
-              f"most {rel:.3g} of its max|x| apart")
-    print(f"[{tag}] phase {secs:.1f} s ({TP} ranks on one card: no "
+    must = {"tp2-full": ("rms_quantize", "int8_matmul", "int8_attend_decode",
+                         "int8_attend_decode_emit"),
+            "tp2-kvseq": ("rms_quantize", "int8_matmul",
+                          "int8_attend_decode_partials", "merge_partials",
+                          "merge_partials_emit")}
+    for tag in ("tp2-full", "tp2-kvseq"):
+        seq = tag == "tp2-kvseq"
+        apart = r0[tag].get("site_apart", False)
+        if apart is None:
+            print(f"[{tag}] rank 0's fake-quant sites equal the unsharded "
+                  f"run's at all {r0[tag]['sites_compared']} site calls")
+        elif apart is not False:
+            i, site, n, total, steps, to_edge, rel, tie = apart
+            print(f"[{tag}] rank 0's first fake-quant site apart from the "
+                  f"unsharded run's, of {r0[tag]['sites_compared']} site "
+                  f"calls in order: call {i}, {site}, {n} of {total} values,"
+                  f" by at most {steps:.3g} grid steps; each run's value "
+                  f"before rounding within {to_edge:.3g} of a step of its "
+                  f"rounding boundary ("
+                  + ("a tie: within TIE_REL" if tie else "not all within "
+                     "TIE_REL") + f"); the site's values before rounding at "
+                  f"most {rel:.3g} of its max|x| apart")
+        for rr in ranks:
+            r = rr[tag]
+            same = sum(x == y for a, b in zip(r["tokens"], want)
+                       for x, y in zip(a, b))
+            step = statistics.median(r["walls"])
+            print(f"[{tag}] rank {rr['rank']} on {rr['device']} "
+                  f"({rr['backend']}): {same}/{n_tok} greedy tokens equal "
+                  f"the unsharded engine's; decode step median {step:.2f} ms "
+                  f"over {len(r['walls'])} steps; host time in collectives "
+                  f"{r['collective_s']:.3f} s of {r['seconds']:.2f} s; K5 "
+                  f"launch shapes (q, k cache) {r['k5_shapes']}; launches "
+                  f"{ {n: c for n, c in r['launches'].items() if c} }; "
+                  f"launches in one decode step {r['step_launches']}; "
+                  f"resident params {r['param_bytes']} of "
+                  f"{r['whole_param_bytes']} bytes (embed {r['embed_bytes']}"
+                  f" of {r['whole_embed_bytes']}); KV cache "
+                  f"{r['cache_bytes']} of {r['whole_cache_bytes']} bytes; "
+                  f"peak device memory {r['peak_bytes'] / 2**30:.2f} GiB")
+            require(r["emitted"].shape == emit_un.shape,
+                    f"{tag}: rank {rr['rank']} emitted "
+                    f"{r['emitted'].numel()} wo input bytes at decode rows, "
+                    f"the unsharded run {emit_un.numel()}")
+            # (decode steps, layers, B x H*hd) in call order
+            got = r["emitted"].reshape(-1, rr["n_layers"], rr["row_bytes"])
+            ref = emit_un.reshape(got.shape)
+            per_layer = [lsb_flips(got[:, i], ref[:, i])
+                         for i in range(rr["n_layers"])]
+            print(f"[{tag}] rank {rr['rank']}: the emitted wo input at every "
+                  f"decode row against the unsharded run's, layer by "
+                  f"layer: "
+                  + ", ".join(f"layer {i} {n} of {ref[:, i].numel()} bytes "
+                              f"differ (at most {w} LSB)"
+                              for i, (w, n) in enumerate(per_layer)))
+            # layer 0 reads only the embeddings (no FFN before it): there a
+            # byte may move only where a merge rounds a tie the other way
+            require(per_layer[0][0] <= 1, f"{tag}: rank {rr['rank']}'s "
+                    f"layer-0 emitted wo input is {per_layer[0][0]} LSB off "
+                    f"the unsharded run's")
+            require(r["tokens"] == want, f"{tag}: rank {rr['rank']}'s greedy"
+                    f" tokens differ from the unsharded engine's "
+                    f"({same}/{n_tok} equal)")
+            for name in must[tag]:
+                require(r["launches"][name] > 0,
+                        f"{tag}: rank {rr['rank']} never launched {name}")
+            kv = 4 if seq else 2
+            require(all(q[1] == kv and k[2] == kv and
+                        k[1] == (64 if seq else 128)
+                        for q, k in r["k5_shapes"]),
+                    f"{tag}: K5 shapes {r['k5_shapes']}, not {kv} KV heads "
+                    f"over {64 if seq else 128} cells a rank")
+            require(2 * r["embed_bytes"] == r["whole_embed_bytes"],
+                    f"{tag}: rank {rr['rank']} holds {r['embed_bytes']} of "
+                    f"the embedding's {r['whole_embed_bytes']} bytes, not "
+                    f"half")
+            # (the KV-head layout keeps the positions whole on every rank)
+            require(not seq or 2 * r["cache_bytes"] == r["whole_cache_bytes"],
+                    f"{tag}: rank {rr['rank']} holds {r['cache_bytes']} of "
+                    f"the KV cache's {r['whole_cache_bytes']} bytes, not "
+                    f"half")
+            add(r["launches"])
+    print(f"[tp2-full] phases 46-47 {secs:.1f} s ({TP} ranks on one card: no "
           f"multi-GPU speed is shown)")
+
+
+@contextlib.contextmanager
+def _emit_records():
+    """Every decode attention call that emits the int8 ``wo`` input (a
+    whole-cache K5 / K6 / K7 call or the merge of partials) as (its f32
+    output, the int8 emit, the grid's scale): the call is made once more
+    without the emit for the f32 values it quantized (both are
+    deterministic). On the host, in call order."""
+    got = []
+
+    def record(i, out, f, s):
+        got.append((f.cpu(), out.cpu(), s))
+        return out
+    with _emitting_calls(record):
+        yield got
+
+
+@contextlib.contextmanager
+def _emitting_calls(visit):
+    """Each emitting decode attention call's int8 emit replaced by
+    ``visit(call index, emit, its f32 output, scale)``."""
+    from repro_torch.kernels import ops as kops
+    names = ("int8_attend_decode", "paged_int8_attend_decode",
+             "paged_attend_decode", "merge_partials")
+    real, calls = {n: getattr(kops, n) for n in names}, [0]
+
+    def hooked(fn):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            if kw.get("out_scale") is None:
+                return out
+            plain = {k: v for k, v in kw.items()
+                     if k not in ("out_scale", "out_zp", "qmin", "qmax")}
+            f = fn(*a, **plain).reshape(out.shape)
+            calls[0] += 1
+            return visit(calls[0] - 1, out, f, float(kw["out_scale"]))
+        return wrapped
+    for n in names:
+        setattr(kops, n, hooked(real[n]))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(kops, n, real[n])
+
+
+def take_ties(got, got_f, ref, ref_f, s):
+    """``got`` (an int8 emit on the grid step ``s``) with every byte that
+    differs from ``ref`` taken ``ref``'s way where both runs' f32 values
+    lie within ``TIE_REL`` x max(|v / s|, 1) of a step of the rounding
+    boundary (a rounding tie); returns (that emit, bytes apart, bytes
+    taken)."""
+    import torch
+    off = got != ref.to(got.device)
+    if not bool(off.any()):
+        return got, 0, 0
+
+    def at_edge(v):
+        t = v.to(got.device).float() / s
+        return ((t - t.floor()) - 0.5).abs() <= TIE_REL * t.abs().clamp_min(
+            1.0)
+    take = off & at_edge(got_f) & at_edge(ref_f)
+    return (torch.where(take, ref.to(got.device), got), int(off.sum()),
+            int(take.sum()))
+
+
+@contextlib.contextmanager
+def _ties_taken(ref):
+    """Every emitting call's bytes that part from ``ref``'s (an
+    :func:`_emit_records` of the same calls) at a rounding tie taken the
+    reference's way (:func:`take_ties`); yields {"first": the first call
+    apart or None, "taken": bytes taken, "apart": bytes apart that are not
+    ties, "calls": emitting calls}."""
+    got = {"first": None, "taken": 0, "apart": 0, "calls": 0}
+
+    def visit(i, out, f, s):
+        got["calls"] = i + 1
+        if i >= len(ref):
+            got["apart"] += out.numel()
+            return out
+        ref_f, ref_q, _ = ref[i]
+        out, n_off, n_taken = take_ties(out, f, ref_q, ref_f, s)
+        if n_off and got["first"] is None:
+            got["first"] = i
+        got["taken"] += n_taken
+        got["apart"] += n_off - n_taken
+        return out
+    with _emitting_calls(visit):
+        yield got
+
+
+def tp2_launcher_rank(dist, dev, runs, reduced=False):
+    """One rank of phase 48: each (arch, depth, argv, the unsharded run's
+    tokens) of ``runs`` served by the serving launcher's body on this
+    rank's slice (``serve._serve_rank``), its ``get_config`` giving
+    ``arch`` cut to ``depth`` layers at published width (``reduced``: the
+    reduced config, a CPU rehearsal). When the tokens differ from the
+    unsharded run's, each rank serves the workload unsharded, recording
+    every emitting decode attention call (:func:`_emit_records`), then
+    sharded once more with every emitted byte that parts from it at a
+    rounding tie taken its way (:func:`_ties_taken`). Returns per run the
+    rank's report (tokens, launches, host time in the collectives,
+    resident parameter and KV-cache bytes) with rank 0's output, the
+    decode step walls, the launches of the third decode step and, after a
+    rerun, its tokens and what it took."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve as launcher
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    got = []
+    orig_get, orig_make = launcher.get_config, launcher.make_decode_step
+    for arch, depth, argv, want in runs:
+        cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+        cfg = cfg.reduced() if reduced else cfg
+        argv = argv + (["--reduced"] if reduced else [])
+        walls, step_counts = [], {}
+
+        def make(*a, **kw):
+            step = orig_make(*a, **kw)
+
+            def timed(*sa):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                before = kops.launch_counts()
+                t0 = time.perf_counter()
+                o = step(*sa)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                walls.append((time.perf_counter() - t0) * 1e3)
+                if len(walls) == 3:
+                    step_counts.update({k: v - before[k] for k, v in
+                                        kops.launch_counts().items()
+                                        if v > before[k]})
+                return o
+            return timed
+        launcher.get_config = lambda a: cfg if a == arch else orig_get(a)
+        launcher.make_decode_step = make
+        try:
+            text, _, info = launcher._serve_rank(dist, dev, argv, None)
+            info.update(text=text, walls=list(walls),
+                        step_launches=dict(step_counts))
+            if info["tokens"] != want:     # alike on every rank
+                ref, ap = {}, launcher.build_parser()
+                with _emit_records() as emits, \
+                        contextlib.redirect_stdout(io.StringIO()):
+                    launcher._serve_main(ap, ap.parse_args(argv), cfg, dev,
+                                         None, info=ref)
+                with _ties_taken(emits) as taken:
+                    _, _, again = launcher._serve_rank(dist, dev, argv,
+                                                       None)
+                info["ties"] = dict(taken, tokens=again["tokens"],
+                                    tokens_un=ref["tokens"])
+        finally:
+            launcher.get_config = orig_get
+            launcher.make_decode_step = orig_make
+        got.append(info)
+    return got
+
+
+def tp2_granite_phase(add, want, device=None, reduced=False):
+    """Phase 48 (after the zoo phases): granite-20b at published width (d
+    6144, 48 query heads on 1 KV head, hd 128, d_ff 24576; ``ZOO_DEPTH`` 2
+    layers, bf16), which the KV-head layout cannot serve on 2 ranks, with
+    the quickstart's flags (PTQ, deploy, continuous scheduler, chunked
+    prefill, paged blocks of 16) at kv8 and kv16 on 2 ranks in the default
+    layout: each rank holds 8 of every block's 16 cells and runs K6 (kv8)
+    or K7 (kv16) in partial mode at G 48, the statistics merge and the
+    emitting merge. Both ranks' greedy tokens must equal the zoo phase's
+    unsharded run's (``want``: {kv bits: that run's report}), or else the
+    runs must part only at rounding ties: rerun with every emitted ``wo``
+    byte that parts from the unsharded run's at a tie taken its way
+    (``tp2_launcher_rank``), the sharded run must emit every token of the
+    unsharded one and part at no byte that is not a tie. Each rank's peak
+    KV cache must be half of the unsharded run's. Prints per rank the
+    launches of one decode step, the median decode step, host time in the
+    collectives, resident bytes and, after a rerun, where the runs part
+    and how many bytes it took."""
+    from repro_torch.launch.mesh import run_ranks
+    arch = "granite-20b"
+    bits = ("8", "16")
+    runs = [(arch, ZOO_DEPTH[arch], zoo_argv(arch, kv, *FULL_QUICK),
+             want[kv]["tokens"]) for kv in bits]
+    t0 = time.perf_counter()
+    ranks = run_ranks(tp2_launcher_rank, TP, (runs, reduced), device=device)
+    secs = time.perf_counter() - t0
+    for i, kv in enumerate(bits):
+        tag = "tp2-granite" + ("" if kv == "8" else "-kv16")
+        kernel = ("paged_int8_attend_decode_partials" if kv == "8"
+                  else "paged_attend_decode_partials")
+        for line in ranks[0][i]["text"].splitlines():
+            print(f"[{tag}] {line}")
+        un = want[kv]
+        n_tok = sum(len(t) for t in un["tokens"])
+        for rr in ranks:
+            r = rr[i]
+            same = sum(x == y for a, b in zip(r["tokens"], un["tokens"])
+                       for x, y in zip(a, b))
+            print(f"[{tag}] rank {r['rank']} on {r['device']} "
+                  f"({r['backend']}): {same}/{n_tok} greedy tokens equal "
+                  f"the unsharded run's; decode step median "
+                  f"{statistics.median(r['walls']):.2f} ms over "
+                  f"{len(r['walls'])} steps; launches in one decode step "
+                  f"{r['step_launches']}; host time in collectives "
+                  f"{r['collective_s']:.3f} s of {r['seconds']:.2f} s; "
+                  f"resident params {r['param_bytes']} of "
+                  f"{r['whole_param_bytes']} bytes; peak KV cache "
+                  f"{r['cache_bytes']} of {un['cache_bytes']} bytes")
+            ties = r.get("ties")
+            if ties is not None:
+                again = sum(x == y for a, b in zip(ties["tokens"],
+                                                   un["tokens"])
+                            for x, y in zip(a, b))
+                print(f"[{tag}] rank {r['rank']}: the runs part first at "
+                      f"emitting decode attention call {ties['first']} of "
+                      f"{ties['calls']}; with every emitted wo byte that "
+                      f"parts at a rounding tie (within TIE_REL) taken the "
+                      f"unsharded run's way ({ties['taken']} bytes), "
+                      f"{ties['apart']} bytes part otherwise and {again}/"
+                      f"{n_tok} greedy tokens equal the unsharded run's")
+                require(ties["tokens_un"] == un["tokens"], f"{tag}: the "
+                        f"rank's unsharded rerun emitted other tokens than "
+                        f"the zoo phase's")
+                require(ties["apart"] == 0 and ties["taken"] > 0
+                        and ties["tokens"] == un["tokens"],
+                        f"{tag}: rank {r['rank']}'s greedy tokens differ "
+                        f"from the unsharded run's ({same}/{n_tok} equal) "
+                        f"and not only at rounding ties")
+            for name in (kernel, "merge_partials", "merge_partials_emit"):
+                require(r["step_launches"].get(name, 0) > 0,
+                        f"{tag}: rank {r['rank']}'s decode step launched no "
+                        f"{name}")
+            require(2 * r["cache_bytes"] == un["cache_bytes"],
+                    f"{tag}: rank {r['rank']} holds {r['cache_bytes']} bytes "
+                    f"of KV cache, not half of {un['cache_bytes']}")
+            add(r["launches"])
+    print(f"[tp2-granite] phase 48 {secs:.1f} s ({TP} ranks on one card)")
 
 
 # The paper's BERT-base outlier dims (308 and 381) and two more, planted in
@@ -4119,13 +4769,13 @@ def _ffn_hidden_errors(task, params, dev):
 # Table 1 and Table 5's tasks in ``[paper-tables]``: a parity rule, the
 # regression task (overlap rule) and syn-mnli (order rule, three labels),
 # which Tables 6 and 7 also train
-PAPER_TASKS = ("syn-cola", "syn-stsb", "syn-mnli")
+PAPER_TASKS = ("syn-stsb", "syn-mnli")
 
 
 def paper_tables_phase(add, device="cuda"):
     """Phase 20, ``[paper-tables]``: the reference's table harness at its
     ``BENCH_CFG`` (3 layers, d 64), trained afresh (the cache directory is
-    emptied first): Table 1 and Table 5 over ``PAPER_TASKS`` (three of the
+    emptied first): Table 1 and Table 5 over ``PAPER_TASKS`` (two of the
     eight synthetic tasks, so that the run fits its time;
     ``scripts/paper_tables_torch.py`` trains all eight),
     Table 6's W8A8 PTQ and QAT rows and Table 7's W4A32 PTQ and AdaRound
@@ -4771,7 +5421,7 @@ def _layer_launches(tag, step, n_layers, per_layer):
                 f"{n_layers} layers")
 
 
-def zoo_phase(add, reduced_only=False):
+def zoo_phase(add, reduced_only=False, served=None):
     """Phases 26-30: the attention-decoder zoo. At full width with the
     depth of ``ZOO_DEPTH`` through the launcher's own ``main`` (its
     ``get_config`` gives the cut config): internlm2-20b and granite-20b
@@ -4787,7 +5437,10 @@ def zoo_phase(add, reduced_only=False):
     through a static bf16 dense cache, then the quickstart's flags. Then
     each config's README quickstart at ``--reduced`` with ``--parity``:
     the reference launcher's counts and three ``[parity] OK`` lines.
-    Returns {tag: integer vs fake-quant rel gap} of the reduced runs."""
+    Returns {tag: integer vs fake-quant rel gap} of the reduced runs;
+    ``served``, a dict, receives granite-20b's launcher reports by kv bits
+    ("8", "16": the greedy tokens and the peak KV cache; phase 48)."""
+    served = {} if served is None else served
     from repro_torch.configs import get_config
     reduced = ("--reduced", "--block-size", "8", "--max-len", "64",
                "--parity")
@@ -4799,11 +5452,13 @@ def zoo_phase(add, reduced_only=False):
             with zoo_config(arch) as cfg:
                 zoo_shape(tag, arch, cfg)
                 report = {}
+                got = served.setdefault("8", []) if arch == "granite-20b" \
+                    else None
                 counts, rel, stats, out = serve_phase(
                     tag, zoo_argv(arch, "8", *FULL_QUICK, *parity),
                     ZOO_MUST + ("int8_matmul_peg",),
                     "paged_int8_attend_decode_emit", report=report,
-                    record_ops=False)
+                    record_ops=False, served=got)
             add(counts)
             if parity:
                 require_parity(tag, out, 3)
@@ -4825,7 +5480,8 @@ def zoo_phase(add, reduced_only=False):
                 tag, zoo_argv("granite-20b", "16", *FULL_QUICK),
                 ("rms_quantize", "int8_matmul", "int8_matmul_peg",
                  "paged_attend_decode", "paged_attend_decode_emit"),
-                "paged_attend_decode_emit")
+                "paged_attend_decode_emit",
+                served=served.setdefault("16", []))
         add(counts)
         tag = "zoo-qwen3-moe"
         tokens = []
@@ -4923,9 +5579,9 @@ REC_LONG = ["--requests", "2", "--prompt-len", "2040", "--new-tokens", "16",
 REC_REDUCED = {"recurrentgemma-2b": (8, 15), "rwkv6-1p6b": (8, 18)}
 # the recurrent families' full-width serving phases (31-33) serve them cut
 # to these depths, every width their own (to pay for the tensor-parallel
-# phases 45-46): recurrentgemma-2b 3 of its 8 (rec, rec,
-# local_attn) superblocks and its 2-layer rec tail, rwkv6-1p6b 8 of 24
-REC_DEPTH = {"recurrentgemma-2b": 11, "rwkv6-1p6b": 8}
+# phases 45-48): recurrentgemma-2b 2 of its 8 (rec, rec,
+# local_attn) superblocks and its 2-layer rec tail, rwkv6-1p6b 4 of 24
+REC_DEPTH = {"recurrentgemma-2b": 8, "rwkv6-1p6b": 4}
 
 
 @contextlib.contextmanager
@@ -6484,12 +7140,14 @@ def main() -> int:
           f"bytes ({f4_stats.blocks_in_use} blocks) against "
           f"{fq_stats.cache_bytes} bytes ({fq_stats.blocks_in_use} blocks) "
           f"at kv-bits 8")
+    r4_served = []
     r4, r4_rel, r4_stats, r4_out = serve_phase(
         "reduced-quickstart-4bit", quick_argv("4", *reduced_quick, *W4),
         ("rms_quantize", "int8_matmul_w4", "int8_matmul_peg_w4",
          "peg_quantize", "int8_attend_decode_kv4",
          "paged_int8_attend_decode_kv4", "int8_attend_decode_emit",
-         "paged_int8_attend_decode_emit"), "paged_int8_attend_decode_emit")
+         "paged_int8_attend_decode_emit"), "paged_int8_attend_decode_emit",
+        served=r4_served)
     add(r4)
     r4_kv = kv_gap("reduced-quickstart-4bit", r4_out, 4)
     kv4_lines("reduced-quickstart-4bit", r4_out)
@@ -6515,9 +7173,10 @@ def main() -> int:
     mark("telemetry phases 15-16")
     ra = async_phase(add)
     mark("async phases 17-18")
-    tp2_quickstart_phase(add, rq_served[0]["tokens"], rq_out)
+    tp2_quickstart_phase(add, rq_served[0]["tokens"], rq_out,
+                         want4=r4_served[0]["tokens"])
     tp2_full_phase(add)
-    mark("tensor-parallel phases 45-46")
+    mark("tensor-parallel phases 45-47")
     uncut()
     paper_bert_phase(add)
     mark("paper BERT phase 19")
@@ -6564,12 +7223,15 @@ def main() -> int:
     train_card_vs_cpu_phase(add)
     train_e2e_phase(add)
     mark("training phases 24-25")
-    for tag, rel in zoo_phase(add).items():
+    granite = {}
+    for tag, rel in zoo_phase(add, served=granite).items():
         require(rel <= 1e-4, f"{tag}: integer path differs from "
                 f"fake-quant by {rel:.4%} of max|logits|")
         print(f"[{tag}] integer vs fake-quant logits: rel {rel:.4%} "
               f"(bound 1e-4)")
     mark("zoo phases 26-30")
+    tp2_granite_phase(add, {kv: runs[0] for kv, runs in granite.items()})
+    mark("tensor-parallel phase 48")
     for tag, rel in rec_phase(add).items():
         require(rel <= 1e-4, f"{tag}: integer path differs from "
                 f"fake-quant by {rel:.4%} of max|logits| past its rounding "

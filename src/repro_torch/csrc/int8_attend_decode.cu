@@ -19,7 +19,10 @@
 // are (B,S,KV,hd/2) split-half nibbles and hd % 8 == 0. splits x cps cells
 // cover the S cells, none empty (splits <= 32); ws holds
 // B*KV*splits*G*(hd+2) f32, counters B*KV zeroed ints (left zeroed).
-// Returns cudaGetLastError().
+// mode (splitkv::Mode) 0 merges in the kernel; a partial mode writes the
+// splits' rows to part (B,KV,splits,G,prow) f32 instead of out / out_q and
+// takes no ws or counters (ml_in (B,KV,G,2) f32 with PART_EMIT; see
+// split_attend.cuh). Returns cudaGetLastError().
 extern "C" int int8_attend_decode(
     const void* q_q, const void* q_scale, const void* q_zp, const void* k_zp,
     const void* v_zp, const void* k_q, const void* k_scale, const void* v_q,
@@ -28,7 +31,8 @@ extern "C" int int8_attend_decode(
     const void* out_scale, const void* out_zp, int out_qmin, int out_qmax,
     int batch, int kv, int g, int hd, int s_len, int window, float softcap,
     int sm_qmin, int sm_qmax, int smo_qmin, int smo_qmax, int kv_bits,
-    int splits, int cps, void* ws, void* counters, void* stream) {
+    int splits, int cps, void* ws, void* counters, int mode, void* part,
+    const void* ml_in, void* stream) {
   if (batch <= 0 || kv <= 0) return (int)cudaGetLastError();
   if (splits < 1 || splits > splitkv::kMaxSplits || cps < 1 ||
       (long)(splits - 1) * cps >= s_len || (long)splits * cps < s_len)
@@ -38,6 +42,8 @@ extern "C" int int8_attend_decode(
       smo, out, out_q, out_scale, out_zp, out_qmin, out_qmax, batch, kv, g,
       hd, window, softcap, sm_qmin, sm_qmax, smo_qmin, smo_qmax, kv_bits,
       splits, cps, ws, counters);
+  if (!splitkv::set_mode(&a, mode, part, ml_in))
+    return (int)cudaErrorInvalidValue;
   a.k_pos = (const int*)k_pos;
   a.s_len = s_len;
   return splitkv::launch<false>(a, kv_bits, stream);

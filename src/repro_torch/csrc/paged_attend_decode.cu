@@ -20,6 +20,19 @@ bool bad_plan(int splits, int bps, int nb) {
          splits * bps < nb;
 }
 
+// The table and the rank's in-block cells [cell_lo, cell_lo + bs) of
+// blocks of bs_full logical cells; false unless they fit in the block.
+bool set_window(splitkv::SplitArgs* a, const void* table, int nb, int bs,
+                int s_cap, int bs_full, int cell_lo) {
+  a->table = (const int*)table;
+  a->nb = nb;
+  a->bs = bs;
+  a->s_cap = s_cap;
+  a->bs_full = bs_full;
+  a->cell_lo = cell_lo;
+  return cell_lo >= 0 && cell_lo + bs <= bs_full;
+}
+
 }  // namespace
 
 // K6. q_q (B,KV,G,hd) int8; q_scale/q_zp (B,KV,G) f32; k_zp/v_zp (B,KV) f32;
@@ -33,6 +46,9 @@ bool bad_plan(int splits, int bps, int nb) {
 // (N,bs,KV,hd/2) split-half nibbles, hd % 8 == 0.
 // splits x bps blocks cover the nb blocks (splits <= 32, bps <= 256); ws
 // holds B*KV*splits*G*(hd+2) f32, counters B*KV zeroed ints (left zeroed).
+// mode, part and ml_in as in int8_attend_decode; the arena holds the
+// in-block cells [cell_lo, cell_lo + bs) of blocks of bs_full logical cells
+// (bs_full = bs, cell_lo = 0: the whole blocks), nb * bs_full >= s_cap.
 // Returns cudaGetLastError().
 extern "C" int paged_int8_attend_decode(
     const void* q_q, const void* q_scale, const void* q_zp, const void* k_zp,
@@ -43,7 +59,8 @@ extern "C" int paged_int8_attend_decode(
     int out_qmax, int batch, int kv, int g, int hd, int nb, int bs,
     int s_cap, int window, float softcap, int sm_qmin, int sm_qmax,
     int smo_qmin, int smo_qmax, int kv_bits, int splits, int bps, void* ws,
-    void* counters, void* stream) {
+    void* counters, int mode, void* part, const void* ml_in, int bs_full,
+    int cell_lo, void* stream) {
   if (batch <= 0 || kv <= 0) return (int)cudaGetLastError();
   if (bad_plan(splits, bps, nb)) return (int)cudaErrorInvalidValue;
   splitkv::SplitArgs a = splitkv::quant_args(
@@ -51,10 +68,9 @@ extern "C" int paged_int8_attend_decode(
       q_pos, sm, smo, out, out_q, out_scale, out_zp, out_qmin, out_qmax,
       batch, kv, g, hd, window, softcap, sm_qmin, sm_qmax, smo_qmin,
       smo_qmax, kv_bits, splits, bps, ws, counters);
-  a.table = (const int*)table;
-  a.nb = nb;
-  a.bs = bs;
-  a.s_cap = s_cap;
+  if (!set_window(&a, table, nb, bs, s_cap, bs_full, cell_lo) ||
+      !splitkv::set_mode(&a, mode, part, ml_in))
+    return (int)cudaErrorInvalidValue;
   return splitkv::launch<true>(a, kv_bits, stream);
 }
 
@@ -71,7 +87,8 @@ extern "C" int paged_attend_decode(
     int out_qmin, int out_qmax, int batch, int kv, int g, int hd, int nb,
     int bs, int s_cap, int window, float softcap, int sm_qmin, int sm_qmax,
     int smo_qmin, int smo_qmax, int splits, int bps, void* ws,
-    void* counters, void* stream) {
+    void* counters, int mode, void* part, const void* ml_in, int bs_full,
+    int cell_lo, void* stream) {
   if (batch <= 0 || kv <= 0) return (int)cudaGetLastError();
   if (bad_plan(splits, bps, nb)) return (int)cudaErrorInvalidValue;
   splitkv::SplitArgs a = splitkv::base_args(
@@ -80,10 +97,9 @@ extern "C" int paged_attend_decode(
       window, softcap, sm_qmin, sm_qmax, smo_qmin, smo_qmax, splits, bps,
       ws, counters);
   a.qf = (const float*)q;
-  a.table = (const int*)table;
-  a.nb = nb;
-  a.bs = bs;
-  a.s_cap = s_cap;
+  if (!set_window(&a, table, nb, bs, s_cap, bs_full, cell_lo) ||
+      !splitkv::set_mode(&a, mode, part, ml_in))
+    return (int)cudaErrorInvalidValue;
   if (kv_is_bf16)
     return splitkv::launch_float<__nv_bfloat16>(a, stream);
   return splitkv::launch_float<float>(a, stream);

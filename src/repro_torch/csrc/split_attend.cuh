@@ -91,6 +91,19 @@
 // allocated once per device by the wrappers (shared by K5, K6 and K7); the
 // kernel leaves the counters at zero. Built with -fmad=false and rintf
 // (round half to even).
+//
+// Partial mode (tensor-parallel serving with the cache's sequence dim cut
+// over the ranks): a launch over a rank's cells writes each split's partial
+// to the caller's rows part (B, KV, S, G, prow) and merges nothing; the
+// ranks gather the rows along the split dim and merge_partials.cu merges
+// them in (rank, split) order with the arithmetic above. PART_ONE writes
+// (acc_j, m_j, l_j) (prow = hd + 2); PART_STATS launch 1's (m_j, l_j)
+// (prow = 2); PART_EMIT launch 2's acc_j (prow = hd) on the global (m, l)
+// it is given (ml_in (B, KV, G, 2), merged over every rank's splits). A
+// paged rank holds the in-block cells [cell_lo, cell_lo + bs) of blocks of
+// bs_full logical cells: its cell c of table column t is the lane's cell
+// L = t * bs_full + cell_lo + c, and the position is derived from L as
+// above. A dense rank's cells carry their stored positions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -114,6 +127,8 @@ constexpr int kMaxHd = 256;          // head_dim (G <= kMidG)
 constexpr float kNegInf = -1e30f;
 
 enum Pass { ONE_PASS = 0, STATS = 1, EMIT = 2 };
+// WHOLE merges in the kernel; the others write partial rows (see above)
+enum Mode { WHOLE = 0, PART_ONE = 1, PART_STATS = 2, PART_EMIT = 3 };
 
 // Cells per stage: 16 for 4-byte (f32) rows, 32 for the rest.
 template <typename KT>
@@ -151,8 +166,12 @@ struct SplitArgs {
   const float* out_zp;      // (1,)
   float* ws;                // acc (B,KV,S,G,hd) then (m, l) (B,KV,S,G,2)
   int* counters;            // (B,KV)
+  float* part;              // partial mode: (B,KV,S,G,prow) rows, else null
+  const float* ml_in;       // PART_EMIT: the global (m, l) (B,KV,G,2)
+  int mode, prow;           // Mode; floats a partial row
   int batch, kv, g, hd;
-  int nb, bs, s_cap;        // paged
+  int nb, bs, s_cap;        // paged (bs: the arena's cells a block)
+  int bs_full, cell_lo;     // paged: logical cells a block, first held
   int s_len;                // dense
   int window, splits;
   int span;                 // per split: paged blocks / dense cells
@@ -321,7 +340,8 @@ split_attend_kernel(const SplitArgs a) {
   if constexpr (PAGED) {
     for (int i = tid; i < nblk; i += kThreads) {
       tbl_s[i] = a.table[(long)b * a.nb + blk0 + i];
-      const int r = (qp - (blk0 + i) * bs) % a.s_cap;   // floor modulo
+      // floor modulo, from the logical index of the block's first cell
+      const int r = (qp - ((blk0 + i) * a.bs_full + a.cell_lo)) % a.s_cap;
       r0_s[i] = r < 0 ? r + a.s_cap : r;
     }
   }
@@ -389,9 +409,17 @@ split_attend_kernel(const SplitArgs a) {
     // launch 1 has finished and its (m_j, l_j) are visible: every split's
     // statistics merge into the global (m, l)
     asm volatile("griddepcontrol.wait;\n" ::: "memory");
-    load_stats<MG>(ws_ml, bh, S, G, s_s, pvs_s);
-    __syncthreads();
-    if (tid < G) merge_stats<MG>(s_s, pvs_s, S, tid, &M_s[tid], &L_s[tid]);
+    if (a.ml_in != nullptr) {      // partial mode: merged over every rank
+      if (tid < G) {
+        M_s[tid] = a.ml_in[(qrow0 + tid) * 2];
+        L_s[tid] = a.ml_in[(qrow0 + tid) * 2 + 1];
+      }
+    } else {
+      load_stats<MG>(ws_ml, bh, S, G, s_s, pvs_s);
+      __syncthreads();
+      if (tid < G)
+        merge_stats<MG>(s_s, pvs_s, S, tid, &M_s[tid], &L_s[tid]);
+    }
   }
 
   // the running (m, l) of heads warp + 4 gi
@@ -486,7 +514,9 @@ split_attend_kernel(const SplitArgs a) {
             int r = r0_s[blk] - (cl - blk * bs);
             if (r < 0) r += a.s_cap;
             const int p = qp - r;
-            ok = cell0 + cl < a.s_cap && p >= 0 && tbl_s[blk] >= 0;
+            const int L = (blk0 + blk) * a.bs_full + a.cell_lo +
+                          (cl - blk * bs);
+            ok = L < a.s_cap && p >= 0 && tbl_s[blk] >= 0;
             if (a.window > 0) ok = ok && p > qp - a.window;
           } else {
             const int kp = kpos_s[buf][c];
@@ -587,6 +617,31 @@ split_attend_kernel(const SplitArgs a) {
 
   // this split's partial
   const size_t part = (size_t)bh * S + j;
+  if (a.part != nullptr) {         // partial mode: the caller's row, no merge
+    float* const row0 = a.part + part * G * a.prow;
+    if (PASS != EMIT && lane == 0) {
+#pragma unroll
+      for (int gi = 0; gi < GI; ++gi) {
+        const int g = warp + 4 * gi;
+        if (g < G) {
+          row0[g * a.prow + a.prow - 2] = m_run[gi];
+          row0[g * a.prow + a.prow - 1] = l_run[gi];
+        }
+      }
+    }
+    if (PASS != STATS) {
+      const int nq = hd / 4;
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) {
+        const int pr = tid + i * kThreads;
+        if (pr >= G * nq) continue;
+        const int g = pr / nq, w = pr - g * nq;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) row0[g * a.prow + 4 * w + e] = acc[i][e];
+      }
+    }
+    return;
+  }
   if (PASS != EMIT && lane == 0) {
 #pragma unroll
     for (int gi = 0; gi < GI; ++gi) {
@@ -701,6 +756,19 @@ inline int launch_smem(Kernel kernel, int bytes, int blocks, int* memo) {
   return bytes;
 }
 
+// One launch of pass PASS (a plain launch: a partial EMIT reads its (m, l)
+// from ml_in, so griddepcontrol.wait has nothing to wait for).
+template <typename KT, bool PAGED, bool KV4, int MG, int PASS>
+int launch_pass(const SplitArgs& a, int smem, int* memo,
+                cudaStream_t stream) {
+  const auto kernel = split_attend_kernel<KT, PAGED, KV4, MG, PASS>;
+  const int bytes =
+      launch_smem(kernel, smem, kMaxResident<KT, PAGED, MG, PASS>, memo);
+  if (bytes < 0) return -bytes;
+  kernel<<<dim3(a.splits, a.kv, a.batch), kThreads, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename KT, bool PAGED, bool KV4, int MG>
 int launch_split(const SplitArgs& a, cudaStream_t stream) {
   constexpr bool QUANT = std::is_same<KT, int8_t>::value;
@@ -708,14 +776,14 @@ int launch_split(const SplitArgs& a, cudaStream_t stream) {
   const int smem = 4 * kChunk<KT> * (QUANT ? kRow : a.stride);
   const dim3 grid(a.splits, a.kv, a.batch);
   static int memo[3][2] = {{-1, 0}, {-1, 0}, {-1, 0}};  // per pass (one device)
-  if (a.smo == nullptr) {
-    const auto kernel = split_attend_kernel<KT, PAGED, KV4, MG, ONE_PASS>;
-    const int bytes = launch_smem(
-        kernel, smem, kMaxResident<KT, PAGED, MG, ONE_PASS>, memo[ONE_PASS]);
-    if (bytes < 0) return -bytes;
-    kernel<<<grid, kThreads, bytes, stream>>>(a);
-    return (int)cudaGetLastError();
-  }
+  if (a.mode == PART_STATS)
+    return launch_pass<KT, PAGED, KV4, MG, STATS>(a, smem, memo[STATS],
+                                                  stream);
+  if (a.mode == PART_EMIT)
+    return launch_pass<KT, PAGED, KV4, MG, EMIT>(a, smem, memo[EMIT], stream);
+  if (a.smo == nullptr)
+    return launch_pass<KT, PAGED, KV4, MG, ONE_PASS>(a, smem, memo[ONE_PASS],
+                                                     stream);
   const auto stats = split_attend_kernel<KT, PAGED, KV4, MG, STATS>;
   const auto emit = split_attend_kernel<KT, PAGED, KV4, MG, EMIT>;
   const int s_bytes = launch_smem(
@@ -823,6 +891,24 @@ int launch_g(const SplitArgs& a, cudaStream_t s) {
   if (a.g <= kTile) return launch_split<KT, PAGED, KV4, kTile>(a, s);
   if (a.g <= kMidG) return launch_split<KT, PAGED, KV4, kMidG>(a, s);
   return launch_split<KT, PAGED, KV4, kMaxG>(a, s);
+}
+
+// The partial-mode fields of a (mode, part, ml_in) call, checked: mode is
+// a Mode; a partial mode takes part (and PART_EMIT ml_in), writes no out
+// and uses no workspace; PART_ONE takes no softmax_out site. Returns
+// false on a bad combination.
+inline bool set_mode(SplitArgs* a, int mode, void* part, const void* ml_in) {
+  a->mode = mode;
+  a->part = (float*)part;
+  a->ml_in = (const float*)ml_in;
+  a->prow = mode == PART_ONE ? a->hd + 2 : mode == PART_STATS ? 2 : a->hd;
+  if (mode == WHOLE) return part == nullptr && ml_in == nullptr;
+  if (mode < WHOLE || mode > PART_EMIT || part == nullptr ||
+      a->out != nullptr || a->out_q != nullptr)
+    return false;
+  if (mode == PART_ONE && a->smo != nullptr) return false;
+  if (mode != PART_ONE && a->smo == nullptr) return false;
+  return (mode == PART_EMIT) == (ml_in != nullptr);
 }
 
 // K5 (dense) and K6 (paged): int8 or int4 payloads.

@@ -29,7 +29,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("norm_quant", "peg_quant", "int8_matmul", "int8_attend_decode",
-           "paged_attend_decode")
+           "paged_attend_decode", "merge_partials")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -40,13 +40,17 @@ SIGNATURES = {
                    [_I] * 8 + [_P]},
     "peg_quant": {"peg_quant": [_P, _I, _P, _P, _P, _L] + [_I] * 6 + [_P]},
     "int8_matmul": {"int8_matmul": [_P] * 11 + [_I] * 14 + [_P]},
+    # K5-K7 end with (ws, counters, mode, part, ml_in[, bs_full, cell_lo],
+    # stream)
     "int8_attend_decode": {"int8_attend_decode": [_P] * 17 + [_I] * 8 +
-                           [_F] + [_I] * 7 + [_P] * 3},
+                           [_F] + [_I] * 7 + [_P] * 2 + [_I] + [_P] * 3},
     "paged_attend_decode": {
         "paged_int8_attend_decode": [_P] * 17 + [_I] * 10 + [_F] +
-        [_I] * 7 + [_P] * 3,
+        [_I] * 7 + [_P] * 2 + [_I] + [_P] * 2 + [_I] * 2 + [_P],
         "paged_attend_decode": [_P] * 3 + [_I] + [_P] * 8 + [_I] * 10 +
-        [_F] + [_I] * 6 + [_P] * 3},
+        [_F] + [_I] * 6 + [_P] * 2 + [_I] + [_P] * 2 + [_I] * 2 + [_P]},
+    "merge_partials": {"merge_partials": [_P] + [_I] * 6 + [_P] * 4 +
+                       [_I] * 2 + [_P] * 2},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

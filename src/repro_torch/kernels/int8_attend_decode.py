@@ -34,6 +34,20 @@ each lane's S cells are cut into contiguous runs (:func:`plan_dense_kv_splits`),
 each run's partial softmax state goes to a per-device workspace that the
 kernel leaves clean, and the runs merge in split order; with
 ``softmax_out`` it makes two launches from one C call.
+
+Partial mode (a rank's cells of a cache whose sequence dim is cut over
+tensor-parallel ranks): ``int8_attend_decode_partials_*`` write each
+split's partial as a row of ``(B, KV, splits, G, prow)`` f32 and merge
+nothing. ``mode="one_pass"`` gives ``(acc_j, m_j, l_j)`` (prow hd + 2,
+no softmax_out site); with softmax_out ``"stats"`` gives launch 1's
+``(m_j, l_j)`` (prow 2) and ``"emit"`` launch 2's ``acc_j`` (prow hd) on
+the global ``stats`` (B, KV, G, 2) it is given. The ranks gather the rows
+along the split dim, so row ``r * splits + j`` is rank r's split j, and
+``merge_partials_*`` (``csrc/merge_partials.cu``) merges them in that
+order: ``"one_pass"`` and ``"stats"`` as the in-kernel merge, ``"sum"`` the
+second launch's accumulators, with the optional int8 emit. The wrappers
+count ``launches`` / ``launches_kv4`` (partials) and ``launches`` /
+``launches_emit`` (merges).
 """
 from __future__ import annotations
 
@@ -268,46 +282,250 @@ def split_scratch(device, stream, n_words, n_counters):
     return words, counters
 
 
+def _dense_operands(q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale, v_q,
+                    v_scale, k_pos, q_pos, kv_bits):
+    """K5's operands checked and contiguous, and (B, KV, G, hd, S)."""
+    b, kv, g, hd = check_query(q_q, torch.int8)
+    _args.on_cuda(q_q, k_q, v_q, k_pos, q_pos)
+    s_len = k_q.shape[1]
+    shape = payload_shape((b, s_len), kv, hd, kv_bits)
+    return (q_q.contiguous(), f32_like(q_scale, (b, kv, g), "q_scale"),
+            f32_like(q_zp, (b, kv, g), "q_zp"),
+            f32_like(k_zp, (b, kv), "k_zp"), f32_like(v_zp, (b, kv), "v_zp"),
+            check_int8(k_q, shape, "k_q"),
+            f32_like(k_scale, (b, s_len, kv), "k_scale"),
+            check_int8(v_q, shape, "v_q"),
+            f32_like(v_scale, (b, s_len, kv), "v_scale"),
+            i32(k_pos, (b, s_len), "k_pos"),
+            i32(q_pos.reshape(-1), (b,), "q_pos")), (b, kv, g, hd, s_len)
+
+
+def _dense_launch(operands, dims, sites, kv_bits, out, mode=0, part=None,
+                  ml_in=None, what="int8_attend_decode"):
+    """Launch K5 on ``_dense_operands``; ``sites`` = (window, softcap, sm,
+    smo, sm_qmin, sm_qmax, smo_qmin, smo_qmax); ``out`` = (f32 out, int8
+    out_q, s_o, z_o, qmin, qmax), all None in a partial mode (``part``
+    receives the rows, and the workspace is not used)."""
+    b, kv, g, hd, s_len = dims
+    window, softcap, sm, smo, sm_qmin, sm_qmax, smo_qmin, smo_qmax = sites
+    f32_out, out_q, s_o, z_o, qmin, qmax = out
+    splits, cps = plan_dense_kv_splits(b, kv, s_len)
+    stream = _args.stream()
+    ws = counters = None
+    if part is None:
+        ws, counters = split_scratch(operands[0].device, stream,
+                                     b * kv * splits * g * (hd + 2), b * kv)
+    p = _args.ptr
+    _build.check(_build.lib("int8_attend_decode").int8_attend_decode(
+        *map(p, operands), p(sm), p(smo), p(f32_out), p(out_q), p(s_o),
+        p(z_o), qmin, qmax, b, kv, g, hd, s_len, window_arg(window),
+        softcap_arg(softcap), sm_qmin, sm_qmax, smo_qmin, smo_qmax, kv_bits,
+        splits, cps, p(ws), p(counters), mode, p(part), p(ml_in), stream),
+        what)
+
+
 def int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale,
                             v_q, v_scale, k_pos, q_pos, *, window,
                             logit_softcap, sm_quant, sm_qmin, sm_qmax,
                             smo_quant, smo_qmin, smo_qmax, kv_bits=8,
                             out_scale=None, out_zp=None, qmin=-128,
                             qmax=127) -> torch.Tensor:
-    b, kv, g, hd = check_query(q_q, torch.int8)
-    _args.on_cuda(q_q, k_q, v_q, k_pos, q_pos)
-    s_len = k_q.shape[1]
-    q_q = q_q.contiguous()
-    shape = payload_shape((b, s_len), kv, hd, kv_bits)
-    k_q = check_int8(k_q, shape, "k_q")
-    v_q = check_int8(v_q, shape, "v_q")
-    q_scale = f32_like(q_scale, (b, kv, g), "q_scale")
-    q_zp = f32_like(q_zp, (b, kv, g), "q_zp")
-    k_zp = f32_like(k_zp, (b, kv), "k_zp")
-    v_zp = f32_like(v_zp, (b, kv), "v_zp")
-    k_scale = f32_like(k_scale, (b, s_len, kv), "k_scale")
-    v_scale = f32_like(v_scale, (b, s_len, kv), "v_scale")
-    k_pos = i32(k_pos, (b, s_len), "k_pos")
-    q_pos = i32(q_pos.reshape(-1), (b,), "q_pos")
-    sm, smo = site_args(sm_quant, smo_quant, q_q.device)
-    out, s_o, z_o = output(b, kv, g, hd, out_scale, out_zp, q_q.device)
+    operands, dims = _dense_operands(q_q, q_scale, q_zp, k_zp, v_zp, k_q,
+                                     k_scale, v_q, v_scale, k_pos, q_pos,
+                                     kv_bits)
+    b, kv, g, hd, _ = dims
+    dev = operands[0].device
+    sm, smo = site_args(sm_quant, smo_quant, dev)
+    out, s_o, z_o = output(b, kv, g, hd, out_scale, out_zp, dev)
     emit = s_o is not None
-    splits, cps = plan_dense_kv_splits(b, kv, s_len)
-    stream = _args.stream()
-    ws, counters = split_scratch(q_q.device, stream,
-                                 b * kv * splits * g * (hd + 2), b * kv)
-    p = _args.ptr
-    _build.check(_build.lib("int8_attend_decode").int8_attend_decode(
-        p(q_q), p(q_scale), p(q_zp), p(k_zp), p(v_zp), p(k_q), p(k_scale),
-        p(v_q), p(v_scale), p(k_pos), p(q_pos), p(sm), p(smo),
-        p(None if emit else out), p(out if emit else None), p(s_o), p(z_o),
-        qmin, qmax, b, kv, g, hd, s_len, window_arg(window),
-        softcap_arg(logit_softcap), sm_qmin, sm_qmax, smo_qmin, smo_qmax,
-        kv_bits, splits, cps, p(ws), p(counters), stream),
-        "int8_attend_decode")
+    _dense_launch(operands, dims, (window, logit_softcap, sm, smo, sm_qmin,
+                                   sm_qmax, smo_qmin, smo_qmax), kv_bits,
+                  (None if emit else out, out if emit else None, s_o, z_o,
+                   qmin, qmax))
     count_launch(int8_attend_decode_cuda, kv_bits, emit)
     return out
 
 
 int8_attend_decode_cuda.launches = int8_attend_decode_cuda.launches_kv4 = 0
 int8_attend_decode_cuda.launches_emit = 0
+
+
+# -- partial mode: a rank's cells, merged across ranks ----------------------
+
+PARTIAL_MODES = {"one_pass": 1, "stats": 2, "emit": 3}   # splitkv::Mode
+
+
+def partial_row(mode, hd):
+    """Floats of one (split, head) partial row: acc and (m, l), (m, l),
+    or acc."""
+    return {"one_pass": hd + 2, "stats": 2, "emit": hd}[mode]
+
+
+def check_partial(mode, stats, smo_quant, shape):
+    """Raise unless ``mode`` fits the softmax_out site: one pass without
+    it, stats / emit with it, ``stats`` (B, KV, G, 2) given to emit only."""
+    if mode not in PARTIAL_MODES:
+        raise ValueError(f"attention decode partials: mode must be one of "
+                         f"{tuple(PARTIAL_MODES)}, got {mode!r}")
+    if (mode == "one_pass") != (smo_quant is None):
+        raise ValueError("attention decode partials: one_pass takes no "
+                         "softmax_out site, stats and emit take one")
+    if (mode == "emit") != (stats is not None):
+        raise ValueError("attention decode partials: the global stats go to "
+                         "emit and only to emit")
+    if stats is not None and tuple(stats.shape) != (*shape, 2):
+        raise ValueError(f"attention decode partials: stats must be "
+                         f"{(*shape, 2)}, got {tuple(stats.shape)}")
+
+
+def partials_plain(s, valid, v, v_scale, v_zp, bounds, *, mode, stats,
+                   logit_softcap, sm_quant, sm_qmin, sm_qmax, smo_quant,
+                   smo_qmin, smo_qmax):
+    """The partial rows (B, KV, len(bounds), G, prow) f32 of the cells
+    [lo, hi) of each split: logits ``s`` (B, KV, G, C), ``valid`` (B, C),
+    ``v`` (B, C, KV, hd) with ``v_scale`` / ``v_zp`` as in
+    :func:`softmax_attend`. A split's m_j = max(-1e30, max s), p =
+    e^(s - m_j), l_j = sum p (emit: p = fq(e^(s - m) / l) on the global
+    ``stats``), acc_j = (p * v_s) @ v - z_v * sum(p * v_s)."""
+    check_partial(mode, stats, smo_quant, s.shape[:3])
+    if logit_softcap is not None:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    if sm_quant is not None:
+        s = site_fake_quant(s, sm_quant, sm_qmin, sm_qmax)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    rows = []
+    for lo, hi in bounds:
+        sj = s[..., lo:hi]
+        if mode == "emit":
+            m, l = stats[..., :1], stats[..., 1:]
+            p = site_fake_quant(torch.exp(sj - m) / l, smo_quant, smo_qmin,
+                                smo_qmax)
+        else:
+            m = torch.clamp_min(sj.amax(dim=-1, keepdim=True), NEG_INF)
+            p = torch.exp(sj - m)
+            ml = torch.cat([m, p.sum(dim=-1, keepdim=True)], dim=-1)
+            if mode == "stats":
+                rows.append(ml)
+                continue
+        if v_scale is not None:
+            p = p * v_scale[:, lo:hi].float().permute(0, 2, 1)[:, :, None]
+        acc = torch.einsum("bkgs,bskd->bkgd", p, v[:, lo:hi].float())
+        if v_zp is not None:
+            acc = acc - v_zp.float()[:, :, None, None] * p.sum(dim=-1,
+                                                               keepdim=True)
+        rows.append(acc if mode == "emit" else torch.cat([acc, ml], dim=-1))
+    return torch.stack(rows, dim=2)
+
+
+def int8_attend_decode_partials_plain(q_q, q_scale, q_zp, k_zp, v_zp, k_q,
+                                      k_scale, v_q, v_scale, k_pos, q_pos, *,
+                                      mode, stats=None, window, logit_softcap,
+                                      sm_quant, sm_qmin, sm_qmax, smo_quant,
+                                      smo_qmin, smo_qmax, kv_bits=8):
+    """K5's partial rows over these cells, split as the kernel splits them
+    (:func:`plan_dense_kv_splits`)."""
+    b, kv = q_q.shape[:2]
+    s_len = k_pos.shape[1]
+    k_q, v_q = kv_values(k_q, v_q, q_q.shape[-1], kv_bits)
+    s = int8_logits(q_q, q_scale, q_zp, k_zp, k_q, k_scale)
+    return partials_plain(
+        s, decode_valid(k_pos, q_pos, window), v_q, v_scale, v_zp,
+        dense_split_cells(s_len, *plan_dense_kv_splits(b, kv, s_len)),
+        mode=mode, stats=stats, logit_softcap=logit_softcap,
+        sm_quant=sm_quant, sm_qmin=sm_qmin, sm_qmax=sm_qmax,
+        smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax)
+
+
+def merge_partials_plain(part, *, mode, out_scale=None, out_zp=None,
+                         qmin=-128, qmax=127):
+    """Merge the rows (B, KV, P, G, prow) of P partials in row order:
+    ``"one_pass"`` the output (m = max(-1e30, max m_j), l = max(sum l_j
+    e^(m_j - m), 1e-30), out = sum acc_j e^(m_j - m) / l), ``"stats"`` the
+    global (m, l) (B, KV, G, 2), ``"sum"`` the sum of the second launch's
+    acc_j. The output is (B, KV, G, hd) f32, or with ``out_scale`` its rows
+    quantized as K4 quantizes them, (B, KV*G*hd) int8."""
+    if mode not in ("one_pass", "stats", "sum"):
+        raise ValueError(f"merge_partials: mode must be one_pass, stats or "
+                         f"sum, got {mode!r}")
+    if mode == "sum":
+        return emit_plain(part.sum(dim=2), out_scale, out_zp, qmin, qmax)
+    m_j, l_j = part[..., -2], part[..., -1]
+    m = torch.clamp_min(m_j.amax(dim=2, keepdim=True), NEG_INF)
+    w = torch.exp(m_j - m)
+    l = torch.clamp_min((l_j * w).sum(dim=2), 1e-30)
+    if mode == "stats":
+        return torch.stack([m[:, :, 0], l], dim=-1)
+    out = (part[..., :-2] * w[..., None]).sum(dim=2) / l[..., None]
+    return emit_plain(out, out_scale, out_zp, qmin, qmax)
+
+
+def partial_output(b, kv, splits, g, hd, mode, device):
+    return torch.empty((b, kv, splits, g, partial_row(mode, hd)),
+                       dtype=torch.float32, device=device)
+
+
+def stats_arg(stats, shape):
+    return None if stats is None else f32_like(stats, (*shape, 2), "stats")
+
+
+def int8_attend_decode_partials_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_q,
+                                     k_scale, v_q, v_scale, k_pos, q_pos, *,
+                                     mode, stats=None, window, logit_softcap,
+                                     sm_quant, sm_qmin, sm_qmax, smo_quant,
+                                     smo_qmin, smo_qmax, kv_bits=8):
+    operands, dims = _dense_operands(q_q, q_scale, q_zp, k_zp, v_zp, k_q,
+                                     k_scale, v_q, v_scale, k_pos, q_pos,
+                                     kv_bits)
+    b, kv, g, hd, s_len = dims
+    check_partial(mode, stats, smo_quant, (b, kv, g))
+    dev = operands[0].device
+    sm, smo = site_args(sm_quant, smo_quant, dev)
+    part = partial_output(b, kv, plan_dense_kv_splits(b, kv, s_len)[0], g,
+                          hd, mode, dev)
+    _dense_launch(operands, dims, (window, logit_softcap, sm, smo, sm_qmin,
+                                   sm_qmax, smo_qmin, smo_qmax), kv_bits,
+                  (None, None, None, None, -128, 127), PARTIAL_MODES[mode],
+                  part, stats_arg(stats, (b, kv, g)),
+                  "int8_attend_decode partials")
+    count_launch(int8_attend_decode_partials_cuda, kv_bits)
+    return part
+
+
+_MERGE_MODES = {"one_pass": 0, "stats": 1, "sum": 2}
+
+
+def merge_partials_cuda(part, *, mode, out_scale=None, out_zp=None,
+                        qmin=-128, qmax=127):
+    if mode not in _MERGE_MODES:
+        raise ValueError(f"merge_partials: mode must be one_pass, stats or "
+                         f"sum, got {mode!r}")
+    _args.on_cuda(part)
+    if part.dim() != 5 or part.dtype != torch.float32:
+        raise ValueError(f"merge_partials: part must be (B, KV, P, G, prow) "
+                         f"f32, got {tuple(part.shape)} {part.dtype}")
+    b, kv, n_parts, g, prow = part.shape
+    hd = prow - 2 if mode == "one_pass" else prow
+    if mode == "stats" and prow != 2:
+        raise ValueError(f"merge_partials: stats rows are 2 wide, got {prow}")
+    part = part.contiguous()
+    dev = part.device
+    ml = out = out_q = s_o = z_o = None
+    if mode == "stats":
+        ml = torch.empty((b, kv, g, 2), dtype=torch.float32, device=dev)
+    else:
+        out, s_o, z_o = output(b, kv, g, hd, out_scale, out_zp, dev)
+        if s_o is not None:
+            out, out_q = None, out
+    p = _args.ptr
+    _build.check(_build.lib("merge_partials").merge_partials(
+        p(part), _MERGE_MODES[mode], b, kv, n_parts, g, hd, p(out), p(out_q),
+        p(s_o), p(z_o), qmin, qmax, p(ml), _args.stream()), "merge_partials")
+    merge_partials_cuda.launches += 1
+    if out_q is not None:
+        merge_partials_cuda.launches_emit += 1
+    return ml if mode == "stats" else (out if out_q is None else out_q)
+
+
+int8_attend_decode_partials_cuda.launches = 0
+int8_attend_decode_partials_cuda.launches_kv4 = 0
+merge_partials_cuda.launches = merge_partials_cuda.launches_emit = 0

@@ -235,17 +235,102 @@ def paged_int8_attend_decode(q_q, q_scale, k_arena, k_scale, v_arena,
               qmax=qmax)
 
 
+def int8_attend_decode_partials(q_q, q_scale, k_q, k_scale, v_q, v_scale,
+                                k_pos, q_pos, *, mode: str, stats=None,
+                                q_zp=None, k_zp=None, v_zp=None, window=None,
+                                logit_softcap=None, sm_quant=None,
+                                sm_qmin: int = 0, sm_qmax: int = 255,
+                                smo_quant=None, smo_qmin: int = 0,
+                                smo_qmax: int = 255, kv_bits: int = 8):
+    """K5 in partial mode over a tensor-parallel rank's cells of a dense
+    int8 cache (the arguments of :func:`int8_attend_decode`, no padding):
+    the splits' partial rows (B, KV, splits, G, prow) f32 for
+    :func:`merge_partials` (``mode`` "one_pass" without a softmax_out site;
+    "stats", then "emit" with the merged ``stats`` (B, KV, G, 2), with
+    one)."""
+    q_zp, k_zp, v_zp = _zero_points(q_scale, q_zp, k_zp, v_zp)
+    fn = _pick(q_q, _iad.int8_attend_decode_partials_plain,
+               _iad.int8_attend_decode_partials_cuda)
+    return fn(q_q, q_scale, q_zp, k_zp, v_zp, k_q, k_scale, v_q, v_scale,
+              k_pos, q_pos, mode=mode, stats=stats, window=window,
+              logit_softcap=logit_softcap, sm_quant=sm_quant,
+              sm_qmin=sm_qmin, sm_qmax=sm_qmax, smo_quant=smo_quant,
+              smo_qmin=smo_qmin, smo_qmax=smo_qmax, kv_bits=kv_bits)
+
+
+def paged_int8_attend_decode_partials(q_q, q_scale, k_arena, k_scale,
+                                      v_arena, v_scale, block_table, q_pos,
+                                      *, s_cap: int, block_size: int,
+                                      cell_lo: int, mode: str, stats=None,
+                                      q_zp=None, k_zp=None, v_zp=None,
+                                      window=None, logit_softcap=None,
+                                      sm_quant=None, sm_qmin: int = 0,
+                                      sm_qmax: int = 255, smo_quant=None,
+                                      smo_qmin: int = 0, smo_qmax: int = 255,
+                                      kv_bits: int = 8):
+    """K6 in partial mode over a rank's in-block cells ``[cell_lo, cell_lo
+    + arena cells)`` of blocks of ``block_size`` logical cells (the table
+    cut to the columns ``s_cap`` reaches at that size): partial rows as
+    :func:`int8_attend_decode_partials`."""
+    q_zp, k_zp, v_zp = _zero_points(q_scale, q_zp, k_zp, v_zp)
+    fn = _pick(q_q, _pad.paged_int8_attend_decode_partials_plain,
+               _pad.paged_int8_attend_decode_partials_cuda)
+    return fn(q_q, q_scale, q_zp, k_zp, v_zp, k_arena, k_scale, v_arena,
+              v_scale, _lane_blocks(block_table, s_cap, block_size), q_pos,
+              s_cap=s_cap, block_size=block_size, cell_lo=cell_lo, mode=mode,
+              stats=stats, window=window, logit_softcap=logit_softcap,
+              sm_quant=sm_quant, sm_qmin=sm_qmin, sm_qmax=sm_qmax,
+              smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax,
+              kv_bits=kv_bits)
+
+
+def paged_attend_decode_partials(q, k_arena, v_arena, block_table, q_pos, *,
+                                 s_cap: int, block_size: int, cell_lo: int,
+                                 mode: str, stats=None, window=None,
+                                 logit_softcap=None, sm_quant=None,
+                                 sm_qmin: int = 0, sm_qmax: int = 255,
+                                 smo_quant=None, smo_qmin: int = 0,
+                                 smo_qmax: int = 255):
+    """K7 in partial mode over a rank's in-block cells (as
+    :func:`paged_int8_attend_decode_partials`, f32 / bf16 arenas)."""
+    fn = _pick(q, _pad.paged_attend_decode_partials_plain,
+               _pad.paged_attend_decode_partials_cuda)
+    return fn(q, k_arena, v_arena,
+              _lane_blocks(block_table, s_cap, block_size), q_pos,
+              s_cap=s_cap, block_size=block_size, cell_lo=cell_lo, mode=mode,
+              stats=stats, window=window, logit_softcap=logit_softcap,
+              sm_quant=sm_quant, sm_qmin=sm_qmin, sm_qmax=sm_qmax,
+              smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax)
+
+
+def merge_partials(part, *, mode: str, out_scale=None, out_zp=None,
+                   qmin: int = -128, qmax: int = 127):
+    """Merge partial rows (B, KV, P, G, prow) in row order (ranks gathered
+    along the split dim: rank-major): "one_pass" -> (B, KV, G, hd) f32,
+    "stats" -> the global (m, l) (B, KV, G, 2), "sum" (the second launch's
+    accumulators) -> (B, KV, G, hd); with ``out_scale`` the output's rows
+    quantized for the output projection, (B, KV*G*hd) int8."""
+    fn = _pick(part, _iad.merge_partials_plain, _iad.merge_partials_cuda)
+    return fn(part, mode=mode, out_scale=out_scale, out_zp=out_zp,
+              qmin=qmin, qmax=qmax)
+
+
 def _counted():
     """(name, wrapper, attribute) of every launch counter: a 4-bit variant
     counts on its own attribute of the 8-bit kernel's wrapper, and so do
-    K5's, K6's and K7's launches that emit int8."""
+    K5's, K6's and K7's launches that emit int8 (and the merge's); their
+    partial modes count on wrappers of their own."""
     wrappers = (_lnq.rms_quantize_cuda, _peg.peg_quantize_cuda,
                 _imm.int8_matmul_cuda, _imm.int8_matmul_peg_cuda,
                 _iad.int8_attend_decode_cuda,
                 _pad.paged_int8_attend_decode_cuda,
                 _pad.paged_attend_decode_cuda, _lnq.ln_quantize_cuda,
                 _lnq.rms_fake_quant_cuda, _lnq.ln_fake_quant_cuda,
-                _peg.peg_fake_quant_cuda)
+                _peg.peg_fake_quant_cuda,
+                _iad.int8_attend_decode_partials_cuda,
+                _pad.paged_int8_attend_decode_partials_cuda,
+                _pad.paged_attend_decode_partials_cuda,
+                _iad.merge_partials_cuda)
     for fn in wrappers:
         base = fn.__name__[:-len("_cuda")]
         for attr in ("launches", "launches_w4", "launches_kv4",

@@ -27,6 +27,13 @@ lane's blocks across thread blocks (:func:`plan_kv_splits`) and merges the
 splits' partial softmax states in split order, in a per-device workspace
 that it leaves clean; with ``softmax_out`` it makes two launches from one
 C call.
+
+Partial mode (``*_partials_*``; ``int8_attend_decode`` says what the rows
+hold and how ``merge_partials`` merges them): a tensor-parallel rank's
+arena holds the in-block cells ``[cell_lo, cell_lo + bs)`` of blocks of
+``block_size`` logical cells (the arena's cell dim cut over the ranks).
+Cell c of table column t is the lane's logical cell ``t * block_size +
+cell_lo + c``; its position is derived from that index as above.
 """
 from __future__ import annotations
 
@@ -104,11 +111,98 @@ def kv_split_blocks(nb, splits, bps):
 
 
 def _table(block_table, b, bs, s_cap):
+    """The contiguous int32 table and its width; ``bs`` the logical cells a
+    block."""
     nb = block_table.shape[1]
     if block_table.shape[0] != b or nb * bs < s_cap:
         raise ValueError(f"block table {tuple(block_table.shape)} does not "
                          f"cover {b} lanes x s_cap={s_cap} at bs={bs}")
     return block_table.to(torch.int32).contiguous(), nb
+
+
+def _quant_operands(q_q, q_scale, q_zp, k_zp, v_zp, k_arena, k_scale,
+                    v_arena, v_scale, block_table, q_pos, s_cap, block_size,
+                    kv_bits):
+    """K6's operands checked and contiguous (the arenas' cells a block and
+    the logical ``block_size`` may differ: a rank's in-block range), and
+    (B, KV, G, hd, table columns, the arenas' cells a block)."""
+    b, kv, g, hd = _iad.check_query(q_q, torch.int8)
+    _args.on_cuda(q_q, k_arena, v_arena, block_table, q_pos)
+    n, cells = k_arena.shape[:2]
+    shape = _iad.payload_shape((n, cells), kv, hd, kv_bits)
+    table, nb = _table(block_table, b, block_size, s_cap)
+    return (q_q.contiguous(), _iad.f32_like(q_scale, (b, kv, g), "q_scale"),
+            _iad.f32_like(q_zp, (b, kv, g), "q_zp"),
+            _iad.f32_like(k_zp, (b, kv), "k_zp"),
+            _iad.f32_like(v_zp, (b, kv), "v_zp"),
+            _iad.check_int8(k_arena, shape, "k_arena"),
+            _iad.f32_like(k_scale, (n, cells, kv), "k_scale"),
+            _iad.check_int8(v_arena, shape, "v_arena"),
+            _iad.f32_like(v_scale, (n, cells, kv), "v_scale"), table,
+            _iad.i32(q_pos.reshape(-1), (b,), "q_pos")), \
+        (b, kv, g, hd, nb, cells)
+
+
+def _float_operands(q, k_arena, v_arena, block_table, q_pos, s_cap,
+                    block_size):
+    """K7's operands checked and contiguous, and the dims of
+    :func:`_quant_operands`."""
+    b, kv, g, hd = _iad.check_query(q.float(), torch.float32)
+    _args.on_cuda(q, k_arena, v_arena, block_table, q_pos)
+    n, cells = k_arena.shape[:2]
+    if k_arena.dtype not in (torch.float32, torch.bfloat16) or \
+            v_arena.dtype != k_arena.dtype or \
+            tuple(k_arena.shape) != (n, cells, kv, hd) or \
+            tuple(v_arena.shape) != (n, cells, kv, hd):
+        raise ValueError(f"paged_attend_decode: arenas must be "
+                         f"{(n, cells, kv, hd)} f32 or bf16, got "
+                         f"{tuple(k_arena.shape)} {k_arena.dtype} / "
+                         f"{tuple(v_arena.shape)} {v_arena.dtype}")
+    k_arena, v_arena = k_arena.contiguous(), v_arena.contiguous()
+    if k_arena.data_ptr() % 4 or v_arena.data_ptr() % 4:
+        raise ValueError("paged_attend_decode: arenas must be 4-byte "
+                         "aligned (the kernel copies 4 or 16 bytes at a "
+                         "time)")
+    table, nb = _table(block_table, b, block_size, s_cap)
+    return (q.float().contiguous(), k_arena, v_arena, table,
+            _iad.i32(q_pos.reshape(-1), (b,), "q_pos")), \
+        (b, kv, g, hd, nb, cells)
+
+
+def _paged_launch(entry, operands, dims, sites, out, tail, *, s_cap,
+                  block_size, cell_lo=0, mode=0, part=None, ml_in=None):
+    """Launch K6 (``entry`` "paged_int8_attend_decode", ``tail`` (kv_bits,))
+    or K7 ("paged_attend_decode", ``tail`` ()) on its operands; ``sites``
+    and ``out`` as ``int8_attend_decode._dense_launch``'s. K7's operands
+    carry the arenas' dtype flag after them."""
+    b, kv, g, hd, nb, cells = dims
+    window, softcap, sm, smo, sm_qmin, sm_qmax, smo_qmin, smo_qmax = sites
+    f32_out, out_q, s_o, z_o, qmin, qmax = out
+    splits, bps = plan_kv_splits(b, kv, nb, cells)
+    stream = _args.stream()
+    ws = counters = None
+    if part is None:
+        ws, counters = _iad.split_scratch(operands[0].device, stream,
+                                          b * kv * splits * g * (hd + 2),
+                                          b * kv)
+    p = _args.ptr
+    head = [p(x) for x in operands]
+    if entry == "paged_attend_decode":      # q, k, v, the bf16 flag, ...
+        head.insert(3, int(operands[1].dtype == torch.bfloat16))
+    _build.check(getattr(_build.lib("paged_attend_decode"), entry)(
+        *head, p(sm), p(smo), p(f32_out), p(out_q), p(s_o), p(z_o), qmin,
+        qmax, b, kv, g, hd, nb, cells, s_cap, _iad.window_arg(window),
+        _iad.softcap_arg(softcap), sm_qmin, sm_qmax, smo_qmin, smo_qmax,
+        *tail, splits, bps, p(ws), p(counters), mode, p(part), p(ml_in),
+        block_size, cell_lo, stream),
+        entry + (" partials" if part is not None else ""))
+
+
+def _whole_out(b, kv, g, hd, out_scale, out_zp, qmin, qmax, dev):
+    out, s_o, z_o = _iad.output(b, kv, g, hd, out_scale, out_zp, dev)
+    emit = s_o is not None
+    return out, emit, (None if emit else out, out if emit else None, s_o,
+                       z_o, qmin, qmax)
 
 
 def paged_int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_arena,
@@ -118,37 +212,18 @@ def paged_int8_attend_decode_cuda(q_q, q_scale, q_zp, k_zp, v_zp, k_arena,
                                   smo_qmin, smo_qmax, kv_bits=8,
                                   out_scale=None, out_zp=None, qmin=-128,
                                   qmax=127) -> torch.Tensor:
-    b, kv, g, hd = _iad.check_query(q_q, torch.int8)
-    _args.on_cuda(q_q, k_arena, v_arena, block_table, q_pos)
-    n, bs = k_arena.shape[:2]
-    q_q = q_q.contiguous()
-    shape = _iad.payload_shape((n, bs), kv, hd, kv_bits)
-    k_arena = _iad.check_int8(k_arena, shape, "k_arena")
-    v_arena = _iad.check_int8(v_arena, shape, "v_arena")
-    q_scale = _iad.f32_like(q_scale, (b, kv, g), "q_scale")
-    q_zp = _iad.f32_like(q_zp, (b, kv, g), "q_zp")
-    k_zp = _iad.f32_like(k_zp, (b, kv), "k_zp")
-    v_zp = _iad.f32_like(v_zp, (b, kv), "v_zp")
-    k_scale = _iad.f32_like(k_scale, (n, bs, kv), "k_scale")
-    v_scale = _iad.f32_like(v_scale, (n, bs, kv), "v_scale")
-    table, nb = _table(block_table, b, bs, s_cap)
-    q_pos = _iad.i32(q_pos.reshape(-1), (b,), "q_pos")
-    sm, smo = _iad.site_args(sm_quant, smo_quant, q_q.device)
-    out, s_o, z_o = _iad.output(b, kv, g, hd, out_scale, out_zp, q_q.device)
-    emit = s_o is not None
-    splits, bps = plan_kv_splits(b, kv, nb, bs)
-    stream = _args.stream()
-    ws, counters = _iad.split_scratch(q_q.device, stream,
-                                      b * kv * splits * g * (hd + 2), b * kv)
-    p = _args.ptr
-    _build.check(_build.lib("paged_attend_decode").paged_int8_attend_decode(
-        p(q_q), p(q_scale), p(q_zp), p(k_zp), p(v_zp), p(k_arena),
-        p(k_scale), p(v_arena), p(v_scale), p(table), p(q_pos), p(sm), p(smo),
-        p(None if emit else out), p(out if emit else None), p(s_o), p(z_o),
-        qmin, qmax, b, kv, g, hd, nb, bs, s_cap, _iad.window_arg(window),
-        _iad.softcap_arg(logit_softcap), sm_qmin, sm_qmax, smo_qmin,
-        smo_qmax, kv_bits, splits, bps, p(ws), p(counters), stream),
-        "paged_int8_attend_decode")
+    bs = k_arena.shape[1]
+    operands, dims = _quant_operands(q_q, q_scale, q_zp, k_zp, v_zp, k_arena,
+                                     k_scale, v_arena, v_scale, block_table,
+                                     q_pos, s_cap, bs, kv_bits)
+    dev = operands[0].device
+    sm, smo = _iad.site_args(sm_quant, smo_quant, dev)
+    out, emit, dest = _whole_out(*dims[:4], out_scale, out_zp, qmin, qmax,
+                                 dev)
+    _paged_launch("paged_int8_attend_decode", operands, dims,
+                  (window, logit_softcap, sm, smo, sm_qmin, sm_qmax,
+                   smo_qmin, smo_qmax), dest, (kv_bits,), s_cap=s_cap,
+                  block_size=bs)
     _iad.count_launch(paged_int8_attend_decode_cuda, kv_bits, emit)
     return out
 
@@ -158,41 +233,16 @@ def paged_attend_decode_cuda(q, k_arena, v_arena, block_table, q_pos, *,
                              sm_qmax, smo_quant, smo_qmin, smo_qmax,
                              out_scale=None, out_zp=None, qmin=-128,
                              qmax=127) -> torch.Tensor:
-    b, kv, g, hd = _iad.check_query(q.float(), torch.float32)
-    _args.on_cuda(q, k_arena, v_arena, block_table, q_pos)
-    n, bs = k_arena.shape[:2]
-    if k_arena.dtype not in (torch.float32, torch.bfloat16) or \
-            v_arena.dtype != k_arena.dtype or \
-            tuple(k_arena.shape) != (n, bs, kv, hd) or \
-            tuple(v_arena.shape) != (n, bs, kv, hd):
-        raise ValueError(f"paged_attend_decode: arenas must be "
-                         f"{(n, bs, kv, hd)} f32 or bf16, got "
-                         f"{tuple(k_arena.shape)} {k_arena.dtype} / "
-                         f"{tuple(v_arena.shape)} {v_arena.dtype}")
-    q = q.float().contiguous()
-    k_arena, v_arena = k_arena.contiguous(), v_arena.contiguous()
-    if k_arena.data_ptr() % 4 or v_arena.data_ptr() % 4:
-        raise ValueError("paged_attend_decode: arenas must be 4-byte "
-                         "aligned (the kernel copies 4 or 16 bytes at a "
-                         "time)")
-    table, nb = _table(block_table, b, bs, s_cap)
-    q_pos = _iad.i32(q_pos.reshape(-1), (b,), "q_pos")
-    sm, smo = _iad.site_args(sm_quant, smo_quant, q.device)
-    out, s_o, z_o = _iad.output(b, kv, g, hd, out_scale, out_zp, q.device)
-    emit = s_o is not None
-    splits, bps = plan_kv_splits(b, kv, nb, bs)
-    stream = _args.stream()
-    ws, counters = _iad.split_scratch(q.device, stream,
-                                      b * kv * splits * g * (hd + 2), b * kv)
-    p = _args.ptr
-    _build.check(_build.lib("paged_attend_decode").paged_attend_decode(
-        p(q), p(k_arena), p(v_arena), int(k_arena.dtype == torch.bfloat16),
-        p(table), p(q_pos), p(sm), p(smo), p(None if emit else out),
-        p(out if emit else None), p(s_o), p(z_o), qmin, qmax, b, kv, g, hd,
-        nb, bs, s_cap, _iad.window_arg(window),
-        _iad.softcap_arg(logit_softcap), sm_qmin, sm_qmax, smo_qmin,
-        smo_qmax, splits, bps, p(ws), p(counters), stream),
-        "paged_attend_decode")
+    bs = k_arena.shape[1]
+    operands, dims = _float_operands(q, k_arena, v_arena, block_table, q_pos,
+                                     s_cap, bs)
+    dev = operands[0].device
+    sm, smo = _iad.site_args(sm_quant, smo_quant, dev)
+    out, emit, dest = _whole_out(*dims[:4], out_scale, out_zp, qmin, qmax,
+                                 dev)
+    _paged_launch("paged_attend_decode", operands, dims,
+                  (window, logit_softcap, sm, smo, sm_qmin, sm_qmax,
+                   smo_qmin, smo_qmax), dest, (), s_cap=s_cap, block_size=bs)
     paged_attend_decode_cuda.launches += 1
     if emit:
         paged_attend_decode_cuda.launches_emit += 1
@@ -204,3 +254,132 @@ paged_int8_attend_decode_cuda.launches_kv4 = 0
 paged_int8_attend_decode_cuda.launches_emit = 0
 paged_attend_decode_cuda.launches = 0
 paged_attend_decode_cuda.launches_emit = 0
+
+
+# -- partial mode: a rank's in-block cells, merged across ranks -------------
+
+def _window(arena, block_size, cell_lo):
+    """(the arena's cells a block, the logical block size): the rank holds
+    [cell_lo, cell_lo + cells) of every block."""
+    cells = arena.shape[1]
+    block_size = cells if block_size is None else block_size
+    if cell_lo < 0 or cell_lo + cells > block_size:
+        raise ValueError(f"paged attention partials: cells [{cell_lo}, "
+                         f"{cell_lo + cells}) do not fit a block of "
+                         f"{block_size}")
+    return cells, block_size
+
+
+def _split_cells(b, kv, nb, cells):
+    """The [first, end) of each split in the rank's cells of a lane."""
+    return [(lo * cells, hi * cells)
+            for lo, hi in kv_split_blocks(nb, *plan_kv_splits(b, kv, nb,
+                                                              cells))]
+
+
+def paged_int8_attend_decode_partials_plain(
+        q_q, q_scale, q_zp, k_zp, v_zp, k_arena, k_scale, v_arena, v_scale,
+        block_table, q_pos, *, s_cap, block_size=None, cell_lo=0, mode,
+        stats=None, window, logit_softcap, sm_quant, sm_qmin, sm_qmax,
+        smo_quant, smo_qmin, smo_qmax, kv_bits=8):
+    """K6's partial rows over the rank's cells of each block, split as the
+    kernel splits them (:func:`plan_kv_splits` over the rank's cells)."""
+    cells, block_size = _window(k_arena, block_size, cell_lo)
+    b, kv = q_q.shape[:2]
+    kp = paged_positions_ref(block_table, q_pos, s_cap=s_cap,
+                             block_size=block_size, cell_lo=cell_lo,
+                             cells=cells)
+    k_q, v_q = _iad.kv_values(paged_gather_ref(k_arena, block_table),
+                              paged_gather_ref(v_arena, block_table),
+                              q_q.shape[-1], kv_bits)
+    s = _iad.int8_logits(q_q, q_scale, q_zp, k_zp, k_q,
+                         paged_gather_ref(k_scale, block_table))
+    return _iad.partials_plain(
+        s, decode_valid(kp, q_pos, window), v_q,
+        paged_gather_ref(v_scale, block_table), v_zp,
+        _split_cells(b, kv, block_table.shape[1], cells), mode=mode,
+        stats=stats, logit_softcap=logit_softcap, sm_quant=sm_quant,
+        sm_qmin=sm_qmin, sm_qmax=sm_qmax, smo_quant=smo_quant,
+        smo_qmin=smo_qmin, smo_qmax=smo_qmax)
+
+
+def paged_attend_decode_partials_plain(q, k_arena, v_arena, block_table,
+                                       q_pos, *, s_cap, block_size=None,
+                                       cell_lo=0, mode, stats=None, window,
+                                       logit_softcap, sm_quant, sm_qmin,
+                                       sm_qmax, smo_quant, smo_qmin,
+                                       smo_qmax):
+    """K7's partial rows over the rank's cells of each block."""
+    cells, block_size = _window(k_arena, block_size, cell_lo)
+    b, kv = q.shape[:2]
+    kp = paged_positions_ref(block_table, q_pos, s_cap=s_cap,
+                             block_size=block_size, cell_lo=cell_lo,
+                             cells=cells)
+    k = paged_gather_ref(k_arena, block_table).float()
+    s = torch.einsum("bkgd,bskd->bkgs", q.float(), k)
+    return _iad.partials_plain(
+        s, decode_valid(kp, q_pos, window),
+        paged_gather_ref(v_arena, block_table), None, None,
+        _split_cells(b, kv, block_table.shape[1], cells), mode=mode,
+        stats=stats, logit_softcap=logit_softcap, sm_quant=sm_quant,
+        sm_qmin=sm_qmin, sm_qmax=sm_qmax, smo_quant=smo_quant,
+        smo_qmin=smo_qmin, smo_qmax=smo_qmax)
+
+
+def paged_int8_attend_decode_partials_cuda(
+        q_q, q_scale, q_zp, k_zp, v_zp, k_arena, k_scale, v_arena, v_scale,
+        block_table, q_pos, *, s_cap, block_size=None, cell_lo=0, mode,
+        stats=None, window, logit_softcap, sm_quant, sm_qmin, sm_qmax,
+        smo_quant, smo_qmin, smo_qmax, kv_bits=8):
+    _, block_size = _window(k_arena, block_size, cell_lo)
+    operands, dims = _quant_operands(q_q, q_scale, q_zp, k_zp, v_zp, k_arena,
+                                     k_scale, v_arena, v_scale, block_table,
+                                     q_pos, s_cap, block_size, kv_bits)
+    part = _partials_launch("paged_int8_attend_decode", operands, dims,
+                            (kv_bits,), mode, stats, window, logit_softcap,
+                            sm_quant, sm_qmin, sm_qmax, smo_quant, smo_qmin,
+                            smo_qmax, s_cap, block_size, cell_lo)
+    _iad.count_launch(paged_int8_attend_decode_partials_cuda, kv_bits)
+    return part
+
+
+def paged_attend_decode_partials_cuda(q, k_arena, v_arena, block_table,
+                                      q_pos, *, s_cap, block_size=None,
+                                      cell_lo=0, mode, stats=None, window,
+                                      logit_softcap, sm_quant, sm_qmin,
+                                      sm_qmax, smo_quant, smo_qmin,
+                                      smo_qmax):
+    _, block_size = _window(k_arena, block_size, cell_lo)
+    operands, dims = _float_operands(q, k_arena, v_arena, block_table, q_pos,
+                                     s_cap, block_size)
+    part = _partials_launch("paged_attend_decode", operands, dims, (), mode,
+                            stats, window, logit_softcap, sm_quant, sm_qmin,
+                            sm_qmax, smo_quant, smo_qmin, smo_qmax, s_cap,
+                            block_size, cell_lo)
+    paged_attend_decode_partials_cuda.launches += 1
+    return part
+
+
+def _partials_launch(entry, operands, dims, tail, mode, stats, window,
+                     softcap, sm_quant, sm_qmin, sm_qmax, smo_quant,
+                     smo_qmin, smo_qmax, s_cap, block_size, cell_lo):
+    """K6's or K7's partial rows of this rank's cells (see
+    :func:`_paged_launch`)."""
+    b, kv, g, hd, nb, cells = dims
+    _iad.check_partial(mode, stats, smo_quant, (b, kv, g))
+    dev = operands[0].device
+    sm, smo = _iad.site_args(sm_quant, smo_quant, dev)
+    part = _iad.partial_output(b, kv, plan_kv_splits(b, kv, nb, cells)[0],
+                               g, hd, mode, dev)
+    _paged_launch(entry, operands, dims, (window, softcap, sm, smo, sm_qmin,
+                                          sm_qmax, smo_qmin, smo_qmax),
+                  (None, None, None, None, -128, 127), tail, s_cap=s_cap,
+                  block_size=block_size, cell_lo=cell_lo,
+                  mode=_iad.PARTIAL_MODES[mode], part=part,
+                  ml_in=_iad.stats_arg(stats, (b, kv, g)))
+    return part
+
+
+paged_int8_attend_decode_partials_cuda.launches = 0
+paged_int8_attend_decode_partials_cuda.launches_kv4 = 0
+paged_attend_decode_partials_cuda.launches = 0

@@ -129,16 +129,25 @@ def int8_attend_decode_ref(q_q, q_scale, k_q, k_scale, v_q, v_scale, k_pos,
         smo_quant=smo_quant, smo_qmin=smo_qmin, smo_qmax=smo_qmax)
 
 
-def paged_positions_ref(block_table, q_pos, *, s_cap, block_size):
-    """Derived key positions (B, nb*bs) of a block-paged lane: logical cell
-    L holds position ``q_pos - ((q_pos - L) mod s_cap)`` (floor modulo) when
-    that is >= 0, L < s_cap and its block is mapped; everything else -1."""
+def paged_positions_ref(block_table, q_pos, *, s_cap, block_size,
+                        cell_lo=0, cells=None):
+    """Derived key positions (B, nb*cells) of a block-paged lane: logical
+    cell L holds position ``q_pos - ((q_pos - L) mod s_cap)`` (floor modulo)
+    when that is >= 0, L < s_cap and its block is mapped; everything else
+    -1. ``cells`` (default ``block_size``) of each block, from ``cell_lo``
+    on: a rank's in-block range when the arena's cell dim is cut over
+    tensor-parallel ranks (cell c of table column t is L = t * block_size +
+    cell_lo + c)."""
     nb = block_table.shape[1]
-    L = torch.arange(nb * block_size, dtype=torch.int32,
-                     device=block_table.device)[None, :]
+    cells = block_size if cells is None else cells
+    L = (torch.arange(nb, dtype=torch.int32,
+                      device=block_table.device)[:, None] * block_size
+         + cell_lo + torch.arange(cells, dtype=torch.int32,
+                                  device=block_table.device)[None, :])
+    L = L.reshape(1, -1)
     qp = q_pos.to(torch.int32).reshape(-1, 1)
     p = qp - torch.remainder(qp - L, s_cap)
-    mapped = torch.repeat_interleave(block_table >= 0, block_size, dim=1)
+    mapped = torch.repeat_interleave(block_table >= 0, cells, dim=1)
     valid = (L < s_cap) & (p >= 0) & mapped
     return torch.where(valid, p, torch.full_like(p, -1))
 

@@ -650,10 +650,17 @@ def main(argv=None, *, device=None, dtype=None, report=None):
         cfg = cfg.reduced()
     if args.tp > 1:
         from repro_torch.launch.mesh import AbstractMesh
-        from repro_torch.parallel.sharding import serving_dist
+        from repro_torch.parallel.sharding import (make_seq_cache_specs,
+                                                   serving_dist)
+        dist = serving_dist(AbstractMesh((1, args.tp), ("data", "model")))
         try:
-            tfm.check_tp(cfg, serving_dist(AbstractMesh(
-                (1, args.tp), ("data", "model"))))
+            tfm.check_tp(cfg, dist)
+            # the caches' cells on the ranks, on shapes only (meta tensors)
+            for paged in {False, args.paged_kv}:
+                make_seq_cache_specs(tfm.init_cache(
+                    cfg, args.batch_slots, args.max_len, kv_bits=args.kv_bits,
+                    paged=paged, block_size=args.block_size, device="meta"),
+                    dist)
         except NotImplementedError as e:
             ap.error(str(e))
         _plan(ap, args, cfg)
@@ -797,8 +804,8 @@ def _serve_main(ap, args, cfg, dev, dtype, dist=None, info=None):
                                    block_size=args.block_size,
                                    num_blocks=num_blocks, mapped=False, **kw)
         if dist is not None:
-            from repro_torch.parallel.sharding import make_kv_head_shardings
-            cache = make_kv_head_shardings(cache, dist)
+            from repro_torch.parallel.sharding import place_cache
+            cache = place_cache(cache, dist)
         return cache
 
     def run(scheduler, requests, paged=None, chunk=0, kv_bits=None,
@@ -847,6 +854,7 @@ def _serve_main(ap, args, cfg, dev, dtype, dist=None, info=None):
                 tel=telemetry)
     if info is not None:
         info["tokens"] = [list(r.tokens_out) for r in requests]
+        info["cache_bytes"] = stats.cache_bytes
     if args.paged_kv and args.scheduler == "continuous":
         paged_note = (f", blocks {stats.blocks_in_use}/{num_blocks} "
                       f"(frag {stats.block_fragmentation:.0%}, "

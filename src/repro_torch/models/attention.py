@@ -16,6 +16,16 @@ the stacked tensor). Dropped writes (dead cells, unmapped blocks) need no
 data-dependent shape and no host sync: each repeats a live write of the
 same call, cell and value (see :func:`_scatter_plan`).
 
+Tensor-parallel (``dist``): with the caches on their KV heads a rank
+attends for its heads over its KV heads; with the caches on the sequence
+dim (the default, ``kv_seq_shard``) every rank holds the cells
+[r*S/N, (r+1)*S/N) of a dense cache (in-block cells [r*bs/N, (r+1)*bs/N)
+of a paged arena) for all heads, writes only the cells it holds, and a
+decode step runs the kernel of the cache's type in partial mode over its
+cells; the ranks gather the partials and merge them in (rank, split)
+order (``kernels.ops.merge_partials``), so every rank holds the same
+output.
+
 Quantization sites (paper Fig. 1 naming), threaded via QuantCtx:
   {prefix}/q, {prefix}/k, {prefix}/v, {prefix}/softmax_in,
   {prefix}/softmax_out, {prefix}/ctx_out; matmul inputs {prefix}/wo_in.
@@ -471,38 +481,55 @@ def _plan_for(plans, key, make):
     return plans[key]
 
 
-def _write_kv(cache, k_new, v_new, pw, window, kvq=None, plans=None):
+def _write_kv(cache, k_new, v_new, pw, window, kvq=None, plans=None,
+              shard=(0, 1)):
     """Write the (B, T) new tokens into the dense cache in place, each at
     its slot (:func:`_write_slots`); dead cells write nothing. Live slots
     of one lane are distinct (positions are), so each cell has at most
-    one source. ``plans``: a forward's shared scatter plans. Returns
-    ``cache``."""
+    one source. ``plans``: a forward's shared scatter plans. ``shard``
+    (r, N): the cache holds the cells [r*S, (r+1)*S) of N*S (its sequence
+    dim cut over N ranks), and writes to the other ranks' cells are
+    dropped. Returns ``cache``."""
     B, S = cache.pos.shape
+    r, n = shard
 
     def make():
-        slots = _write_slots(pw, S, window)
-        lane = torch.arange(B, device=slots.device)[:, None]
-        return _scatter_plan(lane * S + slots, (pw >= 0) & (slots < S))
-    plan = _plan_for(plans, ("dense", S, window, pw.shape[1]), make)
+        mine = _write_slots(pw, S * n, window) - r * S
+        lane = torch.arange(B, device=mine.device)[:, None]
+        return _scatter_plan(lane * S + mine,
+                             (pw >= 0) & (mine >= 0) & (mine < S))
+    plan = _plan_for(plans, ("dense", S, n, window, pw.shape[1]), make)
     return _write_fields(cache, plan, k_new, v_new, pw, kvq)
 
 
 def _write_paged_kv(cache, k_new, v_new, pw, block_table, window, kvq=None,
-                    plans=None):
+                    plans=None, shard=(0, 1)):
     """Write the (B, T) tokens into the arena through the lanes' block
     table, in place: logical cell ``pw % s_cap``, physical block from the
     table. Dead cells (pw < 0) and unmapped blocks are dropped. ``plans``:
-    a forward's shared scatter plans (one per capacity). Returns
-    ``cache``."""
+    a forward's shared scatter plans (one per capacity). ``shard`` (r, N):
+    the arena holds the in-block cells [r*bs, (r+1)*bs) of blocks of N*bs,
+    and writes to the other ranks' cells are dropped. Returns ``cache``."""
     bs = cache.pos.shape[1]
-    s_cap = paged_capacity(block_table, bs, window)
+    r, n = shard
+    s_cap = paged_capacity(block_table, bs * n, window)
 
     def make():
         L = torch.remainder(torch.clamp_min(pw, 0), s_cap)
-        phys = torch.gather(block_table, 1, (L // bs).long())
-        return _scatter_plan(phys * bs + L % bs, (pw >= 0) & (phys >= 0))
-    plan = _plan_for(plans, ("paged", s_cap, bs, pw.shape[1]), make)
+        phys = torch.gather(block_table, 1, (L // (bs * n)).long())
+        o = L % (bs * n) - r * bs
+        return _scatter_plan(phys * bs + o,
+                             (pw >= 0) & (phys >= 0) & (o >= 0) & (o < bs))
+    plan = _plan_for(plans, ("paged", s_cap, bs, n, pw.shape[1]), make)
     return _write_fields(cache, plan, k_new, v_new, pw, kvq)
+
+
+def _whole_cells(cache, dist):
+    """The whole cache from the ranks' sequence slices (every field's dim 1:
+    a dense lane's cells or a paged block's), gathered in rank order: the
+    read-back of the paths the decode kernels do not take (prefill chunks,
+    float dense caches, sites that are not per-tensor)."""
+    return type(cache)(*(coll.all_gather(f, dist, dim=1) for f in cache))
 
 
 def paged_key_positions(block_table, q_pos, s_cap: int, block_size: int):
@@ -643,8 +670,24 @@ def _kv_zero_points(kvq, B, KV):
     return (kvq.k_zp.float().expand(B, KV), kvq.v_zp.float().expand(B, KV))
 
 
+def _merged_partials(fn, args, kw, out_kw, dist):
+    """The decode output from ``fn`` in partial mode over this rank's cells,
+    gathered over ``model`` along the split dim and merged in (rank,
+    split) order: one pass, or with a softmax_out site the statistics
+    launch, their merge into the global (m, l), the second launch on it
+    and the sum of its accumulators. ``out_kw``: the int8 emit's grid."""
+    if kw["smo_quant"] is None:
+        part = coll.all_gather(fn(*args, mode="one_pass", **kw), dist, dim=2)
+        return kops.merge_partials(part, mode="one_pass", **out_kw)
+    ml = coll.all_gather(fn(*args, mode="stats", **kw), dist, dim=2)
+    stats = kops.merge_partials(ml, mode="stats")
+    part = coll.all_gather(fn(*args, mode="emit", stats=stats, **kw), dist,
+                           dim=2)
+    return kops.merge_partials(part, mode="sum", **out_kw)
+
+
 def _kernel_decode_attend(q, cache, block_table, q_pos, cfg: AttnConfig,
-                          ctx, prefix, kvq=None, wo_aq=None):
+                          ctx, prefix, kvq=None, wo_aq=None, seq_dist=None):
     """Decode step through the attention kernel of the cache's type: K5
     (int8), K6 (paged int8) or K7 (paged f32/bf16). Int8 kernels take the
     queries on the ``{prefix}/q`` grid (or dynamic per head) with the
@@ -656,7 +699,9 @@ def _kernel_decode_attend(q, cache, block_table, q_pos, cfg: AttnConfig,
     permutation emits that input itself from its merge (the ``wo_in``
     quantize folded in): the result is then the (B, 1, H*hd) int8
     ``QTensor``, the bytes ``quantize_act`` would make of the f32
-    output."""
+    output. ``seq_dist``: the cache holds this rank's cells of a cache cut
+    on its sequence dim; the kernel runs in partial mode and the merge
+    (which then emits) combines every rank's partials."""
     if not cfg.causal:
         return None
     site = _decode_site_params(ctx, prefix)
@@ -668,17 +713,20 @@ def _kernel_decode_attend(q, cache, block_table, q_pos, cfg: AttnConfig,
     qg = q.reshape(B, KV, G, hd).float()
     kw = dict(window=cfg.window, logit_softcap=cfg.logit_softcap,
               **sm_kwargs)
-    if isinstance(cache, (PagedKVCache, PagedQuantKVCache)):
-        kw["s_cap"] = paged_capacity(block_table, cache.pos.shape[1],
-                                     cfg.window)
+    paged = isinstance(cache, (PagedKVCache, PagedQuantKVCache))
+    n, r = coll.tp_size(seq_dist), coll.tp_index(seq_dist)
+    if paged:
+        bs = cache.pos.shape[1]
+        kw["s_cap"] = paged_capacity(block_table, bs * n, cfg.window)
+        if seq_dist is not None:
+            kw.update(block_size=bs * n, cell_lo=r * bs)
     emit = (wo_aq is not None and wo_aq.per_tensor
             and q.dtype == torch.float32)
-    if emit:
-        kw.update(out_scale=wo_aq.scales[0], out_zp=wo_aq.zps[0],
-                  qmin=wo_aq.qmin, qmax=wo_aq.qmax)
+    out_kw = (dict(out_scale=wo_aq.scales[0], out_zp=wo_aq.zps[0],
+                   qmin=wo_aq.qmin, qmax=wo_aq.qmax) if emit else {})
     if isinstance(cache, PagedKVCache):
-        out = kops.paged_attend_decode(qg * cfg.scale, cache.k, cache.v,
-                                       block_table, q_pos[:, 0], **kw)
+        fns = (kops.paged_attend_decode, kops.paged_attend_decode_partials)
+        args = (qg * cfg.scale, cache.k, cache.v, block_table, q_pos[:, 0])
     else:
         q_q, qs, qz = _quantize_decode_q(qg, q_site)
         kz, vz = _kv_zero_points(kvq, B, KV)
@@ -686,12 +734,17 @@ def _kernel_decode_attend(q, cache, block_table, q_pos, cfg: AttnConfig,
                 cache.v_s)
         kw.update(q_zp=qz, k_zp=kz, v_zp=vz,
                   kv_bits=4 if isinstance(cache, _INT4_CACHES) else 8)
-        if isinstance(cache, PagedQuantKVCache):
-            out = kops.paged_int8_attend_decode(*args, block_table,
-                                                q_pos[:, 0], **kw)
+        if paged:
+            fns = (kops.paged_int8_attend_decode,
+                   kops.paged_int8_attend_decode_partials)
+            args = (*args, block_table, q_pos[:, 0])
         else:
-            out = kops.int8_attend_decode(*args, cache.pos, q_pos[:, 0],
-                                          **kw)
+            fns = (kops.int8_attend_decode, kops.int8_attend_decode_partials)
+            args = (*args, cache.pos, q_pos[:, 0])
+    if seq_dist is None:
+        out = fns[0](*args, **kw, **out_kw)
+    else:
+        out = _merged_partials(fns[1], args, kw, out_kw, seq_dist)
     if emit:
         from repro_torch.core.deploy import QTensor
         return QTensor(q=out.reshape(B, 1, H * hd), scales=wo_aq.scales,
@@ -740,20 +793,28 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
     of one forward share, so the cache writes' scatter plan is made once
     per capacity. Returns (out, cache), the cache written in place.
 
-    ``dist`` (tensor-parallel, ``cfg`` the whole layer's): this rank owns
-    query heads [r*H/N, (r+1)*H/N) and KV heads [r*KV/N, (r+1)*KV/N), and
-    ``cache`` holds those KV heads. Float projections are column shards;
-    packed payloads are whole on every rank, so their q/k/v are cut to the
-    rank's heads. The output projection is a row shard summed over
-    ``model`` in f32, or, on a whole (packed) ``wo``, the whole input
-    gathered over ``model`` first (int8 bytes at decode rows, where the
-    kernel emits them). ``out`` is whole on every rank."""
+    ``dist`` (tensor-parallel, ``cfg`` the whole layer's), caches on KV
+    heads (``kv_seq_shard=False``): this rank owns query heads
+    [r*H/N, (r+1)*H/N) and KV heads [r*KV/N, (r+1)*KV/N), and ``cache``
+    holds those KV heads. Float projections are column shards; packed
+    payloads are whole on every rank, so their q/k/v are cut to the rank's
+    heads. The output projection is a row shard summed over ``model`` in
+    f32, or, on a whole (packed) ``wo``, the whole input gathered over
+    ``model`` first (int8 bytes at decode rows, where the kernel emits
+    them). Caches on the sequence dim (the default): every rank computes
+    q, k and v of all heads (float column shards gathered whole) and
+    ``cache`` holds its cells of every head (``_write_kv`` /
+    ``_write_paged_kv`` ``shard``); a decode step merges every rank's
+    partials (:func:`_kernel_decode_attend`), so the attention output is
+    whole: an emit feeds the whole packed ``wo``, a float row shard takes
+    its heads' slice. ``out`` is whole on every rank."""
     from repro_torch.core import deploy as deploy_lib
     x_int8 = isinstance(x, deploy_lib.QTensor)
     B, T, _ = x.shape
     n_tp, r = coll.tp_size(dist), coll.tp_index(dist)
+    seq = n_tp > 1 and dist.kv_seq_shard
     H_all, KV_all = cfg.num_heads, cfg.num_kv_heads
-    if n_tp > 1:
+    if n_tp > 1 and not seq:
         cfg = dataclasses.replace(cfg, num_heads=H_all // n_tp,
                                   num_kv_heads=KV_all // n_tp)
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -776,6 +837,9 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
         q = dot(x, w("wq", x))
         k = dot(x, w("wk", x))
         v = dot(x, w("wv", x))
+    if seq:     # every head on every rank: column shards gathered whole
+        q, k, v = (t if t.shape[-1] == n * hd else coll.all_gather(t, dist)
+                   for t, n in ((q, H_all), (k, KV_all), (v, KV_all)))
     q = _rank_heads(q, B, T, H_all, H, hd, r)
     k = _rank_heads(k, B, T, KV_all, KV, hd, r)
     v = _rank_heads(v, B, T, KV_all, KV, hd, r)
@@ -808,32 +872,39 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
             else f"{prefix}/kv"
         kvq = ctx.deploy_act(kv_site) \
             if (quantized and ctx is not None) else None
-        if kvq is not None and n_tp > 1:
+        if kvq is not None and n_tp > 1 and not seq:
             # the per-head grids of this rank's KV heads
             kvq = type(kvq)(*(g.narrow(0, r * KV, KV) for g in kvq))
+        # the cells this rank holds: all of them, or its slice of N
+        shard = (r, n_tp) if seq else (0, 1)
+
+        def whole(c):
+            """The cache as the unsharded layer holds it."""
+            return _whole_cells(c, dist) if seq else c
         if paged:
             if block_table is None:
                 raise ValueError("paged KV cache needs the block_table of "
                                  "the whole-model cache")
-            bs = cache.pos.shape[1]
+            bs = cache.pos.shape[1] * shard[1]
             S = paged_capacity(block_table, bs, cfg.window)
         else:
-            S = cache.pos.shape[1]
+            S = cache.pos.shape[1] * shard[1]
         if T > 1:
             if append:
                 # the cache before this chunk's write: ring cells the chunk
                 # overwrites still show their old occupant to its earlier
                 # queries
+                past = whole(cache)
                 if paged:
-                    k_past, v_past = paged_gather_kv(cache, block_table,
+                    k_past, v_past = paged_gather_kv(past, block_table,
                                                      cfg.window, kvq)
                     kpos_past = paged_key_positions(
                         block_table, _prev_positions(positions), S, bs)
                 elif quantized:
-                    k_past, v_past = dequantize_kv(cache, kvq)
-                    kpos_past = cache.pos
+                    k_past, v_past = dequantize_kv(past, kvq)
+                    kpos_past = past.pos
                 else:
-                    k_past, v_past, kpos_past = cache.k, cache.v, cache.pos
+                    k_past, v_past, kpos_past = past.k, past.v, past.pos
                 # copied before the write below changes the cache in place
                 k_att = torch.cat([k_past.to(k.dtype), k], dim=1)
                 v_att = torch.cat([v_past.to(v.dtype), v], dim=1)
@@ -844,43 +915,49 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
             if paged:
                 new_cache = _write_paged_kv(cache, kw, vw, pw, block_table,
                                             cfg.window, kvq,
-                                            plans=write_plans)
+                                            plans=write_plans, shard=shard)
             else:
                 new_cache = _write_kv(cache, kw, vw, pw, cfg.window, kvq,
-                                      plans=write_plans)
+                                      plans=write_plans, shard=shard)
         elif paged:
             new_cache = _write_paged_kv(cache, k, v, positions, block_table,
-                                        cfg.window, kvq, plans=write_plans)
+                                        cfg.window, kvq, plans=write_plans,
+                                        shard=shard)
             out = _kernel_decode_attend(q, new_cache, block_table, positions,
-                                        cfg, ctx, prefix, kvq, emit_aq)
+                                        cfg, ctx, prefix, kvq, emit_aq,
+                                        dist if seq else None)
             if out is None:
-                k_att, v_att = paged_gather_kv(new_cache, block_table,
+                k_att, v_att = paged_gather_kv(whole(new_cache), block_table,
                                                cfg.window, kvq)
                 kpos_att = paged_key_positions(block_table, positions[:, 0],
                                                S, bs)
         else:
             new_cache = _write_kv(cache, k, v, positions, cfg.window, kvq,
-                                  plans=write_plans)
+                                  plans=write_plans, shard=shard)
             if quantized:
                 out = _kernel_decode_attend(q, new_cache, None, positions,
-                                            cfg, ctx, prefix, kvq, emit_aq)
+                                            cfg, ctx, prefix, kvq, emit_aq,
+                                            dist if seq else None)
                 if out is None:
-                    k_att, v_att = dequantize_kv(new_cache, kvq)
-                    kpos_att = new_cache.pos
+                    read = whole(new_cache)
+                    k_att, v_att = dequantize_kv(read, kvq)
+                    kpos_att = read.pos
             else:
-                k_att, v_att, kpos_att = (new_cache.k, new_cache.v,
-                                          new_cache.pos)
+                read = whole(new_cache)
+                k_att, v_att, kpos_att = read.k, read.v, read.pos
 
     if out is None:
         out = attend(q, k_att.to(q.dtype), v_att.to(q.dtype), positions,
                      kpos_att, cfg, ctx=ctx, prefix=prefix, chunked=chunked)
+    # the attention output of every head (sequence layout) or of this
+    # rank's heads, which the other ranks' complete
+    gather = (lambda t: t) if seq else (lambda t: coll.all_gather(t, dist))
     if isinstance(out, deploy_lib.QTensor):
-        # the decode kernel's merge emitted wo's int8 input (every rank's
-        # heads gathered for the whole packed wo)
-        out = deploy_lib.matmul(out._replace(q=coll.all_gather(out.q, dist)),
-                                p["wo"])
+        # the decode kernel's (or the merge's) emit of wo's int8 input, for
+        # the whole packed wo
+        out = deploy_lib.matmul(out._replace(q=gather(out.q)), p["wo"])
     elif x_int8:
-        out2d = coll.all_gather(out.reshape(B, T, H * hd), dist)
+        out2d = gather(out.reshape(B, T, H * hd))
         if ctx.telemetry is not None:
             ctx.telem_site(f"{prefix}/wo_in",
                            deploy_lib.site_stats(out2d, wo_aq))
@@ -891,7 +968,13 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
         if ctx is not None:
             out2d = ctx.act_in(f"{prefix}/wo_in", out2d)
         wo = w("wo", out2d)
-        if wo.shape[0] == out2d.shape[-1]:
+        rows = wo.shape[0]
+        if seq and rows != out2d.shape[-1]:     # a row shard: its heads
+            out = dot_row_parallel(out2d.narrow(-1, r * rows, rows), wo,
+                                   dist)
+        elif seq:                               # a whole wo (stored int8)
+            out = dot(out2d, wo)
+        elif rows == out2d.shape[-1]:
             out = dot_row_parallel(out2d, wo, dist)
         else:       # a whole wo (stored int8): the whole input first
             out = dot(coll.all_gather(out2d, dist), wo)

@@ -73,8 +73,9 @@ class DistContext:
     """Where a sharded forward runs: ``mesh`` (a ``launch.mesh`` mesh; a
     ``RankMesh`` to execute), the tensor-parallel, FSDP and data-parallel
     axes, and the reference's perf switches. ``kv_seq_shard`` picks the
-    reference's default cache placement (sequence dim on ``model``); the
-    port executes caches placed on their KV heads (False)."""
+    cache placement: the reference's default, every KV cache's sequence
+    dim on ``model`` (True), or the KV heads (False); the port executes
+    both."""
     mesh: Any
     tp_axis: str = "model"
     fsdp_axis: Any = "data"                  # str or tuple (pod FSDP)
@@ -91,10 +92,12 @@ class DistContext:
 def check_tp(cfg: ModelConfig, dist: Optional[DistContext]) -> None:
     """Raise "... is not yet ported under --tp / dist" for a config the
     sharded forward cannot run on ``dist``'s mesh: MoE blocks (expert
-    parallelism), recurrent and encoder-decoder configs, KV heads, FFN
-    width or vocabulary that the ``model`` axis does not divide, a
-    ``data`` axis over more than one rank (FSDP), and caches placed on the
-    sequence dim (``kv_seq_shard``)."""
+    parallelism), recurrent and encoder-decoder configs, FFN width or
+    vocabulary that the ``model`` axis does not divide, a ``data`` axis
+    over more than one rank (FSDP), and, with the caches on their KV heads
+    (``kv_seq_shard=False``), KV heads it does not divide. With the caches
+    on the sequence dim (the default) every rank attends over its cells
+    for all heads, so any KV head count serves (MQA: granite-20b)."""
     if dist is None:
         return
     n = dist.tp_size
@@ -105,15 +108,14 @@ def check_tp(cfg: ModelConfig, dist: Optional[DistContext]) -> None:
         why = f"{cfg.name}'s encoder-decoder"
     elif any(k not in ATTN_KINDS for k in cfg.layer_plan):
         why = f"{cfg.name}'s recurrent blocks"
-    elif cfg.num_kv_heads % n:
-        why = f"{cfg.name}'s {cfg.num_kv_heads} KV heads on {n} ranks"
+    elif not dist.kv_seq_shard and cfg.num_kv_heads % n:
+        why = (f"{cfg.name}'s {cfg.num_kv_heads} KV heads on {n} ranks "
+               "(caches on KV heads, kv_seq_shard=False)")
     elif cfg.d_ff % n or cfg.vocab_size % n:
         why = (f"{cfg.name}'s d_ff {cfg.d_ff} / vocab {cfg.vocab_size} on "
                f"{n} ranks")
     elif dist.mesh.size != n:
         why = f"a mesh with more than the model axis ({dist.mesh!r})"
-    elif dist.kv_seq_shard:
-        why = "KV caches placed on the sequence dim (kv_seq_shard=True)"
     if why is not None:
         raise NotImplementedError(f"{why} is not yet ported under --tp / "
                                   "dist")

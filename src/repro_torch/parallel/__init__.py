@@ -11,7 +11,8 @@ _SHARDING = ("batch_spec", "cache_spec_for", "constrain",
              "make_cache_shardings", "make_cache_specs", "make_dist",
              "make_kv_head_shardings",
              "make_kv_head_specs", "make_param_shardings", "make_param_specs",
-             "param_spec_for", "place", "serving_dist")
+             "make_seq_cache_shardings", "make_seq_cache_specs",
+             "param_spec_for", "place", "place_cache", "serving_dist")
 
 __all__ = list(_SHARDING)
 

@@ -14,10 +14,13 @@ The rules read only the mesh's axis sizes (``launch.mesh.AbstractMesh``).
 Placing a tree on a :class:`~repro_torch.launch.mesh.RankMesh` keeps, on
 each rank, the slice of every leaf that its spec assigns to that rank
 (:func:`place`, :func:`make_param_shardings`); a leaf whose spec names no
-axis of size > 1 stays the same tensor. Caches are placed on their KV heads
-(:func:`make_kv_head_shardings`), which is what the port's serving path
-executes; :func:`cache_spec_for`, :func:`make_cache_specs` and
-:func:`make_cache_shardings` are the reference's rule, both branches.
+axis of size > 1 stays the same tensor. :func:`cache_spec_for`,
+:func:`make_cache_specs` and :func:`make_cache_shardings` are the
+reference's rule, both branches. Serving executes two cache layouts
+(:func:`place_cache`): the reference's default, every KV cache on its
+sequence dim (``kv_seq_shard=True``, :func:`make_seq_cache_shardings`:
+the specs of :func:`make_cache_specs`, the block table whole), and the
+KV-head layout (``kv_seq_shard=False``, :func:`make_kv_head_shardings`).
 """
 from __future__ import annotations
 
@@ -333,11 +336,65 @@ def make_cache_specs(cache, dist: DistContext):
 
 def make_cache_shardings(cache, dist: DistContext):
     """``cache`` placed on ``dist.mesh`` by :func:`make_cache_specs` (the
-    reference's rule). With ``kv_seq_shard=False`` it cuts the payloads
-    on their KV heads but the scales, positions and block table on their
-    sequence or block dims, which the port cannot execute: serving places
-    caches with :func:`make_kv_head_shardings`."""
+    reference's rule, every leaf, the block table's block dim too). With
+    ``kv_seq_shard=False`` it cuts the payloads on their KV heads but the
+    scales, positions and block table on their sequence or block dims,
+    which the port does not execute: serving places caches with
+    :func:`place_cache`."""
     return place(cache, _cache_spec_of(dist), dist.mesh)
+
+
+def _seq_spec_of(dist: DistContext):
+    ref = _cache_spec_of(dist)
+    tp = dist.mesh.shape[dist.tp_axis]
+
+    def spec(path, leaf):
+        field = path.rsplit("/", 1)[-1]
+        if field == "block_table":
+            return ()       # host-written, whole on every rank
+        if field not in _KV_HEAD_DIM and field != ".pos":
+            raise NotImplementedError(
+                f"cache field {path} is not yet ported under --tp / dist "
+                "(KV caches only)")
+        got = ref(path, leaf)
+        sdim = 2 if "scan" in path else 1       # (L,) B, S, ...
+        on_tp = [d for d, a in enumerate(got)
+                 if dist.tp_axis in (a if isinstance(a, tuple) else (a,))]
+        if on_tp != [sdim]:
+            raise NotImplementedError(
+                f"placing {path}'s {leaf.shape[sdim]} cells on {tp} ranks "
+                f"(the reference's rule falls back to {got}) is not yet "
+                "ported under --tp / dist")
+        return got
+    return spec
+
+
+def make_seq_cache_specs(cache, dist: DistContext):
+    """The placement the port's serving executes by default: the
+    reference's :func:`make_cache_specs` for every KV cache field
+    (payloads, per-(token, head) scales and positions on their sequence
+    dim over ``model``: dense cells [r*S/N, (r+1)*S/N) on rank r, paged
+    in-block cells [r*bs/N, (r+1)*bs/N) of every block), and the block
+    table whole on every rank (the reference also cuts its block dim, a
+    placement of storage only). Raises "... not yet ported" where the rule
+    falls back off the sequence dim (S or bs not divided by N)."""
+    return _map_with_path(_seq_spec_of(dist), cache)
+
+
+def make_seq_cache_shardings(cache, dist: DistContext):
+    """``cache`` placed on ``dist.mesh`` by :func:`make_seq_cache_specs`."""
+    return place(cache, _seq_spec_of(dist), dist.mesh)
+
+
+def place_cache(cache, dist: Optional[DistContext]):
+    """``cache`` placed for serving under ``dist``'s layout: on the
+    sequence dim (``kv_seq_shard``, the default) or on the KV heads; the
+    cache itself without ``dist``."""
+    if dist is None:
+        return cache
+    if dist.kv_seq_shard:
+        return make_seq_cache_shardings(cache, dist)
+    return make_kv_head_shardings(cache, dist)
 
 
 # the KV-head dim of each cache field, counted from the end: payloads
@@ -369,10 +426,11 @@ def _kv_head_spec_of(dist: DistContext):
 
 
 def make_kv_head_specs(cache, dist: DistContext):
-    """The placement the port's serving executes: every KV cache field on
-    its KV-head dim over ``model`` (query heads [r*H/N, (r+1)*H/N) go with
-    KV heads [r*KV/N, (r+1)*KV/N)), positions and the block table
-    replicated. The payload specs equal :func:`cache_spec_for`'s with
+    """The KV-head placement the port's serving executes with
+    ``kv_seq_shard=False``: every KV cache field on its KV-head dim over
+    ``model`` (query heads [r*H/N, (r+1)*H/N) go with KV heads
+    [r*KV/N, (r+1)*KV/N)), positions and the block table replicated. The
+    payload specs equal :func:`cache_spec_for`'s with
     ``kv_seq_shard=False`` (batch on ``data``, size 1 here, aside); the
     reference puts scales and positions on the sequence dim instead, which
     only its GSPMD layout can execute."""
@@ -439,6 +497,8 @@ def constrain(x, dist: Optional[DistContext], spec):
 
 
 def serving_dist(mesh) -> DistContext:
-    """The DistContext the port's serving builds: :func:`make_dist` with
-    the caches on KV heads (``kv_seq_shard=False``)."""
-    return dataclasses.replace(make_dist(mesh), kv_seq_shard=False)
+    """The DistContext the port's serving builds: the reference's
+    :func:`make_dist`, its caches on the sequence dim (``kv_seq_shard``).
+    ``dataclasses.replace(serving_dist(mesh), kv_seq_shard=False)``
+    serves the KV-head layout."""
+    return make_dist(mesh)

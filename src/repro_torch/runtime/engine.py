@@ -402,15 +402,17 @@ def make_engine(cfg, params, *, batch_slots: int, prompt_pad_len: int,
 
     ``dist`` (a ``DistContext`` over a rank mesh) places the params and
     caches as the reference does: ``params`` (whole) cut to this rank's
-    slice by ``parallel.sharding.make_param_shardings``, every cache on its
-    KV heads (``make_kv_head_shardings``), the ctx's fake-quant weights
-    from the whole weights' grids (``shard_ctx_factory``), and the steps
-    run tensor-parallel. Configs the sharded forward cannot run raise
-    "... not yet ported under --tp / dist"."""
+    slice by ``parallel.sharding.make_param_shardings``, every cache by
+    the dist's layout (``place_cache``: on its sequence dim, the
+    reference's default, or with ``kv_seq_shard=False`` on its KV heads),
+    the ctx's fake-quant weights from the whole weights' grids
+    (``shard_ctx_factory``), and the steps run tensor-parallel. Configs the
+    sharded forward cannot run raise "... not yet ported under --tp /
+    dist"."""
     device = resolve_device(device)
     if dist is not None:
-        from repro_torch.parallel.sharding import (make_kv_head_shardings,
-                                                   make_param_shardings,
+        from repro_torch.parallel.sharding import (make_param_shardings,
+                                                   place_cache,
                                                    shard_ctx_factory)
         tfm.check_tp(cfg, dist)
         if quant_telemetry:
@@ -442,7 +444,7 @@ def make_engine(cfg, params, *, batch_slots: int, prompt_pad_len: int,
                                kv_bits=kv_bits, paged=paged,
                                block_size=block_size, device=device)
         if dist is not None:
-            cache = make_kv_head_shardings(cache, dist)
+            cache = place_cache(cache, dist)
         return cache
 
     engine = Engine(admit, decode, init_cache_fn, batch_slots=batch_slots,

@@ -10,15 +10,18 @@
   and (2, 16, 16), equal the reference's specs (its ``make_abstract_mesh``
   meshes); the reference's ``TestShardingRules`` cases on the port.
 * The reference's sharded engine scenario (``tests/test_engine.py``) on a
-  2-rank gloo group (one spawn for every case): reduced gemma2-2b on the
+  2-rank gloo group (one spawn for every case), the caches on their KV
+  heads (``kv_seq_shard=False``; ``tests/test_torch_kvseq.py`` runs the
+  same modes in the default layout): reduced gemma2-2b on the
   reference's params and calibration carried across, f32 and deploy-int8
   greedy tokens equal on both ranks, to the port's unsharded engine and to
   the reference's unsharded ``make_engine`` + ``serve_engine``; the first
   decode step's logits within 1e-5 of max|logits|; the host arrays the
   engine puts equal on both ranks; each rank's bytes of the
   ``model``-placed leaves summing to the whole; the collectives.
-* The launcher: ``--tp 2`` on the README quickstart with ``--parity``,
-  and ``--async --parity``: the unsharded runs' tokens and lines.
+* The launcher: ``--tp 2`` (the default layout, caches on the sequence
+  dim) on the README quickstart with ``--parity``, and ``--async
+  --parity``: the unsharded runs' tokens and lines.
 * Every refusal, with its message.
 """
 import dataclasses
@@ -326,8 +329,9 @@ class TestShardingRules:
         assert (d.fsdp_axis, d.dp_axes, d.tp_size) == (
             ("pod", "data"), ("pod", "data"), 16)
         assert sh.batch_spec(d) == (("pod", "data"),)
-        assert sh.serving_dist(AbstractMesh((1, 2), ("data", "model"))) \
-            .kv_seq_shard is False
+        serving = sh.serving_dist(AbstractMesh((1, 2), ("data", "model")))
+        assert serving.kv_seq_shard is True
+        assert serving == sh.make_dist(serving.mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -540,7 +544,8 @@ REFUSED = [
     (["--arch", "qwen3-moe-235b"], "MoE blocks"),
     (["--arch", "recurrentgemma-2b"], "recurrent blocks"),
     (["--arch", "seamless-m4t-medium"], "encoder-decoder"),
-    (["--arch", "granite-20b"], "1 KV heads on 2 ranks"),
+    (["--arch", "gemma2-2b", "--scheduler", "continuous", "--paged-kv",
+      "--block-size", "3"], "3 cells on 2 ranks"),
     (["--arch", "gemma2-2b", "--scheduler", "continuous", "--paged-kv",
       "--prefix-cache"], "--prefix-cache"),
     (["--arch", "gemma2-2b", "--scheduler", "continuous", "--paged-kv",
@@ -583,27 +588,32 @@ def test_launcher_tp_checks_of_the_reference(capsys):
 
 def test_engine_refuses_what_the_sharded_forward_cannot_run():
     """``make_engine(dist=)`` and the sharded forward refuse, before
-    placing anything, a mesh whose caches would go on the sequence dim
-    (``kv_seq_shard=True``), MoE, recurrent and encoder-decoder configs,
-    non-dividing KV heads and quant telemetry."""
+    placing anything, MoE, recurrent and encoder-decoder configs, quant
+    telemetry and a ``data`` axis over ranks in either cache layout, and
+    KV heads the ranks do not divide with the caches on their KV heads
+    (``kv_seq_shard=False``); the sequence layout (the default) serves
+    granite-20b's one KV head."""
     mesh = AbstractMesh((1, 2), ("data", "model"))
     seq = sh.make_dist(mesh)
-    kvh = sh.serving_dist(mesh)
+    kvh = dataclasses.replace(seq, kv_seq_shard=False)
     cfg = get_config("gemma2-2b").reduced()
     params = _port_params("gemma2-2b", True)
     kw = dict(batch_slots=2, prompt_pad_len=8, max_len=32, device=CPU)
-    with pytest.raises(NotImplementedError, match="kv_seq_shard=True"):
-        make_engine(cfg, params, dist=seq, **kw)
-    with pytest.raises(NotImplementedError, match="quant telemetry"):
-        make_engine(cfg, params, dist=kvh, quant_telemetry=True, **kw)
-    for arch, what in (("qwen3-moe-235b", "MoE"), ("rwkv6-1p6b", "recurrent"),
-                       ("seamless-m4t-medium", "encoder-decoder"),
-                       ("granite-20b", "KV heads")):
-        with pytest.raises(NotImplementedError,
-                           match=f"{what}.*not yet ported under --tp"):
-            tfm.check_tp(get_config(arch).reduced(), kvh)
-    tfm.check_tp(cfg, kvh)
-    tfm.check_tp(get_config("bert-base").reduced(), kvh)
-    with pytest.raises(NotImplementedError, match="more than the model"):
-        tfm.check_tp(cfg, sh.serving_dist(AbstractMesh((2, 2), ("data",
-                                                                "model"))))
+    for dist in (seq, kvh):
+        with pytest.raises(NotImplementedError, match="quant telemetry"):
+            make_engine(cfg, params, dist=dist, quant_telemetry=True, **kw)
+        for arch, what in (("qwen3-moe-235b", "MoE"),
+                           ("rwkv6-1p6b", "recurrent"),
+                           ("seamless-m4t-medium", "encoder-decoder")):
+            with pytest.raises(NotImplementedError,
+                               match=f"{what}.*not yet ported under --tp"):
+                tfm.check_tp(get_config(arch).reduced(), dist)
+        tfm.check_tp(cfg, dist)
+        tfm.check_tp(get_config("bert-base").reduced(), dist)
+        with pytest.raises(NotImplementedError, match="more than the model"):
+            tfm.check_tp(cfg, dataclasses.replace(
+                dist, mesh=AbstractMesh((2, 2), ("data", "model"))))
+    with pytest.raises(NotImplementedError,
+                       match="KV heads.*not yet ported under --tp"):
+        tfm.check_tp(get_config("granite-20b").reduced(), kvh)
+    tfm.check_tp(get_config("granite-20b").reduced(), seq)

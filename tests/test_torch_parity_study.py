@@ -170,3 +170,50 @@ def _leaves(tree):
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in _leaves(v)]
     return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+
+def test_take_ties_takes_only_rounding_ties():
+    """``take_ties`` (phase 48's rerun): a byte moved by f32 noise at a
+    value one ulp from a rounding boundary is a tie and is taken the
+    reference's way; a byte a whole step away is not, and stays."""
+    s = 0.5
+    f = torch.tensor([[1.0, 2.0, -3.0, 0.75]])         # 0.75 / s = 1.5
+
+    def emit(vals):
+        return torch.clamp(torch.round(vals / s), -128, 127).to(torch.int8)
+    q = emit(f)
+    assert chip_smoke.take_ties(q, f, q, f, s)[1:] == (0, 0)
+    tied = f.clone()
+    tied[0, 3] = torch.nextafter(torch.tensor(0.75), torch.tensor(0.0))
+    moved = tied.clone()
+    moved[0, 0] += s                                   # a whole step
+    got, n_off, n_taken = chip_smoke.take_ties(emit(moved), moved, q, f, s)
+    assert (n_off, n_taken) == (2, 1)
+    assert got[0, 3] == q[0, 3] and got[0, 0] == emit(moved)[0, 0] != q[0, 0]
+
+
+def test_ties_taken_counts_what_parts_from_the_recorded_run():
+    """``_emit_records`` then ``_ties_taken`` over the same emitting calls
+    (here the merge of partials, plain version): a replay of the recorded
+    calls parts nowhere; a planted difference of whole steps parts and is
+    not taken."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator().manual_seed(0)
+    part = torch.randn(2, 1, 4, 2, 10, generator=gen)
+    part[..., -1] = part[..., -1].abs() + 1            # the l of each row
+    kw = dict(mode="one_pass", out_scale=torch.tensor([0.01]),
+              out_zp=torch.tensor([0.0]))
+    with chip_smoke._emit_records() as ref:
+        a = ops.merge_partials(part, **kw)
+        ops.merge_partials(part, mode="one_pass")       # no emit: not a call
+    assert len(ref) == 1 and torch.equal(ref[0][1], a)
+    with chip_smoke._ties_taken(ref) as same:
+        assert torch.equal(ops.merge_partials(part, **kw), a)
+    assert same == {"first": None, "taken": 0, "apart": 0, "calls": 1}
+    shifted = part.clone()
+    shifted[..., 0] += 1.0
+    with chip_smoke._ties_taken(ref) as apart:
+        ops.merge_partials(shifted, **kw)
+    assert apart["first"] == 0 and apart["taken"] == 0
+    assert apart["apart"] > 0

@@ -69,11 +69,20 @@ def _into(cache, new):
 def use_functional_writers(monkeypatch):
     """Serve through the functional writers: each write is computed as a
     new cache, then copied into the cache the step holds (the step relies
-    on its cache being written)."""
-    def dense(c, k, v, pw, window, kvq=None, plans=None):
+    on its cache being written). Whole caches only: a rank's slice of a
+    sequence-sharded cache (``shard``) has no functional twin here."""
+    def whole(shard):
+        if tuple(shard) != (0, 1):
+            raise NotImplementedError("the functional writers write whole "
+                                      f"caches, not shard {shard}")
+
+    def dense(c, k, v, pw, window, kvq=None, plans=None, shard=(0, 1)):
+        whole(shard)
         slots = attn._write_slots(pw, c.pos.shape[1], window)
         return _into(c, write_kv(c, k, v, pw, slots, kvq))
+
+    def paged(c, *a, plans=None, shard=(0, 1)):
+        whole(shard)
+        return _into(c, write_paged_kv(c, *a))
     monkeypatch.setattr(attn, "_write_kv", dense)
-    monkeypatch.setattr(attn, "_write_paged_kv",
-                        lambda c, *a, plans=None: _into(
-                            c, write_paged_kv(c, *a)))
+    monkeypatch.setattr(attn, "_write_paged_kv", paged)

@@ -1,7 +1,8 @@
-"""Rank bodies of ``tests/test_torch_parallel.py``: functions that
-``repro_torch.launch.mesh.run_ranks`` spawns on a CPU gloo group. No JAX
-here (every rank would import it): the test hands the reference's params
-and calibration across as numpy trees."""
+"""Rank bodies of ``tests/test_torch_parallel.py`` (the KV-head cache
+layout) and ``tests/test_torch_kvseq.py`` (the sequence layout, the
+default): functions that ``repro_torch.launch.mesh.run_ranks`` spawns on a
+CPU gloo group. No JAX here (every rank would import it): the tests hand
+the reference's params and calibration across as numpy trees."""
 import dataclasses
 
 import numpy as np
@@ -13,8 +14,7 @@ from repro_torch.core import Mode, QuantCtx, build_deploy, peg_policy
 from repro_torch.models import transformer as tfm
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import (make_cache_shardings,
-                                           make_kv_head_shardings,
-                                           param_spec_for,
+                                           param_spec_for, place_cache,
                                            tree_leaves_with_path)
 from repro_torch.runtime import Request, make_engine, serve_engine
 from repro_torch.runtime.steps import make_admit_step, make_decode_step
@@ -54,9 +54,8 @@ def _first_decode_logits(cfg, params, dist, dev, ctx=None):
     through the serving steps (placed params and cache under ``dist``)."""
     admit = make_admit_step(cfg, ctx_factory=ctx, dist=dist)
     decode = make_decode_step(cfg, ctx_factory=ctx, dist=dist)
-    cache = tfm.init_cache(cfg, 2, MAX_LEN, dtype=torch.float32, device=dev)
-    if dist is not None:
-        cache = make_kv_head_shardings(cache, dist)
+    cache = place_cache(tfm.init_cache(cfg, 2, MAX_LEN, dtype=torch.float32,
+                                       device=dev), dist)
     rng = np.random.RandomState(5)
     toks = torch.as_tensor(rng.randint(1, cfg.vocab_size, (2, PAD)))
     pos = torch.arange(PAD, dtype=torch.int32).expand(2, PAD).contiguous()
@@ -69,13 +68,42 @@ def _first_decode_logits(cfg, params, dist, dev, ctx=None):
 
 def engine_scenarios(dist, dev, jparams, jshared):
     """The reference's sharded engine scenario (``tests/test_engine.py``'s
-    ``SHARDED_SCRIPT``) on this rank, with more modes: greedy tokens of the
+    ``SHARDED_SCRIPT``) on this rank with the caches on their KV heads
+    (``kv_seq_shard=False``), with more modes: greedy tokens of the
     sharded engine in f32, with the one-hot embed, in APPLY fake-quant,
     and on the deploy path (dense kv16 as the reference, kv8 and paged
     kv8), each beside the same engine unsharded on this rank; the first
     decode step's logits sharded and unsharded; the host arrays the
     engine put; this rank's bytes of every leaf placed on ``model`` (by
     path) and the whole bytes of each."""
+    return _scenarios(dataclasses.replace(dist, kv_seq_shard=False), dev,
+                      jparams, jshared)
+
+
+def kvseq_scenarios(dist, dev, jparams, jshared):
+    """:func:`engine_scenarios`' modes in the default layout (every cache
+    on its sequence dim, ``dist`` as ``run_ranks`` builds it), plus a paged
+    f32 cache (K7's path), and per mode this rank's resident cache bytes
+    (the KV fields; the block table apart) against the unsharded cache's."""
+    assert dist.kv_seq_shard
+    out = _scenarios(dist, dev, jparams, jshared, seq=True)
+    cfg = get_config("gemma2-2b").reduced()
+    out["cache_bytes"] = {}
+    for tag, kw in (("f32", {}), ("kv8", {"kv_bits": 8}),
+                    ("kv4", {"kv_bits": 4}),
+                    ("paged_f32", {"paged": True, "block_size": 4}),
+                    ("paged_kv8", {"kv_bits": 8, "paged": True,
+                                   "block_size": 4})):
+        whole = tfm.init_cache(cfg, 2, MAX_LEN, dtype=torch.float32,
+                               device=dev, **kw)
+        out["cache_bytes"][tag] = tuple(
+            {path: x.numel() * x.element_size()
+             for path, x in tree_leaves_with_path(c)}
+            for c in (place_cache(whole, dist), whole))
+    return out
+
+
+def _scenarios(dist, dev, jparams, jshared, seq=False):
     cfg = get_config("gemma2-2b").reduced()
     params = params_from_jax(jparams, dev)
     shared = act_state_from_jax(jshared, dev)
@@ -104,6 +132,14 @@ def engine_scenarios(dist, dev, jparams, jshared):
                                           "block_size": 4})):
         out[tag] = _tokens(cfg, packed, dist, dev, deploy_ctx, **kw)
         out[tag + "_un"] = _tokens(cfg, packed, None, dev, deploy_ctx, **kw)
+    if seq:
+        kw = {"paged": True, "block_size": 4}
+        out["f32_paged"] = _tokens(cfg, params, dist, dev, **kw)
+        out["f32_paged_un"] = _tokens(cfg, params, None, dev, **kw)
+        out["deploy_paged"] = _tokens(cfg, packed, dist, dev, deploy_ctx,
+                                      **kw)
+        out["deploy_paged_un"] = _tokens(cfg, packed, None, dev, deploy_ctx,
+                                         **kw)
     placed = params_from_jax(jparams, dev, dist=dist)
     with torch.no_grad():
         out["logits"] = _first_decode_logits(cfg, placed, dist, dev)
