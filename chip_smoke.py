@@ -215,11 +215,10 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              at G 48; then 2 layers at kv16, every decode step through K7
              at G 48.
 28. zoo qwen3-moe — full width (d 4096, 64 heads on 4 kv heads, QK-norm,
-             128 experts top 8), the quickstart's kv8 flags, twice: K6 at
-             G 16 in every layer, the MoE FFN in fake-quant (the fallback
-             note must say so); each run prints the experts' capacity and
-             the rows dropped per kind of step, and the two runs must emit
-             identical greedy tokens.
+             128 experts top 8), the quickstart's kv8 flags: K6 at G 16 in
+             every layer, the MoE FFN in fake-quant (the fallback note must
+             say so); it prints the experts' capacity and the rows dropped
+             per kind of step.
 29. zoo grok-1 — full width (d 6144, 8 experts top 2 with GELU, softcaps,
              scaled embeddings), a static bf16 dense cache, then the
              quickstart's kv8 flags.
@@ -227,8 +226,9 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              quickstart's flags and ``--parity``: the reference launcher's
              counts (36 tokens, 10 decode steps, 6 prefills, blocks 16/32,
              6 chunk steps), ``[kv-int8]`` <= 1e-4 and three ``[parity]
-             OK`` lines. Each zoo phase prints its depth, wall and peak
-             device memory.
+             OK`` lines; qwen3-moe twice, the two runs' greedy tokens
+             identical (the MoE combine's determinism on the card). Each
+             zoo phase prints its depth, wall and peak device memory.
 31. rec recurrentgemma — full width cut to ``REC_DEPTH`` (8 of its
              26 layers: (rec, rec, local_attn) x 2 + the (rec, rec)
              tail; d 2560, local attention MQA 10 x 256 in a 2048
@@ -336,7 +336,7 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              launches, host time in the collectives and resident bytes
              print.
 46. tp2-full (run after 18) — gemma2-2b at published width
-             (``GEMMA_DEPTH`` layers, bf16), PTQ and deploy at kv8,
+             (``TP_FULL_DEPTH`` 2 layers, bf16), PTQ and deploy at kv8,
              FULL_ASYNC's workload through ``make_engine(dist=)`` on a
              (1, 2) rank mesh on ``cuda:0`` with the caches on their KV
              heads: both ranks' greedy tokens must equal the unsharded
@@ -356,6 +356,20 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              launcher's serve body: K6 and K7 in partial mode at G 48;
              both ranks' tokens equal the zoo phase's unsharded runs', each
              rank's peak KV cache half of theirs.
+49. tp2-moe (after 48, in phase 48's ranks) — qwen3-moe-235b at
+             published width
+             (``TP_MOE_DEPTH`` 2 layers) with the quickstart's kv8 flags on
+             2 ranks through the launcher's serve body, 64 of 128 experts a
+             rank in every layer: both ranks' tokens equal the unsharded
+             run's with every ``*/router_logits`` site passed (the
+             function ``--tp`` serves, as the reference's sharded MoE
+             drops the router's ctx), or part only at rounding ties of K1,
+             the ``wo`` emit or a fake-quant site; the MoE dispatches
+             equal; K6 partials and both merges each decode step; then
+             grok-1-314b's MoE block at published width (8 experts of d_ff
+             32768) at 4 and 32 rows, expert-parallel and hybrid (every
+             expert on a d_ff half), within 1e-5 of max|out| of the
+             unsharded block, the dispatch integers equal.
 
 In every serving phase every request must get its tokens. The reduced
 runs' integer-path logits must match the fake-quant path they replace
@@ -2652,6 +2666,11 @@ W4 = ("--weight-bits", "4")
 # (local, global) pairs, and the decode steps are host-bound, each layer
 # adding a fixed host time to every step, so depth sets the phases' time
 GEMMA_DEPTH = 4
+# phases 46-47 serve one (local, global) pair of gemma2-2b's layers: the
+# two ranks' start-up and serving time grows with depth, and a pair holds
+# every layer kind and both cache layouts' shapes (cut from GEMMA_DEPTH to
+# pay for phase 49)
+TP_FULL_DEPTH = 2
 
 
 def cut_depth(arch, num_layers):
@@ -4151,7 +4170,7 @@ def tp2_full_rank(dist, dev, depth, reduced=False):
 
 def tp2_full_phase(add, device=None, reduced=False):
     """Phases 46-47 (run after 18): gemma2-2b at published width (d 2304, 8
-    heads on 4 KV heads, hd 256, vocab 256000, d_ff 9216; ``GEMMA_DEPTH``
+    heads on 4 KV heads, hd 256, vocab 256000, d_ff 9216; ``TP_FULL_DEPTH``
     layers, bf16), PTQ and deploy at kv8, FULL_ASYNC's workload through
     ``make_engine(dist=)`` over a (1, 2) rank mesh on ``cuda:0``, in both
     cache layouts. ``[tp2-full]``, the caches on their KV heads: every rank
@@ -4174,7 +4193,7 @@ def tp2_full_phase(add, device=None, reduced=False):
     the CPU at the reduced width."""
     from repro_torch.launch.mesh import run_ranks
     t0 = time.perf_counter()
-    ranks = run_ranks(tp2_full_rank, TP, (GEMMA_DEPTH, reduced),
+    ranks = run_ranks(tp2_full_rank, TP, (TP_FULL_DEPTH, reduced),
                       device=device)
     secs = time.perf_counter() - t0
     r0 = ranks[0]
@@ -4279,15 +4298,19 @@ def tp2_full_phase(add, device=None, reduced=False):
 
 @contextlib.contextmanager
 def _emit_records():
-    """Every decode attention call that emits the int8 ``wo`` input (a
-    whole-cache K5 / K6 / K7 call or the merge of partials) as (its f32
-    output, the int8 emit, the grid's scale): the call is made once more
-    without the emit for the f32 values it quantized (both are
-    deterministic). On the host, in call order."""
+    """Every call that emits int8 bytes from f32 values computed in the
+    call: K1 (``rms_quantize``) and each decode attention call that emits
+    the ``wo`` input (a whole-cache K5 / K6 / K7 call or the merge of
+    partials), as (its f32 values, the int8 emit, the grid's step); the
+    attention call is made once more without the emit for the f32 values
+    it quantized (both are deterministic), K1's are its norm's, in
+    PyTorch. On the host, in call order."""
+    import torch
     got = []
 
     def record(i, out, f, s):
-        got.append((f.cpu(), out.cpu(), s))
+        got.append((f.cpu(), out.cpu(),
+                    s.cpu() if isinstance(s, torch.Tensor) else s))
         return out
     with _emitting_calls(record):
         yield got
@@ -4295,12 +4318,27 @@ def _emit_records():
 
 @contextlib.contextmanager
 def _emitting_calls(visit):
-    """Each emitting decode attention call's int8 emit replaced by
-    ``visit(call index, emit, its f32 output, scale)``."""
+    """Each emitting call's int8 emit replaced by ``visit(call index,
+    emit, its f32 values, grid step)``: the decode attention calls that
+    emit the ``wo`` input, and K1, whose f32 values are its RMSNorm in
+    PyTorch (``fused_ln_quant._normalize``; the kernel's reduction order
+    moves them by float rounding only) and whose step is each column's
+    group scale."""
+    from repro_torch.kernels import _args
+    from repro_torch.kernels import fused_ln_quant as lnq
     from repro_torch.kernels import ops as kops
     names = ("int8_attend_decode", "paged_int8_attend_decode",
-             "paged_attend_decode", "merge_partials")
+             "paged_attend_decode", "merge_partials", "rms_quantize")
     real, calls = {n: getattr(kops, n) for n in names}, [0]
+
+    def k1(fn):
+        def wrapped(x, gamma, scale, zp, **kw):
+            out = fn(x, gamma, scale, zp, **kw)
+            f = lnq._normalize(x, gamma, None, kw.get("eps", 1e-6), False)
+            calls[0] += 1
+            return visit(calls[0] - 1, out, f,
+                         _args.expand_groups(scale, x.shape[-1], x.device))
+        return wrapped
 
     def hooked(fn):
         def wrapped(*a, **kw):
@@ -4314,7 +4352,7 @@ def _emitting_calls(visit):
             return visit(calls[0] - 1, out, f, float(kw["out_scale"]))
         return wrapped
     for n in names:
-        setattr(kops, n, hooked(real[n]))
+        setattr(kops, n, (k1 if n == "rms_quantize" else hooked)(real[n]))
     try:
         yield
     finally:
@@ -4323,15 +4361,17 @@ def _emitting_calls(visit):
 
 
 def take_ties(got, got_f, ref, ref_f, s):
-    """``got`` (an int8 emit on the grid step ``s``) with every byte that
-    differs from ``ref`` taken ``ref``'s way where both runs' f32 values
-    lie within ``TIE_REL`` x max(|v / s|, 1) of a step of the rounding
-    boundary (a rounding tie); returns (that emit, bytes apart, bytes
-    taken)."""
+    """``got`` (an int8 emit on the grid step ``s``, a number or a tensor
+    that broadcasts over it) with every byte that differs from ``ref``
+    taken ``ref``'s way where both runs' f32 values lie within
+    ``TIE_REL`` x max(|v / s|, 1) of a step of the rounding boundary (a
+    rounding tie); returns (that emit, bytes apart, bytes taken)."""
     import torch
     off = got != ref.to(got.device)
     if not bool(off.any()):
         return got, 0, 0
+    if isinstance(s, torch.Tensor):
+        s = s.to(got.device)
 
     def at_edge(v):
         t = v.to(got.device).float() / s
@@ -4367,20 +4407,104 @@ def _ties_taken(ref):
         yield got
 
 
+@contextlib.contextmanager
+def _site_ties_taken(ref):
+    """Every fake-quant site applied in PyTorch whose rounded values part
+    from ``ref``'s (a :func:`_site_records` of the same calls) at a
+    rounding tie (both runs' values before rounding within ``TIE_REL`` x
+    max(|x / step|, 1) of the boundary) taken the reference's way; yields
+    {"first": the first record apart or None, "taken": values taken,
+    "apart": values apart that are not ties, "calls": sites applied}."""
+    import torch
+    from repro_torch.core import calibration as cal
+    from repro_torch.core.quantizer import _expand
+    real = cal.QuantCtx._apply
+    got = {"first": None, "taken": 0, "apart": 0, "calls": 0}
+
+    def apply(c, site, x, qcfg):
+        y = real(c, site, x, qcfg)
+        qp = c.act_state.get(site) if c.act_state else None
+        if qp is None or site.startswith("head/"):
+            return y
+        i = got["calls"]
+        got["calls"] += 1
+        if i >= len(ref) or ref[i][0] != site \
+                or ref[i][2].shape != y.shape:
+            got["apart"] += y.numel()
+            return y
+        st = torch.clamp_min(_expand(qp, x.dim(), qcfg.channel_axis)[0]
+                             .float(), 1e-30).expand(y.shape)
+        x0, y0 = (t.to(y.device) for t in ref[i][1:3])
+        off = (y.float() - y0).abs() > 0.5 * st
+        if not bool(off.any()):
+            return y
+
+        def at_edge(v):
+            t = v.float() / st
+            return ((t - t.floor()) - 0.5).abs() <= TIE_REL * \
+                t.abs().clamp_min(1.0)
+        take = off & at_edge(x) & at_edge(x0)
+        if got["first"] is None:
+            got["first"] = i
+        got["taken"] += int(take.sum())
+        got["apart"] += int(off.sum()) - int(take.sum())
+        return torch.where(take, y0.to(y.dtype), y)
+    cal.QuantCtx._apply = apply
+    try:
+        yield got
+    finally:
+        cal.QuantCtx._apply = real
+
+
+@contextlib.contextmanager
+def _expert_bytes():
+    """Yields [this rank's, the whole's] bytes of every MoE expert leaf,
+    filled when the launcher places its params
+    (``sharding.make_param_shardings``)."""
+    from repro_torch.parallel import sharding
+    real, got = sharding.make_param_shardings, [0, 0]
+
+    def moe_bytes(tree):
+        return sum(x.numel() * x.element_size()
+                   for path, x in sharding.tree_leaves_with_path(tree)
+                   if "/moe/w_" in path)
+
+    def place(params, dist):
+        placed = real(params, dist)
+        got[:] = [moe_bytes(placed), moe_bytes(params)]
+        return placed
+    sharding.make_param_shardings = place
+    try:
+        yield got
+    finally:
+        sharding.make_param_shardings = real
+
+
+def _dispatch_rows(log):
+    """A :func:`_moe_dispatches` log as host tuples (tokens routed
+    together, capacity an expert, rows dropped)."""
+    return [(t, cap, int(dropped)) for t, cap, dropped in log]
+
+
 def tp2_launcher_rank(dist, dev, runs, reduced=False):
-    """One rank of phase 48: each (arch, depth, argv, the unsharded run's
-    tokens) of ``runs`` served by the serving launcher's body on this
-    rank's slice (``serve._serve_rank``), its ``get_config`` giving
-    ``arch`` cut to ``depth`` layers at published width (``reduced``: the
-    reduced config, a CPU rehearsal). When the tokens differ from the
-    unsharded run's, each rank serves the workload unsharded, recording
-    every emitting decode attention call (:func:`_emit_records`), then
-    sharded once more with every emitted byte that parts from it at a
-    rounding tie taken its way (:func:`_ties_taken`). Returns per run the
-    rank's report (tokens, launches, host time in the collectives,
-    resident parameter and KV-cache bytes) with rank 0's output, the
-    decode step walls, the launches of the third decode step and, after a
-    rerun, its tokens and what it took."""
+    """One rank of phases 48 and 49: each (arch, depth, argv, the
+    unsharded run's tokens) of ``runs`` served by the serving launcher's
+    body on this rank's slice (``serve._serve_rank``), its ``get_config``
+    giving ``arch`` cut to ``depth`` layers at published width
+    (``reduced``: the reduced config, a CPU rehearsal), recording its MoE
+    dispatches (:func:`_moe_dispatches`). When the tokens differ from the
+    unsharded run's, each rank serves the workload unsharded (with the
+    router sites passed, :func:`router_sites_passed`: the function
+    ``--tp`` serves), recording every emitting call, K1's and the decode
+    attention's (:func:`_emit_records`), and every fake-quant site
+    (:func:`_site_records`), then sharded once more with every emitted
+    byte and rounded value that parts from it at a rounding tie taken its
+    way (:func:`_ties_taken`, :func:`_site_ties_taken`). Returns per run
+    the rank's report (tokens, launches, host time in the collectives,
+    resident parameter and KV-cache bytes, peak device memory, the
+    dispatches) with rank 0's output, the decode step walls, the launches
+    of the third decode step and, after a rerun, its tokens and what it
+    took."""
     import dataclasses
 
     import torch
@@ -4418,20 +4542,31 @@ def tp2_launcher_rank(dist, dev, runs, reduced=False):
         launcher.get_config = lambda a: cfg if a == arch else orig_get(a)
         launcher.make_decode_step = make
         try:
-            text, _, info = launcher._serve_rank(dist, dev, argv, None)
-            info.update(text=text, walls=list(walls),
-                        step_launches=dict(step_counts))
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            with _moe_dispatches() as log, _expert_bytes() as experts:
+                text, _, info = launcher._serve_rank(dist, dev, argv, None)
+            info.update(text=text, walls=list(walls), expert_bytes=experts,
+                        step_launches=dict(step_counts),
+                        dispatches=_dispatch_rows(log),
+                        peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                                    if dev.type == "cuda" else 0))
             if info["tokens"] != want:     # alike on every rank
                 ref, ap = {}, launcher.build_parser()
-                with _emit_records() as emits, \
+                with router_sites_passed(), _emit_records() as emits, \
+                        _site_records() as sites, \
                         contextlib.redirect_stdout(io.StringIO()):
                     launcher._serve_main(ap, ap.parse_args(argv), cfg, dev,
                                          None, info=ref)
-                with _ties_taken(emits) as taken:
+                with _ties_taken(emits) as taken, \
+                        _site_ties_taken(sites) as fq, \
+                        _moe_dispatches() as log:
                     _, _, again = launcher._serve_rank(dist, dev, argv,
                                                        None)
+                del emits, sites
                 info["ties"] = dict(taken, tokens=again["tokens"],
-                                    tokens_un=ref["tokens"])
+                                    tokens_un=ref["tokens"], sites=fq,
+                                    dispatches=_dispatch_rows(log))
         finally:
             launcher.get_config = orig_get
             launcher.make_decode_step = orig_make
@@ -4439,7 +4574,36 @@ def tp2_launcher_rank(dist, dev, runs, reduced=False):
     return got
 
 
-def tp2_granite_phase(add, want, device=None, reduced=False):
+def _print_ties(tag, rank, ties, again, n_tok):
+    fq = ties["sites"]
+    print(f"[{tag}] rank {rank}: the runs part first at emitting call "
+          f"{ties['first']} of {ties['calls']} (K1 and the decode attention's "
+          f"wo emit) and at fake-quant site record {fq['first']} of "
+          f"{fq['calls']}; with every emitted byte and rounded value that "
+          f"parts at a rounding tie (within TIE_REL) taken the unsharded "
+          f"run's way ({ties['taken']} bytes, {fq['taken']} values), "
+          f"{ties['apart']} bytes and {fq['apart']} values part otherwise and "
+          f"{again}/{n_tok} greedy tokens equal the unsharded run's")
+
+
+def _require_ties(tag, rank, ties, want, same, n_tok):
+    fq = ties["sites"]
+    require(ties["apart"] == 0 and fq["apart"] == 0
+            and ties["taken"] + fq["taken"] > 0 and ties["tokens"] == want,
+            f"{tag}: rank {rank}'s greedy tokens differ from the unsharded "
+            f"run's ({same}/{n_tok} equal) and not only at rounding ties")
+
+
+def granite_runs(want):
+    """Phase 48's runs for :func:`tp2_launcher_rank`: granite-20b at kv8
+    and kv16 against the zoo phase's unsharded runs (``want``: {kv bits:
+    that run's report})."""
+    arch = "granite-20b"
+    return [(arch, ZOO_DEPTH[arch], zoo_argv(arch, kv, *FULL_QUICK),
+             want[kv]["tokens"]) for kv in ("8", "16")]
+
+
+def tp2_granite_phase(add, want, ranks):
     """Phase 48 (after the zoo phases): granite-20b at published width (d
     6144, 48 query heads on 1 KV head, hd 128, d_ff 24576; ``ZOO_DEPTH`` 2
     layers, bf16), which the KV-head layout cannot serve on 2 ranks, with
@@ -4449,23 +4613,17 @@ def tp2_granite_phase(add, want, device=None, reduced=False):
     or K7 (kv16) in partial mode at G 48, the statistics merge and the
     emitting merge. Both ranks' greedy tokens must equal the zoo phase's
     unsharded run's (``want``: {kv bits: that run's report}), or else the
-    runs must part only at rounding ties: rerun with every emitted ``wo``
-    byte that parts from the unsharded run's at a tie taken its way
-    (``tp2_launcher_rank``), the sharded run must emit every token of the
-    unsharded one and part at no byte that is not a tie. Each rank's peak
+    runs must part only at rounding ties: rerun with every emitted byte
+    (K1, the ``wo`` input) and fake-quant value that parts from the
+    unsharded run's at a tie taken its way (``tp2_launcher_rank``), the
+    sharded run must emit every token of the unsharded one and part at no
+    byte or value that is not a tie. Each rank's peak
     KV cache must be half of the unsharded run's. Prints per rank the
     launches of one decode step, the median decode step, host time in the
     collectives, resident bytes and, after a rerun, where the runs part
-    and how many bytes it took."""
-    from repro_torch.launch.mesh import run_ranks
-    arch = "granite-20b"
-    bits = ("8", "16")
-    runs = [(arch, ZOO_DEPTH[arch], zoo_argv(arch, kv, *FULL_QUICK),
-             want[kv]["tokens"]) for kv in bits]
-    t0 = time.perf_counter()
-    ranks = run_ranks(tp2_launcher_rank, TP, (runs, reduced), device=device)
-    secs = time.perf_counter() - t0
-    for i, kv in enumerate(bits):
+    and how many bytes it took. ``ranks``: each rank's reports of
+    :func:`granite_runs` (``tp2_launcher_phases`` serves them)."""
+    for i, kv in enumerate(("8", "16")):
         tag = "tp2-granite" + ("" if kv == "8" else "-kv16")
         kernel = ("paged_int8_attend_decode_partials" if kv == "8"
                   else "paged_attend_decode_partials")
@@ -4492,21 +4650,12 @@ def tp2_granite_phase(add, want, device=None, reduced=False):
                 again = sum(x == y for a, b in zip(ties["tokens"],
                                                    un["tokens"])
                             for x, y in zip(a, b))
-                print(f"[{tag}] rank {r['rank']}: the runs part first at "
-                      f"emitting decode attention call {ties['first']} of "
-                      f"{ties['calls']}; with every emitted wo byte that "
-                      f"parts at a rounding tie (within TIE_REL) taken the "
-                      f"unsharded run's way ({ties['taken']} bytes), "
-                      f"{ties['apart']} bytes part otherwise and {again}/"
-                      f"{n_tok} greedy tokens equal the unsharded run's")
+                _print_ties(tag, r["rank"], ties, again, n_tok)
                 require(ties["tokens_un"] == un["tokens"], f"{tag}: the "
                         f"rank's unsharded rerun emitted other tokens than "
                         f"the zoo phase's")
-                require(ties["apart"] == 0 and ties["taken"] > 0
-                        and ties["tokens"] == un["tokens"],
-                        f"{tag}: rank {r['rank']}'s greedy tokens differ "
-                        f"from the unsharded run's ({same}/{n_tok} equal) "
-                        f"and not only at rounding ties")
+                _require_ties(tag, r["rank"], ties, un["tokens"], same,
+                              n_tok)
             for name in (kernel, "merge_partials", "merge_partials_emit"):
                 require(r["step_launches"].get(name, 0) > 0,
                         f"{tag}: rank {r['rank']}'s decode step launched no "
@@ -4515,7 +4664,315 @@ def tp2_granite_phase(add, want, device=None, reduced=False):
                     f"{tag}: rank {r['rank']} holds {r['cache_bytes']} bytes "
                     f"of KV cache, not half of {un['cache_bytes']}")
             add(r["launches"])
-    print(f"[tp2-granite] phase 48 {secs:.1f} s ({TP} ranks on one card)")
+
+
+# Phase 49: qwen3-moe-235b at published width on 2 ranks, its depth cut as
+# ZOO_DEPTH cuts the zoo's: a rank builds the whole params for the startup
+# checks before it keeps its slice, so two ranks on one card hold two
+# whole copies and their calibrations at once (4.83 GB of experts a layer;
+# ~12.4 GB at 2 layers, ~22 GB at 4).
+TP_MOE_DEPTH = {"qwen3-moe-235b": 2}
+# grok-1-314b's MoE block at published width (d 6144, 8 experts of d_ff
+# 32768, top 2, GELU): 4 decode rows and a 32-row chunk, bf16 experts drawn
+# on the card from GROK_SEED, f32 rows as the deploy path's residual
+# stream gives them
+GROK_ROWS = (4, 32)
+GROK_SEED = 49
+
+
+def grok_block(dev, keep=None, reduced=False):
+    """grok-1-314b's MoE block params at published width in bf16, drawn on
+    ``dev`` from ``GROK_SEED`` one expert matrix at a time (the same
+    numbers in every process on the same card), each expert matrix
+    passed through ``keep(name, expert index, w)`` (a slice, or None to
+    leave it out; default: whole); with the MoE config and the rows
+    (``reduced``: the reduced config's block, a CPU rehearsal)."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config("grok1-314b")
+    cfg = cfg.reduced() if reduced else cfg
+    mcfg, d = cfg.moe, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(GROK_SEED)
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=gen, device=dev).mul_(std).to(
+            torch.bfloat16)
+    p = {"router": normal((d, mcfg.num_experts), d ** -0.5)}
+    for name, shape, std in (("w_gate", (d, mcfg.d_ff), d ** -0.5),
+                             ("w_up", (d, mcfg.d_ff), d ** -0.5),
+                             ("w_out", (mcfg.d_ff, d), mcfg.d_ff ** -0.5)):
+        ws = []
+        for e in range(mcfg.num_experts):
+            w = normal(shape, std)
+            w = w if keep is None else keep(name, e, w)
+            if w is not None:
+                ws.append(w.clone())
+            del w
+        p[name] = torch.stack(ws)
+        del ws
+    xs = {t: torch.randn((t, d), generator=gen, device=dev)
+          for t in GROK_ROWS}
+    return p, mcfg, xs
+
+
+def _grok_slice(mode, rank, n, num_experts):
+    """The ``keep`` of :func:`grok_block` for a rank's slice: E/n experts
+    (expert-parallel) or every expert's d_ff slice (hybrid, the mode
+    grok-1 gets on the reference's 16-way mesh)."""
+    def keep(name, e, w):
+        if mode == "expert-parallel":
+            return w if e // (num_experts // n) == rank else None
+        f = w.shape[0] if name == "w_out" else w.shape[1]
+        dim = 0 if name == "w_out" else 1
+        return w.narrow(dim, rank * f // n, f // n)
+    return keep
+
+
+def _grok_calls(fn, p, mcfg, xs, dev, reps=3):
+    """``fn(p, x, mcfg)`` at every row count, recording the dispatch:
+    {rows: (output on the host, dispatch integers on the host, median
+    synchronized ms of ``reps`` more calls, all of them the first's
+    bits)}."""
+    import torch
+    from repro_torch.models import moe
+    got, real = {}, moe._dispatch_indices
+    for t, x in xs.items():
+        log = []
+
+        def dispatch(*a, **kw):
+            out = real(*a, **kw)
+            log.append(tuple(i.cpu() for i in out))
+            return out
+        moe._dispatch_indices = dispatch
+        try:
+            y = fn(p, x, mcfg)
+        finally:
+            moe._dispatch_indices = real
+        walls, same = [], True
+        for _ in range(reps):
+            _sync(dev)
+            t0 = time.perf_counter()
+            again = fn(p, x, mcfg)
+            _sync(dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            same = same and torch.equal(again, y)
+        got[t] = (y.cpu(), log[0], statistics.median(walls), same)
+    return got
+
+
+def tp2_moe_rank(dist, dev, runs, reduced=False):
+    """One rank of phases 48-49: (a) ``runs`` through
+    :func:`tp2_launcher_rank` (granite-20b's, then qwen3-moe-235b's with
+    its experts E/2 a rank); (b) grok-1's MoE block at published width in
+    both modes on this rank's slice (``moe_apply_sharded``), drawn by
+    :func:`grok_block`: {mode: :func:`_grok_calls`} and the slice's
+    expert bytes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    launcher = tp2_launcher_rank(dist, dev, runs, reduced)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    n, r = TP, dist.mesh.rank
+    block = {}
+    for mode in ("expert-parallel", "hybrid"):
+        cfg = get_config("grok1-314b")
+        e = (cfg.reduced() if reduced else cfg).moe.num_experts
+        p, mcfg, xs = grok_block(dev, _grok_slice(mode, r, n, e), reduced)
+        ep = mode == "expert-parallel"
+        block[mode] = _grok_calls(
+            lambda q, x, c: moe.moe_apply_sharded(q, x, c, dist=dist,
+                                                  expert_parallel=ep),
+            p, mcfg, xs, dev)
+        block[mode + "/bytes"] = sum(p[k].numel() * p[k].element_size()
+                                     for k in ("w_gate", "w_up", "w_out"))
+        del p, xs
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return launcher, block
+
+
+def tp2_moe_unsharded(device=None, reduced=False):
+    """Phase 49's reference run, before the ranks: qwen3-moe-235b at
+    ``TP_MOE_DEPTH`` through the launcher unsharded with its router sites
+    passed (:func:`router_sites_passed`), its MoE dispatches recorded.
+    Returns (its report with the dispatches, the cut config, phase 49's
+    run for :func:`tp2_launcher_rank`)."""
+    import torch
+    from repro_torch.launch import serve as launcher
+    arch = "qwen3-moe-235b"
+    depth = TP_MOE_DEPTH[arch]
+    dev = torch.device(device or "cuda")
+    t0 = time.perf_counter()
+    argv = zoo_argv(arch, "8", *FULL_QUICK) + (["--reduced"] if reduced
+                                               else [])
+    served = []
+    out = io.StringIO()
+    with zoo_config(arch, depth) as cfg, \
+            router_sites_passed() as dropped, \
+            _moe_dispatches() as log, contextlib.redirect_stdout(out):
+        launcher.main(argv, device=device, report=served)
+    un = dict(served[0], dispatches=_dispatch_rows(log),
+              seconds=time.perf_counter() - t0)
+    for line in out.getvalue().splitlines():
+        print(f"[tp2-moe-unsharded] {line}")
+    require(dropped == ["layer/ffn/router_logits"],
+            f"tp2-moe: the router sites passed are {dropped}")
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return un, cfg, (arch, depth, zoo_argv(arch, "8", *FULL_QUICK),
+                     un["tokens"])
+
+
+def tp2_moe_phase(add, un, cfg, ranks, device=None, reduced=False):
+    """Phase 49 (after 48): MoE expert parallelism on 2 ranks on one card
+    (gloo), in the default cache layout.
+
+    (a) qwen3-moe-235b at published width (``TP_MOE_DEPTH`` 2 layers,
+    bf16; 128 experts top 8, QK-norm, G 16) with the quickstart's kv8
+    flags through the launcher's serve body, 64 of the 128 experts a rank
+    in every layer. The tokens are held to the same model served
+    unsharded with every ``*/router_logits`` site passed through
+    (:func:`router_sites_passed`: the reference's sharded MoE calls its
+    router without the ctx, so that is the function ``--tp`` serves): both
+    ranks' greedy tokens equal, or the runs part only at rounding ties
+    (``tp2_launcher_rank``'s rerun: every byte K1 or the decode attention
+    emits and every fake-quant value that parts at a tie taken the
+    unsharded run's way: the ranks' f32 sum of their experts' outputs
+    associates otherwise than the unsharded sum in increasing expert
+    id); the MoE dispatches (tokens routed together, capacity, rows
+    dropped) equal the unsharded run's; each rank launches K6 in partial
+    mode and both merges in a decode step; a rank's expert bytes are half
+    the whole's. Prints per rank the tokens equal, the median decode step,
+    one decode step's launches, host time in the collectives, resident
+    params against the whole and peak device memory.
+
+    (b) grok-1-314b's MoE block at published width (:func:`grok_block`),
+    at 4 decode rows and a 32-row chunk, on both ranks in both modes:
+    expert-parallel (4 experts a rank) and hybrid (all 8 on a d_ff half).
+    Each rank's output within 1e-5 of max|out| of the unsharded
+    ``moe_apply`` on the card (the CPU tests' margin), the dispatch
+    integers equal, every repeat call the same bits; the median
+    synchronized call of each beside the unsharded one's.
+
+    ``un``: :func:`tp2_moe_unsharded`'s run; ``ranks``: each rank's (its
+    report of (a), its (b)) (``tp2_launcher_phases`` serves them);
+    ``reduced``: the reduced config (a CPU rehearsal)."""
+    import torch
+    from repro_torch.models import moe
+    dev = torch.device(device or "cuda")
+    t0 = time.perf_counter()
+    tag = "tp2-moe"
+    n_tok = sum(len(t) for t in un["tokens"])
+    mcfg = cfg.moe if not reduced else cfg.reduced().moe
+    for line in ranks[0][0]["text"].splitlines():
+        print(f"[{tag}] {line}")
+    for rank, (r, _) in enumerate(ranks):
+        same = sum(x == y for a, b in zip(r["tokens"], un["tokens"])
+                   for x, y in zip(a, b))
+        print(f"[{tag}] rank {rank} on {r['device']} ({r['backend']}): "
+              f"{same}/{n_tok} greedy tokens equal the unsharded run's with "
+              f"the router sites passed; decode step median "
+              f"{statistics.median(r['walls']):.2f} ms over "
+              f"{len(r['walls'])} steps; launches in one decode step "
+              f"{r['step_launches']}; host time in collectives "
+              f"{r['collective_s']:.3f} s of {r['seconds']:.2f} s; resident "
+              f"params {r['param_bytes']} of {r['whole_param_bytes']} bytes, "
+              f"experts {r['expert_bytes'][0]} of {r['expert_bytes'][1]}; "
+              f"peak device memory {r['peak_bytes'] / 2**30:.2f} GiB")
+        require(2 * r["expert_bytes"][0] == r["expert_bytes"][1] > 0,
+                f"{tag}: rank {rank} holds {r['expert_bytes'][0]} expert "
+                f"bytes, not half of {r['expert_bytes'][1]}")
+        ties = r.get("ties")
+        dispatches = r["dispatches"]
+        if ties is not None:
+            again = sum(x == y for a, b in zip(ties["tokens"], un["tokens"])
+                        for x, y in zip(a, b))
+            _print_ties(tag, rank, ties, again, n_tok)
+            require(ties["tokens_un"] == un["tokens"], f"{tag}: the rank's "
+                    f"unsharded rerun emitted other tokens than the "
+                    f"unsharded run's")
+            _require_ties(tag, rank, ties, un["tokens"], same, n_tok)
+            dispatches = ties["dispatches"]
+        require(dispatches == un["dispatches"],
+                f"{tag}: rank {rank}'s MoE dispatches (tokens, capacity, "
+                f"rows dropped) differ from the unsharded run's")
+        for name in ("paged_int8_attend_decode_partials", "merge_partials",
+                     "merge_partials_emit"):
+            require(r["step_launches"].get(name, 0) > 0,
+                    f"{tag}: rank {rank}'s decode step launched no {name}")
+        add(r["launches"])
+    by_t = collections.defaultdict(lambda: [0, 0, 0])
+    for t, cap, dropped_rows in un["dispatches"]:
+        row = by_t[(t, cap)]
+        row[0] += 1
+        row[1] += dropped_rows
+        row[2] += t * mcfg.top_k
+    print(f"[{tag}] MoE dispatches on each rank, equal to the unsharded "
+          f"run's (tokens routed together, capacity an expert: calls, rows "
+          f"dropped of rows routed): "
+          + "; ".join(f"t {t}, C {cap}: {k}, {d} of {n}"
+                      for (t, cap), (k, d, n) in sorted(by_t.items())))
+
+    # (b) grok-1's block: the unsharded reference here, on the whole params
+    p, gcfg, xs = grok_block(dev, reduced=reduced)
+    whole_bytes = sum(p[k].numel() * p[k].element_size()
+                      for k in ("w_gate", "w_up", "w_out"))
+    want = _grok_calls(lambda q, x, c: moe.moe_apply(q, x, c), p, gcfg, xs,
+                       dev)
+    del p, xs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    for mode in ("expert-parallel", "hybrid"):
+        for rank, (_, block) in enumerate(ranks):
+            got = block[mode]
+            require(2 * block[mode + "/bytes"] == whole_bytes,
+                    f"{tag}-grok: rank {rank} holds {block[mode + '/bytes']}"
+                    f" expert bytes in {mode} mode, not half of "
+                    f"{whole_bytes}")
+            for t, (y, idx, ms, same) in got.items():
+                y0, idx0, ms0, same0 = want[t]
+                gap = float((y - y0).abs().max() / y0.abs().max())
+                ep = mode == "expert-parallel"
+                print(f"[{tag}-grok] rank {rank} {mode} "
+                      f"({gcfg.num_experts // (TP if ep else 1)} experts of "
+                      f"d_ff {gcfg.d_ff // (1 if ep else TP)}), {t} rows: "
+                      f"max |sharded - unsharded| / max|out| {gap:.3e} "
+                      f"(bound 1e-5); call median {ms:.3f} ms against "
+                      f"{ms0:.3f} ms unsharded")
+                require(gap <= 1e-5, f"{tag}-grok: rank {rank} {mode} at "
+                        f"{t} rows parts from the unsharded block by {gap}")
+                require(all(torch.equal(a, b) for a, b in zip(idx, idx0)),
+                        f"{tag}-grok: rank {rank} {mode} at {t} rows: the "
+                        f"dispatch integers differ from the unsharded ones")
+                require(same and same0, f"{tag}-grok: a repeat call gave "
+                        f"other bits ({mode}, {t} rows)")
+    print(f"[tp2-moe-grok] the unsharded block on the card "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def tp2_launcher_phases(add, want, device=None, reduced=False):
+    """Phases 48 and 49 in one spawn of 2 ranks on one card
+    (:func:`tp2_moe_rank`: phase 48's granite runs, then phase 49's
+    qwen3-moe run and grok-1's block), after phase 49's unsharded run
+    (:func:`tp2_moe_unsharded`). ``want``: phase 48's {kv bits: the zoo
+    phase's unsharded report}."""
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    un, cfg, run = tp2_moe_unsharded(device, reduced)
+    t_un = time.perf_counter() - t0
+    ranks = run_ranks(tp2_moe_rank, TP, (granite_runs(want) + [run],
+                                         reduced), device=device)
+    t_tp = time.perf_counter() - t0 - t_un
+    tp2_granite_phase(add, want, [r[0][:2] for r in ranks])
+    tp2_moe_phase(add, un, cfg, [(r[0][2], r[1]) for r in ranks], device,
+                  reduced)
+    per = [[round(x["seconds"], 1) for x in r[0]] for r in ranks]
+    print(f"[tp2-launcher] phases 48-49 {time.perf_counter() - t0:.1f} s "
+          f"({TP} ranks on one card): phase 49's unsharded run {t_un:.1f} "
+          f"s, the ranks {t_tp:.1f} s (each rank's serve bodies, granite kv8 "
+          f"/ kv16 / qwen3-moe: {per} s)")
 
 
 # The paper's BERT-base outlier dims (308 and 381) and two more, planted in
@@ -5411,6 +5868,30 @@ def _moe_dispatches():
         moe._dispatch_indices = orig
 
 
+@contextlib.contextmanager
+def router_sites_passed():
+    """The serving launcher's act state without its ``*/router_logits``
+    sites once its startup checks have run (they run on the whole params
+    with them, as under ``--tp``): the unsharded function that ``--tp``
+    serves, since the reference's sharded MoE calls its router without the
+    ctx. Yields the list of sites dropped."""
+    from repro_torch.launch import serve as launcher
+    real, dropped = launcher._quantize, []
+
+    def quantize(*a, **kw):
+        params, factory = real(*a, **kw)
+        state = factory().act_state if factory is not None else {}
+        for site in [s for s in state if s.endswith("/router_logits")]:
+            del state[site]
+            dropped.append(site)
+        return params, factory
+    launcher._quantize = quantize
+    try:
+        yield dropped
+    finally:
+        launcher._quantize = real
+
+
 def _layer_launches(tag, step, n_layers, per_layer):
     """The profiled decode step launched each kernel of ``per_layer``
     (name: launches a layer) exactly that many times a layer."""
@@ -5432,11 +5913,12 @@ def zoo_phase(add, reduced_only=False, served=None):
     on K2 / K3 and
     attention decode on K6 at G 6 and G 48, the ``[kv-int8]`` check
     through K5; granite-20b once more at kv16 (K7 at G 48, 2 layers);
-    qwen3-moe twice (QK-norm, K6 at G 16, the MoE FFN in fake-quant): the
-    experts' capacity and dropped rows, identical greedy tokens; grok-1
-    through a static bf16 dense cache, then the quickstart's flags. Then
-    each config's README quickstart at ``--reduced`` with ``--parity``:
-    the reference launcher's counts and three ``[parity] OK`` lines.
+    qwen3-moe (QK-norm, K6 at G 16, the MoE FFN in fake-quant): the
+    experts' capacity and dropped rows; grok-1 through a static bf16 dense
+    cache, then the quickstart's flags. Then each config's README
+    quickstart at ``--reduced`` with ``--parity``: the reference
+    launcher's counts and three ``[parity] OK`` lines; qwen3-moe's twice,
+    with identical greedy tokens.
     Returns {tag: integer vs fake-quant rel gap} of the reduced runs;
     ``served``, a dict, receives granite-20b's launcher reports by kv bits
     ("8", "16": the greedy tokens and the peak KV cache; phase 48)."""
@@ -5484,46 +5966,35 @@ def zoo_phase(add, reduced_only=False, served=None):
                 served=served.setdefault("16", []))
         add(counts)
         tag = "zoo-qwen3-moe"
-        tokens = []
-        for run in ("", "-again"):
-            with zoo_config("qwen3-moe-235b") as cfg, \
-                    _moe_dispatches() as log, _served_calls() as calls:
-                if not run:
-                    zoo_shape(tag, "qwen3-moe-235b", cfg)
-                report = {}
-                counts, rel, stats, out = serve_phase(
-                    tag + run, zoo_argv("qwen3-moe-235b", "8", *FULL_QUICK),
-                    ZOO_MUST, "paged_int8_attend_decode_emit",
-                    report=report, record_ops=False)
-            add(counts)
-            _layer_launches(tag + run, report["step_launches"],
-                            cfg.num_layers, {
-                                "rms_quantize": 1, "int8_matmul": 4,
-                                "paged_int8_attend_decode_emit": 1})
-            require("fake-quant fallback: MoE experts in "
-                    f"{cfg.num_layers} layers" in out,
-                    f"{tag}: no MoE fallback note")
-            tokens.append([list(r.tokens_out) for r in calls[0][0][4]])
-            del calls                  # the recorded call holds the params
-            by_t = collections.defaultdict(lambda: [0, 0, 0])
-            for t, cap, dropped in log:
-                row = by_t[(t, cap)]
-                row[0] += 1
-                row[1] += int(dropped)
-                row[2] += t * cfg.moe.top_k
-            print(f"[{tag + run}] MoE dispatches (tokens routed together, "
-                  f"capacity an expert: calls, rows dropped of rows routed; "
-                  f"t = 4 the decode steps, t = 32 the chunk steps): "
-                  + "; ".join(f"t {t}, C {cap}: {n}, {d} of {r}"
-                              for (t, cap), (n, d, r) in sorted(
-                                  by_t.items())))
-            print(f"[{tag + run}] integer vs fake-quant (bf16) logits: rel "
-                  f"{rel:.4%}; int8 vs bf16 KV cache: rel "
-                  f"{kv_gap(tag, out):.4%} (printed, not bounded)")
-        require(tokens[0] == tokens[1],
-                f"{tag}: two runs emitted different greedy tokens")
-        print(f"[{tag}] two runs: identical greedy tokens "
-              f"({sum(map(len, tokens[0]))} tokens)")
+        with zoo_config("qwen3-moe-235b") as cfg, \
+                _moe_dispatches() as log:
+            zoo_shape(tag, "qwen3-moe-235b", cfg)
+            report = {}
+            counts, rel, stats, out = serve_phase(
+                tag, zoo_argv("qwen3-moe-235b", "8", *FULL_QUICK),
+                ZOO_MUST, "paged_int8_attend_decode_emit",
+                report=report, record_ops=False)
+        add(counts)
+        _layer_launches(tag, report["step_launches"], cfg.num_layers, {
+            "rms_quantize": 1, "int8_matmul": 4,
+            "paged_int8_attend_decode_emit": 1})
+        require("fake-quant fallback: MoE experts in "
+                f"{cfg.num_layers} layers" in out,
+                f"{tag}: no MoE fallback note")
+        by_t = collections.defaultdict(lambda: [0, 0, 0])
+        for t, cap, dropped in log:
+            row = by_t[(t, cap)]
+            row[0] += 1
+            row[1] += int(dropped)
+            row[2] += t * cfg.moe.top_k
+        print(f"[{tag}] MoE dispatches (tokens routed together, capacity an "
+              f"expert: calls, rows dropped of rows routed; t = 4 the "
+              f"decode steps, t = 32 the chunk steps): "
+              + "; ".join(f"t {t}, C {cap}: {n}, {d} of {r}"
+                          for (t, cap), (n, d, r) in sorted(by_t.items())))
+        print(f"[{tag}] integer vs fake-quant (bf16) logits: rel "
+              f"{rel:.4%}; int8 vs bf16 KV cache: rel "
+              f"{kv_gap(tag, out):.4%} (printed, not bounded)")
         tag = "zoo-grok-1"
         with zoo_config("grok1-314b") as cfg:
             zoo_shape(tag, "grok1-314b", cfg)
@@ -5542,16 +6013,19 @@ def zoo_phase(add, reduced_only=False, served=None):
         print(f"[{tag}] integer vs fake-quant (bf16) logits: rel "
               f"{rel:.4%}; int8 vs bf16 KV cache: rel "
               f"{kv_gap(tag, out):.4%} (printed, not bounded)")
+    tokens = []
     for arch in ("internlm2-20b", "granite-20b", "qwen3-moe-235b",
-                 "grok1-314b"):
-        tag = f"zoo-{arch}-reduced"
+                 "qwen3-moe-235b", "grok1-314b"):
+        again = arch == "qwen3-moe-235b" and tokens
+        tag = f"zoo-{arch}-reduced" + ("-again" if again else "")
+        got = tokens if arch == "qwen3-moe-235b" else None
         counts, rel, stats, out = serve_phase(
             tag, zoo_argv(arch, "8", *reduced),
             ("rms_quantize", "int8_matmul", "peg_quantize",
              "int8_attend_decode", "paged_int8_attend_decode",
              "paged_int8_attend_decode_emit")
             + (() if get_config(arch).moe else ("int8_matmul_peg",)),
-            "paged_int8_attend_decode_emit")
+            "paged_int8_attend_decode_emit", served=got)
         add(counts)
         require_parity(tag, out, 3)
         got = (stats.tokens_generated, stats.decode_steps,
@@ -5561,6 +6035,13 @@ def zoo_phase(add, reduced_only=False, served=None):
                 f"(36, 10, 6, 16, 6)")
         require(kv_gap(tag, out) <= 1e-4, f"{tag}: [kv-int8] gap")
         gaps[tag] = rel
+    # the MoE combine's determinism on the card (the full-width qwen3 run
+    # was served twice for it before phase 49 took its time)
+    require(len(tokens) == 2 and tokens[0]["tokens"] == tokens[1]["tokens"],
+            "zoo-qwen3-moe-235b-reduced: two runs emitted different greedy "
+            "tokens")
+    print(f"[zoo-qwen3-moe-235b-reduced] two runs: identical greedy tokens "
+          f"({sum(map(len, tokens[0]['tokens']))} tokens)")
     return gaps
 
 
@@ -7230,8 +7711,8 @@ def main() -> int:
         print(f"[{tag}] integer vs fake-quant logits: rel {rel:.4%} "
               f"(bound 1e-4)")
     mark("zoo phases 26-30")
-    tp2_granite_phase(add, {kv: runs[0] for kv, runs in granite.items()})
-    mark("tensor-parallel phase 48")
+    tp2_launcher_phases(add, {kv: runs[0] for kv, runs in granite.items()})
+    mark("tensor-parallel phases 48-49")
     for tag, rel in rec_phase(add).items():
         require(rel <= 1e-4, f"{tag}: integer path differs from "
                 f"fake-quant by {rel:.4%} of max|logits| past its rounding "

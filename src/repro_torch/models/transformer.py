@@ -91,19 +91,27 @@ class DistContext:
 
 def check_tp(cfg: ModelConfig, dist: Optional[DistContext]) -> None:
     """Raise "... is not yet ported under --tp / dist" for a config the
-    sharded forward cannot run on ``dist``'s mesh: MoE blocks (expert
-    parallelism), recurrent and encoder-decoder configs, FFN width or
-    vocabulary that the ``model`` axis does not divide, a ``data`` axis
-    over more than one rank (FSDP), and, with the caches on their KV heads
-    (``kv_seq_shard=False``), KV heads it does not divide. With the caches
-    on the sequence dim (the default) every rank attends over its cells
-    for all heads, so any KV head count serves (MQA: granite-20b)."""
+    sharded forward cannot run on ``dist``'s mesh: recurrent and
+    encoder-decoder configs, FFN width or vocabulary that the ``model``
+    axis does not divide, MoE experts whose count and d_ff it both does
+    not divide or with int8 FSDP gathers (``quantized_gathers``), a
+    ``data`` axis over more than one rank (FSDP), and, with the caches on
+    their KV heads (``kv_seq_shard=False``), KV heads it does not divide.
+    With the caches on the sequence dim (the default) every rank attends
+    over its cells for all heads, so any KV head count serves (MQA:
+    granite-20b). MoE blocks serve expert-parallel (E/N experts a rank)
+    or, where N does not divide E, in the hybrid mode (every expert on a
+    d_ff slice)."""
     if dist is None:
         return
     n = dist.tp_size
+    moe = cfg.moe
     why = None
-    if cfg.moe is not None:
-        why = f"{cfg.name}'s MoE blocks (expert parallelism)"
+    if moe is not None and moe.num_experts % n and moe.d_ff % n:
+        why = (f"{cfg.name}'s {moe.num_experts} experts of d_ff "
+               f"{moe.d_ff} on {n} ranks")
+    elif moe is not None and dist.quantized_gathers:
+        why = "int8 FSDP weight gathers (quantized_gathers) of MoE experts"
     elif cfg.encoder_layers:
         why = f"{cfg.name}'s encoder-decoder"
     elif any(k not in ATTN_KINDS for k in cfg.layer_plan):
@@ -150,12 +158,12 @@ def attn_cfg_for(cfg: ModelConfig, kind: str) -> AttnConfig:
 def _ffn_apply(cfg: ModelConfig, p, x, *, ctx, prefix, dist=None):
     """The block's FFN: MoE over the flattened (B*T, D) tokens (which
     route together, so the experts' capacity counts every token of the
-    call), else the GLU or the MLP (``dist``: tensor-parallel, see
-    models.ffn)."""
+    call; with ``dist`` expert-parallel, :func:`_moe_sharded`, without the
+    ctx as in the reference), else the GLU or the MLP (``dist``:
+    tensor-parallel, see models.ffn)."""
     if cfg.moe is not None:
         if coll.tp_size(dist) > 1:
-            raise NotImplementedError("MoE blocks are not yet ported under "
-                                      "--tp / dist")
+            return _moe_sharded(cfg, p, x, dist)
         B, T, D = x.shape
         out = moe_lib.moe_apply(p, x.reshape(B * T, D), cfg.moe, ctx=ctx,
                                 prefix=prefix)
@@ -165,6 +173,33 @@ def _ffn_apply(cfg: ModelConfig, p, x, *, ctx, prefix, dist=None):
                                prefix=prefix, dist=dist)
     return ffn_lib.mlp(p, x, activation=cfg.act, ctx=ctx, prefix=prefix,
                        dist=dist)
+
+
+def _moe_sharded(cfg: ModelConfig, p, x, dist: DistContext):
+    """The reference's expert-parallel MoE (its ``shard_map``) on this
+    rank: the flattened (B*T, D) tokens, all of them on every rank (the
+    ``data`` axis has one rank, so its FSDP gathers are the identity),
+    through :func:`moe_lib.moe_apply_sharded`. ``p`` is the rank's slice
+    as ``param_spec_for`` places it: E/N experts where N divides E
+    (expert parallelism), else every expert on a d_ff slice (hybrid)."""
+    if dist.quantized_gathers:
+        raise NotImplementedError("int8 FSDP weight gathers "
+                                  "(quantized_gathers) of MoE experts are "
+                                  "not yet ported under --tp / dist")
+    mcfg, n = cfg.moe, coll.tp_size(dist)
+    expert_parallel = mcfg.num_experts % n == 0
+    want = ((mcfg.num_experts // n, mcfg.d_ff) if expert_parallel
+            else (mcfg.num_experts, mcfg.d_ff // n))
+    wg = p["w_gate"]["q"] if isinstance(p["w_gate"], dict) else p["w_gate"]
+    got = (wg.shape[-3], wg.shape[-1])
+    if got != want:
+        raise ValueError(f"the rank's experts are {got} (experts, d_ff), "
+                         f"not its slice {want}: place the params with "
+                         "parallel.sharding.make_param_shardings")
+    B, T, D = x.shape
+    out = moe_lib.moe_apply_sharded(p, x.reshape(B * T, D), mcfg, dist=dist,
+                                    expert_parallel=expert_parallel)
+    return out.reshape(B, T, D)
 
 
 def _init_ffn(cfg: ModelConfig, gen, dtype, device):

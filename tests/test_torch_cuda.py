@@ -2011,3 +2011,30 @@ def test_zoo_train_step_on_cuda_matches_the_cpu(gen, arch):
         assert float(d.max()) <= 2 * 1e-3 + float(tight.max())
         loose += int((d > tight).sum())
     assert loose <= 1e-2 * sum(t.numel() for t in tree_leaves(pp))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b", "grok1-314b"])
+def test_reduced_moe_tp2_on_cuda_matches_the_cpu(gen, arch):
+    """The reduced MoE quickstart with ``--tp 2`` (expert-parallel, 2 of
+    the 4 experts a rank) on two ranks on the card and on two CPU ranks,
+    from the same CPU-drawn weights: the same greedy tokens on every rank;
+    each card rank launches K6 in partial mode and both merges."""
+    import sys
+    from pathlib import Path
+    from repro_torch.launch.mesh import run_ranks
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import torch_tp_ranks
+    argv = (f"--arch {arch} --reduced --requests 6 --prompt-len 24 "
+            f"--new-tokens 6 --max-len 64 --quantize --deploy-int8 "
+            f"--kv-bits 8 --scheduler continuous --paged-kv --block-size 8 "
+            f"--prefill-chunk 8 --tp 2").split()
+    card = run_ranks(torch_tp_ranks.cpu_drawn_serve, 2, (argv,),
+                     device="cuda")
+    cpu = run_ranks(torch_tp_ranks.cpu_drawn_serve, 2, (argv,),
+                    device="cpu")
+    assert sum(map(len, cpu[0][0])) == 36
+    assert [t for t, _ in card] == [t for t, _ in cpu]
+    for _, launches in card:
+        for name in ("paged_int8_attend_decode_partials", "merge_partials",
+                     "merge_partials_emit"):
+            assert launches.get(name, 0) > 0, name

@@ -432,7 +432,8 @@ def test_errors_match_reference(models):
     the lane functions, empty and over-long prompts, a slot out of range,
     an unmapped paged row, a paged scratch too small for one lane; on a
     mesh in the reference's default layout (caches on the sequence dim) a
-    config the sharded forward cannot run (MoE) is not yet ported."""
+    config the sharded forward cannot run (recurrent blocks; MoE blocks
+    serve expert-parallel) is not yet ported."""
     jcfg, cfg, kinds = models
     jpaged = jtfm.init_cache(jcfg, 2, MAX_LEN, dtype=jnp.float32,
                              paged=True, block_size=BLOCK)
@@ -480,7 +481,7 @@ def test_errors_match_reference(models):
     from repro_torch.parallel.sharding import make_abstract_mesh, make_dist
     seq_dist = make_dist(make_abstract_mesh((1, 2), ("data", "model")))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_engine(get_config("qwen3-moe-235b").reduced(), params,
+        make_engine(get_config("rwkv6-1p6b").reduced(), params,
                     batch_slots=2, prompt_pad_len=PAD, max_len=MAX_LEN,
                     dist=seq_dist, device=CPU)
 

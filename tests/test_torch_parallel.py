@@ -541,7 +541,6 @@ def test_launcher_tp2_matches_unsharded(argv, capsys):
 # ---------------------------------------------------------------------------
 
 REFUSED = [
-    (["--arch", "qwen3-moe-235b"], "MoE blocks"),
     (["--arch", "recurrentgemma-2b"], "recurrent blocks"),
     (["--arch", "seamless-m4t-medium"], "encoder-decoder"),
     (["--arch", "gemma2-2b", "--scheduler", "continuous", "--paged-kv",
@@ -588,11 +587,12 @@ def test_launcher_tp_checks_of_the_reference(capsys):
 
 def test_engine_refuses_what_the_sharded_forward_cannot_run():
     """``make_engine(dist=)`` and the sharded forward refuse, before
-    placing anything, MoE, recurrent and encoder-decoder configs, quant
+    placing anything, recurrent and encoder-decoder configs, quant
     telemetry and a ``data`` axis over ranks in either cache layout, and
     KV heads the ranks do not divide with the caches on their KV heads
     (``kv_seq_shard=False``); the sequence layout (the default) serves
-    granite-20b's one KV head."""
+    granite-20b's one KV head, and both layouts the MoE configs (expert
+    parallelism)."""
     mesh = AbstractMesh((1, 2), ("data", "model"))
     seq = sh.make_dist(mesh)
     kvh = dataclasses.replace(seq, kv_seq_shard=False)
@@ -602,12 +602,13 @@ def test_engine_refuses_what_the_sharded_forward_cannot_run():
     for dist in (seq, kvh):
         with pytest.raises(NotImplementedError, match="quant telemetry"):
             make_engine(cfg, params, dist=dist, quant_telemetry=True, **kw)
-        for arch, what in (("qwen3-moe-235b", "MoE"),
-                           ("rwkv6-1p6b", "recurrent"),
+        for arch, what in (("rwkv6-1p6b", "recurrent"),
                            ("seamless-m4t-medium", "encoder-decoder")):
             with pytest.raises(NotImplementedError,
                                match=f"{what}.*not yet ported under --tp"):
                 tfm.check_tp(get_config(arch).reduced(), dist)
+        for arch in ("qwen3-moe-235b", "grok1-314b"):
+            tfm.check_tp(get_config(arch).reduced(), dist)
         tfm.check_tp(cfg, dist)
         tfm.check_tp(get_config("bert-base").reduced(), dist)
         with pytest.raises(NotImplementedError, match="more than the model"):

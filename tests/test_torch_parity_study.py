@@ -217,3 +217,73 @@ def test_ties_taken_counts_what_parts_from_the_recorded_run():
         ops.merge_partials(shifted, **kw)
     assert apart["first"] == 0 and apart["taken"] == 0
     assert apart["apart"] > 0
+
+
+def test_k1_emits_are_recorded_and_taken_at_ties():
+    """``_emit_records`` records K1 (``rms_quantize``) with its f32 norm
+    values and per-column group steps; ``_ties_taken`` takes a byte that
+    parts at a rounding tie the recorded way (a tensor step), and a whole
+    step apart is counted, not taken."""
+    from repro_torch.kernels import fused_ln_quant as lnq
+    from repro_torch.kernels import ops
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(3, 16, generator=gen)
+    g = torch.zeros(16)
+    scale, zp = torch.tensor([0.02, 0.03]), torch.zeros(2)
+    kw = dict(qmin=-128, qmax=127)
+    with chip_smoke._emit_records() as ref:
+        q = ops.rms_quantize(x, g, scale, zp, **kw)
+    assert len(ref) == 1
+    f, emit, step = ref[0]
+    assert torch.equal(emit, q)
+    torch.testing.assert_close(f, lnq._normalize(x, g, None, 1e-6, False))
+    assert torch.equal(step.reshape(-1), scale.repeat_interleave(8))
+    with chip_smoke._ties_taken(ref) as same:
+        assert torch.equal(ops.rms_quantize(x, g, scale, zp, **kw), q)
+    assert same == {"first": None, "taken": 0, "apart": 0, "calls": 1}
+    # plant a tie: move one value onto its rounding boundary in the record
+    s0 = step.reshape(-1)[0]
+    edge = (torch.floor(f[0, 0] / s0) + 0.5) * s0
+    tied_f = f.clone()
+    tied_f[0, 0] = edge
+    tied_q = q.clone()
+    tied_q[0, 0] += 1 if float(f[0, 0]) < float(edge) else -1
+    got, n_off, n_taken = chip_smoke.take_ties(q, f, tied_q, tied_f, step)
+    assert (n_off, n_taken) == (1, 0)        # this run's value is no tie
+    got, n_off, n_taken = chip_smoke.take_ties(tied_q, tied_f, q, tied_f,
+                                               step)
+    assert (n_off, n_taken) == (1, 1) and torch.equal(got, q)
+    shifted = x.clone()
+    shifted[1, :4] += 2.0                      # RMSNorm is scale-free
+    with chip_smoke._ties_taken(ref) as apart:
+        ops.rms_quantize(shifted, g, scale, zp, **kw)
+    assert apart["first"] == 0 and apart["apart"] > 0
+
+
+def test_site_ties_taken_takes_only_rounding_ties():
+    """``_site_records`` then ``_site_ties_taken`` over the same
+    fake-quant sites: a replay parts nowhere; a value moved onto a
+    rounding tie in both runs is taken the recorded way; a value moved by
+    whole steps is counted apart."""
+    from repro_torch.core import Mode, QuantCtx, peg_policy
+    from repro_torch.core.quantizer import QuantParams
+    qp = QuantParams(scale=torch.tensor(0.1), zero_point=torch.tensor(0.0))
+    ctx = QuantCtx(policy=peg_policy(1), mode=Mode.APPLY,
+                   act_state={"layer/ffn_out": qp})
+    x = torch.tensor([[0.12, -0.31, 0.449999, 1.0]])
+    with chip_smoke._site_records() as ref:
+        y = ctx.act("layer/ffn_out", x)
+    assert len(ref) == 1 and ref[0][0] == "layer/ffn_out"
+    with chip_smoke._site_ties_taken(ref) as same:
+        assert torch.equal(ctx.act("layer/ffn_out", x), y)
+    assert same == {"first": None, "taken": 0, "apart": 0, "calls": 1}
+    tie = x.clone()
+    tie[0, 2] = 0.4500001                     # across the boundary at 0.45
+    with chip_smoke._site_ties_taken(ref) as got:
+        assert torch.equal(ctx.act("layer/ffn_out", tie), y)
+    assert got["taken"] == 1 and got["apart"] == 0 and got["first"] == 0
+    far = x.clone()
+    far[0, 0] = 0.52
+    with chip_smoke._site_ties_taken(ref) as apart:
+        ctx.act("layer/ffn_out", far)
+    assert apart["apart"] == 1 and apart["taken"] == 0

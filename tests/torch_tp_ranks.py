@@ -189,3 +189,74 @@ def collective_cases(dist):
         "identity": coll.all_gather(f32, None) is f32
         and coll.all_reduce_sum(f32, None) is f32,
     }
+
+
+def moe_ep_scenarios(dist, dev, blocks, launcher):
+    """The MoE blocks under ``--tp`` on this rank (``tests/
+    test_torch_moe_ep.py``). ``blocks``: {name: (MoEConfig fields, whole
+    params as numpy, {shape tag: x (B, T, D) as numpy})}, each placed by
+    ``make_param_shardings`` (E/N experts, or all of them on a d_ff slice
+    where N does not divide E) and run through ``transformer._moe_sharded``
+    twice, recording every dispatch's integers; ``launcher``: [(name,
+    arch, argv)] served by the launcher's serve body on this rank
+    (``serve._serve_rank``). Returns the outputs, the dispatches, each
+    block's placed and whole expert bytes and, per name, the rank's report
+    with rank 0's output and the arch's expert bytes (``init_params``
+    placed)."""
+    import types
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import make_param_shardings
+    out = {"blocks": {}, "again": {}, "dispatch": {}, "expert_bytes": {},
+           "launcher": {}}
+    real = moe._dispatch_indices
+
+    def nbytes(tree):
+        return {path: x.numel() * x.element_size()
+                for path, x in tree_leaves_with_path(tree)}
+
+    for name, (kw, p, xs) in blocks.items():
+        cfg = types.SimpleNamespace(moe=moe.MoEConfig(**kw))
+        whole = {k: torch.from_numpy(v).to(dev) for k, v in p.items()}
+        placed = make_param_shardings({"moe": whole}, dist)["moe"]
+        out["expert_bytes"][name] = (nbytes(placed), nbytes(whole))
+        for tag, x in xs.items():
+            log = []
+
+            def dispatch(*a, **k):
+                got = real(*a, **k)
+                log.append(tuple(t.cpu() for t in got))
+                return got
+            moe._dispatch_indices = dispatch
+            try:
+                xt = torch.from_numpy(x).to(dev)
+                y = tfm._moe_sharded(cfg, placed, xt, dist)
+                out["again"][name, tag] = torch.equal(
+                    y, tfm._moe_sharded(cfg, placed, xt, dist))
+            finally:
+                moe._dispatch_indices = real
+            out["blocks"][name, tag] = y.cpu()
+            out["dispatch"][name, tag] = log[0]
+    for name, arch, argv in launcher:
+        text, _, info = serve._serve_rank(dist, dev, argv, None)
+        cfg = get_config(arch).reduced()
+        whole = tfm.init_params(cfg, 0, stacked=True, dtype=torch.float32,
+                                device=dev)
+        placed = make_param_shardings(whole, dist)
+        experts = [nbytes(t) for t in (placed, whole)]
+        info.update(text=text, expert_bytes=tuple(
+            sum(n for path, n in b.items() if "/moe/w_" in path)
+            for b in experts))
+        out["launcher"][name] = info
+    return out
+
+
+def cpu_drawn_serve(dist, dev, argv):
+    """The launcher's serve body on this rank from CPU-drawn weights
+    (``chip_smoke.cpu_drawn_params``: a card run and a CPU run serve the
+    same model): the rank's greedy tokens and kernel launches."""
+    from chip_smoke import cpu_drawn_params
+    from repro_torch.launch import serve
+    with cpu_drawn_params():
+        _, _, info = serve._serve_rank(dist, dev, argv, None)
+    return info["tokens"], info["launches"]
