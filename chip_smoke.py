@@ -47,7 +47,7 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              8192 x 3072, 3072 x 3072, 1024 x 1024 and 768 x 768; and K5, K5-kv4, K6, K6-kv4 and K7 at G 1, hd 96
              (32 kv heads, 128 and 592 cells) and hd 64 (12 kv heads).
 3. full    — serve gemma2-2b at full width (d 2304, bf16; phases 3-18 cut
-             to ``GEMMA_DEPTH`` 4 of its 26 layers) through
+             to ``GEMMA_DEPTH`` 2 of its 26 layers) through
              ``repro_torch.launch.serve.main`` with W8A8 PTQ + the integer
              deploy path, static scheduler; the K1/K3/K4 launch counters
              must move.
@@ -154,9 +154,10 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              and at ``--weight-bits 4 --kv-bits 4`` (the parity lines as
              match rates). A failure in the async server's scheduler thread
              is raised from its streams, so it fails the phase.
-19. paper BERT full — the paper's model at BERT-base's shape (12
-             layers, d 768, f32, random weights from a seed with outlier
-             columns planted in every FFN output), syn-mnli batches at T
+19. paper BERT full — the paper's model at BERT-base's width cut to
+             ``BERT_DEPTH`` 2 of its 12 layers (d 768, f32, random
+             weights from a seed with outlier columns planted in every FFN
+             output), syn-mnli batches at T
              128: the relative hidden error of W8A8 per-tensor, PEG (K=6 +
              P) and mixed-precision PTQ (printed), and with only the FFN
              residual path quantized (PEG must be below half per-tensor's,
@@ -167,7 +168,8 @@ Phases (any failure ends the run with a non-zero exit before the last line):
 20. paper tables — the reference's table harness at its bench config,
              trained afresh: Table 1 and Table 5 over two of the eight
              synthetic tasks (``PAPER_TASKS``: syn-stsb, syn-mnli; cut
-             from three to pay for the tensor-parallel phases), Table 6's W8A8 PTQ and QAT rows and Table 7's W4A32 PTQ
+             from three to pay for the tensor-parallel phases), Table 6's
+             W8A8 PTQ and QAT rows and Table 7's W4A32 PTQ
              and AdaRound rows on syn-mnli, every row printed; QAT must
              score at least W8A8 PTQ on syn-mnli and, on every trained
              model, PEG's hidden error with only the FFN path quantized must
@@ -229,8 +231,8 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              OK`` lines; qwen3-moe twice, the two runs' greedy tokens
              identical (the MoE combine's determinism on the card). Each
              zoo phase prints its depth, wall and peak device memory.
-31. rec recurrentgemma — full width cut to ``REC_DEPTH`` (8 of its
-             26 layers: (rec, rec, local_attn) x 2 + the (rec, rec)
+31. rec recurrentgemma — full width cut to ``REC_DEPTH`` (5 of its
+             26 layers: (rec, rec, local_attn) x 1 + the (rec, rec)
              tail; d 2560, local attention MQA 10 x 256 in a 2048
              window, bf16), ``--quantize
              --deploy-int8``, static, 6 x 24 x 6 on 4 lanes, at kv8 and
@@ -370,6 +372,26 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              32768) at 4 and 32 rows, expert-parallel and hybrid (every
              expert on a d_ff half), within 1e-5 of max|out| of the
              unsharded block, the dispatch integers equal.
+50. train-mesh (after 25) — training under a rank mesh: 4 ranks on
+             ``cuda:0`` over gloo as (data, model) = (2, 2), one spawn.
+             (a) ``train --mesh 2x2 --arch gemma2-2b --steps 3 --batch 4
+             --seq 1024`` at published width in bf16 cut to
+             ``TRAIN_MESH_DEPTH`` 2 layers (FSDP gathers over data,
+             tensor-parallel over model, vocab-parallel cross-entropy; the
+             batches drawn once from phase 22's source): finite losses
+             equal on every rank; per rank the step walls, host time in
+             the collectives, bytes gathered / reduce-scattered /
+             all-reduced a step, resident param and moment bytes against
+             the whole, peak memory. (b) One f32 step on 4 x 256 tokens
+             against the unsharded f32 step run first on the card: loss
+             and gradient norm within 1e-5 relative, every gradient leaf
+             within 1e-5 of its max, the updated params within 2 x lr
+             and at most 1e-4 of them past 1e-6, 8-bit Adam's int8
+             moments at most 1 LSB apart on at most 1e-3 of the payload.
+             (c) Reduced qwen3-moe on the same mesh, 2 microbatches, 3
+             steps: a falling loss. No kernel of the port launches: each
+             rank's counts over (a)-(c) and the parent's over the
+             unsharded step are read and must be 0.
 
 In every serving phase every request must get its tokens. The reduced
 runs' integer-path logits must match the fake-quant path they replace
@@ -2665,7 +2687,8 @@ W4 = ("--weight-bits", "4")
 # its 26 layers, every width its own (PERF.md §4): the layers are 13 equal
 # (local, global) pairs, and the decode steps are host-bound, each layer
 # adding a fixed host time to every step, so depth sets the phases' time
-GEMMA_DEPTH = 4
+# (one pair since phase 50 came: 4 before)
+GEMMA_DEPTH = 2
 # phases 46-47 serve one (local, global) pair of gemma2-2b's layers: the
 # two ranks' start-up and serving time grows with depth, and a pair holds
 # every layer kind and both cache layouts' shapes (cut from GEMMA_DEPTH to
@@ -4978,6 +5001,9 @@ def tp2_launcher_phases(add, want, device=None, reduced=False):
 # The paper's BERT-base outlier dims (308 and 381) and two more, planted in
 # every layer's w_out columns as the reference's quickstart plants its own
 BERT_OUTLIER_DIMS = (308, 381, 100, 600)
+# phase 19 runs BERT-base's shape cut to this many of its 12 layers, every
+# width its own (cut to pay for phase 50)
+BERT_DEPTH = 2
 
 
 def _count_from_zero():
@@ -5223,9 +5249,9 @@ def _ffn_hidden_errors(task, params, dev):
     return errs
 
 
-# Table 1 and Table 5's tasks in ``[paper-tables]``: a parity rule, the
-# regression task (overlap rule) and syn-mnli (order rule, three labels),
-# which Tables 6 and 7 also train
+# Table 1 and Table 5's tasks in ``[paper-tables]``: the regression task
+# (overlap rule) and syn-mnli (order rule, three labels), which Tables 6
+# and 7 also train
 PAPER_TASKS = ("syn-stsb", "syn-mnli")
 
 
@@ -5802,6 +5828,418 @@ def train_e2e_phase(add, device=None, preset="100m"):
 # and 24) and granite 2 (it served 16, 44.6 GiB, in 51.9 s, without
 # ``--parity``, which diverged there in bf16; a layer costs its phase
 # ~3.2 s).
+# phase 50: gemma2-2b at published width cut to this many of its 26 layers
+# (one (local, global) pair: every leaf kind of the model, 745.6M params,
+# 589.8M of them the embedding) on a 2x2 rank mesh of one card
+TRAIN_MESH = ["--arch", "gemma2-2b", "--mesh", "2x2", "--steps", "3",
+              "--batch", "4", "--seq", "1024"]
+TRAIN_MESH_DEPTH = 2
+TRAIN_MESH_SHAPE = (2, 2)
+# (b)'s one step in f32: global batch 4 x T 256, a constant learning rate
+TRAIN_MESH_T, TRAIN_MESH_LR, TRAIN_MESH_SEED = 256, 1e-4, 17
+
+
+@contextlib.contextmanager
+def _train_config(depth, reduced=False):
+    """The training launcher's ``get_config`` giving ``depth`` layers of
+    each config (``reduced``: of its reduced config, a CPU rehearsal); the
+    config of gemma2-2b is yielded."""
+    import dataclasses
+    from repro_torch.launch import train
+    orig = train.get_config
+
+    def get(arch):
+        cfg = orig(arch)
+        cfg = cfg.reduced() if reduced else cfg
+        return dataclasses.replace(cfg, num_layers=depth)
+    train.get_config = get
+    try:
+        yield get("gemma2-2b")
+    finally:
+        train.get_config = orig
+
+
+def _mesh_oracle(cfg, dev, path, T):
+    """(b)'s reference, before the ranks: one unsharded f32 step of
+    ``make_train_step`` on the params drawn from ``TRAIN_MESH_SEED`` and a
+    4 x ``T`` batch, on ``dev``. Its gradients go to ``path`` (the ranks
+    read their slices from it) with the loss, the gradient norm, the clip
+    scale and each leaf's max |g|; the step's updated params must equal
+    ``adam_update`` on those gradients bit for bit (the update the ranks
+    hold their slices to). Returns (loss, grad norm, seconds)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import (adam_init, adam_update, apply_updates,
+                                   tree_leaves, tree_map)
+    from repro_torch.runtime import make_train_step
+    t0 = time.perf_counter()
+    toks = torch.from_numpy(np.random.RandomState(TRAIN_MESH_SEED).randint(
+        0, cfg.vocab_size, (4, T)).astype(np.int32)).to(dev)
+    batch = {"tokens": toks, "labels": toks}
+    params = tfm.init_params(cfg, TRAIN_MESH_SEED, dtype=torch.float32,
+                             device=dev)
+    step = make_train_step(cfg, lr_schedule=TRAIN_MESH_LR)
+    loss, grads = step.loss_and_grads(params, batch)
+    gnorm = step.grad_norm(grads)
+    scale = torch.clamp_max(1.0 / (gnorm + 1e-12), 1.0)
+    want, _ = adam_update(grads, adam_init(params), params, lr=TRAIN_MESH_LR,
+                          grad_scale=scale)
+    want = apply_updates(params, want)
+    leaves = [g.cpu() for g in tree_leaves(grads)]
+    torch.save({"loss": float(loss), "grad_norm": float(gnorm),
+                "scale": float(scale), "grads": leaves,
+                "gmax": [float(g.abs().max()) for g in leaves]}, path)
+    del grads, leaves
+    params, _, m = step(params, adam_init(params), batch)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                  tree_leaves(want)))
+    require(same and float(m["loss"]) == float(loss),
+            "train-mesh: the unsharded step's update is not adam_update on "
+            "its gradients")
+    del params, want, step
+    _sync(dev)
+    return float(loss), float(gnorm), time.perf_counter() - t0
+
+
+def _mesh_parity(dist, dev, cfg, path, T):
+    """(b) on this rank: the f32 step of ``make_train_step(dist=)`` and the
+    8-bit Adam one on the rank's slices of the oracle's params and its
+    rows of the batch, against the oracle's gradients (the slices of
+    ``path``): loss and gradient norm, every gradient leaf, the updated
+    params (against ``adam_update`` on the oracle's slice), the int8
+    moments (the oracle's rows quantized as ``qadam_update`` quantizes
+    them). Returns the numbers the phase prints and bounds."""
+    import numpy as np
+    import torch
+    from repro_torch.data import shard_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adam_init, adam_update, qadam_init
+    from repro_torch.optim import quantized_adam as qa
+    from repro_torch.optim import tree_leaves
+    from repro_torch.parallel.sharding import (NamedSharding, cut_leaf,
+                                               logical_params,
+                                               make_param_shardings,
+                                               param_shardings)
+    from repro_torch.runtime import make_train_step
+    t0 = time.perf_counter()
+    oracle = torch.load(path, mmap=True, map_location="cpu")
+    toks = np.random.RandomState(TRAIN_MESH_SEED).randint(
+        0, cfg.vocab_size, (4, T)).astype(np.int32)
+    rows = shard_batch({"tokens": toks, "labels": toks}, dist)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in rows.items()}
+
+    def placed():
+        return make_param_shardings(tfm.init_params(
+            cfg, TRAIN_MESH_SEED, dtype=torch.float32, device=dev), dist)
+    params = placed()
+    shs = tree_leaves(param_shardings(cfg, params, dist))
+    step = make_train_step(cfg, lr_schedule=TRAIN_MESH_LR, dist=dist)
+    out = {"grad_rel": 0.0, "param_max": 0.0, "param_past": 0,
+           "n_params": 0}
+    real = step.loss_and_grads
+
+    def held(p, b):
+        """The step's own gradients, held to the oracle's."""
+        loss, grads = real(p, b)
+        for g, sh, o, gmax in zip(tree_leaves(grads), shs, oracle["grads"],
+                                  oracle["gmax"]):
+            d = float((g - cut_leaf(o, sh).to(dev)).abs().max())
+            out["grad_rel"] = max(out["grad_rel"], d / max(gmax, 1e-30))
+        return loss, grads
+    step.loss_and_grads = held
+    before = [p.clone() for p in tree_leaves(params)]
+    params, _, m = step(params, adam_init(params), batch)
+    out.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+    scale = torch.tensor(oracle["scale"], dtype=torch.float32, device=dev)
+    for p, p0, sh, o in zip(tree_leaves(params), before, shs,
+                            oracle["grads"]):
+        u, _ = adam_update([cut_leaf(o, sh).to(dev)], adam_init([p0]), [p0],
+                           lr=TRAIN_MESH_LR, grad_scale=scale)
+        d = (p - (p0 + u[0]).to(p.dtype)).abs()
+        out["param_max"] = max(out["param_max"], float(d.max()))
+        out["param_past"] += int((d > 1e-6).sum())
+        out["n_params"] += d.numel()
+    del params, before
+    # 8-bit Adam: the int8 moments of one step against the oracle's whole
+    # rows quantized (a row's scale is its max over every slice)
+    params = placed()
+    opt = qadam_init(params, logical=logical_params(cfg))
+    step8 = make_train_step(cfg, lr_schedule=TRAIN_MESH_LR, dist=dist,
+                            optimizer="adam8bit")
+    _, opt, m8 = step8(params, opt, batch)
+    out.update(loss8=float(m8["loss"]), flips=0, n_int8=0, int8_leaves=0,
+               max_lsb=0)
+    mus = _moment_leaves(opt.mu)
+    nus = _moment_leaves(opt.nu)
+    for (m, v), sh, o in zip(zip(mus, nus), shs, oracle["grads"]):
+        if not isinstance(m, dict):
+            continue
+        spec = tuple(sh.spec) + (None,) * (o.dim() - len(sh.spec))
+        g = cut_leaf(o, NamedSharding(sh.mesh, spec[:-1])).to(dev) * scale
+        last = NamedSharding(sh.mesh, (None,) * (o.dim() - 1) + spec[-1:])
+        for got, want in ((m, qa._quant(0.1 * g, symmetric=True)),
+                          (v, qa._quant(0.001 * torch.square(g),
+                                        symmetric=False))):
+            d = (got["q"].int() - cut_leaf(want["q"], last).int()).abs()
+            out["max_lsb"] = max(out["max_lsb"], int(d.max()))
+            out["flips"] += int((d > 0).sum())
+            out["n_int8"] += d.numel()
+        out["int8_leaves"] += 1
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _moment_leaves(tree):
+    """The per-param entries of a moment tree in leaf order: an 8-bit
+    moment's {"q", "s"} dict whole, an f32 moment as itself."""
+    if isinstance(tree, dict) and "q" in tree:
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _moment_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _moment_leaves(v)]
+    return [tree]
+
+
+def _mesh_moe(dist, dev):
+    """(c) on this rank: reduced qwen3-moe-235b in f32 on the rank's
+    slices and rows, 3 steps of 2 microbatches on one 8 x 16 batch (the
+    reference's multi-device case): the losses."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import shard_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adam_init, linear_warmup_linear_decay
+    from repro_torch.parallel.sharding import make_param_shardings
+    from repro_torch.runtime import make_train_step
+    cfg = get_config("qwen3-moe-235b").reduced()
+    params = make_param_shardings(tfm.init_params(
+        cfg, 0, dtype=torch.float32, device=dev), dist)
+    opt = adam_init(params)
+    step = make_train_step(cfg, lr_schedule=linear_warmup_linear_decay(
+        1e-3, 10), microbatches=2, dist=dist)
+    toks = np.random.RandomState(1).randint(0, cfg.vocab_size,
+                                            (8, 16)).astype(np.int32)
+    rows = shard_batch({"tokens": toks, "labels": toks}, dist,
+                       microbatches=2)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in rows.items()}
+    losses = []
+    for _ in range(3):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def start_mesh_draws(src, argv=TRAIN_MESH):
+    """Draw phase 50's batches from ``src`` (phase 22's source) on a host
+    thread, so the phases before 50 run beside it; returns a function that
+    waits for them: (``DrawnBatches``, seconds the draws took)."""
+    import threading
+    from repro_torch.data import DrawnBatches
+    from repro_torch.launch import train
+    args = train.build_parser().parse_args(argv)
+    box = {}
+
+    def draw():
+        t0 = time.perf_counter()
+        try:
+            box["drawn"] = DrawnBatches(src, args.batch, range(args.steps))
+        except BaseException as e:      # raised again by the waiter
+            box["error"] = e
+        box["secs"] = time.perf_counter() - t0
+    thread = threading.Thread(target=draw, daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["drawn"], box["secs"]
+    return wait
+
+
+def train_mesh_rank(dist, dev, job, cfg, path, T):
+    """One rank of phase 50: (a) ``train.mesh_rank`` (the launcher's rank
+    body), (b) :func:`_mesh_parity`, (c) :func:`_mesh_moe`; each part's
+    seconds, and this rank's kernel launch counts over all three (set to 0
+    when the rank starts)."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import train
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    a = train.mesh_rank(dist, dev, job)
+    a["seconds"] = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    b = _mesh_parity(dist, dev, cfg, path, T)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    c = _mesh_moe(dist, dev)
+    return a, b, (c, time.perf_counter() - t0), kops.launch_counts()
+
+
+def train_mesh_phase(add, device=None, reduced=False, draws=None):
+    """Phase 50, ``[train-mesh]`` (after 25): training under a rank mesh,
+    4 ranks on ``cuda:0`` over gloo as (data, model) = (2, 2), in one
+    spawn. (a) The launcher's path, ``train --mesh 2x2 --arch gemma2-2b
+    --steps 3 --batch 4 --seq 1024`` at published width in bf16 cut to
+    ``TRAIN_MESH_DEPTH`` layers (its 3 batches drawn from phase 22's data
+    source by ``draws``, else from a source built here; each rank runs
+    ``train.mesh_rank``): finite losses equal on every rank; each rank's
+    step walls (synchronized), host seconds inside its collectives, bytes
+    gathered, reduce-scattered and all-reduced a step, resident param and
+    moment bytes against the whole, and peak memory print. (b) One f32
+    step at the same width and depth on a 4 x ``TRAIN_MESH_T`` batch,
+    held to the unsharded f32 step run first on the card
+    (:func:`_mesh_oracle`): loss and gradient norm within 1e-5 relative,
+    every gradient leaf within 1e-5 of its max |g|, the updated params
+    within 2 x lr of the unsharded update (Adam's first step is
+    lr x sign(g), so a near-zero gradient's sign flip moves an element by
+    2 x lr) and at most 1e-4 of them past 1e-6 (an update left out or of
+    the wrong sign moves nearly all by lr or more); then 8-bit Adam's int8 moments at most 1
+    LSB from the unsharded ones on at most 1e-3 of the payload (rounding
+    ties). (c) Reduced qwen3-moe on the same mesh, 2 microbatches, 3 steps
+    on one batch: finite, falling losses. No kernel of the port launches
+    (the reference's training reaches no Pallas kernel): each rank counts
+    its own launches over (a)-(c), and the parent its own over the
+    unsharded step; every count must be 0. ``draws``: the
+    waiter of :func:`start_mesh_draws` (the batches drawn beside earlier
+    phases). ``device="cpu"`` with ``reduced`` rehearses it at the reduced
+    width."""
+    import math
+    import os
+    import torch
+    from repro_torch.data import LMTaskConfig, SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.optim import tree_leaves
+    from repro_torch.parallel.sharding import logical_params
+    tag = "train-mesh"
+    read = _zero_counts(f"{tag}-oracle")
+    t0 = time.perf_counter()
+    dev = torch.device(device or "cuda")
+    argv = list(TRAIN_MESH)
+    T = TRAIN_MESH_T
+    if reduced:
+        argv[argv.index("--seq") + 1] = "32"
+        T = 32
+    with _train_config(TRAIN_MESH_DEPTH, reduced) as cfg:
+        args = train.build_parser().parse_args(argv)
+        if draws is not None:
+            src, secs = draws()
+            print(f"[{tag}] {len(src.batches)} batches of {args.batch} x "
+                  f"{args.seq} drawn on a host thread beside phases 24-25 "
+                  f"in {secs:.1f} s")
+        else:
+            src = SyntheticLM(LMTaskConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=args.seq), seed=args.seed)
+        job = train.mesh_job(args, source=src, log_every=1,
+                             log=lambda line: print(f"[{tag}] {line}"))
+        out_dir = ROOT / "build" / "train_mesh"
+        os.makedirs(out_dir, exist_ok=True)
+        path = out_dir / "oracle.pt"
+        # the rehearsal's (b) widens the embedding to 4096 x 256 so that
+        # 8-bit Adam keeps int8 moments (``_wide``)
+        cfg_b = _wide(cfg) if reduced else cfg
+        loss_u, gnorm_u, secs_u = _mesh_oracle(cfg_b, dev, path, T)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        n_params = sum(t.numel()
+                       for t in tree_leaves(logical_params(cfg_b)))
+        print(f"[{tag}] {cfg_b.name} at d {cfg_b.d_model}, vocab "
+              f"{cfg_b.vocab_size}, {cfg_b.num_layers} of its layers: "
+              f"{n_params} params; the unsharded f32 step (B 4 x T {T}) "
+              f"{secs_u:.1f} s, loss {loss_u:.6f}, grad norm {gnorm_u:.6f}")
+        if dev.type == "cuda":
+            from repro_torch.kernels import _build
+            print(f"[{tag}] kernel libraries ready in "
+                  f"{_build.build_all():.1f} s (the ranks load them)")
+        t1 = time.perf_counter()
+        ranks = run_ranks(train_mesh_rank, math.prod(TRAIN_MESH_SHAPE),
+                          (job, cfg_b, str(path), T), device=device,
+                          shape=TRAIN_MESH_SHAPE)
+        secs_r = time.perf_counter() - t1
+        os.remove(path)
+    a0 = ranks[0][0]
+    for line in a0["lines"]:
+        print(f"[{tag}] {line}")
+    steps = args.steps
+    for a, b, (moe_losses, moe_secs), counts in ranks:
+        print(f"[{tag}] rank {a['rank']} kernel launches over (a)-(c) "
+              f"{counts}")
+        require(not any(counts.values()), f"{tag}: rank {a['rank']} "
+                f"launched {counts}, not 0 of each")
+        add(counts)
+        hist = a["history"]
+        losses = [h["loss"] for h in hist]
+        walls = [h["time_s"] * 1e3 for h in hist]
+        require(a["step"] == steps and len(losses) == steps and
+                all(map(math.isfinite, losses)),
+                f"{tag}: rank {a['rank']} losses {losses}")
+        require(losses == [h["loss"] for h in a0["history"]],
+                f"{tag}: rank {a['rank']}'s losses are not rank 0's")
+        per = {k: v / steps for k, v in a["collective_bytes"].items()}
+        print(f"[{tag}] rank {a['rank']} {a['coords']} on {a['device']} "
+              f"(gloo): losses {', '.join(f'{v:.4f}' for v in losses)}; "
+              f"step ms {', '.join(f'{w:.1f}' for w in walls)} (host "
+              f"clock, synchronized); host time in collectives "
+              f"{a['collective_s']:.3f} s over {steps} steps; bytes a step: "
+              f"all_gather {per.get('all_gather', 0):.0f}, reduce_scatter "
+              f"{per.get('reduce_scatter', 0):.0f}, all_reduce "
+              f"{per.get('all_reduce', 0):.0f}; resident params "
+              f"{a['param_bytes']} of {a['whole_param_bytes']} bytes "
+              f"({a['param_bytes'] / a['whole_param_bytes']:.1%}), moments "
+              f"{a['moment_bytes']} of {a['whole_moment_bytes']} "
+              f"({a['moment_bytes'] / a['whole_moment_bytes']:.1%}); peak "
+              f"device memory {a['peak_bytes']} bytes "
+              f"({a['peak_bytes'] / 2**30:.2f} GiB); rank body "
+              f"{a['seconds']:.1f} s")
+        r = a["rank"]
+        for k, v in (("loss", loss_u), ("grad_norm", gnorm_u)):
+            require(abs(b[k] - v) <= 1e-5 * abs(v),
+                    f"{tag}-f32: rank {r}: {k} {b[k]} against the "
+                    f"unsharded {v}")
+        require(b["grad_rel"] <= 1e-5, f"{tag}-f32: rank {r}: a gradient "
+                f"leaf differs by {b['grad_rel']:.3g} of its max")
+        require(b["param_max"] <= 2 * TRAIN_MESH_LR, f"{tag}-f32: rank "
+                f"{r}: a param differs by {b['param_max']}")
+        require(b["param_past"] <= 1e-4 * b["n_params"], f"{tag}-f32: "
+                f"rank {r}: {b['param_past']} of {b['n_params']} params "
+                f"differ by more than 1e-6")
+        require(b["int8_leaves"] > 0 and b["max_lsb"] <= 1 and
+                b["flips"] <= 1e-3 * b["n_int8"],
+                f"{tag}-adam8bit: rank {r}: {b['flips']} of {b['n_int8']} "
+                f"int8 moments differ (at most {b['max_lsb']} LSB) in "
+                f"{b['int8_leaves']} leaves")
+        print(f"[{tag}-f32] rank {r}: loss {b['loss']:.6f} (unsharded "
+              f"{loss_u:.6f}), grad norm {b['grad_norm']:.6f} (unsharded "
+              f"{gnorm_u:.6f}); gradient leaves within "
+              f"{b['grad_rel']:.3g} of their max; updated params within "
+              f"{b['param_max']:.3g} (bound 2 x lr = "
+              f"{2 * TRAIN_MESH_LR:g}), {b['param_past']} of "
+              f"{b['n_params']} beyond 1e-6 (bound 1e-4 of them); "
+              f"{b['seconds']:.1f} s")
+        print(f"[{tag}-adam8bit] rank {r}: int8 moments one step apart "
+              f"{b['flips']} of {b['n_int8']} in {b['int8_leaves']} leaves "
+              f"(bound 1e-3 of the payload, 1 LSB)")
+        require(all(map(math.isfinite, moe_losses)) and
+                moe_losses[-1] < moe_losses[0],
+                f"{tag}-moe: rank {r}: losses {moe_losses}")
+        print(f"[{tag}-moe] rank {r}: reduced qwen3-moe-235b, 2 "
+              f"microbatches: losses "
+              f"{', '.join(f'{v:.4f}' for v in moe_losses)} (falling); "
+              f"{moe_secs:.1f} s")
+    print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s (the ranks "
+          f"{secs_r:.1f} s; 4 ranks on one card: no multi-GPU speed is "
+          f"shown)")
+    add(read())
+    return ranks
+
+
 ZOO_DEPTH = {"internlm2-20b": 2, "granite-20b": 2, "qwen3-moe-235b": 4,
              "grok1-314b": 2}
 ZOO_MUST = ("rms_quantize", "int8_matmul", "peg_quantize",
@@ -6060,9 +6498,10 @@ REC_LONG = ["--requests", "2", "--prompt-len", "2040", "--new-tokens", "16",
 REC_REDUCED = {"recurrentgemma-2b": (8, 15), "rwkv6-1p6b": (8, 18)}
 # the recurrent families' full-width serving phases (31-33) serve them cut
 # to these depths, every width their own (to pay for the tensor-parallel
-# phases 45-48): recurrentgemma-2b 2 of its 8 (rec, rec,
-# local_attn) superblocks and its 2-layer rec tail, rwkv6-1p6b 4 of 24
-REC_DEPTH = {"recurrentgemma-2b": 8, "rwkv6-1p6b": 4}
+# phases 45-48 and the mesh training phase 50): recurrentgemma-2b 1 of its
+# 8 (rec, rec, local_attn) superblocks and its 2-layer rec tail, rwkv6-1p6b
+# 4 of 24
+REC_DEPTH = {"recurrentgemma-2b": 5, "rwkv6-1p6b": 4}
 
 
 @contextlib.contextmanager
@@ -7498,43 +7937,14 @@ def _demangle(symbol):
         return symbol
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
-    try:
-        from repro_torch.kernels import _build
-    except ImportError as e:
-        print(f"chip_smoke: the port's sources are missing next to this "
-              f"script ({e})", file=sys.stderr)
-        return 2
-    if "--ptxas" in sys.argv[1:]:
-        ptxas_report()
-    if "--f32-parity" in sys.argv[1:]:
-        f32_parity_phase()
-    if "--zoo-f32-parity" in sys.argv[1:]:
-        zoo_f32_parity_phase()
-    t0 = time.perf_counter()
-    start_train_source()
-    secs = _build.build_all()
-    print(f"[build] {len(_build.SOURCES)} kernel libraries built in "
-          f"{secs:.1f} s ({_build.build_dir()})")
-    records = kernel_phase()
-    print(f"[kernels] phase done at {time.perf_counter() - t0:.1f} s")
-
+def gemma_serving_phases(add, mark):
+    """Phases 3-18: gemma2-2b's serving phases, the full-width ones cut to
+    ``GEMMA_DEPTH`` layers (``cut_depth``): the static, quickstart, kv16
+    and 4-bit runs at full width and reduced, then the prefix, over-commit,
+    telemetry and async phases. Returns what ``main`` checks and prints
+    after them, by phase."""
     serve_argv = ["--arch", "gemma2-2b", "--quantize", "--deploy-int8",
                   "--scheduler", "static", "--kv-bits", "16"]
-    launches = {name: 0 for name in KERNELS}
-
-    def add(counts):
-        for name, n in counts.items():
-            launches[name] += n
-        torch.cuda.empty_cache()
-
-    def mark(what):
-        print(f"[time] {what} done at {time.perf_counter() - t0:.1f} s")
-
     uncut = cut_depth("gemma2-2b", GEMMA_DEPTH)
     print(f"[serving] gemma2-2b's full-width phases serve {GEMMA_DEPTH} of "
           f"its 26 layers (GEMMA_DEPTH)")
@@ -7654,12 +8064,66 @@ def main() -> int:
     mark("telemetry phases 15-16")
     ra = async_phase(add)
     mark("async phases 17-18")
+    uncut()
+    return {"full": full_rel, "reduced": red_rel, "full-quickstart":
+            (fq_rel, fq_kv), "reduced-quickstart": (rq_rel, rq_kv, rq_out,
+                                                    rq_served),
+            "reduced-paged-kv16": r16_rel, "full-quickstart-kv16": f16_rel,
+            "full-quickstart-4bit": (f4_rel, f4_kv),
+            "reduced-quickstart-4bit": (r4_rel, r4_kv, r4_served),
+            "full-prefix": (fp_rel, fp_kv), "prefix": rp, "overcommit": ro,
+            "telemetry": rt, "async": ra}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    try:
+        from repro_torch.kernels import _build
+    except ImportError as e:
+        print(f"chip_smoke: the port's sources are missing next to this "
+              f"script ({e})", file=sys.stderr)
+        return 2
+    if "--ptxas" in sys.argv[1:]:
+        ptxas_report()
+    if "--f32-parity" in sys.argv[1:]:
+        f32_parity_phase()
+    if "--zoo-f32-parity" in sys.argv[1:]:
+        zoo_f32_parity_phase()
+    t0 = time.perf_counter()
+    start_train_source()
+    secs = _build.build_all()
+    print(f"[build] {len(_build.SOURCES)} kernel libraries built in "
+          f"{secs:.1f} s ({_build.build_dir()})")
+    records = kernel_phase()
+    print(f"[kernels] phase done at {time.perf_counter() - t0:.1f} s")
+
+    launches = {name: 0 for name in KERNELS}
+
+    def add(counts):
+        for name, n in counts.items():
+            launches[name] += n
+        torch.cuda.empty_cache()
+
+    def mark(what):
+        print(f"[time] {what} done at {time.perf_counter() - t0:.1f} s")
+
+    g = gemma_serving_phases(add, mark)
+    full_rel, red_rel = g["full"], g["reduced"]
+    fq_rel, fq_kv = g["full-quickstart"]
+    rq_rel, rq_kv, rq_out, rq_served = g["reduced-quickstart"]
+    r16_rel, f16_rel = g["reduced-paged-kv16"], g["full-quickstart-kv16"]
+    f4_rel, f4_kv = g["full-quickstart-4bit"]
+    r4_rel, r4_kv, r4_served = g["reduced-quickstart-4bit"]
+    fp_rel, fp_kv = g["full-prefix"]
+    rp, ro, rt, ra = g["prefix"], g["overcommit"], g["telemetry"], g["async"]
     tp2_quickstart_phase(add, rq_served[0]["tokens"], rq_out,
                          want4=r4_served[0]["tokens"])
     tp2_full_phase(add)
     mark("tensor-parallel phases 45-47")
-    uncut()
-    paper_bert_phase(add)
+    paper_bert_phase(add, num_layers=BERT_DEPTH)
     mark("paper BERT phase 19")
     paper_tables_phase(add)
     mark("paper tables phase 20")
@@ -7699,11 +8163,14 @@ def main() -> int:
     for name, count in entry_point_phase().items():
         launches[name] += count
     train_src = train_full_phase(add)
+    mesh_draws = start_mesh_draws(train_src)
     start_train_source(TRAIN_REC["rwkv6-1p6b"])
     mark("training phases 22-23")
     train_card_vs_cpu_phase(add)
     train_e2e_phase(add)
     mark("training phases 24-25")
+    train_mesh_phase(add, draws=mesh_draws)
+    mark("mesh training phase 50")
     granite = {}
     for tag, rel in zoo_phase(add, served=granite).items():
         require(rel <= 1e-4, f"{tag}: integer path differs from "

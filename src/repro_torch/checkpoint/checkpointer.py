@@ -11,9 +11,13 @@ format, so a checkpoint written by either package restores in the other:
 
 Trees are nested dicts (keys in sorted order), lists, tuples and
 NamedTuples of tensors, the paths the reference's
-``jax.tree_util.tree_flatten_with_path`` gives them. Restoring reshards
-nothing: ``shardings`` waits for multi-device training (ROADMAP Queue 1
-item 6); leaves go to the template's devices.
+``jax.tree_util.tree_flatten_with_path`` gives them. On a rank mesh
+(``shardings``: a tree of ``parallel.sharding.NamedSharding`` beside the
+tree) a checkpoint holds the logical arrays, so the saved layout does not
+depend on the mesh: ``save`` gathers each leaf over the mesh and rank 0
+writes while the others wait, and ``restore`` cuts each rank's slice of
+the logical arrays (a checkpoint of one mesh resumes on another, or on one
+device). Leaves go to the template's devices.
 """
 from __future__ import annotations
 
@@ -78,14 +82,13 @@ def _to_host(leaf) -> Tuple[np.ndarray, Optional[str]]:
     return np.asarray(leaf), None
 
 
-def _from_host(arr: np.ndarray, dtype: Optional[str], like):
+def _from_host(arr: np.ndarray, dtype: Optional[str], dev):
     if dtype == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     elif dtype is not None:
         raise ValueError(f"cannot restore a {dtype} leaf")
     else:
         t = torch.from_numpy(arr)
-    dev = like.device if isinstance(like, torch.Tensor) else "cpu"
     return t.to(dev)
 
 
@@ -101,13 +104,26 @@ class Checkpointer:
     # -- save ---------------------------------------------------------------
 
     def save(self, step: int, tree, *, extra: Optional[dict] = None,
-             block: bool = False):
+             block: bool = False, shardings=None):
         """Snapshot the tree at ``step``. With async_save the host copy is
         taken synchronously and the disk write happens in a background
-        thread: training continues (and may update the tensors in place)."""
+        thread: training continues (and may update the tensors in place).
+        ``shardings``: ``tree`` holds this rank's slices; every rank of
+        the mesh calls ``save``, each leaf is gathered whole, rank 0
+        writes it (synchronously) and every rank returns once the
+        checkpoint is published."""
         self.wait()                       # at most one outstanding write
         host_flat, dtypes = {}, {}
+        mesh = None
+        if shardings is not None:
+            from repro_torch.parallel.sharding import gather_leaf
+            sh = dict(_flatten(shardings))
+            mesh = next(iter(sh.values())).mesh
         for k, v in _flatten(tree):
+            if mesh is not None:
+                v = gather_leaf(v, sh[k])
+                if mesh.rank != 0:
+                    continue
             host_flat[k], dt = _to_host(v)
             if dt is not None:
                 dtypes[k] = dt
@@ -126,7 +142,12 @@ class Checkpointer:
             os.rename(tmp, final)         # atomic publish
             self._gc()
 
-        if self.async_save and not block:
+        if mesh is not None:
+            from repro_torch.parallel import collectives as coll
+            if mesh.rank == 0:
+                _write()
+            coll.barrier(mesh)
+        elif self.async_save and not block:
             self._thread = threading.Thread(target=_write, daemon=True)
             self._thread.start()
         else:
@@ -160,11 +181,11 @@ class Checkpointer:
 
     def restore(self, template, step: Optional[int] = None, shardings=None):
         """Restore into the structure of ``template``, each leaf on the
-        device of the template's leaf. Returns (tree, meta)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto shardings is not yet ported (ROADMAP "
-                "Queue 1 item 6, multi-device)")
+        device of the template's leaf. ``shardings`` (a ``NamedSharding``
+        tree like ``template``, whose leaves are this rank's slices): each
+        leaf is this rank's slice of the logical array read, whatever mesh
+        saved it. Returns (tree, meta)."""
+        sh = dict(_flatten(shardings)) if shardings is not None else None
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -175,5 +196,16 @@ class Checkpointer:
         leaves = {}
         with np.load(os.path.join(d, "arrays.npz")) as arrays:
             for key, like in _flatten(template):
-                leaves[key] = _from_host(arrays[key], dtypes.get(key), like)
+                t = _from_host(arrays[key], dtypes.get(key), "cpu")
+                if sh is not None:
+                    from repro_torch.parallel.sharding import cut_leaf
+                    t = cut_leaf(t, sh[key])
+                if isinstance(like, torch.Tensor) and t.shape != like.shape:
+                    raise ValueError(
+                        f"checkpoint leaf {key} restores as "
+                        f"{tuple(t.shape)}, the template's is "
+                        f"{tuple(like.shape)}")
+                dev = like.device if isinstance(like, torch.Tensor) \
+                    else "cpu"
+                leaves[key] = t.to(dev)
         return _unflatten(template, leaves), meta

@@ -4,8 +4,11 @@ An abstract mesh is a shape over named axes and nothing more: the sharding
 rules of ``repro_torch.parallel.sharding`` read it, and building one starts
 no process. A rank mesh is an abstract mesh seen from one process of a
 ``torch.distributed`` job: it adds this rank's coordinate on every axis and
-one process group per axis (the ranks that differ only on that axis), over
-which ``repro_torch.parallel.collectives`` reduce and gather.
+one process group per axis (the ranks that differ only on that axis), and
+one for the data-parallel tuple ``("pod", "data")`` of a three-axis mesh
+(the FSDP axis of ``parallel.sharding.make_dist``), over which
+``repro_torch.parallel.collectives`` reduce and gather. A mesh spans every
+rank of its job; :func:`remesh` gives the same ranks another shape.
 
 Backends: ranks that share one device use ``gloo`` (NCCL refuses two ranks
 on one GPU, and gloo moves CUDA tensors through host memory); ranks with a
@@ -45,12 +48,14 @@ class AbstractMesh:
 
 class RankMesh(AbstractMesh):
     """The mesh as one rank sees it: ``rank`` in row-major order over the
-    axes, ``coords`` (axis -> this rank's index), ``groups`` (axis -> the
-    process group of the ranks sharing every other coordinate; None on an
-    axis of size 1) and ``host_group`` (gloo, every rank)."""
+    axes, ``coords`` (axis -> this rank's index), ``groups`` (axis, or the
+    data-parallel tuple of axes -> the process group of the ranks sharing
+    every other coordinate, in the axis index order; None on an axis of
+    size 1), ``mesh_group`` (every rank, the job's backend) and
+    ``host_group`` (gloo, every rank)."""
 
     def __init__(self, shape, axes, rank: int, groups, host_group,
-                 backend: str):
+                 backend: str, mesh_group=None):
         super().__init__(shape, axes)
         if not 0 <= rank < self.size:
             raise ValueError(f"rank {rank} outside a mesh of {self.size}")
@@ -64,6 +69,7 @@ class RankMesh(AbstractMesh):
         self.coords = {a: coords[a] for a in self.axis_names}
         self.groups = groups
         self.host_group = host_group
+        self.mesh_group = mesh_group
 
     def index(self, axis) -> int:
         """This rank's index along ``axis`` (a name or a tuple of names,
@@ -118,19 +124,53 @@ def init_rank_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], rank: int,
                              world_size=world, timeout=timeout)
     host_group = (tdist.new_group(backend="gloo", timeout=timeout)
                   if backend != "gloo" else tdist.group.WORLD)
+    return RankMesh(shape, axes, rank, _axis_groups(shape, axes, rank,
+                                                    timeout),
+                    host_group, backend, tdist.group.WORLD)
+
+
+def _axis_groups(shape, axes, rank: int, timeout) -> dict:
+    """This rank's process group on every axis of size > 1 (None on the
+    others) and on the ``("pod", "data")`` tuple of a mesh with both; the
+    groups of every line are made in one order on every rank, as
+    ``new_group`` requires. A line's ranks ascend with its axis index (the
+    mesh is row-major), so a group's rank order is the index order."""
+    import torch.distributed as tdist
+    ranks = torch.arange(math.prod(shape)).reshape(shape)
+    keyed = [(a, (i,)) for i, a in enumerate(axes)]
+    dp = tuple(a for a in ("pod", "data") if a in axes)
+    if len(dp) > 1:
+        keyed.append((dp, tuple(axes.index(a) for a in dp)))
     groups = {}
-    ranks = torch.arange(world).reshape(shape)
-    for i, axis in enumerate(axes):
+    for key, dims in keyed:
+        size = math.prod(shape[d] for d in dims)
         mine = None
-        if shape[i] > 1:
-            # every line of ranks along this axis, in one order on all ranks
-            moved = ranks.movedim(i, -1).reshape(-1, shape[i]).tolist()
-            for line in moved:
+        if size > 1:
+            rest = [d for d in range(len(shape)) if d not in dims]
+            lines = ranks.permute(rest + list(dims)).reshape(-1, size)
+            for line in lines.tolist():
                 g = tdist.new_group(line, timeout=timeout)
                 if rank in line:
                     mine = g
-        groups[axis] = mine
-    return RankMesh(shape, axes, rank, groups, host_group, backend)
+        groups[key] = mine
+    return groups
+
+
+def remesh(mesh: RankMesh, shape: Tuple[int, ...],
+           axes: Tuple[str, ...] = ("data", "model"),
+           timeout_s: float = 300.0) -> RankMesh:
+    """The ranks of ``mesh`` as a mesh of another ``shape`` over ``axes``
+    (the same job: the sizes multiply to its world): its groups are made
+    here, so every rank must call it, in one order."""
+    import datetime
+    if math.prod(shape) != mesh.size:
+        raise ValueError(f"mesh {shape} holds {math.prod(shape)} ranks, the "
+                         f"job {mesh.size}")
+    timeout = datetime.timedelta(seconds=timeout_s)
+    return RankMesh(shape, axes, mesh.rank,
+                    _axis_groups(tuple(shape), tuple(axes), mesh.rank,
+                                 timeout),
+                    mesh.host_group, mesh.backend, mesh.mesh_group)
 
 
 def destroy_rank_mesh() -> None:
@@ -165,20 +205,20 @@ def _free_port() -> int:
 
 
 def _rank_entry(rank: int, world: int, fn: Callable, args, device,
-                init_method: str, threads: int, results) -> None:
-    """A spawned rank of :func:`run_ranks`: join the (1, world) mesh, call
+                init_method: str, threads: int, results, shape,
+                axes) -> None:
+    """A spawned rank of :func:`run_ranks`: join the mesh, call
     ``fn(dist, device, *args)`` and put (rank, error or None, result) on
     ``results``; an error is raised again after it is reported."""
-    from repro_torch.parallel.sharding import serving_dist
+    from repro_torch.parallel.sharding import make_dist
     torch.set_num_threads(threads)
     devices, backend = rank_devices(world, device)
     dev = devices[rank]
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     try:
-        mesh = init_rank_mesh((1, world), ("data", "model"), rank, world,
-                              backend, init_method)
-        ret = fn(serving_dist(mesh), dev, *args)
+        mesh = init_rank_mesh(shape, axes, rank, world, backend, init_method)
+        ret = fn(make_dist(mesh), dev, *args)
         # by value: tensors the queue would share by handle die with the rank
         results.put((rank, None, pickle.dumps(ret)))
     except BaseException as e:      # noqa: BLE001 — reported, then raised
@@ -191,11 +231,14 @@ def _rank_entry(rank: int, world: int, fn: Callable, args, device,
 
 
 def run_ranks(fn: Callable, world: int, args=(), *, device=None,
-              threads: Optional[int] = None) -> list:
+              threads: Optional[int] = None,
+              shape: Optional[Tuple[int, ...]] = None,
+              axes: Tuple[str, ...] = ("data", "model")) -> list:
     """``fn(dist, device, *args)`` on ``world`` spawned ranks (start method
     ``spawn``: ``fn`` and ``args`` are pickled, ``fn`` by its import path)
-    joined over ``localhost`` into one (1, world) mesh over (data, model),
-    ``dist`` the serving ``DistContext`` and ``device`` each rank's
+    joined over ``localhost`` into one mesh of ``shape`` over ``axes``
+    (default (1, world) over (data, model), the serving mesh), ``dist``
+    ``parallel.sharding.make_dist`` of it and ``device`` each rank's
     (:func:`rank_devices`); returns the ranks' results in rank order. The
     CUDA kernels are built here first, so the ranks only load them. Each
     rank runs ``threads`` intra-op threads (default: this process's
@@ -203,6 +246,9 @@ def run_ranks(fn: Callable, world: int, args=(), *, device=None,
     raised here with its code, any other error as a RuntimeError that
     carries the rank's traceback."""
     import torch.multiprocessing as mp
+    shape = (1, world) if shape is None else tuple(shape)
+    if math.prod(shape) != world or len(shape) != len(axes):
+        raise ValueError(f"a mesh {shape} over {axes} for {world} ranks")
     devices, _ = rank_devices(world, device)
     if devices[0].type == "cuda":
         from repro_torch.kernels import _build
@@ -214,7 +260,7 @@ def run_ranks(fn: Callable, world: int, args=(), *, device=None,
     init_method = f"tcp://localhost:{_free_port()}"
     procs = [ctx.Process(target=_rank_entry, name=f"rank{r}",
                          args=(r, world, fn, args, device, init_method,
-                               threads, results))
+                               threads, results, shape, tuple(axes)))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -250,4 +296,4 @@ def run_ranks(fn: Callable, world: int, args=(), *, device=None,
 
 __all__ = ["AbstractMesh", "RankMesh", "make_mesh_from_spec",
            "make_production_mesh", "init_rank_mesh", "destroy_rank_mesh",
-           "rank_devices", "run_ranks"]
+           "remesh", "rank_devices", "run_ranks"]

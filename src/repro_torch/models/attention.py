@@ -812,7 +812,9 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
     x_int8 = isinstance(x, deploy_lib.QTensor)
     B, T, _ = x.shape
     n_tp, r = coll.tp_size(dist), coll.tp_index(dist)
-    seq = n_tp > 1 and dist.kv_seq_shard
+    # the cache-free forward (training) runs on the rank's heads whatever
+    # the cache layout: no activation crosses ranks before wo's row sum
+    seq = n_tp > 1 and dist.kv_seq_shard and cache is not None
     H_all, KV_all = cfg.num_heads, cfg.num_kv_heads
     if n_tp > 1 and not seq:
         cfg = dataclasses.replace(cfg, num_heads=H_all // n_tp,
@@ -834,19 +836,21 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
         k = deploy_lib.matmul(x, p["wk"])
         v = deploy_lib.matmul(x, p["wv"])
     else:
+        x = coll.copy_to(x, dist)       # column-parallel products
         q = dot(x, w("wq", x))
         k = dot(x, w("wk", x))
         v = dot(x, w("wv", x))
     if seq:     # every head on every rank: column shards gathered whole
-        q, k, v = (t if t.shape[-1] == n * hd else coll.all_gather(t, dist)
+        q, k, v = (t if t.shape[-1] == n * hd else coll.gather_from(t, dist)
                    for t, n in ((q, H_all), (k, KV_all), (v, KV_all)))
     q = _rank_heads(q, B, T, H_all, H, hd, r)
     k = _rank_heads(k, B, T, KV_all, KV, hd, r)
     v = _rank_heads(v, B, T, KV_all, KV, hd, r)
     if "q_norm" in p:   # qwen3-style per-head QK norm
         from repro_torch.models.common import rms_norm
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
+        # whole gains on the rank's heads: their gradient sums over model
+        q = rms_norm(q, coll.copy_to(p["q_norm"], dist))
+        k = rms_norm(k, coll.copy_to(p["k_norm"], dist))
     if cfg.rope_theta is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -951,7 +955,7 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
                      kpos_att, cfg, ctx=ctx, prefix=prefix, chunked=chunked)
     # the attention output of every head (sequence layout) or of this
     # rank's heads, which the other ranks' complete
-    gather = (lambda t: t) if seq else (lambda t: coll.all_gather(t, dist))
+    gather = (lambda t: t) if seq else (lambda t: coll.gather_from(t, dist))
     if isinstance(out, deploy_lib.QTensor):
         # the decode kernel's (or the merge's) emit of wo's int8 input, for
         # the whole packed wo
@@ -977,7 +981,7 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
         elif rows == out2d.shape[-1]:
             out = dot_row_parallel(out2d, wo, dist)
         else:       # a whole wo (stored int8): the whole input first
-            out = dot(coll.all_gather(out2d, dist), wo)
+            out = dot(coll.gather_from(out2d, dist), wo)
     if ctx is not None:
         out = ctx.act(f"{prefix}/ctx_out", out)
     return out, new_cache

@@ -52,14 +52,15 @@ def dot_row_parallel(x, w, dist):
     """``x @ w`` of a row-parallel product: ``x`` holds this rank's slice
     of the contraction dim and ``w`` the matching rows. Each rank's partial
     product is taken in f32 and summed over ``model`` in f32, then cast to
-    :func:`dot`'s type (a bf16 product accumulates in f32 too). Without
+    :func:`dot`'s type (a bf16 product accumulates in f32 too); the
+    gradient of the sum reaches every rank's partial whole. Without
     ``dist`` (or on one rank) it is :func:`dot`."""
     from repro_torch.parallel import collectives as coll
     if coll.tp_size(dist) == 1:
         return dot(x, w)
     dt = torch.promote_types(x.dtype, w.dtype)
     part = x.to(torch.float32) @ w.to(torch.float32)
-    return coll.all_reduce_sum(part, dist).to(dt)
+    return coll.sum_over(part, dist).to(dt)
 
 
 # ---------------------------------------------------------------------------

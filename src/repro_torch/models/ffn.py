@@ -14,8 +14,9 @@ Tensor-parallel (``dist``): float weights are placed column-parallel
 (``w_gate`` / ``w_up`` / ``w_in`` and ``b_in`` on this rank's hidden
 slice) and row-parallel (``w_out``), so the hidden activation stays local
 and the output is summed over ``model`` in f32, ``b_out`` added once after
-the sum. Packed payloads are whole on every rank: the integer FFN runs
-unsharded on each.
+the sum; in training the input's gradient is summed over ``model``
+(``collectives.copy_to``). Packed payloads are whole on every rank: the
+integer FFN runs unsharded on each.
 """
 from __future__ import annotations
 
@@ -72,10 +73,12 @@ def _weight(p, name, ctx, prefix, x, dist=None):
 
 def _rank_bias(b, width, dist):
     """This rank's slice of a whole hidden bias for a ``width``-wide
-    column shard."""
+    column shard (its gradient summed over ``model``: each rank's slice
+    gives its part)."""
     if b.shape[-1] == width:
         return b
-    return b.narrow(-1, coll.tp_index(dist) * width, width)
+    return coll.copy_to(b, dist).narrow(-1, coll.tp_index(dist) * width,
+                                        width)
 
 
 def mlp(p, x, *, activation: str = "gelu", ctx=None, prefix: str = "ffn",
@@ -84,6 +87,7 @@ def mlp(p, x, *, activation: str = "gelu", ctx=None, prefix: str = "ffn",
     b_out (D,); the biases are optional."""
     if _deployed(p, x):
         return _mlp_int8(p, x, activation=activation, ctx=ctx, prefix=prefix)
+    x = coll.copy_to(x, dist)
     h = dot(x, _weight(p, "w_in", ctx, prefix, x, dist))
     if "b_in" in p:
         h = h + _rank_bias(p["b_in"], h.shape[-1], dist)
@@ -104,6 +108,7 @@ def glu_mlp(p, x, *, activation: str = "silu", ctx=None,
         return _glu_mlp_int8(p, x, activation=activation, ctx=ctx,
                              prefix=prefix)
     act = ACTIVATIONS[activation]
+    x = coll.copy_to(x, dist)
     g = act(dot(x, _weight(p, "w_gate", ctx, prefix, x, dist))) * \
         dot(x, _weight(p, "w_up", ctx, prefix, x, dist))
     if ctx is not None:

@@ -170,16 +170,22 @@ def moe_apply_sharded(p, x, cfg: MoEConfig, *, dist,
     """The expert-parallel MoE body on this rank of ``dist``'s ``model``
     axis (the reference's, run inside ``shard_map`` there).
 
-    x: (t, D), every token on every rank. expert_parallel=True: ``p``
-    carries this rank's E/N experts [r*E/N, (r+1)*E/N); the sum over
-    ``model`` adds disjoint expert outputs. expert_parallel=False (hybrid):
-    ``p`` carries ALL experts on a d_ff slice; the same sum reduces the
+    x: (t, D), the same tokens on every rank of the ``model`` axis (a
+    data-parallel shard's under a ``data`` axis, routed and cut to
+    capacity on their own). expert_parallel=True: ``p`` carries this
+    rank's E/N experts [r*E/N, (r+1)*E/N); the sum over ``model`` adds
+    disjoint expert outputs. expert_parallel=False (hybrid): ``p``
+    carries ALL experts on a d_ff slice; the same sum reduces the
     partial-F products. The router is whole and takes no ctx."""
     t, d = x.shape
     n = coll.tp_size(dist)
     e_local = cfg.num_experts // n if expert_parallel else cfg.num_experts
     e_lo = coll.tp_index(dist) * e_local if expert_parallel else 0
     capacity = _capacity(t, cfg)
+    # every rank's experts see x and the router: their gradients sum over
+    # model (in training)
+    x = coll.copy_to(x, dist)
+    p = dict(p, router=coll.copy_to(p["router"], dist))
     _, top_p, top_e = router_probs(p, x, cfg)
     order, slot, keep, token_of_row = _dispatch_indices(
         top_e, cfg.num_experts, capacity, 0, cfg.num_experts)
@@ -191,7 +197,7 @@ def moe_apply_sharded(p, x, cfg: MoEConfig, *, dist,
                              torch.full_like(slot, e_local * capacity))
     out = _compute_combine(p, x, top_p, order, local_slot, local,
                            token_of_row, e_local, capacity, cfg)
-    return coll.all_reduce_sum(out, dist)
+    return coll.sum_over(out, dist)
 
 
 def aux_load_balance_loss(probs, top_e, cfg: MoEConfig):

@@ -19,7 +19,15 @@ forward unbinds every stacked leaf once (``_unstack``), so autograd adds
 the layers' gradients back with one ``stack`` instead of a zeroed
 stack-sized buffer per layer; ``remat`` recomputes each block (unrolled) or
 superblock (stacked) in the backward pass, the reference's
-``jax.checkpoint`` granularity.
+``jax.checkpoint`` granularity. Under a rank mesh (``train_loss(dist=)``)
+a rank runs its data-parallel rows of the batch on its placed params:
+each layer gathers the dims ``parallel.sharding`` puts on the FSDP axis
+inside the remat region (the backward gathers again, and the gathers'
+gradients are reduce-scattered over the FSDP axis), the embedding table
+once for the lookup and the tied head; attention runs on the rank's heads
+and the FFN on its hidden slice (``model`` axis, Megatron's f / g pairs of
+``parallel.collectives``), and the logits stay vocab-sharded through the
+cross-entropy (a logsumexp and the gold logit summed over ``model``).
 
 Quantization sites per block (paper Fig. 1 / Table 2 naming):
   {L}/attn_in, {L}/residual_attn, {L}/ffn_in, {L}/ffn_out,
@@ -89,19 +97,24 @@ class DistContext:
         return self.mesh.shape[self.tp_axis]
 
 
-def check_tp(cfg: ModelConfig, dist: Optional[DistContext]) -> None:
+def check_tp(cfg: ModelConfig, dist: Optional[DistContext],
+             training: bool = False) -> None:
     """Raise "... is not yet ported under --tp / dist" for a config the
     sharded forward cannot run on ``dist``'s mesh: recurrent and
     encoder-decoder configs, FFN width or vocabulary that the ``model``
     axis does not divide, MoE experts whose count and d_ff it both does
-    not divide or with int8 FSDP gathers (``quantized_gathers``), a
-    ``data`` axis over more than one rank (FSDP), and, with the caches on
-    their KV heads (``kv_seq_shard=False``), KV heads it does not divide.
-    With the caches on the sequence dim (the default) every rank attends
-    over its cells for all heads, so any KV head count serves (MQA:
-    granite-20b). MoE blocks serve expert-parallel (E/N experts a rank)
-    or, where N does not divide E, in the hybrid mode (every expert on a
-    d_ff slice)."""
+    not divide or with int8 FSDP gathers (``quantized_gathers``), and,
+    with the caches on their KV heads (``kv_seq_shard=False``), KV heads
+    it does not divide. With the caches on the sequence dim (the default)
+    every rank attends over its cells for all heads, so any KV head count
+    serves (MQA: granite-20b). MoE blocks serve expert-parallel (E/N
+    experts a rank) or, where N does not divide E, in the hybrid mode
+    (every expert on a d_ff slice). Serving refuses a data axis over more
+    than one rank; ``training`` (the cache-free forward of
+    ``train_loss``) takes one (FSDP and data parallelism) but attends on
+    the rank's heads, so it refuses KV heads the ``model`` axis does not
+    divide, and MoE routed over the whole batch (the reference's
+    unsharded MoE under a mesh with one ``model`` rank)."""
     if dist is None:
         return
     n = dist.tp_size
@@ -122,8 +135,15 @@ def check_tp(cfg: ModelConfig, dist: Optional[DistContext]) -> None:
     elif cfg.d_ff % n or cfg.vocab_size % n:
         why = (f"{cfg.name}'s d_ff {cfg.d_ff} / vocab {cfg.vocab_size} on "
                f"{n} ranks")
-    elif dist.mesh.size != n:
-        why = f"a mesh with more than the model axis ({dist.mesh!r})"
+    elif dist.mesh.size != n and not training:
+        why = (f"a data axis over more than one rank in serving (a mesh "
+               f"with more than the model axis: {dist.mesh!r})")
+    elif training and cfg.num_kv_heads % n:
+        why = (f"{cfg.name}'s {cfg.num_kv_heads} KV heads on {n} ranks in "
+               "training (attention on the rank's heads)")
+    elif training and moe is not None and n == 1 and dist.mesh.size > 1:
+        why = (f"{cfg.name}'s MoE routed over the whole batch on a mesh "
+               f"with one model rank ({dist.mesh!r})")
     if why is not None:
         raise NotImplementedError(f"{why} is not yet ported under --tp / "
                                   "dist")
@@ -177,11 +197,13 @@ def _ffn_apply(cfg: ModelConfig, p, x, *, ctx, prefix, dist=None):
 
 def _moe_sharded(cfg: ModelConfig, p, x, dist: DistContext):
     """The reference's expert-parallel MoE (its ``shard_map``) on this
-    rank: the flattened (B*T, D) tokens, all of them on every rank (the
-    ``data`` axis has one rank, so its FSDP gathers are the identity),
-    through :func:`moe_lib.moe_apply_sharded`. ``p`` is the rank's slice
-    as ``param_spec_for`` places it: E/N experts where N divides E
-    (expert parallelism), else every expert on a d_ff slice (hybrid)."""
+    rank: the flattened (B*T, D) tokens of the rank (its data-parallel
+    rows: each dp shard routes, and is cut to capacity, on its own
+    tokens, as in the reference), through
+    :func:`moe_lib.moe_apply_sharded`. ``p`` is the rank's slice as
+    ``param_spec_for`` places it, its FSDP dims gathered (the forward
+    gathers every layer's): E/N experts where N divides E (expert
+    parallelism), else every expert on a d_ff slice (hybrid)."""
     if dist.quantized_gathers:
         raise NotImplementedError("int8 FSDP weight gathers "
                                   "(quantized_gathers) of MoE experts are "
@@ -431,10 +453,12 @@ def clone_cache(cache):
 def init_params(cfg: ModelConfig, seed: int = 0, *, stacked: bool = True,
                 dtype=torch.bfloat16, device=None):
     """Random weights from ``seed`` (the reference's distributions), on
-    ``device`` (None: the GPU). Layers are drawn in layer order from one
-    generator, so both layouts of one seed hold the same weights."""
+    ``device`` (None: the GPU; ``"meta"``: shapes and dtypes only). Layers
+    are drawn in layer order from one generator, so both layouts of one
+    seed hold the same weights."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = torch.Generator(device="cpu" if device.type == "meta"
+                          else device).manual_seed(seed)
     plan = cfg.layer_plan
     n_pat = len(cfg.block_pattern)
     n_body = len(plan) - len(cfg.tail_pattern)
@@ -830,7 +854,7 @@ def _embed(cfg: ModelConfig, params, tokens, embeds, ctx, dist=None):
             x = torch.where(mine[..., None], table[local],
                             torch.zeros((), dtype=table.dtype,
                                         device=table.device))
-        x = coll.all_reduce_sum(x, dist)
+        x = coll.sum_over(x, dist)
     else:
         x = table[tokens.long()]
     if cfg.embed_scale:
@@ -845,13 +869,15 @@ def _embed(cfg: ModelConfig, params, tokens, embeds, ctx, dist=None):
     return x
 
 
-def _head(cfg: ModelConfig, params, x, ctx, dist=None):
+def _head(cfg: ModelConfig, params, x, ctx, dist=None,
+          gather: bool = True):
     """Final norm and logits. With ``dist`` the head weight holds this
     rank's vocab slice: its logits, soft-capped and through the
     ``head/logits`` site, are gathered over ``model`` (bit for bit), so
     every rank returns the whole logits and greedy decoding picks the same
-    lowest-index argmax on each."""
-    h = _norm(cfg, params["final_norm"], x)
+    lowest-index argmax on each; ``gather=False`` returns the rank's vocab
+    slice (the training loss reduces over it)."""
+    h = coll.copy_to(_norm(cfg, params["final_norm"], x), dist)
     dt = matmul_dtype(h)
     w = resolve_weight(params["embed"], dt).T if cfg.tie_embeddings \
         else resolve_weight(params["lm_head"], dt)
@@ -860,7 +886,7 @@ def _head(cfg: ModelConfig, params, x, ctx, dist=None):
     logits = softcap(h @ w.to(h.dtype), cfg.final_logit_softcap)
     if ctx is not None:
         logits = ctx.act("head/logits", logits)
-    return coll.all_gather(logits, dist, dim=-1)
+    return coll.gather_from(logits, dist, dim=-1) if gather else logits
 
 
 @contextlib.contextmanager
@@ -896,9 +922,37 @@ def _remat(fn, ctx, *args):
     return checkpoint(run, *args, use_reentrant=False)
 
 
+def _fsdp_dims(cfg: ModelConfig, params, dist: Optional[DistContext]):
+    """A tree like ``params`` holding, for each leaf, the dims its spec
+    puts on the FSDP axis (``parallel.sharding.param_shardings``); None
+    where the FSDP axis has one rank."""
+    if dist is None or coll.size(dist, dist.fsdp_axis) == 1:
+        return None
+    from repro_torch.parallel.sharding import param_shardings
+    fsdp = dist.fsdp_axis
+    return _map(lambda sh: tuple(d for d, e in enumerate(sh.spec)
+                                 if e == fsdp),
+                param_shardings(cfg, params, dist))
+
+
+def _fsdp_gathered(tree, dims, dist, lead: int = 0):
+    """``tree`` with every leaf's FSDP dims gathered whole
+    (``collectives.fsdp_gather``; ``lead``: the stacked dims the leaves
+    of ``tree`` lost against ``dims``'s)."""
+    if dims is None:
+        return tree
+
+    def whole(x, ds):
+        for d in ds:
+            x = coll.fsdp_gather(x, dist, d - lead)
+        return x
+    return _map(whole, tree, dims)
+
+
 def forward(cfg: ModelConfig, params, tokens, *, embeds=None, ctx=None,
             cache=None, positions=None, chunked=None, append: bool = False,
-            remat: bool = False, dist: Optional[DistContext] = None):
+            remat: bool = False, dist: Optional[DistContext] = None,
+            vocab_parallel: bool = False):
     """Returns (logits, cache). tokens: (B, T) int; ``embeds`` (B, N, D)
     front-end embeddings are prepended to them (logits then cover N + T
     positions). ``positions`` (B, N + T) are absolute positions (default
@@ -911,9 +965,18 @@ def forward(cfg: ModelConfig, params, tokens, *, embeds=None, ctx=None,
     ``remat`` (with autograd on, no cache): recompute each block (unrolled)
     or superblock (stacked) in the backward pass. ``dist``: the
     tensor-parallel forward of one rank over its placed params and cache
-    (``parallel.sharding``); the logits are whole on every rank."""
-    check_tp(cfg, dist)
+    (``parallel.sharding``); the logits are whole on every rank, or the
+    rank's vocab slice with ``vocab_parallel``. Without a cache (training)
+    ``tokens`` are the rank's data-parallel rows and the leaves' FSDP dims
+    are gathered layer by layer."""
+    check_tp(cfg, dist, training=cache is None)
     B = tokens.shape[0]
+    dims = _fsdp_dims(cfg, params, dist) if cache is None else None
+    if dims is not None:
+        top = {k: v for k, v in params.items()
+               if k not in ("scan", "tail", "layers")}
+        params = dict(params, **_fsdp_gathered(
+            top, {k: dims[k] for k in top}, dist))
     x = _embed(cfg, params, tokens, embeds, ctx, dist)
     T = x.shape[1]
     if positions is None:
@@ -930,21 +993,30 @@ def forward(cfg: ModelConfig, params, tokens, *, embeds=None, ctx=None,
                            append=append, write_plans=write_plans,
                            dist=dist)
 
+    def layer_params(p, d, lead=0):
+        return _fsdp_gathered(p, d, dist, lead) if dims is not None else p
+
+    gather = not vocab_parallel
     if "layers" in params:
         for i, kind in enumerate(cfg.layer_plan):
             c = cache["layers"][i] if cache is not None else None
+            d = dims["layers"][i] if dims is not None else None
             if remat:
-                x = _remat(lambda p, x, kind=kind, i=i:
-                           run(kind, p, x, None, f"layer{i}")[0], ctx,
+                x = _remat(lambda p, x, kind=kind, i=i, d=d:
+                           run(kind, layer_params(p, d), x, None,
+                               f"layer{i}")[0], ctx,
                            params["layers"][i], x)
             else:
-                x, _ = run(kind, params["layers"][i], x, c, f"layer{i}")
-        return _head(cfg, params, x, ctx, dist), cache
+                x, _ = run(kind, layer_params(params["layers"][i], d), x, c,
+                           f"layer{i}")
+        return _head(cfg, params, x, ctx, dist, gather), cache
 
     def superblock(p_slices, x, s=None):
         for j, kind in enumerate(cfg.block_pattern):
             if s is None:
                 p, c = p_slices[j], None
+                if dims is not None:
+                    p = layer_params(p, dims["scan"][j], lead=1)
             else:
                 # views of layer s of the stacked cache and params
                 c = _layer(cache["scan"][j], s)
@@ -978,25 +1050,65 @@ def forward(cfg: ModelConfig, params, tokens, *, embeds=None, ctx=None,
                       for k in per_super[0]})
     for i, kind in enumerate(cfg.tail_pattern):
         c = cache["tail"][i] if cache is not None else None
-        x, _ = run(kind, params["tail"][i], x, c, "tail")
-    return _head(cfg, params, x, ctx, dist), cache
+        p = params["tail"][i]
+        if dims is None:
+            x, _ = run(kind, p, x, c, "tail")
+        elif remat:
+            x = _remat(lambda p, x, kind=kind, i=i:
+                       run(kind, layer_params(p, dims["tail"][i]), x, None,
+                           "tail")[0], ctx, p, x)
+        else:
+            x, _ = run(kind, layer_params(p, dims["tail"][i]), x, c, "tail")
+    return _head(cfg, params, x, ctx, dist, gather), cache
 
 
 # ---------------------------------------------------------------------------
 # Step functions
 # ---------------------------------------------------------------------------
 
+def _vocab_parallel_ce(logits, labels, dist: DistContext):
+    """``common.cross_entropy`` of logits whose vocab dim is cut over the
+    ``model`` axis (this rank's slice of it): the logsumexp's max and sum
+    and the gold logit reduced over ``model`` (the max without a
+    gradient), so no rank gathers the (B, T, V) logits."""
+    lf = logits.float()
+    n_local = lf.shape[-1]
+    m = coll.all_reduce_max(lf.detach().amax(dim=-1), dist)
+    sum_exp = coll.sum_over(torch.exp(lf - m[..., None]).sum(dim=-1), dist)
+    logz = m + torch.log(sum_exp)
+    local = labels.long() - coll.tp_index(dist) * n_local
+    mine = (local >= 0) & (local < n_local)
+    gold = torch.gather(lf, -1, local.clamp(0, n_local - 1)[..., None])
+    gold = torch.where(mine, gold[..., 0], torch.zeros_like(logz))
+    return torch.mean(logz - coll.sum_over(gold, dist))
+
+
 def train_loss(cfg: ModelConfig, params, batch, *, ctx=None,
-               remat: bool = True, chunked=None):
+               remat: bool = True, chunked=None,
+               dist: Optional[DistContext] = None):
     """Next-token CE. batch: {tokens (B, T), labels (B, T) [, embeds]}; the
-    front-end positions carry no loss."""
+    front-end positions carry no loss. ``dist``: ``batch`` holds this
+    rank's data-parallel rows and ``params`` its slices
+    (``parallel.sharding``); the logits stay vocab-sharded through the CE,
+    and the value returned on every rank is the global mean over the
+    whole batch (the ranks' means summed over the data-parallel axes, so
+    each rank's gradient is its rows' share)."""
     logits, _ = forward(cfg, params, batch["tokens"],
                         embeds=batch.get("embeds"), ctx=ctx, remat=remat,
-                        chunked=chunked)
+                        chunked=chunked, dist=dist,
+                        vocab_parallel=dist is not None)
     n_front = logits.shape[1] - batch["labels"].shape[1]
     if n_front > 0:
         logits = logits[:, n_front:]
-    return cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    if dist is None:
+        return cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    if coll.tp_size(dist) == 1:
+        loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    else:
+        loss = _vocab_parallel_ce(logits[:, :-1], batch["labels"][:, 1:],
+                                  dist)
+    dp = coll.size(dist, dist.dp_axes)
+    return coll.sum_over(loss / dp, dist, dist.dp_axes)
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, *, positions=None,

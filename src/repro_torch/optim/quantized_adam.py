@@ -10,8 +10,13 @@ per big-leaf parameter: 2 x (1 + 4 / last_dim) bytes instead of 8.
 
 The arithmetic is the jitted reference's: XLA computes ``amax / 127.0`` as
 ``amax * f32(1/127)`` (see ``_quant``), and ``torch.round`` rounds half to
-even as ``jnp.round`` does. The reference's ``qadam_shardings`` waits for
-multi-device training (ROADMAP Queue 1 item 6).
+even as ``jnp.round`` does.
+
+Under a rank mesh (``runtime.steps.make_train_step(dist=)``) each rank
+updates its slices: which leaves are quantized is decided on their
+logical (whole) shapes (``qadam_init(logical=)``), and a row whose last
+dim is sharded takes the max of its slices' amax over that dim's axes, so
+the int8 codes are the unsharded ones (``qadam_update(shardings=)``).
 """
 from __future__ import annotations
 
@@ -46,8 +51,12 @@ def _quantizable(p: torch.Tensor) -> bool:
         p.shape[-1] >= QUANT_MIN_LASTDIM
 
 
-def _quant(x: torch.Tensor, *, symmetric: bool) -> dict:
+def _quant(x: torch.Tensor, *, symmetric: bool, dist=None,
+           row_axis=None) -> dict:
     amax = torch.amax(x.abs() if symmetric else x, dim=-1)
+    if row_axis is not None:
+        from repro_torch.parallel import collectives as coll
+        amax = coll.all_reduce_max(amax, dist, row_axis)
     s = torch.clamp_min(amax * _INV_127, 1e-20)
     q = torch.round(x / s[..., None])
     q = torch.clamp(q, -127 if symmetric else 0, 127).to(torch.int8)
@@ -58,9 +67,12 @@ def _dequant(m: dict) -> torch.Tensor:
     return m["q"].float() * m["s"][..., None]
 
 
-def qadam_init(params) -> QAdamState:
-    def z(p):
-        if _quantizable(p):
+def qadam_init(params, logical=None) -> QAdamState:
+    """Zero moments for ``params``; ``logical`` (a tree of the same
+    structure: the whole leaves, or meta tensors of their shapes) decides
+    which leaves are quantized where ``params`` holds a rank's slices."""
+    def z(p, whole=None):
+        if _quantizable(p if whole is None else whole):
             return {"q": torch.zeros(p.shape, dtype=torch.int8,
                                      device=p.device),
                     "s": torch.full(p.shape[:-1], 1e-20,
@@ -68,17 +80,21 @@ def qadam_init(params) -> QAdamState:
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else None
+    rest = () if logical is None else (logical,)
     return QAdamState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                      mu=tree_map(z, params), nu=tree_map(z, params))
+                      mu=tree_map(z, params, *rest),
+                      nu=tree_map(z, params, *rest))
 
 
 @torch.no_grad()
 def qadam_update(grads, state: QAdamState, params, *, lr, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, grad_scale=None,
-                 inplace: bool = False):
+                 inplace: bool = False, shardings=None):
     """Same contract as ``adam_update``, int8 moment storage for big
     leaves. ``inplace``: the new moments (payloads and row scales)
-    overwrite ``state``'s tensors leaf by leaf."""
+    overwrite ``state``'s tensors leaf by leaf. ``shardings``: the
+    params' ``NamedSharding`` tree when ``params`` are a rank's slices
+    (a sharded last dim's row amax is reduced over its axes)."""
     step = state.step + 1
     lr_t = lr(step) if callable(lr) else lr
     stepf = step.float()
@@ -94,7 +110,7 @@ def qadam_update(grads, state: QAdamState, params, *, lr, b1: float = 0.9,
             return old
         return old.copy_(new)
 
-    def leaf(g, m, v, p):
+    def leaf(g, m, v, p, sh=None):
         g = g.float()
         if grad_scale is not None:
             g = g * grad_scale
@@ -103,10 +119,33 @@ def qadam_update(grads, state: QAdamState, params, *, lr, b1: float = 0.9,
         m2 = b1 * m_f + (1 - b1) * g
         v2 = b2 * v_f + (1 - b2) * torch.square(g)
         u = (m2 / b1t) / (torch.sqrt(v2 / b2t) + eps)
-        m_out = _quant(m2, symmetric=True) if _is_mdict(m) else m2
-        v_out = _quant(v2, symmetric=False) if _is_mdict(v) else v2
+        kw = {}
+        if sh is not None and len(sh.spec) == p.dim() and sh.spec[-1]:
+            from repro_torch.models.transformer import DistContext
+            kw = dict(dist=DistContext(mesh=sh.mesh), row_axis=sh.spec[-1])
+        m_out = _quant(m2, symmetric=True, **kw) if _is_mdict(m) else m2
+        v_out = _quant(v2, symmetric=False, **kw) if _is_mdict(v) else v2
         return store(m, m_out), store(v, v_out), (-lr_t * u).to(p.dtype)
 
-    out = tree_map(leaf, grads, state.mu, state.nu, params)
+    rest = () if shardings is None else (shardings,)
+    out = tree_map(leaf, grads, state.mu, state.nu, params, *rest)
     pick = lambda i: _select(out, grads, i)     # noqa: E731
     return pick(2), QAdamState(step=step, mu=pick(0), nu=pick(1))
+
+
+def qadam_shardings(param_shardings):
+    """The reference's rule for an 8-bit moment's shardings: a function
+    of a param's ``NamedSharding`` giving the moment's ``{"q": payload,
+    "s": row scales}``, the payload as the param and the scales its spec
+    without the last entry. ``ndim`` (the param's) pads a spec whose
+    trailing replicated dims were trimmed before dropping the entry of
+    the last dim; the reference drops the last entry left, which is a
+    sharded dim's where the last dims are replicated."""
+    from repro_torch.parallel.sharding import NamedSharding, _finish
+
+    def for_leaf(sh, ndim=None):
+        spec = tuple(sh.spec)
+        if ndim is not None:
+            spec = spec + (None,) * (ndim - len(spec))
+        return {"q": sh, "s": NamedSharding(sh.mesh, _finish(spec[:-1]))}
+    return for_leaf

@@ -6,13 +6,17 @@ from __future__ import annotations
 
 import importlib
 
-_SHARDING = ("batch_spec", "cache_spec_for", "constrain",
+_SHARDING = ("NamedSharding", "batch_spec", "cache_spec_for", "constrain",
+             "cut_leaf", "gather_leaf", "gather_logical",
+             "logical_params",
              "make_abstract_mesh", "make_batch_shardings",
              "make_cache_shardings", "make_cache_specs", "make_dist",
              "make_kv_head_shardings",
-             "make_kv_head_specs", "make_param_shardings", "make_param_specs",
+             "make_kv_head_specs", "make_opt_shardings",
+             "make_param_shardings", "make_param_specs",
              "make_seq_cache_shardings", "make_seq_cache_specs",
-             "param_spec_for", "place", "place_cache", "serving_dist")
+             "param_shardings", "param_spec_for", "place", "place_cache",
+             "replication", "serving_dist")
 
 __all__ = list(_SHARDING)
 

@@ -21,10 +21,19 @@ reference's rule, both branches. Serving executes two cache layouts
 sequence dim (``kv_seq_shard=True``, :func:`make_seq_cache_shardings`:
 the specs of :func:`make_cache_specs`, the block table whole), and the
 KV-head layout (``kv_seq_shard=False``, :func:`make_kv_head_shardings`).
+
+Training keeps a tree of :class:`NamedSharding` leaves beside the placed
+params and optimizer state (the reference's NamedSharding trees):
+:func:`param_shardings` from the logical (whole) shapes of the config's
+params, :func:`make_opt_shardings` / ``optim.quantized_adam.
+qadam_shardings`` mirroring them, :func:`gather_leaf` and :func:`cut_leaf`
+between a rank's slices and the logical arrays
+(``checkpoint.Checkpointer``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import re
 from typing import Any, Optional, Tuple
@@ -246,6 +255,128 @@ def make_param_shardings(params, dist: DistContext):
 
 
 # ---------------------------------------------------------------------------
+# Named shardings (training: params, optimizer state, checkpoints)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's placement: the mesh and the spec (the reference's
+    ``jax.sharding.NamedSharding``; a leaf of sharding trees)."""
+    mesh: Any
+    spec: Spec
+
+
+def _axes_of(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def replication(sharding: NamedSharding) -> int:
+    """How many ranks hold each element of a leaf placed by
+    ``sharding``: the mesh size over the sizes of its sharded axes."""
+    n = sharding.mesh.size
+    for entry in sharding.spec:
+        for a in _axes_of(entry):
+            n //= sharding.mesh.shape[a]
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def logical_params(cfg, stacked: bool = True):
+    """The whole param tree of ``cfg`` on the meta device: the logical
+    shapes that the rules place (no memory)."""
+    from repro_torch.models import transformer as tfm
+    return tfm.init_params(cfg, 0, stacked=stacked, dtype=torch.float32,
+                           device="meta")
+
+
+def param_shardings(cfg, params, dist: DistContext, stacked: bool = True):
+    """The :class:`NamedSharding` tree of ``params``, this rank's slices of
+    ``cfg``'s params as :func:`make_param_shardings` placed them: each
+    leaf's spec is :func:`param_spec_for` of its logical (whole) shape.
+    Raises where a leaf is not its slice of the logical tree. ``params``
+    None: the tree of the logical params (``stacked`` or unrolled), on
+    any mesh (an abstract one too)."""
+    if params is None:
+        params = logical_params(cfg, stacked)
+        return _map_with_path(
+            lambda path, w: NamedSharding(dist.mesh,
+                                          _param_spec_of(dist)(path, w)),
+            params)
+    whole = dict(tree_leaves_with_path(logical_params(cfg,
+                                                      "scan" in params)))
+    spec_of = _param_spec_of(dist)
+    mesh = dist.mesh
+
+    def one(path, leaf):
+        w = whole.get(path)
+        if w is None:
+            raise ValueError(f"{path} is not a leaf of {cfg.name}'s params")
+        spec = spec_of(path, w)
+        want = list(w.shape)
+        for d, entry in enumerate(spec):
+            for a in _axes_of(entry):
+                want[d] //= mesh.shape[a]
+        if tuple(leaf.shape) != tuple(want):
+            raise ValueError(
+                f"{path} is {tuple(leaf.shape)}, not this rank's slice "
+                f"{tuple(want)} of {tuple(w.shape)}: place the params with "
+                "parallel.sharding.make_param_shardings")
+        return NamedSharding(mesh, spec)
+    return _map_with_path(one, params)
+
+
+def make_opt_shardings(opt_state, param_shardings, dist: DistContext):
+    """The optimizer state's shardings: the moments mirror the params
+    (``param_shardings``, a :class:`NamedSharding` tree), an 8-bit
+    moment's payload as its param and its row scales without the last
+    entry (``optim.quantized_adam.qadam_shardings``); the step counter
+    replicated."""
+    from repro_torch.optim.quantized_adam import qadam_shardings
+    for_leaf = qadam_shardings(param_shardings)
+
+    def mirror(sh, moment):
+        if isinstance(sh, NamedSharding):
+            if isinstance(moment, dict) and "q" in moment:
+                return for_leaf(sh, moment["q"].dim())
+            return sh
+        if isinstance(sh, dict):
+            return {k: mirror(sh[k], moment[k]) for k in sh}
+        parts = [mirror(a, b) for a, b in zip(sh, moment)]
+        return type(sh)(*parts) if hasattr(sh, "_fields") \
+            else type(sh)(parts)
+    return type(opt_state)(step=NamedSharding(dist.mesh, ()),
+                           mu=mirror(param_shardings, opt_state.mu),
+                           nu=mirror(param_shardings, opt_state.nu))
+
+
+def gather_leaf(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """The logical (whole) leaf of this rank's slice ``x`` placed by
+    ``sharding``: every sharded dim gathered over its axes, bit for bit.
+    Every rank of the mesh must call it, in one order."""
+    from repro_torch.parallel import collectives as coll
+    dist = DistContext(mesh=sharding.mesh)
+    for d, entry in enumerate(sharding.spec):
+        if entry is not None:
+            x = coll.all_gather(x, dist, d, entry)
+    return x
+
+
+def cut_leaf(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """This rank's slice of the logical leaf ``x`` under ``sharding``."""
+    return place(x, lambda path, leaf: sharding.spec, sharding.mesh)
+
+
+def gather_logical(tree, shardings):
+    """The logical leaves of ``tree`` (this rank's slices) under
+    ``shardings``, a :class:`NamedSharding` tree of the same structure
+    (:func:`gather_leaf` on every leaf)."""
+    flat = dict(tree_leaves_with_path(shardings))
+    return _map_with_path(lambda path, x: gather_leaf(x, flat[path]), tree)
+
+
+# ---------------------------------------------------------------------------
 # Activation / batch / cache rules
 # ---------------------------------------------------------------------------
 
@@ -255,7 +386,8 @@ def batch_spec(dist: DistContext) -> Spec:
 
 def make_batch_shardings(batch, dist: DistContext):
     """Specs of a batch tree: the leading (batch) dim over dp where it
-    divides, else replicated."""
+    divides, else replicated (``data.pipeline.shard_batch`` cuts a rank's
+    rows by them)."""
     dp = math.prod(dist.mesh.shape[a] for a in dist.dp_axes)
 
     def spec(_, leaf):

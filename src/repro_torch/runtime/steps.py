@@ -2,7 +2,9 @@
 
 ``make_train_step`` accumulates microbatch gradients, clips by global norm
 inside the optimizer update and steps Adam or 8-bit Adam, with gradients
-from ``torch.autograd.grad`` over the parameter leaves. The serve steps
+from ``torch.autograd.grad`` over the parameter leaves; with ``dist`` on
+one rank of a mesh, over its slices of the params and optimizer state and
+its data-parallel rows of the batch (the reference's GSPMD step). The serve steps
 (prefill, admit, chunk-prefill, decode, block swap) build a fresh ctx from
 ``ctx_factory`` and run without autograd. Paged caches need no extra
 plumbing: the block table rides inside the cache dict. Encoder-decoder
@@ -29,6 +31,7 @@ from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import (adam_update, apply_updates, qadam_update,
                                tree_leaves, tree_map, value_and_grad)
+from repro_torch.parallel import collectives as coll
 
 
 def _loss_fn_for(cfg: ModelConfig):
@@ -54,11 +57,28 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, microbatches: int = 1,
     are updated in place with the functional update's values, the port's
     counterpart of the reference's callers jitting the step with
     ``donate_argnums=(0, 1)``: a step holds one copy of each, and the
-    trees passed in are the trees returned. ``dist`` (sharded training)
-    waits for ROADMAP Queue 1 item 6."""
+    trees passed in are the trees returned.
+
+    ``dist``: this rank of a mesh (``launch.mesh.run_ranks``) steps its
+    slices (``parallel.sharding.make_param_shardings``; the optimizer
+    state made on them, ``qadam_init(logical=)`` for 8-bit Adam) on its
+    data-parallel rows of the batch (``data.pipeline.shard_batch`` with
+    the same ``microbatches``). Microbatch i of the rank is then the dp
+    shard of the global batch's microbatch i, as in the reference's scan
+    (its MoE routes per shard).
+    The gradients are the whole batch's: FSDP leaves come back
+    reduce-scattered from the forward's gathers, every other leaf is
+    summed over the data-parallel axes; the global norm adds each leaf's
+    squares over the mesh once per logical element; 8-bit Adam's row
+    scales reduce a sharded last dim. ``step.loss_and_grads(params,
+    batch)`` gives (loss, grads) without updating (the step calls it
+    through the attribute), ``step.grad_norm(grads, shardings)`` their
+    global norm."""
+    if dist is not None and ctx_factory is not None:
+        raise NotImplementedError("QAT (ctx_factory) is not yet ported "
+                                  "under --tp / dist")
     if dist is not None:
-        raise NotImplementedError("sharded training is not yet ported "
-                                  "(ROADMAP Queue 1 item 6, multi-device)")
+        tfm.check_tp(cfg, dist, training=True)
     if optimizer == "adam8bit":
         opt_update = qadam_update
     elif optimizer == "adam":
@@ -72,9 +92,11 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, microbatches: int = 1,
     def loss_for(params, mb):
         ctx = ctx_factory() if ctx_factory is not None else None
         kw = {} if cfg.encoder_layers else {"chunked": chunked}
+        if dist is not None:
+            kw["dist"] = dist
         return loss_fn(cfg, params, mb, ctx=ctx, remat=remat, **kw)
 
-    def step(params, opt_state, batch):
+    def loss_and_grads(params, batch):
         if microbatches == 1:
             loss, grads = value_and_grad(lambda p: loss_for(p, batch),
                                          params)
@@ -82,7 +104,7 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, microbatches: int = 1,
             mbs = {k: v.reshape(microbatches, v.shape[0] // microbatches,
                                 *v.shape[1:]) for k, v in batch.items()}
             lsum = torch.zeros((), dtype=torch.float32,
-                               device=opt_state.step.device)
+                               device=tree_leaves(params)[0].device)
             grads = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=accum_dtype, device=p.device), params)
             for i in range(microbatches):
@@ -93,14 +115,42 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, microbatches: int = 1,
                 del g
             loss = lsum / microbatches
             grads = tree_map(lambda g: g / microbatches, grads)
+        if dist is not None:
+            # leaves no FSDP axis shards: each rank holds its rows' part
+            fsdp = dist.fsdp_axis
+            grads = tree_map(
+                lambda g, sh: g if fsdp in sh.spec else
+                coll.all_reduce_sum(g, dist, dist.dp_axes),
+                grads, _shardings(params))
+        return loss, grads
 
+    def _shardings(params):
+        from repro_torch.parallel.sharding import param_shardings
+        return param_shardings(cfg, params, dist)
+
+    def grad_norm(grads, shardings=None):
+        """The global L2 norm: each leaf's squares, over the mesh once per
+        logical element (a leaf's replicas divide its share)."""
+        if dist is None:
+            return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                  for g in tree_leaves(grads)))
+        from repro_torch.parallel.sharding import replication
+        sq = torch.stack([torch.sum(torch.square(g.float())) /
+                          replication(sh) for g, sh in
+                          zip(tree_leaves(grads), tree_leaves(shardings))])
+        return torch.sqrt(sum(coll.mesh_sum(sq, dist).unbind()))
+
+    def step(params, opt_state, batch):
+        # looked up at each call: a check may wrap it to see the gradients
+        loss, grads = step.loss_and_grads(params, batch)
+        shardings = _shardings(params) if dist is not None else None
         # the global-norm clip is fused into the moment update as a scale
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                               for g in tree_leaves(grads)))
+        gnorm = grad_norm(grads, shardings)
         scale = torch.clamp_max(clip_norm / (gnorm + 1e-12), 1.0)
+        kw = {"shardings": shardings} if optimizer == "adam8bit" else {}
         updates, opt_state = opt_update(grads, opt_state, params,
                                         lr=lr_schedule, grad_scale=scale,
-                                        inplace=True)
+                                        inplace=True, **kw)
         del grads
         params = apply_updates(params, updates, inplace=True)
         lr = lr_schedule(opt_state.step) if callable(lr_schedule) else \
@@ -108,6 +158,8 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, microbatches: int = 1,
         return params, opt_state, {"loss": loss, "grad_norm": gnorm,
                                    "lr": lr}
 
+    step.loss_and_grads = loss_and_grads
+    step.grad_norm = grad_norm
     return step
 
 

@@ -1,6 +1,10 @@
 """Fault-tolerant training loop: checkpoint / restart (with the data
 iterator's state), preemption-safe exit, straggler watchdog, step logging
-(port of ``repro.runtime.train_loop``)."""
+(port of ``repro.runtime.train_loop``). On a rank mesh every rank runs the
+loop on its slices (``shardings``): checkpoints hold the logical arrays,
+and a SIGTERM or a watchdog trip on any rank reaches every rank (an
+``agree_max`` over the mesh's host group after each step) before any of
+them enters the collective save."""
 from __future__ import annotations
 
 import dataclasses
@@ -40,18 +44,26 @@ def run_train_loop(step_fn: Callable, params, opt_state,
 
     Resumes (params, opt, data iterator) from the latest checkpoint when
     present; checkpoints asynchronously every N steps and once more on
-    preemption, on a watchdog trip and at the end. Returns the final state
-    and the logged history."""
+    preemption, on a watchdog trip and at the end. ``shardings``: the
+    ``(params, opt_state)`` tree of ``parallel.sharding.NamedSharding``
+    when they are this rank's slices (every rank of the mesh runs the
+    loop): restores cut and saves gather the logical arrays, and the
+    preemption and watchdog flags are agreed over the mesh each step. A
+    rank that fails mid-step does not save (the save is collective).
+    Returns the final state and the logged history."""
+    mesh = None
     if shardings is not None:
-        raise NotImplementedError("sharded training is not yet ported "
-                                  "(ROADMAP Queue 1 item 6, multi-device)")
+        from repro_torch.parallel import collectives as coll
+        from repro_torch.parallel.sharding import tree_leaves_with_path
+        mesh = next(tree_leaves_with_path(shardings))[1].mesh
     ckpt = None
     start_step = 0
     if loop_cfg.checkpoint_dir:
         ckpt = Checkpointer(loop_cfg.checkpoint_dir,
                             keep=loop_cfg.keep_checkpoints)
         if loop_cfg.resume and ckpt.latest_step() is not None:
-            (params, opt_state), meta = ckpt.restore((params, opt_state))
+            (params, opt_state), meta = ckpt.restore((params, opt_state),
+                                                     shardings=shardings)
             start_step = int(meta["step"])
             if "data_state" in meta:
                 pipeline.restore_state(meta["data_state"])
@@ -64,9 +76,11 @@ def run_train_loop(step_fn: Callable, params, opt_state,
     def save(step):
         if ckpt is not None:
             ckpt.save(step, (params, opt_state),
-                      extra={"data_state": pipeline.checkpoint_state()})
+                      extra={"data_state": pipeline.checkpoint_state()},
+                      shardings=shardings)
 
     step = start_step
+    failed = True
     try:
         while step < loop_cfg.total_steps:
             batch = next(pipeline)
@@ -87,19 +101,24 @@ def run_train_loop(step_fn: Callable, params, opt_state,
             if loop_cfg.checkpoint_every and \
                     step % loop_cfg.checkpoint_every == 0:
                 save(step)
-            if guard.preempted:
+            preempted, tripped = guard.preempted, watchdog.tripped
+            if mesh is not None:
+                preempted, tripped = map(bool, coll.agree_max(
+                    [int(preempted), int(tripped)], mesh))
+            if preempted:
                 log(f"[train] preempted at step {step}; checkpointing")
                 save(step)
                 break
-            if watchdog.tripped:
+            if tripped:
                 log(f"[train] straggler watchdog tripped at step {step}; "
                     "checkpointing for elastic re-mesh")
                 save(step)
                 watchdog.tripped = False
                 watchdog.consecutive = 0
+        failed = False
     finally:
         guard.uninstall()
-        if ckpt is not None:
+        if ckpt is not None and not (failed and mesh is not None):
             save(step)
             ckpt.wait()
 

@@ -2038,3 +2038,32 @@ def test_reduced_moe_tp2_on_cuda_matches_the_cpu(gen, arch):
         for name in ("paged_int8_attend_decode_partials", "merge_partials",
                      "merge_partials_emit"):
             assert launches.get(name, 0) > 0, name
+
+
+@pytest.mark.parametrize("opt,variant", [("adam", "base"),
+                                         ("adam8bit", "wide")])
+def test_train_step_on_a_2x2_mesh_matches_the_unsharded_step(gen, opt,
+                                                              variant):
+    """Reduced gemma2-2b in f32 on a (2, 2) rank mesh of 4 ranks on the
+    card (FSDP over data, tensor-parallel over model; Adam, and 8-bit
+    Adam on the 4096 x 256 embedding variant): 2 steps, each within the
+    bounds of ``tests/test_torch_train_mesh.py`` of the unsharded step on
+    the card from the same state."""
+    import sys
+    from pathlib import Path
+    from repro_torch.launch.mesh import run_ranks
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_train_ranks as ranks
+    cfg = ranks.case_config("gemma2-2b", variant)
+    rng = np.random.RandomState(9)
+    batches = [rng.randint(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+               for _ in range(2)]
+    cases = {"c": ((2, 2), "gemma2-2b", variant, opt, 1, batches)}
+    got = run_ranks(ranks.step_scenarios, 4, (cases,), device="cuda",
+                    shape=(2, 2))
+    state = None
+    for i, (rec, toks) in enumerate(zip(got[0]["c"], batches)):
+        want = ranks.unsharded_step(cfg, state, toks, optimizer=opt,
+                                    dev="cuda")
+        ranks.assert_step_close(rec, want, opt, i)
+        state = rec["params"] + rec["opt"]

@@ -384,16 +384,18 @@ def test_launcher_rejects_unported_flags(capsys):
 
 
 def test_train_launcher_rejects_unported_flags(capsys):
-    """``--mesh`` and ``--multi-pod`` (multi-device training) stop the
-    training launcher before it builds a model; the other reference flags
+    """``--multi-pod`` (the production mesh) stops the training launcher
+    before it builds a model; ``--mesh`` and the other reference flags
     parse."""
     from repro_torch.launch.serve import _reject_unported
     from repro_torch.launch.train import _PORTED, build_parser, main
-    for extra in (["--mesh", "2x2"], ["--multi-pod"]):
-        with pytest.raises(SystemExit):
-            main(["--arch", "gemma2-2b", "--reduced"] + extra, device="cpu")
-        assert "is not yet ported" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        main(["--arch", "gemma2-2b", "--reduced", "--multi-pod"],
+             device="cpu")
+    assert "is not yet ported" in capsys.readouterr().err
     ap = build_parser()
+    _reject_unported(ap, ap.parse_args(["--arch", "gemma2-2b", "--mesh",
+                                        "2x2"]), _PORTED)
     args = ap.parse_args(["--arch", "gemma2-2b", "--reduced", "--shape",
                           "train_4k", "--steps", "2", "--lr", "1e-3",
                           "--batch", "2", "--seq", "8", "--microbatches",

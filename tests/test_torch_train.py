@@ -951,12 +951,15 @@ def test_launcher_prints_the_reference_lines(tmp_path):
 
 
 def test_launcher_refuses_the_multi_device_flags(capsys):
+    """``--multi-pod`` is refused; ``--mesh`` is ported (with ``--reduced``
+    it takes no mesh, as the reference: ``tests/test_torch_train_mesh.py``
+    trains on one)."""
     from repro_torch.launch import train
-    for extra in (["--mesh", "2x2"], ["--multi-pod"]):
-        with pytest.raises(SystemExit):
-            train.main(["--arch", "gemma2-2b", "--reduced"] + extra,
-                       device=CPU)
-        assert "is not yet ported" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        train.main(["--arch", "gemma2-2b", "--reduced", "--multi-pod"],
+                   device=CPU)
+    assert "is not yet ported" in capsys.readouterr().err
+    assert "mesh" in train._PORTED and "multi_pod" not in train._PORTED
 
 
 def test_quant_min_elems_is_the_reference_threshold():
