@@ -105,9 +105,9 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              --kv-bits 4`` with the same counts, its parity lines printed
              as match rates.
 13. full over-commit — full width with the quickstart's kv8 flags, 8
-             requests of 64-token prompts and 32 new tokens on 4 lanes,
+             requests of 64-token prompts and 16 new tokens on 4 lanes,
              ``--over-commit --num-blocks 12`` (each request's worst case
-             is 6 blocks of 16, so 4 lanes would need 24):
+             is 5 blocks of 16, so 4 lanes would need 20):
              ``[full-overcommit-drop]`` must preempt and recompute,
              ``[full-overcommit-swap]`` (``--swap-blocks --priority 1``)
              must preempt, swap blocks through host memory, recompute
@@ -128,7 +128,7 @@ Phases (any failure ends the run with a non-zero exit before the last line):
 15. full telemetry — the full over-commit swap workload with ``--trace
              --metrics-every 4 --quant-telemetry --stats-json``, then the
              same requests untraced (twice) and traced with the plain
-             steps: 256/256 greedy tokens against both, a valid Chrome
+             steps: 128/128 greedy tokens against both, a valid Chrome
              trace whose spans conserve against ServeStats, the disarmed
              profiled decode step dispatching the untraced one's operators
              in the same order, and the armed step's added device
@@ -307,15 +307,17 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              T 128: logits correlated > 0.99 with the f32 forward's; the
              stored bytes, wall and peak memory. Phases 39-40 reach no
              kernel (the reference computes both outside Pallas).
-41. train-rec recurrentgemma — recurrentgemma-2b at full width and depth
+41. train-rec recurrentgemma — recurrentgemma-2b at full width cut to
+             ``TRAIN_REC_DEPTH`` 5 layers (one superblock and the tail)
              through ``launch/train.py`` (bf16 params, f32 Adam, remat, B
              2 x T 1024, 3 steps, then a profiled step) on ``[train-full]``'s
              data source (the same vocabulary): losses finite, the step
              count, every parameter leaf moved unless bf16 cannot hold its
              update (listed); step wall, tokens/s, peak memory, device
              busy and idle by kind.
-42. train-rec rwkv6 — the same for rwkv6-1p6b (its 65536-wide table drawn
-             on a host thread started after phase 23).
+42. train-rec rwkv6 — the same for rwkv6-1p6b at 5 of its 24 layers (its
+             65536-wide table drawn on a host thread started after phase
+             23).
 43. train-reduced card vs CPU — phase 24's Adam case for each of the two
              reduced configs, one step, with phase 24's bounds.
 44. example-serve-quantized — ``examples/torch_serve_quantized.py``'s
@@ -389,9 +391,34 @@ Phases (any failure ends the run with a non-zero exit before the last line):
              and at most 1e-4 of them past 1e-6, 8-bit Adam's int8
              moments at most 1 LSB apart on at most 1e-3 of the payload.
              (c) Reduced qwen3-moe on the same mesh, 2 microbatches, 3
-             steps: a falling loss. No kernel of the port launches: each
-             rank's counts over (a)-(c) and the parent's over the
-             unsharded step are read and must be 0.
+             steps: a falling loss. (d) QAT under the mesh
+             (``make_train_step(dist=, ctx_factory=)``, W8A32, every
+             weight's min-max grid fitted on the whole weight): one f32
+             step against the unsharded one, loss and gradient norm within
+             1e-6 relative, the gradients within 1e-5 of each leaf's max
+             off the elements holding a weight's extreme (which also take
+             the grid's gradient: printed, within 1e-3), every grid equal.
+             No kernel of the port launches: each rank's counts over
+             (a)-(d) and the parent's over the unsharded steps are read
+             and must be 0.
+51. tp2-flags (after 30, in phase 48's ranks) — the serving flags under
+             ``--tp 2`` through the launcher's serve body, the caches on
+             their sequence dim: gemma2-2b at published width
+             (``TP_FULL_DEPTH`` 2 layers) with phase 11's prefix
+             workload, phase 14's over-commit swap workload and the same
+             with the telemetry flags (phase 15's), and the reduced prefix
+             run B and over-commit run B with the telemetry flags (phases
+             12 and 16's, ``--parity``): every rank's tokens, serve counts,
+             copy-on-writes and tier lines equal the unsharded run's (the
+             reduced ones the reference's); a rank's peak KV cache and
+             swap bytes half of them; rank 0 alone writes the trace,
+             metrics and stats; trace events, spans, snapshots and the
+             quant-health report's sites, steps, totals and KV scale stats
+             equal (the clipped counts within 1e-4 of a site's total and
+             amax within 1e-6 relative, two bf16 steps at published
+             width); K1, K3, K4, K6 partials and the merges on every rank;
+             per rank swap bytes and host time, collective time and the
+             armed step against the unarmed one print.
 
 In every serving phase every request must get its tokens. The reduced
 runs' integer-path logits must match the fake-quant path they replace
@@ -2741,10 +2768,12 @@ PREFIX_HITS = ("prefix-cache hits 16 tokens (rate 17%, 16 prefill tokens "
 # copies they asked for
 RUN_B_COW = (52, 4)
 # the --over-commit workload at full width: each request's worst case is
-# ceil((64 + 32 - 1) / 16) = 6 blocks, so 4 lanes would need 24 of the 12
+# ceil((64 + 16 - 1) / 16) = 5 blocks, so 4 lanes would need 20 of the 12
+# (16 new tokens a request, cut from 32 to pay for phase 51: phases 13-15
+# and 51 serve it)
 FULL_OC = quick_argv("8", *FULL_QUICK, "--over-commit", "--num-blocks", "12")
 for _flag, _value in (("--requests", "8"), ("--prompt-len", "64"),
-                      ("--new-tokens", "32")):
+                      ("--new-tokens", "16")):
     FULL_OC[FULL_OC.index(_flag) + 1] = _value
 # runs A and B of the reference's over-commit workload at the reduced width
 # (run B adds --swap-blocks --priority 1 --decode-ratio 2)
@@ -2773,6 +2802,15 @@ OC_COUNTS = {
            "inter-token p50/p99 1.3/2.3 steps"))}
 OC_EXTRA = {"A": (), "B": ("--swap-blocks", "--priority", "1",
                            "--decode-ratio", "2")}
+# the full-width over-commit workload's swap mode (phases 14-15)
+OC_SWAP = ("--swap-blocks", "--priority", "1")
+
+
+def oc_tokens():
+    """The full-width over-commit workload's greedy tokens (requests x new
+    tokens of ``FULL_OC``)."""
+    return (int(FULL_OC[FULL_OC.index("--requests") + 1])
+            * int(FULL_OC[FULL_OC.index("--new-tokens") + 1]))
 
 
 @contextlib.contextmanager
@@ -2986,24 +3024,30 @@ def f32_parity_phase(runs=("w8-kv8", "w4-kv4")):
     return outs
 
 
-def prefix_phase(add):
+def prefix_phase(add, flags=None):
     """Phases 11-12, prefix sharing (``--prefix-cache``). At full width the
     radix cache must hit; shared against unshared tokens is a rate there
     (the fake-quant FFN's rounding follows the row count, as in the
     quickstart phases). At the reduced width runs A and B with
     ``--parity`` hold the reference's counts, and run B's copy-on-writes
-    run on the card's arenas. ``add`` takes each phase's launch counts.
-    Returns the full-width [deploy-int8] and [kv-int8] gaps and the reduced
-    runs' [deploy-int8] gaps."""
+    run on the card's arenas. ``add`` takes each phase's launch counts;
+    ``flags``, a dict, receives the full-width run's and reduced run B's
+    reports, output and copy-on-write counts (what ``[tp2-flags]`` holds
+    its sharded runs to). Returns the full-width [deploy-int8] and
+    [kv-int8] gaps and the reduced runs' [deploy-int8] gaps."""
     import torch
+    fp_served = []
     with _served_calls() as served, _cow_counts() as fp_cow:
         fp, fp_rel, fp_stats, fp_out = serve_phase(
             "full-prefix", FULL_PREFIX,
             ("rms_quantize", "int8_matmul", "peg_quantize",
              "int8_attend_decode", "int8_attend_decode_emit",
              "paged_int8_attend_decode", "paged_int8_attend_decode_emit"),
-            "paged_int8_attend_decode_emit")
+            "paged_int8_attend_decode_emit", served=fp_served)
     add(fp)
+    if flags is not None:
+        flags["full-prefix"] = dict(fp_served[0], out=fp_out,
+                                    cow=dict(fp_cow))
     require(fp_stats.prefix_hit_tokens > 0
             and fp_stats.prefill_tokens_saved > 0,
             f"full-prefix: prefix hits {fp_stats.prefix_hit_tokens}, "
@@ -3028,6 +3072,7 @@ def prefix_phase(add):
     for run, extra in (("A", ()), ("B", ("--skew", "10")),
                        ("B-4bit", ("--skew", "10", "--kv-bits", "4", *W4))):
         tag = f"reduced-prefix-{run}"
+        run_served = []
         with _cow_counts() as cow:
             counts, rel, stats, out = serve_phase(
                 tag, REDUCED_PREFIX + list(extra),
@@ -3039,8 +3084,10 @@ def prefix_phase(add):
                  "paged_int8_attend_decode_kv4" if "4bit" in run
                  else "paged_int8_attend_decode",
                  "int8_attend_decode_emit", "paged_int8_attend_decode_emit"),
-                "paged_int8_attend_decode_emit")
+                "paged_int8_attend_decode_emit", served=run_served)
         add(counts)
+        if flags is not None and run == "B":
+            flags[tag] = dict(run_served[0], out=out, cow=dict(cow))
         prefix_line(tag, out, run[0])
         print(f"[{tag}] BlockPool.cow calls {cow['cow']} (copies "
               f"{cow['copies']}), cache_copy_block calls "
@@ -3098,7 +3145,8 @@ def _swap_times():
     def swap_in(self, cache, ids, payload):
         t0 = time.perf_counter()
         cache = orig_in(self, cache, ids, payload)
-        torch.cuda.synchronize()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         rec["in_s"].append(time.perf_counter() - t0)
         rec["in_bytes"] += nbytes(payload)
         return cache
@@ -3154,7 +3202,7 @@ def oc_lines(tag, out, run):
             f"{tag}: no preempted-vs-unpreempted parity line")
 
 
-def overcommit_phase(add):
+def overcommit_phase(add, flags=None):
     """Phases 13-14, over-commit with lane preemption (``--over-commit``).
     At full width both modes must preempt; swap mode must move blocks
     through host memory, recompute nothing and emit the unconstrained
@@ -3162,12 +3210,14 @@ def overcommit_phase(add):
     restores the bytes), while drop mode's re-prefill computes the emitted
     tokens' K/V at chunk width, where the fake-quant FFN rounds by row
     count, so its match rate is printed. At the reduced width runs A and B
-    hold the reference's counts. ``add`` takes each phase's launch counts.
-    Returns the reduced runs' [deploy-int8] gaps."""
+    hold the reference's counts. ``add`` takes each phase's launch counts;
+    ``flags``, a dict, receives the full-width swap run's report, output
+    and swap records (``[tp2-flags]``). Returns the reduced runs'
+    [deploy-int8] gaps."""
     import torch
-    for mode, extra in (("drop", ()),
-                        ("swap", ("--swap-blocks", "--priority", "1"))):
+    for mode, extra in (("drop", ()), ("swap", OC_SWAP)):
         tag = f"full-overcommit-{mode}"
+        run_served = []
         with _served_calls() as served, _swap_times() as swaps:
             counts, rel, stats, out = serve_phase(
                 tag, FULL_OC + list(extra),
@@ -3175,8 +3225,11 @@ def overcommit_phase(add):
                  "int8_attend_decode", "int8_attend_decode_emit",
                  "paged_int8_attend_decode", "paged_int8_attend_decode_emit"),
                 "paged_int8_attend_decode_emit",
-                step_must=("rms_quantize", "int8_matmul"))
+                step_must=("rms_quantize", "int8_matmul"),
+                served=run_served)
         add(counts)
+        if flags is not None and mode == "swap":
+            flags[tag] = dict(run_served[0], out=out, swaps=dict(swaps))
         require(stats.preemptions > 0, f"{tag}: no preemption")
         if mode == "swap":
             require(stats.swapped_blocks > 0
@@ -3215,7 +3268,7 @@ def overcommit_phase(add):
               + (" (required)" if mode == "swap" else
                  " (printed, not asserted)"))
         if mode == "swap":
-            require(matched == compared and compared == 256,
+            require(matched == compared and compared == oc_tokens(),
                     f"{tag}: {matched}/{compared} greedy tokens match the "
                     f"unconstrained run's")
     ro = {}
@@ -3459,19 +3512,20 @@ def check_conservation(tag, tracer, stats, n_requests):
     return names
 
 
-def telemetry_phase(add):
+def telemetry_phase(add, flags=None):
     """Phases 15-16: serving telemetry (``--trace``, ``--metrics-every``,
     ``--quant-telemetry``, ``--stats-json``). ``[full-telemetry]`` serves
     the ``[full-overcommit-swap]`` workload with the flags, then the same
     requests untraced and traced with the plain steps (disarmed), in the
-    same set-up: the greedy tokens must agree (256/256), the trace must be
+    same set-up: the greedy tokens must agree (128/128), the trace must be
     valid Chrome-trace JSON whose spans conserve against ServeStats, the
     disarmed profiled decode step must run exactly the untraced one's
     device operations, and the armed one's added operations, K4 and emit
     launches and host syncs print. ``[reduced-telemetry-B]`` is run B of
     the reduced over-commit workload with the flags and ``--parity``: the
-    reference launcher's counts and telemetry lines. Returns run B's
-    [deploy-int8] gap."""
+    reference launcher's counts and telemetry lines. ``flags``, a dict,
+    receives both runs' reports, outputs and swap records
+    (``[tp2-flags]``). Returns run B's [deploy-int8] gap."""
     import tempfile
     import torch
     from repro_torch.configs import get_config
@@ -3479,21 +3533,26 @@ def telemetry_phase(add):
     cfg = get_config("gemma2-2b")
     tag = "full-telemetry"
     with tempfile.TemporaryDirectory() as tmp:
-        armed_rep = {}
-        with _served_calls() as served, _built_steps() as built:
+        armed_rep, run_served = {}, []
+        with _served_calls() as served, _built_steps() as built, \
+                _swap_times() as swaps:
             counts, _, stats, out = serve_phase(
-                tag, FULL_OC + ["--swap-blocks", "--priority", "1"]
-                + tel_argv(tmp),
+                tag, FULL_OC + list(OC_SWAP) + tel_argv(tmp),
                 ("rms_quantize", "int8_matmul", "peg_quantize",
                  "paged_int8_attend_decode"),
                 step_must=("rms_quantize", "int8_matmul", "peg_quantize",
-                           "paged_int8_attend_decode"), report=armed_rep)
+                           "paged_int8_attend_decode"), report=armed_rep,
+                served=run_served)
         add(counts)
+        if flags is not None:
+            flags[tag] = dict(run_served[0], out=out.replace(tmp, "DIR"),
+                              swaps=dict(swaps))
         call = served[0]
         tel = call[1]["telemetry"]
         n_ev = check_chrome_trace(tag, Path(tmp) / "trace.json")
         saved = json.loads((Path(tmp) / "stats.json").read_text())
-        require(saved["tokens_generated"] == stats.tokens_generated == 256,
+        require(saved["tokens_generated"] == stats.tokens_generated
+                == oc_tokens(),
                 f"{tag}: stats JSON {saved['tokens_generated']} tokens")
         n_snap = len((Path(tmp) / "trace.json.metrics.jsonl").read_text()
                      .splitlines())
@@ -3539,7 +3598,7 @@ def telemetry_phase(add):
         same = sum(x == y for x, y in zip(traced, other))
         print(f"[{tag}] greedy tokens traced and armed against {what}: "
               f"{same}/{len(other)} (required)")
-        require(same == len(other) == len(traced) == 256,
+        require(same == len(other) == len(traced) == oc_tokens(),
                 f"{tag}: {same}/{len(other)} tokens match the {what} run")
     u_ops, g_ops, d_ops, a_ops = (_step_ops(r) for r in (
         untraced_rep, again_rep, disarmed_rep, armed_rep))
@@ -3611,14 +3670,18 @@ def telemetry_phase(add):
           f"{dis_stats.wall_s / plain_stats.wall_s:.3f})")
 
     tag = "reduced-telemetry-B"
-    with tempfile.TemporaryDirectory() as tmp:
+    run_served = []
+    with tempfile.TemporaryDirectory() as tmp, _swap_times() as swaps:
         counts, rel, stats, out = serve_phase(
             tag, REDUCED_OC + list(OC_EXTRA["B"]) + tel_argv(tmp),
             ("rms_quantize", "int8_matmul", "int8_matmul_peg",
              "peg_quantize", "int8_attend_decode", "paged_int8_attend_decode",
              "int8_attend_decode_emit", "paged_int8_attend_decode_emit"),
-            step_must=("peg_quantize",))
+            step_must=("peg_quantize",), served=run_served)
+        out = out.replace(tmp, "DIR")
     add(counts)
+    if flags is not None:
+        flags[tag] = dict(run_served[0], out=out, swaps=dict(swaps))
     oc_lines(tag, out, "B")
     trace_line, phases, metrics_line, health_line = RUN_B_TEL
     got = tuple(re.findall(r"^\[trace\] (\w+: n=\d+) p50", out, re.M))
@@ -4509,13 +4572,33 @@ def _dispatch_rows(log):
     return [(t, cap, int(dropped)) for t, cap, dropped in log]
 
 
+@contextlib.contextmanager
+def _files_written():
+    """Record the paths of every file opened for writing while the block
+    runs."""
+    import builtins
+    real, got = builtins.open, []
+
+    def opened(file, mode="r", *a, **kw):
+        if any(c in mode for c in "wax"):
+            got.append(str(file))
+        return real(file, mode, *a, **kw)
+    builtins.open = opened
+    try:
+        yield got
+    finally:
+        builtins.open = real
+
+
 def tp2_launcher_rank(dist, dev, runs, reduced=False):
-    """One rank of phases 48 and 49: each (arch, depth, argv, the
+    """One rank of phases 48, 49 and 51: each (arch, depth, argv, the
     unsharded run's tokens) of ``runs`` served by the serving launcher's
     body on this rank's slice (``serve._serve_rank``), its ``get_config``
     giving ``arch`` cut to ``depth`` layers at published width
-    (``reduced``: the reduced config, a CPU rehearsal), recording its MoE
-    dispatches (:func:`_moe_dispatches`). When the tokens differ from the
+    (``reduced``: the reduced config, a CPU rehearsal; depth None: an
+    ``argv`` of its own with ``--reduced``), recording its MoE dispatches
+    (:func:`_moe_dispatches`), its swaps (:func:`_swap_times`) and the
+    files it writes (:func:`_files_written`). When the tokens differ from the
     unsharded run's, each rank serves the workload unsharded (with the
     router sites passed, :func:`router_sites_passed`: the function
     ``--tp`` serves), recording every emitting call, K1's and the decode
@@ -4539,9 +4622,12 @@ def tp2_launcher_rank(dist, dev, runs, reduced=False):
     got = []
     orig_get, orig_make = launcher.get_config, launcher.make_decode_step
     for arch, depth, argv, want in runs:
-        cfg = dataclasses.replace(get_config(arch), num_layers=depth)
-        cfg = cfg.reduced() if reduced else cfg
-        argv = argv + (["--reduced"] if reduced else [])
+        if depth is None:
+            cfg = get_config(arch).reduced()
+        else:
+            cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+            cfg = cfg.reduced() if reduced else cfg
+            argv = argv + (["--reduced"] if reduced else [])
         walls, step_counts = [], {}
 
         def make(*a, **kw):
@@ -4562,16 +4648,20 @@ def tp2_launcher_rank(dist, dev, runs, reduced=False):
                                         if v > before[k]})
                 return o
             return timed
-        launcher.get_config = lambda a: cfg if a == arch else orig_get(a)
+        if depth is not None:
+            launcher.get_config = (lambda a, cfg=cfg, arch=arch: cfg
+                                   if a == arch else orig_get(a))
         launcher.make_decode_step = make
         try:
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(dev)
-            with _moe_dispatches() as log, _expert_bytes() as experts:
+            with _moe_dispatches() as log, _expert_bytes() as experts, \
+                    _swap_times() as swaps, _files_written() as files:
                 text, _, info = launcher._serve_rank(dist, dev, argv, None)
             info.update(text=text, walls=list(walls), expert_bytes=experts,
                         step_launches=dict(step_counts),
-                        dispatches=_dispatch_rows(log),
+                        dispatches=_dispatch_rows(log), swaps=dict(swaps),
+                        files=files,
                         peak_bytes=(torch.cuda.max_memory_allocated(dev)
                                     if dev.type == "cuda" else 0))
             if info["tokens"] != want:     # alike on every rank
@@ -4975,27 +5065,282 @@ def tp2_moe_phase(add, un, cfg, ranks, device=None, reduced=False):
           f"{time.perf_counter() - t0:.1f} s")
 
 
-def tp2_launcher_phases(add, want, device=None, reduced=False):
-    """Phases 48 and 49 in one spawn of 2 ranks on one card
-    (:func:`tp2_moe_rank`: phase 48's granite runs, then phase 49's
-    qwen3-moe run and grok-1's block), after phase 49's unsharded run
-    (:func:`tp2_moe_unsharded`). ``want``: phase 48's {kv bits: the zoo
-    phase's unsharded report}."""
+def tp2_launcher_phases(add, want, flags=None, device=None,
+                        reduced=False):
+    """Phases 48, 49 and 51 in one spawn of 2 ranks on one card
+    (:func:`tp2_moe_rank`: phase 48's granite runs, phase 49's qwen3-moe
+    run, phase 51's serving-flag runs (:func:`flag_runs`), then grok-1's
+    block), after phase 49's unsharded run (:func:`tp2_moe_unsharded`).
+    ``want``: phase 48's {kv bits: the zoo phase's unsharded report};
+    ``flags``: phase 51's unsharded runs (phases 11-16's, by tag), or None
+    to leave phase 51 out."""
+    import tempfile
     from repro_torch.launch.mesh import run_ranks
     t0 = time.perf_counter()
     un, cfg, run = tp2_moe_unsharded(device, reduced)
     t_un = time.perf_counter() - t0
-    ranks = run_ranks(tp2_moe_rank, TP, (granite_runs(want) + [run],
-                                         reduced), device=device)
-    t_tp = time.perf_counter() - t0 - t_un
+    with tempfile.TemporaryDirectory() as tmp:
+        extra = flag_runs(flags, tmp) if flags is not None else []
+        ranks = run_ranks(tp2_moe_rank, TP, (granite_runs(want) + [run]
+                                             + extra, reduced),
+                          device=device)
+        t_tp = time.perf_counter() - t0 - t_un
+        if flags is not None:
+            tp2_flags_phase(add, flags, [r[0][3:] for r in ranks], tmp)
     tp2_granite_phase(add, want, [r[0][:2] for r in ranks])
     tp2_moe_phase(add, un, cfg, [(r[0][2], r[1]) for r in ranks], device,
                   reduced)
     per = [[round(x["seconds"], 1) for x in r[0]] for r in ranks]
-    print(f"[tp2-launcher] phases 48-49 {time.perf_counter() - t0:.1f} s "
-          f"({TP} ranks on one card): phase 49's unsharded run {t_un:.1f} "
-          f"s, the ranks {t_tp:.1f} s (each rank's serve bodies, granite kv8 "
-          f"/ kv16 / qwen3-moe: {per} s)")
+    print(f"[tp2-launcher] phases 48, 49 and 51 "
+          f"{time.perf_counter() - t0:.1f} s ({TP} ranks on one card): "
+          f"phase 49's unsharded run {t_un:.1f} s, the ranks {t_tp:.1f} s "
+          f"(each rank's serve bodies, granite kv8 / kv16 / qwen3-moe / "
+          f"the flag runs: {per} s)")
+
+
+# Phase 51's runs: the prefix, over-commit swap and telemetry workloads at
+# published width (TP_FULL_DEPTH of gemma2-2b's layers, the depth of phases
+# 11-15, GEMMA_DEPTH) and the reduced runs B of the prefix and the
+# telemetry phases (the latter over-commit run B with the telemetry flags),
+# each against phases 11-16's unsharded run of the same argv (by tag);
+# the telemetry runs write their files under a directory of their own
+FLAG_RUNS = (("full-prefix", FULL_PREFIX),
+             ("full-overcommit-swap", FULL_OC + list(OC_SWAP)),
+             ("full-telemetry", FULL_OC + list(OC_SWAP)),
+             ("reduced-prefix-B", REDUCED_PREFIX + ["--skew", "10"]),
+             ("reduced-telemetry-B", REDUCED_OC + list(OC_EXTRA["B"])))
+FLAG_TEL = ("full-telemetry", "reduced-telemetry-B")
+
+
+def flag_runs(flags, tmp):
+    """Phase 51's runs for :func:`tp2_launcher_rank` (each telemetry run's
+    files under ``tmp``/its tag), against ``flags``' unsharded tokens."""
+    require(TP_FULL_DEPTH == GEMMA_DEPTH, "phase 51 serves gemma2-2b at "
+            "the depth of phases 11-16")
+    runs = []
+    for tag, argv in FLAG_RUNS:
+        argv = list(argv)
+        if tag in FLAG_TEL:
+            (Path(tmp) / tag).mkdir()
+            argv += tel_argv(Path(tmp) / tag)
+        depth = None if "--reduced" in argv else TP_FULL_DEPTH
+        runs.append(("gemma2-2b", depth, argv, flags[tag]["tokens"]))
+    return runs
+
+
+# the launches phase 51 prints a rank's, and those every full-width run
+# must make: K1, K3, K4 (chunk rows), K6 in partial mode (reading shared,
+# copied and swapped-in blocks) and the merges
+FLAG_MUST = ("rms_quantize", "int8_matmul", "peg_quantize",
+             "paged_int8_attend_decode_partials", "merge_partials")
+FLAG_STATS = ("tokens_generated", "decode_steps", "prefill_calls",
+              "chunk_steps", "blocks_in_use", "prefix_hit_tokens",
+              "prefill_tokens_saved", "shared_blocks", "preemptions",
+              "swapped_blocks", "recomputed_tokens", "queue_wait_steps")
+
+
+def _flag_lines(text, sites=True):
+    """A serve output's lines less the host clock's and a rank's share:
+    the serve line's wall, rate and peak KV-cache bytes, the trace's phase
+    latencies; without ``sites`` the quant-health report's site lines too
+    (compared as numbers where they are not exact)."""
+    out = []
+    for line in text.splitlines():
+        if not sites and re.match(r"\[quant-health\] \S+: clip ", line):
+            continue
+        line = re.sub(r", [\d.]+s \([\d.]+ tok/s\)", "", line)
+        line = re.sub(r"peak kv-cache \d+ KiB ", "", line)
+        out.append(re.sub(r"(\[trace\] \w+: n=\d+) p50 .*", r"\1", line))
+    return out
+
+
+def tp2_flags_phase(add, flags, ranks, tmp):
+    """Phase 51, ``[tp2-flags]`` (in phases 48-49's spawn): the serving
+    flags under ``--tp 2`` through the launcher's serve body on 2 ranks
+    of one card, the caches on their sequence dim. At published width
+    (gemma2-2b, ``TP_FULL_DEPTH`` layers, bf16): the prefix workload
+    (``--prefix-cache``: shared and copied blocks), the over-commit swap
+    workload (``--over-commit --swap-blocks``) and the same with
+    ``--trace --metrics-every 4 --quant-telemetry --stats-json`` (the
+    armed steps); at the reduced width (f32) prefix run B and over-commit
+    run B with the telemetry flags, both with ``--parity``. Each run
+    against its unsharded run of phases 11-16 (``flags``, by tag): every
+    rank's greedy tokens equal it (or part only at rounding ties,
+    :func:`tp2_launcher_rank`'s rerun), its ``ServeStats`` counts and tier
+    latencies, rank 0's lines (host times and the peak KV-cache bytes
+    aside), the reference's counts on the reduced runs; each rank's peak
+    KV cache and swap bytes are half the unsharded run's; the telemetry
+    runs' files are written by rank 0 alone and their quant-health
+    reports held by :func:`_flags_telemetry`. Every rank's full-width
+    runs launch ``FLAG_MUST``. Prints per rank the launches, the swap
+    bytes and host time, the host time in the collectives and the armed
+    decode step's median wall against the unarmed one's."""
+    t_tags = [t for t, _ in FLAG_RUNS]
+    for i, tag in enumerate(t_tags):
+        un, where = flags[tag], str(Path(tmp) / tag)
+        text = ranks[0][i]["text"].replace(where, "DIR")
+        for line in text.splitlines():
+            print(f"[tp2-flags] {tag}: {line}")
+        n_tok = sum(len(t) for t in un["tokens"])
+        for rr in ranks:
+            r = rr[i]
+            who = f"[tp2-flags] {tag}: rank {r['rank']}"
+            same = sum(x == y for a, b in zip(r["tokens"], un["tokens"])
+                       for x, y in zip(a, b))
+            launches = {n: r["launches"][n] for n in FLAG_MUST + (
+                "paged_int8_attend_decode_partials_emit",
+                "merge_partials_emit") if r["launches"].get(n)}
+            sw = r["swaps"]
+            print(f"{who} on {r['device']} ({r['backend']}): {same}/{n_tok} "
+                  f"greedy tokens equal the unsharded run's; launches "
+                  f"{launches}; launches in the third decode step "
+                  f"{r['step_launches']}; decode step median "
+                  f"{statistics.median(r['walls']):.2f} ms over "
+                  f"{len(r['walls'])} steps; host time in collectives "
+                  f"{r['collective_s']:.3f} s of {r['seconds']:.2f} s; swap "
+                  f"out {len(sw['out_s'])} calls, {sw['out_bytes']} bytes "
+                  f"in {sum(sw['out_s']) * 1e3:.3f} ms, swap in "
+                  f"{len(sw['in_s'])} calls, {sw['in_bytes']} bytes in "
+                  f"{sum(sw['in_s']) * 1e3:.3f} ms (host clock); peak KV "
+                  f"cache {r['cache_bytes']} of {un['cache_bytes']} bytes")
+            ties = r.get("ties")
+            if ties is not None:
+                again = sum(x == y for a, b in zip(ties["tokens"],
+                                                   un["tokens"])
+                            for x, y in zip(a, b))
+                _print_ties(f"tp2-flags {tag}", r["rank"], ties, again,
+                            n_tok)
+                _require_ties(f"tp2-flags {tag}", r["rank"], ties,
+                              un["tokens"], same, n_tok)
+            got = {k: getattr(r["stats"], k) for k in FLAG_STATS}
+            want = {k: getattr(un["stats"], k) for k in FLAG_STATS}
+            require(got == want and r["stats"].tier_latency ==
+                    un["stats"].tier_latency, f"{who}: ServeStats {got} "
+                    f"against the unsharded {want}")
+            require(2 * r["cache_bytes"] == un["cache_bytes"],
+                    f"{who}: peak KV cache {r['cache_bytes']} bytes, not "
+                    f"half of {un['cache_bytes']}")
+            if "swaps" in un:
+                require(2 * sw["out_bytes"] == un["swaps"]["out_bytes"] > 0
+                        and 2 * sw["in_bytes"] == un["swaps"]["in_bytes"],
+                        f"{who}: swap bytes {sw['out_bytes']} out / "
+                        f"{sw['in_bytes']} in, not half the unsharded "
+                        f"{un['swaps']['out_bytes']} / "
+                        f"{un['swaps']['in_bytes']}")
+            if not tag.startswith("reduced"):
+                for name in FLAG_MUST:
+                    require(r["launches"].get(name, 0) > 0,
+                            f"{who} never launched {name}")
+            add(r["launches"])
+        sites = tag not in FLAG_TEL     # the telemetry runs' by number
+        require(_flag_lines(text, sites) == _flag_lines(un["out"], sites),
+                f"[tp2-flags] {tag}: rank 0's lines differ from the "
+                f"unsharded run's")
+        if tag == "reduced-prefix-B":
+            prefix_line(f"tp2-flags {tag}", text, "B")
+        elif tag == "reduced-telemetry-B":
+            oc_lines(f"tp2-flags {tag}", text, "B")
+            require(all(x in text for x in (RUN_B_TEL[0], RUN_B_TEL[2],
+                                             RUN_B_TEL[3])),
+                    f"[tp2-flags] {tag}: not the reference's telemetry "
+                    f"lines {RUN_B_TEL}")
+        if tag in FLAG_TEL:
+            _flags_telemetry(tag, un, [rr[i] for rr in ranks], where,
+                             bf16=not tag.startswith("reduced"))
+    for rr in ranks:
+        a, p = (statistics.median(rr[t_tags.index(t)]["walls"])
+                for t in ("full-telemetry", "full-overcommit-swap"))
+        print(f"[tp2-flags] rank {rr[0]['rank']}: armed decode step median "
+              f"{a:.2f} ms against {p:.2f} ms unarmed (ratio {a / p:.3f}; "
+              f"host clock, synchronized)")
+
+
+def _bf16_steps(got, want):
+    """|got - want| in bf16 grid steps at ``want``'s magnitude."""
+    import math
+    step = 2.0 ** (math.floor(math.log2(max(abs(want), 1e-30))) - 7)
+    return abs(got - want) / step
+
+
+def _flags_telemetry(tag, un, ranks, where, bf16):
+    """A phase 51 telemetry run against its unsharded run: rank 0 alone
+    wrote the trace (valid Chrome-trace JSON), metrics and stats files
+    under ``where``; every rank's trace events, request spans and metrics
+    snapshots equal the unsharded run's (host times aside); its
+    quant-health report has the unsharded sites, steps, totals (the
+    per-site fold over the ranks) and KV scale stats. The site values
+    themselves are the unsharded run's only up to rounding on the card:
+    the ranks merge the attention partials in another order than one
+    kernel's splits (f32), and at published width (``bf16``) the float
+    FFN's column halves summed in f32, and the vocab-cut head, round
+    otherwise than one bf16 GEMM; a value on a grid edge may then count
+    as clipped in one run and not in the other (the CPU tests hold the
+    counts exact). So each site's clipped count must lie within 1e-4 of
+    its total and amax / range within 1e-6 relative (within two bf16
+    steps with ``bf16``), and every site's difference prints."""
+    names = ("trace.json", "trace.json.metrics.jsonl", "stats.json")
+    want_tel = un["telemetry"]
+    rep_un = want_tel.quant.report()
+
+    def events(tel):
+        return [(e.name, e.step, e.rid, e.lane, e.args)
+                for e in tel.tracer.events]
+
+    def snaps(tel):
+        return [{k: v for k, v in s.items() if k != "ts"}
+                for s in tel.metrics.snapshots]
+
+    def spans(tel):
+        return {k: {f: v[f] for f in ("lanes", "preempts", "resumes",
+                                       "retired")}
+                for k, v in tel.tracer.request_spans().items()}
+    for r in ranks:
+        who = f"[tp2-flags] {tag}: rank {r['rank']}"
+        written = sorted(Path(p).name for p in r["files"]
+                         if p.startswith(where))
+        require(written == (sorted(names) if r["rank"] == 0 else []),
+                f"{who} wrote {written}")
+        tel = r["telemetry"]
+        require(events(tel) == events(want_tel)
+                and snaps(tel) == snaps(want_tel)
+                and spans(tel) == spans(want_tel),
+                f"{who}: trace events, metrics or spans differ from the "
+                f"unsharded run's")
+        rep = tel.quant.report()
+        require(sorted(rep["sites"]) == sorted(rep_un["sites"])
+                and rep["steps_observed"] == rep_un["steps_observed"]
+                and rep["kv_scales"] == rep_un["kv_scales"],
+                f"{who}: quant-health sites, steps or KV scale stats "
+                f"differ from the unsharded run's")
+        apart, worst_rel, worst_steps = [], 0.0, 0.0
+        for site, w in sorted(rep_un["sites"].items()):
+            g = rep["sites"][site]
+            require(g["total"] == w["total"], f"{who}: {site} totals "
+                    f"{g['total']} against {w['total']}")
+            d = g["clipped"] - w["clipped"]
+            rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                      for k in ("observed_amax", "calibrated_range"))
+            steps = max(_bf16_steps(g[k], w[k])
+                        for k in ("observed_amax", "calibrated_range"))
+            worst_rel, worst_steps = max(worst_rel, rel), max(worst_steps,
+                                                              steps)
+            if d or rel:
+                apart.append(f"{site} clipped {d:+d} of {w['total']}, amax "
+                             f"{g['observed_amax']:.6g} against "
+                             f"{w['observed_amax']:.6g}")
+            require(abs(d) <= 1e-4 * w["total"]
+                    and (steps <= 2 if bf16 else rel <= 1e-6),
+                    f"{who}: {site} {g} against {w}")
+        print(f"{who}: {len(events(tel))} trace events, "
+              f"{len(snaps(tel))} metrics snapshots and the request spans "
+              f"equal the unsharded run's; quant-health {len(rep['sites'])} "
+              f"sites over {rep['steps_observed']} steps, every total and "
+              f"the KV scale stats equal, {len(apart)} sites apart (amax / "
+              f"range at most {worst_rel:.3g} relative, {worst_steps:.3g} "
+              f"bf16 steps); files written {written}")
+        for line in apart:
+            print(f"{who}:   {line}")
+    check_chrome_trace(f"tp2-flags {tag}", Path(where) / "trace.json")
 
 
 # The paper's BERT-base outlier dims (308 and 381) and two more, planted in
@@ -5990,6 +6335,140 @@ def _mesh_parity(dist, dev, cfg, path, T):
     return out
 
 
+def _qat_ctx(grids=None):
+    """(d)'s ctx factory, QAT in the train graph with weights only (W8A32):
+    every weight's symmetric per-tensor int8 grid refitted by min-max at
+    each read (``QuantCtx.weight``; under a mesh on the whole weight,
+    ``make_train_step(dist=)``), the activation sites off. (With 8-bit
+    activation sites the straight-through clip masks flip wherever a f32
+    sum order moves an activation across a grid boundary, which at this
+    width moves gradient elements by a tenth of a leaf's max: see
+    PERF.md; ``tests/test_torch_train_mesh.py`` holds W8A8 at the reduced
+    width.) ``grids``, a list, receives (site, scale) of every weight
+    grid fitted, in call order."""
+    from repro_torch.core import Mode, QuantCtx
+    from repro_torch.core.quant_config import (FP32, QuantizationPolicy,
+                                               QuantizerConfig)
+    pol = QuantizationPolicy(weight_default=QuantizerConfig(bits=8,
+                                                            symmetric=True),
+                             act_default=FP32)
+
+    class Recorded(QuantCtx):
+        def fit_weight(self, site, w, qcfg):
+            qp = super().fit_weight(site, w, qcfg)
+            grids.append((site, float(qp.scale.detach())))
+            return qp
+    make = QuantCtx if grids is None else Recorded
+    return lambda: make(policy=pol, mode=Mode.APPLY)
+
+
+def _extremes(params):
+    """Per leaf of ``params`` in ``tree_leaves`` order, the max |w| of each
+    layer (a stacked leaf's) or of the leaf, and how many elements hold
+    it."""
+    from repro_torch.optim import tree_leaves
+    from repro_torch.parallel.sharding import _map_with_path
+    out = []
+    paths = tree_leaves(_map_with_path(lambda path, w: path, params))
+    for path, w in zip(paths, tree_leaves(params)):
+        a = w.detach().abs()
+        m = a.flatten(1).amax(1) if "scan" in path else a.max()
+        hit = a == m.reshape(m.shape + (1,) * (a.dim() - m.dim()))
+        out.append((m.cpu(), int(hit.sum())))
+    return out
+
+
+def _qat_oracle(cfg, dev, path, T):
+    """(d)'s reference, before the ranks: one unsharded f32 QAT step's
+    loss and gradients (:func:`_qat_ctx`) on the params drawn from
+    ``TRAIN_MESH_SEED`` and (b)'s batch, saved to ``path`` with the
+    gradient norm, each leaf's max |g|, the weight grids fitted and each
+    leaf's extremes (:func:`_extremes`). Returns (loss, grad norm, grids
+    fitted, seconds)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import tree_leaves
+    from repro_torch.runtime import make_train_step
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, TRAIN_MESH_SEED, dtype=torch.float32,
+                             device=dev)
+    toks = torch.from_numpy(np.random.RandomState(TRAIN_MESH_SEED).randint(
+        0, cfg.vocab_size, (4, T)).astype(np.int32)).to(dev)
+    grids = []
+    step = make_train_step(cfg, lr_schedule=TRAIN_MESH_LR,
+                           ctx_factory=_qat_ctx(grids))
+    loss, grads = step.loss_and_grads(params, {"tokens": toks,
+                                               "labels": toks})
+    gnorm = float(step.grad_norm(grads))
+    leaves = [g.cpu() for g in tree_leaves(grads)]
+    torch.save({"loss": float(loss), "grad_norm": gnorm, "grads": leaves,
+                "gmax": [float(g.abs().max()) for g in leaves],
+                "grids": grids, "extremes": _extremes(params)}, path)
+    del grads, leaves, params, step
+    _sync(dev)
+    return float(loss), gnorm, len(grids), time.perf_counter() - t0
+
+
+def _mesh_qat(dist, dev, cfg, path, T):
+    """(d) on this rank: the QAT step of ``make_train_step(dist=,
+    ctx_factory=)`` on the rank's slices of the oracle's params and its
+    rows of the batch: its loss, gradient norm, every gradient leaf
+    against the oracle's slice, of the leaf's max |g| (``grad_rel``), the
+    weight grids it fitted against the oracle's (``grids_apart`` of
+    ``n_grids``). The element holding a weight's max |w| (one or two a
+    layer) also takes the grid's gradient, a sum over every element of
+    the weight, which the ranks add in another order than one device:
+    those elements are held apart (``ext_rel``, how many of them pass
+    1e-5 of the leaf's max: ``ext_past`` of ``n_ext``), every other
+    element in ``grad_rel``."""
+    import numpy as np
+    import torch
+    from repro_torch.data import shard_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import tree_leaves
+    from repro_torch.parallel.sharding import (cut_leaf,
+                                               make_param_shardings,
+                                               param_shardings)
+    from repro_torch.runtime import make_train_step
+    t0 = time.perf_counter()
+    oracle = torch.load(path, mmap=True, map_location="cpu")
+    toks = np.random.RandomState(TRAIN_MESH_SEED).randint(
+        0, cfg.vocab_size, (4, T)).astype(np.int32)
+    rows = shard_batch({"tokens": toks, "labels": toks}, dist)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in rows.items()}
+    params = make_param_shardings(tfm.init_params(
+        cfg, TRAIN_MESH_SEED, dtype=torch.float32, device=dev), dist)
+    shs = param_shardings(cfg, params, dist)
+    grids = []
+    step = make_train_step(cfg, lr_schedule=TRAIN_MESH_LR, dist=dist,
+                           ctx_factory=_qat_ctx(grids))
+    loss, grads = step.loss_and_grads(params, batch)
+    out = {"loss": float(loss),
+           "grad_norm": float(step.grad_norm(grads, shs)), "grad_rel": 0.0,
+           "n_grids": len(grids),
+           "grids_apart": sum(a != b for a, b in zip(grids,
+                                                     oracle["grids"]))
+           + abs(len(grids) - len(oracle["grids"]))}
+    out.update(ext_rel=0.0, ext_past=0, n_ext=0)
+    for g, p, sh, o, gmax, (m, n_hit) in zip(
+            tree_leaves(grads), tree_leaves(params), tree_leaves(shs),
+            oracle["grads"], oracle["gmax"], oracle["extremes"]):
+        d = (g - cut_leaf(o, sh).to(dev)).abs() / max(gmax, 1e-30)
+        ext = torch.zeros_like(d, dtype=torch.bool)
+        if n_hit <= 2 * m.numel():      # a weight's extremes, not a norm's
+            ext = p.detach().abs() == m.to(dev).reshape(
+                m.shape + (1,) * (p.dim() - m.dim()))
+        out["grad_rel"] = max(out["grad_rel"],
+                              float(torch.where(ext, 0.0, d).max()))
+        out["ext_rel"] = max(out["ext_rel"],
+                             float(torch.where(ext, d, 0.0).max()))
+        out["ext_past"] += int((ext & (d > 1e-5)).sum())
+        out["n_ext"] += int(ext.sum())
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _moment_leaves(tree):
     """The per-param entries of a moment tree in leaf order: an 8-bit
     moment's {"q", "s"} dict whole, an f32 moment as itself."""
@@ -6060,11 +6539,11 @@ def start_mesh_draws(src, argv=TRAIN_MESH):
     return wait
 
 
-def train_mesh_rank(dist, dev, job, cfg, path, T):
+def train_mesh_rank(dist, dev, job, cfg, path, T, qat_path):
     """One rank of phase 50: (a) ``train.mesh_rank`` (the launcher's rank
-    body), (b) :func:`_mesh_parity`, (c) :func:`_mesh_moe`; each part's
-    seconds, and this rank's kernel launch counts over all three (set to 0
-    when the rank starts)."""
+    body), (b) :func:`_mesh_parity`, (c) :func:`_mesh_moe`, (d)
+    :func:`_mesh_qat`; each part's seconds, and this rank's kernel launch
+    counts over all four (set to 0 when the rank starts)."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import train
@@ -6079,7 +6558,11 @@ def train_mesh_rank(dist, dev, job, cfg, path, T):
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     c = _mesh_moe(dist, dev)
-    return a, b, (c, time.perf_counter() - t0), kops.launch_counts()
+    c_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    d = _mesh_qat(dist, dev, cfg, qat_path, T)
+    return a, b, (c, c_s), d, kops.launch_counts()
 
 
 def train_mesh_phase(add, device=None, reduced=False, draws=None):
@@ -6103,10 +6586,18 @@ def train_mesh_phase(add, device=None, reduced=False, draws=None):
     the wrong sign moves nearly all by lr or more); then 8-bit Adam's int8 moments at most 1
     LSB from the unsharded ones on at most 1e-3 of the payload (rounding
     ties). (c) Reduced qwen3-moe on the same mesh, 2 microbatches, 3 steps
-    on one batch: finite, falling losses. No kernel of the port launches
-    (the reference's training reaches no Pallas kernel): each rank counts
-    its own launches over (a)-(c), and the parent its own over the
-    unsharded step; every count must be 0. ``draws``: the
+    on one batch: finite, falling losses. (d) QAT under the mesh
+    (``make_train_step(dist=, ctx_factory=)``, :func:`_qat_ctx`: W8A32,
+    min-max weight grids refitted on the whole weights): one f32 step's
+    loss and gradient norm within 1e-6 relative of
+    the unsharded QAT step's (:func:`_qat_oracle`), every gradient leaf
+    within 1e-5 of its max |g| off the elements holding a weight's
+    extreme (which also take the grid's gradient, summed over the weight
+    in the ranks' order: counted, printed and held within 1e-3), every
+    weight grid equal. No kernel of the
+    port launches (the reference's training reaches no Pallas kernel):
+    each rank counts its own launches over (a)-(d), and the parent its own
+    over the unsharded steps; every count must be 0. ``draws``: the
     waiter of :func:`start_mesh_draws` (the batches drawn beside earlier
     phases). ``device="cpu"`` with ``reduced`` rehearses it at the reduced
     width."""
@@ -6148,6 +6639,13 @@ def train_mesh_phase(add, device=None, reduced=False, draws=None):
         loss_u, gnorm_u, secs_u = _mesh_oracle(cfg_b, dev, path, T)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+        qat_path = out_dir / "qat_oracle.pt"
+        qat_u = _qat_oracle(cfg_b, dev, qat_path, T)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        print(f"[{tag}-qat] the unsharded f32 QAT step (W8A32, min-max "
+              f"weight grids, {qat_u[2]} fitted, the remat's included): loss "
+              f"{qat_u[0]:.6f}, grad norm {qat_u[1]:.6f}, {qat_u[3]:.1f} s")
         n_params = sum(t.numel()
                        for t in tree_leaves(logical_params(cfg_b)))
         print(f"[{tag}] {cfg_b.name} at d {cfg_b.d_model}, vocab "
@@ -6160,16 +6658,17 @@ def train_mesh_phase(add, device=None, reduced=False, draws=None):
                   f"{_build.build_all():.1f} s (the ranks load them)")
         t1 = time.perf_counter()
         ranks = run_ranks(train_mesh_rank, math.prod(TRAIN_MESH_SHAPE),
-                          (job, cfg_b, str(path), T), device=device,
-                          shape=TRAIN_MESH_SHAPE)
+                          (job, cfg_b, str(path), T, str(qat_path)),
+                          device=device, shape=TRAIN_MESH_SHAPE)
         secs_r = time.perf_counter() - t1
         os.remove(path)
+        os.remove(qat_path)
     a0 = ranks[0][0]
     for line in a0["lines"]:
         print(f"[{tag}] {line}")
     steps = args.steps
-    for a, b, (moe_losses, moe_secs), counts in ranks:
-        print(f"[{tag}] rank {a['rank']} kernel launches over (a)-(c) "
+    for a, b, (moe_losses, moe_secs), d, counts in ranks:
+        print(f"[{tag}] rank {a['rank']} kernel launches over (a)-(d) "
               f"{counts}")
         require(not any(counts.values()), f"{tag}: rank {a['rank']} "
                 f"launched {counts}, not 0 of each")
@@ -6233,6 +6732,26 @@ def train_mesh_phase(add, device=None, reduced=False, draws=None):
               f"microbatches: losses "
               f"{', '.join(f'{v:.4f}' for v in moe_losses)} (falling); "
               f"{moe_secs:.1f} s")
+        for k, v in (("loss", qat_u[0]), ("grad_norm", qat_u[1])):
+            require(abs(d[k] - v) <= 1e-6 * abs(v),
+                    f"{tag}-qat: rank {r}: {k} {d[k]} against the "
+                    f"unsharded {v}")
+        require(d["grad_rel"] <= 1e-5 and d["ext_rel"] <= 1e-3
+                and d["grids_apart"] == 0 and d["n_grids"] == qat_u[2],
+                f"{tag}-qat: rank {r}: a gradient leaf {d['grad_rel']:.3g} "
+                f"of its max apart ({d['ext_rel']:.3g} on the elements "
+                f"holding a weight's extreme), {d['grids_apart']} of "
+                f"{d['n_grids']} weight grids apart")
+        print(f"[{tag}-qat] rank {r}: loss {d['loss']:.6f} (unsharded "
+              f"{qat_u[0]:.6f}), grad norm {d['grad_norm']:.6f} (unsharded "
+              f"{qat_u[1]:.6f}); gradient leaves within "
+              f"{d['grad_rel']:.3g} of their max off the elements holding "
+              f"a weight's extreme; on those (the grid's gradient, a sum "
+              f"over the weight in the ranks' order) {d['ext_rel']:.3g}, "
+              f"{d['ext_past']} of the rank's {d['n_ext']} past 1e-5 "
+              f"(bound 1e-3); {d['n_grids']} weight grids fitted on the "
+              f"whole weights, {d['grids_apart']} apart from the unsharded "
+              f"step's; {d['seconds']:.1f} s")
     print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s (the ranks "
           f"{secs_r:.1f} s; 4 ranks on one card: no multi-GPU speed is "
           f"shown)")
@@ -6240,7 +6759,7 @@ def train_mesh_phase(add, device=None, reduced=False, draws=None):
     return ranks
 
 
-ZOO_DEPTH = {"internlm2-20b": 2, "granite-20b": 2, "qwen3-moe-235b": 4,
+ZOO_DEPTH = {"internlm2-20b": 2, "granite-20b": 2, "qwen3-moe-235b": 2,
              "grok1-314b": 2}
 ZOO_MUST = ("rms_quantize", "int8_matmul", "peg_quantize",
             "int8_attend_decode", "paged_int8_attend_decode",
@@ -6498,10 +7017,10 @@ REC_LONG = ["--requests", "2", "--prompt-len", "2040", "--new-tokens", "16",
 REC_REDUCED = {"recurrentgemma-2b": (8, 15), "rwkv6-1p6b": (8, 18)}
 # the recurrent families' full-width serving phases (31-33) serve them cut
 # to these depths, every width their own (to pay for the tensor-parallel
-# phases 45-48 and the mesh training phase 50): recurrentgemma-2b 1 of its
-# 8 (rec, rec, local_attn) superblocks and its 2-layer rec tail, rwkv6-1p6b
-# 4 of 24
-REC_DEPTH = {"recurrentgemma-2b": 5, "rwkv6-1p6b": 4}
+# phases 45-48, the mesh training phase 50 and phase 51): recurrentgemma-2b
+# 1 of its 8 (rec, rec, local_attn) superblocks and its 2-layer rec tail,
+# rwkv6-1p6b 2 of 24 (cut from 4 to pay for phase 51)
+REC_DEPTH = {"recurrentgemma-2b": 5, "rwkv6-1p6b": 2}
 
 
 @contextlib.contextmanager
@@ -7620,9 +8139,26 @@ def _bf16_half_ulp(t):
     return torch.exp2(torch.floor(torch.log2(a)) - 8)
 
 
+# phases 41-42 train each arch cut to this depth at its published width
+# (to pay for phase 51): recurrentgemma-2b one (rec, rec,
+# local_attn) superblock and its 2-layer rec tail, as REC_DEPTH serves it;
+# rwkv6-1p6b 5 of 24 (None: every layer)
+TRAIN_REC_DEPTH = {"recurrentgemma-2b": 5, "rwkv6-1p6b": 5}
+
+
 def train_rec_phase(add, arch, src=None, device=None, argv=None):
+    """Phases 41 and 42 (:func:`_train_rec`), ``arch`` cut to
+    ``TRAIN_REC_DEPTH`` layers where it is set (``_train_config``)."""
+    if TRAIN_REC_DEPTH.get(arch) is None:
+        return _train_rec(add, arch, src, device, argv)
+    with _train_config(TRAIN_REC_DEPTH[arch]):
+        return _train_rec(add, arch, src, device, argv)
+
+
+def _train_rec(add, arch, src=None, device=None, argv=None):
     """Phases 41 and 42, ``[train-rec-recurrentgemma]`` and
-    ``[train-rec-rwkv6]``: ``arch`` at full width and depth through
+    ``[train-rec-rwkv6]``: ``arch`` at full width (and depth, or
+    ``TRAIN_REC_DEPTH``) through
     ``repro_torch.launch.train.main`` (``TRAIN_REC``: 3 steps of B 2 x T
     1024, per-step lines), then one profiled step of the launcher's step
     function. Losses finite, ``out["step"] == 3``, and every parameter
@@ -7633,7 +8169,6 @@ def train_rec_phase(add, arch, src=None, device=None, argv=None):
     source to reuse (``train_source`` otherwise). Returns the source."""
     import gc
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import linear_warmup_linear_decay, tree_leaves
@@ -7658,7 +8193,7 @@ def train_rec_phase(add, arch, src=None, device=None, argv=None):
     require(out["step"] == args.steps, f"{tag}: finished at {out['step']}")
     leaves = tree_leaves(out["params"])
     n_params = sum(t.numel() for t in leaves)
-    cfg = get_config(args.arch)
+    cfg = train.get_config(args.arch)
     cfg = cfg.reduced() if args.reduced else cfg
     print(f"[{tag}] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, vocab "
           f"{cfg.vocab_size}, {n_params} params "
@@ -8056,11 +8591,12 @@ def gemma_serving_phases(add, mark):
                       "int4 vs int8 KV cache drift"],
             f"reduced-quickstart-4bit: parity lines {rates}")
     mark("phases 3-10")
-    fp_rel, fp_kv, rp = prefix_phase(add)
+    flags = {}
+    fp_rel, fp_kv, rp = prefix_phase(add, flags)
     mark("prefix phases 11-12")
-    ro = overcommit_phase(add)
+    ro = overcommit_phase(add, flags)
     mark("over-commit phases 13-14")
-    rt = telemetry_phase(add)
+    rt = telemetry_phase(add, flags)
     mark("telemetry phases 15-16")
     ra = async_phase(add)
     mark("async phases 17-18")
@@ -8072,7 +8608,7 @@ def gemma_serving_phases(add, mark):
             "full-quickstart-4bit": (f4_rel, f4_kv),
             "reduced-quickstart-4bit": (r4_rel, r4_kv, r4_served),
             "full-prefix": (fp_rel, fp_kv), "prefix": rp, "overcommit": ro,
-            "telemetry": rt, "async": ra}
+            "telemetry": rt, "async": ra, "tp2-flags": flags}
 
 
 def main() -> int:
@@ -8178,8 +8714,9 @@ def main() -> int:
         print(f"[{tag}] integer vs fake-quant logits: rel {rel:.4%} "
               f"(bound 1e-4)")
     mark("zoo phases 26-30")
-    tp2_launcher_phases(add, {kv: runs[0] for kv, runs in granite.items()})
-    mark("tensor-parallel phases 48-49")
+    tp2_launcher_phases(add, {kv: runs[0] for kv, runs in granite.items()},
+                        g["tp2-flags"])
+    mark("tensor-parallel phases 48, 49 and 51")
     for tag, rel in rec_phase(add).items():
         require(rel <= 1e-4, f"{tag}: integer path differs from "
                 f"fake-quant by {rel:.4%} of max|logits| past its rounding "

@@ -24,13 +24,20 @@ on every call — same values, no per-step MSE search. A tensor-parallel
 rank holds slices of its weights, whose grids must be the whole weights':
 its memo is filled before the weights are placed
 (``parallel.sharding.seed_weight_memo``), and ``memo_only`` makes a miss
-raise instead of fitting a grid to a slice.
+raise instead of fitting a grid to a slice. A rank that trains on its
+slices refits every weight's grid each step (``weight_split``): on the
+whole weight, through collectives over the ranks that cut it
+(``range_estimation.estimate_weight_params(split=)``).
 
-Quant-health telemetry: with ``telemetry`` a dict, every APPLY / DEPLOY
-site records its ``[n_clipped, n_total, amax, cal_range]`` vector there
-before it quantizes (``telem_site``); the step builders of
-``runtime.steps`` return the dict as an extra output. None (the default)
-leaves the forward as it is.
+Quant-health telemetry: with ``telemetry`` a dict (a
+:class:`SiteTelemetry`), every APPLY / DEPLOY site records its
+``[n_clipped, n_total, amax, cal_range]`` vector there before it
+quantizes (``telem_site``); the step builders of ``runtime.steps`` return
+the dict as an extra output. None (the default) leaves the forward as it
+is. Under a rank mesh the forward marks (``mark_cut``) the sites whose
+tensor is this rank's part of one cut over ``model`` (their counts add
+over the ranks); any other site's tensor is whole on every rank (counted
+once).
 """
 from __future__ import annotations
 
@@ -61,6 +68,17 @@ class Mode(enum.Enum):
 QuantState = Dict[str, QuantParams]
 
 
+class SiteTelemetry(dict):
+    """One armed step's ``{site: [clipped, total, amax, cal_range]}``
+    vectors, and ``parts``: the sites whose tensor this rank holds a part
+    of, cut over the ``model`` axis (``runtime.engine`` adds their counts
+    over the ranks and counts every other site once)."""
+
+    def __init__(self):
+        super().__init__()
+        self.parts = set()
+
+
 @dataclasses.dataclass
 class QuantCtx:
     policy: QuantizationPolicy
@@ -78,6 +96,9 @@ class QuantCtx:
     weight_cache: Optional[dict] = None          # APPLY / DEPLOY memo
     telemetry: Optional[Dict[str, torch.Tensor]] = None  # site -> (4,)
     memo_only: bool = False                      # sharded: no grid fits
+    # (dist, {site: dim}): the weight read at the site is this rank's
+    # slice of its dim over ``model``; its grid is the whole weight's
+    weight_split: Optional[tuple] = None
 
     @staticmethod
     def memo_key(site: str, w: torch.Tensor) -> tuple:
@@ -113,6 +134,15 @@ class QuantCtx:
                 self.telem_site(site, telemetry_stats(x, qp, cfg))
         return fake_quant(x, qp, cfg)
 
+    def mark_cut(self, *sites: str) -> None:
+        """The tensors that ``sites`` just recorded are this rank's parts of
+        tensors cut over ``model``: their counts add over the ranks
+        (``SiteTelemetry.parts``). A no-op without telemetry, and for a
+        site that recorded nothing."""
+        if self.telemetry is not None:
+            self.telemetry.parts.update(s for s in sites
+                                        if s in self.telemetry)
+
     def act(self, site: str, x: torch.Tensor) -> torch.Tensor:
         cfg = self.policy.act_config(site)
         if self.mode == Mode.OFF or not cfg.enabled:
@@ -143,6 +173,17 @@ class QuantCtx:
             return None
         return self.deploy_acts.get(site)
 
+    def fit_weight(self, site: str, w: torch.Tensor,
+                   cfg) -> QuantParams:
+        """The grid of the weight ``w`` read at ``site``, estimated from
+        its values: the whole weight's where ``weight_split`` cuts it."""
+        split = None
+        if self.weight_split is not None:
+            dist, dims = self.weight_split
+            if site in dims:
+                split = (dist, dims[site])
+        return estimate_weight_params(w, cfg, split)
+
     def weight(self, site: str, w: torch.Tensor) -> torch.Tensor:
         cfg = self.policy.weight_config(site)
         if self.mode in (Mode.OFF, Mode.COLLECT) or not cfg.enabled:
@@ -154,7 +195,7 @@ class QuantCtx:
         if qp is not None:
             return fake_quant(w, qp, cfg)
         if self.weight_cache is None:
-            return fake_quant(w, estimate_weight_params(w, cfg), cfg)
+            return fake_quant(w, self.fit_weight(site, w, cfg), cfg)
         key = self.memo_key(site, w)
         hit = self.weight_cache.get(key)
         if hit is None and self.memo_only:

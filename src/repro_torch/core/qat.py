@@ -18,7 +18,6 @@ import torch
 from repro_torch.core.quant_config import QuantizerConfig, RangeEstimator
 from repro_torch.core.quantizer import (QuantParams, clip, fake_quant,
                                         round_ste)
-from repro_torch.core.range_estimation import estimate_weight_params
 
 
 def init_qat_params(act_state: Dict[str, QuantParams],
@@ -74,6 +73,6 @@ def apply_weight(ctx, site: str, w: torch.Tensor, cfg: QuantizerConfig):
         # min-max fake-quant, so QAT still sees quantization noise there
         cheap = dataclasses.replace(
             cfg, estimator=RangeEstimator.CURRENT_MINMAX)
-        return fake_quant(w, estimate_weight_params(w, cheap), cheap)
+        return fake_quant(w, ctx.fit_weight(site, w, cheap), cheap)
     qp = _materialize(learnable, template, cfg, _lsq_grad_scale(w, cfg))
     return fake_quant(w, qp, cfg)

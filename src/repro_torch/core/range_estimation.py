@@ -134,9 +134,32 @@ def finalize(state: RangeState, cfg: QuantizerConfig,
     return params_from_range(x_min, x_max, cfg)
 
 
-def estimate_weight_params(w: torch.Tensor,
-                           cfg: QuantizerConfig) -> QuantParams:
-    """One-shot range estimation for a static weight tensor."""
+def estimate_weight_params(w: torch.Tensor, cfg: QuantizerConfig,
+                           split=None) -> QuantParams:
+    """One-shot range estimation for a static weight tensor.
+
+    ``split`` (dist, dim): ``w`` is this rank's slice of a weight whose dim
+    ``dim`` is cut over the ``model`` axis of ``dist``; the grid returned is
+    the whole weight's, for this rank's channels. Where the cut dim is the
+    channel axis of a per-channel grid each rank holds whole channels and
+    estimates them alone; otherwise min-max reduces its ranges over the
+    ranks, and the MSE search runs on the whole weight, gathered for the
+    estimate alone. The gradients through the grid reach every rank's
+    slice as the whole weight's would (``parallel.collectives``
+    ``min_over`` / ``max_over`` / ``gather_weight``)."""
+    if split is not None:
+        dist, dim = split
+        dim %= w.dim()
+        whole_channels = (cfg.granularity != Granularity.PER_TENSOR
+                          and cfg.channel_axis % w.dim() == dim)
+        if not whole_channels:
+            from repro_torch.parallel import collectives as coll
+            if cfg.estimator == RangeEstimator.MSE:
+                return estimate_weight_params(
+                    coll.gather_weight(w, dist, dim), cfg)
+            mn, mx = reduce_range(w, cfg)
+            return params_from_range(coll.min_over(mn, dist),
+                                     coll.max_over(mx, dist), cfg)
     mn, mx = reduce_range(w, cfg)
     if cfg.estimator == RangeEstimator.MSE:
         return mse_search(w, mn, mx, cfg)

@@ -103,10 +103,6 @@ _PORTED = {"arch", "reduced", "requests", "prompt_len", "new_tokens",
            "decode_ratio", "trace", "metrics_every", "quant_telemetry",
            "stats_json", "async_serve", "tp"}
 
-# flags (by dest) not yet served together with --tp
-_TP_REFUSED = ("prefix_cache", "over_commit", "swap_blocks", "trace",
-               "metrics_every", "quant_telemetry")
-
 
 def build_parser() -> argparse.ArgumentParser:
     """The serve CLI: a copy of the reference's flag set, so the two
@@ -354,12 +350,6 @@ def _check_args(ap: argparse.ArgumentParser, args) -> None:
     if args.multi_pod:
         ap.error("--multi-pod is not yet ported under --tp / dist (it "
                  "builds the production mesh of 512 chips)")
-    if args.tp > 1:
-        for action in ap._actions:
-            if action.dest in _TP_REFUSED and \
-                    getattr(args, action.dest) != ap.get_default(action.dest):
-                ap.error(f"{action.option_strings[0]} is not yet ported "
-                         "under --tp / dist")
     _reject_unported(ap, args)
 
 
@@ -428,13 +418,16 @@ def _quantize(cfg, args, params, dtype, dev):
     return params, ctx_factory
 
 
-def _report_telemetry(args, telemetry: ServeTelemetry) -> None:
+def _report_telemetry(args, telemetry: ServeTelemetry,
+                      write: bool = True) -> None:
     """The reference launcher's telemetry lines: the trace's event and
     retired-request counts and per-phase step latencies (host time), the
     metrics snapshots and Prometheus text, and the quant-health report
-    (the ten sites that clip most, the KV cache's scales)."""
+    (the ten sites that clip most, the KV cache's scales). The trace and
+    metrics files are written only with ``write`` (rank 0 of ``--tp``)."""
     if telemetry.tracer is not None:
-        telemetry.tracer.dump(args.trace)
+        if write:
+            telemetry.tracer.dump(args.trace)
         spans = telemetry.tracer.request_spans()
         retired = sum(1 for s in spans.values() if s["retired"])
         print(f"[trace] {len(telemetry.tracer.events)} events, "
@@ -445,8 +438,9 @@ def _report_telemetry(args, telemetry: ServeTelemetry) -> None:
     if telemetry.metrics is not None:
         if args.trace:
             mpath = args.trace + ".metrics.jsonl"
-            with open(mpath, "w") as f:
-                f.write(telemetry.metrics.jsonl())
+            if write:
+                with open(mpath, "w") as f:
+                    f.write(telemetry.metrics.jsonl())
             print(f"[metrics] {len(telemetry.metrics.snapshots)} "
                   f"snapshots -> {mpath}")
         print(telemetry.metrics.prometheus_text(), end="")
@@ -600,6 +594,7 @@ def _serve_rank(dist, dev, argv, dtype):
         cfg = cfg.reduced()
     kops.reset_launch_counts()
     coll.seconds = 0.0
+    coll.calls.clear()
     info = {"rank": rank, "device": str(dev), "backend": dist.mesh.backend}
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -608,6 +603,7 @@ def _serve_rank(dist, dev, argv, dtype):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     info.update(seconds=time.perf_counter() - t0, collective_s=coll.seconds,
+                collective_calls=dict(coll.calls),
                 launches=kops.launch_counts())
     return out.getvalue(), (ret if rank == 0 else None), info
 
@@ -633,9 +629,10 @@ def main(argv=None, *, device=None, dtype=None, report=None):
     (bf16 at full width, f32 with ``--reduced``). Returns the run's
     ``ServeStats``, or with ``--async`` the served requests. ``report``, a
     list, receives one dict per process that served (the primary run's
-    greedy tokens by request; under ``--tp`` also each rank's device,
-    kernel launches, host seconds inside the collectives and resident
-    parameter bytes against the whole).
+    greedy tokens by request, its ``ServeStats`` and ``ServeTelemetry``,
+    None without the telemetry flags; under ``--tp`` also each rank's
+    device, kernel launches, host seconds and calls by kind of the
+    collectives and resident parameter bytes against the whole).
 
     ``--tp N`` serves on N ranks (:func:`serve_tp`): this process spawns
     them and returns rank 0's result."""
@@ -707,8 +704,10 @@ def _plan(ap: argparse.ArgumentParser, args, cfg):
 def _serve_main(ap, args, cfg, dev, dtype, dist=None, info=None):
     """The serve body (one process, or one rank of ``--tp`` with ``dist``:
     the startup checks run on the whole params, which are then placed on
-    this rank's slice and served tensor-parallel). ``info``, a dict,
-    receives the rank's resident parameter bytes and the whole's."""
+    this rank's slice and served tensor-parallel; every rank runs its
+    tracer, metrics and quant-health report, and only rank 0 writes the
+    trace, metrics and ``--stats-json`` files). ``info``, a dict, receives
+    the rank's resident parameter bytes and the whole's."""
     if dev.type == "cuda":
         # f32 matmuls in full f32, as the reference computes them
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -765,12 +764,10 @@ def _serve_main(ap, args, cfg, dev, dtype, dist=None, info=None):
     # steps stay as they are for the untraced runs (the --parity reruns)
     admit_t = decode_t = chunk_t = None
     if args.quant_telemetry:
-        admit_t = make_admit_step(cfg, ctx_factory=ctx_factory,
-                                  quant_telemetry=True)
-        decode_t = make_decode_step(cfg, ctx_factory=ctx_factory,
-                                    quant_telemetry=True)
-        chunk_t = make_chunk_prefill_step(cfg, ctx_factory=ctx_factory,
-                                          quant_telemetry=True)
+        admit_t = make_admit_step(cfg, **kw, quant_telemetry=True)
+        decode_t = make_decode_step(cfg, **kw, quant_telemetry=True)
+        chunk_t = make_chunk_prefill_step(cfg, **kw, quant_telemetry=True)
+    writes = dist is None or dist.mesh.rank == 0
 
     def make_requests():
         # the reference launcher's draws: with --prefix-cache every prompt
@@ -843,7 +840,7 @@ def _serve_main(ap, args, cfg, dev, dtype, dist=None, info=None):
                      swap_in_fn=swap_in if oc else None,
                      decode_ratio=(args.decode_ratio
                                    if (chunk or prefix or oc) else 1),
-                     telemetry=tel, device=dev)
+                     telemetry=tel, device=dev, dist=dist)
 
     requests = make_requests()
     if args.async_serve:
@@ -855,6 +852,7 @@ def _serve_main(ap, args, cfg, dev, dtype, dist=None, info=None):
     if info is not None:
         info["tokens"] = [list(r.tokens_out) for r in requests]
         info["cache_bytes"] = stats.cache_bytes
+        info.update(stats=stats, telemetry=telemetry)
     if args.paged_kv and args.scheduler == "continuous":
         paged_note = (f", blocks {stats.blocks_in_use}/{num_blocks} "
                       f"(frag {stats.block_fragmentation:.0%}, "
@@ -893,10 +891,11 @@ def _serve_main(ap, args, cfg, dev, dtype, dist=None, info=None):
                   f"steps, inter-token p50/p99 {t.inter_token_p50:.1f}/"
                   f"{t.inter_token_p99:.1f} steps")
     if telemetry is not None:
-        _report_telemetry(args, telemetry)
+        _report_telemetry(args, telemetry, writes)
     if args.stats_json:
-        with open(args.stats_json, "w") as f:
-            json.dump(stats.to_json(), f, indent=2, default=str)
+        if writes:
+            with open(args.stats_json, "w") as f:
+                json.dump(stats.to_json(), f, indent=2, default=str)
         print(f"[stats] ServeStats -> {args.stats_json}")
 
     if args.parity:

@@ -305,8 +305,10 @@ def _mask(q_pos, k_pos, cfg: AttnConfig):
 
 
 def _dense_attend(q, k, v, q_pos, k_pos, cfg: AttnConfig, ctx=None,
-                  prefix=""):
-    """q: (B,T,H,hd), k/v: (B,S,KV,hd). Returns (B,T,H,hd)."""
+                  prefix="", part=False):
+    """q: (B,T,H,hd), k/v: (B,S,KV,hd). Returns (B,T,H,hd). ``part``: the
+    heads are this rank's part of the layer's (the softmax sites' tensors
+    are cut over ``model``)."""
     B, T, H, hd = q.shape
     KV, G = cfg.num_kv_heads, cfg.q_groups
     qg = q.reshape(B, T, KV, G, hd)
@@ -320,6 +322,8 @@ def _dense_attend(q, k, v, q_pos, k_pos, cfg: AttnConfig, ctx=None,
     probs = torch.softmax(logits, dim=-1)
     if ctx is not None:
         probs = ctx.act(f"{prefix}/softmax_out", probs)
+        if part:
+            ctx.mark_cut(f"{prefix}/softmax_in", f"{prefix}/softmax_out")
     out = torch.einsum("bkgts,bskd->btkgd", probs.float(), v.float())
     return out.reshape(B, T, H, hd).to(q.dtype)
 
@@ -390,11 +394,12 @@ def _banded_attend(q, k, v, q_pos, k_pos, cfg: AttnConfig,
 
 def attend(q, k, v, q_pos, k_pos, cfg: AttnConfig, *, ctx=None, prefix="",
            chunked: Optional[bool] = None, kv_chunk: int = 1024,
-           banded: bool = False):
+           banded: bool = False, part: bool = False):
     """Dense (supports the quantization sites), chunked (long contexts) or
     banded (``banded`` or ``chunked="banded"``: only the sliding-window
     band, when ``cfg.window`` is set, T == S and T > window; otherwise
-    "banded" falls back to the automatic choice)."""
+    "banded" falls back to the automatic choice). ``part``: see
+    :func:`_dense_attend`."""
     T, S = q.shape[1], k.shape[1]
     if (banded or chunked == "banded") and cfg.window is not None \
             and T == S and T > cfg.window:
@@ -403,7 +408,7 @@ def attend(q, k, v, q_pos, k_pos, cfg: AttnConfig, *, ctx=None, prefix="",
         chunked = T * S > 4096 * 4096
     if chunked:
         return _chunked_attend(q, k, v, q_pos, k_pos, cfg, kv_chunk)
-    return _dense_attend(q, k, v, q_pos, k_pos, cfg, ctx, prefix)
+    return _dense_attend(q, k, v, q_pos, k_pos, cfg, ctx, prefix, part)
 
 
 def _write_slots(pw, S, window):
@@ -815,6 +820,9 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
     # the cache-free forward (training) runs on the rank's heads whatever
     # the cache layout: no activation crosses ranks before wo's row sum
     seq = n_tp > 1 and dist.kv_seq_shard and cache is not None
+    # the rank attends on its part of the heads (the sites of q, k, v, the
+    # softmax and a float wo's input see cut tensors)
+    part = n_tp > 1 and not seq
     H_all, KV_all = cfg.num_heads, cfg.num_kv_heads
     if n_tp > 1 and not seq:
         cfg = dataclasses.replace(cfg, num_heads=H_all // n_tp,
@@ -858,6 +866,8 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
         q = ctx.act(f"{prefix}/q", q)
         k = ctx.act(f"{prefix}/k", k)
         v = ctx.act(f"{prefix}/v", v)
+        if part:
+            ctx.mark_cut(f"{prefix}/q", f"{prefix}/k", f"{prefix}/v")
 
     positions = positions.expand(B, T)
     new_cache = None
@@ -952,7 +962,8 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
 
     if out is None:
         out = attend(q, k_att.to(q.dtype), v_att.to(q.dtype), positions,
-                     kpos_att, cfg, ctx=ctx, prefix=prefix, chunked=chunked)
+                     kpos_att, cfg, ctx=ctx, prefix=prefix, chunked=chunked,
+                     part=part)
     # the attention output of every head (sequence layout) or of this
     # rank's heads, which the other ranks' complete
     gather = (lambda t: t) if seq else (lambda t: coll.gather_from(t, dist))
@@ -971,6 +982,8 @@ def attention_block(p, x, positions, cfg: AttnConfig, *, ctx=None,
         out2d = out.reshape(B, T, H * hd)
         if ctx is not None:
             out2d = ctx.act_in(f"{prefix}/wo_in", out2d)
+            if part:
+                ctx.mark_cut(f"{prefix}/wo_in")
         wo = w("wo", out2d)
         rows = wo.shape[0]
         if seq and rows != out2d.shape[-1]:     # a row shard: its heads

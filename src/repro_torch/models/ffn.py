@@ -15,7 +15,8 @@ Tensor-parallel (``dist``): float weights are placed column-parallel
 slice) and row-parallel (``w_out``), so the hidden activation stays local
 and the output is summed over ``model`` in f32, ``b_out`` added once after
 the sum; in training the input's gradient is summed over ``model``
-(``collectives.copy_to``). Packed payloads are whole on every rank: the
+(``collectives.copy_to``); the ``hidden`` site then sees the rank's
+slice (``ctx.mark_cut``). Packed payloads are whole on every rank: the
 integer FFN runs unsharded on each.
 """
 from __future__ import annotations
@@ -94,6 +95,8 @@ def mlp(p, x, *, activation: str = "gelu", ctx=None, prefix: str = "ffn",
     h = ACTIVATIONS[activation](h)
     if ctx is not None:
         h = ctx.act(f"{prefix}/hidden", h)
+        if coll.tp_size(dist) > 1:
+            ctx.mark_cut(f"{prefix}/hidden")
     out = dot_row_parallel(h, _weight(p, "w_out", ctx, prefix, h, dist),
                            dist)
     if "b_out" in p:
@@ -113,6 +116,8 @@ def glu_mlp(p, x, *, activation: str = "silu", ctx=None,
         dot(x, _weight(p, "w_up", ctx, prefix, x, dist))
     if ctx is not None:
         g = ctx.act(f"{prefix}/hidden", g)
+        if coll.tp_size(dist) > 1:
+            ctx.mark_cut(f"{prefix}/hidden")
     return dot_row_parallel(g, _weight(p, "w_out", ctx, prefix, g, dist),
                             dist)
 

@@ -886,6 +886,8 @@ def _head(cfg: ModelConfig, params, x, ctx, dist=None,
     logits = softcap(h @ w.to(h.dtype), cfg.final_logit_softcap)
     if ctx is not None:
         logits = ctx.act("head/logits", logits)
+        if coll.tp_size(dist) > 1:
+            ctx.mark_cut("head/logits")
     return coll.gather_from(logits, dist, dim=-1) if gather else logits
 
 

@@ -21,7 +21,11 @@ pairs; a replicated tensor's gradient is whole on every rank):
 * :func:`gather_from`: an activation gathered whole, the rank's slice of
   the gradient backward;
 * :func:`fsdp_gather`: a weight gathered over the FSDP axis, whose ranks
-  hold other tokens: a reduce-scatter sum backward.
+  hold other tokens: a reduce-scatter sum backward
+  (:func:`gather_weight` on any axis);
+* :func:`max_over` / :func:`min_over`: a range reduced over the ranks'
+  slices of a tensor, the gradients summed back to the ranks holding the
+  extreme.
 
 Without autograd (serving) they move the bytes of the plain collectives.
 
@@ -42,7 +46,13 @@ from typing import List
 import torch
 
 seconds = 0.0       # host time inside the collectives of this process
+calls: collections.Counter = collections.Counter()    # kind -> calls
 nbytes: collections.Counter = collections.Counter()   # kind -> bytes
+
+
+def _count(kind: str, n: int) -> None:
+    calls[kind] += 1
+    nbytes[kind] += n
 
 
 def _axis(dist, axis):
@@ -107,7 +117,7 @@ def all_reduce_sum(x: torch.Tensor, dist, axis=None) -> torch.Tensor:
     import torch.distributed as tdist
     y = x.to(torch.float32, copy=True).contiguous()
     tdist.all_reduce(y, op=tdist.ReduceOp.SUM, group=_group(dist, axis))
-    nbytes["all_reduce"] += y.numel() * 4
+    _count("all_reduce", y.numel() * 4)
     return y.to(x.dtype)
 
 
@@ -120,7 +130,7 @@ def all_reduce_max(x: torch.Tensor, dist, axis=None) -> torch.Tensor:
     import torch.distributed as tdist
     y = x.detach().clone(memory_format=torch.contiguous_format)
     tdist.all_reduce(y, op=tdist.ReduceOp.MAX, group=_group(dist, axis))
-    nbytes["all_reduce"] += y.numel() * y.element_size()
+    _count("all_reduce", y.numel() * y.element_size())
     return y
 
 
@@ -137,7 +147,7 @@ def all_gather(x: torch.Tensor, dist, dim: int = -1,
     flat = xc.reshape(-1).view(torch.uint8)
     parts = [torch.empty_like(flat) for _ in range(n)]
     tdist.all_gather(parts, flat, group=_group(dist, axis))
-    nbytes["all_gather"] += n * flat.numel()
+    _count("all_gather", n * flat.numel())
     return torch.cat([p.view(x.dtype).reshape(xc.shape) for p in parts],
                      dim=dim)
 
@@ -158,7 +168,7 @@ def reduce_scatter_sum(x: torch.Tensor, dist, dim: int,
                       device=y.device)
     tdist.reduce_scatter_tensor(out, y, op=tdist.ReduceOp.SUM,
                                 group=_group(dist, axis))
-    nbytes["reduce_scatter"] += y.numel() * 4
+    _count("reduce_scatter", y.numel() * 4)
     return out.movedim(0, dim).to(x.dtype)
 
 
@@ -185,7 +195,7 @@ def mesh_sum(x: torch.Tensor, dist) -> torch.Tensor:
     import torch.distributed as tdist
     y = x.to(torch.float32, copy=True).contiguous()
     tdist.all_reduce(y, op=tdist.ReduceOp.SUM, group=dist.mesh.mesh_group)
-    nbytes["all_reduce"] += y.numel() * 4
+    _count("all_reduce", y.numel() * 4)
     return y
 
 
@@ -248,16 +258,34 @@ class _GatherFrom(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.start, ctx.width), None, None, None
 
 
-class _FsdpGather(torch.autograd.Function):
+class _GatherWeight(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w, dist, dim):
-        ctx.dist, ctx.dim = dist, dim
-        return all_gather(w, dist, dim, dist.fsdp_axis)
+    def forward(ctx, w, dist, dim, axis):
+        ctx.dist, ctx.dim, ctx.axis = dist, dim, axis
+        return all_gather(w, dist, dim, axis)
 
     @staticmethod
     def backward(ctx, g):
-        return (reduce_scatter_sum(g, ctx.dist, ctx.dim, ctx.dist.fsdp_axis),
+        return (reduce_scatter_sum(g, ctx.dist, ctx.dim, ctx.axis), None,
                 None, None)
+
+
+class _MaxOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dist, axis):
+        y = all_reduce_max(x, dist, axis)
+        ctx.save_for_backward(x == y)
+        ctx.dist, ctx.axis = dist, axis
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        held, = ctx.saved_tensors
+        # the ranks' parts of the gradient and how many ranks hold the max
+        both = all_reduce_sum(torch.stack([g.float(), held.float()]),
+                              ctx.dist, ctx.axis)
+        share = both[0] / both[1].clamp_min(1.0)
+        return torch.where(held, share, 0.0).to(g.dtype), None, None
 
 
 def sum_over(x: torch.Tensor, dist, axis=None) -> torch.Tensor:
@@ -286,10 +314,35 @@ def gather_from(x: torch.Tensor, dist, dim: int = -1,
     return _GatherFrom.apply(x, dist, dim, axis)
 
 
+def gather_weight(w: torch.Tensor, dist, dim: int,
+                  axis=None) -> torch.Tensor:
+    """The whole ``dim`` of a weight cut over ``axis`` (default ``model``),
+    for a computation that each rank of the axis makes on it: each rank's
+    gradient of the whole is its part, so the parts are summed over the
+    axis (in f32) and cut back to this rank's block (a reduce-scatter)."""
+    if size(dist, axis) == 1:
+        return w
+    return _GatherWeight.apply(w, dist, dim, _axis(dist, axis))
+
+
 def fsdp_gather(w: torch.Tensor, dist, dim: int) -> torch.Tensor:
     """The whole ``dim`` of a weight placed on the FSDP axis; its gradient
     is reduce-scattered (summed over the ranks' tokens, in f32) back to
     this rank's block."""
-    if size(dist, dist.fsdp_axis) == 1:
-        return w
-    return _FsdpGather.apply(w, dist, dim)
+    return gather_weight(w, dist, dim, dist.fsdp_axis)
+
+
+def max_over(x: torch.Tensor, dist, axis=None) -> torch.Tensor:
+    """The element-wise max of ``x`` over ``axis`` (default ``model``),
+    where each rank's ``x`` reduces its slice of a tensor and each uses the
+    max on its slice: the ranks' gradients are summed and go to the ranks
+    whose ``x`` is the max (split evenly on a tie, as a max over the whole
+    tensor splits it)."""
+    if size(dist, axis) == 1:
+        return x
+    return _MaxOver.apply(x, dist, _axis(dist, axis))
+
+
+def min_over(x: torch.Tensor, dist, axis=None) -> torch.Tensor:
+    """The element-wise min counterpart of :func:`max_over`."""
+    return -max_over(-x, dist, axis)

@@ -557,6 +557,25 @@ def _kv_head_spec_of(dist: DistContext):
     return spec
 
 
+def gather_cache_field(x, field: str, stacked: bool,
+                       dist: Optional[DistContext]):
+    """The whole of a KV cache field (``".k_s"``, ``".pos"``, ...; a
+    stacked leaf with ``stacked``) that :func:`place_cache` cut: its
+    sequence dim (the default layout) or its KV-head dim gathered over
+    ``model`` in rank order; a field the layout keeps whole, or no
+    ``dist``, returns ``x``."""
+    if dist is None:
+        return x
+    from repro_torch.parallel import collectives as coll
+    if dist.kv_seq_shard:
+        dim = 2 if stacked else 1
+    elif field in _KV_HEAD_DIM:
+        dim = x.dim() + _KV_HEAD_DIM[field]
+    else:
+        return x
+    return coll.all_gather(x, dist, dim)
+
+
 def make_kv_head_specs(cache, dist: DistContext):
     """The KV-head placement the port's serving executes with
     ``kv_seq_shard=False``: every KV cache field on its KV-head dim over
@@ -601,6 +620,33 @@ def seed_weight_memo(cfg, whole, placed, ctx, dist: DistContext) -> dict:
         memo[QuantCtx.memo_key(site, w_l)] = (
             w_l, fq.clone(memory_format=torch.contiguous_format))
     return memo
+
+
+def weight_cut_dims(cfg, dist: DistContext) -> dict:
+    """{site: dim} for every float weight the forward reads
+    (``transformer.weight_reads``) that the ``model`` axis cuts: the dim of
+    the weight as read at the site (a stacked leaf's layer slice, the tied
+    head's ``embed.T``) that :func:`param_spec_for` puts on ``model``.
+    Training reads every weight gathered over the FSDP axis, so a weight
+    at a site listed here is this rank's ``model`` slice of it."""
+    from repro_torch.models.transformer import weight_reads
+    logical = logical_params(cfg)
+    spec_of, tp = _param_spec_of(dist), dist.tp_axis
+
+    def model_cut(path, w):
+        shape = list(w.shape)
+        for d, entry in enumerate(spec_of(path, w)):
+            if tp in _axes_of(entry):
+                shape[d] //= _axis_size(dist.mesh, entry)
+        return w.new_empty(shape)
+    cut = _map_with_path(model_cut, logical)
+    dims = {}
+    for (site, w), (_, w_l) in zip(weight_reads(cfg, logical),
+                                   weight_reads(cfg, cut)):
+        for d in range(w.dim()):
+            if w.shape[d] != w_l.shape[d]:
+                dims[site] = d
+    return dims
 
 
 def shard_ctx_factory(cfg, whole, placed, ctx_factory, dist: DistContext):

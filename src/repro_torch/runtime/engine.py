@@ -28,7 +28,10 @@ Mesh placement (``make_engine(dist=)``): each rank of a tensor-parallel
 job runs the same host loop on the same requests and holds its slice of
 the params and of every cache (``parallel.sharding``); host inputs reach
 every rank as the same arrays, and the logits are whole on every rank, so
-the greedy tokens, and every decision taken on them, agree.
+the greedy tokens, and every decision taken on them, agree. An armed
+step's site vectors are folded over the ranks before the sink sees them,
+and a swap moves the rank's share of a lane's blocks (its cells of every
+block, or its KV heads) to host memory and back.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.transformer import _map
+from repro_torch.parallel import collectives as coll
 from repro_torch.runtime.steps import (make_admit_step,
                                        make_chunk_prefill_step,
                                        make_decode_step)
@@ -181,13 +185,18 @@ class Engine:
         (an armed step's {site: (4,) or (n_super, 4)} vectors) is gathered
         into one (n, 4) tensor whose copy to pinned host memory is queued
         before the tokens' blocking read-back, which therefore waits for it
-        too: the sink gets host arrays and the step syncs once."""
+        too: the sink gets host arrays and the step syncs once. Under a
+        mesh the rows are first folded over the ranks in one collective
+        (:func:`_ranks_folded`), so the sink sees the unsharded step's
+        vectors on every rank."""
         if len(out) == 2:
             return greedy(out[0]), out[1]
         logits, cache, tel = out
         if self.telemetry_sink is None or not tel:
             return greedy(logits), cache
         flat = torch.cat([v.reshape(-1, 4) for v in tel.values()])
+        if coll.tp_size(self.dist) > 1:
+            flat = _ranks_folded(flat, tel, self.dist)
         host = flat
         if flat.device.type == "cuda":
             host = torch.empty(flat.shape, dtype=flat.dtype,
@@ -244,7 +253,8 @@ class Engine:
 
     def swap_out(self, cache, ids):
         """Gather physical blocks ``ids`` (a host array) of every paged arena
-        into host memory (the swap-out half of a preemption). On the card
+        into host memory (the swap-out half of a preemption; under a mesh
+        the rank's share of each block, the ids being global). On the card
         the gather is enqueued on the current stream before any later write
         into those blocks, each tensor is copied into pinned host memory
         without blocking, and one stream synchronisation makes the payload
@@ -384,6 +394,22 @@ class Engine:
         return DecodeState(tokens, pos, state.cache)
 
 
+def _ranks_folded(flat, tel, dist):
+    """An armed step's (n, 4) site rows ``[clipped, total, amax, range]``
+    of every rank of the ``model`` axis folded into the mesh's, in one
+    all-gather: a site whose tensor each rank holds a part of
+    (``tel.parts``, ``core.calibration.SiteTelemetry``) adds its counts
+    over the ranks, any other site's tensor is whole on every rank and
+    counts once (rank 0's); amax and range take the max over the ranks."""
+    parts = torch.tensor([site in tel.parts for site, v in tel.items()
+                          for _ in range(v.numel() // 4)],
+                         device=flat.device)
+    every = coll.all_gather(flat[None], dist, dim=0)       # (N, n, 4)
+    counts = torch.where(parts[:, None], every[..., :2].sum(0),
+                         every[0, :, :2])
+    return torch.cat([counts, every[..., 2:].amax(0)], dim=1)
+
+
 def make_engine(cfg, params, *, batch_slots: int, prompt_pad_len: int,
                 max_len: int, dtype=torch.float32, kv_bits: int = 16,
                 paged: bool = False, block_size: int = 16,
@@ -415,9 +441,6 @@ def make_engine(cfg, params, *, batch_slots: int, prompt_pad_len: int,
                                                    place_cache,
                                                    shard_ctx_factory)
         tfm.check_tp(cfg, dist)
-        if quant_telemetry:
-            raise NotImplementedError("quant telemetry is not yet ported "
-                                      "under --tp / dist")
         placed = make_param_shardings(params, dist)
         ctx_factory = shard_ctx_factory(cfg, params, placed, ctx_factory,
                                         dist)

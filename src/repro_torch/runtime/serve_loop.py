@@ -425,6 +425,16 @@ class Scheduler:
     ``quant_telemetry=True`` (through the engine) and, at the end of a run,
     the KV cache's scales. Greedy tokens are the same with it or without.
 
+    **Under a mesh** (``dist``, one rank of a tensor-parallel job): every
+    rank runs this loop on the same requests over its slices of the
+    params and caches. The pool, the radix tree, the victims and the
+    decode:chunk pacing are host state that reads nothing but the greedy
+    tokens, which are whole on every rank, so every rank takes the same
+    decisions; block ids are global, and copy-on-write and swaps move the
+    rank's share of each block. The engine folds the armed steps' site
+    vectors over the ranks, and the KV scales are gathered whole at the
+    end.
+
     Step contracts as in :class:`~repro_torch.runtime.engine.Engine`.
     """
 
@@ -442,7 +452,8 @@ class Scheduler:
                  swap_out_fn: Optional[Callable] = None,
                  swap_in_fn: Optional[Callable] = None,
                  decode_ratio: int = 1,
-                 telemetry: Optional[ServeTelemetry] = None, device=None):
+                 telemetry: Optional[ServeTelemetry] = None, device=None,
+                 dist=None):
         if batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
         if block_pool is not None and block_pool.batch_slots != batch_slots:
@@ -556,7 +567,7 @@ class Scheduler:
                                  telemetry.quant.update
                                  if telemetry is not None
                                  and telemetry.quant is not None else None),
-                             device=device)
+                             device=device, dist=dist)
 
     def run(self, requests: List[Request]) -> ServeStats:
         _check_capacity(requests, self.max_len, self.pool, self._ring_tokens)
@@ -626,7 +637,7 @@ class Scheduler:
                     f"pool (queue head rid {queue[0].req.rid})")
             self._snapshot(queue, lanes, book)
         if self.tel is not None and self.tel.quant is not None:
-            self.tel.quant.update_kv_scales(state.cache)
+            self.tel.quant.update_kv_scales(state.cache, self.engine.dist)
         return book.finalize(t_start)
 
     # -- paged-pool plumbing (no-ops in dense mode) -------------------------
@@ -1274,7 +1285,7 @@ def serve(prefill_step: Callable, decode_step: Callable, init_cache_fn,
           swap_in_fn: Optional[Callable] = None,
           decode_ratio: int = 1,
           telemetry: Optional[ServeTelemetry] = None,
-          device=None) -> ServeStats:
+          device=None, dist=None) -> ServeStats:
     """Bind ``params`` into the step functions (``runtime.steps``
     signatures, params first) and serve with the chosen scheduler:
 
@@ -1291,7 +1302,10 @@ def serve(prefill_step: Callable, decode_step: Callable, init_cache_fn,
     ``runtime.steps.make_swap_steps``, no params), ``decode_ratio`` and
     ``telemetry`` are continuous only; the static scheduler serves paged
     caches through a fully mapped identity table. ``device``: where host
-    inputs go (None: the GPU)."""
+    inputs go (None: the GPU). ``dist``: this rank of a tensor-parallel
+    job, for the continuous scheduler's engine to fold the armed steps'
+    site vectors and the KV scales over the ranks (the steps themselves
+    carry ``dist``)."""
     if scheduler == "continuous":
         return serve_continuous(
             lambda t, pm, m, c: admit_step(params, t, pm, m, c),
@@ -1304,7 +1318,8 @@ def serve(prefill_step: Callable, decode_step: Callable, init_cache_fn,
             radix_cache=radix_cache, write_caps=write_caps,
             copy_block_fn=copy_block_fn, over_commit=over_commit,
             swap_out_fn=swap_out_fn, swap_in_fn=swap_in_fn,
-            decode_ratio=decode_ratio, telemetry=telemetry, device=device)
+            decode_ratio=decode_ratio, telemetry=telemetry, device=device,
+            dist=dist)
     if scheduler != "static":
         raise ValueError(f"unknown scheduler {scheduler!r}")
     if telemetry is not None:

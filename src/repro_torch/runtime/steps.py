@@ -27,6 +27,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.calibration import SiteTelemetry
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import (adam_update, apply_updates, qadam_update,
@@ -73,12 +74,26 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, microbatches: int = 1,
     scales reduce a sharded last dim. ``step.loss_and_grads(params,
     batch)`` gives (loss, grads) without updating (the step calls it
     through the attribute), ``step.grad_norm(grads, shardings)`` their
-    global norm."""
-    if dist is not None and ctx_factory is not None:
-        raise NotImplementedError("QAT (ctx_factory) is not yet ported "
-                                  "under --tp / dist")
+    global norm.
+
+    QAT under ``dist`` (``ctx_factory``): every weight's grid is fitted on
+    the whole weight each step, as the reference's GSPMD graph fits it on
+    the logical array (``QuantCtx.weight_split``: min-max ranges reduced
+    over the ranks that cut the weight, the MSE search on the weight
+    gathered for it) and applied to the rank's slice, whose
+    straight-through gradients stay local; activation sites keep their
+    calibrated grids."""
     if dist is not None:
         tfm.check_tp(cfg, dist, training=True)
+    if dist is not None and ctx_factory is not None:
+        from repro_torch.parallel.sharding import weight_cut_dims
+        split, make_ctx = (dist, weight_cut_dims(cfg, dist)), ctx_factory
+
+        def ctx_factory():
+            ctx = make_ctx()
+            if ctx is not None:
+                ctx.weight_split = split
+            return ctx
     if optimizer == "adam8bit":
         opt_update = qadam_update
     elif optimizer == "adam":
@@ -165,13 +180,13 @@ def make_train_step(cfg: ModelConfig, *, lr_schedule, microbatches: int = 1,
 
 def _telem_ctx(ctx_factory):
     """A fresh ctx with quant telemetry armed: every fake-quant and deploy
-    site it passes adds its vector to ``ctx.telemetry``. Returns (ctx, the
-    dict)."""
+    site it passes adds its vector to ``ctx.telemetry`` (a
+    ``SiteTelemetry``). Returns (ctx, the dict)."""
     ctx = ctx_factory() if ctx_factory is not None else None
     if ctx is not None:
-        ctx.telemetry = {}
+        ctx.telemetry = SiteTelemetry()
         return ctx, ctx.telemetry
-    return None, {}
+    return None, SiteTelemetry()
 
 
 def make_prefill_step(cfg: ModelConfig, *, dist=None,

@@ -290,7 +290,7 @@ class QuantHealth:
             cur[2] = max(cur[2], vec[2])
             cur[3] = max(cur[3], vec[3])
 
-    def update_kv_scales(self, cache: Any) -> None:
+    def update_kv_scales(self, cache: Any, dist: Any = None) -> None:
         """Distribution of the quantized KV cache's per-cell scales
         (``k_s`` / ``v_s`` of ``QuantKVCache`` / ``PagedQuantKVCache`` and
         their int4 subclasses), unwritten (zero) cells left out. The layer
@@ -298,15 +298,21 @@ class QuantHealth:
         ``tail``) and, as there, each one's stats replace the previous
         one's: the report holds the last quantized layer cache's. Each
         scale tensor moves to the host once; call this at the end of a
-        run."""
+        run. ``dist``: ``cache`` is a rank's, placed by
+        ``parallel.sharding.place_cache``, and every rank must call this:
+        each scale tensor is gathered whole over ``model`` first, so the
+        stats are the whole cache's on every rank."""
         if not isinstance(cache, dict):
             return
+        from repro_torch.parallel.sharding import gather_cache_field
         for key in ("layers", "scan", "tail"):
             for node in cache.get(key, []):
                 if not isinstance(node, (QuantKVCache, PagedQuantKVCache)):
                     continue
                 for tail in ("k_s", "v_s"):
-                    a = getattr(node, tail).detach().cpu().double()
+                    a = gather_cache_field(getattr(node, tail), "." + tail,
+                                           key == "scan", dist)
+                    a = a.detach().cpu().double()
                     a = a.numpy().ravel()
                     a = a[a != 0.0]
                     if a.size == 0:

@@ -421,7 +421,8 @@ def seq_models():
 
 
 SEQ_MODES = ["f32", "f32_onehot", "apply", "deploy", "deploy_kv8",
-             "deploy_paged_kv8", "f32_paged", "deploy_paged"]
+             "deploy_paged_kv8", "f32_paged", "deploy_paged", "armed_apply",
+             "armed_deploy_paged_kv8"]
 
 
 @pytest.mark.parametrize("mode", SEQ_MODES)

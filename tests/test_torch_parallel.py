@@ -22,12 +22,18 @@
 * The launcher: ``--tp 2`` (the default layout, caches on the sequence
   dim) on the README quickstart with ``--parity``, and ``--async
   --parity``: the unsharded runs' tokens and lines.
-* Every refusal, with its message.
+* Every refusal, with its message; the serving flags once refused
+  (``--prefix-cache``, ``--over-commit``, ``--swap-blocks``, ``--trace``,
+  ``--metrics-every``, ``--quant-telemetry``) served on 2 ranks.
 """
+import contextlib
 import dataclasses
 import functools
+import io
+import tempfile
 import threading
 import types
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -404,7 +410,7 @@ def models():
 
 
 MODES = ["f32", "f32_onehot", "apply", "deploy", "deploy_kv8",
-         "deploy_paged_kv8"]
+         "deploy_paged_kv8", "armed_apply", "armed_deploy_paged_kv8"]
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -560,10 +566,64 @@ REFUSED = [
 ]
 
 
+# the cases above that --tp serves now, each on a small workload
+SERVED = ("--prefix-cache", "--over-commit", "--trace", "--metrics-every",
+          "--quant-telemetry")
+SMALL = ["--reduced", "--requests", "4", "--prompt-len", "8",
+         "--new-tokens", "4", "--max-len", "32", "--block-size", "4",
+         "--batch-slots", "2"]
+
+
+def _served_argv(extra, where):
+    return [str(Path(where) / a) if a.endswith(".json") else a
+            for a in extra] + SMALL
+
+
+@pytest.fixture(scope="module")
+def served_flags():
+    """The ``REFUSED`` cases that ``--tp 2`` serves, through the
+    launcher's serve body on 2 CPU ranks in one spawn
+    (``torch_tp_ranks.serve_runs``), and unsharded in this process:
+    {case index: (rank 0's report and output, rank 1's report, the
+    unsharded report and output)}."""
+    cases = {i: extra for i, (extra, what) in enumerate(REFUSED)
+             if what in SERVED}
+    with tempfile.TemporaryDirectory() as tmp:
+        got = run_ranks(ranks.serve_runs, 2, ({i: _served_argv(e, tmp)
+                                              for i, e in cases.items()},),
+                        device=CPU, threads=1)
+        out = {}
+        for i, extra in cases.items():
+            report, buf = [], io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                serve.main(_served_argv(extra, tmp), device=CPU,
+                           report=report)
+            out[i] = (got[0][i][:2], got[1][i][1], (report[0],
+                                                    buf.getvalue()))
+    return out
+
+
 @pytest.mark.parametrize("extra,what", REFUSED,
                          ids=[w.split()[0].strip("-") + str(i)
                               for i, (_, w) in enumerate(REFUSED)])
-def test_launcher_refuses_before_building(extra, what, capsys):
+def test_launcher_refuses_before_building(extra, what, capsys, request):
+    """``--tp 2`` refuses, before it builds anything, what the sharded
+    forward cannot serve (recurrent blocks, the encoder-decoder, cells
+    the ranks do not divide). The serving flags it refused before this
+    port served them (``SERVED``) are accepted: both ranks serve the
+    unsharded run's greedy tokens and rank 0 prints the flag's lines."""
+    if what in SERVED:
+        i = next(j for j, case in enumerate(REFUSED) if case[0] is extra)
+        (text, r0), r1, (un, un_text) = \
+            request.getfixturevalue("served_flags")[i]
+        assert r0["tokens"] == r1["tokens"] == un["tokens"]
+        assert len(un["tokens"]) == 4
+        mark = {"--prefix-cache": "prefix-cache hits",
+                "--over-commit": "over-commit: ", "--trace": "[trace] ",
+                "--metrics-every": "serve_tokens_generated ",
+                "--quant-telemetry": "[quant-health] "}[what]
+        assert mark in text and mark in un_text
+        return
     with pytest.raises(SystemExit):
         serve.main(extra + ["--reduced", "--tp", "2"], device=CPU)
     err = capsys.readouterr().err
@@ -585,23 +645,36 @@ def test_launcher_tp_checks_of_the_reference(capsys):
         assert msg in capsys.readouterr().err
 
 
-def test_engine_refuses_what_the_sharded_forward_cannot_run():
+def test_engine_refuses_what_the_sharded_forward_cannot_run(models):
     """``make_engine(dist=)`` and the sharded forward refuse, before
-    placing anything, recurrent and encoder-decoder configs, quant
-    telemetry and a ``data`` axis over ranks in either cache layout, and
-    KV heads the ranks do not divide with the caches on their KV heads
+    placing anything, recurrent and encoder-decoder configs and a
+    ``data`` axis over ranks in either cache layout, and KV heads the
+    ranks do not divide with the caches on their KV heads
     (``kv_seq_shard=False``); the sequence layout (the default) serves
     granite-20b's one KV head, and both layouts the MoE configs (expert
-    parallelism)."""
+    parallelism). Quant telemetry is served: ``make_engine(dist=,
+    quant_telemetry=True)`` steps on both ranks (APPLY and deploy paged
+    kv8, the KV-head layout), and the report its sink folds equals the
+    unsharded engine's (counts exact)."""
     mesh = AbstractMesh((1, 2), ("data", "model"))
     seq = sh.make_dist(mesh)
     kvh = dataclasses.replace(seq, kv_seq_shard=False)
     cfg = get_config("gemma2-2b").reduced()
     params = _port_params("gemma2-2b", True)
     kw = dict(batch_slots=2, prompt_pad_len=8, max_len=32, device=CPU)
+    for r in models["ranks"]:
+        for tag in ("armed_apply", "armed_deploy_paged_kv8"):
+            got, want = r[tag + "_report"], r[tag + "_un_report"]
+            assert want["steps_observed"] > 0 and want["sites"]
+            assert got["steps_observed"] == want["steps_observed"]
+            for site, w in want["sites"].items():
+                g = got["sites"][site]
+                assert (g["clipped"], g["total"]) == (w["clipped"],
+                                                      w["total"]), site
+                assert g["observed_amax"] == pytest.approx(
+                    w["observed_amax"], rel=1e-6, abs=0)
+            assert got["kv_scales"] == want["kv_scales"]
     for dist in (seq, kvh):
-        with pytest.raises(NotImplementedError, match="quant telemetry"):
-            make_engine(cfg, params, dist=dist, quant_telemetry=True, **kw)
         for arch, what in (("rwkv6-1p6b", "recurrent"),
                            ("seamless-m4t-medium", "encoder-decoder")):
             with pytest.raises(NotImplementedError,

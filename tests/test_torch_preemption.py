@@ -872,10 +872,11 @@ def test_launcher_serves_the_over_commit_runs_with_parity(capsys, run):
 
 
 def test_launcher_accepts_the_over_commit_flags_and_checks_them():
-    """The over-commit flags parse and pass the reference's checks; their
-    misuse, ``--async`` with them and ``--tp`` with them (not yet served
-    together) stop the launcher, as does ``--tp`` without ``--reduced``
-    (the reference's check); ``--tp 2 --reduced`` alone passes."""
+    """The over-commit flags parse and pass the reference's checks, with
+    ``--tp 2 --reduced`` too (``tests/test_torch_tp_flags.py`` serves
+    them); their misuse and ``--async`` with them stop the launcher, as
+    does ``--tp`` without ``--reduced`` (the reference's check); ``--tp 2
+    --reduced`` alone passes."""
     from repro_torch.launch.serve import _check_args, build_parser
     ap = build_parser()
     base = ["--arch", "gemma2-2b", "--reduced", "--scheduler", "continuous",
@@ -884,9 +885,9 @@ def test_launcher_accepts_the_over_commit_flags_and_checks_them():
                                           "--priority", "2",
                                           "--decode-ratio", "3"]))
     _check_args(ap, ap.parse_args(base + ["--tp", "2"]))
+    _check_args(ap, ap.parse_args(base + ["--over-commit", "--tp", "2"]))
     for bad in (["--swap-blocks"], ["--decode-ratio", "2"],
                 ["--decode-ratio", "0", "--over-commit"],
-                ["--over-commit", "--tp", "2"],
                 ["--over-commit", "--async"]):
         with pytest.raises(SystemExit):
             _check_args(ap, ap.parse_args(base + bad))

@@ -849,16 +849,17 @@ def test_launcher_checks_the_telemetry_flags():
         "--metrics-every", "2", "--quant-telemetry", "--stats-json",
         "s.json"]))
     _check_args(ap, ap.parse_args(base + ["--stats-json", "s.json"]))
-    # --tp 2 with --reduced passes the reference launcher's checks; the
-    # telemetry flags are not yet served with it
+    # --tp 2 with --reduced passes the reference launcher's checks, the
+    # telemetry flags with it (tests/test_torch_tp_flags.py serves them)
     _check_args(ap, ap.parse_args(base + ["--scheduler", "continuous",
                                           "--tp", "2"]))
+    _check_args(ap, ap.parse_args(base + ["--scheduler", "continuous",
+                                          "--trace", "t.json", "--tp",
+                                          "2"]))
     for bad in (["--trace", "t.json"], ["--metrics-every", "2"],
                 ["--scheduler", "continuous", "--metrics-every", "-1"],
                 ["--scheduler", "continuous", "--async", "--trace",
-                 "t.json"],
-                ["--scheduler", "continuous", "--trace", "t.json", "--tp",
-                 "2"]):
+                 "t.json"]):
         with pytest.raises(SystemExit):
             _check_args(ap, ap.parse_args(base + bad))
     with pytest.raises(SystemExit):

@@ -21,6 +21,10 @@ reference, on the CPU (gloo ranks: one spawn a world size of 2, 4 and 8).
   which float noise in a near-zero gradient swings by far more than lr
   (the reference's algorithm; ``tests/test_torch_train.py`` holds it the
   same way). Every rank returns the same logical arrays.
+* QAT (``ctx_factory``: W8A8 fake-quant, every weight's grid refitted
+  each step by min-max or MSE): one spawn's (2, 2) mesh, 2 f32 steps, each
+  within the float steps' bounds of the unsharded QAT step, the loss and
+  gradient norm within 1e-6 relative, every weight grid equal.
 * The reference's multi-device case: reduced qwen3-moe-235b on (2, 2, 2)
   ("pod", "data", "model"), 3 steps of 2 microbatches, a falling loss.
 * The MoE block under (2, 2) and (2, 2, 2) against the reference's
@@ -96,6 +100,11 @@ def _step_cases(shapes):
 
 
 STEP_CASES = {**_step_cases(MESHES2), **_step_cases([(2, 2)])}
+# QAT in the train graph on (2, 2): W8A8 fake-quant, every weight's grid
+# refitted each step by min-max or MSE, the activations' grids calibrated
+QAT_CASES = {f"2x2-qat-{est}": ((2, 2), "gemma2-2b", "base", "adam", 1,
+                                _batches("base", 8), est)
+             for est in ("minmax", "mse")}
 
 MOE_D = get_config("qwen3-moe-235b").reduced().d_model
 
@@ -230,7 +239,7 @@ def runs():
     with tempfile.TemporaryDirectory() as tmp:
         wait = _start_reference(tmp)
         w4 = _spawn(4, (2, 2), ("data", "model"), [
-            ("step_scenarios", (on((2, 2)),)),
+            ("step_scenarios", ({**on((2, 2)), **QAT_CASES},)),
             ("moe_block_scenarios", (moe_on(2),)),
             ("checkpoint_scenarios", (tmp,))])
         got8 = []
@@ -258,7 +267,7 @@ def runs():
     assert not t8.is_alive() and got8, "the 8 ranks did not report"
     per_rank = {name: [r[0][name] for r in (w4 if case[0] == (2, 2)
                                             else w2)]
-                for name, case in STEP_CASES.items()}
+                for name, case in {**STEP_CASES, **QAT_CASES}.items()}
     return dict(w4=w4, w2=w2, w8=got8[0], ref=ref, ckpt=ckpt,
                 steps={k: v[0] for k, v in per_rank.items()},
                 per_rank=per_rank)
@@ -296,7 +305,29 @@ def test_sharded_step_matches_the_unsharded_step(runs, name):
         state = rec["params"] + rec["opt"]
 
 
-@pytest.mark.parametrize("name", list(STEP_CASES))
+@pytest.mark.parametrize("name", list(QAT_CASES))
+def test_sharded_qat_step_matches_the_unsharded_qat_step(runs, name):
+    """QAT under a mesh (``make_train_step(dist=, ctx_factory=)``): each
+    f32 step against the unsharded QAT step from the same state, within
+    the bounds of the float steps, the loss and gradient norm within 1e-6
+    relative; every weight grid the step fitted (the remat's refits
+    included, in call order) equals the unsharded step's."""
+    shape, arch, variant, opt, mb, batches, est = QAT_CASES[name]
+    cfg = ranks.case_config(arch, variant)
+    state = None
+    for i, (rec, toks) in enumerate(zip(runs["steps"][name], batches)):
+        want = ranks.unsharded_step(cfg, state, toks, qat=est)
+        ranks.assert_step_close(rec, want, opt, i, TOL)
+        for k in ("loss", "grad_norm"):
+            assert abs(rec[k] - want[k]) <= 1e-6 * abs(want[k]), (i, k)
+        # the forward's 7 weights a layer and the head, and the layers
+        # again where the backward recomputes them (remat)
+        assert len(want["grids"]) == 2 * 7 * cfg.num_layers + 1
+        assert rec["grids"] == want["grids"], i
+        state = rec["params"] + rec["opt"]
+
+
+@pytest.mark.parametrize("name", list(STEP_CASES) + list(QAT_CASES))
 def test_every_rank_holds_the_same_logical_state(runs, name):
     """The gathered gradients, params and moments of every rank of the
     case's mesh are the same bits."""
@@ -584,7 +615,8 @@ def test_check_tp_in_training_and_serving():
     """A data axis trains (``training=True``) and stays refused in serving
     under its own message; training refuses KV heads the model axis does
     not divide and MoE routed over the whole batch; ``make_train_step``
-    refuses QAT under a mesh."""
+    builds QAT under a mesh (``ctx_factory``), its grids refitted on the
+    weights that ``weight_cut_dims`` lists cut over ``model``."""
     cfg = get_config("gemma2-2b").reduced()
     d22 = sh.make_dist(AbstractMesh((2, 2), ("data", "model")))
     tfm.check_tp(cfg, d22, training=True)
@@ -605,9 +637,14 @@ def test_check_tp_in_training_and_serving():
                      training=True)
     tfm.check_tp(qwen, d22, training=True)
     from repro_torch.runtime import make_train_step
-    with pytest.raises(NotImplementedError, match="QAT"):
-        make_train_step(cfg, lr_schedule=1e-3, dist=d22,
-                        ctx_factory=lambda: None)
+    step = make_train_step(cfg, lr_schedule=1e-3, dist=d22,
+                           ctx_factory=lambda: None)
+    assert callable(step) and callable(step.loss_and_grads)
+    # the weights QAT refits on the whole: the model axis's dim of each
+    assert sh.weight_cut_dims(cfg, d22) == {
+        "layer/attn/wq": 1, "layer/attn/wk": 1, "layer/attn/wv": 1,
+        "layer/attn/wo": 0, "layer/ffn/w_gate": 1, "layer/ffn/w_up": 1,
+        "layer/ffn/w_out": 0, "head/w": 1}
 
 
 def test_qadam_shardings_pad_a_trimmed_spec():

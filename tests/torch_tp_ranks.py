@@ -3,6 +3,7 @@ layout) and ``tests/test_torch_kvseq.py`` (the sequence layout, the
 default): functions that ``repro_torch.launch.mesh.run_ranks`` spawns on a
 CPU gloo group. No JAX here (every rank would import it): the tests hand
 the reference's params and calibration across as numpy trees."""
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -75,7 +76,9 @@ def engine_scenarios(dist, dev, jparams, jshared):
     kv8), each beside the same engine unsharded on this rank; the first
     decode step's logits sharded and unsharded; the host arrays the
     engine put; this rank's bytes of every leaf placed on ``model`` (by
-    path) and the whole bytes of each."""
+    path) and the whole bytes of each; APPLY and deploy (paged kv8)
+    engines with quant telemetry armed, their tokens and quant-health
+    reports, sharded and unsharded."""
     return _scenarios(dataclasses.replace(dist, kv_seq_shard=False), dev,
                       jparams, jshared)
 
@@ -140,6 +143,20 @@ def _scenarios(dist, dev, jparams, jshared, seq=False):
                                       **kw)
         out["deploy_paged_un"] = _tokens(cfg, packed, None, dev, deploy_ctx,
                                          **kw)
+    # quant telemetry through the engine: the armed steps' site vectors
+    # folded over the ranks into a QuantHealth, against the unsharded
+    # engine's
+    from repro_torch.runtime.telemetry import QuantHealth
+    for tag, p, ctx, kw in (
+            ("armed_apply", params, apply_ctx, {}),
+            ("armed_deploy_paged_kv8", packed, deploy_ctx,
+             {"kv_bits": 8, "paged": True, "block_size": 4})):
+        health = {}
+        for key, d in ((tag, dist), (tag + "_un", None)):
+            health[key] = QuantHealth()
+            out[key] = _tokens(cfg, p, d, dev, ctx, quant_telemetry=True,
+                               telemetry_sink=health[key].update, **kw)
+            out[key + "_report"] = health[key].report()
     placed = params_from_jax(jparams, dev, dist=dist)
     with torch.no_grad():
         out["logits"] = _first_decode_logits(cfg, placed, dist, dev)
@@ -260,3 +277,253 @@ def cpu_drawn_serve(dist, dev, argv):
     with cpu_drawn_params():
         _, _, info = serve._serve_rank(dist, dev, argv, None)
     return info["tokens"], info["launches"]
+
+
+# ---------------------------------------------------------------------------
+# The serving flags under --tp (tests/test_torch_tp_flags.py)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def flag_counters():
+    """chip_smoke's counters while the block runs: ``BlockPool.cow``
+    calls, the copies they ask for and ``cache_copy_block`` calls
+    (``cow``), the swap payloads' bytes and host times (``swaps``) and the
+    files opened for writing (``files``)."""
+    from chip_smoke import _cow_counts, _files_written, _swap_times
+    with _cow_counts() as cow, _swap_times() as swaps, \
+            _files_written() as files:
+        yield {"cow": cow, "swaps": swaps, "files": files}
+
+
+def serve_runs(dist, dev, runs):
+    """Each ``{name: argv}`` of ``runs`` through the launcher's serve body
+    on this rank (``serve._serve_rank``) under :func:`flag_counters`:
+    {name: (rank 0's output, the rank's report, the counters)}."""
+    from repro_torch.launch import serve
+    got = {}
+    for name, argv in runs.items():
+        with flag_counters() as counts:
+            text, _, info = serve._serve_rank(dist, dev, argv, None)
+        got[name] = (text, info, counts)
+    return got
+
+
+def flag_scenarios(dist, dev, runs):
+    """``runs`` through :func:`serve_runs`, then the units of the flags'
+    device halves on this rank: the armed steps' raw site vectors
+    (:func:`site_rule_scenarios`), KV scale stats over placed caches
+    (:func:`kv_scale_scenarios`), the block copy / gather / scatter and
+    the whole-cells read on placed arenas (:func:`block_op_scenarios`) and
+    the weight grids of a rank's slice (:func:`weight_grid_scenarios`),
+    each in both cache layouts where the layout matters."""
+    layouts = {"seq": dist,
+               "kvhead": dataclasses.replace(dist, kv_seq_shard=False)}
+    return {"runs": serve_runs(dist, dev, runs),
+            "sites": {(lay, mode): site_rule_scenarios(d, dev, mode)
+                      for lay, d in layouts.items()
+                      for mode in ("apply", "deploy")},
+            "kv_scales": {lay: kv_scale_scenarios(d, dev)
+                          for lay, d in layouts.items()},
+            "blocks": {lay: block_op_scenarios(d, dev)
+                       for lay, d in layouts.items()},
+            "grids": weight_grid_scenarios(dist, dev)}
+
+
+def _host_tel(tel):
+    return ({k: v.detach().cpu().numpy().copy() for k, v in tel.items()},
+            set(getattr(tel, "parts", ())))
+
+
+def site_rule_scenarios(dist, dev, mode):
+    """Reduced gemma2-2b calibrated as the launcher calibrates it (APPLY
+    fake-quant, or ``mode="deploy"``: the integer path with an int8 KV
+    cache), one admit (2 lanes of 8 tokens), one chunk (4 tokens appended)
+    and one decode step through the armed steps on a paged cache, unsharded
+    and on this rank's slices (``dist``'s layout): per step, the unsharded
+    site vectors and the rank's raw ones (not folded) with the sites it
+    marks as its part of a cut tensor."""
+    import io as io_
+    from contextlib import redirect_stdout
+    from repro_torch.launch import serve
+    from repro_torch.parallel.sharding import (make_param_shardings,
+                                               shard_ctx_factory)
+    from repro_torch.runtime.steps import make_chunk_prefill_step
+    cfg = get_config("gemma2-2b").reduced()
+    argv = ["--arch", "gemma2-2b", "--reduced", "--quantize",
+            "--prompt-len", "8"]
+    kv_bits = 16
+    if mode == "deploy":
+        argv += ["--deploy-int8", "--kv-bits", "8"]
+        kv_bits = 8
+    args = serve.build_parser().parse_args(argv)
+    params = tfm.init_params(cfg, 0, dtype=torch.float32, device=dev)
+    with redirect_stdout(io_.StringIO()):
+        params, ctx = serve._quantize(cfg, args, params, torch.float32, dev)
+    placed = make_param_shardings(params, dist)
+    rank_ctx = shard_ctx_factory(cfg, params, placed, ctx, dist)
+    rng = np.random.RandomState(4)
+    toks = torch.as_tensor(rng.randint(1, cfg.vocab_size, (2, 8)))
+    pos = torch.arange(8, dtype=torch.int32).expand(2, 8).contiguous()
+    ctoks = torch.as_tensor(rng.randint(1, cfg.vocab_size, (2, 4)))
+    cpos = (8 + torch.arange(4, dtype=torch.int32)).expand(2, 4).contiguous()
+    out = {}
+    for tag, p, c, d in (("un", params, ctx, None),
+                         ("rank", placed, rank_ctx, dist)):
+        kw = dict(ctx_factory=c, dist=d, quant_telemetry=True)
+        admit, decode = make_admit_step(cfg, **kw), make_decode_step(cfg, **kw)
+        chunk = make_chunk_prefill_step(cfg, **kw)
+        cache = tfm.init_cache(cfg, 2, MAX_LEN, dtype=torch.float32,
+                               kv_bits=kv_bits, paged=True, block_size=4,
+                               device=dev)
+        cache = place_cache(cache, d)
+        steps = []
+        with torch.no_grad():
+            logits, cache, tel = admit(p, toks, pos,
+                                       torch.ones(2, dtype=torch.bool), cache)
+            steps.append(_host_tel(tel))
+            _, cache, tel = chunk(p, ctoks, cpos,
+                                  torch.zeros(2, dtype=torch.bool), cache)
+            steps.append(_host_tel(tel))
+            nxt = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            _, cache, tel = decode(p, nxt, torch.full((2, 1), 12,
+                                                      dtype=torch.int32),
+                                   cache)
+            steps.append(_host_tel(tel))
+        out[tag] = steps
+    return out
+
+
+def _scale_stats(cache, dist):
+    from repro_torch.runtime.telemetry import QuantHealth
+    qh = QuantHealth()
+    qh.update_kv_scales(cache, dist)
+    return qh.kv_scale_stats
+
+
+def kv_scale_scenarios(dist, dev):
+    """The KV cache's scale stats (``QuantHealth.update_kv_scales``) of
+    int8 and int4 caches, dense and paged, written by an admit of reduced
+    gemma2-2b (no ctx: every token's grid is its own, so the scales
+    differ), of the whole cache and of this rank's placed slice under
+    ``dist``: {(kv bits, paged): (whole's, the rank's)}."""
+    cfg = get_config("gemma2-2b").reduced()
+    params = tfm.init_params(cfg, 0, dtype=torch.float32, device=dev)
+    admit = make_admit_step(cfg)
+    rng = np.random.RandomState(6)
+    toks = torch.as_tensor(rng.randint(1, cfg.vocab_size, (2, 12)))
+    pos = torch.arange(12, dtype=torch.int32).expand(2, 12).contiguous()
+    got = {}
+    for kv_bits in (8, 4):
+        for paged in (False, True):
+            cache = tfm.init_cache(cfg, 2, MAX_LEN, dtype=torch.float32,
+                                   kv_bits=kv_bits, paged=paged,
+                                   block_size=4, device=dev)
+            with torch.no_grad():
+                _, cache = admit(params, toks, pos,
+                                 torch.ones(2, dtype=torch.bool), cache)
+            got[kv_bits, paged] = (_scale_stats(cache, None),
+                                   _scale_stats(place_cache(cache, dist),
+                                                dist))
+    return got
+
+
+def _random_paged(cfg, kv_bits, dev, seed):
+    """A paged cache of reduced gemma2-2b (8 blocks of 4 cells) with every
+    field filled from ``seed`` in its own dtype."""
+    cache = tfm.init_cache(cfg, 2, 16, dtype=torch.float32, kv_bits=kv_bits,
+                           paged=True, block_size=4, num_blocks=8,
+                           device=dev)
+    gen = torch.Generator().manual_seed(seed)
+
+    def fill(x):
+        if x.dtype.is_floating_point:
+            x.copy_(torch.randn(x.shape, generator=gen))
+        else:
+            info = torch.iinfo(x.dtype)
+            x.copy_(torch.randint(max(info.min, -128), min(info.max, 127) + 1,
+                                  x.shape, generator=gen, dtype=torch.int64))
+        return x
+    for key in ("scan", "tail"):
+        for node in cache.get(key, []):
+            for x in node:
+                fill(x)
+    return cache
+
+
+def block_op_scenarios(dist, dev):
+    """The device halves of copy-on-write and of a swap on this rank's
+    placed arenas (kv16 / kv8 / kv4 paged caches of random bytes, every
+    field), against the same op on the whole cache, placed afterwards:
+    ``cache_copy_block`` (block 2 into 5), ``cache_gather_blocks`` (blocks
+    [6, 1, 3]) with the payload's bytes, ``cache_scatter_blocks`` of that
+    payload into blocks [0, 4, 7]; and the whole-cells read of the copy
+    (``attention._whole_cells``, the chunk step's read of a prefix-hit
+    block in the sequence layout). {kv bits: results as numpy}."""
+    from repro_torch.models.attention import _whole_cells
+    cfg = get_config("gemma2-2b").reduced()
+
+    def leaves(tree):
+        return {p: x.cpu().numpy().copy()
+                for p, x in tree_leaves_with_path(tree)}
+    got = {}
+    for kv_bits in (16, 8, 4):
+        whole = _random_paged(cfg, kv_bits, dev, seed=kv_bits)
+        placed = place_cache(tfm.clone_cache(whole), dist)
+        r = {}
+        tfm.cache_copy_block(whole, 2, 5)
+        tfm.cache_copy_block(placed, torch.tensor(2), torch.tensor(5))
+        r["copy"] = (leaves(placed), leaves(place_cache(whole, dist)))
+        if dist.kv_seq_shard:       # layer 0's arena, as a layer reads it
+            r["whole_cells"] = (
+                leaves(_whole_cells(tfm._layer(placed["scan"][0], 0), dist)),
+                leaves(tfm._layer(whole["scan"][0], 0)))
+        ids = torch.tensor([6, 1, 3])
+        pay = tfm.cache_gather_blocks(placed, ids)
+        pay_whole = tfm.cache_gather_blocks(whole, ids)
+        r["gather"] = (leaves(pay), leaves(place_cache(pay_whole, dist)),
+                       leaves(pay_whole))
+        new = torch.tensor([0, 4, 7])
+        tfm.cache_scatter_blocks(placed, new, pay)
+        tfm.cache_scatter_blocks(whole, new, pay_whole)
+        r["scatter"] = (leaves(placed), leaves(place_cache(whole, dist)))
+        got[kv_bits] = r
+    return got
+
+
+def weight_grid_scenarios(dist, dev):
+    """``range_estimation.estimate_weight_params(split=)`` on this rank's
+    slice of a (12, 10) weight, and the gradient of sum(fake_quant(w) * r)
+    through it, for min-max and MSE, per-tensor and per-channel (axis -1),
+    the weight cut on dim 0 and on dim 1. {case: (scale, zero-point,
+    gradient of the rank's slice)} as numpy."""
+    from repro_torch.core.quant_config import (Granularity,
+                                               QuantizerConfig,
+                                               RangeEstimator)
+    from repro_torch.core.quantizer import fake_quant
+    from repro_torch.core.range_estimation import estimate_weight_params
+    gen = torch.Generator().manual_seed(11)
+    w_all = torch.randn(12, 10, generator=gen)
+    r_all = torch.randn(12, 10, generator=gen)
+    n, i = coll.tp_size(dist), coll.tp_index(dist)
+    got = {}
+    for est in ("minmax", "mse"):
+        for gran in ("tensor", "channel"):
+            for dim in (0, 1):
+                qcfg = QuantizerConfig(
+                    bits=8, symmetric=True,
+                    granularity=(Granularity.PER_TENSOR if gran == "tensor"
+                                 else Granularity.PER_CHANNEL),
+                    estimator=(RangeEstimator.CURRENT_MINMAX
+                               if est == "minmax" else RangeEstimator.MSE))
+                size = w_all.shape[dim] // n
+                w = w_all.narrow(dim, i * size, size).clone() \
+                    .requires_grad_(True)
+                rr = r_all.narrow(dim, i * size, size)
+                with torch.enable_grad():
+                    qp = estimate_weight_params(w, qcfg, split=(dist, dim))
+                    loss = torch.sum(fake_quant(w, qp, qcfg) * rr)
+                    g, = torch.autograd.grad(loss, [w])
+                got[est, gran, dim] = tuple(
+                    t.detach().cpu().numpy().copy()
+                    for t in (qp.scale, qp.zero_point, g))
+    return got

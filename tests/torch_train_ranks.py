@@ -48,12 +48,48 @@ def _np(tree):
     return [t.detach().cpu().numpy().copy() for t in tree_leaves(tree)]
 
 
+def qat_ctx_factory(cfg, estimator, dev="cpu", grids=None):
+    """QAT in the train graph (W8A8 fake-quant): every weight's symmetric
+    8-bit per-tensor grid estimated each step by ``estimator`` ("minmax"
+    or "mse"), the activation sites' grids calibrated once on the whole
+    params of ``SEED`` (two batches of B 2 x T 16, the same on every rank
+    and in the unsharded run). ``grids``, a list, receives (site, scale)
+    of every weight grid fitted, in call order."""
+    from repro_torch.core import Mode, QuantCtx, ptq
+    from repro_torch.core import calibration as cal
+    from repro_torch.core.quant_config import (QuantizationPolicy,
+                                               QuantizerConfig,
+                                               RangeEstimator)
+    est = {"minmax": RangeEstimator.CURRENT_MINMAX,
+           "mse": RangeEstimator.MSE}[estimator]
+    pol = QuantizationPolicy(weight_default=QuantizerConfig(
+        bits=8, symmetric=True, estimator=est))
+    params = tfm.init_params(cfg, SEED, dtype=torch.float32, device=dev)
+    rng = np.random.RandomState(3)
+    calib = [{"tokens": torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (2, 16))).to(dev)} for _ in range(2)]
+    act_state = ptq(lambda p, b, ctx: tfm.forward(cfg, p, b["tokens"],
+                                                  ctx=ctx)[0],
+                    params, calib, pol).act_state
+
+    class Recorded(cal.QuantCtx):
+        def fit_weight(self, site, w, qcfg):
+            qp = super().fit_weight(site, w, qcfg)
+            grids.append((site, float(qp.scale.detach())))
+            return qp
+    make = QuantCtx if grids is None else Recorded
+    return lambda: make(policy=pol, mode=Mode.APPLY, act_state=act_state)
+
+
 def run_steps(cfg, batches, dist=None, *, optimizer="adam",
-              microbatches=1, dev="cpu"):
+              microbatches=1, dev="cpu", qat=None):
     """``len(batches)`` steps of ``make_train_step`` (``dist``: on this
     rank's slices of the same params, drawn from ``SEED``) in f32; per
     step the loss and gradient norm, the gradients before the update and
-    the params and optimizer state after it, as logical numpy leaves."""
+    the params and optimizer state after it, as logical numpy leaves.
+    ``qat`` (a weight estimator of :func:`qat_ctx_factory`) trains with
+    W8A8 fake-quant in the graph; each step's record then also holds the
+    weight grids its ``loss_and_grads`` fitted (``grids``)."""
     params = tfm.init_params(cfg, SEED, dtype=torch.float32, device=dev)
     init = qadam_init if optimizer == "adam8bit" else adam_init
     p_sh = o_sh = None
@@ -66,44 +102,51 @@ def run_steps(cfg, batches, dist=None, *, optimizer="adam",
                if optimizer == "adam8bit" else adam_init(params))
         o_sh = make_opt_shardings(opt, p_sh, dist)
     whole = (lambda t, s: t) if dist is None else gather_logical
+    grids = []
+    ctx = None if qat is None else qat_ctx_factory(cfg, qat, dev, grids)
     step = make_train_step(cfg, lr_schedule=linear_warmup_linear_decay(
-        LR, 10), microbatches=microbatches, dist=dist, optimizer=optimizer)
+        LR, 10), microbatches=microbatches, dist=dist, optimizer=optimizer,
+        ctx_factory=ctx)
     out = []
     for toks in batches:
         batch = {"tokens": toks, "labels": toks}
         if dist is not None:
             batch = shard_batch(batch, dist, microbatches)
         batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        grids.clear()
         _, grads = step.loss_and_grads(params, batch)
+        fitted = list(grids)
         grads = _np(whole(grads, p_sh))
         params, opt, m = step(params, opt, batch)
         out.append({"loss": float(m["loss"]),
                     "grad_norm": float(m["grad_norm"]),
                     "lr": float(m["lr"]), "grads": grads,
                     "params": _np(whole(params, p_sh)),
-                    "opt": _np(whole(opt, o_sh))})
+                    "opt": _np(whole(opt, o_sh)), "grids": fitted})
     return out
 
 
 def step_scenarios(dist, dev, cases):
     """Every case of ``cases`` ({name: (mesh shape, arch, variant,
-    optimizer, microbatches, batches)}) on this rank, the meshes made
-    from the spawn's in one order on every rank."""
+    optimizer, microbatches, batches[, qat estimator])}) on this rank, the
+    meshes made from the spawn's in one order on every rank."""
     meshes = {tuple(dist.mesh.shape.values()): dist}
     got = {}
-    for name, (shape, arch, variant, opt, mb, batches) in cases.items():
+    for name, (shape, arch, variant, opt, mb, batches, *qat) in \
+            cases.items():
         if shape not in meshes:
             axes = ("data", "model") if len(shape) == 2 else \
                 ("pod", "data", "model")
             meshes[shape] = make_dist(remesh(dist.mesh, shape, axes))
         got[name] = run_steps(case_config(arch, variant), batches,
                               meshes[shape], optimizer=opt,
-                              microbatches=mb, dev=dev)
+                              microbatches=mb, dev=dev,
+                              qat=qat[0] if qat else None)
     return got
 
 
 def unsharded_step(cfg, state, toks, *, optimizer="adam", microbatches=1,
-                   dev="cpu"):
+                   dev="cpu", qat=None):
     """One unsharded ``make_train_step`` step from ``state`` (the logical
     (params, optimizer state) leaves a sharded run recorded, or None for
     the seed's initial state) on the batch ``toks``: the record of
@@ -116,16 +159,20 @@ def unsharded_step(cfg, state, toks, *, optimizer="adam", microbatches=1,
         leaves = [torch.from_numpy(a.copy()).to(dev) for a in state]
         params = tree_unflatten(params, leaves[:n])
         opt = tree_unflatten(opt, leaves[n:])
+    grids = []
+    ctx = None if qat is None else qat_ctx_factory(cfg, qat, dev, grids)
     step = make_train_step(cfg, lr_schedule=linear_warmup_linear_decay(
-        LR, 10), microbatches=microbatches, optimizer=optimizer)
+        LR, 10), microbatches=microbatches, optimizer=optimizer,
+        ctx_factory=ctx)
     t = torch.from_numpy(toks).to(dev)
     batch = {"tokens": t, "labels": t}
     _, grads = step.loss_and_grads(params, batch)
+    fitted = list(grids)
     grads = _np(grads)
     params, opt, m = step(params, opt, batch)
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
             "lr": float(m["lr"]), "grads": grads, "params": _np(params),
-            "opt": _np(opt)}
+            "opt": _np(opt), "grids": fitted}
 
 
 def e2e_scenario(dist, dev, arch, toks, steps, microbatches):
